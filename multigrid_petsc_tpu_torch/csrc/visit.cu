@@ -1,0 +1,410 @@
+// Fused fine-level visit kernels of the mg-CG preconditioner, for Hopper
+// (sm_90a), bound to Python through a plain C interface (ctypes).
+//
+// Replaces (multigrid_petsc_tpu/ops/pallas/mdma_kernel.py):
+//   K1  cg_papply_u   <- cg_papply_u_mdma   (_papply_kernel)
+//   K2  visit_down    <- cg_visit_down_mdma (_cg_down_kernel), cg = 1
+//                        visit_down_mdma    (_down_kernel),    cg = 0
+//   K3  visit_up      <- visit_up_mdma      (_up_kernel), emit_dot flag
+//
+// What bounds them on the H100: bytes.  Every kernel does O(k) flops per
+// point against 8-24 bytes of device-memory traffic per point, far below
+// the card's flop:byte balance, so the design goal is to touch each big
+// array once per visit:
+//   * each block owns a TY x TX output tile and stages a tile + halo of H
+//     rows/cols in shared memory; all k smoother steps, the residual and
+//     the restriction (or the prolongation + correction) run there, so
+//     the k sweeps cost one read of b (and u) and one write of the result
+//     instead of ~3 passes per sweep;
+//   * the halo is H = k + 2: pollution from the unknown tile edge travels
+//     one point per stencil application, the residual needs one more and
+//     the full-weighting restriction one more fine row/column past the
+//     tile (coarse I needs fine 2I..2I+2);
+//   * halo rows and columns are re-read by neighbouring blocks; they come
+//     from L2 for the most part.  cp.async/TMA pipelining is later work.
+//
+// Streams read with a halo (z, p, r, ap, b, u) are never written in place:
+// blocks run concurrently, so a neighbour could read an updated halo.  The
+// only in-place stream is K1's pointwise u -> u' (un may alias u).
+//
+// Dirichlet masking: points outside [0, ny) x [0, nx) hold zero in b and u
+// and are re-zeroed after every step, as in the TPU kernels.
+//
+// Scalars (alpha, alpha_prev, beta) are read from device memory by pointer,
+// so the CG loop needs no host round trip for them.  Dot products are
+// emitted as per-block f32 partials; the caller sums them.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TY = 32;        // output tile rows (even: restriction pairs)
+constexpr int TX = 64;        // output tile columns (even)
+constexpr int NTHREADS = 256;
+constexpr int MAX_STEPS = 6;  // H = k + 2 <= 8 keeps shared memory < 48 KB
+
+struct Steps {
+  int k;
+  float alpha[MAX_STEPS];
+  float beta[MAX_STEPS];
+};
+
+struct Coeffs {
+  const float* cs;
+  const float* cw;
+  const float* cc;
+  const float* ce;
+  const float* cn;
+};
+
+// Shared-memory row coefficients of a tile: cs, cw, cc, ce, cn, dinv.
+struct RowCoeffs {
+  float* cs;
+  float* cw;
+  float* cc;
+  float* ce;
+  float* cn;
+  float* dinv;
+};
+
+__device__ __forceinline__ RowCoeffs load_row_coeffs(const Coeffs& c,
+                                                     float* base, int rows,
+                                                     int gy0, int ny) {
+  RowCoeffs rc{base, base + rows, base + 2 * rows, base + 3 * rows,
+               base + 4 * rows, base + 5 * rows};
+  for (int i = threadIdx.x; i < rows; i += NTHREADS) {
+    int gy = gy0 + i;
+    bool in = gy >= 0 && gy < ny;
+    rc.cs[i] = in ? c.cs[gy] : 0.f;
+    rc.cw[i] = in ? c.cw[gy] : 0.f;
+    rc.cc[i] = in ? c.cc[gy] : 0.f;
+    rc.ce[i] = in ? c.ce[gy] : 0.f;
+    rc.cn[i] = in ? c.cn[gy] : 0.f;
+    rc.dinv[i] = in ? 1.f / c.cc[gy] : 0.f;
+  }
+  return rc;
+}
+
+// (A v) at shared point (sy, sx) of an SH x SW tile; neighbours outside
+// the tile count as zero (their pollution stays inside the halo).  Term
+// order follows the JAX package: cc, south, north, west, east.
+__device__ __forceinline__ float apply_at(const float* v, const RowCoeffs& rc,
+                                          int sy, int sx, int SH, int SW) {
+  int i = sy * SW + sx;
+  float s = sy > 0 ? v[i - SW] : 0.f;
+  float n = sy < SH - 1 ? v[i + SW] : 0.f;
+  float w = sx > 0 ? v[i - 1] : 0.f;
+  float e = sx < SW - 1 ? v[i + 1] : 0.f;
+  return rc.cc[sy] * v[i] + rc.cs[sy] * s + rc.cn[sy] * n + rc.cw[sy] * w +
+         rc.ce[sy] * e;
+}
+
+// k polynomial smoother steps on the shared tile, Dirichlet-masked.
+// zero_guess: u = p = 0 on entry and the first step is z = dinv * b.
+__device__ void smooth_tile(const float* b, float* u, float* p,
+                            const RowCoeffs& rc, const Steps& st, bool zero_guess,
+                            int SH, int SW, int gy0, int gx0, int ny, int nx) {
+  const int n = SH * SW;
+  for (int s = 0; s < st.k; ++s) {
+    const float a = st.alpha[s];
+    const float bt = st.beta[s];
+    const bool first = zero_guess && s == 0;
+    for (int i = threadIdx.x; i < n; i += NTHREADS) {
+      int sy = i / SW, sx = i - (i / SW) * SW;
+      int gy = gy0 + sy, gx = gx0 + sx;
+      if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) {
+        p[i] = 0.f;
+        continue;
+      }
+      float z = first ? rc.dinv[sy] * b[i]
+                      : rc.dinv[sy] * (b[i] - apply_at(u, rc, sy, sx, SH, SW));
+      p[i] = (s == 0 ? 0.f : bt * p[i]) + a * z;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += NTHREADS) u[i] += p[i];  // p = 0 outside
+    __syncthreads();
+  }
+}
+
+__device__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    v = lane < NTHREADS / 32 ? red[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;  // valid in thread 0
+}
+
+// Bilinear prolongation of the coarse field e (nyc x nxc, zero ring) at
+// fine point (gy, gx); same arithmetic as ops/transfer.prolong_bilinear.
+__device__ __forceinline__ float prolong_at(const float* e, int gy, int gx,
+                                            int nyc, int nxc) {
+  auto at = [&](int I, int J) -> float {
+    return (I >= 0 && I < nyc && J >= 0 && J < nxc)
+               ? e[(size_t)I * nxc + J] : 0.f;
+  };
+  const int I = gy >> 1, J = gx >> 1;
+  const bool oy = gy & 1, ox = gx & 1;
+  if (oy && ox) return at(I, J);
+  if (oy) return (at(I, J - 1) + at(I, J)) * 0.5f;
+  if (ox) return (at(I - 1, J) + at(I, J)) * 0.5f;
+  return (at(I - 1, J - 1) + at(I - 1, J) + at(I, J - 1) + at(I, J)) * 0.25f;
+}
+
+size_t visit_smem_bytes(int H) {
+  const int SH = TY + 2 * H, SW = TX + 2 * H;
+  return sizeof(float) * (3 * (size_t)SH * SW + 6 * (size_t)SH + NTHREADS / 32);
+}
+
+// K2: zero-guess down visit.  CG: b = r - alpha * ap, emit r' and the
+// ||r'||^2 partials.  Emits u0 on the tile and the fully restricted
+// residual rc at the coarse points whose 3x3 footprint the tile owns.
+template <bool CG>
+__global__ void __launch_bounds__(NTHREADS)
+visit_down_kernel(Coeffs c, const float* __restrict__ r,
+                  const float* __restrict__ ap,
+                  const float* __restrict__ alpha_ptr,
+                  float* __restrict__ u_out, float* __restrict__ rc_out,
+                  float* __restrict__ rnew_out, float* __restrict__ part,
+                  int ny, int nx, int H, Steps st) {
+  extern __shared__ float sm[];
+  const int SH = TY + 2 * H, SW = TX + 2 * H, n = SH * SW;
+  float* b = sm;
+  float* u = b + n;
+  float* p = u + n;
+  float* red = p + n + 6 * SH;
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
+  const int gy0 = y0 - H, gx0 = x0 - H;
+  RowCoeffs rc = load_row_coeffs(c, p + n, SH, gy0, ny);
+  const float alpha = CG ? *alpha_ptr : 0.f;
+  for (int i = threadIdx.x; i < n; i += NTHREADS) {
+    int sy = i / SW, sx = i - (i / SW) * SW;
+    int gy = gy0 + sy, gx = gx0 + sx;
+    float v = 0.f;
+    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+      size_t g = (size_t)gy * nx + gx;
+      v = CG ? r[g] - alpha * ap[g] : r[g];
+    }
+    b[i] = v;
+    u[i] = 0.f;
+    p[i] = 0.f;
+  }
+  __syncthreads();
+  smooth_tile(b, u, p, rc, st, true, SH, SW, gy0, gx0, ny, nx);
+
+  float acc = 0.f;
+  for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
+    int ty = t / TX, tx = t - (t / TX) * TX;
+    int gy = y0 + ty, gx = x0 + tx;
+    if (gy >= ny || gx >= nx) continue;
+    int i = (ty + H) * SW + tx + H;
+    size_t g = (size_t)gy * nx + gx;
+    u_out[g] = u[i];
+    if (CG) {
+      rnew_out[g] = b[i];
+      acc += b[i] * b[i];
+    }
+  }
+  // Residual into p (p is dead after the smoother).
+  for (int i = threadIdx.x; i < n; i += NTHREADS) {
+    int sy = i / SW, sx = i - (i / SW) * SW;
+    int gy = gy0 + sy, gx = gx0 + sx;
+    bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+    p[i] = in ? b[i] - apply_at(u, rc, sy, sx, SH, SW) : 0.f;
+  }
+  __syncthreads();
+  // Full weighting: y pass first, then x (ops/transfer.restrict_fw).
+  const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
+  for (int t = threadIdx.x; t < (TY / 2) * (TX / 2); t += NTHREADS) {
+    int cy = t / (TX / 2), cx = t - (t / (TX / 2)) * (TX / 2);
+    int I = y0 / 2 + cy, J = x0 / 2 + cx;
+    if (I >= nyc || J >= nxc) continue;
+    const float* r0 = p + (2 * cy + H) * SW + 2 * cx + H;  // fine (2I, 2J)
+    float ycol[3];
+    for (int d = 0; d < 3; ++d)
+      ycol[d] = r0[d] + 2.f * r0[SW + d] + r0[2 * SW + d];
+    rc_out[(size_t)I * nxc + J] = 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
+  }
+  if (CG) {
+    float s = block_sum(acc, red);
+    if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// K3: up visit.  z = smooth_k(b, u + P e) on the tile; DOT: <b, z> partials.
+template <bool DOT>
+__global__ void __launch_bounds__(NTHREADS)
+visit_up_kernel(Coeffs c, const float* __restrict__ b_in,
+                const float* __restrict__ u_in, const float* __restrict__ e,
+                float* __restrict__ z_out, float* __restrict__ part,
+                int ny, int nx, int H, Steps st) {
+  extern __shared__ float sm[];
+  const int SH = TY + 2 * H, SW = TX + 2 * H, n = SH * SW;
+  float* b = sm;
+  float* u = b + n;
+  float* p = u + n;
+  float* red = p + n + 6 * SH;
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
+  const int gy0 = y0 - H, gx0 = x0 - H;
+  const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
+  RowCoeffs rc = load_row_coeffs(c, p + n, SH, gy0, ny);
+  for (int i = threadIdx.x; i < n; i += NTHREADS) {
+    int sy = i / SW, sx = i - (i / SW) * SW;
+    int gy = gy0 + sy, gx = gx0 + sx;
+    float bv = 0.f, uv = 0.f;
+    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+      size_t g = (size_t)gy * nx + gx;
+      bv = b_in[g];
+      uv = u_in[g] + prolong_at(e, gy, gx, nyc, nxc);
+    }
+    b[i] = bv;
+    u[i] = uv;
+    p[i] = 0.f;
+  }
+  __syncthreads();
+  smooth_tile(b, u, p, rc, st, false, SH, SW, gy0, gx0, ny, nx);
+
+  float acc = 0.f;
+  for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
+    int ty = t / TX, tx = t - (t / TX) * TX;
+    int gy = y0 + ty, gx = x0 + tx;
+    if (gy >= ny || gx >= nx) continue;
+    int i = (ty + H) * SW + tx + H;
+    z_out[(size_t)gy * nx + gx] = u[i];
+    if (DOT) acc += b[i] * u[i];
+  }
+  if (DOT) {
+    float s = block_sum(acc, red);
+    if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// K1: p' = z + beta p (tile + 1-point halo in shared memory), A p',
+// u' = u + alpha_prev p (pointwise; un may alias u), <p', A p'> partials.
+__global__ void __launch_bounds__(NTHREADS)
+cg_papply_u_kernel(Coeffs c, const float* __restrict__ z,
+                   const float* __restrict__ p, const float* u,
+                   const float* __restrict__ alpha_prev_ptr,
+                   const float* __restrict__ beta_ptr,
+                   float* __restrict__ pn_out, float* __restrict__ ap_out,
+                   float* un_out, float* __restrict__ part, int ny, int nx) {
+  constexpr int SH = TY + 2, SW = TX + 2;
+  __shared__ float pn[SH * SW];
+  __shared__ float crow[6 * SH];
+  __shared__ float red[NTHREADS / 32];
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
+  const int gy0 = y0 - 1, gx0 = x0 - 1;
+  RowCoeffs rc = load_row_coeffs(c, crow, SH, gy0, ny);
+  const float beta = *beta_ptr, alpha_prev = *alpha_prev_ptr;
+  for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
+    int sy = i / SW, sx = i - (i / SW) * SW;
+    int gy = gy0 + sy, gx = gx0 + sx;
+    float v = 0.f;
+    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+      size_t g = (size_t)gy * nx + gx;
+      v = z[g] + beta * p[g];
+    }
+    pn[i] = v;
+  }
+  __syncthreads();
+  float acc = 0.f;
+  for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
+    int ty = t / TX, tx = t - (t / TX) * TX;
+    int gy = y0 + ty, gx = x0 + tx;
+    if (gy >= ny || gx >= nx) continue;
+    int sy = ty + 1, sx = tx + 1;
+    float a = apply_at(pn, rc, sy, sx, SH, SW);
+    float v = pn[sy * SW + sx];
+    size_t g = (size_t)gy * nx + gx;
+    pn_out[g] = v;
+    ap_out[g] = a;
+    un_out[g] = u[g] + alpha_prev * p[g];
+    acc += v * a;
+  }
+  float s = block_sum(acc, red);
+  if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+}
+
+int load_steps(const double* host, int k, Steps* st) {
+  if (k < 1 || k > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  st->k = k;
+  for (int s = 0; s < k; ++s) {
+    st->alpha[s] = (float)host[2 * s];
+    st->beta[s] = (float)host[2 * s + 1];
+  }
+  return 0;
+}
+
+dim3 visit_grid(int ny, int nx) {
+  return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of per-block partials a visit kernel emits for an (ny, nx) grid.
+int mg_visit_blocks(int ny, int nx) {
+  dim3 g = visit_grid(ny, nx);
+  return (int)(g.x * g.y);
+}
+
+int mg_cg_papply_u(const float* cs, const float* cw, const float* cc,
+                   const float* ce, const float* cn, const float* z,
+                   const float* p, const float* u, const float* alpha_prev,
+                   const float* beta, float* pn, float* ap, float* un,
+                   float* part, int ny, int nx, void* stream) {
+  Coeffs c{cs, cw, cc, ce, cn};
+  cg_papply_u_kernel<<<visit_grid(ny, nx), NTHREADS, 0,
+                       (cudaStream_t)stream>>>(c, z, p, u, alpha_prev, beta,
+                                               pn, ap, un, part, ny, nx);
+  return (int)cudaGetLastError();
+}
+
+// cg != 0: r' = r - alpha * ap is formed in-kernel and written to rnew,
+// with ||r'||^2 partials; cg == 0: ap, alpha, rnew and part are unused.
+int mg_visit_down(const float* cs, const float* cw, const float* cc,
+                  const float* ce, const float* cn, const float* r,
+                  const float* ap, const float* alpha, float* u0, float* rc,
+                  float* rnew, float* part, int ny, int nx,
+                  const double* steps, int k, int cg, void* stream) {
+  Steps st;
+  int err = load_steps(steps, k, &st);
+  if (err) return err;
+  Coeffs c{cs, cw, cc, ce, cn};
+  const int H = k + 2;
+  const size_t smem = visit_smem_bytes(H);
+  auto kern = cg ? visit_down_kernel<true> : visit_down_kernel<false>;
+  err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+      c, r, ap, alpha, u0, rc, rnew, part, ny, nx, H, st);
+  return (int)cudaGetLastError();
+}
+
+// emit_dot != 0: <b, z> partials go to part.
+int mg_visit_up(const float* cs, const float* cw, const float* cc,
+                const float* ce, const float* cn, const float* b,
+                const float* u, const float* e, float* z, float* part,
+                int ny, int nx, const double* steps, int k, int emit_dot,
+                void* stream) {
+  Steps st;
+  int err = load_steps(steps, k, &st);
+  if (err) return err;
+  Coeffs c{cs, cw, cc, ce, cn};
+  const int H = k + 2;
+  const size_t smem = visit_smem_bytes(H);
+  auto kern = emit_dot ? visit_up_kernel<true> : visit_up_kernel<false>;
+  err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+      c, b, u, e, z, part, ny, nx, H, st);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

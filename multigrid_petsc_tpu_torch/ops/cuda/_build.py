@@ -1,0 +1,82 @@
+"""Build and load the package's CUDA kernels.
+
+At first use, every ``csrc/*.cu`` source of the package is compiled with
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
+git), and loaded with ``ctypes``.  The library name carries a hash of the
+sources and flags, so an edited source rebuilds.  Nothing here runs at
+import time: the CPU-only test tier imports every module without a
+compiler or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points (csrc/*.cu) and their argument types: every pointer and
+# the stream as c_void_p, so no 64-bit value is cut to a C int.
+_SIGNATURES = {
+    "mg_visit_blocks": [_I, _I],
+    "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
+    "mg_visit_down": [_P] * 5 + [_P] * 7 + [_I, _I, _P, _I, _I, _P],
+    "mg_visit_up": [_P] * 5 + [_P] * 5 + [_I, _I, _P, _I, _I, _P],
+    "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit at first use")
+    return path
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernels' shared library."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    lib = BUILD_DIR / f"libmgtorch_{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    cdll = ctypes.CDLL(str(lib))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return cdll
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,168 @@
+"""Solver setup: the per-level operator context built from a config.
+
+PyTorch counterpart of the single-grid Stencil5 slice of
+``multigrid_petsc_tpu/solvers/context.py`` (reference: src/poisson.c:85-118
+set-up + assembly): stencil coefficients per grid, the matrix-free apply,
+the smoother's step schedule, the fused level visits and the coarsest
+direct solve.
+
+The JAX package routes each level through a web of flags
+(``use_pallas_apply``, ``mdma_ok``, ``papply``...).  Here there is one
+dispatch per level, on the tensor's device, inside the kernel wrappers of
+``ops.cuda``: CPU tensors run the plain PyTorch versions, CUDA tensors the
+hand-written kernels.  Everything this slice does not port raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from multigrid_petsc_tpu_torch.hierarchy import LevelSpec, build_hierarchy
+from multigrid_petsc_tpu_torch.mesh import MeshType
+from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
+from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, apply_stencil5, residual
+from multigrid_petsc_tpu_torch.problems import (
+    Problem,
+    poisson_sin_problem,
+    rhs_grid,
+    stencil_coefficients,
+)
+from multigrid_petsc_tpu_torch.solvers import smoothers as sm
+from multigrid_petsc_tpu_torch.solvers.coarse import build_direct_solver
+from multigrid_petsc_tpu_torch.utils.config import SmootherType, SolverConfig
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, modules left behind: {item})")
+
+
+@dataclass
+class LevelCtx:
+    """One single-grid level: its spec, stencil and solver closures."""
+
+    spec: LevelSpec
+    stencil: Stencil5
+    dinv: torch.Tensor
+    omega: float
+    coarse_solve: Callable[[torch.Tensor], torch.Tensor] | None = None
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.spec.primary.shape
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        return apply_stencil5(self.stencil, u)
+
+    def residual(self, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return residual(self.stencil, b, u)
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dinv.dtype,
+                           device=self.dinv.device)
+
+    def steps_fn(self, sweeps: int):
+        """The smoother's static (alpha, beta) schedule (Jacobi)."""
+        return sm.jacobi_step_coeffs(sweeps, self.omega)
+
+    def smooth(self, b: torch.Tensor, u: torch.Tensor, sweeps: int):
+        return sm.jacobi(self.apply, self.dinv, b, u, sweeps, self.omega)
+
+    def visit_down(self, b: torch.Tensor, sweeps: int):
+        """(u0, rc): zero-guess smooth + fully restricted residual."""
+        return mdma.visit_down(self.stencil, b, self.steps_fn(sweeps))
+
+    def visit_up(self, b, u, e_c, sweeps: int):
+        """smooth_k(b, u + P e_c)."""
+        return mdma.visit_up(self.stencil, b, u, e_c, self.steps_fn(sweeps),
+                             emit_dot=False)
+
+
+@dataclass
+class MGContext:
+    """All levels + the level-0 right-hand side."""
+
+    config: SolverConfig
+    problem: Problem
+    levels: list[LevelCtx]
+    b0: torch.Tensor
+    dtype: torch.dtype
+    device: torch.device
+
+    # One coarsening gap between adjacent single-grid levels: the visit
+    # kernels' rc output IS the next level's rhs and the next level's
+    # solution IS the up visit's coarse correction.
+    def restrict_rc1(self, l: int, rc1: torch.Tensor) -> torch.Tensor:
+        return rc1
+
+    def prolong_half(self, l: int, u_next: torch.Tensor) -> torch.Tensor:
+        return u_next
+
+
+def _check_supported(cfg: SolverConfig, plan) -> None:
+    if plan is not None:
+        raise _not_ported("distribution (plan=)", "distribution")
+    if cfg.problem != "poisson":
+        raise _not_ported(f"problem {cfg.problem!r}", "the 9-point family")
+    if cfg.backend == "sparse":
+        raise _not_ported("backend='sparse'", "sparse")
+    if cfg.grids != cfg.levels:
+        raise _not_ported("composite (merged-grid) levels", "the cycle zoo")
+    if cfg.dtype not in _DTYPES:
+        raise _not_ported(f"dtype {cfg.dtype!r}", "precision")
+    if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
+        raise _not_ported("outer_dtype / precond_dtype", "precision")
+    for l in range(cfg.levels):
+        s = cfg.smoother_at(l, cfg.levels)
+        if s != SmootherType.JACOBI:
+            item = ("Chebyshev with estimate_dinv_a_lmax"
+                    if s == SmootherType.CHEBYSHEV else "the 9-point family")
+            raise _not_ported(f"smoother {s.value!r}", item)
+    if cfg.coarse_solver not in ("auto", "direct", "smooth"):
+        raise _not_ported(f"coarse_solver {cfg.coarse_solver!r}",
+                          "the cycle zoo")
+
+
+def build_context(cfg: SolverConfig, problem: Problem | None = None,
+                  plan=None, *, device: torch.device | str) -> MGContext:
+    """Build every level on ``device`` (no default: the caller names it)."""
+    _check_supported(cfg, plan)
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but no CUDA device "
+                               "is available")
+        # The coarsest solve is a float32 matmul; keep it in full f32.
+        torch.backends.cuda.matmul.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    problem = problem or poisson_sin_problem()
+    dtype = _DTYPES[cfg.dtype]
+    mesh_type = MeshType(cfg.mesh)
+    levels = []
+    for spec in build_hierarchy(cfg.npts, cfg.grids, cfg.levels):
+        g = spec.primary
+        st = stencil_coefficients(mesh_type, g.ny, g.nx, dtype, device)
+        levels.append(LevelCtx(spec=spec, stencil=st, dinv=1.0 / st.cc,
+                               omega=cfg.omega))
+
+    if len(levels) >= 2 and cfg.coarse_solver != "smooth":
+        last = levels[-1]
+        mode = cfg.coarse_solver
+        if mode == "auto":
+            n = last.shape[0] * last.shape[1]
+            mode = "direct" if n <= cfg.max_direct_size else "cg"
+        if mode != "direct":
+            raise _not_ported("the CG coarse solver", "the cycle zoo")
+        last.coarse_solve = build_direct_solver(last.stencil, last.shape)
+
+    g0 = levels[0].spec.primary
+    b0 = rhs_grid(problem, mesh_type, g0.ny, g0.nx, dtype, device)
+    return MGContext(config=cfg, problem=problem, levels=levels, b0=b0,
+                     dtype=dtype, device=device)
