@@ -28,7 +28,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAXL = 12;
-constexpr int MAX_STEPS = 6;
+constexpr int MAX_STEPS = 31;  // csrc/visit.cu: the largest that fits below
 constexpr int NTHREADS = 256;
 
 struct TreeLevel {
@@ -52,6 +52,10 @@ struct TreeParams {
   float* rr;           // residual scratch, entry-level size
   TreeLevel lv[MAXL];
 };
+// The whole parameter block (TreeParams + out) is passed by value: it must
+// stay within the 4 KB kernel-parameter limit.  MAX_STEPS = 32 would not.
+static_assert(sizeof(TreeParams) + sizeof(float*) <= 4096,
+              "coarse-tree parameters exceed the kernel-parameter limit");
 
 __device__ __forceinline__ float apply_at(const TreeLevel& v, const float* u,
                                           int y, int x) {

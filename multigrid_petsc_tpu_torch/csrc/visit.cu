@@ -1,11 +1,24 @@
-// Fused fine-level visit kernels of the mg-CG preconditioner, for Hopper
+// Level-visit and stencil kernels of the multigrid solvers, for Hopper
 // (sm_90a), bound to Python through a plain C interface (ctypes).
 //
-// Replaces (multigrid_petsc_tpu/ops/pallas/mdma_kernel.py):
-//   K1  cg_papply_u   <- cg_papply_u_mdma   (_papply_kernel)
-//   K2  visit_down    <- cg_visit_down_mdma (_cg_down_kernel), cg = 1
-//                        visit_down_mdma    (_down_kernel),    cg = 0
-//   K3  visit_up      <- visit_up_mdma      (_up_kernel), emit_dot flag
+// One templated visit kernel serves every fused level visit; its flags
+// pick what is read and written:
+//   CG       b = r - alpha * ap formed in-kernel; r' and ||r'||^2 emitted
+//   GUESS    start from the given u (else the zero guess: z = D^-1 b first)
+//   CORRECT  u += P e_c (bilinear prolongation) before the sweeps
+//   EMIT     u | u + r | r | u + rc (rc: full-weighting restriction of r)
+//   DOT      <b, u> partials
+//
+// Replaces (multigrid_petsc_tpu/ops/pallas/):
+//   K1  cg_papply_u_kernel   <- mdma_kernel.py cg_papply_u_mdma
+//   K2a visit <CG, rc>       <- mdma_kernel.py cg_visit_down_mdma
+//   K2b visit <rc>           <- mdma_kernel.py visit_down_mdma
+//   K3  visit <GUESS, CORRECT, u[, DOT]> <- mdma_kernel.py visit_up_mdma
+//   K6  stencil_kernel<false> <- stencil_kernel.py apply_stencil5_pallas
+//   K7  visit <GUESS, u>     <- stencil_kernel.py smooth_sweeps_pallas
+//   K9  visit (every flag set above) <- stencil_kernel.py
+//       fused_level_visit_pallas; its k = 0 residual (residual5_pallas)
+//       is stencil_kernel<true>
 //
 // What bounds them on the H100: bytes.  Every kernel does O(k) flops per
 // point against 8-24 bytes of device-memory traffic per point, far below
@@ -16,10 +29,11 @@
 //     the restriction (or the prolongation + correction) run there, so
 //     the k sweeps cost one read of b (and u) and one write of the result
 //     instead of ~3 passes per sweep;
-//   * the halo is H = k + 2: pollution from the unknown tile edge travels
-//     one point per stencil application, the residual needs one more and
-//     the full-weighting restriction one more fine row/column past the
-//     tile (coarse I needs fine 2I..2I+2);
+//   * the halo is H = k for emit u, k + 1 for u + r and r, k + 2 for rc:
+//     pollution from the unknown tile edge travels one point per stencil
+//     application, the residual needs one more point and the
+//     full-weighting restriction one more fine row/column past the tile
+//     (coarse I needs fine 2I..2I+2);
 //   * halo rows and columns are re-read by neighbouring blocks; they come
 //     from L2 for the most part.  cp.async/TMA pipelining is later work.
 //
@@ -41,7 +55,18 @@ namespace {
 constexpr int TY = 32;        // output tile rows (even: restriction pairs)
 constexpr int TX = 64;        // output tile columns (even)
 constexpr int NTHREADS = 256;
-constexpr int MAX_STEPS = 6;  // H = k + 2 <= 8 keeps shared memory < 48 KB
+// Sweep cap, shared with csrc/coarse_tree.cu: its kernel parameter block
+// (12 levels x one (alpha, beta) schedule each) must stay within the 4 KB
+// kernel-parameter limit, which 31 does and 32 does not (see the
+// static_assert there); the visit's shared memory at k = 31 is checked
+// below against the 227 KB a block may use.
+constexpr int MAX_STEPS = 31;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory per block
+
+enum Emit { EMIT_U = 0, EMIT_UR = 1, EMIT_R = 2, EMIT_RC = 3 };
+
+// Flag bits of mg_visit's `flags` argument (mirrored in mdma_kernel.py).
+constexpr int F_CG = 1, F_GUESS = 2, F_CORRECT = 4, F_DOT = 8, EMIT_SHIFT = 4;
 
 struct Steps {
   int k;
@@ -55,6 +80,20 @@ struct Coeffs {
   const float* cc;
   const float* ce;
   const float* cn;
+};
+
+// A visit's streams; pointers its flags do not use are null.
+struct VisitIO {
+  const float* b;      // right-hand side (CG: r)
+  const float* ap;     // CG: A p
+  const float* alpha;  // CG: device scalar
+  const float* u;      // GUESS: initial iterate
+  const float* e;      // CORRECT: coarse correction, (ny-1)/2 x (nx-1)/2
+  float* u_out;        // every emit but r
+  float* r_out;        // u + r, r: b - A u
+  float* rc_out;       // rc: R (b - A u), (ny-1)/2 x (nx-1)/2
+  float* rnew_out;     // CG: r' = r - alpha ap
+  float* part;         // CG: ||r'||^2 partials; DOT: <b, u> partials
 };
 
 // Shared-memory row coefficients of a tile: cs, cw, cc, ce, cn, dinv.
@@ -154,22 +193,22 @@ __device__ __forceinline__ float prolong_at(const float* e, int gy, int gx,
   return (at(I - 1, J - 1) + at(I - 1, J) + at(I, J - 1) + at(I, J)) * 0.25f;
 }
 
-size_t visit_smem_bytes(int H) {
-  const int SH = TY + 2 * H, SW = TX + 2 * H;
-  return sizeof(float) * (3 * (size_t)SH * SW + 6 * (size_t)SH + NTHREADS / 32);
+constexpr size_t visit_smem_bytes(int H) {
+  return sizeof(float) * (3 * (size_t)(TY + 2 * H) * (TX + 2 * H) +
+                          6 * (size_t)(TY + 2 * H) + NTHREADS / 32);
+}
+static_assert(visit_smem_bytes(MAX_STEPS + 2) <= MAX_SMEM,
+              "the widest visit must fit a block's shared memory");
+
+constexpr int halo(int emit, int k) {
+  return k + (emit == EMIT_U ? 0 : emit == EMIT_RC ? 2 : 1);
 }
 
-// K2: zero-guess down visit.  CG: b = r - alpha * ap, emit r' and the
-// ||r'||^2 partials.  Emits u0 on the tile and the fully restricted
-// residual rc at the coarse points whose 3x3 footprint the tile owns.
-template <bool CG>
+// The level visit: [b = r - alpha ap] [u + P e] -> k steps -> the emits.
+// rc holds the coarse points whose 3x3 footprint the tile owns.
+template <bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT>
 __global__ void __launch_bounds__(NTHREADS)
-visit_down_kernel(Coeffs c, const float* __restrict__ r,
-                  const float* __restrict__ ap,
-                  const float* __restrict__ alpha_ptr,
-                  float* __restrict__ u_out, float* __restrict__ rc_out,
-                  float* __restrict__ rnew_out, float* __restrict__ part,
-                  int ny, int nx, int H, Steps st) {
+visit_kernel(Coeffs c, VisitIO io, int ny, int nx, int H, Steps st) {
   extern __shared__ float sm[];
   const int SH = TY + 2 * H, SW = TX + 2 * H, n = SH * SW;
   float* b = sm;
@@ -178,22 +217,25 @@ visit_down_kernel(Coeffs c, const float* __restrict__ r,
   float* red = p + n + 6 * SH;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int gy0 = y0 - H, gx0 = x0 - H;
+  const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
   RowCoeffs rc = load_row_coeffs(c, p + n, SH, gy0, ny);
-  const float alpha = CG ? *alpha_ptr : 0.f;
+  const float alpha = CG ? *io.alpha : 0.f;
   for (int i = threadIdx.x; i < n; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
     int gy = gy0 + sy, gx = gx0 + sx;
-    float v = 0.f;
+    float bv = 0.f, uv = 0.f;
     if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
       size_t g = (size_t)gy * nx + gx;
-      v = CG ? r[g] - alpha * ap[g] : r[g];
+      bv = CG ? io.b[g] - alpha * io.ap[g] : io.b[g];
+      if (GUESS) uv = io.u[g];
+      if (CORRECT) uv += prolong_at(io.e, gy, gx, nyc, nxc);
     }
-    b[i] = v;
-    u[i] = 0.f;
+    b[i] = bv;
+    u[i] = uv;
     p[i] = 0.f;
   }
   __syncthreads();
-  smooth_tile(b, u, p, rc, st, true, SH, SW, gy0, gx0, ny, nx);
+  smooth_tile(b, u, p, rc, st, !GUESS, SH, SW, gy0, gx0, ny, nx);
 
   float acc = 0.f;
   for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
@@ -202,84 +244,76 @@ visit_down_kernel(Coeffs c, const float* __restrict__ r,
     if (gy >= ny || gx >= nx) continue;
     int i = (ty + H) * SW + tx + H;
     size_t g = (size_t)gy * nx + gx;
-    u_out[g] = u[i];
+    if (EMIT != EMIT_R) io.u_out[g] = u[i];
+    if (EMIT == EMIT_UR || EMIT == EMIT_R)
+      io.r_out[g] = b[i] - apply_at(u, rc, ty + H, tx + H, SH, SW);
     if (CG) {
-      rnew_out[g] = b[i];
+      io.rnew_out[g] = b[i];
       acc += b[i] * b[i];
     }
+    if (DOT) acc += b[i] * u[i];
   }
-  // Residual into p (p is dead after the smoother).
-  for (int i = threadIdx.x; i < n; i += NTHREADS) {
-    int sy = i / SW, sx = i - (i / SW) * SW;
-    int gy = gy0 + sy, gx = gx0 + sx;
-    bool in = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
-    p[i] = in ? b[i] - apply_at(u, rc, sy, sx, SH, SW) : 0.f;
+  if (EMIT == EMIT_RC) {
+    // Residual into p (dead after the smoother) on the tile and one more
+    // row/column, the restriction's footprint.
+    for (int t = threadIdx.x; t < (TY + 1) * (TX + 1); t += NTHREADS) {
+      int sy = H + t / (TX + 1), sx = H + t - (t / (TX + 1)) * (TX + 1);
+      int gy = gy0 + sy, gx = gx0 + sx;
+      bool in = gy < ny && gx < nx;
+      int i = sy * SW + sx;
+      p[i] = in ? b[i] - apply_at(u, rc, sy, sx, SH, SW) : 0.f;
+    }
+    __syncthreads();
+    // Full weighting: y pass first, then x (ops/transfer.restrict_fw).
+    for (int t = threadIdx.x; t < (TY / 2) * (TX / 2); t += NTHREADS) {
+      int cy = t / (TX / 2), cx = t - (t / (TX / 2)) * (TX / 2);
+      int I = y0 / 2 + cy, J = x0 / 2 + cx;
+      if (I >= nyc || J >= nxc) continue;
+      const float* r0 = p + (2 * cy + H) * SW + 2 * cx + H;  // fine (2I, 2J)
+      float ycol[3];
+      for (int d = 0; d < 3; ++d)
+        ycol[d] = r0[d] + 2.f * r0[SW + d] + r0[2 * SW + d];
+      io.rc_out[(size_t)I * nxc + J] =
+          0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
+    }
   }
-  __syncthreads();
-  // Full weighting: y pass first, then x (ops/transfer.restrict_fw).
-  const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
-  for (int t = threadIdx.x; t < (TY / 2) * (TX / 2); t += NTHREADS) {
-    int cy = t / (TX / 2), cx = t - (t / (TX / 2)) * (TX / 2);
-    int I = y0 / 2 + cy, J = x0 / 2 + cx;
-    if (I >= nyc || J >= nxc) continue;
-    const float* r0 = p + (2 * cy + H) * SW + 2 * cx + H;  // fine (2I, 2J)
-    float ycol[3];
-    for (int d = 0; d < 3; ++d)
-      ycol[d] = r0[d] + 2.f * r0[SW + d] + r0[2 * SW + d];
-    rc_out[(size_t)I * nxc + J] = 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
-  }
-  if (CG) {
+  if (CG || DOT) {
     float s = block_sum(acc, red);
-    if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+    if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = s;
   }
 }
 
-// K3: up visit.  z = smooth_k(b, u + P e) on the tile; DOT: <b, z> partials.
-template <bool DOT>
-__global__ void __launch_bounds__(NTHREADS)
-visit_up_kernel(Coeffs c, const float* __restrict__ b_in,
-                const float* __restrict__ u_in, const float* __restrict__ e,
-                float* __restrict__ z_out, float* __restrict__ part,
-                int ny, int nx, int H, Steps st) {
-  extern __shared__ float sm[];
-  const int SH = TY + 2 * H, SW = TX + 2 * H, n = SH * SW;
-  float* b = sm;
-  float* u = b + n;
-  float* p = u + n;
-  float* red = p + n + 6 * SH;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int gy0 = y0 - H, gx0 = x0 - H;
-  const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
-  RowCoeffs rc = load_row_coeffs(c, p + n, SH, gy0, ny);
-  for (int i = threadIdx.x; i < n; i += NTHREADS) {
-    int sy = i / SW, sx = i - (i / SW) * SW;
-    int gy = gy0 + sy, gx = gx0 + sx;
-    float bv = 0.f, uv = 0.f;
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      size_t g = (size_t)gy * nx + gx;
-      bv = b_in[g];
-      uv = u_in[g] + prolong_at(e, gy, gx, nyc, nxc);
-    }
-    b[i] = bv;
-    u[i] = uv;
-    p[i] = 0.f;
-  }
-  __syncthreads();
-  smooth_tile(b, u, p, rc, st, false, SH, SW, gy0, gx0, ny, nx);
+using VisitFn = void (*)(Coeffs, VisitIO, int, int, int, Steps);
 
-  float acc = 0.f;
-  for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
-    int ty = t / TX, tx = t - (t / TX) * TX;
-    int gy = y0 + ty, gx = x0 + tx;
-    if (gy >= ny || gx >= nx) continue;
-    int i = (ty + H) * SW + tx + H;
-    z_out[(size_t)gy * nx + gx] = u[i];
-    if (DOT) acc += b[i] * u[i];
+template <bool GUESS, bool CORRECT>
+VisitFn pick_emit(int emit, bool dot) {
+  switch (emit) {
+    case EMIT_U:
+      return dot ? visit_kernel<false, GUESS, CORRECT, EMIT_U, true>
+                 : visit_kernel<false, GUESS, CORRECT, EMIT_U, false>;
+    case EMIT_UR:
+      return dot ? nullptr : visit_kernel<false, GUESS, CORRECT, EMIT_UR, false>;
+    case EMIT_R:
+      return dot ? nullptr : visit_kernel<false, GUESS, CORRECT, EMIT_R, false>;
+    case EMIT_RC:
+      return dot ? nullptr : visit_kernel<false, GUESS, CORRECT, EMIT_RC, false>;
   }
-  if (DOT) {
-    float s = block_sum(acc, red);
-    if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
+  return nullptr;
+}
+
+// The instantiation for a flag set, or null for a set the family lacks
+// (CG is the zero-guess rc visit only; DOT goes with emit u only; a
+// correction needs a guess).
+VisitFn pick_visit(int flags) {
+  const bool cg = flags & F_CG, guess = flags & F_GUESS;
+  const bool correct = flags & F_CORRECT, dot = flags & F_DOT;
+  const int emit = flags >> EMIT_SHIFT;
+  if (cg)
+    return (guess || correct || dot || emit != EMIT_RC)
+               ? nullptr : visit_kernel<true, false, false, EMIT_RC, false>;
+  if (!guess) return correct ? nullptr : pick_emit<false, false>(emit, dot);
+  return correct ? pick_emit<true, true>(emit, dot)
+                 : pick_emit<true, false>(emit, dot);
 }
 
 // K1: p' = z + beta p (tile + 1-point halo in shared memory), A p',
@@ -328,6 +362,36 @@ cg_papply_u_kernel(Coeffs c, const float* __restrict__ z,
   if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
+// K6 (RESID = false): y = A u; residual5 (RESID = true): y = b - A u.
+// The tile + 1-point halo of u in shared memory, as K1.
+template <bool RESID>
+__global__ void __launch_bounds__(NTHREADS)
+stencil_kernel(Coeffs c, const float* __restrict__ b,
+               const float* __restrict__ u, float* __restrict__ y, int ny,
+               int nx) {
+  constexpr int SH = TY + 2, SW = TX + 2;
+  __shared__ float us[SH * SW];
+  __shared__ float crow[6 * SH];
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
+  const int gy0 = y0 - 1, gx0 = x0 - 1;
+  RowCoeffs rc = load_row_coeffs(c, crow, SH, gy0, ny);
+  for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
+    int sy = i / SW, sx = i - (i / SW) * SW;
+    int gy = gy0 + sy, gx = gx0 + sx;
+    us[i] = (gy >= 0 && gy < ny && gx >= 0 && gx < nx)
+                ? u[(size_t)gy * nx + gx] : 0.f;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
+    int ty = t / TX, tx = t - (t / TX) * TX;
+    int gy = y0 + ty, gx = x0 + tx;
+    if (gy >= ny || gx >= nx) continue;
+    float a = apply_at(us, rc, ty + 1, tx + 1, SH, SW);
+    size_t g = (size_t)gy * nx + gx;
+    y[g] = RESID ? b[g] - a : a;
+  }
+}
+
 int load_steps(const double* host, int k, Steps* st) {
   if (k < 1 || k > MAX_STEPS) return (int)cudaErrorInvalidValue;
   st->k = k;
@@ -364,46 +428,41 @@ int mg_cg_papply_u(const float* cs, const float* cw, const float* cc,
   return (int)cudaGetLastError();
 }
 
-// cg != 0: r' = r - alpha * ap is formed in-kernel and written to rnew,
-// with ||r'||^2 partials; cg == 0: ap, alpha, rnew and part are unused.
-int mg_visit_down(const float* cs, const float* cw, const float* cc,
-                  const float* ce, const float* cn, const float* r,
-                  const float* ap, const float* alpha, float* u0, float* rc,
-                  float* rnew, float* part, int ny, int nx,
-                  const double* steps, int k, int cg, void* stream) {
+// One level visit (K2a, K2b, K3, K7, K9).  flags: F_CG | F_GUESS |
+// F_CORRECT | F_DOT | emit << EMIT_SHIFT; the pointers the flags do not
+// use may be null.  A flag set outside the family is refused.
+int mg_visit(const float* cs, const float* cw, const float* cc,
+             const float* ce, const float* cn, const float* b,
+             const float* ap, const float* alpha, const float* u,
+             const float* e, float* u_out, float* r_out, float* rc_out,
+             float* rnew_out, float* part, int ny, int nx,
+             const double* steps, int k, int flags, void* stream) {
+  VisitFn kern = pick_visit(flags);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   Steps st;
   int err = load_steps(steps, k, &st);
   if (err) return err;
   Coeffs c{cs, cw, cc, ce, cn};
-  const int H = k + 2;
+  VisitIO io{b, ap, alpha, u, e, u_out, r_out, rc_out, rnew_out, part};
+  const int H = halo(flags >> EMIT_SHIFT, k);
   const size_t smem = visit_smem_bytes(H);
-  auto kern = cg ? visit_down_kernel<true> : visit_down_kernel<false>;
   err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-      c, r, ap, alpha, u0, rc, rnew, part, ny, nx, H, st);
+      c, io, ny, nx, H, st);
   return (int)cudaGetLastError();
 }
 
-// emit_dot != 0: <b, z> partials go to part.
-int mg_visit_up(const float* cs, const float* cw, const float* cc,
-                const float* ce, const float* cn, const float* b,
-                const float* u, const float* e, float* z, float* part,
-                int ny, int nx, const double* steps, int k, int emit_dot,
-                void* stream) {
-  Steps st;
-  int err = load_steps(steps, k, &st);
-  if (err) return err;
+// K6 (resid == 0): y = A u; residual5 (resid != 0): y = b - A u.
+int mg_stencil(const float* cs, const float* cw, const float* cc,
+               const float* ce, const float* cn, const float* b,
+               const float* u, float* y, int ny, int nx, int resid,
+               void* stream) {
   Coeffs c{cs, cw, cc, ce, cn};
-  const int H = k + 2;
-  const size_t smem = visit_smem_bytes(H);
-  auto kern = emit_dot ? visit_up_kernel<true> : visit_up_kernel<false>;
-  err = (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-      c, b, u, e, z, part, ny, nx, H, st);
+  auto kern = resid ? stencil_kernel<true> : stencil_kernel<false>;
+  kern<<<visit_grid(ny, nx), NTHREADS, 0, (cudaStream_t)stream>>>(
+      c, b, u, y, ny, nx);
   return (int)cudaGetLastError();
 }
 

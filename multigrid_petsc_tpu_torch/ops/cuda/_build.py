@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 At first use, every ``csrc/*.cu`` source of the package is compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
-git), and loaded with ``ctypes``.  The library name carries a hash of the
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and the objects are linked into one shared library with a plain
+C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
+git), which is loaded with ``ctypes``.  The library name carries a hash of the
 sources and flags, so an edited source rebuilds.  Nothing here runs at
 import time: the CPU-only test tier imports every module without a
 compiler or a card.
@@ -23,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,8 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mg_visit_blocks": [_I, _I],
     "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
-    "mg_visit_down": [_P] * 5 + [_P] * 7 + [_I, _I, _P, _I, _I, _P],
-    "mg_visit_up": [_P] * 5 + [_P] * 5 + [_I, _I, _P, _I, _I, _P],
+    "mg_visit": [_P] * 5 + [_P] * 10 + [_I, _I, _P, _I, _I, _P],
+    "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
@@ -60,13 +61,26 @@ def load_library() -> ctypes.CDLL:
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        nvcc = _nvcc()
+        objs = [tmp.with_suffix(f".{s.stem}.o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        ok = all(p.returncode == 0 for p in procs)
+        if ok:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            ok = link.returncode == 0
+        for o in objs:
+            o.unlink(missing_ok=True)
+        (BUILD_DIR / "build.log").write_text(log)
+        if not ok:
+            raise RuntimeError(f"nvcc failed:\n{log}")
         os.replace(tmp, lib)
     cdll = ctypes.CDLL(str(lib))
     for name, argtypes in _SIGNATURES.items():

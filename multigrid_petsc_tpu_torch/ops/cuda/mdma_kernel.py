@@ -17,6 +17,10 @@ smoother is the static (alpha_s, beta_s) schedule of
 ``solvers.smoothers``.  Scalars (alpha, alpha_prev, beta) are 0-d tensors
 on the data's device; dots come back as 0-d tensors there.
 
+K2a, K2b and K3 are flag sets of the one visit kernel of
+``csrc/visit.cu``; ``launch_visit`` launches any flag set of it and is
+shared with the V-cycle family's wrappers (``ops/cuda/stencil_kernel.py``).
+
 Each wrapper runs its plain PyTorch version (``*_plain``, below) when the
 data lies on the CPU, launches its kernel when it lies on a CUDA device
 (f32, contiguous; anything else raises), and never falls back from one to
@@ -24,6 +28,8 @@ the other.  Every output is a fresh tensor.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,7 +39,9 @@ from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, apply_stencil5
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
-MAX_STEPS = 6  # csrc/visit.cu: halo k + 2 <= 8 rows in shared memory
+# csrc/visit.cu and csrc/coarse_tree.cu: the coarse tree's per-level
+# schedules must fit the 4 KB kernel-parameter block (31 fits, 32 not).
+MAX_STEPS = 31
 
 
 # --------------------------------------------------------------------------
@@ -162,72 +170,89 @@ def cg_papply_u(st: Stencil5, z, p, u, alpha_prev, beta):
     return pn, ap, un, part.sum()
 
 
-def _visit_down_launch(st, r, ap, alpha, steps, cg: bool):
-    ny, nx = _odd_shape(r)
-    fields = {"r": (r, (ny, nx)), **_stencil_fields(st, ny)}
+# Flag bits of the C entry mg_visit (csrc/visit.cu).
+_F_CG, _F_GUESS, _F_CORRECT, _F_DOT, _EMIT_SHIFT = 1, 2, 4, 8, 4
+_EMITS = {"u": 0, "ur": 1, "r": 2, "rc": 3}
+
+
+class VisitOut(NamedTuple):
+    u: torch.Tensor | None      # every emit but "r"
+    r: torch.Tensor | None      # "ur", "r": b - A u
+    rc: torch.Tensor | None     # "rc": R (b - A u)
+    r_new: torch.Tensor | None  # CG: r - alpha ap
+    dot: torch.Tensor | None    # CG: ||r'||^2; emit_dot: <b, u>
+
+
+def launch_visit(st: Stencil5, b, steps, *, emit: str, u=None, e_c=None,
+                 ap=None, alpha=None, emit_dot: bool = False) -> VisitOut:
+    """One launch of the visit kernel family on CUDA tensors (f32): the
+    CG residual update when ``ap`` is given, the guess ``u`` (None: zero),
+    the correction ``e_c``, then ``len(steps)`` smoother steps and the
+    ``emit`` outputs.  Checks every argument; raises on a combination the
+    family lacks.  The caller counts the launch."""
+    cg = ap is not None
+    transfer = emit == "rc" or e_c is not None
+    ny, nx = _odd_shape(b) if transfer else b.shape
+    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    fields = {"b": (b, (ny, nx)), **_stencil_fields(st, ny)}
     scalars = {}
     if cg:
         fields["ap"] = (ap, (ny, nx))
         scalars["alpha"] = alpha
-    _check_cuda(r.device, fields, scalars)
+    if u is not None:
+        fields["u"] = (u, (ny, nx))
+    if e_c is not None:
+        fields["e_c"] = (e_c, (nyc, nxc))
+    _check_cuda(b.device, fields, scalars)
     steps_h = _steps_array(steps)
     lib = load_library()
-    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
-    u0 = torch.empty_like(r)
-    rc = torch.empty((nyc, nxc), dtype=r.dtype, device=r.device)
-    r_new = torch.empty_like(r) if cg else None
-    part = (torch.empty(lib.mg_visit_blocks(ny, nx), dtype=r.dtype,
-                        device=r.device) if cg else None)
+
+    def new(shape, want):
+        return (torch.empty(shape, dtype=b.dtype, device=b.device)
+                if want else None)
+
+    out = VisitOut(u=new((ny, nx), emit != "r"),
+                   r=new((ny, nx), emit in ("ur", "r")),
+                   rc=new((nyc, nxc), emit == "rc"),
+                   r_new=new((ny, nx), cg),
+                   dot=new((lib.mg_visit_blocks(ny, nx),), cg or emit_dot))
+    flags = ((_F_CG if cg else 0) | (_F_GUESS if u is not None else 0)
+             | (_F_CORRECT if e_c is not None else 0)
+             | (_F_DOT if emit_dot else 0) | _EMITS[emit] << _EMIT_SHIFT)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.mg_visit_down(*(c.data_ptr() for c in st), r.data_ptr(),
-                            ptr(ap), ptr(alpha), u0.data_ptr(),
-                            rc.data_ptr(), ptr(r_new), ptr(part), ny, nx,
-                            steps_h.ctypes.data, len(steps), int(cg),
-                            _stream(r.device))
-    check(err, "visit_down launch")
-    return u0, rc, r_new, part
+    err = lib.mg_visit(*(c.data_ptr() for c in st), b.data_ptr(), ptr(ap),
+                       ptr(alpha), ptr(u), ptr(e_c), *map(ptr, out), ny, nx,
+                       steps_h.ctypes.data, len(steps), flags,
+                       _stream(b.device))
+    check(err, f"visit launch (flags {flags})")
+    return out if out.dot is None else out._replace(dot=out.dot.sum())
 
 
 def cg_visit_down(st: Stencil5, r, ap, alpha, steps):
     """(u0, rc, r', ||r'||^2) with r' = r - alpha ap (K2a)."""
     if _on_cpu(r):
         return cg_visit_down_plain(st, r, ap, alpha, steps)
-    u0, rc, r_new, part = _visit_down_launch(st, r, ap, alpha, steps, True)
+    o = launch_visit(st, r, steps, emit="rc", ap=ap, alpha=alpha)
     launches["cg_visit_down"] += 1
-    return u0, rc, r_new, part.sum()
+    return o.u, o.rc, o.r_new, o.dot
 
 
 def visit_down(st: Stencil5, b, steps):
     """(u0, rc): the zero-guess down visit (K2b)."""
     if _on_cpu(b):
         return visit_down_plain(st, b, steps)
-    u0, rc, _, _ = _visit_down_launch(st, b, None, None, steps, False)
+    o = launch_visit(st, b, steps, emit="rc")
     launches["visit_down"] += 1
-    return u0, rc
+    return o.u, o.rc
 
 
 def visit_up(st: Stencil5, b, u, e_c, steps, emit_dot: bool = True):
     """z = smooth_k(b, u + P e_c) [, <b, z>] (K3)."""
     if _on_cpu(b):
         return visit_up_plain(st, b, u, e_c, steps, emit_dot)
-    ny, nx = _odd_shape(b)
-    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
-    _check_cuda(b.device,
-                {"b": (b, (ny, nx)), "u": (u, (ny, nx)),
-                 "e_c": (e_c, (nyc, nxc)), **_stencil_fields(st, ny)})
-    steps_h = _steps_array(steps)
-    lib = load_library()
-    z = torch.empty_like(b)
-    part = (torch.empty(lib.mg_visit_blocks(ny, nx), dtype=b.dtype,
-                        device=b.device) if emit_dot else None)
-    err = lib.mg_visit_up(*(c.data_ptr() for c in st), b.data_ptr(),
-                          u.data_ptr(), e_c.data_ptr(), z.data_ptr(),
-                          None if part is None else part.data_ptr(), ny, nx,
-                          steps_h.ctypes.data, len(steps), int(emit_dot),
-                          _stream(b.device))
-    check(err, "visit_up launch")
+    o = launch_visit(st, b, steps, emit="u", u=u, e_c=e_c, emit_dot=emit_dot)
     launches["visit_up"] += 1
-    return (z, part.sum()) if emit_dot else z
+    return (o.u, o.dot) if emit_dot else o.u

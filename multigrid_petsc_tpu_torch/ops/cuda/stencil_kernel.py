@@ -1,0 +1,172 @@
+"""Stencil, smoother and level-visit kernels of the V-cycle family.
+
+Counterpart of ``multigrid_petsc_tpu/ops/pallas/stencil_kernel.py``:
+
+  apply_stencil5     K6: y = A u
+  smooth_sweeps      K7: k static (alpha, beta) smoother steps on (b, u);
+                     ``jacobi_sweeps`` / ``chebyshev_sweeps`` pick the
+                     schedule
+  fused_level_visit  K9: [u += P e_c] -> k steps -> u | (u, r) | r |
+                     (u, R r) [, <b, u>]; ``u=None`` is the zero guess
+  residual5          K9 with no steps: r = b - A u
+
+The TPU kernels stream row slabs through VMEM with gathered halo windows
+and alias u -> u'.  Here K7 and K9 are flag sets of the one visit kernel
+of ``csrc/visit.cu`` (launched by ``mdma_kernel.launch_visit``), and K6
+and ``residual5`` a one-point-halo tile kernel of the same file; every
+output is a fresh tensor, since CUDA blocks run concurrently and read
+each other's halo.  The zero-guess ``rc`` visit is K2b and the
+correcting ``u`` visit K3: ``fused_level_visit`` hands those to the
+``mdma_kernel`` wrappers, whose counters they bump.
+
+Each wrapper runs its plain PyTorch version (``*_plain``) when the data
+lies on the CPU, launches its kernel when it lies on a CUDA device (f32,
+contiguous; anything else raises), and never falls back from one to the
+other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multigrid_petsc_tpu_torch.ops import stencil as _st
+from multigrid_petsc_tpu_torch.ops.cuda import launches
+from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
+from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
+from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
+    _EMITS,
+    _check_cuda,
+    _on_cpu,
+    _stencil_fields,
+    _stream,
+    smooth_steps,
+)
+from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
+from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
+from multigrid_petsc_tpu_torch.solvers.smoothers import (
+    chebyshev_step_coeffs,
+    jacobi_step_coeffs,
+)
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path and the kernels' oracle).
+# --------------------------------------------------------------------------
+
+
+def apply_stencil5_plain(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
+    return _st.apply_stencil5(st, u)
+
+
+def residual5_plain(st: Stencil5, b, u) -> torch.Tensor:
+    return _st.residual(st, b, u)
+
+
+def smooth_sweeps_plain(st: Stencil5, b, u, steps) -> torch.Tensor:
+    return smooth_steps(st, b, u, steps)
+
+
+def _check_visit(u, emit, e_coarse, emit_dot) -> None:
+    """The argument rules of the JAX ``fused_level_visit_pallas``."""
+    if emit not in _EMITS:
+        raise ValueError(f"emit must be one of {tuple(_EMITS)}, "
+                         f"got {emit!r}")
+    if emit_dot and emit != "u":
+        raise ValueError("emit_dot goes with emit='u' only")
+    if u is None and e_coarse is not None:
+        raise ValueError("a zero-guess visit cannot take a correction")
+
+
+def fused_level_visit_plain(st: Stencil5, b, u, steps, emit: str = "u",
+                            e_coarse=None, emit_dot: bool = False):
+    _check_visit(u, emit, e_coarse, emit_dot)
+    if e_coarse is not None:
+        u = u + prolong_bilinear(e_coarse)
+    u = smooth_steps(st, b, u, steps)
+    if u is None:  # zero guess, no steps
+        u = torch.zeros_like(b)
+    if emit == "u":
+        return (u, torch.sum(b * u)) if emit_dot else u
+    r = _st.residual(st, b, u)
+    if emit == "ur":
+        return u, r
+    if emit == "r":
+        return r
+    return u, restrict_fw(r)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers.
+# --------------------------------------------------------------------------
+
+
+def _launch_stencil(st: Stencil5, b, u, resid: bool) -> torch.Tensor:
+    ny, nx = u.shape
+    fields = {"u": (u, (ny, nx)), **_stencil_fields(st, ny)}
+    if resid:
+        fields["b"] = (b, (ny, nx))
+    _check_cuda(u.device, fields)
+    lib = load_library()
+    y = torch.empty_like(u)
+    err = lib.mg_stencil(*(c.data_ptr() for c in st),
+                         b.data_ptr() if resid else None, u.data_ptr(),
+                         y.data_ptr(), ny, nx, int(resid), _stream(u.device))
+    check(err, "stencil launch")
+    return y
+
+
+def apply_stencil5(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
+    """y = A u (K6)."""
+    if _on_cpu(u):
+        return apply_stencil5_plain(st, u)
+    y = _launch_stencil(st, None, u, resid=False)
+    launches["apply_stencil5"] += 1
+    return y
+
+
+def residual5(st: Stencil5, b, u) -> torch.Tensor:
+    """r = b - A u (K9's no-step residual)."""
+    if _on_cpu(u):
+        return residual5_plain(st, b, u)
+    r = _launch_stencil(st, b, u, resid=True)
+    launches["residual5"] += 1
+    return r
+
+
+def smooth_sweeps(st: Stencil5, b, u, steps) -> torch.Tensor:
+    """k = len(steps) smoother steps from u (K7)."""
+    if _on_cpu(b):
+        return smooth_sweeps_plain(st, b, u, steps)
+    out = mdma.launch_visit(st, b, steps, emit="u", u=u).u
+    launches["smooth_sweeps"] += 1
+    return out
+
+
+def jacobi_sweeps(st: Stencil5, b, u, sweeps: int, omega: float = 0.8):
+    return smooth_sweeps(st, b, u, jacobi_step_coeffs(sweeps, omega))
+
+
+def chebyshev_sweeps(st: Stencil5, b, u, sweeps: int, lmax: float):
+    return smooth_sweeps(st, b, u, chebyshev_step_coeffs(sweeps, lmax))
+
+
+def fused_level_visit(st: Stencil5, b, u, steps, emit: str = "u",
+                      e_coarse=None, emit_dot: bool = False):
+    """One level visit (K9), with the JAX function's contract: returns u
+    (or (u, <b, u>) with ``emit_dot``), (u, r), r or (u, R r)."""
+    if _on_cpu(b):
+        return fused_level_visit_plain(st, b, u, steps, emit, e_coarse,
+                                       emit_dot)
+    _check_visit(u, emit, e_coarse, emit_dot)
+    if not steps and emit == "r" and u is not None and e_coarse is None:
+        return residual5(st, b, u)
+    if u is None and emit == "rc":
+        return mdma.visit_down(st, b, steps)
+    if e_coarse is not None and emit == "u":
+        return mdma.visit_up(st, b, u, e_coarse, steps, emit_dot)
+    o = mdma.launch_visit(st, b, steps, emit=emit, u=u, e_c=e_coarse,
+                          emit_dot=emit_dot)
+    launches["fused_level_visit"] += 1
+    if emit == "u":
+        return (o.u, o.dot) if emit_dot else o.u
+    return {"ur": (o.u, o.r), "r": o.r, "rc": (o.u, o.rc)}[emit]

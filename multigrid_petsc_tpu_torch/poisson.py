@@ -5,8 +5,9 @@
         [-key value ...] -device cpu|cuda
 
 Reads a poisson.in-style options file (default ./poisson.in if present),
-applies the command-line ``-key value`` overrides, runs mg-CG on the
-named device and prints iterations, residual, error norms and timing.
+applies the command-line ``-key value`` overrides, runs the configured
+cycle (V-cycle, MG-Richardson, FMG, Additive or mg-CG) on the named
+device and prints iterations, residual, error norms and timing.
 ``-device`` is required; ``cuda`` without a card is an error.
 """
 
@@ -19,10 +20,19 @@ from multigrid_petsc_tpu_torch.mesh import MeshType
 from multigrid_petsc_tpu_torch.postprocess import error_norms
 from multigrid_petsc_tpu_torch.solvers.solve import solve
 from multigrid_petsc_tpu_torch.utils.config import (
+    CycleType,
     SolverConfig,
     parse_options,
     parse_options_file,
 )
+
+CYCLE_NAMES = {
+    CycleType.VCYCLE: "V-cycle",
+    CycleType.PCMG: "MG-Richardson",
+    CycleType.FMG: "FMG",
+    CycleType.ADDITIVE: "Additive",
+    CycleType.MGCG: "mg-CG",
+}
 
 
 def main(argv=None) -> int:
@@ -49,7 +59,8 @@ def main(argv=None) -> int:
 
     res = solve(cfg, device=device)
     errs = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)
-    print(f"mg-CG (cycle {cfg.cycle.value}) npts={cfg.npts} "
+    print(f"{CYCLE_NAMES[cfg.cycle]} (cycle {cfg.cycle.value}) "
+          f"smoother={cfg.smoother.value} npts={cfg.npts} "
           f"levels={cfg.levels} dtype={cfg.dtype} device={device} "
           f"path={res.path}")
     print(f"iterations: {res.iters}  converged: {res.converged}")

@@ -2,16 +2,18 @@
 
 PyTorch counterpart of the single-grid Stencil5 slice of
 ``multigrid_petsc_tpu/solvers/context.py`` (reference: src/poisson.c:85-118
-set-up + assembly): stencil coefficients per grid, the matrix-free apply,
-the smoother's step schedule, the fused level visits and the coarsest
-direct solve.
+set-up + assembly): stencil coefficients per grid, the matrix-free apply
+and residual, each level's smoother (Jacobi or Chebyshev, with its lmax)
+and step schedule, the fused level visits, the inter-level transfers and
+the coarsest direct solve.
 
 The JAX package routes each level through a web of flags
 (``use_pallas_apply``, ``mdma_ok``, ``papply``...).  Here there is one
 dispatch per level, on the tensor's device, inside the kernel wrappers of
 ``ops.cuda``: CPU tensors run the plain PyTorch versions, CUDA tensors the
-hand-written kernels.  Everything this slice does not port raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+hand-written kernels, so every level operation on the card launches one.
+Everything this slice does not port raises ``NotImplementedError`` naming
+the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import torch
 
 from multigrid_petsc_tpu_torch.hierarchy import LevelSpec, build_hierarchy
 from multigrid_petsc_tpu_torch.mesh import MeshType
-from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
-from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, apply_stencil5, residual
+from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
+from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 from multigrid_petsc_tpu_torch.problems import (
     Problem,
     poisson_sin_problem,
@@ -45,12 +48,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class LevelCtx:
-    """One single-grid level: its spec, stencil and solver closures."""
+    """One single-grid level: its spec, stencil, smoother and solver
+    closures."""
 
     spec: LevelSpec
     stencil: Stencil5
     dinv: torch.Tensor
+    smoother: SmootherType  # JACOBI or CHEBYSHEV
     omega: float
+    lmax: float | None = None  # Chebyshev: lmax of D^-1 A, set up once
     coarse_solve: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     @property
@@ -58,30 +64,36 @@ class LevelCtx:
         return self.spec.primary.shape
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
-        return apply_stencil5(self.stencil, u)
+        return sk.apply_stencil5(self.stencil, u)
 
     def residual(self, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        return residual(self.stencil, b, u)
+        return sk.residual5(self.stencil, b, u)
 
     def zeros(self) -> torch.Tensor:
         return torch.zeros(self.shape, dtype=self.dinv.dtype,
                            device=self.dinv.device)
 
     def steps_fn(self, sweeps: int):
-        """The smoother's static (alpha, beta) schedule (Jacobi)."""
+        """The smoother's static (alpha, beta) schedule."""
+        if self.smoother == SmootherType.CHEBYSHEV:
+            return sm.chebyshev_step_coeffs(sweeps, self.lmax)
         return sm.jacobi_step_coeffs(sweeps, self.omega)
 
     def smooth(self, b: torch.Tensor, u: torch.Tensor, sweeps: int):
-        return sm.jacobi(self.apply, self.dinv, b, u, sweeps, self.omega)
+        return sk.smooth_sweeps(self.stencil, b, u, self.steps_fn(sweeps))
 
-    def visit_down(self, b: torch.Tensor, sweeps: int):
-        """(u0, rc): zero-guess smooth + fully restricted residual."""
-        return mdma.visit_down(self.stencil, b, self.steps_fn(sweeps))
+    def visit_down(self, b: torch.Tensor, u: torch.Tensor | None,
+                   sweeps: int):
+        """(u', rc): smooth from u (None: the zero guess) + the fully
+        restricted residual."""
+        return sk.fused_level_visit(self.stencil, b, u, self.steps_fn(sweeps),
+                                    emit="rc")
 
-    def visit_up(self, b, u, e_c, sweeps: int):
-        """smooth_k(b, u + P e_c)."""
-        return mdma.visit_up(self.stencil, b, u, e_c, self.steps_fn(sweeps),
-                             emit_dot=False)
+    def visit_up(self, b, u, e_c, sweeps: int, emit_r: bool = False):
+        """smooth_k(b, u + P e_c) [, its residual]."""
+        return sk.fused_level_visit(self.stencil, b, u, self.steps_fn(sweeps),
+                                    emit="ur" if emit_r else "u",
+                                    e_coarse=e_c)
 
 
 @dataclass
@@ -104,6 +116,14 @@ class MGContext:
     def prolong_half(self, l: int, u_next: torch.Tensor) -> torch.Tensor:
         return u_next
 
+    # Whole transfers (FMG, the Additive cycle): plain PyTorch, as the JAX
+    # package computes them outside its kernels.
+    def restrict_to_next(self, l: int, r: torch.Tensor) -> torch.Tensor:
+        return restrict_fw(r)
+
+    def prolong_from_next(self, l: int, u_next: torch.Tensor) -> torch.Tensor:
+        return prolong_bilinear(u_next)
+
 
 def _check_supported(cfg: SolverConfig, plan) -> None:
     if plan is not None:
@@ -120,10 +140,8 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
         raise _not_ported("outer_dtype / precond_dtype", "precision")
     for l in range(cfg.levels):
         s = cfg.smoother_at(l, cfg.levels)
-        if s != SmootherType.JACOBI:
-            item = ("Chebyshev with estimate_dinv_a_lmax"
-                    if s == SmootherType.CHEBYSHEV else "the 9-point family")
-            raise _not_ported(f"smoother {s.value!r}", item)
+        if s not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV):
+            raise _not_ported(f"smoother {s.value!r}", "the 9-point family")
     if cfg.coarse_solver not in ("auto", "direct", "smooth"):
         raise _not_ported(f"coarse_solver {cfg.coarse_solver!r}",
                           "the cycle zoo")
@@ -146,11 +164,16 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
     dtype = _DTYPES[cfg.dtype]
     mesh_type = MeshType(cfg.mesh)
     levels = []
-    for spec in build_hierarchy(cfg.npts, cfg.grids, cfg.levels):
+    for l, spec in enumerate(build_hierarchy(cfg.npts, cfg.grids,
+                                             cfg.levels)):
         g = spec.primary
         st = stencil_coefficients(mesh_type, g.ny, g.nx, dtype, device)
-        levels.append(LevelCtx(spec=spec, stencil=st, dinv=1.0 / st.cc,
-                               omega=cfg.omega))
+        lc = LevelCtx(spec=spec, stencil=st, dinv=1.0 / st.cc,
+                      smoother=cfg.smoother_at(l, cfg.levels),
+                      omega=cfg.omega)
+        if lc.smoother == SmootherType.CHEBYSHEV:
+            lc.lmax = sm.estimate_dinv_a_lmax(lc.apply, lc.dinv, g.shape)
+        levels.append(lc)
 
     if len(levels) >= 2 and cfg.coarse_solver != "smooth":
         last = levels[-1]

@@ -20,18 +20,14 @@ from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
 from multigrid_petsc_tpu_torch.ops.norms import tree_dot, tree_norm2
 from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
 from multigrid_petsc_tpu_torch.solvers.context import MGContext
-from multigrid_petsc_tpu_torch.solvers.outer import OuterResult
+from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, keep_going
 from multigrid_petsc_tpu_torch.solvers.vcycle import _cycle, _visit_sweeps, mg_apply
-
-
-def _keep_going(cfg, i: int, rn: float, bnorm: float) -> bool:
-    return i < cfg.max_iter and cfg.divtol * bnorm > rn and rn > cfg.rtol * bnorm
 
 
 def solve_mgcg(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
     """mg-CG.  Hierarchies of two or more levels run the fused plan
     (``_solve_mgcg_fused_mdma``); a 1-level hierarchy runs the generic
-    PCG loop."""
+    PCG loop (A p through K6, the smoother through K7 on the card)."""
     b = ctx.b0 if b0 is None else b0
     if len(ctx.levels) > 1:
         return _solve_mgcg_fused_mdma(ctx, b)
@@ -54,7 +50,7 @@ def _solve_mgcg_generic(ctx: MGContext, b: torch.Tensor) -> OuterResult:
     hist = torch.zeros(hist_len + 1, dtype=rn.dtype, device=rn.device)
     hist[0] = rn
     i = 0
-    while _keep_going(cfg, i, float(rn), bnorm):
+    while keep_going(cfg, i, float(rn), bnorm):
         ap = lvl0.apply(p)
         # Breakdown guards: once the f32 residual floors, pap/rz can hit
         # exact 0; guarded ratios turn that into a harmless stall.
@@ -120,7 +116,8 @@ def mdma_plan(ctx: MGContext) -> dict:
     def coarse_correction(rc):
         """Everything between the level-0 down and up visits."""
         return ctx.prolong_half(
-            0, _cycle(ctx, 1, ctx.restrict_rc1(0, rc), v0, v1, tree))
+            0, _cycle(ctx, 1, ctx.restrict_rc1(0, rc), None, v0, v1,
+                      tree=tree))
 
     def precond(r, ap, alpha):
         u0, rc, r_new, rn2 = mdma.cg_visit_down(st, r, ap, alpha, steps)
@@ -154,7 +151,7 @@ def _solve_mgcg_fused_mdma(ctx: MGContext, b: torch.Tensor) -> OuterResult:
     hist[0] = bnorm_t  # u0 = 0 -> r0 = b exactly
     rn = bnorm
     i = 0
-    while _keep_going(cfg, i, rn, bnorm):
+    while keep_going(cfg, i, rn, bnorm):
         p, ap, u, pap = mdma.cg_papply_u(st, z, p, u, alpha_prev, beta)
         alpha = torch.where(pap != 0, rz / pap, zero)  # breakdown guard
         z, rz_new, r, rn2 = precond(r, ap, alpha)

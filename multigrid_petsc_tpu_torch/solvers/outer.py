@@ -1,11 +1,25 @@
-"""Outer-iteration result (PyTorch counterpart of ``OuterResult`` in
-``multigrid_petsc_tpu/solvers/outer.py``)."""
+"""Shared outer-iteration driver with residual history (PyTorch
+counterpart of ``multigrid_petsc_tpu/solvers/outer.py``; reference:
+src/solver.c:1530-1557).
+
+Iterate while
+
+    iter < max_iter  AND  divtol * ||b|| > ||r||  AND  ||r|| > rtol * ||b||
+
+recording ||r|| per outer iteration on the device, and normalise the
+history by its first entry.  The loop runs on the host; the only host
+read per iteration is the stop test.  The per-grid monitors of
+``-moreNorm`` belong to the I/E cycles, which are not ported, so there is
+no monitor hook.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+
+from multigrid_petsc_tpu_torch.ops.norms import tree_norm2
 
 
 class OuterResult(NamedTuple):
@@ -13,3 +27,34 @@ class OuterResult(NamedTuple):
     rnorm_history: torch.Tensor  # normalized by entry 0; length hist_len+1
     iters: int
     converged: bool
+
+
+def keep_going(cfg, i: int, rn: float, bnorm: float) -> bool:
+    return i < cfg.max_iter and cfg.divtol * bnorm > rn and rn > cfg.rtol * bnorm
+
+
+def outer_iterate(step: Callable, residual: Callable, b: torch.Tensor,
+                  u0: torch.Tensor, cfg,
+                  step_emits_residual: bool = False) -> OuterResult:
+    """``step(b, u)`` is one cycle; with ``step_emits_residual`` it
+    returns (u, b - A u), computed inside its last level visit, so the
+    stop test costs no extra operator application."""
+    hist_len = min(cfg.hist_len, cfg.max_iter)
+    bnorm = float(tree_norm2(b))
+    rn_t = tree_norm2(residual(b, u0))
+    hist = torch.zeros(hist_len + 1, dtype=rn_t.dtype, device=rn_t.device)
+    hist[0] = rn_t
+    rn = float(rn_t)
+    u, i = u0, 0
+    while keep_going(cfg, i, rn, bnorm):
+        if step_emits_residual:
+            u, r = step(b, u)
+        else:
+            u = step(b, u)
+            r = residual(b, u)
+        rn_t = tree_norm2(r)
+        hist[min(i + 1, hist_len)] = rn_t
+        i += 1
+        rn = float(rn_t)  # the stop test: the one host read per iteration
+    return OuterResult(u=u, rnorm_history=hist / hist[0], iters=i,
+                       converged=rn <= cfg.rtol * bnorm)

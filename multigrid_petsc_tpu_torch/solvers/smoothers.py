@@ -9,8 +9,11 @@ Every fused visit kernel runs a polynomial smoother as a static list of
     z_s = D^-1 (b - A u_s);  p_{s+1} = beta_s p_s + alpha_s z_s;
     u_{s+1} = u_s + p_{s+1}
 
-Damped Jacobi is (omega, 0) repeated.  Only Jacobi is wired into the
-solver so far; the Chebyshev schedule is kept for its host-side parity.
+Damped Jacobi is (omega, 0) repeated; Chebyshev-accelerated Jacobi is
+the theta/delta/rho recurrence on [0.1 lmax, 1.05 lmax], with lmax from
+``estimate_dinv_a_lmax`` once per level at set-up.  The smoothers run as
+these schedules (``ops.cuda.stencil_kernel.smooth_sweeps``: K7 on the
+card, its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -20,13 +23,23 @@ from typing import Callable
 import torch
 
 
-def jacobi(apply_fn: Callable[[torch.Tensor], torch.Tensor],
-           dinv: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
-           sweeps: int, omega: float = 0.8) -> torch.Tensor:
-    """``sweeps`` damped-Jacobi iterations u += omega D^-1 (b - A u)."""
-    for _ in range(sweeps):
-        u = u + omega * dinv * (b - apply_fn(u))
-    return u
+def estimate_dinv_a_lmax(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                         dinv: torch.Tensor, shape: tuple[int, int],
+                         iters: int = 20) -> float:
+    """Power iteration for the largest eigenvalue of D^-1 A, in the dtype
+    and on the device of ``dinv``, read to the host once at the end.  The
+    deterministic constant-plus-checkerboard start of the JAX package has
+    components on both smooth and oscillatory modes."""
+    ny, nx = shape
+    ii = torch.arange(ny, device=dinv.device)[:, None]
+    jj = torch.arange(nx, device=dinv.device)[None, :]
+    v = (1.0 + 0.5 * ((ii + jj) % 2)).to(dinv.dtype)
+    nrm = torch.ones((), dtype=dinv.dtype, device=dinv.device)
+    for _ in range(iters):
+        w = dinv * apply_fn(v)
+        nrm = torch.sqrt(torch.sum(w * w))
+        v = w / nrm
+    return float(nrm)
 
 
 def jacobi_step_coeffs(sweeps: int, omega: float):

@@ -1,5 +1,7 @@
-"""Solve dispatch: config -> mg-CG driver -> result (PyTorch counterpart
-of ``multigrid_petsc_tpu/solvers/solve.py``, mg-CG only).
+"""Solve dispatch: config -> cycle driver -> result (PyTorch counterpart
+of ``multigrid_petsc_tpu/solvers/solve.py``; reference: src/solver.c:
+2617-2630).  Ported drivers: V-cycle, MG-Richardson (PCMG), FMG, Additive
+and mg-CG; the others raise ``NotImplementedError``.
 
 ``wall_time`` brackets the solve only (set-up excluded), synchronising the
 device on both sides; ``timed=True`` re-runs the solve and reports the
@@ -14,9 +16,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from multigrid_petsc_tpu_torch.solvers import cycles as cy
 from multigrid_petsc_tpu_torch.solvers import krylov as kr
-from multigrid_petsc_tpu_torch.solvers.context import MGContext, build_context
+from multigrid_petsc_tpu_torch.solvers import vcycle as vc
+from multigrid_petsc_tpu_torch.solvers.context import (
+    MGContext,
+    _not_ported,
+    build_context,
+)
 from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+_DRIVERS = {
+    CycleType.VCYCLE: vc.solve_vcycle,
+    CycleType.PCMG: vc.solve_mg_richardson,
+    CycleType.FMG: vc.solve_fmg,
+    CycleType.ADDITIVE: cy.solve_additive,
+    CycleType.MGCG: kr.solve_mgcg,
+}
 
 
 @dataclass
@@ -28,8 +44,9 @@ class SolveResult:
     wall_time: float  # solve seconds, device synchronised
     cpu_time: float
     ctx: MGContext
-    # "cuda" when the hand-written kernels ran, "torch" when the plain
-    # PyTorch versions did.
+    # "cuda" when the hand-written kernels ran (every level operation on
+    # a CUDA tensor launches one; none falls back), "torch" when the
+    # plain PyTorch versions did.
     path: str
 
     @property
@@ -39,12 +56,13 @@ class SolveResult:
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
           device: torch.device | str, timed: bool = False) -> SolveResult:
-    """Set up on ``device`` (unless given a context) and run mg-CG."""
+    """Set up on ``device`` (unless given a context) and run the
+    configured cycle."""
     cfg = cfg.validate()
-    if cfg.cycle != CycleType.MGCG:
-        raise NotImplementedError(
-            f"cycle {cfg.cycle.name} is not ported yet (ROADMAP.md, modules "
-            "left behind: the V-cycle/FMG/Richardson drivers, the cycle zoo)")
+    if cfg.cycle not in _DRIVERS:
+        item = ("the 9-point family" if cfg.cycle == CycleType.MGFGMRES
+                else "the cycle zoo")
+        raise _not_ported(f"cycle {cfg.cycle.name}", item)
     if ctx is None:
         ctx = build_context(cfg, problem, device=device)
     dev = ctx.device
@@ -56,14 +74,13 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
     def run():
         sync()
         t0w, t0c = time.perf_counter(), time.process_time()
-        res = kr.solve_mgcg(ctx, ctx.b0)
+        res = _DRIVERS[ctx.config.cycle](ctx, ctx.b0)
         sync()
         return res, time.perf_counter() - t0w, time.process_time() - t0c
 
     res, wall, cpu = run()
     if timed:
         res, wall, cpu = run()
-    kernels = dev.type == "cuda" and len(ctx.levels) > 1
     return SolveResult(
         u=res.u,
         rnorm=res.rnorm_history[: res.iters + 1].cpu().numpy(),
@@ -72,5 +89,5 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         wall_time=wall,
         cpu_time=cpu,
         ctx=ctx,
-        path="cuda" if kernels else "torch",
+        path="cuda" if dev.type == "cuda" else "torch",
     )

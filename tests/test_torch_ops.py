@@ -123,7 +123,10 @@ def test_step_coefficients_match_jax_exactly(sweeps):
 
 
 def test_jacobi_smoother_matches_jax():
+    """The port's smoother is the (omega, 0) schedule run by K7 (its plain
+    version on the CPU): the JAX package's damped Jacobi."""
     from multigrid_petsc_tpu.solvers import smoothers as jsm
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as tsk
 
     jst = j_coeffs(JMesh.NONUNIFORM1, 15, 15, jnp.float64)
     tst = t_coeffs(TMesh.NONUNIFORM1, 15, 15, torch.float64, "cpu")
@@ -131,6 +134,6 @@ def test_jacobi_smoother_matches_jax():
     ref = jsm.jacobi(lambda v: (js.apply_stencil5(jst, v[0]),),
                      (1.0 / jst.cc,), (jnp.asarray(b),), (jnp.asarray(u),),
                      3, 0.8)[0]
-    got = tsm.jacobi(lambda v: ts.apply_stencil5(tst, v), 1.0 / tst.cc,
-                     torch.as_tensor(b), torch.as_tensor(u), 3, 0.8)
+    got = tsk.jacobi_sweeps(tst, torch.as_tensor(b), torch.as_tensor(u), 3,
+                            0.8)
     _close(got.numpy(), ref)

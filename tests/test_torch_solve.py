@@ -1,6 +1,7 @@
 """The PyTorch port's mg-CG solve end to end against the JAX package
 (CPU), its CLI, and its boundaries: no JAX import, no silent CPU run of
-a CUDA request, and a clear refusal of what is not ported yet."""
+a CUDA request, and a clear refusal of what is not ported yet.  The
+V-cycle family's solves are held against JAX in test_torch_vcycle.py."""
 
 from __future__ import annotations
 
@@ -95,6 +96,22 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert 1e-4 < float(err_line.split()[-3]) < 1e-2  # max error ~3e-3
 
 
+def test_cli_runs_vcycle_on_cpu(tmp_path, monkeypatch, capsys):
+    """The reference's default cycle (-cycle 0, v = 3,3): the banner names
+    it, and it converges like the JAX package's (5 iterations at 17^2)."""
+    from multigrid_petsc_tpu_torch.poisson import main
+
+    monkeypatch.chdir(tmp_path)
+    rc = main(["-npts", "17", "-grids", "2", "-levels", "2", "-cycle", "0",
+               "-v", "3,3", "-device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert out.startswith("V-cycle (cycle 0) smoother=jacobi")
+    assert "iterations: 5  converged: True" in out and "path=torch" in out
+    err_line = [l for l in out.splitlines() if l.startswith("error")][0]
+    assert 1e-4 < float(err_line.split()[-3]) < 1e-2  # max error ~3e-3
+
+
 def test_cli_requires_device(tmp_path, monkeypatch):
     from multigrid_petsc_tpu_torch.poisson import main
 
@@ -130,8 +147,8 @@ def test_cuda_request_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cycle=CycleType.VCYCLE),
-    dict(smoother=SmootherType.CHEBYSHEV),
+    dict(cycle=CycleType.ICYCLE),
+    dict(smoother=SmootherType.RBGS),
     dict(grids=3, levels=2),
     dict(backend="sparse"),
     dict(problem="aniso"),
