@@ -18,23 +18,27 @@
 // buffer (ping-pong), so each step costs one grid sync.  The coarsest
 // solve is an f32 dot of each row of the host-inverted (f64 -> f32) dense
 // operator with the coarsest right-hand side.  All buffers are given by
-// the caller in one scratch allocation; the kernel allocates nothing.
+// the caller in one scratch allocation; the kernel allocates nothing.  The
+// levels' (alpha, beta) schedules are one f32 buffer in device memory, so
+// the kernel-parameter block bounds no sweep count.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "mg_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using mg::prolong_at;
+
 constexpr int MAXL = 12;
-constexpr int MAX_STEPS = 31;  // csrc/visit.cu: the largest that fits below
 constexpr int NTHREADS = 256;
 
 struct TreeLevel {
   int ny, nx, k;
-  float alpha[MAX_STEPS];
-  float beta[MAX_STEPS];
+  const float* steps;  // k (alpha, beta) pairs, in device memory
   const float* cs;
   const float* cw;
   const float* cc;
@@ -53,7 +57,7 @@ struct TreeParams {
   TreeLevel lv[MAXL];
 };
 // The whole parameter block (TreeParams + out) is passed by value: it must
-// stay within the 4 KB kernel-parameter limit.  MAX_STEPS = 32 would not.
+// stay within the 4 KB kernel-parameter limit.
 static_assert(sizeof(TreeParams) + sizeof(float*) <= 4096,
               "coarse-tree parameters exceed the kernel-parameter limit");
 
@@ -74,7 +78,7 @@ __device__ float* smooth_level(const TreeLevel& v, float* u, bool zero_guess,
   const int n = v.ny * v.nx;
   float* other = (u == v.ua) ? v.ub : v.ua;
   for (int s = 0; s < v.k; ++s) {
-    const float a = v.alpha[s], bt = v.beta[s];
+    const float a = v.steps[2 * s], bt = v.steps[2 * s + 1];
     if (zero_guess && s == 0) {
       for (int i = gtid; i < n; i += gsz) {
         float pn = 0.f + a * ((1.f / v.cc[i / v.nx]) * v.b[i]);
@@ -96,26 +100,6 @@ __device__ float* smooth_level(const TreeLevel& v, float* u, bool zero_guess,
     grid.sync();
   }
   return u;
-}
-
-__device__ __forceinline__ float coarse_at(const float* e, int I, int J,
-                                           int nyc, int nxc) {
-  return (I >= 0 && I < nyc && J >= 0 && J < nxc) ? e[I * nxc + J] : 0.f;
-}
-
-// Same arithmetic as ops/transfer.prolong_bilinear.
-__device__ __forceinline__ float prolong_at(const float* e, int gy, int gx,
-                                            int nyc, int nxc) {
-  const int I = gy >> 1, J = gx >> 1;
-  const bool oy = gy & 1, ox = gx & 1;
-  if (oy && ox) return coarse_at(e, I, J, nyc, nxc);
-  if (oy) return (coarse_at(e, I, J - 1, nyc, nxc) +
-                  coarse_at(e, I, J, nyc, nxc)) * 0.5f;
-  if (ox) return (coarse_at(e, I - 1, J, nyc, nxc) +
-                  coarse_at(e, I, J, nyc, nxc)) * 0.5f;
-  return (coarse_at(e, I - 1, J - 1, nyc, nxc) +
-          coarse_at(e, I - 1, J, nyc, nxc) + coarse_at(e, I, J - 1, nyc, nxc) +
-          coarse_at(e, I, J, nyc, nxc)) * 0.25f;
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -192,7 +176,7 @@ extern "C" {
 
 // Launch the sub-V-cycle over L levels.
 //   shapes: 2L ints (ny, nx per level); ks: L sweep counts;
-//   steps:  host doubles, (alpha, beta) pairs of level 0, then level 1, ...
+//   steps:  device f32, (alpha, beta) pairs of level 0, then level 1, ...
 //   ptrs:   host array of 10L device pointers, per level
 //           (cs, cw, cc, ce, cn, b, ua, ub, p, unused); level 0's b is the
 //           input and its ub must be `out`;
@@ -200,7 +184,7 @@ extern "C" {
 // Returns a cudaError_t value; cudaErrorCooperativeLaunchTooLarge (or any
 // refusal) is returned, never hidden.
 int mg_coarse_tree(int L, const int* shapes, const int* ks,
-                   const double* steps, const unsigned long long* ptrs,
+                   const float* steps, const unsigned long long* ptrs,
                    const float* a_inv, float* rr, float* out, void* stream) {
   if (L < 2 || L > MAXL) return (int)cudaErrorInvalidValue;
   TreeParams P;
@@ -213,11 +197,8 @@ int mg_coarse_tree(int L, const int* shapes, const int* ks,
     v.ny = shapes[2 * l];
     v.nx = shapes[2 * l + 1];
     v.k = ks[l];
-    if (v.k < 1 || v.k > MAX_STEPS) return (int)cudaErrorInvalidValue;
-    for (int s = 0; s < v.k; ++s) {
-      v.alpha[s] = (float)steps[off + 2 * s];
-      v.beta[s] = (float)steps[off + 2 * s + 1];
-    }
+    if (v.k < 1) return (int)cudaErrorInvalidValue;
+    v.steps = steps + off;
     off += 2 * v.k;
     const unsigned long long* q = ptrs + 10 * l;
     v.cs = (const float*)q[0];

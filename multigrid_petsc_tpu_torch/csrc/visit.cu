@@ -1,9 +1,11 @@
 // Level-visit and stencil kernels of the multigrid solvers, for Hopper
 // (sm_90a), bound to Python through a plain C interface (ctypes).
 //
-// One templated visit kernel serves every fused level visit; its flags
-// pick what is read and written:
+// One templated visit kernel serves every fused level visit, for the
+// 5-point (Coeffs) and the 9-point (Coeffs9) stencil; its flags pick what
+// is read and written:
 //   CG       b = r - alpha * ap formed in-kernel; r' and ||r'||^2 emitted
+//            (5-point only)
 //   GUESS    start from the given u (else the zero guess: z = D^-1 b first)
 //   CORRECT  u += P e_c (bilinear prolongation) before the sweeps
 //   EMIT     u | u + r | r | u + rc (rc: full-weighting restriction of r)
@@ -14,11 +16,18 @@
 //   K2a visit <CG, rc>       <- mdma_kernel.py cg_visit_down_mdma
 //   K2b visit <rc>           <- mdma_kernel.py visit_down_mdma
 //   K3  visit <GUESS, CORRECT, u[, DOT]> <- mdma_kernel.py visit_up_mdma
-//   K6  stencil_kernel<false> <- stencil_kernel.py apply_stencil5_pallas
+//   K6  stencil_kernel<false, Coeffs> <- stencil_kernel.py
+//       apply_stencil5_pallas
 //   K7  visit <GUESS, u>     <- stencil_kernel.py smooth_sweeps_pallas
 //   K9  visit (every flag set above) <- stencil_kernel.py
 //       fused_level_visit_pallas; its k = 0 residual (residual5_pallas)
-//       is stencil_kernel<true>
+//       is stencil_kernel<true, Coeffs>
+//   K12 stencil_kernel<RESID, Coeffs9> <- stencil9_kernel.py
+//       apply_stencil9_pallas, residual9_pallas
+//   K13 visit <GUESS, u, Coeffs9> <- stencil9_kernel.py
+//       smooth9_sweeps_pallas
+//   K14 visit <..., Coeffs9> (every flag set but CG) <- stencil9_kernel.py
+//       fused_level_visit9_pallas
 //
 // What bounds them on the H100: bytes.  Every kernel does O(k) flops per
 // point against 8-24 bytes of device-memory traffic per point, far below
@@ -30,10 +39,15 @@
 //     the k sweeps cost one read of b (and u) and one write of the result
 //     instead of ~3 passes per sweep;
 //   * the halo is H = k for emit u, k + 1 for u + r and r, k + 2 for rc:
-//     pollution from the unknown tile edge travels one point per stencil
+//     pollution from the unknown tile edge travels one point (one ring,
+//     diagonals included for the 9-point stencil) per stencil
 //     application, the residual needs one more point and the
 //     full-weighting restriction one more fine row/column past the tile
 //     (coarse I needs fine 2I..2I+2);
+//   * the 9-point coefficients are staged in their own shape: a scalar as
+//     one value, an (ny, 1) column or a (1, nx) row as one strip of the
+//     tile, only an (ny, nx) field as a whole tile (the anisotropic
+//     problem has one: cc, plus its inverse);
 //   * halo rows and columns are re-read by neighbouring blocks; they come
 //     from L2 for the most part.  cp.async/TMA pipelining is later work.
 //
@@ -44,23 +58,31 @@
 // Dirichlet masking: points outside [0, ny) x [0, nx) hold zero in b and u
 // and are re-zeroed after every step, as in the TPU kernels.
 //
-// Scalars (alpha, alpha_prev, beta) are read from device memory by pointer,
-// so the CG loop needs no host round trip for them.  Dot products are
-// emitted as per-block f32 partials; the caller sums them.
+// Scalars (alpha, alpha_prev, beta) and the smoother's (alpha_s, beta_s)
+// schedule are read from device memory by pointer, so neither the CG loop
+// nor a visit needs a host round trip for them, and no sweep count is
+// bound by the kernel-parameter block.  The only bound on a visit's sweep
+// count is its shared memory (visit_smem_bytes <= MAX_SMEM): with emit rc
+// at most 43 steps for the 5-point visit and 28 for the 9-point visit of
+// the anisotropic stencil (45 and 30 with emit u); the wrappers raise
+// ValueError above it.  Dot products are emitted as per-block f32
+// partials; the caller sums them.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "mg_common.cuh"
+
 namespace {
+
+using mg::Coeffs9;
+using mg::coeffs9;
+using mg::prolong_at;
 
 constexpr int TY = 32;        // output tile rows (even: restriction pairs)
 constexpr int TX = 64;        // output tile columns (even)
 constexpr int NTHREADS = 256;
-// Sweep cap, shared with csrc/coarse_tree.cu: its kernel parameter block
-// (12 levels x one (alpha, beta) schedule each) must stay within the 4 KB
-// kernel-parameter limit, which 31 does and 32 does not (see the
-// static_assert there); the visit's shared memory at k = 31 is checked
-// below against the 227 KB a block may use.
-constexpr int MAX_STEPS = 31;
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory per block
 
 enum Emit { EMIT_U = 0, EMIT_UR = 1, EMIT_R = 2, EMIT_RC = 3 };
@@ -68,12 +90,7 @@ enum Emit { EMIT_U = 0, EMIT_UR = 1, EMIT_R = 2, EMIT_RC = 3 };
 // Flag bits of mg_visit's `flags` argument (mirrored in mdma_kernel.py).
 constexpr int F_CG = 1, F_GUESS = 2, F_CORRECT = 4, F_DOT = 8, EMIT_SHIFT = 4;
 
-struct Steps {
-  int k;
-  float alpha[MAX_STEPS];
-  float beta[MAX_STEPS];
-};
-
+// The 5-point stencil: five (ny, 1) columns.
 struct Coeffs {
   const float* cs;
   const float* cw;
@@ -96,7 +113,7 @@ struct VisitIO {
   float* part;         // CG: ||r'||^2 partials; DOT: <b, u> partials
 };
 
-// Shared-memory row coefficients of a tile: cs, cw, cc, ce, cn, dinv.
+// ---- 5-point coefficients staged for a tile: cs, cw, cc, ce, cn, dinv.
 struct RowCoeffs {
   float* cs;
   float* cw;
@@ -106,12 +123,17 @@ struct RowCoeffs {
   float* dinv;
 };
 
-__device__ __forceinline__ RowCoeffs load_row_coeffs(const Coeffs& c,
-                                                     float* base, int rows,
-                                                     int gy0, int ny) {
-  RowCoeffs rc{base, base + rows, base + 2 * rows, base + 3 * rows,
-               base + 4 * rows, base + 5 * rows};
-  for (int i = threadIdx.x; i < rows; i += NTHREADS) {
+__host__ __device__ constexpr size_t coeff_floats(const Coeffs&, int SH,
+                                                  int) {
+  return 6 * (size_t)SH;
+}
+
+__device__ __forceinline__ RowCoeffs stage(const Coeffs& c, float* base,
+                                           int SH, int, int gy0, int, int ny,
+                                           int) {
+  RowCoeffs rc{base, base + SH, base + 2 * SH, base + 3 * SH,
+               base + 4 * SH, base + 5 * SH};
+  for (int i = threadIdx.x; i < SH; i += NTHREADS) {
     int gy = gy0 + i;
     bool in = gy >= 0 && gy < ny;
     rc.cs[i] = in ? c.cs[gy] : 0.f;
@@ -138,15 +160,104 @@ __device__ __forceinline__ float apply_at(const float* v, const RowCoeffs& rc,
          rc.ce[sy] * e;
 }
 
-// k polynomial smoother steps on the shared tile, Dirichlet-masked.
-// zero_guess: u = p = 0 on entry and the first step is z = dinv * b.
-__device__ void smooth_tile(const float* b, float* u, float* p,
-                            const RowCoeffs& rc, const Steps& st, bool zero_guess,
-                            int SH, int SW, int gy0, int gx0, int ny, int nx) {
+__device__ __forceinline__ float dinv_at(const RowCoeffs& rc, int sy, int) {
+  return rc.dinv[sy];
+}
+
+// ---- 9-point coefficients staged for a tile: entry q (csw..cne, then
+// dinv laid out as cc) at c[q][sy * ys[q] + sx * xs[q]], its shared strides
+// (SW, 1) for a field, (1, 0) for a column, (0, 1) for a row, (0, 0) for a
+// scalar.
+struct Tile9 {
+  const float* c[10];
+  int ys[10];
+  int xs[10];
+};
+
+__host__ __device__ inline size_t staged_size(int sy, int sx, int SH,
+                                              int SW) {
+  return (size_t)(sy ? SH : 1) * (sx ? SW : 1);
+}
+
+__host__ __device__ inline size_t coeff_floats(const Coeffs9& c, int SH,
+                                               int SW) {
+  size_t n = staged_size(c.sy[mg::CC], c.sx[mg::CC], SH, SW);  // dinv
+  for (int q = 0; q < 9; ++q) n += staged_size(c.sy[q], c.sx[q], SH, SW);
+  return n;
+}
+
+// Coefficients outside the domain are staged as 0 (their points are
+// masked); dinv guards a zero cc as the JAX kernel does.
+__device__ Tile9 stage(const Coeffs9& c, float* base, int SH, int SW,
+                       int gy0, int gx0, int ny, int nx) {
+  Tile9 t;
+#pragma unroll
+  for (int q = 0; q < 10; ++q) {
+    const int src = q < 9 ? q : mg::CC;
+    const int gys = c.sy[src], gxs = c.sx[src];
+    const int rows = gys ? SH : 1, cols = gxs ? SW : 1;
+    t.c[q] = base;
+    t.ys[q] = gys ? cols : 0;
+    t.xs[q] = gxs ? 1 : 0;
+    for (int i = threadIdx.x; i < rows * cols; i += NTHREADS) {
+      const int r = i / cols, s = i - (i / cols) * cols;
+      const int gy = gy0 + r, gx = gx0 + s;
+      const bool in = (!gys || (gy >= 0 && gy < ny)) &&
+                      (!gxs || (gx >= 0 && gx < nx));
+      float v = 0.f;
+      if (in) {
+        v = c.p[src][(gys ? (size_t)gy * gys : 0) +
+                     (gxs ? (size_t)gx * gxs : 0)];
+        if (q == 9) v = v == 0.f ? 1.f : 1.f / v;
+      }
+      base[i] = v;
+    }
+    base += rows * cols;
+  }
+  return t;
+}
+
+__device__ __forceinline__ float tat(const Tile9& t, int q, int sy, int sx) {
+  return t.c[q][sy * t.ys[q] + sx * t.xs[q]];
+}
+
+// 9-point (A v) at shared point (sy, sx); term order of the JAX package:
+// cc, s, n, w, e, sw, se, nw, ne.
+__device__ __forceinline__ float apply_at(const float* v, const Tile9& t,
+                                          int sy, int sx, int SH, int SW) {
+  const int i = sy * SW + sx;
+  const bool hs = sy > 0, hn = sy < SH - 1, hw = sx > 0, he = sx < SW - 1;
+  const float s = hs ? v[i - SW] : 0.f;
+  const float n = hn ? v[i + SW] : 0.f;
+  const float w = hw ? v[i - 1] : 0.f;
+  const float e = he ? v[i + 1] : 0.f;
+  const float sw = hs && hw ? v[i - SW - 1] : 0.f;
+  const float se = hs && he ? v[i - SW + 1] : 0.f;
+  const float nw = hn && hw ? v[i + SW - 1] : 0.f;
+  const float ne = hn && he ? v[i + SW + 1] : 0.f;
+  return tat(t, mg::CC, sy, sx) * v[i] + tat(t, mg::CS, sy, sx) * s +
+         tat(t, mg::CN, sy, sx) * n + tat(t, mg::CW, sy, sx) * w +
+         tat(t, mg::CE, sy, sx) * e + tat(t, mg::CSW, sy, sx) * sw +
+         tat(t, mg::CSE, sy, sx) * se + tat(t, mg::CNW, sy, sx) * nw +
+         tat(t, mg::CNE, sy, sx) * ne;
+}
+
+__device__ __forceinline__ float dinv_at(const Tile9& t, int sy, int sx) {
+  return tat(t, 9, sy, sx);
+}
+
+// k polynomial smoother steps on the shared tile, Dirichlet-masked; step s
+// takes (alpha, beta) = (steps[2s], steps[2s + 1]).  zero_guess: u = p = 0
+// on entry and the first step is z = dinv * b.
+template <class R>
+__device__ void smooth_tile(const float* b, float* u, float* p, const R& rc,
+                            const float* __restrict__ steps, int k,
+                            bool zero_guess, int SH, int SW, int gy0, int gx0,
+                            int ny, int nx) {
   const int n = SH * SW;
-  for (int s = 0; s < st.k; ++s) {
-    const float a = st.alpha[s];
-    const float bt = st.beta[s];
+  for (int s = 0; s < k; ++s) {
+    const float a = steps[2 * s];
+    const float bt = steps[2 * s + 1];
     const bool first = zero_guess && s == 0;
     for (int i = threadIdx.x; i < n; i += NTHREADS) {
       int sy = i / SW, sx = i - (i / SW) * SW;
@@ -155,8 +266,8 @@ __device__ void smooth_tile(const float* b, float* u, float* p,
         p[i] = 0.f;
         continue;
       }
-      float z = first ? rc.dinv[sy] * b[i]
-                      : rc.dinv[sy] * (b[i] - apply_at(u, rc, sy, sx, SH, SW));
+      const float d = dinv_at(rc, sy, sx);
+      float z = first ? d * b[i] : d * (b[i] - apply_at(u, rc, sy, sx, SH, SW));
       p[i] = (s == 0 ? 0.f : bt * p[i]) + a * z;
     }
     __syncthreads();
@@ -165,40 +276,12 @@ __device__ void smooth_tile(const float* b, float* u, float* p,
   }
 }
 
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = lane < NTHREADS / 32 ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;  // valid in thread 0
+template <class C>
+size_t visit_smem_bytes(const C& c, int H) {
+  const int SH = TY + 2 * H, SW = TX + 2 * H;
+  return sizeof(float) * (3 * (size_t)SH * SW + coeff_floats(c, SH, SW) +
+                          NTHREADS / 32);
 }
-
-// Bilinear prolongation of the coarse field e (nyc x nxc, zero ring) at
-// fine point (gy, gx); same arithmetic as ops/transfer.prolong_bilinear.
-__device__ __forceinline__ float prolong_at(const float* e, int gy, int gx,
-                                            int nyc, int nxc) {
-  auto at = [&](int I, int J) -> float {
-    return (I >= 0 && I < nyc && J >= 0 && J < nxc)
-               ? e[(size_t)I * nxc + J] : 0.f;
-  };
-  const int I = gy >> 1, J = gx >> 1;
-  const bool oy = gy & 1, ox = gx & 1;
-  if (oy && ox) return at(I, J);
-  if (oy) return (at(I, J - 1) + at(I, J)) * 0.5f;
-  if (ox) return (at(I - 1, J) + at(I, J)) * 0.5f;
-  return (at(I - 1, J - 1) + at(I - 1, J) + at(I, J - 1) + at(I, J)) * 0.25f;
-}
-
-constexpr size_t visit_smem_bytes(int H) {
-  return sizeof(float) * (3 * (size_t)(TY + 2 * H) * (TX + 2 * H) +
-                          6 * (size_t)(TY + 2 * H) + NTHREADS / 32);
-}
-static_assert(visit_smem_bytes(MAX_STEPS + 2) <= MAX_SMEM,
-              "the widest visit must fit a block's shared memory");
 
 constexpr int halo(int emit, int k) {
   return k + (emit == EMIT_U ? 0 : emit == EMIT_RC ? 2 : 1);
@@ -206,19 +289,20 @@ constexpr int halo(int emit, int k) {
 
 // The level visit: [b = r - alpha ap] [u + P e] -> k steps -> the emits.
 // rc holds the coarse points whose 3x3 footprint the tile owns.
-template <bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT>
+template <bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT, class C>
 __global__ void __launch_bounds__(NTHREADS)
-visit_kernel(Coeffs c, VisitIO io, int ny, int nx, int H, Steps st) {
+visit_kernel(C c, VisitIO io, int ny, int nx, int H,
+             const float* __restrict__ steps, int k) {
   extern __shared__ float sm[];
   const int SH = TY + 2 * H, SW = TX + 2 * H, n = SH * SW;
   float* b = sm;
   float* u = b + n;
   float* p = u + n;
-  float* red = p + n + 6 * SH;
+  float* red = p + n + coeff_floats(c, SH, SW);
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int gy0 = y0 - H, gx0 = x0 - H;
   const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
-  RowCoeffs rc = load_row_coeffs(c, p + n, SH, gy0, ny);
+  const auto rc = stage(c, p + n, SH, SW, gy0, gx0, ny, nx);
   const float alpha = CG ? *io.alpha : 0.f;
   for (int i = threadIdx.x; i < n; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
@@ -235,7 +319,7 @@ visit_kernel(Coeffs c, VisitIO io, int ny, int nx, int H, Steps st) {
     p[i] = 0.f;
   }
   __syncthreads();
-  smooth_tile(b, u, p, rc, st, !GUESS, SH, SW, gy0, gx0, ny, nx);
+  smooth_tile(b, u, p, rc, steps, k, !GUESS, SH, SW, gy0, gx0, ny, nx);
 
   float acc = 0.f;
   for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
@@ -278,42 +362,50 @@ visit_kernel(Coeffs c, VisitIO io, int ny, int nx, int H, Steps st) {
     }
   }
   if (CG || DOT) {
-    float s = block_sum(acc, red);
+    float s = mg::block_sum<NTHREADS>(acc, red);
     if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = s;
   }
 }
 
-using VisitFn = void (*)(Coeffs, VisitIO, int, int, int, Steps);
+template <class C>
+using VisitFn = void (*)(C, VisitIO, int, int, int, const float*, int);
 
-template <bool GUESS, bool CORRECT>
-VisitFn pick_emit(int emit, bool dot) {
+template <bool GUESS, bool CORRECT, class C>
+VisitFn<C> pick_emit(int emit, bool dot) {
   switch (emit) {
     case EMIT_U:
-      return dot ? visit_kernel<false, GUESS, CORRECT, EMIT_U, true>
-                 : visit_kernel<false, GUESS, CORRECT, EMIT_U, false>;
+      return dot ? visit_kernel<false, GUESS, CORRECT, EMIT_U, true, C>
+                 : visit_kernel<false, GUESS, CORRECT, EMIT_U, false, C>;
     case EMIT_UR:
-      return dot ? nullptr : visit_kernel<false, GUESS, CORRECT, EMIT_UR, false>;
+      return dot ? nullptr
+                 : visit_kernel<false, GUESS, CORRECT, EMIT_UR, false, C>;
     case EMIT_R:
-      return dot ? nullptr : visit_kernel<false, GUESS, CORRECT, EMIT_R, false>;
+      return dot ? nullptr
+                 : visit_kernel<false, GUESS, CORRECT, EMIT_R, false, C>;
     case EMIT_RC:
-      return dot ? nullptr : visit_kernel<false, GUESS, CORRECT, EMIT_RC, false>;
+      return dot ? nullptr
+                 : visit_kernel<false, GUESS, CORRECT, EMIT_RC, false, C>;
   }
   return nullptr;
 }
 
 // The instantiation for a flag set, or null for a set the family lacks
-// (CG is the zero-guess rc visit only; DOT goes with emit u only; a
-// correction needs a guess).
-VisitFn pick_visit(int flags) {
+// (CG is the 5-point zero-guess rc visit only; DOT goes with emit u only;
+// a correction needs a guess).
+template <class C>
+VisitFn<C> pick_visit(int flags) {
   const bool cg = flags & F_CG, guess = flags & F_GUESS;
   const bool correct = flags & F_CORRECT, dot = flags & F_DOT;
   const int emit = flags >> EMIT_SHIFT;
-  if (cg)
-    return (guess || correct || dot || emit != EMIT_RC)
-               ? nullptr : visit_kernel<true, false, false, EMIT_RC, false>;
-  if (!guess) return correct ? nullptr : pick_emit<false, false>(emit, dot);
-  return correct ? pick_emit<true, true>(emit, dot)
-                 : pick_emit<true, false>(emit, dot);
+  if (cg) {
+    if constexpr (std::is_same<C, Coeffs>::value)
+      return (guess || correct || dot || emit != EMIT_RC)
+                 ? nullptr : visit_kernel<true, false, false, EMIT_RC, false, C>;
+    return nullptr;
+  }
+  if (!guess) return correct ? nullptr : pick_emit<false, false, C>(emit, dot);
+  return correct ? pick_emit<true, true, C>(emit, dot)
+                 : pick_emit<true, false, C>(emit, dot);
 }
 
 // K1: p' = z + beta p (tile + 1-point halo in shared memory), A p',
@@ -331,7 +423,7 @@ cg_papply_u_kernel(Coeffs c, const float* __restrict__ z,
   __shared__ float red[NTHREADS / 32];
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int gy0 = y0 - 1, gx0 = x0 - 1;
-  RowCoeffs rc = load_row_coeffs(c, crow, SH, gy0, ny);
+  RowCoeffs rc = stage(c, crow, SH, SW, gy0, gx0, ny, nx);
   const float beta = *beta_ptr, alpha_prev = *alpha_prev_ptr;
   for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
@@ -358,23 +450,23 @@ cg_papply_u_kernel(Coeffs c, const float* __restrict__ z,
     un_out[g] = u[g] + alpha_prev * p[g];
     acc += v * a;
   }
-  float s = block_sum(acc, red);
+  float s = mg::block_sum<NTHREADS>(acc, red);
   if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
-// K6 (RESID = false): y = A u; residual5 (RESID = true): y = b - A u.
-// The tile + 1-point halo of u in shared memory, as K1.
-template <bool RESID>
+// K6 / K12 (RESID = false): y = A u; residual5 / residual9 (RESID = true):
+// y = b - A u.  The tile + 1-point halo of u in shared memory, as K1, with
+// the coefficients staged after it.
+template <bool RESID, class C>
 __global__ void __launch_bounds__(NTHREADS)
-stencil_kernel(Coeffs c, const float* __restrict__ b,
-               const float* __restrict__ u, float* __restrict__ y, int ny,
-               int nx) {
+stencil_kernel(C c, const float* __restrict__ b, const float* __restrict__ u,
+               float* __restrict__ y, int ny, int nx) {
   constexpr int SH = TY + 2, SW = TX + 2;
-  __shared__ float us[SH * SW];
-  __shared__ float crow[6 * SH];
+  extern __shared__ float sm[];
+  float* us = sm;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int gy0 = y0 - 1, gx0 = x0 - 1;
-  RowCoeffs rc = load_row_coeffs(c, crow, SH, gy0, ny);
+  const auto rc = stage(c, us + SH * SW, SH, SW, gy0, gx0, ny, nx);
   for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
     int gy = gy0 + sy, gx = gx0 + sx;
@@ -392,18 +484,38 @@ stencil_kernel(Coeffs c, const float* __restrict__ b,
   }
 }
 
-int load_steps(const double* host, int k, Steps* st) {
-  if (k < 1 || k > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  st->k = k;
-  for (int s = 0; s < k; ++s) {
-    st->alpha[s] = (float)host[2 * s];
-    st->beta[s] = (float)host[2 * s + 1];
-  }
-  return 0;
-}
-
 dim3 visit_grid(int ny, int nx) {
   return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
+}
+
+template <class C>
+int launch_visit(const C& c, const VisitIO& io, int ny, int nx,
+                 const float* steps, int k, int flags, void* stream) {
+  VisitFn<C> kern = pick_visit<C>(flags);
+  if (kern == nullptr || k < 1) return (int)cudaErrorInvalidValue;
+  const int H = halo(flags >> EMIT_SHIFT, k);
+  const size_t smem = visit_smem_bytes(c, H);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+      c, io, ny, nx, H, steps, k);
+  return (int)cudaGetLastError();
+}
+
+template <class C>
+int launch_stencil(const C& c, const float* b, const float* u, float* y,
+                   int ny, int nx, int resid, void* stream) {
+  auto kern = resid ? stencil_kernel<true, C> : stencil_kernel<false, C>;
+  const size_t smem =
+      sizeof(float) * ((TY + 2) * (TX + 2) + coeff_floats(c, TY + 2, TX + 2));
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+      c, b, u, y, ny, nx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -428,30 +540,31 @@ int mg_cg_papply_u(const float* cs, const float* cw, const float* cc,
   return (int)cudaGetLastError();
 }
 
-// One level visit (K2a, K2b, K3, K7, K9).  flags: F_CG | F_GUESS |
+// One 5-point level visit (K2a, K2b, K3, K7, K9).  flags: F_CG | F_GUESS |
 // F_CORRECT | F_DOT | emit << EMIT_SHIFT; the pointers the flags do not
-// use may be null.  A flag set outside the family is refused.
+// use may be null; steps: k (alpha, beta) pairs of f32 in device memory.
+// A flag set outside the family, or a visit whose shared memory exceeds a
+// block's, is refused.
 int mg_visit(const float* cs, const float* cw, const float* cc,
              const float* ce, const float* cn, const float* b,
              const float* ap, const float* alpha, const float* u,
              const float* e, float* u_out, float* r_out, float* rc_out,
              float* rnew_out, float* part, int ny, int nx,
-             const double* steps, int k, int flags, void* stream) {
-  VisitFn kern = pick_visit(flags);
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
-  Steps st;
-  int err = load_steps(steps, k, &st);
-  if (err) return err;
+             const float* steps, int k, int flags, void* stream) {
   Coeffs c{cs, cw, cc, ce, cn};
   VisitIO io{b, ap, alpha, u, e, u_out, r_out, rc_out, rnew_out, part};
-  const int H = halo(flags >> EMIT_SHIFT, k);
-  const size_t smem = visit_smem_bytes(H);
-  err = (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-      c, io, ny, nx, H, st);
-  return (int)cudaGetLastError();
+  return launch_visit(c, io, ny, nx, steps, k, flags, stream);
+}
+
+// One 9-point level visit (K13, K14): as mg_visit without F_CG; the
+// coefficients as in mg_common.cuh's coeffs9().
+int mg_visit9(const unsigned long long* cptrs, const int* cstrides,
+              const float* b, const float* u, const float* e, float* u_out,
+              float* r_out, float* rc_out, float* part, int ny, int nx,
+              const float* steps, int k, int flags, void* stream) {
+  VisitIO io{b, nullptr, nullptr, u, e, u_out, r_out, rc_out, nullptr, part};
+  return launch_visit(coeffs9(cptrs, cstrides), io, ny, nx, steps, k, flags,
+                      stream);
 }
 
 // K6 (resid == 0): y = A u; residual5 (resid != 0): y = b - A u.
@@ -460,10 +573,15 @@ int mg_stencil(const float* cs, const float* cw, const float* cc,
                const float* u, float* y, int ny, int nx, int resid,
                void* stream) {
   Coeffs c{cs, cw, cc, ce, cn};
-  auto kern = resid ? stencil_kernel<true> : stencil_kernel<false>;
-  kern<<<visit_grid(ny, nx), NTHREADS, 0, (cudaStream_t)stream>>>(
-      c, b, u, y, ny, nx);
-  return (int)cudaGetLastError();
+  return launch_stencil(c, b, u, y, ny, nx, resid, stream);
+}
+
+// K12: y = A u (resid == 0) or y = b - A u, 9-point.
+int mg_stencil9(const unsigned long long* cptrs, const int* cstrides,
+                const float* b, const float* u, float* y, int ny, int nx,
+                int resid, void* stream) {
+  return launch_stencil(coeffs9(cptrs, cstrides), b, u, y, ny, nx, resid,
+                        stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ At first use, every ``csrc/*.cu`` source of the package is compiled with
 together, and the objects are linked into one shared library with a plain
 C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
 git), which is loaded with ``ctypes``.  The library name carries a hash of the
-sources and flags, so an edited source rebuilds.  Nothing here runs at
+sources, their shared header(s) ``csrc/*.cuh`` and the flags, so an edited
+source rebuilds.  Nothing here runs at
 import time: the CPU-only test tier imports every module without a
 compiler or a card.
 """
@@ -30,12 +31,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points (csrc/*.cu) and their argument types: every pointer and
 # the stream as c_void_p, so no 64-bit value is cut to a C int.
+_F = ctypes.c_float
 _SIGNATURES = {
     "mg_visit_blocks": [_I, _I],
     "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
     "mg_visit": [_P] * 5 + [_P] * 10 + [_I, _I, _P, _I, _I, _P],
+    "mg_visit9": [_P, _P] + [_P] * 7 + [_I, _I, _P, _I, _I, _P],
     "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
+    "mg_stencil9": [_P, _P] + [_P] * 3 + [_I, _I, _I, _P],
     "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "mg_line_blocks": [_I],
+    "mg_line_sweep": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I, _I, _F, _F, _P],
+    "mg_line_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -54,7 +61,7 @@ def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernels' shared library."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libmgtorch_{h.hexdigest()[:16]}.so"

@@ -21,9 +21,9 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _check_cuda,
     _on_cpu,
     _stencil_fields,
-    _steps_array,
     _stream,
     smooth_steps,
+    steps_tensor,
 )
 from multigrid_petsc_tpu_torch.ops.stencil import apply_stencil5
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
@@ -88,8 +88,9 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
     if a_inv is not None:
         a_inv_t = torch.as_tensor(np.asarray(a_inv), dtype=cc0.dtype,
                                   device=cc0.device)
-    steps_h = np.concatenate([_steps_array(s) for s in steps_list])
     ks = np.asarray([len(s) for s in steps_list], np.int32)
+    if ks.min() < 1:
+        raise ValueError("every level of the coarse tree takes >= 1 step")
     shapes_h = np.asarray(shapes, np.int32).reshape(-1)
 
     def solve(b: torch.Tensor) -> torch.Tensor:
@@ -103,6 +104,8 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
             n_l = shapes[-1][0] * shapes[-1][1]
             fields["a_inv"] = (a_inv_t, (n_l, n_l))
         _check_cuda(b.device, fields)
+        # Every level's schedule, concatenated: one f32 buffer on the card.
+        steps_d = steps_tensor(sum(map(tuple, steps_list), ()), b.device)
         lib = load_library()
         # One scratch allocation: per level (b, ua, ub, p), except that the
         # entry level's b is the input and its ub is the output; plus the
@@ -135,7 +138,7 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
             ptrs[10 * l + 8] = take(n)
         rr = take(sizes[0])
         err = lib.mg_coarse_tree(
-            L, shapes_h.ctypes.data, ks.ctypes.data, steps_h.ctypes.data,
+            L, shapes_h.ctypes.data, ks.ctypes.data, steps_d.data_ptr(),
             ptrs.ctypes.data,
             None if a_inv_t is None else a_inv_t.data_ptr(), rr,
             out.data_ptr(), _stream(b.device))

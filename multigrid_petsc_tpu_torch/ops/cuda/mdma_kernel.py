@@ -18,8 +18,13 @@ smoother is the static (alpha_s, beta_s) schedule of
 on the data's device; dots come back as 0-d tensors there.
 
 K2a, K2b and K3 are flag sets of the one visit kernel of
-``csrc/visit.cu``; ``launch_visit`` launches any flag set of it and is
-shared with the V-cycle family's wrappers (``ops/cuda/stencil_kernel.py``).
+``csrc/visit.cu``; ``launch_visit`` launches any flag set of it, for a
+Stencil5 or a Stencil9, and is shared with the V-cycle family's and the
+9-point family's wrappers (``ops/cuda/stencil_kernel.py``,
+``ops/cuda/stencil9_kernel.py``).  The smoother's (alpha, beta) schedule
+goes to the kernel as a small f32 buffer in device memory
+(``steps_tensor``), so the only bound on a visit's sweep count is its
+shared memory (``max_visit_steps``).
 
 Each wrapper runs its plain PyTorch version (``*_plain``, below) when the
 data lies on the CPU, launches its kernel when it lies on a CUDA device
@@ -29,6 +34,7 @@ the other.  Every output is a fresh tensor.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,12 +42,16 @@ import torch
 
 from multigrid_petsc_tpu_torch.ops.cuda import launches
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
-from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, apply_stencil5
+from multigrid_petsc_tpu_torch.ops.stencil import (
+    Stencil5,
+    Stencil9,
+    apply_stencil,
+    apply_stencil5,
+)
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
-# csrc/visit.cu and csrc/coarse_tree.cu: the coarse tree's per-level
-# schedules must fit the 4 KB kernel-parameter block (31 fits, 32 not).
-MAX_STEPS = 31
+# csrc/visit.cu: output tile, threads and shared memory of a visit block.
+TILE_Y, TILE_X, THREADS, MAX_SMEM = 32, 64, 256, 232448
 
 
 # --------------------------------------------------------------------------
@@ -49,11 +59,11 @@ MAX_STEPS = 31
 # --------------------------------------------------------------------------
 
 
-def smooth_steps(st: Stencil5, b: torch.Tensor, u: torch.Tensor | None,
+def smooth_steps(st, b: torch.Tensor, u: torch.Tensor | None,
                  steps) -> torch.Tensor:
     """The kernels' step body: z = D^-1 (b - A u); p = beta p + alpha z;
-    u += p.  ``u=None`` is the zero guess, whose first step is
-    z = D^-1 b."""
+    u += p, for a Stencil5 or a Stencil9.  ``u=None`` is the zero guess,
+    whose first step is z = D^-1 b."""
     dinv = 1.0 / st.cc
     p = None
     for s, (a, bt) in enumerate(steps):
@@ -61,7 +71,7 @@ def smooth_steps(st: Stencil5, b: torch.Tensor, u: torch.Tensor | None,
             p = a * (dinv * b)
             u = p
             continue
-        z = dinv * (b - apply_stencil5(st, u))
+        z = dinv * (b - apply_stencil(st, u))
         p = a * z if s == 0 else bt * p + a * z
         u = u + p
     return u
@@ -128,12 +138,81 @@ def _stencil_fields(st: Stencil5, ny: int) -> dict:
     return {f"st.{n}": (c, (ny, 1)) for n, c in zip(Stencil5._fields, st)}
 
 
-def _steps_array(steps) -> np.ndarray:
-    k = len(steps)
-    if not 1 <= k <= MAX_STEPS:
-        raise ValueError(f"the visit kernels take 1..{MAX_STEPS} steps, "
-                         f"got {k}")
-    return np.ascontiguousarray(np.asarray(steps, np.float64).reshape(-1))
+class Coeff9Args(NamedTuple):
+    """A Stencil9 as the C entries take it (csrc/mg_common.cuh Coeffs9)."""
+
+    ptrs: np.ndarray     # 9 device pointers (uint64)
+    strides: np.ndarray  # 9 y-strides, then 9 x-strides (int32)
+    kinds: tuple         # per coefficient: (varies with y, varies with x)
+    fields: dict         # for _check_cuda
+
+
+def coeff9_args(st: Stencil9, ny: int, nx: int) -> Coeff9Args:
+    """Each coefficient in its own broadcast shape, (1, 1), (ny, 1),
+    (1, nx) or (ny, nx), with the strides that address it."""
+    ptrs, sy, sx, kinds, fields = [], [], [], [], {}
+    for name, c in zip(Stencil9._fields, st):
+        if c.dim() != 2 or c.shape[0] not in (1, ny) or c.shape[1] not in (
+                1, nx):
+            raise ValueError(f"st.{name}: shape {tuple(c.shape)} is not one "
+                             f"of (1, 1), ({ny}, 1), (1, {nx}), ({ny}, {nx})")
+        fields[f"st.{name}"] = (c, tuple(c.shape))
+        ky, kx = c.shape[0] > 1, c.shape[1] > 1
+        kinds.append((ky, kx))
+        ptrs.append(c.data_ptr())
+        sy.append(c.shape[1] if ky else 0)
+        sx.append(1 if kx else 0)
+    return Coeff9Args(np.asarray(ptrs, np.uint64),
+                      np.asarray(sy + sx, np.int32), tuple(kinds), fields)
+
+
+def _coeff_floats(kinds, sh: int, sw: int) -> int:
+    """Shared-memory floats of a tile's staged coefficients (visit.cu
+    coeff_floats): 6 rows for a Stencil5 (``kinds`` None); per 9-point
+    coefficient (and cc's inverse) its own shape."""
+    if kinds is None:
+        return 6 * sh
+
+    def size(ky, kx):
+        return (sh if ky else 1) * (sw if kx else 1)
+
+    return size(*kinds[4]) + sum(size(*k) for k in kinds)
+
+
+def visit_smem_bytes(kinds, h: int) -> int:
+    """Shared memory of a visit block with halo h (visit.cu
+    visit_smem_bytes)."""
+    sh, sw = TILE_Y + 2 * h, TILE_X + 2 * h
+    return 4 * (3 * sh * sw + _coeff_floats(kinds, sh, sw) + THREADS // 32)
+
+
+def _halo(emit: str, k: int) -> int:
+    return k + {"u": 0, "ur": 1, "r": 1, "rc": 2}[emit]
+
+
+def max_visit_steps(kinds, emit: str) -> int:
+    """The most smoother steps a visit takes: its tile + halo must fit a
+    block's shared memory (43 for the 5-point visit with emit rc, 28 for
+    the 9-point visit of the anisotropic stencil)."""
+    k = 0
+    while visit_smem_bytes(kinds, _halo(emit, k + 1)) <= MAX_SMEM:
+        k += 1
+    return k
+
+
+@functools.lru_cache(maxsize=256)
+def _steps_on(steps: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(steps, dtype=torch.float32,
+                        device=device).reshape(-1)
+
+
+def steps_tensor(steps, device: torch.device) -> torch.Tensor:
+    """The (alpha, beta) schedule as f32 pairs in device memory, made once
+    per schedule and device (the kernels read it by pointer)."""
+    if len(steps) < 1:
+        raise ValueError("the visit kernels take at least one step")
+    return _steps_on(tuple((float(a), float(bt)) for a, bt in steps),
+                     torch.device(device))
 
 
 def _odd_shape(x: torch.Tensor) -> tuple[int, int]:
@@ -183,18 +262,34 @@ class VisitOut(NamedTuple):
     dot: torch.Tensor | None    # CG: ||r'||^2; emit_dot: <b, u>
 
 
-def launch_visit(st: Stencil5, b, steps, *, emit: str, u=None, e_c=None,
-                 ap=None, alpha=None, emit_dot: bool = False) -> VisitOut:
-    """One launch of the visit kernel family on CUDA tensors (f32): the
-    CG residual update when ``ap`` is given, the guess ``u`` (None: zero),
-    the correction ``e_c``, then ``len(steps)`` smoother steps and the
-    ``emit`` outputs.  Checks every argument; raises on a combination the
-    family lacks.  The caller counts the launch."""
+def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
+                 alpha=None, emit_dot: bool = False) -> VisitOut:
+    """One launch of the visit kernel family on CUDA tensors (f32), for a
+    Stencil5 or a Stencil9: the CG residual update when ``ap`` is given
+    (5-point only), the guess ``u`` (None: zero), the correction ``e_c``,
+    then ``len(steps)`` smoother steps and the ``emit`` outputs.  Checks
+    every argument; raises ValueError on a combination the family lacks
+    or a sweep count past the shared-memory bound.  The caller counts the
+    launch."""
     cg = ap is not None
+    nine = isinstance(st, Stencil9)
     transfer = emit == "rc" or e_c is not None
     ny, nx = _odd_shape(b) if transfer else b.shape
     nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
-    fields = {"b": (b, (ny, nx)), **_stencil_fields(st, ny)}
+    if nine:
+        if cg:
+            raise ValueError("the CG visit is 5-point only")
+        c9 = coeff9_args(st, ny, nx)
+        fields = {"b": (b, (ny, nx)), **c9.fields}
+    else:
+        fields = {"b": (b, (ny, nx)), **_stencil_fields(st, ny)}
+    kinds = c9.kinds if nine else None
+    if visit_smem_bytes(kinds, _halo(emit, len(steps))) > MAX_SMEM:
+        raise ValueError(
+            f"a {9 if nine else 5}-point visit with emit {emit!r} takes at "
+            f"most {max_visit_steps(kinds, emit)} steps (its tile and halo "
+            f"must fit the {MAX_SMEM} B of shared memory of a block); got "
+            f"{len(steps)}")
     scalars = {}
     if cg:
         fields["ap"] = (ap, (ny, nx))
@@ -204,7 +299,7 @@ def launch_visit(st: Stencil5, b, steps, *, emit: str, u=None, e_c=None,
     if e_c is not None:
         fields["e_c"] = (e_c, (nyc, nxc))
     _check_cuda(b.device, fields, scalars)
-    steps_h = _steps_array(steps)
+    steps_d = steps_tensor(steps, b.device)
     lib = load_library()
 
     def new(shape, want):
@@ -223,10 +318,17 @@ def launch_visit(st: Stencil5, b, steps, *, emit: str, u=None, e_c=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.mg_visit(*(c.data_ptr() for c in st), b.data_ptr(), ptr(ap),
-                       ptr(alpha), ptr(u), ptr(e_c), *map(ptr, out), ny, nx,
-                       steps_h.ctypes.data, len(steps), flags,
-                       _stream(b.device))
+    if nine:
+        err = lib.mg_visit9(c9.ptrs.ctypes.data, c9.strides.ctypes.data,
+                            b.data_ptr(), ptr(u), ptr(e_c), ptr(out.u),
+                            ptr(out.r), ptr(out.rc), ptr(out.dot), ny, nx,
+                            steps_d.data_ptr(), len(steps), flags,
+                            _stream(b.device))
+    else:
+        err = lib.mg_visit(*(c.data_ptr() for c in st), b.data_ptr(),
+                           ptr(ap), ptr(alpha), ptr(u), ptr(e_c),
+                           *map(ptr, out), ny, nx, steps_d.data_ptr(),
+                           len(steps), flags, _stream(b.device))
     check(err, f"visit launch (flags {flags})")
     return out if out.dot is None else out._replace(dot=out.dot.sum())
 

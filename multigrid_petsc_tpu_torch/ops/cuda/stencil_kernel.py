@@ -77,8 +77,10 @@ def _check_visit(u, emit, e_coarse, emit_dot) -> None:
         raise ValueError("a zero-guess visit cannot take a correction")
 
 
-def fused_level_visit_plain(st: Stencil5, b, u, steps, emit: str = "u",
+def fused_level_visit_plain(st, b, u, steps, emit: str = "u",
                             e_coarse=None, emit_dot: bool = False):
+    """The visit's composition for a Stencil5 or a Stencil9: [u + P e_c],
+    the step recurrence, then the emits."""
     _check_visit(u, emit, e_coarse, emit_dot)
     if e_coarse is not None:
         u = u + prolong_bilinear(e_coarse)

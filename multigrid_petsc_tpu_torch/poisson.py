@@ -2,13 +2,16 @@
 ``multigrid_petsc_tpu/poisson.py``):
 
     python -m multigrid_petsc_tpu_torch.poisson [options_file] \\
-        [-key value ...] -device cpu|cuda
+        [-key value ...] [-device cuda|cpu]
 
 Reads a poisson.in-style options file (default ./poisson.in if present),
 applies the command-line ``-key value`` overrides, runs the configured
-cycle (V-cycle, MG-Richardson, FMG, Additive or mg-CG) on the named
-device and prints iterations, residual, error norms and timing.
-``-device`` is required; ``cuda`` without a card is an error.
+cycle (V-cycle, MG-Richardson, FMG, Additive, mg-CG or mg-FGMRES) for the
+configured problem (``-problem poisson``, or ``-problem aniso -aniso
+a0,a2,c0,c2,b``, the 9-point family) on the device and prints
+iterations, residual, error norms and timing.  ``-device`` defaults to
+``cuda``, which without a card is an error; ``-device cpu`` runs the
+plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -32,17 +35,20 @@ CYCLE_NAMES = {
     CycleType.FMG: "FMG",
     CycleType.ADDITIVE: "Additive",
     CycleType.MGCG: "mg-CG",
+    CycleType.MGFGMRES: "mg-FGMRES",
 }
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "-device" not in argv or argv.index("-device") + 1 >= len(argv):
-        print("usage: -device cpu|cuda is required", file=sys.stderr)
-        return 2
-    i = argv.index("-device")
-    device = argv[i + 1]
-    del argv[i : i + 2]
+    device = "cuda"
+    if "-device" in argv:
+        i = argv.index("-device")
+        if i + 1 >= len(argv):
+            print("usage: -device cuda|cpu", file=sys.stderr)
+            return 2
+        device = argv[i + 1]
+        del argv[i : i + 2]
 
     cfg = SolverConfig()
     if argv and not argv[0].startswith("-"):
@@ -59,10 +65,13 @@ def main(argv=None) -> int:
 
     res = solve(cfg, device=device)
     errs = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)
+    problem = cfg.problem
+    if problem == "aniso":
+        problem += "(" + ",".join(f"{a:g}" for a in cfg.aniso) + ")"
     print(f"{CYCLE_NAMES[cfg.cycle]} (cycle {cfg.cycle.value}) "
-          f"smoother={cfg.smoother.value} npts={cfg.npts} "
-          f"levels={cfg.levels} dtype={cfg.dtype} device={device} "
-          f"path={res.path}")
+          f"smoother={cfg.smoother.value} problem={problem} "
+          f"npts={cfg.npts} levels={cfg.levels} dtype={cfg.dtype} "
+          f"device={device} path={res.path}")
     print(f"iterations: {res.iters}  converged: {res.converged}")
     print(f"relative residual: {res.rnorm[-1]:.6e}")
     print("error (max, L1, L2): " + " ".join(f"{e:.6e}" for e in errs))

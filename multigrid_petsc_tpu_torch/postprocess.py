@@ -7,14 +7,26 @@ from __future__ import annotations
 import torch
 
 from multigrid_petsc_tpu_torch.mesh import MeshType
-from multigrid_petsc_tpu_torch.problems import Problem, exact_grid
+from multigrid_petsc_tpu_torch.problems import (
+    AnisoProblem,
+    Problem,
+    aniso_exact_grid,
+    exact_grid,
+)
 
 
-def error_norms(problem: Problem, mesh_type: MeshType, u_fine: torch.Tensor):
+def error_norms(problem: Problem | AnisoProblem, mesh_type: MeshType,
+                u_fine: torch.Tensor):
     """(max, L1, L2) of |u - u_exact| on the fine interior grid (L1/L2
-    are unnormalized sums, as in the reference), on ``u_fine``'s device."""
+    are unnormalized sums, as in the reference), on ``u_fine``'s device.
+    The anisotropic family lives on the uniform grid
+    (``aniso_exact_grid``); ``mesh_type`` is then not used."""
     ny, nx = u_fine.shape
-    ue = exact_grid(problem, mesh_type, ny, nx, u_fine.dtype, u_fine.device)
+    if isinstance(problem, AnisoProblem):
+        ue = aniso_exact_grid(problem, ny, nx, u_fine.dtype, u_fine.device)
+    else:
+        ue = exact_grid(problem, mesh_type, ny, nx, u_fine.dtype,
+                        u_fine.device)
     diff = torch.abs(u_fine - ue)
     return (
         float(torch.max(diff)),

@@ -1,5 +1,6 @@
 """Coarsest-level direct solver (PyTorch counterpart of the single-grid
-slice of ``multigrid_petsc_tpu/solvers/coarse.py``).
+slice of ``multigrid_petsc_tpu/solvers/coarse.py``), for the 5- and the
+9-point stencil.
 
 The dense operator is assembled analytically on the host and inverted
 there in f64 with numpy, once at setup; each application is one small
@@ -15,8 +16,9 @@ import torch
 
 
 def dense_from_stencil(st, ny: int, nx: int) -> np.ndarray:
-    """Dense (N, N) f64 matrix of a 5-point stencil with the Dirichlet
-    boundary eliminated (reference analogue: src/solver.c:185-253)."""
+    """Dense (N, N) f64 matrix of a 5- or 9-point stencil with the
+    Dirichlet boundary eliminated (reference analogue:
+    src/solver.c:185-253)."""
     N = ny * nx
     a = np.zeros((N, N))
     ii, jj = np.mgrid[0:ny, 0:nx]
@@ -26,8 +28,12 @@ def dense_from_stencil(st, ny: int, nx: int) -> np.ndarray:
         c = c.detach().cpu().numpy() if isinstance(c, torch.Tensor) else c
         return np.broadcast_to(np.asarray(c, np.float64), (ny, nx)).ravel()
 
+    # (name, dy, dx); a Stencil5 lacks the corners.
     for name, dy, dx in (("cc", 0, 0), ("cs", -1, 0), ("cn", 1, 0),
-                         ("cw", 0, -1), ("ce", 0, 1)):
+                         ("cw", 0, -1), ("ce", 0, 1), ("csw", -1, -1),
+                         ("cse", -1, 1), ("cnw", 1, -1), ("cne", 1, 1)):
+        if not hasattr(st, name):
+            continue
         i2, j2 = ii + dy, jj + dx
         ok = ((i2 >= 0) & (i2 < ny) & (j2 >= 0) & (j2 < nx)).ravel()
         cols = (i2 * nx + j2).ravel()

@@ -1,13 +1,15 @@
-"""Preconditioned CG with one V-cycle as M (PyTorch counterpart of
-``solve_mgcg``, ``build_coarse_tree``, ``mdma_plan`` and
-``_solve_mgcg_fused_mdma`` in ``multigrid_petsc_tpu/solvers/krylov.py``;
-reference analogue: the PCMG cross-check path, src/solver.c:1884-1989).
+"""Krylov outers with one V-cycle as the preconditioner: PCG (mg-CG) and
+flexible GMRES (mg-FGMRES).  PyTorch counterpart of ``solve_mgcg``,
+``build_coarse_tree``, ``mdma_plan``, ``_solve_mgcg_fused_mdma`` and
+``solve_mgfgmres`` in ``multigrid_petsc_tpu/solvers/krylov.py``; reference
+analogue: the PCMG cross-check path, src/solver.c:1884-1989.
 
 The standard PCG formulas hold verbatim for the negative-definite
 discrete Laplacian (both inner products flip sign, ratios stay positive).
-The loop runs on the host; alpha, beta, the inner products and ||r|| stay
-0-d tensors on the device, which the kernels read by pointer, so the only
-host read per iteration is the stop test.
+The loops run on the host; scalars (alpha, beta, the inner products,
+||r||, FGMRES's Hessenberg column and Givens rotations) stay tensors on
+the device, which the kernels read by pointer, so the only host read per
+iteration (FGMRES: per restart block) is the stop test.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ from multigrid_petsc_tpu_torch.solvers.vcycle import _cycle, _visit_sweeps, mg_a
 
 
 def solve_mgcg(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
-    """mg-CG.  Hierarchies of two or more levels run the fused plan
-    (``_solve_mgcg_fused_mdma``); a 1-level hierarchy runs the generic
-    PCG loop (A p through K6, the smoother through K7 on the card)."""
+    """mg-CG.  Hierarchies of two or more levels whose level 0 is 5-point
+    and point-smoothed run the fused plan (``_solve_mgcg_fused_mdma``);
+    the rest run the generic PCG loop (A p through K6 or K12, the V-cycle
+    through the levels' visits), as the JAX package routes the 9-point
+    and line-smoothed families."""
     b = ctx.b0 if b0 is None else b0
-    if len(ctx.levels) > 1:
+    if len(ctx.levels) > 1 and ctx.levels[0].point5:
         return _solve_mgcg_fused_mdma(ctx, b)
     return _solve_mgcg_generic(ctx, b)
 
@@ -82,6 +86,8 @@ def build_coarse_tree(ctx: MGContext):
     for l_t in range(1, L - 1):
         lv = ctx.levels[l_t:]
         shapes = [l.shape for l in lv]
+        if not all(l.point5 for l in lv):
+            continue  # the tree runs 5-point point smoothers only
         if not ctk.coarse_tree_viable(shapes, itemsize):
             continue
         steps_list = [l.steps_fn(_visit_sweeps(ctx, l_t + j, v0, v1))
@@ -165,3 +171,87 @@ def _solve_mgcg_fused_mdma(ctx: MGContext, b: torch.Tensor) -> OuterResult:
     u = u + alpha_prev * p
     return OuterResult(u=u, rnorm_history=hist / hist[0], iters=i,
                        converged=rn <= cfg.rtol * bnorm)
+
+
+def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
+                   restart: int | None = None) -> OuterResult:
+    """Flexible GMRES(restart) with one V-cycle as the right
+    preconditioner, as the JAX package runs it: modified Gram-Schmidt,
+    incremental Givens rotations, a guarded back-substitution, and one
+    history entry (the true residual) per restart block.  Every block
+    runs its ``restart`` Arnoldi steps.  The small dense algebra (the
+    Hessenberg column, rotations, the triangular solve, u += Z^T y) runs
+    as torch ops on the level's device, as JAX leaves it to XLA."""
+    cfg = ctx.config
+    v0, v1 = cfg.v
+    lvl0 = ctx.levels[0]
+    m = restart if restart is not None else cfg.fgmres_restart
+    b = (ctx.b0 if b0 is None else b0).reshape(-1)
+    shape = lvl0.shape
+    hist_len = cfg.hist_len
+    dtype, device = b.dtype, b.device
+
+    def apply_flat(x):
+        return lvl0.apply(x.reshape(shape)).reshape(-1)
+
+    def precond_flat(r):
+        return mg_apply(ctx, r.reshape(shape), v0, v1).reshape(-1)
+
+    def restart_block(u):
+        r = b - apply_flat(u)
+        beta = torch.linalg.vector_norm(r)
+        V = torch.zeros((m + 1, b.numel()), dtype=dtype, device=device)
+        V[0] = r / torch.where(beta > 0, beta, 1.0)
+        Z = torch.zeros((m, b.numel()), dtype=dtype, device=device)
+        R = torch.zeros((m, m), dtype=dtype, device=device)
+        cs = torch.zeros(m, dtype=dtype, device=device)
+        sn = torch.zeros(m, dtype=dtype, device=device)
+        g = torch.zeros(m + 1, dtype=dtype, device=device)
+        g[0] = beta
+        for j in range(m):
+            zj = precond_flat(V[j])
+            w = apply_flat(zj)
+            hcol = torch.zeros(m + 1, dtype=dtype, device=device)
+            for i in range(j + 1):  # modified Gram-Schmidt
+                hij = torch.dot(V[i], w)
+                w = w - hij * V[i]
+                hcol[i] = hij
+            hj1 = torch.linalg.vector_norm(w)
+            hcol[j + 1] = hj1
+            V[j + 1] = w / torch.where(hj1 > 0, hj1, 1.0)
+            Z[j] = zj
+            for i in range(j):  # the previous rotations
+                t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                t2 = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                hcol[i], hcol[i + 1] = t1, t2
+            # The rotation that annihilates the subdiagonal entry.
+            denom = torch.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+            c = torch.where(denom > 0, hcol[j] / denom, 1.0)
+            s = torch.where(denom > 0, hcol[j + 1] / denom, 0.0)
+            cs[j], sn[j] = c, s
+            hcol[j] = c * hcol[j] + s * hcol[j + 1]
+            R[:, j] = hcol[:m]
+            g[j + 1] = -s * g[j]
+            g[j] = c * g[j]
+        # R y = g[:m]; a zero diagonal only on exact breakdown (converged,
+        # g's tail zero too): guard the division as JAX does.
+        diag = torch.diagonal(R)
+        rsafe = R + torch.diag(torch.where(diag.abs() > 0, 0.0, 1.0))
+        y = torch.linalg.solve_triangular(rsafe, g[:m, None], upper=True)
+        return u + (Z.T @ y)[:, 0]
+
+    bnorm = float(torch.linalg.vector_norm(b))
+    u = torch.zeros_like(b)
+    rn_t = torch.linalg.vector_norm(b - apply_flat(u))
+    hist = torch.zeros(hist_len + 1, dtype=dtype, device=device)
+    hist[0] = rn_t
+    rn = float(rn_t)
+    i = 0
+    while keep_going(cfg, i, rn, bnorm):
+        u = restart_block(u)
+        rn_t = torch.linalg.vector_norm(b - apply_flat(u))
+        hist[min(i + 1, hist_len)] = rn_t
+        i += 1
+        rn = float(rn_t)  # the stop test: one host read per restart block
+    return OuterResult(u=u.reshape(shape), rnorm_history=hist / hist[0],
+                       iters=i, converged=rn <= cfg.rtol * bnorm)

@@ -1,7 +1,7 @@
 """Solve dispatch: config -> cycle driver -> result (PyTorch counterpart
 of ``multigrid_petsc_tpu/solvers/solve.py``; reference: src/solver.c:
-2617-2630).  Ported drivers: V-cycle, MG-Richardson (PCMG), FMG, Additive
-and mg-CG; the others raise ``NotImplementedError``.
+2617-2630).  Ported drivers: V-cycle, MG-Richardson (PCMG), FMG, Additive,
+mg-CG and mg-FGMRES; the others raise ``NotImplementedError``.
 
 ``wall_time`` brackets the solve only (set-up excluded), synchronising the
 device on both sides; ``timed=True`` re-runs the solve and reports the
@@ -32,6 +32,7 @@ _DRIVERS = {
     CycleType.FMG: vc.solve_fmg,
     CycleType.ADDITIVE: cy.solve_additive,
     CycleType.MGCG: kr.solve_mgcg,
+    CycleType.MGFGMRES: kr.solve_mgfgmres,
 }
 
 
@@ -55,14 +56,13 @@ class SolveResult:
 
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
-          device: torch.device | str, timed: bool = False) -> SolveResult:
-    """Set up on ``device`` (unless given a context) and run the
-    configured cycle."""
+          device: torch.device | str = "cuda",
+          timed: bool = False) -> SolveResult:
+    """Set up on ``device`` (unless given a context; the card unless the
+    caller names the CPU) and run the configured cycle."""
     cfg = cfg.validate()
     if cfg.cycle not in _DRIVERS:
-        item = ("the 9-point family" if cfg.cycle == CycleType.MGFGMRES
-                else "the cycle zoo")
-        raise _not_ported(f"cycle {cfg.cycle.name}", item)
+        raise _not_ported(f"cycle {cfg.cycle.name}", "the cycle zoo")
     if ctx is None:
         ctx = build_context(cfg, problem, device=device)
     dev = ctx.device

@@ -195,6 +195,6 @@ def test_cuda_argument_checks():
     with pytest.raises(TypeError):
         tmdma._check_cuda(dev, {}, {"alpha": 0.5})
     with pytest.raises(ValueError):
-        tmdma._steps_array(jacobi_step_coeffs(tmdma.MAX_STEPS + 1, 0.8))
+        tmdma.steps_tensor((), dev)
     with pytest.raises(ValueError):
         tmdma._odd_shape(torch.zeros((16, 15)))

@@ -113,10 +113,17 @@ def test_cli_runs_vcycle_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_requires_device(tmp_path, monkeypatch):
+    """With no ``-device`` the CLI targets the card: without one it fails
+    with the "no CUDA device" error (the CPU runs only on request)."""
     from multigrid_petsc_tpu_torch.poisson import main
 
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
     monkeypatch.chdir(tmp_path)
-    assert main(["-npts", "17", "-cycle", "101"]) == 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-npts", "17", "-cycle", "101"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(SolverConfig(npts=17, cycle=CycleType.MGCG))
 
 
 def test_port_never_imports_jax():
@@ -151,7 +158,7 @@ def test_cuda_request_without_cuda_raises():
     dict(smoother=SmootherType.RBGS),
     dict(grids=3, levels=2),
     dict(backend="sparse"),
-    dict(problem="aniso"),
+    dict(smoother=SmootherType.LINE_X),
     dict(dtype="bfloat16"),
     dict(outer_dtype="float64"),
     dict(coarse_solver="cg"),

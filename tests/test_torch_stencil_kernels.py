@@ -166,15 +166,23 @@ def test_chebyshev_smoother_matches_jax(sweeps):
 
 
 def test_steps_cap_is_the_kernels():
-    """The CUDA kernels take 1..MAX_STEPS steps (31: the coarse tree's
-    per-level schedules fill the 4 KB kernel-parameter block)."""
-    assert tmdma.MAX_STEPS == 31
-    arr = tmdma._steps_array(jsk.jacobi_step_coeffs(tmdma.MAX_STEPS, 0.8))
-    assert arr.shape == (2 * tmdma.MAX_STEPS,)
+    """The visit kernels take as many steps as a block's shared memory
+    holds (the schedules live in device memory, so no parameter block
+    caps them): 43 for the 5-point visit with emit rc, 45 with emit u,
+    28 for the 9-point visit of the anisotropic stencil; at least 1."""
+    aniso9 = ((False, False), (True, False), (False, False), (False, True),
+              (True, True), (False, True), (False, False), (True, False),
+              (False, False))
+    assert tmdma.max_visit_steps(None, "rc") == 43
+    assert tmdma.max_visit_steps(None, "u") == 45
+    assert tmdma.max_visit_steps(aniso9, "rc") == 28
+    k = tmdma.max_visit_steps(None, "rc")
+    assert tmdma.visit_smem_bytes(None, k + 2) <= tmdma.MAX_SMEM
+    assert tmdma.visit_smem_bytes(None, k + 3) > tmdma.MAX_SMEM
+    arr = tmdma.steps_tensor(jsk.jacobi_step_coeffs(32, 0.8), "cpu")
+    assert arr.shape == (64,) and arr.dtype == torch.float32
     with pytest.raises(ValueError):
-        tmdma._steps_array(jsk.jacobi_step_coeffs(tmdma.MAX_STEPS + 1, 0.8))
-    with pytest.raises(ValueError):
-        tmdma._steps_array(())
+        tmdma.steps_tensor((), "cpu")
 
 
 def test_new_wrappers_refuse_other_devices():
