@@ -18,6 +18,11 @@ non-zero):
      zero-guess rc, correction + u + <b, u>, x-varying line
      coefficients), with times, and conv2d's time where one PyTorch call
      computes the same function;
+  2c. the explicit sparse backend's kernels: K8 (the field-coefficient
+     stencil, A u and b - A u) at 8191^2 on the assembled Poisson level-0
+     matrix and on random fields, K16 (the DIA SpMV) on the 2-grid A1 at
+     8193^2 (7 diagonals) and on a random 16-diagonal matrix, with times
+     and cuSPARSE's (torch.mv / torch.addmv on the same matrix in CSR);
   3. whole solves on the card against the same solves on the CPU (plain
      versions) at 1025^2 / 8 levels: mg-CG (Jacobi and Chebyshev), the
      V-cycle (Jacobi, Chebyshev, v = 8,8), MG-Richardson, FMG, Additive;
@@ -25,6 +30,10 @@ non-zero):
      (1,1,1,2,0.4), BASELINE config 4 (mg-CG, y-line, aniso (1,0,100,0,0);
      in f32, the kernels' type), mg-FGMRES on the mixed-term problem, the
      aniso V-cycle;
+  3c. the same for the sparse backend and the cycle zoo: sparse mg-CG and
+     V-cycle (8 levels), the I, E, D1, D2 and D1PS cycles on 2 merged
+     grids (matrix-free and sparse), Additive2, and a V-cycle whose last
+     level merges 3 grids (its coarsest solve CG);
   4. the mg-CG path: the 8193^2 / 11-level f32 solve on the card, with
      launch counts, error norms and ms per iteration;
   5. the V-cycle family at 8193^2 / 11 levels, f32: V-cycle, FMG, the
@@ -34,7 +43,15 @@ non-zero):
   6. the 9-point family at 8193^2 / 11 levels, f32, rtol 1e-5: mg-CG
      Jacobi (K12 + K14), mg-CG y-line (K15 + K12), mg-FGMRES, and a
      3-level V-cycle that smooths its 2047^2 coarsest level (K13), each
-     with launch counts, error norms and ms per iteration.
+     with launch counts, error norms and ms per iteration;
+  7. the sparse backend and the cycle zoo at full width, f32: (a) sparse
+     mg-CG at 8193^2 / 11 levels to rtol 1e-5 (K8 on every level but the
+     directly solved coarsest), (b) the sparse V-cycle, (c) D1, D2 and
+     D1PS on 2 merged grids at 8193^2, sparse (A1 through K16), (d) the E-
+     and the I-cycle on 2 merged grids at 4097^2, sparse (the host CSR of
+     the coupled operator caps the size), (e) D1 and E matrix-free at
+     8193^2; each with set-up seconds, peak device memory, launch counts
+     and ms per iteration.
 Every path run starts with the launch counters at 0 and reads them right
 after.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
@@ -141,7 +158,8 @@ def conv_call(torch, w3, u, b=None):
 
 
 def check_kernel(torch, rec, key, label, nbytes, flops, kern, plain, names,
-                 tol=TOL_ARRAY, library=None, timed=True, dot_scale=None):
+                 tol=TOL_ARRAY, library=None, timed=True, dot_scale=None,
+                 library_name="conv2d"):
     """Hold a kernel's outputs to its plain version's; then (``timed``)
     time both, and the library call where there is one.  The kernel's
     record keeps its first timing.  ``dot_scale(want)`` gives the scale an
@@ -161,7 +179,8 @@ def check_kernel(torch, rec, key, label, nbytes, flops, kern, plain, names,
     if library is not None:
         lms = time_ms(torch, library)
         lerr = float((library() - want[0]).abs().max() / want[0].abs().max())
-        print(f"  conv2d: {lms:.4f} ms (rel. diff. from plain {lerr:.2e})")
+        print(f"  {library_name}: {lms:.4f} ms (rel. diff. from plain "
+              f"{lerr:.2e})")
     print(f"  {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s "
           f"effective), plain {pms:.4f} ms")
     keep_time(rec[key], ms, pms, nbytes, flops, lms)
@@ -463,11 +482,18 @@ def phase_parity(torch, runs, base=None):
     from multigrid_petsc_tpu_torch.solvers.solve import solve
     from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
 
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+
+    counts = []
     for cycle, smoother, max_iter, extra, atol in runs:
-        cfg = SolverConfig(npts=1025, grids=8, levels=8, cycle=cycle,
-                           smoother=smoother, dtype="float32", rtol=1e-5,
-                           max_iter=max_iter, **(base or {}), **extra)
+        cfg = SolverConfig(**{**dict(npts=1025, grids=8, levels=8,
+                                     cycle=cycle, smoother=smoother,
+                                     dtype="float32", rtol=1e-5,
+                                     max_iter=max_iter),
+                              **(base or {}), **extra})
+        launches.clear()
         g = solve(cfg, device="cuda")
+        counts.append(dict(launches))
         c = solve(cfg, device="cpu")
         err = float(np.abs(g.u_fine - c.u_fine).max()
                     / np.abs(c.u_fine).max())
@@ -491,6 +517,7 @@ def phase_parity(torch, runs, base=None):
         # mg-CG, H100).
         np.testing.assert_allclose(g.rnorm, c.rnorm, rtol=0.05, atol=atol)
         assert err <= 1e-3
+    return counts
 
 
 def phase_main(torch):
@@ -550,11 +577,12 @@ def ms_per_iteration(res, cfg):
 
 
 def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
-                   err_max=1e-2):
+                   err_max=1e-2, ctx=None, forbid=()):
     """One full-width solve: launch counts from 0, error norms, ms per
     iteration.  ``near``: the solution within ``err_max`` of the exact
     one; ``forced``: a forced count (max_iter +- 1), else it must
-    converge."""
+    converge.  ``ctx``: a context built for ``cfg`` already; ``forbid``:
+    kernels the run must not launch."""
     import numpy as np
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
@@ -563,7 +591,7 @@ def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
     from multigrid_petsc_tpu_torch.solvers.solve import solve
 
     launches.clear()
-    res = solve(cfg, device="cuda")
+    res = solve(cfg, device="cuda", ctx=ctx)
     counts = dict(launches)
     print(f"{label} {cfg.npts}^2/{cfg.levels} levels: iters {res.iters} "
           f"(max_iter {cfg.max_iter}), converged {res.converged}, path "
@@ -576,11 +604,14 @@ def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
     errs = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)
     print("  error vs exact (max, L1, L2): "
           + " ".join(f"{e:.6e}" for e in errs))
-    assert res.path == "cuda" and res.u.shape == (8191, 8191)
+    n = cfg.npts - 2
+    assert res.path == "cuda" and res.u.shape == (n, n)
     assert np.all(np.isfinite(res.rnorm))
     assert bool(torch.isfinite(res.u).all())
     for k in expect:
         assert counts.get(k, 0) > 0, f"{label}: kernel {k} never launched"
+    for k in forbid:
+        assert counts.get(k, 0) == 0, f"{label}: kernel {k} launched"
     if forced:
         assert abs(res.iters - cfg.max_iter) <= 1, (
             f"{label}: {res.iters} iterations, expected {cfg.max_iter} +- 1")
@@ -591,7 +622,7 @@ def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
     else:  # slow cycles: the residual must still have fallen
         assert res.rnorm[-1] < 1, f"{label}: no descent"
     ms_per_iteration(res, cfg)
-    return counts
+    return counts, res
 
 
 def phase_vcycle(torch, u_ref):
@@ -636,7 +667,8 @@ def phase_vcycle(torch, u_ref):
             SolverConfig(npts=8193, grids=11, levels=11,
                          cycle=CycleType.VCYCLE, dtype="float32", rtol=1e-5,
                          max_iter=10), **changes)
-        counts = run_full_width(torch, label, cfg, expect, near, True, u_ref)
+        counts, _ = run_full_width(torch, label, cfg, expect, near, True,
+                                   u_ref)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
@@ -686,14 +718,251 @@ def phase_aniso(torch):
     total = {}
     for label, changes, expect, near, forced in runs:
         cfg = SolverConfig(**{**base, **changes})
-        counts = run_full_width(torch, label, cfg, expect, near, forced,
-                                err_max=5e-2)
+        counts, _ = run_full_width(torch, label, cfg, expect, near, forced,
+                                   err_max=5e-2)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     for k in ("apply_stencil9", "residual9", "smooth9_sweeps",
               "fused_level_visit9", "line_visit9"):
         assert total.get(k, 0) > 0, f"kernel {k} never launched in phase 6"
     return total
+
+
+def csr_on_card(torch, csr, dev):
+    """The matrix of a host CSR triple as a torch sparse CSR tensor (f32,
+    int32 indices) on the card: torch.mv / torch.addmv on it run cuSPARSE,
+    the library yardstick of K8 and K16."""
+    import numpy as np
+
+    indptr, indices, data = csr
+    n = len(indptr) - 1
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(indptr.astype(np.int32), device=dev),
+        torch.as_tensor(indices, device=dev),
+        torch.as_tensor(data, dtype=torch.float32, device=dev), size=(n, n),
+        check_invariants=False)
+
+
+def phase_kernels_sparse(torch, dev, rec):
+    """K8 and K16 at the shapes of the sparse paths against their plain
+    versions, with times and cuSPARSE's on the same matrix."""
+    from multigrid_petsc_tpu_torch.ops import sparse as sp
+    from multigrid_petsc_tpu_torch.ops.cuda import spmv_dia_kernel as dk
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    f32 = torch.float32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    for key in ("apply_stencil5_field", "residual5_field", "dia_spmv"):
+        rec[key] = {}
+    n = 8191
+    arr, pts = n * n * 4, n * n
+    t0 = time.perf_counter()
+    csr = sp.assemble_level_csr(8193, 0, (0,))
+    t1 = time.perf_counter()
+    op = sp.SparseLevelOp(*csr, [(n, n)], device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    print(f"K8 set-up at {n}^2: CSR assembly {t1 - t0:.2f} s ({len(csr[1])} "
+          f"entries), conversion to the stencil form on the card "
+          f"{time.perf_counter() - t1:.2f} s")
+    assert op.form == "stencil"
+    A = csr_on_card(torch, csr, dev)
+    del csr
+    st = op.stencil
+    u, b = rnd(n, n), rnd(n, n)
+    uf, bf = u.reshape(-1), b.reshape(-1)
+
+    def check(key, label, *args, **kw):
+        check_kernel(torch, rec, key, f"{label} at {n}^2", *args,
+                     library_name="cuSPARSE (torch CSR)", **kw)
+
+    check("apply_stencil5_field", "K8 apply_stencil5_field (assembled "
+          "Poisson level 0)", 7 * arr, 9 * pts,
+          lambda: sk.apply_stencil5_field(st, u),
+          lambda: sk.apply_stencil5_field_plain(st, u), ("Au",),
+          library=lambda: torch.mv(A, uf).reshape(n, n))
+    check("residual5_field", "K8 residual5_field (assembled Poisson level "
+          "0)", 8 * arr, 10 * pts,
+          lambda: sk.residual5_field(st, b, u),
+          lambda: sk.residual5_field_plain(st, b, u), ("r",),
+          library=lambda: torch.addmv(bf, A, uf, alpha=-1.0).reshape(n, n))
+    del A, op, st
+    h2 = float(n + 1) ** 2
+    rst = Stencil5(h2 * rnd(n, n), h2 * rnd(n, n),
+                   -h2 * (4 + rnd(n, n).abs()), h2 * rnd(n, n),
+                   h2 * rnd(n, n))
+    check("apply_stencil5_field", "K8 apply_stencil5_field (random "
+          "fields)", 7 * arr, 9 * pts,
+          lambda: sk.apply_stencil5_field(rst, u),
+          lambda: sk.apply_stencil5_field_plain(rst, u), ("Au",),
+          timed=False)
+    check("residual5_field", "K8 residual5_field (random fields)", 8 * arr,
+          10 * pts, lambda: sk.residual5_field(rst, b, u),
+          lambda: sk.residual5_field_plain(rst, b, u), ("r",), timed=False)
+    del rst, u, b, uf, bf
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    csr = sp.assemble_level_csr(8193, 0, (0, 1), include_couplings=False)
+    t1 = time.perf_counter()
+    op = sp.SparseLevelOp(*csr, [(n, n), (4095, 4095)], device=dev,
+                          dtype=f32)
+    torch.cuda.synchronize()
+    print(f"K16 set-up, 2-grid A1 at 8193^2: CSR assembly {t1 - t0:.2f} s "
+          f"({len(csr[1])} entries), conversion to DIA on the card "
+          f"{time.perf_counter() - t1:.2f} s")
+    offs, vals = op.dia
+    assert op.form == "dia" and len(offs) == 7, (op.form, op.dia)
+    A = csr_on_card(torch, csr, dev)
+    del csr
+    N = op.rows
+    x = rnd(N)
+    check_kernel(torch, rec, "dia_spmv", f"K16 dia_spmv (2-grid A1, offsets "
+                 f"{offs}) at N = {N}", (len(offs) + 2) * N * 4,
+                 2 * len(offs) * N, lambda: dk.dia_spmv(offs, vals, x),
+                 lambda: dk.dia_spmv_plain(offs, vals, x), ("Ax",),
+                 library=lambda: torch.mv(A, x),
+                 library_name="cuSPARSE (torch CSR)")
+    del A, op, vals, x
+    torch.cuda.empty_cache()
+    N = n * n
+    offs = (-3 * n - 5, -2 * n, -n - 1, -n, -n + 1, -2, -1, 0, 1, 2, n - 1,
+            n, n + 1, 2 * n, 3 * n + 5, 4 * n + 7)
+    vals, x = rnd(len(offs), N), rnd(N)
+    check_kernel(torch, rec, "dia_spmv", f"K16 dia_spmv (random, 16 "
+                 f"diagonals to +-4 nx) at N = {N}", (len(offs) + 2) * N * 4,
+                 2 * len(offs) * N, lambda: dk.dia_spmv(offs, vals, x),
+                 lambda: dk.dia_spmv_plain(offs, vals, x), ("Ax",),
+                 timed=False)
+    del vals, x
+    torch.cuda.empty_cache()
+
+
+def phase_parity_zoo(torch):
+    """Phase 3c: the sparse backend and the cycle zoo, card against CPU at
+    1025^2.  Single-grid sparse runs must launch K8 and none of the
+    matrix-free kernels."""
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SmootherType
+
+    jac = SmootherType.JACOBI
+    one = {"grids": 2, "levels": 1}
+    runs = [(CycleType.MGCG, jac, 100, {"backend": "sparse"}, 5e-6),
+            (CycleType.VCYCLE, jac, 6, {"backend": "sparse"}, 5e-6)]
+    for cycle in (CycleType.ICYCLE, CycleType.ECYCLE, CycleType.D1CYCLE,
+                  CycleType.D2CYCLE, CycleType.D1PSCYCLE):
+        for backend in ("auto", "sparse"):
+            runs.append((cycle, jac, 20, {**one, "backend": backend}, 5e-6))
+    runs += [(CycleType.ADDITIVE2, jac, 6, {"grids": 2, "levels": 2}, 5e-6),
+             (CycleType.VCYCLE, jac, 6, {"grids": 4, "levels": 2}, 5e-6)]
+    counts = phase_parity(torch, runs)
+    for run, c in zip(runs[:2], counts):
+        assert c.get("apply_stencil5_field", 0) > 0, (run, c)
+        assert not set(c) & MATRIX_FREE, (run, c)
+    return counts
+
+
+# The matrix-free 5-point kernels (K1-K4, K6, K7, K9): a single-grid sparse
+# run launches none of them.
+MATRIX_FREE = {"cg_papply_u", "cg_visit_down", "visit_down", "visit_up",
+               "coarse_tree", "apply_stencil5", "smooth_sweeps",
+               "fused_level_visit", "residual5"}
+
+
+def phase_zoo(torch):
+    """Phase 7: the sparse backend and the cycle zoo at full width, f32,
+    v = (3, 3).  Each run prints its set-up seconds (assembly and
+    conversion included) and peak device memory; run_full_width its
+    launch counts and ms per iteration."""
+    from multigrid_petsc_tpu_torch.solvers.context import build_context
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+    k8 = {"apply_stencil5_field", "residual5_field"}
+
+    def run(label, cfg, expect, near, forced, forbid=(), ctx=None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if ctx is None:
+            ctx = build_context(cfg, device="cuda")
+            torch.cuda.synchronize()
+        print(f"{label}: set-up {time.perf_counter() - t0:.2f} s")
+        counts, res = run_full_width(torch, label, cfg, expect, near, forced,
+                                     ctx=ctx, forbid=forbid)
+        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB; sparse forms "
+              + " ".join("/".join(f"{n}:{op.form}" for n, op in (
+                  ("A", lc.sparse_full), ("A1", lc.sparse_diag),
+                  ("A2", lc.sparse_coup)) if op is not None)
+                  for lc in res.ctx.levels))
+        return counts, res
+
+    base = dict(npts=8193, dtype="float32", rtol=1e-5, backend="sparse")
+    cfg = SolverConfig(**base, grids=11, levels=11, cycle=CycleType.MGCG,
+                       max_iter=100)
+    counts, res = run("(a) sparse mg-CG", cfg, k8, True, False,
+                      forbid=MATRIX_FREE)
+    # K8 on every level but the directly solved coarsest: per
+    # preconditioner application 2 v applies and 1 residual on each of
+    # levels 0..L-2, plus A p per iteration and the first residual.
+    L, v, its = len(res.ctx.levels), cfg.v[0], res.iters
+    assert all(lc.sparse_full.form == "stencil" for lc in res.ctx.levels)
+    assert counts["apply_stencil5_field"] == its + (its + 1) * (L - 1) * 2 * v
+    assert counts["residual5_field"] == 1 + (its + 1) * (L - 1)
+    k8_launches = dict(counts)
+    cfg = SolverConfig(**base, grids=11, levels=11, cycle=CycleType.VCYCLE,
+                       max_iter=5)
+    run("(b) sparse V-cycle", cfg, k8, True, True, forbid=MATRIX_FREE)
+    del res
+    # (c) the delayed cycles share one context: they read A1 only.
+    ctx = None
+    k16_launches = {}
+    for cycle in (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE):
+        cfg = SolverConfig(**base, grids=2, levels=1, cycle=cycle,
+                           max_iter=10)
+        if ctx is None:
+            t0 = time.perf_counter()
+            ctx = build_context(cfg, device="cuda")
+            torch.cuda.synchronize()
+            print(f"(c) delayed cycles, 8193^2 grids 2: set-up "
+                  f"{time.perf_counter() - t0:.2f} s (A1 only)")
+        counts, _ = run(f"(c) sparse {cycle.name}", cfg, {"dia_spmv"}, False,
+                        True, forbid=MATRIX_FREE,
+                        ctx=dataclasses.replace(ctx, config=cfg))
+        if not k16_launches:
+            k16_launches = counts
+    del ctx
+    half = dict(base, npts=4097)
+    cfg = SolverConfig(**half, grids=2, levels=1, cycle=CycleType.ECYCLE,
+                       max_iter=10)
+    run("(d) sparse E-cycle", cfg, {"dia_spmv"}, False, True,
+        forbid=MATRIX_FREE)
+    cfg = SolverConfig(**half, grids=2, levels=1, cycle=CycleType.ICYCLE,
+                       max_iter=10)
+    run("(d) sparse I-cycle", cfg, {"apply_stencil5", "smooth_sweeps"},
+        False, True)
+    mf = dict(base, backend="auto")
+    for cycle in (CycleType.D1CYCLE, CycleType.ECYCLE):
+        cfg = SolverConfig(**mf, grids=2, levels=1, cycle=cycle, max_iter=10)
+        run(f"(e) matrix-free {cycle.name}", cfg, {"apply_stencil5"}, False,
+            True)
+    return k8_launches, k16_launches
+
+
+
+def timed_phase(torch, name, fn, *args):
+    """Run one phase; print its seconds (set-up included) and the peak
+    device memory it reached."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(torch, *args)
+    torch.cuda.synchronize()
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out
 
 
 def main() -> int:
@@ -726,6 +995,7 @@ def main() -> int:
     phase_kernels_vcycle(torch, dev, rec)
     phase_kernels_9pt(torch, dev, rec)
     torch.cuda.empty_cache()
+    timed_phase(torch, "2c", phase_kernels_sparse, dev, rec)
     jac, cheb = SmootherType.JACOBI, SmootherType.CHEBYSHEV
     phase_parity(torch, (  # cycle, smoother, max_iter, extra, atol
         (CycleType.MGCG, jac, 100, {}, 5e-6),
@@ -756,20 +1026,26 @@ def main() -> int:
          2e-3),
         (CycleType.VCYCLE, jac, 6, mixed, 5e-3),
     ), base={"problem": "aniso"})
+    timed_phase(torch, "3c", phase_parity_zoo)
     counts, u_ref = phase_main(torch)
     vcounts = phase_vcycle(torch, u_ref)
     del u_ref
     acounts = phase_aniso(torch)
+    k8_counts, k16_counts = timed_phase(torch, "7", phase_zoo)
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
     for k in ("apply_stencil9", "residual9", "smooth9_sweeps",
               "fused_level_visit9", "line_visit9"):
         counts[k] = acounts[k]
+    for k in ("apply_stencil5_field", "residual5_field"):
+        counts[k] = k8_counts[k]
+    counts["dia_spmv"] = k16_counts["dia_spmv"]
 
     src = "multigrid_petsc_tpu_torch/csrc/"
     tpu = "multigrid_petsc_tpu/ops/pallas/"
-    meta = {  # launches: phase 4 for K1-K4, phase 5 for K6-K9, 6 for K12-K15
+    meta = {  # launches: phase 4 for K1-K4, 5 for K6-K9, 6 for K12-K15,
+        # 7 (a) for K8, 7 (c)'s D1 run for K16
         "cg_papply_u": ("visit.cu", "mdma_kernel.py:973"),
         "cg_visit_down": ("visit.cu", "mdma_kernel.py:471"),
         "visit_down": ("visit.cu", "mdma_kernel.py:628"),
@@ -784,6 +1060,9 @@ def main() -> int:
         "smooth9_sweeps": ("visit.cu", "stencil9_kernel.py:266"),
         "fused_level_visit9": ("visit.cu", "stencil9_kernel.py:429"),
         "line_visit9": ("line.cu", "line_kernel.py:208"),
+        "apply_stencil5_field": ("visit.cu", "stencil_kernel.py:427"),
+        "residual5_field": ("visit.cu", "stencil_kernel.py:427"),
+        "dia_spmv": ("spmv_dia.cu", "spmv_dia.py:99"),
     }
     kernels = []
     for k, (s, r) in meta.items():

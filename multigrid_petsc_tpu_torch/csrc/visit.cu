@@ -19,6 +19,10 @@
 //   K6  stencil_kernel<false, Coeffs> <- stencil_kernel.py
 //       apply_stencil5_pallas
 //   K7  visit <GUESS, u>     <- stencil_kernel.py smooth_sweeps_pallas
+//   K8  stencil_kernel<RESID, Fields5> <- stencil_kernel.py
+//       apply_stencil5_field_pallas (five (ny, nx) coefficient fields: 7
+//       arrays moved for A u, 8 for b - A u; the fields are read in place,
+//       not staged)
 //   K9  visit (every flag set above) <- stencil_kernel.py
 //       fused_level_visit_pallas; its k = 0 residual (residual5_pallas)
 //       is stencil_kernel<true, Coeffs>
@@ -244,6 +248,48 @@ __device__ __forceinline__ float apply_at(const float* v, const Tile9& t,
 
 __device__ __forceinline__ float dinv_at(const Tile9& t, int sy, int sx) {
   return tat(t, 9, sy, sx);
+}
+
+// ---- K8: five full (ny, nx) coefficient fields (the stencil form of an
+// assembled level matrix, ops/sparse.py).  Each coefficient is used by its
+// own point only, so nothing is staged: a thread reads the five values of
+// its point straight from device memory (neighbouring threads, neighbouring
+// addresses), once per point.
+struct Fields5 {
+  const float* cs;
+  const float* cw;
+  const float* cc;
+  const float* ce;
+  const float* cn;
+};
+
+struct FieldTile {
+  Fields5 f;
+  int gy0, gx0, nx;
+};
+
+__host__ __device__ constexpr size_t coeff_floats(const Fields5&, int, int) {
+  return 0;
+}
+
+__device__ __forceinline__ FieldTile stage(const Fields5& c, float*, int,
+                                           int, int gy0, int gx0, int,
+                                           int nx) {
+  return FieldTile{c, gy0, gx0, nx};
+}
+
+// Term order of the JAX field kernel: cc, south, north, west, east.  Only
+// called at domain points (the stencil kernel's output tile).
+__device__ __forceinline__ float apply_at(const float* v, const FieldTile& t,
+                                          int sy, int sx, int SH, int SW) {
+  const int i = sy * SW + sx;
+  const size_t g = (size_t)(t.gy0 + sy) * t.nx + (t.gx0 + sx);
+  const float s = sy > 0 ? v[i - SW] : 0.f;
+  const float n = sy < SH - 1 ? v[i + SW] : 0.f;
+  const float w = sx > 0 ? v[i - 1] : 0.f;
+  const float e = sx < SW - 1 ? v[i + 1] : 0.f;
+  return t.f.cc[g] * v[i] + t.f.cs[g] * s + t.f.cn[g] * n + t.f.cw[g] * w +
+         t.f.ce[g] * e;
 }
 
 // k polynomial smoother steps on the shared tile, Dirichlet-masked; step s
@@ -573,6 +619,16 @@ int mg_stencil(const float* cs, const float* cw, const float* cc,
                const float* u, float* y, int ny, int nx, int resid,
                void* stream) {
   Coeffs c{cs, cw, cc, ce, cn};
+  return launch_stencil(c, b, u, y, ny, nx, resid, stream);
+}
+
+// K8: y = A u (resid == 0) or y = b - A u with five (ny, nx) coefficient
+// fields.
+int mg_stencil_field(const float* cs, const float* cw, const float* cc,
+                     const float* ce, const float* cn, const float* b,
+                     const float* u, float* y, int ny, int nx, int resid,
+                     void* stream) {
+  Fields5 c{cs, cw, cc, ce, cn};
   return launch_stencil(c, b, u, y, ny, nx, resid, stream);
 }
 

@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels (and its host CSR assembler,
+``load_assembler``).
 
 At first use, every ``csrc/*.cu`` source of the package is compiled with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "mg_visit9": [_P, _P] + [_P] * 7 + [_I, _I, _P, _I, _I, _P],
     "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_stencil9": [_P, _P] + [_P] * 3 + [_I, _I, _I, _P],
+    "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
+    "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
     "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
     "mg_line_blocks": [_I],
     "mg_line_sweep": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I, _I, _F, _F, _P],
@@ -94,6 +97,37 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(cdll, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return cdll
+
+
+@functools.cache
+def load_assembler() -> ctypes.CDLL:
+    """Compile (if needed) and load the host CSR assembler
+    (``csrc/csr_assemble.cpp``) with the host C++ compiler: the explicit
+    sparse backend's set-up runs on the CPU, so this library builds
+    wherever the package runs, with or without a CUDA toolkit."""
+    src = CSRC_DIR / "csr_assemble.cpp"
+    flags = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+    h = hashlib.sha256(" ".join(flags).encode() + src.read_bytes())
+    lib = BUILD_DIR / f"libmgcsr_{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        cxx = shutil.which(os.environ.get("CXX", "c++")) or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (c++ or g++) to build "
+                               "the CSR assembler")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        out = subprocess.run([cxx, *flags, "-o", str(tmp), str(src)],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"{cxx} failed:\n{out.stdout}{out.stderr}")
+        os.replace(tmp, lib)
+    cdll = ctypes.CDLL(str(lib))
+    cdll.level_rows.restype = ctypes.c_int64
+    cdll.level_rows.argtypes = [_I, ctypes.POINTER(_I), _I]
+    cdll.assemble_level.restype = ctypes.c_int64
+    cdll.assemble_level.argtypes = [_I, _I, ctypes.POINTER(_I), _I, _I, _I,
+                                    _P, _P, _P, ctypes.c_int64]
     return cdll
 
 

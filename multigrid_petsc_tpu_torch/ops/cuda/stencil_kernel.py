@@ -9,6 +9,10 @@ Counterpart of ``multigrid_petsc_tpu/ops/pallas/stencil_kernel.py``:
   fused_level_visit  K9: [u += P e_c] -> k steps -> u | (u, r) | r |
                      (u, R r) [, <b, u>]; ``u=None`` is the zero guess
   residual5          K9 with no steps: r = b - A u
+  apply_stencil5_field / residual5_field
+                     K8: A u / b - A u with five (ny, nx) coefficient
+                     fields (the explicit backend's stencil form,
+                     ``ops/sparse.py``)
 
 The TPU kernels stream row slabs through VMEM with gathered halo windows
 and alias u -> u'.  Here K7 and K9 are flag sets of the one visit kernel
@@ -132,6 +136,51 @@ def residual5(st: Stencil5, b, u) -> torch.Tensor:
         return residual5_plain(st, b, u)
     r = _launch_stencil(st, b, u, resid=True)
     launches["residual5"] += 1
+    return r
+
+
+def apply_stencil5_field_plain(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
+    return _st.apply_stencil5(st, u)
+
+
+def residual5_field_plain(st: Stencil5, b, u) -> torch.Tensor:
+    return b - _st.apply_stencil5(st, u)
+
+
+def _launch_field(st: Stencil5, b, u, resid: bool) -> torch.Tensor:
+    ny, nx = u.shape
+    fields = {"u": (u, (ny, nx)),
+              **{f"st.{n}": (c, (ny, nx))
+                 for n, c in zip(Stencil5._fields, st)}}
+    if resid:
+        fields["b"] = (b, (ny, nx))
+    _check_cuda(u.device, fields)
+    lib = load_library()
+    y = torch.empty_like(u)
+    err = lib.mg_stencil_field(*(c.data_ptr() for c in st),
+                               b.data_ptr() if resid else None, u.data_ptr(),
+                               y.data_ptr(), ny, nx, int(resid),
+                               _stream(u.device))
+    check(err, "field stencil launch")
+    return y
+
+
+def apply_stencil5_field(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
+    """y = A u with five (ny, nx) coefficient fields (K8): the stencil form
+    of an assembled level matrix."""
+    if _on_cpu(u):
+        return apply_stencil5_field_plain(st, u)
+    y = _launch_field(st, None, u, resid=False)
+    launches["apply_stencil5_field"] += 1
+    return y
+
+
+def residual5_field(st: Stencil5, b, u) -> torch.Tensor:
+    """r = b - A u with five (ny, nx) coefficient fields (K8 with b)."""
+    if _on_cpu(u):
+        return residual5_field_plain(st, b, u)
+    r = _launch_field(st, b, u, resid=True)
+    launches["residual5_field"] += 1
     return r
 
 

@@ -1,17 +1,51 @@
 """Inner products and norms over level states (PyTorch counterpart of
-``multigrid_petsc_tpu/ops/norms.py``).  A state here is one tensor: the
-port has single-grid levels only."""
+``multigrid_petsc_tpu/ops/norms.py``).  A state is one tensor for a
+single-grid level and a tuple of per-grid tensors for a merged level;
+norms run over all grids, as the reference's VecNorm over the whole
+composite vector (src/solver.c:1512, 2237)."""
 
 from __future__ import annotations
 
 import torch
 
 
-def tree_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def tree_dot(x, y) -> torch.Tensor:
     """<x, y> as a 0-d tensor on the operands' device."""
-    return torch.dot(x.reshape(-1), y.reshape(-1))
+    if isinstance(x, torch.Tensor):
+        return torch.dot(x.reshape(-1), y.reshape(-1))
+    total = None
+    for a, b in zip(x, y):
+        s = torch.dot(a.reshape(-1), b.reshape(-1))
+        total = s if total is None else total + s
+    return total
 
 
-def tree_norm2(x: torch.Tensor) -> torch.Tensor:
-    """l2 norm (reference: VecNorm NORM_2)."""
+def tree_norm2(x) -> torch.Tensor:
+    """l2 norm over all grids (reference: VecNorm NORM_2)."""
     return torch.sqrt(tree_dot(x, x))
+
+
+def tree_map(fn, x, *rest):
+    """``fn`` per grid over one or more states of the same kind."""
+    if isinstance(x, torch.Tensor):
+        return fn(x, *rest)
+    return tuple(fn(*z) for z in zip(x, *rest))
+
+
+def flatten(x) -> torch.Tensor:
+    """A state as one flat vector, grid after grid."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(-1)
+    return torch.cat([g.reshape(-1) for g in x])
+
+
+def unflatten(vec: torch.Tensor, shapes):
+    """The inverse of ``flatten``: a tensor for one grid, a tuple for
+    several."""
+    if len(shapes) == 1:
+        return vec.reshape(shapes[0])
+    out, off = [], 0
+    for ny, nx in shapes:
+        out.append(vec[off : off + ny * nx].reshape(ny, nx))
+        off += ny * nx
+    return tuple(out)

@@ -1,6 +1,7 @@
-"""One-gap inter-grid transfers: full-weighting restriction and bilinear
-prolongation (PyTorch counterpart of ``multigrid_petsc_tpu/ops/transfer.py``;
-reference stencils src/matbuild.c:398-431).
+"""Inter-grid transfers: full-weighting restriction and bilinear
+prolongation, one gap and composed over several (PyTorch counterpart of
+``multigrid_petsc_tpu/ops/transfer.py``; reference stencils
+src/matbuild.c:355-431).
 
 A grid with n interior points per dim coarsens to (n - 1)/2; coarse point
 (I, J) coincides with fine point (2I+1, 2J+1).
@@ -35,3 +36,18 @@ def prolong_bilinear(e: torch.Tensor) -> torch.Tensor:
     out[1::2, 0::2] = ph[1:-1, :]
     out[1::2, 1::2] = e
     return out
+
+
+def restrict_multi(r: torch.Tensor, gap: int) -> torch.Tensor:
+    """Restriction across ``gap`` grid levels: ``gap`` full weightings
+    (the reference's composed stencil, src/matbuild.c:355-396)."""
+    for _ in range(gap):
+        r = restrict_fw(r)
+    return r
+
+
+def prolong_multi(e: torch.Tensor, gap: int) -> torch.Tensor:
+    """Prolongation across ``gap`` grid levels: ``gap`` bilinears."""
+    for _ in range(gap):
+        e = prolong_bilinear(e)
+    return e

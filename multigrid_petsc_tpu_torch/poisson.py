@@ -6,12 +6,16 @@
 
 Reads a poisson.in-style options file (default ./poisson.in if present),
 applies the command-line ``-key value`` overrides, runs the configured
-cycle (V-cycle, MG-Richardson, FMG, Additive, mg-CG or mg-FGMRES) for the
-configured problem (``-problem poisson``, or ``-problem aniso -aniso
-a0,a2,c0,c2,b``, the 9-point family) on the device and prints
-iterations, residual, error norms and timing.  ``-device`` defaults to
-``cuda``, which without a card is an error; ``-device cpu`` runs the
-plain PyTorch versions of the kernels.
+cycle (any ``-cycle`` id: V 0, I 1, E 2, D1 3, D2 4, D1PS 7,
+MG-Richardson 8, Additive 9, Additive2 10, mg-CG 101, mg-FGMRES 102, FMG
+103) for the configured problem (``-problem poisson``, or ``-problem
+aniso -aniso a0,a2,c0,c2,b``, the 9-point family) and operator form
+(matrix-free, or ``-backend sparse``: assembled matrices) on the device
+and prints iterations, residual, error norms on the finest grid and
+timing; ``-moreNorm 1`` adds the per-grid residual monitors of the
+merged-grid cycles.  ``-device`` defaults to ``cuda``, which without a
+card is an error; ``-device cpu`` runs the plain PyTorch versions of the
+kernels.
 """
 
 from __future__ import annotations
@@ -31,11 +35,17 @@ from multigrid_petsc_tpu_torch.utils.config import (
 
 CYCLE_NAMES = {
     CycleType.VCYCLE: "V-cycle",
+    CycleType.ICYCLE: "I-cycle",
+    CycleType.ECYCLE: "E-cycle",
+    CycleType.D1CYCLE: "D1-cycle",
+    CycleType.D2CYCLE: "D2-cycle",
+    CycleType.D1PSCYCLE: "D1PS-cycle",
     CycleType.PCMG: "MG-Richardson",
-    CycleType.FMG: "FMG",
     CycleType.ADDITIVE: "Additive",
+    CycleType.ADDITIVE2: "Additive2",
     CycleType.MGCG: "mg-CG",
     CycleType.MGFGMRES: "mg-FGMRES",
+    CycleType.FMG: "FMG",
 }
 
 
@@ -70,10 +80,23 @@ def main(argv=None) -> int:
         problem += "(" + ",".join(f"{a:g}" for a in cfg.aniso) + ")"
     print(f"{CYCLE_NAMES[cfg.cycle]} (cycle {cfg.cycle.value}) "
           f"smoother={cfg.smoother.value} problem={problem} "
-          f"npts={cfg.npts} levels={cfg.levels} dtype={cfg.dtype} "
-          f"device={device} path={res.path}")
+          f"npts={cfg.npts} grids={cfg.grids} levels={cfg.levels} "
+          f"dtype={cfg.dtype} backend={cfg.backend} device={device} "
+          f"path={res.path}")
+    if cfg.backend == "sparse":
+        print("sparse level forms: " + " ".join(
+            "/".join(f"{n}:{op.form}" for n, op in (
+                ("A", lc.sparse_full), ("A1", lc.sparse_diag),
+                ("A2", lc.sparse_coup)) if op is not None)
+            for lc in res.ctx.levels))
     print(f"iterations: {res.iters}  converged: {res.converged}")
     print(f"relative residual: {res.rnorm[-1]:.6e}")
+    if res.aux is not None:
+        print("moreNorm r_global: " + " ".join(
+            f"{v:.6e}" for v in res.aux["r_global"]))
+        for g, row in enumerate(res.aux["r_grid"]):
+            print(f"moreNorm r_grid[{g}]: "
+                  + " ".join(f"{v:.6e}" for v in row))
     print("error (max, L1, L2): " + " ".join(f"{e:.6e}" for e in errs))
     print(f"solve wall time: {res.wall_time:.6f} s")
     return 0

@@ -46,8 +46,9 @@ def main(argv=None) -> int:
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3  # ms
-    print(f"{cfg.cycle.name} npts={cfg.npts} levels={cfg.levels} "
-          f"problem={cfg.problem} smoother={cfg.smoother.value} "
+    print(f"{cfg.cycle.name} npts={cfg.npts} grids={cfg.grids} "
+          f"levels={cfg.levels} problem={cfg.problem} "
+          f"smoother={cfg.smoother.value} backend={cfg.backend} "
           f"dtype={cfg.dtype}: {res.iters} iterations")
     print(f"wall {1e3 * wall:.3f} ms, device kernels {busy:.3f} ms, busy "
           f"{100 * busy / (1e3 * wall):.1f}%, peak device memory "

@@ -1,10 +1,12 @@
-"""Coarsest-level direct solver (PyTorch counterpart of the single-grid
-slice of ``multigrid_petsc_tpu/solvers/coarse.py``), for the 5- and the
-9-point stencil.
+"""Coarsest-level solvers (PyTorch counterpart of
+``multigrid_petsc_tpu/solvers/coarse.py``).
 
-The dense operator is assembled analytically on the host and inverted
-there in f64 with numpy, once at setup; each application is one small
-dense matvec ``a_inv @ b`` on the level's device.
+Direct: the dense operator is assembled on the host (analytically from a
+5- or 9-point stencil, or, for a merged level, from its assembled CSR)
+and inverted there in f64 with numpy, once at setup; each application is
+one small dense matvec ``a_inv @ b`` on the level's device.  CG: a fixed
+number of matrix-free CG iterations over the level's operator, for a
+coarsest level too large to densify.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from multigrid_petsc_tpu_torch.ops.norms import flatten, unflatten
 
 
 def dense_from_stencil(st, ny: int, nx: int) -> np.ndarray:
@@ -41,16 +45,59 @@ def dense_from_stencil(st, ny: int, nx: int) -> np.ndarray:
     return a
 
 
-def build_direct_solver(st, shape: tuple[int, int]) -> Callable:
-    """b -> A^-1 b for the level with stencil ``st`` and ``shape``; the
-    inverse is taken on the host in f64 and stored in the stencil's dtype
-    on the stencil's device."""
-    ny, nx = shape
-    a_inv = torch.as_tensor(np.linalg.inv(dense_from_stencil(st, ny, nx)),
-                            dtype=st.cc.dtype, device=st.cc.device)
+def dense_from_csr(indptr, indices, data) -> np.ndarray:
+    """Dense (N, N) f64 matrix of a host CSR triple (a merged coarsest
+    level's assembled operator)."""
+    n = len(indptr) - 1
+    a = np.zeros((n, n))
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    a[rows, np.asarray(indices)] = np.asarray(data)
+    return a
 
-    def solve(b: torch.Tensor) -> torch.Tensor:
-        return (a_inv @ b.reshape(-1)).reshape(ny, nx)
+
+def dense_solver(a: np.ndarray, shapes, dtype: torch.dtype,
+                 device: torch.device) -> Callable:
+    """b -> A^-1 b over a state of grids ``shapes`` (a tensor for one
+    grid, a tuple for several); the inverse is taken on the host in f64
+    and stored in ``dtype`` on ``device``."""
+    a_inv = torch.as_tensor(np.linalg.inv(a), dtype=dtype, device=device)
+
+    def solve(b):
+        return unflatten(a_inv @ flatten(b), shapes)
 
     solve.a_inv = a_inv
+    return solve
+
+
+def build_direct_solver(st, shape: tuple[int, int]) -> Callable:
+    """b -> A^-1 b for the single-grid level with stencil ``st`` and
+    ``shape``."""
+    return dense_solver(dense_from_stencil(st, *shape), [shape], st.cc.dtype,
+                        st.cc.device)
+
+
+def build_cg_solver(apply_fn: Callable, shapes, iters: int = 64) -> Callable:
+    """Fixed-iteration CG over ``apply_fn`` (valid for the
+    negative-definite operator: both inner products flip sign), as the
+    JAX package runs it.  The fixed count keeps the coarse solve linear,
+    so the Krylov outers stay consistent."""
+
+    def solve(b_state):
+        b = flatten(b_state)
+        zero = torch.zeros((), dtype=b.dtype, device=b.device)
+        x = torch.zeros_like(b)
+        r = p = b
+        rr = torch.dot(r, r)
+        for _ in range(iters):
+            ap = flatten(apply_fn(unflatten(p, shapes)))
+            denom = torch.dot(p, ap)
+            alpha = torch.where(denom != 0, rr / denom, zero)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rr_new = torch.dot(r, r)
+            beta = torch.where(rr != 0, rr_new / rr, zero)
+            p = r + beta * p
+            rr = rr_new
+        return unflatten(x, shapes)
+
     return solve

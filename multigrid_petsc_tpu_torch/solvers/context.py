@@ -1,20 +1,27 @@
 """Solver setup: the per-level operator context built from a config.
 
-PyTorch counterpart of the single-grid slice of
-``multigrid_petsc_tpu/solvers/context.py`` (reference: src/poisson.c:85-118
-set-up + assembly): stencil coefficients per grid (the 5-point Poisson
-family or the 9-point anisotropic one), the matrix-free apply and
-residual, each level's smoother (Jacobi or Chebyshev, with its lmax and
-step schedule, or y-line Jacobi), the fused level visits, the
-inter-level transfers and the coarsest direct solve.
+PyTorch counterpart of ``multigrid_petsc_tpu/solvers/context.py``
+(reference: src/poisson.c:85-118 set-up + assembly): stencil
+coefficients per grid (the 5-point Poisson family or the 9-point
+anisotropic one), the level operator (matrix-free, or assembled with
+``backend="sparse"``), each level's smoother (Jacobi or Chebyshev, with
+its lmax and step schedule, y-line Jacobi, or block Gauss-Seidel on a
+merged level), the level visits, the inter-level transfers and the
+coarsest solve (direct or CG).
 
-The JAX package routes each level through a web of flags
-(``use_pallas_apply``, ``mdma_ok``, ``papply``...).  Here there is one
-dispatch per level, on the tensor's device, inside the kernel wrappers of
-``ops.cuda``: CPU tensors run the plain PyTorch versions, CUDA tensors the
-hand-written kernels, so every level operation on the card launches one.
-Everything this slice does not port raises ``NotImplementedError`` naming
-the ROADMAP item that will bring it.
+A level is single-grid (its state one (ny, nx) tensor) or, the last level
+when ``grids > levels``, merged: several grids in one coupled system (its
+state a tuple of per-grid tensors, finest first).  The JAX package
+routes each level through a web of flags (``use_pallas_apply``,
+``mdma_ok``, ``papply``...).  Here a single-grid matrix-free level has
+one dispatch, on the tensor's device, inside the kernel wrappers of
+``ops.cuda``: CPU tensors run the plain PyTorch versions, CUDA tensors
+the hand-written kernels, so every level operation on the card launches
+one.  Sparse and merged levels take the JAX package's generic route:
+operator applications (K8, K16 or the ELL gather for an assembled one;
+K6 per grid for a merged matrix-free one), smoothers over them, and
+visits composed of smooth, residual and transfer.  What is not ported
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,8 +36,19 @@ from multigrid_petsc_tpu_torch.mesh import MeshType
 from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
 from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as sk9
 from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+from multigrid_petsc_tpu_torch.ops.composite import (
+    composite_apply,
+    composite_residual,
+    composite_rhs,
+)
+from multigrid_petsc_tpu_torch.ops.sparse import SparseLevelOp, assemble_level_csr
 from multigrid_petsc_tpu_torch.ops.stencil import PCRFactor, Stencil5, Stencil9
-from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
+from multigrid_petsc_tpu_torch.ops.transfer import (
+    prolong_bilinear,
+    prolong_multi,
+    restrict_fw,
+    restrict_multi,
+)
 from multigrid_petsc_tpu_torch.problems import (
     AnisoProblem,
     Problem,
@@ -41,8 +59,17 @@ from multigrid_petsc_tpu_torch.problems import (
     stencil_coefficients,
 )
 from multigrid_petsc_tpu_torch.solvers import smoothers as sm
-from multigrid_petsc_tpu_torch.solvers.coarse import build_direct_solver
-from multigrid_petsc_tpu_torch.utils.config import SmootherType, SolverConfig
+from multigrid_petsc_tpu_torch.solvers.coarse import (
+    build_cg_solver,
+    build_direct_solver,
+    dense_from_csr,
+    dense_solver,
+)
+from multigrid_petsc_tpu_torch.utils.config import (
+    CycleType,
+    SmootherType,
+    SolverConfig,
+)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -52,28 +79,62 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md, modules left behind: {item})")
 
 
+def primary(state) -> torch.Tensor:
+    """A state's primary (finest) grid."""
+    return state if isinstance(state, torch.Tensor) else state[0]
+
+
 @dataclass
 class LevelCtx:
-    """One single-grid level: its spec, stencil, smoother and solver
-    closures.  Every operation dispatches to the 5-point kernels (K6, K7,
-    K9) or the 9-point ones (K12, K13, K14) by the stencil's type, and to
-    the y-line visit (K15) when the level's smoother is LINE_Y."""
+    """One level: its spec, stencils, smoother and solver closures.
+
+    A single-grid matrix-free level dispatches every operation to the
+    5-point kernels (K6, K7, K9) or the 9-point ones (K12, K13, K14) by
+    the stencil's type, and to the y-line visit (K15) when its smoother
+    is LINE_Y.  A sparse level (``backend="sparse"``) applies its
+    assembled operators (``sparse_full``: A, ``sparse_diag``: A1,
+    ``sparse_coup``: A2; single-grid levels keep A only, which is A1).  A
+    merged level (``spec.is_composite``) applies ``composite_apply`` over
+    its grids unless it is sparse; its smoother is block Gauss-Seidel
+    (``block_gs``), matrix-free even when sparse, as in the JAX
+    package."""
 
     spec: LevelSpec
-    stencil: Stencil5 | Stencil9
-    dinv: torch.Tensor
+    stencil: Stencil5 | Stencil9  # the primary grid's
+    dinv: torch.Tensor | tuple    # 1 / cc, per grid on a merged level
     smoother: SmootherType  # JACOBI, CHEBYSHEV or LINE_Y
     omega: float
     lmax: float | None = None  # Chebyshev: lmax of D^-1 A, set up once
-    coarse_solve: Callable[[torch.Tensor], torch.Tensor] | None = None
+    coarse_solve: Callable | None = None
     # LINE_Y: the stencil as a collapsed Stencil9 and its line factors
     # (``line_kernel.line_factor``), set up once.
     line_st: Stencil9 | None = None
     line_fac: PCRFactor | lk.LineFactor | None = None
+    stencils: tuple = ()  # every grid's stencil (stencils[0] is stencil)
+    block_gs: bool = False  # merged level: block Gauss-Seidel smoother
+    block_gs_inner: int = 3
+    sparse: bool = False
+    sparse_full: SparseLevelOp | None = None
+    sparse_diag: SparseLevelOp | None = None
+    sparse_coup: SparseLevelOp | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.spec.primary.shape
+
+    @property
+    def shapes(self) -> list[tuple[int, int]]:
+        return [g.shape for g in self.spec.grids]
+
+    @property
+    def merged(self) -> bool:
+        return self.spec.is_composite
+
+    @property
+    def generic(self) -> bool:
+        """Sparse and merged levels: no fused visit kernels (the JAX
+        package's ``use_pallas_apply`` is False there)."""
+        return self.sparse or self.merged
 
     @property
     def nine(self) -> bool:
@@ -81,23 +142,58 @@ class LevelCtx:
 
     @property
     def point5(self) -> bool:
-        """A 5-point level with a point smoother: what the fused mg-CG
-        kernels (K1-K4) take."""
-        return not self.nine and self.line_st is None
+        """A matrix-free single-grid 5-point level with a point smoother:
+        what the fused mg-CG kernels (K1-K4) take."""
+        return not self.nine and self.line_st is None and not self.generic
 
-    def apply(self, u: torch.Tensor) -> torch.Tensor:
+    def _op(self, name: str) -> SparseLevelOp:
+        op = getattr(self, name)
+        if op is None:
+            raise RuntimeError(f"{name} is not assembled: this cycle does "
+                               f"not read it")
+        return op
+
+    def apply(self, u):
+        if self.sparse:
+            return self._op("sparse_full").apply(u)
+        if self.merged:
+            return composite_apply(self.stencils, self.spec.gids, u)
         if self.nine:
             return sk9.apply_stencil9(self.stencil, u)
         return sk.apply_stencil5(self.stencil, u)
 
-    def residual(self, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    def residual(self, b, u):
+        if self.sparse:
+            return self._op("sparse_full").residual(b, u)
+        if self.merged:
+            return composite_residual(self.stencils, self.spec.gids, b, u)
         if self.nine:
             return sk9.residual9(self.stencil, b, u)
         return sk.residual5(self.stencil, b, u)
 
-    def zeros(self) -> torch.Tensor:
-        return torch.zeros(self.shape, dtype=self.dinv.dtype,
-                           device=self.dinv.device)
+    def apply_diag(self, u):
+        """A1 u: the grid-diagonal blocks only (A itself on one grid)."""
+        if not self.merged:
+            return self.apply(u)
+        if self.sparse:
+            return self._op("sparse_diag").apply(u)
+        return composite_apply(self.stencils, self.spec.gids, u,
+                               include_couplings=False)
+
+    def apply_couplings(self, u):
+        """A2 u: the coupling blocks only (zero on one grid)."""
+        if not self.merged:
+            return torch.zeros_like(u)
+        if self.sparse:
+            return self._op("sparse_coup").apply(u)
+        return composite_apply(self.stencils, self.spec.gids, u,
+                               include_diag=False)
+
+    def zeros(self):
+        cc = self.stencil.cc
+        z = tuple(torch.zeros(s, dtype=cc.dtype, device=cc.device)
+                  for s in self.shapes)
+        return z if self.merged else z[0]
 
     def steps_fn(self, sweeps: int):
         """The point smoother's static (alpha, beta) schedule."""
@@ -109,23 +205,40 @@ class LevelCtx:
         return lk.line_visit9(self.line_st, b, u, sweeps, self.omega,
                               emit=emit, e_coarse=e_c, fac=self.line_fac)
 
-    def smooth(self, b: torch.Tensor, u: torch.Tensor, sweeps: int):
+    def smooth(self, b, u, sweeps: int):
+        if self.block_gs:
+            return sm.composite_block_gs(self.stencils, self.spec.gids, b, u,
+                                         sweeps, inner=self.block_gs_inner,
+                                         omega=self.omega)
         if self.line_st is not None:
             return self._line(b, u, sweeps, "u")
+        if self.generic:
+            if self.smoother == SmootherType.CHEBYSHEV:
+                return sm.chebyshev(self.apply, self.dinv, b, u, sweeps,
+                                    self.lmax)
+            return sm.jacobi(self.apply, self.dinv, b, u, sweeps, self.omega)
         fn = sk9.smooth9_sweeps if self.nine else sk.smooth_sweeps
         return fn(self.stencil, b, u, self.steps_fn(sweeps))
 
-    def visit_down(self, b: torch.Tensor, u: torch.Tensor | None,
-                   sweeps: int):
-        """(u', rc): smooth from u (None: the zero guess) + the fully
-        restricted residual."""
+    def visit_down(self, b, u, sweeps: int):
+        """(u', rc): smooth from u (None: the zero guess) + the restricted
+        residual of the primary grid."""
+        if self.generic:
+            u = self.smooth(b, self.zeros() if u is None else u, sweeps)
+            return u, restrict_fw(primary(self.residual(b, u)))
         if self.line_st is not None:
             return self._line(b, u, sweeps, "rc")
         fn = sk9.fused_level_visit9 if self.nine else sk.fused_level_visit
         return fn(self.stencil, b, u, self.steps_fn(sweeps), emit="rc")
 
     def visit_up(self, b, u, e_c, sweeps: int, emit_r: bool = False):
-        """smooth_k(b, u + P e_c) [, its residual]."""
+        """smooth_k(b, u + P e_c) [, its residual]; the correction goes to
+        the primary grid."""
+        if self.generic:
+            u0 = primary(u) + prolong_bilinear(e_c)
+            u = u0 if isinstance(u, torch.Tensor) else (u0,) + tuple(u[1:])
+            u = self.smooth(b, u, sweeps)
+            return (u, self.residual(b, u)) if emit_r else u
         emit = "ur" if emit_r else "u"
         if self.line_st is not None:
             return self._line(b, u, sweeps, emit, e_c)
@@ -145,22 +258,54 @@ class MGContext:
     dtype: torch.dtype
     device: torch.device
 
-    # One coarsening gap between adjacent single-grid levels: the visit
-    # kernels' rc output IS the next level's rhs and the next level's
-    # solution IS the up visit's coarse correction.
-    def restrict_rc1(self, l: int, rc1: torch.Tensor) -> torch.Tensor:
-        return rc1
+    # The visits restrict and prolong one gap on the primary grids; these
+    # finish the transfer to a merged next level (its grids one or more
+    # gaps further).  Between single-grid levels the visit kernels' rc
+    # output IS the next level's rhs and the next level's solution IS the
+    # up visit's coarse correction.
+    def _gaps(self, l: int, extra: int):
+        g0 = self.levels[l].spec.primary.g
+        return [g.g - g0 - extra for g in self.levels[l + 1].spec.grids]
 
-    def prolong_half(self, l: int, u_next: torch.Tensor) -> torch.Tensor:
-        return u_next
+    def restrict_rc1(self, l: int, rc1: torch.Tensor):
+        if not self.levels[l + 1].merged:
+            return rc1
+        return tuple(restrict_multi(rc1, gap) for gap in self._gaps(l, 1))
 
-    # Whole transfers (FMG, the Additive cycle): plain PyTorch, as the JAX
-    # package computes them outside its kernels.
-    def restrict_to_next(self, l: int, r: torch.Tensor) -> torch.Tensor:
-        return restrict_fw(r)
+    def prolong_half(self, l: int, u_next) -> torch.Tensor:
+        if not self.levels[l + 1].merged:
+            return u_next
+        return _sum(prolong_multi(ug, gap)
+                    for ug, gap in zip(u_next, self._gaps(l, 1)))
 
-    def prolong_from_next(self, l: int, u_next: torch.Tensor) -> torch.Tensor:
-        return prolong_bilinear(u_next)
+    # Whole transfers (FMG, the Additive cycles): plain PyTorch, as the
+    # JAX package computes them outside its kernels.
+    def restrict_to_next(self, l: int, r: torch.Tensor):
+        """Level l's primary-grid residual onto every grid of level l+1."""
+        if not self.levels[l + 1].merged:
+            return restrict_fw(r)
+        return tuple(restrict_multi(r, gap) for gap in self._gaps(l, 0))
+
+    def prolong_from_next(self, l: int, u_next) -> torch.Tensor:
+        """Every grid of level l+1 onto level l's primary grid, summed."""
+        if not self.levels[l + 1].merged:
+            return prolong_bilinear(u_next)
+        return _sum(prolong_multi(ug, gap)
+                    for ug, gap in zip(u_next, self._gaps(l, 0)))
+
+
+def _sum(terms):
+    out = None
+    for t in terms:
+        out = t if out is None else out + t
+    return out
+
+
+# Cycles that read only a merged level's grid-diagonal A1 (the delayed
+# cycles; reference src/solver.c:1167-1168) or A1 and A2 (the E-cycle):
+# they smooth with their own A1 smoother, never with the levels'.
+_SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
+                 CycleType.ECYCLE)
 
 
 def _check_supported(cfg: SolverConfig, plan) -> None:
@@ -171,10 +316,8 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
     if cfg.problem == "aniso" and cfg.grids != cfg.levels:
         raise ValueError("aniso (9-pt) problem: composite levels "
                          "unsupported; use grids == levels")
-    if cfg.backend == "sparse":
-        raise _not_ported("backend='sparse'", "sparse")
-    if cfg.grids != cfg.levels:
-        raise _not_ported("composite (merged-grid) levels", "the cycle zoo")
+    if cfg.backend == "sparse" and cfg.problem != "poisson":
+        raise ValueError("backend='sparse': poisson problem family only")
     if cfg.dtype not in _DTYPES:
         raise _not_ported(f"dtype {cfg.dtype!r}", "precision")
     if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
@@ -184,9 +327,8 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
         if s not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV,
                      SmootherType.LINE_Y):
             raise _not_ported(f"smoother {s.value!r}", "the other smoothers")
-    if cfg.coarse_solver not in ("auto", "direct", "smooth"):
-        raise _not_ported(f"coarse_solver {cfg.coarse_solver!r}",
-                          "the cycle zoo")
+    if cfg.coarse_solver not in ("auto", "direct", "cg", "smooth"):
+        raise ValueError(f"unknown coarse_solver {cfg.coarse_solver}")
 
 
 def _line_stencil(st: Stencil5 | Stencil9) -> Stencil9:
@@ -222,35 +364,77 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
                else problem or poisson_sin_problem())
     dtype = _DTYPES[cfg.dtype]
     mesh_type = MeshType(cfg.mesh)
+    sparse = cfg.backend == "sparse"
     levels = []
     for l, spec in enumerate(build_hierarchy(cfg.npts, cfg.grids,
                                              cfg.levels)):
-        g = spec.primary
-        st = (stencil9_coefficients(problem, g.ny, g.nx, dtype, device)
-              if aniso else
-              stencil_coefficients(mesh_type, g.ny, g.nx, dtype, device))
-        lc = LevelCtx(spec=spec, stencil=st, dinv=1.0 / st.cc,
+        sts = tuple(
+            stencil9_coefficients(problem, g.ny, g.nx, dtype, device)
+            if aniso else
+            stencil_coefficients(mesh_type, g.ny, g.nx, dtype, device)
+            for g in spec.grids)
+        dinv = tuple(1.0 / st.cc for st in sts)
+        lc = LevelCtx(spec=spec, stencil=sts[0],
+                      dinv=dinv if spec.is_composite else dinv[0],
                       smoother=cfg.smoother_at(l, cfg.levels),
-                      omega=cfg.omega)
-        if lc.smoother == SmootherType.CHEBYSHEV:
-            lc.lmax = sm.estimate_dinv_a_lmax(lc.apply, lc.dinv, g.shape)
-        elif lc.smoother == SmootherType.LINE_Y:
-            lc.line_st = _line_stencil(st)
-            lc.line_fac = lk.line_factor(lc.line_st, g.ny)
+                      omega=cfg.omega, stencils=sts, sparse=sparse,
+                      block_gs=(spec.is_composite
+                                and cfg.composite_smoother == "block_gs"),
+                      block_gs_inner=cfg.v[0])
+        if sparse:
+            _assemble(lc, cfg, device, dtype)
+        if cfg.cycle not in _SPLIT_CYCLES and not lc.block_gs:
+            if lc.smoother == SmootherType.CHEBYSHEV:
+                lc.lmax = sm.estimate_dinv_a_lmax(
+                    lc.apply, lc.dinv, lc.shapes if lc.merged else lc.shape)
+            elif lc.smoother == SmootherType.LINE_Y:
+                if lc.merged:
+                    raise ValueError("line smoother: 1 grid per level")
+                lc.line_st = _line_stencil(lc.stencil)
+                lc.line_fac = lk.line_factor(lc.line_st, lc.shape[0])
         levels.append(lc)
 
     if len(levels) >= 2 and cfg.coarse_solver != "smooth":
         last = levels[-1]
         mode = cfg.coarse_solver
         if mode == "auto":
-            n = last.shape[0] * last.shape[1]
+            n = sum(ny * nx for ny, nx in last.shapes)
             mode = "direct" if n <= cfg.max_direct_size else "cg"
-        if mode != "direct":
-            raise _not_ported("the CG coarse solver", "the cycle zoo")
-        last.coarse_solve = build_direct_solver(last.stencil, last.shape)
+        if mode == "cg":
+            last.coarse_solve = build_cg_solver(last.apply, last.shapes,
+                                                cfg.coarse_cg_iters)
+        elif last.merged:
+            # The merged operator, couplings included, from its CSR.
+            dense = dense_from_csr(*assemble_level_csr(
+                cfg.npts, cfg.mesh, last.spec.gids))
+            last.coarse_solve = dense_solver(dense, last.shapes, dtype,
+                                             device)
+        else:
+            last.coarse_solve = build_direct_solver(last.stencil, last.shape)
 
+    # Level-0 rhs: f on the primary grid, its composed restrictions on the
+    # coarser grids of a merged level 0 (src/solver.c:558-620).
     g0 = levels[0].spec.primary
     b0 = (aniso_rhs_grid(problem, g0.ny, g0.nx, dtype, device) if aniso
           else rhs_grid(problem, mesh_type, g0.ny, g0.nx, dtype, device))
+    if levels[0].merged:
+        b0 = composite_rhs(b0, levels[0].spec.gids)
     return MGContext(config=cfg, problem=problem, levels=levels, b0=b0,
                      dtype=dtype, device=device)
+
+
+def _assemble(lc: LevelCtx, cfg: SolverConfig, device, dtype) -> None:
+    """The level's assembled operators: only those its cycle reads.  A
+    single-grid level keeps A (= A1; A2 = 0).  On a merged level the
+    delayed cycles read A1 only (reference src/solver.c:1167-1168), the
+    E-cycle A1 and A2 (src/solver.c:512-556), every other cycle A."""
+    def op(**kw):
+        return SparseLevelOp.assemble(cfg.npts, cfg.mesh, lc.spec.gids,
+                                      device=device, dtype=dtype, **kw)
+
+    if not lc.merged or cfg.cycle not in _SPLIT_CYCLES:
+        lc.sparse_full = op()
+        return
+    lc.sparse_diag = op(include_couplings=False)
+    if cfg.cycle == CycleType.ECYCLE:
+        lc.sparse_coup = op(include_diag=False)

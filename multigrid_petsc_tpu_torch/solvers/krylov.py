@@ -19,7 +19,13 @@ import torch
 
 from multigrid_petsc_tpu_torch.ops.cuda import coarse_tree_kernel as ctk
 from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
-from multigrid_petsc_tpu_torch.ops.norms import tree_dot, tree_norm2
+from multigrid_petsc_tpu_torch.ops.norms import (
+    flatten,
+    tree_dot,
+    tree_map,
+    tree_norm2,
+    unflatten,
+)
 from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
 from multigrid_petsc_tpu_torch.solvers.context import MGContext
 from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, keep_going
@@ -27,11 +33,12 @@ from multigrid_petsc_tpu_torch.solvers.vcycle import _cycle, _visit_sweeps, mg_a
 
 
 def solve_mgcg(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
-    """mg-CG.  Hierarchies of two or more levels whose level 0 is 5-point
-    and point-smoothed run the fused plan (``_solve_mgcg_fused_mdma``);
-    the rest run the generic PCG loop (A p through K6 or K12, the V-cycle
-    through the levels' visits), as the JAX package routes the 9-point
-    and line-smoothed families."""
+    """mg-CG.  Hierarchies of two or more levels whose level 0 is
+    matrix-free, 5-point and point-smoothed run the fused plan
+    (``_solve_mgcg_fused_mdma``); the rest run the generic PCG loop (A p
+    through K6, K12 or the level's assembled operator, the V-cycle
+    through the levels' visits), as the JAX package routes the 9-point,
+    line-smoothed and sparse families."""
     b = ctx.b0 if b0 is None else b0
     if len(ctx.levels) > 1 and ctx.levels[0].point5:
         return _solve_mgcg_fused_mdma(ctx, b)
@@ -60,13 +67,13 @@ def _solve_mgcg_generic(ctx: MGContext, b: torch.Tensor) -> OuterResult:
         # exact 0; guarded ratios turn that into a harmless stall.
         pap = tree_dot(p, ap)
         alpha = torch.where(pap != 0, rz / pap, zero)
-        u = u + alpha * p
-        r = r - alpha * ap
+        u = tree_map(lambda uk, pk: uk + alpha * pk, u, p)
+        r = tree_map(lambda rk, ak: rk - alpha * ak, r, ap)
         rn = tree_norm2(r)
         z = mg_apply(ctx, r, v0, v1)
         rz_new = tree_dot(r, z)
         beta = torch.where(rz != 0, rz_new / rz, zero)
-        p = z + beta * p
+        p = tree_map(lambda zk, pk: zk + beta * pk, z, p)
         rz = rz_new
         hist[min(i + 1, hist_len)] = rn
         i += 1
@@ -186,16 +193,16 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
     v0, v1 = cfg.v
     lvl0 = ctx.levels[0]
     m = restart if restart is not None else cfg.fgmres_restart
-    b = (ctx.b0 if b0 is None else b0).reshape(-1)
-    shape = lvl0.shape
+    b = flatten(ctx.b0 if b0 is None else b0)
+    shapes = lvl0.shapes
     hist_len = cfg.hist_len
     dtype, device = b.dtype, b.device
 
     def apply_flat(x):
-        return lvl0.apply(x.reshape(shape)).reshape(-1)
+        return flatten(lvl0.apply(unflatten(x, shapes)))
 
     def precond_flat(r):
-        return mg_apply(ctx, r.reshape(shape), v0, v1).reshape(-1)
+        return flatten(mg_apply(ctx, unflatten(r, shapes), v0, v1))
 
     def restart_block(u):
         r = b - apply_flat(u)
@@ -253,5 +260,5 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
         hist[min(i + 1, hist_len)] = rn_t
         i += 1
         rn = float(rn_t)  # the stop test: one host read per restart block
-    return OuterResult(u=u.reshape(shape), rnorm_history=hist / hist[0],
+    return OuterResult(u=unflatten(u, shapes), rnorm_history=hist / hist[0],
                        iters=i, converged=rn <= cfg.rtol * bnorm)

@@ -1,7 +1,8 @@
 """Solve dispatch: config -> cycle driver -> result (PyTorch counterpart
 of ``multigrid_petsc_tpu/solvers/solve.py``; reference: src/solver.c:
-2617-2630).  Ported drivers: V-cycle, MG-Richardson (PCMG), FMG, Additive,
-mg-CG and mg-FGMRES; the others raise ``NotImplementedError``.
+2617-2630): every cycle id, the reference's nine (V, I, E, D1, D2, D1PS,
+PCMG as MG-Richardson, Additive, Additive2) and the framework's mg-CG,
+mg-FGMRES and FMG.
 
 ``wall_time`` brackets the solve only (set-up excluded), synchronising the
 device on both sides; ``timed=True`` re-runs the solve and reports the
@@ -17,12 +18,13 @@ import numpy as np
 import torch
 
 from multigrid_petsc_tpu_torch.solvers import cycles as cy
+from multigrid_petsc_tpu_torch.solvers import delayed as dl
 from multigrid_petsc_tpu_torch.solvers import krylov as kr
 from multigrid_petsc_tpu_torch.solvers import vcycle as vc
 from multigrid_petsc_tpu_torch.solvers.context import (
     MGContext,
-    _not_ported,
     build_context,
+    primary,
 )
 from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
 
@@ -31,14 +33,19 @@ _DRIVERS = {
     CycleType.PCMG: vc.solve_mg_richardson,
     CycleType.FMG: vc.solve_fmg,
     CycleType.ADDITIVE: cy.solve_additive,
+    CycleType.ICYCLE: cy.solve_icycle,
+    CycleType.ECYCLE: cy.solve_ecycle,
+    CycleType.ADDITIVE2: cy.solve_additive2,
     CycleType.MGCG: kr.solve_mgcg,
     CycleType.MGFGMRES: kr.solve_mgfgmres,
+    **{c: (lambda ctx, b0, _c=c: dl.solve_delayed(ctx, _c, b0))
+       for c in (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE)},
 }
 
 
 @dataclass
 class SolveResult:
-    u: torch.Tensor  # level-0 solution, on the solve's device
+    u: torch.Tensor  # level-0 primary-grid solution, on the solve's device
     rnorm: np.ndarray  # normalized residual history, entries 0..iters
     iters: int
     converged: bool
@@ -49,6 +56,10 @@ class SolveResult:
     # a CUDA tensor launches one; none falls back), "torch" when the
     # plain PyTorch versions did.
     path: str
+    # Every grid of the level-0 state (one entry unless level 0 is merged).
+    u_grids: tuple = ()
+    # -moreNorm: the monitors' arrays, cut to the iterations run (numpy).
+    aux: dict | None = None
 
     @property
     def u_fine(self) -> np.ndarray:
@@ -61,8 +72,6 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
     """Set up on ``device`` (unless given a context; the card unless the
     caller names the CPU) and run the configured cycle."""
     cfg = cfg.validate()
-    if cfg.cycle not in _DRIVERS:
-        raise _not_ported(f"cycle {cfg.cycle.name}", "the cycle zoo")
     if ctx is None:
         ctx = build_context(cfg, problem, device=device)
     dev = ctx.device
@@ -81,8 +90,19 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
     res, wall, cpu = run()
     if timed:
         res, wall, cpu = run()
+    aux = None
+    if res.aux is not None:
+        # The delayed cycles record v + 1 entries per outer iteration, the
+        # I/E monitors one per iteration and the initial state.
+        delayed = ctx.config.cycle in (CycleType.D1CYCLE, CycleType.D2CYCLE,
+                                       CycleType.D1PSCYCLE)
+        n = res.iters * (ctx.config.v[0] + 1) if delayed else res.iters + 1
+        aux = {"r_global": res.aux["r_global"][:n].cpu().numpy(),
+               "r_grid": res.aux["r_grid"][:, :n].cpu().numpy()}
     return SolveResult(
-        u=res.u,
+        u=primary(res.u),
+        u_grids=(res.u,) if isinstance(res.u, torch.Tensor) else res.u,
+        aux=aux,
         rnorm=res.rnorm_history[: res.iters + 1].cpu().numpy(),
         iters=res.iters,
         converged=res.converged,

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from multigrid_petsc_tpu_torch.ops.norms import tree_map
 from multigrid_petsc_tpu_torch.solvers.context import MGContext
 from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, outer_iterate
 
@@ -92,7 +93,8 @@ def solve_mg_richardson(ctx: MGContext,
     lvl0 = ctx.levels[0]
 
     def step(b, u):
-        return u + mg_apply(ctx, lvl0.residual(b, u), v0, v1)
+        return tree_map(lambda uk, ek: uk + ek, u,
+                        mg_apply(ctx, lvl0.residual(b, u), v0, v1))
 
     return outer_iterate(step, lvl0.residual, ctx.b0 if b0 is None else b0,
                          lvl0.zeros(), cfg)

@@ -154,14 +154,14 @@ def test_cuda_request_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cycle=CycleType.ICYCLE),
+    dict(smoother=SmootherType.LINE_XY),
     dict(smoother=SmootherType.RBGS),
-    dict(grids=3, levels=2),
-    dict(backend="sparse"),
+    dict(precond_dtype="bfloat16"),
+    dict(coarse_smoother=SmootherType.RBGS),
     dict(smoother=SmootherType.LINE_X),
     dict(dtype="bfloat16"),
     dict(outer_dtype="float64"),
-    dict(coarse_solver="cg"),
+    dict(fine_smoother=SmootherType.LINE_X),
 ])
 def test_unported_options_raise(kw):
     cfg = SolverConfig(**{**dict(npts=17, grids=2, levels=2,
