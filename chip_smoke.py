@@ -51,7 +51,26 @@ non-zero):
      and the I-cycle on 2 merged grids at 4097^2, sparse (the host CSR of
      the coupled operator caps the size), (e) D1 and E matrix-free at
      8193^2; each with set-up seconds, peak device memory, launch counts
-     and ms per iteration.
+     and ms per iteration;
+  2d. the precision slice's kernels at 8191^2: K10 and K11 (the fused
+     mg-CG route, f32), and the f64 and bf16 instantiations of K6,
+     residual5, K7, K9 (K2b's zero-guess rc, K3's correcting u + dot, a
+     nonzero-guess rc), K12, K13 and K14, and K15 in f64, each against its
+     plain version, with times and conv2d's where one call computes it;
+  3d. card against CPU at 1025^2 / 8 levels: the fused route (-v 8,8),
+     mg-CG in f64 to rtol 1e-7 (generic route), the mixed outer (f32
+     V-cycle + f64 outer) to 1e-8 and float32x2, the bf16 preconditioner
+     (mg-CG, mg-FGMRES, and under the f64 outer), BASELINE config 4's
+     mixed certification (aniso y-line), and the aniso f64 solves (y-line
+     and Jacobi);
+  8. the precision paths at full width (8193^2 / 11 levels): (a) the
+     mixed certification to rtol 1e-8 (true f64 residual <= 1e-8), (b)
+     the same warm-started from FMG (BASELINE config 5), (c) f32 mg-CG
+     with the bf16 preconditioner (config 6) to 1e-5, (d) mg-CG in f64 to
+     1e-7, (e) the fused route (-v 8,8, f32, 1e-5: K11 and K10 once per
+     iteration, no K1 or K2a), (f) a 3-level f64 V-cycle smoothing its
+     2047^2 coarsest level; each with its true f64 residual, error norms,
+     launch counts and ms per iteration.
 Every path run starts with the launch counters at 0 and reads them right
 after.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
@@ -74,9 +93,18 @@ TOL_DOT = 1e-4    # relative, on each inner product
 # plain version by f32 parallel cyclic reduction: they differ by solve
 # rounding, not by arithmetic order alone.
 TOL_LINE = 1e-4
+# bf16 outputs are the same f32 values rounded once, on the card and in
+# the plain version; the card's FMA contraction and summation order move
+# the f32 value by f32 noise and so can flip that one rounding: every bf16
+# entry is held to one bf16 ulp of itself, or, where cancellation leaves
+# an entry smaller than the f32 noise, to the f32 kernels' TOL_ARRAY of
+# max|plain| (TOL_ARRAY alone is below bf16's resolution of 2^-8).  f64
+# and f32 outputs are held to TOL_ARRAY.
+BF16_ULPS = 1
 REPS = 10
 HBM_PEAK = 3.35e12  # B/s, H100 SXM published
 F32_PEAK = 67e12    # FLOP/s, H100 SXM f32 outside the tensor cores
+F64_PEAK = 34e12    # FLOP/s, H100 SXM f64 outside the tensor cores
 
 
 def nvidia_smi_line() -> str:
@@ -111,6 +139,25 @@ def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None):
         err = abs(float(got) - float(want))
         lim = (TOL_DOT * abs(float(want)) if dot_scale is None
                else tol * dot_scale)
+    elif want.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+
+        def ulp(x):
+            return torch.exp2(torch.floor(torch.log2(
+                x.abs().clamp_min(1e-30))) - 7)
+
+        lim = torch.maximum(BF16_ULPS * torch.maximum(ulp(g), ulp(w)),
+                            TOL_ARRAY * w.abs().max())
+        worst = float(((g - w).abs() / lim).max())
+        print(f"  {name}: max|kernel - plain| = {err:.3e}, at most "
+              f"{worst:.2f} of the limit ({BF16_ULPS} bf16 ulp of the entry "
+              f"or {TOL_ARRAY:g} of max|plain|)")
+        if not worst <= BF16_ULPS:
+            raise AssertionError(f"{name}: kernel disagrees with plain "
+                                 f"version ({worst:.2f} of the limit)")
+        record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+        return
     else:
         err = float((got - want).abs().max())
         lim = tol * float(want.abs().max())
@@ -484,8 +531,10 @@ def phase_parity(torch, runs, base=None):
 
     from multigrid_petsc_tpu_torch.ops.cuda import launches
 
-    counts = []
-    for cycle, smoother, max_iter, extra, atol in runs:
+    counts, results = [], []
+    for run in runs:
+        cycle, smoother, max_iter, extra, atol = run[:5]
+        slack = run[5] if len(run) > 5 else 0
         cfg = SolverConfig(**{**dict(npts=1025, grids=8, levels=8,
                                      cycle=cycle, smoother=smoother,
                                      dtype="float32", rtol=1e-5,
@@ -508,16 +557,19 @@ def phase_parity(torch, runs, base=None):
         assert g.path == "cuda" and c.path == "torch"
         assert g.converged == c.converged
         assert cycle != CycleType.MGCG or g.converged
-        assert g.iters == c.iters
+        assert abs(g.iters - c.iters) <= slack
         # rtol 0.05, plus an absolute floor (atol) for the entries near the
         # f32 roundoff floor of the residual: at 1023^2 the stencil's
         # 4/h^2 ~ 4e6 terms cancel to O(|b|), so each A u carries ~1e-2
         # relative f32 noise, and the card's FMA rounding differs from
         # the CPU's (measured: 1.76e-5 vs 1.58e-5 at the 4th entry of
         # mg-CG, H100).
-        np.testing.assert_allclose(g.rnorm, c.rnorm, rtol=0.05, atol=atol)
+        if atol is not None:
+            np.testing.assert_allclose(g.rnorm, c.rnorm, rtol=0.05,
+                                       atol=atol)
         assert err <= 1e-3
-    return counts
+        results.append(g)
+    return counts, results
 
 
 def phase_main(torch):
@@ -554,7 +606,7 @@ def phase_main(torch):
     return counts, res.u
 
 
-def ms_per_iteration(res, cfg):
+def ms_per_iteration(res, cfg, u0=None):
     """Device ms per outer iteration by differencing forced-length runs on
     one context (bench.py's method): the difference cancels the fixed
     per-solve costs (FMG's start, the first residual)."""
@@ -568,7 +620,8 @@ def ms_per_iteration(res, cfg):
     for _ in range(3):
         t = [solve(forced, ctx=dataclasses.replace(
                  res.ctx, config=dataclasses.replace(forced, max_iter=k)),
-                 device="cuda", timed=True).wall_time for k in (k1, k2)]
+                 device="cuda", u0=u0, timed=True).wall_time
+             for k in (k1, k2)]
         pairs.append((t[1] - t[0]) / (k2 - k1))
     ms = 1e3 * statistics.median(pairs)
     print(f"  ms per iteration (median of 3 differenced pairs, {k1} vs {k2} "
@@ -577,12 +630,12 @@ def ms_per_iteration(res, cfg):
 
 
 def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
-                   err_max=1e-2, ctx=None, forbid=()):
+                   err_max=1e-2, ctx=None, forbid=(), u0=None):
     """One full-width solve: launch counts from 0, error norms, ms per
     iteration.  ``near``: the solution within ``err_max`` of the exact
     one; ``forced``: a forced count (max_iter +- 1), else it must
     converge.  ``ctx``: a context built for ``cfg`` already; ``forbid``:
-    kernels the run must not launch."""
+    kernels the run must not launch; ``u0``: the warm start."""
     import numpy as np
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
@@ -591,7 +644,7 @@ def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
     from multigrid_petsc_tpu_torch.solvers.solve import solve
 
     launches.clear()
-    res = solve(cfg, device="cuda", ctx=ctx)
+    res = solve(cfg, device="cuda", ctx=ctx, u0=u0)
     counts = dict(launches)
     print(f"{label} {cfg.npts}^2/{cfg.levels} levels: iters {res.iters} "
           f"(max_iter {cfg.max_iter}), converged {res.converged}, path "
@@ -621,7 +674,7 @@ def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
         assert errs[0] <= err_max, f"{label}: max error {errs[0]:.3e}"
     else:  # slow cycles: the residual must still have fallen
         assert res.rnorm[-1] < 1, f"{label}: no descent"
-    ms_per_iteration(res, cfg)
+    ms_per_iteration(res, cfg, u0)
     return counts, res
 
 
@@ -858,7 +911,7 @@ def phase_parity_zoo(torch):
             runs.append((cycle, jac, 20, {**one, "backend": backend}, 5e-6))
     runs += [(CycleType.ADDITIVE2, jac, 6, {"grids": 2, "levels": 2}, 5e-6),
              (CycleType.VCYCLE, jac, 6, {"grids": 4, "levels": 2}, 5e-6)]
-    counts = phase_parity(torch, runs)
+    counts, _ = phase_parity(torch, runs)
     for run, c in zip(runs[:2], counts):
         assert c.get("apply_stencil5_field", 0) > 0, (run, c)
         assert not set(c) & MATRIX_FREE, (run, c)
@@ -953,6 +1006,267 @@ def phase_zoo(torch):
 
 
 
+def phase_kernels_precision(torch, dev, rec):
+    """Phase 2d: K10 and K11 (f32), then the f64 and bf16 instantiations at
+    8191^2 against their plain versions.  Bytes are counted at each
+    storage type's element size (8 for f64, 2 for bf16); operations as for
+    f32 (bf16 computes in f32; f64 has no tensor-core path here)."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+        stencil_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    n = 8191
+    pts = n * n
+    jac = jacobi_step_coeffs(3, 0.8)
+    k = len(jac)
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def check(key, label, arrays, isz, flops, *args, **kw):
+        rec.setdefault(key, {})
+        check_kernel(torch, rec, key, f"{label} at {n}^2", arrays * pts * isz,
+                     flops, *args, **kw)
+
+    st = stencil_coefficients(MeshType.UNIFORM, n, n, torch.float32, dev)
+    z, p = rnd(n, n), rnd(n, n)
+    beta = torch.tensor(0.43, device=dev)
+    alpha = torch.tensor(0.37, device=dev)
+    check("cg_papply", "K11 cg_papply", 4, 4, 13 * pts,
+          lambda: sk.cg_papply(st, z, p, beta),
+          lambda: sk.cg_papply_plain(st, z, p, beta),
+          ("p'", "Ap'", "<p',Ap'>"))
+    check("fused_cg_visit_down", "K10 cg_visit_down", 4.25, 4,
+          (15 * k + 16) * pts,
+          lambda: sk.cg_visit_down(st, z, p, alpha, jac),
+          lambda: sk.cg_visit_down_plain(st, z, p, alpha, jac),
+          ("u0", "rc", "r'", "||r'||^2"))
+    del z, p, st
+    for dt, tag in ((torch.float64, "f64"), (torch.bfloat16, "bf16")):
+        isz = 8 if dt == torch.float64 else 2
+        sfx = "." + tag
+        st = stencil_coefficients(MeshType.UNIFORM, n, n, dt, dev)
+        b, u = rnd(n, n, dt=dt), rnd(n, n, dt=dt)
+        e = rnd((n - 1) // 2, (n - 1) // 2, dt=dt)
+        c = [float(x[0, 0]) for x in st]  # cs, cw, cc, ce, cn
+        w5 = torch.tensor([[0.0, c[0], 0.0], [c[1], c[2], c[3]],
+                           [0.0, c[4], 0.0]], device=dev, dtype=dt)
+        check("apply_stencil5" + sfx, f"K6 apply_stencil5 {tag}", 2, isz,
+              9 * pts, lambda: sk.apply_stencil5(st, u),
+              lambda: sk.apply_stencil5_plain(st, u), ("Au",),
+              library=conv_call(torch, w5, u))
+        check("residual5" + sfx, f"K9 r (residual5) {tag}", 3, isz, 10 * pts,
+              lambda: sk.residual5(st, b, u),
+              lambda: sk.residual5_plain(st, b, u), ("r",),
+              library=conv_call(torch, w5, u, b))
+        check("smooth_sweeps" + sfx, f"K7 smooth_sweeps Jacobi k=3 {tag}", 3,
+              isz, 45 * pts, lambda: sk.smooth_sweeps(st, b, u, jac),
+              lambda: sk.smooth_sweeps_plain(st, b, u, jac), ("u'",))
+        check("visit_down" + sfx, f"K9 zero-guess rc (K2b) {tag}", 2.25, isz,
+              (15 * k + 12) * pts,
+              lambda: sk.fused_level_visit(st, b, None, jac, "rc"),
+              lambda: sk.fused_level_visit_plain(st, b, None, jac, "rc"),
+              ("u'", "rc"))
+        check("visit_up" + sfx, f"K9 correct + u + <b,u> (K3) {tag}", 3.25,
+              isz, (15 * k + 4) * pts,
+              lambda: sk.fused_level_visit(st, b, u, jac, "u", e, True),
+              lambda: sk.fused_level_visit_plain(st, b, u, jac, "u", e,
+                                                 True), ("u'", "<b,u>"))
+        check("fused_level_visit" + sfx, f"K9 nonzero-guess rc {tag}", 3.25,
+              isz, (15 * k + 12) * pts,
+              lambda: sk.fused_level_visit(st, b, u, jac, "rc"),
+              lambda: sk.fused_level_visit_plain(st, b, u, jac, "rc"),
+              ("u'", "rc"))
+        del st, e
+        const = stencil9_coefficients(AnisoProblem(1.0, 0.0, 100.0, 0.0, 0.3),
+                                      n, n, dt, dev)
+        q = [float(x.reshape(-1)[0]) for x in const]
+        w9 = torch.tensor([q[0:3], q[3:6], q[6:9]], device=dev, dtype=dt)
+        check("apply_stencil9" + sfx, f"K12 apply_stencil9 {tag}", 3, isz,
+              17 * pts, lambda: k9.apply_stencil9(const, u),
+              lambda: k9.apply_stencil9_plain(const, u), ("Au",),
+              library=conv_call(torch, w9, u))
+        check("residual9" + sfx, f"K12 residual9 {tag}", 4, isz, 18 * pts,
+              lambda: k9.residual9(const, b, u),
+              lambda: k9.residual9_plain(const, b, u), ("r",),
+              library=conv_call(torch, w9, u, b))
+        del const
+        mixed = stencil9_coefficients(AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4),
+                                      n, n, dt, dev)
+        check("smooth9_sweeps" + sfx, f"K13 smooth9_sweeps Jacobi k=3 {tag}",
+              4, isz, 69 * pts, lambda: k9.smooth9_sweeps(mixed, b, u, jac),
+              lambda: k9.smooth9_sweeps_plain(mixed, b, u, jac), ("u'",))
+        check("fused_level_visit9" + sfx, f"K14 zero-guess rc {tag}", 3.25,
+              isz, (69 + 20) * pts,
+              lambda: k9.fused_level_visit9(mixed, b, None, jac, "rc"),
+              lambda: k9.fused_level_visit9_plain(mixed, b, None, jac, "rc"),
+              ("u'", "rc"))
+        del mixed
+        if dt == torch.float64:
+            line = lk.collapse_stencil(stencil9_coefficients(
+                AnisoProblem(1.0, 0.0, 100.0, 0.0, 0.0), n, n, dt, dev))
+            fac = lk.line_factor(line, n)
+            check("line_visit9" + sfx, "K15 line_visit9 zero-guess rc k=3 "
+                  "f64", 2.25, isz, 3 * 20 * pts,
+                  lambda: lk.line_visit9(line, b, None, 3, 0.8, "rc",
+                                         fac=fac),
+                  lambda: lk.line_visit9_plain(line, b, None, 3, 0.8, "rc"),
+                  ("u'", "rc"))
+            del line, fac
+        del b, u
+        torch.cuda.empty_cache()
+
+
+def phase_parity_precision(torch):
+    """Phase 3d: the precision paths, card against CPU at 1025^2 / 8
+    levels, held to phase 3's tolerances.  The bf16-preconditioned runs
+    are held as the JAX package's own bf16 test holds them (converged,
+    the solution; no history entry by entry): the card's FMA rounding
+    flips some bf16 roundings of the preconditioner's stores (one ulp
+    each; phase 2d), and the flexible PCG carries that into its history
+    (measured on an H100 for f32 mg-CG at rtol 1e-5: 28.0 vs 23.5 at the
+    third entry, 10 vs 9 iterations), so they get one iteration of
+    slack."""
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SmootherType
+
+    jac, line = SmootherType.JACOBI, SmootherType.LINE_Y
+    cg, fg = CycleType.MGCG, CycleType.MGFGMRES
+    strong_y = (1.0, 0.0, 100.0, 0.0, 0.0)
+    f64 = {"dtype": "float64", "rtol": 1e-7}
+    mixed = {"outer_dtype": "float64", "rtol": 1e-8}
+    bf = {"precond_dtype": "bfloat16"}
+    # cycle, smoother, max_iter, extra, history atol (None: not compared),
+    # iteration slack
+    runs = (
+        (cg, jac, 100, {"v": (8, 8)}, 5e-6, 0),
+        (cg, jac, 100, f64, 5e-6, 0),
+        (cg, jac, 100, mixed, 5e-6, 0),
+        (cg, jac, 100, {**mixed, "outer_dtype": "float32x2"}, 5e-6, 0),
+        (cg, jac, 100, bf, None, 1),
+        (fg, jac, 4, bf, None, 0),
+        (cg, jac, 100, {**mixed, **bf}, None, 1),
+        (cg, line, 100, {**mixed, "problem": "aniso", "aniso": strong_y},
+         2e-2, 0),
+        (cg, line, 100, {**f64, "problem": "aniso", "aniso": strong_y}, 5e-6,
+         0),
+        (cg, jac, 100, {**f64, "problem": "aniso",
+                        "aniso": (1.0, 1.0, 1.0, 2.0, 0.4)}, 5e-6, 0),
+    )
+    counts, results = phase_parity(torch, runs)
+    fused, f64_run, mixed_run = counts[0], counts[1], counts[2]
+    assert results[0].route == "fused"
+    for k in ("cg_papply", "fused_cg_visit_down", "visit_down", "visit_up"):
+        assert fused.get(k, 0) > 0, (k, fused)
+    for k in ("cg_papply_u", "cg_visit_down", "coarse_tree"):
+        assert fused.get(k, 0) == 0, (k, fused)
+    assert results[1].route == "generic"
+    assert all(k.endswith(".f64") for k in f64_run), f64_run
+    assert mixed_run.get("apply_stencil5.f64", 0) > 0, mixed_run
+    for r in results[2:4] + results[6:8]:
+        assert r.outer_dtype == "float64" and r.converged
+    for c in counts[4:7]:
+        assert c.get("visit_down.bf16", 0) > 0 and c.get("visit_up.bf16", 0) \
+            > 0, c
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_precision(torch):
+    """Phase 8: the precision paths at full width (8193^2 / 11 levels).
+    The mixed runs certify against the true f64 residual of the returned
+    solution (b and A in f64 on the card, K6 f64)."""
+    from multigrid_petsc_tpu_torch.solvers import krylov as kr
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+    base = dict(npts=8193, grids=11, levels=11, cycle=CycleType.MGCG,
+                max_iter=100)
+    mixed = dict(base, dtype="float32", outer_dtype="float64", rtol=1e-8)
+    f32 = {"cg_papply_u", "cg_visit_down", "coarse_tree"}  # the mdma route
+    counts = {}
+
+    def run(label, cfg, expect, forbid=(), u0=None, cert=False,
+            forced=False, err_max=1e-2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        c, res = run_full_width(torch, label, cfg, expect, not forced,
+                                forced, err_max=err_max, forbid=forbid,
+                                u0=u0)
+        true = kr.true_relative_residual(res.ctx, res.u)
+        print(f"  true f64 relative residual {true:.6e}; route {res.route}, "
+              f"outer dtype {res.outer_dtype}; {time.perf_counter() - t0:.2f}"
+              f" s with set-up; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if cert:
+            assert true <= 1e-8, f"{label}: true residual {true:.3e}"
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        return c, res
+
+    run("(a) mixed certification (f32 V-cycle + f64 outer)",
+        SolverConfig(**mixed),
+        {"apply_stencil5.f64", "visit_down", "visit_up"}, f32, cert=True)
+    t0 = time.perf_counter()
+    fmg = solve(SolverConfig(**dict(base, cycle=CycleType.FMG,
+                                    dtype="float32", rtol=1e-12,
+                                    max_iter=8)), device="cuda")
+    torch.cuda.synchronize()
+    print(f"(b) FMG start (FMG + 8 V-cycles, f32): "
+          f"{time.perf_counter() - t0:.2f} s, true f64 relative residual "
+          f"{kr.true_relative_residual(fmg.ctx, fmg.u):.6e}")
+    _, rb = run("(b) mixed certification warm-started from FMG",
+                SolverConfig(**mixed),
+                {"apply_stencil5.f64", "visit_down", "visit_up"}, f32,
+                u0=fmg.u, cert=True)
+    del fmg, rb
+    c, res = run("(c) f32 mg-CG, bf16 preconditioner (BASELINE config 6)",
+                 SolverConfig(**dict(base, dtype="float32", rtol=1e-5,
+                                     precond_dtype="bfloat16")),
+                 {"visit_down.bf16", "visit_up.bf16", "apply_stencil5",
+                  "residual5"}, f32)
+    assert res.route == "generic"
+    del res
+    c, res = run("(d) mg-CG in f64 (the reference precision)",
+                 SolverConfig(**dict(base, dtype="float64", rtol=1e-7)),
+                 {"apply_stencil5.f64", "residual5.f64", "visit_down.f64",
+                  "visit_up.f64"})
+    assert res.route == "generic"
+    assert all(k.endswith(".f64") for k in c), c
+    del res
+    # An f32 solve's error at this size is its roundoff (the f64 solves'
+    # is 1.2e-8): 4.7e-3 for phase 4's mg-CG, 1.07e-2 for this one (its 4
+    # iterations of 8 sweeps stop at rtol 1e-5 a step earlier; H100); an
+    # unconverged solve is O(1) off.  Held to 5e-2, as phase 6's f32
+    # solves.
+    c, res = run("(e) fused route, -v 8,8, f32",
+                 SolverConfig(**dict(base, dtype="float32", rtol=1e-5,
+                                     v=(8, 8))),
+                 {"cg_papply", "fused_cg_visit_down", "visit_down",
+                  "visit_up"}, f32, err_max=5e-2)
+    assert res.route == "fused"
+    assert c["cg_papply"] == c["fused_cg_visit_down"] == res.iters, c
+    del res
+    run("(f) f64 V-cycle, 3 levels, smoothed 2047^2 coarsest",
+        SolverConfig(npts=8193, grids=3, levels=3, cycle=CycleType.VCYCLE,
+                     dtype="float64", coarse_solver="smooth", max_iter=5,
+                     rtol=1e-30),
+        {"smooth_sweeps.f64", "fused_level_visit.f64", "residual5.f64"},
+        forced=True)
+    return counts
+
+
 def timed_phase(torch, name, fn, *args):
     """Run one phase; print its seconds (set-up included) and the peak
     device memory it reached."""
@@ -996,6 +1310,8 @@ def main() -> int:
     phase_kernels_9pt(torch, dev, rec)
     torch.cuda.empty_cache()
     timed_phase(torch, "2c", phase_kernels_sparse, dev, rec)
+    timed_phase(torch, "2d", phase_kernels_precision, dev, rec)
+    torch.cuda.empty_cache()
     jac, cheb = SmootherType.JACOBI, SmootherType.CHEBYSHEV
     phase_parity(torch, (  # cycle, smoother, max_iter, extra, atol
         (CycleType.MGCG, jac, 100, {}, 5e-6),
@@ -1027,11 +1343,13 @@ def main() -> int:
         (CycleType.VCYCLE, jac, 6, mixed, 5e-3),
     ), base={"problem": "aniso"})
     timed_phase(torch, "3c", phase_parity_zoo)
+    p3d_counts = timed_phase(torch, "3d", phase_parity_precision)
     counts, u_ref = phase_main(torch)
     vcounts = phase_vcycle(torch, u_ref)
     del u_ref
     acounts = phase_aniso(torch)
     k8_counts, k16_counts = timed_phase(torch, "7", phase_zoo)
+    p8_counts = timed_phase(torch, "8", phase_precision)
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -1063,11 +1381,32 @@ def main() -> int:
         "apply_stencil5_field": ("visit.cu", "stencil_kernel.py:427"),
         "residual5_field": ("visit.cu", "stencil_kernel.py:427"),
         "dia_spmv": ("spmv_dia.cu", "spmv_dia.py:99"),
+        # The precision slice; launches from phase 8, else (the 9-point
+        # f64 instantiations) from phase 3d's card runs.
+        "cg_papply": ("visit.cu", "stencil_kernel.py:1055"),
+        "fused_cg_visit_down": ("visit.cu", "stencil_kernel.py:921"),
+        "apply_stencil5.f64": ("visit_f64.cu", "stencil_kernel.py:141"),
+        "residual5.f64": ("visit_f64.cu", "stencil_kernel.py:846"),
+        "smooth_sweeps.f64": ("visit_f64.cu", "stencil_kernel.py:286"),
+        "visit_down.f64": ("visit_f64.cu", "mdma_kernel.py:628"),
+        "visit_up.f64": ("visit_f64.cu", "mdma_kernel.py:796"),
+        "fused_level_visit.f64": ("visit_f64.cu", "stencil_kernel.py:687"),
+        "apply_stencil9.f64": ("visit_f64.cu", "stencil9_kernel.py:178"),
+        "residual9.f64": ("visit_f64.cu", "stencil9_kernel.py:211"),
+        "fused_level_visit9.f64": ("visit_f64.cu", "stencil9_kernel.py:429"),
+        "line_visit9.f64": ("line.cu", "line_kernel.py:208"),
+        "visit_down.bf16": ("visit_bf16.cu", "mdma_kernel.py:628"),
+        "visit_up.bf16": ("visit_bf16.cu", "mdma_kernel.py:796"),
     }
+    for k in meta:
+        if k not in counts:
+            counts[k] = p8_counts.get(k) or p3d_counts.get(k, 0)
+            assert counts[k] > 0, f"kernel {k} never launched on its path"
     kernels = []
     for k, (s, r) in meta.items():
         byte_ms = 1e3 * rec[k]["bytes"] / HBM_PEAK
-        op_ms = 1e3 * rec[k]["flops"] / F32_PEAK
+        op_ms = 1e3 * rec[k]["flops"] / (F64_PEAK if k.endswith(".f64")
+                                          else F32_PEAK)
         kernels.append({
             "name": k, "route": "cuda", "source": src + s,
             "replaces": tpu + r, "launches": counts[k],

@@ -1,5 +1,6 @@
 // The y-line smoother's level visit (K15) for Hopper (sm_90a), bound
-// through a plain C interface (ctypes).
+// through a plain C interface (ctypes), for f32 (mg_line_*) and f64
+// (mg_line_*_f64) levels; the arithmetic runs in the storage type.
 //
 // Replaces multigrid_petsc_tpu/ops/pallas/line_kernel.py
 // (line_visit9_pallas): k damped y-line Jacobi sweeps on a 9-point
@@ -44,41 +45,42 @@ constexpr int FT = 256;  // threads per block of the residual pass
 // Thomas factors of the line systems: m (1 / pivot) and cp (the
 // eliminated super-diagonal), each an (ny, 1) column (sx = 0) or an
 // (ny, nx) field (sx = 1).
+template <class T>
 struct LineFactor {
-  const float* m;
-  const float* cp;
+  const T* m;
+  const T* cp;
   int sx;
 };
 
 // The sweep's input iterate at (y, x): u (or zero) plus the prolonged
 // correction, zero outside the domain.
-template <bool GUESS, bool CORRECT>
-__device__ __forceinline__ float iterate_at(const float* u, const float* e,
-                                            int y, int x, int ny, int nx) {
-  if (y < 0 || y >= ny || x < 0 || x >= nx) return 0.f;
-  float v = GUESS ? u[(size_t)y * nx + x] : 0.f;
+template <bool GUESS, bool CORRECT, class T>
+__device__ __forceinline__ T iterate_at(const T* u, const T* e, int y, int x,
+                                        int ny, int nx) {
+  if (y < 0 || y >= ny || x < 0 || x >= nx) return T(0);
+  T v = GUESS ? u[(size_t)y * nx + x] : T(0);
   if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
   return v;
 }
 
 // One sweep on column j = blockIdx.x * LT + threadIdx.x.  u_out must not
 // alias u: neighbouring columns read u while this one is written.
-template <bool GUESS, bool CORRECT, bool DOT>
+template <class T, bool GUESS, bool CORRECT, bool DOT>
 __global__ void __launch_bounds__(LT)
-line_sweep_kernel(Coeffs9 c, LineFactor f, const float* __restrict__ b,
-                  const float* __restrict__ u, const float* __restrict__ e,
-                  float* __restrict__ u_out, float* __restrict__ part, int ny,
-                  int nx, float omega, float one_minus_omega) {
+line_sweep_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
+                  const T* __restrict__ u, const T* __restrict__ e,
+                  T* __restrict__ u_out, T* __restrict__ part, int ny, int nx,
+                  T omega, T one_minus_omega) {
   const int j = blockIdx.x * LT + threadIdx.x;
-  float acc = 0.f;
+  T acc = T(0);
   if (j < nx) {
     auto U = [&](int y, int x) {
       return iterate_at<GUESS, CORRECT>(u, e, y, x, ny, nx);
     };
-    float dp = 0.f;
+    T dp = T(0);
     for (int i = 0; i < ny; ++i) {
       // Off-line terms in the JAX package's order: w, e, sw, se, nw, ne.
-      const float off =
+      const T off =
           coef_at(c, mg::CW, i, j) * U(i, j - 1) +
           coef_at(c, mg::CE, i, j) * U(i, j + 1) +
           coef_at(c, mg::CSW, i, j) * U(i - 1, j - 1) +
@@ -90,29 +92,30 @@ line_sweep_kernel(Coeffs9 c, LineFactor f, const float* __restrict__ b,
       dp = (b[g] - off - coef_at(c, mg::CS, i, j) * dp) * f.m[fi];
       u_out[g] = dp;
     }
-    float x = 0.f;
+    T x = T(0);
     for (int i = ny - 1; i >= 0; --i) {
       const size_t g = (size_t)i * nx + j;
       const size_t fi = (size_t)i * (f.sx ? nx : 1) + (f.sx ? j : 0);
       x = u_out[g] - f.cp[fi] * x;
-      const float un = one_minus_omega * U(i, j) + omega * x;
+      const T un = one_minus_omega * U(i, j) + omega * x;
       u_out[g] = un;
       if (DOT) acc += b[g] * un;
     }
   }
   if (DOT) {
-    const float s = mg::block_sum<LT>(acc, nullptr);
+    const T s = mg::block_sum<LT, T>(acc, nullptr);
     if (threadIdx.x == 0) part[blockIdx.x] = s;
   }
 }
 
 // 9-point (A u) at the domain point (y, x), zero outside; the JAX
 // package's term order.
-__device__ __forceinline__ float apply9(const Coeffs9& c, const float* u,
-                                        int y, int x, int ny, int nx) {
+template <class T>
+__device__ __forceinline__ T apply9(const Coeffs9<T>& c, const T* u, int y,
+                                    int x, int ny, int nx) {
   auto U = [&](int yy, int xx) {
     return (yy >= 0 && yy < ny && xx >= 0 && xx < nx)
-               ? u[(size_t)yy * nx + xx] : 0.f;
+               ? u[(size_t)yy * nx + xx] : T(0);
   };
   return coef_at(c, mg::CC, y, x) * U(y, x) +
          coef_at(c, mg::CS, y, x) * U(y - 1, x) +
@@ -128,11 +131,11 @@ __device__ __forceinline__ float apply9(const Coeffs9& c, const float* u,
 // After the sweeps: r = b - A u (RC = false, one thread per fine point) or
 // rc = R (b - A u) (RC = true, one thread per coarse point; full
 // weighting, y pass first, as ops/transfer.restrict_fw).
-template <bool RC>
+template <class T, bool RC>
 __global__ void __launch_bounds__(FT)
-line_residual_kernel(Coeffs9 c, const float* __restrict__ b,
-                     const float* __restrict__ u, float* __restrict__ out,
-                     int ny, int nx) {
+line_residual_kernel(Coeffs9<T> c, const T* __restrict__ b,
+                     const T* __restrict__ u, T* __restrict__ out, int ny,
+                     int nx) {
   const int oy = RC ? (ny - 1) / 2 : ny, ox = RC ? (nx - 1) / 2 : nx;
   const size_t t = (size_t)blockIdx.x * FT + threadIdx.x;
   if (t >= (size_t)oy * ox) return;
@@ -140,28 +143,62 @@ line_residual_kernel(Coeffs9 c, const float* __restrict__ b,
   if constexpr (!RC) {
     out[t] = b[t] - apply9(c, u, I, J, ny, nx);
   } else {
-    float ycol[3];
+    T ycol[3];
     for (int d = 0; d < 3; ++d) {
       const int x = 2 * J + d;
-      float r[3];
+      T r[3];
       for (int q = 0; q < 3; ++q) {
         const int y = 2 * I + q;
         r[q] = b[(size_t)y * nx + x] - apply9(c, u, y, x, ny, nx);
       }
-      ycol[d] = r[0] + 2.f * r[1] + r[2];
+      ycol[d] = r[0] + T(2) * r[1] + r[2];
     }
-    out[t] = 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
+    out[t] = T(0.0625) * (ycol[0] + T(2) * ycol[1] + ycol[2]);
   }
 }
 
-using SweepFn = void (*)(Coeffs9, LineFactor, const float*, const float*,
-                         const float*, float*, float*, int, int, float,
-                         float);
+template <class T>
+using SweepFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
+                         const T*, T*, T*, int, int, T, T);
 
-template <bool GUESS, bool CORRECT>
-SweepFn pick_dot(bool dot) {
-  return dot ? line_sweep_kernel<GUESS, CORRECT, true>
-             : line_sweep_kernel<GUESS, CORRECT, false>;
+template <class T, bool GUESS, bool CORRECT>
+SweepFn<T> pick_dot(bool dot) {
+  return dot ? line_sweep_kernel<T, GUESS, CORRECT, true>
+             : line_sweep_kernel<T, GUESS, CORRECT, false>;
+}
+
+template <class T>
+int line_sweep(const unsigned long long* cptrs, const int* cstrides,
+               const T* m, const T* cp, int fsx, const T* b, const T* u,
+               const T* e, T* u_out, T* part, int ny, int nx, T omega,
+               T one_minus_omega, void* stream) {
+  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
+  if (u == nullptr && e != nullptr) return (int)cudaErrorInvalidValue;
+  const bool dot = part != nullptr;
+  SweepFn<T> kern = u == nullptr ? pick_dot<T, false, false>(dot)
+                    : e == nullptr ? pick_dot<T, true, false>(dot)
+                                   : pick_dot<T, true, true>(dot);
+  kern<<<(nx + LT - 1) / LT, LT, 0, (cudaStream_t)stream>>>(
+      c, LineFactor<T>{m, cp, fsx}, b, u, e, u_out, part, ny, nx, omega,
+      one_minus_omega);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int line_residual(const unsigned long long* cptrs, const int* cstrides,
+                  const T* b, const T* u, T* out, int ny, int nx, int rc,
+                  void* stream) {
+  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
+  const size_t n = rc ? (size_t)((ny - 1) / 2) * ((nx - 1) / 2)
+                      : (size_t)ny * nx;
+  const unsigned blocks = (unsigned)((n + FT - 1) / FT);
+  if (rc)
+    line_residual_kernel<T, true><<<blocks, FT, 0, (cudaStream_t)stream>>>(
+        c, b, u, out, ny, nx);
+  else
+    line_residual_kernel<T, false><<<blocks, FT, 0, (cudaStream_t)stream>>>(
+        c, b, u, out, ny, nx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -180,33 +217,31 @@ int mg_line_sweep(const unsigned long long* cptrs, const int* cstrides,
                   const float* u, const float* e, float* u_out, float* part,
                   int ny, int nx, float omega, float one_minus_omega,
                   void* stream) {
-  const Coeffs9 c = mg::coeffs9(cptrs, cstrides);
-  if (u == nullptr && e != nullptr) return (int)cudaErrorInvalidValue;
-  const bool dot = part != nullptr;
-  SweepFn kern = u == nullptr ? pick_dot<false, false>(dot)
-                 : e == nullptr ? pick_dot<true, false>(dot)
-                                : pick_dot<true, true>(dot);
-  kern<<<(nx + LT - 1) / LT, LT, 0, (cudaStream_t)stream>>>(
-      c, LineFactor{m, cp, fsx}, b, u, e, u_out, part, ny, nx, omega,
-      one_minus_omega);
-  return (int)cudaGetLastError();
+  return line_sweep<float>(cptrs, cstrides, m, cp, fsx, b, u, e, u_out, part,
+                           ny, nx, omega, one_minus_omega, stream);
+}
+
+int mg_line_sweep_f64(const unsigned long long* cptrs, const int* cstrides,
+                      const double* m, const double* cp, int fsx,
+                      const double* b, const double* u, const double* e,
+                      double* u_out, double* part, int ny, int nx,
+                      double omega, double one_minus_omega, void* stream) {
+  return line_sweep<double>(cptrs, cstrides, m, cp, fsx, b, u, e, u_out,
+                            part, ny, nx, omega, one_minus_omega, stream);
 }
 
 // The visit's last pass: r = b - A u (rc == 0) or its restriction.
 int mg_line_residual(const unsigned long long* cptrs, const int* cstrides,
                      const float* b, const float* u, float* out, int ny,
                      int nx, int rc, void* stream) {
-  const Coeffs9 c = mg::coeffs9(cptrs, cstrides);
-  const size_t n = rc ? (size_t)((ny - 1) / 2) * ((nx - 1) / 2)
-                      : (size_t)ny * nx;
-  const unsigned blocks = (unsigned)((n + FT - 1) / FT);
-  if (rc)
-    line_residual_kernel<true><<<blocks, FT, 0, (cudaStream_t)stream>>>(
-        c, b, u, out, ny, nx);
-  else
-    line_residual_kernel<false><<<blocks, FT, 0, (cudaStream_t)stream>>>(
-        c, b, u, out, ny, nx);
-  return (int)cudaGetLastError();
+  return line_residual<float>(cptrs, cstrides, b, u, out, ny, nx, rc, stream);
+}
+
+int mg_line_residual_f64(const unsigned long long* cptrs, const int* cstrides,
+                         const double* b, const double* u, double* out,
+                         int ny, int nx, int rc, void* stream) {
+  return line_residual<double>(cptrs, cstrides, b, u, out, ny, nx, rc,
+                               stream);
 }
 
 }  // extern "C"

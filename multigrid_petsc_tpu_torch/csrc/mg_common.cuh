@@ -1,11 +1,43 @@
-// Helpers shared by the package's CUDA sources (visit.cu, line.cu,
-// coarse_tree.cu): the 9-point coefficient layout, the bilinear
-// prolongation and a block sum.
+// Helpers shared by the package's CUDA sources (visit.cuh, line.cu,
+// coarse_tree.cu): storage/compute conversion, the 9-point coefficient
+// layout, the bilinear prolongation and a block sum.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace mg {
+
+// Storage type T -> compute type: f32 and f64 compute in their own type;
+// bf16 is storage only and computes in f32, as the JAX kernels do
+// (ops/pallas/stencil_kernel.py _load_f32 / _store / _compute_dtype).
+template <class T>
+struct Compute {
+  using type = T;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+template <class T>
+using compute_t = typename Compute<T>::type;
+
+// A stored value in its compute type.
+__device__ __forceinline__ float to_c(float x) { return x; }
+__device__ __forceinline__ double to_c(double x) { return x; }
+__device__ __forceinline__ float to_c(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Store a computed value: the one rounding point of a bf16 output
+// (round to nearest even, as torch's .to(torch.bfloat16)).
+__device__ __forceinline__ void put(float* p, size_t i, float x) { p[i] = x; }
+__device__ __forceinline__ void put(double* p, size_t i, double x) {
+  p[i] = x;
+}
+__device__ __forceinline__ void put(__nv_bfloat16* p, size_t i, float x) {
+  p[i] = __float2bfloat16_rn(x);
+}
 
 // A 9-point stencil's coefficients in device memory.  Coefficient q lives
 // at p[q][gy * sy[q] + gx * sx[q]]: strides (nx, 1) for an (ny, nx) field,
@@ -14,57 +46,64 @@ namespace mg {
 // package's Stencil9).
 enum { CSW = 0, CS, CSE, CW, CC, CE, CNW, CN, CNE };
 
+template <class T>
 struct Coeffs9 {
-  const float* p[9];
+  const T* p[9];
   int sy[9];
   int sx[9];
 };
 
 // 9-point coefficients from host arrays (the C entries' arguments): 9
 // device pointers, then the 9 y-strides and the 9 x-strides.
-inline Coeffs9 coeffs9(const unsigned long long* ptrs, const int* strides) {
-  Coeffs9 c;
+template <class T>
+inline Coeffs9<T> coeffs9(const unsigned long long* ptrs, const int* strides) {
+  Coeffs9<T> c;
   for (int q = 0; q < 9; ++q) {
-    c.p[q] = (const float*)ptrs[q];
+    c.p[q] = (const T*)ptrs[q];
     c.sy[q] = strides[q];
     c.sx[q] = strides[9 + q];
   }
   return c;
 }
 
-// Coefficient q at the domain point (gy, gx).
-__device__ __forceinline__ float coef_at(const Coeffs9& c, int q, int gy,
-                                         int gx) {
-  return c.p[q][(size_t)gy * c.sy[q] + (size_t)gx * c.sx[q]];
+// Coefficient q at the domain point (gy, gx), in the compute type.
+template <class T>
+__device__ __forceinline__ compute_t<T> coef_at(const Coeffs9<T>& c, int q,
+                                                int gy, int gx) {
+  return to_c(c.p[q][(size_t)gy * c.sy[q] + (size_t)gx * c.sx[q]]);
 }
 
 // Bilinear prolongation of the coarse field e (nyc x nxc, zero ring) at
-// fine point (gy, gx); same arithmetic as ops/transfer.prolong_bilinear.
-__device__ __forceinline__ float prolong_at(const float* e, int gy, int gx,
-                                            int nyc, int nxc) {
-  auto at = [&](int I, int J) -> float {
+// fine point (gy, gx), in the compute type; same arithmetic as
+// ops/transfer.prolong_bilinear.
+template <class T>
+__device__ __forceinline__ compute_t<T> prolong_at(const T* e, int gy, int gx,
+                                                   int nyc, int nxc) {
+  using C = compute_t<T>;
+  auto at = [&](int I, int J) -> C {
     return (I >= 0 && I < nyc && J >= 0 && J < nxc)
-               ? e[(size_t)I * nxc + J] : 0.f;
+               ? to_c(e[(size_t)I * nxc + J]) : C(0);
   };
   const int I = gy >> 1, J = gx >> 1;
   const bool oy = gy & 1, ox = gx & 1;
   if (oy && ox) return at(I, J);
-  if (oy) return (at(I, J - 1) + at(I, J)) * 0.5f;
-  if (ox) return (at(I - 1, J) + at(I, J)) * 0.5f;
-  return (at(I - 1, J - 1) + at(I - 1, J) + at(I, J - 1) + at(I, J)) * 0.25f;
+  if (oy) return (at(I, J - 1) + at(I, J)) * C(0.5);
+  if (ox) return (at(I - 1, J) + at(I, J)) * C(0.5);
+  return (at(I - 1, J - 1) + at(I - 1, J) + at(I, J - 1) + at(I, J)) *
+         C(0.25);
 }
 
 // Sum of v over a block of NT threads (NT a multiple of 32, at most 1024);
-// red holds NT / 32 floats.  The result is valid in thread 0.
-template <int NT>
-__device__ float block_sum(float v, float* red) {
+// red holds NT / 32 values.  The result is valid in thread 0.
+template <int NT, class C>
+__device__ C block_sum(C v, C* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   if (NT == 32) return v;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   if (lane == 0) red[w] = v;
   __syncthreads();
   if (w == 0) {
-    v = lane < NT / 32 ? red[lane] : 0.f;
+    v = lane < NT / 32 ? red[lane] : C(0);
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   return v;

@@ -3,7 +3,8 @@
 
 At first use, every ``csrc/*.cu`` source of the package is compiled with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together, and the objects are linked into one shared library with a plain
+together (the visit kernels' f32, f64 and bf16 instantiations are three
+sources, so they build side by side), and the objects are linked into one shared library with a plain
 C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
 git), which is loaded with ``ctypes``.  The library name carries a hash of the
 sources, their shared header(s) ``csrc/*.cuh`` and the flags, so an edited
@@ -33,19 +34,30 @@ _I = ctypes.c_int
 # C entry points (csrc/*.cu) and their argument types: every pointer and
 # the stream as c_void_p, so no 64-bit value is cut to a C int.
 _F = ctypes.c_float
-_SIGNATURES = {
-    "mg_visit_blocks": [_I, _I],
-    "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
+_D = ctypes.c_double
+# The visit-family entries (csrc/visit.cuh MG_VISIT_ENTRIES) exist once per
+# storage type: mg_visit (f32), mg_visit_f64, mg_visit_bf16, ...
+_PER_DTYPE = {
     "mg_visit": [_P] * 5 + [_P] * 10 + [_I, _I, _P, _I, _I, _P],
     "mg_visit9": [_P, _P] + [_P] * 7 + [_I, _I, _P, _I, _I, _P],
     "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_stencil9": [_P, _P] + [_P] * 3 + [_I, _I, _I, _P],
+}
+_SIGNATURES = {
+    **{name + sfx: argtypes for name, argtypes in _PER_DTYPE.items()
+       for sfx in ("", "_f64", "_bf16")},
+    "mg_visit_blocks": [_I, _I],
+    "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
+    "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
     "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
     "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
     "mg_line_blocks": [_I],
     "mg_line_sweep": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I, _I, _F, _F, _P],
+    "mg_line_sweep_f64": [_P, _P, _P, _P, _I] + [_P] * 5
+    + [_I, _I, _D, _D, _P],
     "mg_line_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mg_line_residual_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -20,9 +20,11 @@ is the JAX package's composition: ``line_jacobi_sweeps_y`` (PCR) with the
 library transfers, so on the card the kernel and its oracle differ by the
 rounding of the two tridiagonal solves.
 
-The wrapper runs the plain version when the data lies on the CPU,
-launches the kernels when it lies on a CUDA device (f32, contiguous;
-anything else raises), and never falls back from one to the other.
+Storage types: f32 and f64 (``mg_line_*`` and ``mg_line_*_f64``); bf16
+line visits raise (no path runs them).  The wrapper runs the plain
+version when the data lies on the CPU, launches the kernels when it lies
+on a CUDA device (f32 or f64, contiguous; anything else raises), and
+never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from multigrid_petsc_tpu_torch.ops.cuda import launches
+from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _check_cuda,
@@ -51,6 +53,7 @@ from multigrid_petsc_tpu_torch.ops.stencil import (
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
 _EMITS = ("u", "ur", "rc")
+LINE_DTYPES = (torch.float32, torch.float64)
 
 
 def collapse_stencil(st: Stencil9) -> Stencil9:
@@ -158,8 +161,11 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
         fields["u"] = (u, (ny, nx))
     if e_coarse is not None:
         fields["e_c"] = (e_coarse, (nyc, nxc))
-    _check_cuda(b.device, fields)
+    dtype = _check_cuda(b.device, fields, dtypes=LINE_DTYPES)
     lib = load_library()
+    sfx = "_f64" if dtype == torch.float64 else ""
+    sweep = getattr(lib, "mg_line_sweep" + sfx)
+    residual = getattr(lib, "mg_line_residual" + sfx)
     stream = _stream(b.device)
 
     def ptr(t):
@@ -173,7 +179,7 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
     cur = u
     for s in range(sweeps):
         out = bufs[s % 2]
-        err = lib.mg_line_sweep(
+        err = sweep(
             c9.ptrs.ctypes.data, c9.strides.ctypes.data, fac.m.data_ptr(),
             fac.cp.data_ptr(), int(w > 1), b.data_ptr(), ptr(cur),
             ptr(e_coarse if s == 0 else None), out.data_ptr(),
@@ -182,13 +188,13 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
         check(err, "line sweep launch")
         cur = out
     if emit == "u":
-        launches["line_visit9"] += 1
+        count_launch("line_visit9", dtype)
         return (cur, part.sum()) if emit_dot else cur
     out = torch.empty((nyc, nxc) if emit == "rc" else (ny, nx),
                       dtype=b.dtype, device=b.device)
-    err = lib.mg_line_residual(c9.ptrs.ctypes.data, c9.strides.ctypes.data,
-                               b.data_ptr(), cur.data_ptr(), out.data_ptr(),
-                               ny, nx, int(emit == "rc"), stream)
+    err = residual(c9.ptrs.ctypes.data, c9.strides.ctypes.data, b.data_ptr(),
+                   cur.data_ptr(), out.data_ptr(), ny, nx, int(emit == "rc"),
+                   stream)
     check(err, "line residual launch")
-    launches["line_visit9"] += 1
+    count_launch("line_visit9", dtype)
     return cur, out

@@ -26,10 +26,17 @@ goes to the kernel as a small f32 buffer in device memory
 (``steps_tensor``), so the only bound on a visit's sweep count is its
 shared memory (``max_visit_steps``).
 
+Storage types: K1 and K2a run in f32 only (the mdma route is f32); the
+visit kernel family behind ``launch_visit`` (K2b, K3 and the V-cycle and
+9-point families' visits) is built for f32, f64 and bf16
+(``VISIT_DTYPES``).  bf16 is storage only: the kernels compute in f32 and
+round each output once, where they store it, and the plain versions do
+the same (``at_stores``).
+
 Each wrapper runs its plain PyTorch version (``*_plain``, below) when the
 data lies on the CPU, launches its kernel when it lies on a CUDA device
-(f32, contiguous; anything else raises), and never falls back from one to
-the other.  Every output is a fresh tensor.
+(a storage type of its kernel, contiguous; anything else raises), and
+never falls back from one to the other.  Every output is a fresh tensor.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from multigrid_petsc_tpu_torch.ops.cuda import launches
+from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.stencil import (
     Stencil5,
@@ -50,13 +57,66 @@ from multigrid_petsc_tpu_torch.ops.stencil import (
 )
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
-# csrc/visit.cu: output tile, threads and shared memory of a visit block.
+# csrc/visit.cuh: output tile, threads and shared memory of a visit block.
 TILE_Y, TILE_X, THREADS, MAX_SMEM = 32, 64, 256, 232448
+
+F32 = (torch.float32,)
+# The storage types the visit-family kernels are built for, and the C
+# entries' suffix for each (csrc/visit.cu, visit_f64.cu, visit_bf16.cu).
+VISIT_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+_ENTRY_SUFFIX = {torch.float32: "", torch.float64: "_f64",
+                 torch.bfloat16: "_bf16"}
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The kernels' arithmetic type for a storage type: f32 for bf16
+    (the JAX kernels' ``_compute_dtype``), else the type itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 # --------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the kernels' oracle).
 # --------------------------------------------------------------------------
+
+
+def _has_bf16(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.dtype == torch.bfloat16
+    return isinstance(x, tuple) and hasattr(x, "_fields") and any(
+        map(_has_bf16, x))
+
+
+def _up(x):
+    if isinstance(x, torch.Tensor):
+        return x.float() if x.dtype == torch.bfloat16 else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):  # a stencil
+        return type(x)(*map(_up, x))
+    return x
+
+
+def _round(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.bfloat16) if x.dim() else x
+    if isinstance(x, tuple):
+        return tuple(map(_round, x))
+    return x
+
+
+def at_stores(plain):
+    """A plain version as the kernel runs it on bf16 storage: every input
+    upcast to f32 (exact), the arithmetic in f32, and each array output
+    rounded to bf16 once, where the kernel stores it; dots stay f32.
+    Rounding after every operation instead would drift from the kernels
+    far beyond f32 noise.  Other storage types pass through."""
+
+    @functools.wraps(plain)
+    def run(*args, **kw):
+        if not any(map(_has_bf16, (*args, *kw.values()))):
+            return plain(*args, **kw)
+        return _round(plain(*map(_up, args),
+                            **{k: _up(v) for k, v in kw.items()}))
+
+    return run
 
 
 def smooth_steps(st, b: torch.Tensor, u: torch.Tensor | None,
@@ -90,11 +150,13 @@ def cg_visit_down_plain(st, r, ap, alpha, steps):
     return u0, rc, b, torch.sum(b * b)
 
 
+@at_stores
 def visit_down_plain(st, b, steps):
     u0 = smooth_steps(st, b, None, steps)
     return u0, restrict_fw(b - apply_stencil5(st, u0))
 
 
+@at_stores
 def visit_up_plain(st, b, u, e_c, steps, emit_dot=True):
     z = smooth_steps(st, b, u + prolong_bilinear(e_c), steps)
     return (z, torch.sum(b * z)) if emit_dot else z
@@ -114,24 +176,38 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 
 def _check_cuda(device: torch.device, fields: dict,
-                scalars: dict | None = None) -> None:
-    """Device, dtype, shape and contiguity the kernels take (f32 only)."""
+                scalars: dict | None = None, dtypes=F32) -> torch.dtype:
+    """Device, dtype, shape and contiguity a kernel takes: every field of
+    one storage type from ``dtypes`` (the kernel's instantiations; f32
+    only by default), every scalar a 1-element tensor of its compute
+    type.  Returns the storage type."""
+    dtype = next(iter(fields.values()))[0].dtype if fields else dtypes[0]
+    if dtype not in dtypes:
+        raise TypeError(f"this CUDA kernel is built for "
+                        f"{', '.join(map(str, dtypes))}, got {dtype}")
     for name, (t, shp) in fields.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernels take float32, "
-                            f"got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {t.dtype}, the other operands "
+                            f"{dtype}")
         if tuple(t.shape) != tuple(shp):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                              f"expected {tuple(shp)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    cdt = compute_dtype(dtype)
     for name, t in (scalars or {}).items():
         if not (isinstance(t, torch.Tensor) and t.device == device
-                and t.dtype == torch.float32 and t.numel() == 1):
-            raise TypeError(f"{name} must be a 1-element float32 tensor "
+                and t.dtype == cdt and t.numel() == 1):
+            raise TypeError(f"{name} must be a 1-element {cdt} tensor "
                             f"on {device}")
+    return dtype
+
+
+def entry(lib, name: str, dtype: torch.dtype):
+    """The C entry ``name`` of the visit family for storage ``dtype``."""
+    return getattr(lib, name + _ENTRY_SUFFIX[dtype])
 
 
 def _stencil_fields(st: Stencil5, ny: int) -> dict:
@@ -179,40 +255,45 @@ def _coeff_floats(kinds, sh: int, sw: int) -> int:
     return size(*kinds[4]) + sum(size(*k) for k in kinds)
 
 
-def visit_smem_bytes(kinds, h: int) -> int:
-    """Shared memory of a visit block with halo h (visit.cu
+def visit_smem_bytes(kinds, h: int, itemsize: int = 4) -> int:
+    """Shared memory of a visit block with halo h whose tiles hold
+    ``itemsize``-byte values, the compute type's (visit.cuh
     visit_smem_bytes)."""
     sh, sw = TILE_Y + 2 * h, TILE_X + 2 * h
-    return 4 * (3 * sh * sw + _coeff_floats(kinds, sh, sw) + THREADS // 32)
+    return itemsize * (3 * sh * sw + _coeff_floats(kinds, sh, sw)
+                       + THREADS // 32)
 
 
 def _halo(emit: str, k: int) -> int:
     return k + {"u": 0, "ur": 1, "r": 1, "rc": 2}[emit]
 
 
-def max_visit_steps(kinds, emit: str) -> int:
+def max_visit_steps(kinds, emit: str, itemsize: int = 4) -> int:
     """The most smoother steps a visit takes: its tile + halo must fit a
-    block's shared memory (43 for the 5-point visit with emit rc, 28 for
-    the 9-point visit of the anisotropic stencil)."""
+    block's shared memory (with emit rc 43 for the 5-point visit and 28
+    for the 9-point visit of the anisotropic stencil in f32 and bf16, 23
+    and 12 in f64)."""
     k = 0
-    while visit_smem_bytes(kinds, _halo(emit, k + 1)) <= MAX_SMEM:
+    while visit_smem_bytes(kinds, _halo(emit, k + 1), itemsize) <= MAX_SMEM:
         k += 1
     return k
 
 
 @functools.lru_cache(maxsize=256)
-def _steps_on(steps: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(steps, dtype=torch.float32,
-                        device=device).reshape(-1)
+def _steps_on(steps: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    return torch.tensor(steps, dtype=dtype, device=device).reshape(-1)
 
 
-def steps_tensor(steps, device: torch.device) -> torch.Tensor:
-    """The (alpha, beta) schedule as f32 pairs in device memory, made once
-    per schedule and device (the kernels read it by pointer)."""
+def steps_tensor(steps, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (alpha, beta) schedule as pairs of the compute type of storage
+    ``dtype`` in device memory, made once per (schedule, type, device)
+    (the kernels read it by pointer)."""
     if len(steps) < 1:
         raise ValueError("the visit kernels take at least one step")
     return _steps_on(tuple((float(a), float(bt)) for a, bt in steps),
-                     torch.device(device))
+                     compute_dtype(dtype), torch.device(device))
 
 
 def _odd_shape(x: torch.Tensor) -> tuple[int, int]:
@@ -245,7 +326,7 @@ def cg_papply_u(st: Stencil5, z, p, u, alpha_prev, beta):
                              pn.data_ptr(), ap.data_ptr(), un.data_ptr(),
                              part.data_ptr(), ny, nx, _stream(z.device))
     check(err, "cg_papply_u launch")
-    launches["cg_papply_u"] += 1
+    count_launch("cg_papply_u", z.dtype)
     return pn, ap, un, part.sum()
 
 
@@ -264,13 +345,14 @@ class VisitOut(NamedTuple):
 
 def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
                  alpha=None, emit_dot: bool = False) -> VisitOut:
-    """One launch of the visit kernel family on CUDA tensors (f32), for a
-    Stencil5 or a Stencil9: the CG residual update when ``ap`` is given
-    (5-point only), the guess ``u`` (None: zero), the correction ``e_c``,
-    then ``len(steps)`` smoother steps and the ``emit`` outputs.  Checks
-    every argument; raises ValueError on a combination the family lacks
-    or a sweep count past the shared-memory bound.  The caller counts the
-    launch."""
+    """One launch of the visit kernel family on CUDA tensors (f32, f64 or
+    bf16; the CG flag set f32 only), for a Stencil5 or a Stencil9: the CG
+    residual update when ``ap`` is given (5-point only), the guess ``u``
+    (None: zero), the correction ``e_c``, then ``len(steps)`` smoother
+    steps and the ``emit`` outputs.  Checks every argument; raises
+    ValueError on a combination the family lacks or a sweep count past
+    the shared-memory bound of the storage type's compute type.  The
+    caller counts the launch."""
     cg = ap is not None
     nine = isinstance(st, Stencil9)
     transfer = emit == "rc" or e_c is not None
@@ -284,12 +366,13 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
     else:
         fields = {"b": (b, (ny, nx)), **_stencil_fields(st, ny)}
     kinds = c9.kinds if nine else None
-    if visit_smem_bytes(kinds, _halo(emit, len(steps))) > MAX_SMEM:
+    size = torch.finfo(compute_dtype(b.dtype)).bits // 8
+    if visit_smem_bytes(kinds, _halo(emit, len(steps)), size) > MAX_SMEM:
         raise ValueError(
-            f"a {9 if nine else 5}-point visit with emit {emit!r} takes at "
-            f"most {max_visit_steps(kinds, emit)} steps (its tile and halo "
-            f"must fit the {MAX_SMEM} B of shared memory of a block); got "
-            f"{len(steps)}")
+            f"a {9 if nine else 5}-point {b.dtype} visit with emit {emit!r} "
+            f"takes at most {max_visit_steps(kinds, emit, size)} steps (its "
+            f"tile and halo must fit the {MAX_SMEM} B of shared memory of a "
+            f"block); got {len(steps)}")
     scalars = {}
     if cg:
         fields["ap"] = (ap, (ny, nx))
@@ -298,19 +381,21 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
         fields["u"] = (u, (ny, nx))
     if e_c is not None:
         fields["e_c"] = (e_c, (nyc, nxc))
-    _check_cuda(b.device, fields, scalars)
-    steps_d = steps_tensor(steps, b.device)
+    dtype = _check_cuda(b.device, fields, scalars,
+                        F32 if cg else VISIT_DTYPES)
+    steps_d = steps_tensor(steps, b.device, dtype)
     lib = load_library()
 
-    def new(shape, want):
-        return (torch.empty(shape, dtype=b.dtype, device=b.device)
+    def new(shape, want, dt=dtype):
+        return (torch.empty(shape, dtype=dt, device=b.device)
                 if want else None)
 
     out = VisitOut(u=new((ny, nx), emit != "r"),
                    r=new((ny, nx), emit in ("ur", "r")),
                    rc=new((nyc, nxc), emit == "rc"),
                    r_new=new((ny, nx), cg),
-                   dot=new((lib.mg_visit_blocks(ny, nx),), cg or emit_dot))
+                   dot=new((lib.mg_visit_blocks(ny, nx),), cg or emit_dot,
+                           compute_dtype(dtype)))
     flags = ((_F_CG if cg else 0) | (_F_GUESS if u is not None else 0)
              | (_F_CORRECT if e_c is not None else 0)
              | (_F_DOT if emit_dot else 0) | _EMITS[emit] << _EMIT_SHIFT)
@@ -319,16 +404,16 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
         return None if t is None else t.data_ptr()
 
     if nine:
-        err = lib.mg_visit9(c9.ptrs.ctypes.data, c9.strides.ctypes.data,
-                            b.data_ptr(), ptr(u), ptr(e_c), ptr(out.u),
-                            ptr(out.r), ptr(out.rc), ptr(out.dot), ny, nx,
-                            steps_d.data_ptr(), len(steps), flags,
-                            _stream(b.device))
+        err = entry(lib, "mg_visit9", dtype)(
+            c9.ptrs.ctypes.data, c9.strides.ctypes.data, b.data_ptr(),
+            ptr(u), ptr(e_c), ptr(out.u), ptr(out.r), ptr(out.rc),
+            ptr(out.dot), ny, nx, steps_d.data_ptr(), len(steps), flags,
+            _stream(b.device))
     else:
-        err = lib.mg_visit(*(c.data_ptr() for c in st), b.data_ptr(),
-                           ptr(ap), ptr(alpha), ptr(u), ptr(e_c),
-                           *map(ptr, out), ny, nx, steps_d.data_ptr(),
-                           len(steps), flags, _stream(b.device))
+        err = entry(lib, "mg_visit", dtype)(
+            *(c.data_ptr() for c in st), b.data_ptr(), ptr(ap), ptr(alpha),
+            ptr(u), ptr(e_c), *map(ptr, out), ny, nx, steps_d.data_ptr(),
+            len(steps), flags, _stream(b.device))
     check(err, f"visit launch (flags {flags})")
     return out if out.dot is None else out._replace(dot=out.dot.sum())
 
@@ -338,7 +423,7 @@ def cg_visit_down(st: Stencil5, r, ap, alpha, steps):
     if _on_cpu(r):
         return cg_visit_down_plain(st, r, ap, alpha, steps)
     o = launch_visit(st, r, steps, emit="rc", ap=ap, alpha=alpha)
-    launches["cg_visit_down"] += 1
+    count_launch("cg_visit_down", r.dtype)
     return o.u, o.rc, o.r_new, o.dot
 
 
@@ -347,7 +432,7 @@ def visit_down(st: Stencil5, b, steps):
     if _on_cpu(b):
         return visit_down_plain(st, b, steps)
     o = launch_visit(st, b, steps, emit="rc")
-    launches["visit_down"] += 1
+    count_launch("visit_down", b.dtype)
     return o.u, o.rc
 
 
@@ -356,5 +441,5 @@ def visit_up(st: Stencil5, b, u, e_c, steps, emit_dot: bool = True):
     if _on_cpu(b):
         return visit_up_plain(st, b, u, e_c, steps, emit_dot)
     o = launch_visit(st, b, steps, emit="u", u=u, e_c=e_c, emit_dot=emit_dot)
-    launches["visit_up"] += 1
+    count_launch("visit_up", b.dtype)
     return (o.u, o.dot) if emit_dot else o.u

@@ -16,10 +16,12 @@ kernel of ``csrc/visit.cu`` and K13/K14 are flag sets of its visit kernel,
 each instantiated for the 9-point stencil (``mdma_kernel.launch_visit``
 takes either stencil); every output is a fresh tensor.
 
-Each wrapper runs its plain PyTorch version (``*_plain``) when the data
-lies on the CPU, launches its kernel when it lies on a CUDA device (f32,
-contiguous; anything else raises), and never falls back from one to the
-other.
+Storage types: f32, f64 and bf16 (bf16 storage, f32 arithmetic, one
+rounding per stored output; the plain versions round where the kernels
+store, ``mdma_kernel.at_stores``).  Each wrapper runs its plain PyTorch
+version (``*_plain``) when the data lies on the CPU, launches its kernel
+when it lies on a CUDA device (one of those types, contiguous; anything
+else raises), and never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -27,14 +29,17 @@ from __future__ import annotations
 import torch
 
 from multigrid_petsc_tpu_torch.ops import stencil as _st
-from multigrid_petsc_tpu_torch.ops.cuda import launches
+from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
+    VISIT_DTYPES,
     _check_cuda,
     _on_cpu,
     _stream,
+    at_stores,
     coeff9_args,
+    entry,
     smooth_steps,
 )
 from multigrid_petsc_tpu_torch.ops.cuda.stencil_kernel import (
@@ -53,14 +58,17 @@ from multigrid_petsc_tpu_torch.solvers.smoothers import (
 # --------------------------------------------------------------------------
 
 
+@at_stores
 def apply_stencil9_plain(st: Stencil9, u: torch.Tensor) -> torch.Tensor:
     return _st.apply_stencil9(st, u)
 
 
+@at_stores
 def residual9_plain(st: Stencil9, b, u) -> torch.Tensor:
     return b - _st.apply_stencil9(st, u)
 
 
+@at_stores
 def smooth9_sweeps_plain(st: Stencil9, b, u, steps) -> torch.Tensor:
     return smooth_steps(st, b, u, steps)
 
@@ -83,13 +91,13 @@ def _launch_stencil9(st: Stencil9, b, u, resid: bool) -> torch.Tensor:
     fields = {"u": (u, (ny, nx)), **c9.fields}
     if resid:
         fields["b"] = (b, (ny, nx))
-    _check_cuda(u.device, fields)
+    dtype = _check_cuda(u.device, fields, dtypes=VISIT_DTYPES)
     lib = load_library()
     y = torch.empty_like(u)
-    err = lib.mg_stencil9(c9.ptrs.ctypes.data, c9.strides.ctypes.data,
-                          b.data_ptr() if resid else None, u.data_ptr(),
-                          y.data_ptr(), ny, nx, int(resid),
-                          _stream(u.device))
+    err = entry(lib, "mg_stencil9", dtype)(
+        c9.ptrs.ctypes.data, c9.strides.ctypes.data,
+        b.data_ptr() if resid else None, u.data_ptr(), y.data_ptr(), ny, nx,
+        int(resid), _stream(u.device))
     check(err, "stencil9 launch")
     return y
 
@@ -99,7 +107,7 @@ def apply_stencil9(st: Stencil9, u: torch.Tensor) -> torch.Tensor:
     if _on_cpu(u):
         return apply_stencil9_plain(st, u)
     y = _launch_stencil9(st, None, u, resid=False)
-    launches["apply_stencil9"] += 1
+    count_launch("apply_stencil9", u.dtype)
     return y
 
 
@@ -108,7 +116,7 @@ def residual9(st: Stencil9, b, u) -> torch.Tensor:
     if _on_cpu(u):
         return residual9_plain(st, b, u)
     r = _launch_stencil9(st, b, u, resid=True)
-    launches["residual9"] += 1
+    count_launch("residual9", u.dtype)
     return r
 
 
@@ -117,7 +125,7 @@ def smooth9_sweeps(st: Stencil9, b, u, steps) -> torch.Tensor:
     if _on_cpu(b):
         return smooth9_sweeps_plain(st, b, u, steps)
     out = mdma.launch_visit(st, b, steps, emit="u", u=u).u
-    launches["smooth9_sweeps"] += 1
+    count_launch("smooth9_sweeps", b.dtype)
     return out
 
 
@@ -142,7 +150,7 @@ def fused_level_visit9(st: Stencil9, b, u, steps, emit: str = "u",
         return residual9(st, b, u)
     o = mdma.launch_visit(st, b, steps, emit=emit, u=u, e_c=e_coarse,
                           emit_dot=emit_dot)
-    launches["fused_level_visit9"] += 1
+    count_launch("fused_level_visit9", b.dtype)
     if emit == "u":
         return (o.u, o.dot) if emit_dot else o.u
     return {"ur": (o.u, o.r), "r": o.r, "rc": (o.u, o.rc)}[emit]

@@ -13,6 +13,11 @@ Counterpart of ``multigrid_petsc_tpu/ops/pallas/stencil_kernel.py``:
                      K8: A u / b - A u with five (ny, nx) coefficient
                      fields (the explicit backend's stencil form,
                      ``ops/sparse.py``)
+  cg_papply          K11: p' = z + beta p; A p'; <p', A p'> (the fused
+                     mg-CG route's direction step)
+  cg_visit_down      K10: r' = r - alpha ap; ||r'||^2; u0 = k zero-guess
+                     steps on r'; rc = R(r' - A u0) (the fused route's
+                     level-0 down visit)
 
 The TPU kernels stream row slabs through VMEM with gathered halo windows
 and alias u -> u'.  Here K7 and K9 are flag sets of the one visit kernel
@@ -21,12 +26,18 @@ and ``residual5`` a one-point-halo tile kernel of the same file; every
 output is a fresh tensor, since CUDA blocks run concurrently and read
 each other's halo.  The zero-guess ``rc`` visit is K2b and the
 correcting ``u`` visit K3: ``fused_level_visit`` hands those to the
-``mdma_kernel`` wrappers, whose counters they bump.
+``mdma_kernel`` wrappers, whose counters they bump.  K11 is K1's kernel
+without the lagged u stream and K10 is K2a's flag set of the visit
+kernel; each has its own wrapper and counter (``cg_papply``,
+``fused_cg_visit_down``).
 
-Each wrapper runs its plain PyTorch version (``*_plain``) when the data
-lies on the CPU, launches its kernel when it lies on a CUDA device (f32,
-contiguous; anything else raises), and never falls back from one to the
-other.
+Storage types: K6, ``residual5``, K7 and K9 run in f32, f64 and bf16
+(bf16 storage, f32 arithmetic, one rounding per stored output; the plain
+versions round where the kernels store, ``mdma_kernel.at_stores``); K8,
+K10 and K11 in f32.  Each wrapper runs its plain PyTorch version
+(``*_plain``) when the data lies on the CPU, launches its kernel when it
+lies on a CUDA device (a storage type of its kernel, contiguous; anything
+else raises), and never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -34,15 +45,18 @@ from __future__ import annotations
 import torch
 
 from multigrid_petsc_tpu_torch.ops import stencil as _st
-from multigrid_petsc_tpu_torch.ops.cuda import launches
+from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _EMITS,
+    VISIT_DTYPES,
     _check_cuda,
     _on_cpu,
     _stencil_fields,
     _stream,
+    at_stores,
+    entry,
     smooth_steps,
 )
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
@@ -58,16 +72,29 @@ from multigrid_petsc_tpu_torch.solvers.smoothers import (
 # --------------------------------------------------------------------------
 
 
+@at_stores
 def apply_stencil5_plain(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
     return _st.apply_stencil5(st, u)
 
 
+@at_stores
 def residual5_plain(st: Stencil5, b, u) -> torch.Tensor:
     return _st.residual(st, b, u)
 
 
+@at_stores
 def smooth_sweeps_plain(st: Stencil5, b, u, steps) -> torch.Tensor:
     return smooth_steps(st, b, u, steps)
+
+
+def cg_papply_plain(st: Stencil5, z, p, beta):
+    pn = z + beta * p
+    ap = _st.apply_stencil5(st, pn)
+    return pn, ap, torch.sum(pn * ap)
+
+
+# K10 computes K2a's function on the same (unpadded) arrays.
+cg_visit_down_plain = mdma.cg_visit_down_plain
 
 
 def _check_visit(u, emit, e_coarse, emit_dot) -> None:
@@ -81,6 +108,7 @@ def _check_visit(u, emit, e_coarse, emit_dot) -> None:
         raise ValueError("a zero-guess visit cannot take a correction")
 
 
+@at_stores
 def fused_level_visit_plain(st, b, u, steps, emit: str = "u",
                             e_coarse=None, emit_dot: bool = False):
     """The visit's composition for a Stencil5 or a Stencil9: [u + P e_c],
@@ -111,12 +139,12 @@ def _launch_stencil(st: Stencil5, b, u, resid: bool) -> torch.Tensor:
     fields = {"u": (u, (ny, nx)), **_stencil_fields(st, ny)}
     if resid:
         fields["b"] = (b, (ny, nx))
-    _check_cuda(u.device, fields)
+    dtype = _check_cuda(u.device, fields, dtypes=VISIT_DTYPES)
     lib = load_library()
     y = torch.empty_like(u)
-    err = lib.mg_stencil(*(c.data_ptr() for c in st),
-                         b.data_ptr() if resid else None, u.data_ptr(),
-                         y.data_ptr(), ny, nx, int(resid), _stream(u.device))
+    err = entry(lib, "mg_stencil", dtype)(
+        *(c.data_ptr() for c in st), b.data_ptr() if resid else None,
+        u.data_ptr(), y.data_ptr(), ny, nx, int(resid), _stream(u.device))
     check(err, "stencil launch")
     return y
 
@@ -126,7 +154,7 @@ def apply_stencil5(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
     if _on_cpu(u):
         return apply_stencil5_plain(st, u)
     y = _launch_stencil(st, None, u, resid=False)
-    launches["apply_stencil5"] += 1
+    count_launch("apply_stencil5", u.dtype)
     return y
 
 
@@ -135,7 +163,7 @@ def residual5(st: Stencil5, b, u) -> torch.Tensor:
     if _on_cpu(u):
         return residual5_plain(st, b, u)
     r = _launch_stencil(st, b, u, resid=True)
-    launches["residual5"] += 1
+    count_launch("residual5", u.dtype)
     return r
 
 
@@ -171,7 +199,7 @@ def apply_stencil5_field(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
     if _on_cpu(u):
         return apply_stencil5_field_plain(st, u)
     y = _launch_field(st, None, u, resid=False)
-    launches["apply_stencil5_field"] += 1
+    count_launch("apply_stencil5_field", u.dtype)
     return y
 
 
@@ -180,7 +208,7 @@ def residual5_field(st: Stencil5, b, u) -> torch.Tensor:
     if _on_cpu(u):
         return residual5_field_plain(st, b, u)
     r = _launch_field(st, b, u, resid=True)
-    launches["residual5_field"] += 1
+    count_launch("residual5_field", u.dtype)
     return r
 
 
@@ -189,7 +217,7 @@ def smooth_sweeps(st: Stencil5, b, u, steps) -> torch.Tensor:
     if _on_cpu(b):
         return smooth_sweeps_plain(st, b, u, steps)
     out = mdma.launch_visit(st, b, steps, emit="u", u=u).u
-    launches["smooth_sweeps"] += 1
+    count_launch("smooth_sweeps", b.dtype)
     return out
 
 
@@ -217,7 +245,40 @@ def fused_level_visit(st: Stencil5, b, u, steps, emit: str = "u",
         return mdma.visit_up(st, b, u, e_coarse, steps, emit_dot)
     o = mdma.launch_visit(st, b, steps, emit=emit, u=u, e_c=e_coarse,
                           emit_dot=emit_dot)
-    launches["fused_level_visit"] += 1
+    count_launch("fused_level_visit", b.dtype)
     if emit == "u":
         return (o.u, o.dot) if emit_dot else o.u
     return {"ur": (o.u, o.r), "r": o.r, "rc": (o.u, o.rc)}[emit]
+
+
+def cg_papply(st: Stencil5, z, p, beta):
+    """(p', A p', <p', A p'>) with p' = z + beta p (K11); ``beta`` a 0-d
+    tensor on the data's device.  The first CG iteration passes beta = 0
+    with any same-shape ``p``."""
+    if _on_cpu(z):
+        return cg_papply_plain(st, z, p, beta)
+    ny, nx = z.shape
+    _check_cuda(z.device, {"z": (z, (ny, nx)), "p": (p, (ny, nx)),
+                           **_stencil_fields(st, ny)}, {"beta": beta})
+    lib = load_library()
+    pn, ap = torch.empty_like(z), torch.empty_like(z)
+    part = torch.empty(lib.mg_visit_blocks(ny, nx), dtype=z.dtype,
+                       device=z.device)
+    err = lib.mg_cg_papply(*(c.data_ptr() for c in st), z.data_ptr(),
+                           p.data_ptr(), beta.data_ptr(), pn.data_ptr(),
+                           ap.data_ptr(), part.data_ptr(), ny, nx,
+                           _stream(z.device))
+    check(err, "cg_papply launch")
+    count_launch("cg_papply", z.dtype)
+    return pn, ap, part.sum()
+
+
+def cg_visit_down(st: Stencil5, r, ap, alpha, steps):
+    """(u0, rc, r', ||r'||^2) with r' = r - alpha ap and (u0, rc) the
+    zero-guess down visit on r' (K10); rc is the full restriction, the
+    next level's right-hand side."""
+    if _on_cpu(r):
+        return cg_visit_down_plain(st, r, ap, alpha, steps)
+    o = mdma.launch_visit(st, r, steps, emit="rc", ap=ap, alpha=alpha)
+    count_launch("fused_cg_visit_down", r.dtype)
+    return o.u, o.rc, o.r_new, o.dot

@@ -82,7 +82,9 @@ def main(argv=None) -> int:
           f"smoother={cfg.smoother.value} problem={problem} "
           f"npts={cfg.npts} grids={cfg.grids} levels={cfg.levels} "
           f"dtype={cfg.dtype} backend={cfg.backend} device={device} "
-          f"path={res.path}")
+          f"path={res.path}"
+          + (f" route={res.route}" if res.route else "")
+          + (f" outer_dtype={res.outer_dtype}" if res.outer_dtype else ""))
     if cfg.backend == "sparse":
         print("sparse level forms: " + " ".join(
             "/".join(f"{n}:{op.form}" for n, op in (

@@ -29,7 +29,8 @@ def dense_from_stencil(st, ny: int, nx: int) -> np.ndarray:
     rows = (ii * nx + jj).ravel()
 
     def bcast(c):
-        c = c.detach().cpu().numpy() if isinstance(c, torch.Tensor) else c
+        if isinstance(c, torch.Tensor):  # any storage type, bf16 included
+            c = c.detach().cpu().to(torch.float64).numpy()
         return np.broadcast_to(np.asarray(c, np.float64), (ny, nx)).ravel()
 
     # (name, dy, dx); a Stencil5 lacks the corners.
@@ -59,7 +60,9 @@ def dense_solver(a: np.ndarray, shapes, dtype: torch.dtype,
                  device: torch.device) -> Callable:
     """b -> A^-1 b over a state of grids ``shapes`` (a tensor for one
     grid, a tuple for several); the inverse is taken on the host in f64
-    and stored in ``dtype`` on ``device``."""
+    and stored in ``dtype`` (the level's: f32, f64 or bf16, as JAX's
+    build_direct_solver) on ``device``, where each application is one
+    matmul in that type (its sums in f32 for bf16)."""
     a_inv = torch.as_tensor(np.linalg.inv(a), dtype=dtype, device=device)
 
     def solve(b):

@@ -20,12 +20,19 @@ the hand-written kernels, so every level operation on the card launches
 one.  Sparse and merged levels take the JAX package's generic route:
 operator applications (K8, K16 or the ELL gather for an assembled one;
 K6 per grid for a merged matrix-free one), smoothers over them, and
-visits composed of smooth, residual and transfer.  What is not ported
-raises ``NotImplementedError`` naming its ROADMAP item.
+visits composed of smooth, residual and transfer.
+
+Precision: the working ``dtype`` is f32 or f64 (64-bit levels run the
+kernels' f64 instantiations on the card); ``precond_dtype`` builds a
+second context, ``precond_ctx``, whose levels carry the Krylov outers'
+V-cycle preconditioner in that type (bf16: storage only, f32 arithmetic
+in the kernels), as the JAX package does.  What is not ported raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -71,7 +78,9 @@ from multigrid_petsc_tpu_torch.utils.config import (
     SolverConfig,
 )
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
+_OUTER_DTYPES = ("float64", "float32x2")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -246,6 +255,24 @@ class LevelCtx:
         return fn(self.stencil, b, u, self.steps_fn(sweeps), emit=emit,
                   e_coarse=e_c)
 
+    # The fused mg-CG route's level-0 operations (``point5`` levels only;
+    # ``krylov._solve_mgcg_fused``), as the JAX package's LevelCtx
+    # closures of the same names.
+    def visit_up_dot(self, b, u, e_c, sweeps: int):
+        """(z, <b, z>) with z = smooth_k(b, u + P e_c) (K9's correcting
+        u visit with its dot, launched as K3)."""
+        return sk.fused_level_visit(self.stencil, b, u, self.steps_fn(sweeps),
+                                    emit="u", e_coarse=e_c, emit_dot=True)
+
+    def papply(self, z, p, beta):
+        """(p', A p', <p', A p'>) with p' = z + beta p (K11)."""
+        return sk.cg_papply(self.stencil, z, p, beta)
+
+    def cg_visit_down(self, r, ap, alpha, sweeps: int):
+        """(u0, rc, r', ||r'||^2), r' = r - alpha ap (K10)."""
+        return sk.cg_visit_down(self.stencil, r, ap, alpha,
+                                self.steps_fn(sweeps))
+
 
 @dataclass
 class MGContext:
@@ -257,6 +284,12 @@ class MGContext:
     b0: torch.Tensor
     dtype: torch.dtype
     device: torch.device
+    # The Krylov outers' preconditioner levels in cfg.precond_dtype (None:
+    # the preconditioner runs on these levels).
+    precond_ctx: "MGContext | None" = None
+    # The mg-CG route the last solve took ("mdma", "fused", "generic"; the
+    # JAX package's ctx.solver_path), set by krylov.solve_mgcg.
+    route: str | None = None
 
     # The visits restrict and prolong one gap on the primary grids; these
     # finish the transfer to a merged next level (its grids one or more
@@ -319,9 +352,15 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
     if cfg.backend == "sparse" and cfg.problem != "poisson":
         raise ValueError("backend='sparse': poisson problem family only")
     if cfg.dtype not in _DTYPES:
-        raise _not_ported(f"dtype {cfg.dtype!r}", "precision")
-    if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
-        raise _not_ported("outer_dtype / precond_dtype", "precision")
+        raise ValueError(f"unknown dtype {cfg.dtype!r}")
+    if cfg.dtype == "bfloat16":
+        raise _not_ported("a bfloat16 working dtype (dtype='bfloat16'; "
+                          "precond_dtype='bfloat16' runs)",
+                          "precision, the bf16 working dtype")
+    if cfg.outer_dtype not in (None, *_OUTER_DTYPES):
+        raise ValueError(f"unknown outer_dtype {cfg.outer_dtype!r}")
+    if cfg.precond_dtype not in (None, *_DTYPES):
+        raise ValueError(f"unknown precond_dtype {cfg.precond_dtype!r}")
     for l in range(cfg.levels):
         s = cfg.smoother_at(l, cfg.levels)
         if s not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV,
@@ -329,6 +368,15 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
             raise _not_ported(f"smoother {s.value!r}", "the other smoothers")
     if cfg.coarse_solver not in ("auto", "direct", "cg", "smooth"):
         raise ValueError(f"unknown coarse_solver {cfg.coarse_solver}")
+
+
+def rhs_grid_of(cfg: SolverConfig, problem, ny: int, nx: int,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """f at the interior points of an (ny, nx) grid of ``cfg``'s problem
+    family, evaluated in ``dtype``."""
+    if cfg.problem == "aniso":
+        return aniso_rhs_grid(problem, ny, nx, dtype, device)
+    return rhs_grid(problem, MeshType(cfg.mesh), ny, nx, dtype, device)
 
 
 def _line_stencil(st: Stencil5 | Stencil9) -> Stencil9:
@@ -348,17 +396,37 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
     """Build every level on ``device`` (the card unless the caller names
     the CPU; ``cuda`` without a card is an error).  ``problem="aniso"``
     builds the 9-point family of ``AnisoProblem(*cfg.aniso)`` (``problem``
-    is then not used), as the JAX package does."""
+    is then not used), as the JAX package does.  With
+    ``cfg.precond_dtype`` and a Krylov cycle (mg-CG, mg-FGMRES) the
+    preconditioner's levels are built again in that type
+    (``MGContext.precond_ctx``; JAX context.py:1062-1074)."""
     _check_supported(cfg, plan)
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device "
                                "is available")
-        # The coarsest solve is a float32 matmul; keep it in full f32.
+        # The coarsest solve is a dense matmul: keep f32 products in full
+        # f32 and bf16 products' sums in f32.
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
+    ctx = _build(cfg, problem, device)
+    if cfg.precond_dtype is not None and cfg.cycle in (CycleType.MGCG,
+                                                       CycleType.MGFGMRES):
+        pcfg = dataclasses.replace(cfg, dtype=cfg.precond_dtype,
+                                   precond_dtype=None, outer_dtype=None)
+        ctx.precond_ctx = _build(pcfg, problem, device)
+        assert ([l.shapes for l in ctx.precond_ctx.levels]
+                == [l.shapes for l in ctx.levels]), \
+            "precond context level shapes must match"
+    return ctx
+
+
+def _build(cfg: SolverConfig, problem: Problem | None,
+           device: torch.device) -> MGContext:
     aniso = cfg.problem == "aniso"
     problem = (AnisoProblem(*cfg.aniso) if aniso
                else problem or poisson_sin_problem())
@@ -415,8 +483,7 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
     # Level-0 rhs: f on the primary grid, its composed restrictions on the
     # coarser grids of a merged level 0 (src/solver.c:558-620).
     g0 = levels[0].spec.primary
-    b0 = (aniso_rhs_grid(problem, g0.ny, g0.nx, dtype, device) if aniso
-          else rhs_grid(problem, mesh_type, g0.ny, g0.nx, dtype, device))
+    b0 = rhs_grid_of(cfg, problem, g0.ny, g0.nx, dtype, device)
     if levels[0].merged:
         b0 = composite_rhs(b0, levels[0].spec.gids)
     return MGContext(config=cfg, problem=problem, levels=levels, b0=b0,

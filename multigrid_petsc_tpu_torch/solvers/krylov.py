@@ -1,8 +1,35 @@
-"""Krylov outers with one V-cycle as the preconditioner: PCG (mg-CG) and
+"""Krylov outers with one V-cycle as the preconditioner: PCG (mg-CG),
+the mixed-precision PCG (f64 outer over the working-dtype V-cycle) and
 flexible GMRES (mg-FGMRES).  PyTorch counterpart of ``solve_mgcg``,
-``build_coarse_tree``, ``mdma_plan``, ``_solve_mgcg_fused_mdma`` and
-``solve_mgfgmres`` in ``multigrid_petsc_tpu/solvers/krylov.py``; reference
-analogue: the PCMG cross-check path, src/solver.c:1884-1989.
+``_mg_precond``, ``build_coarse_tree``, ``mdma_plan``,
+``_solve_mgcg_fused_mdma``, ``_solve_mgcg_fused``,
+``outer_precision_operator``, ``solve_mgcg_mixed`` and ``solve_mgfgmres``
+in ``multigrid_petsc_tpu/solvers/krylov.py``; reference analogue: the PCMG
+cross-check path, src/solver.c:1884-1989.
+
+mg-CG takes one of three routes (``mgcg_route``), recorded as
+``ctx.route``, the JAX package's ``ctx.solver_path``:
+
+  "mdma"     K1 + K2a + K3, the coarse tree (K4) below: two or more
+             levels, level 0 matrix-free 5-point point-smoothed
+             (``point5``), f32 levels, no reduced-precision
+             preconditioner, and every visit inside the JAX manual-DMA
+             kernels' sweep envelope (``max_sweeps + 2 <= MDMA_HALO``);
+  "fused"    K11 + K10 + K3 at level 0 and the per-level visits below (no
+             coarse tree): the same, past the sweep envelope;
+  "generic"  the plain PCG loop over the level operations: everything
+             else (64-bit levels, ``precond_dtype``, the 9-point, line,
+             sparse and merged levels).
+
+The route depends on the configuration only, never on the device, so the
+CPU tests and the card take the same one.  Two TPU-only conditions of the
+JAX decision do not come over: the ny < 256 cutoff and the mdma tile
+geometry; the port's kernels have neither.  The sweep envelope is kept so
+the routes compare with JAX's call for call (ROADMAP: kept for parity).
+
+``outer_dtype="float32x2"`` (JAX's double-single outer, which exists
+because the TPU only emulates f64) runs as the native f64 outer here: the
+H100 has FP64.
 
 The standard PCG formulas hold verbatim for the negative-definite
 discrete Laplacian (both inner products flip sign, ratios stay positive).
@@ -17,8 +44,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multigrid_petsc_tpu_torch.mesh import MeshType
 from multigrid_petsc_tpu_torch.ops.cuda import coarse_tree_kernel as ctk
 from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
+from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as sk9
+from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
 from multigrid_petsc_tpu_torch.ops.norms import (
     flatten,
     tree_dot,
@@ -26,22 +56,63 @@ from multigrid_petsc_tpu_torch.ops.norms import (
     tree_norm2,
     unflatten,
 )
+from multigrid_petsc_tpu_torch.problems import (
+    stencil9_coefficients,
+    stencil_coefficients,
+)
 from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
-from multigrid_petsc_tpu_torch.solvers.context import MGContext
+from multigrid_petsc_tpu_torch.solvers.context import MGContext, rhs_grid_of
 from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, keep_going
-from multigrid_petsc_tpu_torch.solvers.vcycle import _cycle, _visit_sweeps, mg_apply
+from multigrid_petsc_tpu_torch.solvers.vcycle import (
+    _cycle,
+    _visit_sweeps,
+    mg_apply,
+    mg_apply_cgdown,
+    mg_apply_dot,
+)
+
+# The JAX manual-DMA kernels' fixed halo rows (mdma_kernel.py:70): a visit
+# fits them when sweeps + 2 <= MDMA_HALO.  Kept for parity with JAX's
+# routing; the port's visit kernels have no such cap.
+MDMA_HALO = 8
+
+
+def mgcg_route(ctx: MGContext) -> str:
+    """The mg-CG route of ``ctx`` ("mdma", "fused" or "generic"; see the
+    module docstring)."""
+    if (len(ctx.levels) < 2 or not ctx.levels[0].point5
+            or ctx.dtype != torch.float32 or ctx.precond_ctx is not None):
+        return "generic"
+    return "mdma" if ctx.config.max_sweeps + 2 <= MDMA_HALO else "fused"
+
+
+def mg_precond(ctx: MGContext, v0: int, v1: int):
+    """The V-cycle preconditioner r -> M r, through the reduced-precision
+    context when cfg.precond_dtype is set: r is cast to its type, and M r
+    back to r's (JAX krylov.py:29-43)."""
+    pctx = ctx.precond_ctx
+    if pctx is None:
+        return lambda r: mg_apply(ctx, r, v0, v1)
+
+    def precond(r):
+        z = mg_apply(pctx, tree_map(lambda x: x.to(pctx.dtype), r), v0, v1)
+        return tree_map(lambda x, r0: x.to(r0.dtype), z, r)
+
+    return precond
 
 
 def solve_mgcg(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
-    """mg-CG.  Hierarchies of two or more levels whose level 0 is
-    matrix-free, 5-point and point-smoothed run the fused plan
-    (``_solve_mgcg_fused_mdma``); the rest run the generic PCG loop (A p
+    """mg-CG on the route ``mgcg_route`` picks (recorded as
+    ``ctx.route``): the mdma plan (``_solve_mgcg_fused_mdma``), the fused
+    CG kernels (``_solve_mgcg_fused``) or the generic PCG loop (A p
     through K6, K12 or the level's assembled operator, the V-cycle
-    through the levels' visits), as the JAX package routes the 9-point,
-    line-smoothed and sparse families."""
+    through the levels' visits), as the JAX package routes them."""
     b = ctx.b0 if b0 is None else b0
-    if len(ctx.levels) > 1 and ctx.levels[0].point5:
+    ctx.route = mgcg_route(ctx)
+    if ctx.route == "mdma":
         return _solve_mgcg_fused_mdma(ctx, b)
+    if ctx.route == "fused":
+        return _solve_mgcg_fused(ctx, b)
     return _solve_mgcg_generic(ctx, b)
 
 
@@ -50,11 +121,16 @@ def _solve_mgcg_generic(ctx: MGContext, b: torch.Tensor) -> OuterResult:
     v0, v1 = cfg.v
     lvl0 = ctx.levels[0]
     hist_len = cfg.hist_len
+    precond = mg_precond(ctx, v0, v1)
+    # A reduced-precision preconditioner is only approximately fixed and
+    # symmetric; the flexible Polak-Ribiere beta <z, r - r_prev> /
+    # <z_prev, r_prev> tolerates that (JAX krylov.py:81-86).
+    flexible = ctx.precond_ctx is not None
     bnorm = float(tree_norm2(b))
     u = lvl0.zeros()
     r = lvl0.residual(b, u)
     rn = tree_norm2(r)
-    z = mg_apply(ctx, r, v0, v1)
+    z = precond(r)
     p = z
     rz = tree_dot(r, z)
     zero = torch.zeros((), dtype=rz.dtype, device=rz.device)
@@ -68,17 +144,61 @@ def _solve_mgcg_generic(ctx: MGContext, b: torch.Tensor) -> OuterResult:
         pap = tree_dot(p, ap)
         alpha = torch.where(pap != 0, rz / pap, zero)
         u = tree_map(lambda uk, pk: uk + alpha * pk, u, p)
+        r_prev = r
         r = tree_map(lambda rk, ak: rk - alpha * ak, r, ap)
         rn = tree_norm2(r)
-        z = mg_apply(ctx, r, v0, v1)
+        z = precond(r)
         rz_new = tree_dot(r, z)
-        beta = torch.where(rz != 0, rz_new / rz, zero)
+        if flexible:
+            beta = torch.where(
+                rz != 0, torch.clamp((rz_new - tree_dot(r_prev, z)) / rz,
+                                     min=0.0), zero)
+        else:
+            beta = torch.where(rz != 0, rz_new / rz, zero)
         p = tree_map(lambda zk, pk: zk + beta * pk, z, p)
         rz = rz_new
         hist[min(i + 1, hist_len)] = rn
         i += 1
     return OuterResult(u=u, rnorm_history=hist / hist[0], iters=i,
                        converged=float(rn) <= cfg.rtol * bnorm)
+
+
+def _solve_mgcg_fused(ctx: MGContext, b: torch.Tensor) -> OuterResult:
+    """PCG over the fused CG kernels (JAX krylov.py:403-467):
+    algebraically the generic loop, with the direction step, A p' and
+    <p', A p'> in one kernel (K11), the CG residual update and ||r'||
+    folded into the level-0 down visit (K10) and <r', z> emitted by the
+    level-0 up visit.  Differences from the generic path are reduction
+    order only."""
+    cfg = ctx.config
+    v0, v1 = cfg.v
+    lvl0 = ctx.levels[0]
+    hist_len = cfg.hist_len
+    bnorm_t = tree_norm2(b)
+    bnorm = float(bnorm_t)
+    r = b  # u0 = 0 -> r0 = b exactly
+    z, rz = mg_apply_dot(ctx, r, v0, v1)
+    u = torch.zeros_like(b)
+    p = torch.zeros_like(b)  # papply with beta = 0 ignores its value
+    zero = torch.zeros((), dtype=rz.dtype, device=rz.device)
+    beta = zero
+    hist = torch.zeros(hist_len + 1, dtype=b.dtype, device=b.device)
+    hist[0] = bnorm_t
+    rn = bnorm
+    i = 0
+    while keep_going(cfg, i, rn, bnorm):
+        p, ap, pap = lvl0.papply(z, p, beta)
+        alpha = torch.where(pap != 0, rz / pap, zero)  # breakdown guard
+        u = u + alpha * p
+        z, rz_new, r, rn2 = mg_apply_cgdown(ctx, r, ap, alpha, v0, v1)
+        rn_t = torch.sqrt(rn2)
+        beta = torch.where(rz != 0, rz_new / rz, zero)
+        hist[min(i + 1, hist_len)] = rn_t
+        rz = rz_new
+        i += 1
+        rn = float(rn_t)  # the stop test: the one host read per iteration
+    return OuterResult(u=u, rnorm_history=hist / hist[0], iters=i,
+                       converged=rn <= cfg.rtol * bnorm)
 
 
 def build_coarse_tree(ctx: MGContext):
@@ -201,8 +321,10 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
     def apply_flat(x):
         return flatten(lvl0.apply(unflatten(x, shapes)))
 
+    precond = mg_precond(ctx, v0, v1)
+
     def precond_flat(r):
-        return flatten(mg_apply(ctx, unflatten(r, shapes), v0, v1))
+        return flatten(precond(unflatten(r, shapes)))
 
     def restart_block(u):
         r = b - apply_flat(u)
@@ -262,3 +384,88 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
         rn = float(rn_t)  # the stop test: one host read per restart block
     return OuterResult(u=unflatten(u, shapes), rnorm_history=hist / hist[0],
                        iters=i, converged=rn <= cfg.rtol * bnorm)
+
+
+def outer_precision_operator(ctx: MGContext, dtype: torch.dtype):
+    """(apply_fn, stencil): the level-0 operator of ``ctx``'s own problem
+    family in ``dtype`` on ``ctx.device`` (the mixed outer's f64 operator;
+    K6 or K12 in f64 on the card; JAX krylov.py:470-488)."""
+    cfg = ctx.config
+    ny, nx = ctx.levels[0].spec.primary.shape
+    if cfg.problem == "aniso":
+        st = stencil9_coefficients(ctx.problem, ny, nx, dtype, ctx.device)
+        return (lambda u: sk9.apply_stencil9(st, u)), st
+    st = stencil_coefficients(MeshType(cfg.mesh), ny, nx, dtype, ctx.device)
+    return (lambda u: sk.apply_stencil5(st, u)), st
+
+
+def outer_rhs(ctx: MGContext, dtype: torch.dtype) -> torch.Tensor:
+    """The level-0 right-hand side evaluated in ``dtype``: the mixed
+    outer's b (an f32 b upcast would bake eps32 * ||b|| into the
+    certified residual)."""
+    ny, nx = ctx.levels[0].spec.primary.shape
+    return rhs_grid_of(ctx.config, ctx.problem, ny, nx, dtype, ctx.device)
+
+
+def true_relative_residual(ctx: MGContext, u: torch.Tensor) -> float:
+    """||b - A u|| / ||b|| in f64 (b and A evaluated in f64): the
+    certification oracle of the reduced-precision solves."""
+    apply64, _ = outer_precision_operator(ctx, torch.float64)
+    b = outer_rhs(ctx, torch.float64)
+    r = b - apply64(u.to(torch.float64))
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+
+
+def solve_mgcg_mixed(ctx: MGContext, b0: torch.Tensor,
+                     u0: torch.Tensor | None = None) -> OuterResult:
+    """Mixed-precision mg-CG (JAX krylov.py:594-685): the CG iteration
+    (operator applies, vector updates, inner products) in f64, the
+    V-cycle preconditioner in the working dtype (or ``precond_dtype``).
+    A low-precision preconditioner only shapes the rate; the attainable
+    residual follows the f64 operator, so this certifies 1e-8 where f32
+    alone floors.  ``b0`` must be evaluated in f64 (``outer_rhs``);
+    ``u0`` warm-starts the iteration.  ``outer_dtype="float32x2"`` runs
+    here too: the card has native FP64, so JAX's double-single emulation
+    is not needed (``SolveResult.outer_dtype`` records "float64")."""
+    cfg = ctx.config
+    v0, v1 = cfg.v
+    odt = torch.float64
+    if ctx.levels[0].merged:
+        raise ValueError("mixed outer: single-grid level 0 only")
+    apply64, _ = outer_precision_operator(ctx, odt)
+    inner = mg_precond(ctx, v0, v1)
+
+    def precond(r64):
+        return inner(r64.to(ctx.dtype)).to(odt)
+
+    b = b0.to(odt)
+    bnorm = float(torch.linalg.vector_norm(b))
+    hist_len = cfg.hist_len
+    flexible = ctx.precond_ctx is not None  # see _solve_mgcg_generic
+    u = torch.zeros_like(b) if u0 is None else u0.to(odt)
+    r = b - apply64(u)
+    rn = torch.linalg.vector_norm(r)
+    z = precond(r)
+    p = z
+    rz = tree_dot(r, z)
+    hist = torch.zeros(hist_len + 1, dtype=odt, device=b.device)
+    hist[0] = rn
+    i = 0
+    while keep_going(cfg, i, float(rn), bnorm):
+        ap = apply64(p)
+        alpha = rz / tree_dot(p, ap)
+        u = u + alpha * p
+        r_new = r - alpha * ap
+        rn = torch.linalg.vector_norm(r_new)
+        z = precond(r_new)
+        rz_new = tree_dot(r_new, z)
+        if flexible:
+            beta = torch.clamp((rz_new - tree_dot(r, z)) / rz, min=0.0)
+        else:
+            beta = rz_new / rz
+        p = z + beta * p
+        r, rz = r_new, rz_new
+        hist[min(i + 1, hist_len)] = rn
+        i += 1
+    return OuterResult(u=u, rnorm_history=hist / hist[0], iters=i,
+                       converged=float(rn) <= cfg.rtol * bnorm)

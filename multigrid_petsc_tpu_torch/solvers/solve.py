@@ -7,10 +7,17 @@ mg-FGMRES and FMG.
 ``wall_time`` brackets the solve only (set-up excluded), synchronising the
 device on both sides; ``timed=True`` re-runs the solve and reports the
 re-run, so first-launch costs (kernel build and load) stay out.
+
+mg-CG with ``outer_dtype`` runs the mixed-precision outer
+(``krylov.solve_mgcg_mixed``) on the right-hand side evaluated in f64.
+``u0`` warm-starts a solve: the mixed outer starts from it directly; every
+other driver solves A e = b - A u0 from zero to the rtol that keeps the
+stop target rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -20,6 +27,7 @@ import torch
 from multigrid_petsc_tpu_torch.solvers import cycles as cy
 from multigrid_petsc_tpu_torch.solvers import delayed as dl
 from multigrid_petsc_tpu_torch.solvers import krylov as kr
+from multigrid_petsc_tpu_torch.ops.norms import tree_map, tree_norm2
 from multigrid_petsc_tpu_torch.solvers import vcycle as vc
 from multigrid_petsc_tpu_torch.solvers.context import (
     MGContext,
@@ -56,6 +64,12 @@ class SolveResult:
     # a CUDA tensor launches one; none falls back), "torch" when the
     # plain PyTorch versions did.
     path: str
+    # The mg-CG route ("mdma", "fused", "generic"; krylov.mgcg_route), None
+    # for the other drivers and the mixed outer.
+    route: str | None = None
+    # The outer dtype the mixed outer ran in ("float64", also for
+    # outer_dtype="float32x2"), None without one.
+    outer_dtype: str | None = None
     # Every grid of the level-0 state (one entry unless level 0 is merged).
     u_grids: tuple = ()
     # -moreNorm: the monitors' arrays, cut to the iterations run (numpy).
@@ -67,14 +81,29 @@ class SolveResult:
 
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
-          device: torch.device | str = "cuda",
+          device: torch.device | str = "cuda", u0=None,
           timed: bool = False) -> SolveResult:
     """Set up on ``device`` (unless given a context; the card unless the
-    caller names the CPU) and run the configured cycle."""
+    caller names the CPU) and run the configured cycle, from ``u0`` (the
+    level-0 state, a tensor or array; a tuple on a merged level 0) when
+    given."""
     cfg = cfg.validate()
     if ctx is None:
         ctx = build_context(cfg, problem, device=device)
     dev = ctx.device
+    ccfg = ctx.config
+    mixed = ccfg.outer_dtype is not None and ccfg.cycle == CycleType.MGCG
+    b_in = kr.outer_rhs(ctx, torch.float64) if mixed else ctx.b0
+    if u0 is not None:
+        u0 = tree_map(lambda x: torch.as_tensor(
+            x, dtype=torch.float64 if mixed else ctx.dtype, device=dev), u0)
+        if not mixed:
+            bn_orig = float(tree_norm2(b_in))
+            b_in = ctx.levels[0].residual(b_in, u0)
+            bn_new = float(tree_norm2(b_in))
+            eff = min(1.0, ccfg.rtol * bn_orig / max(bn_new, 1e-300))
+            ctx = dataclasses.replace(
+                ctx, config=dataclasses.replace(ccfg, rtol=eff))
 
     def sync():
         if dev.type == "cuda":
@@ -82,8 +111,12 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
 
     def run():
         sync()
+        ctx.route = None
         t0w, t0c = time.perf_counter(), time.process_time()
-        res = _DRIVERS[ctx.config.cycle](ctx, ctx.b0)
+        if mixed:
+            res = kr.solve_mgcg_mixed(ctx, b_in, u0)
+        else:
+            res = _DRIVERS[ctx.config.cycle](ctx, b_in)
         sync()
         return res, time.perf_counter() - t0w, time.process_time() - t0c
 
@@ -99,9 +132,12 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         n = res.iters * (ctx.config.v[0] + 1) if delayed else res.iters + 1
         aux = {"r_global": res.aux["r_global"][:n].cpu().numpy(),
                "r_grid": res.aux["r_grid"][:, :n].cpu().numpy()}
+    u = res.u
+    if u0 is not None and not mixed:
+        u = tree_map(lambda a, b: a + b, u, u0)
     return SolveResult(
-        u=primary(res.u),
-        u_grids=(res.u,) if isinstance(res.u, torch.Tensor) else res.u,
+        u=primary(u),
+        u_grids=(u,) if isinstance(u, torch.Tensor) else u,
         aux=aux,
         rnorm=res.rnorm_history[: res.iters + 1].cpu().numpy(),
         iters=res.iters,
@@ -110,4 +146,6 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         cpu_time=cpu,
         ctx=ctx,
         path="cuda" if dev.type == "cuda" else "torch",
+        route=ctx.route,
+        outer_dtype="float64" if mixed else None,
     )

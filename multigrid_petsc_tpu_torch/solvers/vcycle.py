@@ -70,6 +70,34 @@ def mg_apply(ctx: MGContext, r: torch.Tensor, v0: int, v1: int):
     return v_cycle(ctx, r, None, v0, v1)
 
 
+def mg_apply_dot(ctx: MGContext, r: torch.Tensor, v0: int, v1: int):
+    """(M r, <r, M r>): the preconditioner application with its CG inner
+    product emitted by the level-0 up visit (K9's correcting u visit with
+    its dot; JAX vcycle.py:87-103).  Only for contexts whose level 0 has
+    the fused CG kernels (the fused mg-CG route)."""
+    lvl0 = ctx.levels[0]
+    k = _visit_sweeps(ctx, 0, v0, v1)
+    u, rc1 = lvl0.visit_down(r, None, k)
+    u_next = _cycle(ctx, 1, ctx.restrict_rc1(0, rc1), None, v0, v1)
+    return lvl0.visit_up_dot(r, u, ctx.prolong_half(0, u_next), k)
+
+
+def mg_apply_cgdown(ctx: MGContext, r, ap, alpha, v0: int, v1: int):
+    """One fused-CG preconditioner application with the CG residual update
+    folded into the level-0 down visit (K10):
+
+        r' = r - alpha ap;  z = M r';  returns (z, <r', z>, r', ||r'||^2)
+
+    Only for contexts whose level 0 has the fused CG kernels (JAX
+    vcycle.py:106-122)."""
+    lvl0 = ctx.levels[0]
+    k = _visit_sweeps(ctx, 0, v0, v1)
+    u0, rc1, r_new, rn2 = lvl0.cg_visit_down(r, ap, alpha, k)
+    u_next = _cycle(ctx, 1, ctx.restrict_rc1(0, rc1), None, v0, v1)
+    z, rz = lvl0.visit_up_dot(r_new, u0, ctx.prolong_half(0, u_next), k)
+    return z, rz, r_new, rn2
+
+
 def solve_vcycle(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
     cfg = ctx.config
     v0, v1 = cfg.v

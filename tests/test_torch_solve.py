@@ -156,11 +156,9 @@ def test_cuda_request_without_cuda_raises():
 @pytest.mark.parametrize("kw", [
     dict(smoother=SmootherType.LINE_XY),
     dict(smoother=SmootherType.RBGS),
-    dict(precond_dtype="bfloat16"),
     dict(coarse_smoother=SmootherType.RBGS),
     dict(smoother=SmootherType.LINE_X),
     dict(dtype="bfloat16"),
-    dict(outer_dtype="float64"),
     dict(fine_smoother=SmootherType.LINE_X),
 ])
 def test_unported_options_raise(kw):
