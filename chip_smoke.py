@@ -70,9 +70,20 @@ non-zero):
      1e-7, (e) the fused route (-v 8,8, f32, 1e-5: K11 and K10 once per
      iteration, no K1 or K2a), (f) a 3-level f64 V-cycle smoothing its
      2047^2 coarsest level; each with its true f64 residual, error norms,
-     launch counts and ms per iteration.
+     launch counts and ms per iteration;
+  9. row-partition distribution: (a) K17 at full width in one process,
+     the 8191^2 level cut into 4 row blocks with their halo rows, every
+     emit of the 5-point and the aniso 9-point visit (f32; one in f64)
+     against the whole-grid kernels and the plain row-block version, with
+     times per block, for 4 blocks and for the whole-grid kernel; (b) the
+     distributed main path, 2 ranks (this script re-run with --rank, one
+     process each) sharing the card over gloo with halos staged through
+     the host: Poisson mg-CG at 8193^2 / 11 levels against phase 4 (its
+     iterations, solution and error), then the aniso (1,1,1,2,0.4) mg-CG;
+     (c) the 2-rank mg-CG at 1025^2 in f32 and f64, on the card and over
+     gloo on the CPU.
 Every path run starts with the launch counters at 0 and reads them right
-after.  The line before the last two is the kernels' JSON record (times,
+after (a rank's counters in its own process).  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
 result object.  With no CUDA device the script exits non-zero without
 printing it.
@@ -603,7 +614,7 @@ def phase_main(torch):
     print("  error vs exact (max, L1, L2): "
           + " ".join(f"{e:.6e}" for e in errs))
     ms_per_iteration(res, cfg)
-    return counts, res.u
+    return counts, res.u, {"iters": res.iters, "err": errs[0]}
 
 
 def ms_per_iteration(res, cfg, u0=None):
@@ -1267,6 +1278,397 @@ def phase_precision(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: row-partition distribution and K17.
+# ---------------------------------------------------------------------------
+
+P9_BLOCKS = 4  # (a): row blocks of the 8191^2 level, in one process
+P9_RANKS = 2   # (b), (c): ranks sharing the one card, over gloo
+P9_TIMEOUT = 900  # seconds for a world of ranks
+P9_N, P9_SMALL = 8193, 1025  # (b)'s and (c)'s npts; (a) is (b)'s level 0
+
+
+def k17_blocks(torch, x, P, h):
+    """x with its pad row appended, cut into P row blocks, each with the
+    h rows above and below it cut from its neighbours (zeros at the
+    edges): [(block, Halo)]."""
+    from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
+
+    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    R = xp.shape[0] // P
+    z = x.new_zeros((h, x.shape[1]))
+    ext = torch.cat([z, xp, z])
+    return [(xp[p * R:(p + 1) * R],
+             Halo(ext[p * R:p * R + h].contiguous(),
+                  ext[h + (p + 1) * R:2 * h + (p + 1) * R].contiguous()))
+            for p in range(P)]
+
+
+def phase_k17(torch, dev, rec):
+    """9 (a): K17 at full width in one process.  The 8191^2 level, padded
+    to 8192 rows, cut into 4 row blocks of 2048 rows on the card, each
+    block's halo rows cut from its neighbours; every emit of the 5-point
+    visit (Jacobi k = 3) and of the aniso (1,1,1,2,0.4) 9-point visit in
+    f32, the zero-guess rc visit in f64.  The stitched blocks are held to
+    the whole-grid kernel of the same flags (K9 / K12 / K14) and to the
+    plain row-block version (TOL_ARRAY of max|plain|); the pad row and the
+    coarse pad row must be exactly 0.  Times: one block (block 1), all 4
+    blocks, the whole-grid kernel; the bound counts one block's bytes:
+    its rows and halo rows of each input read once, each output once."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+        stencil_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    n, P = P9_N - 2, P9_BLOCKS
+    R = (n + 1) // P
+    nxc = (n - 1) // 2
+    jac = jacobi_step_coeffs(3, 0.8)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    modes = (  # label, guess, steps, emit, correct
+        ("zero-guess rc", False, jac, "rc", False),
+        ("u", True, jac, "u", False),
+        ("correct + ur", True, jac, "ur", True),
+        ("a", True, (), "a", False),
+        ("r", True, (), "r", False),
+    )
+    summary = []
+    for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64")):
+        key = "dist_level_visit" + sfx
+        rec.setdefault(key, {})
+        isz = 8 if dt == torch.float64 else 4
+        b = torch.randn((n, n), generator=gen, device=dev).to(dt)
+        u = torch.randn((n, n), generator=gen, device=dev).to(dt)
+        e = torch.randn((nxc, nxc), generator=gen, device=dev).to(dt)
+        stencils = [("5-point", stencil_coefficients(MeshType.UNIFORM, n, n,
+                                                     dt, dev))]
+        if dt == torch.float32:
+            stencils.append(("9-point (1,1,1,2,0.4)", stencil9_coefficients(
+                AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), n, n, dt, dev)))
+        for sname, st in stencils:
+            nine = isinstance(st, Stencil9)
+            whole = k9 if nine else sk
+            for label, guess, steps, emit, correct in modes:
+                if dt == torch.float64 and label != "zero-guess rc":
+                    continue
+                k = len(steps)
+                h = dk.halo_rows(k, emit)
+                hc = dk.coarse_halo_rows(h)
+                bb = k17_blocks(torch, b, P, h)
+                ub = k17_blocks(torch, u, P, h)
+                eb = k17_blocks(torch, e, P, hc)
+                m = k + 2  # the coefficient rows a block keeps, as in a solve
+
+                def args(p):
+                    lo = max(0, p * R - m)
+                    stp = (Stencil9(*(c if c.shape[0] == 1 else
+                                      c[lo:min(n, (p + 1) * R + m)]
+                                      .contiguous() for c in st))
+                           if nine else st)
+                    return (stp, None if emit == "a" else bb[p][0],
+                            ub[p][0] if guess else None, steps, emit), dict(
+                        row0=p * R, ny=n, b_halo=bb[p][1], u_halo=ub[p][1],
+                        e=eb[p][0][:R // 2] if correct else None,
+                        e_halo=eb[p][1] if correct else None,
+                        coeff_row0=lo if nine else 0)
+
+                calls = [args(p) for p in range(P)]
+
+                def stitched(fn):
+                    outs = [fn(*a, **kw) for a, kw in calls]
+                    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+                    return tuple(torch.cat([o[i] for o in outs])
+                                 for i in range(len(outs[0])))
+
+                def whole_fn():
+                    if emit == "a":
+                        return ((k9.apply_stencil9 if nine else
+                                 sk.apply_stencil5)(st, u),)
+                    if emit == "r":
+                        return ((k9.residual9 if nine else sk.residual5)(
+                            st, b, u),)
+                    out = (whole.fused_level_visit9 if nine else
+                           whole.fused_level_visit)(
+                        st, b, u if guess else None, steps, emit,
+                        e if correct else None)
+                    return out if isinstance(out, tuple) else (out,)
+
+                tag = f"K17 {sname} {label}" + (
+                    f" k={k}" if k else "") + f" {dt}".replace("torch.", " ")
+                print(f"{tag}, {P} blocks of {R} rows at {n}^2")
+                got = stitched(dk.row_visit)
+                want = stitched(dk.row_visit_plain)
+                ref = whole_fn()
+                names = {"rc": ("u'", "rc"), "ur": ("u'", "r")}.get(
+                    emit, (emit,))
+                for nm, g, w, wh in zip(names, got, want, ref):
+                    assert bool((g[-1] == 0).all()), f"{tag}: {nm} pad row"
+                    assert bool((w[-1] == 0).all()), f"{tag}: plain pad row"
+                    compare(torch, f"{nm} vs plain row blocks", g, w,
+                            rec[key])
+                    compare(torch, f"{nm} vs whole-grid kernel",
+                            g[:wh.shape[0]], wh, {})
+                del got, want, ref
+                a1, kw1 = calls[1]
+                ms1 = time_ms(torch, lambda: dk.row_visit(*a1, **kw1))
+                ms4 = time_ms(torch, lambda: [dk.row_visit(*a, **kw)
+                                              for a, kw in calls])
+                msw = time_ms(torch, whole_fn)
+                pms = time_ms(torch, lambda: dk.row_visit_plain(*a1, **kw1))
+                # Read once: u (a, r, a guess) and b (the visits) on the
+                # block's rows and halo rows, b on its own rows (r), e and
+                # its coarse halo, the 9-point (ny, nx) cc on the rows
+                # read; written once: the outputs.
+                ext = (R + 2 * h) * n
+                if emit in ("a", "r"):
+                    ins = ext + (R * n if emit == "r" else 0)
+                else:
+                    ins = ext * (1 + int(guess)) + (
+                        (R // 2 + 2 * hc) * nxc if correct else 0)
+                outs = R * n * (2 if emit == "ur" else 1) + (
+                    (R // 2) * nxc if emit == "rc" else 0)
+                nbytes = isz * (ins + outs + (ext if nine else 0))
+                per_pt = (23 * k + 20) if nine else (15 * k + 12)
+                flops = per_pt * R * n
+                print(f"  {tag}: kernel {ms1:.4f} ms per block "
+                      f"({nbytes / ms1 / 1e6:.1f} GB/s effective), {ms4:.4f} "
+                      f"ms for {P} blocks, whole-grid kernel {msw:.4f} ms; "
+                      f"plain {pms:.4f} ms per block; bound "
+                      f"{1e3 * nbytes / HBM_PEAK:.4f} ms per block")
+                keep_time(rec[key], ms1, pms, nbytes, flops)
+                summary.append((tag, ms1, ms4, msw, pms, nbytes))
+                del bb, ub, eb, calls
+            del st
+        del b, u, e
+        torch.cuda.empty_cache()
+    return summary
+
+
+def rank_worker(argv) -> int:
+    """One rank of phase 9's worlds (``chip_smoke.py --rank RANK WORLD
+    PORT DEVICE LABEL OUTDIR JOBS``): joins the gloo group, solves each
+    job under ``row_plan(min_local=32)`` on DEVICE and writes its results
+    to OUTDIR/<job>.<LABEL>.<RANK>.json (rank 0 also the gathered solution
+    of a job with "save_u")."""
+    import dataclasses as dc
+    from datetime import timedelta
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.parallel import row_plan
+    from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils.config import (
+        CycleType,
+        SmootherType,
+        SolverConfig,
+    )
+
+    rank, world, port = (int(a) for a in argv[:3])
+    device, label, out = argv[3], argv[4], Path(argv[5])
+    jobs = json.loads(argv[6])
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=P9_TIMEOUT))
+    try:
+        plan = row_plan(min_local=32, device=device)
+        cuda = plan.device.type == "cuda"
+        for job in jobs:
+            f = dict(job["cfg"], cycle=CycleType(job["cfg"]["cycle"]))
+            if "smoother" in f:
+                f["smoother"] = SmootherType(f["smoother"])
+            if "aniso" in f:
+                f["aniso"] = tuple(f["aniso"])
+            cfg = SolverConfig(**f)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            launches.clear()
+            res = solve(cfg, plan=plan)
+            counts = dict(launches)
+            u = res.u_fine  # gathered from both ranks
+            errs = error_norms(res.ctx.problem, MeshType(cfg.mesh),
+                               torch.as_tensor(u))
+            ms = None
+            if job.get("forced"):
+                k1, k2 = job["forced"]
+                forced = dc.replace(cfg, rtol=1e-30, divtol=1e30)
+                t = [solve(forced, ctx=dc.replace(
+                    res.ctx, config=dc.replace(forced, max_iter=kk)),
+                    timed=True).wall_time for kk in (k1, k2)]
+                ms = 1e3 * (t[1] - t[0]) / (k2 - k1)
+            rep = dict(iters=res.iters, converged=res.converged,
+                       path=res.path, route=res.route,
+                       rnorm=res.rnorm.tolist(), counts=counts,
+                       dist=[lv.dist is not None for lv in res.ctx.levels],
+                       errs=list(errs), wall=res.wall_time, ms=ms,
+                       transport=plan.transport,
+                       peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                 if cuda else None))
+            (out / f"{job['name']}.{label}.{rank}.json").write_text(
+                json.dumps(rep))
+            if rank == 0 and job.get("save_u"):
+                np.save(out / f"{job['name']}.npy", u)
+            print(f"[rank {rank} {label}] {job['name']}: iters "
+                  f"{res.iters}, converged {res.converged}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_world(jobs, device, label, out):
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--rank", str(r), str(P9_RANKS),
+         str(port), device, label, str(out), json.dumps(jobs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(P9_RANKS)]
+
+
+def finish_world(procs, label):
+    """Wait for every rank; print their output; any non-zero exit, or a
+    world past P9_TIMEOUT (then every rank is killed), fails."""
+    try:
+        outs = [p.communicate(timeout=P9_TIMEOUT)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"{label}: a rank did not finish")
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        print("\n".join(f"  [{label} rank {r}] {ln}"
+                        for ln in o.strip().splitlines()[-12:]))
+        assert p.returncode == 0, f"{label}: rank {r} exited {p.returncode}"
+
+
+def phase_dist(torch, main_ref):
+    """9 (b): the distributed main path at full width, 2 ranks on the one
+    card over gloo with halos staged through the host: Poisson mg-CG at
+    8193^2 / 11 levels (phase 4's config) under row_plan(min_local=32),
+    then the aniso (1,1,1,2,0.4) mg-CG Jacobi; (c) card against CPU at
+    1025^2 / 8 levels, the same 2-rank mg-CG in f32 and in f64 on the
+    card and over gloo on the CPU (the two worlds run side by side).
+    Returns K17's launches: f32 from (b)'s Poisson run on rank 0, f64
+    from (c)'s card run."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    L = P9_N.bit_length() - 3  # 11 levels at 8193^2: a 7^2 coarsest
+    big = dict(npts=P9_N, grids=L, levels=L, cycle=101, dtype="float32",
+               rtol=1e-5, max_iter=100)
+    Ls = P9_SMALL.bit_length() - 3
+    small = dict(npts=P9_SMALL, grids=Ls, levels=Ls, cycle=101,
+                 max_iter=100)
+    parity = [{"name": "p1025", "cfg": dict(small, dtype="float32",
+                                            rtol=1e-5)},
+              {"name": "p1025_f64", "cfg": dict(small, dtype="float64")}]
+    card_jobs = [{"name": "poisson", "cfg": big, "forced": [3, 8],
+                  "save_u": True},
+                 {"name": "aniso", "cfg": dict(big, problem="aniso",
+                                               aniso=[1.0, 1.0, 1.0, 2.0,
+                                                      0.4])},
+                 *parity]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        cpu = start_world(parity, "cpu", "cpu", out)
+        card = start_world(card_jobs, "cuda", "card", out)
+        try:
+            finish_world(card, "card world")
+            finish_world(cpu, "cpu world")
+        finally:  # a failed world leaves no rank of either running
+            for p in card + cpu:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+        def ranks(name, label):
+            return [json.loads((out / f"{name}.{label}.{r}.json")
+                               .read_text()) for r in range(P9_RANKS)]
+
+        res = ranks("poisson", "card")
+        r0 = res[0]
+        print(f"9 (b) Poisson mg-CG {P9_N}^2/{L} levels, {P9_RANKS} ranks "
+              f"sharing one card (transport {r0['transport']}): iters "
+              f"{r0['iters']} (phase 4: {main_ref['iters']}), converged "
+              f"{r0['converged']}, path {r0['path']}, route {r0['route']}")
+        print(f"  residual history {r0['rnorm']}")
+        print(f"  sharded levels {r0['dist']}")
+        for r, x in enumerate(res):
+            print(f"  rank {r}: launches {x['counts']}, peak device memory "
+                  f"{x['peak_gib']:.2f} GiB")
+        u = np.load(out / "poisson.npy")
+        du = float(np.abs(u - main_ref["u"]).max()
+                   / np.abs(main_ref["u"]).max())
+        print(f"  error vs exact (max, L1, L2): "
+              + " ".join(f"{x:.6e}" for x in r0["errs"])
+              + f"; phase 4: {main_ref['err']:.6e}; max|u - u_phase4| / "
+              f"max|u_phase4| {du:.3e}")
+        print(f"  ms per iteration, {P9_RANKS} ranks sharing one card "
+              f"(differenced 3 vs 8 iterations; not a speed figure): "
+              f"{r0['ms']:.4f}")
+        assert r0["converged"] and r0["path"] == "cuda"
+        assert r0["route"] == "generic"
+        assert r0["transport"] == "gloo-host"
+        assert abs(r0["iters"] - main_ref["iters"]) <= 1
+        # 8191 ... 63 sharded (63: 32 rows per rank), 31 and below not.
+        assert r0["dist"] == [True] * (L - 3) + [False] * 3, r0["dist"]
+        for x in res:
+            assert x["iters"] == r0["iters"] and x["rnorm"] == r0["rnorm"]
+            assert x["counts"].get("dist_level_visit", 0) > 0
+            for k in ("cg_papply_u", "cg_visit_down"):
+                assert x["counts"].get(k, 0) == 0, f"{k} launched"
+        assert du <= 1e-3, du
+        assert r0["errs"][0] <= 1.1 * main_ref["err"], r0["errs"]
+
+        an = ranks("aniso", "card")
+        print(f"9 (b) aniso (1,1,1,2,0.4) mg-CG Jacobi {P9_N}^2/{L} levels, "
+              f"{P9_RANKS} ranks: iters {an[0]['iters']}, converged "
+              f"{an[0]['converged']}, max error {an[0]['errs'][0]:.6e}; "
+              f"launches {an[0]['counts']}; sharded levels "
+              f"{an[0]['dist']}")
+        assert all(x["converged"] for x in an)
+        assert an[0]["errs"][0] <= 5e-2
+        assert all(x["counts"].get("dist_level_visit", 0) > 0 for x in an)
+
+        f64_launches = 0
+        for name in ("p1025", "p1025_f64"):
+            g, c = ranks(name, "card")[0], ranks(name, "cpu")[0]
+            print(f"9 (c) {name} {P9_SMALL}^2/{Ls} levels, {P9_RANKS} ranks: "
+                  f"iters "
+                  f"card {g['iters']} cpu {c['iters']}; rnorm card "
+                  f"{g['rnorm']} cpu {c['rnorm']}; paths {g['path']}/"
+                  f"{c['path']}; launches {g['counts']}")
+            assert g["converged"] and c["converged"]
+            assert g["path"] == "cuda" and c["path"] == "torch"
+            assert g["iters"] == c["iters"]
+            np.testing.assert_allclose(g["rnorm"], c["rnorm"], rtol=0.05,
+                                       atol=5e-6)
+            if name == "p1025_f64":
+                f64_launches = g["counts"].get("dist_level_visit.f64", 0)
+                assert f64_launches > 0
+                assert all(k.endswith(".f64") for k in g["counts"])
+    return {"dist_level_visit": r0["counts"]["dist_level_visit"],
+            "dist_level_visit.f64": f64_launches}
+
+
 def timed_phase(torch, name, fn, *args):
     """Run one phase; print its seconds (set-up included) and the peak
     device memory it reached."""
@@ -1280,6 +1682,8 @@ def timed_phase(torch, name, fn, *args):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 9's worlds
+        return rank_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1344,12 +1748,16 @@ def main() -> int:
     ), base={"problem": "aniso"})
     timed_phase(torch, "3c", phase_parity_zoo)
     p3d_counts = timed_phase(torch, "3d", phase_parity_precision)
-    counts, u_ref = phase_main(torch)
+    counts, u_ref, main_ref = phase_main(torch)
     vcounts = phase_vcycle(torch, u_ref)
+    main_ref["u"] = u_ref.cpu().numpy()  # phase 9 (b)'s reference
     del u_ref
     acounts = phase_aniso(torch)
     k8_counts, k16_counts = timed_phase(torch, "7", phase_zoo)
     p8_counts = timed_phase(torch, "8", phase_precision)
+    torch.cuda.empty_cache()
+    timed_phase(torch, "9 (a)", phase_k17, dev, rec)
+    counts.update(timed_phase(torch, "9 (b), (c)", phase_dist, main_ref))
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -1397,6 +1805,10 @@ def main() -> int:
         "line_visit9.f64": ("line.cu", "line_kernel.py:208"),
         "visit_down.bf16": ("visit_bf16.cu", "mdma_kernel.py:628"),
         "visit_up.bf16": ("visit_bf16.cu", "mdma_kernel.py:796"),
+        # The distribution slice; launches from phase 9 (b)'s Poisson run
+        # (rank 0) and, for f64, 9 (c)'s card run.
+        "dist_level_visit": ("visit.cu", "dist_kernel.py:399"),
+        "dist_level_visit.f64": ("visit_f64.cu", "dist_kernel.py:399"),
     }
     for k in meta:
         if k not in counts:

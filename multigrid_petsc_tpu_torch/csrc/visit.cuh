@@ -38,6 +38,20 @@
 //       smooth9_sweeps_pallas
 //   K14 visit <..., Coeffs9> (every flag set but CG) <- stencil9_kernel.py
 //       fused_level_visit9_pallas
+//   K17 visit and stencil_kernel on a row block (RowBlock below; every flag
+//       set but CG, both stencils, f32 and f64) <- dist_kernel.py
+//       dist_level_visit_local
+//
+// Every launch covers a RowBlock: a whole grid, or one rank's block of a
+// row-partitioned level (K17).  A block reads its own rows of b, u and e in
+// place and the rows past it from small halo buffers that the neighbours'
+// exchange filled (zeros at the global edges), so no extended copy of the
+// block is made per visit.  Masking, the coefficients and the restriction's
+// pad-row rule go by the GLOBAL row: rows at or past the domain's last row
+// (the row partition's one pad row) are written as 0, as is the global
+// coarse pad row of rc.  A block of R rows needs halo rows of the visit's
+// H (below) and, to correct, H / 2 + 1 coarse rows; the wrappers assert
+// H <= R, so rows come from the immediate neighbours only.
 //
 // Storage types: f32 and f64 compute in their own type; bf16 is storage
 // only -- every load converts to f32, the arithmetic (smoother steps,
@@ -99,7 +113,6 @@ namespace {
 
 using mg::Coeffs9;
 using mg::compute_t;
-using mg::prolong_at;
 using mg::put;
 using mg::to_c;
 
@@ -137,6 +150,78 @@ struct VisitIO {
   T* rnew_out;                // CG: r' = r - alpha ap
   compute_t<T>* part;         // CG: ||r'||^2 partials; DOT: <b, u> partials
 };
+
+// The rows a launch covers: R local rows from global row row0 (even) of a
+// domain of nyg real rows.  A whole grid is R = nyg, row0 = 0, Rc = (nyg -
+// 1) / 2 and no halo buffers.  A row block (K17) reads its rows above and
+// below from b_top / u_top and b_bot / u_bot (hn rows each, (hn, nx)), the
+// coarse correction's from e_top / e_bot (hc rows each, (hc, nxc)); its
+// coarse block (e, rc) has Rc = R / 2 rows.
+template <class T>
+struct RowBlock {
+  int R, row0, nyg, hn, Rc, hc;
+  const T* b_top;
+  const T* b_bot;
+  const T* u_top;
+  const T* u_bot;
+  const T* e_top;
+  const T* e_bot;
+};
+
+template <class T>
+inline RowBlock<T> whole_grid(int ny) {
+  return RowBlock<T>{ny,      0,       ny,      0,       (ny - 1) / 2, 0,
+                     nullptr, nullptr, nullptr, nullptr, nullptr,      nullptr};
+}
+
+// A row block from the C entries' host arrays: geom = R, row0, nyg, hn, Rc,
+// hc; halos = b_top, b_bot, u_top, u_bot, e_top, e_bot (device pointers).
+template <class T>
+inline RowBlock<T> row_block(const int* geom, const unsigned long long* h) {
+  auto ptr = [&](int i) { return reinterpret_cast<const T*>(h[i]); };
+  return RowBlock<T>{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5],
+                     ptr(0),  ptr(1),  ptr(2),  ptr(3),  ptr(4),  ptr(5)};
+}
+
+// Local row ly (< 0 above the block, >= R below it) of a field held as an
+// R-row block `mid` with halo buffers of hn rows, each row w wide; null
+// past the halos (such rows are never needed: they stay zero).
+template <class T>
+__device__ __forceinline__ const T* block_row(const T* mid, const T* top,
+                                              const T* bot, int ly, int R,
+                                              int hn, int w) {
+  if (ly < 0) return ly >= -hn ? top + (size_t)(ly + hn) * w : nullptr;
+  if (ly >= R) return ly - R < hn ? bot + (size_t)(ly - R) * w : nullptr;
+  return mid + (size_t)ly * w;
+}
+
+// Bilinear prolongation of the coarse correction at the global fine point
+// (gy, gx), in the compute type (the arithmetic of mg::prolong_at and
+// ops/transfer.prolong_bilinear); coarse rows at or past the domain's
+// (nyg - 1) / 2, the coarse pad row among them, count as zero.
+template <class T>
+__device__ __forceinline__ compute_t<T> prolong_rows(const T* e,
+                                                     const RowBlock<T>& rb,
+                                                     int gy, int gx, int nxc) {
+  using C = compute_t<T>;
+  const int nyc = (rb.nyg - 1) / 2, c0 = rb.row0 / 2;
+  // Each coarse row the point reads is found once (null: zero).
+  auto row = [&](int I) -> const T* {
+    if (I < 0 || I >= nyc) return nullptr;
+    return block_row(e, rb.e_top, rb.e_bot, I - c0, rb.Rc, rb.hc, nxc);
+  };
+  auto at = [&](const T* r, int J) -> C {
+    return r != nullptr && J >= 0 && J < nxc ? to_c(r[J]) : C(0);
+  };
+  const int I = gy >> 1, J = gx >> 1;
+  const bool oy = gy & 1, ox = gx & 1;
+  const T* r1 = row(I);
+  if (oy && ox) return at(r1, J);
+  if (oy) return (at(r1, J - 1) + at(r1, J)) * C(0.5);
+  const T* r0 = row(I - 1);
+  if (ox) return (at(r0, J) + at(r1, J)) * C(0.5);
+  return (at(r0, J - 1) + at(r0, J) + at(r1, J - 1) + at(r1, J)) * C(0.25);
+}
 
 // ---- 5-point coefficients staged for a tile: cs, cw, cc, ce, cn, dinv.
 template <class C>
@@ -242,7 +327,7 @@ __device__ Tile9<compute_t<T>> stage(const Coeffs9<T>& c, compute_t<T>* base,
                       (!gxs || (gx >= 0 && gx < nx));
       C v = C(0);
       if (in) {
-        v = to_c(c.p[src][(gys ? (size_t)gy * gys : 0) +
+        v = to_c(c.p[src][(gys ? (size_t)(gy - c.oy) * gys : 0) +
                           (gxs ? (size_t)gx * gxs : 0)]);
         if (q == 9) v = v == C(0) ? C(1) : C(1) / v;
       }
@@ -380,11 +465,17 @@ constexpr int halo(int emit, int k) {
 }
 
 // The level visit: [b = r - alpha ap] [u + P e] -> k steps -> the emits.
-// rc holds the coarse points whose 3x3 footprint the tile owns.
+// rc holds the coarse points whose 3x3 footprint the tile owns.  ROWS
+// (K17): the launch covers a row block; its local rows ly map to global
+// rows row0 + ly; masks, coefficients and the prolongation go by the
+// global row, reads and writes by the local, rows past the block come from
+// the halo buffers, and rows at or past the domain are written as 0.  A
+// whole grid (ROWS false) compiles to the plain indexing, so the
+// whole-grid visits pay nothing for the row-block mode.
 template <class T, bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT,
-          class K>
+          class K, bool ROWS>
 __global__ void __launch_bounds__(NTHREADS)
-visit_kernel(K c, VisitIO<T> io, int ny, int nx, int H,
+visit_kernel(K c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
              const compute_t<T>* __restrict__ steps, int k) {
   using C = compute_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -394,9 +485,12 @@ visit_kernel(K c, VisitIO<T> io, int ny, int nx, int H,
   C* u = b + n;
   C* p = u + n;
   C* red = p + n + coeff_elems(c, SH, SW);
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int gy0 = y0 - H, gx0 = x0 - H;
-  const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
+  const int ny = rb.nyg, nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
+  // A whole grid's block is the grid: R = ny, Rc = nyc, row0 = 0.
+  const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int Rc = ROWS ? rb.Rc : nyc;
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
+  const int gy0 = row0 + y0 - H, gx0 = x0 - H;           // global
   const auto rc = stage(c, p + n, SH, SW, gy0, gx0, ny, nx);
   const C alpha = CG ? *io.alpha : C(0);
   for (int i = threadIdx.x; i < n; i += NTHREADS) {
@@ -404,10 +498,23 @@ visit_kernel(K c, VisitIO<T> io, int ny, int nx, int H,
     int gy = gy0 + sy, gx = gx0 + sx;
     C bv = C(0), uv = C(0);
     if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      size_t g = (size_t)gy * nx + gx;
-      bv = CG ? to_c(io.b[g]) - alpha * to_c(io.ap[g]) : to_c(io.b[g]);
-      if (GUESS) uv = to_c(io.u[g]);
-      if (CORRECT) uv += prolong_at(io.e, gy, gx, nyc, nxc);
+      if constexpr (ROWS) {
+        const int ly = y0 - H + sy;
+        const T* brow =
+            block_row(io.b, rb.b_top, rb.b_bot, ly, rb.R, rb.hn, nx);
+        if (brow != nullptr) {  // past the halos: never read, left 0
+          bv = to_c(brow[gx]);
+          if (GUESS)
+            uv = to_c(block_row(io.u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn,
+                                nx)[gx]);
+          if (CORRECT) uv += prolong_rows(io.e, rb, gy, gx, nxc);
+        }
+      } else {
+        size_t g = (size_t)gy * nx + gx;
+        bv = CG ? to_c(io.b[g]) - alpha * to_c(io.ap[g]) : to_c(io.b[g]);
+        if (GUESS) uv = to_c(io.u[g]);
+        if (CORRECT) uv += mg::prolong_at(io.e, gy, gx, nyc, nxc);
+      }
     }
     b[i] = bv;
     u[i] = uv;
@@ -419,13 +526,15 @@ visit_kernel(K c, VisitIO<T> io, int ny, int nx, int H,
   C acc = C(0);
   for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
     int ty = t / TX, tx = t - (t / TX) * TX;
-    int gy = y0 + ty, gx = x0 + tx;
-    if (gy >= ny || gx >= nx) continue;
+    int ly = y0 + ty, gx = x0 + tx;  // a whole grid's ly is its gy
+    if (ly >= R || gx >= nx) continue;
+    const bool in = !ROWS || row0 + ly < ny;  // the pad row is written as 0
     int i = (ty + H) * SW + tx + H;
-    size_t g = (size_t)gy * nx + gx;
-    if (EMIT != EMIT_R) put(io.u_out, g, u[i]);
+    size_t g = (size_t)ly * nx + gx;
+    if (EMIT != EMIT_R) put(io.u_out, g, in ? u[i] : C(0));
     if (EMIT == EMIT_UR || EMIT == EMIT_R)
-      put(io.r_out, g, b[i] - apply_at(u, rc, ty + H, tx + H, SH, SW));
+      put(io.r_out, g,
+          in ? b[i] - apply_at(u, rc, ty + H, tx + H, SH, SW) : C(0));
     if (CG) {
       put(io.rnew_out, g, b[i]);
       acc += b[i] * b[i];
@@ -444,16 +553,20 @@ visit_kernel(K c, VisitIO<T> io, int ny, int nx, int H,
     }
     __syncthreads();
     // Full weighting: y pass first, then x (ops/transfer.restrict_fw).
+    // A row block's coarse rows at or past nyc (the global coarse pad
+    // row) are 0.
     for (int t = threadIdx.x; t < (TY / 2) * (TX / 2); t += NTHREADS) {
       int cy = t / (TX / 2), cx = t - (t / (TX / 2)) * (TX / 2);
-      int I = y0 / 2 + cy, J = x0 / 2 + cx;
-      if (I >= nyc || J >= nxc) continue;
+      int I = y0 / 2 + cy, J = x0 / 2 + cx;  // local coarse row I
+      if (I >= Rc || J >= nxc) continue;
       const C* r0 = p + (2 * cy + H) * SW + 2 * cx + H;  // fine (2I, 2J)
       C ycol[3];
       for (int d = 0; d < 3; ++d)
         ycol[d] = r0[d] + C(2) * r0[SW + d] + r0[2 * SW + d];
       put(io.rc_out, (size_t)I * nxc + J,
-          C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2]));
+          !ROWS || row0 / 2 + I < nyc
+              ? C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2])
+              : C(0));
     }
   }
   if (CG || DOT) {
@@ -463,47 +576,49 @@ visit_kernel(K c, VisitIO<T> io, int ny, int nx, int H,
 }
 
 template <class T, class K>
-using VisitFn = void (*)(K, VisitIO<T>, int, int, int, const compute_t<T>*,
-                         int);
+using VisitFn = void (*)(K, VisitIO<T>, RowBlock<T>, int, int,
+                         const compute_t<T>*, int);
 
-template <class T, bool GUESS, bool CORRECT, class K>
+template <class T, bool GUESS, bool CORRECT, class K, bool ROWS>
 VisitFn<T, K> pick_emit(int emit, bool dot) {
+  if (dot)  // DOT goes with emit u, on whole grids
+    return emit == EMIT_U && !ROWS
+               ? visit_kernel<T, false, GUESS, CORRECT, EMIT_U, true, K,
+                              false>
+               : nullptr;
   switch (emit) {
     case EMIT_U:
-      return dot ? visit_kernel<T, false, GUESS, CORRECT, EMIT_U, true, K>
-                 : visit_kernel<T, false, GUESS, CORRECT, EMIT_U, false, K>;
+      return visit_kernel<T, false, GUESS, CORRECT, EMIT_U, false, K, ROWS>;
     case EMIT_UR:
-      return dot ? nullptr
-                 : visit_kernel<T, false, GUESS, CORRECT, EMIT_UR, false, K>;
+      return visit_kernel<T, false, GUESS, CORRECT, EMIT_UR, false, K, ROWS>;
     case EMIT_R:
-      return dot ? nullptr
-                 : visit_kernel<T, false, GUESS, CORRECT, EMIT_R, false, K>;
+      return visit_kernel<T, false, GUESS, CORRECT, EMIT_R, false, K, ROWS>;
     case EMIT_RC:
-      return dot ? nullptr
-                 : visit_kernel<T, false, GUESS, CORRECT, EMIT_RC, false, K>;
+      return visit_kernel<T, false, GUESS, CORRECT, EMIT_RC, false, K, ROWS>;
   }
   return nullptr;
 }
 
 // The instantiation for a flag set, or null for a set the family lacks
-// (CG is the 5-point f32 zero-guess rc visit only; DOT goes with emit u
-// only; a correction needs a guess).
-template <class T, class K>
+// (CG is the 5-point f32 zero-guess rc visit on a whole grid only; DOT goes
+// with emit u on a whole grid only; a correction needs a guess).
+template <class T, class K, bool ROWS>
 VisitFn<T, K> pick_visit(int flags) {
   const bool cg = flags & F_CG, guess = flags & F_GUESS;
   const bool correct = flags & F_CORRECT, dot = flags & F_DOT;
   const int emit = flags >> EMIT_SHIFT;
   if (cg) {
-    if constexpr (std::is_same<K, Coeffs<float>>::value)
+    if constexpr (std::is_same<K, Coeffs<float>>::value && !ROWS)
       return (guess || correct || dot || emit != EMIT_RC)
                  ? nullptr
-                 : visit_kernel<T, true, false, false, EMIT_RC, false, K>;
+                 : visit_kernel<T, true, false, false, EMIT_RC, false, K,
+                                false>;
     return nullptr;
   }
   if (!guess)
-    return correct ? nullptr : pick_emit<T, false, false, K>(emit, dot);
-  return correct ? pick_emit<T, true, true, K>(emit, dot)
-                 : pick_emit<T, true, false, K>(emit, dot);
+    return correct ? nullptr : pick_emit<T, false, false, K, ROWS>(emit, dot);
+  return correct ? pick_emit<T, true, true, K, ROWS>(emit, dot)
+                 : pick_emit<T, true, false, K, ROWS>(emit, dot);
 }
 
 // K1 (UPDATE_U) and K11: p' = z + beta p (tile + 1-point halo in shared
@@ -558,32 +673,45 @@ cg_papply_kernel(Coeffs<T> c, const T* __restrict__ z,
 
 // K6 / K12 (RESID = false): y = A u; residual5 / residual9 (RESID = true):
 // y = b - A u.  The tile + 1-point halo of u in shared memory, as K1, with
-// the coefficients staged after it.
-template <class T, bool RESID, class K>
+// the coefficients staged after it.  ROWS (K17's emits a and r): a row
+// block, u's rows past it from its 1-row halo buffers, b read on the
+// block's own rows only, the pad row written as 0.
+template <class T, bool RESID, class K, bool ROWS>
 __global__ void __launch_bounds__(NTHREADS)
 stencil_kernel(K c, const T* __restrict__ b, const T* __restrict__ u,
-               T* __restrict__ y, int ny, int nx) {
+               T* __restrict__ y, RowBlock<T> rb, int nx) {
   using C = compute_t<T>;
   constexpr int SH = TY + 2, SW = TX + 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* us = reinterpret_cast<C*>(smem_raw);
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int gy0 = y0 - 1, gx0 = x0 - 1;
+  const int ny = rb.nyg;
+  const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
+  const int gy0 = row0 + y0 - 1, gx0 = x0 - 1;           // global
   const auto rc = stage(c, us + SH * SW, SH, SW, gy0, gx0, ny, nx);
   for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
     int gy = gy0 + sy, gx = gx0 + sx;
-    us[i] = (gy >= 0 && gy < ny && gx >= 0 && gx < nx)
-                ? to_c(u[(size_t)gy * nx + gx]) : C(0);
+    C v = C(0);
+    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+      if constexpr (ROWS) {
+        const T* row =
+            block_row(u, rb.u_top, rb.u_bot, y0 - 1 + sy, rb.R, rb.hn, nx);
+        if (row != nullptr) v = to_c(row[gx]);
+      } else {
+        v = to_c(u[(size_t)gy * nx + gx]);
+      }
+    }
+    us[i] = v;
   }
   __syncthreads();
   for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
     int ty = t / TX, tx = t - (t / TX) * TX;
-    int gy = y0 + ty, gx = x0 + tx;
-    if (gy >= ny || gx >= nx) continue;
+    int ly = y0 + ty, gx = x0 + tx;  // a whole grid's ly is its gy
+    if (ly >= R || gx >= nx) continue;
     C a = apply_at(us, rc, ty + 1, tx + 1, SH, SW);
-    size_t g = (size_t)gy * nx + gx;
-    put(y, g, RESID ? to_c(b[g]) - a : a);
+    size_t g = (size_t)ly * nx + gx;
+    put(y, g, !ROWS || row0 + ly < ny ? (RESID ? to_c(b[g]) - a : a) : C(0));
   }
 }
 
@@ -591,34 +719,48 @@ inline dim3 visit_grid(int ny, int nx) {
   return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
 }
 
-template <class T, class K>
-int launch_visit(const K& c, const VisitIO<T>& io, int ny, int nx,
-                 const compute_t<T>* steps, int k, int flags, void* stream) {
-  VisitFn<T, K> kern = pick_visit<T, K>(flags);
+// A row block needs halo buffers that hold the visit's halo H (at most
+// the block), and H / 2 + 1 coarse halo rows to correct.
+template <class T, bool ROWS>
+bool row_block_ok(const RowBlock<T>& rb, int H, int flags) {
+  if (!ROWS) return true;
+  return H <= rb.hn && H <= rb.R &&
+         (!(flags & F_CORRECT) || rb.hc >= H / 2 + 1);
+}
+
+template <class T, bool ROWS = false, class K>
+int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
+                 int nx, const compute_t<T>* steps, int k, int flags,
+                 void* stream) {
+  VisitFn<T, K> kern = pick_visit<T, K, ROWS>(flags);
   if (kern == nullptr || k < 1) return (int)cudaErrorInvalidValue;
   const int H = halo(flags >> EMIT_SHIFT, k);
+  if (!row_block_ok<T, ROWS>(rb, H, flags))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = visit_smem_bytes<T>(c, H);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-      c, io, ny, nx, H, steps, k);
+  kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+      c, io, rb, nx, H, steps, k);
   return (int)cudaGetLastError();
 }
 
-template <class T, class K>
-int launch_stencil(const K& c, const T* b, const T* u, T* y, int ny, int nx,
-                   int resid, void* stream) {
-  auto kern = resid ? stencil_kernel<T, true, K> : stencil_kernel<T, false, K>;
+template <class T, bool ROWS = false, class K>
+int launch_stencil(const K& c, const T* b, const T* u, T* y,
+                   const RowBlock<T>& rb, int nx, int resid, void* stream) {
+  if (!row_block_ok<T, ROWS>(rb, 1, 0)) return (int)cudaErrorInvalidValue;
+  auto kern = resid ? stencil_kernel<T, true, K, ROWS>
+                    : stencil_kernel<T, false, K, ROWS>;
   const size_t smem = sizeof(compute_t<T>) *
                       ((TY + 2) * (TX + 2) + coeff_elems(c, TY + 2, TX + 2));
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  kern<<<visit_grid(ny, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-      c, b, u, y, ny, nx);
+  kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+      c, b, u, y, rb, nx);
   return (int)cudaGetLastError();
 }
 
@@ -656,7 +798,8 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
       int flags, void* stream) {                                             \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
     VisitIO<T> io{b, ap, alpha, u, e, u_out, r_out, rc_out, rnew_out, part}; \
-    return launch_visit<T>(c, io, ny, nx, steps, k, flags, stream);          \
+    return launch_visit<T>(c, io, whole_grid<T>(ny), nx, steps, k, flags,    \
+                           stream);                                          \
   }                                                                          \
   extern "C" int mg_visit9##SFX(                                             \
       const unsigned long long* cptrs, const int* cstrides, const T* b,      \
@@ -665,20 +808,70 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
       int flags, void* stream) {                                             \
     VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
                   u_out, r_out,   rc_out,  nullptr, part};                   \
-    return launch_visit<T>(mg::coeffs9<T>(cptrs, cstrides), io, ny, nx,      \
-                           steps, k, flags, stream);                         \
+    return launch_visit<T>(mg::coeffs9<T>(cptrs, cstrides), io,              \
+                           whole_grid<T>(ny), nx, steps, k, flags, stream);  \
   }                                                                          \
   extern "C" int mg_stencil##SFX(const T* cs, const T* cw, const T* cc,      \
                                  const T* ce, const T* cn, const T* b,       \
                                  const T* u, T* y, int ny, int nx,           \
                                  int resid, void* stream) {                  \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
-    return launch_stencil<T>(c, b, u, y, ny, nx, resid, stream);             \
+    return launch_stencil<T>(c, b, u, y, whole_grid<T>(ny), nx, resid,       \
+                             stream);                                        \
   }                                                                          \
   extern "C" int mg_stencil9##SFX(const unsigned long long* cptrs,           \
                                   const int* cstrides, const T* b,           \
                                   const T* u, T* y, int ny, int nx,          \
                                   int resid, void* stream) {                 \
-    return launch_stencil<T>(mg::coeffs9<T>(cptrs, cstrides), b, u, y, ny,   \
-                             nx, resid, stream);                             \
+    return launch_stencil<T>(mg::coeffs9<T>(cptrs, cstrides), b, u, y,       \
+                             whole_grid<T>(ny), nx, resid, stream);          \
+  }
+
+// K17, the row-block entries (visit.cu and visit_f64.cu: f32 and f64), named
+// as the whole-grid entries with _rows: one visit (mg_visit_rows,
+// mg_visit9_rows: every flag set but F_CG) or A u / b - A u (mg_stencil_rows,
+// mg_stencil9_rows, halo 1) on one rank's row block.  geom: R, row0, nyg,
+// hn, Rc, hc (RowBlock); halos: device pointers b_top, b_bot, u_top, u_bot,
+// e_top, e_bot, null where the flags read none; coff: the first global row
+// the 9-point coefficients that vary with y hold.
+#define MG_VISIT_ROWS_ENTRIES(SFX, T)                                        \
+  extern "C" int mg_visit_rows##SFX(                                         \
+      const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
+      const T* b, const T* u, const T* e, T* u_out, T* r_out, T* rc_out,     \
+      compute_t<T>* part, const int* geom, const unsigned long long* halos,  \
+      int nx, const compute_t<T>* steps, int k, int flags, void* stream) {   \
+    Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
+    VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
+                  u_out, r_out,   rc_out,  nullptr, part};                   \
+    return launch_visit<T, true>(c, io, row_block<T>(geom, halos), nx,      \
+                                 steps, k, flags, stream);                   \
+  }                                                                          \
+  extern "C" int mg_visit9_rows##SFX(                                        \
+      const unsigned long long* cptrs, const int* cstrides, int coff,        \
+      const T* b, const T* u, const T* e, T* u_out, T* r_out, T* rc_out,     \
+      compute_t<T>* part, const int* geom, const unsigned long long* halos,  \
+      int nx, const compute_t<T>* steps, int k, int flags, void* stream) {   \
+    Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);                          \
+    c.oy = coff;                                                             \
+    VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
+                  u_out, r_out,   rc_out,  nullptr, part};                   \
+    return launch_visit<T, true>(c, io, row_block<T>(geom, halos), nx,      \
+                                 steps, k, flags, stream);                   \
+  }                                                                          \
+  extern "C" int mg_stencil_rows##SFX(                                       \
+      const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
+      const T* b, const T* u, T* y, const int* geom,                         \
+      const unsigned long long* halos, int nx, int resid, void* stream) {    \
+    Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
+    return launch_stencil<T, true>(c, b, u, y, row_block<T>(geom, halos),  \
+                                   nx, resid, stream);                       \
+  }                                                                          \
+  extern "C" int mg_stencil9_rows##SFX(                                      \
+      const unsigned long long* cptrs, const int* cstrides, int coff,        \
+      const T* b, const T* u, T* y, const int* geom,                         \
+      const unsigned long long* halos, int nx, int resid, void* stream) {    \
+    Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);                          \
+    c.oy = coff;                                                             \
+    return launch_stencil<T, true>(c, b, u, y, row_block<T>(geom, halos),  \
+                                   nx, resid, stream);                       \
   }

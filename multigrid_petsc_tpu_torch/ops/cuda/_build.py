@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,9 +44,18 @@ _PER_DTYPE = {
     "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_stencil9": [_P, _P] + [_P] * 3 + [_I, _I, _I, _P],
 }
+# K17's row-block entries (MG_VISIT_ROWS_ENTRIES), f32 and f64 only.
+_ROWS = {
+    "mg_visit_rows": [_P] * 5 + [_P] * 7 + [_P, _P, _I, _P, _I, _I, _P],
+    "mg_visit9_rows": [_P, _P, _I] + [_P] * 7 + [_P, _P, _I, _P, _I, _I, _P],
+    "mg_stencil_rows": [_P] * 5 + [_P] * 3 + [_P, _P, _I, _I, _P],
+    "mg_stencil9_rows": [_P, _P, _I] + [_P] * 3 + [_P, _P, _I, _I, _P],
+}
 _SIGNATURES = {
     **{name + sfx: argtypes for name, argtypes in _PER_DTYPE.items()
        for sfx in ("", "_f64", "_bf16")},
+    **{name + sfx: argtypes for name, argtypes in _ROWS.items()
+       for sfx in ("", "_f64")},
     "mg_visit_blocks": [_I, _I],
     "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
     "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
@@ -112,24 +122,45 @@ def load_library() -> ctypes.CDLL:
     return cdll
 
 
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+
+
+def compiler_identity(cxx: str) -> str:
+    """The first line of ``<cxx> --version`` (compiler and version)."""
+    out = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                         timeout=60)
+    return (out.stdout.splitlines() or [""])[0].strip()
+
+
+def assembler_path(compiler: str, machine: str) -> Path:
+    """The CSR assembler's library: ``libmgcsr_<hash>.so`` under
+    ``_build/``, the hash over the flags, the source, the compiler's
+    identity and the machine's architecture."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update((CSRC_DIR / "csr_assemble.cpp").read_bytes())
+    h.update(compiler.encode() + b"\0" + machine.encode())
+    return BUILD_DIR / f"libmgcsr_{h.hexdigest()[:16]}.so"
+
+
 @functools.cache
 def load_assembler() -> ctypes.CDLL:
     """Compile (if needed) and load the host CSR assembler
     (``csrc/csr_assemble.cpp``) with the host C++ compiler: the explicit
     sparse backend's set-up runs on the CPU, so this library builds
-    wherever the package runs, with or without a CUDA toolkit."""
+    wherever the package runs, with or without a CUDA toolkit.  The
+    library's name is keyed on the flags, the source, the compiler's
+    identity and the machine (``assembler_path``), so a build made on
+    another host is never loaded."""
     src = CSRC_DIR / "csr_assemble.cpp"
-    flags = ["-O3", "-std=c++17", "-fPIC", "-shared"]
-    h = hashlib.sha256(" ".join(flags).encode() + src.read_bytes())
-    lib = BUILD_DIR / f"libmgcsr_{h.hexdigest()[:16]}.so"
+    cxx = shutil.which(os.environ.get("CXX", "c++")) or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) to build "
+                           "the CSR assembler")
+    lib = assembler_path(compiler_identity(cxx), platform.machine())
     if not lib.exists():
-        cxx = shutil.which(os.environ.get("CXX", "c++")) or shutil.which("g++")
-        if cxx is None:
-            raise RuntimeError("no host C++ compiler (c++ or g++) to build "
-                               "the CSR assembler")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        out = subprocess.run([cxx, *flags, "-o", str(tmp), str(src)],
+        out = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"{cxx} failed:\n{out.stdout}{out.stderr}")

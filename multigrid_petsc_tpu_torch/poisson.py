@@ -16,19 +16,39 @@ timing; ``-moreNorm 1`` adds the per-grid residual monitors of the
 merged-grid cycles.  ``-device`` defaults to ``cuda``, which without a
 card is an error; ``-device cpu`` runs the plain PyTorch versions of the
 kernels.
+
+Distributed (JAX poisson.py:53-75; the reference's ``mpirun -n P``):
+
+    python -m torch.distributed.run --nproc_per_node P \
+        -m multigrid_petsc_tpu_torch.poisson ... -map 2 [-device cpu]
+
+Under ``torchrun`` (WORLD_SIZE > 1) each rank initialises the process
+group, NCCL when every rank has a card of its own, gloo otherwise (the
+CPU, or ranks sharing a card: halos staged through the host), and ``-map
+2`` (the default) solves under ``row_plan()``.  Rank 0 prints, the banner
+naming the ranks, the transport and the sharded levels.  ``-map 0/1``
+(JAX's 2-D blocks layout) and ``-view 1`` are not ported and raise
+(ROADMAP).
 """
 
 from __future__ import annotations
 
+import os
 import sys
+from datetime import timedelta
 from pathlib import Path
 
+import torch
+import torch.distributed as dist
+
 from multigrid_petsc_tpu_torch.mesh import MeshType
+from multigrid_petsc_tpu_torch.parallel import row_plan
 from multigrid_petsc_tpu_torch.postprocess import error_norms
 from multigrid_petsc_tpu_torch.solvers.solve import solve
 from multigrid_petsc_tpu_torch.utils.config import (
     CycleType,
     SolverConfig,
+    not_ported,
     parse_options,
     parse_options_file,
 )
@@ -73,8 +93,41 @@ def main(argv=None) -> int:
         print(f"configuration error: {e}", file=sys.stderr)
         return 1
 
-    res = solve(cfg, device=device)
-    errs = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)
+    if cfg.view_solver:
+        raise not_ported("-view 1 (the per-level solver views)",
+                         "CLI outputs")
+    plan = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if cfg.map_style != 2:
+            raise not_ported(f"-map {cfg.map_style} (the 2-D blocks "
+                             f"layout)", "distribution, the blocks layout")
+        plan = _init_plan(device)
+    try:
+        return _run(cfg, device, plan)
+    finally:
+        if plan is not None:
+            dist.destroy_process_group()
+
+
+def _init_plan(device: str):
+    """The process group of a ``torchrun`` launch and its row plan: NCCL
+    when every rank of the node has a card of its own, else gloo."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                               os.environ["WORLD_SIZE"]))
+    own_card = (device != "cpu" and torch.cuda.is_available()
+                and torch.cuda.device_count() >= local)
+    dist.init_process_group("nccl" if own_card else "gloo",
+                            timeout=timedelta(seconds=600))
+    return row_plan(device=device)
+
+
+def _run(cfg: SolverConfig, device: str, plan) -> int:
+    res = solve(cfg, plan=plan, device=device)
+    # Under a plan the solution is gathered on every rank (a collective).
+    u = res.u if plan is None else torch.as_tensor(res.u_fine)
+    if plan is not None and plan.rank != 0:
+        return 0
+    errs = error_norms(res.ctx.problem, MeshType(cfg.mesh), u)
     problem = cfg.problem
     if problem == "aniso":
         problem += "(" + ",".join(f"{a:g}" for a in cfg.aniso) + ")"
@@ -85,6 +138,11 @@ def main(argv=None) -> int:
           f"path={res.path}"
           + (f" route={res.route}" if res.route else "")
           + (f" outer_dtype={res.outer_dtype}" if res.outer_dtype else ""))
+    if plan is not None:
+        print(f"distributed: ranks={plan.size} transport={plan.transport} "
+              f"sharded levels=" + ",".join(
+                  str(lc.spec.primary.ny) for lc in res.ctx.levels
+                  if lc.dist is not None))
     if cfg.backend == "sparse":
         print("sparse level forms: " + " ".join(
             "/".join(f"{n}:{op.form}" for n, op in (

@@ -79,25 +79,33 @@ def build_direct_solver(st, shape: tuple[int, int]) -> Callable:
                         st.cc.device)
 
 
-def build_cg_solver(apply_fn: Callable, shapes, iters: int = 64) -> Callable:
+def build_cg_solver(apply_fn: Callable, shapes, iters: int = 64,
+                    dot: Callable | None = None) -> Callable:
     """Fixed-iteration CG over ``apply_fn`` (valid for the
     negative-definite operator: both inner products flip sign), as the
     JAX package runs it.  The fixed count keeps the coarse solve linear,
-    so the Krylov outers stay consistent."""
+    so the Krylov outers stay consistent.  ``dot(x, y)`` over states (the
+    level's: summed over the ranks on a row-sharded level) defaults to the
+    local one."""
+
+    def vdot(x, y):
+        if dot is None:
+            return torch.dot(x, y)
+        return dot(unflatten(x, shapes), unflatten(y, shapes))
 
     def solve(b_state):
         b = flatten(b_state)
         zero = torch.zeros((), dtype=b.dtype, device=b.device)
         x = torch.zeros_like(b)
         r = p = b
-        rr = torch.dot(r, r)
+        rr = vdot(r, r)
         for _ in range(iters):
             ap = flatten(apply_fn(unflatten(p, shapes)))
-            denom = torch.dot(p, ap)
+            denom = vdot(p, ap)
             alpha = torch.where(denom != 0, rr / denom, zero)
             x = x + alpha * p
             r = r - alpha * ap
-            rr_new = torch.dot(r, r)
+            rr_new = vdot(r, r)
             beta = torch.where(rr != 0, rr_new / rr, zero)
             p = r + beta * p
             rr = rr_new

@@ -28,6 +28,20 @@ second context, ``precond_ctx``, whose levels carry the Krylov outers'
 V-cycle preconditioner in that type (bf16: storage only, f32 arithmetic
 in the kernels), as the JAX package does.  What is not ported raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+Distribution (``plan=``, a ``parallel.ShardingPlan`` over a
+``torch.distributed`` group; JAX context.py:350-414, 945-961): each rank
+builds the whole hierarchy.  A level the plan row-shards runs on this
+rank's row block through ``LevelCtx.dist`` (``parallel.DistLevelOps``,
+K17, one pad row: ``pad_rows``); the others are replicated, every rank
+holding them whole.  Reductions go through the level (``LevelCtx.dot``):
+a sharded level's are summed over the ranks, a replicated level's are
+not.  The level transitions: sharded -> sharded, the visits' rc block IS
+the coarse block; sharded -> replicated, the rc blocks are all-gathered;
+replicated -> sharded, the up visit cuts its rows of the whole coarse
+correction.  Only V, MG-Richardson, FMG and mg-CG (generic route) run
+under a plan, Jacobi or Chebyshev on the sharded levels, the working
+dtype alone; the rest raises (ROADMAP).
 """
 
 from __future__ import annotations
@@ -48,6 +62,8 @@ from multigrid_petsc_tpu_torch.ops.composite import (
     composite_residual,
     composite_rhs,
 )
+from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import separable9
+from multigrid_petsc_tpu_torch.ops.norms import tree_dot
 from multigrid_petsc_tpu_torch.ops.sparse import SparseLevelOp, assemble_level_csr
 from multigrid_petsc_tpu_torch.ops.stencil import PCRFactor, Stencil5, Stencil9
 from multigrid_petsc_tpu_torch.ops.transfer import (
@@ -56,6 +72,8 @@ from multigrid_petsc_tpu_torch.ops.transfer import (
     restrict_fw,
     restrict_multi,
 )
+from multigrid_petsc_tpu_torch.parallel.dist_ops import DistLevelOps, dist_viable
+from multigrid_petsc_tpu_torch.parallel.halo import allreduce_sum
 from multigrid_petsc_tpu_torch.problems import (
     AnisoProblem,
     Problem,
@@ -76,16 +94,12 @@ from multigrid_petsc_tpu_torch.utils.config import (
     CycleType,
     SmootherType,
     SolverConfig,
+    not_ported,
 )
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 _OUTER_DTYPES = ("float64", "float32x2")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules left behind: {item})")
 
 
 def primary(state) -> torch.Tensor:
@@ -126,10 +140,21 @@ class LevelCtx:
     sparse_full: SparseLevelOp | None = None
     sparse_diag: SparseLevelOp | None = None
     sparse_coup: SparseLevelOp | None = None
+    # A row-sharded level (under a plan): its state is this rank's (R, nx)
+    # block of the ny + pad_rows rows, every operation one K17 visit.
+    dist: DistLevelOps | None = None
+    pad_rows: int = 0
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.spec.primary.shape
+
+    @property
+    def state_shape(self) -> tuple[int, int]:
+        """The primary grid's state on this rank: its block when sharded."""
+        if self.dist is not None:
+            return (self.dist.R, self.dist.nx)
+        return self.shape
 
     @property
     def shapes(self) -> list[tuple[int, int]]:
@@ -162,7 +187,18 @@ class LevelCtx:
                                f"not read it")
         return op
 
+    def dot(self, x, y) -> torch.Tensor:
+        """<x, y> over the level's whole state: a sharded level's local
+        dots summed over the ranks; a replicated level's as they are."""
+        d = tree_dot(x, y)
+        return d if self.dist is None else allreduce_sum(d, self.dist.plan)
+
+    def norm2(self, x) -> torch.Tensor:
+        return torch.sqrt(self.dot(x, x))
+
     def apply(self, u):
+        if self.dist is not None:
+            return self.dist.apply(u)
         if self.sparse:
             return self._op("sparse_full").apply(u)
         if self.merged:
@@ -172,6 +208,8 @@ class LevelCtx:
         return sk.apply_stencil5(self.stencil, u)
 
     def residual(self, b, u):
+        if self.dist is not None:
+            return self.dist.residual(b, u)
         if self.sparse:
             return self._op("sparse_full").residual(b, u)
         if self.merged:
@@ -200,6 +238,9 @@ class LevelCtx:
 
     def zeros(self):
         cc = self.stencil.cc
+        if self.dist is not None:
+            return torch.zeros(self.state_shape, dtype=cc.dtype,
+                               device=cc.device)
         z = tuple(torch.zeros(s, dtype=cc.dtype, device=cc.device)
                   for s in self.shapes)
         return z if self.merged else z[0]
@@ -215,6 +256,8 @@ class LevelCtx:
                               emit=emit, e_coarse=e_c, fac=self.line_fac)
 
     def smooth(self, b, u, sweeps: int):
+        if self.dist is not None:
+            return self.dist.smooth(b, u, self.steps_fn(sweeps))
         if self.block_gs:
             return sm.composite_block_gs(self.stencils, self.spec.gids, b, u,
                                          sweeps, inner=self.block_gs_inner,
@@ -232,6 +275,8 @@ class LevelCtx:
     def visit_down(self, b, u, sweeps: int):
         """(u', rc): smooth from u (None: the zero guess) + the restricted
         residual of the primary grid."""
+        if self.dist is not None:
+            return self.dist.visit_down(b, u, self.steps_fn(sweeps))
         if self.generic:
             u = self.smooth(b, self.zeros() if u is None else u, sweeps)
             return u, restrict_fw(primary(self.residual(b, u)))
@@ -242,7 +287,11 @@ class LevelCtx:
 
     def visit_up(self, b, u, e_c, sweeps: int, emit_r: bool = False):
         """smooth_k(b, u + P e_c) [, its residual]; the correction goes to
-        the primary grid."""
+        the primary grid (on a sharded level: the coarse level's block,
+        or the whole coarse grid when that level is replicated)."""
+        if self.dist is not None:
+            return self.dist.visit_up(b, u, e_c, self.steps_fn(sweeps),
+                                      emit_r)
         if self.generic:
             u0 = primary(u) + prolong_bilinear(e_c)
             u = u0 if isinstance(u, torch.Tensor) else (u0,) + tuple(u[1:])
@@ -290,18 +339,25 @@ class MGContext:
     # The mg-CG route the last solve took ("mdma", "fused", "generic"; the
     # JAX package's ctx.solver_path), set by krylov.solve_mgcg.
     route: str | None = None
+    # The distribution plan (parallel.ShardingPlan), None on one device.
+    plan: object | None = None
 
     # The visits restrict and prolong one gap on the primary grids; these
     # finish the transfer to a merged next level (its grids one or more
     # gaps further).  Between single-grid levels the visit kernels' rc
     # output IS the next level's rhs and the next level's solution IS the
-    # up visit's coarse correction.
+    # up visit's coarse correction; from a sharded level to a replicated
+    # one the rc blocks are gathered first, and the sharded level's up
+    # visit takes the whole replicated correction.
     def _gaps(self, l: int, extra: int):
         g0 = self.levels[l].spec.primary.g
         return [g.g - g0 - extra for g in self.levels[l + 1].spec.grids]
 
     def restrict_rc1(self, l: int, rc1: torch.Tensor):
-        if not self.levels[l + 1].merged:
+        cur, nxt = self.levels[l], self.levels[l + 1]
+        if cur.dist is not None and nxt.dist is None:
+            rc1 = cur.dist.gather_coarse(rc1)
+        if not nxt.merged:
             return rc1
         return tuple(restrict_multi(rc1, gap) for gap in self._gaps(l, 1))
 
@@ -312,19 +368,29 @@ class MGContext:
                     for ug, gap in zip(u_next, self._gaps(l, 1)))
 
     # Whole transfers (FMG, the Additive cycles): plain PyTorch, as the
-    # JAX package computes them outside its kernels.
+    # JAX package computes them outside its kernels; a sharded level's
+    # grid is gathered whole first and its block cut from the result.
     def restrict_to_next(self, l: int, r: torch.Tensor):
         """Level l's primary-grid residual onto every grid of level l+1."""
-        if not self.levels[l + 1].merged:
-            return restrict_fw(r)
+        cur, nxt = self.levels[l], self.levels[l + 1]
+        if cur.dist is not None:
+            r = cur.dist.gather(r)
+        if not nxt.merged:
+            rc = restrict_fw(r)
+            return rc if nxt.dist is None else nxt.dist.block_of(rc)
         return tuple(restrict_multi(r, gap) for gap in self._gaps(l, 0))
 
     def prolong_from_next(self, l: int, u_next) -> torch.Tensor:
         """Every grid of level l+1 onto level l's primary grid, summed."""
-        if not self.levels[l + 1].merged:
-            return prolong_bilinear(u_next)
-        return _sum(prolong_multi(ug, gap)
-                    for ug, gap in zip(u_next, self._gaps(l, 0)))
+        cur, nxt = self.levels[l], self.levels[l + 1]
+        if nxt.dist is not None:
+            u_next = nxt.dist.gather(u_next)
+        if not nxt.merged:
+            e = prolong_bilinear(u_next)
+        else:
+            e = _sum(prolong_multi(ug, gap)
+                     for ug, gap in zip(u_next, self._gaps(l, 0)))
+        return e if cur.dist is None else cur.dist.block_of(e)
 
 
 def _sum(terms):
@@ -341,9 +407,25 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
                  CycleType.ECYCLE)
 
 
+# The cycles that run under a plan.
+_PLAN_CYCLES = (CycleType.VCYCLE, CycleType.PCMG, CycleType.FMG,
+                CycleType.MGCG)
+
+
 def _check_supported(cfg: SolverConfig, plan) -> None:
     if plan is not None:
-        raise _not_ported("distribution (plan=)", "distribution")
+        if cfg.backend == "sparse":
+            raise ValueError(
+                "backend='sparse' is the single-device explicit-operator "
+                "path; use backend='auto'/'pallas' for distributed runs")
+        if cfg.cycle not in _PLAN_CYCLES:
+            raise not_ported(f"the {cfg.cycle.name} cycle under a plan",
+                             "distribution, the remaining cycles and "
+                             "precision outers under a plan")
+        if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
+            raise not_ported("outer_dtype / precond_dtype under a plan",
+                             "distribution, the remaining cycles and "
+                             "precision outers under a plan")
     if cfg.problem not in ("poisson", "aniso"):
         raise ValueError(f"unknown problem {cfg.problem!r}")
     if cfg.problem == "aniso" and cfg.grids != cfg.levels:
@@ -354,9 +436,9 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
     if cfg.dtype == "bfloat16":
-        raise _not_ported("a bfloat16 working dtype (dtype='bfloat16'; "
-                          "precond_dtype='bfloat16' runs)",
-                          "precision, the bf16 working dtype")
+        raise not_ported("a bfloat16 working dtype (dtype='bfloat16'; "
+                         "precond_dtype='bfloat16' runs)",
+                         "precision, the bf16 working dtype")
     if cfg.outer_dtype not in (None, *_OUTER_DTYPES):
         raise ValueError(f"unknown outer_dtype {cfg.outer_dtype!r}")
     if cfg.precond_dtype not in (None, *_DTYPES):
@@ -365,7 +447,7 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
         s = cfg.smoother_at(l, cfg.levels)
         if s not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV,
                      SmootherType.LINE_Y):
-            raise _not_ported(f"smoother {s.value!r}", "the other smoothers")
+            raise not_ported(f"smoother {s.value!r}", "the other smoothers")
     if cfg.coarse_solver not in ("auto", "direct", "cg", "smooth"):
         raise ValueError(f"unknown coarse_solver {cfg.coarse_solver}")
 
@@ -390,18 +472,29 @@ def _line_stencil(st: Stencil5 | Stencil9) -> Stencil9:
     return lk.collapse_stencil(st)
 
 
+def _plan_device(device, plan) -> torch.device:
+    """The solve's device: ``device`` (None: the card), or under a plan
+    the plan's device, which a named ``device`` must agree with."""
+    if plan is None:
+        return torch.device("cuda" if device is None else device)
+    if device is not None and torch.device(device).type != plan.device.type:
+        raise ValueError(f"device {device} differs from the plan's "
+                         f"{plan.device}")
+    return plan.device
+
+
 def build_context(cfg: SolverConfig, problem: Problem | None = None,
                   plan=None, *,
-                  device: torch.device | str = "cuda") -> MGContext:
-    """Build every level on ``device`` (the card unless the caller names
-    the CPU; ``cuda`` without a card is an error).  ``problem="aniso"``
-    builds the 9-point family of ``AnisoProblem(*cfg.aniso)`` (``problem``
-    is then not used), as the JAX package does.  With
-    ``cfg.precond_dtype`` and a Krylov cycle (mg-CG, mg-FGMRES) the
-    preconditioner's levels are built again in that type
-    (``MGContext.precond_ctx``; JAX context.py:1062-1074)."""
+                  device: torch.device | str | None = None) -> MGContext:
+    """Build every level on ``device`` (None: the card; the CPU only when
+    the caller names it; ``cuda`` without a card is an error), under
+    ``plan`` on the plan's device.  ``problem="aniso"`` builds the 9-point
+    family of ``AnisoProblem(*cfg.aniso)`` (``problem`` is then not used),
+    as the JAX package does.  With ``cfg.precond_dtype`` and a Krylov
+    cycle (mg-CG, mg-FGMRES) the preconditioner's levels are built again
+    in that type (``MGContext.precond_ctx``; JAX context.py:1062-1074)."""
     _check_supported(cfg, plan)
-    device = torch.device(device)
+    device = _plan_device(device, plan)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device "
@@ -413,20 +506,67 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
             False)
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
-    ctx = _build(cfg, problem, device)
+    ctx = _build(cfg, problem, device, plan)
     if cfg.precond_dtype is not None and cfg.cycle in (CycleType.MGCG,
                                                        CycleType.MGFGMRES):
         pcfg = dataclasses.replace(cfg, dtype=cfg.precond_dtype,
                                    precond_dtype=None, outer_dtype=None)
-        ctx.precond_ctx = _build(pcfg, problem, device)
+        ctx.precond_ctx = _build(pcfg, problem, device, None)
         assert ([l.shapes for l in ctx.precond_ctx.levels]
                 == [l.shapes for l in ctx.levels]), \
             "precond context level shapes must match"
     return ctx
 
 
+def _use_dist(lc: LevelCtx, cfg: SolverConfig, plan) -> bool:
+    """Does ``lc`` run row-sharded under ``plan``?  JAX's rule
+    (context.py:350-414) without its TPU-only branches (the ny < 256
+    cutoff, interpret mode, the Mosaic f64 demotion): the plan shards the
+    level (a world of one rank shards nothing), and then it must be a
+    single-grid level with a point smoother and, if 9-point, separable
+    coefficients, whose block carries the largest halo.  A level the plan
+    shards that the row-block visit cannot take raises: JAX runs such
+    levels through GSPMD, which is not ported.  Every matrix-free backend
+    takes JAX's backend="pallas" split (the port has one kernel route)."""
+    if plan is None or plan.size == 1:
+        return False
+    g = lc.spec.primary
+    if plan.spec(g.ny, g.nx) != "rows":
+        return False  # replicated (agglomerated)
+
+    def off(what):
+        return not_ported(f"a row-sharded level with {what}",
+                          "distribution, row-sharded levels off the K17 "
+                          "path")
+
+    if lc.merged:
+        raise off("merged grids")
+    if lc.smoother not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV):
+        raise off(f"the {lc.smoother.value} smoother")
+    if lc.nine and not separable9(lc.stencil):
+        raise off("non-separable 9-point coefficients")
+    if not dist_viable(g.ny, plan.size, cfg.max_sweeps, nx=g.nx):
+        raise off(f"blocks too small for {cfg.max_sweeps} sweeps")
+    return True
+
+
+def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
+    """Put ``lc`` on this rank's row block (JAX context.py:945-961)."""
+    g = lc.spec.primary
+    lc.dist = DistLevelOps(lc.stencil, g.ny, g.nx, plan, cfg.max_sweeps)
+    lc.pad_rows = 1
+    # The rows of the coefficients this rank reads (a 9-point field's, cut
+    # to the block and its halo; the 5-point columns whole).
+    lc.stencil = lc.dist.st
+    lc.stencils = (lc.dist.st,)
+    # The Jacobi diagonal on the block, the pad row the identity, as JAX
+    # pads it.
+    d = lc.dinv.expand(g.ny, -1)
+    lc.dinv = lc.dist.block_of(torch.cat([d, torch.ones_like(d[:1])]))
+
+
 def _build(cfg: SolverConfig, problem: Problem | None,
-           device: torch.device) -> MGContext:
+           device: torch.device, plan) -> MGContext:
     aniso = cfg.problem == "aniso"
     problem = (AnisoProblem(*cfg.aniso) if aniso
                else problem or poisson_sin_problem())
@@ -451,6 +591,7 @@ def _build(cfg: SolverConfig, problem: Problem | None,
                       block_gs_inner=cfg.v[0])
         if sparse:
             _assemble(lc, cfg, device, dtype)
+        shard = _use_dist(lc, cfg, plan)
         if cfg.cycle not in _SPLIT_CYCLES and not lc.block_gs:
             if lc.smoother == SmootherType.CHEBYSHEV:
                 lc.lmax = sm.estimate_dinv_a_lmax(
@@ -460,6 +601,8 @@ def _build(cfg: SolverConfig, problem: Problem | None,
                     raise ValueError("line smoother: 1 grid per level")
                 lc.line_st = _line_stencil(lc.stencil)
                 lc.line_fac = lk.line_factor(lc.line_st, lc.shape[0])
+        if shard:  # after lmax, which JAX estimates on the whole grid
+            _shard(lc, cfg, plan)
         levels.append(lc)
 
     if len(levels) >= 2 and cfg.coarse_solver != "smooth":
@@ -468,9 +611,12 @@ def _build(cfg: SolverConfig, problem: Problem | None,
         if mode == "auto":
             n = sum(ny * nx for ny, nx in last.shapes)
             mode = "direct" if n <= cfg.max_direct_size else "cg"
-        if mode == "cg":
-            last.coarse_solve = build_cg_solver(last.apply, last.shapes,
-                                                cfg.coarse_cg_iters)
+        if mode == "cg" or last.dist is not None:
+            # A sharded coarsest level iterates CG, as in JAX (its direct
+            # solve densifies the whole operator).
+            last.coarse_solve = build_cg_solver(
+                last.apply, [last.state_shape] if last.dist else last.shapes,
+                cfg.coarse_cg_iters, dot=last.dot if last.dist else None)
         elif last.merged:
             # The merged operator, couplings included, from its CSR.
             dense = dense_from_csr(*assemble_level_csr(
@@ -486,8 +632,10 @@ def _build(cfg: SolverConfig, problem: Problem | None,
     b0 = rhs_grid_of(cfg, problem, g0.ny, g0.nx, dtype, device)
     if levels[0].merged:
         b0 = composite_rhs(b0, levels[0].spec.gids)
+    if levels[0].dist is not None:
+        b0 = levels[0].dist.block_of(b0)
     return MGContext(config=cfg, problem=problem, levels=levels, b0=b0,
-                     dtype=dtype, device=device)
+                     dtype=dtype, device=device, plan=plan)
 
 
 def _assemble(lc: LevelCtx, cfg: SolverConfig, device, dtype) -> None:

@@ -79,9 +79,11 @@ MDMA_HALO = 8
 
 def mgcg_route(ctx: MGContext) -> str:
     """The mg-CG route of ``ctx`` ("mdma", "fused" or "generic"; see the
-    module docstring)."""
+    module docstring).  A row-sharded level 0 takes the generic route, as
+    JAX excludes its fused routes there (krylov.py:156,228)."""
     if (len(ctx.levels) < 2 or not ctx.levels[0].point5
-            or ctx.dtype != torch.float32 or ctx.precond_ctx is not None):
+            or ctx.dtype != torch.float32 or ctx.precond_ctx is not None
+            or ctx.levels[0].dist is not None):
         return "generic"
     return "mdma" if ctx.config.max_sweeps + 2 <= MDMA_HALO else "fused"
 
@@ -126,13 +128,15 @@ def _solve_mgcg_generic(ctx: MGContext, b: torch.Tensor) -> OuterResult:
     # symmetric; the flexible Polak-Ribiere beta <z, r - r_prev> /
     # <z_prev, r_prev> tolerates that (JAX krylov.py:81-86).
     flexible = ctx.precond_ctx is not None
-    bnorm = float(tree_norm2(b))
+    # Reductions through the level: over every rank when it is sharded.
+    dot, norm = lvl0.dot, lvl0.norm2
+    bnorm = float(norm(b))
     u = lvl0.zeros()
     r = lvl0.residual(b, u)
-    rn = tree_norm2(r)
+    rn = norm(r)
     z = precond(r)
     p = z
-    rz = tree_dot(r, z)
+    rz = dot(r, z)
     zero = torch.zeros((), dtype=rz.dtype, device=rz.device)
     hist = torch.zeros(hist_len + 1, dtype=rn.dtype, device=rn.device)
     hist[0] = rn
@@ -141,17 +145,17 @@ def _solve_mgcg_generic(ctx: MGContext, b: torch.Tensor) -> OuterResult:
         ap = lvl0.apply(p)
         # Breakdown guards: once the f32 residual floors, pap/rz can hit
         # exact 0; guarded ratios turn that into a harmless stall.
-        pap = tree_dot(p, ap)
+        pap = dot(p, ap)
         alpha = torch.where(pap != 0, rz / pap, zero)
         u = tree_map(lambda uk, pk: uk + alpha * pk, u, p)
         r_prev = r
         r = tree_map(lambda rk, ak: rk - alpha * ak, r, ap)
-        rn = tree_norm2(r)
+        rn = norm(r)
         z = precond(r)
-        rz_new = tree_dot(r, z)
+        rz_new = dot(r, z)
         if flexible:
             beta = torch.where(
-                rz != 0, torch.clamp((rz_new - tree_dot(r_prev, z)) / rz,
+                rz != 0, torch.clamp((rz_new - dot(r_prev, z)) / rz,
                                      min=0.0), zero)
         else:
             beta = torch.where(rz != 0, rz_new / rz, zero)

@@ -37,14 +37,16 @@ def keep_going(cfg, i: int, rn: float, bnorm: float) -> bool:
 
 def outer_iterate(step: Callable, residual: Callable, b, u0, cfg,
                   step_emits_residual: bool = False,
-                  monitor=None) -> OuterResult:
+                  monitor=None, norm: Callable = tree_norm2) -> OuterResult:
     """``step(b, u)`` is one cycle; with ``step_emits_residual`` it
     returns (u, b - A u), computed inside its last level visit, so the
     stop test costs no extra operator application.  ``monitor(i, u, rn)``
-    (with ``monitor.aux()``), if given, sees every iterate."""
+    (with ``monitor.aux()``), if given, sees every iterate.  ``norm`` is
+    the level's (``LevelCtx.norm2``: over every rank of a row-sharded
+    level, so each rank reads the same stop test)."""
     hist_len = min(cfg.hist_len, cfg.max_iter)
-    bnorm = float(tree_norm2(b))
-    rn_t = tree_norm2(residual(b, u0))
+    bnorm = float(norm(b))
+    rn_t = norm(residual(b, u0))
     hist = torch.zeros(hist_len + 1, dtype=rn_t.dtype, device=rn_t.device)
     hist[0] = rn_t
     rn = float(rn_t)
@@ -57,7 +59,7 @@ def outer_iterate(step: Callable, residual: Callable, b, u0, cfg,
         else:
             u = step(b, u)
             r = residual(b, u)
-        rn_t = tree_norm2(r)
+        rn_t = norm(r)
         hist[min(i + 1, hist_len)] = rn_t
         if monitor is not None:
             monitor(i + 1, u, rn_t)

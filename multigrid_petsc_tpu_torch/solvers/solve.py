@@ -13,6 +13,12 @@ mg-CG with ``outer_dtype`` runs the mixed-precision outer
 ``u0`` warm-starts a solve: the mixed outer starts from it directly; every
 other driver solves A e = b - A u0 from zero to the rtol that keeps the
 stop target rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
+
+Under a plan (``plan=``, every rank calling ``solve`` alike) the solve
+runs on the plan's device; ``u0`` is the whole level-0 grid, of which each
+rank takes its rows; ``SolveResult.u`` is this rank's block of the
+solution (its real rows), and ``u_fine`` the whole grid, gathered from
+every rank (a collective: every rank reads it).
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 from multigrid_petsc_tpu_torch.solvers import cycles as cy
 from multigrid_petsc_tpu_torch.solvers import delayed as dl
 from multigrid_petsc_tpu_torch.solvers import krylov as kr
-from multigrid_petsc_tpu_torch.ops.norms import tree_map, tree_norm2
+from multigrid_petsc_tpu_torch.ops.norms import tree_map
+from multigrid_petsc_tpu_torch.parallel.gather import gather_solution
 from multigrid_petsc_tpu_torch.solvers import vcycle as vc
 from multigrid_petsc_tpu_torch.solvers.context import (
     MGContext,
@@ -74,33 +81,46 @@ class SolveResult:
     u_grids: tuple = ()
     # -moreNorm: the monitors' arrays, cut to the iterations run (numpy).
     aux: dict | None = None
+    _whole: np.ndarray | None = None
 
     @property
     def u_fine(self) -> np.ndarray:
-        return self.u.detach().cpu().numpy()
+        """The level-0 primary-grid solution as a numpy array; under a
+        plan gathered from every rank's block, once (a collective)."""
+        if self.ctx.plan is None or self.ctx.levels[0].dist is None:
+            return self.u.detach().cpu().numpy()
+        if self._whole is None:
+            self._whole = gather_solution(self.u, self.ctx.plan,
+                                          self.ctx.levels[0].shape[0])
+        return self._whole
 
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
-          device: torch.device | str = "cuda", u0=None,
+          plan=None, device: torch.device | str | None = None, u0=None,
           timed: bool = False) -> SolveResult:
-    """Set up on ``device`` (unless given a context; the card unless the
-    caller names the CPU) and run the configured cycle, from ``u0`` (the
-    level-0 state, a tensor or array; a tuple on a merged level 0) when
-    given."""
+    """Set up on ``device`` (unless given a context; None: the card, or
+    under ``plan`` the plan's device) and run the configured cycle, from
+    ``u0`` (the level-0 state, a tensor or array; a tuple on a merged
+    level 0; under a plan the whole grid) when given."""
     cfg = cfg.validate()
     if ctx is None:
-        ctx = build_context(cfg, problem, device=device)
+        ctx = build_context(cfg, problem, plan=plan, device=device)
     dev = ctx.device
     ccfg = ctx.config
+    lvl0 = ctx.levels[0]
     mixed = ccfg.outer_dtype is not None and ccfg.cycle == CycleType.MGCG
     b_in = kr.outer_rhs(ctx, torch.float64) if mixed else ctx.b0
     if u0 is not None:
+        if isinstance(u0, np.ndarray):  # one grid's array, not a tuple
+            u0 = torch.from_numpy(u0)
         u0 = tree_map(lambda x: torch.as_tensor(
             x, dtype=torch.float64 if mixed else ctx.dtype, device=dev), u0)
+        if lvl0.dist is not None:
+            u0 = lvl0.dist.block_of(u0)
         if not mixed:
-            bn_orig = float(tree_norm2(b_in))
-            b_in = ctx.levels[0].residual(b_in, u0)
-            bn_new = float(tree_norm2(b_in))
+            bn_orig = float(lvl0.norm2(b_in))
+            b_in = lvl0.residual(b_in, u0)
+            bn_new = float(lvl0.norm2(b_in))
             eff = min(1.0, ccfg.rtol * bn_orig / max(bn_new, 1e-300))
             ctx = dataclasses.replace(
                 ctx, config=dataclasses.replace(ccfg, rtol=eff))
@@ -135,6 +155,8 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
     u = res.u
     if u0 is not None and not mixed:
         u = tree_map(lambda a, b: a + b, u, u0)
+    if lvl0.dist is not None:  # this rank's real rows, the pad row cut
+        u = u[:max(0, min(lvl0.dist.R, lvl0.shape[0] - lvl0.dist.row0))]
     return SolveResult(
         u=primary(u),
         u_grids=(u,) if isinstance(u, torch.Tensor) else u,

@@ -107,7 +107,8 @@ def solve_vcycle(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
 
     return outer_iterate(step, ctx.levels[0].residual,
                          ctx.b0 if b0 is None else b0, ctx.levels[0].zeros(),
-                         cfg, step_emits_residual=True)
+                         cfg, step_emits_residual=True,
+                         norm=ctx.levels[0].norm2)
 
 
 def solve_mg_richardson(ctx: MGContext,
@@ -125,7 +126,7 @@ def solve_mg_richardson(ctx: MGContext,
                         mg_apply(ctx, lvl0.residual(b, u), v0, v1))
 
     return outer_iterate(step, lvl0.residual, ctx.b0 if b0 is None else b0,
-                         lvl0.zeros(), cfg)
+                         lvl0.zeros(), cfg, norm=lvl0.norm2)
 
 
 class _TruncatedCtx:
@@ -183,4 +184,4 @@ def solve_fmg(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:
     b = ctx.b0 if b0 is None else b0
     return outer_iterate(step, ctx.levels[0].residual, b,
                          fmg_initial_guess(ctx, b), cfg,
-                         step_emits_residual=True)
+                         step_emits_residual=True, norm=ctx.levels[0].norm2)

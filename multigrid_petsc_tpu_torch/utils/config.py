@@ -15,6 +15,13 @@ from dataclasses import dataclass, replace
 from pathlib import Path
 
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a capability of the JAX package the port does not
+    have yet, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, modules left behind: {item})")
+
+
 class CycleType(enum.Enum):
     # Reference cycle ids (reference: poisson.in:8, src/poisson.c:106-114).
     VCYCLE = 0

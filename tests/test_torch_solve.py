@@ -126,6 +126,17 @@ def test_cli_requires_device(tmp_path, monkeypatch):
         solve(SolverConfig(npts=17, cycle=CycleType.MGCG))
 
 
+def test_cli_view_raises(tmp_path, monkeypatch):
+    """-view 1 (the per-level solver views, not ported yet) raises naming
+    ROADMAP instead of being dropped."""
+    from multigrid_petsc_tpu_torch.poisson import main
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*CLI outputs"):
+        main(["-npts", "17", "-cycle", "101", "-view", "1", "-device",
+              "cpu"])
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
