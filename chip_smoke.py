@@ -17,7 +17,9 @@ non-zero):
      K13 (Jacobi, Chebyshev), K14 in every mode, K15 (u, u + r, the
      zero-guess rc, correction + u + <b, u>, x-varying line
      coefficients), with times, and conv2d's time where one PyTorch call
-     computes the same function;
+     computes the same function; then K14 (every mode, both stencils) and
+     K15 (every mode, both factor layouts) on ragged shapes (a 1025^2 and
+     a 33^2 level, an 8191 x 1025 block of the 8191^2 level), untimed;
   2c. the explicit sparse backend's kernels: K8 (the field-coefficient
      stencil, A u and b - A u) at 8191^2 on the assembled Poisson level-0
      matrix and on random fields, K16 (the DIA SpMV) on the 2-grid A1 at
@@ -57,6 +59,7 @@ non-zero):
      residual5, K7, K9 (K2b's zero-guess rc, K3's correcting u + dot, a
      nonzero-guess rc), K12, K13 and K14, and K15 in f64, each against its
      plain version, with times and conv2d's where one call computes it;
+     then 2b's ragged shapes for K14 in f64 and bf16 and K15 in f64;
   3d. card against CPU at 1025^2 / 8 levels: the fused route (-v 8,8),
      mg-CG in f64 to rtol 1e-7 (generic route), the mixed outer (f32
      V-cycle + f64 outer) to 1e-8 and float32x2, the bf16 preconditioner
@@ -100,9 +103,9 @@ import time
 
 TOL_ARRAY = 1e-5  # max|kernel - plain| <= TOL_ARRAY * max|plain|
 TOL_DOT = 1e-4    # relative, on each inner product
-# K15 solves each line by Thomas's recurrence with f64-made factors, its
-# plain version by f32 parallel cyclic reduction: they differ by solve
-# rounding, not by arithmetic order alone.
+# K15 solves each line by Thomas's recurrence cut into 32-row segments,
+# with f64-made factors, its plain version by f32 parallel cyclic
+# reduction: they differ by solve rounding, not by arithmetic order alone.
 TOL_LINE = 1e-4
 # bf16 outputs are the same f32 values rounded once, on the card and in
 # the plain version; the card's FMA contraction and summation order move
@@ -523,6 +526,99 @@ def phase_kernels_9pt(torch, dev, rec):
                   lambda: lk.line_visit9_plain(st, b, u_in, 3, 0.8, emit,
                                                e_c, dot), names, TOL_LINE,
                   timed=st is line, dot_scale=line_dot_scale)
+    del b, u, e, line, xvar, mixed, const
+    torch.cuda.empty_cache()
+    check_ragged_9pt(torch, dev, rec, torch.float32)
+
+
+# Shapes of phase 2b / 2d: K15's segments cut by the edge (1025, 33), a
+# level's whole line systems (8191 x 1025), levels of one segment (31, 7).
+RAGGED = ((1025, 1025), (8191, 1025), (33, 33), (31, 31), (7, 7))
+
+
+def check_ragged_9pt(torch, dev, rec, dt, sfx=""):
+    """K14 (every mode, the anisotropic and the all-kinds stencil) and,
+    in f32 and f64, K15 (every mode, (ny, 1) and (ny, nx) line factors)
+    against their plain versions on ragged shapes: a 1025^2 and a 33^2
+    level (K15: ny not a multiple of its 32-row segments; K14: tiles cut
+    by the edge), an 8191 x 1025 block of the 8191^2 level (the full
+    level's line systems, 256 segments), and a 31^2 and a 7^2 level (K15:
+    one segment, its fix-up launch alone; K14: a level smaller than its
+    tile).  Held as at 8191^2, not timed."""
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    jac = jacobi_step_coeffs(3, 0.8)
+    tag = str(dt).replace("torch.", "")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    for ny, nx in RAGGED:
+        n = max(ny, nx)
+
+        def level(*p):  # the n x n level's stencil, its first nx columns
+            st = stencil9_coefficients(AnisoProblem(*p), n, n, dt, dev)
+            return Stencil9(*(c[:, :nx].contiguous() if c.shape[1] > 1
+                              else c for c in st))
+
+        mixed = level(1.0, 1.0, 1.0, 2.0, 0.4)
+        h2 = float(n + 1) ** 2
+        allk = Stencil9(h2 * rnd(1, 1), h2 * rnd(ny, 1), h2 * rnd(1, nx),
+                        h2 * rnd(ny, nx), -h2 * (12 + 4 * rnd(ny, nx).abs()),
+                        h2 * rnd(1, nx), h2 * rnd(ny, 1), h2 * rnd(1, 1),
+                        h2 * rnd(ny, nx))
+        b, u = rnd(ny, nx), rnd(ny, nx)
+        e = rnd((ny - 1) // 2, (nx - 1) // 2)
+        modes = (  # label, (u, emit, e_coarse, dot), names
+            ("zero-guess rc", (None, "rc", None, False), ("u'", "rc")),
+            ("nonzero-guess rc", (u, "rc", None, False), ("u'", "rc")),
+            ("correct + u", (u, "u", e, False), ("u'",)),
+            ("correct + ur", (u, "ur", e, False), ("u'", "r")),
+            ("r", (u, "r", None, False), ("r",)),
+            ("correct + u + <b,u>", (u, "u", e, True), ("u'", "<b,u>")))
+        for name, st in (("mixed", mixed), ("all kinds", allk)):
+            for label, (u_in, emit, e_c, dot), names in modes:
+                check_kernel(
+                    torch, rec, "fused_level_visit9" + sfx,
+                    f"K14 {label} ({name}) {tag} at {ny} x {nx}", 0, 0,
+                    lambda: k9.fused_level_visit9(st, b, u_in, jac, emit,
+                                                  e_c, dot),
+                    lambda: k9.fused_level_visit9_plain(st, b, u_in, jac,
+                                                        emit, e_c, dot),
+                    names, timed=False)
+        del allk
+        if dt == torch.bfloat16:
+            continue
+        line = lk.collapse_stencil(level(1.0, 0.0, 100.0, 0.0, 0.0))
+        xvar = lk.collapse_stencil(mixed)
+        lmodes = (
+            ("u", (u, "u", None, False), ("u'",)),
+            ("ur", (u, "ur", None, False), ("u'", "r")),
+            ("zero-guess rc", (None, "rc", None, False), ("u'", "rc")),
+            ("correct + u + <b,u>", (u, "u", e, True), ("u'", "<b,u>")))
+        for name, st in (("columns", line), ("x-varying cc", xvar)):
+            fac = lk.line_factor(st, ny)
+            for label, (u_in, emit, e_c, dot), names in lmodes:
+                check_kernel(
+                    torch, rec, "line_visit9" + sfx,
+                    f"K15 line_visit9 {label} k=3 ({name}) {tag} at {ny} x "
+                    f"{nx}", 0, 0,
+                    lambda: lk.line_visit9(st, b, u_in, 3, 0.8, emit, e_c,
+                                           dot, fac=fac),
+                    lambda: lk.line_visit9_plain(st, b, u_in, 3, 0.8, emit,
+                                                 e_c, dot), names, TOL_LINE,
+                    timed=False,
+                    dot_scale=lambda w: float((b * w[0]).abs().sum()))
+        del mixed, line, xvar, b, u, e
+        torch.cuda.empty_cache()
 
 
 def phase_parity(torch, runs, base=None):
@@ -1134,6 +1230,7 @@ def phase_kernels_precision(torch, dev, rec):
             del line, fac
         del b, u
         torch.cuda.empty_cache()
+        check_ragged_9pt(torch, dev, rec, dt, sfx)
 
 
 def phase_parity_precision(torch):

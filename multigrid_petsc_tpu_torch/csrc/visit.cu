@@ -17,6 +17,12 @@ int mg_visit_blocks(int ny, int nx) {
   return (int)(g.x * g.y);
 }
 
+// Number of per-block partials a 9-point visit with halo h emits.
+int mg_visit9_blocks(int ny, int nx, int h) {
+  dim3 g = visit9_grid(ny, nx, h);
+  return (int)(g.x * g.y);
+}
+
 // K1: (p', A p', u + alpha_prev p, <p', A p'> partials), p' = z + beta p.
 int mg_cg_papply_u(const float* cs, const float* cw, const float* cc,
                    const float* ce, const float* cn, const float* z,

@@ -3,9 +3,9 @@
 // visit_f64.cu and visit_bf16.cu instantiate them and bind each to a plain
 // C interface (ctypes), one entry per storage type.
 //
-// One templated visit kernel serves every fused level visit, for the
-// 5-point (Coeffs) and the 9-point (Coeffs9) stencil; its flags pick what
-// is read and written:
+// One templated visit kernel serves every fused 5-point level visit
+// (Coeffs), and its own kernel, visit9_kernel (below), every 9-point one
+// (Coeffs9); their flags pick what is read and written:
 //   CG       b = r - alpha * ap formed in-kernel; r' and ||r'||^2 emitted
 //            (5-point, f32 only)
 //   GUESS    start from the given u (else the zero guess: z = D^-1 b first)
@@ -34,13 +34,13 @@
 //       stencil_kernel.py cg_papply_pallas
 //   K12 stencil_kernel<RESID, Coeffs9> <- stencil9_kernel.py
 //       apply_stencil9_pallas, residual9_pallas
-//   K13 visit <GUESS, u, Coeffs9> <- stencil9_kernel.py
+//   K13 visit9_kernel <GUESS, u> <- stencil9_kernel.py
 //       smooth9_sweeps_pallas
-//   K14 visit <..., Coeffs9> (every flag set but CG) <- stencil9_kernel.py
+//   K14 visit9_kernel (every flag set but CG) <- stencil9_kernel.py
 //       fused_level_visit9_pallas
-//   K17 visit and stencil_kernel on a row block (RowBlock below; every flag
-//       set but CG, both stencils, f32 and f64) <- dist_kernel.py
-//       dist_level_visit_local
+//   K17 visit, visit9_kernel and stencil_kernel on a row block (RowBlock
+//       below; every flag set but CG, both stencils, f32 and f64) <-
+//       dist_kernel.py dist_level_visit_local
 //
 // Every launch covers a RowBlock: a whole grid, or one rank's block of a
 // row-partitioned level (K17).  A block reads its own rows of b, u and e in
@@ -82,6 +82,8 @@
 //     problem has one: cc, plus its inverse);
 //   * halo rows and columns are re-read by neighbouring blocks; they come
 //     from L2 for the most part.  cp.async/TMA pipelining is later work.
+// (The 9-point visit keeps this plan but not its per-point loop: see
+// visit9_kernel.)
 //
 // Streams read with a halo (z, p, r, ap, b, u) are never written in place:
 // blocks run concurrently, so a neighbour could read an updated halo.  The
@@ -93,13 +95,14 @@
 // Scalars (alpha, alpha_prev, beta) and the smoother's (alpha_s, beta_s)
 // schedule are read from device memory by pointer, so neither the CG loop
 // nor a visit needs a host round trip for them, and no sweep count is
-// bound by the kernel-parameter block.  The only bound on a visit's sweep
-// count is its shared memory (visit_smem_bytes <= MAX_SMEM, with the
-// compute type's element size): with emit rc at most 43 steps for the
-// 5-point visit and 28 for the 9-point visit of the anisotropic stencil in
-// f32 and bf16 (45 and 30 with emit u), 23 and 12 in f64; the wrappers
-// raise ValueError above it.  Dot products are emitted as per-block
-// partials in the compute type; the caller sums them.
+// bound by the kernel-parameter block.  The only bound on a 5-point
+// visit's sweep count is its shared memory (visit_smem_bytes <= MAX_SMEM,
+// with the compute type's element size): with emit rc at most 43 steps in
+// f32 and bf16 (45 with emit u), 23 in f64; a 9-point visit's is its
+// fixed region (visit9_fits: 29 steps with emit rc, 31 with emit u, in
+// every storage type); the wrappers raise ValueError above them.  Dot
+// products are emitted as per-block partials in the compute type; the
+// caller sums them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -193,6 +196,17 @@ __device__ __forceinline__ const T* block_row(const T* mid, const T* top,
   if (ly < 0) return ly >= -hn ? top + (size_t)(ly + hn) * w : nullptr;
   if (ly >= R) return ly - R < hn ? bot + (size_t)(ly - R) * w : nullptr;
   return mid + (size_t)ly * w;
+}
+
+// The global row at which a launch stops reading coefficients: the
+// domain's end, or a row block's hn rows past it.  A row block's 9-point
+// coefficients hold only the rows around it (dist_kernel checks that they
+// hold [row0 - hn, row0 + R + hn)), and a fixed region or tile may reach
+// past them; such rows lie beyond every output's reach (as b and u past
+// the halos, which block_row leaves 0), so they are staged as 0, not read.
+template <class T, bool ROWS>
+__device__ __forceinline__ int row_end(const RowBlock<T>& rb) {
+  return ROWS ? min(rb.nyg, rb.row0 + rb.R + rb.hn) : rb.nyg;
 }
 
 // Bilinear prolongation of the coarse correction at the global fine point
@@ -363,11 +377,6 @@ __device__ __forceinline__ C apply_at(const C* v, const Tile9<C>& t, int sy,
          tat(t, mg::CE, sy, sx) * e + tat(t, mg::CSW, sy, sx) * sw +
          tat(t, mg::CSE, sy, sx) * se + tat(t, mg::CNW, sy, sx) * nw +
          tat(t, mg::CNE, sy, sx) * ne;
-}
-
-template <class C>
-__device__ __forceinline__ C dinv_at(const Tile9<C>& t, int sy, int sx) {
-  return tat(t, 9, sy, sx);
 }
 
 // ---- K8: five full (ny, nx) coefficient fields (the stencil form of an
@@ -621,6 +630,404 @@ VisitFn<T, K> pick_visit(int flags) {
                  : pick_emit<T, true, false, K, ROWS>(emit, dot);
 }
 
+// ---- The 9-point visit (K13, K14, K17's 9-point blocks): its own kernel.
+//
+// A 9-point step reads 8 neighbours and up to 10 coefficients per point,
+// so once the tile is in shared memory the visit is bound by the
+// instructions it issues and their latency, not by bytes; a per-point loop
+// over the tile (the 5-point visit's) pays a shared load for each of
+// them, an index division and two barriers per step.  Here each block
+// owns a fixed V9_SH x V9_SW region
+// (the output tile plus its halo H on every side: the tile is
+// (V9_SH - 2H) x (V9_SW - 2H), so its size follows the sweep count and
+// the region never changes), and each thread owns a vertical strip of
+// V9_RS points of one column of it for the whole visit:
+//   * b and p of its points live in registers, read / formed once;
+//   * only the iterate u is shared, double-buffered, so a step is one
+//     barrier: read the current buffer, write the next; each buffer has
+//     a ring of zeros around the region, so no read needs a bounds test;
+//   * a step walks the strip top to bottom with a 3 x 3 window of u in
+//     registers, so each point loads 3 new values (its row below at
+//     x - 1, x, x + 1), and the lanes of a warp take 32 neighbouring
+//     columns of the same rows, so every shared access is conflict-free
+//     (a coefficient that varies only with y is one broadcast);
+//   * coefficients that do not vary with y (the anisotropic stencil's
+//     corners, cw and ce) are read once per visit into registers; the
+//     anisotropic stencil's layout (cs, cn (ny, 1) columns, cc an (ny, nx)
+//     field, the rest constant along y: ANISO) is compiled with its
+//     strides, so a coefficient read is a shared load at a fixed offset;
+//     any other layout reads every coefficient per point through its
+//     run-time strides;
+//   * no division: the thread's column and rows come from its warp and
+//     lane, the coarse points of the restriction from a warp x lane grid.
+// Shared memory per block is the two u buffers plus the staged
+// coefficients, independent of H (f32: 68 KB for the anisotropic stencil;
+// registers allow two to three blocks per SM); the sweep count is bounded
+// by the tile instead (2H <= V9_SH - 2: 29 steps with emit rc), mirrored
+// by the wrappers (mdma_kernel.py visit_fits).  Loads are plain coalesced
+// loads: staging the coefficients with cp.async was no faster on the
+// anisotropic stencil (it took the zero-guess rc visit from 76 to 96
+// registers, two resident blocks instead of three), though what a block
+// pays once is ~83% of its time at k = 3 (scripts/time_9pt_visits.py).
+// Registers per thread (f32, the anisotropic layout; `-Xptxas -v` in the
+// build log): 72-128, no spills; the other layouts' instantiations spill
+// at the 128 cap, off the main path.
+constexpr int V9_RS = 16;  // rows of a thread's strip
+constexpr int V9_GX = 2;   // 32-column groups of a region
+constexpr int V9_GY = 4;   // strips down a region's column
+constexpr int V9_NT = 32 * V9_GX * V9_GY;  // threads per block
+constexpr int V9_SW = 32 * V9_GX;          // region width
+constexpr int V9_SH = V9_RS * V9_GY;       // region height
+constexpr int V9_N = V9_SH * V9_SW;
+// A u buffer: the region inside a ring of zeros, so that a step reads its
+// neighbours without a bounds test.
+constexpr int V9_PW = V9_SW + 2;
+constexpr int V9_PN = (V9_SH + 2) * V9_PW;
+
+// Region point (sy, sx) in a u buffer.
+__device__ __forceinline__ int v9_at(int sy, int sx) {
+  return (sy + 1) * V9_PW + sx + 1;
+}
+
+// The output tile of a region with halo H (each side even).
+__host__ __device__ constexpr int v9_tile(int extent, int H) {
+  return extent - 2 * H;
+}
+
+inline bool visit9_fits(int H) {
+  return H >= 1 && v9_tile(V9_SH, H) >= 2 && v9_tile(V9_SW, H) >= 2;
+}
+
+inline dim3 visit9_grid(int R, int nx, int H) {
+  const int ty = v9_tile(V9_SH, H), tx = v9_tile(V9_SW, H);
+  return dim3((nx + tx - 1) / tx, (R + ty - 1) / ty);
+}
+
+// The anisotropic stencil's layout: cs and cn (ny, 1) columns, cc an
+// (ny, nx) field, every other coefficient constant along y.
+template <class T>
+bool aniso_layout(const Coeffs9<T>& c) {
+  for (int q = 0; q < 9; ++q) {
+    const bool col = q == mg::CS || q == mg::CN;
+    if (col && !(c.sy[q] && !c.sx[q])) return false;
+    if (q == mg::CC && !(c.sy[q] && c.sx[q])) return false;
+    if (!col && q != mg::CC && c.sy[q]) return false;
+  }
+  return true;
+}
+
+// Stage the coefficients for a region, each in its own shape (as stage()
+// above: entry q at base + sy * ys[q] + sx * xs[q]), without a division:
+// a field point by point along the threads' strips, a column or a row by
+// the first V9_SH or V9_SW threads.  Zero outside the domain and at or
+// past row yend (see row_end); dinv guards a zero cc as the JAX kernel
+// does.
+template <class T>
+__device__ Tile9<compute_t<T>> stage9(const Coeffs9<T>& c,
+                                      compute_t<T>* base, int sx, int r0,
+                                      int gy0, int gx0, int yend, int nx) {
+  using C = compute_t<T>;
+  Tile9<C> t;
+#pragma unroll 1
+  for (int q = 0; q < 10; ++q) {
+    const int src = q < 9 ? q : mg::CC;
+    const int gys = c.sy[src], gxs = c.sx[src];
+    t.c[q] = base;
+    t.ys[q] = gys ? (gxs ? V9_SW : 1) : 0;
+    t.xs[q] = gxs ? 1 : 0;
+    auto val = [&](int gy, int gx) -> C {
+      const bool in = (!gys || (gy >= 0 && gy < yend)) &&
+                      (!gxs || (gx >= 0 && gx < nx));
+      if (!in) return C(0);
+      const C v = to_c(c.p[src][(gys ? (size_t)(gy - c.oy) * gys : 0) +
+                                (gxs ? (size_t)gx * gxs : 0)]);
+      return q == 9 ? (v == C(0) ? C(1) : C(1) / v) : v;
+    };
+    if (gys && gxs) {
+      for (int i = 0; i < V9_RS; ++i)
+        base[(r0 + i) * V9_SW + sx] = val(gy0 + r0 + i, gx0 + sx);
+      base += V9_N;
+    } else if (gys) {
+      if (threadIdx.x < V9_SH) base[threadIdx.x] = val(gy0 + threadIdx.x, 0);
+      base += V9_SH;
+    } else if (gxs) {
+      if (threadIdx.x < V9_SW) base[threadIdx.x] = val(0, gx0 + threadIdx.x);
+      base += V9_SW;
+    } else {
+      if (threadIdx.x == 0) base[0] = val(0, 0);
+      base += 1;
+    }
+  }
+  return t;
+}
+
+// A thread's view of the staged coefficients at its column: coefficient
+// q at region row sy.  ANISO: cs and cn from their staged columns, cc and
+// its inverse from their staged fields, at offsets fixed at compile time
+// but for the thread's column; the others held in registers (read once,
+// after staging).  Otherwise every coefficient from shared memory through
+// its run-time strides (offsets from the shared base, so the address
+// stays 32-bit).
+template <bool ANISO, class C>
+struct Strip9 {
+  const C* base;
+  int o[10];
+  int ys[10];
+  C h[10];
+
+  static __device__ __forceinline__ bool held(int q) {
+    return ANISO && q != mg::CS && q != mg::CN && q != mg::CC && q != 9;
+  }
+  __device__ Strip9(const C* smem, const Tile9<C>& t, int sx) : base(smem) {
+#pragma unroll
+    for (int q = 0; q < 10; ++q) {
+      o[q] = (int)(t.c[q] - smem) + sx * t.xs[q];
+      ys[q] = t.ys[q];
+      h[q] = held(q) ? smem[o[q]] : C(0);
+    }
+  }
+  __device__ __forceinline__ C at(int q, int sy) const {
+    if (!ANISO) return base[o[q] + sy * ys[q]];
+    if (held(q)) return h[q];
+    const bool field = q == mg::CC || q == 9;
+    return base[o[q] + sy * (field ? V9_SW : 1)];
+  }
+  // (A v) at row sy from the window of v: rows sy - 1 (0), sy (1),
+  // sy + 1 (2) at columns x - 1 (w), x (c), x + 1 (e); term order of the
+  // JAX package: cc, s, n, w, e, sw, se, nw, ne.
+  __device__ __forceinline__ C apply(int sy, C w0, C c0, C e0, C w1, C c1,
+                                     C e1, C w2, C c2, C e2) const {
+    return at(mg::CC, sy) * c1 + at(mg::CS, sy) * c0 + at(mg::CN, sy) * c2 +
+           at(mg::CW, sy) * w1 + at(mg::CE, sy) * e1 + at(mg::CSW, sy) * w0 +
+           at(mg::CSE, sy) * e0 + at(mg::CNW, sy) * w2 +
+           at(mg::CNE, sy) * e2;
+  }
+};
+
+// Resident blocks per SM the register budget is cut for: two in the f32
+// compute type (up to 128 registers a thread: b and p of 16 points, the
+// window, the coefficients held), one in f64 (its tiles take twice that).
+template <class C>
+constexpr int v9_min_blocks() {
+  return sizeof(C) == 8 ? 1 : 2;
+}
+
+template <class T>
+size_t visit9_smem_bytes(const Coeffs9<T>& c) {
+  return sizeof(compute_t<T>) *
+         (2 * (size_t)V9_PN + coeff_elems(c, V9_SH, V9_SW) + V9_NT / 32);
+}
+
+// The 9-point level visit: [u + P e] -> k steps -> the emits, with the
+// flags, emits and ROWS mode of visit_kernel (no CG).
+template <class T, bool GUESS, bool CORRECT, int EMIT, bool DOT, bool ROWS,
+          bool ANISO>
+__global__ void __launch_bounds__(V9_NT, v9_min_blocks<compute_t<T>>())
+visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
+              const compute_t<T>* __restrict__ steps, int k) {
+  using C = compute_t<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* cur = reinterpret_cast<C*>(smem_raw);
+  C* nxt = cur + V9_PN;
+  C* red = nxt + V9_PN + coeff_elems(c, V9_SH, V9_SW);
+  const int ny = rb.nyg, nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
+  const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int Rc = ROWS ? rb.Rc : nyc;
+  const int TY = v9_tile(V9_SH, H), TX = v9_tile(V9_SW, H);
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
+  const int gy0 = row0 + y0 - H, gx0 = x0 - H;           // global
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int sx = (wid % V9_GX) * 32 + lane;  // the thread's region column
+  const int r0 = (wid / V9_GX) * V9_RS;      // its strip's first row
+  const int gx = gx0 + sx;
+  const bool colin = gx >= 0 && gx < nx;
+  const Tile9<C> tile = stage9(c, nxt + V9_PN, sx, r0, gy0, gx0,
+                               row_end<T, ROWS>(rb), nx);
+  // The zero rings of both u buffers.
+  for (int t = threadIdx.x; t < 2 * V9_PW + 2 * V9_SH; t += V9_NT) {
+    const int i = t < V9_PW       ? t
+                  : t < 2 * V9_PW ? (V9_SH + 1) * V9_PW + t - V9_PW
+                                  : (1 + ((t - 2 * V9_PW) >> 1)) * V9_PW +
+                                        (t & 1) * (V9_PW - 1);
+    cur[i] = C(0);
+    nxt[i] = C(0);
+  }
+
+  // b into registers, the iterate (u + P e) into the shared buffer.
+  C bq[V9_RS], pq[V9_RS];
+  unsigned inmask = 0;  // bit i: the strip's point i lies in the domain
+#pragma unroll
+  for (int i = 0; i < V9_RS; ++i) {
+    const int sy = r0 + i, gy = gy0 + sy;
+    const bool in = colin && gy >= 0 && gy < ny;
+    C bv = C(0), uv = C(0);
+    if (in) {
+      if constexpr (ROWS) {
+        const int ly = y0 - H + sy;
+        const T* brow =
+            block_row(io.b, rb.b_top, rb.b_bot, ly, rb.R, rb.hn, nx);
+        if (brow != nullptr) {  // past the halos: never read, left 0
+          bv = to_c(brow[gx]);
+          if (GUESS)
+            uv = to_c(block_row(io.u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn,
+                                nx)[gx]);
+          if (CORRECT) uv += prolong_rows(io.e, rb, gy, gx, nxc);
+        }
+      } else {
+        const size_t g = (size_t)gy * nx + gx;
+        bv = to_c(io.b[g]);
+        if (GUESS) uv = to_c(io.u[g]);
+        if (CORRECT) uv += mg::prolong_at(io.e, gy, gx, nyc, nxc);
+      }
+    }
+    bq[i] = bv;
+    pq[i] = C(0);
+    cur[v9_at(sy, sx)] = uv;
+    inmask |= (unsigned)in << i;
+  }
+  __syncthreads();
+  const Strip9<ANISO, C> cf(reinterpret_cast<const C*>(smem_raw), tile, sx);
+
+  // Row sy of v at columns x - 1, x, x + 1 (the ring: zero past the
+  // region).
+  auto row3 = [&](const C* v, int sy, C& w, C& m, C& e) {
+    const C* q = v + v9_at(sy, sx);
+    w = q[-1];
+    m = q[0];
+    e = q[1];
+  };
+
+  for (int s = 0; s < k; ++s) {
+    const C a = steps[2 * s];
+    const C bt = steps[2 * s + 1];
+    if (!GUESS && s == 0) {  // u = 0: z = D^-1 b
+#pragma unroll
+      for (int i = 0; i < V9_RS; ++i) {
+        const int sy = r0 + i;
+        // ANISO: cc's inverse is staged 0 outside the domain, as is b.
+        const C z =
+            ANISO || (inmask >> i & 1) ? cf.at(9, sy) * bq[i] : C(0);
+        pq[i] = a * z;
+        nxt[v9_at(sy, sx)] = pq[i];
+      }
+    } else {
+      C w0, c0, e0, w1, c1, e1, w2, c2, e2;
+      row3(cur, r0 - 1, w0, c0, e0);
+      row3(cur, r0, w1, c1, e1);
+#pragma unroll
+      for (int i = 0; i < V9_RS; ++i) {
+        const int sy = r0 + i;
+        row3(cur, sy + 1, w2, c2, e2);
+        const C au = cf.apply(sy, w0, c0, e0, w1, c1, e1, w2, c2, e2);
+        const C z = ANISO || (inmask >> i & 1)
+                        ? cf.at(9, sy) * (bq[i] - au) : C(0);
+        pq[i] = bt * pq[i] + a * z;  // p = 0 before the first step
+        nxt[v9_at(sy, sx)] = c1 + pq[i];
+        w0 = w1, c0 = c1, e0 = e1;
+        w1 = w2, c1 = c2, e1 = e2;
+      }
+    }
+    __syncthreads();
+    C* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // The emits, each thread on its own points of the output tile (RC: and
+  // the one more row / column of the restriction's footprint).
+  const int tx = sx - H;
+  const bool xt = tx >= 0 && tx < TX && gx < nx;
+  const bool xf = tx >= 0 && tx <= TX;  // RC: the footprint's columns
+  C acc = C(0);
+  if constexpr (EMIT == EMIT_U) {
+#pragma unroll
+    for (int i = 0; i < V9_RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      if (!xt || ty < 0 || ty >= TY || ly >= R) continue;
+      const bool in = !ROWS || row0 + ly < ny;  // the pad row is written 0
+      const C uv = cur[v9_at(sy, sx)];
+      put(io.u_out, (size_t)ly * nx + gx, in ? uv : C(0));
+      if (DOT) acc += bq[i] * uv;
+    }
+  } else {
+    C w0, c0, e0, w1, c1, e1, w2, c2, e2;
+    row3(cur, r0 - 1, w0, c0, e0);
+    row3(cur, r0, w1, c1, e1);
+#pragma unroll
+    for (int i = 0; i < V9_RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      row3(cur, sy + 1, w2, c2, e2);
+      const C r = bq[i] - cf.apply(sy, w0, c0, e0, w1, c1, e1, w2, c2, e2);
+      if (xt && ty >= 0 && ty < TY && ly < R) {
+        const bool in = !ROWS || row0 + ly < ny;
+        const size_t g = (size_t)ly * nx + gx;
+        if (EMIT != EMIT_R) put(io.u_out, g, in ? c1 : C(0));
+        if (EMIT != EMIT_RC) put(io.r_out, g, in ? r : C(0));
+      }
+      // Residual into the free buffer on the restriction's footprint.
+      if (EMIT == EMIT_RC && xf && ty >= 0 && ty <= TY)
+        nxt[v9_at(sy, sx)] = gy0 + sy < ny && gx < nx ? r : C(0);
+      w0 = w1, c0 = c1, e0 = e1;
+      w1 = w2, c1 = c2, e1 = e2;
+    }
+  }
+  if constexpr (EMIT == EMIT_RC) {
+    __syncthreads();
+    // Full weighting, y pass first, then x (ops/transfer.restrict_fw); a
+    // warp per coarse row, a lane per coarse column.  A row block's coarse
+    // rows at or past nyc (the global coarse pad row) are 0.
+    for (int cy = wid; cy < TY / 2; cy += V9_NT / 32) {
+      const int cx = lane;
+      const int I = y0 / 2 + cy, J = x0 / 2 + cx;  // local coarse row I
+      if (cx >= TX / 2 || I >= Rc || J >= nxc) continue;
+      const C* f = nxt + v9_at(2 * cy + H, 2 * cx + H);  // fine (2I, 2J)
+      C ycol[3];
+      for (int d = 0; d < 3; ++d)
+        ycol[d] = f[d] + C(2) * f[V9_PW + d] + f[2 * V9_PW + d];
+      put(io.rc_out, (size_t)I * nxc + J,
+          !ROWS || row0 / 2 + I < nyc
+              ? C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2])
+              : C(0));
+    }
+  }
+  if (DOT) {
+    const C sum = mg::block_sum<V9_NT>(acc, red);
+    if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+template <class T, bool GUESS, bool CORRECT, bool ROWS, bool ANISO>
+VisitFn<T, Coeffs9<T>> pick_emit9(int emit, bool dot) {
+  if (dot)  // DOT goes with emit u, on whole grids
+    return emit == EMIT_U && !ROWS
+               ? visit9_kernel<T, GUESS, CORRECT, EMIT_U, true, false, ANISO>
+               : nullptr;
+  switch (emit) {
+    case EMIT_U:
+      return visit9_kernel<T, GUESS, CORRECT, EMIT_U, false, ROWS, ANISO>;
+    case EMIT_UR:
+      return visit9_kernel<T, GUESS, CORRECT, EMIT_UR, false, ROWS, ANISO>;
+    case EMIT_R:
+      return visit9_kernel<T, GUESS, CORRECT, EMIT_R, false, ROWS, ANISO>;
+    case EMIT_RC:
+      return visit9_kernel<T, GUESS, CORRECT, EMIT_RC, false, ROWS, ANISO>;
+  }
+  return nullptr;
+}
+
+template <class T, bool ROWS, bool ANISO>
+VisitFn<T, Coeffs9<T>> pick_visit9(int flags) {
+  const bool guess = flags & F_GUESS, correct = flags & F_CORRECT;
+  const bool dot = flags & F_DOT;
+  const int emit = flags >> EMIT_SHIFT;
+  if (flags & F_CG) return nullptr;
+  if (!guess)
+    return correct ? nullptr
+                   : pick_emit9<T, false, false, ROWS, ANISO>(emit, dot);
+  return correct ? pick_emit9<T, true, true, ROWS, ANISO>(emit, dot)
+                 : pick_emit9<T, true, false, ROWS, ANISO>(emit, dot);
+}
+
 // K1 (UPDATE_U) and K11: p' = z + beta p (tile + 1-point halo in shared
 // memory), A p', <p', A p'> partials; K1 also u' = u + alpha_prev p
 // (pointwise; un may alias u).
@@ -688,7 +1095,8 @@ stencil_kernel(K c, const T* __restrict__ b, const T* __restrict__ u,
   const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
   const int gy0 = row0 + y0 - 1, gx0 = x0 - 1;           // global
-  const auto rc = stage(c, us + SH * SW, SH, SW, gy0, gx0, ny, nx);
+  const auto rc =
+      stage(c, us + SH * SW, SH, SW, gy0, gx0, row_end<T, ROWS>(rb), nx);
   for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
     int gy = gy0 + sy, gx = gx0 + sx;
@@ -728,23 +1136,48 @@ bool row_block_ok(const RowBlock<T>& rb, int H, int flags) {
          (!(flags & F_CORRECT) || rb.hc >= H / 2 + 1);
 }
 
-template <class T, bool ROWS = false, class K>
-int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
-                 int nx, const compute_t<T>* steps, int k, int flags,
-                 void* stream) {
-  VisitFn<T, K> kern = pick_visit<T, K, ROWS>(flags);
+template <class T, bool ROWS>
+int launch_visit9(const Coeffs9<T>& c, const VisitIO<T>& io,
+                  const RowBlock<T>& rb, int nx, const compute_t<T>* steps,
+                  int k, int flags, void* stream) {
+  VisitFn<T, Coeffs9<T>> kern = aniso_layout(c)
+                                     ? pick_visit9<T, ROWS, true>(flags)
+                                     : pick_visit9<T, ROWS, false>(flags);
   if (kern == nullptr || k < 1) return (int)cudaErrorInvalidValue;
   const int H = halo(flags >> EMIT_SHIFT, k);
-  if (!row_block_ok<T, ROWS>(rb, H, flags))
+  if (!visit9_fits(H) || !row_block_ok<T, ROWS>(rb, H, flags))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = visit_smem_bytes<T>(c, H);
+  const size_t smem = visit9_smem_bytes(c);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<visit9_grid(rb.R, nx, H), V9_NT, smem, (cudaStream_t)stream>>>(
       c, io, rb, nx, H, steps, k);
   return (int)cudaGetLastError();
+}
+
+template <class T, bool ROWS = false, class K>
+int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
+                 int nx, const compute_t<T>* steps, int k, int flags,
+                 void* stream) {
+  if constexpr (std::is_same<K, Coeffs9<T>>::value) {
+    return launch_visit9<T, ROWS>(c, io, rb, nx, steps, k, flags, stream);
+  } else {
+    VisitFn<T, K> kern = pick_visit<T, K, ROWS>(flags);
+    if (kern == nullptr || k < 1) return (int)cudaErrorInvalidValue;
+    const int H = halo(flags >> EMIT_SHIFT, k);
+    if (!row_block_ok<T, ROWS>(rb, H, flags))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = visit_smem_bytes<T>(c, H);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+        c, io, rb, nx, H, steps, k);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <class T, bool ROWS = false, class K>

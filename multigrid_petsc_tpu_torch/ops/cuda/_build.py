@@ -57,14 +57,15 @@ _SIGNATURES = {
     **{name + sfx: argtypes for name, argtypes in _ROWS.items()
        for sfx in ("", "_f64")},
     "mg_visit_blocks": [_I, _I],
+    "mg_visit9_blocks": [_I, _I, _I],
     "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
     "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
     "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
     "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "mg_line_blocks": [_I],
-    "mg_line_sweep": [_P, _P, _P, _P, _I] + [_P] * 5 + [_I, _I, _F, _F, _P],
-    "mg_line_sweep_f64": [_P, _P, _P, _P, _I] + [_P] * 5
+    "mg_line_blocks": [_I, _I],
+    "mg_line_sweep": [_P, _P, _P, _I, _I] + [_P] * 7 + [_I, _I, _F, _F, _P],
+    "mg_line_sweep_f64": [_P, _P, _P, _I, _I] + [_P] * 7
     + [_I, _I, _D, _D, _P],
     "mg_line_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mg_line_residual_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

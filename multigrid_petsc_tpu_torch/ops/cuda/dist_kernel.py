@@ -62,7 +62,6 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _EMITS,
     _F_CORRECT,
     _F_GUESS,
-    MAX_SMEM,
     _check_cuda,
     _on_cpu,
     _stencil_fields,
@@ -71,7 +70,7 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     entry,
     max_visit_steps,
     steps_tensor,
-    visit_smem_bytes,
+    visit_fits,
 )
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, Stencil9
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
@@ -303,7 +302,7 @@ def row_visit(st, b, u, steps, emit: str, *, row0: int, ny: int,
         halo_ptrs += ptrs
     dtype = _check_cuda(blk.device, fields, dtypes=ROW_DTYPES)
     size = torch.finfo(dtype).bits // 8
-    if not stencil and visit_smem_bytes(kinds, h, size) > MAX_SMEM:
+    if not stencil and not visit_fits(kinds, h, size):
         raise ValueError(
             f"a {9 if nine else 5}-point {dtype} visit with emit {emit!r} "
             f"takes at most {max_visit_steps(kinds, emit, size)} steps; got "

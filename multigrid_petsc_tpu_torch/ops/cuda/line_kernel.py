@@ -12,13 +12,16 @@ Counterpart of ``multigrid_petsc_tpu/ops/pallas/line_kernel.py``:
 The TPU kernel holds the whole level in VMEM and solves the line systems
 by parallel cyclic reduction; it is viable up to ~1023^2 and for (ny, 1)
 line coefficients only.  The CUDA kernels (``csrc/line.cu``) have no size
-cap and take line coefficients that vary with x as well: one launch per
-sweep, one thread per column running Thomas's recurrence with per-row
-factors computed once per level on the host in f64 (``thomas_factor``),
-then one launch for the residual or its restriction.  The plain version
-is the JAX package's composition: ``line_jacobi_sweeps_y`` (PCR) with the
-library transfers, so on the card the kernel and its oracle differ by the
-rounding of the two tridiagonal solves.
+cap and take line coefficients that vary with x as well: Thomas's
+recurrence with per-row factors made once per level on the host in f64,
+cut into segments of ``LINE_SEG`` rows run by one thread each and joined
+by a carry pass over the segments (``segment_factor`` makes the
+segments' carry responses beside Thomas's factors), three launches per
+sweep (one on a level of one segment), then one launch for the residual
+or its restriction.  The plain version is the JAX package's composition:
+``line_jacobi_sweeps_y`` (PCR) with the library transfers, so on the
+card the kernel and its oracle differ by the rounding of the two
+tridiagonal solves.
 
 Storage types: f32 and f64 (``mg_line_*`` and ``mg_line_*_f64``); bf16
 line visits raise (no path runs them).  The wrapper runs the plain
@@ -54,6 +57,14 @@ from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
 _EMITS = ("u", "ur", "rc")
 LINE_DTYPES = (torch.float32, torch.float64)
+# Rows per segment of the CUDA line solve (csrc/line.cu SEG; the C entry
+# refuses factors made for another length).
+LINE_SEG = 32
+# A row of the packed per-row table (csrc/line.cu LineRows, R_*), then 3
+# zeros: 16 values a row.
+TABLE_COLUMNS = ("cw", "ce", "csw", "cse", "cnw", "cne", "cs", "m", "cp",
+                 "above", "below", "end_w", "start_w")
+TABLE_WIDTH = 16
 
 
 def collapse_stencil(st: Stencil9) -> Stencil9:
@@ -71,23 +82,41 @@ def collapse_stencil(st: Stencil9) -> Stencil9:
     return Stencil9(*out)
 
 
-class LineFactor(NamedTuple):
-    """Thomas factors of the line systems (cs, cc, cn) down each column:
-    m_i = 1 / (cc_i - cs_i cp_{i-1}) and cp_i = cn_i m_i (cp_{ny-1} = 0);
-    (ny, 1) columns, or (ny, nx) fields when a line coefficient varies
-    with x."""
+class SegmentFactor(NamedTuple):
+    """What the CUDA line visit runs on, once per level: Thomas's factors
+    of the line systems (cs, cc, cn) down each column, ``m`` (m_i = 1 /
+    (cc_i - cs_i cp_{i-1})) and ``cp`` (cp_i = cn_i m_i, cp_{ny-1} = 0),
+    and, for its segments of ``LINE_SEG`` rows, a
+    segment's responses to a unit forward carry from the row above
+    (``above``: x_i when dp just above the segment is 1) and to a unit
+    value on the row below (``below``), per row, the forward carry's
+    multiplier across each segment (``gain``, one row per segment), and
+    the weights that give a segment's zero-carry dp at its last row
+    (``end_w``) and x at its first (``start_w``) as sums over its rows'
+    right-hand sides; columns (width 1) or fields (width nx), in the
+    stencil's dtype.  ``table``: when the line stencil and so every factor
+    is constant along x (BASELINE config 4), every per-row value the
+    kernels read, packed one row per grid row (``TABLE_COLUMNS``, padded
+    to 16), else None."""
 
     m: torch.Tensor
     cp: torch.Tensor
+    above: torch.Tensor
+    below: torch.Tensor
+    gain: torch.Tensor
+    end_w: torch.Tensor
+    start_w: torch.Tensor
+    table: torch.Tensor | None
 
 
-def thomas_factor(st: Stencil9, ny: int) -> LineFactor:
-    """The Thomas factors of ``st``'s y-lines, computed on the host in f64
-    and stored in the stencil's dtype on its device."""
-    def host(c):
-        return np.asarray(c.detach().cpu().numpy(), np.float64)
+def _host(c: torch.Tensor) -> np.ndarray:
+    return np.asarray(c.detach().cpu().numpy(), np.float64)
 
-    a, d, c = host(st.cs), host(st.cc), host(st.cn)
+
+def _thomas_host(st: Stencil9, ny: int):
+    """(a, m, cp): the sub-diagonal cs and Thomas's factors of ``st``'s
+    y-lines, f64 numpy arrays of shape (ny, w), w = 1 or nx."""
+    a, d, c = _host(st.cs), _host(st.cc), _host(st.cn)
     w = max(x.shape[1] if x.ndim == 2 else 1 for x in (a, d, c))
     a, d, c = (np.broadcast_to(x, (ny, w)) for x in (a, d, c))
     m = np.empty((ny, w))
@@ -96,18 +125,88 @@ def thomas_factor(st: Stencil9, ny: int) -> LineFactor:
     for i in range(ny):
         m[i] = 1.0 / (d[i] - (a[i] * prev if i > 0 else 0.0))
         prev = cp[i] = (c[i] if i < ny - 1 else 0.0) * m[i]
-    return LineFactor(*(torch.as_tensor(x, dtype=st.cc.dtype,
-                                        device=st.cc.device)
-                        for x in (m, cp)))
+    return a, m, cp
+
+
+def _on_device(st: Stencil9, *arrays):
+    return tuple(torch.as_tensor(x, dtype=st.cc.dtype, device=st.cc.device)
+                 for x in arrays)
+
+
+def segment_spikes(a, m, cp, seg: int = LINE_SEG):
+    """(above, below, gain, end_w, start_w) of the segmented Thomas solve,
+    in f64, from the (ny, w) sub-diagonal and Thomas factors.  The forward
+    recurrence dp_i = (rhs_i - a_i dp_{i-1}) m_i carries dp with the
+    multiplier f_i = -a_i m_i, the backward x_i = dp_i - cp_i x_{i+1}
+    carries x with h_i = -cp_i; for a segment of rows s0..s1:
+      F_i = f_s0 ... f_i             (dp_i's response to dp_{s0-1})
+      above_i = F_i + h_i above_{i+1}, above_s1 = F_s1
+      below_i = h_i ... h_s1         (x_i's response to x_{s1+1})
+      gain = F_s1
+      end_w_i = m_i f_{i+1} ... f_s1 (dp_s1 from zero carries, per rhs_i)
+      start_w_i = m_i g_i, g_i = h_s0 ... h_{i-1} + f_{i+1} g_{i+1}
+                                     (x_s0 from zero carries, per rhs_i).
+    The last segment's rows past ny count as absent (cp_{ny-1} = 0, so
+    nothing below the last row reaches it)."""
+    ny, w = m.shape
+    nseg = -(-ny // seg)
+    pad = np.zeros((nseg * seg - ny, w))
+
+    def cut(x):
+        return np.concatenate([x, pad]).reshape(nseg, seg, w)
+
+    f, h, mm = cut(-a * m), cut(-cp), cut(m)
+    real = cut(np.ones((ny, w))) > 0
+    last = real & ~np.concatenate([real[:, 1:], np.zeros_like(real[:, :1])],
+                                  axis=1)
+    F = np.cumprod(f, axis=1)
+    hpre = np.cumprod(np.concatenate([np.ones_like(h[:, :1]), h[:, :-1]],
+                                     axis=1), axis=1)
+    above, below = np.empty_like(F), np.empty_like(F)
+    end_w, g = np.empty_like(F), np.empty_like(F)
+    above[:, -1], below[:, -1] = F[:, -1], h[:, -1]
+    end_w[:, -1], g[:, -1] = 1.0, hpre[:, -1]
+    for i in range(seg - 2, -1, -1):
+        above[:, i] = F[:, i] + h[:, i] * above[:, i + 1]
+        below[:, i] = h[:, i] * below[:, i + 1]
+        end_w[:, i] = np.where(last[:, i], 1.0, f[:, i + 1] * end_w[:, i + 1])
+        g[:, i] = hpre[:, i] + f[:, i + 1] * g[:, i + 1]
+    end_w *= mm
+
+    def rows(x):
+        return x.reshape(-1, w)[:ny]
+
+    return (rows(above), rows(below), F[:, -1].copy(), rows(end_w),
+            rows(mm * g))
+
+
+def segment_factor(st: Stencil9, ny: int) -> SegmentFactor:
+    """Thomas's factors and the segments' carry responses of ``st``'s
+    y-lines (``segment_spikes``), computed on the host in f64 and stored
+    in the stencil's dtype on its device, with the packed per-row table
+    when the kernels' per-row values are all constant along x."""
+    a, m, cp = _thomas_host(st, ny)
+    names = SegmentFactor._fields[:-1]
+    host = dict(zip(names, (m, cp, *segment_spikes(a, m, cp))))
+    table = None
+    if m.shape[1] == 1 and all(getattr(st, k).shape[1] == 1
+                               for k in TABLE_COLUMNS[:7]):
+        host.update((k, np.broadcast_to(_host(getattr(st, k)), (ny, 1)))
+                    for k in TABLE_COLUMNS[:7])
+        table = np.zeros((ny, TABLE_WIDTH))
+        table[:, :len(TABLE_COLUMNS)] = np.concatenate(
+            [host[k] for k in TABLE_COLUMNS], axis=1)
+    return SegmentFactor(*_on_device(st, *(host[k] for k in names)),
+                         None if table is None else _on_device(st, table)[0])
 
 
 def line_factor(st: Stencil9, ny: int):
     """What ``line_visit9`` needs of the ny-point line systems, once per
-    level: the PCR factor for CPU tensors (the plain version), the Thomas
-    factors for CUDA tensors."""
+    level: the PCR factor for CPU tensors (the plain version), the
+    segmented Thomas factors for CUDA tensors."""
     if _on_cpu(st.cc):
         return pcr_factor(st.cs, st.cc, st.cn, ny)
-    return thomas_factor(st, ny)
+    return segment_factor(st, ny)
 
 
 def _check_line(u, emit, e_coarse, emit_dot, sweeps) -> None:
@@ -150,13 +249,16 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
     transfer = emit == "rc" or e_coarse is not None
     ny, nx = _odd_shape(b) if transfer else b.shape
     nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
-    fac = thomas_factor(st, ny) if fac is None else fac
+    fac = segment_factor(st, ny) if fac is None else fac
     c9 = coeff9_args(st, ny, nx)
     w = fac.m.shape[1]
     if w not in (1, nx):
         raise ValueError(f"line factors of width {w} for {nx} columns")
-    fields = {"b": (b, (ny, nx)), "fac.m": (fac.m, (ny, w)),
-              "fac.cp": (fac.cp, (ny, w)), **c9.fields}
+    nseg = -(-ny // LINE_SEG)
+    shapes = {"gain": (nseg, w), "table": (ny, TABLE_WIDTH)}
+    fields = {"b": (b, (ny, nx)), **c9.fields,
+              **{f"fac.{k}": (t, shapes.get(k, (ny, w)))
+                 for k, t in fac._asdict().items() if t is not None}}
     if u is not None:
         fields["u"] = (u, (ny, nx))
     if e_coarse is not None:
@@ -173,18 +275,27 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
 
     # Ping-pong: a sweep reads the previous iterate at neighbouring
     # columns while writing its own, so it never writes its input.
-    bufs = [torch.empty_like(b) for _ in range(min(sweeps, 2))]
-    part = (torch.empty(lib.mg_line_blocks(nx), dtype=b.dtype,
+    # With a correction, the second buffer first holds u + P e (kept by
+    # the first sweep's first launch for its last).
+    bufs = [torch.empty_like(b)
+            for _ in range(2 if e_coarse is not None else min(sweeps, 2))]
+    part = (torch.empty(lib.mg_line_blocks(ny, nx), dtype=b.dtype,
                         device=b.device) if emit_dot else None)
+    # Per segment and column: the zero-carry ends, then the carries.
+    scratch = (torch.empty(4 * nseg * nx, dtype=b.dtype, device=b.device)
+               if nseg > 1 else None)
+    fptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
+                       np.uint64)
     cur = u
     for s in range(sweeps):
         out = bufs[s % 2]
         err = sweep(
-            c9.ptrs.ctypes.data, c9.strides.ctypes.data, fac.m.data_ptr(),
-            fac.cp.data_ptr(), int(w > 1), b.data_ptr(), ptr(cur),
+            c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
+            int(w > 1), LINE_SEG, b.data_ptr(), ptr(cur),
             ptr(e_coarse if s == 0 else None), out.data_ptr(),
-            ptr(part if s == sweeps - 1 else None), ny, nx, omega,
-            1.0 - omega, stream)
+            ptr(part if s == sweeps - 1 else None), ptr(scratch),
+            ptr(bufs[1] if s == 0 and e_coarse is not None else None), ny,
+            nx, omega, 1.0 - omega, stream)
         check(err, "line sweep launch")
         cur = out
     if emit == "u":

@@ -24,7 +24,8 @@ Stencil5 or a Stencil9, and is shared with the V-cycle family's and the
 ``ops/cuda/stencil9_kernel.py``).  The smoother's (alpha, beta) schedule
 goes to the kernel as a small f32 buffer in device memory
 (``steps_tensor``), so the only bound on a visit's sweep count is its
-shared memory (``max_visit_steps``).
+shared memory, or for the 9-point visit its fixed region
+(``max_visit_steps``).
 
 Storage types: K1 and K2a run in f32 only (the mdma route is f32); the
 visit kernel family behind ``launch_visit`` (K2b, K3 and the V-cycle and
@@ -57,8 +58,11 @@ from multigrid_petsc_tpu_torch.ops.stencil import (
 )
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
-# csrc/visit.cuh: output tile, threads and shared memory of a visit block.
+# csrc/visit.cuh: output tile, threads and shared memory of a 5-point
+# visit block; the 9-point visit's fixed region (tile + halo, V9_SH x
+# V9_SW) and threads.
 TILE_Y, TILE_X, THREADS, MAX_SMEM = 32, 64, 256, 232448
+REGION9_Y, REGION9_X, THREADS9 = 64, 64, 256
 
 F32 = (torch.float32,)
 # The storage types the visit-family kernels are built for, and the C
@@ -258,10 +262,25 @@ def _coeff_floats(kinds, sh: int, sw: int) -> int:
 def visit_smem_bytes(kinds, h: int, itemsize: int = 4) -> int:
     """Shared memory of a visit block with halo h whose tiles hold
     ``itemsize``-byte values, the compute type's (visit.cuh
-    visit_smem_bytes)."""
-    sh, sw = TILE_Y + 2 * h, TILE_X + 2 * h
-    return itemsize * (3 * sh * sw + _coeff_floats(kinds, sh, sw)
-                       + THREADS // 32)
+    visit_smem_bytes, visit9_smem_bytes): the 5-point visit stages b, u
+    and p on its tile + halo; the 9-point visit two u buffers on its fixed
+    region, whatever h."""
+    if kinds is None:
+        sh, sw = TILE_Y + 2 * h, TILE_X + 2 * h
+        return itemsize * (3 * sh * sw + _coeff_floats(None, sh, sw)
+                           + THREADS // 32)
+    ring = (REGION9_Y + 2) * (REGION9_X + 2)  # a u buffer and its zero ring
+    return itemsize * (2 * ring + _coeff_floats(kinds, REGION9_Y, REGION9_X)
+                       + THREADS9 // 32)
+
+
+def visit_fits(kinds, h: int, itemsize: int = 4) -> bool:
+    """Whether a visit with halo h runs (visit.cuh launch_visit,
+    visit9_fits): its shared memory fits a block's, and a 9-point visit's
+    tile keeps at least 2 rows and columns inside its region."""
+    if visit_smem_bytes(kinds, h, itemsize) > MAX_SMEM:
+        return False
+    return kinds is None or 2 * h <= min(REGION9_Y, REGION9_X) - 2
 
 
 def _halo(emit: str, k: int) -> int:
@@ -269,14 +288,21 @@ def _halo(emit: str, k: int) -> int:
 
 
 def max_visit_steps(kinds, emit: str, itemsize: int = 4) -> int:
-    """The most smoother steps a visit takes: its tile + halo must fit a
-    block's shared memory (with emit rc 43 for the 5-point visit and 28
-    for the 9-point visit of the anisotropic stencil in f32 and bf16, 23
-    and 12 in f64)."""
+    """The most smoother steps a visit takes (``visit_fits``): with emit
+    rc 43 for the 5-point visit in f32 and bf16 (23 in f64, bound by its
+    tile + halo in shared memory) and 29 for the 9-point visit of the
+    anisotropic stencil in every storage type (bound by its region)."""
     k = 0
-    while visit_smem_bytes(kinds, _halo(emit, k + 1), itemsize) <= MAX_SMEM:
+    while visit_fits(kinds, _halo(emit, k + 1), itemsize):
         k += 1
     return k
+
+
+def visit_partials(lib, kinds, ny: int, nx: int, h: int) -> int:
+    """Number of per-block dot partials a visit launch writes."""
+    if kinds is None:
+        return lib.mg_visit_blocks(ny, nx)
+    return lib.mg_visit9_blocks(ny, nx, h)
 
 
 @functools.lru_cache(maxsize=256)
@@ -367,12 +393,14 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
         fields = {"b": (b, (ny, nx)), **_stencil_fields(st, ny)}
     kinds = c9.kinds if nine else None
     size = torch.finfo(compute_dtype(b.dtype)).bits // 8
-    if visit_smem_bytes(kinds, _halo(emit, len(steps)), size) > MAX_SMEM:
+    h = _halo(emit, len(steps))
+    if not visit_fits(kinds, h, size):
         raise ValueError(
             f"a {9 if nine else 5}-point {b.dtype} visit with emit {emit!r} "
             f"takes at most {max_visit_steps(kinds, emit, size)} steps (its "
             f"tile and halo must fit the {MAX_SMEM} B of shared memory of a "
-            f"block); got {len(steps)}")
+            f"block{', its tile its region' if nine else ''}); got "
+            f"{len(steps)}")
     scalars = {}
     if cg:
         fields["ap"] = (ap, (ny, nx))
@@ -394,8 +422,8 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
                    r=new((ny, nx), emit in ("ur", "r")),
                    rc=new((nyc, nxc), emit == "rc"),
                    r_new=new((ny, nx), cg),
-                   dot=new((lib.mg_visit_blocks(ny, nx),), cg or emit_dot,
-                           compute_dtype(dtype)))
+                   dot=new((visit_partials(lib, kinds, ny, nx, h),),
+                           cg or emit_dot, compute_dtype(dtype)))
     flags = ((_F_CG if cg else 0) | (_F_GUESS if u is not None else 0)
              | (_F_CORRECT if e_c is not None else 0)
              | (_F_DOT if emit_dot else 0) | _EMITS[emit] << _EMIT_SHIFT)

@@ -132,7 +132,7 @@ class LevelCtx:
     # LINE_Y: the stencil as a collapsed Stencil9 and its line factors
     # (``line_kernel.line_factor``), set up once.
     line_st: Stencil9 | None = None
-    line_fac: PCRFactor | lk.LineFactor | None = None
+    line_fac: PCRFactor | lk.SegmentFactor | None = None
     stencils: tuple = ()  # every grid's stencil (stencils[0] is stencil)
     block_gs: bool = False  # merged level: block Gauss-Seidel smoother
     block_gs_inner: int = 3

@@ -154,11 +154,11 @@ def test_thomas_factors_solve_the_line_systems(prob):
     ny, nx = 63, 31
     _, t = _pair(prob, (ny, nx))
     st = tlk.collapse_stencil(t)
-    fac = tlk.thomas_factor(st, ny)
+    fac = tlk.segment_factor(st, ny)
     assert fac.m.shape == fac.cp.shape == (
         (ny, 1) if st.cc.shape[1] == 1 else (ny, nx))
     rhs = np.random.default_rng(1).standard_normal((ny, nx))
-    m, cp = (np.broadcast_to(x.numpy(), (ny, nx)) for x in fac)
+    m, cp = (np.broadcast_to(x.numpy(), (ny, nx)) for x in (fac.m, fac.cp))
     a = np.broadcast_to(st.cs.numpy(), (ny, nx))
     dp, x = np.zeros((ny, nx)), np.zeros((ny, nx))
     for i in range(ny):

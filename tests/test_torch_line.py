@@ -8,6 +8,15 @@ against ``line_jacobi_sweeps_y`` composed with the transfers.
 Tolerance: 1e-12 of the reference's largest entry (the same PCR
 recurrence and blend; the residual's O(1/h^2) terms reassociate), dots
 1e-10 relative.
+
+The CUDA kernel's segmented Thomas solve (``csrc/line.cu``) cannot run
+here; its host-side factors are held to f64 band solves of the same
+tridiagonal systems, and a torch model of its algorithm (``_segmented``,
+test code) that runs on those factors is held to the plain version and
+to the Pallas kernel within TOL_LINE (1e-4 of the largest entry, as
+``chip_smoke.py`` holds the kernel on the card), on config 4's nearly
+singular lines and on x-varying line coefficients, for levels shorter
+than a segment, a multiple of it and not a multiple of it.
 """
 
 from __future__ import annotations
@@ -21,10 +30,19 @@ from multigrid_petsc_tpu import problems as jp
 from multigrid_petsc_tpu.ops import stencil as jst
 from multigrid_petsc_tpu.ops import transfer as jtr
 from multigrid_petsc_tpu.ops.pallas import line_kernel as jlk
+from multigrid_petsc_tpu_torch import problems as tp
 from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as tlk
-from multigrid_petsc_tpu_torch.ops.stencil import from_numpy_stencil9
+from multigrid_petsc_tpu_torch.ops.stencil import (
+    apply_stencil9,
+    from_numpy_stencil9,
+    off_line_y,
+)
+from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
 torch.set_num_threads(2)
+
+TOL_LINE = 1e-4
+CONFIG4, XVAR = (1.0, 0.0, 100.0, 0.0, 0.0), (1.0, 1.0, 1.0, 2.0, 0.4)
 
 
 def _setup(shape, prob, seed):
@@ -129,3 +147,220 @@ def test_line_visit9_refuses_what_it_lacks():
     x = torch.empty((65, 33), device="meta")
     with pytest.raises(ValueError):
         tlk.line_visit9(st, x, x, 2, 0.8)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's segmented solve: its factors and a model of it.
+# --------------------------------------------------------------------------
+
+
+def _line_stencil(prob, ny, nx, dtype=torch.float64):
+    return tlk.collapse_stencil(tp.stencil9_coefficients(
+        tp.AnisoProblem(*prob), ny, nx, dtype, "cpu"))
+
+
+def _band(a, d, c):
+    """The assembled tridiagonal matrix of one line: sub-diagonal a[1:],
+    diagonal d, super-diagonal c[:-1]."""
+    return np.diag(d) + np.diag(a[1:], -1) + np.diag(c[:-1], 1)
+
+
+@pytest.mark.parametrize("ny", [7, 63, 64, 1023])
+@pytest.mark.parametrize("prob", [CONFIG4, XVAR])
+def test_segment_factors_match_band_solves(prob, ny):
+    """A segment's responses are solves of its own tridiagonal block,
+    whose first pivot is the whole column's (Thomas's elimination of the
+    rows above): ``above`` answers the forward carry, entering as
+    -a_s0 on the first row, ``below`` the value under the segment,
+    entering as -c_s1 on its last; ``end_w`` and ``start_w`` are the last
+    and first rows of the block's inverse (solves with its transpose).
+    The whole segmented solve (weighted ends, carries with ``gain``,
+    fix-up) is the band solve of the column."""
+    nx = 33
+    st = _line_stencil(prob, ny, nx)
+    fac = tlk.segment_factor(st, ny)
+    w = fac.m.shape[1]
+    assert w == (nx if prob == XVAR else 1)
+    seg, nseg = tlk.LINE_SEG, -(-ny // tlk.LINE_SEG)
+    assert fac.above.shape == fac.below.shape == (ny, w)
+    assert fac.gain.shape == (nseg, w)
+    a, d, c = (np.broadcast_to(x.numpy(), (ny, w)) for x in
+               (st.cs, st.cc, st.cn))
+    m, above, below, end_w, start_w = (x.numpy() for x in (
+        fac.m, fac.above, fac.below, fac.end_w, fac.start_w))
+    for j in range(w):
+        for s in range(nseg):
+            s0, s1 = s * seg, min(ny, (s + 1) * seg)
+            blk = _band(a[s0:s1, j], d[s0:s1, j], c[s0:s1, j])
+            blk[0, 0] = 1.0 / m[s0, j]  # the column's pivot, f64
+            n = s1 - s0
+            e0, e1 = np.eye(n)[0], np.eye(n)[-1]
+            np.testing.assert_allclose(
+                above[s0:s1, j], np.linalg.solve(blk, -a[s0, j] * e0),
+                rtol=0, atol=1e-13)
+            below_ref = (np.linalg.solve(blk, -c[s1 - 1, j] * e1)
+                         if s1 < ny else np.zeros(n))
+            np.testing.assert_allclose(below[s0:s1, j], below_ref, rtol=0,
+                                       atol=1e-13)
+            for w_, e in ((end_w, e1), (start_w, e0)):
+                np.testing.assert_allclose(
+                    w_[s0:s1, j], np.linalg.solve(blk.T, e), rtol=0,
+                    atol=1e-13 * np.abs(w_[s0:s1, j]).max())
+    # Config 4's line stencil is constant along x: the kernels read every
+    # per-row value from one packed row; the x-varying one has no table.
+    if prob == CONFIG4:
+        assert fac.table.shape == (ny, tlk.TABLE_WIDTH)
+        for i, k in enumerate(tlk.TABLE_COLUMNS):
+            src = getattr(fac, k, None)
+            src = getattr(st, k) if src is None else src
+            np.testing.assert_array_equal(
+                fac.table[:, i].numpy(),
+                torch.broadcast_to(src, (ny, 1))[:, 0].numpy())
+        assert not fac.table[:, len(tlk.TABLE_COLUMNS):].any()
+    else:
+        assert fac.table is None
+    rhs = np.random.default_rng(ny).standard_normal((ny, w))
+    got = _segmented_solve(torch.as_tensor(rhs), st.cs, fac).numpy()
+    for j in range(w):
+        ref = np.linalg.solve(_band(a[:, j], d[:, j], c[:, j]), rhs[:, j])
+        np.testing.assert_allclose(got[:, j], ref, rtol=0,
+                                   atol=1e-10 * np.abs(ref).max())
+
+
+def _segmented_solve(rhs, cs, fac):
+    """csrc/line.cu's line solve of every column of rhs (ny, w), as test
+    code: each segment's zero-carry ends as weighted sums of its rows
+    (launch 1), the carries C (the true dp above each segment) and D (the
+    true x below it) walked over the segments in f64 and stored in the
+    working type (launch 2), then Thomas's recurrences from zero carries
+    in each segment of LINE_SEG rows and x = xl + C above + D below
+    (launch 3)."""
+    ny, nx = rhs.shape
+    seg = tlk.LINE_SEG
+    nseg = -(-ny // seg)
+
+    def rows(x):
+        x = torch.broadcast_to(x, (ny, nx))
+        return torch.cat([x, x.new_zeros(nseg * seg - ny, nx)]).reshape(
+            nseg, seg, nx)
+
+    r, a, m, cp, above, below, end_w, start_w = (
+        rows(t) for t in (rhs, cs, fac.m, fac.cp, fac.above, fac.below,
+                          fac.end_w, fac.start_w))
+    gain = torch.broadcast_to(fac.gain, (nseg, nx)).double()
+    # Launch 1: the zero-carry ends as weighted sums of the right-hand side.
+    ends, starts = (end_w * r).sum(1), (start_w * r).sum(1)
+    dp, xl = torch.zeros_like(r), torch.zeros_like(r)
+    d = torch.zeros_like(r[:, 0])
+    for i in range(seg):
+        d = dp[:, i] = (r[:, i] - a[:, i] * d) * m[:, i]
+    x = torch.zeros_like(d)
+    for i in reversed(range(seg)):
+        x = xl[:, i] = dp[:, i] - cp[:, i] * x
+    cin = [torch.zeros(nx, dtype=torch.float64)]
+    for s in range(nseg - 1):
+        cin.append(ends[s].double() + gain[s] * cin[-1])
+    cin = [v.to(rhs.dtype) for v in cin]
+    din = [torch.zeros(nx, dtype=rhs.dtype)] * nseg
+    for s in range(nseg - 1, 0, -1):
+        din[s - 1] = (starts[s].double() + cin[s].double() * above[s, 0]
+                      .double() + din[s].double() * below[s, 0].double()
+                      ).to(rhs.dtype)
+    x = xl + torch.stack(cin)[:, None] * above + torch.stack(din)[:, None] \
+        * below
+    return x.reshape(-1, nx)[:ny]
+
+
+def _segmented(st, fac, b, u, sweeps, omega, emit="u", e=None, dot=False):
+    """A model of the CUDA line visit: the sweeps by ``_segmented_solve``
+    on the kernel's factors, then the emits."""
+    u = torch.zeros_like(b) if u is None else u
+    if e is not None:
+        u = u + prolong_bilinear(e)
+    for _ in range(sweeps):
+        x = _segmented_solve(b - off_line_y(st, u), st.cs, fac)
+        u = (1.0 - omega) * u + omega * x
+    if emit == "u":
+        return (u, torch.sum(b * u)) if dot else u
+    r = b - apply_stencil9(st, u)
+    return (u, r) if emit == "ur" else (u, restrict_fw(r))
+
+
+def _within_tol_line(got, ref):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        g, r = np.asarray(g, np.float64), np.asarray(r, np.float64)
+        assert g.shape == r.shape
+        if r.ndim == 0:
+            assert abs(g - r) <= TOL_LINE * abs(r)
+        else:
+            np.testing.assert_allclose(g, r, rtol=0,
+                                       atol=TOL_LINE * np.abs(r).max())
+
+
+# (guess, emit, correct, emit_dot, sweeps)
+SEG_MODES = [(True, "u", False, False, 3), (False, "rc", False, False, 3),
+             (True, "u", True, True, 2), (True, "ur", False, False, 2)]
+
+
+# Levels shorter than a segment, not a multiple of it, and a multiple of
+# it (64 rows: even, so without the transfers, which need odd sizes).
+SEG_CASES = [(shape, mode) for shape in ((7, 7), (63, 31), (64, 33),
+                                         (1023, 33))
+             for mode in SEG_MODES
+             if shape[0] % 2 or not (mode[1] == "rc" or mode[2])]
+
+
+@pytest.mark.parametrize("shape,mode", SEG_CASES)
+@pytest.mark.parametrize("prob", [CONFIG4, XVAR])
+def test_segmented_model_matches_plain_and_pallas(prob, shape, mode):
+    """The model of the kernel's algorithm against ``line_visit9_plain``
+    (PCR) and, where the JAX kernel is viable ((ny, 1) line
+    coefficients), ``line_visit9_pallas`` in interpret mode."""
+    guess, emit, correct, dot, sweeps = mode
+    ny, nx = shape
+    j, t, b, u, e = _setup((ny, nx), prob, ny + sweeps)
+    args = (_t(u) if guess else None, sweeps, 0.9)
+    kw = dict(emit=emit, e_coarse=_t(e) if correct else None, emit_dot=dot)
+    got = _segmented(t, tlk.segment_factor(t, ny), _t(b), args[0], sweeps,
+                     0.9, emit, kw["e_coarse"], dot)
+    _within_tol_line(got, tlk.line_visit9_plain(t, _t(b), *args, **kw))
+    if jlk.line_visit_viable(ny, nx, jnp.float64, j):
+        assert prob == CONFIG4
+        ref = jlk.line_visit9_pallas(
+            j, _j(b), _j(u) if guess else None, sweeps, 0.9, emit=emit,
+            e_coarse=_j(e) if correct else None, emit_dot=dot,
+            interpret=True)
+        _within_tol_line(got, ref)
+
+
+@pytest.mark.parametrize("ny,nx", [(63, 31), (1023, 33)])
+@pytest.mark.parametrize("prob", [CONFIG4, XVAR])
+def test_segmented_solve_is_as_accurate_as_thomas_in_f32(prob, ny, nx):
+    """In f32 the segmented solve stays as accurate as the serial Thomas
+    recurrence it replaces, on config 4's nearly singular lines too: one
+    sweep's error against the f64 sweep, within 2x of Thomas's or of f32
+    resolution (1e-6 of the largest entry)."""
+    _, t, b, u, _ = _setup((ny, nx), prob, 5)
+    t32 = type(t)(*(c.float() for c in t))
+    b32, u32 = _t(b).float(), _t(u).float()
+    ref = tlk.line_visit9_plain(t, _t(b), _t(u), 1, 0.8)
+    seg = _segmented(t32, tlk.segment_factor(t32, ny), b32, u32, 1, 0.8)
+    tf = tlk.segment_factor(t32, ny)
+    rhs = b32 - off_line_y(t32, u32)
+    a, m, cp = (torch.broadcast_to(x, (ny, nx)) for x in (t32.cs, tf.m,
+                                                          tf.cp))
+    dp, x = torch.zeros_like(rhs), torch.zeros_like(rhs)
+    for i in range(ny):
+        dp[i] = (rhs[i] - (a[i] * dp[i - 1] if i else 0.0)) * m[i]
+    for i in range(ny - 1, -1, -1):
+        x[i] = dp[i] - (cp[i] * x[i + 1] if i < ny - 1 else 0.0)
+    thomas = 0.2 * u32 + 0.8 * x
+    scale = float(ref.abs().max())
+
+    def err(v):
+        return float((v.double() - ref).abs().max()) / scale
+
+    assert err(seg) <= max(2 * err(thomas), 1e-6), (err(seg), err(thomas))

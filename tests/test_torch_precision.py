@@ -234,16 +234,20 @@ def test_bf16_plain_rounds_once_at_the_store():
 
 
 def test_visit_bounds_per_storage_type():
-    """Each storage type's shared-memory bound on a visit's sweeps: f64
-    tiles take twice the bytes (23 steps for the 5-point rc visit, 12 for
-    the anisotropic 9-point one); bf16 tiles compute in f32 (43, 28)."""
+    """Each storage type's bound on a visit's sweeps: f64 tiles take twice
+    the bytes (23 steps for the 5-point rc visit); bf16 tiles compute in
+    f32 (43).  The 9-point visit's fixed region holds the anisotropic
+    stencil in every type (f64: 131 KB), so its tile bounds it alike
+    (29); an f64 visit whose 9 coefficients are all fields does not fit
+    at all."""
     aniso9 = ((False, False), (True, False), (False, False), (False, True),
               (True, True), (False, True), (False, False), (True, False),
               (False, False))
     assert tmdma.max_visit_steps(None, "rc", 8) == 23
-    assert tmdma.max_visit_steps(aniso9, "rc", 8) == 12
+    assert tmdma.max_visit_steps(aniso9, "rc", 8) == 29
     assert tmdma.max_visit_steps(None, "rc", 4) == 43
-    assert tmdma.max_visit_steps(aniso9, "rc", 4) == 28
+    assert tmdma.max_visit_steps(aniso9, "rc", 4) == 29
+    assert tmdma.max_visit_steps(((True, True),) * 9, "rc", 8) == 0
     assert tmdma.visit_smem_bytes(None, 25, 8) <= tmdma.MAX_SMEM
     assert tmdma.visit_smem_bytes(None, 26, 8) > tmdma.MAX_SMEM
 

@@ -165,17 +165,31 @@ def test_chebyshev_smoother_matches_jax(sweeps):
     _close(tsk.chebyshev_sweeps(tst, _t(b), _t(u), sweeps, 1.9), ref)
 
 
+ANISO9 = ((False, False), (True, False), (False, False), (False, True),
+          (True, True), (False, True), (False, False), (True, False),
+          (False, False))
+# Every coefficient an (ny, nx) field: the most shared memory a 9-point
+# visit stages.
+FIELDS9 = ((True, True),) * 9
+
+
 def test_steps_cap_is_the_kernels():
     """The visit kernels take as many steps as a block's shared memory
     holds (the schedules live in device memory, so no parameter block
-    caps them): 43 for the 5-point visit with emit rc, 45 with emit u,
-    28 for the 9-point visit of the anisotropic stencil; at least 1."""
-    aniso9 = ((False, False), (True, False), (False, False), (False, True),
-              (True, True), (False, True), (False, False), (True, False),
-              (False, False))
+    caps them): 43 for the 5-point visit with emit rc, 45 with emit u;
+    the 9-point visit's region is fixed (64 x 64, its shared memory does
+    not grow with the halo), so its tile bounds it: 29 steps with emit
+    rc, 31 with emit u, for any coefficient layout that fits; at least
+    1."""
     assert tmdma.max_visit_steps(None, "rc") == 43
     assert tmdma.max_visit_steps(None, "u") == 45
-    assert tmdma.max_visit_steps(aniso9, "rc") == 28
+    assert tmdma.max_visit_steps(ANISO9, "rc") == 29
+    assert tmdma.max_visit_steps(ANISO9, "u") == 31
+    assert tmdma.max_visit_steps(FIELDS9, "rc") == 29
+    assert tmdma.visit_smem_bytes(ANISO9, 3) == tmdma.visit_smem_bytes(
+        ANISO9, 31) == 4 * (2 * 66 * 66 + 2 * 64 * 64 + 2 * 64 + 2 * 64 + 4
+                            + 8)
+    assert tmdma.visit_fits(ANISO9, 31) and not tmdma.visit_fits(ANISO9, 32)
     k = tmdma.max_visit_steps(None, "rc")
     assert tmdma.visit_smem_bytes(None, k + 2) <= tmdma.MAX_SMEM
     assert tmdma.visit_smem_bytes(None, k + 3) > tmdma.MAX_SMEM
@@ -183,6 +197,22 @@ def test_steps_cap_is_the_kernels():
     assert arr.shape == (64,) and arr.dtype == torch.float32
     with pytest.raises(ValueError):
         tmdma.steps_tensor((), "cpu")
+
+
+@pytest.mark.parametrize("stencil", ["5-point", "9-point"])
+def test_steps_cap_covers_every_path(stencil):
+    """The bound covers the most steps a path gives a visit: v = (8, 8)
+    (the fused route and -v 8,8 runs: 8 steps in a visit, emit rc or u),
+    phase 2's k = 32 5-point visit, K17's row blocks at k + 2 rows of
+    halo, in every storage type's compute type."""
+    kinds = None if stencil == "5-point" else ANISO9
+    most = 32 if stencil == "5-point" else 8
+    for size in (4, 8):  # f32 and bf16 tiles; f64
+        for emit in ("u", "ur", "r", "rc"):
+            k = tmdma.max_visit_steps(kinds, emit, size)
+            assert k >= (8 if size == 8 else most), (emit, size, k)
+            assert tmdma.visit_fits(kinds, tmdma._halo(emit, k), size)
+            assert not tmdma.visit_fits(kinds, tmdma._halo(emit, k + 1), size)
 
 
 def test_new_wrappers_refuse_other_devices():
