@@ -11,9 +11,14 @@ non-zero):
   2. every 5-point kernel against its plain PyTorch version on the card,
      at the shapes of the 8193^2 / 11-level paths, with times: the mg-CG
      kernels K1-K4, then K6, K7 (Jacobi and Chebyshev) and K9 in each
-     mode the V-cycle family uses, a k = 8 and a k = 32 visit;
+     mode the V-cycle family uses, a k = 8 and a k = 32 visit; then the
+     5-point strip visit (every flag set, K17's row blocks) and K12 (three
+     coefficient layouts, row blocks) on ragged shapes, at k = 1, at the
+     sweep bound and on either side of the region rule, untimed;
   2b. the 9-point kernels at 8191^2, on the anisotropic stencil and on a
-     random stencil with every coefficient kind: K12 (apply, residual),
+     random stencil with every coefficient kind: K12 (apply, residual;
+     timed, with conv2d, on the constant stencil as the solver builds it,
+     cc an (n, n) field: the anisotropic layout; and on its nine scalars),
      K13 (Jacobi, Chebyshev), K14 in every mode, K15 (u, u + r, the
      zero-guess rc, correction + u + <b, u>, x-varying line
      coefficients), with times, and conv2d's time where one PyTorch call
@@ -59,7 +64,8 @@ non-zero):
      residual5, K7, K9 (K2b's zero-guess rc, K3's correcting u + dot, a
      nonzero-guess rc), K12, K13 and K14, and K15 in f64, each against its
      plain version, with times and conv2d's where one call computes it;
-     then 2b's ragged shapes for K14 in f64 and bf16 and K15 in f64;
+     then 2b's ragged shapes for K14 in f64 and bf16 and K15 in f64, and
+     phase 2's ragged checks of the 5-point visit and K12 in f64 and bf16;
   3d. card against CPU at 1025^2 / 8 levels: the fused route (-v 8,8),
      mg-CG in f64 to rtol 1e-7 (generic route), the mixed outer (f32
      V-cycle + f64 outer) to 1e-8 and float32x2, the bf16 preconditioner
@@ -96,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -129,6 +136,42 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """Registers and spilled bytes per kernel template and storage type
+    (and, for the 5-point visit, region), from the build's -Xptxas -v
+    output."""
+    groups: dict = {}
+    fam = re.compile(r"(visit5|visit9|apply9|stencil|cg_papply|line_fix|"
+                     r"line_carry|line_segment|line_residual|coarse_tree|"
+                     r"dia_spmv)_kernel(I(f|d|13__nv_bfloat16))?")
+    types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
+    key = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = fam.search(m.group(1))
+            key = None if k is None else " ".join(
+                [k.group(1) + "_kernel"] + ([types[k.group(3)]] if k.group(3)
+                                            else []))
+            r = re.search(r"Region5ILi\d+ELi\d+ELi(\d+)E", m.group(1))
+            if key and r:
+                key += " short" if r.group(1) == "16" else " tall"
+            continue
+        if key is None:
+            continue
+        g = groups.setdefault(key, [10**9, 0, 0, 0])
+        s = re.search(r"(\d+) bytes spill stores", line)
+        if s:
+            g[2] += int(s.group(1))
+        u = re.search(r"Used (\d+) registers", line)
+        if u:
+            n = int(u.group(1))
+            g[0], g[1], g[3] = min(g[0], n), max(g[1], n), g[3] + 1
+            key = None
+    return [f"{k}: {g[0]}-{g[1]} registers, {g[2]} B spilled ({g[3]} "
+            f"instantiations)" for k, g in sorted(groups.items())]
+
+
 def time_ms(torch, fn) -> float:
     """Median over REPS runs of fn, timed with CUDA events, after warm-up."""
     for _ in range(2):
@@ -145,10 +188,12 @@ def time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None):
+def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None,
+            floor=0.0):
     """Assert kernel outputs against plain outputs; track the worst error.
     An inner product is held to TOL_DOT of its value, or, with
-    ``dot_scale`` (the sum of |products|), to ``tol`` of that."""
+    ``dot_scale`` (the sum of |products|), to ``tol`` of that.  An array
+    is held to ``tol`` of max(max|plain|, ``floor``)."""
     if isinstance(want, torch.Tensor) and want.dim() == 0:
         err = abs(float(got) - float(want))
         lim = (TOL_DOT * abs(float(want)) if dot_scale is None
@@ -162,7 +207,7 @@ def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None):
                 x.abs().clamp_min(1e-30))) - 7)
 
         lim = torch.maximum(BF16_ULPS * torch.maximum(ulp(g), ulp(w)),
-                            TOL_ARRAY * w.abs().max())
+                            TOL_ARRAY * w.abs().max().clamp_min(floor))
         worst = float(((g - w).abs() / lim).max())
         print(f"  {name}: max|kernel - plain| = {err:.3e}, at most "
               f"{worst:.2f} of the limit ({BF16_ULPS} bf16 ulp of the entry "
@@ -174,7 +219,7 @@ def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None):
         return
     else:
         err = float((got - want).abs().max())
-        lim = tol * float(want.abs().max())
+        lim = tol * max(float(want.abs().max()), floor)
     print(f"  {name}: max|kernel - plain| = {err:.3e} (limit {lim:.3e}, "
           f"{err / max(lim / tol, 1e-300):.3e} of max|plain|)")
     if not err <= lim:
@@ -220,18 +265,20 @@ def conv_call(torch, w3, u, b=None):
 
 def check_kernel(torch, rec, key, label, nbytes, flops, kern, plain, names,
                  tol=TOL_ARRAY, library=None, timed=True, dot_scale=None,
-                 library_name="conv2d"):
+                 library_name="conv2d", floors=None):
     """Hold a kernel's outputs to its plain version's; then (``timed``)
     time both, and the library call where there is one.  The kernel's
     record keeps its first timing.  ``dot_scale(want)`` gives the scale an
-    inner product is held to (see ``compare``)."""
+    inner product is held to, ``floors`` an output's floor (by name; see
+    ``compare``)."""
     print(label)
     got, want = kern(), plain()
     if not isinstance(want, tuple):
         got, want = (got,), (want,)
     for nm, g, w in zip(names, got, want):
         scale = dot_scale(want) if dot_scale and w.dim() == 0 else None
-        compare(torch, nm, g, w, rec[key], tol, scale)
+        compare(torch, nm, g, w, rec[key], tol, scale,
+                (floors or {}).get(nm, 0.0))
     del got
     if not timed:
         return
@@ -407,6 +454,19 @@ def phase_kernels_vcycle(torch, dev, rec):
           lambda: sk.residual5(st, b, u),
           lambda: sk.residual5_plain(st, b, u), ("r",),
           library=conv_call(torch, w5, u, b))
+    del b, u, e
+    torch.cuda.empty_cache()
+    check_ragged_5pt(torch, dev, rec, torch.float32)
+
+
+def time_scalar_layout(torch, record, label, nbytes, fn):
+    """K12 on its nine-scalar layout (the constant stencil with cc a scalar
+    too, so only the (n, n) arrays u [, b] and the output move), kept
+    beside the record's time on the solver's layout of the same stencil."""
+    ms = time_ms(torch, fn)
+    record.update(scalars_ms=ms, scalars_bound_ms=1e3 * nbytes / HBM_PEAK)
+    print(f"  {label} (nine scalars): kernel {ms:.4f} ms "
+          f"({nbytes / ms / 1e6:.1f} GB/s effective)")
 
 
 def phase_kernels_9pt(torch, dev, rec):
@@ -436,7 +496,11 @@ def phase_kernels_9pt(torch, dev, rec):
         return stencil9_coefficients(AnisoProblem(*p), n, n, f32, dev)
 
     mixed = aniso(1.0, 1.0, 1.0, 2.0, 0.4)   # x-varying cc, all kinds
-    const = aniso(1.0, 0.0, 100.0, 0.0, 0.3)  # constant coefficients
+    # Constant coefficients as the solver builds them (cc an (n, n) field:
+    # the anisotropic layout, phase 6's A p), and as nine scalars (K12's
+    # compiled scalar layout).
+    const = aniso(1.0, 0.0, 100.0, 0.0, 0.3)
+    scal = Stencil9(*(x.reshape(-1)[:1].reshape(1, 1) for x in const))
     # Every kind, cc a random field scaled like the O(1/h^2) stencils.
     h2 = float(n + 1) ** 2
     allk = Stencil9(h2 * rnd(1, 1), h2 * rnd(n, 1), h2 * rnd(1, n),
@@ -453,12 +517,13 @@ def phase_kernels_9pt(torch, dev, rec):
         check_kernel(torch, rec, key, f"{label} at {n}^2", *args, **kw)
 
     # K12 on the constant-coefficient stencil first (its timing and
-    # conv2d's), then on the other two for agreement.
-    q = [float(x.reshape(-1)[0]) for x in const]
+    # conv2d's), then on the other three for agreement; its time on the
+    # nine scalars is kept beside.
+    q = [float(x.reshape(-1)[0]) for x in scal]
     w9 = torch.tensor([q[0:3], q[3:6], q[6:9]], device=dev)
-    for name, st in (("constant-coefficient", const), ("mixed", mixed),
-                     ("all kinds", allk)):
-        first = st is const
+    for name, st in (("constant-coefficient", const), ("nine scalars", scal),
+                     ("mixed", mixed), ("all kinds", allk)):
+        first = st is const  # u and cc in, A u out
         check("apply_stencil9", f"K12 apply_stencil9 ({name})", 3 * arr,
               17 * pts, lambda: k9.apply_stencil9(st, u),
               lambda: k9.apply_stencil9_plain(st, u), ("Au",),
@@ -469,6 +534,11 @@ def phase_kernels_9pt(torch, dev, rec):
               lambda: k9.residual9_plain(st, b, u), ("r",),
               library=conv_call(torch, w9, u, b) if first else None,
               timed=first)
+    time_scalar_layout(torch, rec["apply_stencil9"], "K12 apply_stencil9",
+                       2 * arr, lambda: k9.apply_stencil9(scal, u))
+    time_scalar_layout(torch, rec["residual9"], "K12 residual9", 3 * arr,
+                       lambda: k9.residual9(scal, b, u))
+    del scal
     jac, cheb = jacobi_step_coeffs(3, 0.8), chebyshev_step_coeffs(3, 1.9)
     for name, st in (("mixed", mixed), ("all kinds", allk)):
         for sname, steps in (("Jacobi", jac), ("Chebyshev", cheb)):
@@ -618,6 +688,188 @@ def check_ragged_9pt(torch, dev, rec, dt, sfx=""):
                     timed=False,
                     dot_scale=lambda w: float((b * w[0]).abs().sum()))
         del mixed, line, xvar, b, u, e
+        torch.cuda.empty_cache()
+
+
+def row_blocks_of(ny: int) -> int:
+    """Row blocks a RAGGED level is cut into for K17's checks: the most
+    (at most 4) whose blocks of the padded ny + 1 rows are even and hold
+    at least 8 rows."""
+    return next(p for p in (4, 2, 1)
+                if (ny + 1) % p == 0 and (ny + 1) // p % 2 == 0
+                and ((ny + 1) // p >= 8 or p == 1))
+
+
+def check_rows(torch, rec, key, label, st, b, u, e, steps, emit,
+               guess=True, floor=0.0):
+    """K17 on a level cut into row_blocks_of(ny) blocks, each with its
+    halo rows cut from its neighbours: the stitched blocks against the
+    plain row-block version (TOL_ARRAY of max|plain|, a residual's of
+    max(max|plain|, ``floor``)); the pad row and the coarse pad row
+    exactly 0."""
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+
+    ny = b.shape[0]
+    P = row_blocks_of(ny)
+    R = (ny + 1) // P
+    h = dk.halo_rows(len(steps), emit)
+    hc = dk.coarse_halo_rows(h)
+    bb, ub = k17_blocks(torch, b, P, h), k17_blocks(torch, u, P, h)
+    eb = k17_blocks(torch, e, P, hc) if e is not None else None
+    calls = [((st, None if emit == "a" else bb[p][0],
+               ub[p][0] if guess else None, steps, emit),
+              dict(row0=p * R, ny=ny, b_halo=bb[p][1], u_halo=ub[p][1],
+                   e=None if eb is None else eb[p][0][:R // 2],
+                   e_halo=None if eb is None else eb[p][1]))
+             for p in range(P)]
+
+    def stitched(fn):
+        outs = [fn(*a, **kw) for a, kw in calls]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        return tuple(torch.cat([o[i] for o in outs])
+                     for i in range(len(outs[0])))
+
+    print(f"{label}, {P} row blocks of {R}")
+    got, want = stitched(dk.row_visit), stitched(dk.row_visit_plain)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert bool((g[-1] == 0).all()), f"{label}: output {i} pad row"
+        compare(torch, f"output {i}", g, w, rec[key],
+                floor=floor if i or emit == "r" else 0.0)
+
+
+def check_ragged_5pt(torch, dev, rec, dt, sfx=""):
+    """The 5-point strip visit and K12's strip kernel against their plain
+    versions on RAGGED's shapes (tiles cut by the edge, levels smaller
+    than a tile), untimed.  The visit: every flag set (f32: also the CG
+    set, K2a / K10) at k = 1, at its emit's bound (max_visit_steps: 43
+    with emit rc in f32 and bf16, 23 in f64) and, in the f32 compute type,
+    at the two halos on either side of the region rule (V5_SHORT_MAX_H), so
+    every region a storage type has is launched; then K17's row blocks
+    (f32, f64) in every emit at the same steps where the halo fits a
+    block.  K12: apply and residual on a stencil of nine scalars (the
+    compiled constant layout), the anisotropic (1,1,1,2,0.4) stencil (its
+    compiled layout) and one with every coefficient kind (run-time
+    strides), whole grids and (f32, f64) row blocks.  A dot is held to
+    TOL_ARRAY of sum |b u|: its rounding scales with that sum, and random
+    data on a small level cancel far below it.  A residual (r, rc) is held
+    to TOL_ARRAY of max(max|plain|, max|b|): after tens of steps it is
+    small beside b and A u, the terms it cancels, and carries their
+    rounding."""
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+    from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, Stencil9
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    tag = str(dt).replace("torch.", "")
+    size = 8 if dt == torch.float64 else 4  # the compute type's bytes
+    rows = dt in dk.ROW_DTYPES
+    key, key9 = "fused_level_visit" + sfx, "apply_stencil9" + sfx
+    rec.setdefault(key, {})
+    rec.setdefault(key9, {})
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def ks_for(emit):
+        ks = {1, mdma.max_visit_steps(None, emit, size)}
+        if size == 4:
+            h0 = mdma.V5_SHORT_MAX_H - mdma._halo(emit, 0)
+            ks |= {h0, h0 + 1}
+        return sorted(ks)
+
+    modes = [  # label, guess, correct, emit, dot
+        (f"{'correct + ' if c else ''}{'' if g else 'zero-guess '}{em}"
+         f"{' + <b,u>' if d else ''}", g, c, em, d)
+        for g, c in ((False, False), (True, False), (True, True))
+        for em, d in (("u", False), ("ur", False), ("r", False),
+                      ("rc", False), ("u", True))]
+    for ny, nx in RAGGED:
+        n = max(ny, nx)
+        h2 = float(n + 1) ** 2
+
+        def col():
+            return h2 * (1.0 + 0.25 * rnd(ny, 1))
+
+        st = Stencil5(col(), col(), -h2 * (5.0 + rnd(ny, 1).abs()), col(),
+                      col())
+        b, u = rnd(ny, nx), rnd(ny, nx)
+        e = rnd((ny - 1) // 2, (nx - 1) // 2)
+        where = f"{tag} at {ny} x {nx}"
+        floors = dict.fromkeys(("r", "rc"), float(b.abs().max()))
+        for label, g, c, emit, dot in modes:
+            for k in ks_for(emit):
+                steps = jacobi_step_coeffs(k, 0.8)
+                u_in, e_c = (u if g else None), (e if c else None)
+                check_kernel(
+                    torch, rec, key, f"5-point visit {label} k={k} {where}",
+                    0, 0,
+                    lambda: sk.fused_level_visit(st, b, u_in, steps, emit,
+                                                 e_c, dot),
+                    lambda: sk.fused_level_visit_plain(st, b, u_in, steps,
+                                                       emit, e_c, dot),
+                    {"u": ("u'", "<b,u>"), "ur": ("u'", "r"), "r": ("r",),
+                     "rc": ("u'", "rc")}[emit], timed=False,
+                    dot_scale=lambda w: float(
+                        (b.float() * w[0].float()).abs().sum()),
+                    floors=floors)
+        if dt == torch.float32:
+            ap = rnd(ny, nx)
+            alpha = torch.tensor(0.37, device=dev)
+            for k in ks_for("rc"):
+                steps = jacobi_step_coeffs(k, 0.8)
+                check_kernel(
+                    torch, rec, key, f"5-point visit CG rc k={k} {where}", 0,
+                    0, lambda: sk.cg_visit_down(st, b, ap, alpha, steps),
+                    lambda: sk.cg_visit_down_plain(st, b, ap, alpha, steps),
+                    ("u0", "rc", "r'", "||r'||^2"), timed=False,
+                    floors=floors)
+        if rows:
+            R = (ny + 1) // row_blocks_of(ny)
+            for emit in ("u", "ur", "rc"):
+                for g, c in ((False, False), (True, False), (True, True)):
+                    for k in ks_for(emit):
+                        if dk.halo_rows(k, emit) > R:
+                            continue
+                        check_rows(
+                            torch, rec, key,
+                            f"K17 5-point {'correct + ' if c else ''}"
+                            f"{'' if g else 'zero-guess '}{emit} k={k} "
+                            f"{where}", st, b, u, e if c else None,
+                            jacobi_step_coeffs(k, 0.8), emit, guess=g,
+                            floor=floors["r"])
+        # K12.
+        aniso = stencil9_coefficients(AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4),
+                                      n, n, dt, dev)
+        aniso = Stencil9(*(x[:, :nx].contiguous() if x.shape[1] > 1 else
+                           x[:ny] if x.shape[0] > 1 else x for x in aniso))
+        scal = Stencil9(*(h2 * rnd(1, 1) for _ in range(9)))
+        allk = Stencil9(h2 * rnd(1, 1), h2 * rnd(ny, 1), h2 * rnd(1, nx),
+                        h2 * rnd(ny, nx), -h2 * (12 + 4 * rnd(ny, nx).abs()),
+                        h2 * rnd(1, nx), h2 * rnd(ny, 1), h2 * rnd(1, 1),
+                        h2 * rnd(ny, nx))
+        for name, st9 in (("scalars", scal), ("aniso", aniso),
+                          ("all kinds", allk)):
+            check_kernel(torch, rec, key9, f"K12 apply ({name}) {where}", 0,
+                         0, lambda: k9.apply_stencil9(st9, u),
+                         lambda: k9.apply_stencil9_plain(st9, u), ("Au",),
+                         timed=False)
+            check_kernel(torch, rec, key9, f"K12 residual ({name}) {where}",
+                         0, 0, lambda: k9.residual9(st9, b, u),
+                         lambda: k9.residual9_plain(st9, b, u), ("r",),
+                         timed=False)
+            if rows:
+                for emit in ("a", "r"):
+                    check_rows(torch, rec, key9,
+                               f"K17 K12 {emit} ({name}) {where}", st9, b,
+                               u, None, (), emit)
+        del st, b, u, e, aniso, scal, allk
         torch.cuda.empty_cache()
 
 
@@ -1122,6 +1374,7 @@ def phase_kernels_precision(torch, dev, rec):
     from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
     from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
     from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
     from multigrid_petsc_tpu_torch.problems import (
         AnisoProblem,
         stencil9_coefficients,
@@ -1193,9 +1446,12 @@ def phase_kernels_precision(torch, dev, rec):
               lambda: sk.fused_level_visit_plain(st, b, u, jac, "rc"),
               ("u'", "rc"))
         del st, e
+        # K12 on the solver's layout of the constant stencil (cc a field),
+        # then on its nine scalars.
         const = stencil9_coefficients(AnisoProblem(1.0, 0.0, 100.0, 0.0, 0.3),
                                       n, n, dt, dev)
-        q = [float(x.reshape(-1)[0]) for x in const]
+        scal = Stencil9(*(x.reshape(-1)[:1].reshape(1, 1) for x in const))
+        q = [float(x.reshape(-1)[0]) for x in scal]
         w9 = torch.tensor([q[0:3], q[3:6], q[6:9]], device=dev, dtype=dt)
         check("apply_stencil9" + sfx, f"K12 apply_stencil9 {tag}", 3, isz,
               17 * pts, lambda: k9.apply_stencil9(const, u),
@@ -1205,7 +1461,19 @@ def phase_kernels_precision(torch, dev, rec):
               lambda: k9.residual9(const, b, u),
               lambda: k9.residual9_plain(const, b, u), ("r",),
               library=conv_call(torch, w9, u, b))
-        del const
+        check("apply_stencil9" + sfx, f"K12 apply_stencil9 (nine scalars) "
+              f"{tag}", 2, isz, 17 * pts, lambda: k9.apply_stencil9(scal, u),
+              lambda: k9.apply_stencil9_plain(scal, u), ("Au",), timed=False)
+        check("residual9" + sfx, f"K12 residual9 (nine scalars) {tag}", 3,
+              isz, 18 * pts, lambda: k9.residual9(scal, b, u),
+              lambda: k9.residual9_plain(scal, b, u), ("r",), timed=False)
+        time_scalar_layout(torch, rec["apply_stencil9" + sfx],
+                           f"K12 apply_stencil9 {tag}", 2 * isz * pts,
+                           lambda: k9.apply_stencil9(scal, u))
+        time_scalar_layout(torch, rec["residual9" + sfx],
+                           f"K12 residual9 {tag}", 3 * isz * pts,
+                           lambda: k9.residual9(scal, b, u))
+        del const, scal
         mixed = stencil9_coefficients(AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4),
                                       n, n, dt, dev)
         check("smooth9_sweeps" + sfx, f"K13 smooth9_sweeps Jacobi k=3 {tag}",
@@ -1231,6 +1499,7 @@ def phase_kernels_precision(torch, dev, rec):
         del b, u
         torch.cuda.empty_cache()
         check_ragged_9pt(torch, dev, rec, dt, sfx)
+        check_ragged_5pt(torch, dev, rec, dt, sfx)
 
 
 def phase_parity_precision(torch):
@@ -1794,9 +2063,8 @@ def main() -> int:
     print(f"build + load of the CUDA kernels: {time.perf_counter() - t0:.2f} s")
     log = BUILD_DIR / "build.log"
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas: " + line.strip())
+        for line in ptxas_summary(log.read_text()):
+            print("  ptxas: " + line)
     dev = torch.device("cuda")
     # The library yardstick (conv2d) in full f32, as the kernels compute.
     torch.backends.cudnn.allow_tf32 = False
@@ -1923,7 +2191,10 @@ def main() -> int:
             "plain_ms": rec[k]["plain_ms"], "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": rec[k]["library_ms"],
-            "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate})
+            "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate,
+            **({"ms_nine_scalars": rec[k]["scalars_ms"],
+                "bound_ms_nine_scalars": rec[k]["scalars_bound_ms"]}
+               if "scalars_ms" in rec[k] else {})})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1)")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {nvidia_smi_line()}")

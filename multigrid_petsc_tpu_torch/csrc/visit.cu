@@ -11,9 +11,17 @@ MG_VISIT_ROWS_ENTRIES(, float)
 
 extern "C" {
 
-// Number of per-block partials a visit kernel emits for an (ny, nx) grid.
+// Number of per-block partials K1 and K11 emit for an (ny, nx) grid.
 int mg_visit_blocks(int ny, int nx) {
   dim3 g = visit_grid(ny, nx);
+  return (int)(g.x * g.y);
+}
+
+// Number of per-block partials a 5-point visit with halo h emits in a
+// compute type of csize bytes (its region follows h and the type).
+int mg_visit5_blocks(int ny, int nx, int h, int csize) {
+  dim3 g = csize == 8 ? visit5_grid_for<double>(ny, nx, h)
+                      : visit5_grid_for<float>(ny, nx, h);
   return (int)(g.x * g.y);
 }
 

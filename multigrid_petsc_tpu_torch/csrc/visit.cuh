@@ -3,9 +3,9 @@
 // visit_f64.cu and visit_bf16.cu instantiate them and bind each to a plain
 // C interface (ctypes), one entry per storage type.
 //
-// One templated visit kernel serves every fused 5-point level visit
-// (Coeffs), and its own kernel, visit9_kernel (below), every 9-point one
-// (Coeffs9); their flags pick what is read and written:
+// One templated visit kernel, visit5_kernel, serves every fused 5-point
+// level visit (Coeffs), and visit9_kernel every 9-point one (Coeffs9);
+// their flags pick what is read and written:
 //   CG       b = r - alpha * ap formed in-kernel; r' and ||r'||^2 emitted
 //            (5-point, f32 only)
 //   GUESS    start from the given u (else the zero guess: z = D^-1 b first)
@@ -15,31 +15,34 @@
 //
 // Replaces (multigrid_petsc_tpu/ops/pallas/):
 //   K1  cg_papply_kernel<UPDATE_U> <- mdma_kernel.py cg_papply_u_mdma
-//   K2a visit <CG, rc>       <- mdma_kernel.py cg_visit_down_mdma
-//   K2b visit <rc>           <- mdma_kernel.py visit_down_mdma
-//   K3  visit <GUESS, CORRECT, u[, DOT]> <- mdma_kernel.py visit_up_mdma
+//   K2a visit5_kernel <CG, rc> <- mdma_kernel.py cg_visit_down_mdma
+//   K2b visit5_kernel <rc>   <- mdma_kernel.py visit_down_mdma
+//   K3  visit5_kernel <GUESS, CORRECT, u[, DOT]> <- mdma_kernel.py
+//       visit_up_mdma
 //   K6  stencil_kernel<false, Coeffs> <- stencil_kernel.py
 //       apply_stencil5_pallas
-//   K7  visit <GUESS, u>     <- stencil_kernel.py smooth_sweeps_pallas
+//   K7  visit5_kernel <GUESS, u> <- stencil_kernel.py smooth_sweeps_pallas
 //   K8  stencil_kernel<RESID, Fields5> <- stencil_kernel.py
 //       apply_stencil5_field_pallas (five (ny, nx) coefficient fields: 7
 //       arrays moved for A u, 8 for b - A u; the fields are read in place,
 //       not staged)
-//   K9  visit (every flag set above) <- stencil_kernel.py
+//   K9  visit5_kernel (every flag set above) <- stencil_kernel.py
 //       fused_level_visit_pallas; its k = 0 residual (residual5_pallas)
 //       is stencil_kernel<true, Coeffs>
-//   K10 visit <CG, rc> (K2a's flag set, unpadded) <- stencil_kernel.py
+//   K10 visit5_kernel <CG, rc> (K2a's flag set, unpadded) <-
+//       stencil_kernel.py
 //       cg_visit_down_pallas
 //   K11 cg_papply_kernel<!UPDATE_U> (K1 without the lagged u stream) <-
 //       stencil_kernel.py cg_papply_pallas
-//   K12 stencil_kernel<RESID, Coeffs9> <- stencil9_kernel.py
+//   K12 apply9_kernel <RESID, LAYOUT> <- stencil9_kernel.py
 //       apply_stencil9_pallas, residual9_pallas
 //   K13 visit9_kernel <GUESS, u> <- stencil9_kernel.py
 //       smooth9_sweeps_pallas
 //   K14 visit9_kernel (every flag set but CG) <- stencil9_kernel.py
 //       fused_level_visit9_pallas
-//   K17 visit, visit9_kernel and stencil_kernel on a row block (RowBlock
-//       below; every flag set but CG, both stencils, f32 and f64) <-
+//   K17 visit5_kernel, visit9_kernel, stencil_kernel and apply9_kernel on
+//       a row block (RowBlock below; every flag set but CG, both stencils,
+//       f32 and f64) <-
 //       dist_kernel.py dist_level_visit_local
 //
 // Every launch covers a RowBlock: a whole grid, or one rank's block of a
@@ -65,26 +68,33 @@
 // point against 8-24 bytes of device-memory traffic per point (twice that
 // in f64, half in bf16), far below the card's flop:byte balance, so the
 // design goal is to touch each big array once per visit:
-//   * each block owns a TY x TX output tile and stages a tile + halo of H
-//     rows/cols in shared memory (in the compute type); all k smoother
-//     steps, the residual and the restriction (or the prolongation +
-//     correction) run there, so the k sweeps cost one read of b (and u)
-//     and one write of the result instead of ~3 passes per sweep;
+//   * a visit block owns a region -- its output tile plus a halo of H
+//     rows / columns on every side -- in shared memory (in the compute
+//     type); all k smoother steps, the residual and the restriction (or
+//     the prolongation + correction) run there, so the k sweeps cost one
+//     read of b (and u) and one write of the result instead of ~3 passes
+//     per sweep;
 //   * the halo is H = k for emit u, k + 1 for u + r and r, k + 2 for rc:
-//     pollution from the unknown tile edge travels one point (one ring,
+//     pollution from the unknown region edge travels one point (one ring,
 //     diagonals included for the 9-point stencil) per stencil
 //     application, the residual needs one more point and the
 //     full-weighting restriction one more fine row/column past the tile
 //     (coarse I needs fine 2I..2I+2);
-//   * the 9-point coefficients are staged in their own shape: a scalar as
-//     one value, an (ny, 1) column or a (1, nx) row as one strip of the
-//     tile, only an (ny, nx) field as a whole tile (the anisotropic
-//     problem has one: cc, plus its inverse);
+//   * once in shared memory a visit is bound by the instructions it issues
+//     and their latency, so both visits take the strip form (visit5_kernel,
+//     visit9_kernel): a thread owns a vertical strip of one column of the
+//     region for the whole visit, b and p of its points in registers, the
+//     iterate u double-buffered in a ring of zeros (one barrier per step,
+//     no bounds test, no u += p pass), a register window for the vertical
+//     neighbours, no index division (the thread's column and rows come
+//     from its warp and lane, the restriction's coarse points from a warp
+//     x lane grid);
 //   * halo rows and columns are re-read by neighbouring blocks; they come
-//     from L2 for the most part.  cp.async/TMA pipelining is later work.
-// (The 9-point visit keeps this plan but not its per-point loop: see
-// visit9_kernel.)
-//
+//     from L2 for the most part.  A persistent block that prefetches its
+//     next region with cp.async was measured slower (visit5_kernel).
+//   * K12 (apply9_kernel) stages nothing: a thread walks a column strip
+//     with a 3 x 3 window of u read straight from device memory.
+
 // Streams read with a halo (z, p, r, ap, b, u) are never written in place:
 // blocks run concurrently, so a neighbour could read an updated halo.  The
 // only in-place stream is K1's pointwise u -> u' (un may alias u).
@@ -95,12 +105,13 @@
 // Scalars (alpha, alpha_prev, beta) and the smoother's (alpha_s, beta_s)
 // schedule are read from device memory by pointer, so neither the CG loop
 // nor a visit needs a host round trip for them, and no sweep count is
-// bound by the kernel-parameter block.  The only bound on a 5-point
-// visit's sweep count is its shared memory (visit_smem_bytes <= MAX_SMEM,
-// with the compute type's element size): with emit rc at most 43 steps in
-// f32 and bf16 (45 with emit u), 23 in f64; a 9-point visit's is its
-// fixed region (visit9_fits: 29 steps with emit rc, 31 with emit u, in
-// every storage type); the wrappers raise ValueError above them.  Dot
+// bound by the kernel-parameter block.  A 5-point visit's sweep count is
+// bound by the wrappers (mdma_kernel.py visit_fits): with emit rc at most
+// 43 steps in f32 and bf16 (45 with emit u), 23 in f64, the shared memory
+// of its first design's tile + halo, kept as the contract; its regions
+// (v5_fits) hold every halo within it.  A 9-point visit's is its fixed
+// region (visit9_fits: 29 steps with emit rc, 31 with emit u, in every
+// storage type); the wrappers raise ValueError above them.  Dot
 // products are emitted as per-block partials in the compute type; the
 // caller sums them.
 #pragma once
@@ -289,15 +300,10 @@ __device__ __forceinline__ C apply_at(const C* v, const RowCoeffs<C>& rc,
          rc.ce[sy] * e;
 }
 
-template <class C>
-__device__ __forceinline__ C dinv_at(const RowCoeffs<C>& rc, int sy, int) {
-  return rc.dinv[sy];
-}
-
-// ---- 9-point coefficients staged for a tile: entry q (csw..cne, then
-// dinv laid out as cc) at c[q][sy * ys[q] + sx * xs[q]], its shared strides
-// (SW, 1) for a field, (1, 0) for a column, (0, 1) for a row, (0, 0) for a
-// scalar.
+// ---- 9-point coefficients staged for a region (visit9_kernel): entry q
+// (csw..cne, then dinv laid out as cc) at c[q][sy * ys[q] + sx * xs[q]],
+// its shared strides (SW, 1) for a field, (1, 0) for a column, (0, 1) for
+// a row, (0, 0) for a scalar.
 template <class C>
 struct Tile9 {
   const C* c[10];
@@ -316,67 +322,6 @@ __host__ __device__ inline size_t coeff_elems(const Coeffs9<T>& c, int SH,
   size_t n = staged_size(c.sy[mg::CC], c.sx[mg::CC], SH, SW);  // dinv
   for (int q = 0; q < 9; ++q) n += staged_size(c.sy[q], c.sx[q], SH, SW);
   return n;
-}
-
-// Coefficients outside the domain are staged as 0 (their points are
-// masked); dinv guards a zero cc as the JAX kernel does.
-template <class T>
-__device__ Tile9<compute_t<T>> stage(const Coeffs9<T>& c, compute_t<T>* base,
-                                     int SH, int SW, int gy0, int gx0, int ny,
-                                     int nx) {
-  using C = compute_t<T>;
-  Tile9<C> t;
-#pragma unroll
-  for (int q = 0; q < 10; ++q) {
-    const int src = q < 9 ? q : mg::CC;
-    const int gys = c.sy[src], gxs = c.sx[src];
-    const int rows = gys ? SH : 1, cols = gxs ? SW : 1;
-    t.c[q] = base;
-    t.ys[q] = gys ? cols : 0;
-    t.xs[q] = gxs ? 1 : 0;
-    for (int i = threadIdx.x; i < rows * cols; i += NTHREADS) {
-      const int r = i / cols, s = i - (i / cols) * cols;
-      const int gy = gy0 + r, gx = gx0 + s;
-      const bool in = (!gys || (gy >= 0 && gy < ny)) &&
-                      (!gxs || (gx >= 0 && gx < nx));
-      C v = C(0);
-      if (in) {
-        v = to_c(c.p[src][(gys ? (size_t)(gy - c.oy) * gys : 0) +
-                          (gxs ? (size_t)gx * gxs : 0)]);
-        if (q == 9) v = v == C(0) ? C(1) : C(1) / v;
-      }
-      base[i] = v;
-    }
-    base += rows * cols;
-  }
-  return t;
-}
-
-template <class C>
-__device__ __forceinline__ C tat(const Tile9<C>& t, int q, int sy, int sx) {
-  return t.c[q][sy * t.ys[q] + sx * t.xs[q]];
-}
-
-// 9-point (A v) at shared point (sy, sx); term order of the JAX package:
-// cc, s, n, w, e, sw, se, nw, ne.
-template <class C>
-__device__ __forceinline__ C apply_at(const C* v, const Tile9<C>& t, int sy,
-                                      int sx, int SH, int SW) {
-  const int i = sy * SW + sx;
-  const bool hs = sy > 0, hn = sy < SH - 1, hw = sx > 0, he = sx < SW - 1;
-  const C s = hs ? v[i - SW] : C(0);
-  const C n = hn ? v[i + SW] : C(0);
-  const C w = hw ? v[i - 1] : C(0);
-  const C e = he ? v[i + 1] : C(0);
-  const C sw = hs && hw ? v[i - SW - 1] : C(0);
-  const C se = hs && he ? v[i - SW + 1] : C(0);
-  const C nw = hn && hw ? v[i + SW - 1] : C(0);
-  const C ne = hn && he ? v[i + SW + 1] : C(0);
-  return tat(t, mg::CC, sy, sx) * v[i] + tat(t, mg::CS, sy, sx) * s +
-         tat(t, mg::CN, sy, sx) * n + tat(t, mg::CW, sy, sx) * w +
-         tat(t, mg::CE, sy, sx) * e + tat(t, mg::CSW, sy, sx) * sw +
-         tat(t, mg::CSE, sy, sx) * se + tat(t, mg::CNW, sy, sx) * nw +
-         tat(t, mg::CNE, sy, sx) * ne;
 }
 
 // ---- K8: five full (ny, nx) coefficient fields (the stencil form of an
@@ -430,47 +375,169 @@ __device__ __forceinline__ compute_t<T> apply_at(const compute_t<T>* v,
          to_c(t.f.cw[g]) * w + to_c(t.f.ce[g]) * e;
 }
 
-// k polynomial smoother steps on the shared tile, Dirichlet-masked; step s
-// takes (alpha, beta) = (steps[2s], steps[2s + 1]).  zero_guess: u = p = 0
-// on entry and the first step is z = dinv * b.
-template <class C, class R>
-__device__ void smooth_tile(const C* b, C* u, C* p, const R& rc,
-                            const C* __restrict__ steps, int k,
-                            bool zero_guess, int SH, int SW, int gy0, int gx0,
-                            int ny, int nx) {
-  const int n = SH * SW;
-  for (int s = 0; s < k; ++s) {
-    const C a = steps[2 * s];
-    const C bt = steps[2 * s + 1];
-    const bool first = zero_guess && s == 0;
-    for (int i = threadIdx.x; i < n; i += NTHREADS) {
-      int sy = i / SW, sx = i - (i / SW) * SW;
-      int gy = gy0 + sy, gx = gx0 + sx;
-      if (gy < 0 || gy >= ny || gx < 0 || gx >= nx) {
-        p[i] = C(0);
-        continue;
-      }
-      const C d = dinv_at(rc, sy, sx);
-      C z = first ? d * b[i] : d * (b[i] - apply_at(u, rc, sy, sx, SH, SW));
-      p[i] = (s == 0 ? C(0) : bt * p[i]) + a * z;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += NTHREADS) u[i] += p[i];  // p = 0 outside
-    __syncthreads();
-  }
-}
-
-// Shared memory of a visit block with halo H: the b, u, p tiles, the
-// staged coefficients and the reduction slots, in the compute type.
-template <class T, class K>
-size_t visit_smem_bytes(const K& c, int H) {
-  const int SH = TY + 2 * H, SW = TX + 2 * H;
-  return sizeof(compute_t<T>) *
-         (3 * (size_t)SH * SW + coeff_elems(c, SH, SW) + NTHREADS / 32);
-}
-
 constexpr int halo(int emit, int k) {
   return k + (emit == EMIT_U ? 0 : emit == EMIT_RC ? 2 : 1);
+}
+
+template <class T, class K>
+using VisitFn = void (*)(K, VisitIO<T>, RowBlock<T>, int, int,
+                         const compute_t<T>*, int);
+
+// ---- The 5-point visit (K2a, K2b, K3, K7, K9, K10, K17's 5-point
+// blocks): a thread per strip of a region.  A region is GY strips of RS
+// rows down each of its 32 * GX columns; the output tile is the region
+// less the halo H on every side, so the tile follows the sweep count.
+//   * b and p of the strip's points live in registers; u is shared,
+//     double-buffered inside a ring of zeros: a step reads the current
+//     buffer and writes the next, one barrier, no bounds test, no u += p
+//     pass.  A step walks the strip down with the column's u in a
+//     register window (one shared load per point for the vertical
+//     neighbours) and reads west and east from shared memory: the lanes of
+//     a warp take 32 neighbouring columns of a row, so every access is
+//     conflict-free.  West / east by __shfl_sync (the edge lanes reading
+//     shared memory) measured 5-20% slower on the steps, and was dropped.
+//   * The coefficients are (ny, 1) columns: each region row's cc, cs, cn,
+//     cw, ce and dinv sit in one 8-slot row of shared memory, two vector
+//     loads (f32; three in f64), each a broadcast to the warp.  Points
+//     outside the domain stay 0: rows by a zero dinv, columns by a mask.
+//   * A coarse correction is formed once per point from a strip's coarse
+//     rows (prolong_strip); the restriction runs on a warp x lane grid.
+//   * Two regions, picked by an explicit rule on H alone (v5_tall): 64 x
+//     128 (two resident blocks in f32) up to V5_SHORT_MAX_H, 128 x 128 (one
+//     block; f32 compute only) past it.  The rule's edge is measured A B B
+//     A by scripts/time_5pt_visits.py --ab.
+//   * Plain loads, not prefetch: a persistent block copying its next
+//     tile's b and u with cp.async while it steps on the current one
+//     measured 20-50% slower at k <= 3 and was dropped: its staging halves
+//     the resident blocks, and two plain blocks already overlap one's loads
+//     with the other's steps.  TMA (cp.async.bulk.tensor) does not apply:
+//     its global strides must be multiples of 16 bytes, and a level's rows
+//     are nx = 2^m - 1 values long.
+template <int GX_, int GY_, int RS_>
+struct Region5 {
+  static constexpr int GX = GX_;  // 32-column groups
+  static constexpr int GY = GY_;  // strips down a column
+  static constexpr int RS = RS_;  // rows of a strip
+  static constexpr int NT = 32 * GX * GY;
+  static constexpr int SW = 32 * GX, SH = RS * GY;
+  // A u buffer: the region inside a ring of zeros.
+  static constexpr int PW = SW + 2;
+  static constexpr int PN = (SH + 2) * PW;
+  static __device__ __forceinline__ int at(int sy, int sx) {
+    return (sy + 1) * PW + sx + 1;
+  }
+};
+using V5Short = Region5<4, 4, 16>;  // 64 x 128
+using V5Tall = Region5<4, 4, 32>;   // 128 x 128: f32 compute, large H
+// The rule on H: a visit of halo H above this takes the tall region (f32
+// compute type; an f64 visit always takes the short one, which holds the
+// f64 bound, 25).  Measured (scripts/time_5pt_visits.py): the tall region
+// is as fast at H = 7 and 5-12% faster at H = 10 and 12 (fewer halo
+// points), 8-50% slower at H <= 5 (one resident block instead of two).
+constexpr int V5_SHORT_MAX_H = 8;
+
+template <class RG>
+__host__ __device__ constexpr bool v5_fits(int H) {
+  return H >= 1 && RG::SH - 2 * H >= 2 && RG::SW - 2 * H >= 2;
+}
+
+template <class C>
+constexpr bool v5_tall(int H) {
+  return sizeof(C) == 4 && H > V5_SHORT_MAX_H;
+}
+
+template <class RG>
+inline dim3 visit5_grid(int R, int nx, int H) {
+  const int ty = RG::SH - 2 * H, tx = RG::SW - 2 * H;
+  return dim3((nx + tx - 1) / tx, (R + ty - 1) / ty);
+}
+
+// Shared memory of a block: the coefficient rows (8 slots each), the two u
+// buffers and the reduction slots, in the compute type.
+template <class C, class RG>
+constexpr size_t visit5_smem_bytes() {
+  return sizeof(C) * (8 * (size_t)RG::SH + 2 * (size_t)RG::PN + RG::NT / 32);
+}
+
+// Resident blocks per SM the registers are cut for: two short f32 blocks
+// (b and p of 16 points a thread), else one.
+template <class C, class RG>
+constexpr int v5_min_blocks() {
+  return sizeof(C) == 4 && RG::RS <= 16 ? 2 : 1;
+}
+
+// A region row's coefficients, staged as 8 slots (cc, cs, cn, cw, ce,
+// dinv, 0, 0) so a row is two (f32) or three (f64) vector loads, each a
+// broadcast to the warp.
+template <class C>
+struct Row5 {
+  C cc, cs, cn, cw, ce, dinv;
+};
+
+__device__ __forceinline__ Row5<float> row5(const float* r) {
+  const float4 a = *reinterpret_cast<const float4*>(r);
+  const float2 b = *reinterpret_cast<const float2*>(r + 4);
+  return {a.x, a.y, a.z, a.w, b.x, b.y};
+}
+
+__device__ __forceinline__ Row5<double> row5(const double* r) {
+  const double2 a = *reinterpret_cast<const double2*>(r);
+  const double2 b = *reinterpret_cast<const double2*>(r + 2);
+  const double2 d = *reinterpret_cast<const double2*>(r + 4);
+  return {a.x, a.y, b.x, b.y, d.x, d.y};
+}
+
+// (A v) at a point; term order of the JAX package: cc, south, north, west,
+// east.
+template <class C>
+__device__ __forceinline__ C apply5(const Row5<C>& k, C c, C s, C n, C w,
+                                    C e) {
+  return k.cc * c + k.cs * s + k.cn * n + k.cw * w + k.ce * e;
+}
+
+// The bilinear prolongation of the coarse correction e onto a thread's
+// strip: RS fine rows from global row gy at column gx.  Each coarse row the
+// strip reads is read once, as the sum its x-interpolation needs (odd gx:
+// e[X][J]; even: e[X][J - 1] + e[X][J]); the weights follow the row and
+// column parity, so the arithmetic is mg::prolong_at's but for the order
+// of the four-point sum, and no lane branches on its column.  Coarse rows
+// outside [0, (nyg - 1) / 2) -- the coarse pad row among them -- and a
+// row block's rows past its halo buffers count as zero.
+template <class T, bool ROWS, int RS>
+__device__ __forceinline__ void prolong_strip(const T* e,
+                                              const RowBlock<T>& rb, int gy,
+                                              int gx, bool colin, int nxc,
+                                              compute_t<T> (&pe)[RS]) {
+  using C = compute_t<T>;
+  constexpr int NS = RS / 2 + 2;  // coarse rows (gy >> 1) - 1 on
+  const int nyc = (rb.nyg - 1) / 2, J = gx >> 1, X0 = (gy >> 1) - 1;
+  const bool ox = gx & 1, p = gy & 1;
+  C sx[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int X = X0 + k;
+    const T* r = nullptr;
+    if (colin && X >= 0 && X < nyc) {
+      if constexpr (ROWS)
+        r = block_row(e, rb.e_top, rb.e_bot, X - rb.row0 / 2, rb.Rc, rb.hc,
+                      nxc);
+      else
+        r = e + (size_t)X * nxc;
+    }
+    const C a = r != nullptr && J < nxc ? to_c(r[J]) : C(0);
+    const C w = r != nullptr && !ox && J >= 1 ? to_c(r[J - 1]) : C(0);
+    sx[k] = ox ? a : w + a;
+  }
+  const C w_odd = ox ? C(1) : C(0.5);      // odd fine row: coarse row I
+  const C w_even = ox ? C(0.5) : C(0.25);  // even: rows I - 1 and I
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    // Coarse row I = (gy + i) >> 1 sits at sx[((p + i) >> 1) + 1].
+    const int lo = (i >> 1) + 1, hi = ((i + 1) >> 1) + 1;
+    const C sI = p ? sx[hi] : sx[lo];
+    const C sIm = p ? sx[hi - 1] : sx[lo - 1];
+    pe[i] = (p + i) & 1 ? sI * w_odd : (sIm + sI) * w_even;
+  }
 }
 
 // The level visit: [b = r - alpha ap] [u + P e] -> k steps -> the emits.
@@ -479,34 +546,68 @@ constexpr int halo(int emit, int k) {
 // rows row0 + ly; masks, coefficients and the prolongation go by the
 // global row, reads and writes by the local, rows past the block come from
 // the halo buffers, and rows at or past the domain are written as 0.  A
-// whole grid (ROWS false) compiles to the plain indexing, so the
-// whole-grid visits pay nothing for the row-block mode.
+// whole grid (ROWS false) compiles to the plain indexing.  A block visits
+// the tile of its (blockIdx.x, blockIdx.y).
 template <class T, bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT,
-          class K, bool ROWS>
-__global__ void __launch_bounds__(NTHREADS)
-visit_kernel(K c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
-             const compute_t<T>* __restrict__ steps, int k) {
+          bool ROWS, class RG>
+__global__ void __launch_bounds__(RG::NT, v5_min_blocks<compute_t<T>, RG>())
+visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
+              const compute_t<T>* __restrict__ steps, int k) {
   using C = compute_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  C* sm = reinterpret_cast<C*>(smem_raw);
-  const int SH = TY + 2 * H, SW = TX + 2 * H, n = SH * SW;
-  C* b = sm;
-  C* u = b + n;
-  C* p = u + n;
-  C* red = p + n + coeff_elems(c, SH, SW);
+  C* crow = reinterpret_cast<C*>(smem_raw);
+  C* cur = crow + 8 * RG::SH;
+  C* nxt = cur + RG::PN;
+  C* red = nxt + RG::PN;
   const int ny = rb.nyg, nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
   // A whole grid's block is the grid: R = ny, Rc = nyc, row0 = 0.
   const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
   const int Rc = ROWS ? rb.Rc : nyc;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
-  const int gy0 = row0 + y0 - H, gx0 = x0 - H;           // global
-  const auto rc = stage(c, p + n, SH, SW, gy0, gx0, ny, nx);
+  const int TY = RG::SH - 2 * H, TX = RG::SW - 2 * H;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int sx = (wid % RG::GX) * 32 + lane;  // the thread's region column
+  const int r0 = (wid / RG::GX) * RG::RS;     // its strip's first row
   const C alpha = CG ? *io.alpha : C(0);
-  for (int i = threadIdx.x; i < n; i += NTHREADS) {
-    int sy = i / SW, sx = i - (i / SW) * SW;
-    int gy = gy0 + sy, gx = gx0 + sx;
+  // The zero rings of both u buffers.
+  for (int t = threadIdx.x; t < 2 * RG::PW + 2 * RG::SH; t += RG::NT) {
+    const int i = t < RG::PW       ? t
+                  : t < 2 * RG::PW ? (RG::SH + 1) * RG::PW + t - RG::PW
+                                   : (1 + ((t - 2 * RG::PW) >> 1)) * RG::PW +
+                                         (t & 1) * (RG::PW - 1);
+    cur[i] = C(0);
+    nxt[i] = C(0);
+  }
+
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
+  const int gy0 = row0 + y0 - H, gx0 = x0 - H;  // global
+  const int gx = gx0 + sx;
+  const bool colin = gx >= 0 && gx < nx;
+  // The coefficient rows, 0 outside the domain (so dinv keeps those
+  // rows of u at 0; the columns outside are masked by colin).
+  if (threadIdx.x < RG::SH) {
+    const int gy = gy0 + threadIdx.x;
+    const bool in = gy >= 0 && gy < ny;
+    C* d = crow + 8 * threadIdx.x;
+    const C cc = in ? to_c(c.cc[gy]) : C(0);
+    d[0] = cc;
+    d[1] = in ? to_c(c.cs[gy]) : C(0);
+    d[2] = in ? to_c(c.cn[gy]) : C(0);
+    d[3] = in ? to_c(c.cw[gy]) : C(0);
+    d[4] = in ? to_c(c.ce[gy]) : C(0);
+    d[5] = in ? C(1) / cc : C(0);
+    d[6] = C(0);
+    d[7] = C(0);
+  }
+
+  // b into registers, the iterate (u + P e) into the shared buffer.
+  C bq[RG::RS], pq[RG::RS], pe[RG::RS];
+  if constexpr (CORRECT)
+    prolong_strip<T, ROWS>(io.e, rb, gy0 + r0, gx, colin, nxc, pe);
+#pragma unroll
+  for (int i = 0; i < RG::RS; ++i) {
+    const int sy = r0 + i, gy = gy0 + sy;
     C bv = C(0), uv = C(0);
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+    if (colin && gy >= 0 && gy < ny) {
       if constexpr (ROWS) {
         const int ly = y0 - H + sy;
         const T* brow =
@@ -516,128 +617,181 @@ visit_kernel(K c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
           if (GUESS)
             uv = to_c(block_row(io.u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn,
                                 nx)[gx]);
-          if (CORRECT) uv += prolong_rows(io.e, rb, gy, gx, nxc);
+          if (CORRECT) uv += pe[i];
         }
       } else {
-        size_t g = (size_t)gy * nx + gx;
+        const size_t g = (size_t)gy * nx + gx;
         bv = CG ? to_c(io.b[g]) - alpha * to_c(io.ap[g]) : to_c(io.b[g]);
         if (GUESS) uv = to_c(io.u[g]);
-        if (CORRECT) uv += mg::prolong_at(io.e, gy, gx, nyc, nxc);
+        if (CORRECT) uv += pe[i];
       }
     }
-    b[i] = bv;
-    u[i] = uv;
-    p[i] = C(0);
+    bq[i] = bv;
+    pq[i] = C(0);
+    cur[RG::at(sy, sx)] = uv;
   }
   __syncthreads();
-  smooth_tile(b, u, p, rc, steps, k, !GUESS, SH, SW, gy0, gx0, ny, nx);
 
-  C acc = C(0);
-  for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
-    int ty = t / TX, tx = t - (t / TX) * TX;
-    int ly = y0 + ty, gx = x0 + tx;  // a whole grid's ly is its gy
-    if (ly >= R || gx >= nx) continue;
-    const bool in = !ROWS || row0 + ly < ny;  // the pad row is written as 0
-    int i = (ty + H) * SW + tx + H;
-    size_t g = (size_t)ly * nx + gx;
-    if (EMIT != EMIT_R) put(io.u_out, g, in ? u[i] : C(0));
-    if (EMIT == EMIT_UR || EMIT == EMIT_R)
-      put(io.r_out, g,
-          in ? b[i] - apply_at(u, rc, ty + H, tx + H, SH, SW) : C(0));
-    if (CG) {
-      put(io.rnew_out, g, b[i]);
-      acc += b[i] * b[i];
-    }
-    if (DOT) acc += b[i] * u[i];
-  }
-  if (EMIT == EMIT_RC) {
-    // Residual into p (dead after the smoother) on the tile and one more
-    // row/column, the restriction's footprint.
-    for (int t = threadIdx.x; t < (TY + 1) * (TX + 1); t += NTHREADS) {
-      int sy = H + t / (TX + 1), sx = H + t - (t / (TX + 1)) * (TX + 1);
-      int gy = gy0 + sy, gx = gx0 + sx;
-      bool in = gy < ny && gx < nx;
-      int i = sy * SW + sx;
-      p[i] = in ? b[i] - apply_at(u, rc, sy, sx, SH, SW) : C(0);
+  for (int s = 0; s < k; ++s) {
+    const C a = steps[2 * s];
+    const C bt = steps[2 * s + 1];
+    if (!GUESS && s == 0) {  // u = 0: z = D^-1 b
+#pragma unroll
+      for (int i = 0; i < RG::RS; ++i) {
+        const int sy = r0 + i;
+        const C d = row5(crow + 8 * sy).dinv;
+        pq[i] = a * (colin ? d * bq[i] : C(0));
+        nxt[RG::at(sy, sx)] = pq[i];
+      }
+    } else {
+      const C* q = cur + RG::at(r0, sx);
+      C c0 = q[-RG::PW], c1 = q[0];
+#pragma unroll
+      for (int i = 0; i < RG::RS; ++i) {
+        const C c2 = q[RG::PW];
+        const Row5<C> kr = row5(crow + 8 * (r0 + i));
+        const C z =
+            colin ? kr.dinv * (bq[i] - apply5(kr, c1, c0, c2, q[-1], q[1]))
+                  : C(0);
+        pq[i] = bt * pq[i] + a * z;  // p = 0 before the first step
+        nxt[RG::at(r0 + i, sx)] = c1 + pq[i];
+        c0 = c1;
+        c1 = c2;
+        q += RG::PW;
+      }
     }
     __syncthreads();
-    // Full weighting: y pass first, then x (ops/transfer.restrict_fw).
-    // A row block's coarse rows at or past nyc (the global coarse pad
-    // row) are 0.
-    for (int t = threadIdx.x; t < (TY / 2) * (TX / 2); t += NTHREADS) {
-      int cy = t / (TX / 2), cx = t - (t / (TX / 2)) * (TX / 2);
-      int I = y0 / 2 + cy, J = x0 / 2 + cx;  // local coarse row I
-      if (I >= Rc || J >= nxc) continue;
-      const C* r0 = p + (2 * cy + H) * SW + 2 * cx + H;  // fine (2I, 2J)
-      C ycol[3];
-      for (int d = 0; d < 3; ++d)
-        ycol[d] = r0[d] + C(2) * r0[SW + d] + r0[2 * SW + d];
-      put(io.rc_out, (size_t)I * nxc + J,
-          !ROWS || row0 / 2 + I < nyc
-              ? C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2])
-              : C(0));
+    C* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // The emits, each thread on its own points of the output tile (RC:
+  // and the one more row / column of the restriction's footprint).
+  const int tx = sx - H;
+  const bool xt = tx >= 0 && tx < TX && gx < nx;
+  const bool xf = tx >= 0 && tx <= TX;
+  C acc = C(0);
+  if constexpr (EMIT == EMIT_U) {
+#pragma unroll
+    for (int i = 0; i < RG::RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      if (!xt || ty < 0 || ty >= TY || ly >= R) continue;
+      const bool in = !ROWS || row0 + ly < ny;  // the pad row is 0
+      const C uv = cur[RG::at(sy, sx)];
+      put(io.u_out, (size_t)ly * nx + gx, in ? uv : C(0));
+      if (DOT) acc += bq[i] * uv;
+    }
+  } else {
+    const C* q = cur + RG::at(r0, sx);
+    C c0 = q[-RG::PW], c1 = q[0];
+#pragma unroll
+    for (int i = 0; i < RG::RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      const C c2 = q[RG::PW];
+      const C r =
+          bq[i] - apply5(row5(crow + 8 * sy), c1, c0, c2, q[-1], q[1]);
+      if (xt && ty >= 0 && ty < TY && ly < R) {
+        const bool in = !ROWS || row0 + ly < ny;
+        const size_t g = (size_t)ly * nx + gx;
+        if (EMIT != EMIT_R) put(io.u_out, g, in ? c1 : C(0));
+        if (EMIT != EMIT_RC) put(io.r_out, g, in ? r : C(0));
+        if (CG) {
+          put(io.rnew_out, g, bq[i]);
+          acc += bq[i] * bq[i];
+        }
+      }
+      // Residual into the free buffer on the restriction's footprint.
+      if (EMIT == EMIT_RC && xf && ty >= 0 && ty <= TY)
+        nxt[RG::at(sy, sx)] = gy0 + sy < ny && gx < nx ? r : C(0);
+      c0 = c1;
+      c1 = c2;
+      q += RG::PW;
+    }
+  }
+  if constexpr (EMIT == EMIT_RC) {
+    __syncthreads();
+    // Full weighting, y pass first, then x (ops/transfer.restrict_fw); a
+    // warp per coarse row, its lanes along the coarse columns.  A row
+    // block's coarse rows at or past nyc (the global coarse pad row) are
+    // 0.
+    for (int cy = wid; cy < TY / 2; cy += RG::NT / 32) {
+      const int I = y0 / 2 + cy;  // local coarse row
+      if (I >= Rc) break;
+      for (int cx = lane; cx < TX / 2; cx += 32) {
+        const int J = x0 / 2 + cx;
+        if (J >= nxc) break;
+        const C* f = nxt + RG::at(2 * cy + H, 2 * cx + H);  // (2I, 2J)
+        C ycol[3];
+        for (int d = 0; d < 3; ++d)
+          ycol[d] = f[d] + C(2) * f[RG::PW + d] + f[2 * RG::PW + d];
+        put(io.rc_out, (size_t)I * nxc + J,
+            !ROWS || row0 / 2 + I < nyc
+                ? C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2])
+                : C(0));
+      }
     }
   }
   if (CG || DOT) {
-    C s = mg::block_sum<NTHREADS>(acc, red);
-    if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+    const C sum = mg::block_sum<RG::NT>(acc, red);
+    if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
   }
 }
 
-template <class T, class K>
-using VisitFn = void (*)(K, VisitIO<T>, RowBlock<T>, int, int,
-                         const compute_t<T>*, int);
-
-template <class T, bool GUESS, bool CORRECT, class K, bool ROWS>
-VisitFn<T, K> pick_emit(int emit, bool dot) {
+template <class T, bool GUESS, bool CORRECT, bool ROWS, class RG>
+VisitFn<T, Coeffs<T>> pick_emit5(int emit, bool dot) {
   if (dot)  // DOT goes with emit u, on whole grids
     return emit == EMIT_U && !ROWS
-               ? visit_kernel<T, false, GUESS, CORRECT, EMIT_U, true, K,
-                              false>
+               ? visit5_kernel<T, false, GUESS, CORRECT, EMIT_U, true, false,
+                               RG>
                : nullptr;
   switch (emit) {
     case EMIT_U:
-      return visit_kernel<T, false, GUESS, CORRECT, EMIT_U, false, K, ROWS>;
+      return visit5_kernel<T, false, GUESS, CORRECT, EMIT_U, false, ROWS, RG>;
     case EMIT_UR:
-      return visit_kernel<T, false, GUESS, CORRECT, EMIT_UR, false, K, ROWS>;
+      return visit5_kernel<T, false, GUESS, CORRECT, EMIT_UR, false, ROWS,
+                           RG>;
     case EMIT_R:
-      return visit_kernel<T, false, GUESS, CORRECT, EMIT_R, false, K, ROWS>;
+      return visit5_kernel<T, false, GUESS, CORRECT, EMIT_R, false, ROWS, RG>;
     case EMIT_RC:
-      return visit_kernel<T, false, GUESS, CORRECT, EMIT_RC, false, K, ROWS>;
+      return visit5_kernel<T, false, GUESS, CORRECT, EMIT_RC, false, ROWS,
+                           RG>;
   }
   return nullptr;
 }
 
 // The instantiation for a flag set, or null for a set the family lacks
-// (CG is the 5-point f32 zero-guess rc visit on a whole grid only; DOT goes
-// with emit u on a whole grid only; a correction needs a guess).
-template <class T, class K, bool ROWS>
-VisitFn<T, K> pick_visit(int flags) {
+// (CG is the f32 zero-guess rc visit on a whole grid only; DOT goes with
+// emit u on a whole grid only; a correction needs a guess).
+template <class T, bool ROWS, class RG>
+VisitFn<T, Coeffs<T>> pick_visit5(int flags) {
   const bool cg = flags & F_CG, guess = flags & F_GUESS;
   const bool correct = flags & F_CORRECT, dot = flags & F_DOT;
   const int emit = flags >> EMIT_SHIFT;
   if (cg) {
-    if constexpr (std::is_same<K, Coeffs<float>>::value && !ROWS)
+    if constexpr (std::is_same<T, float>::value && !ROWS)
       return (guess || correct || dot || emit != EMIT_RC)
                  ? nullptr
-                 : visit_kernel<T, true, false, false, EMIT_RC, false, K,
-                                false>;
+                 : visit5_kernel<T, true, false, false, EMIT_RC, false, false,
+                                 RG>;
     return nullptr;
   }
   if (!guess)
-    return correct ? nullptr : pick_emit<T, false, false, K, ROWS>(emit, dot);
-  return correct ? pick_emit<T, true, true, K, ROWS>(emit, dot)
-                 : pick_emit<T, true, false, K, ROWS>(emit, dot);
+    return correct ? nullptr
+                   : pick_emit5<T, false, false, ROWS, RG>(emit, dot);
+  return correct ? pick_emit5<T, true, true, ROWS, RG>(emit, dot)
+                 : pick_emit5<T, true, false, ROWS, RG>(emit, dot);
 }
 
 // ---- The 9-point visit (K13, K14, K17's 9-point blocks): its own kernel.
 //
 // A 9-point step reads 8 neighbours and up to 10 coefficients per point,
-// so once the tile is in shared memory the visit is bound by the
+// so once the region is in shared memory the visit is bound by the
 // instructions it issues and their latency, not by bytes; a per-point loop
-// over the tile (the 5-point visit's) pays a shared load for each of
-// them, an index division and two barriers per step.  Here each block
-// owns a fixed V9_SH x V9_SW region
+// over a tile pays a shared load for each of them, an index division and
+// two barriers per step.  The 9-point visit takes the 5-point visit's
+// strip form (above) with a 3 x 3 window and its coefficients' shapes.
+// Each block owns a fixed V9_SH x V9_SW region
 // (the output tile plus its halo H on every side: the tile is
 // (V9_SH - 2H) x (V9_SW - 2H), so its size follows the sweep count and
 // the region never changes), and each thread owns a vertical strip of
@@ -819,7 +973,7 @@ size_t visit9_smem_bytes(const Coeffs9<T>& c) {
 }
 
 // The 9-point level visit: [u + P e] -> k steps -> the emits, with the
-// flags, emits and ROWS mode of visit_kernel (no CG).
+// flags, emits and ROWS mode of visit5_kernel (no CG).
 template <class T, bool GUESS, bool CORRECT, int EMIT, bool DOT, bool ROWS,
           bool ANISO>
 __global__ void __launch_bounds__(V9_NT, v9_min_blocks<compute_t<T>>())
@@ -1078,10 +1232,10 @@ cg_papply_kernel(Coeffs<T> c, const T* __restrict__ z,
   if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
-// K6 / K12 (RESID = false): y = A u; residual5 / residual9 (RESID = true):
-// y = b - A u.  The tile + 1-point halo of u in shared memory, as K1, with
-// the coefficients staged after it.  ROWS (K17's emits a and r): a row
-// block, u's rows past it from its 1-row halo buffers, b read on the
+// K6 (RESID = false): y = A u; residual5 (RESID = true): y = b - A u; K8
+// (Fields5) both.  The tile + 1-point halo of u in shared memory, as K1,
+// with the coefficients staged after it.  ROWS (K17's emits a and r): a
+// row block, u's rows past it from its 1-row halo buffers, b read on the
 // block's own rows only, the pad row written as 0.
 template <class T, bool RESID, class K, bool ROWS>
 __global__ void __launch_bounds__(NTHREADS)
@@ -1123,6 +1277,118 @@ stencil_kernel(K c, const T* __restrict__ b, const T* __restrict__ u,
   }
 }
 
+// ---- K12 (and K17's 9-point emits a and r): y = A u (RESID false) or
+// y = b - A u, 9-point, in the strip form of the visits.  A warp owns 32
+// neighbouring columns and a thread walks A9_RS rows of its column with a
+// 3 x 3 window of u in registers: each row of u is read from device memory
+// once, at the thread's column, its west and east from the lanes beside
+// (the warp's edge lanes read them).  Nothing is staged: a coefficient
+// constant along y (a scalar or a (1, nx) row) is read once into a
+// register, one that varies with y at the point that uses it (an (ny, 1)
+// column as a broadcast, an (ny, nx) field coalesced), so no dinv and no
+// division.  Two layouts compile their strides: SCALAR (all nine scalars,
+// the constant-coefficient stencil) and ANISO (aniso_layout, the
+// anisotropic problem's); any other goes through run-time strides.
+constexpr int A9_RS = 16;  // rows a thread walks
+constexpr int A9_GX = 2;   // 32-column groups of a block
+constexpr int A9_GY = 4;   // strips down a block's column
+constexpr int A9_NT = 32 * A9_GX * A9_GY;
+constexpr int A9_TX = 32 * A9_GX, A9_TY = A9_RS * A9_GY;  // a block's tile
+enum Layout9 { L9_ANY = 0, L9_SCALAR = 1, L9_ANISO = 2 };
+
+template <class T>
+Layout9 layout9(const Coeffs9<T>& c) {
+  bool scalar = true;
+  for (int q = 0; q < 9; ++q) scalar = scalar && !c.sy[q] && !c.sx[q];
+  return scalar ? L9_SCALAR : aniso_layout(c) ? L9_ANISO : L9_ANY;
+}
+
+template <int LAYOUT>
+__host__ __device__ constexpr bool yvar9(int q, int sy) {
+  return LAYOUT == L9_SCALAR  ? false
+         : LAYOUT == L9_ANISO ? q == mg::CS || q == mg::CN || q == mg::CC
+                              : sy != 0;
+}
+
+template <class T, bool RESID, bool ROWS, int LAYOUT>
+__global__ void __launch_bounds__(A9_NT)
+apply9_kernel(Coeffs9<T> c, const T* __restrict__ b,
+              const T* __restrict__ u, T* __restrict__ y, RowBlock<T> rb,
+              int nx) {
+  using C = compute_t<T>;
+  const int ny = rb.nyg;
+  const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int xw = blockIdx.x * A9_TX + (wid % A9_GX) * 32;  // warp's column 0
+  const int ly0 = blockIdx.y * A9_TY + (wid / A9_GX) * A9_RS;  // local row
+  if (xw >= nx || ly0 >= R) return;  // the whole warp
+  const int gx = xw + lane;
+  const bool colin = gx < nx;
+  C h[9];  // the coefficients constant along y, at the thread's column
+#pragma unroll
+  for (int q = 0; q < 9; ++q)
+    h[q] = !yvar9<LAYOUT>(q, c.sy[q]) && colin
+               ? to_c(c.p[q][(size_t)gx * c.sx[q]]) : C(0);
+  auto coef = [&](int q, int gy) -> C {
+    if (!yvar9<LAYOUT>(q, c.sy[q])) return h[q];
+    const size_t r = (size_t)(gy - c.oy);
+    if constexpr (LAYOUT == L9_ANISO)
+      return to_c(c.p[q][q == mg::CC ? r * nx + gx : r]);
+    return to_c(c.p[q][r * c.sy[q] + (size_t)gx * c.sx[q]]);
+  };
+  // The strip's rows of u at the thread's column, and the column beside
+  // for the warp's edge lanes (lane 0 its west, lane 31 its east), all
+  // loaded before the arithmetic; 0 outside the domain and past a row
+  // block's halo rows.
+  C m[A9_RS + 2], x[A9_RS + 2];
+#pragma unroll
+  for (int i = 0; i < A9_RS + 2; ++i) {
+    const int ly = ly0 - 1 + i, gy = row0 + ly;
+    const T* p = nullptr;
+    if (gy >= 0 && gy < ny) {
+      if constexpr (ROWS)
+        p = block_row(u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn, nx);
+      else
+        p = u + (size_t)ly * nx;
+    }
+    const int xs = lane == 0 ? gx - 1 : gx + 1;
+    m[i] = p != nullptr && colin ? to_c(p[gx]) : C(0);
+    x[i] = p != nullptr && (lane == 0 || lane == 31) && xs >= 0 && xs < nx
+               ? to_c(p[xs]) : C(0);
+  }
+  auto west = [&](int i) {
+    const C w = __shfl_up_sync(0xffffffffu, m[i], 1);
+    return lane == 0 ? x[i] : w;
+  };
+  auto east = [&](int i) {
+    const C e = __shfl_down_sync(0xffffffffu, m[i], 1);
+    return lane == 31 ? x[i] : e;
+  };
+  const int n = min(A9_RS, R - ly0);  // the same for the whole warp
+  C w0 = west(0), e0 = east(0), w1 = west(1), e1 = east(1);
+#pragma unroll
+  for (int i = 0; i < A9_RS; ++i) {
+    const int ly = ly0 + i, gy = row0 + ly;
+    const C w2 = west(i + 2), e2 = east(i + 2);
+    if (colin && i < n) {
+      const size_t g = (size_t)ly * nx + gx;
+      C out = C(0);  // the pad row of a row block is written 0
+      if (!ROWS || gy < ny) {
+        // Term order of the JAX package: cc, s, n, w, e, sw, se, nw, ne.
+        const C a = coef(mg::CC, gy) * m[i + 1] + coef(mg::CS, gy) * m[i] +
+                    coef(mg::CN, gy) * m[i + 2] + coef(mg::CW, gy) * w1 +
+                    coef(mg::CE, gy) * e1 + coef(mg::CSW, gy) * w0 +
+                    coef(mg::CSE, gy) * e0 + coef(mg::CNW, gy) * w2 +
+                    coef(mg::CNE, gy) * e2;
+        out = RESID ? to_c(b[g]) - a : a;
+      }
+      put(y, g, out);
+    }
+    w0 = w1, e0 = e1;
+    w1 = w2, e1 = e2;
+  }
+}
+
 inline dim3 visit_grid(int ny, int nx) {
   return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
 }
@@ -1157,6 +1423,31 @@ int launch_visit9(const Coeffs9<T>& c, const VisitIO<T>& io,
   return (int)cudaGetLastError();
 }
 
+template <class T, bool ROWS, class RG>
+int launch_region5(const Coeffs<T>& c, const VisitIO<T>& io,
+                   const RowBlock<T>& rb, int nx, const compute_t<T>* steps,
+                   int k, int H, int flags, void* stream) {
+  VisitFn<T, Coeffs<T>> kern = pick_visit5<T, ROWS, RG>(flags);
+  if (kern == nullptr || !v5_fits<RG>(H)) return (int)cudaErrorInvalidValue;
+  const size_t smem = visit5_smem_bytes<compute_t<T>, RG>();
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  kern<<<visit5_grid<RG>(rb.R, nx, H), RG::NT, smem,
+         (cudaStream_t)stream>>>(c, io, rb, nx, H, steps, k);
+  return (int)cudaGetLastError();
+}
+
+// The 5-point visit's grid for halo H in compute type C: its region by
+// the rule on H (v5_tall).
+template <class C>
+dim3 visit5_grid_for(int R, int nx, int H) {
+  if constexpr (sizeof(C) == 4)
+    if (v5_tall<C>(H)) return visit5_grid<V5Tall>(R, nx, H);
+  return visit5_grid<V5Short>(R, nx, H);
+}
+
 template <class T, bool ROWS = false, class K>
 int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
                  int nx, const compute_t<T>* steps, int k, int flags,
@@ -1164,37 +1455,58 @@ int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
   if constexpr (std::is_same<K, Coeffs9<T>>::value) {
     return launch_visit9<T, ROWS>(c, io, rb, nx, steps, k, flags, stream);
   } else {
-    VisitFn<T, K> kern = pick_visit<T, K, ROWS>(flags);
-    if (kern == nullptr || k < 1) return (int)cudaErrorInvalidValue;
     const int H = halo(flags >> EMIT_SHIFT, k);
-    if (!row_block_ok<T, ROWS>(rb, H, flags))
+    if (k < 1 || !row_block_ok<T, ROWS>(rb, H, flags))
       return (int)cudaErrorInvalidValue;
-    const size_t smem = visit_smem_bytes<T>(c, H);
-    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    int err = (int)cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-    kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-        c, io, rb, nx, H, steps, k);
-    return (int)cudaGetLastError();
+    if constexpr (sizeof(compute_t<T>) == 4)
+      if (v5_tall<compute_t<T>>(H))
+        return launch_region5<T, ROWS, V5Tall>(c, io, rb, nx, steps, k, H,
+                                               flags, stream);
+    return launch_region5<T, ROWS, V5Short>(c, io, rb, nx, steps, k, H,
+                                            flags, stream);
   }
+}
+
+template <class T, bool ROWS, int LAYOUT>
+int launch_apply9(const Coeffs9<T>& c, const T* b, const T* u, T* y,
+                  const RowBlock<T>& rb, int nx, int resid, void* stream) {
+  auto kern = resid ? apply9_kernel<T, true, ROWS, LAYOUT>
+                    : apply9_kernel<T, false, ROWS, LAYOUT>;
+  kern<<<dim3((nx + A9_TX - 1) / A9_TX, (rb.R + A9_TY - 1) / A9_TY), A9_NT,
+         0, (cudaStream_t)stream>>>(c, b, u, y, rb, nx);
+  return (int)cudaGetLastError();
 }
 
 template <class T, bool ROWS = false, class K>
 int launch_stencil(const K& c, const T* b, const T* u, T* y,
                    const RowBlock<T>& rb, int nx, int resid, void* stream) {
   if (!row_block_ok<T, ROWS>(rb, 1, 0)) return (int)cudaErrorInvalidValue;
-  auto kern = resid ? stencil_kernel<T, true, K, ROWS>
-                    : stencil_kernel<T, false, K, ROWS>;
-  const size_t smem = sizeof(compute_t<T>) *
-                      ((TY + 2) * (TX + 2) + coeff_elems(c, TY + 2, TX + 2));
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
-      c, b, u, y, rb, nx);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<K, Coeffs9<T>>::value) {
+    switch (layout9(c)) {
+      case L9_SCALAR:
+        return launch_apply9<T, ROWS, L9_SCALAR>(c, b, u, y, rb, nx, resid,
+                                                 stream);
+      case L9_ANISO:
+        return launch_apply9<T, ROWS, L9_ANISO>(c, b, u, y, rb, nx, resid,
+                                                stream);
+      default:
+        return launch_apply9<T, ROWS, L9_ANY>(c, b, u, y, rb, nx, resid,
+                                              stream);
+    }
+  } else {
+    auto kern = resid ? stencil_kernel<T, true, K, ROWS>
+                      : stencil_kernel<T, false, K, ROWS>;
+    const size_t smem =
+        sizeof(compute_t<T>) *
+        ((TY + 2) * (TX + 2) + coeff_elems(c, TY + 2, TX + 2));
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    kern<<<visit_grid(rb.R, nx), NTHREADS, smem, (cudaStream_t)stream>>>(
+        c, b, u, y, rb, nx);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <class T, bool UPDATE_U>
@@ -1217,7 +1529,7 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
 //               emit << EMIT_SHIFT; the pointers the flags do not use may
 //               be null; steps: k (alpha, beta) pairs in the compute type
 //               in device memory.  A flag set outside the family, or a
-//               visit whose shared memory exceeds a block's, is refused.
+//               halo no region holds (v5_fits), is refused.
 //   mg_visit9   one 9-point level visit (K13, K14): as mg_visit without
 //               F_CG; the coefficients as in mg_common.cuh's coeffs9().
 //   mg_stencil  K6 (resid == 0): y = A u; residual5 (resid != 0): y = b - A u.

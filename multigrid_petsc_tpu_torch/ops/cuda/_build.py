@@ -57,6 +57,7 @@ _SIGNATURES = {
     **{name + sfx: argtypes for name, argtypes in _ROWS.items()
        for sfx in ("", "_f64")},
     "mg_visit_blocks": [_I, _I],
+    "mg_visit5_blocks": [_I, _I, _I, _I],
     "mg_visit9_blocks": [_I, _I, _I],
     "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
     "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],

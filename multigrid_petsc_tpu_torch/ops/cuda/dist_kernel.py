@@ -22,11 +22,12 @@ rows encoded as absorbing identity rows, and splits each visit into an
 interior and an edge call so that the exchange overlaps the interior.  On
 the card the visit is a mode of the whole-grid visit kernel
 (``csrc/visit.cuh`` RowBlock, entries ``mg_visit_rows`` /
-``mg_visit9_rows``; emits a and r the one-point-halo ``mg_stencil_rows`` /
-``mg_stencil9_rows``): b, u and e are read in place, the rows past the
-block from the halo buffers, and the Dirichlet mask, the coefficients and
-the prolongation go by the global row, so the global pad row of every
-output and the global coarse pad row of rc are written as 0.  Coefficients
+``mg_visit9_rows``; emits a and r ``mg_stencil_rows``, the one-point-halo
+tile kernel, and ``mg_stencil9_rows``, K12's strip kernel): b, u and e
+are read in place, the rows past the block from the halo buffers, and
+the Dirichlet mask, the coefficients and the prolongation go by the
+global row, so the global pad row of every output and the global coarse
+pad row of rc are written as 0.  Coefficients
 are indexed by global row: the 5-point (ny, 1) columns are whole on every
 rank; the 9-point coefficients that vary with y hold the rows from
 ``coeff_row0`` on (``parallel.dist_ops.DistLevelOps`` keeps the block's

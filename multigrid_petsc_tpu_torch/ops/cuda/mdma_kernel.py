@@ -3,7 +3,8 @@
 Counterpart of ``multigrid_petsc_tpu/ops/pallas/mdma_kernel.py``.  The
 TPU kernels stream lane-padded row windows through manually scheduled
 DMA; here the arrays keep their real (ny, nx) shape and each CUDA block
-stages a 2-D tile with its halo in shared memory (``csrc/visit.cu``).
+of a visit owns a 2-D region (its output tile plus the halo) in shared
+memory, a thread per strip of it (``csrc/visit.cuh``).
 
   cg_papply_u    K1: p' = z + beta p; A p'; u' = u + alpha_prev p; <p', A p'>
   cg_visit_down  K2a: r' = r - alpha ap; ||r'||^2; u0 = k zero-guess steps
@@ -23,9 +24,9 @@ Stencil5 or a Stencil9, and is shared with the V-cycle family's and the
 9-point family's wrappers (``ops/cuda/stencil_kernel.py``,
 ``ops/cuda/stencil9_kernel.py``).  The smoother's (alpha, beta) schedule
 goes to the kernel as a small f32 buffer in device memory
-(``steps_tensor``), so the only bound on a visit's sweep count is its
-shared memory, or for the 9-point visit its fixed region
-(``max_visit_steps``).
+(``steps_tensor``), so no parameter block bounds a visit's sweep count:
+the 5-point visit keeps a fixed largest halo (``V5_MAX_HALO``), the
+9-point visit its fixed region (``max_visit_steps``).
 
 Storage types: K1 and K2a run in f32 only (the mdma route is f32); the
 visit kernel family behind ``launch_visit`` (K2b, K3 and the V-cycle and
@@ -58,11 +59,24 @@ from multigrid_petsc_tpu_torch.ops.stencil import (
 )
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
-# csrc/visit.cuh: output tile, threads and shared memory of a 5-point
-# visit block; the 9-point visit's fixed region (tile + halo, V9_SH x
-# V9_SW) and threads.
-TILE_Y, TILE_X, THREADS, MAX_SMEM = 32, 64, 256, 232448
+# csrc/visit.cuh: a block's shared memory; the 9-point visit's fixed
+# region (tile + halo, V9_SH x V9_SW) and threads.
+MAX_SMEM = 232448
 REGION9_Y, REGION9_X, THREADS9 = 64, 64, 256
+# csrc/visit.cuh Region5: the 5-point visit's regions (rows, columns) and
+# the rule on the halo h that picks one (V5_SHORT_MAX_H: the tall region
+# past it, for the f32 compute type only).
+REGION5_SHORT, REGION5_TALL, V5_SHORT_MAX_H = (64, 128), (128, 128), 8
+STRIPS5 = 4  # strips down a 5-point region's column (Region5 GY)
+# The 5-point visit's largest halo by the compute type's item size: the
+# wrappers' sweep bound, a contract the tests pin (with emit rc 43 steps in
+# f32 and bf16, 23 in f64; emit u 45 and 25).  It is the bound of the first
+# 5-point visit, whose tile + halo of b, u and p sat in shared memory; the
+# strip kernel's regions hold every halo up to it.
+V5_MAX_HALO = {4: 45, 8: 25}
+# K12's strip kernel (apply9_kernel): rows a thread walks, and a block's
+# tile (rows, columns).
+A9_ROWS, A9_TILE = 16, (64, 64)
 
 F32 = (torch.float32,)
 # The storage types the visit-family kernels are built for, and the C
@@ -247,11 +261,9 @@ def coeff9_args(st: Stencil9, ny: int, nx: int) -> Coeff9Args:
 
 
 def _coeff_floats(kinds, sh: int, sw: int) -> int:
-    """Shared-memory floats of a tile's staged coefficients (visit.cu
-    coeff_floats): 6 rows for a Stencil5 (``kinds`` None); per 9-point
-    coefficient (and cc's inverse) its own shape."""
-    if kinds is None:
-        return 6 * sh
+    """Shared-memory floats of a 9-point tile's staged coefficients
+    (visit.cu coeff_floats): per coefficient (and cc's inverse) its own
+    shape."""
 
     def size(ky, kx):
         return (sh if ky else 1) * (sw if kx else 1)
@@ -260,15 +272,10 @@ def _coeff_floats(kinds, sh: int, sw: int) -> int:
 
 
 def visit_smem_bytes(kinds, h: int, itemsize: int = 4) -> int:
-    """Shared memory of a visit block with halo h whose tiles hold
+    """Shared memory of a 9-point visit block in bytes of
     ``itemsize``-byte values, the compute type's (visit.cuh
-    visit_smem_bytes, visit9_smem_bytes): the 5-point visit stages b, u
-    and p on its tile + halo; the 9-point visit two u buffers on its fixed
-    region, whatever h."""
-    if kinds is None:
-        sh, sw = TILE_Y + 2 * h, TILE_X + 2 * h
-        return itemsize * (3 * sh * sw + _coeff_floats(None, sh, sw)
-                           + THREADS // 32)
+    visit9_smem_bytes): two u buffers on its fixed region, whatever the
+    halo h."""
     ring = (REGION9_Y + 2) * (REGION9_X + 2)  # a u buffer and its zero ring
     return itemsize * (2 * ring + _coeff_floats(kinds, REGION9_Y, REGION9_X)
                        + THREADS9 // 32)
@@ -276,11 +283,39 @@ def visit_smem_bytes(kinds, h: int, itemsize: int = 4) -> int:
 
 def visit_fits(kinds, h: int, itemsize: int = 4) -> bool:
     """Whether a visit with halo h runs (visit.cuh launch_visit,
-    visit9_fits): its shared memory fits a block's, and a 9-point visit's
-    tile keeps at least 2 rows and columns inside its region."""
-    if visit_smem_bytes(kinds, h, itemsize) > MAX_SMEM:
+    visit9_fits, v5_fits): a 5-point visit's h is within
+    ``V5_MAX_HALO``, a 9-point visit's block fits its shared memory, and
+    the tile keeps at least 2 rows and columns inside its region."""
+    if kinds is None:
+        if h > V5_MAX_HALO[itemsize]:
+            return False
+        sh, sw = visit5_region(h, itemsize)
+    elif visit_smem_bytes(kinds, h, itemsize) > MAX_SMEM:
         return False
-    return kinds is None or 2 * h <= min(REGION9_Y, REGION9_X) - 2
+    else:
+        sh, sw = REGION9_Y, REGION9_X
+    return 2 * h <= min(sh, sw) - 2
+
+
+def visit5_region(h: int, itemsize: int = 4) -> tuple[int, int]:
+    """The (rows, columns) region a 5-point visit of halo h takes in a
+    compute type of ``itemsize`` bytes (visit.cuh v5_tall): the short
+    region up to h = V5_SHORT_MAX_H, the tall one past it in f32 (an f64
+    visit keeps the short one: the tall one's two f64 buffers exceed a
+    block's shared memory)."""
+    tall = itemsize == 4 and h > V5_SHORT_MAX_H
+    return REGION5_TALL if tall else REGION5_SHORT
+
+
+def visit5_grid(R: int, nx: int, h: int,
+                itemsize: int = 4) -> tuple[int, int, int, int]:
+    """A 5-point visit's launch over R rows and nx columns (visit.cuh
+    visit5_grid): (blocks along x, blocks along y, tile rows, tile
+    columns); block (bx, by) writes the tile from local row by * tile rows
+    and column bx * tile columns."""
+    sh, sw = visit5_region(h, itemsize)
+    ty, tx = sh - 2 * h, sw - 2 * h
+    return -(-nx // tx), -(-R // ty), ty, tx
 
 
 def _halo(emit: str, k: int) -> int:
@@ -289,8 +324,8 @@ def _halo(emit: str, k: int) -> int:
 
 def max_visit_steps(kinds, emit: str, itemsize: int = 4) -> int:
     """The most smoother steps a visit takes (``visit_fits``): with emit
-    rc 43 for the 5-point visit in f32 and bf16 (23 in f64, bound by its
-    tile + halo in shared memory) and 29 for the 9-point visit of the
+    rc 43 for the 5-point visit in f32 and bf16 (23 in f64, the bound of
+    ``V5_MAX_HALO``) and 29 for the 9-point visit of the
     anisotropic stencil in every storage type (bound by its region)."""
     k = 0
     while visit_fits(kinds, _halo(emit, k + 1), itemsize):
@@ -298,10 +333,13 @@ def max_visit_steps(kinds, emit: str, itemsize: int = 4) -> int:
     return k
 
 
-def visit_partials(lib, kinds, ny: int, nx: int, h: int) -> int:
-    """Number of per-block dot partials a visit launch writes."""
+def visit_partials(lib, kinds, ny: int, nx: int, h: int,
+                   itemsize: int = 4) -> int:
+    """Number of per-block dot partials a visit launch writes (its
+    blocks; the 5-point visit's region follows h and the compute type's
+    ``itemsize``)."""
     if kinds is None:
-        return lib.mg_visit_blocks(ny, nx)
+        return lib.mg_visit5_blocks(ny, nx, h, itemsize)
     return lib.mg_visit9_blocks(ny, nx, h)
 
 
@@ -395,12 +433,13 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
     size = torch.finfo(compute_dtype(b.dtype)).bits // 8
     h = _halo(emit, len(steps))
     if not visit_fits(kinds, h, size):
+        why = (f"its block must fit the {MAX_SMEM} B of shared memory, its "
+               "tile its region" if nine
+               else f"its halo at most {V5_MAX_HALO[size]}")
         raise ValueError(
             f"a {9 if nine else 5}-point {b.dtype} visit with emit {emit!r} "
-            f"takes at most {max_visit_steps(kinds, emit, size)} steps (its "
-            f"tile and halo must fit the {MAX_SMEM} B of shared memory of a "
-            f"block{', its tile its region' if nine else ''}); got "
-            f"{len(steps)}")
+            f"takes at most {max_visit_steps(kinds, emit, size)} steps "
+            f"({why}); got {len(steps)}")
     scalars = {}
     if cg:
         fields["ap"] = (ap, (ny, nx))
@@ -422,7 +461,7 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
                    r=new((ny, nx), emit in ("ur", "r")),
                    rc=new((nyc, nxc), emit == "rc"),
                    r_new=new((ny, nx), cg),
-                   dot=new((visit_partials(lib, kinds, ny, nx, h),),
+                   dot=new((visit_partials(lib, kinds, ny, nx, h, size),),
                            cg or emit_dot, compute_dtype(dtype)))
     flags = ((_F_CG if cg else 0) | (_F_GUESS if u is not None else 0)
              | (_F_CORRECT if e_c is not None else 0)

@@ -11,10 +11,11 @@ Counterpart of ``multigrid_petsc_tpu/ops/pallas/stencil9_kernel.py``:
                       (u, R r) [, <b, u>]; ``u=None`` is the zero guess
 
 The coefficients keep their broadcast shape, (1, 1), (1, nx), (ny, 1) or
-(ny, nx), as the JAX package ships them.  K12 is the one-point-halo tile
-kernel of ``csrc/visit.cu`` and K13/K14 are flag sets of its visit kernel,
-each instantiated for the 9-point stencil (``mdma_kernel.launch_visit``
-takes either stencil); every output is a fresh tensor.
+(ny, nx), as the JAX package ships them.  K12 is the strip kernel of
+``csrc/visit.cuh`` (``apply9_kernel``: a thread walks a column strip with
+a 3 x 3 window of u; nothing staged) and K13/K14 are flag sets of the
+9-point visit kernel (``mdma_kernel.launch_visit`` takes either stencil);
+every output is a fresh tensor.
 
 Storage types: f32, f64 and bf16 (bf16 storage, f32 arithmetic, one
 rounding per stored output; the plain versions round where the kernels

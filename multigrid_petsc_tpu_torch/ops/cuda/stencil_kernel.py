@@ -20,8 +20,9 @@ Counterpart of ``multigrid_petsc_tpu/ops/pallas/stencil_kernel.py``:
                      level-0 down visit)
 
 The TPU kernels stream row slabs through VMEM with gathered halo windows
-and alias u -> u'.  Here K7 and K9 are flag sets of the one visit kernel
-of ``csrc/visit.cu`` (launched by ``mdma_kernel.launch_visit``), and K6
+and alias u -> u'.  Here K7 and K9 are flag sets of the one 5-point
+strip visit kernel of ``csrc/visit.cuh`` (launched by
+``mdma_kernel.launch_visit``), and K6
 and ``residual5`` a one-point-halo tile kernel of the same file; every
 output is a fresh tensor, since CUDA blocks run concurrently and read
 each other's halo.  The zero-guess ``rc`` visit is K2b and the

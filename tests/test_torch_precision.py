@@ -234,9 +234,8 @@ def test_bf16_plain_rounds_once_at_the_store():
 
 
 def test_visit_bounds_per_storage_type():
-    """Each storage type's bound on a visit's sweeps: f64 tiles take twice
-    the bytes (23 steps for the 5-point rc visit); bf16 tiles compute in
-    f32 (43).  The 9-point visit's fixed region holds the anisotropic
+    """Each storage type's bound on a visit's sweeps: the 5-point visit
+    takes 23 steps with emit rc in f64; bf16 visits compute in f32 (43).  The 9-point visit's fixed region holds the anisotropic
     stencil in every type (f64: 131 KB), so its tile bounds it alike
     (29); an f64 visit whose 9 coefficients are all fields does not fit
     at all."""
@@ -248,8 +247,8 @@ def test_visit_bounds_per_storage_type():
     assert tmdma.max_visit_steps(None, "rc", 4) == 43
     assert tmdma.max_visit_steps(aniso9, "rc", 4) == 29
     assert tmdma.max_visit_steps(((True, True),) * 9, "rc", 8) == 0
-    assert tmdma.visit_smem_bytes(None, 25, 8) <= tmdma.MAX_SMEM
-    assert tmdma.visit_smem_bytes(None, 26, 8) > tmdma.MAX_SMEM
+    assert tmdma.V5_MAX_HALO[8] == 25
+    assert tmdma.visit_fits(None, 25, 8) and not tmdma.visit_fits(None, 26, 8)
 
 
 def test_storage_type_checks():

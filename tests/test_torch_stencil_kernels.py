@@ -174,9 +174,9 @@ FIELDS9 = ((True, True),) * 9
 
 
 def test_steps_cap_is_the_kernels():
-    """The visit kernels take as many steps as a block's shared memory
-    holds (the schedules live in device memory, so no parameter block
-    caps them): 43 for the 5-point visit with emit rc, 45 with emit u;
+    """The visit kernels' own bounds cap their steps (the schedules live
+    in device memory, so no parameter block caps them): the 5-point
+    visit's largest halo, 43 steps with emit rc, 45 with emit u;
     the 9-point visit's region is fixed (64 x 64, its shared memory does
     not grow with the halo), so its tile bounds it: 29 steps with emit
     rc, 31 with emit u, for any coefficient layout that fits; at least
@@ -191,8 +191,8 @@ def test_steps_cap_is_the_kernels():
                             + 8)
     assert tmdma.visit_fits(ANISO9, 31) and not tmdma.visit_fits(ANISO9, 32)
     k = tmdma.max_visit_steps(None, "rc")
-    assert tmdma.visit_smem_bytes(None, k + 2) <= tmdma.MAX_SMEM
-    assert tmdma.visit_smem_bytes(None, k + 3) > tmdma.MAX_SMEM
+    assert k + 2 == tmdma.V5_MAX_HALO[4]
+    assert tmdma.visit_fits(None, k + 2) and not tmdma.visit_fits(None, k + 3)
     arr = tmdma.steps_tensor(jsk.jacobi_step_coeffs(32, 0.8), "cpu")
     assert arr.shape == (64,) and arr.dtype == torch.float32
     with pytest.raises(ValueError):
