@@ -11,19 +11,31 @@
 // What bounds it on the H100: latency more than bytes.  From 1023^2 down
 // the level arrays total ~25 MB, which fits the 50 MB L2, so after the
 // entry read the passes run out of L2; the cost is the number of dependent
-// phases.  Design: one persistent grid of co-resident blocks (grid size
-// <= occupancy x SMs, checked before launch) walks the levels with
-// grid-stride loops; cooperative_groups::this_grid().sync() separates the
-// phases.  A Jacobi step writes the new iterate into the level's second
-// buffer (ping-pong), so each step costs one grid sync.  The coarsest
-// solve is an f32 dot of each row of the host-inverted (f64 -> f32) dense
-// operator with the coarsest right-hand side.  All buffers are given by
-// the caller in one scratch allocation; the kernel allocates nothing.  The
-// levels' (alpha, beta) schedules are one f32 buffer in device memory, so
-// the kernel-parameter block bounds no sweep count.
+// phases, each ended by a barrier.  Design:
+// - One persistent grid of co-resident blocks (grid size <= occupancy x
+//   SMs, from the plan) walks the large levels with grid-stride loops;
+//   cooperative_groups::this_grid().sync() separates their phases.
+// - The small levels (from the plan's tail_from down, ny <= the host's
+//   TREE_TAIL_MAX_N) run as one V-cycle inside block 0, with block-stride
+//   loops and __syncthreads(), between two grid syncs; a tree whose entry
+//   level is small runs in one block with no grid sync at all.  Their
+//   buffers stay in global memory (L2-resident): staging them in shared
+//   memory would lower the co-resident grid of the large levels.
+// - A Jacobi step writes the new iterate into the level's other buffer
+//   (ping-pong): after the down leg the iterate is in buffer (k - 1) & 1,
+//   after the up leg (2k - 1 steps) always in ub, which is `out` on the
+//   entry level.
+// - The host builds the launch plan once per solver (mg_coarse_tree_plan:
+//   the TreeParams image with every pointer but the entry level's b and
+//   out, the grid size); a call (mg_coarse_tree) only sets those two and
+//   launches.  The kernel allocates nothing.  The levels' (alpha, beta)
+//   schedules are one f32 buffer in device memory, so the
+//   kernel-parameter block bounds no sweep count.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "mg_common.cuh"
 
@@ -35,6 +47,10 @@ using mg::prolong_at;
 
 constexpr int MAXL = 12;
 constexpr int NTHREADS = 256;
+// Points a thread has in flight per loop trip in a smoother step: their
+// loads are all issued before the first store (one block alone runs the
+// tail's levels, so its latency is not hidden by other blocks).
+constexpr int STEP_POINTS = 4;
 
 struct TreeLevel {
   int ny, nx, k;
@@ -45,152 +61,261 @@ struct TreeLevel {
   const float* ce;
   const float* cn;
   const float* b;  // level rhs (entry level: the caller's input)
-  float* ua;       // iterate buffers (ping-pong)
+  float* ua;       // iterate buffers (ping-pong; entry level: ub is out)
   float* ub;
   float* p;        // smoother direction
 };
 
 struct TreeParams {
   int L;
+  int tail_from;       // first level block 0 runs alone; L: none
+  int blocks;          // cooperative grid size
   const float* a_inv;  // (N, N) coarsest inverse, or null: smooth instead
-  float* rr;           // residual scratch, entry-level size
   TreeLevel lv[MAXL];
 };
-// The whole parameter block (TreeParams + out) is passed by value: it must
-// stay within the 4 KB kernel-parameter limit.
-static_assert(sizeof(TreeParams) + sizeof(float*) <= 4096,
+// The parameter block is passed by value (__grid_constant__: the kernel
+// reads it by reference, with no per-thread copy); it must stay within the
+// 4 KB kernel-parameter limit.
+static_assert(sizeof(TreeParams) <= 4096,
               "coarse-tree parameters exceed the kernel-parameter limit");
 
-__device__ __forceinline__ float apply_at(const TreeLevel& v, const float* u,
-                                          int y, int x) {
-  const int i = y * v.nx + x;
-  float s = y > 0 ? u[i - v.nx] : 0.f;
-  float n = y < v.ny - 1 ? u[i + v.nx] : 0.f;
-  float w = x > 0 ? u[i - 1] : 0.f;
-  float e = x < v.nx - 1 ? u[i + 1] : 0.f;
-  return v.cc[y] * u[i] + v.cs[y] * s + v.cn[y] * n + v.cw[y] * w +
-         v.ce[y] * e;
+// The threads a phase is shared by, and the barrier that ends it.
+struct GridTeam {
+  cg::grid_group g;
+  int rank, size;
+  __device__ void sync() { g.sync(); }
+};
+
+struct BlockTeam {
+  int rank, size;
+  __device__ void sync() { __syncthreads(); }
+};
+
+__device__ __forceinline__ float* buf(const TreeLevel& v, int j) {
+  return j ? v.ub : v.ua;
 }
 
-// k smoother steps on level v; returns the buffer that holds the result.
-__device__ float* smooth_level(const TreeLevel& v, float* u, bool zero_guess,
-                               cg::grid_group& grid, int gtid, int gsz) {
-  const int n = v.ny * v.nx;
-  float* other = (u == v.ua) ? v.ub : v.ua;
-  for (int s = 0; s < v.k; ++s) {
-    const float a = v.steps[2 * s], bt = v.steps[2 * s + 1];
-    if (zero_guess && s == 0) {
-      for (int i = gtid; i < n; i += gsz) {
-        float pn = 0.f + a * ((1.f / v.cc[i / v.nx]) * v.b[i]);
-        v.p[i] = pn;
-        u[i] = pn;
-      }
-    } else {
-      for (int i = gtid; i < n; i += gsz) {
-        int y = i / v.nx, x = i - y * v.nx;
-        float z = (1.f / v.cc[y]) * (v.b[i] - apply_at(v, u, y, x));
-        float pn = (s == 0 ? 0.f : bt * v.p[i]) + a * z;
-        v.p[i] = pn;
-        other[i] = u[i] + pn;
-      }
-      float* t = u;
-      u = other;
-      other = t;
-    }
-    grid.sync();
+// The iterate after the zero-guess down leg: k - 1 ping-pong steps.
+__device__ __forceinline__ float* down_result(const TreeLevel& v) {
+  return buf(v, (v.k - 1) & 1);
+}
+
+// Level l's solution once its up leg (or the coarsest solve) is done.
+__device__ __forceinline__ const float* solution(const TreeParams& P, int l) {
+  const TreeLevel& v = P.lv[l];
+  if (l < P.L - 1) return v.ub;
+  return P.a_inv != nullptr ? v.ua : down_result(v);
+}
+
+// f(i) for each point i < n of the team's share, U points per trip with
+// every f computed before any store(i, f(i)).
+template <int U, class Team, class F, class S>
+__device__ __forceinline__ void for_points(const Team& t, int n, F f,
+                                           S store) {
+  using R = decltype(f(0));
+  for (int i0 = t.rank; i0 < n; i0 += U * t.size) {
+    R r[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (i0 + j * t.size < n) r[j] = f(i0 + j * t.size);
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (i0 + j * t.size < n) store(i0 + j * t.size, r[j]);
   }
-  return u;
+}
+
+// One smoother step on level v into dst (and p): u_at(y, x) is the
+// iterate at a point of the domain (outside it reads 0), p_prev(i, u_i)
+// the previous direction; `first` starts the direction from 0 (step 0
+// from a guess).  Same expressions as the plain version's step.
+template <class Team, class UAt, class PAt>
+__device__ __forceinline__ void step_phase(const Team& t, const TreeLevel& v,
+                                           float a, float bt, bool first,
+                                           UAt u_at, PAt p_prev, float* dst) {
+  for_points<STEP_POINTS>(
+      t, v.ny * v.nx,
+      [&](int i) {
+        const int y = i / v.nx, x = i - y * v.nx;
+        const float uc = u_at(y, x);
+        const float s = y > 0 ? u_at(y - 1, x) : 0.f;
+        const float n = y < v.ny - 1 ? u_at(y + 1, x) : 0.f;
+        const float w = x > 0 ? u_at(y, x - 1) : 0.f;
+        const float e = x < v.nx - 1 ? u_at(y, x + 1) : 0.f;
+        const float au = v.cc[y] * uc + v.cs[y] * s + v.cn[y] * n +
+                         v.cw[y] * w + v.ce[y] * e;
+        const float z = (1.f / v.cc[y]) * (v.b[i] - au);
+        const float pn = (first ? 0.f : bt * p_prev(i, uc)) + a * z;
+        return make_float2(pn, uc + pn);
+      },
+      [&](int i, float2 r) {
+        v.p[i] = r.x;
+        dst[i] = r.y;
+      });
+}
+
+// The iterate stored in u.
+struct LoadAt {
+  const float* u;
+  int nx;
+  __device__ float operator()(int y, int x) const { return u[y * nx + x]; }
+};
+
+// k smoother steps from the zero guess, a barrier after each phase; the
+// result in down_result(v).
+template <class Team>
+__device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
+  const float* st = v.steps;
+  for_points<STEP_POINTS>(
+      t, v.ny * v.nx,
+      [&](int i) { return st[0] * ((1.f / v.cc[i / v.nx]) * v.b[i]); },
+      [&](int i, float pn) {
+        v.p[i] = pn;
+        v.ua[i] = pn;
+      });
+  t.sync();
+  for (int s = 1; s < v.k; ++s) {
+    step_phase(t, v, st[2 * s], st[2 * s + 1], false,
+               LoadAt{buf(v, (s - 1) & 1), v.nx},
+               [&](int i, float) { return v.p[i]; }, buf(v, s & 1));
+    t.sync();
+  }
+}
+
+// Down leg on level v: zero-guess smoothing, the residual b - A u into
+// p (free after the last step), then its full-weighting restriction into
+// c.b.
+template <class Team>
+__device__ void down_level(Team& t, const TreeLevel& v, const TreeLevel& c) {
+  smooth_from_zero(t, v);
+  const float* u = down_result(v);
+  for_points<STEP_POINTS>(
+      t, v.ny * v.nx,
+      [&](int i) {
+        const int y = i / v.nx, x = i - y * v.nx;
+        const float s = y > 0 ? u[i - v.nx] : 0.f;
+        const float n = y < v.ny - 1 ? u[i + v.nx] : 0.f;
+        const float w = x > 0 ? u[i - 1] : 0.f;
+        const float e = x < v.nx - 1 ? u[i + 1] : 0.f;
+        return v.b[i] - (v.cc[y] * u[i] + v.cs[y] * s + v.cn[y] * n +
+                         v.cw[y] * w + v.ce[y] * e);
+      },
+      [&](int i, float r) { v.p[i] = r; });
+  t.sync();
+  float* bc = const_cast<float*>(c.b);
+  for_points<1>(
+      t, c.ny * c.nx,
+      [&](int i) {
+        const int I = i / c.nx, J = i - I * c.nx;
+        const float* r0 = v.p + (2 * I) * v.nx + 2 * J;
+        float ycol[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          ycol[d] = r0[d] + 2.f * r0[v.nx + d] + r0[2 * v.nx + d];
+        return 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
+      },
+      [&](int i, float r) { bc[i] = r; });
+  t.sync();
+}
+
+// Coarsest level: the dense direct solve, or zero-guess smoothing.
+template <class Team>
+__device__ void coarsest(Team& t, const TreeParams& P) {
+  const TreeLevel& v = P.lv[P.L - 1];
+  if (P.a_inv == nullptr) {
+    smooth_from_zero(t, v);
+    return;
+  }
+  const int N = v.ny * v.nx;
+  for_points<1>(
+      t, N,
+      [&](int i) {
+        float acc = 0.f;
+        for (int j = 0; j < N; ++j) acc += P.a_inv[i * N + j] * v.b[j];
+        return acc;
+      },
+      [&](int i, float r) { v.ua[i] = r; });
+  t.sync();
+}
+
+// Up leg on level v: the correction with the prolonged coarse solution
+// e (in place), then k steps.
+template <class Team>
+__device__ void up_level(Team& t, const TreeLevel& v, const TreeLevel& c,
+                         const float* e) {
+  const float* st = v.steps;
+  float* u = down_result(v);
+  const int d = (v.k - 1) & 1;
+  for_points<STEP_POINTS>(
+      t, v.ny * v.nx,
+      [&](int i) {
+        const int y = i / v.nx, x = i - y * v.nx;
+        return u[i] + prolong_at(e, y, x, c.ny, c.nx);
+      },
+      [&](int i, float r) { u[i] = r; });
+  t.sync();
+  for (int s = 0; s < v.k; ++s) {
+    step_phase(t, v, st[2 * s], st[2 * s + 1], s == 0,
+               LoadAt{buf(v, (d + s) & 1), v.nx},
+               [&](int i, float) { return v.p[i]; }, buf(v, (d + s + 1) & 1));
+    t.sync();
+  }
+}
+
+// Levels tail_from .. L - 1 as one V-cycle inside block 0.
+__device__ void tail_cycle(const TreeParams& P) {
+  BlockTeam t{(int)threadIdx.x, (int)blockDim.x};
+  const int L = P.L, T = P.tail_from;
+  for (int l = T; l < L - 1; ++l) down_level(t, P.lv[l], P.lv[l + 1]);
+  coarsest(t, P);
+  for (int l = L - 2; l >= T; --l)
+    up_level(t, P.lv[l], P.lv[l + 1], solution(P, l + 1));
 }
 
 __global__ void __launch_bounds__(NTHREADS)
-coarse_tree_kernel(TreeParams P, float* out) {
-  cg::grid_group grid = cg::this_grid();
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gsz = gridDim.x * blockDim.x;
-  const int L = P.L;
-  float* ucur[MAXL];
-
-  // Down leg: zero-guess smooth, residual, full-weighting restriction.
-  for (int l = 0; l < L - 1; ++l) {
-    const TreeLevel& v = P.lv[l];
-    float* u = smooth_level(v, v.ua, true, grid, gtid, gsz);
-    ucur[l] = u;
-    const int n = v.ny * v.nx;
-    for (int i = gtid; i < n; i += gsz) {
-      int y = i / v.nx, x = i - y * v.nx;
-      P.rr[i] = v.b[i] - apply_at(v, u, y, x);
-    }
-    grid.sync();
-    const TreeLevel& c = P.lv[l + 1];
-    float* bc = const_cast<float*>(c.b);
-    for (int i = gtid; i < c.ny * c.nx; i += gsz) {
-      int I = i / c.nx, J = i - I * c.nx;
-      const float* r0 = P.rr + (2 * I) * v.nx + 2 * J;
-      float ycol[3];
-      for (int d = 0; d < 3; ++d)
-        ycol[d] = r0[d] + 2.f * r0[v.nx + d] + r0[2 * v.nx + d];
-      bc[i] = 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
-    }
-    grid.sync();
+coarse_tree_kernel(const __grid_constant__ TreeParams P) {
+  GridTeam g{cg::this_grid(), (int)(blockIdx.x * blockDim.x + threadIdx.x),
+             (int)(gridDim.x * blockDim.x)};
+  const int L = P.L, T = P.tail_from;
+  const int top = T < L - 1 ? T : L - 1;  // grid-wide levels above the tail
+  for (int l = 0; l < top; ++l) down_level(g, P.lv[l], P.lv[l + 1]);
+  if (T == L) {
+    coarsest(g, P);
+  } else {
+    if (blockIdx.x == 0) tail_cycle(P);
+    if (T > 0) g.sync();
   }
-
-  // Coarsest level: dense direct solve, or zero-guess smoothing.
-  {
-    const TreeLevel& v = P.lv[L - 1];
-    const int N = v.ny * v.nx;
-    if (P.a_inv != nullptr) {
-      for (int i = gtid; i < N; i += gsz) {
-        float acc = 0.f;
-        for (int j = 0; j < N; ++j) acc += P.a_inv[i * N + j] * v.b[j];
-        v.ua[i] = acc;
-      }
-      ucur[L - 1] = v.ua;
-      grid.sync();
-    } else {
-      ucur[L - 1] = smooth_level(v, v.ua, true, grid, gtid, gsz);
-    }
-  }
-
-  // Up leg: correct with the prolonged coarse solution, then post-smooth.
-  for (int l = L - 2; l >= 0; --l) {
-    const TreeLevel& v = P.lv[l];
-    const TreeLevel& c = P.lv[l + 1];
-    float* u = ucur[l];
-    const float* e = ucur[l + 1];
-    for (int i = gtid; i < v.ny * v.nx; i += gsz) {
-      int y = i / v.nx, x = i - y * v.nx;
-      u[i] = u[i] + prolong_at(e, y, x, c.ny, c.nx);
-    }
-    grid.sync();
-    ucur[l] = smooth_level(v, u, false, grid, gtid, gsz);
-  }
-  if (ucur[0] != out) {
-    const TreeLevel& v = P.lv[0];
-    for (int i = gtid; i < v.ny * v.nx; i += gsz) out[i] = ucur[0][i];
-  }
+  for (int l = top - 1; l >= 0; --l)
+    up_level(g, P.lv[l], P.lv[l + 1], solution(P, l + 1));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the sub-V-cycle over L levels.
-//   shapes: 2L ints (ny, nx per level); ks: L sweep counts;
-//   steps:  device f32, (alpha, beta) pairs of level 0, then level 1, ...
-//   ptrs:   host array of 10L device pointers, per level
-//           (cs, cw, cc, ce, cn, b, ua, ub, p, unused); level 0's b is the
-//           input and its ub must be `out`;
-//   a_inv:  device (N, N) coarsest inverse, or null to smooth there.
-// Returns a cudaError_t value; cudaErrorCooperativeLaunchTooLarge (or any
-// refusal) is returned, never hidden.
-int mg_coarse_tree(int L, const int* shapes, const int* ks,
-                   const float* steps, const unsigned long long* ptrs,
-                   const float* a_inv, float* rr, float* out, void* stream) {
-  if (L < 2 || L > MAXL) return (int)cudaErrorInvalidValue;
+// Bytes of a launch plan (the TreeParams image the caller keeps).
+int mg_coarse_tree_plan_bytes() { return (int)sizeof(TreeParams); }
+
+// Build the launch plan of a sub-V-cycle over L levels into `image`
+// (mg_coarse_tree_plan_bytes() bytes) and its grid size into *blocks.
+//   shapes:    2L ints (ny, nx per level); ks: L sweep counts;
+//   steps:     device f32, (alpha, beta) pairs of level 0, then level 1, ...
+//   ptrs:      host array of 9L device pointers, per level
+//              (cs, cw, cc, ce, cn, b, ua, ub, p); level 0's b and ub are
+//              set per call (the input and `out`);
+//   a_inv:     device (N, N) coarsest inverse, or null to smooth there;
+//   tail_from: the first level block 0 runs alone (0 .. L; L: none).
+// Returns a cudaError_t value.
+int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
+                        const float* steps, const unsigned long long* ptrs,
+                        const float* a_inv, int tail_from, void* image,
+                        int* blocks) {
+  if (L < 2 || L > MAXL || tail_from < 0 || tail_from > L)
+    return (int)cudaErrorInvalidValue;
   TreeParams P;
+  std::memset(&P, 0, sizeof P);
   P.L = L;
+  P.tail_from = tail_from;
   P.a_inv = a_inv;
-  P.rr = rr;
   int off = 0;
   for (int l = 0; l < L; ++l) {
     TreeLevel& v = P.lv[l];
@@ -200,7 +325,7 @@ int mg_coarse_tree(int L, const int* shapes, const int* ks,
     if (v.k < 1) return (int)cudaErrorInvalidValue;
     v.steps = steps + off;
     off += 2 * v.k;
-    const unsigned long long* q = ptrs + 10 * l;
+    const unsigned long long* q = ptrs + 9 * l;
     v.cs = (const float*)q[0];
     v.cw = (const float*)q[1];
     v.cc = (const float*)q[2];
@@ -213,22 +338,41 @@ int mg_coarse_tree(int L, const int* shapes, const int* ks,
   }
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   int err = (int)cudaGetDevice(&dev);
-  if (!err) err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                      dev);
   if (!err && !coop) return (int)cudaErrorNotSupported;
-  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
   if (!err)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, coarse_tree_kernel, NTHREADS, 0);
   if (err) return err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // The whole tree in block 0: one block.  Else one point per thread on
+  // the entry level at most.
   const int n0 = P.lv[0].ny * P.lv[0].nx;
-  int blocks = per_sm * sms;
-  const int needed = (n0 + NTHREADS - 1) / NTHREADS;
-  if (blocks > needed) blocks = needed;
-  void* args[] = {(void*)&P, (void*)&out};
-  err = (int)cudaLaunchCooperativeKernel((void*)coarse_tree_kernel,
-                                         dim3(blocks), dim3(NTHREADS), args, 0,
-                                         (cudaStream_t)stream);
+  const int needed = tail_from == 0 ? 1 : (n0 + NTHREADS - 1) / NTHREADS;
+  P.blocks = per_sm * sms < needed ? per_sm * sms : needed;
+  std::memcpy(image, &P, sizeof P);
+  *blocks = P.blocks;
+  return 0;
+}
+
+// One launch of a plan: b (the entry level's rhs) -> out.  A refused
+// cooperative launch (cudaErrorCooperativeLaunchTooLarge or any other) is
+// returned, never hidden.
+int mg_coarse_tree(const void* image, const float* b, float* out,
+                   void* stream) {
+  TreeParams P;
+  std::memcpy(&P, image, sizeof P);
+  P.lv[0].b = b;
+  P.lv[0].ub = out;
+  void* args[] = {(void*)&P};
+  int err = (int)cudaLaunchCooperativeKernel(
+      (void*)coarse_tree_kernel, dim3(P.blocks), dim3(NTHREADS), args, 0,
+      (cudaStream_t)stream);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -63,7 +63,9 @@ _SIGNATURES = {
     "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
     "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
-    "mg_coarse_tree": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "mg_coarse_tree_plan_bytes": [],
+    "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "mg_coarse_tree": [_P, _P, _P, _P],
     "mg_line_blocks": [_I, _I],
     "mg_line_sweep": [_P, _P, _P, _I, _I] + [_P] * 7 + [_I, _I, _F, _F, _P],
     "mg_line_sweep_f64": [_P, _P, _P, _I, _I] + [_P] * 7

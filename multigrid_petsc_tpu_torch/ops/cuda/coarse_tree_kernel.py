@@ -2,15 +2,19 @@
 
 Counterpart of ``multigrid_petsc_tpu/ops/pallas/coarse_tree_kernel.py``:
 every level from the entry level down to the coarsest runs as one
-cooperative CUDA launch (``csrc/coarse_tree.cu``) — zero-guess down
+cooperative CUDA launch (``csrc/coarse_tree.cu``) -- zero-guess down
 visits, full-weighting restriction, the dense direct coarsest solve with
 the host-inverted operator, then prolongation + correction + post-smooth
-on the way up.  ``coarse_tree_viable`` keeps the JAX package's selection
-rule (its VMEM budget and the ``ny_L <= 8`` cap of the dense solve), so
-the level split matches the TPU path call for call.
+on the way up.  The levels of at most ``TREE_TAIL_MAX_N`` rows run as one
+V-cycle inside the launch's first block (``tail_from``); the launch plan
+is built once per solver (``TreePlan``).  ``coarse_tree_viable`` keeps
+the JAX package's selection rule (its VMEM budget and the ``ny_L <= 8``
+cap of the dense solve), so the level split matches the TPU path call
+for call.
 """
-
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -73,12 +77,111 @@ def coarse_tree_plain(stencils, steps_list, a_inv, b):
     return u
 
 
+TREE_TAIL_MAX_N = 63  # the largest ny of a level that block 0 runs alone
+
+
+def tail_from(shapes, tail_max_n: int | None = None) -> int:
+    """The first level of the tree that block 0 runs alone: the first
+    whose ny is at most ``tail_max_n`` (``TREE_TAIL_MAX_N``), or
+    ``len(shapes)`` (none) if no level is that small."""
+    n = TREE_TAIL_MAX_N if tail_max_n is None else tail_max_n
+    return next((l for l, (ny, _nx) in enumerate(shapes) if ny <= n),
+                len(shapes))
+
+
+def grid_syncs(shapes, ks, direct: bool,
+               tail_max_n: int | None = None) -> int:
+    """Grid-wide barriers of one launch, by ``csrc/coarse_tree.cu``'s
+    schedule: a level above the tail takes k + 2 down and k + 1 up; then
+    one after the tail, or the coarsest's own (1 for the direct solve, k
+    for zero-guess smoothing).  A tree that block 0 runs whole takes
+    none."""
+    L = len(shapes)
+    t = tail_from(shapes, tail_max_n)
+    if t == 0:
+        return 0
+    top = min(t, L - 1)
+    mid = 1 if t < L or direct else ks[-1]
+    return sum(2 * k + 3 for k in ks[:top]) + mid
+
+
+def _check_tree(device: torch.device, stencils, shapes, a_inv_t) -> None:
+    """What the kernel takes, checked once per solver: every level's
+    coefficient columns and ``a_inv`` f32, contiguous, of their shapes,
+    on ``device``."""
+    fields = {}
+    for l, (st, (ny, _nx)) in enumerate(zip(stencils, shapes)):
+        fields.update({f"level{l}.{k}": v
+                       for k, v in _stencil_fields(st, ny).items()})
+    if a_inv_t is not None:
+        n_l = shapes[-1][0] * shapes[-1][1]
+        fields["a_inv"] = (a_inv_t, (n_l, n_l))
+    _check_cuda(device, fields)
+
+
+class TreePlan:
+    """One solver's launch plan, built once: the checks of the stencils,
+    the scratch buffers, the device schedule and the kernel's parameter
+    image (``mg_coarse_tree_plan``), which only the entry level's b and
+    ``out`` complete per call.  It holds every buffer its pointers name,
+    so it is valid as long as the solver that made it."""
+
+    def __init__(self, stencils, shapes, steps_list, a_inv_t):
+        device = stencils[0].cc.device
+        _check_tree(device, stencils, shapes, a_inv_t)
+        L = len(shapes)
+        ks = [len(s) for s in steps_list]
+        self.device, self.shape = device, shapes[0]
+        self.tail_from = tail_from(shapes)
+        self.grid_syncs = grid_syncs(shapes, ks, a_inv_t is not None)
+        # Every level's schedule, concatenated: one f32 buffer on the card.
+        self._steps = steps_tensor(sum(map(tuple, steps_list), ()), device)
+        # One scratch allocation: per level (b, ua, ub, p), except that the
+        # entry level's b is the input and its ub the output.
+        sizes = [ny * nx for ny, nx in shapes]
+        self._scratch = torch.empty(
+            sum(n * (2 if l == 0 else 4) for l, n in enumerate(sizes)),
+            dtype=torch.float32, device=device)
+        self._a_inv = a_inv_t
+        ptrs = np.zeros(9 * L, np.uint64)
+        base, isz, off = self._scratch.data_ptr(), 4, 0
+        for l, (st, n) in enumerate(zip(stencils, sizes)):
+            ptrs[9 * l: 9 * l + 5] = [c.data_ptr() for c in st]
+            for j in (6, 8) if l == 0 else (5, 6, 7, 8):
+                ptrs[9 * l + j] = base + off * isz
+                off += n
+        self._lib = lib = load_library()
+        self._image = ctypes.create_string_buffer(
+            lib.mg_coarse_tree_plan_bytes())
+        blocks = ctypes.c_int(0)
+        check(lib.mg_coarse_tree_plan(
+            L, np.asarray(shapes, np.int32).ctypes.data,
+            np.asarray(ks, np.int32).ctypes.data, self._steps.data_ptr(),
+            ptrs.ctypes.data,
+            None if a_inv_t is None else a_inv_t.data_ptr(), self.tail_from,
+            ctypes.addressof(self._image), ctypes.addressof(blocks)),
+            "coarse_tree plan")
+        self.blocks = blocks.value
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        _check_cuda(self.device, {"b": (b, self.shape)})
+        out = torch.empty_like(b)
+        check(self._lib.mg_coarse_tree(ctypes.addressof(self._image),
+                                       b.data_ptr(), out.data_ptr(),
+                                       _stream(b.device)),
+              "coarse_tree cooperative launch")
+        launches["coarse_tree"] += 1
+        return out
+
+
 def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
     """b (entry shape) -> u: the whole sub-V-cycle.
 
     ``stencils`` are the levels' Stencil5 on one device, ``steps_list``
     the static (alpha, beta) schedule per level, ``a_inv`` the f64 host
-    inverse of the coarsest operator (numpy) or None."""
+    inverse of the coarsest operator (numpy) or None.  On the card the
+    launch plan (``TreePlan``, ``solve.plan``) is built here, once; on the
+    CPU there is none: the plain version needs no plan."""
     shapes = [tuple(s) for s in shapes]
     L = len(shapes)
     if not 2 <= L <= MAX_LEVELS:
@@ -88,62 +191,18 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
     if a_inv is not None:
         a_inv_t = torch.as_tensor(np.asarray(a_inv), dtype=cc0.dtype,
                                   device=cc0.device)
-    ks = np.asarray([len(s) for s in steps_list], np.int32)
-    if ks.min() < 1:
+    if min(len(s) for s in steps_list) < 1:
         raise ValueError("every level of the coarse tree takes >= 1 step")
-    shapes_h = np.asarray(shapes, np.int32).reshape(-1)
+    plan = None if _on_cpu(cc0) else TreePlan(stencils, shapes, steps_list,
+                                              a_inv_t)
 
     def solve(b: torch.Tensor) -> torch.Tensor:
         if _on_cpu(b):
             return coarse_tree_plain(stencils, steps_list, a_inv_t, b)
-        fields = {"b": (b, shapes[0])}
-        for l, (st, (ny, _nx)) in enumerate(zip(stencils, shapes)):
-            fields.update({f"level{l}.{k}": v
-                           for k, v in _stencil_fields(st, ny).items()})
-        if a_inv_t is not None:
-            n_l = shapes[-1][0] * shapes[-1][1]
-            fields["a_inv"] = (a_inv_t, (n_l, n_l))
-        _check_cuda(b.device, fields)
-        # Every level's schedule, concatenated: one f32 buffer on the card.
-        steps_d = steps_tensor(sum(map(tuple, steps_list), ()), b.device)
-        lib = load_library()
-        # One scratch allocation: per level (b, ua, ub, p), except that the
-        # entry level's b is the input and its ub is the output; plus the
-        # entry-size residual buffer.
-        sizes = [ny * nx for ny, nx in shapes]
-        counts = [2] + [4] * (L - 1)
-        scratch = torch.empty(sum(c * n for c, n in zip(counts, sizes))
-                              + sizes[0], dtype=b.dtype, device=b.device)
-        out = torch.empty_like(b)
-        ptrs = np.zeros(10 * L, np.uint64)
-        base, off = scratch.data_ptr(), 0
-        isz = scratch.element_size()
+        if plan is None:
+            raise ValueError(f"b is on {b.device}; the solver was built "
+                             f"for the CPU")
+        return plan(b)
 
-        def take(n):
-            nonlocal off
-            p = base + off * isz
-            off += n
-            return p
-
-        for l, (st, n) in enumerate(zip(stencils, sizes)):
-            ptrs[10 * l: 10 * l + 5] = [c.data_ptr() for c in st]
-            if l == 0:
-                ptrs[10 * l + 5] = b.data_ptr()
-                ptrs[10 * l + 6] = take(n)
-                ptrs[10 * l + 7] = out.data_ptr()
-            else:
-                ptrs[10 * l + 5] = take(n)
-                ptrs[10 * l + 6] = take(n)
-                ptrs[10 * l + 7] = take(n)
-            ptrs[10 * l + 8] = take(n)
-        rr = take(sizes[0])
-        err = lib.mg_coarse_tree(
-            L, shapes_h.ctypes.data, ks.ctypes.data, steps_d.data_ptr(),
-            ptrs.ctypes.data,
-            None if a_inv_t is None else a_inv_t.data_ptr(), rr,
-            out.data_ptr(), _stream(b.device))
-        check(err, "coarse_tree cooperative launch")
-        launches["coarse_tree"] += 1
-        return out
-
+    solve.plan = plan
     return solve
