@@ -165,15 +165,23 @@ struct LoadAt {
 template <class Team>
 __device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
   const float* st = v.steps;
-  for_points<STEP_POINTS>(
-      t, v.ny * v.nx,
-      [&](int i) { return st[0] * ((1.f / v.cc[i / v.nx]) * v.b[i]); },
-      [&](int i, float pn) {
-        v.p[i] = pn;
-        v.ua[i] = pn;
-      });
+  if (v.k == 1) {
+    for_points<STEP_POINTS>(
+        t, v.ny * v.nx,
+        [&](int i) { return st[0] * ((1.f / v.cc[i / v.nx]) * v.b[i]); },
+        [&](int i, float pn) { v.ua[i] = pn; });
+    t.sync();
+    return;
+  }
+  // Steps 0 and 1 in one phase: step 0's iterate (and direction) is
+  // alpha_0 D^-1 b, formed at each of step 1's five points.
+  const float a0 = st[0];
+  step_phase(
+      t, v, st[2], st[3], false,
+      [&](int y, int x) { return a0 * ((1.f / v.cc[y]) * v.b[y * v.nx + x]); },
+      [](int, float u0) { return u0; }, v.ub);
   t.sync();
-  for (int s = 1; s < v.k; ++s) {
+  for (int s = 2; s < v.k; ++s) {
     step_phase(t, v, st[2 * s], st[2 * s + 1], false,
                LoadAt{buf(v, (s - 1) & 1), v.nx},
                [&](int i, float) { return v.p[i]; }, buf(v, s & 1));
