@@ -189,36 +189,49 @@ __device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
   }
 }
 
-// Down leg on level v: zero-guess smoothing, the residual b - A u into
-// p (free after the last step), then its full-weighting restriction into
-// c.b.
+// Down leg on level v: zero-guess smoothing, then the full-weighting
+// restriction of its residual into c.b, each coarse point forming the
+// 3 x 3 fine residuals b - A u it weighs.
 template <class Team>
 __device__ void down_level(Team& t, const TreeLevel& v, const TreeLevel& c) {
   smooth_from_zero(t, v);
   const float* u = down_result(v);
-  for_points<STEP_POINTS>(
-      t, v.ny * v.nx,
-      [&](int i) {
-        const int y = i / v.nx, x = i - y * v.nx;
-        const float s = y > 0 ? u[i - v.nx] : 0.f;
-        const float n = y < v.ny - 1 ? u[i + v.nx] : 0.f;
-        const float w = x > 0 ? u[i - 1] : 0.f;
-        const float e = x < v.nx - 1 ? u[i + 1] : 0.f;
-        return v.b[i] - (v.cc[y] * u[i] + v.cs[y] * s + v.cn[y] * n +
-                         v.cw[y] * w + v.ce[y] * e);
-      },
-      [&](int i, float r) { v.p[i] = r; });
-  t.sync();
   float* bc = const_cast<float*>(c.b);
   for_points<1>(
       t, c.ny * c.nx,
       [&](int i) {
         const int I = i / c.nx, J = i - I * c.nx;
-        const float* r0 = v.p + (2 * I) * v.nx + 2 * J;
+        const int y0 = 2 * I, x0 = 2 * J;
+        // u on rows y0 - 1 .. y0 + 3, columns x0 - 1 .. x0 + 3 (0 outside
+        // the domain; the corners are not read).
+        float uu[5][5];
+#pragma unroll
+        for (int dy = 0; dy < 5; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 5; ++dx) {
+            const int y = y0 - 1 + dy, x = x0 - 1 + dx;
+            const bool corner = (dy == 0 || dy == 4) && (dx == 0 || dx == 4);
+            uu[dy][dx] = !corner && y >= 0 && y < v.ny && x >= 0 && x < v.nx
+                             ? u[y * v.nx + x] : 0.f;
+          }
+        float r[3][3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int y = y0 + a;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float au = v.cc[y] * uu[a + 1][d + 1] +
+                             v.cs[y] * uu[a][d + 1] +
+                             v.cn[y] * uu[a + 2][d + 1] +
+                             v.cw[y] * uu[a + 1][d] +
+                             v.ce[y] * uu[a + 1][d + 2];
+            r[a][d] = v.b[y * v.nx + x0 + d] - au;
+          }
+        }
         float ycol[3];
 #pragma unroll
         for (int d = 0; d < 3; ++d)
-          ycol[d] = r0[d] + 2.f * r0[v.nx + d] + r0[2 * v.nx + d];
+          ycol[d] = r[0][d] + 2.f * r[1][d] + r[2][d];
         return 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
       },
       [&](int i, float r) { bc[i] = r; });
