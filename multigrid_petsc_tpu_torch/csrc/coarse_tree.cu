@@ -21,6 +21,14 @@
 //   level is small runs in one block with no grid sync at all.  Their
 //   buffers stay in global memory (L2-resident): staging them in shared
 //   memory would lower the co-resident grid of the large levels.
+// - Fewer phases: the zero-guess steps 0 and 1 are one phase (step 1 forms
+//   step 0's u = alpha_0 D^-1 b at its five points); the residual is
+//   formed inside the restriction (each coarse point computes the 3 x 3
+//   fine residuals it weighs); the coarse correction is formed inside
+//   post-smooth step 0 (u + P e at its five points); the last phase has
+//   no barrier.  A level of k steps costs k phases down (2 at k = 1) and
+//   k up, instead of k + 2 and k + 1.  Every expression keeps the term
+//   order of the plain version (coarse_tree_plain).
 // - A Jacobi step writes the new iterate into the level's other buffer
 //   (ping-pong): after the down leg the iterate is in buffer (k - 1) & 1,
 //   after the up leg (2k - 1 steps) always in ub, which is `out` on the
@@ -258,27 +266,27 @@ __device__ void coarsest(Team& t, const TreeParams& P) {
   t.sync();
 }
 
-// Up leg on level v: the correction with the prolonged coarse solution
-// e (in place), then k steps.
+// Up leg on level v: step 0 corrects with the prolonged coarse solution
+// e, forming u + P e at its five points; then the remaining steps.  The
+// launch's (or the tail's) last phase ends without a barrier (`last`).
 template <class Team>
 __device__ void up_level(Team& t, const TreeLevel& v, const TreeLevel& c,
-                         const float* e) {
+                         const float* e, bool last) {
   const float* st = v.steps;
-  float* u = down_result(v);
+  const float* u = down_result(v);
   const int d = (v.k - 1) & 1;
-  for_points<STEP_POINTS>(
-      t, v.ny * v.nx,
-      [&](int i) {
-        const int y = i / v.nx, x = i - y * v.nx;
-        return u[i] + prolong_at(e, y, x, c.ny, c.nx);
+  step_phase(
+      t, v, st[0], st[1], true,
+      [&](int y, int x) {
+        return u[y * v.nx + x] + prolong_at(e, y, x, c.ny, c.nx);
       },
-      [&](int i, float r) { u[i] = r; });
-  t.sync();
-  for (int s = 0; s < v.k; ++s) {
-    step_phase(t, v, st[2 * s], st[2 * s + 1], s == 0,
+      [](int, float) { return 0.f; }, buf(v, d ^ 1));
+  if (!(last && v.k == 1)) t.sync();
+  for (int s = 1; s < v.k; ++s) {
+    step_phase(t, v, st[2 * s], st[2 * s + 1], false,
                LoadAt{buf(v, (d + s) & 1), v.nx},
                [&](int i, float) { return v.p[i]; }, buf(v, (d + s + 1) & 1));
-    t.sync();
+    if (!(last && s == v.k - 1)) t.sync();
   }
 }
 
@@ -288,8 +296,9 @@ __device__ void tail_cycle(const TreeParams& P) {
   const int L = P.L, T = P.tail_from;
   for (int l = T; l < L - 1; ++l) down_level(t, P.lv[l], P.lv[l + 1]);
   coarsest(t, P);
+  // The tail's last phase is followed by the grid sync or the kernel's end.
   for (int l = L - 2; l >= T; --l)
-    up_level(t, P.lv[l], P.lv[l + 1], solution(P, l + 1));
+    up_level(t, P.lv[l], P.lv[l + 1], solution(P, l + 1), l == T);
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -306,7 +315,7 @@ coarse_tree_kernel(const __grid_constant__ TreeParams P) {
     if (T > 0) g.sync();
   }
   for (int l = top - 1; l >= 0; --l)
-    up_level(g, P.lv[l], P.lv[l + 1], solution(P, l + 1));
+    up_level(g, P.lv[l], P.lv[l + 1], solution(P, l + 1), l == 0);
 }
 
 }  // namespace
