@@ -11,16 +11,20 @@
 // What bounds it on the H100: latency more than bytes.  From 1023^2 down
 // the level arrays total ~25 MB, which fits the 50 MB L2, so after the
 // entry read the passes run out of L2; the cost is the number of dependent
-// phases, each ended by a barrier.  Design:
-// - One persistent grid of co-resident blocks (grid size <= occupancy x
-//   SMs, from the plan) walks the large levels with grid-stride loops;
-//   cooperative_groups::this_grid().sync() separates their phases.
+// phases, each ended by a barrier, and the instructions and L2 round trips
+// of each.  Design:
+// - One persistent grid of co-resident blocks of 1024 threads, one a SM
+//   (grid size from the plan's occupancy query), walks the large levels
+//   with grid-stride loops; cooperative_groups::this_grid().sync()
+//   separates their phases (~1.1 us a barrier at 132 blocks, against
+//   ~1.5 us at 396 blocks of 256: scripts/time_coarse_tree.py's probe).
 // - The small levels (from the plan's tail_from down, ny <= the host's
 //   TREE_TAIL_MAX_N) run as one V-cycle inside block 0, with block-stride
 //   loops and __syncthreads(), between two grid syncs; a tree whose entry
-//   level is small runs in one block with no grid sync at all.  Their
-//   buffers stay in global memory (L2-resident): staging them in shared
-//   memory would lower the co-resident grid of the large levels.
+//   level is small runs in one block with no grid sync at all.  The
+//   tail's buffers live in block 0's dynamic shared memory (its entry
+//   level's b and solution stay in global memory, where the grid reads
+//   them); with one block a SM that costs no co-resident block.
 // - Fewer phases: the zero-guess steps 0 and 1 are one phase (step 1 forms
 //   step 0's u = alpha_0 D^-1 b at its five points); the residual is
 //   formed inside the restriction (each coarse point computes the 3 x 3
@@ -29,16 +33,19 @@
 //   no barrier.  A level of k steps costs k phases down (2 at k = 1) and
 //   k up, instead of k + 2 and k + 1.  Every expression keeps the term
 //   order of the plain version (coarse_tree_plain).
+// - Cheap points: D^-1 is a column the plan makes once (torch's 1 / cc,
+//   the plain version's), so no step divides; a thread steps its (row,
+//   column) through the grid-stride loop with no index division.
 // - A Jacobi step writes the new iterate into the level's other buffer
 //   (ping-pong): after the down leg the iterate is in buffer (k - 1) & 1,
 //   after the up leg (2k - 1 steps) always in ub, which is `out` on the
 //   entry level.
 // - The host builds the launch plan once per solver (mg_coarse_tree_plan:
 //   the TreeParams image with every pointer but the entry level's b and
-//   out, the grid size); a call (mg_coarse_tree) only sets those two and
-//   launches.  The kernel allocates nothing.  The levels' (alpha, beta)
-//   schedules are one f32 buffer in device memory, so the
-//   kernel-parameter block bounds no sweep count.
+//   out, the grid size, the tail's shared memory); a call (mg_coarse_tree)
+//   only sets those two and launches.  The kernel allocates nothing.  The
+//   levels' (alpha, beta) schedules are one f32 buffer in device memory,
+//   so the kernel-parameter block bounds no sweep count.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -54,11 +61,7 @@ namespace {
 using mg::prolong_at;
 
 constexpr int MAXL = 12;
-constexpr int NTHREADS = 256;
-// Points a thread has in flight per loop trip in a smoother step: their
-// loads are all issued before the first store (one block alone runs the
-// tail's levels, so its latency is not hidden by other blocks).
-constexpr int STEP_POINTS = 4;
+constexpr int NTHREADS = 1024;
 
 struct TreeLevel {
   int ny, nx, k;
@@ -68,16 +71,18 @@ struct TreeLevel {
   const float* cc;
   const float* ce;
   const float* cn;
-  const float* b;  // level rhs (entry level: the caller's input)
-  float* ua;       // iterate buffers (ping-pong; entry level: ub is out)
+  const float* dinv;  // 1 / cc, made once by the plan
+  const float* b;     // level rhs (entry level: the caller's input)
+  float* ua;          // iterate buffers (ping-pong; entry level: ub is out)
   float* ub;
-  float* p;        // smoother direction
+  float* p;           // smoother direction
 };
 
 struct TreeParams {
   int L;
   int tail_from;       // first level block 0 runs alone; L: none
   int blocks;          // cooperative grid size
+  int smem;            // bytes of the tail's buffers in shared memory
   const float* a_inv;  // (N, N) coarsest inverse, or null: smooth instead
   TreeLevel lv[MAXL];
 };
@@ -86,6 +91,14 @@ struct TreeParams {
 // 4 KB kernel-parameter limit.
 static_assert(sizeof(TreeParams) <= 4096,
               "coarse-tree parameters exceed the kernel-parameter limit");
+
+// The levels a team works on: the parameter block's, or the tail's copies
+// with their buffers in shared memory.
+struct Tree {
+  const TreeLevel* lv;
+  int L;
+  const float* a_inv;
+};
 
 // The threads a phase is shared by, and the barrier that ends it.
 struct GridTeam {
@@ -109,26 +122,28 @@ __device__ __forceinline__ float* down_result(const TreeLevel& v) {
 }
 
 // Level l's solution once its up leg (or the coarsest solve) is done.
-__device__ __forceinline__ const float* solution(const TreeParams& P, int l) {
-  const TreeLevel& v = P.lv[l];
-  if (l < P.L - 1) return v.ub;
-  return P.a_inv != nullptr ? v.ua : down_result(v);
+__device__ __forceinline__ const float* solution(const Tree& tr, int l) {
+  const TreeLevel& v = tr.lv[l];
+  if (l < tr.L - 1) return v.ub;
+  return tr.a_inv != nullptr ? v.ua : down_result(v);
 }
 
-// f(i) for each point i < n of the team's share, U points per trip with
-// every f computed before any store(i, f(i)).
-template <int U, class Team, class F, class S>
-__device__ __forceinline__ void for_points(const Team& t, int n, F f,
-                                           S store) {
-  using R = decltype(f(0));
-  for (int i0 = t.rank; i0 < n; i0 += U * t.size) {
-    R r[U];
-#pragma unroll
-    for (int j = 0; j < U; ++j)
-      if (i0 + j * t.size < n) r[j] = f(i0 + j * t.size);
-#pragma unroll
-    for (int j = 0; j < U; ++j)
-      if (i0 + j * t.size < n) store(i0 + j * t.size, r[j]);
+// store(i, f(i, y, x)) for each point i = y * nx + x of the team's share
+// of an ny x nx grid; the thread steps its (y, x) with no division per
+// point.
+template <class Team, class F, class S>
+__device__ __forceinline__ void for_points(const Team& t, int ny, int nx,
+                                           F f, S store) {
+  const int dy = t.size / nx, dx = t.size - dy * nx;
+  int y = t.rank / nx, x = t.rank - y * nx;
+  for (int i = t.rank; y < ny; i += t.size) {
+    store(i, f(i, y, x));
+    x += dx;
+    y += dy;
+    if (x >= nx) {
+      x -= nx;
+      ++y;
+    }
   }
 }
 
@@ -140,10 +155,9 @@ template <class Team, class UAt, class PAt>
 __device__ __forceinline__ void step_phase(const Team& t, const TreeLevel& v,
                                            float a, float bt, bool first,
                                            UAt u_at, PAt p_prev, float* dst) {
-  for_points<STEP_POINTS>(
-      t, v.ny * v.nx,
-      [&](int i) {
-        const int y = i / v.nx, x = i - y * v.nx;
+  for_points(
+      t, v.ny, v.nx,
+      [&](int i, int y, int x) {
         const float uc = u_at(y, x);
         const float s = y > 0 ? u_at(y - 1, x) : 0.f;
         const float n = y < v.ny - 1 ? u_at(y + 1, x) : 0.f;
@@ -151,7 +165,7 @@ __device__ __forceinline__ void step_phase(const Team& t, const TreeLevel& v,
         const float e = x < v.nx - 1 ? u_at(y, x + 1) : 0.f;
         const float au = v.cc[y] * uc + v.cs[y] * s + v.cn[y] * n +
                          v.cw[y] * w + v.ce[y] * e;
-        const float z = (1.f / v.cc[y]) * (v.b[i] - au);
+        const float z = v.dinv[y] * (v.b[i] - au);
         const float pn = (first ? 0.f : bt * p_prev(i, uc)) + a * z;
         return make_float2(pn, uc + pn);
       },
@@ -173,20 +187,20 @@ struct LoadAt {
 template <class Team>
 __device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
   const float* st = v.steps;
+  const float a0 = st[0];
   if (v.k == 1) {
-    for_points<STEP_POINTS>(
-        t, v.ny * v.nx,
-        [&](int i) { return st[0] * ((1.f / v.cc[i / v.nx]) * v.b[i]); },
-        [&](int i, float pn) { v.ua[i] = pn; });
+    for_points(
+        t, v.ny, v.nx,
+        [&](int i, int y, int) { return a0 * (v.dinv[y] * v.b[i]); },
+        [&](int i, float u0) { v.ua[i] = u0; });
     t.sync();
     return;
   }
   // Steps 0 and 1 in one phase: step 0's iterate (and direction) is
   // alpha_0 D^-1 b, formed at each of step 1's five points.
-  const float a0 = st[0];
   step_phase(
       t, v, st[2], st[3], false,
-      [&](int y, int x) { return a0 * ((1.f / v.cc[y]) * v.b[y * v.nx + x]); },
+      [&](int y, int x) { return a0 * (v.dinv[y] * v.b[y * v.nx + x]); },
       [](int, float u0) { return u0; }, v.ub);
   t.sync();
   for (int s = 2; s < v.k; ++s) {
@@ -199,47 +213,49 @@ __device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
 
 // Down leg on level v: zero-guess smoothing, then the full-weighting
 // restriction of its residual into c.b, each coarse point forming the
-// 3 x 3 fine residuals b - A u it weighs.
+// 3 x 3 fine residuals b - A u it weighs, a fine row at a time.
 template <class Team>
 __device__ void down_level(Team& t, const TreeLevel& v, const TreeLevel& c) {
   smooth_from_zero(t, v);
   const float* u = down_result(v);
   float* bc = const_cast<float*>(c.b);
-  for_points<1>(
-      t, c.ny * c.nx,
-      [&](int i) {
-        const int I = i / c.nx, J = i - I * c.nx;
+  for_points(
+      t, c.ny, c.nx,
+      [&](int, int I, int J) {
         const int y0 = 2 * I, x0 = 2 * J;
-        // u on rows y0 - 1 .. y0 + 3, columns x0 - 1 .. x0 + 3 (0 outside
-        // the domain; the corners are not read).
-        float uu[5][5];
+        // u on row y, columns x0 - 1 .. x0 + 3 (0 outside the domain); the
+        // rows above and below the footprint need x0 .. x0 + 2 only.
+        auto row = [&](int y, bool edge, float (&w)[5]) {
+          const bool yin = y >= 0 && y < v.ny;
 #pragma unroll
-        for (int dy = 0; dy < 5; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 5; ++dx) {
-            const int y = y0 - 1 + dy, x = x0 - 1 + dx;
-            const bool corner = (dy == 0 || dy == 4) && (dx == 0 || dx == 4);
-            uu[dy][dx] = !corner && y >= 0 && y < v.ny && x >= 0 && x < v.nx
-                             ? u[y * v.nx + x] : 0.f;
+          for (int d = 0; d < 5; ++d) {
+            const int x = x0 - 1 + d;
+            const bool need = !edge || (d >= 1 && d <= 3);
+            w[d] = need && yin && x >= 0 && x < v.nx ? u[y * v.nx + x] : 0.f;
           }
-        float r[3][3];
+        };
+        float up[5], mid[5], dn[5], ycol[3];
+        row(y0 - 1, true, up);
+        row(y0, false, mid);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           const int y = y0 + a;
+          row(y + 1, a == 2, dn);
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
-            const float au = v.cc[y] * uu[a + 1][d + 1] +
-                             v.cs[y] * uu[a][d + 1] +
-                             v.cn[y] * uu[a + 2][d + 1] +
-                             v.cw[y] * uu[a + 1][d] +
-                             v.ce[y] * uu[a + 1][d + 2];
-            r[a][d] = v.b[y * v.nx + x0 + d] - au;
+            const float au = v.cc[y] * mid[d + 1] + v.cs[y] * up[d + 1] +
+                             v.cn[y] * dn[d + 1] + v.cw[y] * mid[d] +
+                             v.ce[y] * mid[d + 2];
+            const float r = v.b[y * v.nx + x0 + d] - au;
+            // (r0 + 2 r1) + r2: the y pass of restrict_fw.
+            ycol[d] = a == 0 ? r : a == 1 ? ycol[d] + 2.f * r : ycol[d] + r;
+          }
+#pragma unroll
+          for (int d = 0; d < 5; ++d) {
+            up[d] = mid[d];
+            mid[d] = dn[d];
           }
         }
-        float ycol[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d)
-          ycol[d] = r[0][d] + 2.f * r[1][d] + r[2][d];
         return 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
       },
       [&](int i, float r) { bc[i] = r; });
@@ -248,18 +264,18 @@ __device__ void down_level(Team& t, const TreeLevel& v, const TreeLevel& c) {
 
 // Coarsest level: the dense direct solve, or zero-guess smoothing.
 template <class Team>
-__device__ void coarsest(Team& t, const TreeParams& P) {
-  const TreeLevel& v = P.lv[P.L - 1];
-  if (P.a_inv == nullptr) {
+__device__ void coarsest(Team& t, const Tree& tr) {
+  const TreeLevel& v = tr.lv[tr.L - 1];
+  if (tr.a_inv == nullptr) {
     smooth_from_zero(t, v);
     return;
   }
   const int N = v.ny * v.nx;
-  for_points<1>(
-      t, N,
-      [&](int i) {
+  for_points(
+      t, v.ny, v.nx,
+      [&](int i, int, int) {
         float acc = 0.f;
-        for (int j = 0; j < N; ++j) acc += P.a_inv[i * N + j] * v.b[j];
+        for (int j = 0; j < N; ++j) acc += tr.a_inv[i * N + j] * v.b[j];
         return acc;
       },
       [&](int i, float r) { v.ua[i] = r; });
@@ -290,32 +306,54 @@ __device__ void up_level(Team& t, const TreeLevel& v, const TreeLevel& c,
   }
 }
 
-// Levels tail_from .. L - 1 as one V-cycle inside block 0.
-__device__ void tail_cycle(const TreeParams& P) {
+// Levels tail_from .. L - 1 as one V-cycle inside block 0, on copies of
+// their levels (in shared memory, `lv`) whose buffers are in shared memory
+// too, but for the tail's entry level's b and ub (its rhs and solution,
+// read and written by the grid, or the caller's input and out).
+__device__ void tail_cycle(const TreeParams& P, TreeLevel* lv, float* smem) {
   BlockTeam t{(int)threadIdx.x, (int)blockDim.x};
   const int L = P.L, T = P.tail_from;
-  for (int l = T; l < L - 1; ++l) down_level(t, P.lv[l], P.lv[l + 1]);
-  coarsest(t, P);
+  if (threadIdx.x == 0) {
+    for (int l = T; l < L; ++l) {
+      lv[l] = P.lv[l];
+      const int n = lv[l].ny * lv[l].nx;
+      if (l > T) {
+        lv[l].b = smem;
+        lv[l].ub = smem + n;
+        smem += 2 * n;
+      }
+      lv[l].ua = smem;
+      lv[l].p = smem + n;
+      smem += 2 * n;
+    }
+  }
+  __syncthreads();
+  const Tree tr{lv, L, P.a_inv};
+  for (int l = T; l < L - 1; ++l) down_level(t, lv[l], lv[l + 1]);
+  coarsest(t, tr);
   // The tail's last phase is followed by the grid sync or the kernel's end.
   for (int l = L - 2; l >= T; --l)
-    up_level(t, P.lv[l], P.lv[l + 1], solution(P, l + 1), l == T);
+    up_level(t, lv[l], lv[l + 1], solution(tr, l + 1), l == T);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 coarse_tree_kernel(const __grid_constant__ TreeParams P) {
+  extern __shared__ float tail_smem[];
+  __shared__ TreeLevel tail_lv[MAXL];
   GridTeam g{cg::this_grid(), (int)(blockIdx.x * blockDim.x + threadIdx.x),
              (int)(gridDim.x * blockDim.x)};
+  const Tree tr{P.lv, P.L, P.a_inv};
   const int L = P.L, T = P.tail_from;
   const int top = T < L - 1 ? T : L - 1;  // grid-wide levels above the tail
   for (int l = 0; l < top; ++l) down_level(g, P.lv[l], P.lv[l + 1]);
   if (T == L) {
-    coarsest(g, P);
+    coarsest(g, tr);
   } else {
-    if (blockIdx.x == 0) tail_cycle(P);
+    if (blockIdx.x == 0) tail_cycle(P, tail_lv, tail_smem);
     if (T > 0) g.sync();
   }
   for (int l = top - 1; l >= 0; --l)
-    up_level(g, P.lv[l], P.lv[l + 1], solution(P, l + 1), l == 0);
+    up_level(g, P.lv[l], P.lv[l + 1], solution(tr, l + 1), l == 0);
 }
 
 }  // namespace
@@ -329,12 +367,14 @@ int mg_coarse_tree_plan_bytes() { return (int)sizeof(TreeParams); }
 // (mg_coarse_tree_plan_bytes() bytes) and its grid size into *blocks.
 //   shapes:    2L ints (ny, nx per level); ks: L sweep counts;
 //   steps:     device f32, (alpha, beta) pairs of level 0, then level 1, ...
-//   ptrs:      host array of 9L device pointers, per level
-//              (cs, cw, cc, ce, cn, b, ua, ub, p); level 0's b and ub are
-//              set per call (the input and `out`);
+//   ptrs:      host array of 10L device pointers, per level
+//              (cs, cw, cc, ce, cn, dinv, b, ua, ub, p); level 0's b and ub
+//              are set per call (the input and `out`), the tail's levels'
+//              buffers but its entry level's b and ub are not read;
 //   a_inv:     device (N, N) coarsest inverse, or null to smooth there;
 //   tail_from: the first level block 0 runs alone (0 .. L; L: none).
-// Returns a cudaError_t value.
+// Returns a cudaError_t value; a tail whose buffers exceed a block's
+// shared memory is cudaErrorInvalidValue.
 int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
                         const float* steps, const unsigned long long* ptrs,
                         const float* a_inv, int tail_from, void* image,
@@ -347,6 +387,7 @@ int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
   P.tail_from = tail_from;
   P.a_inv = a_inv;
   int off = 0;
+  size_t tail_floats = 0;
   for (int l = 0; l < L; ++l) {
     TreeLevel& v = P.lv[l];
     v.ny = shapes[2 * l];
@@ -355,18 +396,22 @@ int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
     if (v.k < 1) return (int)cudaErrorInvalidValue;
     v.steps = steps + off;
     off += 2 * v.k;
-    const unsigned long long* q = ptrs + 9 * l;
+    const unsigned long long* q = ptrs + 10 * l;
     v.cs = (const float*)q[0];
     v.cw = (const float*)q[1];
     v.cc = (const float*)q[2];
     v.ce = (const float*)q[3];
     v.cn = (const float*)q[4];
-    v.b = (const float*)q[5];
-    v.ua = (float*)q[6];
-    v.ub = (float*)q[7];
-    v.p = (float*)q[8];
+    v.dinv = (const float*)q[5];
+    v.b = (const float*)q[6];
+    v.ua = (float*)q[7];
+    v.ub = (float*)q[8];
+    v.p = (float*)q[9];
+    // tail_cycle's layout: (b, ub) past the tail's entry level, (ua, p).
+    if (l >= tail_from)
+      tail_floats += (size_t)(l > tail_from ? 4 : 2) * v.ny * v.nx;
   }
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0, optin = 0;
   int err = (int)cudaGetDevice(&dev);
   if (!err)
     err = (int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
@@ -376,8 +421,21 @@ int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
   if (!err)
+    err = (int)cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err) return err;
+  if (tail_floats * sizeof(float) > (size_t)optin)
+    return (int)cudaErrorInvalidValue;
+  P.smem = (int)(tail_floats * sizeof(float));
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, coarse_tree_kernel);
+  if (!err && attr.maxDynamicSharedSizeBytes < P.smem)
+    err = (int)cudaFuncSetAttribute(
+        coarse_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        P.smem);
+  if (!err)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, coarse_tree_kernel, NTHREADS, 0);
+        &per_sm, coarse_tree_kernel, NTHREADS, P.smem);
   if (err) return err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   // The whole tree in block 0: one block.  Else one point per thread on
@@ -401,8 +459,8 @@ int mg_coarse_tree(const void* image, const float* b, float* out,
   P.lv[0].ub = out;
   void* args[] = {(void*)&P};
   int err = (int)cudaLaunchCooperativeKernel(
-      (void*)coarse_tree_kernel, dim3(P.blocks), dim3(NTHREADS), args, 0,
-      (cudaStream_t)stream);
+      (void*)coarse_tree_kernel, dim3(P.blocks), dim3(NTHREADS), args,
+      (size_t)P.smem, (cudaStream_t)stream);
   if (err) return err;
   return (int)cudaGetLastError();
 }

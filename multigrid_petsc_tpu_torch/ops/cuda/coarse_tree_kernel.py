@@ -143,12 +143,15 @@ class TreePlan:
             sum(n * (2 if l == 0 else 4) for l, n in enumerate(sizes)),
             dtype=torch.float32, device=device)
         self._a_inv = a_inv_t
-        ptrs = np.zeros(9 * L, np.uint64)
+        # D^-1 per level, as the plain version forms it: the kernel's steps
+        # multiply by it and divide nowhere.
+        self._dinv = [1.0 / st.cc for st in stencils]
+        ptrs = np.zeros(10 * L, np.uint64)
         base, isz, off = self._scratch.data_ptr(), 4, 0
-        for l, (st, n) in enumerate(zip(stencils, sizes)):
-            ptrs[9 * l: 9 * l + 5] = [c.data_ptr() for c in st]
-            for j in (6, 8) if l == 0 else (5, 6, 7, 8):
-                ptrs[9 * l + j] = base + off * isz
+        for l, (st, dinv, n) in enumerate(zip(stencils, self._dinv, sizes)):
+            ptrs[10 * l: 10 * l + 6] = [c.data_ptr() for c in (*st, dinv)]
+            for j in (7, 9) if l == 0 else (6, 7, 8, 9):
+                ptrs[10 * l + j] = base + off * isz
                 off += n
         self._lib = lib = load_library()
         self._image = ctypes.create_string_buffer(
