@@ -28,11 +28,13 @@
 // - Fewer phases: the zero-guess steps 0 and 1 are one phase (step 1 forms
 //   step 0's u = alpha_0 D^-1 b at its five points); the residual is
 //   formed inside the restriction (each coarse point computes the 3 x 3
-//   fine residuals it weighs); the coarse correction is formed inside
-//   post-smooth step 0 (u + P e at its five points); the last phase has
-//   no barrier.  A level of k steps costs k phases down (2 at k = 1) and
-//   k up, instead of k + 2 and k + 1.  Every expression keeps the term
-//   order of the plain version (coarse_tree_plain).
+//   fine residuals it weighs); the last phase has no barrier.  A level of
+//   k steps costs k phases down (2 at k = 1) and k + 1 up, instead of
+//   k + 2 and k + 1.  The coarse correction keeps its own phase: formed
+//   inside post-smooth step 0 (u + P e at its five points) it measured
+//   ~10% slower on the main path's tree (scripts/time_coarse_tree.py's
+//   trees, PERF.md).  Every expression keeps the term order of the plain
+//   version (coarse_tree_plain).
 // - Cheap points: D^-1 is a column the plan makes once (torch's 1 / cc,
 //   the plain version's), so no step divides; a thread steps its (row,
 //   column) through the grid-stride loop with no index division.
@@ -282,24 +284,24 @@ __device__ void coarsest(Team& t, const Tree& tr) {
   t.sync();
 }
 
-// Up leg on level v: step 0 corrects with the prolonged coarse solution
-// e, forming u + P e at its five points; then the remaining steps.  The
-// launch's (or the tail's) last phase ends without a barrier (`last`).
+// Up leg on level v: the correction with the prolonged coarse solution
+// e, in place, then k steps.  The launch's (or the tail's) last phase
+// ends without a barrier (`last`).
 template <class Team>
 __device__ void up_level(Team& t, const TreeLevel& v, const TreeLevel& c,
                          const float* e, bool last) {
   const float* st = v.steps;
-  const float* u = down_result(v);
+  float* u = down_result(v);
   const int d = (v.k - 1) & 1;
-  step_phase(
-      t, v, st[0], st[1], true,
-      [&](int y, int x) {
-        return u[y * v.nx + x] + prolong_at(e, y, x, c.ny, c.nx);
+  for_points(
+      t, v.ny, v.nx,
+      [&](int i, int y, int x) {
+        return u[i] + prolong_at(e, y, x, c.ny, c.nx);
       },
-      [](int, float) { return 0.f; }, buf(v, d ^ 1));
-  if (!(last && v.k == 1)) t.sync();
-  for (int s = 1; s < v.k; ++s) {
-    step_phase(t, v, st[2 * s], st[2 * s + 1], false,
+      [&](int i, float r) { u[i] = r; });
+  t.sync();
+  for (int s = 0; s < v.k; ++s) {
+    step_phase(t, v, st[2 * s], st[2 * s + 1], s == 0,
                LoadAt{buf(v, (d + s) & 1), v.nx},
                [&](int i, float) { return v.p[i]; }, buf(v, (d + s + 1) & 1));
     if (!(last && s == v.k - 1)) t.sync();

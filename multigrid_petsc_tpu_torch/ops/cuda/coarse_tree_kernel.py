@@ -92,8 +92,8 @@ def tail_from(shapes, tail_max_n: int | None = None) -> int:
 def grid_syncs(shapes, ks, direct: bool,
                tail_max_n: int | None = None) -> int:
     """Grid-wide barriers of one launch, by ``csrc/coarse_tree.cu``'s
-    schedule: a level above the tail takes k down (2 at k = 1) and k up;
-    then one after the tail, or the coarsest's own (1 for the direct
+    schedule: a level above the tail takes k down (2 at k = 1) and k + 1
+    up; then one after the tail, or the coarsest's own (1 for the direct
     solve, k - 1 for zero-guess smoothing, 1 at k = 1); the last phase
     takes none.  A tree that block 0 runs whole takes none."""
     L = len(shapes)
@@ -102,7 +102,7 @@ def grid_syncs(shapes, ks, direct: bool,
         return 0
     top = min(t, L - 1)
     mid = 1 if t < L or direct else max(ks[-1] - 1, 1)
-    return sum(max(k, 2) + k for k in ks[:top]) + mid - 1
+    return sum(max(k, 2) + k + 1 for k in ks[:top]) + mid - 1
 
 
 def _check_tree(device: torch.device, stencils, shapes, a_inv_t) -> None:

@@ -5,8 +5,8 @@ what it decides from shapes alone (where block 0's tail starts, how many
 grid-wide barriers a launch makes) and the checks it runs once are held
 here, as is a plain-PyTorch model of ``csrc/coarse_tree.cu``'s fused
 schedule (the zero-guess steps 0 and 1 in one phase, the residual formed
-inside the restriction, the correction inside post-smooth step 0, the
-ping-pong buffers) against ``coarse_tree_plain`` in f64 to 1e-12 of
+inside the restriction, the correction in place, the ping-pong buffers)
+against ``coarse_tree_plain`` in f64 to 1e-12 of
 max|u|.  The kernel itself is held to ``coarse_tree_plain`` on the card
 by ``chip_smoke.py`` and ``scripts/time_coarse_tree.py``.
 """
@@ -71,17 +71,17 @@ def test_solver_reused_matches_plain():
 
 @pytest.mark.parametrize("shapes,ks,direct,tail_max_n,tail,syncs", [
     # The 8193^2 / 11-level main path's split (levels 3..10: 1023 -> 7).
-    (_split_shapes(8193, 11, 3), [3] * 8, True, 63, 4, 24),
-    (_split_shapes(8193, 11, 3), [3] * 8, True, 127, 3, 18),
-    (_split_shapes(8193, 11, 3), [3] * 8, True, 31, 5, 30),
-    (_split_shapes(8193, 11, 3), [1] * 8, True, 63, 4, 12),
+    (_split_shapes(8193, 11, 3), [3] * 8, True, 63, 4, 28),
+    (_split_shapes(8193, 11, 3), [3] * 8, True, 127, 3, 21),
+    (_split_shapes(8193, 11, 3), [3] * 8, True, 31, 5, 35),
+    (_split_shapes(8193, 11, 3), [1] * 8, True, 63, 4, 16),
     # The 513^2 / 7-level split (levels 1..6: 255 -> 7).
-    (_split_shapes(513, 7, 1), [3] * 6, True, 63, 2, 12),
+    (_split_shapes(513, 7, 1), [3] * 6, True, 63, 2, 14),
     # Entry level in the tail: the whole tree in block 0.
     (_chain(63, 7), [3] * 4, True, 63, 0, 0),
     # No level in the tail: the coarsest smooths grid-wide (k - 1 phases).
-    (_chain(1023, 127), [3] * 4, False, 63, 4, 19),
-    (_chain(1023, 127), [1] * 4, False, 63, 4, 9),
+    (_chain(1023, 127), [3] * 4, False, 63, 4, 22),
+    (_chain(1023, 127), [1] * 4, False, 63, 4, 12),
 ])
 def test_plan_tail_and_grid_syncs(shapes, ks, direct, tail_max_n, tail,
                                   syncs):
@@ -95,7 +95,7 @@ def test_plan_default_tail_constant():
     shapes = _split_shapes(8193, 11, 3)
     assert ctk.TREE_TAIL_MAX_N == 63
     assert ctk.tail_from(shapes) == 4
-    assert ctk.grid_syncs(shapes, [3] * 8, True) == 24 < 64 // 2
+    assert ctk.grid_syncs(shapes, [3] * 8, True) == 28 < 64 // 2
 
 
 def test_tree_checks_refuse():
@@ -199,11 +199,10 @@ def _fused_tree(stencils, shapes, steps_list, a_inv, b, tail):
     def up_level(l, last):
         s, k = steps_list[l], len(steps_list[l])
         d = (k - 1) & 1
-        u_hat = down_result(l) + prolong_bilinear(solution(l + 1))
-        step(l, *s[0], True, u_hat, None, buf(d + 1))
-        phase(l, not (last and k == 1))
-        for j in range(1, k):
-            step(l, *s[j], False, lv[l][buf(d + j)], lv[l]["p"],
+        lv[l][buf(d)] = down_result(l) + prolong_bilinear(solution(l + 1))
+        phase(l)
+        for j in range(k):
+            step(l, *s[j], j == 0, lv[l][buf(d + j)], lv[l]["p"],
                  buf(d + j + 1))
             phase(l, not (last and j == k - 1))
 
