@@ -187,7 +187,7 @@ struct LoadAt {
 // k smoother steps from the zero guess, a barrier after each phase; the
 // result in down_result(v).
 template <class Team>
-__device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
+__device__ void smooth_from_zero(Team& t, const TreeLevel v) {
   const float* st = v.steps;
   const float a0 = st[0];
   if (v.k == 1) {
@@ -215,9 +215,12 @@ __device__ void smooth_from_zero(Team& t, const TreeLevel& v) {
 
 // Down leg on level v: zero-guess smoothing, then the full-weighting
 // restriction of its residual into c.b, each coarse point forming the
-// 3 x 3 fine residuals b - A u it weighs, a fine row at a time.
+// 3 x 3 fine residuals b - A u it weighs, a fine row at a time.  The
+// levels come by value: held in registers, their fields are not re-read
+// after each store (the tail's copies sit in shared memory, which a
+// store through a generic pointer could alias).
 template <class Team>
-__device__ void down_level(Team& t, const TreeLevel& v, const TreeLevel& c) {
+__device__ void down_level(Team& t, const TreeLevel v, const TreeLevel c) {
   smooth_from_zero(t, v);
   const float* u = down_result(v);
   float* bc = const_cast<float*>(c.b);
@@ -267,7 +270,7 @@ __device__ void down_level(Team& t, const TreeLevel& v, const TreeLevel& c) {
 // Coarsest level: the dense direct solve, or zero-guess smoothing.
 template <class Team>
 __device__ void coarsest(Team& t, const Tree& tr) {
-  const TreeLevel& v = tr.lv[tr.L - 1];
+  const TreeLevel v = tr.lv[tr.L - 1];
   if (tr.a_inv == nullptr) {
     smooth_from_zero(t, v);
     return;
@@ -288,7 +291,7 @@ __device__ void coarsest(Team& t, const Tree& tr) {
 // e, in place, then k steps.  The launch's (or the tail's) last phase
 // ends without a barrier (`last`).
 template <class Team>
-__device__ void up_level(Team& t, const TreeLevel& v, const TreeLevel& c,
+__device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
                          const float* e, bool last) {
   const float* st = v.steps;
   float* u = down_result(v);
