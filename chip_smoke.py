@@ -10,7 +10,10 @@ non-zero):
      measure its device-to-device copy rate (a 1 GiB copy);
   2. every 5-point kernel against its plain PyTorch version on the card,
      at the shapes of the 8193^2 / 11-level paths, with times: the mg-CG
-     kernels K1-K4, then K6, K7 (Jacobi and Chebyshev) and K9 in each
+     kernels K1-K4 (K4 on scripts/time_coarse_tree.py's seven trees, timed
+     per call and as device time, with the grid-sync probe's cost of one
+     barrier and the latency floor it gives), then K6, K7 (Jacobi and
+     Chebyshev) and K9 in each
      mode the V-cycle family uses, a k = 8 and a k = 32 visit; then the
      5-point strip visit (every flag set, K17's row blocks) and K12 (three
      coefficient layouts, row blocks) on ragged shapes, at k = 1, at the
@@ -294,15 +297,12 @@ def check_kernel(torch, rec, key, label, nbytes, flops, kern, plain, names,
     keep_time(rec[key], ms, pms, nbytes, flops, lms)
 
 
-def phase_kernels(torch, dev):
+def phase_kernels(torch, dev, rate):
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.ops.cuda import coarse_tree_kernel as ctk
     from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
     from multigrid_petsc_tpu_torch.problems import stencil_coefficients
-    from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
     from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
-
-    import numpy as np
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     f32 = torch.float32
@@ -377,22 +377,49 @@ def phase_kernels(torch, dev):
                                                   emit_dot))
     del r, b, u, e
 
-    shapes = [(n, n) for n in (1023, 511, 255, 127, 63, 31, 15, 7)]
-    sts = [st_of(s[0]) for s in shapes]
-    steps_list = [jacobi_step_coeffs(3, 0.8)] * len(shapes)
-    a_inv = np.linalg.inv(dense_from_stencil(sts[-1], 7, 7))
-    solver = ctk.make_coarse_tree_solver(sts, shapes, steps_list, a_inv)
-    a_inv_t = torch.as_tensor(a_inv, dtype=f32, device=dev)
-    b = rnd(1023, 1023)
-    print("K4 coarse_tree 1023^2 -> 7^2")
-    compare(torch, "u", solver(b),
-            ctk.coarse_tree_plain(sts, steps_list, a_inv_t, b),
-            rec["coarse_tree"])
+    # K4 on scripts/time_coarse_tree.py's trees: the main path's (1023^2 ->
+    # 7^2), the 513^2 / 7-level split, a tree all in block 0's tail, three
+    # smoothing their coarsest level (one with no tail, one with the
+    # coarsest alone in it), k = 1.
+    tct = load_script("time_coarse_tree")
+    trees = tct.tree_cases(torch, dev)
+    print(f"K4 coarse_tree on {len(trees)} trees (tail constant "
+          f"{ctk.TREE_TAIL_MAX_N})")
+    for t in trees:
+        plan = t.solve.plan
+        print(f"  {t.name}: tail from level {plan.tail_from}, "
+              f"{plan.grid_syncs} grid syncs, {plan.blocks} blocks")
+        compare(torch, t.name, t.solve(t.b), t.plain(), rec["coarse_tree"])
+    main = trees[0]
+    shapes, plan = main.shapes, main.solve.plan
     tree_flops = sum((30 * k + 14) * a * c for a, c in shapes) + 2 * 49**2
-    timed("coarse_tree", 1023, 2 * 1023 * 1023 * 4 + 4 * 49**2, tree_flops,
-          lambda: solver(b),
-          lambda: ctk.coarse_tree_plain(sts, steps_list, a_inv_t, b))
+    nbytes = 2 * 1023 * 1023 * 4 + 4 * 49**2
+    timed("coarse_tree", 1023, nbytes, tree_flops,
+          lambda: main.solve(main.b), main.plain)
+    dev_ms = tct.device_ms(torch, lambda: main.solve(main.b))
+    sync_us = tct.sync_cost_us(torch, tct.load_probe(), plan.blocks)
+    floor_ms = plan.grid_syncs * sync_us * 1e-3 + 1e3 * nbytes / rate
+    print(f"  coarse_tree 1023^2 -> 7^2: device {dev_ms:.4f} ms a call "
+          f"({tct.CALLS} calls between two events); one grid.sync() of "
+          f"{plan.blocks} blocks {sync_us:.3f} us (probe); latency floor "
+          f"{plan.grid_syncs} x {sync_us:.3f} us + bytes / copy rate = "
+          f"{floor_ms:.4f} ms; on {nvidia_smi_line()}")
+    rec["coarse_tree"].update(device_ms=dev_ms, grid_syncs=plan.grid_syncs,
+                              grid_sync_us=sync_us,
+                              latency_floor_ms=floor_ms)
     return rec
+
+
+def load_script(name: str):
+    """A module of the repo's scripts/ folder, by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def phase_kernels_vcycle(torch, dev, rec):
@@ -2074,7 +2101,7 @@ def main() -> int:
     rate = copy_rate(torch)
     print(f"copy rate {rate / 1e9:.1f} GB/s on {smi}")
 
-    rec = phase_kernels(torch, dev)
+    rec = phase_kernels(torch, dev, rate)
     phase_kernels_vcycle(torch, dev, rec)
     phase_kernels_9pt(torch, dev, rec)
     torch.cuda.empty_cache()
@@ -2194,7 +2221,10 @@ def main() -> int:
             "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate,
             **({"ms_nine_scalars": rec[k]["scalars_ms"],
                 "bound_ms_nine_scalars": rec[k]["scalars_bound_ms"]}
-               if "scalars_ms" in rec[k] else {})})
+               if "scalars_ms" in rec[k] else {}),
+            **{x: rec[k][x] for x in ("device_ms", "grid_syncs",
+                                      "grid_sync_us", "latency_floor_ms")
+               if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1)")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {nvidia_smi_line()}")

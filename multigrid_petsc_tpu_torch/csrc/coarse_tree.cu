@@ -313,8 +313,10 @@ __device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
 
 // Levels tail_from .. L - 1 as one V-cycle inside block 0, on copies of
 // their levels (in shared memory, `lv`) whose buffers are in shared memory
-// too, but for the tail's entry level's b and ub (its rhs and solution,
-// read and written by the grid, or the caller's input and out).
+// too, but for those of the tail's entry level that the grid reads or
+// writes: its b and ub (its rhs and solution; or the caller's input and
+// out), and its ua too where it is the coarsest level, whose solution may
+// be there (tail_smem_floats counts the same).
 __device__ void tail_cycle(const TreeParams& P, TreeLevel* lv, float* smem) {
   BlockTeam t{(int)threadIdx.x, (int)blockDim.x};
   const int L = P.L, T = P.tail_from;
@@ -327,9 +329,12 @@ __device__ void tail_cycle(const TreeParams& P, TreeLevel* lv, float* smem) {
         lv[l].ub = smem + n;
         smem += 2 * n;
       }
-      lv[l].ua = smem;
-      lv[l].p = smem + n;
-      smem += 2 * n;
+      if (l > T || T < L - 1) {
+        lv[l].ua = smem;
+        smem += n;
+      }
+      lv[l].p = smem;
+      smem += n;
     }
   }
   __syncthreads();
@@ -412,9 +417,11 @@ int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
     v.ua = (float*)q[7];
     v.ub = (float*)q[8];
     v.p = (float*)q[9];
-    // tail_cycle's layout: (b, ub) past the tail's entry level, (ua, p).
+    // tail_cycle's layout: (b, ub) past the tail's entry level, ua but on
+    // an entry level that is the coarsest, p.
     if (l >= tail_from)
-      tail_floats += (size_t)(l > tail_from ? 4 : 2) * v.ny * v.nx;
+      tail_floats += (size_t)(l > tail_from ? 4 : tail_from < L - 1 ? 2 : 1) *
+                     v.ny * v.nx;
   }
   int dev = 0, sms = 0, per_sm = 0, coop = 0, optin = 0;
   int err = (int)cudaGetDevice(&dev);
