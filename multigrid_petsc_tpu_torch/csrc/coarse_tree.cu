@@ -130,16 +130,15 @@ __device__ __forceinline__ const float* solution(const Tree& tr, int l) {
   return tr.a_inv != nullptr ? v.ua : down_result(v);
 }
 
-// store(i, f(i, y, x)) for each point i = y * nx + x of the team's share
-// of an ny x nx grid; the thread steps its (y, x) with no division per
-// point.
-template <class Team, class F, class S>
+// body(i, y, x) for each point i = y * nx + x of the team's share of an
+// ny x nx grid; the thread steps its (y, x) with no division per point.
+template <class Team, class F>
 __device__ __forceinline__ void for_points(const Team& t, int ny, int nx,
-                                           F f, S store) {
+                                           F body) {
   const int dy = t.size / nx, dx = t.size - dy * nx;
   int y = t.rank / nx, x = t.rank - y * nx;
   for (int i = t.rank; y < ny; i += t.size) {
-    store(i, f(i, y, x));
+    body(i, y, x);
     x += dx;
     y += dy;
     if (x >= nx) {
@@ -169,11 +168,8 @@ __device__ __forceinline__ void step_phase(const Team& t, const TreeLevel& v,
                          v.cw[y] * w + v.ce[y] * e;
         const float z = v.dinv[y] * (v.b[i] - au);
         const float pn = (first ? 0.f : bt * p_prev(i, uc)) + a * z;
-        return make_float2(pn, uc + pn);
-      },
-      [&](int i, float2 r) {
-        v.p[i] = r.x;
-        dst[i] = r.y;
+        v.p[i] = pn;
+        dst[i] = uc + pn;
       });
 }
 
@@ -191,10 +187,9 @@ __device__ void smooth_from_zero(Team& t, const TreeLevel v) {
   const float* st = v.steps;
   const float a0 = st[0];
   if (v.k == 1) {
-    for_points(
-        t, v.ny, v.nx,
-        [&](int i, int y, int) { return a0 * (v.dinv[y] * v.b[i]); },
-        [&](int i, float u0) { v.ua[i] = u0; });
+    for_points(t, v.ny, v.nx, [&](int i, int y, int) {
+      v.ua[i] = a0 * (v.dinv[y] * v.b[i]);
+    });
     t.sync();
     return;
   }
@@ -226,7 +221,7 @@ __device__ void down_level(Team& t, const TreeLevel v, const TreeLevel c) {
   float* bc = const_cast<float*>(c.b);
   for_points(
       t, c.ny, c.nx,
-      [&](int, int I, int J) {
+      [&](int i, int I, int J) {
         const int y0 = 2 * I, x0 = 2 * J;
         // u on row y, columns x0 - 1 .. x0 + 3 (0 outside the domain); the
         // rows above and below the footprint need x0 .. x0 + 2 only.
@@ -261,9 +256,8 @@ __device__ void down_level(Team& t, const TreeLevel v, const TreeLevel c) {
             mid[d] = dn[d];
           }
         }
-        return 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
-      },
-      [&](int i, float r) { bc[i] = r; });
+        bc[i] = 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2]);
+      });
   t.sync();
 }
 
@@ -276,14 +270,11 @@ __device__ void coarsest(Team& t, const Tree& tr) {
     return;
   }
   const int N = v.ny * v.nx;
-  for_points(
-      t, v.ny, v.nx,
-      [&](int i, int, int) {
-        float acc = 0.f;
-        for (int j = 0; j < N; ++j) acc += tr.a_inv[i * N + j] * v.b[j];
-        return acc;
-      },
-      [&](int i, float r) { v.ua[i] = r; });
+  for_points(t, v.ny, v.nx, [&](int i, int, int) {
+    float acc = 0.f;
+    for (int j = 0; j < N; ++j) acc += tr.a_inv[i * N + j] * v.b[j];
+    v.ua[i] = acc;
+  });
   t.sync();
 }
 
@@ -296,12 +287,9 @@ __device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
   const float* st = v.steps;
   float* u = down_result(v);
   const int d = (v.k - 1) & 1;
-  for_points(
-      t, v.ny, v.nx,
-      [&](int i, int y, int x) {
-        return u[i] + prolong_at(e, y, x, c.ny, c.nx);
-      },
-      [&](int i, float r) { u[i] = r; });
+  for_points(t, v.ny, v.nx, [&](int i, int y, int x) {
+    u[i] = u[i] + prolong_at(e, y, x, c.ny, c.nx);
+  });
   t.sync();
   for (int s = 0; s < v.k; ++s) {
     step_phase(t, v, st[2 * s], st[2 * s + 1], s == 0,
@@ -316,7 +304,7 @@ __device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
 // too, but for those of the tail's entry level that the grid reads or
 // writes: its b and ub (its rhs and solution; or the caller's input and
 // out), and its ua too where it is the coarsest level, whose solution may
-// be there (tail_smem_floats counts the same).
+// be there (mg_coarse_tree_plan counts the same).
 __device__ void tail_cycle(const TreeParams& P, TreeLevel* lv, float* smem) {
   BlockTeam t{(int)threadIdx.x, (int)blockDim.x};
   const int L = P.L, T = P.tail_from;

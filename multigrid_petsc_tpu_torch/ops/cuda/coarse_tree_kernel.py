@@ -2,7 +2,7 @@
 
 Counterpart of ``multigrid_petsc_tpu/ops/pallas/coarse_tree_kernel.py``:
 every level from the entry level down to the coarsest runs as one
-cooperative CUDA launch (``csrc/coarse_tree.cu``) -- zero-guess down
+cooperative CUDA launch (``csrc/coarse_tree.cu``) — zero-guess down
 visits, full-weighting restriction, the dense direct coarsest solve with
 the host-inverted operator, then prolongation + correction + post-smooth
 on the way up.  The levels of at most ``TREE_TAIL_MAX_N`` rows run as one
@@ -12,6 +12,7 @@ the JAX package's selection rule (its VMEM budget and the ``ny_L <= 8``
 cap of the dense solve), so the level split matches the TPU path call
 for call.
 """
+
 from __future__ import annotations
 
 import ctypes
