@@ -16,8 +16,8 @@
 // - One persistent grid of co-resident blocks of 1024 threads, one a SM
 //   (grid size from the plan's occupancy query), walks the large levels
 //   with grid-stride loops; cooperative_groups::this_grid().sync()
-//   separates their phases (~1.1 us a barrier at 132 blocks, against
-//   ~1.5 us at 396 blocks of 256: scripts/time_coarse_tree.py's probe).
+//   separates their phases (~1.1 us a barrier at 132 blocks:
+//   scripts/time_coarse_tree.py's probe; a larger grid's costs more).
 // - The small levels (from the plan's tail_from down, ny <= the host's
 //   TREE_TAIL_MAX_N) run as one V-cycle inside block 0, with block-stride
 //   loops and __syncthreads(), between two grid syncs; a tree whose entry
@@ -32,9 +32,8 @@
 //   k steps costs k phases down (2 at k = 1) and k + 1 up, instead of
 //   k + 2 and k + 1.  The coarse correction keeps its own phase: formed
 //   inside post-smooth step 0 (u + P e at its five points) it measured
-//   ~10% slower on the main path's tree (scripts/time_coarse_tree.py's
-//   trees, PERF.md).  Every expression keeps the term order of the plain
-//   version (coarse_tree_plain).
+//   slower on the main path's tree (PERF.md, K4).  Every expression
+//   keeps the term order of the plain version (coarse_tree_plain).
 // - Cheap points: D^-1 is a column the plan makes once (torch's 1 / cc,
 //   the plain version's), so no step divides; a thread steps its (row,
 //   column) through the grid-stride loop with no index division.

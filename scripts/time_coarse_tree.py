@@ -208,12 +208,13 @@ def sync_cost_us(torch, probe, blocks: int) -> float:
     return 1e3 * (t[1] - t[0]) / (hi - lo)
 
 
-def run_cases(tail_max_n: int) -> dict:
+def run_cases(tail_max_n: int | None) -> dict:
     import torch
 
     from multigrid_petsc_tpu_torch.ops.cuda import coarse_tree_kernel as ctk
 
-    ctk.TREE_TAIL_MAX_N = tail_max_n
+    if tail_max_n is not None:  # None: a tree without the constant
+        ctk.TREE_TAIL_MAX_N = tail_max_n
     dev = torch.device("cuda", 0)
     out, ok = {"cases": {}}, True
     trees = tree_cases(torch, dev)
@@ -303,7 +304,8 @@ def main() -> int:
         return ab()
     from multigrid_petsc_tpu_torch.ops.cuda import coarse_tree_kernel as ctk
 
-    n = ctk.TREE_TAIL_MAX_N if args.tail_max_n is None else args.tail_max_n
+    n = (getattr(ctk, "TREE_TAIL_MAX_N", None) if args.tail_max_n is None
+         else args.tail_max_n)
     out = {"label": args.label, "tail_max_n": n, "card": card(),
            **run_cases(n), **(mgcg() if args.mgcg else {})}
     print(json.dumps(out))
