@@ -2,7 +2,8 @@
 and the y-line relaxation built on them.
 
 PyTorch counterpart of ``multigrid_petsc_tpu/ops/stencil.py`` (Stencil5,
-Stencil9, PCR and the y-line Jacobi smoother).  The operators act on an
+Stencil9, PCR, red-black Gauss-Seidel and the y- and x-line Jacobi
+smoothers).  The operators act on an
 (ny, nx) array of interior unknowns with the homogeneous-Dirichlet
 boundary eliminated: out-of-range neighbours contribute zero (reference:
 src/solver.c:239-251).
@@ -117,6 +118,36 @@ def residual(st, b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return b - apply_stencil(st, u)
 
 
+def redblack_dinv(st: Stencil5, shape, omega: float):
+    """(red, black): omega / cc on the points of one colour of the
+    checkerboard ((i + j) even is red), 0 on the others, each (ny, nx)."""
+    ny, nx = shape
+    ii = torch.arange(ny, device=st.cc.device)[:, None]
+    jj = torch.arange(nx, device=st.cc.device)[None, :]
+    red = (ii + jj) % 2 == 0
+    d = (omega / st.cc).expand(ny, nx)
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    return torch.where(red, d, zero), torch.where(red, zero, d)
+
+
+def sor_redblack_sweeps(st: Stencil5, b: torch.Tensor, u: torch.Tensor,
+                        sweeps: int, omega: float = 1.0,
+                        residual_fn=residual,
+                        dinv_rb: tuple | None = None) -> torch.Tensor:
+    """Red-black Gauss-Seidel / SOR: two masked half-sweeps per sweep, red
+    first, each u + (omega / cc) (b - A u) on its colour (the JAX
+    package's arithmetic).  A half-sweep is one ``residual_fn(st, b, u)``
+    and one multiply-add with that colour's masked D^-1 (``dinv_rb``,
+    ``redblack_dinv``; made here when not given), which is 0 on the other
+    colour."""
+    if dinv_rb is None:
+        dinv_rb = redblack_dinv(st, u.shape, omega)
+    for _ in range(sweeps):
+        for d in dinv_rb:
+            u = torch.addcmul(u, d, residual_fn(st, b, u))
+    return u
+
+
 def _shift_fwd(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
     """y[i] = x[i - s] (rows shifted toward larger i), ``fill`` outside."""
     pad = torch.full((s,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)
@@ -206,3 +237,22 @@ def line_jacobi_sweeps_y(st: Stencil9, b: torch.Tensor, u: torch.Tensor,
         u_line = pcr_solve(fac, b - off_line_y(st, u))
         u = (1.0 - omega) * u + omega * u_line
     return u
+
+
+def transpose_stencil9(st: Stencil9) -> Stencil9:
+    """The stencil of the transposed grid (row index x, column index y):
+    every coefficient transposed, the roles of s and w, n and e, se and nw
+    swapped (JAX ``line_jacobi_sweeps_x``)."""
+    return Stencil9(csw=st.csw.T, cs=st.cw.T, cse=st.cnw.T, cw=st.cs.T,
+                    cc=st.cc.T, ce=st.cn.T, cnw=st.cse.T, cn=st.ce.T,
+                    cne=st.cne.T)
+
+
+def line_jacobi_sweeps_x(st: Stencil9, b: torch.Tensor, u: torch.Tensor,
+                         sweeps: int, omega: float = 1.0,
+                         fac: PCRFactor | None = None) -> torch.Tensor:
+    """Damped x-line Jacobi: the y-line smoother on the transposed grid.
+    ``fac`` is the PCR factor of the transposed stencil's lines
+    (``transpose_stencil9(st)``'s cs, cc, cn over nx points)."""
+    return line_jacobi_sweeps_y(transpose_stencil9(st), b.T, u.T, sweeps,
+                                omega, fac).T

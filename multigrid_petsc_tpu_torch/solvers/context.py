@@ -5,9 +5,10 @@ PyTorch counterpart of ``multigrid_petsc_tpu/solvers/context.py``
 coefficients per grid (the 5-point Poisson family or the 9-point
 anisotropic one), the level operator (matrix-free, or assembled with
 ``backend="sparse"``), each level's smoother (Jacobi or Chebyshev, with
-its lmax and step schedule, y-line Jacobi, or block Gauss-Seidel on a
-merged level), the level visits, the inter-level transfers and the
-coarsest solve (direct or CG).
+its lmax and step schedule, red-black Gauss-Seidel, y-, x- or
+alternating line Jacobi, or block Gauss-Seidel on a merged level), the
+level visits, the inter-level transfers and the coarsest solve (direct
+or CG).
 
 A level is single-grid (its state one (ny, nx) tensor) or, the last level
 when ``grids > levels``, merged: several grids in one coupled system (its
@@ -20,7 +21,11 @@ the hand-written kernels, so every level operation on the card launches
 one.  Sparse and merged levels take the JAX package's generic route:
 operator applications (K8, K16 or the ELL gather for an assembled one;
 K6 per grid for a merged matrix-free one), smoothers over them, and
-visits composed of smooth, residual and transfer.
+visits composed of smooth, residual and transfer.  So do the levels
+whose smoother has no fused visit kernel (RBGS, LINE_X, LINE_XY; JAX
+runs them as XLA ops): their smoothers run over the level's residual and
+line kernels (``residual5``, K15), and they take no Jacobi schedule, no
+mg-CG kernel route and no coarse tree (``LevelCtx.point5``).
 
 Precision: the working ``dtype`` is f32 or f64 (64-bit levels run the
 kernels' f64 instantiations on the card); ``precond_dtype`` builds a
@@ -65,7 +70,14 @@ from multigrid_petsc_tpu_torch.ops.composite import (
 from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import separable9
 from multigrid_petsc_tpu_torch.ops.norms import tree_dot
 from multigrid_petsc_tpu_torch.ops.sparse import SparseLevelOp, assemble_level_csr
-from multigrid_petsc_tpu_torch.ops.stencil import PCRFactor, Stencil5, Stencil9
+from multigrid_petsc_tpu_torch.ops.stencil import (
+    PCRFactor,
+    Stencil5,
+    Stencil9,
+    redblack_dinv,
+    sor_redblack_sweeps,
+    transpose_stencil9,
+)
 from multigrid_petsc_tpu_torch.ops.transfer import (
     prolong_bilinear,
     prolong_multi,
@@ -100,6 +112,13 @@ from multigrid_petsc_tpu_torch.utils.config import (
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 _OUTER_DTYPES = ("float64", "float32x2")
+# Smoothers with a static (alpha, beta) step schedule: what the fused
+# visit kernels, the mg-CG kernel routes and the coarse tree run.
+POINT_SMOOTHERS = (SmootherType.JACOBI, SmootherType.CHEBYSHEV)
+# Smoothers whose level visits are composed of smooth, residual and
+# restriction (JAX's generic visits).
+_COMPOSED_SMOOTHERS = (SmootherType.RBGS, SmootherType.LINE_X,
+                       SmootherType.LINE_XY)
 
 
 def primary(state) -> torch.Tensor:
@@ -114,9 +133,12 @@ class LevelCtx:
     A single-grid matrix-free level dispatches every operation to the
     5-point kernels (K6, K7, K9) or the 9-point ones (K12, K13, K14) by
     the stencil's type, and to the y-line visit (K15) when its smoother
-    is LINE_Y.  A sparse level (``backend="sparse"``) applies its
-    assembled operators (``sparse_full``: A, ``sparse_diag``: A1,
-    ``sparse_coup``: A2; single-grid levels keep A only, which is A1).  A
+    is LINE_Y.  An RBGS level smooths by masked half-sweeps over
+    ``residual5``, a LINE_X level by K15 on the transposed level, LINE_XY
+    by one of each per sweep; their visits are composed.  A sparse level
+    (``backend="sparse"``) applies its assembled operators
+    (``sparse_full``: A, ``sparse_diag``: A1, ``sparse_coup``: A2;
+    single-grid levels keep A only, which is A1).  A
     merged level (``spec.is_composite``) applies ``composite_apply`` over
     its grids unless it is sparse; its smoother is block Gauss-Seidel
     (``block_gs``), matrix-free even when sparse, as in the JAX
@@ -125,14 +147,19 @@ class LevelCtx:
     spec: LevelSpec
     stencil: Stencil5 | Stencil9  # the primary grid's
     dinv: torch.Tensor | tuple    # 1 / cc, per grid on a merged level
-    smoother: SmootherType  # JACOBI, CHEBYSHEV or LINE_Y
+    smoother: SmootherType
     omega: float
     lmax: float | None = None  # Chebyshev: lmax of D^-1 A, set up once
     coarse_solve: Callable | None = None
-    # LINE_Y: the stencil as a collapsed Stencil9 and its line factors
-    # (``line_kernel.line_factor``), set up once.
+    # LINE_Y, LINE_XY: the stencil as a collapsed Stencil9 and its line
+    # factors (``line_kernel.line_factor``), set up once; LINE_X, LINE_XY:
+    # the same of the transposed stencil (its lines run along x).
     line_st: Stencil9 | None = None
     line_fac: PCRFactor | lk.SegmentFactor | None = None
+    line_st_x: Stencil9 | None = None
+    line_fac_x: PCRFactor | lk.SegmentFactor | None = None
+    # RBGS: omega / cc masked to each colour (``redblack_dinv``).
+    rb_dinv: tuple | None = None
     stencils: tuple = ()  # every grid's stencil (stencils[0] is stencil)
     block_gs: bool = False  # merged level: block Gauss-Seidel smoother
     block_gs_inner: int = 3
@@ -175,10 +202,18 @@ class LevelCtx:
         return isinstance(self.stencil, Stencil9)
 
     @property
+    def composed(self) -> bool:
+        """Visits composed of smooth, residual and restriction: the
+        generic levels, and the smoothers with no fused visit kernel."""
+        return self.generic or self.smoother in _COMPOSED_SMOOTHERS
+
+    @property
     def point5(self) -> bool:
-        """A matrix-free single-grid 5-point level with a point smoother:
-        what the fused mg-CG kernels (K1-K4) take."""
-        return not self.nine and self.line_st is None and not self.generic
+        """A matrix-free single-grid 5-point level with a point smoother
+        (Jacobi or Chebyshev): what the fused mg-CG kernels (K1-K4) and
+        the coarse tree take."""
+        return (not self.nine and self.smoother in POINT_SMOOTHERS
+                and not self.generic)
 
     def _op(self, name: str) -> SparseLevelOp:
         op = getattr(self, name)
@@ -249,11 +284,21 @@ class LevelCtx:
         """The point smoother's static (alpha, beta) schedule."""
         if self.smoother == SmootherType.CHEBYSHEV:
             return sm.chebyshev_step_coeffs(sweeps, self.lmax)
-        return sm.jacobi_step_coeffs(sweeps, self.omega)
+        if self.smoother == SmootherType.JACOBI:
+            return sm.jacobi_step_coeffs(sweeps, self.omega)
+        raise ValueError(f"the {self.smoother.value} smoother has no step "
+                         f"schedule")
 
     def _line(self, b, u, sweeps: int, emit: str, e_c=None):
         return lk.line_visit9(self.line_st, b, u, sweeps, self.omega,
                               emit=emit, e_coarse=e_c, fac=self.line_fac)
+
+    def _line_x(self, b, u, sweeps: int):
+        """x-line sweeps: the y-line visit (K15) of the transposed level,
+        on contiguous transposes of b and u."""
+        return lk.line_visit9(self.line_st_x, b.T.contiguous(),
+                              u.T.contiguous(), sweeps, self.omega,
+                              fac=self.line_fac_x).T.contiguous()
 
     def smooth(self, b, u, sweeps: int):
         if self.dist is not None:
@@ -262,7 +307,17 @@ class LevelCtx:
             return sm.composite_block_gs(self.stencils, self.spec.gids, b, u,
                                          sweeps, inner=self.block_gs_inner,
                                          omega=self.omega)
-        if self.line_st is not None:
+        if self.smoother == SmootherType.RBGS:
+            return sor_redblack_sweeps(self.stencil, b, u, sweeps,
+                                       self.omega, sk.residual5,
+                                       self.rb_dinv)
+        if self.smoother == SmootherType.LINE_X:
+            return self._line_x(b, u, sweeps)
+        if self.smoother == SmootherType.LINE_XY:
+            for _ in range(sweeps):  # one y-sweep, then one x-sweep
+                u = self._line_x(b, self._line(b, u, 1, "u"), 1)
+            return u
+        if self.smoother == SmootherType.LINE_Y:
             return self._line(b, u, sweeps, "u")
         if self.generic:
             if self.smoother == SmootherType.CHEBYSHEV:
@@ -277,7 +332,7 @@ class LevelCtx:
         residual of the primary grid."""
         if self.dist is not None:
             return self.dist.visit_down(b, u, self.steps_fn(sweeps))
-        if self.generic:
+        if self.composed:
             u = self.smooth(b, self.zeros() if u is None else u, sweeps)
             return u, restrict_fw(primary(self.residual(b, u)))
         if self.line_st is not None:
@@ -292,7 +347,7 @@ class LevelCtx:
         if self.dist is not None:
             return self.dist.visit_up(b, u, e_c, self.steps_fn(sweeps),
                                       emit_r)
-        if self.generic:
+        if self.composed:
             u0 = primary(u) + prolong_bilinear(e_c)
             u = u0 if isinstance(u, torch.Tensor) else (u0,) + tuple(u[1:])
             u = self.smooth(b, u, sweeps)
@@ -443,11 +498,6 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
         raise ValueError(f"unknown outer_dtype {cfg.outer_dtype!r}")
     if cfg.precond_dtype not in (None, *_DTYPES):
         raise ValueError(f"unknown precond_dtype {cfg.precond_dtype!r}")
-    for l in range(cfg.levels):
-        s = cfg.smoother_at(l, cfg.levels)
-        if s not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV,
-                     SmootherType.LINE_Y):
-            raise not_ported(f"smoother {s.value!r}", "the other smoothers")
     if cfg.coarse_solver not in ("auto", "direct", "cg", "smooth"):
         raise ValueError(f"unknown coarse_solver {cfg.coarse_solver}")
 
@@ -461,15 +511,50 @@ def rhs_grid_of(cfg: SolverConfig, problem, ny: int, nx: int,
     return rhs_grid(problem, MeshType(cfg.mesh), ny, nx, dtype, device)
 
 
-def _line_stencil(st: Stencil5 | Stencil9) -> Stencil9:
-    """The stencil the y-line smoother runs on: a 5-point one promoted to
-    9 points with zero corners (as the JAX package does), collapsed to
-    compact coefficient shapes."""
+def _promote9(st: Stencil5 | Stencil9) -> Stencil9:
+    """The stencil the line smoothers run on: a 5-point one promoted to 9
+    points with zero corners, as the JAX package does."""
     if isinstance(st, Stencil5):
         z = torch.zeros((1, 1), dtype=st.cc.dtype, device=st.cc.device)
         st = Stencil9(csw=z, cs=st.cs, cse=z, cw=st.cw, cc=st.cc, ce=st.ce,
                       cnw=z, cn=st.cn, cne=z)
-    return lk.collapse_stencil(st)
+    return st
+
+
+def _check_smoother(lc: LevelCtx) -> None:
+    """JAX's refusals (context.py:563-596): RBGS needs one grid and a
+    5-point stencil, a line smoother one grid."""
+    if lc.smoother == SmootherType.RBGS:
+        if lc.merged:
+            raise ValueError("RBGS: 1 grid per level")
+        if lc.nine:
+            raise ValueError(
+                "RBGS is 5-point only (corner couplings break the two-color "
+                "independence); use line smoothers for 9-point operators")
+    elif lc.smoother not in POINT_SMOOTHERS and lc.merged:
+        raise ValueError("line smoother: 1 grid per level")
+
+
+def _setup_smoother(lc: LevelCtx) -> None:
+    """What the level's smoother needs, made once: Chebyshev's lmax, RBGS's
+    masked D^-1, the line smoothers' collapsed stencils and factors (the
+    y-lines over ny points, the x-lines of the transposed stencil over
+    nx)."""
+    s = lc.smoother
+    ny, nx = lc.shape
+    if s == SmootherType.CHEBYSHEV:
+        lc.lmax = sm.estimate_dinv_a_lmax(
+            lc.apply, lc.dinv, lc.shapes if lc.merged else lc.shape)
+    elif s == SmootherType.RBGS:
+        lc.rb_dinv = redblack_dinv(lc.stencil, lc.shape, lc.omega)
+    elif s != SmootherType.JACOBI:
+        st9 = _promote9(lc.stencil)
+        if s in (SmootherType.LINE_Y, SmootherType.LINE_XY):
+            lc.line_st = lk.collapse_stencil(st9)
+            lc.line_fac = lk.line_factor(lc.line_st, ny)
+        if s in (SmootherType.LINE_X, SmootherType.LINE_XY):
+            lc.line_st_x = lk.collapse_stencil(transpose_stencil9(st9))
+            lc.line_fac_x = lk.line_factor(lc.line_st_x, nx)
 
 
 def _plan_device(device, plan) -> torch.device:
@@ -592,15 +677,10 @@ def _build(cfg: SolverConfig, problem: Problem | None,
         if sparse:
             _assemble(lc, cfg, device, dtype)
         shard = _use_dist(lc, cfg, plan)
-        if cfg.cycle not in _SPLIT_CYCLES and not lc.block_gs:
-            if lc.smoother == SmootherType.CHEBYSHEV:
-                lc.lmax = sm.estimate_dinv_a_lmax(
-                    lc.apply, lc.dinv, lc.shapes if lc.merged else lc.shape)
-            elif lc.smoother == SmootherType.LINE_Y:
-                if lc.merged:
-                    raise ValueError("line smoother: 1 grid per level")
-                lc.line_st = _line_stencil(lc.stencil)
-                lc.line_fac = lk.line_factor(lc.line_st, lc.shape[0])
+        if not lc.block_gs:
+            _check_smoother(lc)
+            if cfg.cycle not in _SPLIT_CYCLES:
+                _setup_smoother(lc)
         if shard:  # after lmax, which JAX estimates on the whole grid
             _shard(lc, cfg, plan)
         levels.append(lc)

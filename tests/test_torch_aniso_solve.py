@@ -170,10 +170,25 @@ def test_cli_runs_aniso_line_y_on_cpu(tmp_path, monkeypatch, capsys):
     dict(coarse_smoother=SmootherType.LINE_X),
 ])
 def test_other_smoothers_still_raise(kw):
+    """The smoothers that raised until they were ported, on the 9-point
+    family: RBGS still raises, as JAX's set-up does (5-point only); the
+    line smoothers solve as JAX's do (f64: its iterations, its history to
+    1e-10)."""
     cfg = SolverConfig(npts=17, grids=2, levels=2, problem="aniso",
                        cycle=CycleType.MGCG, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(cfg, device="cpu")
+    jkw = {k: JST(v.value) for k, v in kw.items()}
+    jcfg = JC(npts=17, grids=2, levels=2, problem="aniso", cycle=JCT.MGCG,
+              **jkw)
+    if kw.get("smoother") == SmootherType.RBGS:
+        with pytest.raises(ValueError, match="RBGS is 5-point only"):
+            solve(cfg, device="cpu")
+        with pytest.raises(AssertionError, match="RBGS is 5-point only"):
+            j_solve(jcfg)
+        return
+    got, ref = solve(cfg, device="cpu"), j_solve(jcfg)
+    assert got.converged and got.iters == int(ref.iters)
+    np.testing.assert_allclose(got.rnorm, ref.rnorm, rtol=1e-10,
+                               atol=1e-13)
 
 
 def test_aniso_composite_levels_raise_as_in_jax():

@@ -213,6 +213,10 @@ ROUTES = [
     (dict(precond_dtype="bfloat16", v=(8, 8)), "generic"),
     (dict(problem="aniso", aniso=(1.0, 1.0, 1.0, 2.0, 0.4)), "generic"),
     (dict(smoother=SmootherType.LINE_Y), "generic"),
+    (dict(smoother=SmootherType.RBGS), "generic"),
+    (dict(fine_smoother=SmootherType.LINE_X), "generic"),
+    (dict(smoother=SmootherType.LINE_XY), "generic"),
+    (dict(coarse_smoother=SmootherType.RBGS), "mdma"),
     (dict(backend="sparse"), "generic"),
     (dict(grids=2, levels=1), "generic"),
 ]
