@@ -39,7 +39,9 @@ Storage types: f32 and f64 (``visit.cu``, ``visit_f64.cu``).  The wrapper
 runs the plain PyTorch version (``row_visit_plain``) when the data lies on
 the CPU, launches the kernel when it lies on a CUDA device (anything else
 raises), and never falls back from one to the other; it counts each launch
-as ``dist_level_visit`` (``.f64``).
+as ``dist_level_visit`` (``.f64``), and beside that total, in ``emits``,
+the launches of each emit (``"a"``, ``"r"``, ``"rc"``... with the same
+suffix).
 
 ``halo_rows``, ``pick_tile`` and ``separable9`` keep the JAX module's
 rules, which decide the level split (``parallel.dist_ops.dist_viable``,
@@ -50,13 +52,14 @@ and ships every coefficient as it is.  Kept for parity (ROADMAP).
 from __future__ import annotations
 
 import functools
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from multigrid_petsc_tpu_torch.ops import stencil as _st
-from multigrid_petsc_tpu_torch.ops.cuda import count_launch
+from multigrid_petsc_tpu_torch.ops.cuda import _SUFFIX, count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _EMIT_SHIFT,
@@ -82,6 +85,9 @@ ROW_DTYPES = (torch.float32, torch.float64)
 # dist_kernel.py:64): the trailing residual costs one row, the restriction
 # window one more.
 _EXTRA_H = {"u": 0, "a": 1, "r": 1, "ur": 1, "rc": 2}
+# K17's launches per emit (and storage type), beside the total that
+# ``ops.cuda.launches`` keeps; cleared by the caller as that one is.
+emits: Counter = Counter()
 
 
 def halo_rows(sweeps: int, emit: str) -> int:
@@ -338,4 +344,5 @@ def row_visit(st, b, u, steps, emit: str, *, row0: int, ny: int,
         out = {"u": u_out, "ur": (u_out, r_out), "rc": (u_out, rc_out)}[emit]
     check(err, f"row-block visit launch (emit {emit})")
     count_launch("dist_level_visit", dtype)
+    emits[emit + _SUFFIX[dtype]] += 1
     return out

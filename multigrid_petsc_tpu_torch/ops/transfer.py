@@ -9,8 +9,15 @@ A grid with n interior points per dim coarsens to (n - 1)/2; coarse point
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+# The 3x3 stencils (src/matbuild.c:398-431).
+RESTRICT_3x3 = np.array(
+    [[1.0, 2.0, 1.0], [2.0, 4.0, 2.0], [1.0, 2.0, 1.0]]) / 16.0
+PROLONG_3x3 = np.array(
+    [[1.0, 2.0, 1.0], [2.0, 4.0, 2.0], [1.0, 2.0, 1.0]]) / 4.0
 
 
 def restrict_fw(r: torch.Tensor) -> torch.Tensor:
@@ -51,3 +58,19 @@ def prolong_multi(e: torch.Tensor, gap: int) -> torch.Tensor:
     for _ in range(gap):
         e = prolong_bilinear(e)
     return e
+
+
+def composed_transfer_stencil(base3x3: np.ndarray, gap: int) -> np.ndarray:
+    """The explicit transfer stencil of a ``gap``-level jump, sizes 3, 7,
+    15, ..., 2^(gap+1) - 1: the reference's stencil composition
+    (src/matbuild.c:355-396), on the host, as the JAX package makes it."""
+    w = np.asarray(base3x3, dtype=np.float64)
+    cur = w.copy()
+    for _ in range(gap - 1):
+        nl = cur.shape[0]
+        nxt = np.zeros((2 * nl + 1, 2 * nl + 1))
+        for il in range(nl):
+            for jl in range(nl):
+                nxt[2 * il:2 * il + 3, 2 * jl:2 * jl + 3] += w * cur[il, jl]
+        cur = nxt
+    return cur

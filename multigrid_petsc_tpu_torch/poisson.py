@@ -10,13 +10,18 @@ cycle (any ``-cycle`` id: V 0, I 1, E 2, D1 3, D2 4, D1PS 7,
 MG-Richardson 8, Additive 9, Additive2 10, mg-CG 101, mg-FGMRES 102, FMG
 103) for the configured problem (``-problem poisson``, or ``-problem
 aniso -aniso a0,a2,c0,c2,b``, the 9-point family) and operator form
-(matrix-free, or ``-backend sparse``: assembled matrices) on the device
-and prints iterations, residual, error norms on the finest grid and
-timing; ``-moreNorm 1`` adds the per-grid residual monitors of the
-merged-grid cycles.  The JAX CLI's result files (``uData.dat`` ...) are
-not written yet; the last line of the output says so.  ``-device`` defaults to ``cuda``, which without a
-card is an error; ``-device cpu`` runs the plain PyTorch versions of the
-kernels.
+(matrix-free, or ``-backend sparse``: assembled matrices) on the device.
+It prints the port's summary (path, route, sparse forms, distribution,
+iterations, residual, error norms on the finest grid, timing), then the
+JAX CLI's run banner (``utils.logging.print_info``) and, with ``-view
+1``, its per-level solver dump (``utils.views.view_solver``), and writes
+the reference's artifact files into the working directory
+(``uData.dat rData.dat eData.dat XgridData.dat YgridData.dat``, with
+``-moreNorm 1`` also ``rGlobal.dat rGrid<i>.dat``;
+``postprocess.write_artifacts``).  ``-moreNorm 1`` also prints the
+per-grid residual monitors of the merged-grid cycles.  ``-device``
+defaults to ``cuda``, which without a card is an error; ``-device cpu``
+runs the plain PyTorch versions of the kernels.
 
 Distributed (JAX poisson.py:53-75; the reference's ``mpirun -n P``):
 
@@ -26,10 +31,10 @@ Distributed (JAX poisson.py:53-75; the reference's ``mpirun -n P``):
 Under ``torchrun`` (WORLD_SIZE > 1) each rank initialises the process
 group, NCCL when every rank has a card of its own, gloo otherwise (the
 CPU, or ranks sharing a card: halos staged through the host), and ``-map
-2`` (the default) solves under ``row_plan()``.  Rank 0 prints, the banner
-naming the ranks, the transport and the sharded levels.  ``-map 0/1``
-(JAX's 2-D blocks layout) and ``-view 1`` are not ported and raise
-(ROADMAP).
+2`` (the default) solves under ``row_plan()``.  Rank 0 prints, the summary
+naming the ranks, the transport and the sharded levels, and writes the
+artifact files from the gathered solution.  ``-map 0/1`` (JAX's 2-D
+blocks layout) is not ported and raises (ROADMAP).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch.distributed as dist
 
 from multigrid_petsc_tpu_torch.mesh import MeshType
 from multigrid_petsc_tpu_torch.parallel import row_plan
-from multigrid_petsc_tpu_torch.postprocess import error_norms
+from multigrid_petsc_tpu_torch.postprocess import error_norms, write_artifacts
 from multigrid_petsc_tpu_torch.solvers.solve import solve
 from multigrid_petsc_tpu_torch.utils.config import (
     CycleType,
@@ -53,6 +58,8 @@ from multigrid_petsc_tpu_torch.utils.config import (
     parse_options,
     parse_options_file,
 )
+from multigrid_petsc_tpu_torch.utils.logging import print_info
+from multigrid_petsc_tpu_torch.utils.views import view_solver
 
 CYCLE_NAMES = {
     CycleType.VCYCLE: "V-cycle",
@@ -68,12 +75,6 @@ CYCLE_NAMES = {
     CycleType.MGFGMRES: "mg-FGMRES",
     CycleType.FMG: "FMG",
 }
-
-# The JAX CLI writes its result files here (its poisson.py ->
-# postprocess.write_artifacts); the port does not yet, and says so.
-ARTIFACTS_NOTE = ("artifacts: uData.dat rData.dat eData.dat XgridData.dat "
-                  "YgridData.dat are not written (not ported yet: ROADMAP.md "
-                  "Queue 1 item 2, CLI outputs)")
 
 
 def main(argv=None) -> int:
@@ -100,9 +101,6 @@ def main(argv=None) -> int:
         print(f"configuration error: {e}", file=sys.stderr)
         return 1
 
-    if cfg.view_solver:
-        raise not_ported("-view 1 (the per-level solver views)",
-                         "CLI outputs")
     plan = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         if cfg.map_style != 2:
@@ -166,7 +164,17 @@ def _run(cfg: SolverConfig, device: str, plan) -> int:
                   + " ".join(f"{v:.6e}" for v in row))
     print("error (max, L1, L2): " + " ".join(f"{e:.6e}" for e in errs))
     print(f"solve wall time: {res.wall_time:.6f} s")
-    print(ARTIFACTS_NOTE)
+    print_info(cfg, res, errs)
+    if cfg.view_solver:
+        # The per-level solver dump; the reference prints KSPView for
+        # every level after the solve (src/solver.c:1560-1564).
+        print(view_solver(res.ctx))
+    r_global = r_grid = None
+    if res.aux is not None:
+        r_global = res.aux["r_global"]
+        r_grid = dict(enumerate(res.aux["r_grid"]))
+    write_artifacts(".", MeshType(cfg.mesh), u, res.rnorm, errs,
+                    r_global=r_global, r_grid=r_grid)
     return 0
 
 

@@ -7,12 +7,16 @@ mg-FGMRES and FMG.
 ``wall_time`` brackets the solve only (set-up excluded), synchronising the
 device on both sides; ``timed=True`` re-runs the solve and reports the
 re-run, so first-launch costs (kernel build and load) stay out.
+``SolveResult.phases`` holds the solve's seconds (``"solve"``; the port
+has no compile step), and with ``profile_phases=True`` the level-0
+building blocks' (``utils.profiling.phase_breakdown``).
 
 mg-CG with ``outer_dtype`` runs the mixed-precision outer
 (``krylov.solve_mgcg_mixed``) on the right-hand side evaluated in f64.
-``u0`` warm-starts a solve: the mixed outer starts from it directly; every
-other driver solves A e = b - A u0 from zero to the rtol that keeps the
-stop target rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
+``u0`` warm-starts a solve (a checkpoint's resume: a tuple of one grid is
+that grid): the mixed outer starts from it directly; every other driver
+solves A e = b - A u0 from zero to the rtol that keeps the stop target
+rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
 
 Under a plan (``plan=``, every rank calling ``solve`` alike) the solve
 runs on the plan's device; ``u0`` is the whole level-0 grid, of which each
@@ -42,6 +46,7 @@ from multigrid_petsc_tpu_torch.solvers.context import (
     primary,
 )
 from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+from multigrid_petsc_tpu_torch.utils.profiling import phase_breakdown
 
 _DRIVERS = {
     CycleType.VCYCLE: vc.solve_vcycle,
@@ -81,6 +86,9 @@ class SolveResult:
     u_grids: tuple = ()
     # -moreNorm: the monitors' arrays, cut to the iterations run (numpy).
     aux: dict | None = None
+    # Seconds per phase: "solve", and with profile_phases the level-0
+    # building blocks (smooth_v, residual, restrict, prolong, norm).
+    phases: dict | None = None
     _whole: np.ndarray | None = None
 
     @property
@@ -97,7 +105,7 @@ class SolveResult:
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
           plan=None, device: torch.device | str | None = None, u0=None,
-          timed: bool = False) -> SolveResult:
+          timed: bool = False, profile_phases: bool = False) -> SolveResult:
     """Set up on ``device`` (unless given a context; None: the card, or
     under ``plan`` the plan's device) and run the configured cycle, from
     ``u0`` (the level-0 state, a tensor or array; a tuple on a merged
@@ -111,6 +119,8 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
     mixed = ccfg.outer_dtype is not None and ccfg.cycle == CycleType.MGCG
     b_in = kr.outer_rhs(ctx, torch.float64) if mixed else ctx.b0
     if u0 is not None:
+        if isinstance(u0, (tuple, list)) and not lvl0.merged:
+            (u0,) = u0  # a checkpoint's one grid (utils.checkpoint.load)
         if isinstance(u0, np.ndarray):  # one grid's array, not a tuple
             u0 = torch.from_numpy(u0)
         u0 = tree_map(lambda x: torch.as_tensor(
@@ -152,6 +162,9 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         n = res.iters * (ctx.config.v[0] + 1) if delayed else res.iters + 1
         aux = {"r_global": res.aux["r_global"][:n].cpu().numpy(),
                "r_grid": res.aux["r_grid"][:, :n].cpu().numpy()}
+    phases = {"solve": wall}
+    if profile_phases:
+        phases.update(phase_breakdown(ctx))
     u = res.u
     if u0 is not None and not mixed:
         u = tree_map(lambda a, b: a + b, u, u0)
@@ -161,6 +174,7 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         u=primary(u),
         u_grids=(u,) if isinstance(u, torch.Tensor) else u,
         aux=aux,
+        phases=phases,
         rnorm=res.rnorm_history[: res.iters + 1].cpu().numpy(),
         iters=res.iters,
         converged=res.converged,

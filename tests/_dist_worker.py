@@ -6,13 +6,15 @@ collected by pytest (no test_ prefix).
     python tests/_dist_worker.py RANK WORLD PORT OUTDIR CONFIGS_JSON
 
 CONFIGS_JSON maps a name to {"cfg": SolverConfig fields (cycle as its
-id, smoothers as their values), "min_local": int, "warm": bool}.  Each
-rank solves every config under ``row_plan(min_local=...)`` on the CPU and
-writes OUTDIR/<name>.<rank>.npz: iterations, converged, the residual
-history, the gathered solution and which levels ran sharded.  "warm"
-solves 3 iterations first and restarts from that solution (``u0``).  The
-name "exchange" checks ``edge_exchange`` and ``allreduce_sum`` instead,
-and "refuse" records what each case of ``REFUSALS`` raises.
+id, smoothers as their values), "min_local": int, "warm": bool, "view":
+bool}.  Each rank solves every config under ``row_plan(min_local=...)``
+on the CPU and writes OUTDIR/<name>.<rank>.npz: iterations, converged,
+the residual history, the gathered solution and which levels ran
+sharded; with "view" also OUTDIR/<name>.<rank>.view.txt, the solve's
+``view_solver`` dump.  "warm" solves 3 iterations first and restarts from
+that solution (``u0``).  The name "exchange" checks ``edge_exchange`` and
+``allreduce_sum`` instead, and "refuse" records what each case of
+``REFUSALS`` raises, and what a checkpoint under the plan raises.
 """
 
 import dataclasses
@@ -36,11 +38,13 @@ from multigrid_petsc_tpu_torch.parallel import (  # noqa: E402
     row_plan,
 )
 from multigrid_petsc_tpu_torch.solvers.solve import solve  # noqa: E402
+from multigrid_petsc_tpu_torch.utils import checkpoint  # noqa: E402
 from multigrid_petsc_tpu_torch.utils.config import (  # noqa: E402
     CycleType,
     SmootherType,
     SolverConfig,
 )
+from multigrid_petsc_tpu_torch.utils.views import view_solver  # noqa: E402
 
 
 WORLD = 4
@@ -82,6 +86,8 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
 REFUSALS = {
     "line_y": dict(smoother="line_y", problem="aniso",
                    aniso=(1.0, 0.0, 100.0, 0.0, 0.0)),
+    "rbgs": dict(smoother="rbgs"),
+    "line_x": dict(fine_smoother="line_x"),
     "mgfgmres": dict(cycle=102),
     "additive": dict(cycle=9),
     "outer_dtype": dict(dtype="float32", outer_dtype="float64"),
@@ -92,7 +98,10 @@ REFUSALS = {
 
 def refuse(rank: int, out: Path) -> None:
     got = {}
-    cases = {"blocks": lambda: ShardingPlan(layout="blocks")}
+    cases = {"blocks": lambda: ShardingPlan(layout="blocks"),
+             "checkpoint": lambda: checkpoint.save(
+                 out / f"ck.{rank}.npz", SolverConfig(),
+                 torch.zeros((2, 2)), np.ones(1), 0)}
     for case, fields in REFUSALS.items():
         cfg = config(dict(dict(npts=129, grids=4, levels=4, cycle=101),
                           **fields))
@@ -111,8 +120,9 @@ def config(fields: dict) -> SolverConfig:
     kw = dict(fields)
     if "cycle" in kw:
         kw["cycle"] = CycleType(kw["cycle"])
-    if "smoother" in kw:
-        kw["smoother"] = SmootherType(kw["smoother"])
+    for k in ("smoother", "fine_smoother"):
+        if k in kw:
+            kw[k] = SmootherType(kw[k])
     for k in ("v", "aniso"):
         if k in kw:
             kw[k] = tuple(kw[k])
@@ -161,6 +171,9 @@ def main() -> None:
                      u=res.u_fine, path=res.path, route=str(res.route),
                      dist=[lv.dist is not None for lv in res.ctx.levels],
                      block_rows=res.u.shape[0])
+            if spec.get("view"):
+                (out / f"{name}.{rank}.view.txt").write_text(
+                    view_solver(res.ctx))
     finally:
         dist.destroy_process_group()
 

@@ -153,7 +153,7 @@ def world(tmp_path_factory):
     procs = dw.spawn({"exchange": {}, "refuse": {},
                       "V": {"cfg": dict(base, cycle=0), "min_local": 8},
                       "MGCG": {"cfg": dict(base, cycle=101),
-                               "min_local": 8}}, out)
+                               "min_local": 8, "view": True}}, out)
     state = {"procs": procs, "done": False}
 
     def results():
@@ -233,10 +233,12 @@ def test_edge_exchange_and_allreduce(world):
         assert float(d["total"]) == sum(range(1, dw.WORLD + 1))
 
 
-@pytest.mark.parametrize("case", ["blocks", *dw.REFUSALS])
+@pytest.mark.parametrize("case", ["blocks", "checkpoint", *dw.REFUSALS])
 def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
-    ROADMAP (the sparse backend: JAX's ValueError), on every rank."""
+    ROADMAP (the sparse backend: JAX's ValueError), on every rank: a
+    row-sharded RBGS or line level, and a checkpoint of a sharded
+    state."""
     out = world()
     got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
            for r in range(dw.WORLD)}
@@ -281,3 +283,33 @@ def test_solve_matches_jax_dist(world, jax_dist_solves, name):
         assert str(runs[0]["route"]) == "generic"
     # Each rank's block: 32 rows, the last rank's 31 (its pad row cut).
     assert [int(r["block_rows"]) for r in runs] == [32, 32, 32, 31]
+
+
+def test_view_solver_under_plan_matches_jax(world, jax_dist_solves):
+    """Every rank's ``view_solver`` of the 4-rank mg-CG: JAX's dump of its
+    4-device row-plan solve but the op= and layout= tokens; a sharded
+    level's op names K17 with JAX's rank count, block rows and pad row."""
+    import re
+
+    from multigrid_petsc_tpu.utils.views import view_solver as j_view
+
+    out = world()
+    texts = {(out / f"MGCG.{r}.view.txt").read_text()
+             for r in range(dw.WORLD)}
+    assert len(texts) == 1
+    got = texts.pop()
+    ref = j_view(jax_dist_solves["MGCG"].ctx)
+
+    def strip(text):
+        return [re.sub(r" (op=[^ (]+|layout=)(\([^)]*\)|\S*)", "", ln)
+                for ln in text.splitlines()]
+
+    assert strip(got) == strip(ref)
+    for g, r in zip(got.splitlines()[1:], ref.splitlines()[1:]):
+        jd = re.search(r"pallas-dist\(shard_map x(\d+), R=(\d+), pad=(\d+)\)",
+                       r)
+        if jd:
+            assert (f"op=K17(ranks x{jd[1]}, R={jd[2]}, pad={jd[3]}) " in g
+                    and g.endswith(("layout=rows", "coarse=auto"))), g
+        else:
+            assert " op=torch" in g and "layout=replicated" in g, g

@@ -134,7 +134,9 @@ def test_solve_matches_jax(world, name):
     np.testing.assert_allclose(r0["u"], ref.u_fine, rtol=1e-6, atol=1e-12)
 
 
-def _cli(*args, nproc=None, timeout=240):
+def _cli(*args, cwd, nproc=None, timeout=240):
+    """The CLI in a process (under torchrun with ``nproc``) in ``cwd``,
+    where it writes its artifact files."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     cmd = [sys.executable]
     if nproc:
@@ -144,19 +146,26 @@ def _cli(*args, nproc=None, timeout=240):
         cmd += ["-m", "torch.distributed.run", "--nproc_per_node",
                 str(nproc), "--master_port", str(port)]
     cmd += ["-m", "multigrid_petsc_tpu_torch.poisson", *args]
-    return subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+    return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=timeout)
 
 
-def test_cli_two_ranks_matches_one():
+def test_cli_two_ranks_matches_one(tmp_path):
     """-map 2 under torchrun: one banner (rank 0), the plan's line, and
-    the one-process run's iterations and residual."""
+    the one-process run's iterations and residual; rank 0 writes the
+    artifact files from the gathered solution, the one-process run's up
+    to the reduction order."""
     args = ("-npts", "129", "-grids", "4", "-levels", "4", "-cycle", "101",
             "-map", "2", "-device", "cpu")
-    two, one = _cli(*args, nproc=2), _cli(*args)
+    (tmp_path / "two").mkdir()
+    (tmp_path / "one").mkdir()
+    two = _cli(*args, cwd=tmp_path / "two", nproc=2)
+    one = _cli(*args, cwd=tmp_path / "one")
     assert two.returncode == 0, two.stderr
     assert one.returncode == 0, one.stderr
     assert two.stdout.count("mg-CG (cycle 101)") == 1
+    assert two.stdout.count("Devices:                   2 ranks x cpu "
+                            "(transport gloo)") == 1
     assert "ranks=2 transport=gloo sharded levels=127,63" in two.stdout
 
     def lines(out, key):
@@ -164,11 +173,20 @@ def test_cli_two_ranks_matches_one():
 
     for key in ("iterations:", "relative residual:"):
         assert lines(two.stdout, key) == lines(one.stdout, key)
+    for name in ("uData.dat", "XgridData.dat", "YgridData.dat"):
+        got, want = ((tmp_path / d / name).read_text() for d in ("two",
+                                                                 "one"))
+        if name == "uData.dat":
+            np.testing.assert_allclose(np.array(got.split(), float),
+                                       np.array(want.split(), float),
+                                       rtol=1e-6, atol=1e-12)
+        else:
+            assert got == want
 
 
-def test_cli_blocks_layout_raises():
+def test_cli_blocks_layout_raises(tmp_path):
     out = _cli("-npts", "33", "-grids", "2", "-levels", "2", "-map", "0",
-               "-device", "cpu", nproc=2)
+               "-device", "cpu", cwd=tmp_path, nproc=2)
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and "ROADMAP" in out.stderr
 

@@ -1,7 +1,9 @@
 """The PyTorch port's mg-CG solve end to end against the JAX package
-(CPU), its CLI, and its boundaries: no JAX import, no silent CPU run of
-a CUDA request, and a clear refusal of what is not ported yet.  The
-V-cycle family's solves are held against JAX in test_torch_vcycle.py."""
+(CPU), its CLI (its artifact files, and ``-view 1`` against JAX's solver
+dump), and its boundaries: no JAX import, no silent CPU run of a CUDA
+request, and a clear refusal of what is not ported yet.  The V-cycle
+family's solves are held against JAX in test_torch_vcycle.py, the CLI's
+outputs in test_torch_outputs.py."""
 
 from __future__ import annotations
 
@@ -94,12 +96,14 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert "converged: True" in out and "path=torch" in out
     err_line = [l for l in out.splitlines() if l.startswith("error")][0]
     assert 1e-4 < float(err_line.split()[-3]) < 1e-2  # max error ~3e-3
-    # The JAX CLI's artifact files are not written, and the CLI says so.
-    assert out.splitlines()[-1] == (
-        "artifacts: uData.dat rData.dat eData.dat XgridData.dat "
-        "YgridData.dat are not written (not ported yet: ROADMAP.md Queue 1 "
-        "item 2, CLI outputs)")
-    assert not list(tmp_path.iterdir())
+    # The JAX CLI's banner ends the output, and its artifact files are
+    # written to the working directory.
+    assert out.splitlines()[-1] == "=" * 65
+    assert "Devices:                   1 x cpu" in out
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        ["XgridData.dat", "YgridData.dat", "eData.dat", "rData.dat",
+         "uData.dat"])
+    assert (tmp_path / "uData.dat").read_text().count("\n") == 15
 
 
 def test_cli_runs_vcycle_on_cpu(tmp_path, monkeypatch, capsys):
@@ -132,15 +136,25 @@ def test_cli_requires_device(tmp_path, monkeypatch):
         solve(SolverConfig(npts=17, cycle=CycleType.MGCG))
 
 
-def test_cli_view_raises(tmp_path, monkeypatch):
-    """-view 1 (the per-level solver views, not ported yet) raises naming
-    ROADMAP instead of being dropped."""
+def test_cli_view_raises(tmp_path, monkeypatch, capsys):
+    """-view 1 (which raised until the views were ported) prints the
+    per-level solver dump after the banner: JAX's view_solver of the same
+    solve, but the op= tokens, which name the port's operators."""
+    from multigrid_petsc_tpu.utils.views import view_solver as j_view
     from multigrid_petsc_tpu_torch.poisson import main
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*CLI outputs"):
-        main(["-npts", "17", "-cycle", "101", "-view", "1", "-device",
-              "cpu"])
+    rc = main(["-npts", "17", "-grids", "2", "-levels", "2", "-cycle",
+               "101", "-view", "1", "-device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert rc == 0
+    ref = j_view(j_solve(JC(npts=17, grids=2, levels=2,
+                            cycle=JCT.MGCG)).ctx).splitlines()
+    got = out[out.index("=" * 65, out.index("=" * 65) + 1) + 1:]
+    assert len(got) == len(ref) == 3
+    assert got[1].split(" op=torch(generic) ") == ref[1].split(" op=xla ")
+    assert got[2].split(" op=torch ") == ref[2].split(" op=xla ")
+    assert got[0] == ref[0]
 
 
 def test_port_never_imports_jax():
@@ -171,12 +185,7 @@ def test_cuda_request_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(smoother=SmootherType.LINE_XY),
-    dict(smoother=SmootherType.RBGS),
-    dict(coarse_smoother=SmootherType.RBGS),
-    dict(smoother=SmootherType.LINE_X),
     dict(dtype="bfloat16"),
-    dict(fine_smoother=SmootherType.LINE_X),
 ])
 def test_unported_options_raise(kw):
     cfg = SolverConfig(**{**dict(npts=17, grids=2, levels=2,
