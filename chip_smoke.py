@@ -87,15 +87,30 @@ non-zero):
      the 8191^2 level cut into 4 row blocks with their halo rows, every
      emit of the 5-point and the aniso 9-point visit (f32; one in f64)
      against the whole-grid kernels and the plain row-block version, with
-     times per block, for 4 blocks and for the whole-grid kernel; (b) the
-     distributed main path, 2 ranks (this script re-run with --rank, one
-     process each) sharing the card over gloo with halos staged through
-     the host: Poisson mg-CG at 8193^2 / 11 levels against phase 4 (its
-     iterations, solution and error), then the aniso (1,1,1,2,0.4) mg-CG;
-     (c) the 2-rank mg-CG at 1025^2 in f32 and f64, on the card and over
-     gloo on the CPU.
+     times per block, for 4 blocks and for the whole-grid kernel, and the
+     5-point a, r and zero-guess rc blocks as device time (20 launches
+     queued behind a sleep) beside conv2d on the block and its halo rows;
+     (b) the distributed main path, 2 ranks (this script re-run with
+     --rank, one process each) sharing the card over gloo with halos
+     staged through the host: Poisson mg-CG at 8193^2 / 11 levels against
+     phase 4 (its iterations, solution and error; K17's launches per
+     emit), then the aniso (1,1,1,2,0.4) mg-CG; (c) the 2-rank mg-CG at
+     1025^2 in f32 and f64, on the card and over gloo on the CPU;
+ 10. the CLI's outputs and the last smoothers: (a) ``poisson.main`` at
+     8193^2 / 11 levels, mg-CG, -view 1, in a temporary directory (the
+     banner, the solver dump, the five artifact files checked against the
+     solve, the write's seconds and bytes); (b) an RBGS V-cycle (forced 5
+     iterations), mg-CG with -coarse_smoother rbgs (its coarse-tree
+     split), LINE_X mg-CG and a LINE_XY V-cycle (forced 5) on the x-strong
+     aniso (100,0,1,0,0) problem at 8193^2, each with its launches (none
+     of K1-K4 or the fused visits on their levels), error and ms per
+     iteration; (c) each of (b) card against CPU at 1025^2; (d)
+     ``solve(profile_phases=True)`` at 8193^2; (e) a checkpoint after 2
+     iterations of phase 4's solve, loaded and resumed to convergence.
 Every path run starts with the launch counters at 0 and reads them right
-after (a rank's counters in its own process).  The line before the last two is the kernels' JSON record (times,
+after (a rank's counters in its own process).  ``--only 9a,9b,10`` runs
+the build and just those phases (phase 4 first where they read it), and
+prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
 result object.  With no CUDA device the script exits non-zero without
 printing it.
@@ -236,6 +251,41 @@ def keep_time(record, ms, pms, nbytes, flops, library_ms=None):
     if "ms" not in record:
         record.update(ms=ms, plain_ms=pms, bytes=nbytes, flops=flops,
                       library_ms=library_ms)
+
+
+def device_ms(torch, fn, n: int = 20) -> float:
+    """Device ms per call of ``fn``: ``n`` calls queued behind a sleeping
+    kernel, so that the events bracket the kernels' back-to-back run and
+    none of the wrappers' host work.  The sleep is sized from the host
+    time of ``n`` calls (and checked to have covered it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    probe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    probe[0].record()
+    torch.cuda._sleep(10**6)
+    probe[1].record()
+    probe[1].synchronize()
+    cycles_per_ms = 10**6 / probe[0].elapsed_time(probe[1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1.0)))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        end.synchronize()
+        assert queued_ms < 2 * host_ms + 1.0, "the sleep did not cover"
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
 
 
 def copy_rate(torch) -> float:
@@ -964,6 +1014,7 @@ def phase_main(torch):
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.ops.cuda import launches
     from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers.krylov import build_coarse_tree
     from multigrid_petsc_tpu_torch.solvers.solve import solve
     from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
 
@@ -989,7 +1040,10 @@ def phase_main(torch):
     print("  error vs exact (max, L1, L2): "
           + " ".join(f"{e:.6e}" for e in errs))
     ms_per_iteration(res, cfg)
-    return counts, res.u, {"iters": res.iters, "err": errs[0]}
+    tree = build_coarse_tree(res.ctx)
+    print(f"  coarse tree from level {tree[0]}")
+    return counts, res.u, {"iters": res.iters, "err": errs[0],
+                           "tree": tree[0]}
 
 
 def ms_per_iteration(res, cfg, u0=None):
@@ -1707,7 +1761,11 @@ def phase_k17(torch, dev, rec):
     plain row-block version (TOL_ARRAY of max|plain|); the pad row and the
     coarse pad row must be exactly 0.  Times: one block (block 1), all 4
     blocks, the whole-grid kernel; the bound counts one block's bytes:
-    its rows and halo rows of each input read once, each output once."""
+    its rows and halo rows of each input read once, each output once.  The
+    per-call time brackets the wrapper's host work too, so the 5-point
+    "a", "r" and zero-guess "rc" blocks are also timed as device time
+    (``device_ms``: 20 launches queued behind a sleep), "a" and "r" beside
+    conv2d on the block and its halo rows (the library call)."""
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
     from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
@@ -1733,6 +1791,7 @@ def phase_k17(torch, dev, rec):
         ("r", True, (), "r", False),
     )
     summary = []
+    modes_rec = {}
     for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64")):
         key = "dist_level_visit" + sfx
         rec.setdefault(key, {})
@@ -1837,10 +1896,35 @@ def phase_k17(torch, dev, rec):
                       f"{1e3 * nbytes / HBM_PEAK:.4f} ms per block")
                 keep_time(rec[key], ms1, pms, nbytes, flops)
                 summary.append((tag, ms1, ms4, msw, pms, nbytes))
+                if not nine and dt == torch.float32 and emit in ("a", "r",
+                                                                 "rc"):
+                    dms = device_ms(torch, lambda: dk.row_visit(*a1, **kw1))
+                    lms = None
+                    if emit != "rc":  # conv2d over the block + its halo
+                        c = [float(x[0, 0]) for x in st]
+                        w5 = torch.tensor([[0.0, c[0], 0.0],
+                                           [c[1], c[2], c[3]],
+                                           [0.0, c[4], 0.0]], device=dev)
+                        hal = kw1["u_halo"]
+                        ue = torch.cat([hal.top, a1[2], hal.bot])
+                        be = (torch.cat([torch.zeros_like(hal.top), a1[1],
+                                         torch.zeros_like(hal.bot)])
+                              if emit == "r" else None)
+                        lms = time_ms(torch, conv_call(torch, w5, ue, be))
+                        del ue, be
+                    bound = 1e3 * nbytes / HBM_PEAK
+                    modes_rec[emit] = {"ms_per_call": ms1, "device_ms": dms,
+                                       "bound_ms": bound, "library_ms": lms}
+                    print(f"  {tag}: device time {dms:.4f} ms per block "
+                          f"({100 * bound / dms:.1f}% of its bound "
+                          f"{bound:.4f} ms), per call {ms1:.4f} ms"
+                          + (f"; conv2d on the block and its halo rows "
+                             f"{lms:.4f} ms" if lms is not None else ""))
                 del bb, ub, eb, calls
             del st
         del b, u, e
         torch.cuda.empty_cache()
+    rec["dist_level_visit"]["modes_5pt"] = modes_rec
     return summary
 
 
@@ -1859,7 +1943,7 @@ def rank_worker(argv) -> int:
     import torch.distributed as dist
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
-    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel, launches
     from multigrid_petsc_tpu_torch.parallel import row_plan
     from multigrid_petsc_tpu_torch.postprocess import error_norms
     from multigrid_petsc_tpu_torch.solvers.solve import solve
@@ -1890,8 +1974,10 @@ def rank_worker(argv) -> int:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             launches.clear()
+            dist_kernel.emits.clear()
             res = solve(cfg, plan=plan)
             counts = dict(launches)
+            emits = dict(dist_kernel.emits)
             u = res.u_fine  # gathered from both ranks
             errs = error_norms(res.ctx.problem, MeshType(cfg.mesh),
                                torch.as_tensor(u))
@@ -1906,6 +1992,7 @@ def rank_worker(argv) -> int:
             rep = dict(iters=res.iters, converged=res.converged,
                        path=res.path, route=res.route,
                        rnorm=res.rnorm.tolist(), counts=counts,
+                       emits=emits,
                        dist=[lv.dist is not None for lv in res.ctx.levels],
                        errs=list(errs), wall=res.wall_time, ms=ms,
                        transport=plan.transport,
@@ -2007,6 +2094,10 @@ def phase_dist(torch, main_ref):
         for r, x in enumerate(res):
             print(f"  rank {r}: launches {x['counts']}, peak device memory "
                   f"{x['peak_gib']:.2f} GiB")
+            print(f"  rank {r}: K17 launches per emit {x['emits']} (total "
+                  f"{x['counts'].get('dist_level_visit', 0)})")
+            assert (sum(x["emits"].values())
+                    == x["counts"].get("dist_level_visit", 0))
         u = np.load(out / "poisson.npy")
         du = float(np.abs(u - main_ref["u"]).max()
                    / np.abs(main_ref["u"]).max())
@@ -2062,6 +2153,267 @@ def phase_dist(torch, main_ref):
             "dist_level_visit.f64": f64_launches}
 
 
+MAIN_ARGS = ["-npts", "8193", "-grids", "11", "-levels", "11", "-cycle",
+             "101", "-dtype", "float32", "-rtol", "1e-5", "-iter", "100"]
+
+
+def phase_cli(torch):
+    """10 (a): the CLI (``poisson.main``) at full width, phase 4's mg-CG
+    with -view 1, in a temporary directory: the banner, the solver dump
+    (11 level lines, the card's kernels), the five artifact files;
+    eData.dat is the solve's error norms, uData.dat 8191 lines of 8191
+    fields, three of them the solution's rows at %.16e.  The solve and the
+    write are observed through the module's own names (a wrapper records
+    the result and the write's seconds)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from multigrid_petsc_tpu_torch import poisson
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.postprocess import error_norms, format_rows
+
+    seen = {}
+    real_solve, real_write = poisson.solve, poisson.write_artifacts
+
+    def solve_seen(*a, **kw):
+        seen["res"] = real_solve(*a, **kw)
+        return seen["res"]
+
+    def write_seen(*a, **kw):
+        t0 = time.perf_counter()
+        real_write(*a, **kw)
+        seen["write_s"] = time.perf_counter() - t0
+
+    cwd = os.getcwd()
+    poisson.solve, poisson.write_artifacts = solve_seen, write_seen
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = poisson.main(MAIN_ARGS + ["-view", "1"])
+            out = buf.getvalue().splitlines()
+            print("\n".join("  | " + ln for ln in out))
+            res = seen["res"]
+            n = res.u.shape[0]
+            assert rc == 0 and res.converged and res.path == "cuda"
+            assert "Mesh size:                 8193 x 8193" in out
+            assert "Cycle:                     MGCG" in out
+            assert ("Devices:                   1 x cuda ("
+                    + torch.cuda.get_device_name(0) + ")") in out
+            assert out.count("=" * 65) == 2
+            dump = out[out.index("=" * 65, out.index("=" * 65) + 1) + 1:]
+            assert dump[0].startswith("solver: cycle=MGCG") and dump[0]\
+                .endswith("path=mdma"), dump[0]
+            assert len(dump) == 12 and all(
+                ln.startswith(f"level {l}: ") and " op=cuda" in ln
+                for l, ln in enumerate(dump[1:])), dump
+            names = sorted(q.name for q in Path(tmp).iterdir())
+            assert names == sorted(["XgridData.dat", "YgridData.dat",
+                                    "eData.dat", "rData.dat", "uData.dat"])
+            nbytes = sum((Path(tmp) / q).stat().st_size for q in names)
+            errs = error_norms(res.ctx.problem, MeshType.UNIFORM, res.u)
+            got = [float(x) for x in Path("eData.dat").read_text().split()]
+            assert got == list(errs), (got, errs)
+            t0 = time.perf_counter()
+            rows = {0: None, n // 2: None, n - 1: None}
+            lines = 0
+            with open("uData.dat", "rb") as f:
+                for i, line in enumerate(f):
+                    assert line.count(b"    ") == n and line.endswith(
+                        b"    \n"), i
+                    if i in rows:
+                        rows[i] = line
+                    lines += 1
+            assert lines == n
+            for i, line in rows.items():
+                assert line == format_rows(res.u[i:i + 1].cpu().numpy()), i
+            check_s = time.perf_counter() - t0
+            os.chdir(cwd)  # before the directory goes
+    finally:
+        os.chdir(cwd)
+        poisson.solve, poisson.write_artifacts = real_solve, real_write
+    print(f"10 (a) CLI 8193^2/11 levels -view 1: iters {res.iters}, error "
+          f"{errs[0]:.6e}; artifact files {nbytes} B written in "
+          f"{seen['write_s']:.2f} s ({nbytes / seen['write_s'] / 1e6:.1f} "
+          f"MB/s, {os.cpu_count()} CPU cores), uData.dat checked in "
+          f"{check_s:.2f} s")
+
+
+# 10 (b) / (c): label, config changes, kernels the run must launch,
+# kernels it must not (K1-K4 and the fused visits: none may run on an
+# RBGS or line level), error bound (None: the forced count is not held
+# to a bound), forced; the (c) history floor at 1025^2.
+K1_K4 = {"cg_papply_u", "cg_visit_down", "visit_down", "visit_up",
+         "coarse_tree"}
+FUSED_VISITS = {"smooth_sweeps", "fused_level_visit", "smooth9_sweeps",
+                "fused_level_visit9"}
+X_STRONG = (100.0, 0.0, 1.0, 0.0, 0.0)
+
+
+def smoother_runs():
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SmootherType
+
+    return (
+        ("RBGS V-cycle", dict(cycle=CycleType.VCYCLE,
+                              smoother=SmootherType.RBGS, max_iter=5),
+         {"residual5"}, K1_K4 | FUSED_VISITS, 1e-2, True, 5e-3),
+        ("mg-CG -coarse_smoother rbgs",
+         dict(cycle=CycleType.MGCG, coarse_smoother=SmootherType.RBGS),
+         K1_K4 - {"coarse_tree"}, {"coarse_tree"}, 1e-2, False, 5e-6),
+        ("LINE_X mg-CG aniso (100,0,1,0,0)",
+         dict(cycle=CycleType.MGCG, smoother=SmootherType.LINE_X,
+              problem="aniso", aniso=X_STRONG),
+         {"line_visit9", "apply_stencil9", "residual9"},
+         K1_K4 | FUSED_VISITS, 5e-2, False, 2e-2),
+        ("LINE_XY V-cycle aniso (100,0,1,0,0)",
+         dict(cycle=CycleType.VCYCLE, smoother=SmootherType.LINE_XY,
+              problem="aniso", aniso=X_STRONG, max_iter=5),
+         {"line_visit9", "residual9"}, K1_K4 | FUSED_VISITS, 5e-2, True,
+         2e-2),
+    )
+
+
+def phase_smoothers(torch, main_ref):
+    """10 (b): RBGS, LINE_X and LINE_XY at 8193^2 / 11 levels, f32: their
+    launches (the residual and line kernels; none of K1-K4 or the fused
+    visits on their levels), the coarse-tree split of -coarse_smoother
+    rbgs against phase 4's, errors and ms per iteration."""
+    from multigrid_petsc_tpu_torch.solvers.krylov import build_coarse_tree
+    from multigrid_petsc_tpu_torch.utils.config import SolverConfig
+
+    base = dict(npts=8193, grids=11, levels=11, dtype="float32", rtol=1e-5,
+                max_iter=100)
+    counts = {}
+    for label, changes, expect, forbid, err, forced, _ in smoother_runs():
+        cfg = SolverConfig(**{**base, **changes})
+        c, res = run_full_width(torch, f"10 (b) {label}", cfg, expect, True,
+                                forced, err_max=err, forbid=forbid)
+        if "coarse_smoother" in changes:
+            tree = build_coarse_tree(res.ctx)
+            print(f"  coarse tree: {'none' if tree is None else tree[0]} "
+                  f"(JAX's rule: none while the coarsest level is RBGS; "
+                  f"phase 4: from level {main_ref['tree']}), route "
+                  f"{res.route}")
+            assert tree is None and res.route == "mdma"
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        del res
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parity_smoothers(torch):
+    """10 (c): each solve of (b) on the card against the CPU at 1025^2 /
+    8 levels, the same iterations, history to rtol 0.05 above the floor
+    given per run (phase 3's 5e-6; at the f32 floor of the true residual
+    the V-cycles' 5e-3; the card's Thomas line solve against the CPU's
+    PCR, 2e-2, as phase 3b's y-line run)."""
+    from multigrid_petsc_tpu_torch.utils.config import SmootherType
+
+    runs = []
+    for _, changes, _, _, _, _, atol in smoother_runs():
+        extra = {k: v for k, v in changes.items()
+                 if k not in ("cycle", "smoother", "max_iter")}
+        runs.append((changes["cycle"],
+                     changes.get("smoother", SmootherType.JACOBI),
+                     changes.get("max_iter", 100), extra, atol))
+    phase_parity(torch, runs)
+
+
+def phase_profile(torch):
+    """10 (d): ``solve(profile_phases=True)`` on phase 4's config: the
+    level-0 building blocks' times (CUDA events, median of 5)."""
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+    cfg = SolverConfig(npts=8193, grids=11, levels=11, cycle=CycleType.MGCG,
+                       dtype="float32", rtol=1e-5, max_iter=100)
+    res = solve(cfg, device="cuda", profile_phases=True)
+    ph = res.phases
+    print("10 (d) phase breakdown 8193^2 level 0 (ms): " + ", ".join(
+        f"{k} {1e3 * ph[k]:.4f}" for k in ("smooth_v", "residual",
+                                           "restrict", "prolong", "norm"))
+          + f"; solve {ph['solve']:.6f} s")
+    assert set(ph) == {"solve", "smooth_v", "residual", "restrict",
+                       "prolong", "norm"}
+    assert all(v > 0 for v in ph.values())
+
+
+def phase_checkpoint(torch, main_ref):
+    """10 (e): phase 4's mg-CG stopped after 2 iterations, checkpointed,
+    loaded and resumed (``solve(u0=)``) to rtol 1e-5: it converges, with
+    its error within 1.1x of phase 4's."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils import checkpoint
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+    cfg = SolverConfig(npts=8193, grids=11, levels=11, cycle=CycleType.MGCG,
+                       dtype="float32", rtol=1e-5, max_iter=100)
+    part = solve(dataclasses.replace(cfg, max_iter=2), device="cuda")
+    assert part.iters == 2 and not part.converged
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ck.npz"
+        t0 = time.perf_counter()
+        checkpoint.save(path, cfg, part.u_grids, part.rnorm, part.iters)
+        save_s, size = time.perf_counter() - t0, path.stat().st_size
+        t0 = time.perf_counter()
+        u0, rnorm, iters = checkpoint.load(path, cfg)
+        load_s = time.perf_counter() - t0
+    assert iters == 2 and np.array_equal(rnorm, part.rnorm)
+    res = solve(cfg, device="cuda", u0=u0)
+    errs = error_norms(res.ctx.problem, MeshType.UNIFORM, res.u)
+    print(f"10 (e) checkpoint after {iters} iterations: {size} B, save "
+          f"{save_s:.2f} s, load {load_s:.2f} s; resumed: iters {res.iters}"
+          f", converged {res.converged}, route {res.route}, error "
+          f"{errs[0]:.6e} (phase 4: {main_ref['err']:.6e})")
+    assert res.converged and res.path == "cuda"
+    assert errs[0] <= 1.1 * main_ref["err"], errs
+
+
+def run_phase10(torch, main_ref):
+    """Phase 10: the CLI's outputs and the smoothers RBGS, LINE_X and
+    LINE_XY."""
+    torch.cuda.empty_cache()
+    timed_phase(torch, "10 (a)", phase_cli)
+    timed_phase(torch, "10 (b)", phase_smoothers, main_ref)
+    timed_phase(torch, "10 (c)", phase_parity_smoothers)
+    timed_phase(torch, "10 (d)", phase_profile)
+    timed_phase(torch, "10 (e)", phase_checkpoint, main_ref)
+
+
+def partial_run(torch, dev, parts) -> int:
+    """``chip_smoke.py --only 9a,10``: the build, then only the phases
+    named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10),
+    with phase 4 first where they read it; no result line, so a partial
+    run never passes for a whole one."""
+    main_ref = None
+    if {"9b", "10"} & set(parts):
+        _, u_ref, main_ref = phase_main(torch)
+        main_ref["u"] = u_ref.cpu().numpy()
+        del u_ref
+    if "9a" in parts:
+        rec = {}
+        timed_phase(torch, "9 (a)", phase_k17, dev, rec)
+        print(json.dumps(rec["dist_level_visit"]))
+    if "9b" in parts:
+        timed_phase(torch, "9 (b), (c)", phase_dist, main_ref)
+    if "10" in parts:
+        run_phase10(torch, main_ref)
+    print(f"partial run {parts}: no result line")
+    return 0
+
+
 def timed_phase(torch, name, fn, *args):
     """Run one phase; print its seconds (set-up included) and the peak
     device memory it reached."""
@@ -2100,6 +2452,8 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     rate = copy_rate(torch)
     print(f"copy rate {rate / 1e9:.1f} GB/s on {smi}")
+    if sys.argv[1:2] == ["--only"]:
+        return partial_run(torch, dev, sys.argv[2].split(","))
 
     rec = phase_kernels(torch, dev, rate)
     phase_kernels_vcycle(torch, dev, rec)
@@ -2150,6 +2504,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed_phase(torch, "9 (a)", phase_k17, dev, rec)
     counts.update(timed_phase(torch, "9 (b), (c)", phase_dist, main_ref))
+    run_phase10(torch, main_ref)
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -2223,7 +2578,8 @@ def main() -> int:
                 "bound_ms_nine_scalars": rec[k]["scalars_bound_ms"]}
                if "scalars_ms" in rec[k] else {}),
             **{x: rec[k][x] for x in ("device_ms", "grid_syncs",
-                                      "grid_sync_us", "latency_floor_ms")
+                                      "grid_sync_us", "latency_floor_ms",
+                                      "modes_5pt")
                if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1)")
     print(json.dumps({"kernels": kernels}))
