@@ -64,6 +64,20 @@
 // Registers: launch 3 keeps its segment's dp (SEG values of T; with a
 // correction, the corrected iterate too); launch 1 keeps no array
 // (`-Xptxas -v` in the build log prints the count per kernel).
+//
+// The rank-spanning mode (mg_line_rows_*): a row-sharded level's columns
+// run across the ranks' row blocks, so its lines cross the ranks.  The
+// segments are laid on the global rows (seg rows each, seg the largest
+// power of two <= SEG that divides the block, so no segment straddles two
+// ranks), and the three launches are split around the one exchange the
+// carries need: each rank runs launch 1 on its own segments, from its
+// block, its iterate's row above and below (from the neighbours) and the
+// factors of its rows; the ranks all-gather the segment ends (the caller,
+// over torch.distributed); every rank runs launch 2 over all the
+// segments with the whole level's factors (redundantly, as the reference
+// runs a replicated coarse level), then launch 3 on its own segments with
+// their slice of the carries.  No transpose of the level and no chain
+// through the ranks: the carries move nx * ny / seg * 2 values a sweep.
 
 #include <cuda_runtime.h>
 
@@ -75,7 +89,8 @@ using mg::Coeffs9;
 using mg::coef_at;
 using mg::prolong_at;
 
-constexpr int SEG = 32;  // rows per segment (one thread's share of a column)
+constexpr int SEG = 32;  // rows per segment (one thread's share of a column;
+                         // the rank-spanning mode may run fewer, `seg`)
 constexpr int ST = 128;  // columns (threads) per block of launches 1 and 3
 constexpr int CT = 128;  // columns (threads) per block of the carry launch
 constexpr int CB = 16;   // segments the carry launch loads ahead
@@ -132,12 +147,25 @@ __device__ __forceinline__ T fat(const T* f, int sx, int y, int x, int nx) {
   return f[sx ? (size_t)y * nx + x : (size_t)y];
 }
 
+// The iterate's rows just past a rank's block (the rank-spanning mode):
+// the row above its first row and the row below its last, nx values each;
+// null at the domain's edges and on a whole level.
+template <class T>
+struct RowHalo {
+  const T* top;
+  const T* bot;
+};
+
 // The sweep's input iterate at (y, x): u (or zero) plus the prolonged
-// correction, zero outside the domain.
+// correction, zero outside the domain; rows -1 and ny from the halo rows
+// where there are any.
 template <bool GUESS, bool CORRECT, class T>
-__device__ __forceinline__ T iterate_at(const T* u, const T* e, int y, int x,
+__device__ __forceinline__ T iterate_at(const T* u, const T* e,
+                                        const RowHalo<T>& hl, int y, int x,
                                         int ny, int nx) {
-  if (y < 0 || y >= ny || x < 0 || x >= nx) return T(0);
+  if (x < 0 || x >= nx) return T(0);
+  if (y < 0) return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
+  if (y >= ny) return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
   T v = GUESS ? u[(size_t)y * nx + x] : T(0);
   if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
   return v;
@@ -150,18 +178,21 @@ __device__ __forceinline__ T iterate_at(const T* u, const T* e, int y, int x,
 // branch) -- or, with a correction, that only the edge lanes form.
 // Every lane of the warp calls it with the same y.
 template <bool GUESS, bool CORRECT, class T>
-__device__ __forceinline__ void iterate_row(const T* u, const T* e, int y,
+__device__ __forceinline__ void iterate_row(const T* u, const T* e,
+                                            const RowHalo<T>& hl, int y,
                                             int j, int xo, int ny, int nx,
                                             T& w, T& c, T& ea) {
   const int lane = threadIdx.x & 31;
-  c = iterate_at<GUESS, CORRECT>(u, e, y, j, ny, nx);
+  c = iterate_at<GUESS, CORRECT>(u, e, hl, y, j, ny, nx);
   w = __shfl_up_sync(LANES, c, 1);
   ea = __shfl_down_sync(LANES, c, 1);
   if constexpr (CORRECT) {
-    if (lane == 0) w = iterate_at<GUESS, CORRECT>(u, e, y, j - 1, ny, nx);
-    if (lane == 31) ea = iterate_at<GUESS, CORRECT>(u, e, y, j + 1, ny, nx);
+    if (lane == 0)
+      w = iterate_at<GUESS, CORRECT>(u, e, hl, y, j - 1, ny, nx);
+    if (lane == 31)
+      ea = iterate_at<GUESS, CORRECT>(u, e, hl, y, j + 1, ny, nx);
   } else {
-    const T o = iterate_at<GUESS, false>(u, e, y, xo, ny, nx);
+    const T o = iterate_at<GUESS, false>(u, e, hl, y, xo, ny, nx);
     w = lane == 0 ? o : w;
     ea = lane == 31 ? o : ea;
   }
@@ -218,17 +249,20 @@ __device__ __forceinline__ T line_rhs(const Rows& r, int i, T bv, T w0, T e0,
                r(R_CSE, i) * e0 + r(R_CNW, i) * w2 + r(R_CNE, i) * e2);
 }
 
-// Walk rows y0 .. y0 + SEG - 1 of column j (FULL: all of them lie in the
-// level, so the loop has no row test and its loads can be issued ahead;
-// else those < ny), calling row(i, rhs_i, u_i) with the row's right-hand
-// side and the iterate's own value.  Threads past the last column run
-// along (the shuffles need the whole warp) on a clamped column.
+// Walk rows y0 .. y0 + seg - 1 of column j (FULL: seg = SEG and all of
+// them lie in the level, so the loop has no row test and its loads can be
+// issued ahead; else those < ny), calling row(i, rhs_i, u_i) with the
+// row's right-hand side and the iterate's own value.  Threads past the
+// last column run along (the shuffles need the whole warp) on a clamped
+// column.
 template <bool FULL, bool GUESS, bool CORRECT, class T, class Rows,
           class Row>
 __device__ __forceinline__ void segment_rows(const Rows& rows,
                                              const T* __restrict__ b,
-                                             const T* u, const T* e, int y0,
-                                             int j, int ny, int nx, Row row) {
+                                             const T* u, const T* e,
+                                             const RowHalo<T>& hl, int y0,
+                                             int seg, int j, int ny, int nx,
+                                             Row row) {
   const bool col = j < nx;
   const int jc = col ? j : nx - 1;
   const int xo = (threadIdx.x & 31) == 0 ? j - 1 : j + 1;
@@ -236,15 +270,15 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
   T w0 = T(0), c0 = T(0), e0 = T(0), w1 = T(0), c1 = T(0), e1 = T(0);
   T w2 = T(0), c2 = T(0), e2 = T(0);
   if (GUESS) {
-    iterate_row<GUESS, CORRECT>(u, e, y0 - 1, j, xo, ny, nx, w0, c0, e0);
-    iterate_row<GUESS, CORRECT>(u, e, y0, j, xo, ny, nx, w1, c1, e1);
+    iterate_row<GUESS, CORRECT>(u, e, hl, y0 - 1, j, xo, ny, nx, w0, c0, e0);
+    iterate_row<GUESS, CORRECT>(u, e, hl, y0, j, xo, ny, nx, w1, c1, e1);
   }
 #pragma unroll
   for (int i = 0; i < SEG; ++i) {
-    if (FULL || y0 + i < ny) {  // the same rows for the whole warp
+    if (FULL || (i < seg && y0 + i < ny)) {  // the same rows for the warp
       if (GUESS)
-        iterate_row<GUESS, CORRECT>(u, e, y0 + i + 1, j, xo, ny, nx, w2, c2,
-                                    e2);
+        iterate_row<GUESS, CORRECT>(u, e, hl, y0 + i + 1, j, xo, ny, nx, w2,
+                                    c2, e2);
       const T bv = col ? bc[(size_t)i * nx] : T(0);
       row(i, line_rhs<GUESS>(rows, i, bv, w0, e0, w1, e1, w2, e2), c1);
       w0 = w1, c0 = c1, e0 = e1;
@@ -264,13 +298,14 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
 template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB>
 __device__ __forceinline__ void segment_ends(
     const Coeffs9<T>& c, const LineFactor<T>& f, const T* b, const T* u,
-    const T* e, T* ends, T* starts, T* u_corr, int s, int j, int ny,
-    int nx) {
-  const int y0 = s * SEG;
+    const T* e, const RowHalo<T>& hl, T* ends, T* starts, T* u_corr, int s,
+    int seg, int j, int ny, int nx) {
+  const int y0 = s * seg;
   const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   T* uc = u_corr + (size_t)y0 * nx + j;
   T de = T(0), xs = T(0);
-  segment_rows<FULL, GUESS, CORRECT, T>(rows, b, u, e, y0, j, ny, nx,
+  segment_rows<FULL, GUESS, CORRECT, T>(rows, b, u, e, hl, y0, seg, j, ny,
+                                        nx,
                                         [&](int i, T rhs, T ui) {
                                           de += rows(R_ENDW, i) * rhs;
                                           xs += rows(R_STARTW, i) * rhs;
@@ -286,15 +321,18 @@ template <class T, bool GUESS, bool CORRECT, bool TAB>
 __global__ void __launch_bounds__(ST)
 line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                     const T* __restrict__ u, const T* __restrict__ e,
-                    T* __restrict__ ends, T* __restrict__ starts,
-                    T* __restrict__ u_corr, int ny, int nx) {
+                    RowHalo<T> hl, T* __restrict__ ends,
+                    T* __restrict__ starts, T* __restrict__ u_corr, int seg,
+                    int ny, int nx) {
   const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
-  if ((s + 1) * SEG <= ny)
-    segment_ends<true, T, GUESS, CORRECT, TAB>(c, f, b, u, e, ends, starts,
-                                              u_corr, s, j, ny, nx);
+  if (seg == SEG && (s + 1) * SEG <= ny)
+    segment_ends<true, T, GUESS, CORRECT, TAB>(c, f, b, u, e, hl, ends,
+                                              starts, u_corr, s, seg, j, ny,
+                                              nx);
   else
-    segment_ends<false, T, GUESS, CORRECT, TAB>(c, f, b, u, e, ends, starts,
-                                               u_corr, s, j, ny, nx);
+    segment_ends<false, T, GUESS, CORRECT, TAB>(c, f, b, u, e, hl, ends,
+                                               starts, u_corr, s, seg, j, ny,
+                                               nx);
 }
 
 // Launch 2: thread j walks column j's segments.  cin[s] = the true dp on
@@ -305,7 +343,7 @@ template <class T>
 __global__ void __launch_bounds__(CT)
 line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
                   const T* __restrict__ starts, T* __restrict__ cin,
-                  T* __restrict__ din, int nseg, int nx) {
+                  T* __restrict__ din, int seg, int nseg, int nx) {
   const int j = blockIdx.x * CT + threadIdx.x;
   if (j >= nx) return;
   double cv = 0.0;
@@ -338,8 +376,8 @@ line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
       const int s = s1 - q;
       if (s > 0) {
         xv[q] = starts[(size_t)s * nx + j];
-        av[q] = fat(f.above, f.sx, s * SEG, j, nx);
-        bv[q] = fat(f.below, f.sx, s * SEG, j, nx);
+        av[q] = fat(f.above, f.sx, s * seg, j, nx);
+        bv[q] = fat(f.below, f.sx, s * seg, j, nx);
         cvs[q] = cin[(size_t)s * nx + j];
       }
     }
@@ -359,11 +397,11 @@ template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB>
 __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
                                          const LineFactor<T>& f, const T* b,
                                          const T* u, const T* e,
-                                         const T* cin, const T* din,
-                                         T* u_out, int s, int j, int ny,
-                                         int nx, T omega,
-                                         T one_minus_omega) {
-  const int y0 = s * SEG;
+                                         const RowHalo<T>& hl, const T* cin,
+                                         const T* din, T* u_out, int s,
+                                         int seg, int j, int ny, int nx,
+                                         T omega, T one_minus_omega) {
+  const int y0 = s * seg;
   const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   // Thomas's forward recurrence from a zero carry; with a correction the
   // corrected iterate is kept too (it is formed once per point), else the
@@ -371,7 +409,7 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
   T dp[SEG], uc[CORRECT ? SEG : 1];
   T d = T(0);
   segment_rows<FULL, GUESS, CORRECT, T>(
-      rows, b, u, e, y0, j, ny, nx, [&](int i, T rhs, T ui) {
+      rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, T rhs, T ui) {
         d = (rhs - rows(R_CS, i) * d) * rows(R_M, i);
         dp[i] = d;
         if (CORRECT) uc[CORRECT ? i : 0] = ui;
@@ -387,7 +425,7 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
   T x = T(0);
 #pragma unroll
   for (int i = SEG - 1; i >= 0; --i) {
-    if (FULL || y0 + i < ny) {
+    if (FULL || (i < seg && y0 + i < ny)) {
       x = dp[i] - rows(R_CP, i) * x;
       const T ui = CORRECT ? uc[CORRECT ? i : 0]
                    : GUESS ? uo[(size_t)i * nx] : T(0);
@@ -416,18 +454,19 @@ template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB>
 __global__ void __launch_bounds__(ST, fix_min_blocks<T>())
 line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                 const T* __restrict__ u, const T* __restrict__ e,
-                const T* __restrict__ cin, const T* __restrict__ din,
-                T* __restrict__ u_out, T* __restrict__ part, int ny, int nx,
-                T omega, T one_minus_omega) {
+                RowHalo<T> hl, const T* __restrict__ cin,
+                const T* __restrict__ din, T* __restrict__ u_out,
+                T* __restrict__ part, int seg, int ny, int nx, T omega,
+                T one_minus_omega) {
   __shared__ T red[ST / 32];
   const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
   const T acc =
-      (s + 1) * SEG <= ny
+      seg == SEG && (s + 1) * SEG <= ny
           ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB>(
-                c, f, b, u, e, cin, din, u_out, s, j, ny, nx, omega,
+                c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
                 one_minus_omega)
           : segment_fix<false, T, GUESS, CORRECT, DOT, TAB>(
-                c, f, b, u, e, cin, din, u_out, s, j, ny, nx, omega,
+                c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
                 one_minus_omega);
   if (DOT) {
     const T sum = mg::block_sum<ST, T>(acc, red);
@@ -497,10 +536,18 @@ line_residual_kernel(Coeffs9<T> c, const T* __restrict__ b,
 
 template <class T>
 using SegmentFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
-                           const T*, T*, T*, T*, int, int);
+                           const T*, RowHalo<T>, T*, T*, T*, int, int, int);
 template <class T>
 using FixFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
-                       const T*, const T*, const T*, T*, T*, int, int, T, T);
+                       const T*, RowHalo<T>, const T*, const T*, T*, T*, int,
+                       int, int, T, T);
+
+template <class T>
+LineFactor<T> line_factor(const unsigned long long* fptrs, int fsx) {
+  auto fp = [&](int i) { return reinterpret_cast<const T*>(fptrs[i]); };
+  return LineFactor<T>{fp(0), fp(1), fp(2), fp(3), fp(4),
+                       fp(5), fp(6), fp(7), fsx};
+}
 
 template <class T, bool TAB>
 SegmentFn<T> pick_segment(bool guess, bool correct) {
@@ -533,9 +580,8 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
       (nseg > 1 && e != nullptr && (u_corr == nullptr || u_corr == u)))
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  auto fp = [&](int i) { return reinterpret_cast<const T*>(fptrs[i]); };
-  const LineFactor<T> f{fp(0), fp(1), fp(2), fp(3), fp(4), fp(5), fp(6),
-                        fp(7), fsx};
+  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
+  const RowHalo<T> hl{nullptr, nullptr};
   const bool tab = f.table != nullptr, guess = u != nullptr;
   bool correct = e != nullptr;
   const bool dot = part != nullptr;
@@ -549,8 +595,8 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
     din = cin + (size_t)nseg * nx;
     SegmentFn<T> seg_kern = tab ? pick_segment<T, true>(guess, correct)
                                 : pick_segment<T, false>(guess, correct);
-    seg_kern<<<grid, ST, 0, st>>>(c, f, b, u, e, ends, starts, u_corr, ny,
-                                  nx);
+    seg_kern<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, ends, starts, u_corr,
+                                  SEG, ny, nx);
     if (int err = (int)cudaGetLastError()) return err;
     if (correct) {  // launch 3 reads the corrected iterate launch 1 stored
       u = u_corr;
@@ -558,13 +604,72 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
       correct = false;
     }
     line_carry_kernel<T><<<(nx + CT - 1) / CT, CT, 0, st>>>(
-        f, ends, starts, cin, din, nseg, nx);
+        f, ends, starts, cin, din, SEG, nseg, nx);
     if (int err = (int)cudaGetLastError()) return err;
   }
   FixFn<T> fix = tab ? pick_fix<T, true>(guess, correct, dot)
                      : pick_fix<T, false>(guess, correct, dot);
-  fix<<<grid, ST, 0, st>>>(c, f, b, u, e, cin, din, u_out, part, ny, nx,
-                           omega, one_minus_omega);
+  fix<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, cin, din, u_out, part, SEG,
+                           ny, nx, omega, one_minus_omega);
+  return (int)cudaGetLastError();
+}
+
+// The rank-spanning mode's launches on one rank's block of nyl real rows
+// (R = nseg * seg rows; the last rank's pad row is not a real row, and its
+// output row is left to the caller), local row 0 its first row: the
+// factors and the coefficients that vary with y are the slices of the
+// block's rows, hl its iterate's rows above and below.  seg must divide
+// SEG; launch 1 and 3 take the iterate (no zero guess, no correction).
+template <class T>
+bool rows_ok(int seg, int nseg, int nyl, int nx) {
+  return seg >= 1 && seg <= SEG && SEG % seg == 0 && nseg >= 1 &&
+         nyl >= 1 && nyl <= nseg * seg && nx >= 1;
+}
+
+template <class T>
+int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
+                   const unsigned long long* fptrs, int fsx, int seg,
+                   const T* b, const T* u, const T* u_top, const T* u_bot,
+                   T* ends, T* starts, int nseg, int nyl, int nx,
+                   void* stream) {
+  if (!rows_ok<T>(seg, nseg, nyl, nx) || u == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
+  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
+  SegmentFn<T> kern = f.table != nullptr ? pick_segment<T, true>(true, false)
+                                         : pick_segment<T, false>(true, false);
+  kern<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
+      c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, ends, starts, nullptr,
+      seg, nyl, nx);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
+                    const T* ends, const T* starts, T* cin, T* din,
+                    int nseg, int nx, void* stream) {
+  if (!rows_ok<T>(seg, nseg, 1, nx)) return (int)cudaErrorInvalidValue;
+  line_carry_kernel<T><<<(nx + CT - 1) / CT, CT, 0, (cudaStream_t)stream>>>(
+      line_factor<T>(fptrs, fsx), ends, starts, cin, din, seg, nseg, nx);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
+                  const unsigned long long* fptrs, int fsx, int seg,
+                  const T* b, const T* u, const T* u_top, const T* u_bot,
+                  const T* cin, const T* din, T* u_out, int nseg, int nyl,
+                  int nx, T omega, T one_minus_omega, void* stream) {
+  if (!rows_ok<T>(seg, nseg, nyl, nx) || u == nullptr || u_out == u ||
+      cin == nullptr || din == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
+  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
+  FixFn<T> fix = f.table != nullptr ? pick_fix<T, true>(true, false, false)
+                                    : pick_fix<T, false>(true, false, false);
+  fix<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
+      c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, cin, din, u_out,
+      nullptr, seg, nyl, nx, omega, one_minus_omega);
   return (int)cudaGetLastError();
 }
 
@@ -637,5 +742,42 @@ int mg_line_residual_f64(const unsigned long long* cptrs, const int* cstrides,
   return line_residual<double>(cptrs, cstrides, b, u, out, ny, nx, rc,
                                stream);
 }
+
+// The rank-spanning mode, one sweep of a rank's block (see the top of this
+// file): launch 1 (the segment ends and starts of its nseg segments, (nseg,
+// nx) each), launch 2 (the carries cin, din of all nseg segments of the
+// level from the gathered ends and starts, with the whole level's
+// factors) and launch 3 (the swept block from its slice of the carries).
+// fptrs as for mg_line_sweep; for launches 1 and 3 the slices of the
+// block's rows (gain unused), for launch 2 the whole level's.
+#define MG_LINE_ROWS_ENTRIES(SFX, T)                                        \
+  int mg_line_rows_ends##SFX(                                               \
+      const unsigned long long* cptrs, const int* cstrides,                 \
+      const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
+      const T* u, const T* u_top, const T* u_bot, T* ends, T* starts,       \
+      int nseg, int nyl, int nx, void* stream) {                            \
+    return line_rows_ends<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_top, \
+                             u_bot, ends, starts, nseg, nyl, nx, stream);   \
+  }                                                                         \
+  int mg_line_rows_carry##SFX(const unsigned long long* fptrs, int fsx,     \
+                              int seg, const T* ends, const T* starts,      \
+                              T* cin, T* din, int nseg, int nx,             \
+                              void* stream) {                               \
+    return line_rows_carry<T>(fptrs, fsx, seg, ends, starts, cin, din,      \
+                              nseg, nx, stream);                            \
+  }                                                                         \
+  int mg_line_rows_fix##SFX(                                                \
+      const unsigned long long* cptrs, const int* cstrides,                 \
+      const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
+      const T* u, const T* u_top, const T* u_bot, const T* cin,             \
+      const T* din, T* u_out, int nseg, int nyl, int nx, T omega,           \
+      T one_minus_omega, void* stream) {                                    \
+    return line_rows_fix<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_top,  \
+                            u_bot, cin, din, u_out, nseg, nyl, nx, omega,   \
+                            one_minus_omega, stream);                       \
+  }
+
+MG_LINE_ROWS_ENTRIES(, float)
+MG_LINE_ROWS_ENTRIES(_f64, double)
 
 }  // extern "C"

@@ -44,7 +44,7 @@ _PER_DTYPE = {
     "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_stencil9": [_P, _P] + [_P] * 3 + [_I, _I, _I, _P],
 }
-# K17's row-block entries (MG_VISIT_ROWS_ENTRIES), f32 and f64 only.
+# K17's row-block entries (MG_VISIT_ROWS_ENTRIES), f32, f64 and bf16.
 _ROWS = {
     "mg_visit_rows": [_P] * 5 + [_P] * 7 + [_P, _P, _I, _P, _I, _I, _P],
     "mg_visit9_rows": [_P, _P, _I] + [_P] * 7 + [_P, _P, _I, _P, _I, _I, _P],
@@ -55,7 +55,14 @@ _SIGNATURES = {
     **{name + sfx: argtypes for name, argtypes in _PER_DTYPE.items()
        for sfx in ("", "_f64", "_bf16")},
     **{name + sfx: argtypes for name, argtypes in _ROWS.items()
+       for sfx in ("", "_f64", "_bf16")},
+    # K15's rank-spanning mode (csrc/line.cu MG_LINE_ROWS_ENTRIES).
+    **{"mg_line_rows_ends" + sfx: [_P, _P, _P, _I, _I] + [_P] * 6
+       + [_I, _I, _I, _P] for sfx in ("", "_f64")},
+    **{"mg_line_rows_carry" + sfx: [_P, _I, _I] + [_P] * 4 + [_I, _I, _P]
        for sfx in ("", "_f64")},
+    **{"mg_line_rows_fix" + sfx: [_P, _P, _P, _I, _I] + [_P] * 7
+       + [_I, _I, _I, t, t, _P] for sfx, t in (("", _F), ("_f64", _D))},
     "mg_visit_blocks": [_I, _I],
     "mg_visit5_blocks": [_I, _I, _I, _I],
     "mg_visit9_blocks": [_I, _I, _I],

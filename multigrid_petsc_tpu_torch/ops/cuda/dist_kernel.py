@@ -35,13 +35,16 @@ rows and ``max_sweeps + 2`` more on each side).  The exchange runs before
 the kernel (overlap is later work).  What bounds it: bytes, as the
 whole-grid visit; the halo adds 2h rows of reads per block.
 
-Storage types: f32 and f64 (``visit.cu``, ``visit_f64.cu``).  The wrapper
-runs the plain PyTorch version (``row_visit_plain``) when the data lies on
-the CPU, launches the kernel when it lies on a CUDA device (anything else
-raises), and never falls back from one to the other; it counts each launch
-as ``dist_level_visit`` (``.f64``), and beside that total, in ``emits``,
-the launches of each emit (``"a"``, ``"r"``, ``"rc"``... with the same
-suffix).
+Storage types: f32, f64 and bf16 (``visit.cu``, ``visit_f64.cu``,
+``visit_rows_bf16.cu``; bf16 is storage only, as JAX's dist kernel runs it
+(dist_kernel.py:204-260): every input read into f32, f32 arithmetic, each
+output rounded to bf16 once where it is stored, which ``row_visit_plain``
+follows through ``at_stores``).  The wrapper runs the plain PyTorch
+version when the data lies on the CPU, launches the kernel when it lies
+on a CUDA device (anything else raises), and never falls back from one to
+the other; it counts each launch as ``dist_level_visit`` (``.f64``,
+``.bf16``), and beside that total, in ``emits``, the launches of each
+emit (``"a"``, ``"r"``, ``"rc"``... with the same suffix).
 
 ``halo_rows``, ``pick_tile`` and ``separable9`` keep the JAX module's
 rules, which decide the level split (``parallel.dist_ops.dist_viable``,
@@ -70,7 +73,9 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _on_cpu,
     _stencil_fields,
     _stream,
+    at_stores,
     coeff9_args,
+    compute_dtype,
     entry,
     max_visit_steps,
     steps_tensor,
@@ -79,7 +84,7 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil5, Stencil9
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
-ROW_DTYPES = (torch.float32, torch.float64)
+ROW_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 # Extra halo rows beyond the smoothing steps, per emit (JAX
 # dist_kernel.py:64): the trailing residual costs one row, the restriction
@@ -181,6 +186,7 @@ def _extend(x, halo: Halo | None, h: int, inside):
     return torch.where(inside, torch.cat([halo.top, x, halo.bot]), 0.0)
 
 
+@at_stores
 def row_visit_plain(st, b, u, steps, emit: str, *, row0: int, ny: int,
                     b_halo: Halo | None = None, u_halo: Halo | None = None,
                     e=None, e_halo: Halo | None = None,
@@ -188,7 +194,9 @@ def row_visit_plain(st, b, u, steps, emit: str, *, row0: int, ny: int,
     """The row-block visit's composition on the extended rows [row0 - h,
     row0 + R + h): the global-row mask, [u + P e], the step recurrence
     (p = 0 at masked rows), the emits, cropped to the block; the pad row
-    and the coarse pad row come out 0.  ``u=None`` is the zero guess."""
+    and the coarse pad row come out 0.  ``u=None`` is the zero guess.  On
+    bf16 storage the arithmetic runs in f32 and each output is rounded
+    once (``at_stores``)."""
     blk = u if b is None else b
     R, nx = blk.shape
     k = len(steps)
@@ -308,7 +316,7 @@ def row_visit(st, b, u, steps, emit: str, *, row0: int, ny: int,
                 ptrs = (halo.top.data_ptr(), halo.bot.data_ptr())
         halo_ptrs += ptrs
     dtype = _check_cuda(blk.device, fields, dtypes=ROW_DTYPES)
-    size = torch.finfo(dtype).bits // 8
+    size = torch.finfo(compute_dtype(dtype)).bits // 8
     if not stencil and not visit_fits(kinds, h, size):
         raise ValueError(
             f"a {9 if nine else 5}-point {dtype} visit with emit {emit!r} "

@@ -23,6 +23,16 @@ or its restriction.  The plain version is the JAX package's composition:
 card the kernel and its oracle differ by the rounding of the two
 tridiagonal solves.
 
+A row-sharded level's y-lines cross the ranks (``RowLine``,
+``line_rows_begin`` / ``line_rows_end``): each sweep is two halves around
+one all-gather the caller makes.  On the card the halves are the CUDA
+sweep's launches split at its carry pass (``csrc/line.cu``, the
+rank-spanning mode): each rank's segment ends (launch 1) are gathered,
+every rank runs the carry pass over all the segments, then fixes its own
+(launch 3); on the CPU the plain version gathers the ranks' line
+right-hand sides and solves the whole columns by PCR
+(``line_jacobi_sweeps_y``'s arithmetic), the oracle.
+
 Storage types: f32 and f64 (``mg_line_*`` and ``mg_line_*_f64``); bf16
 line visits raise (no path runs them).  The wrapper runs the plain
 version when the data lies on the CPU, launches the kernels when it lies
@@ -32,10 +42,12 @@ never falls back from one to the other.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
@@ -52,6 +64,7 @@ from multigrid_petsc_tpu_torch.ops.stencil import (
     apply_stencil9,
     line_jacobi_sweeps_y,
     pcr_factor,
+    pcr_solve,
 )
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
@@ -180,14 +193,16 @@ def segment_spikes(a, m, cp, seg: int = LINE_SEG):
             rows(mm * g))
 
 
-def segment_factor(st: Stencil9, ny: int) -> SegmentFactor:
-    """Thomas's factors and the segments' carry responses of ``st``'s
-    y-lines (``segment_spikes``), computed on the host in f64 and stored
-    in the stencil's dtype on its device, with the packed per-row table
-    when the kernels' per-row values are all constant along x."""
+def segment_factor(st: Stencil9, ny: int,
+                   seg: int = LINE_SEG) -> SegmentFactor:
+    """Thomas's factors and the carry responses of ``st``'s y-lines cut
+    into segments of ``seg`` rows (``segment_spikes``), computed on the
+    host in f64 and stored in the stencil's dtype on its device, with the
+    packed per-row table when the kernels' per-row values are all constant
+    along x."""
     a, m, cp = _thomas_host(st, ny)
     names = SegmentFactor._fields[:-1]
-    host = dict(zip(names, (m, cp, *segment_spikes(a, m, cp))))
+    host = dict(zip(names, (m, cp, *segment_spikes(a, m, cp, seg))))
     table = None
     if m.shape[1] == 1 and all(getattr(st, k).shape[1] == 1
                                for k in TABLE_COLUMNS[:7]):
@@ -309,3 +324,148 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
     check(err, "line residual launch")
     count_launch("line_visit9", dtype)
     return cur, out
+
+
+# --------------------------------------------------------------------------
+# The rank-spanning mode: a row-sharded level's y-lines.
+# --------------------------------------------------------------------------
+
+
+class RowLine(NamedTuple):
+    """A row-sharded level's y-line smoother on one rank, made once: the
+    line stencil on the block's real rows [row0, row0 + nyl) (the
+    coefficients that vary with y cut to them), the whole level's line
+    factor (the PCR factor for CPU tensors; on the card the segmented
+    factors of ``seg``-row segments, ``seg`` the largest power of two <=
+    ``LINE_SEG`` dividing R, so the segments tile the blocks) and, on the
+    card, its slices of the block's rows."""
+
+    st: Stencil9
+    fac: PCRFactor | SegmentFactor
+    fac_rows: SegmentFactor | None
+    seg: int
+    row0: int
+    R: int
+    ny: int
+
+    @property
+    def nyl(self) -> int:
+        return min(self.R, self.ny - self.row0)
+
+
+def row_line(st: Stencil9, ny: int, R: int, row0: int) -> RowLine:
+    """``RowLine`` of the block of global rows [row0, row0 + R) of a level
+    of ny real rows whose line stencil (``collapse_stencil``) is ``st``."""
+    nyl = min(R, ny - row0)
+    st_rows = Stencil9(*(c if c.shape[0] == 1 else c[row0:row0 + nyl]
+                         for c in st))
+    if _on_cpu(st.cc):
+        return RowLine(st_rows, pcr_factor(st.cs, st.cc, st.cn, ny), None,
+                       1, row0, R, ny)
+    seg = math.gcd(R, LINE_SEG)
+    fac = segment_factor(st, ny, seg)
+    rows = SegmentFactor(*(
+        t if t is None or k == "gain" else t[row0:row0 + nyl]
+        for k, t in fac._asdict().items()))
+    return RowLine(st_rows, fac, rows, seg, row0, R, ny)
+
+
+def _line_rows_cuda(lf: RowLine, b, u, top, bot):
+    st = lf.st
+    R, nx = b.shape
+    nyl = lf.nyl
+    c9 = coeff9_args(st, nyl, nx)
+    fac = lf.fac_rows
+    w = fac.m.shape[1]
+    fields = {"b": (b, (R, nx)), "u": (u, (R, nx)), "u_top": (top, (1, nx)),
+              "u_bot": (bot, (1, nx)), **c9.fields,
+              **{f"fac.{k}": (t, (nyl, TABLE_WIDTH) if k == "table"
+                              else (nyl, w))
+                 for k, t in fac._asdict().items()
+                 if t is not None and k != "gain"}}
+    dtype = _check_cuda(b.device, fields, dtypes=LINE_DTYPES)
+    if R % lf.seg:
+        raise ValueError(f"{lf.seg}-row segments do not tile a {R}-row "
+                         f"block")
+    fptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
+                       np.uint64)
+    return c9, fptrs, dtype, "_f64" if dtype == torch.float64 else ""
+
+
+def line_rows_begin(lf: RowLine, b, u, u_halo) -> torch.Tensor:
+    """The first half of a rank-spanning y-line sweep of this rank's (R,
+    nx) block ``u`` (right-hand side ``b``; ``u_halo``: its rows above and
+    below, one each): what the rank contributes to the sweep's
+    all-gather.  On the card: launch 1, the (2 nseg, nx) segment ends and
+    starts of its nseg = R / seg segments; on the CPU: its (R, nx) line
+    right-hand sides b - (the off-line terms of u), 0 on the pad row."""
+    top, bot = u_halo
+    if _on_cpu(b):
+        nyl, st = lf.nyl, lf.st
+        p = F.pad(torch.cat([top, u, bot]), (1, 1))
+        s_, o_, n_ = p[0:nyl], p[1:nyl + 1], p[2:nyl + 2]
+        off = (st.cw * o_[:, :-2] + st.ce * o_[:, 2:]
+               + st.csw * s_[:, :-2] + st.cse * s_[:, 2:]
+               + st.cnw * n_[:, :-2] + st.cne * n_[:, 2:])
+        rhs = torch.zeros_like(b)
+        rhs[:nyl] = b[:nyl] - off
+        return rhs
+    c9, fptrs, dtype, sfx = _line_rows_cuda(lf, b, u, top, bot)
+    R, nx = b.shape
+    nseg = R // lf.seg
+    out = torch.empty((2 * nseg, nx), dtype=dtype, device=b.device)
+    lib = load_library()
+    err = getattr(lib, "mg_line_rows_ends" + sfx)(
+        c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
+        int(lf.fac_rows.m.shape[1] > 1), lf.seg, b.data_ptr(), u.data_ptr(),
+        top.data_ptr(), bot.data_ptr(), out.data_ptr(), out[nseg:].data_ptr(),
+        nseg, lf.nyl, nx, _stream(b.device))
+    check(err, "line rows ends launch")
+    return out
+
+
+def line_rows_end(lf: RowLine, b, u, u_halo, gathered: torch.Tensor,
+                  omega: float) -> torch.Tensor:
+    """The second half: the swept block from ``gathered``, every rank's
+    ``line_rows_begin`` stacked in rank order.  On the card: the carry
+    pass over all the level's segments (launch 2, on every rank) and
+    launch 3 on this rank's; on the CPU: the whole columns' PCR solve, this
+    rank's rows of it blended into u.  The pad row stays 0."""
+    top, bot = u_halo
+    nyl = lf.nyl
+    out = torch.zeros_like(u)
+    if _on_cpu(b):
+        u_line = pcr_solve(lf.fac, gathered[:lf.ny])[lf.row0:lf.row0 + nyl]
+        out[:nyl] = (1.0 - omega) * u[:nyl] + omega * u_line
+        return out
+    c9, fptrs, dtype, sfx = _line_rows_cuda(lf, b, u, top, bot)
+    R, nx = b.shape
+    nseg = R // lf.seg
+    P = gathered.shape[0] // (2 * nseg)
+    g = gathered.view(P, 2, nseg, nx)
+    ends, starts = (g[:, i].reshape(P * nseg, nx).contiguous()
+                    for i in (0, 1))
+    fac = lf.fac
+    _check_cuda(b.device, {f"fac.{k}": (t, t.shape)
+                           for k, t in fac._asdict().items()
+                           if t is not None}, dtypes=(dtype,))
+    carries = torch.empty((2, P * nseg, nx), dtype=dtype, device=b.device)
+    gptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
+                       np.uint64)
+    lib = load_library()
+    stream = _stream(b.device)
+    err = getattr(lib, "mg_line_rows_carry" + sfx)(
+        gptrs.ctypes.data, int(fac.m.shape[1] > 1), lf.seg, ends.data_ptr(),
+        starts.data_ptr(), carries[0].data_ptr(), carries[1].data_ptr(),
+        P * nseg, nx, stream)
+    check(err, "line rows carry launch")
+    s0 = lf.row0 // lf.seg
+    cin, din = (carries[i, s0:s0 + nseg] for i in (0, 1))
+    err = getattr(lib, "mg_line_rows_fix" + sfx)(
+        c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
+        int(lf.fac_rows.m.shape[1] > 1), lf.seg, b.data_ptr(), u.data_ptr(),
+        top.data_ptr(), bot.data_ptr(), cin.data_ptr(), din.data_ptr(),
+        out.data_ptr(), nseg, nyl, nx, omega, 1.0 - omega, stream)
+    check(err, "line rows fix launch")
+    count_launch("line_visit9_rows", dtype)
+    return out
