@@ -13,12 +13,27 @@ residual and the transfer gap ride one exchange and one kernel.  The
 coarse correction of an up visit is the coarse level's block (its halo
 exchanged) or, under a replicated coarse level, the whole coarse grid, of
 which this rank cuts its rows and their halo without an exchange.
+
+A level whose block cannot carry a visit's halo (``dist_viable`` false:
+JAX sends such a level to GSPMD) stays sharded: a Jacobi schedule runs as
+visits of at most R - 2 steps, one exchange each (``_visit_steps``); a
+schedule with momentum (Chebyshev: beta != 0, which a visit does not
+carry across its end) runs one residual emit per step.  The smoothers
+without a fused visit run on the block too (JAX's GSPMD arithmetic on
+the rank's rows): red-black Gauss-Seidel as masked half-sweeps over the
+residual emit, its colours by the global parity row0 + i + j; x-line
+Jacobi as K15 on the transposed block and its two neighbour rows (the
+lines lie in the block); y-line Jacobi, whose lines cross the ranks, as
+K15's rank-spanning mode (``line_kernel.line_rows_*``), one all-gather of
+the segment carries per sweep.  The transfers between two sharded levels
+are block-local (``restrict``, ``prolong``: one exchanged row).
 """
 
 from __future__ import annotations
 
 import torch
 
+from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
 from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import (
     Halo,
     coarse_halo_rows,
@@ -27,6 +42,7 @@ from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import (
     row_visit,
 )
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
+from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 from multigrid_petsc_tpu_torch.parallel.halo import (
     all_gather_rows,
     edge_exchange,
@@ -57,6 +73,12 @@ def _rows(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     return out
 
 
+def _cut_rows(st, lo: int, hi: int):
+    """The stencil's coefficients that vary with y cut to rows [lo, hi)."""
+    return type(st)(*(c if c.shape[0] == 1 else c[lo:hi].contiguous()
+                      for c in st))
+
+
 class DistLevelOps:
     """K17 operator set of one single-grid row-sharded level on this
     rank.  ``st`` is the level's whole stencil; a 9-point stencil keeps
@@ -69,15 +91,24 @@ class DistLevelOps:
         self.P = plan.size
         self.R = (ny + 1) // self.P
         self.row0 = plan.rank * self.R
+        # The rows of the block inside the domain (the pad row is not).
+        self.nyl = min(self.R, ny - self.row0)
+        self.viable = dist_viable(ny, self.P, max_sweeps, nx=nx)
+        # The centre coefficient on the block, the pad row the identity,
+        # as JAX pads its Jacobi diagonal.
+        cc = st.cc.expand(ny, -1)
+        self.cc = self.block_of(torch.cat([cc, torch.ones_like(cc[:1])]))
+        self.dinv = 1.0 / self.cc
         self.coeff_row0 = 0
         if isinstance(st, Stencil9):
             m = max_sweeps + 2
             lo = max(0, self.row0 - m)
-            hi = min(ny, self.row0 + self.R + m)
-            st = Stencil9(*(c if c.shape[0] == 1 else c[lo:hi].contiguous()
-                            for c in st))
+            st = _cut_rows(st, lo, min(ny, self.row0 + self.R + m))
             self.coeff_row0 = lo
         self.st = st
+        self.rb_dinv = None      # RBGS: (red, black) omega / cc on the block
+        self.line_y = None       # LINE_Y: lk.RowLine
+        self.line_x = None       # LINE_X: (stencil, factor, rows lo, hi)
 
     # -- layout ---------------------------------------------------------
 
@@ -85,15 +116,20 @@ class DistLevelOps:
         """This rank's (R, w) rows of a whole (ny, w) grid, the pad row 0."""
         return _rows(x, self.row0, self.row0 + self.R).contiguous()
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole (ny, nx) grid from every rank's block (collective)."""
-        return all_gather_rows(x, self.plan)[:self.ny]
+    def gathered(self, solve):
+        """``solve`` of the whole level run on this rank's block: the
+        blocks gathered ("coarsest"), the solve, this rank's rows of it
+        (a coarsest level JAX shards through GSPMD and solves directly;
+        collective)."""
+        return lambda b: self.block_of(solve(all_gather_rows(
+            b, self.plan, "coarsest")[:self.ny]))
 
     def gather_coarse(self, rc: torch.Tensor) -> torch.Tensor:
         """The whole coarse grid ((ny - 1) / 2 rows) from every rank's
-        (R / 2)-row coarse block, the coarse pad row dropped
-        (collective)."""
-        return all_gather_rows(rc, self.plan)[:(self.ny - 1) // 2]
+        (R / 2)-row coarse block, the coarse pad row dropped: the rows of
+        the replicated level below (collective)."""
+        return all_gather_rows(rc, self.plan,
+                               "agglomerate")[:(self.ny - 1) // 2]
 
     # -- the visit --------------------------------------------------------
 
@@ -123,6 +159,35 @@ class DistLevelOps:
                          ny=self.ny, b_halo=b_halo, u_halo=u_halo, e=e,
                          e_halo=e_halo, coeff_row0=self.coeff_row0)
 
+    def _visit_steps(self, b, u, steps, emit, e=None):
+        """A visit of ``steps``: one K17 visit where the block carries its
+        halo (``viable``); else Jacobi's in visits of at most R - 2 steps
+        (the last one emitting), a schedule with momentum one residual
+        emit per step."""
+        if self.viable:
+            return self._visit(b, u, steps, emit, e)
+        c = self.R - 2
+        if c >= 1 and all(bt == 0 for _, bt in steps):
+            parts = [steps[i:i + c] for i in range(0, len(steps), c)]
+            for part in parts[:-1]:
+                u, e = self._visit(b, u, part, "u", e), None
+            return self._visit(b, u, parts[-1], emit, e)
+        u = self.zeros() if u is None else u
+        if e is not None:
+            u = u + self.prolong(e)
+        p = None
+        for a, bt in steps:
+            z = self.dinv * self.residual(b, u)
+            p = a * z if p is None else bt * p + a * z
+            u = u + p
+        if emit == "u":
+            return u
+        r = self.residual(b, u)
+        return (u, r) if emit == "ur" else (u, self.restrict(r))
+
+    def zeros(self) -> torch.Tensor:
+        return self.dinv.new_zeros((self.R, self.nx))
+
     # -- level operators (JAX dist_ops.py:142-167) ------------------------
 
     def apply(self, u):
@@ -132,12 +197,114 @@ class DistLevelOps:
         return self._visit(b, u, (), "r")
 
     def smooth(self, b, u, steps):
-        return self._visit(b, u, steps, "u")
+        return self._visit_steps(b, u, steps, "u")
 
     def visit_down(self, b, u, steps):
         """(u', R(b - A u')) from u (None: the zero guess)."""
-        return self._visit(b, u, steps, "rc")
+        return self._visit_steps(b, u, steps, "rc")
 
     def visit_up(self, b, u, e, steps, emit_r: bool = False):
         """u += P e -> smooth [-> residual]."""
-        return self._visit(b, u, steps, "ur" if emit_r else "u", e)
+        return self._visit_steps(b, u, steps, "ur" if emit_r else "u", e)
+
+    # -- block-local transfers ---------------------------------------------
+
+    def restrict(self, r: torch.Tensor) -> torch.Tensor:
+        """The (R / 2, (nx - 1) / 2) coarse block of R r (full weighting):
+        the block and the next rank's first row; the coarse pad row 0."""
+        if self.R % 2:
+            raise ValueError(f"an odd block of {self.R} rows has no coarse "
+                             f"block")
+        nxt = edge_exchange(r, 1, self.plan).bot
+        rc = restrict_fw(torch.cat([r, nxt]))
+        c_real = (self.ny - 1) // 2 - self.row0 // 2
+        if c_real < rc.shape[0]:
+            rc[max(c_real, 0):] = 0.0
+        return rc
+
+    def prolong(self, e: torch.Tensor) -> torch.Tensor:
+        """P e on the block (bilinear): ``e`` the coarse level's (R / 2)-row
+        block (its row above exchanged) or the whole replicated coarse
+        grid (cut, no exchange); the pad row 0."""
+        c0, Rc = self.row0 // 2, self.R // 2
+        nyc = (self.ny - 1) // 2
+        if e.shape[0] == Rc:
+            ext = torch.cat([edge_exchange(e, 1, self.plan).top, e])
+            if c0 + Rc > nyc:  # the coarse pad row counts as 0
+                ext = ext.clone()
+                ext[1 + max(nyc - c0, 0):] = 0.0
+        else:
+            ext = _rows(e, c0 - 1, c0 + Rc)
+        pe = prolong_bilinear(ext)[2:self.R + 2]
+        if self.nyl < self.R:
+            pe[self.nyl:] = 0.0
+        return pe
+
+    # -- the smoothers without a fused visit -------------------------------
+
+    def setup_rbgs(self, omega: float) -> None:
+        """RBGS's masked omega / cc on the block: red where the global
+        parity row0 + i + j is even; 0 on the pad row."""
+        ii = torch.arange(self.R, device=self.dinv.device)[:, None]
+        jj = torch.arange(self.nx, device=self.dinv.device)[None, :]
+        red = (self.row0 + ii + jj) % 2 == 0
+        d = (omega / self.cc).expand(self.R, self.nx).clone()
+        d[self.nyl:] = 0.0
+        zero = torch.zeros((), dtype=d.dtype, device=d.device)
+        self.rb_dinv = (torch.where(red, d, zero), torch.where(red, zero, d))
+
+    def rbgs(self, b, u, sweeps: int):
+        """Red-black Gauss-Seidel, JAX ``sor_redblack_sweeps``: per
+        half-sweep the residual emit and u + (omega / cc) r on one
+        colour."""
+        for _ in range(sweeps):
+            for d in self.rb_dinv:
+                u = torch.addcmul(u, d, self.residual(b, u))
+        return u
+
+    def setup_line_y(self, line_st: Stencil9) -> None:
+        """The rank-spanning y-lines of the level's collapsed whole-grid
+        line stencil."""
+        self.line_y = lk.row_line(line_st, self.ny, self.R, self.row0)
+
+    def line_y_sweeps(self, b, u, sweeps: int, omega: float):
+        """Damped y-line Jacobi (JAX ``line_jacobi_sweeps_y``) over the
+        whole columns: per sweep the iterate's neighbour rows, one
+        all-gather of what ``line_rows_begin`` gives, and the block's
+        update."""
+        lf = self.line_y
+        for _ in range(sweeps):
+            halo = edge_exchange(u, 1, self.plan)
+            mine = lk.line_rows_begin(lf, b, u, halo)
+            every = all_gather_rows(mine, self.plan, "line")
+            u = lk.line_rows_end(lf, b, u, halo, every, omega)
+        return u
+
+    def setup_line_x(self, line_st_x: Stencil9) -> None:
+        """x-line Jacobi's transposed stencil and factors on the block's
+        real rows and the neighbour rows inside the domain, [lo, hi) (the
+        columns of the transposed block)."""
+        lo = max(self.row0 - 1, 0)
+        hi = min(self.row0 + self.R + 1, self.ny)
+        st = Stencil9(*(c if c.shape[1] == 1 else c[:, lo:hi].contiguous()
+                        for c in line_st_x))
+        self.line_x = (st, lk.line_factor(st, self.nx), lo, hi)
+
+    def line_x_sweeps(self, b, u, sweeps: int, omega: float):
+        """Damped x-line Jacobi (JAX ``line_jacobi_sweeps_x``): its lines
+        lie in the block, so a sweep is one exchanged row on each side and
+        K15 on the transposed block with those rows (whose own lines are
+        solved and dropped)."""
+        st, fac, lo, hi = self.line_x
+        r0, nyl = self.row0, self.nyl
+        bt = torch.zeros((hi - lo, self.nx), dtype=b.dtype, device=b.device)
+        bt[r0 - lo:r0 - lo + nyl] = b[:nyl]
+        bt = bt.T.contiguous()
+        for _ in range(sweeps):
+            top, bot = edge_exchange(u, 1, self.plan)
+            ext = torch.cat([top[:r0 - lo], u[:nyl],
+                             bot[:hi - r0 - nyl]]).T.contiguous()
+            out = lk.line_visit9(st, bt, ext, 1, omega, fac=fac)
+            u = torch.zeros_like(u)
+            u[:nyl] = out.T[r0 - lo:r0 - lo + nyl]
+        return u

@@ -18,4 +18,4 @@ def gather_solution(u: torch.Tensor, plan, ny: int) -> np.ndarray:
     R = (ny + 1) // plan.size
     if u.shape[0] == R - 1:  # the last rank's block without its pad row
         u = torch.cat([u, u.new_zeros((1, u.shape[1]))])
-    return all_gather_rows(u, plan)[:ny].cpu().numpy()
+    return all_gather_rows(u, plan, "solution")[:ny].cpu().numpy()

@@ -12,14 +12,34 @@ copied to the host first (the copy waits for the stream) and the received
 rows copied back (the plan's transport "gloo-host").  JAX's 2-D block
 halo (``halo.py`` ``halo_pad_local``) serves the blocks layout, which is
 not ported.
+
+Every all-gather is counted by what it gathers (``gathers``, and its
+bytes as this rank sends them in ``gathered_bytes``; cleared by the
+caller, as ``ops.cuda.launches``):
+  "agglomerate"  the restricted rows of a sharded level onto the
+                 replicated level below it (JAX's agglomeration);
+  "line"         the y-line smoother's segment carries across the ranks
+                 (on the CPU: the line right-hand sides);
+  "coarsest"     a sharded coarsest level solved directly (where JAX
+                 runs it through GSPMD and densifies it; a small level);
+  "solution"     the level-0 solution or a checkpoint's state.
+No cycle gathers a sharded level's own rows whole: a solve's gathers
+inside its iterations are "agglomerate", "line" and "coarsest" only,
+which the tests and ``chip_smoke.py`` assert.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 import torch.distributed as dist
 
 from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
+
+GATHERS = ("agglomerate", "line", "coarsest", "solution")
+gathers: Counter = Counter()
+gathered_bytes: Counter = Counter()
 
 
 def _staged(x: torch.Tensor, plan) -> bool:
@@ -74,8 +94,13 @@ def allreduce_sum(x: torch.Tensor, plan) -> torch.Tensor:
     return y.to(x.device)
 
 
-def all_gather_rows(x: torch.Tensor, plan) -> torch.Tensor:
-    """Every rank's (R, w) block stacked in rank order, on every rank."""
+def all_gather_rows(x: torch.Tensor, plan, what: str) -> torch.Tensor:
+    """Every rank's (R, w) block stacked in rank order, on every rank;
+    counted under ``what`` (one of ``GATHERS``)."""
+    if what not in GATHERS:
+        raise ValueError(f"unknown gather {what!r}")
+    gathers[what] += 1
+    gathered_bytes[what] += x.numel() * x.element_size()
     stage = _staged(x, plan)
     src = x.detach().cpu() if stage else x.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(plan.size)]

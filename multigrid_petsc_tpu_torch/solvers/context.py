@@ -39,14 +39,22 @@ Distribution (``plan=``, a ``parallel.ShardingPlan`` over a
 builds the whole hierarchy.  A level the plan row-shards runs on this
 rank's row block through ``LevelCtx.dist`` (``parallel.DistLevelOps``,
 K17, one pad row: ``pad_rows``); the others are replicated, every rank
-holding them whole.  Reductions go through the level (``LevelCtx.dot``):
-a sharded level's are summed over the ranks, a replicated level's are
-not.  The level transitions: sharded -> sharded, the visits' rc block IS
-the coarse block; sharded -> replicated, the rc blocks are all-gathered;
-replicated -> sharded, the up visit cuts its rows of the whole coarse
-correction.  Only V, MG-Richardson, FMG and mg-CG (generic route) run
-under a plan, Jacobi or Chebyshev on the sharded levels, the working
-dtype alone; the rest raises (ROADMAP).
+holding them whole.  A level the plan shards stays sharded whatever its
+smoother (JAX shards it too, through GSPMD where its dist kernels do not
+take it): point smoothers run K17 visits (in pieces where the block is
+too small for the halo), RBGS, the line smoothers and non-separable
+9-point coefficients run on the block as well (``DistLevelOps``).
+Reductions go through the level (``LevelCtx.dot``): a sharded level's are
+summed over the ranks, a replicated level's are not.  The level
+transitions: sharded -> sharded, the visits' rc block IS the coarse block
+and the whole transfers are block-local; sharded -> replicated, the rc
+blocks are all-gathered; replicated -> sharded, the up visit cuts its
+rows of the whole coarse correction.  Inside a cycle nothing else is
+gathered but the y-lines' carries and a sharded coarsest level that JAX
+solves directly (``parallel.halo.gathers``).  Every single-grid cycle and both precision outers run
+under a plan (the preconditioner context under the same plan); the
+merged-grid cycles, a merged level the plan would shard, the blocks
+layout and the sparse backend raise (ROADMAP).
 """
 
 from __future__ import annotations
@@ -84,7 +92,7 @@ from multigrid_petsc_tpu_torch.ops.transfer import (
     restrict_fw,
     restrict_multi,
 )
-from multigrid_petsc_tpu_torch.parallel.dist_ops import DistLevelOps, dist_viable
+from multigrid_petsc_tpu_torch.parallel.dist_ops import DistLevelOps
 from multigrid_petsc_tpu_torch.parallel.halo import allreduce_sum
 from multigrid_petsc_tpu_torch.problems import (
     AnisoProblem,
@@ -188,6 +196,11 @@ class LevelCtx:
         return [g.shape for g in self.spec.grids]
 
     @property
+    def state_shapes(self) -> list[tuple[int, int]]:
+        """Every grid's state on this rank (the block when sharded)."""
+        return [self.state_shape] if self.dist is not None else self.shapes
+
+    @property
     def merged(self) -> bool:
         return self.spec.is_composite
 
@@ -204,7 +217,10 @@ class LevelCtx:
     @property
     def composed(self) -> bool:
         """Visits composed of smooth, residual and restriction: the
-        generic levels, and the smoothers with no fused visit kernel."""
+        generic levels, the smoothers with no fused visit kernel, and any
+        smoother but a point one on a sharded level (K17 fuses those)."""
+        if self.dist is not None:
+            return self.smoother not in POINT_SMOOTHERS
         return self.generic or self.smoother in _COMPOSED_SMOOTHERS
 
     @property
@@ -230,6 +246,13 @@ class LevelCtx:
 
     def norm2(self, x) -> torch.Tensor:
         return torch.sqrt(self.dot(x, x))
+
+    def vnorm(self, x: torch.Tensor) -> torch.Tensor:
+        """||x|| of one tensor: as ``torch.linalg.vector_norm`` computes it
+        on one device (the Krylov outers' norm), over the ranks
+        (``norm2``) when the level is sharded."""
+        return torch.linalg.vector_norm(x) if self.dist is None \
+            else self.norm2(x)
 
     def apply(self, u):
         if self.dist is not None:
@@ -300,9 +323,24 @@ class LevelCtx:
                               u.T.contiguous(), sweeps, self.omega,
                               fac=self.line_fac_x).T.contiguous()
 
+    def _smooth_dist(self, b, u, sweeps: int):
+        d = self.dist
+        if self.smoother == SmootherType.RBGS:
+            return d.rbgs(b, u, sweeps)
+        if self.smoother == SmootherType.LINE_Y:
+            return d.line_y_sweeps(b, u, sweeps, self.omega)
+        if self.smoother == SmootherType.LINE_X:
+            return d.line_x_sweeps(b, u, sweeps, self.omega)
+        if self.smoother == SmootherType.LINE_XY:
+            for _ in range(sweeps):  # one y-sweep, then one x-sweep
+                u = d.line_x_sweeps(b, d.line_y_sweeps(b, u, 1, self.omega),
+                                    1, self.omega)
+            return u
+        return d.smooth(b, u, self.steps_fn(sweeps))
+
     def smooth(self, b, u, sweeps: int):
         if self.dist is not None:
-            return self.dist.smooth(b, u, self.steps_fn(sweeps))
+            return self._smooth_dist(b, u, sweeps)
         if self.block_gs:
             return sm.composite_block_gs(self.stencils, self.spec.gids, b, u,
                                          sweeps, inner=self.block_gs_inner,
@@ -327,14 +365,22 @@ class LevelCtx:
         fn = sk9.smooth9_sweeps if self.nine else sk.smooth_sweeps
         return fn(self.stencil, b, u, self.steps_fn(sweeps))
 
+    def _prolong(self, e_c):
+        """P e_c on the primary grid (the block when sharded)."""
+        if self.dist is not None:
+            return self.dist.prolong(e_c)
+        return prolong_bilinear(e_c)
+
     def visit_down(self, b, u, sweeps: int):
         """(u', rc): smooth from u (None: the zero guess) + the restricted
-        residual of the primary grid."""
-        if self.dist is not None:
-            return self.dist.visit_down(b, u, self.steps_fn(sweeps))
+        residual of the primary grid (the coarse block when sharded)."""
         if self.composed:
             u = self.smooth(b, self.zeros() if u is None else u, sweeps)
-            return u, restrict_fw(primary(self.residual(b, u)))
+            r = primary(self.residual(b, u))
+            return u, (restrict_fw(r) if self.dist is None
+                       else self.dist.restrict(r))
+        if self.dist is not None:
+            return self.dist.visit_down(b, u, self.steps_fn(sweeps))
         if self.line_st is not None:
             return self._line(b, u, sweeps, "rc")
         fn = sk9.fused_level_visit9 if self.nine else sk.fused_level_visit
@@ -344,14 +390,14 @@ class LevelCtx:
         """smooth_k(b, u + P e_c) [, its residual]; the correction goes to
         the primary grid (on a sharded level: the coarse level's block,
         or the whole coarse grid when that level is replicated)."""
-        if self.dist is not None:
-            return self.dist.visit_up(b, u, e_c, self.steps_fn(sweeps),
-                                      emit_r)
         if self.composed:
-            u0 = primary(u) + prolong_bilinear(e_c)
+            u0 = primary(u) + self._prolong(e_c)
             u = u0 if isinstance(u, torch.Tensor) else (u0,) + tuple(u[1:])
             u = self.smooth(b, u, sweeps)
             return (u, self.residual(b, u)) if emit_r else u
+        if self.dist is not None:
+            return self.dist.visit_up(b, u, e_c, self.steps_fn(sweeps),
+                                      emit_r)
         emit = "ur" if emit_r else "u"
         if self.line_st is not None:
             return self._line(b, u, sweeps, emit, e_c)
@@ -423,29 +469,39 @@ class MGContext:
                     for ug, gap in zip(u_next, self._gaps(l, 1)))
 
     # Whole transfers (FMG, the Additive cycles): plain PyTorch, as the
-    # JAX package computes them outside its kernels; a sharded level's
-    # grid is gathered whole first and its block cut from the result.
+    # JAX package computes them outside its kernels.  Between two sharded
+    # levels they are block-local (one exchanged row); from a sharded
+    # level to a replicated one the restricted blocks are gathered (the
+    # agglomeration), and the prolongation back cuts the block's rows of
+    # the replicated correction.  A coarser level is sharded only if its
+    # finer one is.
     def restrict_to_next(self, l: int, r: torch.Tensor):
         """Level l's primary-grid residual onto every grid of level l+1."""
         cur, nxt = self.levels[l], self.levels[l + 1]
         if cur.dist is not None:
-            r = cur.dist.gather(r)
+            rc = cur.dist.restrict(r)
+            if nxt.dist is not None:
+                return rc
+            rc = cur.dist.gather_coarse(rc)
+            if not nxt.merged:
+                return rc
+            return tuple(restrict_multi(rc, gap) for gap in self._gaps(l, 1))
         if not nxt.merged:
-            rc = restrict_fw(r)
-            return rc if nxt.dist is None else nxt.dist.block_of(rc)
+            return restrict_fw(r)
         return tuple(restrict_multi(r, gap) for gap in self._gaps(l, 0))
 
     def prolong_from_next(self, l: int, u_next) -> torch.Tensor:
         """Every grid of level l+1 onto level l's primary grid, summed."""
         cur, nxt = self.levels[l], self.levels[l + 1]
-        if nxt.dist is not None:
-            u_next = nxt.dist.gather(u_next)
-        if not nxt.merged:
-            e = prolong_bilinear(u_next)
-        else:
-            e = _sum(prolong_multi(ug, gap)
-                     for ug, gap in zip(u_next, self._gaps(l, 0)))
-        return e if cur.dist is None else cur.dist.block_of(e)
+        if cur.dist is None:
+            if not nxt.merged:
+                return prolong_bilinear(u_next)
+            return _sum(prolong_multi(ug, gap)
+                        for ug, gap in zip(u_next, self._gaps(l, 0)))
+        if nxt.merged:  # a replicated merged level below a sharded one
+            u_next = _sum(prolong_multi(ug, gap)
+                          for ug, gap in zip(u_next, self._gaps(l, 1)))
+        return cur.dist.prolong(u_next)
 
 
 def _sum(terms):
@@ -462,9 +518,10 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
                  CycleType.ECYCLE)
 
 
-# The cycles that run under a plan.
-_PLAN_CYCLES = (CycleType.VCYCLE, CycleType.PCMG, CycleType.FMG,
-                CycleType.MGCG)
+# The merged-grid cycles (one merged level): not under a plan.
+_MERGED_CYCLES = (*_SPLIT_CYCLES, CycleType.ICYCLE)
+_MERGED_ITEM = "distribution, merged levels and the merged-grid cycles " \
+               "under a plan"
 
 
 def _check_supported(cfg: SolverConfig, plan) -> None:
@@ -473,14 +530,9 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
             raise ValueError(
                 "backend='sparse' is the single-device explicit-operator "
                 "path; use backend='auto'/'pallas' for distributed runs")
-        if cfg.cycle not in _PLAN_CYCLES:
+        if cfg.cycle in _MERGED_CYCLES:
             raise not_ported(f"the {cfg.cycle.name} cycle under a plan",
-                             "distribution, the remaining cycles and "
-                             "precision outers under a plan")
-        if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
-            raise not_ported("outer_dtype / precond_dtype under a plan",
-                             "distribution, the remaining cycles and "
-                             "precision outers under a plan")
+                             _MERGED_ITEM)
     if cfg.problem not in ("poisson", "aniso"):
         raise ValueError(f"unknown problem {cfg.problem!r}")
     if cfg.problem == "aniso" and cfg.grids != cfg.levels:
@@ -535,9 +587,10 @@ def _check_smoother(lc: LevelCtx) -> None:
         raise ValueError("line smoother: 1 grid per level")
 
 
-def _setup_smoother(lc: LevelCtx) -> None:
+def _setup_smoother(lc: LevelCtx, factors: bool = True) -> None:
     """What the level's smoother needs, made once: Chebyshev's lmax, RBGS's
-    masked D^-1, the line smoothers' collapsed stencils and factors (the
+    masked D^-1, the line smoothers' collapsed stencils and (``factors``;
+    a level about to be sharded makes its block's) their factors (the
     y-lines over ny points, the x-lines of the transposed stencil over
     nx)."""
     s = lc.smoother
@@ -546,15 +599,18 @@ def _setup_smoother(lc: LevelCtx) -> None:
         lc.lmax = sm.estimate_dinv_a_lmax(
             lc.apply, lc.dinv, lc.shapes if lc.merged else lc.shape)
     elif s == SmootherType.RBGS:
-        lc.rb_dinv = redblack_dinv(lc.stencil, lc.shape, lc.omega)
+        if factors:
+            lc.rb_dinv = redblack_dinv(lc.stencil, lc.shape, lc.omega)
     elif s != SmootherType.JACOBI:
         st9 = _promote9(lc.stencil)
         if s in (SmootherType.LINE_Y, SmootherType.LINE_XY):
             lc.line_st = lk.collapse_stencil(st9)
-            lc.line_fac = lk.line_factor(lc.line_st, ny)
+            if factors:
+                lc.line_fac = lk.line_factor(lc.line_st, ny)
         if s in (SmootherType.LINE_X, SmootherType.LINE_XY):
             lc.line_st_x = lk.collapse_stencil(transpose_stencil9(st9))
-            lc.line_fac_x = lk.line_factor(lc.line_st_x, nx)
+            if factors:
+                lc.line_fac_x = lk.line_factor(lc.line_st_x, nx)
 
 
 def _plan_device(device, plan) -> torch.device:
@@ -596,58 +652,61 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
                                                        CycleType.MGFGMRES):
         pcfg = dataclasses.replace(cfg, dtype=cfg.precond_dtype,
                                    precond_dtype=None, outer_dtype=None)
-        ctx.precond_ctx = _build(pcfg, problem, device, None)
+        ctx.precond_ctx = _build(pcfg, problem, device, plan)
         assert ([l.shapes for l in ctx.precond_ctx.levels]
                 == [l.shapes for l in ctx.levels]), \
             "precond context level shapes must match"
     return ctx
 
 
-def _use_dist(lc: LevelCtx, cfg: SolverConfig, plan) -> bool:
-    """Does ``lc`` run row-sharded under ``plan``?  JAX's rule
-    (context.py:350-414) without its TPU-only branches (the ny < 256
-    cutoff, interpret mode, the Mosaic f64 demotion): the plan shards the
-    level (a world of one rank shards nothing), and then it must be a
-    single-grid level with a point smoother and, if 9-point, separable
-    coefficients, whose block carries the largest halo.  A level the plan
-    shards that the row-block visit cannot take raises: JAX runs such
-    levels through GSPMD, which is not ported.  Every matrix-free backend
-    takes JAX's backend="pallas" split (the port has one kernel route)."""
+def _use_dist(lc: LevelCtx, plan) -> bool:
+    """Does ``lc`` run row-sharded under ``plan``?  Where the plan shards
+    it (``ShardingPlan.spec``; a world of one rank shards nothing), as
+    JAX shards it: its dist kernels where they take the level, GSPMD
+    where they do not (another smoother than Jacobi or Chebyshev,
+    non-separable 9-point coefficients, a block too small for the halo).
+    The port runs all of these on the row block (K17 ships every
+    coefficient as it is; ROADMAP: kept for parity).  A merged level the
+    plan would shard raises."""
     if plan is None or plan.size == 1:
         return False
     g = lc.spec.primary
     if plan.spec(g.ny, g.nx) != "rows":
         return False  # replicated (agglomerated)
-
-    def off(what):
-        return not_ported(f"a row-sharded level with {what}",
-                          "distribution, row-sharded levels off the K17 "
-                          "path")
-
     if lc.merged:
-        raise off("merged grids")
-    if lc.smoother not in (SmootherType.JACOBI, SmootherType.CHEBYSHEV):
-        raise off(f"the {lc.smoother.value} smoother")
-    if lc.nine and not separable9(lc.stencil):
-        raise off("non-separable 9-point coefficients")
-    if not dist_viable(g.ny, plan.size, cfg.max_sweeps, nx=g.nx):
-        raise off(f"blocks too small for {cfg.max_sweeps} sweeps")
+        raise not_ported("a row-sharded merged level", _MERGED_ITEM)
     return True
 
 
+def _jax_dist_kernels(lc: LevelCtx, whole_stencil) -> bool:
+    """Would JAX run the sharded level ``lc`` through its dist kernels
+    (context.py:350-414: a point smoother, a 5-point or separable 9-point
+    stencil, a block that carries the largest halo) rather than GSPMD?
+    Only the coarsest level's solver reads it: JAX iterates CG on the
+    former and solves the latter directly."""
+    return (lc.smoother in POINT_SMOOTHERS and lc.dist.viable
+            and (not lc.nine or separable9(whole_stencil)))
+
+
 def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
-    """Put ``lc`` on this rank's row block (JAX context.py:945-961)."""
+    """Put ``lc`` on this rank's row block (JAX context.py:945-961), its
+    smoother's set-up with it (RBGS's colours by the global parity, the
+    line smoothers' stencils and factors of the block)."""
     g = lc.spec.primary
-    lc.dist = DistLevelOps(lc.stencil, g.ny, g.nx, plan, cfg.max_sweeps)
+    d = lc.dist = DistLevelOps(lc.stencil, g.ny, g.nx, plan, cfg.max_sweeps)
     lc.pad_rows = 1
+    lc.dinv = d.dinv
+    if lc.smoother == SmootherType.RBGS:
+        d.setup_rbgs(lc.omega)
+    if lc.line_st is not None:
+        d.setup_line_y(lc.line_st)
+    if lc.line_st_x is not None:
+        d.setup_line_x(lc.line_st_x)
+    lc.line_st = lc.line_st_x = None  # the block's own replace them
     # The rows of the coefficients this rank reads (a 9-point field's, cut
     # to the block and its halo; the 5-point columns whole).
-    lc.stencil = lc.dist.st
-    lc.stencils = (lc.dist.st,)
-    # The Jacobi diagonal on the block, the pad row the identity, as JAX
-    # pads it.
-    d = lc.dinv.expand(g.ny, -1)
-    lc.dinv = lc.dist.block_of(torch.cat([d, torch.ones_like(d[:1])]))
+    lc.stencil = d.st
+    lc.stencils = (d.st,)
 
 
 def _build(cfg: SolverConfig, problem: Problem | None,
@@ -676,11 +735,12 @@ def _build(cfg: SolverConfig, problem: Problem | None,
                       block_gs_inner=cfg.v[0])
         if sparse:
             _assemble(lc, cfg, device, dtype)
-        shard = _use_dist(lc, cfg, plan)
+        shard = _use_dist(lc, plan)
         if not lc.block_gs:
             _check_smoother(lc)
             if cfg.cycle not in _SPLIT_CYCLES:
-                _setup_smoother(lc)
+                _setup_smoother(lc, factors=not shard)
+        whole_stencil = lc.stencil  # the coarsest level's direct solve's
         if shard:  # after lmax, which JAX estimates on the whole grid
             _shard(lc, cfg, plan)
         levels.append(lc)
@@ -691,12 +751,18 @@ def _build(cfg: SolverConfig, problem: Problem | None,
         if mode == "auto":
             n = sum(ny * nx for ny, nx in last.shapes)
             mode = "direct" if n <= cfg.max_direct_size else "cg"
-        if mode == "cg" or last.dist is not None:
-            # A sharded coarsest level iterates CG, as in JAX (its direct
-            # solve densifies the whole operator).
+        if mode == "cg" or (last.dist is not None
+                            and _jax_dist_kernels(last, whole_stencil)):
+            # A coarsest level on JAX's dist kernels iterates CG, as in
+            # JAX (its direct solve densifies the whole operator).
             last.coarse_solve = build_cg_solver(
-                last.apply, [last.state_shape] if last.dist else last.shapes,
-                cfg.coarse_cg_iters, dot=last.dot if last.dist else None)
+                last.apply, last.state_shapes, cfg.coarse_cg_iters,
+                dot=last.dot if last.dist else None)
+        elif last.dist is not None:
+            # One JAX shards through GSPMD is solved directly, densified
+            # whole: its rows are gathered for the solve.
+            last.coarse_solve = last.dist.gathered(
+                build_direct_solver(whole_stencil, last.shape))
         elif last.merged:
             # The merged operator, couplings included, from its CSR.
             dense = dense_from_csr(*assemble_level_csr(

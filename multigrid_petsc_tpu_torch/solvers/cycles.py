@@ -17,13 +17,16 @@ cycles are in ``solvers/delayed.py``).
 Smoothing and operator applications go through the levels (K6/K7 per
 grid, or the assembled operator's K8 / K16 / ELL gather on the card);
 the filters and transfers are plain PyTorch, as in the JAX package.
+Additive and Additive2 run under a plan too: their reductions go through
+level 0 (``LevelCtx.dot`` / ``norm2``, summed over the ranks) and their
+transfers are block-local between sharded levels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from multigrid_petsc_tpu_torch.ops.norms import tree_dot, tree_map, tree_norm2
+from multigrid_petsc_tpu_torch.ops.norms import tree_map, tree_norm2
 from multigrid_petsc_tpu_torch.solvers import smoothers as smod
 from multigrid_petsc_tpu_torch.solvers.context import MGContext
 from multigrid_petsc_tpu_torch.solvers.outer import (
@@ -153,7 +156,7 @@ def solve_additive(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResul
 
     return outer_iterate(step, ctx.levels[0].residual,
                          ctx.b0 if b0 is None else b0, ctx.levels[0].zeros(),
-                         cfg)
+                         cfg, norm=ctx.levels[0].norm2)
 
 
 def solve_additive2(ctx: MGContext, b0=None) -> OuterResult:
@@ -167,10 +170,10 @@ def solve_additive2(ctx: MGContext, b0=None) -> OuterResult:
     lvl0, lvl1 = ctx.levels
     b = ctx.b0 if b0 is None else b0
     hist_len = min(cfg.hist_len, cfg.max_iter)
-    bnorm = float(tree_norm2(b))
+    bnorm = float(lvl0.norm2(b))
     u = lvl0.zeros()
     r0 = lvl0.residual(b, u)
-    rn_t = tree_norm2(r0)
+    rn_t = lvl0.norm2(r0)
     hist = torch.zeros(hist_len + 1, dtype=rn_t.dtype, device=rn_t.device)
     hist[0] = rn_t
     rn, i = float(rn_t), 0
@@ -178,11 +181,11 @@ def solve_additive2(ctx: MGContext, b0=None) -> OuterResult:
         b1 = ctx.restrict_to_next(0, r0)
         u = lvl0.smooth(b, u, v0)
         r1 = lvl0.residual(b, u)
-        lam = tree_dot(r0, r1) / (rn_t * rn_t)
+        lam = lvl0.dot(r0, r1) / (rn_t * rn_t)
         u1 = lvl1.smooth(b1, lvl1.zeros(), v1)
         u = u + lam * ctx.prolong_from_next(0, u1)
         r0 = lvl0.residual(b, u)
-        rn_t = tree_norm2(r0)
+        rn_t = lvl0.norm2(r0)
         hist[min(i + 1, hist_len)] = rn_t
         i += 1
         rn = float(rn_t)  # the stop test: the one host read per iteration

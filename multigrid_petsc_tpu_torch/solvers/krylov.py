@@ -31,6 +31,13 @@ the routes compare with JAX's call for call (ROADMAP: kept for parity).
 because the TPU only emulates f64) runs as the native f64 outer here: the
 H100 has FP64.
 
+Under a plan every inner product and norm goes through level 0
+(``LevelCtx.dot`` / ``norm2``: summed over the ranks, the same value on
+every rank), so FGMRES's Hessenberg and Givens scalars and every stop
+test agree across the ranks; the mixed outer's f64 operator is K17's
+f64 instantiation on the rank's block, its right-hand side the rank's
+rows.
+
 The standard PCG formulas hold verbatim for the negative-definite
 discrete Laplacian (both inner products flip sign, ratios stay positive).
 The loops run on the host; scalars (alpha, beta, the inner products,
@@ -51,7 +58,6 @@ from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as sk9
 from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
 from multigrid_petsc_tpu_torch.ops.norms import (
     flatten,
-    tree_dot,
     tree_map,
     tree_norm2,
     unflatten,
@@ -60,6 +66,7 @@ from multigrid_petsc_tpu_torch.problems import (
     stencil9_coefficients,
     stencil_coefficients,
 )
+from multigrid_petsc_tpu_torch.parallel.dist_ops import DistLevelOps
 from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
 from multigrid_petsc_tpu_torch.solvers.context import MGContext, rhs_grid_of
 from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, keep_going
@@ -318,7 +325,8 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
     lvl0 = ctx.levels[0]
     m = restart if restart is not None else cfg.fgmres_restart
     b = flatten(ctx.b0 if b0 is None else b0)
-    shapes = lvl0.shapes
+    shapes = lvl0.state_shapes
+    dot, norm = lvl0.dot, lvl0.vnorm
     hist_len = cfg.hist_len
     dtype, device = b.dtype, b.device
 
@@ -332,7 +340,7 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
 
     def restart_block(u):
         r = b - apply_flat(u)
-        beta = torch.linalg.vector_norm(r)
+        beta = norm(r)
         V = torch.zeros((m + 1, b.numel()), dtype=dtype, device=device)
         V[0] = r / torch.where(beta > 0, beta, 1.0)
         Z = torch.zeros((m, b.numel()), dtype=dtype, device=device)
@@ -346,10 +354,10 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
             w = apply_flat(zj)
             hcol = torch.zeros(m + 1, dtype=dtype, device=device)
             for i in range(j + 1):  # modified Gram-Schmidt
-                hij = torch.dot(V[i], w)
+                hij = dot(V[i], w)
                 w = w - hij * V[i]
                 hcol[i] = hij
-            hj1 = torch.linalg.vector_norm(w)
+            hj1 = norm(w)
             hcol[j + 1] = hj1
             V[j + 1] = w / torch.where(hj1 > 0, hj1, 1.0)
             Z[j] = zj
@@ -373,16 +381,16 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
         y = torch.linalg.solve_triangular(rsafe, g[:m, None], upper=True)
         return u + (Z.T @ y)[:, 0]
 
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(norm(b))
     u = torch.zeros_like(b)
-    rn_t = torch.linalg.vector_norm(b - apply_flat(u))
+    rn_t = norm(b - apply_flat(u))
     hist = torch.zeros(hist_len + 1, dtype=dtype, device=device)
     hist[0] = rn_t
     rn = float(rn_t)
     i = 0
     while keep_going(cfg, i, rn, bnorm):
         u = restart_block(u)
-        rn_t = torch.linalg.vector_norm(b - apply_flat(u))
+        rn_t = norm(b - apply_flat(u))
         hist[min(i + 1, hist_len)] = rn_t
         i += 1
         rn = float(rn_t)  # the stop test: one host read per restart block
@@ -393,31 +401,48 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
 def outer_precision_operator(ctx: MGContext, dtype: torch.dtype):
     """(apply_fn, stencil): the level-0 operator of ``ctx``'s own problem
     family in ``dtype`` on ``ctx.device`` (the mixed outer's f64 operator;
-    K6 or K12 in f64 on the card; JAX krylov.py:470-488)."""
+    K6 or K12 in f64 on the card, K17's "a" emit in f64 on the rank's
+    block under a plan; JAX krylov.py:470-488)."""
     cfg = ctx.config
-    ny, nx = ctx.levels[0].spec.primary.shape
+    lvl0 = ctx.levels[0]
+    ny, nx = lvl0.spec.primary.shape
     if cfg.problem == "aniso":
         st = stencil9_coefficients(ctx.problem, ny, nx, dtype, ctx.device)
+    else:
+        st = stencil_coefficients(MeshType(cfg.mesh), ny, nx, dtype,
+                                  ctx.device)
+    if lvl0.dist is not None:
+        ops = DistLevelOps(st, ny, nx, ctx.plan, cfg.max_sweeps)
+        return ops.apply, ops.st
+    if cfg.problem == "aniso":
         return (lambda u: sk9.apply_stencil9(st, u)), st
-    st = stencil_coefficients(MeshType(cfg.mesh), ny, nx, dtype, ctx.device)
     return (lambda u: sk.apply_stencil5(st, u)), st
 
 
 def outer_rhs(ctx: MGContext, dtype: torch.dtype) -> torch.Tensor:
     """The level-0 right-hand side evaluated in ``dtype``: the mixed
     outer's b (an f32 b upcast would bake eps32 * ||b|| into the
-    certified residual)."""
-    ny, nx = ctx.levels[0].spec.primary.shape
-    return rhs_grid_of(ctx.config, ctx.problem, ny, nx, dtype, ctx.device)
+    certified residual); under a plan the rank's rows of it."""
+    lvl0 = ctx.levels[0]
+    ny, nx = lvl0.spec.primary.shape
+    b = rhs_grid_of(ctx.config, ctx.problem, ny, nx, dtype, ctx.device)
+    return b if lvl0.dist is None else lvl0.dist.block_of(b)
 
 
 def true_relative_residual(ctx: MGContext, u: torch.Tensor) -> float:
     """||b - A u|| / ||b|| in f64 (b and A evaluated in f64): the
-    certification oracle of the reduced-precision solves."""
+    certification oracle of the reduced-precision solves.  Under a plan
+    ``u`` is the rank's block (``SolveResult.u``, its real rows) and the
+    norms are summed over the ranks (a collective)."""
+    lvl0 = ctx.levels[0]
     apply64, _ = outer_precision_operator(ctx, torch.float64)
     b = outer_rhs(ctx, torch.float64)
-    r = b - apply64(u.to(torch.float64))
-    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+    u = u.to(torch.float64)
+    if u.shape[0] < b.shape[0]:  # the last rank's block without its pad row
+        u = torch.cat([u, u.new_zeros((b.shape[0] - u.shape[0],
+                                       u.shape[1]))])
+    r = b - apply64(u)
+    return float(lvl0.vnorm(r) / lvl0.vnorm(b))
 
 
 def solve_mgcg_mixed(ctx: MGContext, b0: torch.Tensor,
@@ -438,33 +463,34 @@ def solve_mgcg_mixed(ctx: MGContext, b0: torch.Tensor,
         raise ValueError("mixed outer: single-grid level 0 only")
     apply64, _ = outer_precision_operator(ctx, odt)
     inner = mg_precond(ctx, v0, v1)
+    dot, norm = ctx.levels[0].dot, ctx.levels[0].vnorm
 
     def precond(r64):
         return inner(r64.to(ctx.dtype)).to(odt)
 
     b = b0.to(odt)
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(norm(b))
     hist_len = cfg.hist_len
     flexible = ctx.precond_ctx is not None  # see _solve_mgcg_generic
     u = torch.zeros_like(b) if u0 is None else u0.to(odt)
     r = b - apply64(u)
-    rn = torch.linalg.vector_norm(r)
+    rn = norm(r)
     z = precond(r)
     p = z
-    rz = tree_dot(r, z)
+    rz = dot(r, z)
     hist = torch.zeros(hist_len + 1, dtype=odt, device=b.device)
     hist[0] = rn
     i = 0
     while keep_going(cfg, i, float(rn), bnorm):
         ap = apply64(p)
-        alpha = rz / tree_dot(p, ap)
+        alpha = rz / dot(p, ap)
         u = u + alpha * p
         r_new = r - alpha * ap
-        rn = torch.linalg.vector_norm(r_new)
+        rn = norm(r_new)
         z = precond(r_new)
-        rz_new = tree_dot(r_new, z)
+        rz_new = dot(r_new, z)
         if flexible:
-            beta = torch.clamp((rz_new - tree_dot(r, z)) / rz, min=0.0)
+            beta = torch.clamp((rz_new - dot(r, z)) / rz, min=0.0)
         else:
             beta = rz_new / rz
         p = z + beta * p

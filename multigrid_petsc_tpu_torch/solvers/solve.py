@@ -20,9 +20,10 @@ rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
 
 Under a plan (``plan=``, every rank calling ``solve`` alike) the solve
 runs on the plan's device; ``u0`` is the whole level-0 grid, of which each
-rank takes its rows; ``SolveResult.u`` is this rank's block of the
-solution (its real rows), and ``u_fine`` the whole grid, gathered from
-every rank (a collective: every rank reads it).
+rank takes its rows, or the rank's (R, nx) block (a checkpoint's under the
+plan, ``utils.checkpoint.load``); ``SolveResult.u`` is this rank's block
+of the solution (its real rows), and ``u_fine`` the whole grid, gathered
+from every rank (a collective: every rank reads it).
 """
 
 from __future__ import annotations
@@ -125,7 +126,7 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
             u0 = torch.from_numpy(u0)
         u0 = tree_map(lambda x: torch.as_tensor(
             x, dtype=torch.float64 if mixed else ctx.dtype, device=dev), u0)
-        if lvl0.dist is not None:
+        if lvl0.dist is not None and u0.shape[0] != lvl0.dist.R:
             u0 = lvl0.dist.block_of(u0)
         if not mixed:
             bn_orig = float(lvl0.norm2(b_in))

@@ -8,6 +8,12 @@ history so far, the iteration count and the configuration's fingerprint
 the JAX package's keys.  Both packages' ``SolverConfig`` have the same
 fields, so the fingerprints agree and a checkpoint written by either
 loads in the other.  A resume goes through ``solve(u0=...)``.
+
+Under a plan (``plan=``; JAX ``_to_host``, utils/checkpoint.py:31-76) the
+level-0 state is the ranks' row blocks: ``save`` gathers it (every rank
+calls it, a collective) and rank 0 writes the whole grid; ``load`` gives
+each rank its block of it (``DistLevelOps.block_of``'s rows, the pad row
+0), which ``solve(u0=...)`` under the same plan resumes from.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from multigrid_petsc_tpu_torch.utils.config import not_ported
+from multigrid_petsc_tpu_torch.hierarchy import build_hierarchy
+from multigrid_petsc_tpu_torch.parallel.gather import gather_solution
 
 
 def _fingerprint(cfg) -> str:
@@ -31,18 +38,22 @@ def _fingerprint(cfg) -> str:
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
-def save(path: str | Path, cfg, u, rnorm, iters: int) -> None:
+def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
     """Write the checkpoint of level-0 state ``u`` (a tensor or array, a
-    tuple of them on a merged level 0).  In a process group of more than
-    one rank (under a plan) the state is sharded, which this checkpoint
-    does not gather: it raises."""
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise not_ported("a checkpoint of a solve under a plan",
-                         "distribution, the sharding-aware checkpoint")
+    tuple of them on a merged level 0).  Under ``plan`` ``u`` is this
+    rank's row block of a sharded level 0 (``SolveResult.u``): every rank
+    calls ``save``, the blocks are gathered and rank 0 writes."""
     if isinstance(u, (torch.Tensor, np.ndarray)):
         u = (u,)
+    if plan is not None:
+        ny = build_hierarchy(cfg.npts, cfg.grids, cfg.levels)[0].primary.ny
+        if (ny + 1) % plan.size or len(u) != 1:
+            raise ValueError("under a plan the checkpoint holds one "
+                             "row-sharded grid")
+        whole = gather_solution(torch.as_tensor(u[0]), plan, ny)
+        if plan.rank != 0:
+            return
+        u = (whole,)
     arrays = {f"u{i}": (x.detach().cpu().numpy()
                         if isinstance(x, torch.Tensor) else np.asarray(x))
               for i, x in enumerate(u)}
@@ -58,9 +69,10 @@ def save(path: str | Path, cfg, u, rnorm, iters: int) -> None:
     )
 
 
-def load(path: str | Path, cfg):
+def load(path: str | Path, cfg, plan=None):
     """-> (u tuple of numpy arrays, rnorm, iters); raises on a
-    configuration mismatch."""
+    configuration mismatch.  Under ``plan`` u holds this rank's (R, nx)
+    row block of the saved grid (R = (ny + 1) / ranks)."""
     with np.load(Path(path)) as z:
         fp = z["fingerprint"].item()
         fp = fp.decode() if isinstance(fp, bytes) else str(fp)
@@ -70,4 +82,11 @@ def load(path: str | Path, cfg):
             )
         n = int(z["n_grids"])
         u = tuple(z[f"u{i}"] for i in range(n))
+        if plan is not None:
+            ny = u[0].shape[0]
+            R = (ny + 1) // plan.size
+            blk = np.zeros((R, u[0].shape[1]), u[0].dtype)
+            rows = u[0][plan.rank * R:(plan.rank + 1) * R]
+            blk[:rows.shape[0]] = rows
+            u = (blk,)
         return u, z["rnorm"], int(z["iters"])
