@@ -1,20 +1,27 @@
 """One rank of a CPU gloo world for the distributed port's tests
-(test_torch_dist.py, test_torch_dist_solve.py), and the helpers that start
-such a world and read its results (``spawn``, ``finish``, ``load``).  Not
-collected by pytest (no test_ prefix).
+(test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
+test_torch_dist_smoothers.py), and the helpers that start such a world
+and read its results (``spawn``, ``finish``, ``load``).  Not collected
+by pytest (no test_ prefix).
 
     python tests/_dist_worker.py RANK WORLD PORT OUTDIR CONFIGS_JSON
 
 CONFIGS_JSON maps a name to {"cfg": SolverConfig fields (cycle as its
 id, smoothers as their values), "min_local": int, "warm": bool, "view":
-bool}.  Each rank solves every config under ``row_plan(min_local=...)``
-on the CPU and writes OUTDIR/<name>.<rank>.npz: iterations, converged,
-the residual history, the gathered solution and which levels ran
-sharded; with "view" also OUTDIR/<name>.<rank>.view.txt, the solve's
-``view_solver`` dump.  "warm" solves 3 iterations first and restarts from
-that solution (``u0``).  The name "exchange" checks ``edge_exchange`` and
-``allreduce_sum`` instead, and "refuse" records what each case of
-``REFUSALS`` raises, and what a checkpoint under the plan raises.
+bool, "nonsep": bool, "checkpoint": bool}.  Each rank solves every
+config under ``row_plan(min_local=...)`` on the CPU and writes
+OUTDIR/<name>.<rank>.npz: iterations, converged, the residual history,
+the gathered solution, which levels ran sharded and the all-gathers the
+solve made (``parallel.halo.gathers``, as JSON); with "view" also
+OUTDIR/<name>.<rank>.view.txt, the solve's ``view_solver`` dump.
+"warm" solves 3 iterations first and restarts from that solution
+(``u0``); "checkpoint" does the same through a checkpoint under the plan
+(``utils.checkpoint.save`` / ``load``), and records the saved grid and
+the loaded block; "nonsep" multiplies the 9-point centre by
+``nonsep_factor`` (coefficients no sum of an x- and a y-profile gives).
+The name "exchange" checks ``edge_exchange`` and ``allreduce_sum``
+instead, "refuse" records what each case of ``REFUSALS`` raises, and
+"units" runs ``units``: a sharded level's operators on row blocks.
 """
 
 import dataclasses
@@ -35,6 +42,7 @@ from multigrid_petsc_tpu_torch.parallel import (  # noqa: E402
     ShardingPlan,
     allreduce_sum,
     edge_exchange,
+    halo,
     row_plan,
 )
 from multigrid_petsc_tpu_torch.solvers.solve import solve  # noqa: E402
@@ -84,24 +92,33 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
 
 # What a plan refuses: (case, SolverConfig fields) -> the exception raised.
 REFUSALS = {
-    "line_y": dict(smoother="line_y", problem="aniso",
-                   aniso=(1.0, 0.0, 100.0, 0.0, 0.0)),
-    "rbgs": dict(smoother="rbgs"),
-    "line_x": dict(fine_smoother="line_x"),
-    "mgfgmres": dict(cycle=102),
-    "additive": dict(cycle=9),
-    "outer_dtype": dict(dtype="float32", outer_dtype="float64"),
-    "precond_dtype": dict(dtype="float32", precond_dtype="bfloat16"),
     "sparse": dict(backend="sparse"),
+    "D1": dict(cycle=3, levels=1),
+    "I": dict(cycle=1, levels=1),
 }
+
+
+def nonsep_factor(ny: int, nx: int) -> np.ndarray:
+    """1 + 0.25 x y on the uniform (ny, nx) interior grid, f64: a centre
+    multiplied by it is no sum of an x- and a y-profile."""
+    x = np.arange(1, nx + 1) / (nx + 1)
+    y = np.arange(1, ny + 1) / (ny + 1)
+    return 1.0 + 0.25 * y[:, None] * x[None, :]
+
+
+def nonsep_coefficients(fn):
+    """``stencil9_coefficients`` with its centre times ``nonsep_factor``."""
+    def coefficients(prob, ny, nx, dtype, device):
+        st = fn(prob, ny, nx, dtype, device)
+        f = torch.as_tensor(nonsep_factor(ny, nx), dtype=dtype, device=device)
+        return st._replace(cc=st.cc * f)
+
+    return coefficients
 
 
 def refuse(rank: int, out: Path) -> None:
     got = {}
-    cases = {"blocks": lambda: ShardingPlan(layout="blocks"),
-             "checkpoint": lambda: checkpoint.save(
-                 out / f"ck.{rank}.npz", SolverConfig(),
-                 torch.zeros((2, 2)), np.ones(1), 0)}
+    cases = {"blocks": lambda: ShardingPlan(layout="blocks")}
     for case, fields in REFUSALS.items():
         cfg = config(dict(dict(npts=129, grids=4, levels=4, cycle=101),
                           **fields))
@@ -142,6 +159,93 @@ def exchange(rank: int, world: int, plan, out: Path) -> None:
              total=total.numpy())
 
 
+def units(rank: int, world: int, out: Path) -> None:
+    """A sharded level's operators on the ranks' row blocks, from inputs
+    every rank makes alike (numpy, seed 7), gathered and written to
+    OUTDIR/units.<rank>.npz beside those inputs, for the tests to hold
+    against the whole-grid functions: RBGS (2 sweeps, omega 1.2) on
+    blocks of 5 rows (odd: ny = 19) and 8 (ny = 31); Jacobi visits of 8
+    steps on 8-row blocks (a zero-guess rc visit, a correcting ur visit
+    with the coarse level's blocks, in visits of at most 6 steps) and a
+    Chebyshev smooth of 8 steps (one residual per step); the
+    restriction and the prolongation between the sharded 63^2 and 31^2
+    levels and from the sharded 31^2 level to the replicated 15^2 one;
+    two y-line sweeps over the ranks and two x-line sweeps on the blocks
+    of the aniso (1,1,1,2,0.4) 63^2 level."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.ops.stencil import transpose_stencil9
+    from multigrid_petsc_tpu_torch.parallel import DistLevelOps
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+        stencil_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers import smoothers as sm
+
+    rng = np.random.default_rng(7)
+    plan = row_plan(min_local=4, device="cpu")
+    res, inputs = {}, []
+
+    def grid(ny):  # an input, saved as in<i> in the order made
+        inputs.append(rng.standard_normal((ny, ny)))
+        res[f"in{len(inputs) - 1}"] = inputs[-1]
+        return torch.as_tensor(inputs[-1])
+
+    def ops(st, ny, k=8):
+        return DistLevelOps(st, ny, ny, plan, k)
+
+    def whole(d, x, coarse=False):
+        n = (d.ny - 1) // 2 if coarse else d.ny
+        return all_gather(x, plan)[:n]
+
+    for ny in (19, 31):
+        st = stencil_coefficients(MeshType(1), ny, ny, torch.float64, "cpu")
+        d = ops(st, ny)
+        d.setup_rbgs(1.2)
+        b, u = grid(ny), grid(ny)
+        res[f"rbgs{ny}"] = whole(d, d.rbgs(d.block_of(b), d.block_of(u), 2))
+    st31 = stencil_coefficients(MeshType(1), 31, 31, torch.float64, "cpu")
+    d31 = ops(st31, 31)
+    b, u, e = grid(31), grid(31), grid(15)
+    e_blk = torch.cat([e, e.new_zeros((1, 15))])[rank * 4:(rank + 1) * 4]
+    jac = sm.jacobi_step_coeffs(8, 0.8)
+    uo, rc = d31.visit_down(d31.block_of(b), None, jac)
+    res["rc0_u"], res["rc0_rc"] = whole(d31, uo), whole(d31, rc, True)
+    uo, r = d31.visit_up(d31.block_of(b), d31.block_of(u), e_blk, jac, True)
+    res["ur_u"], res["ur_r"] = whole(d31, uo), whole(d31, r)
+    cheb = sm.chebyshev_step_coeffs(8, 1.9)
+    res["cheb"] = whole(d31, d31.smooth(d31.block_of(b), d31.block_of(u),
+                                        cheb))
+    st63 = stencil_coefficients(MeshType(1), 63, 63, torch.float64, "cpu")
+    d63 = ops(st63, 63, 3)
+    r, e = grid(63), grid(31)
+    res["restrict63"] = whole(d63, d63.restrict(d63.block_of(r)), True)
+    res["prolong63"] = whole(d63, d63.prolong(d31.block_of(e)))
+    r, e = grid(31), grid(15)
+    res["agglomerate31"] = d31.gather_coarse(d31.restrict(d31.block_of(r)))
+    res["prolong31"] = whole(d31, d31.prolong(e))
+    st9 = stencil9_coefficients(AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), 63, 63,
+                                torch.float64, "cpu")
+    d9 = ops(st9, 63, 3)
+    line = lk.collapse_stencil(st9)
+    d9.setup_line_y(line)
+    d9.setup_line_x(lk.collapse_stencil(transpose_stencil9(st9)))
+    b, u = grid(63), grid(63)
+    res["line_y"] = whole(d9, d9.line_y_sweeps(d9.block_of(b),
+                                               d9.block_of(u), 2, 0.8))
+    res["line_x"] = whole(d9, d9.line_x_sweeps(d9.block_of(b),
+                                               d9.block_of(u), 2, 0.8))
+    np.savez(out / f"units.{rank}.npz",
+             **{k: np.asarray(v) for k, v in res.items()})
+
+
+def all_gather(x, plan):
+    from multigrid_petsc_tpu_torch.parallel.halo import all_gather_rows
+
+    return all_gather_rows(x, plan, "solution")
+
+
 def main() -> None:
     rank, world, port = (int(a) for a in sys.argv[1:4])
     out = Path(sys.argv[4])
@@ -158,19 +262,37 @@ def main() -> None:
             if name == "refuse":
                 refuse(rank, out)
                 continue
+            if name == "units":
+                units(rank, world, out)
+                continue
             plan = row_plan(min_local=spec["min_local"], device="cpu")
             cfg = config(spec["cfg"])
-            u0 = None
-            if spec.get("warm"):
+            if spec.get("nonsep"):
+                import multigrid_petsc_tpu_torch.solvers.context as context
+
+                context.stencil9_coefficients = nonsep_coefficients(
+                    context.stencil9_coefficients)
+            u0, extra = None, {}
+            if spec.get("warm") or spec.get("checkpoint"):
                 part = solve(dataclasses.replace(cfg, max_iter=3), plan=plan)
                 u0 = part.u_fine
                 assert not part.converged
+            if spec.get("checkpoint"):
+                path = out / f"{name}.ck.npz"
+                checkpoint.save(path, cfg, part.u, part.rnorm, part.iters,
+                                plan=plan)
+                dist.barrier()
+                (u0,), rn, its = checkpoint.load(path, cfg, plan=plan)
+                extra = dict(saved=np.load(path)["u0"], part_u=part.u_fine,
+                             block=u0, part_iters=its)
+            halo.gathers.clear()
             res = solve(cfg, plan=plan, u0=u0)
+            gathers = json.dumps(dict(halo.gathers))
             np.savez(out / f"{name}.{rank}.npz", iters=res.iters,
                      converged=res.converged, rnorm=res.rnorm,
                      u=res.u_fine, path=res.path, route=str(res.route),
                      dist=[lv.dist is not None for lv in res.ctx.levels],
-                     block_rows=res.u.shape[0])
+                     block_rows=res.u.shape[0], gathers=gathers, **extra)
             if spec.get("view"):
                 (out / f"{name}.{rank}.view.txt").write_text(
                     view_solver(res.ctx))

@@ -4,7 +4,8 @@ version on the 5-point stencil against JAX's ``DistLevelOps`` in interpret
 mode on the conftest's 8-device row mesh, every emit; a 4-rank gloo world
 (``_dist_worker.py``, started once for the module and run beside the
 kernel tests) for ``edge_exchange`` / ``allreduce_sum``, what a plan
-refuses, and the V-cycle and mg-CG solves against JAX's 4-device row-plan
+refuses (the blocks layout, the merged-grid cycles, the sparse backend),
+and the V-cycle and mg-CG solves against JAX's 4-device row-plan
 solves.
 
 The port's side of a K17 case cuts the grid, padded by its one pad row,
@@ -43,6 +44,7 @@ from multigrid_petsc_tpu_torch.parallel.dist_ops import (
     DistLevelOps,
     dist_viable,
 )
+from multigrid_petsc_tpu_torch.parallel.halo import edge_exchange
 
 torch.set_num_threads(2)
 
@@ -79,9 +81,10 @@ def jax_visit(st, ny, nx, emit, u, b, e, tile_cap=None):
     return [np.asarray(o) for o in out]
 
 
-def port_visit(st, ny, emit, u, b, e, P=NDEV):
+def port_visit(st, ny, emit, u, b, e, P=NDEV, numpy=True):
     """K17's plain version on P row blocks of the padded inputs, halos cut
-    from the neighbour blocks; the stitched outputs."""
+    from the neighbour blocks; the stitched outputs (as tensors with
+    ``numpy=False``)."""
     R = (ny + 1) // P
     steps = () if emit in ("a", "r") else STEPS
     kind = {"rc0": "rc", "correct_u": "u", "correct_ur": "ur"}.get(emit, emit)
@@ -111,8 +114,8 @@ def port_visit(st, ny, emit, u, b, e, P=NDEV):
             e_halo=halo(t["e"], p, R // 2, dk.coarse_halo_rows(h))
             if e_blk is not None else None)
         outs.append(out if isinstance(out, tuple) else (out,))
-    return [torch.cat([o[i] for o in outs]).numpy()
-            for i in range(len(outs[0]))]
+    outs = [torch.cat([o[i] for o in outs]) for i in range(len(outs[0]))]
+    return [o.numpy() for o in outs] if numpy else outs
 
 
 def check_visit(jst, tst, ny, nx, emit, seed, tile_cap=None, nine=False):
@@ -201,12 +204,18 @@ class _Plan4:
 
 def test_k17_rejects_a_halo_past_the_block():
     """Rows come from the immediate neighbours only: 5 steps need 5 halo
-    rows, which a 4-row block cannot give."""
+    rows, which a 4-row block cannot give.  One K17 visit of them raises
+    (as its exchange does); the level's operators know the block cannot
+    carry them (``viable``), and run such visits in pieces instead
+    (test_torch_dist_smoothers.py holds the pieces to one whole visit)."""
     st = from_numpy_stencil([np.ones(15)] * 5, "cpu", torch.float64)
     u = torch.zeros(4, 15, dtype=torch.float64)
+    ops = DistLevelOps(st, 15, 15, _Plan4(), 5)
+    assert not ops.viable
     with pytest.raises(ValueError, match="exceeds"):
-        DistLevelOps(st, 15, 15, _Plan4(), 5).smooth(
-            u, u, jacobi_step_coeffs(5, 0.8))
+        ops._visit(u, u, jacobi_step_coeffs(5, 0.8), "u")
+    with pytest.raises(ValueError, match="exceeds"):
+        edge_exchange(u, 5, _Plan4())
 
 
 def test_dist_viable_matches_jax():
@@ -233,12 +242,12 @@ def test_edge_exchange_and_allreduce(world):
         assert float(d["total"]) == sum(range(1, dw.WORLD + 1))
 
 
-@pytest.mark.parametrize("case", ["blocks", "checkpoint", *dw.REFUSALS])
+@pytest.mark.parametrize("case", ["blocks", *dw.REFUSALS])
 def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
-    ROADMAP (the sparse backend: JAX's ValueError), on every rank: a
-    row-sharded RBGS or line level, and a checkpoint of a sharded
-    state."""
+    ROADMAP (the sparse backend: JAX's ValueError), on every rank: the
+    blocks layout and the merged-grid cycles (D1, I), which name their
+    item."""
     out = world()
     got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
            for r in range(dw.WORLD)}
@@ -248,6 +257,9 @@ def test_plan_refuses(world, case):
         assert msg.startswith("ValueError") and "single-device" in msg
     else:
         assert msg.startswith("NotImplementedError") and "ROADMAP" in msg
+        item = ("the blocks layout" if case == "blocks" else
+                "merged levels and the merged-grid cycles under a plan")
+        assert item in msg, msg
 
 
 @pytest.fixture(scope="module")
