@@ -106,11 +106,26 @@ non-zero):
      of K1-K4 or the fused visits on their levels), error and ms per
      iteration; (c) each of (b) card against CPU at 1025^2; (d)
      ``solve(profile_phases=True)`` at 8193^2; (e) a checkpoint after 2
-     iterations of phase 4's solve, loaded and resumed to convergence.
+     iterations of phase 4's solve, loaded and resumed to convergence;
+ 11. distribution, every single-grid cycle: (a) K15's rank-spanning mode
+     (a row-sharded level's y-lines across the ranks) on row blocks in
+     one process, against one whole-grid plain sweep and the one-card
+     K15, f32 and f64, blocks of 2048 rows of the 8191^2 level (timed)
+     down to 8 rows (8-row segments); (b) 2 ranks sharing the card over
+     gloo at 8193^2 / 11 levels, ``row_plan(min_local=32)``: the mixed
+     outer to a true f64 residual of 1e-8, the bf16 preconditioner (K17
+     in bf16), mg-FGMRES(10) forced 3 blocks, Additive forced 5, an RBGS
+     V-cycle, y-line and x-line mg-CG on the aniso problems, each held to
+     the same config on one card where phases 6, 8 and 10 run it, with
+     its launches (per kernel, per K17 emit) and its all-gathers (none of
+     a sharded level's own rows); (c) the same and mg-CG -v 8,8 card
+     against CPU at 1025^2 / 8 levels, ``min_local=8``.  Phase 2d also
+     holds K17 in bf16 against its plain version on 4 row blocks of the
+     8191^2 level.
 Every path run starts with the launch counters at 0 and reads them right
-after (a rank's counters in its own process).  ``--only 9a,9b,10`` runs
-the build and just those phases (phase 4 first where they read it), and
-prints no result line.  The line before the last two is the kernels' JSON record (times,
+after (a rank's counters in its own process).  ``--only 9a,9b,10,11a,11``
+runs the build and just those phases (phase 4 first where they read
+it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
 result object.  With no CUDA device the script exits non-zero without
 printing it.
@@ -1581,6 +1596,9 @@ def phase_kernels_precision(torch, dev, rec):
         torch.cuda.empty_cache()
         check_ragged_9pt(torch, dev, rec, dt, sfx)
         check_ragged_5pt(torch, dev, rec, dt, sfx)
+    # K17 in bf16 (the bf16 preconditioner's sharded levels), as 9 (a)
+    # holds it in f32.
+    phase_k17(torch, dev, rec, ("bf16",))
 
 
 def phase_parity_precision(torch):
@@ -1751,12 +1769,13 @@ def k17_blocks(torch, x, P, h):
             for p in range(P)]
 
 
-def phase_k17(torch, dev, rec):
+def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
     """9 (a): K17 at full width in one process.  The 8191^2 level, padded
     to 8192 rows, cut into 4 row blocks of 2048 rows on the card, each
     block's halo rows cut from its neighbours; every emit of the 5-point
     visit (Jacobi k = 3) and of the aniso (1,1,1,2,0.4) 9-point visit in
-    f32, the zero-guess rc visit in f64.  The stitched blocks are held to
+    f32 and (phase 2d, ``dtypes=("bf16",)``) bf16, the zero-guess rc visit
+    in f64.  The stitched blocks are held to
     the whole-grid kernel of the same flags (K9 / K12 / K14) and to the
     plain row-block version (TOL_ARRAY of max|plain|); the pad row and the
     coarse pad row must be exactly 0.  Times: one block (block 1), all 4
@@ -1792,16 +1811,18 @@ def phase_k17(torch, dev, rec):
     )
     summary = []
     modes_rec = {}
-    for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64")):
+    types = {"f32": (torch.float32, ""), "f64": (torch.float64, ".f64"),
+             "bf16": (torch.bfloat16, ".bf16")}
+    for dt, sfx in (types[t] for t in dtypes):
         key = "dist_level_visit" + sfx
         rec.setdefault(key, {})
-        isz = 8 if dt == torch.float64 else 4
+        isz = dt.itemsize
         b = torch.randn((n, n), generator=gen, device=dev).to(dt)
         u = torch.randn((n, n), generator=gen, device=dev).to(dt)
         e = torch.randn((nxc, nxc), generator=gen, device=dev).to(dt)
         stencils = [("5-point", stencil_coefficients(MeshType.UNIFORM, n, n,
                                                      dt, dev))]
-        if dt == torch.float32:
+        if dt != torch.float64:
             stencils.append(("9-point (1,1,1,2,0.4)", stencil9_coefficients(
                 AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), n, n, dt, dev)))
         for sname, st in stencils:
@@ -1924,16 +1945,20 @@ def phase_k17(torch, dev, rec):
             del st
         del b, u, e
         torch.cuda.empty_cache()
-    rec["dist_level_visit"]["modes_5pt"] = modes_rec
+    if modes_rec:
+        rec["dist_level_visit"]["modes_5pt"] = modes_rec
     return summary
 
 
 def rank_worker(argv) -> int:
-    """One rank of phase 9's worlds (``chip_smoke.py --rank RANK WORLD
-    PORT DEVICE LABEL OUTDIR JOBS``): joins the gloo group, solves each
-    job under ``row_plan(min_local=32)`` on DEVICE and writes its results
-    to OUTDIR/<job>.<LABEL>.<RANK>.json (rank 0 also the gathered solution
-    of a job with "save_u")."""
+    """One rank of phase 9's and 11's worlds (``chip_smoke.py --rank RANK
+    WORLD PORT DEVICE LABEL OUTDIR JOBS``): joins the gloo group, solves
+    each job under ``row_plan(min_local=...)`` (the job's, default 32) on
+    DEVICE and writes its results to OUTDIR/<job>.<LABEL>.<RANK>.json
+    (rank 0 also the gathered solution of a job with "save_u"): its
+    iterations, history, launches (per kernel and per K17 emit), the
+    all-gathers the solve made (by what they gather, with their bytes),
+    error norms, wall seconds and, with "cert", the true f64 residual."""
     import dataclasses as dc
     from datetime import timedelta
     from pathlib import Path
@@ -1944,8 +1969,9 @@ def rank_worker(argv) -> int:
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel, launches
-    from multigrid_petsc_tpu_torch.parallel import row_plan
+    from multigrid_petsc_tpu_torch.parallel import halo, row_plan
     from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers import krylov as kr
     from multigrid_petsc_tpu_torch.solvers.solve import solve
     from multigrid_petsc_tpu_torch.utils.config import (
         CycleType,
@@ -1961,23 +1987,32 @@ def rank_worker(argv) -> int:
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=P9_TIMEOUT))
     try:
-        plan = row_plan(min_local=32, device=device)
-        cuda = plan.device.type == "cuda"
         for job in jobs:
+            plan = row_plan(min_local=job.get("min_local", 32),
+                            device=device)
+            cuda = plan.device.type == "cuda"
             f = dict(job["cfg"], cycle=CycleType(job["cfg"]["cycle"]))
-            if "smoother" in f:
-                f["smoother"] = SmootherType(f["smoother"])
-            if "aniso" in f:
-                f["aniso"] = tuple(f["aniso"])
+            for k in ("smoother", "fine_smoother"):
+                if k in f:
+                    f[k] = SmootherType(f[k])
+            for k in ("aniso", "v"):
+                if k in f:
+                    f[k] = tuple(f[k])
             cfg = SolverConfig(**f)
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             launches.clear()
             dist_kernel.emits.clear()
+            halo.gathers.clear()
+            halo.gathered_bytes.clear()
             res = solve(cfg, plan=plan)
             counts = dict(launches)
             emits = dict(dist_kernel.emits)
+            gathers = dict(halo.gathers)
+            gathered = dict(halo.gathered_bytes)
+            true = (kr.true_relative_residual(res.ctx, res.u)
+                    if job.get("cert") else None)
             u = res.u_fine  # gathered from both ranks
             errs = error_norms(res.ctx.problem, MeshType(cfg.mesh),
                                torch.as_tensor(u))
@@ -1992,7 +2027,8 @@ def rank_worker(argv) -> int:
             rep = dict(iters=res.iters, converged=res.converged,
                        path=res.path, route=res.route,
                        rnorm=res.rnorm.tolist(), counts=counts,
-                       emits=emits,
+                       emits=emits, gathers=gathers, gathered=gathered,
+                       true=true,
                        dist=[lv.dist is not None for lv in res.ctx.levels],
                        errs=list(errs), wall=res.wall_time, ms=ms,
                        transport=plan.transport,
@@ -2020,6 +2056,26 @@ def start_world(jobs, device, label, out):
          str(port), device, label, str(out), json.dumps(jobs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(P9_RANKS)]
+
+
+def run_worlds(worlds, out):
+    """Start each (jobs, device, label) world side by side, wait for all;
+    a failed world leaves no rank of any running."""
+    procs = [(start_world(j, d, lab, out), lab) for j, d, lab in worlds]
+    try:
+        for ps, lab in procs:
+            finish_world(ps, f"{lab} world")
+    finally:
+        for ps, _ in procs:
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def world_results(out, name, label):
+    return [json.loads((out / f"{name}.{label}.{r}.json").read_text())
+            for r in range(P9_RANKS)]
 
 
 def finish_world(procs, label):
@@ -2068,20 +2124,11 @@ def phase_dist(torch, main_ref):
                  *parity]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
-        cpu = start_world(parity, "cpu", "cpu", out)
-        card = start_world(card_jobs, "cuda", "card", out)
-        try:
-            finish_world(card, "card world")
-            finish_world(cpu, "cpu world")
-        finally:  # a failed world leaves no rank of either running
-            for p in card + cpu:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        run_worlds([(card_jobs, "cuda", "card"), (parity, "cpu", "cpu")],
+                   out)
 
         def ranks(name, label):
-            return [json.loads((out / f"{name}.{label}.{r}.json")
-                               .read_text()) for r in range(P9_RANKS)]
+            return world_results(out, name, label)
 
         res = ranks("poisson", "card")
         r0 = res[0]
@@ -2392,11 +2439,286 @@ def run_phase10(torch, main_ref):
     timed_phase(torch, "10 (e)", phase_checkpoint, main_ref)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: distribution, every single-grid cycle.
+# ---------------------------------------------------------------------------
+
+# (a): the rank-spanning K15 on (n, row blocks, timed): 2048-row blocks of
+# the 8191^2 level (32-row segments), 256-row blocks, and blocks of 16
+# and 8 rows (16- and 8-row segments).
+P11_LINE_SHAPES = ((8191, 4, True), (1023, 4, False), (63, 4, False),
+                   (31, 4, False), (15, 2, False))
+P11_OMEGA = 0.8
+
+
+def line_row_sweep(torch, lk, st, b, u, P):
+    """One rank-spanning y-line sweep (K15) of the (ny, nx) level (b, u),
+    its pad row appended, cut into P row blocks in one process as P ranks
+    run it: ``line_rows_begin`` on every block, the outputs stacked in
+    rank order (the all-gather), ``line_rows_end`` on every block; the
+    stitched (ny + 1, nx) result.  Returns (sweep, the blocks' RowLines)."""
+    from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
+
+    ny, nx = b.shape
+    R = (ny + 1) // P
+    bp = torch.cat([b, b.new_zeros((1, nx))])
+    up = torch.cat([u, u.new_zeros((1, nx))])
+    zero = u.new_zeros((1, nx))
+    lfs = [lk.row_line(st, ny, R, p * R) for p in range(P)]
+    blocks = [(bp[p * R:(p + 1) * R], up[p * R:(p + 1) * R],
+               Halo(up[p * R - 1:p * R] if p else zero,
+                    up[(p + 1) * R:(p + 1) * R + 1] if p < P - 1 else zero))
+              for p in range(P)]
+
+    def sweep():
+        every = torch.cat([lk.line_rows_begin(lf, *blk)
+                           for lf, blk in zip(lfs, blocks)])
+        return torch.cat([lk.line_rows_end(lf, *blk, every, P11_OMEGA)
+                          for lf, blk in zip(lfs, blocks)])
+
+    return sweep, lfs
+
+
+def phase_line_rows(torch, dev, rec):
+    """11 (a): K15's rank-spanning mode (a row-sharded level's y-lines,
+    which cross the ranks), its blocks run in one process as the ranks run
+    them, the all-gather of the segment carries a concatenation: one
+    sweep of the stitched blocks against one sweep of the whole-grid plain
+    version (``line_visit9_plain``: PCR over the whole columns) and of the
+    one-card K15, TOL_LINE of max|plain|, on aniso (1,0,100,0,0) (the
+    packed per-row table) and (1,1,1,2,0.4) (an x-varying centre: factor
+    fields) in f32 and f64, on P11_LINE_SHAPES; the pad row exactly 0.
+    Timed at 8191^2 in f32 on the strong-y stencil: the 4 blocks' sweep
+    (both halves, the carry pass on every block as every rank runs it)
+    against the whole-grid plain sweep; the bound counts a sweep's three
+    arrays (b and u read, u written)."""
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64")):
+        key = "line_visit9_rows" + sfx
+        rec.setdefault(key, {})
+        for n, P, timed in P11_LINE_SHAPES:
+            for pname, prob in (("(1,0,100,0,0)", (1.0, 0.0, 100.0, 0.0,
+                                                   0.0)),
+                                ("(1,1,1,2,0.4)", (1.0, 1.0, 1.0, 2.0,
+                                                   0.4))):
+                if n > 1023 and (dt == torch.float64 or prob[1]):
+                    continue  # the full-width level: f32, table mode
+                line = lk.collapse_stencil(stencil9_coefficients(
+                    AnisoProblem(*prob), n, n, dt, dev))
+                b = torch.randn((n, n), generator=gen, device=dev).to(dt)
+                u = torch.randn((n, n), generator=gen, device=dev).to(dt)
+                sweep, lfs = line_row_sweep(torch, lk, line, b, u, P)
+                label = (f"K15 rank-spanning sweep aniso {pname} {n}^2, {P} "
+                         f"blocks of {(n + 1) // P} rows ({lfs[0].seg}-row "
+                         f"segments), {str(dt).replace('torch.', '')}")
+                print(label)
+                got = sweep()
+                assert bool((got[-1] == 0).all()), f"{label}: pad row"
+                want = lk.line_visit9_plain(line, b, u, 1, P11_OMEGA)
+                compare(torch, "vs whole-grid plain (PCR)", got[:n], want,
+                        rec[key], TOL_LINE)
+                fac = lk.line_factor(line, n)
+
+                def one_card():
+                    return lk.line_visit9(line, b, u, 1, P11_OMEGA, fac=fac)
+
+                compare(torch, "vs one-card K15", got[:n], one_card(), {},
+                        TOL_LINE)
+                if timed:
+                    ms = time_ms(torch, sweep)
+                    pms = time_ms(torch, lambda: lk.line_visit9_plain(
+                        line, b, u, 1, P11_OMEGA))
+                    oms = time_ms(torch, one_card)
+                    nbytes = 3 * n * n * dt.itemsize
+                    print(f"  {label}: {P} blocks {ms:.4f} ms "
+                          f"({nbytes / ms / 1e6:.1f} GB/s effective), one-"
+                          f"card K15 sweep {oms:.4f} ms, plain {pms:.4f} "
+                          f"ms; bound {1e3 * nbytes / HBM_PEAK:.4f} ms")
+                    keep_time(rec[key], ms, pms, nbytes, 20 * n * n)
+                del got, want, b, u, line, sweep, lfs, fac
+                torch.cuda.empty_cache()
+
+
+def p11_configs(npts: int):
+    """Phase 11's solves at ``npts`` (f32 levels): name -> (config, job
+    extras, the one-card phase that runs the same config at 8193^2)."""
+    L = npts.bit_length() - 3
+    base = dict(npts=npts, grids=L, levels=L, dtype="float32", rtol=1e-5,
+                max_iter=100)
+    forced = dict(rtol=1e-30, divtol=1e30)
+    return {
+        "mixed": (dict(base, cycle=101, outer_dtype="float64", rtol=1e-8),
+                  {"cert": True}, "8 (a)"),
+        "bf16": (dict(base, cycle=101, precond_dtype="bfloat16"), {}, None),
+        "fgmres": (dict(base, cycle=102, fgmres_restart=10, max_iter=3,
+                        **forced), {}, None),
+        "additive": (dict(base, cycle=9, max_iter=5, **forced), {}, None),
+        "rbgs": (dict(base, cycle=0, smoother="rbgs", max_iter=5), {},
+                 "10 (b)"),
+        "line_y": (dict(base, cycle=101, problem="aniso",
+                        aniso=[1.0, 0.0, 100.0, 0.0, 0.0],
+                        smoother="line_y"), {}, "6 (b)"),
+        "line_x": (dict(base, cycle=101, problem="aniso",
+                        aniso=list(X_STRONG), smoother="line_x"), {},
+                   "10 (b)"),
+    }
+
+
+def one_card_reference(torch, fields):
+    """A phase-11 config solved on the card in this process: (iters,
+    max error)."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils.config import (
+        CycleType,
+        SmootherType,
+        SolverConfig,
+    )
+
+    f = dict(fields, cycle=CycleType(fields["cycle"]))
+    if "smoother" in f:
+        f["smoother"] = SmootherType(f["smoother"])
+    if "aniso" in f:
+        f["aniso"] = tuple(f["aniso"])
+    cfg = SolverConfig(**f)
+    res = solve(cfg, device="cuda")
+    err = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)[0]
+    out = (res.iters, float(err))
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_cycles(torch):
+    """11 (b): every single-grid cycle, smoother and precision outer under
+    the row partition at full width: 2 ranks sharing the card over gloo
+    (as phase 9 (b)), 8193^2 / 11 levels, f32, ``row_plan(min_local=32)``:
+    the mixed outer to a true f64 residual of 1e-8, the bf16
+    preconditioner (mg-CG to 1e-5), mg-FGMRES(10) forced 3 blocks,
+    Additive forced 5, an RBGS V-cycle (10 (b)'s, 5), aniso (1,0,100,0,0)
+    y-line mg-CG (6 (b)'s) and aniso (100,0,1,0,0) x-line mg-CG (10 (b)'s).
+    Each: its iterations, error, launches per kernel and per K17 emit, the
+    all-gathers it made (only onto replicated levels and the y-lines'
+    carries, with their bytes), ms per iteration (two ranks share one
+    card: not a speed figure); held to the one-card solve of the same
+    config in this process where phase 6, 8 or 10 runs it (iterations
+    within 1, error <= 1.1x).  (c): card against CPU at 1025^2 / 8
+    levels, ``min_local=8``, the same configs and mg-CG -v 8,8 (its
+    8-row blocks take K17 in pieces): equal iterations (the bf16
+    preconditioner within 1, as phase 3d holds it).  Returns the
+    launches the kernels' record takes: K17 bf16 (the bf16 run, rank 0)
+    and the rank-spanning K15 (the y-line run, rank 0)."""
+    import tempfile
+    from pathlib import Path
+
+    big = p11_configs(P9_N)
+    small = p11_configs(P9_SMALL)
+    Ls = P9_SMALL.bit_length() - 3
+    small["v88"] = (dict(npts=P9_SMALL, grids=Ls, levels=Ls,
+                         dtype="float32", rtol=1e-5, max_iter=100,
+                         cycle=101, v=[8, 8]), {}, None)
+    refs = {}
+    for name, (f, _, phase) in big.items():
+        if phase is not None:
+            refs[name] = one_card_reference(torch, f)
+            print(f"11 (b) one-card reference {name} (phase {phase}'s "
+                  f"config): iters {refs[name][0]}, max error "
+                  f"{refs[name][1]:.6e}")
+    card_jobs = [dict(name=n, cfg=f, **x) for n, (f, x, _) in big.items()]
+    par_jobs = [dict(name=n, cfg=f, min_local=8, **x)
+                for n, (f, x, _) in small.items()]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        run_worlds([(par_jobs, "cpu", "cpu"), (card_jobs, "cuda", "card"),
+                    (par_jobs, "cuda", "card1025")], out)
+        got = {}
+        for name, (f, x, phase) in big.items():
+            res = world_results(out, name, "card")
+            r0 = res[0]
+            iters = r0["iters"]
+            ms = 1e3 * r0["wall"] / max(iters, 1)
+            print(f"11 (b) {name} {P9_N}^2/{f['levels']} levels, {P9_RANKS} "
+                  f"ranks sharing one card: iters {iters}, converged "
+                  f"{r0['converged']}, path {r0['path']}, max error "
+                  f"{r0['errs'][0]:.6e}"
+                  + (f", true f64 residual {r0['true']:.6e}"
+                     if r0["true"] is not None else "")
+                  + f"; {ms:.3f} ms per iteration (not a speed figure)")
+            print(f"  residual history {r0['rnorm']}")
+            print(f"  sharded levels {r0['dist']}")
+            for r, x_ in enumerate(res):
+                print(f"  rank {r}: launches {x_['counts']}; K17 per emit "
+                      f"{x_['emits']}; all-gathers {x_['gathers']} "
+                      f"({x_['gathered']} B sent)")
+            for x_ in res:
+                assert x_["path"] == "cuda"
+                assert x_["iters"] == iters and x_["rnorm"] == r0["rnorm"]
+                k17 = "dist_level_visit" + (".bf16" if name == "bf16"
+                                            else "")
+                assert x_["counts"].get("dist_level_visit", 0) > 0, name
+                assert x_["counts"].get(k17, 0) > 0, f"{name}: {k17}"
+                assert set(x_["gathers"]) <= {"agglomerate", "line"}, (
+                    f"{name}: {x_['gathers']}")
+                if name == "line_y":
+                    assert x_["counts"].get("line_visit9_rows", 0) > 0
+                    assert x_["gathers"].get("line", 0) > 0
+            assert all(r0["dist"][:L9_SHARDED]), r0["dist"]
+            assert all(map(lambda e: e == e, r0["errs"])), r0["errs"]
+            if name == "mixed":
+                assert r0["true"] <= 1e-8, r0["true"]
+            if name in ("fgmres", "additive"):
+                assert iters == f["max_iter"], iters
+            elif name != "rbgs":
+                assert r0["converged"], name
+            if name == "bf16":
+                assert r0["errs"][0] <= 1e-2, r0["errs"]
+            if name in refs:
+                ri, re_ = refs[name]
+                assert abs(iters - ri) <= 1, (name, iters, ri)
+                assert r0["errs"][0] <= 1.1 * re_, (name, r0["errs"], re_)
+            got[name] = r0["counts"]
+        for name, (f, x, _) in small.items():
+            g = world_results(out, name, "card1025")[0]
+            c = world_results(out, name, "cpu")[0]
+            print(f"11 (c) {name} {P9_SMALL}^2/{Ls} levels, min_local 8, "
+                  f"{P9_RANKS} ranks: iters card {g['iters']} cpu "
+                  f"{c['iters']}; max error card {g['errs'][0]:.6e} cpu "
+                  f"{c['errs'][0]:.6e}; sharded levels {g['dist']}; card "
+                  f"launches {g['counts']}; all-gathers {g['gathers']}")
+            assert g["path"] == "cuda" and c["path"] == "torch"
+            assert g["dist"] == c["dist"]
+            slack = 1 if name == "bf16" else 0
+            assert abs(g["iters"] - c["iters"]) <= slack, name
+            assert set(g["gathers"]) <= {"agglomerate", "line"}
+    return {"dist_level_visit.bf16": got["bf16"]["dist_level_visit.bf16"],
+            "line_visit9_rows": got["line_y"]["line_visit9_rows"]}
+
+
+# The levels phase 11 (b)'s plan shards at 8193^2 (min_local 32, 2
+# ranks): 8191 ... 63.
+L9_SHARDED = 8
+
+
+def run_phase11(torch, dev, rec):
+    """Phase 11: distribution, every single-grid cycle."""
+    torch.cuda.empty_cache()
+    timed_phase(torch, "11 (a)", phase_line_rows, dev, rec)
+    return timed_phase(torch, "11 (b), (c)", phase_dist_cycles)
+
+
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
-    named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10),
-    with phase 4 first where they read it; no result line, so a partial
-    run never passes for a whole one."""
+    named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10;
+    11a: K17 in bf16 (phase 2d's check) and 11 (a); 11: phase 11), with
+    phase 4 first where they read it; no result line, so a partial run
+    never passes for a whole one."""
     main_ref = None
     if {"9b", "10"} & set(parts):
         _, u_ref, main_ref = phase_main(torch)
@@ -2410,6 +2732,15 @@ def partial_run(torch, dev, parts) -> int:
         timed_phase(torch, "9 (b), (c)", phase_dist, main_ref)
     if "10" in parts:
         run_phase10(torch, main_ref)
+    if "11a" in parts:
+        rec = {}
+        timed_phase(torch, "2d K17 bf16", phase_k17, dev, rec, ("bf16",))
+        timed_phase(torch, "11 (a)", phase_line_rows, dev, rec)
+        print(json.dumps(rec))
+    if "11" in parts:
+        rec = {}
+        print(run_phase11(torch, dev, rec))
+        print(json.dumps(rec))
     print(f"partial run {parts}: no result line")
     return 0
 
@@ -2505,6 +2836,7 @@ def main() -> int:
     timed_phase(torch, "9 (a)", phase_k17, dev, rec)
     counts.update(timed_phase(torch, "9 (b), (c)", phase_dist, main_ref))
     run_phase10(torch, main_ref)
+    counts.update(run_phase11(torch, dev, rec))
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -2556,6 +2888,11 @@ def main() -> int:
         # (rank 0) and, for f64, 9 (c)'s card run.
         "dist_level_visit": ("visit.cu", "dist_kernel.py:399"),
         "dist_level_visit.f64": ("visit_f64.cu", "dist_kernel.py:399"),
+        # Phase 11's: K17 in bf16 (11 (b)'s bf16 preconditioner run),
+        # K15's rank-spanning mode (11 (b)'s y-line run).
+        "dist_level_visit.bf16": ("visit_rows_bf16.cu",
+                                  "dist_kernel.py:399"),
+        "line_visit9_rows": ("line.cu", "line_kernel.py:208"),
     }
     for k in meta:
         if k not in counts:
