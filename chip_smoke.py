@@ -1973,11 +1973,6 @@ def rank_worker(argv) -> int:
     from multigrid_petsc_tpu_torch.postprocess import error_norms
     from multigrid_petsc_tpu_torch.solvers import krylov as kr
     from multigrid_petsc_tpu_torch.solvers.solve import solve
-    from multigrid_petsc_tpu_torch.utils.config import (
-        CycleType,
-        SmootherType,
-        SolverConfig,
-    )
 
     rank, world, port = (int(a) for a in argv[:3])
     device, label, out = argv[3], argv[4], Path(argv[5])
@@ -1991,14 +1986,7 @@ def rank_worker(argv) -> int:
             plan = row_plan(min_local=job.get("min_local", 32),
                             device=device)
             cuda = plan.device.type == "cuda"
-            f = dict(job["cfg"], cycle=CycleType(job["cfg"]["cycle"]))
-            for k in ("smoother", "fine_smoother"):
-                if k in f:
-                    f[k] = SmootherType(f[k])
-            for k in ("aniso", "v"):
-                if k in f:
-                    f[k] = tuple(f[k])
-            cfg = SolverConfig(**f)
+            cfg = config_of(job["cfg"])
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
@@ -2043,6 +2031,25 @@ def rank_worker(argv) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def config_of(fields):
+    """A SolverConfig from a job's JSON fields (cycle as its id,
+    smoothers as their values, tuples as lists)."""
+    from multigrid_petsc_tpu_torch.utils.config import (
+        CycleType,
+        SmootherType,
+        SolverConfig,
+    )
+
+    f = dict(fields, cycle=CycleType(fields["cycle"]))
+    for k in ("smoother", "fine_smoother"):
+        if k in f:
+            f[k] = SmootherType(f[k])
+    for k in ("aniso", "v"):
+        if k in f:
+            f[k] = tuple(f[k])
+    return SolverConfig(**f)
 
 
 def start_world(jobs, device, label, out):
@@ -2576,18 +2583,8 @@ def one_card_reference(torch, fields):
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.postprocess import error_norms
     from multigrid_petsc_tpu_torch.solvers.solve import solve
-    from multigrid_petsc_tpu_torch.utils.config import (
-        CycleType,
-        SmootherType,
-        SolverConfig,
-    )
 
-    f = dict(fields, cycle=CycleType(fields["cycle"]))
-    if "smoother" in f:
-        f["smoother"] = SmootherType(f["smoother"])
-    if "aniso" in f:
-        f["aniso"] = tuple(f["aniso"])
-    cfg = SolverConfig(**f)
+    cfg = config_of(fields)
     res = solve(cfg, device="cuda")
     err = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)[0]
     out = (res.iters, float(err))
