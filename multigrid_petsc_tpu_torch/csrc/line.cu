@@ -157,15 +157,20 @@ struct RowHalo {
 };
 
 // The sweep's input iterate at (y, x): u (or zero) plus the prolonged
-// correction, zero outside the domain; rows -1 and ny from the halo rows
-// where there are any.
-template <bool GUESS, bool CORRECT, class T>
+// correction, zero outside the domain; ROWS (the rank-spanning mode): rows
+// -1 and ny from the halo rows where there are any.  ROWS is a template
+// flag so that a whole level's kernels compile as they did without it.
+template <bool GUESS, bool CORRECT, bool ROWS, class T>
 __device__ __forceinline__ T iterate_at(const T* u, const T* e,
                                         const RowHalo<T>& hl, int y, int x,
                                         int ny, int nx) {
-  if (x < 0 || x >= nx) return T(0);
-  if (y < 0) return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
-  if (y >= ny) return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
+  if constexpr (ROWS) {
+    if (x < 0 || x >= nx) return T(0);
+    if (y < 0) return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
+    if (y >= ny) return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
+  } else {
+    if (y < 0 || y >= ny || x < 0 || x >= nx) return T(0);
+  }
   T v = GUESS ? u[(size_t)y * nx + x] : T(0);
   if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
   return v;
@@ -177,22 +182,22 @@ __device__ __forceinline__ T iterate_at(const T* u, const T* e,
 // lane loads (xo: the lane's other column; a plain load costs less than a
 // branch) -- or, with a correction, that only the edge lanes form.
 // Every lane of the warp calls it with the same y.
-template <bool GUESS, bool CORRECT, class T>
+template <bool GUESS, bool CORRECT, bool ROWS, class T>
 __device__ __forceinline__ void iterate_row(const T* u, const T* e,
                                             const RowHalo<T>& hl, int y,
                                             int j, int xo, int ny, int nx,
                                             T& w, T& c, T& ea) {
   const int lane = threadIdx.x & 31;
-  c = iterate_at<GUESS, CORRECT>(u, e, hl, y, j, ny, nx);
+  c = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j, ny, nx);
   w = __shfl_up_sync(LANES, c, 1);
   ea = __shfl_down_sync(LANES, c, 1);
   if constexpr (CORRECT) {
     if (lane == 0)
-      w = iterate_at<GUESS, CORRECT>(u, e, hl, y, j - 1, ny, nx);
+      w = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j - 1, ny, nx);
     if (lane == 31)
-      ea = iterate_at<GUESS, CORRECT>(u, e, hl, y, j + 1, ny, nx);
+      ea = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j + 1, ny, nx);
   } else {
-    const T o = iterate_at<GUESS, false>(u, e, hl, y, xo, ny, nx);
+    const T o = iterate_at<GUESS, false, ROWS>(u, e, hl, y, xo, ny, nx);
     w = lane == 0 ? o : w;
     ea = lane == 31 ? o : ea;
   }
@@ -251,12 +256,12 @@ __device__ __forceinline__ T line_rhs(const Rows& r, int i, T bv, T w0, T e0,
 
 // Walk rows y0 .. y0 + seg - 1 of column j (FULL: seg = SEG and all of
 // them lie in the level, so the loop has no row test and its loads can be
-// issued ahead; else those < ny), calling row(i, rhs_i, u_i) with the
-// row's right-hand side and the iterate's own value.  Threads past the
-// last column run along (the shuffles need the whole warp) on a clamped
-// column.
-template <bool FULL, bool GUESS, bool CORRECT, class T, class Rows,
-          class Row>
+// issued ahead; else those < ny; seg is SEG unless ROWS), calling row(i,
+// rhs_i, u_i) with the row's right-hand side and the iterate's own value.
+// Threads past the last column run along (the shuffles need the whole
+// warp) on a clamped column.
+template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, class T,
+          class Rows, class Row>
 __device__ __forceinline__ void segment_rows(const Rows& rows,
                                              const T* __restrict__ b,
                                              const T* u, const T* e,
@@ -270,15 +275,18 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
   T w0 = T(0), c0 = T(0), e0 = T(0), w1 = T(0), c1 = T(0), e1 = T(0);
   T w2 = T(0), c2 = T(0), e2 = T(0);
   if (GUESS) {
-    iterate_row<GUESS, CORRECT>(u, e, hl, y0 - 1, j, xo, ny, nx, w0, c0, e0);
-    iterate_row<GUESS, CORRECT>(u, e, hl, y0, j, xo, ny, nx, w1, c1, e1);
+    iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0 - 1, j, xo, ny, nx, w0,
+                                      c0, e0);
+    iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0, j, xo, ny, nx, w1, c1,
+                                      e1);
   }
 #pragma unroll
   for (int i = 0; i < SEG; ++i) {
-    if (FULL || (i < seg && y0 + i < ny)) {  // the same rows for the warp
+    // The same rows for the whole warp.
+    if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
       if (GUESS)
-        iterate_row<GUESS, CORRECT>(u, e, hl, y0 + i + 1, j, xo, ny, nx, w2,
-                                    c2, e2);
+        iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0 + i + 1, j, xo, ny,
+                                          nx, w2, c2, e2);
       const T bv = col ? bc[(size_t)i * nx] : T(0);
       row(i, line_rhs<GUESS>(rows, i, bv, w0, e0, w1, e1, w2, e2), c1);
       w0 = w1, c0 = c1, e0 = e1;
@@ -295,17 +303,17 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
 // and the thread keeps no array.  CORRECT: it also stores its column of
 // the corrected iterate u + P e (u_corr), which launch 3 then reads as
 // its guess, so the correction is formed once per point.
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB>
+template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS>
 __device__ __forceinline__ void segment_ends(
     const Coeffs9<T>& c, const LineFactor<T>& f, const T* b, const T* u,
     const T* e, const RowHalo<T>& hl, T* ends, T* starts, T* u_corr, int s,
     int seg, int j, int ny, int nx) {
-  const int y0 = s * seg;
+  const int y0 = s * (ROWS ? seg : SEG);
   const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   T* uc = u_corr + (size_t)y0 * nx + j;
   T de = T(0), xs = T(0);
-  segment_rows<FULL, GUESS, CORRECT, T>(rows, b, u, e, hl, y0, seg, j, ny,
-                                        nx,
+  segment_rows<FULL, GUESS, CORRECT, ROWS, T>(rows, b, u, e, hl, y0, seg, j,
+                                              ny, nx,
                                         [&](int i, T rhs, T ui) {
                                           de += rows(R_ENDW, i) * rhs;
                                           xs += rows(R_STARTW, i) * rhs;
@@ -317,7 +325,7 @@ __device__ __forceinline__ void segment_ends(
   starts[(size_t)s * nx + j] = xs;
 }
 
-template <class T, bool GUESS, bool CORRECT, bool TAB>
+template <class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS = false>
 __global__ void __launch_bounds__(ST)
 line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                     const T* __restrict__ u, const T* __restrict__ e,
@@ -325,21 +333,19 @@ line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                     T* __restrict__ starts, T* __restrict__ u_corr, int seg,
                     int ny, int nx) {
   const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
-  if (seg == SEG && (s + 1) * SEG <= ny)
-    segment_ends<true, T, GUESS, CORRECT, TAB>(c, f, b, u, e, hl, ends,
-                                              starts, u_corr, s, seg, j, ny,
-                                              nx);
+  if ((!ROWS || seg == SEG) && (s + 1) * SEG <= ny)
+    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS>(
+        c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
   else
-    segment_ends<false, T, GUESS, CORRECT, TAB>(c, f, b, u, e, hl, ends,
-                                               starts, u_corr, s, seg, j, ny,
-                                               nx);
+    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS>(
+        c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
 }
 
 // Launch 2: thread j walks column j's segments.  cin[s] = the true dp on
 // the row above segment s (0 for s = 0); din[s] = the true x on the row
 // below it (0 for the last).  The chain runs in f64; each step's inputs
 // are loaded CB segments ahead so that the loads overlap.
-template <class T>
+template <class T, bool ROWS = false>
 __global__ void __launch_bounds__(CT)
 line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
                   const T* __restrict__ starts, T* __restrict__ cin,
@@ -376,8 +382,8 @@ line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
       const int s = s1 - q;
       if (s > 0) {
         xv[q] = starts[(size_t)s * nx + j];
-        av[q] = fat(f.above, f.sx, s * seg, j, nx);
-        bv[q] = fat(f.below, f.sx, s * seg, j, nx);
+        av[q] = fat(f.above, f.sx, s * (ROWS ? seg : SEG), j, nx);
+        bv[q] = fat(f.below, f.sx, s * (ROWS ? seg : SEG), j, nx);
         cvs[q] = cin[(size_t)s * nx + j];
       }
     }
@@ -393,7 +399,8 @@ line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
   }
 }
 
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB>
+template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
+          bool ROWS>
 __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
                                          const LineFactor<T>& f, const T* b,
                                          const T* u, const T* e,
@@ -401,14 +408,14 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
                                          const T* din, T* u_out, int s,
                                          int seg, int j, int ny, int nx,
                                          T omega, T one_minus_omega) {
-  const int y0 = s * seg;
+  const int y0 = s * (ROWS ? seg : SEG);
   const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   // Thomas's forward recurrence from a zero carry; with a correction the
   // corrected iterate is kept too (it is formed once per point), else the
   // backward pass reloads u (a cache hit: this thread has just read it).
   T dp[SEG], uc[CORRECT ? SEG : 1];
   T d = T(0);
-  segment_rows<FULL, GUESS, CORRECT, T>(
+  segment_rows<FULL, GUESS, CORRECT, ROWS, T>(
       rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, T rhs, T ui) {
         d = (rhs - rows(R_CS, i) * d) * rows(R_M, i);
         dp[i] = d;
@@ -425,7 +432,7 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
   T x = T(0);
 #pragma unroll
   for (int i = SEG - 1; i >= 0; --i) {
-    if (FULL || (i < seg && y0 + i < ny)) {
+    if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
       x = dp[i] - rows(R_CP, i) * x;
       const T ui = CORRECT ? uc[CORRECT ? i : 0]
                    : GUESS ? uo[(size_t)i * nx] : T(0);
@@ -450,7 +457,8 @@ constexpr int fix_min_blocks() {
   return sizeof(T) == 8 ? 2 : 4;
 }
 
-template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB>
+template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
+          bool ROWS = false>
 __global__ void __launch_bounds__(ST, fix_min_blocks<T>())
 line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                 const T* __restrict__ u, const T* __restrict__ e,
@@ -461,11 +469,11 @@ line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
   __shared__ T red[ST / 32];
   const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
   const T acc =
-      seg == SEG && (s + 1) * SEG <= ny
-          ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB>(
+      (!ROWS || seg == SEG) && (s + 1) * SEG <= ny
+          ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS>(
                 c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
                 one_minus_omega)
-          : segment_fix<false, T, GUESS, CORRECT, DOT, TAB>(
+          : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS>(
                 c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
                 one_minus_omega);
   if (DOT) {
@@ -636,8 +644,9 @@ int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
   const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  SegmentFn<T> kern = f.table != nullptr ? pick_segment<T, true>(true, false)
-                                         : pick_segment<T, false>(true, false);
+  SegmentFn<T> kern = f.table != nullptr
+                          ? line_segment_kernel<T, true, false, true, true>
+                          : line_segment_kernel<T, true, false, false, true>;
   kern<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
       c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, ends, starts, nullptr,
       seg, nyl, nx);
@@ -649,8 +658,9 @@ int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
                     const T* ends, const T* starts, T* cin, T* din,
                     int nseg, int nx, void* stream) {
   if (!rows_ok<T>(seg, nseg, 1, nx)) return (int)cudaErrorInvalidValue;
-  line_carry_kernel<T><<<(nx + CT - 1) / CT, CT, 0, (cudaStream_t)stream>>>(
-      line_factor<T>(fptrs, fsx), ends, starts, cin, din, seg, nseg, nx);
+  line_carry_kernel<T, true>
+      <<<(nx + CT - 1) / CT, CT, 0, (cudaStream_t)stream>>>(
+          line_factor<T>(fptrs, fsx), ends, starts, cin, din, seg, nseg, nx);
   return (int)cudaGetLastError();
 }
 
@@ -665,8 +675,10 @@ int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
   const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  FixFn<T> fix = f.table != nullptr ? pick_fix<T, true>(true, false, false)
-                                    : pick_fix<T, false>(true, false, false);
+  FixFn<T> fix =
+      f.table != nullptr
+          ? line_fix_kernel<T, true, false, false, true, true>
+          : line_fix_kernel<T, true, false, false, false, true>;
   fix<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
       c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, cin, din, u_out,
       nullptr, seg, nyl, nx, omega, one_minus_omega);
