@@ -2770,8 +2770,11 @@ def main() -> int:
     print(f"build + load of the CUDA kernels: {time.perf_counter() - t0:.2f} s")
     log = BUILD_DIR / "build.log"
     if log.exists():
-        for line in ptxas_summary(log.read_text()):
+        text = log.read_text()
+        for line in ptxas_summary(text):
             print("  ptxas: " + line)
+        print("  " + "; ".join(ln for ln in text.splitlines()
+                               if ln.startswith("nvcc ")))
     dev = torch.device("cuda")
     # The library yardstick (conv2d) in full f32, as the kernels compute.
     torch.backends.cudnn.allow_tf32 = False
@@ -2878,7 +2881,7 @@ def main() -> int:
         "apply_stencil9.f64": ("visit_f64.cu", "stencil9_kernel.py:178"),
         "residual9.f64": ("visit_f64.cu", "stencil9_kernel.py:211"),
         "fused_level_visit9.f64": ("visit_f64.cu", "stencil9_kernel.py:429"),
-        "line_visit9.f64": ("line.cu", "line_kernel.py:208"),
+        "line_visit9.f64": ("line_f64.cu", "line_kernel.py:208"),
         "visit_down.bf16": ("visit_bf16.cu", "mdma_kernel.py:628"),
         "visit_up.bf16": ("visit_bf16.cu", "mdma_kernel.py:796"),
         # The distribution slice; launches from phase 9 (b)'s Poisson run

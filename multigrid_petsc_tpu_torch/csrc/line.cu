@@ -1,795 +1,12 @@
-// The y-line smoother's level visit (K15) for Hopper (sm_90a), bound
-// through a plain C interface (ctypes), for f32 (mg_line_*) and f64
-// (mg_line_*_f64) levels; the arithmetic runs in the storage type.
-//
-// Replaces multigrid_petsc_tpu/ops/pallas/line_kernel.py
-// (line_visit9_pallas): k damped y-line Jacobi sweeps on a 9-point
-// stencil -- each moves the off-line terms (w, e and the four corners) to
-// the right-hand side from the previous iterate, solves the tridiagonal
-// (cs, cc, cn) system of every column and blends
-// u <- (1 - omega) u + omega u_line -- then the residual and its
-// full-weighting restriction, the residual alone, or <b, u>.  A coarse
-// correction u + P e is applied while the first sweep reads u.
-//
-// What bounds it on the H100: bytes, once the line solves keep enough
-// threads busy.  The TPU kernel holds a whole level (up to ~1023^2) in
-// VMEM; here a sweep couples all of a column's rows (the tridiagonal
-// solve) and its neighbouring columns (the off-line terms from the
-// previous sweep), and a column of an 8191^2 level is far larger than a
-// block's shared memory, so each sweep is its own launches and reads the
-// previous iterate from device memory.
-//
-// The solve is Thomas's recurrence with per-row factors made once per
-// level on the host in f64 (m_i = 1 / (d_i - a_i cp_{i-1}),
-// cp_i = c_i m_i), cut into segments of SEG rows so that ~nx * ny / SEG
-// threads share the work (2.1 M at 8191^2).  Both recurrences are linear
-// in their carry:
-//   forward  dp_i = (rhs_i - a_i dp_{i-1}) m_i
-//   backward x_i  = dp_i - cp_i x_{i+1}
-// so a segment run from zero carries (dpl, then xl) is fixed up by
-//   x_i = xl_i + C * above_i + D * below_i
-// with C the true dp just above the segment, D the true x just below it,
-// and above / below the segment's responses to a unit C / D (products of
-// the fixed factors -a_i m_i and -cp_i), made on the host in f64 beside
-// m and cp, as is `gain`, C's multiplier across a whole segment.  One
-// sweep is three launches:
-//   1. line_segment_kernel: each (column, segment) thread forms its rows'
-//      right-hand sides and writes only two values, dpl at the segment's
-//      end and xl at its start; both are linear in the right-hand side,
-//      with per-row weights made on the host in f64 (end_w, start_w), so
-//      the thread keeps two running sums and no array;
-//   2. line_carry_kernel: one thread per column walks the segments, C down
-//      (C_{s+1} = dpl_end_s + gain_s C_s) then D up (D_{s-1} = x at
-//      segment s's first row), in f64;
-//   3. line_fix_kernel: the thread runs its segment again (the same
-//      reads as 1.) through the forward recurrence, then back up through
-//      the backward one, fixes it up with C and D, blends and stores,
-//      with the <b, u> partials.
-// A level of one segment (the coarse levels, <= SEG rows) is launch 3
-// alone with C = D = 0.  This is the segmented linear scan and not the
-// partition (SPIKE) method: the pivots stay the whole column's, made in
-// f64 as before, so each row runs today's Thomas arithmetic and config
-// 4's nearly singular lines lose no accuracy; the carries add one f64
-// pass over nx * ny / SEG values.  Launches 1 and 3 each read b and the
-// previous iterate once (the iterate's row is loaded once per column and
-// its neighbours come by warp shuffles); 3 writes u: five arrays per sweep
-// against the three a sweep must move, traded for not storing dpl in a
-// full-size pass.  A coarse correction is formed once per point, in
-// launch 1, which stores the corrected iterate for launch 3 (one more
-// array on the correcting sweep).
-//
-// After the sweeps, the residual and its restriction run on 32 x 64
-// tiles of u staged in shared memory (one read of b and u).
-//
-// Registers: launch 3 keeps its segment's dp (SEG values of T; with a
-// correction, the corrected iterate too); launch 1 keeps no array
-// (`-Xptxas -v` in the build log prints the count per kernel).
-//
-// The rank-spanning mode (mg_line_rows_*): a row-sharded level's columns
-// run across the ranks' row blocks, so its lines cross the ranks.  The
-// segments are laid on the global rows (seg rows each, seg the largest
-// power of two <= SEG that divides the block, so no segment straddles two
-// ranks), and the three launches are split around the one exchange the
-// carries need: each rank runs launch 1 on its own segments, from its
-// block, its iterate's row above and below (from the neighbours) and the
-// factors of its rows; the ranks all-gather the segment ends (the caller,
-// over torch.distributed); every rank runs launch 2 over all the
-// segments with the whole level's factors (redundantly, as the reference
-// runs a replicated coarse level), then launch 3 on its own segments with
-// their slice of the carries.  No transpose of the level and no chain
-// through the ranks: the carries move nx * ny / seg * 2 values a sweep.
+// The f32 instantiations of the y-line visit (K15, line.cuh): mg_line_sweep,
+// mg_line_residual and the rank-spanning mode's mg_line_rows_*, and the
+// count of the dot-emitting sweep's partials.
 
-#include <cuda_runtime.h>
+#include "line.cuh"
 
-#include "mg_common.cuh"
-
-namespace {
-
-using mg::Coeffs9;
-using mg::coef_at;
-using mg::prolong_at;
-
-constexpr int SEG = 32;  // rows per segment (one thread's share of a column;
-                         // the rank-spanning mode may run fewer, `seg`)
-constexpr int ST = 128;  // columns (threads) per block of launches 1 and 3
-constexpr int CT = 128;  // columns (threads) per block of the carry launch
-constexpr int CB = 16;   // segments the carry launch loads ahead
-constexpr int RTY = 32, RTX = 64, RT = 256;  // residual tile and threads
-constexpr unsigned LANES = 0xffffffffu;  // every lane of a warp
-
-// The line factors: Thomas's m (1 / pivot) and cp (the eliminated
-// super-diagonal), a segment's responses `above` and `below`, the weights
-// of its zero-carry ends, each per row, and `gain` per segment; columns
-// ((ny, 1), (nseg, 1); sx = 0) or fields ((ny, nx), (nseg, nx); sx = 1).
-template <class T>
-struct LineFactor {
-  const T* m;
-  const T* cp;
-  const T* above;
-  const T* below;
-  const T* gain;
-  const T* end_w;    // dpl at the segment's last row = sum end_w_i rhs_i
-  const T* start_w;  // xl at its first row = sum start_w_i rhs_i
-  const T* table;    // null, or every per-row value packed (LineRows)
-  int sx;
-};
-
-// A coefficient or line factor along a thread's column from row y0 on:
-// row y0 + i at p[i * s] (s: 0 for a scalar or an x-row, 1 for a
-// (ny, 1) column, nx for an (ny, nx) field), so a row costs one
-// multiply-add and a load, not a stride computation per coefficient.
-template <class T>
-struct ColView {
-  const T* p;
-  int s;
-  __device__ __forceinline__ T operator[](int i) const {
-    return p[(ptrdiff_t)i * s];
-  }
-};
-
-template <class T>
-__device__ __forceinline__ ColView<T> coef_col(const Coeffs9<T>& c, int q,
-                                               int y0, int x) {
-  return {c.p[q] + (ptrdiff_t)(y0 - c.oy) * c.sy[q] + (ptrdiff_t)x * c.sx[q],
-          c.sy[q]};
-}
-
-// Factor f (m, cp, above, below: (ny, 1) or (ny, nx)) from row y0 on.
-template <class T>
-__device__ __forceinline__ ColView<T> fac_col(const T* f, int sx, int y0,
-                                              int x, int nx) {
-  const int s = sx ? nx : 1;
-  return {f + (ptrdiff_t)y0 * s + (sx ? x : 0), s};
-}
-
-template <class T>
-__device__ __forceinline__ T fat(const T* f, int sx, int y, int x, int nx) {
-  return f[sx ? (size_t)y * nx + x : (size_t)y];
-}
-
-// The iterate's rows just past a rank's block (the rank-spanning mode):
-// the row above its first row and the row below its last, nx values each;
-// null at the domain's edges and on a whole level.
-template <class T>
-struct RowHalo {
-  const T* top;
-  const T* bot;
-};
-
-// The sweep's input iterate at (y, x): u (or zero) plus the prolonged
-// correction, zero outside the domain; ROWS (the rank-spanning mode): rows
-// -1 and ny from the halo rows where there are any.  ROWS is a template
-// flag so that a whole level's kernels compile as they did without it.
-template <bool GUESS, bool CORRECT, bool ROWS, class T>
-__device__ __forceinline__ T iterate_at(const T* u, const T* e,
-                                        const RowHalo<T>& hl, int y, int x,
-                                        int ny, int nx) {
-  if constexpr (ROWS) {
-    if (x < 0 || x >= nx) return T(0);
-    if (y < 0) return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
-    if (y >= ny) return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
-  } else {
-    if (y < 0 || y >= ny || x < 0 || x >= nx) return T(0);
-  }
-  T v = GUESS ? u[(size_t)y * nx + x] : T(0);
-  if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
-  return v;
-}
-
-// Row y of the iterate at columns j - 1, j, j + 1: each lane forms its own
-// column's value once, its neighbours' come by shuffles, and the warp's
-// edge lanes take the one column past the warp from a second value every
-// lane loads (xo: the lane's other column; a plain load costs less than a
-// branch) -- or, with a correction, that only the edge lanes form.
-// Every lane of the warp calls it with the same y.
-template <bool GUESS, bool CORRECT, bool ROWS, class T>
-__device__ __forceinline__ void iterate_row(const T* u, const T* e,
-                                            const RowHalo<T>& hl, int y,
-                                            int j, int xo, int ny, int nx,
-                                            T& w, T& c, T& ea) {
-  const int lane = threadIdx.x & 31;
-  c = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j, ny, nx);
-  w = __shfl_up_sync(LANES, c, 1);
-  ea = __shfl_down_sync(LANES, c, 1);
-  if constexpr (CORRECT) {
-    if (lane == 0)
-      w = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j - 1, ny, nx);
-    if (lane == 31)
-      ea = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j + 1, ny, nx);
-  } else {
-    const T o = iterate_at<GUESS, false, ROWS>(u, e, hl, y, xo, ny, nx);
-    w = lane == 0 ? o : w;
-    ea = lane == 31 ? o : ea;
-  }
-}
-
-// The per-row values a segment reads, in the order of a row of the
-// packed table: the off-line coefficients, cs, then the factors.
-enum {
-  R_CW, R_CE, R_CSW, R_CSE, R_CNW, R_CNE, R_CS, R_M, R_CP, R_ABOVE, R_BELOW,
-  R_ENDW, R_STARTW, R_N
-};
-constexpr int TABW = 16;  // values per table row (R_N, padded)
-
-// Value k of row y0 + i of a thread's column.  TAB: every value lies in one
-// row of the packed table (the line stencil and its factors constant along
-// x, BASELINE config 4's case), so a read is a load at a fixed offset
-// from one pointer; else each comes from its own array through its
-// strides (ColView).
-template <class T, bool TAB>
-struct LineRows {
-  const T* tab;
-  ColView<T> v[R_N];
-  __device__ __forceinline__ LineRows(const Coeffs9<T>& c,
-                                      const LineFactor<T>& f, int y0, int jc,
-                                      int nx) {
-    if (TAB) {
-      tab = f.table + (size_t)y0 * TABW;
-      return;
-    }
-    const int q[R_CS + 1] = {mg::CW,  mg::CE,  mg::CSW, mg::CSE,
-                             mg::CNW, mg::CNE, mg::CS};
-#pragma unroll
-    for (int k = 0; k <= R_CS; ++k) v[k] = coef_col(c, q[k], y0, jc);
-    const T* fs[R_N - R_M] = {f.m,     f.cp,    f.above, f.below,
-                              f.end_w, f.start_w};
-#pragma unroll
-    for (int k = R_M; k < R_N; ++k) v[k] = fac_col(fs[k - R_M], f.sx, y0, jc,
-                                                   nx);
-  }
-  __device__ __forceinline__ T operator()(int k, int i) const {
-    return TAB ? tab[i * TABW + k] : v[k][i];
-  }
-};
-
-// The right-hand side of row y0 + i: b minus the off-line terms of the
-// iterate window (rows y0 + i - 1 (0), y0 + i (1), y0 + i + 1 (2) at
-// columns j - 1 (w), j + 1 (e)) in the JAX package's order: w, e, sw, se,
-// nw, ne.
-template <bool GUESS, class T, class Rows>
-__device__ __forceinline__ T line_rhs(const Rows& r, int i, T bv, T w0, T e0,
-                                      T w1, T e1, T w2, T e2) {
-  if (!GUESS) return bv;
-  return bv - (r(R_CW, i) * w1 + r(R_CE, i) * e1 + r(R_CSW, i) * w0 +
-               r(R_CSE, i) * e0 + r(R_CNW, i) * w2 + r(R_CNE, i) * e2);
-}
-
-// Walk rows y0 .. y0 + seg - 1 of column j (FULL: seg = SEG and all of
-// them lie in the level, so the loop has no row test and its loads can be
-// issued ahead; else those < ny; seg is SEG unless ROWS), calling row(i,
-// rhs_i, u_i) with the row's right-hand side and the iterate's own value.
-// Threads past the last column run along (the shuffles need the whole
-// warp) on a clamped column.
-template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, class T,
-          class Rows, class Row>
-__device__ __forceinline__ void segment_rows(const Rows& rows,
-                                             const T* __restrict__ b,
-                                             const T* u, const T* e,
-                                             const RowHalo<T>& hl, int y0,
-                                             int seg, int j, int ny, int nx,
-                                             Row row) {
-  const bool col = j < nx;
-  const int jc = col ? j : nx - 1;
-  const int xo = (threadIdx.x & 31) == 0 ? j - 1 : j + 1;
-  const T* bc = b + (size_t)y0 * nx + jc;
-  T w0 = T(0), c0 = T(0), e0 = T(0), w1 = T(0), c1 = T(0), e1 = T(0);
-  T w2 = T(0), c2 = T(0), e2 = T(0);
-  if (GUESS) {
-    iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0 - 1, j, xo, ny, nx, w0,
-                                      c0, e0);
-    iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0, j, xo, ny, nx, w1, c1,
-                                      e1);
-  }
-#pragma unroll
-  for (int i = 0; i < SEG; ++i) {
-    // The same rows for the whole warp.
-    if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
-      if (GUESS)
-        iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0 + i + 1, j, xo, ny,
-                                          nx, w2, c2, e2);
-      const T bv = col ? bc[(size_t)i * nx] : T(0);
-      row(i, line_rhs<GUESS>(rows, i, bv, w0, e0, w1, e1, w2, e2), c1);
-      w0 = w1, c0 = c1, e0 = e1;
-      w1 = w2, c1 = c2, e1 = e2;
-    }
-  }
-}
-
-// Launch 1 of a sweep: thread (column j, segment blockIdx.y) forms its
-// rows' right-hand sides and the two values the carries need, dpl at the
-// segment's last row (ends) and xl at its first (starts), (nseg, nx) each.
-// Both are linear in the right-hand side with weights fixed per level
-// (end_w, start_w; made on the host in f64), so they are two running sums
-// and the thread keeps no array.  CORRECT: it also stores its column of
-// the corrected iterate u + P e (u_corr), which launch 3 then reads as
-// its guess, so the correction is formed once per point.
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS>
-__device__ __forceinline__ void segment_ends(
-    const Coeffs9<T>& c, const LineFactor<T>& f, const T* b, const T* u,
-    const T* e, const RowHalo<T>& hl, T* ends, T* starts, T* u_corr, int s,
-    int seg, int j, int ny, int nx) {
-  const int y0 = s * (ROWS ? seg : SEG);
-  const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
-  T* uc = u_corr + (size_t)y0 * nx + j;
-  T de = T(0), xs = T(0);
-  segment_rows<FULL, GUESS, CORRECT, ROWS, T>(rows, b, u, e, hl, y0, seg, j,
-                                              ny, nx,
-                                        [&](int i, T rhs, T ui) {
-                                          de += rows(R_ENDW, i) * rhs;
-                                          xs += rows(R_STARTW, i) * rhs;
-                                          if (CORRECT && j < nx)
-                                            uc[(size_t)i * nx] = ui;
-                                        });
-  if (j >= nx) return;
-  ends[(size_t)s * nx + j] = de;
-  starts[(size_t)s * nx + j] = xs;
-}
-
-template <class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS = false>
-__global__ void __launch_bounds__(ST)
-line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
-                    const T* __restrict__ u, const T* __restrict__ e,
-                    RowHalo<T> hl, T* __restrict__ ends,
-                    T* __restrict__ starts, T* __restrict__ u_corr, int seg,
-                    int ny, int nx) {
-  const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
-  if ((!ROWS || seg == SEG) && (s + 1) * SEG <= ny)
-    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS>(
-        c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
-  else
-    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS>(
-        c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
-}
-
-// Launch 2: thread j walks column j's segments.  cin[s] = the true dp on
-// the row above segment s (0 for s = 0); din[s] = the true x on the row
-// below it (0 for the last).  The chain runs in f64; each step's inputs
-// are loaded CB segments ahead so that the loads overlap.
-template <class T, bool ROWS = false>
-__global__ void __launch_bounds__(CT)
-line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
-                  const T* __restrict__ starts, T* __restrict__ cin,
-                  T* __restrict__ din, int seg, int nseg, int nx) {
-  const int j = blockIdx.x * CT + threadIdx.x;
-  if (j >= nx) return;
-  double cv = 0.0;
-  cin[j] = T(0);
-  for (int s0 = 0; s0 < nseg - 1; s0 += CB) {
-    T ev[CB], gv[CB];
-#pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s0 + q;
-      if (s < nseg - 1) {
-        ev[q] = ends[(size_t)s * nx + j];
-        gv[q] = fat(f.gain, f.sx, s, j, nx);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s0 + q;
-      if (s < nseg - 1) {
-        cv = (double)ev[q] + (double)gv[q] * cv;
-        cin[(size_t)(s + 1) * nx + j] = T(cv);
-      }
-    }
-  }
-  double dv = 0.0;
-  din[(size_t)(nseg - 1) * nx + j] = T(0);
-  for (int s1 = nseg - 1; s1 > 0; s1 -= CB) {
-    T xv[CB], av[CB], bv[CB], cvs[CB];
-#pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s1 - q;
-      if (s > 0) {
-        xv[q] = starts[(size_t)s * nx + j];
-        av[q] = fat(f.above, f.sx, s * (ROWS ? seg : SEG), j, nx);
-        bv[q] = fat(f.below, f.sx, s * (ROWS ? seg : SEG), j, nx);
-        cvs[q] = cin[(size_t)s * nx + j];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s1 - q;
-      if (s > 0) {
-        dv = (double)xv[q] + (double)cvs[q] * (double)av[q] +
-             dv * (double)bv[q];
-        din[(size_t)(s - 1) * nx + j] = T(dv);
-      }
-    }
-  }
-}
-
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS>
-__device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
-                                         const LineFactor<T>& f, const T* b,
-                                         const T* u, const T* e,
-                                         const RowHalo<T>& hl, const T* cin,
-                                         const T* din, T* u_out, int s,
-                                         int seg, int j, int ny, int nx,
-                                         T omega, T one_minus_omega) {
-  const int y0 = s * (ROWS ? seg : SEG);
-  const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
-  // Thomas's forward recurrence from a zero carry; with a correction the
-  // corrected iterate is kept too (it is formed once per point), else the
-  // backward pass reloads u (a cache hit: this thread has just read it).
-  T dp[SEG], uc[CORRECT ? SEG : 1];
-  T d = T(0);
-  segment_rows<FULL, GUESS, CORRECT, ROWS, T>(
-      rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, T rhs, T ui) {
-        d = (rhs - rows(R_CS, i) * d) * rows(R_M, i);
-        dp[i] = d;
-        if (CORRECT) uc[CORRECT ? i : 0] = ui;
-      });
-  T acc = T(0);
-  if (j >= nx) return acc;
-  const size_t sj = (size_t)s * nx + j;
-  const T cv = cin != nullptr ? cin[sj] : T(0);
-  const T dv = din != nullptr ? din[sj] : T(0);
-  T* out = u_out + (size_t)y0 * nx + j;
-  const T* bc = b + (size_t)y0 * nx + j;
-  const T* uo = GUESS ? u + (size_t)y0 * nx + j : nullptr;
-  T x = T(0);
-#pragma unroll
-  for (int i = SEG - 1; i >= 0; --i) {
-    if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
-      x = dp[i] - rows(R_CP, i) * x;
-      const T ui = CORRECT ? uc[CORRECT ? i : 0]
-                   : GUESS ? uo[(size_t)i * nx] : T(0);
-      const T un = one_minus_omega * ui +
-                   omega * (x + cv * rows(R_ABOVE, i) + dv * rows(R_BELOW, i));
-      out[(size_t)i * nx] = un;
-      if (DOT) acc += bc[(size_t)i * nx] * un;
-    }
-  }
-  return acc;
-}
-
-// Launch 3: the segment again, fixed up with its carries (null: a level
-// of one segment, C = D = 0), blended and stored; DOT: <b, u_out>
-// partials, one per block.  u_out must not alias u: neighbouring columns
-// read u while this one is written.
-// Resident blocks per SM launch 3's registers are cut for: four in f32
-// (up to 128 registers: the segment's dp and the loads in flight), two in
-// f64.
-template <class T>
-constexpr int fix_min_blocks() {
-  return sizeof(T) == 8 ? 2 : 4;
-}
-
-template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS = false>
-__global__ void __launch_bounds__(ST, fix_min_blocks<T>())
-line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
-                const T* __restrict__ u, const T* __restrict__ e,
-                RowHalo<T> hl, const T* __restrict__ cin,
-                const T* __restrict__ din, T* __restrict__ u_out,
-                T* __restrict__ part, int seg, int ny, int nx, T omega,
-                T one_minus_omega) {
-  __shared__ T red[ST / 32];
-  const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
-  const T acc =
-      (!ROWS || seg == SEG) && (s + 1) * SEG <= ny
-          ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS>(
-                c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
-                one_minus_omega)
-          : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS>(
-                c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
-                one_minus_omega);
-  if (DOT) {
-    const T sum = mg::block_sum<ST, T>(acc, red);
-    if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
-  }
-}
-
-// After the sweeps: r = b - A u (RC = false) or rc = R (b - A u) (RC =
-// true; full weighting, y pass first, as ops/transfer.restrict_fw), on a
-// tile of RTY x RTX fine points (RC: the RTY/2 x RTX/2 coarse points whose
-// footprint starts in it) with u and its 1-point halo in shared memory.
-// Term order of the JAX package: cc, s, n, w, e, sw, se, nw, ne.
-template <class T, bool RC>
-__global__ void __launch_bounds__(RT)
-line_residual_kernel(Coeffs9<T> c, const T* __restrict__ b,
-                     const T* __restrict__ u, T* __restrict__ out, int ny,
-                     int nx) {
-  constexpr int FH = RTY + (RC ? 1 : 0), FW = RTX + (RC ? 1 : 0);
-  constexpr int SH = FH + 2, SW = FW + 2;
-  __shared__ T us[SH * SW];
-  __shared__ T rs[RC ? FH * FW : 1];
-  const int y0 = blockIdx.y * RTY, x0 = blockIdx.x * RTX;
-  for (int i = threadIdx.x; i < SH * SW; i += RT) {
-    const int gy = y0 - 1 + i / SW, gx = x0 - 1 + i % SW;
-    us[i] = gy >= 0 && gy < ny && gx >= 0 && gx < nx
-                ? u[(size_t)gy * nx + gx] : T(0);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < FH * FW; t += RT) {
-    const int ry = t / FW, rx = t % FW;
-    const int gy = y0 + ry, gx = x0 + rx;
-    T r = T(0);
-    if (gy < ny && gx < nx) {
-      const T* v = us + (ry + 1) * SW + rx + 1;
-      r = b[(size_t)gy * nx + gx] -
-          (coef_at(c, mg::CC, gy, gx) * v[0] +
-           coef_at(c, mg::CS, gy, gx) * v[-SW] +
-           coef_at(c, mg::CN, gy, gx) * v[SW] +
-           coef_at(c, mg::CW, gy, gx) * v[-1] +
-           coef_at(c, mg::CE, gy, gx) * v[1] +
-           coef_at(c, mg::CSW, gy, gx) * v[-SW - 1] +
-           coef_at(c, mg::CSE, gy, gx) * v[-SW + 1] +
-           coef_at(c, mg::CNW, gy, gx) * v[SW - 1] +
-           coef_at(c, mg::CNE, gy, gx) * v[SW + 1]);
-    }
-    if (RC)
-      rs[t] = r;
-    else if (gy < ny && gx < nx)
-      out[(size_t)gy * nx + gx] = r;
-  }
-  if constexpr (RC) {
-    __syncthreads();
-    const int nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
-    for (int t = threadIdx.x; t < (RTY / 2) * (RTX / 2); t += RT) {
-      const int cy = t / (RTX / 2), cx = t % (RTX / 2);
-      const int I = y0 / 2 + cy, J = x0 / 2 + cx;
-      if (I >= nyc || J >= nxc) continue;
-      const T* r0 = rs + 2 * cy * FW + 2 * cx;  // fine (2I, 2J)
-      T ycol[3];
-      for (int d = 0; d < 3; ++d)
-        ycol[d] = r0[d] + T(2) * r0[FW + d] + r0[2 * FW + d];
-      out[(size_t)I * nxc + J] = T(0.0625) * (ycol[0] + T(2) * ycol[1] +
-                                              ycol[2]);
-    }
-  }
-}
-
-template <class T>
-using SegmentFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
-                           const T*, RowHalo<T>, T*, T*, T*, int, int, int);
-template <class T>
-using FixFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
-                       const T*, RowHalo<T>, const T*, const T*, T*, T*, int,
-                       int, int, T, T);
-
-template <class T>
-LineFactor<T> line_factor(const unsigned long long* fptrs, int fsx) {
-  auto fp = [&](int i) { return reinterpret_cast<const T*>(fptrs[i]); };
-  return LineFactor<T>{fp(0), fp(1), fp(2), fp(3), fp(4),
-                       fp(5), fp(6), fp(7), fsx};
-}
-
-template <class T, bool TAB>
-SegmentFn<T> pick_segment(bool guess, bool correct) {
-  return !guess    ? line_segment_kernel<T, false, false, TAB>
-         : correct ? line_segment_kernel<T, true, true, TAB>
-                   : line_segment_kernel<T, true, false, TAB>;
-}
-
-template <class T, bool TAB>
-FixFn<T> pick_fix(bool guess, bool correct, bool dot) {
-  if (!guess)
-    return dot ? line_fix_kernel<T, false, false, true, TAB>
-               : line_fix_kernel<T, false, false, false, TAB>;
-  if (correct)
-    return dot ? line_fix_kernel<T, true, true, true, TAB>
-               : line_fix_kernel<T, true, true, false, TAB>;
-  return dot ? line_fix_kernel<T, true, false, true, TAB>
-             : line_fix_kernel<T, true, false, false, TAB>;
-}
-
-template <class T>
-int line_sweep(const unsigned long long* cptrs, const int* cstrides,
-               const unsigned long long* fptrs, int fsx, int seg, const T* b,
-               const T* u, const T* e, T* u_out, T* part, T* scratch,
-               T* u_corr, int ny, int nx, T omega, T one_minus_omega,
-               void* stream) {
-  const int nseg = (ny + SEG - 1) / SEG;
-  if (seg != SEG || ny < 1 || nx < 1 || (u == nullptr && e != nullptr) ||
-      (nseg > 1 && scratch == nullptr) ||
-      (nseg > 1 && e != nullptr && (u_corr == nullptr || u_corr == u)))
-    return (int)cudaErrorInvalidValue;
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  const RowHalo<T> hl{nullptr, nullptr};
-  const bool tab = f.table != nullptr, guess = u != nullptr;
-  bool correct = e != nullptr;
-  const bool dot = part != nullptr;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((nx + ST - 1) / ST, nseg);
-  T *cin = nullptr, *din = nullptr;
-  if (nseg > 1) {
-    T* ends = scratch;
-    T* starts = ends + (size_t)nseg * nx;
-    cin = starts + (size_t)nseg * nx;
-    din = cin + (size_t)nseg * nx;
-    SegmentFn<T> seg_kern = tab ? pick_segment<T, true>(guess, correct)
-                                : pick_segment<T, false>(guess, correct);
-    seg_kern<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, ends, starts, u_corr,
-                                  SEG, ny, nx);
-    if (int err = (int)cudaGetLastError()) return err;
-    if (correct) {  // launch 3 reads the corrected iterate launch 1 stored
-      u = u_corr;
-      e = nullptr;
-      correct = false;
-    }
-    line_carry_kernel<T><<<(nx + CT - 1) / CT, CT, 0, st>>>(
-        f, ends, starts, cin, din, SEG, nseg, nx);
-    if (int err = (int)cudaGetLastError()) return err;
-  }
-  FixFn<T> fix = tab ? pick_fix<T, true>(guess, correct, dot)
-                     : pick_fix<T, false>(guess, correct, dot);
-  fix<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, cin, din, u_out, part, SEG,
-                           ny, nx, omega, one_minus_omega);
-  return (int)cudaGetLastError();
-}
-
-// The rank-spanning mode's launches on one rank's block of nyl real rows
-// (R = nseg * seg rows; the last rank's pad row is not a real row, and its
-// output row is left to the caller), local row 0 its first row: the
-// factors and the coefficients that vary with y are the slices of the
-// block's rows, hl its iterate's rows above and below.  seg must divide
-// SEG; launch 1 and 3 take the iterate (no zero guess, no correction).
-template <class T>
-bool rows_ok(int seg, int nseg, int nyl, int nx) {
-  return seg >= 1 && seg <= SEG && SEG % seg == 0 && nseg >= 1 &&
-         nyl >= 1 && nyl <= nseg * seg && nx >= 1;
-}
-
-template <class T>
-int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
-                   const unsigned long long* fptrs, int fsx, int seg,
-                   const T* b, const T* u, const T* u_top, const T* u_bot,
-                   T* ends, T* starts, int nseg, int nyl, int nx,
-                   void* stream) {
-  if (!rows_ok<T>(seg, nseg, nyl, nx) || u == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  SegmentFn<T> kern = f.table != nullptr
-                          ? line_segment_kernel<T, true, false, true, true>
-                          : line_segment_kernel<T, true, false, false, true>;
-  kern<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
-      c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, ends, starts, nullptr,
-      seg, nyl, nx);
-  return (int)cudaGetLastError();
-}
-
-template <class T>
-int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
-                    const T* ends, const T* starts, T* cin, T* din,
-                    int nseg, int nx, void* stream) {
-  if (!rows_ok<T>(seg, nseg, 1, nx)) return (int)cudaErrorInvalidValue;
-  line_carry_kernel<T, true>
-      <<<(nx + CT - 1) / CT, CT, 0, (cudaStream_t)stream>>>(
-          line_factor<T>(fptrs, fsx), ends, starts, cin, din, seg, nseg, nx);
-  return (int)cudaGetLastError();
-}
-
-template <class T>
-int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
-                  const unsigned long long* fptrs, int fsx, int seg,
-                  const T* b, const T* u, const T* u_top, const T* u_bot,
-                  const T* cin, const T* din, T* u_out, int nseg, int nyl,
-                  int nx, T omega, T one_minus_omega, void* stream) {
-  if (!rows_ok<T>(seg, nseg, nyl, nx) || u == nullptr || u_out == u ||
-      cin == nullptr || din == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  FixFn<T> fix =
-      f.table != nullptr
-          ? line_fix_kernel<T, true, false, false, true, true>
-          : line_fix_kernel<T, true, false, false, false, true>;
-  fix<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
-      c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, cin, din, u_out,
-      nullptr, seg, nyl, nx, omega, one_minus_omega);
-  return (int)cudaGetLastError();
-}
-
-template <class T>
-int line_residual(const unsigned long long* cptrs, const int* cstrides,
-                  const T* b, const T* u, T* out, int ny, int nx, int rc,
-                  void* stream) {
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const dim3 grid((nx + RTX - 1) / RTX, (ny + RTY - 1) / RTY);
-  if (rc)
-    line_residual_kernel<T, true><<<grid, RT, 0, (cudaStream_t)stream>>>(
-        c, b, u, out, ny, nx);
-  else
-    line_residual_kernel<T, false><<<grid, RT, 0, (cudaStream_t)stream>>>(
-        c, b, u, out, ny, nx);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
+MG_LINE_ENTRIES(, float)
 
 // Number of per-block partials the dot-emitting sweep writes.
-int mg_line_blocks(int ny, int nx) {
+extern "C" int mg_line_blocks(int ny, int nx) {
   return ((nx + ST - 1) / ST) * ((ny + SEG - 1) / SEG);
 }
-
-// One y-line sweep.  cptrs/cstrides: the 9-point coefficients as in
-// mg_common.cuh's coeffs9(); fptrs: device pointers to the line factors
-// m, cp, above, below, gain, end_w, start_w, columns (fsx = 0) or fields
-// (fsx = 1), then the packed per-row table (null: none), made
-// for segments of `seg` rows (refused unless it is SEG); u null: the zero
-// guess; e non-null: correct u + P e first (u_corr: where the corrected
-// iterate is kept, an (ny, nx) buffer other than u; unused, and may be
-// null, for a level of one segment); part non-null: the <b, u_out>
-// partials; scratch: 4 * nseg * nx values (unused, and may be null, for a
-// level of one segment).
-int mg_line_sweep(const unsigned long long* cptrs, const int* cstrides,
-                  const unsigned long long* fptrs, int fsx, int seg,
-                  const float* b, const float* u, const float* e,
-                  float* u_out, float* part, float* scratch, float* u_corr,
-                  int ny, int nx, float omega, float one_minus_omega,
-                  void* stream) {
-  return line_sweep<float>(cptrs, cstrides, fptrs, fsx, seg, b, u, e, u_out,
-                           part, scratch, u_corr, ny, nx, omega,
-                           one_minus_omega, stream);
-}
-
-int mg_line_sweep_f64(const unsigned long long* cptrs, const int* cstrides,
-                      const unsigned long long* fptrs, int fsx, int seg,
-                      const double* b, const double* u, const double* e,
-                      double* u_out, double* part, double* scratch,
-                      double* u_corr, int ny, int nx, double omega,
-                      double one_minus_omega, void* stream) {
-  return line_sweep<double>(cptrs, cstrides, fptrs, fsx, seg, b, u, e, u_out,
-                            part, scratch, u_corr, ny, nx, omega,
-                            one_minus_omega, stream);
-}
-
-// The visit's last pass: r = b - A u (rc == 0) or its restriction.
-int mg_line_residual(const unsigned long long* cptrs, const int* cstrides,
-                     const float* b, const float* u, float* out, int ny,
-                     int nx, int rc, void* stream) {
-  return line_residual<float>(cptrs, cstrides, b, u, out, ny, nx, rc, stream);
-}
-
-int mg_line_residual_f64(const unsigned long long* cptrs, const int* cstrides,
-                         const double* b, const double* u, double* out,
-                         int ny, int nx, int rc, void* stream) {
-  return line_residual<double>(cptrs, cstrides, b, u, out, ny, nx, rc,
-                               stream);
-}
-
-// The rank-spanning mode, one sweep of a rank's block (see the top of this
-// file): launch 1 (the segment ends and starts of its nseg segments, (nseg,
-// nx) each), launch 2 (the carries cin, din of all nseg segments of the
-// level from the gathered ends and starts, with the whole level's
-// factors) and launch 3 (the swept block from its slice of the carries).
-// fptrs as for mg_line_sweep; for launches 1 and 3 the slices of the
-// block's rows (gain unused), for launch 2 the whole level's.
-#define MG_LINE_ROWS_ENTRIES(SFX, T)                                        \
-  int mg_line_rows_ends##SFX(                                               \
-      const unsigned long long* cptrs, const int* cstrides,                 \
-      const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
-      const T* u, const T* u_top, const T* u_bot, T* ends, T* starts,       \
-      int nseg, int nyl, int nx, void* stream) {                            \
-    return line_rows_ends<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_top, \
-                             u_bot, ends, starts, nseg, nyl, nx, stream);   \
-  }                                                                         \
-  int mg_line_rows_carry##SFX(const unsigned long long* fptrs, int fsx,     \
-                              int seg, const T* ends, const T* starts,      \
-                              T* cin, T* din, int nseg, int nx,             \
-                              void* stream) {                               \
-    return line_rows_carry<T>(fptrs, fsx, seg, ends, starts, cin, din,      \
-                              nseg, nx, stream);                            \
-  }                                                                         \
-  int mg_line_rows_fix##SFX(                                                \
-      const unsigned long long* cptrs, const int* cstrides,                 \
-      const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
-      const T* u, const T* u_top, const T* u_bot, const T* cin,             \
-      const T* din, T* u_out, int nseg, int nyl, int nx, T omega,           \
-      T one_minus_omega, void* stream) {                                    \
-    return line_rows_fix<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_top,  \
-                            u_bot, cin, din, u_out, nseg, nyl, nx, omega,   \
-                            one_minus_omega, stream);                       \
-  }
-
-MG_LINE_ROWS_ENTRIES(, float)
-MG_LINE_ROWS_ENTRIES(_f64, double)
-
-}  // extern "C"

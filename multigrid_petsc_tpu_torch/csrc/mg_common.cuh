@@ -1,4 +1,4 @@
-// Helpers shared by the package's CUDA sources (visit.cuh, line.cu,
+// Helpers shared by the package's CUDA sources (visit.cuh, line.cuh,
 // coarse_tree.cu): storage/compute conversion, the 9-point coefficient
 // layout, the bilinear prolongation and a block sum.
 #pragma once

@@ -3,10 +3,12 @@
 
 At first use, every ``csrc/*.cu`` source of the package is compiled with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together (the visit kernels' f32, f64 and bf16 instantiations are three
-sources, so they build side by side), and the objects are linked into one shared library with a plain
+together (the visit kernels' f32, f64 and bf16 instantiations, and the
+bf16 row-block entries, are sources of their own, so they build side by
+side), and the objects are linked into one shared library with a plain
 C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
-git), which is loaded with ``ctypes``.  The library name carries a hash of the
+git), which is loaded with ``ctypes``.  The build log (``build.log``)
+ends with each source's compile seconds (``nvcc <source>: <s> s``).  The library name carries a hash of the
 sources, their shared header(s) ``csrc/*.cuh`` and the flags, so an edited
 source rebuilds.  Nothing here runs at
 import time: the CPU-only test tier imports every module without a
@@ -22,6 +24,7 @@ import os
 import platform
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -56,7 +59,7 @@ _SIGNATURES = {
        for sfx in ("", "_f64", "_bf16")},
     **{name + sfx: argtypes for name, argtypes in _ROWS.items()
        for sfx in ("", "_f64", "_bf16")},
-    # K15's rank-spanning mode (csrc/line.cu MG_LINE_ROWS_ENTRIES).
+    # K15's rank-spanning mode (csrc/line.cuh MG_LINE_ENTRIES).
     **{"mg_line_rows_ends" + sfx: [_P, _P, _P, _I, _I] + [_P] * 6
        + [_I, _I, _I, _P] for sfx in ("", "_f64")},
     **{"mg_line_rows_carry" + sfx: [_P, _I, _I] + [_P] * 4 + [_I, _I, _P]
@@ -106,12 +109,21 @@ def load_library() -> ctypes.CDLL:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         nvcc = _nvcc()
         objs = [tmp.with_suffix(f".{s.stem}.o") for s in sources]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(sources, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        log = "".join(logs)
+        outs = [o.with_suffix(".log") for o in objs]
+        t0 = time.perf_counter()
+        procs = []
+        for s, o, out in zip(sources, objs, outs):
+            with open(out, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        secs = {}
+        while len(secs) < len(procs):  # each source's compile seconds
+            for s, p in zip(sources, procs):
+                if s.name not in secs and p.poll() is not None:
+                    secs[s.name] = time.perf_counter() - t0
+            time.sleep(0.1)
+        log = "".join(out.read_text() for out in outs)
         ok = all(p.returncode == 0 for p in procs)
         if ok:
             link = subprocess.run(
@@ -119,8 +131,11 @@ def load_library() -> ctypes.CDLL:
                  *map(str, objs)], capture_output=True, text=True)
             log += link.stdout + link.stderr
             ok = link.returncode == 0
-        for o in objs:
+        for o in objs + outs:
             o.unlink(missing_ok=True)
+        log += "".join(f"nvcc {name}: {t:.1f} s\n"
+                       for name, t in sorted(secs.items(),
+                                             key=lambda kv: -kv[1]))
         (BUILD_DIR / "build.log").write_text(log)
         if not ok:
             raise RuntimeError(f"nvcc failed:\n{log}")

@@ -11,7 +11,7 @@ Counterpart of ``multigrid_petsc_tpu/ops/pallas/line_kernel.py``:
 
 The TPU kernel holds the whole level in VMEM and solves the line systems
 by parallel cyclic reduction; it is viable up to ~1023^2 and for (ny, 1)
-line coefficients only.  The CUDA kernels (``csrc/line.cu``) have no size
+line coefficients only.  The CUDA kernels (``csrc/line.cuh``) have no size
 cap and take line coefficients that vary with x as well: Thomas's
 recurrence with per-row factors made once per level on the host in f64,
 cut into segments of ``LINE_SEG`` rows run by one thread each and joined
@@ -26,7 +26,7 @@ tridiagonal solves.
 A row-sharded level's y-lines cross the ranks (``RowLine``,
 ``line_rows_begin`` / ``line_rows_end``): each sweep is two halves around
 one all-gather the caller makes.  On the card the halves are the CUDA
-sweep's launches split at its carry pass (``csrc/line.cu``, the
+sweep's launches split at its carry pass (``csrc/line.cuh``, the
 rank-spanning mode): each rank's segment ends (launch 1) are gathered,
 every rank runs the carry pass over all the segments, then fixes its own
 (launch 3); on the CPU the plain version gathers the ranks' line
@@ -70,10 +70,10 @@ from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
 _EMITS = ("u", "ur", "rc")
 LINE_DTYPES = (torch.float32, torch.float64)
-# Rows per segment of the CUDA line solve (csrc/line.cu SEG; the C entry
+# Rows per segment of the CUDA line solve (csrc/line.cuh SEG; the C entry
 # refuses factors made for another length).
 LINE_SEG = 32
-# A row of the packed per-row table (csrc/line.cu LineRows, R_*), then 3
+# A row of the packed per-row table (csrc/line.cuh LineRows, R_*), then 3
 # zeros: 16 values a row.
 TABLE_COLUMNS = ("cw", "ce", "csw", "cse", "cnw", "cne", "cs", "m", "cp",
                  "above", "below", "end_w", "start_w")

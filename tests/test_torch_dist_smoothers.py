@@ -12,7 +12,7 @@ them; and it runs a sharded level's operators on row blocks ("units"):
 RBGS on odd and even blocks, visits in pieces, the block-local transfers
 and the line sweeps, each held to the whole-grid function.  In one
 process: K17's bf16 plain version against JAX's ``DistLevelOps`` in
-interpret mode, a model of ``csrc/line.cu``'s rank-spanning mode against
+interpret mode, a model of ``csrc/line.cuh``'s rank-spanning mode against
 ``line_jacobi_sweeps_y``, and RBGS's colours on the blocks.
 
 Tolerances: the solves as parts 1 and 2 (iterations equal, rnorm rtol
@@ -346,7 +346,7 @@ def test_k17_bf16_plain_matches_jax(emit):
 
 
 def _rows_model(st, fac, rhs, P):
-    """``csrc/line.cu``'s rank-spanning solve of every column of ``rhs``
+    """``csrc/line.cuh``'s rank-spanning solve of every column of ``rhs``
     (ny, nx), as test code: ``fac`` the whole level's segmented factors of
     seg-row segments (``RowLine``'s); each of P blocks forms its segments'
     zero-carry ends from its rows' slices of the factors (launch 1), the
