@@ -121,11 +121,23 @@ non-zero):
      a sharded level's own rows); (c) the same and mg-CG -v 8,8 card
      against CPU at 1025^2 / 8 levels, ``min_local=8``.  Phase 2d also
      holds K17 in bf16 against its plain version on 4 row blocks of the
-     8191^2 level.
+     8191^2 level;
+ 12. distribution, the merged-grid cycles and merged levels (2 ranks
+     sharing the card over gloo, ``row_plan(min_local=32)``): (a) I, E,
+     D1, D2 and D1PS matrix-free on 2 grids at 8193^2 (both sharded),
+     forced 10, each held to its one-card twin (histories within 1e-5,
+     u within TOL_ARRAY; K17 on both ranks, no K6 or K7); (b) a V-cycle
+     (forced 5) and mg-CG over a sharded CG-solved merged level 2 (grids
+     4 / levels 3), held to their twins (iterations within 1, error <=
+     1.1x); (c) card against CPU at 1025^2 with merged levels holding
+     replicated grids (the one-level cycles, a V-cycle, mg-CG over a
+     directly solved merged level); each with its launches per kernel and
+     per K17 emit, its all-gathers by label and its ms per iteration
+     (gloo host staging).
 Every path run starts with the launch counters at 0 and reads them right
-after (a rank's counters in its own process).  ``--only 9a,9b,10,11a,11``
-runs the build and just those phases (phase 4 first where they read
-it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
+after (a rank's counters in its own process).  ``--only
+9a,9b,10,11a,11,12`` runs the build and just those phases (phase 4 first
+where they read it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
 result object.  With no CUDA device the script exits non-zero without
 printing it.
@@ -2017,7 +2029,8 @@ def rank_worker(argv) -> int:
                        rnorm=res.rnorm.tolist(), counts=counts,
                        emits=emits, gathers=gathers, gathered=gathered,
                        true=true,
-                       dist=[lv.dist is not None for lv in res.ctx.levels],
+                       dist=[lv.sharded for lv in res.ctx.levels],
+                       split=[list(lv.split) for lv in res.ctx.levels],
                        errs=list(errs), wall=res.wall_time, ms=ms,
                        transport=plan.transport,
                        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
@@ -2710,10 +2723,194 @@ def run_phase11(torch, dev, rec):
     return timed_phase(torch, "11 (b), (c)", phase_dist_cycles)
 
 
+# Phase 12: the merged-grid cycles under the row partition.
+P12_ONE = ("ICYCLE", "ECYCLE", "D1CYCLE", "D2CYCLE", "D1PSCYCLE")
+CYCLE_IDS = {"ICYCLE": 1, "ECYCLE": 2, "D1CYCLE": 3, "D2CYCLE": 4,
+             "D1PSCYCLE": 7}
+P12_FORCED = dict(rtol=1e-30, divtol=1e30)
+
+
+def p12_configs():
+    """Phase 12's solves (f32): name -> (config, job extras).  (a) the
+    one-level merged cycles on 2 grids at 8193^2, forced 10 (both grids
+    sharded under min_local 32: blocks of 4096 and 2048 rows); (b) a
+    V-cycle (forced 5) and mg-CG (rtol 1e-5, max_iter 30) at 8193^2,
+    grids 4 / levels 3 (level 2 merges 2047^2 and 1023^2, both sharded,
+    solved by 64 CG iterations of a nonsymmetric operator: in f32 mg-CG
+    runs its 30 iterations to ~1e-4 over the ranks and on one card
+    alike); (c) card against CPU at 1025^2: the one-level cycles
+    with min_local 512 (the 1023^2 grid sharded, the 511^2 grid
+    replicated), phase 3c's V-cycle at grids 4 / levels 2 with min_local
+    256 (level 1 merges 511^2, sharded, 255^2 and 127^2, replicated; CG)
+    and mg-CG at grids 10 / levels 7
+    with min_local 8 (level 6 merges 15^2, sharded, 7^2, 3^2 and 1^2;
+    solved directly, its sharded grid gathered)."""
+    f32 = dict(dtype="float32")
+    big, small = {}, {}
+    for c in P12_ONE:
+        cyc = CYCLE_IDS[c]
+        big[c] = (dict(f32, npts=P9_N, grids=2, levels=1, cycle=cyc,
+                       max_iter=10, **P12_FORCED), {"save_u": True})
+        small[c] = (dict(f32, npts=P9_SMALL, grids=2, levels=1, cycle=cyc,
+                         max_iter=10, **P12_FORCED), {"min_local": 512})
+    big["vcycle"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=0,
+                          max_iter=5, **P12_FORCED), {})
+    big["mgcg"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=101,
+                        rtol=1e-5, max_iter=30), {})
+    small["vcycle"] = (dict(f32, npts=P9_SMALL, grids=4, levels=2, cycle=0,
+                            max_iter=6, **P12_FORCED), {"min_local": 256})
+    small["mgcg_direct"] = (dict(f32, npts=P9_SMALL, grids=10, levels=7,
+                                 cycle=101, rtol=1e-5, max_iter=30),
+                            {"min_local": 8})
+    return big, small
+
+
+def merged_twin(torch, fields):
+    """A phase-12 config on one card in this process: its iterations,
+    history, solution (numpy), max error and launches."""
+    import numpy as np
+
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+
+    cfg = config_of(fields)
+    launches.clear()
+    res = solve(cfg, device="cuda")
+    counts = dict(launches)
+    err = error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)[0]
+    out = dict(iters=res.iters, rnorm=np.asarray(res.rnorm),
+               u=res.u.cpu().numpy(), err=float(err), counts=counts,
+               wall=res.wall_time)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_merged(torch):
+    """12: the merged-grid cycles and merged levels under the row
+    partition, 2 ranks sharing the card over gloo (as phase 11 (b)),
+    ``row_plan(min_local=32)`` unless a config names another
+    (``p12_configs``).  (a) I, E, D1, D2, D1PS on 2 sharded grids at
+    8193^2, each held to its one-card twin in this process: the
+    normalized histories within 1e-5 entry by entry, u within TOL_ARRAY
+    of max|u|; K17 on both ranks, no K6 or K7 on either (no grid is
+    replicated; the twin launches them).  (b) the V-cycle and mg-CG over
+    the sharded merged level 2 (CG-solved): iterations within 1 and error
+    <= 1.1x of the one-card twin.  (c) card against CPU at 1025^2, merged
+    levels with replicated grids: equal iterations, histories rtol 0.05 +
+    atol 5e-6 (as phase 9 (c)).  Every run prints its launches per kernel
+    and per K17 emit, its all-gathers by what they gather (inside the
+    iterations only "agglomerate" onto a replicated grid and "coarsest"
+    for a direct solve) and its ms per iteration, which measures the
+    gloo host staging of two ranks on one card, not the card.  Returns
+    rank 0's K17 launches over (a)'s five runs."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    big, small = p12_configs()
+    twins = {}
+    for name, (f, _) in big.items():
+        twins[name] = merged_twin(torch, f)
+        t = twins[name]
+        print(f"12 one-card twin {name} {P9_N}^2 grids {f['grids']} levels "
+              f"{f['levels']}: iters {t['iters']}, max error "
+              f"{t['err']:.6e}, launches {t['counts']}, "
+              f"{1e3 * t['wall'] / max(t['iters'], 1):.3f} ms per iteration")
+    card_jobs = [dict(name=n, cfg=f, **x) for n, (f, x) in big.items()]
+    par_jobs = [dict(name=n, cfg=f, **x) for n, (f, x) in small.items()]
+    k17 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        run_worlds([(par_jobs, "cpu", "cpu"), (card_jobs, "cuda", "card"),
+                    (par_jobs, "cuda", "card1025")], out)
+        for name, (f, x) in big.items():
+            res = world_results(out, name, "card")
+            r0, t = res[0], twins[name]
+            iters = r0["iters"]
+            print(f"12 ({'a' if name in P12_ONE else 'b'}) {name} "
+                  f"{P9_N}^2 grids {f['grids']} levels {f['levels']}, "
+                  f"{P9_RANKS} ranks sharing one card: iters {iters} (twin "
+                  f"{t['iters']}), path {r0['path']}, max error "
+                  f"{r0['errs'][0]:.6e} (twin {t['err']:.6e}); "
+                  f"{1e3 * r0['wall'] / max(iters, 1):.3f} ms per "
+                  f"iteration (gloo host staging, not the card)")
+            print(f"  residual history {r0['rnorm']}")
+            print(f"  sharded grids per level {r0['split']}")
+            for r, x_ in enumerate(res):
+                print(f"  rank {r}: launches {x_['counts']}; K17 per emit "
+                      f"{x_['emits']}; all-gathers {x_['gathers']} "
+                      f"({x_['gathered']} B sent)")
+            for x_ in res:
+                assert x_["path"] == "cuda"
+                assert x_["iters"] == iters and x_["rnorm"] == r0["rnorm"]
+                assert x_["counts"].get("dist_level_visit", 0) > 0, name
+                assert (sum(x_["emits"].values())
+                        == x_["counts"]["dist_level_visit"])
+                # Every grid of (a) and (b)'s merged levels is sharded:
+                # no K6 or K7, and nothing gathered.
+                for k in ("apply_stencil5", "smooth_sweeps"):
+                    assert x_["counts"].get(k, 0) == 0, f"{name}: {k}"
+                assert not x_["gathers"], f"{name}: {x_['gathers']}"
+            assert all(all(s) for s in r0["split"]), r0["split"]
+            assert all(e == e for e in r0["errs"]), r0["errs"]
+            if name in P12_ONE:
+                assert t["counts"].get("apply_stencil5", 0) > 0
+                if name == "ICYCLE":
+                    assert t["counts"].get("smooth_sweeps", 0) > 0
+                assert iters == t["iters"] == f["max_iter"]
+                dh = float(np.abs(np.asarray(r0["rnorm"])
+                                  - t["rnorm"]).max())
+                u = np.load(out / f"{name}.npy")
+                du = float(np.abs(u - t["u"]).max() / np.abs(t["u"]).max())
+                print(f"  vs the twin: max|history diff| {dh:.3e}, "
+                      f"max|u - u_twin| / max|u_twin| {du:.3e}")
+                assert dh <= 1e-5, dh
+                assert du <= TOL_ARRAY, du
+                k17 += r0["counts"]["dist_level_visit"]
+            else:
+                assert abs(iters - t["iters"]) <= 1, (name, iters,
+                                                      t["iters"])
+                assert r0["errs"][0] <= 1.1 * t["err"], (name, r0["errs"])
+        for name, (f, x) in small.items():
+            g = world_results(out, name, "card1025")[0]
+            c = world_results(out, name, "cpu")[0]
+            print(f"12 (c) {name} {P9_SMALL}^2 grids {f['grids']} levels "
+                  f"{f['levels']}, min_local {x.get('min_local', 32)}, "
+                  f"{P9_RANKS} ranks: iters card {g['iters']} cpu "
+                  f"{c['iters']}; max error card {g['errs'][0]:.6e} cpu "
+                  f"{c['errs'][0]:.6e}; sharded grids {g['split']}; card "
+                  f"launches {g['counts']}, K17 per emit {g['emits']}; "
+                  f"all-gathers {g['gathers']}")
+            assert g["path"] == "cuda" and c["path"] == "torch"
+            assert g["split"] == c["split"]
+            assert any(not all(s) for s in g["split"]), g["split"]
+            assert g["iters"] == c["iters"], name
+            np.testing.assert_allclose(g["rnorm"], c["rnorm"], rtol=0.05,
+                                       atol=5e-6)
+            assert g["counts"].get("dist_level_visit", 0) > 0
+            assert set(g["gathers"]) <= {"agglomerate", "coarsest"}
+            if name == "mgcg_direct":
+                assert g["converged"] and g["gathers"].get("coarsest", 0)
+            else:
+                assert g["gathers"].get("agglomerate", 0) > 0
+    return k17
+
+
+def run_phase12(torch):
+    """Phase 12: distribution, the merged-grid cycles and merged levels."""
+    torch.cuda.empty_cache()
+    return timed_phase(torch, "12", phase_dist_merged)
+
+
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
     named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10;
-    11a: K17 in bf16 (phase 2d's check) and 11 (a); 11: phase 11), with
+    11a: K17 in bf16 (phase 2d's check) and 11 (a); 11: phase 11; 12:
+    phase 12), with
     phase 4 first where they read it; no result line, so a partial run
     never passes for a whole one."""
     main_ref = None
@@ -2738,6 +2935,8 @@ def partial_run(torch, dev, parts) -> int:
         rec = {}
         print(run_phase11(torch, dev, rec))
         print(json.dumps(rec))
+    if "12" in parts:
+        print(f"12 (a) rank 0 K17 launches: {run_phase12(torch)}")
     print(f"partial run {parts}: no result line")
     return 0
 
@@ -2837,6 +3036,7 @@ def main() -> int:
     counts.update(timed_phase(torch, "9 (b), (c)", phase_dist, main_ref))
     run_phase10(torch, main_ref)
     counts.update(run_phase11(torch, dev, rec))
+    merged_k17 = run_phase12(torch)
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -2911,6 +3111,8 @@ def main() -> int:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": rec[k]["library_ms"],
             "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate,
+            **({"launches_merged": merged_k17}
+               if k == "dist_level_visit" else {}),
             **({"ms_nine_scalars": rec[k]["scalars_ms"],
                 "bound_ms_nine_scalars": rec[k]["scalars_bound_ms"]}
                if "scalars_ms" in rec[k] else {}),

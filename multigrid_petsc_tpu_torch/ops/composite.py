@@ -11,44 +11,89 @@ prolongation).  Matrix-free, over a tuple of per-grid tensors:
     y_c += R_{f->c} (A_f u_f)       (restriction portion, f finer than c)
     y_f += A_f (P_{c->f} u_c)       (prolongation portion)
 
-Each A_f runs through K6 (``stencil_kernel.apply_stencil5``) on the card,
-its plain version on the CPU; the multi-gap transfers are plain PyTorch,
-as the JAX package runs them outside its kernels.  ``include_diag`` /
-``include_couplings`` select A, A1 (diagonal blocks only) or A2
-(couplings only), as the E-cycle splits them.
+The grid operations come from an operator set (``GridOps``): on one
+device each A_f runs through K6 (``stencil_kernel.apply_stencil5``) on the
+card, its plain version on the CPU, and the multi-gap transfers are plain
+PyTorch, as the JAX package runs them outside its kernels.  Under a plan
+``parallel.dist_ops.DistMergedOps`` is the same set on the ranks' row
+blocks (K17 on a sharded grid), so one body serves both.
+``include_diag`` / ``include_couplings`` select A, A1 (diagonal blocks
+only) or A2 (couplings only), as the E-cycle splits them.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
 
-from multigrid_petsc_tpu_torch.ops.cuda.stencil_kernel import apply_stencil5
-from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
+from multigrid_petsc_tpu_torch.ops.cuda.stencil_kernel import (
+    apply_stencil5,
+    smooth_sweeps,
+)
+from multigrid_petsc_tpu_torch.ops.norms import tree_dot, tree_norm2
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_multi, restrict_multi
 
 
-def composite_apply(stencils: Sequence[Stencil5], gids: tuple[int, ...], u,
-                    include_diag: bool = True,
+class GridOps:
+    """A merged level's per-grid operations on one device, grid k of
+    ``stencils`` with id ``gids[k]``: A_k (K6), k Jacobi-type steps on
+    grid k's own block (K7), the multi-gap transfers between two of its
+    grids, the level's inner product and one grid's norm."""
+
+    def __init__(self, stencils, gids):
+        self.stencils = tuple(stencils)
+        self.gids = tuple(gids)
+
+    @property
+    def sharded(self) -> tuple[bool, ...]:
+        return (False,) * len(self.gids)
+
+    def apply(self, k: int, x):
+        return apply_stencil5(self.stencils[k], x)
+
+    def smooth(self, k: int, b, x, steps):
+        return smooth_sweeps(self.stencils[k], b, x, steps)
+
+    def restrict(self, x, kf: int, kc: int):
+        """x on grid kf restricted onto the coarser grid kc."""
+        return restrict_multi(x, self.gids[kc] - self.gids[kf])
+
+    def prolong(self, x, kc: int, kf: int):
+        """x on grid kc prolonged onto the finer grid kf."""
+        return prolong_multi(x, self.gids[kc] - self.gids[kf])
+
+    def dot(self, x, y):
+        return tree_dot(x, y)
+
+    def grid_norm(self, k: int, x):
+        return tree_norm2(x)
+
+    def local(self, state):
+        return state
+
+    def real_rows(self, state):
+        return state
+
+    def gathered(self, solve):
+        return solve
+
+
+def composite_apply(ops: GridOps, u, include_diag: bool = True,
                     include_couplings: bool = True) -> tuple:
     """The merged level's matvec over the tuple ``u`` (grids ascending by
-    id, ``stencils[k]`` grid k's operator)."""
+    id)."""
     k = len(u)
-    au = [apply_stencil5(stencils[i], u[i]) for i in range(k)]
+    au = [ops.apply(i, u[i]) for i in range(k)]
     y = list(au) if include_diag else [torch.zeros_like(x) for x in u]
     if include_couplings:
         for kf in range(k):
             for kc in range(kf + 1, k):
-                gap = gids[kc] - gids[kf]
-                y[kc] = y[kc] + restrict_multi(au[kf], gap)
-                y[kf] = y[kf] + apply_stencil5(stencils[kf],
-                                               prolong_multi(u[kc], gap))
+                y[kc] = y[kc] + ops.restrict(au[kf], kf, kc)
+                y[kf] = y[kf] + ops.apply(kf, ops.prolong(u[kc], kc, kf))
     return tuple(y)
 
 
-def composite_residual(stencils, gids, b, u, **kw) -> tuple:
-    au = composite_apply(stencils, gids, u, **kw)
+def composite_residual(ops: GridOps, b, u, **kw) -> tuple:
+    au = composite_apply(ops, u, **kw)
     return tuple(bb - aa for bb, aa in zip(b, au))
 
 

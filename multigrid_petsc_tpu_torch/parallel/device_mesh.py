@@ -8,7 +8,10 @@ one process: a row-sharded level keeps its ``ny + 1`` rows (one pad row)
 as P blocks of R = (ny + 1) / P rows, block p on rank p, and levels too
 small to shard are replicated: every rank holds them whole and computes
 them redundantly, the JAX package's agglomeration (device_mesh.py:11-15).
-The split rule is JAX's rows branch (:79-84).
+The split rule is JAX's rows branch (:79-84), per grid: the grids of a
+merged level are split one by one, so a merged level may hold sharded
+and replicated grids side by side (a coarser grid is sharded only if a
+finer one is, (ny + 1) halving per grid).
 
 The plan knows its rank, world size, its rank's device and its transport:
   "nccl"       CUDA tensors sent by NCCL (one card per rank);
@@ -102,6 +105,11 @@ class ShardingPlan:
         if (ny + 1) % P == 0 and (ny + 1) // P >= self.min_local:
             return "rows"
         return "replicated"
+
+    def shards(self, ny: int, nx: int) -> bool:
+        """Does a solve under the plan row-shard an (ny, nx) grid?  Where
+        ``spec`` says "rows", on two ranks or more."""
+        return self.size > 1 and self.spec(ny, nx) == "rows"
 
 
 def row_plan(group=None, min_local: int = 32,

@@ -27,6 +27,17 @@ lines lie in the block); y-line Jacobi, whose lines cross the ranks, as
 K15's rank-spanning mode (``line_kernel.line_rows_*``), one all-gather of
 the segment carries per sweep.  The transfers between two sharded levels
 are block-local (``restrict``, ``prolong``: one exchanged row).
+
+A merged level under a plan (``DistMergedOps``) holds one
+``DistLevelOps`` per grid the plan shards and keeps the others whole:
+A_f and the Jacobi steps of a sharded grid are K17 visits on its block,
+those of a replicated grid K6 and K7.  Its multi-gap transfers
+(``restrict_steps``, ``prolong_steps``) go one gap at a time: between two
+sharded sizes block-local with one exchanged row, at the first replicated
+size on the way down the restricted blocks gathered ("agglomerate"), and
+from a replicated size into a sharded one the block's rows cut from the
+whole coarse grid.  A one-gap step over a block and its halo row computes
+the entries of the whole-grid step, operation for operation.
 """
 
 from __future__ import annotations
@@ -41,10 +52,13 @@ from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import (
     pick_tile,
     row_visit,
 )
+from multigrid_petsc_tpu_torch.ops.composite import GridOps
+from multigrid_petsc_tpu_torch.ops.norms import unflatten
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 from multigrid_petsc_tpu_torch.parallel.halo import (
     all_gather_rows,
+    allreduce_sum,
     edge_exchange,
 )
 
@@ -77,6 +91,84 @@ def _cut_rows(st, lo: int, hi: int):
     """The stencil's coefficients that vary with y cut to rows [lo, hi)."""
     return type(st)(*(c if c.shape[0] == 1 else c[lo:hi].contiguous()
                       for c in st))
+
+
+def _restrict_block(r: torch.Tensor, ny: int, plan) -> torch.Tensor:
+    """One full weighting of the row block ``r`` of a sharded grid of
+    ``ny`` rows: the (R / 2)-row coarse block from the block and the next
+    rank's first row, the coarse pad row 0."""
+    R = (ny + 1) // plan.size
+    if R % 2:
+        raise ValueError(f"an odd block of {R} rows has no coarse block")
+    nxt = edge_exchange(r, 1, plan).bot
+    rc = restrict_fw(torch.cat([r, nxt]))
+    c_real = (ny - 1) // 2 - plan.rank * R // 2
+    if c_real < rc.shape[0]:
+        rc[max(c_real, 0):] = 0.0
+    return rc
+
+
+def _prolong_block(e: torch.Tensor, ny: int, plan,
+                   coarse_block: bool) -> torch.Tensor:
+    """One bilinear prolongation onto the row block of a sharded grid of
+    ``ny`` rows, from the coarse grid's block (``coarse_block``: its row
+    above exchanged) or from the whole coarse grid (its rows cut, no
+    exchange); the pad row 0."""
+    R = (ny + 1) // plan.size
+    row0 = plan.rank * R
+    c0, Rc = row0 // 2, R // 2
+    nyc = (ny - 1) // 2
+    if coarse_block:
+        ext = torch.cat([edge_exchange(e, 1, plan).top, e])
+        if c0 + Rc > nyc:  # the coarse pad row counts as 0
+            ext = ext.clone()
+            ext[1 + max(nyc - c0, 0):] = 0.0
+    else:
+        ext = _rows(e, c0 - 1, c0 + Rc)
+    pe = prolong_bilinear(ext)[2:R + 2]
+    nyl = min(R, ny - row0)
+    if nyl < R:
+        pe[nyl:] = 0.0
+    return pe
+
+
+def _shards(plan, ny: int, nx: int) -> bool:
+    return plan is not None and plan.shards(ny, nx)
+
+
+def restrict_steps(x: torch.Tensor, ny: int, nx: int, gap: int,
+                   plan) -> torch.Tensor:
+    """``gap`` full weightings of ``x``, which lies on an (ny, nx) grid:
+    its row block where ``plan`` (None: one device) shards that grid,
+    else the whole grid.  A step between two sharded sizes is block-local;
+    at the first size the plan replicates, the coarse blocks are gathered
+    ("agglomerate"); below it the steps run whole (``restrict_multi``)."""
+    for _ in range(gap):
+        nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+        if _shards(plan, ny, nx):
+            x = _restrict_block(x, ny, plan)
+            if not _shards(plan, nyc, nxc):
+                x = all_gather_rows(x, plan, "agglomerate")[:nyc]
+        else:
+            x = restrict_fw(x)
+        ny, nx = nyc, nxc
+    return x
+
+
+def prolong_steps(x: torch.Tensor, ny: int, nx: int, gap: int,
+                  plan) -> torch.Tensor:
+    """``gap`` bilinear prolongations of ``x`` from an (ny, nx) grid, in
+    the layout ``restrict_steps`` reads: into a size the plan shards the
+    block's rows, into a replicated size the whole grid
+    (``prolong_multi``)."""
+    for _ in range(gap):
+        nyf, nxf = 2 * ny + 1, 2 * nx + 1
+        if _shards(plan, nyf, nxf):
+            x = _prolong_block(x, nyf, plan, _shards(plan, ny, nx))
+        else:
+            x = prolong_bilinear(x)
+        ny, nx = nyf, nxf
+    return x
 
 
 class DistLevelOps:
@@ -212,33 +304,14 @@ class DistLevelOps:
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
         """The (R / 2, (nx - 1) / 2) coarse block of R r (full weighting):
         the block and the next rank's first row; the coarse pad row 0."""
-        if self.R % 2:
-            raise ValueError(f"an odd block of {self.R} rows has no coarse "
-                             f"block")
-        nxt = edge_exchange(r, 1, self.plan).bot
-        rc = restrict_fw(torch.cat([r, nxt]))
-        c_real = (self.ny - 1) // 2 - self.row0 // 2
-        if c_real < rc.shape[0]:
-            rc[max(c_real, 0):] = 0.0
-        return rc
+        return _restrict_block(r, self.ny, self.plan)
 
     def prolong(self, e: torch.Tensor) -> torch.Tensor:
         """P e on the block (bilinear): ``e`` the coarse level's (R / 2)-row
         block (its row above exchanged) or the whole replicated coarse
         grid (cut, no exchange); the pad row 0."""
-        c0, Rc = self.row0 // 2, self.R // 2
-        nyc = (self.ny - 1) // 2
-        if e.shape[0] == Rc:
-            ext = torch.cat([edge_exchange(e, 1, self.plan).top, e])
-            if c0 + Rc > nyc:  # the coarse pad row counts as 0
-                ext = ext.clone()
-                ext[1 + max(nyc - c0, 0):] = 0.0
-        else:
-            ext = _rows(e, c0 - 1, c0 + Rc)
-        pe = prolong_bilinear(ext)[2:self.R + 2]
-        if self.nyl < self.R:
-            pe[self.nyl:] = 0.0
-        return pe
+        return _prolong_block(e, self.ny, self.plan,
+                              e.shape[0] == self.R // 2)
 
     # -- the smoothers without a fused visit -------------------------------
 
@@ -308,3 +381,100 @@ class DistLevelOps:
             u = torch.zeros_like(u)
             u[:nyl] = out.T[r0 - lo:r0 - lo + nyl]
         return u
+
+
+class DistMergedOps(GridOps):
+    """The per-grid operators of a merged level under a plan: a
+    ``DistLevelOps`` for each grid the plan shards (``ops[k]``; None for
+    a replicated grid, held whole on every rank), the transfers
+    ``restrict_steps`` / ``prolong_steps``, and the level's inner product:
+    the sharded grids' local dots summed over the ranks, the replicated
+    grids' added once."""
+
+    def __init__(self, stencils, grids, plan, max_sweeps: int):
+        super().__init__(stencils, tuple(g.g for g in grids))
+        self.plan = plan
+        self.grids = tuple(grids)
+        self.ops = tuple(
+            DistLevelOps(st, g.ny, g.nx, plan, max_sweeps)
+            if plan.shards(g.ny, g.nx) else None
+            for st, g in zip(stencils, grids))
+        self.stencils = tuple(st if d is None else d.st
+                              for st, d in zip(stencils, self.ops))
+        self.dinv = tuple(1.0 / st.cc if d is None else d.dinv
+                          for st, d in zip(self.stencils, self.ops))
+
+    @property
+    def sharded(self) -> tuple[bool, ...]:
+        return tuple(d is not None for d in self.ops)
+
+    @property
+    def state_shapes(self) -> list[tuple[int, int]]:
+        return [g.shape if d is None else (d.R, d.nx)
+                for g, d in zip(self.grids, self.ops)]
+
+    def apply(self, k: int, x):
+        d = self.ops[k]
+        return super().apply(k, x) if d is None else d.apply(x)
+
+    def smooth(self, k: int, b, x, steps):
+        d = self.ops[k]
+        return super().smooth(k, b, x, steps) if d is None \
+            else d.smooth(b, x, steps)
+
+    def restrict(self, x, kf: int, kc: int):
+        g = self.grids[kf]
+        return restrict_steps(x, g.ny, g.nx, self.grids[kc].g - g.g,
+                              self.plan)
+
+    def prolong(self, x, kc: int, kf: int):
+        g = self.grids[kc]
+        return prolong_steps(x, g.ny, g.nx, g.g - self.grids[kf].g,
+                             self.plan)
+
+    def _dots(self, pairs, sharded):
+        """The sum of the grids' dots: the sharded ones' over the ranks
+        (one all-reduce), the replicated ones' as they are."""
+        loc = rep = None
+        for (x, y), s in zip(pairs, sharded):
+            d = torch.dot(x.reshape(-1), y.reshape(-1))
+            if s:
+                loc = d if loc is None else loc + d
+            else:
+                rep = d if rep is None else rep + d
+        if loc is not None:
+            loc = allreduce_sum(loc, self.plan)
+        return loc if rep is None else (rep if loc is None else loc + rep)
+
+    def dot(self, x, y):
+        if isinstance(x, torch.Tensor):  # a flat state (FGMRES's vectors)
+            x, y = (unflatten(v, self.state_shapes) for v in (x, y))
+        return self._dots(zip(x, y), self.sharded)
+
+    def grid_norm(self, k: int, x):
+        return torch.sqrt(self._dots([(x, x)], [self.sharded[k]]))
+
+    def local(self, state) -> tuple:
+        """This rank's part of a whole state: each sharded grid's block
+        (a grid already cut to its block kept), each replicated grid."""
+        return tuple(x if d is None or x.shape[0] == d.R else d.block_of(x)
+                     for x, d in zip(state, self.ops))
+
+    def real_rows(self, state) -> tuple:
+        """The state without the pad rows: each block's rows inside its
+        grid."""
+        return tuple(x if d is None else x[:d.nyl]
+                     for x, d in zip(state, self.ops))
+
+    def gathered(self, solve):
+        """``solve`` of the whole level run on this rank's part: the
+        sharded grids gathered ("coarsest"), the solve, this rank's part
+        of it (a merged coarsest level solved directly; collective)."""
+        def run(b):
+            whole = tuple(
+                x if d is None
+                else all_gather_rows(x, self.plan, "coarsest")[:d.ny]
+                for x, d in zip(b, self.ops))
+            return self.local(solve(whole))
+
+        return run

@@ -16,16 +16,18 @@ not ported.
 Every all-gather is counted by what it gathers (``gathers``, and its
 bytes as this rank sends them in ``gathered_bytes``; cleared by the
 caller, as ``ops.cuda.launches``):
-  "agglomerate"  the restricted rows of a sharded level onto the
-                 replicated level below it (JAX's agglomeration);
+  "agglomerate"  the restricted rows of a sharded level or grid onto the
+                 replicated level or grid below it (JAX's
+                 agglomeration; inside a merged level too);
   "line"         the y-line smoother's segment carries across the ranks
                  (on the CPU: the line right-hand sides);
   "coarsest"     a sharded coarsest level solved directly (where JAX
-                 runs it through GSPMD and densifies it; a small level);
+                 runs it through GSPMD and densifies it; a small level),
+                 or the sharded grids of a directly solved merged one;
   "solution"     the level-0 solution or a checkpoint's state.
-No cycle gathers a sharded level's own rows whole: a solve's gathers
-inside its iterations are "agglomerate", "line" and "coarsest" only,
-which the tests and ``chip_smoke.py`` assert.
+No cycle gathers a sharded level's or grid's own rows whole: a solve's
+gathers inside its iterations are "agglomerate", "line" and "coarsest"
+only, which the tests and ``chip_smoke.py`` assert.
 """
 
 from __future__ import annotations

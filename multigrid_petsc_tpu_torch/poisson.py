@@ -144,10 +144,12 @@ def _run(cfg: SolverConfig, device: str, plan) -> int:
           + (f" route={res.route}" if res.route else "")
           + (f" outer_dtype={res.outer_dtype}" if res.outer_dtype else ""))
     if plan is not None:
+        # Each sharded level's sharded grids (a merged level's joined by /).
         print(f"distributed: ranks={plan.size} transport={plan.transport} "
               f"sharded levels=" + ",".join(
-                  str(lc.spec.primary.ny) for lc in res.ctx.levels
-                  if lc.dist is not None))
+                  "/".join(str(g.ny) for g, s in zip(lc.spec.grids,
+                                                     lc.split) if s)
+                  for lc in res.ctx.levels if lc.sharded))
     if cfg.backend == "sparse":
         print("sparse level forms: " + " ".join(
             "/".join(f"{n}:{op.form}" for n, op in (

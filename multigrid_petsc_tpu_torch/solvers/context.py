@@ -51,10 +51,16 @@ and the whole transfers are block-local; sharded -> replicated, the rc
 blocks are all-gathered; replicated -> sharded, the up visit cuts its
 rows of the whole coarse correction.  Inside a cycle nothing else is
 gathered but the y-lines' carries and a sharded coarsest level that JAX
-solves directly (``parallel.halo.gathers``).  Every single-grid cycle and both precision outers run
-under a plan (the preconditioner context under the same plan); the
-merged-grid cycles, a merged level the plan would shard, the blocks
-layout and the sparse backend raise (ROADMAP).
+solves directly (``parallel.halo.gathers``).  A merged level is split grid
+by grid, as JAX splits it (``ShardingPlan.shards``): its operator set
+(``LevelCtx.grid_ops``, ``parallel.DistMergedOps``) runs each sharded
+grid on its block through K17 and each replicated grid whole through K6
+and K7, its couplings one transfer gap at a time (block-local between two
+sharded sizes), and its inner product sums the sharded grids' dots over
+the ranks and adds the replicated grids' once.  Every cycle, the
+merged-grid ones included, and both precision outers run under a plan
+(the preconditioner context under the same plan); the blocks layout and
+the sparse backend raise (ROADMAP).
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
 from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as sk9
 from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
 from multigrid_petsc_tpu_torch.ops.composite import (
+    GridOps,
     composite_apply,
     composite_residual,
     composite_rhs,
@@ -90,9 +97,13 @@ from multigrid_petsc_tpu_torch.ops.transfer import (
     prolong_bilinear,
     prolong_multi,
     restrict_fw,
-    restrict_multi,
 )
-from multigrid_petsc_tpu_torch.parallel.dist_ops import DistLevelOps
+from multigrid_petsc_tpu_torch.parallel.dist_ops import (
+    DistLevelOps,
+    DistMergedOps,
+    prolong_steps,
+    restrict_steps,
+)
 from multigrid_petsc_tpu_torch.parallel.halo import allreduce_sum
 from multigrid_petsc_tpu_torch.problems import (
     AnisoProblem,
@@ -148,16 +159,18 @@ class LevelCtx:
     (``sparse_full``: A, ``sparse_diag``: A1, ``sparse_coup``: A2;
     single-grid levels keep A only, which is A1).  A
     merged level (``spec.is_composite``) applies ``composite_apply`` over
-    its grids unless it is sparse; its smoother is block Gauss-Seidel
-    (``block_gs``), matrix-free even when sparse, as in the JAX
-    package."""
+    its operator set (``grid_ops``) unless it is sparse; its smoother is
+    block Gauss-Seidel (``block_gs``), matrix-free even when sparse, as in
+    the JAX package."""
 
     spec: LevelSpec
     stencil: Stencil5 | Stencil9  # the primary grid's
     dinv: torch.Tensor | tuple    # 1 / cc, per grid on a merged level
     smoother: SmootherType
     omega: float
-    lmax: float | None = None  # Chebyshev: lmax of D^-1 A, set up once
+    # Chebyshev: lmax of D^-1 A, set up once (of D^-1 A1 under the E and
+    # delayed cycles, whose smoother runs A1: ``cycles._diag_smoother``).
+    lmax: float | None = None
     coarse_solve: Callable | None = None
     # LINE_Y, LINE_XY: the stencil as a collapsed Stencil9 and its line
     # factors (``line_kernel.line_factor``), set up once; LINE_X, LINE_XY:
@@ -179,6 +192,9 @@ class LevelCtx:
     # block of the ny + pad_rows rows, every operation one K17 visit.
     dist: DistLevelOps | None = None
     pad_rows: int = 0
+    # A merged level's per-grid operators (GridOps; DistMergedOps when
+    # the plan shards its primary grid: each sharded grid's block).
+    grid_ops: GridOps | None = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -198,7 +214,20 @@ class LevelCtx:
     @property
     def state_shapes(self) -> list[tuple[int, int]]:
         """Every grid's state on this rank (the block when sharded)."""
+        if isinstance(self.grid_ops, DistMergedOps):
+            return self.grid_ops.state_shapes
         return [self.state_shape] if self.dist is not None else self.shapes
+
+    @property
+    def split(self) -> tuple[bool, ...]:
+        """Which of the level's grids run row-sharded on this rank."""
+        if self.grid_ops is not None:
+            return self.grid_ops.sharded
+        return (self.dist is not None,)
+
+    @property
+    def sharded(self) -> bool:
+        return any(self.split)
 
     @property
     def merged(self) -> bool:
@@ -240,19 +269,44 @@ class LevelCtx:
 
     def dot(self, x, y) -> torch.Tensor:
         """<x, y> over the level's whole state: a sharded level's local
-        dots summed over the ranks; a replicated level's as they are."""
+        dots summed over the ranks; a replicated level's as they are; a
+        merged level's through its operator set (each sharded grid's over
+        the ranks, each replicated grid's once)."""
+        if self.grid_ops is not None:
+            return self.grid_ops.dot(x, y)
         d = tree_dot(x, y)
         return d if self.dist is None else allreduce_sum(d, self.dist.plan)
 
     def norm2(self, x) -> torch.Tensor:
         return torch.sqrt(self.dot(x, x))
 
+    def grid_norm(self, k: int, x: torch.Tensor) -> torch.Tensor:
+        """||x|| of grid k's part of a state (-moreNorm's per-grid norm)."""
+        if self.grid_ops is not None:
+            return self.grid_ops.grid_norm(k, x)
+        return self.norm2(x)
+
     def vnorm(self, x: torch.Tensor) -> torch.Tensor:
         """||x|| of one tensor: as ``torch.linalg.vector_norm`` computes it
         on one device (the Krylov outers' norm), over the ranks
         (``norm2``) when the level is sharded."""
-        return torch.linalg.vector_norm(x) if self.dist is None \
-            else self.norm2(x)
+        return self.norm2(x) if self.sharded \
+            else torch.linalg.vector_norm(x)
+
+    def local(self, state):
+        """This rank's part of a whole level state (a part kept)."""
+        if self.grid_ops is not None:
+            return self.grid_ops.local(state)
+        if self.dist is not None and state.shape[0] != self.dist.R:
+            return self.dist.block_of(state)
+        return state
+
+    def real_rows(self, state):
+        """The state without its pad rows: each block's rows inside its
+        grid."""
+        if self.grid_ops is not None:
+            return self.grid_ops.real_rows(state)
+        return state if self.dist is None else state[:self.dist.nyl]
 
     def apply(self, u):
         if self.dist is not None:
@@ -260,7 +314,7 @@ class LevelCtx:
         if self.sparse:
             return self._op("sparse_full").apply(u)
         if self.merged:
-            return composite_apply(self.stencils, self.spec.gids, u)
+            return composite_apply(self.grid_ops, u)
         if self.nine:
             return sk9.apply_stencil9(self.stencil, u)
         return sk.apply_stencil5(self.stencil, u)
@@ -271,7 +325,7 @@ class LevelCtx:
         if self.sparse:
             return self._op("sparse_full").residual(b, u)
         if self.merged:
-            return composite_residual(self.stencils, self.spec.gids, b, u)
+            return composite_residual(self.grid_ops, b, u)
         if self.nine:
             return sk9.residual9(self.stencil, b, u)
         return sk.residual5(self.stencil, b, u)
@@ -282,8 +336,7 @@ class LevelCtx:
             return self.apply(u)
         if self.sparse:
             return self._op("sparse_diag").apply(u)
-        return composite_apply(self.stencils, self.spec.gids, u,
-                               include_couplings=False)
+        return composite_apply(self.grid_ops, u, include_couplings=False)
 
     def apply_couplings(self, u):
         """A2 u: the coupling blocks only (zero on one grid)."""
@@ -291,16 +344,12 @@ class LevelCtx:
             return torch.zeros_like(u)
         if self.sparse:
             return self._op("sparse_coup").apply(u)
-        return composite_apply(self.stencils, self.spec.gids, u,
-                               include_diag=False)
+        return composite_apply(self.grid_ops, u, include_diag=False)
 
     def zeros(self):
         cc = self.stencil.cc
-        if self.dist is not None:
-            return torch.zeros(self.state_shape, dtype=cc.dtype,
-                               device=cc.device)
         z = tuple(torch.zeros(s, dtype=cc.dtype, device=cc.device)
-                  for s in self.shapes)
+                  for s in self.state_shapes)
         return z if self.merged else z[0]
 
     def steps_fn(self, sweeps: int):
@@ -342,8 +391,8 @@ class LevelCtx:
         if self.dist is not None:
             return self._smooth_dist(b, u, sweeps)
         if self.block_gs:
-            return sm.composite_block_gs(self.stencils, self.spec.gids, b, u,
-                                         sweeps, inner=self.block_gs_inner,
+            return sm.composite_block_gs(self.grid_ops, b, u, sweeps,
+                                         inner=self.block_gs_inner,
                                          omega=self.omega)
         if self.smoother == SmootherType.RBGS:
             return sor_redblack_sweeps(self.stencil, b, u, sweeps,
@@ -449,24 +498,35 @@ class MGContext:
     # output IS the next level's rhs and the next level's solution IS the
     # up visit's coarse correction; from a sharded level to a replicated
     # one the rc blocks are gathered first, and the sharded level's up
-    # visit takes the whole replicated correction.
+    # visit takes the whole replicated correction.  The further gaps to a
+    # merged next level go one at a time in each grid's layout
+    # (``restrict_steps``, ``prolong_steps``: block-local between sharded
+    # sizes, gathered at the first replicated one).
     def _gaps(self, l: int, extra: int):
         g0 = self.levels[l].spec.primary.g
         return [g.g - g0 - extra for g in self.levels[l + 1].spec.grids]
 
+    def _down_grids(self, l: int, x):
+        """``x`` on level l+1's primary grid, then its successive
+        restrictions onto the level's coarser grids."""
+        out = [x]
+        for g in self.levels[l + 1].spec.grids[:-1]:
+            out.append(restrict_steps(out[-1], g.ny, g.nx, 1, self.plan))
+        return tuple(out)
+
     def restrict_rc1(self, l: int, rc1: torch.Tensor):
         cur, nxt = self.levels[l], self.levels[l + 1]
-        if cur.dist is not None and nxt.dist is None:
+        if cur.dist is not None and not nxt.split[0]:
             rc1 = cur.dist.gather_coarse(rc1)
-        if not nxt.merged:
-            return rc1
-        return tuple(restrict_multi(rc1, gap) for gap in self._gaps(l, 1))
+        return self._down_grids(l, rc1) if nxt.merged else rc1
 
     def prolong_half(self, l: int, u_next) -> torch.Tensor:
-        if not self.levels[l + 1].merged:
+        nxt = self.levels[l + 1]
+        if not nxt.merged:
             return u_next
-        return _sum(prolong_multi(ug, gap)
-                    for ug, gap in zip(u_next, self._gaps(l, 1)))
+        return _sum(prolong_steps(ug, g.ny, g.nx, gap, self.plan)
+                    for ug, g, gap in zip(u_next, nxt.spec.grids,
+                                          self._gaps(l, 1)))
 
     # Whole transfers (FMG, the Additive cycles): plain PyTorch, as the
     # JAX package computes them outside its kernels.  Between two sharded
@@ -477,18 +537,9 @@ class MGContext:
     # finer one is.
     def restrict_to_next(self, l: int, r: torch.Tensor):
         """Level l's primary-grid residual onto every grid of level l+1."""
-        cur, nxt = self.levels[l], self.levels[l + 1]
-        if cur.dist is not None:
-            rc = cur.dist.restrict(r)
-            if nxt.dist is not None:
-                return rc
-            rc = cur.dist.gather_coarse(rc)
-            if not nxt.merged:
-                return rc
-            return tuple(restrict_multi(rc, gap) for gap in self._gaps(l, 1))
-        if not nxt.merged:
-            return restrict_fw(r)
-        return tuple(restrict_multi(r, gap) for gap in self._gaps(l, 0))
+        g = self.levels[l].spec.primary
+        rc = restrict_steps(r, g.ny, g.nx, 1, self.plan)
+        return self._down_grids(l, rc) if self.levels[l + 1].merged else rc
 
     def prolong_from_next(self, l: int, u_next) -> torch.Tensor:
         """Every grid of level l+1 onto level l's primary grid, summed."""
@@ -498,10 +549,7 @@ class MGContext:
                 return prolong_bilinear(u_next)
             return _sum(prolong_multi(ug, gap)
                         for ug, gap in zip(u_next, self._gaps(l, 0)))
-        if nxt.merged:  # a replicated merged level below a sharded one
-            u_next = _sum(prolong_multi(ug, gap)
-                          for ug, gap in zip(u_next, self._gaps(l, 1)))
-        return cur.dist.prolong(u_next)
+        return cur.dist.prolong(self.prolong_half(l, u_next))
 
 
 def _sum(terms):
@@ -518,21 +566,12 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
                  CycleType.ECYCLE)
 
 
-# The merged-grid cycles (one merged level): not under a plan.
-_MERGED_CYCLES = (*_SPLIT_CYCLES, CycleType.ICYCLE)
-_MERGED_ITEM = "distribution, merged levels and the merged-grid cycles " \
-               "under a plan"
-
-
 def _check_supported(cfg: SolverConfig, plan) -> None:
     if plan is not None:
         if cfg.backend == "sparse":
             raise ValueError(
                 "backend='sparse' is the single-device explicit-operator "
                 "path; use backend='auto'/'pallas' for distributed runs")
-        if cfg.cycle in _MERGED_CYCLES:
-            raise not_ported(f"the {cfg.cycle.name} cycle under a plan",
-                             _MERGED_ITEM)
     if cfg.problem not in ("poisson", "aniso"):
         raise ValueError(f"unknown problem {cfg.problem!r}")
     if cfg.problem == "aniso" and cfg.grids != cfg.levels:
@@ -666,16 +705,11 @@ def _use_dist(lc: LevelCtx, plan) -> bool:
     where they do not (another smoother than Jacobi or Chebyshev,
     non-separable 9-point coefficients, a block too small for the halo).
     The port runs all of these on the row block (K17 ships every
-    coefficient as it is; ROADMAP: kept for parity).  A merged level the
-    plan would shard raises."""
-    if plan is None or plan.size == 1:
-        return False
+    coefficient as it is; ROADMAP: kept for parity).  A merged level runs
+    sharded where its primary grid is, each of its grids split as the plan
+    splits it (``_shard``)."""
     g = lc.spec.primary
-    if plan.spec(g.ny, g.nx) != "rows":
-        return False  # replicated (agglomerated)
-    if lc.merged:
-        raise not_ported("a row-sharded merged level", _MERGED_ITEM)
-    return True
+    return plan is not None and plan.shards(g.ny, g.nx)
 
 
 def _jax_dist_kernels(lc: LevelCtx, whole_stencil) -> bool:
@@ -691,10 +725,18 @@ def _jax_dist_kernels(lc: LevelCtx, whole_stencil) -> bool:
 def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
     """Put ``lc`` on this rank's row block (JAX context.py:945-961), its
     smoother's set-up with it (RBGS's colours by the global parity, the
-    line smoothers' stencils and factors of the block)."""
+    line smoothers' stencils and factors of the block); a merged level
+    grid by grid (``DistMergedOps``: the sharded grids' blocks, the
+    replicated grids whole)."""
+    lc.pad_rows = 1
+    if lc.merged:
+        ops = lc.grid_ops = DistMergedOps(lc.stencils, lc.spec.grids, plan,
+                                          cfg.max_sweeps)
+        lc.stencils, lc.dinv = ops.stencils, ops.dinv
+        lc.stencil = ops.stencils[0]
+        return
     g = lc.spec.primary
     d = lc.dist = DistLevelOps(lc.stencil, g.ny, g.nx, plan, cfg.max_sweeps)
-    lc.pad_rows = 1
     lc.dinv = d.dinv
     if lc.smoother == SmootherType.RBGS:
         d.setup_rbgs(lc.omega)
@@ -732,7 +774,9 @@ def _build(cfg: SolverConfig, problem: Problem | None,
                       omega=cfg.omega, stencils=sts, sparse=sparse,
                       block_gs=(spec.is_composite
                                 and cfg.composite_smoother == "block_gs"),
-                      block_gs_inner=cfg.v[0])
+                      block_gs_inner=cfg.v[0],
+                      grid_ops=(GridOps(sts, spec.gids) if spec.is_composite
+                                else None))
         if sparse:
             _assemble(lc, cfg, device, dtype)
         shard = _use_dist(lc, plan)
@@ -740,6 +784,10 @@ def _build(cfg: SolverConfig, problem: Problem | None,
             _check_smoother(lc)
             if cfg.cycle not in _SPLIT_CYCLES:
                 _setup_smoother(lc, factors=not shard)
+        if (l == 0 and cfg.cycle in _SPLIT_CYCLES
+                and cfg.smoother == SmootherType.CHEBYSHEV):
+            lc.lmax = sm.estimate_dinv_a_lmax(  # of D^-1 A1, whole
+                lc.apply_diag, lc.dinv, lc.shapes if lc.merged else lc.shape)
         whole_stencil = lc.stencil  # the coarsest level's direct solve's
         if shard:  # after lmax, which JAX estimates on the whole grid
             _shard(lc, cfg, plan)
@@ -754,21 +802,24 @@ def _build(cfg: SolverConfig, problem: Problem | None,
         if mode == "cg" or (last.dist is not None
                             and _jax_dist_kernels(last, whole_stencil)):
             # A coarsest level on JAX's dist kernels iterates CG, as in
-            # JAX (its direct solve densifies the whole operator).
+            # JAX (its direct solve densifies the whole operator); a
+            # merged one takes JAX's rule unchanged (its merged levels
+            # carry no pad rows).
             last.coarse_solve = build_cg_solver(
                 last.apply, last.state_shapes, cfg.coarse_cg_iters,
-                dot=last.dot if last.dist else None)
+                dot=last.dot if last.sharded else None)
         elif last.dist is not None:
             # One JAX shards through GSPMD is solved directly, densified
             # whole: its rows are gathered for the solve.
             last.coarse_solve = last.dist.gathered(
                 build_direct_solver(whole_stencil, last.shape))
         elif last.merged:
-            # The merged operator, couplings included, from its CSR.
+            # The merged operator, couplings included, from its CSR; under
+            # a plan its sharded grids gathered for the solve.
             dense = dense_from_csr(*assemble_level_csr(
                 cfg.npts, cfg.mesh, last.spec.gids))
-            last.coarse_solve = dense_solver(dense, last.shapes, dtype,
-                                             device)
+            last.coarse_solve = last.grid_ops.gathered(
+                dense_solver(dense, last.shapes, dtype, device))
         else:
             last.coarse_solve = build_direct_solver(last.stencil, last.shape)
 
@@ -778,8 +829,7 @@ def _build(cfg: SolverConfig, problem: Problem | None,
     b0 = rhs_grid_of(cfg, problem, g0.ny, g0.nx, dtype, device)
     if levels[0].merged:
         b0 = composite_rhs(b0, levels[0].spec.gids)
-    if levels[0].dist is not None:
-        b0 = levels[0].dist.block_of(b0)
+    b0 = levels[0].local(b0)
     return MGContext(config=cfg, problem=problem, levels=levels, b0=b0,
                      dtype=dtype, device=device, plan=plan)
 

@@ -17,16 +17,18 @@ cycles are in ``solvers/delayed.py``).
 Smoothing and operator applications go through the levels (K6/K7 per
 grid, or the assembled operator's K8 / K16 / ELL gather on the card);
 the filters and transfers are plain PyTorch, as in the JAX package.
-Additive and Additive2 run under a plan too: their reductions go through
-level 0 (``LevelCtx.dot`` / ``norm2``, summed over the ranks) and their
-transfers are block-local between sharded levels.
+Every cycle here runs under a plan too: its reductions go through level
+0 (``LevelCtx.dot`` / ``norm2`` / ``grid_norm``: a sharded grid's summed
+over the ranks, a replicated grid's counted once), its transfers are
+block-local between sharded sizes, and a merged level 0's operations run
+through its operator set (K17 on a sharded grid's block).
 """
 
 from __future__ import annotations
 
 import torch
 
-from multigrid_petsc_tpu_torch.ops.norms import tree_map, tree_norm2
+from multigrid_petsc_tpu_torch.ops.norms import tree_map
 from multigrid_petsc_tpu_torch.solvers import smoothers as smod
 from multigrid_petsc_tpu_torch.solvers.context import MGContext
 from multigrid_petsc_tpu_torch.solvers.outer import (
@@ -47,7 +49,8 @@ def _grid_monitor(ctx: MGContext, residual_fn, b):
     grid's residual 2-norm (the rNormGridMonitor analogue, reference
     src/solver.c:1382-1399, 2017-2018)."""
     cfg = ctx.config
-    G = len(ctx.levels[0].spec.grids)
+    lvl = ctx.levels[0]
+    G = len(lvl.spec.grids)
     length = min(cfg.max_iter, cfg.hist_len) + 1
     r_global = torch.zeros(length, dtype=ctx.dtype, device=ctx.device)
     r_grid = torch.zeros((G, length), dtype=ctx.dtype, device=ctx.device)
@@ -56,7 +59,7 @@ def _grid_monitor(ctx: MGContext, residual_fn, b):
         idx = min(i, length - 1)
         r_global[idx] = rn
         for g, rg in enumerate(_grids(residual_fn(b, u))):
-            r_grid[g, idx] = tree_norm2(rg)
+            r_grid[g, idx] = lvl.grid_norm(g, rg)
 
     record.aux = lambda: {"r_global": r_global, "r_grid": r_grid}
     return record
@@ -70,15 +73,13 @@ def _residual_diag(lvl):
 
 def _diag_smoother(ctx: MGContext, lvl):
     """The smoother over the grid-diagonal blocks A1 only (Chebyshev with
-    its own lmax, or damped Jacobi)."""
+    the lmax of D^-1 A1, estimated on the whole grids at set-up, or damped
+    Jacobi)."""
     cfg = ctx.config
     if cfg.smoother == SmootherType.CHEBYSHEV:
-        lmax = smod.estimate_dinv_a_lmax(
-            lvl.apply_diag, lvl.dinv, lvl.shapes if lvl.merged else lvl.shape)
-
         def smooth(b, u, sweeps):
             return smod.chebyshev(lvl.apply_diag, lvl.dinv, b, u, sweeps,
-                                  lmax)
+                                  lvl.lmax)
     else:
         def smooth(b, u, sweeps):
             return smod.jacobi(lvl.apply_diag, lvl.dinv, b, u, sweeps,
@@ -98,7 +99,7 @@ def solve_icycle(ctx: MGContext, b0=None) -> OuterResult:
 
     mon = _grid_monitor(ctx, lvl.residual, b) if cfg.more_norm else None
     return outer_iterate(step, lvl.residual, b, lvl.zeros(), cfg,
-                         monitor=mon)
+                         monitor=mon, norm=lvl.norm2)
 
 
 def solve_ecycle(ctx: MGContext, b0=None) -> OuterResult:
@@ -120,7 +121,7 @@ def solve_ecycle(ctx: MGContext, b0=None) -> OuterResult:
 
     mon = _grid_monitor(ctx, residual_diag, b) if cfg.more_norm else None
     return outer_iterate(step, residual_diag, b, lvl.zeros(), cfg,
-                         monitor=mon)
+                         monitor=mon, norm=lvl.norm2)
 
 
 def solve_additive(ctx: MGContext, b0: torch.Tensor | None = None) -> OuterResult:

@@ -9,6 +9,10 @@ restricted to levels == 1, src/poisson.c:61-65).
     restriction of the residual on grid g - 1 (src/solver.c:879-953);
     delayed prolongation corrects each grid g <= G - 2 with the one-gap
     bilinear prolongation of grid g + 1's iterate (src/solver.c:955-1033).
+    Both go through the level's operator set: under a plan block-local
+    between two sharded grids, gathered ("agglomerate") from a sharded
+    grid onto a replicated one, cut from a replicated grid into a sharded
+    one; the norms through the level (a sharded grid's over the ranks).
   * The residual the transfers read is the one computed at the END of the
     previous outer iteration: stale on purpose, that is the delay
     (src/solver.c:2562-2571).
@@ -23,8 +27,6 @@ from __future__ import annotations
 
 import torch
 
-from multigrid_petsc_tpu_torch.ops.norms import tree_norm2
-from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 from multigrid_petsc_tpu_torch.solvers import smoothers as smod
 from multigrid_petsc_tpu_torch.solvers.context import MGContext
 from multigrid_petsc_tpu_torch.solvers.cycles import (
@@ -35,18 +37,19 @@ from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, keep_going
 from multigrid_petsc_tpu_torch.utils.config import CycleType
 
 
-def _restrict_delayed(b: tuple, r: tuple) -> tuple:
+def _restrict_delayed(ops, b: tuple, r: tuple) -> tuple:
     """b[0] kept (f on the finest grid); every coarser grid gets the
     one-gap restriction of the stale residual on the next finer grid."""
-    return (b[0],) + tuple(restrict_fw(r[g - 1]) for g in range(1, len(r)))
+    return (b[0],) + tuple(ops.restrict(r[g - 1], g - 1, g)
+                           for g in range(1, len(r)))
 
 
-def _prolong_correct(u: tuple) -> tuple:
+def _prolong_correct(ops, u: tuple) -> tuple:
     """Every grid but the last corrected by the one-gap prolongation of
     the next coarser grid's current iterate."""
     G = len(u)
-    return tuple(u[g] + prolong_bilinear(u[g + 1]) if g < G - 1 else u[g]
-                 for g in range(G))
+    return tuple(u[g] + ops.prolong(u[g + 1], g + 1, g) if g < G - 1
+                 else u[g] for g in range(G))
 
 
 def solve_delayed(ctx: MGContext, kind: CycleType, b0=None) -> OuterResult:
@@ -61,10 +64,11 @@ def solve_delayed(ctx: MGContext, kind: CycleType, b0=None) -> OuterResult:
     smooth = _diag_smoother(ctx, lvl)
     residual_diag = _residual_diag(lvl)
     b = ctx.b0 if b0 is None else b0
-    bnorm = float(tree_norm2(b))
+    ops, norm = lvl.grid_ops, lvl.norm2
+    bnorm = float(norm(b))
     u = lvl.zeros()
     r = residual_diag(b, u)
-    rn_t = tree_norm2(r)
+    rn_t = norm(r)
     hist_len = min(cfg.hist_len, cfg.max_iter)
     hist = torch.zeros(hist_len + 1, dtype=rn_t.dtype, device=rn_t.device)
     hist[0] = rn_t
@@ -86,9 +90,9 @@ def solve_delayed(ctx: MGContext, kind: CycleType, b0=None) -> OuterResult:
         for s in range(v + 1):
             rr = residual_diag(b, u)
             idx = min(i * (v + 1) + s, mon_len - 1)
-            r_global[idx] = tree_norm2(rr)
+            r_global[idx] = norm(rr)
             for g in range(G):
-                r_grid[g, idx] = tree_norm2(rr[g])
+                r_grid[g, idx] = lvl.grid_norm(g, rr[g])
             if s < v:
                 u = smod.jacobi(lvl.apply_diag, lvl.dinv, b, u, 1, cfg.omega)
         return u
@@ -96,22 +100,22 @@ def solve_delayed(ctx: MGContext, kind: CycleType, b0=None) -> OuterResult:
     rn, i = float(rn_t), 0
     while keep_going(cfg, i, rn, bnorm):
         if kind == CycleType.D1CYCLE:
-            b = _restrict_delayed(b, r)
-            u = _prolong_correct(u)
+            b = _restrict_delayed(ops, b, r)
+            u = _prolong_correct(ops, u)
             u = do_smooth(b, u, i, True)
         elif kind == CycleType.D2CYCLE:
-            b = _restrict_delayed(b, r)
+            b = _restrict_delayed(ops, b, r)
             u = do_smooth(b, u, i, True)
-            u = _prolong_correct(u)
+            u = _prolong_correct(ops, u)
         elif kind == CycleType.D1PSCYCLE:
-            u = _prolong_correct(u)
+            u = _prolong_correct(ops, u)
             u = do_smooth(b, u, i, True)
-            b = _restrict_delayed(b, r)
+            b = _restrict_delayed(ops, b, r)
             u = do_smooth(b, u, i, False)
         else:
             raise ValueError(f"not a delayed cycle: {kind}")
         r = residual_diag(b, u)
-        rn_t = tree_norm2(r)
+        rn_t = norm(r)
         hist[min(i + 1, hist_len)] = rn_t
         i += 1
         rn = float(rn_t)  # the stop test: the one host read per iteration

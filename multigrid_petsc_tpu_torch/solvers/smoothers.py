@@ -28,7 +28,6 @@ from typing import Callable
 import torch
 
 from multigrid_petsc_tpu_torch.ops.norms import tree_map
-from multigrid_petsc_tpu_torch.ops.transfer import prolong_multi, restrict_multi
 
 
 def estimate_dinv_a_lmax(apply_fn: Callable, dinv, shapes,
@@ -96,8 +95,7 @@ def chebyshev(apply_fn: Callable, dinv, b, u, sweeps: int, lmax: float,
     return u
 
 
-def composite_block_gs(stencils, gids: tuple[int, ...], b, u,
-                       sweeps: int, inner: int = 3,
+def composite_block_gs(ops, b, u, sweeps: int, inner: int = 3,
                        omega: float = 0.8) -> tuple:
     """Grid-ordered block Gauss-Seidel on a merged level (the JAX
     package's ``composite_block_gs``; the reference smooths the merged
@@ -105,12 +103,10 @@ def composite_block_gs(stencils, gids: tuple[int, ...], b, u,
     which point Jacobi cannot replace: the coupling blocks break diagonal
     dominance).  One sweep visits the grids fine to coarse, moves the
     couplings to the rhs with the latest iterates, and runs ``inner``
-    damped-Jacobi steps on the grid's own block: K7 on the card (the
-    same steps, u += omega D^-1 (rhs - A u)), its plain version on the
-    CPU; the couplings' A_f through K6."""
-    # Imported here: the kernel wrappers import this module's schedules.
-    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
-
+    damped-Jacobi steps on the grid's own block (u += omega D^-1 (rhs -
+    A u)).  ``ops`` is the level's operator set (``ops.composite.
+    GridOps``): on one device K7 for the steps and K6 for the couplings'
+    A_f; under a plan K17 on a sharded grid's block."""
     G = len(u)
     steps = jacobi_step_coeffs(inner, omega)
     for _ in range(sweeps):
@@ -118,12 +114,10 @@ def composite_block_gs(stencils, gids: tuple[int, ...], b, u,
         for k in range(G):
             rhs = b[k]
             for kf in range(k):  # couplings from finer grids (R A_f rows)
-                rhs = rhs - restrict_multi(
-                    sk.apply_stencil5(stencils[kf], u[kf]), gids[k] - gids[kf])
+                rhs = rhs - ops.restrict(ops.apply(kf, u[kf]), kf, k)
             for kc in range(k + 1, G):  # from coarser grids (A_f P rows)
-                rhs = rhs - sk.apply_stencil5(
-                    stencils[k], prolong_multi(u[kc], gids[kc] - gids[k]))
-            u[k] = sk.smooth_sweeps(stencils[k], rhs, u[k], steps)
+                rhs = rhs - ops.apply(k, ops.prolong(u[kc], kc, k))
+            u[k] = ops.smooth(k, rhs, u[k], steps)
         u = tuple(u)
     return u
 

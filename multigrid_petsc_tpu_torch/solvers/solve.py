@@ -19,11 +19,13 @@ solves A e = b - A u0 from zero to the rtol that keeps the stop target
 rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
 
 Under a plan (``plan=``, every rank calling ``solve`` alike) the solve
-runs on the plan's device; ``u0`` is the whole level-0 grid, of which each
-rank takes its rows, or the rank's (R, nx) block (a checkpoint's under the
-plan, ``utils.checkpoint.load``); ``SolveResult.u`` is this rank's block
-of the solution (its real rows), and ``u_fine`` the whole grid, gathered
-from every rank (a collective: every rank reads it).
+runs on the plan's device; ``u0`` is the whole level-0 state, of which
+each rank takes its rows of every sharded grid, or the rank's part of it
+(a checkpoint's under the plan, ``utils.checkpoint.load``: each sharded
+grid's (R, nx) block); ``SolveResult.u`` is this rank's block of the
+primary grid's solution (its real rows), ``u_local`` this rank's part of
+every grid, and ``u_fine`` / ``u_grids`` the whole grids, gathered from
+every rank (a collective: every rank reads them).
 """
 
 from __future__ import annotations
@@ -83,25 +85,37 @@ class SolveResult:
     # The outer dtype the mixed outer ran in ("float64", also for
     # outer_dtype="float32x2"), None without one.
     outer_dtype: str | None = None
-    # Every grid of the level-0 state (one entry unless level 0 is merged).
-    u_grids: tuple = ()
+    # This rank's part of every grid of the level-0 state (one entry unless
+    # level 0 is merged): each sharded grid's real rows, the others whole.
+    u_local: tuple = ()
     # -moreNorm: the monitors' arrays, cut to the iterations run (numpy).
     aux: dict | None = None
     # Seconds per phase: "solve", and with profile_phases the level-0
     # building blocks (smooth_v, residual, restrict, prolong, norm).
     phases: dict | None = None
-    _whole: np.ndarray | None = None
+    _whole: tuple | None = None
+
+    @property
+    def u_grids(self) -> tuple:
+        """Every grid of the level-0 solution on the solve's device; under
+        a plan each sharded grid gathered from every rank's block, once
+        (a collective)."""
+        lvl0 = self.ctx.levels[0]
+        if not lvl0.sharded:
+            return self.u_local
+        if self._whole is None:
+            self._whole = tuple(
+                torch.as_tensor(gather_solution(x, self.ctx.plan, g.ny),
+                                device=x.device) if s else x
+                for x, g, s in zip(self.u_local, lvl0.spec.grids,
+                                   lvl0.split))
+        return self._whole
 
     @property
     def u_fine(self) -> np.ndarray:
         """The level-0 primary-grid solution as a numpy array; under a
-        plan gathered from every rank's block, once (a collective)."""
-        if self.ctx.plan is None or self.ctx.levels[0].dist is None:
-            return self.u.detach().cpu().numpy()
-        if self._whole is None:
-            self._whole = gather_solution(self.u, self.ctx.plan,
-                                          self.ctx.levels[0].shape[0])
-        return self._whole
+        plan gathered from every rank's block (a collective)."""
+        return self.u_grids[0].detach().cpu().numpy()
 
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
@@ -126,8 +140,7 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
             u0 = torch.from_numpy(u0)
         u0 = tree_map(lambda x: torch.as_tensor(
             x, dtype=torch.float64 if mixed else ctx.dtype, device=dev), u0)
-        if lvl0.dist is not None and u0.shape[0] != lvl0.dist.R:
-            u0 = lvl0.dist.block_of(u0)
+        u0 = lvl0.local(u0)
         if not mixed:
             bn_orig = float(lvl0.norm2(b_in))
             b_in = lvl0.residual(b_in, u0)
@@ -169,11 +182,10 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
     u = res.u
     if u0 is not None and not mixed:
         u = tree_map(lambda a, b: a + b, u, u0)
-    if lvl0.dist is not None:  # this rank's real rows, the pad row cut
-        u = u[:max(0, min(lvl0.dist.R, lvl0.shape[0] - lvl0.dist.row0))]
+    u = lvl0.real_rows(u)  # this rank's real rows, the pad rows cut
     return SolveResult(
         u=primary(u),
-        u_grids=(u,) if isinstance(u, torch.Tensor) else u,
+        u_local=(u,) if isinstance(u, torch.Tensor) else u,
         aux=aux,
         phases=phases,
         rnorm=res.rnorm_history[: res.iters + 1].cpu().numpy(),

@@ -9,11 +9,13 @@ the JAX package's keys.  Both packages' ``SolverConfig`` have the same
 fields, so the fingerprints agree and a checkpoint written by either
 loads in the other.  A resume goes through ``solve(u0=...)``.
 
-Under a plan (``plan=``; JAX ``_to_host``, utils/checkpoint.py:31-76) the
-level-0 state is the ranks' row blocks: ``save`` gathers it (every rank
-calls it, a collective) and rank 0 writes the whole grid; ``load`` gives
-each rank its block of it (``DistLevelOps.block_of``'s rows, the pad row
-0), which ``solve(u0=...)`` under the same plan resumes from.
+Under a plan (``plan=``; JAX ``_to_host``, utils/checkpoint.py:31-76) each
+grid of the level-0 state the plan shards is the ranks' row blocks:
+``save`` gathers each such grid (every rank calls it, a collective) and
+rank 0 writes the whole grids; ``load`` gives each rank its block of each
+sharded grid (``DistLevelOps.block_of``'s rows, the pad row 0) and the
+replicated grids whole, which ``solve(u0=...)`` under the same plan
+resumes from.
 """
 
 from __future__ import annotations
@@ -41,19 +43,21 @@ def _fingerprint(cfg) -> str:
 def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
     """Write the checkpoint of level-0 state ``u`` (a tensor or array, a
     tuple of them on a merged level 0).  Under ``plan`` ``u`` is this
-    rank's row block of a sharded level 0 (``SolveResult.u``): every rank
-    calls ``save``, the blocks are gathered and rank 0 writes."""
+    rank's part of it (``SolveResult.u_local``; ``SolveResult.u`` on a
+    single-grid level 0): every rank calls ``save``, each sharded grid's
+    blocks are gathered and rank 0 writes."""
     if isinstance(u, (torch.Tensor, np.ndarray)):
         u = (u,)
     if plan is not None:
-        ny = build_hierarchy(cfg.npts, cfg.grids, cfg.levels)[0].primary.ny
-        if (ny + 1) % plan.size or len(u) != 1:
-            raise ValueError("under a plan the checkpoint holds one "
-                             "row-sharded grid")
-        whole = gather_solution(torch.as_tensor(u[0]), plan, ny)
+        grids = build_hierarchy(cfg.npts, cfg.grids, cfg.levels)[0].grids
+        if len(u) != len(grids):
+            raise ValueError(f"level 0 has {len(grids)} grids; the state "
+                             f"holds {len(u)}")
+        u = tuple(gather_solution(torch.as_tensor(x), plan, g.ny)
+                  if plan.shards(g.ny, g.nx) else x
+                  for x, g in zip(u, grids))
         if plan.rank != 0:
             return
-        u = (whole,)
     arrays = {f"u{i}": (x.detach().cpu().numpy()
                         if isinstance(x, torch.Tensor) else np.asarray(x))
               for i, x in enumerate(u)}
@@ -72,7 +76,8 @@ def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
 def load(path: str | Path, cfg, plan=None):
     """-> (u tuple of numpy arrays, rnorm, iters); raises on a
     configuration mismatch.  Under ``plan`` u holds this rank's (R, nx)
-    row block of the saved grid (R = (ny + 1) / ranks)."""
+    row block of each saved grid the plan shards (R = (ny + 1) / ranks),
+    the others whole."""
     with np.load(Path(path)) as z:
         fp = z["fingerprint"].item()
         fp = fp.decode() if isinstance(fp, bytes) else str(fp)
@@ -83,10 +88,15 @@ def load(path: str | Path, cfg, plan=None):
         n = int(z["n_grids"])
         u = tuple(z[f"u{i}"] for i in range(n))
         if plan is not None:
-            ny = u[0].shape[0]
-            R = (ny + 1) // plan.size
-            blk = np.zeros((R, u[0].shape[1]), u[0].dtype)
-            rows = u[0][plan.rank * R:(plan.rank + 1) * R]
-            blk[:rows.shape[0]] = rows
-            u = (blk,)
+            u = tuple(_block(x, plan) if plan.shards(*x.shape) else x
+                      for x in u)
         return u, z["rnorm"], int(z["iters"])
+
+
+def _block(x: np.ndarray, plan) -> np.ndarray:
+    """This rank's (R, nx) rows of a whole (ny, nx) grid, the pad row 0."""
+    R = (x.shape[0] + 1) // plan.size
+    blk = np.zeros((R, x.shape[1]), x.dtype)
+    rows = x[plan.rank * R:(plan.rank + 1) * R]
+    blk[:rows.shape[0]] = rows
+    return blk

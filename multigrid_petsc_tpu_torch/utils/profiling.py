@@ -20,7 +20,6 @@ from pathlib import Path
 
 import torch
 
-from multigrid_petsc_tpu_torch.ops.norms import tree_norm2
 
 
 def _time_op(fn, device: torch.device, reps: int) -> float:
@@ -64,7 +63,7 @@ def phase_breakdown(ctx, v: int | None = None, reps: int = 5) -> dict:
         un = ctx.levels[1].zeros()
         out["prolong"] = _time_op(lambda: ctx.prolong_from_next(0, un), dev,
                                   reps)
-    out["norm"] = _time_op(lambda: tree_norm2(b), dev, reps)
+    out["norm"] = _time_op(lambda: lvl0.norm2(b), dev, reps)
     return out
 
 

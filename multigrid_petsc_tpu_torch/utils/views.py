@@ -83,6 +83,11 @@ def _level_op(ctx, lvl, level: int) -> str:
     if lvl.dist is not None:
         return (f"K17(ranks x{lvl.dist.plan.size}, R={lvl.dist.R}, "
                 f"pad={lvl.pad_rows})")
+    if lvl.sharded:  # a merged level: each sharded grid's block rows
+        ops = lvl.grid_ops
+        return (f"K17(ranks x{ops.plan.size}, R=" + "/".join(
+            str(d.R) for d in ops.ops if d is not None)
+            + f", pad={lvl.pad_rows})")
     if lvl.sparse_full is not None:
         return f"sparse({lvl.sparse_full.form}, nnz={lvl.sparse_full.nnz})"
     op = "cuda" if ctx.device.type == "cuda" else "torch"
@@ -116,8 +121,8 @@ def view_solver(ctx) -> str:
         sweeps = cfg.v[1] if (l == L - 1 and L > 1) else cfg.v[0]
         layout = ""
         if ctx.plan is not None:
-            layout = " layout=" + ("rows" if lvl.dist is not None
-                                   else "replicated")
+            layout = " layout=" + "/".join(
+                "rows" if s else "replicated" for s in lvl.split)
         coarse = ""
         if l == L - 1 and L > 1:
             coarse = (" coarse=smooth" if lvl.coarse_solve is None

@@ -1,6 +1,6 @@
 """One rank of a CPU gloo world for the distributed port's tests
 (test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
-test_torch_dist_smoothers.py), and the helpers that start such a world
+test_torch_dist_smoothers.py, test_torch_dist_merged.py), and the helpers that start such a world
 and read its results (``spawn``, ``finish``, ``load``).  Not collected
 by pytest (no test_ prefix).
 
@@ -11,17 +11,21 @@ id, smoothers as their values), "min_local": int, "warm": bool, "view":
 bool, "nonsep": bool, "checkpoint": bool}.  Each rank solves every
 config under ``row_plan(min_local=...)`` on the CPU and writes
 OUTDIR/<name>.<rank>.npz: iterations, converged, the residual history,
-the gathered solution, which levels ran sharded and the all-gathers the
+the gathered solution (every grid of level 0 as ``grid<k>``), which levels
+ran sharded (``dist``; ``split``: each level's grids, as JSON), the
+-moreNorm monitors where the solve kept them, and the all-gathers the
 solve made (``parallel.halo.gathers``, as JSON); with "view" also
 OUTDIR/<name>.<rank>.view.txt, the solve's ``view_solver`` dump.
 "warm" solves 3 iterations first and restarts from that solution
 (``u0``); "checkpoint" does the same through a checkpoint under the plan
-(``utils.checkpoint.save`` / ``load``), and records the saved grid and
-the loaded block; "nonsep" multiplies the 9-point centre by
+(``utils.checkpoint.save`` / ``load``), and records the saved grids and
+the loaded blocks; "nonsep" multiplies the 9-point centre by
 ``nonsep_factor`` (coefficients no sum of an x- and a y-profile gives).
 The name "exchange" checks ``edge_exchange`` and ``allreduce_sum``
 instead, "refuse" records what each case of ``REFUSALS`` raises, and
-"units" runs ``units``: a sharded level's operators on row blocks.
+"units" runs ``units``: a sharded level's operators on row blocks, and
+"merged_units" runs ``merged_units``: a merged level's operators on
+its grids' blocks.
 """
 
 import dataclasses
@@ -93,8 +97,7 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
 # What a plan refuses: (case, SolverConfig fields) -> the exception raised.
 REFUSALS = {
     "sparse": dict(backend="sparse"),
-    "D1": dict(cycle=3, levels=1),
-    "I": dict(cycle=1, levels=1),
+    "bf16": dict(dtype="bfloat16"),
 }
 
 
@@ -246,6 +249,73 @@ def all_gather(x, plan):
     return all_gather_rows(x, plan, "solution")
 
 
+# merged_units: the merged level of grids 0-3 at npts 129 under
+# row_plan(min_local=8) on 4 ranks (blocks of 32, 16 and 8 rows, grid 3
+# replicated), f64, mesh 1.
+MERGED_NPTS, MERGED_GIDS = 129, (0, 1, 2, 3)
+
+
+def merged_inputs(seed: int) -> tuple:
+    """A whole state of the merged_units level from numpy (``seed``)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(((MERGED_NPTS - 1) // 2**g - 1,) * 2)
+                 for g in MERGED_GIDS)
+
+
+def merged_units(rank: int, world: int, out: Path) -> None:
+    """A merged level's operators on its grids' blocks
+    (``DistMergedOps``), from whole inputs every rank makes alike
+    (``merged_inputs(1)`` u, ``merged_inputs(2)`` b), gathered and
+    written to OUTDIR/merged_units.<rank>.npz: A u, A1 u, A2 u, b - A u,
+    one block Gauss-Seidel sweep of 3 inner steps, the transfers from
+    grid 0 to grid 3 and back (restriction: block-local, then gathered at
+    grid 3; prolongation: cut, then block-local), <u, b> and grid 2's
+    norm, and the gathers each made."""
+    from multigrid_petsc_tpu_torch.hierarchy import GridSpec, grid_interior
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops import composite as comp
+    from multigrid_petsc_tpu_torch.parallel import DistMergedOps
+    from multigrid_petsc_tpu_torch.problems import stencil_coefficients
+    from multigrid_petsc_tpu_torch.solvers import smoothers as sm
+
+    plan = row_plan(min_local=8, device="cpu")
+    grids = [GridSpec(g, grid_interior(MERGED_NPTS, g),
+                      grid_interior(MERGED_NPTS, g)) for g in MERGED_GIDS]
+    sts = [stencil_coefficients(MeshType(1), g.ny, g.nx, torch.float64,
+                                "cpu") for g in grids]
+    ops = DistMergedOps(sts, grids, plan, 3)
+    u = ops.local(tuple(map(torch.as_tensor, merged_inputs(1))))
+    b = ops.local(tuple(map(torch.as_tensor, merged_inputs(2))))
+
+    def whole(state):
+        return [np.asarray(all_gather(x, plan)[:g.ny]) if d is not None
+                else np.asarray(x) for x, g, d in zip(state, grids, ops.ops)]
+
+    res = {"sharded": np.asarray(ops.sharded)}
+    for name, fn in (
+            ("A", lambda: comp.composite_apply(ops, u)),
+            ("A1", lambda: comp.composite_apply(ops, u,
+                                                include_couplings=False)),
+            ("A2", lambda: comp.composite_apply(ops, u, include_diag=False)),
+            ("res", lambda: comp.composite_residual(ops, b, u)),
+            ("bgs", lambda: sm.composite_block_gs(ops, b, u, 1, inner=3,
+                                                  omega=0.8))):
+        halo.gathers.clear()
+        got = fn()
+        res[name + "_gathers"] = json.dumps(dict(halo.gathers))
+        for k, x in enumerate(whole(got)):
+            res[f"{name}{k}"] = x
+    halo.gathers.clear()
+    down = ops.restrict(u[0], 0, 3)
+    up = ops.prolong(u[3], 3, 0)
+    res["down_gathers"] = json.dumps(dict(halo.gathers))
+    res["down"] = np.asarray(down)
+    res["up"] = whole((up,) + tuple(u[1:]))[0]
+    res["dot"] = np.asarray(ops.dot(u, b))
+    res["norm2"] = np.asarray(ops.grid_norm(2, u[2]))
+    np.savez(out / f"merged_units.{rank}.npz", **res)
+
+
 def main() -> None:
     rank, world, port = (int(a) for a in sys.argv[1:4])
     out = Path(sys.argv[4])
@@ -265,6 +335,9 @@ def main() -> None:
             if name == "units":
                 units(rank, world, out)
                 continue
+            if name == "merged_units":
+                merged_units(rank, world, out)
+                continue
             plan = row_plan(min_local=spec["min_local"], device="cpu")
             cfg = config(spec["cfg"])
             if spec.get("nonsep"):
@@ -279,19 +352,32 @@ def main() -> None:
                 assert not part.converged
             if spec.get("checkpoint"):
                 path = out / f"{name}.ck.npz"
-                checkpoint.save(path, cfg, part.u, part.rnorm, part.iters,
-                                plan=plan)
+                checkpoint.save(path, cfg, part.u_local, part.rnorm,
+                                part.iters, plan=plan)
                 dist.barrier()
-                (u0,), rn, its = checkpoint.load(path, cfg, plan=plan)
-                extra = dict(saved=np.load(path)["u0"], part_u=part.u_fine,
-                             block=u0, part_iters=its)
+                u0, rn, its = checkpoint.load(path, cfg, plan=plan)
+                with np.load(path) as z:
+                    saved = [z[f"u{k}"] for k in range(int(z["n_grids"]))]
+                part_grids = [np.asarray(x) for x in part.u_grids]
+                extra = dict(saved=saved[0], part_u=part.u_fine,
+                             block=u0[0], part_iters=its,
+                             n_saved=len(saved), saved_last=saved[-1],
+                             part_last=part_grids[-1],
+                             block_last=u0[-1])
             halo.gathers.clear()
             res = solve(cfg, plan=plan, u0=u0)
             gathers = json.dumps(dict(halo.gathers))
+            if res.aux is not None:
+                extra.update(r_global=res.aux["r_global"],
+                             r_grid=res.aux["r_grid"])
+            extra.update({f"grid{k}": np.asarray(x)
+                          for k, x in enumerate(res.u_grids)})
             np.savez(out / f"{name}.{rank}.npz", iters=res.iters,
                      converged=res.converged, rnorm=res.rnorm,
                      u=res.u_fine, path=res.path, route=str(res.route),
-                     dist=[lv.dist is not None for lv in res.ctx.levels],
+                     dist=[lv.sharded for lv in res.ctx.levels],
+                     split=json.dumps([list(lv.split)
+                                       for lv in res.ctx.levels]),
                      block_rows=res.u.shape[0], gathers=gathers, **extra)
             if spec.get("view"):
                 (out / f"{name}.{rank}.view.txt").write_text(

@@ -94,10 +94,11 @@ def test_composite_apply_and_residual_match_jax(gids, mesh, variant):
     ju, u = _random(shapes, 1)
     jb, b = _random(shapes, 2)
     kw = dict(include_diag=variant[0], include_couplings=variant[1])
-    for g, w in zip(comp.composite_apply(st, gids, u, **kw),
+    ops = comp.GridOps(st, gids)
+    for g, w in zip(comp.composite_apply(ops, u, **kw),
                     jcomp.composite_apply(jst, gids, ju, **kw)):
         _close(g, w)
-    for g, w in zip(comp.composite_residual(st, gids, b, u, **kw),
+    for g, w in zip(comp.composite_residual(ops, b, u, **kw),
                     jcomp.composite_residual(jst, gids, jb, ju, **kw)):
         _close(g, w)
 
@@ -118,8 +119,8 @@ def test_block_gs_matches_jax(gids, sweeps, inner):
     jb, b = _random(shapes, 6)
     want = jsm.composite_block_gs(jst, gids, tuple(1.0 / s.cc for s in jst),
                                   jb, ju, sweeps, inner=inner, omega=0.8)
-    got = sm.composite_block_gs(st, gids, b, u, sweeps, inner=inner,
-                                omega=0.8)
+    got = sm.composite_block_gs(comp.GridOps(st, gids), b, u, sweeps,
+                                inner=inner, omega=0.8)
     for g, w in zip(got, want):
         _close(g, w, 1e-10)
 

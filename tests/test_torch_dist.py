@@ -4,7 +4,7 @@ version on the 5-point stencil against JAX's ``DistLevelOps`` in interpret
 mode on the conftest's 8-device row mesh, every emit; a 4-rank gloo world
 (``_dist_worker.py``, started once for the module and run beside the
 kernel tests) for ``edge_exchange`` / ``allreduce_sum``, what a plan
-refuses (the blocks layout, the merged-grid cycles, the sparse backend),
+refuses (the blocks layout, the bf16 working dtype, the sparse backend),
 and the V-cycle and mg-CG solves against JAX's 4-device row-plan
 solves.
 
@@ -246,8 +246,7 @@ def test_edge_exchange_and_allreduce(world):
 def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
     ROADMAP (the sparse backend: JAX's ValueError), on every rank: the
-    blocks layout and the merged-grid cycles (D1, I), which name their
-    item."""
+    blocks layout and the bf16 working dtype, which name their item."""
     out = world()
     got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
            for r in range(dw.WORLD)}
@@ -258,7 +257,7 @@ def test_plan_refuses(world, case):
     else:
         assert msg.startswith("NotImplementedError") and "ROADMAP" in msg
         item = ("the blocks layout" if case == "blocks" else
-                "merged levels and the merged-grid cycles under a plan")
+                "the bf16 working dtype")
         assert item in msg, msg
 
 
