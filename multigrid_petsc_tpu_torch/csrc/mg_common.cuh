@@ -40,12 +40,13 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, size_t i, float x) {
 }
 
 // A 9-point stencil's coefficients in device memory.  Coefficient q lives
-// at p[q][(gy - oy) * sy[q] + gx * sx[q]]: strides (nx, 1) for an (ny, nx)
-// field, (1, 0) for an (ny, 1) column, (0, 1) for a (1, nx) row, (0, 0) for
-// a scalar; oy is the first global row the coefficients that vary with y
-// hold (0 for a whole grid; a row block of a row-partitioned level holds
-// only the rows around its own).  Order: csw, cs, cse, cw, cc, ce, cnw, cn,
-// cne (the JAX package's Stencil9).
+// at p[q][(gy - oy) * sy[q] + (gx - ox) * sx[q]]: strides (w, 1) for a
+// field of w columns, (1, 0) for an (ny, 1) column, (0, 1) for a row, (0,
+// 0) for a scalar; oy (ox) is the first global row (column) the
+// coefficients that vary with y (x) hold (0 for a whole grid; a block of a
+// partitioned level holds only the rows and columns around its own).
+// Order: csw, cs, cse, cw, cc, ce, cnw, cn, cne (the JAX package's
+// Stencil9).
 enum { CSW = 0, CS, CSE, CW, CC, CE, CNW, CN, CNE };
 
 template <class T>
@@ -54,6 +55,7 @@ struct Coeffs9 {
   int sy[9];
   int sx[9];
   int oy = 0;
+  int ox = 0;
 };
 
 // 9-point coefficients from host arrays (the C entries' arguments): 9
@@ -73,7 +75,8 @@ inline Coeffs9<T> coeffs9(const unsigned long long* ptrs, const int* strides) {
 template <class T>
 __device__ __forceinline__ compute_t<T> coef_at(const Coeffs9<T>& c, int q,
                                                 int gy, int gx) {
-  return to_c(c.p[q][(size_t)(gy - c.oy) * c.sy[q] + (size_t)gx * c.sx[q]]);
+  return to_c(c.p[q][(size_t)(gy - c.oy) * c.sy[q] +
+                      (size_t)(gx - c.ox) * c.sx[q]]);
 }
 
 // Bilinear prolongation of the coarse field e (nyc x nxc, zero ring) at

@@ -1,13 +1,14 @@
 // The f32 instantiations of the level-visit and stencil kernels
-// (visit.cuh): every entry of MG_VISIT_ENTRIES and MG_VISIT_ROWS_ENTRIES
-// (K17's row-block visit), plus the kernels that run in f32 only -- K1 and
-// K11 (the mg-CG direction steps), K2a/K10 (the CG flag set of mg_visit)
-// and K8 (the field-coefficient stencil).
+// (visit.cuh): every entry of MG_VISIT_ENTRIES and MG_VISIT_PART_ENTRIES
+// (K17: a row block or a 2-D block of a partitioned level), plus the
+// kernels that run in f32 only -- K1 and K11 (the mg-CG direction steps),
+// K2a/K10 (the CG flag set of mg_visit) and K8 (the field-coefficient
+// stencil).
 
 #include "visit.cuh"
 
 MG_VISIT_ENTRIES(, float)
-MG_VISIT_ROWS_ENTRIES(, float)
+MG_VISIT_PART_ENTRIES(, float)
 
 extern "C" {
 
@@ -59,7 +60,7 @@ int mg_stencil_field(const float* cs, const float* cw, const float* cc,
                      const float* u, float* y, int ny, int nx, int resid,
                      void* stream) {
   Fields5<float> c{cs, cw, cc, ce, cn};
-  return launch_stencil<float>(c, b, u, y, whole_grid<float>(ny), nx, resid,
+  return launch_stencil<float>(c, b, u, y, whole_grid<float>(ny, nx), nx, resid,
                                stream);
 }
 

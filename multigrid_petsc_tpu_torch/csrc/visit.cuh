@@ -41,20 +41,26 @@
 //   K14 visit9_kernel (every flag set but CG) <- stencil9_kernel.py
 //       fused_level_visit9_pallas
 //   K17 visit5_kernel, visit9_kernel, stencil_kernel and apply9_kernel on
-//       a row block (RowBlock below; every flag set but CG, both stencils,
-//       f32 and f64) <-
-//       dist_kernel.py dist_level_visit_local
+//       a block of a partitioned level (Block below: a row block of the
+//       rows layout, or a 2-D block of the blocks layout; every flag set
+//       but CG, both stencils, f32 and f64; row blocks in bf16 too) <-
+//       dist_kernel.py dist_level_visit_local (the row blocks; JAX runs
+//       its 2-D blocks as XLA ops under GSPMD, which no Pallas kernel
+//       replaces)
 //
-// Every launch covers a RowBlock: a whole grid, or one rank's block of a
-// row-partitioned level (K17).  A block reads its own rows of b, u and e in
-// place and the rows past it from small halo buffers that the neighbours'
-// exchange filled (zeros at the global edges), so no extended copy of the
-// block is made per visit.  Masking, the coefficients and the restriction's
-// pad-row rule go by the GLOBAL row: rows at or past the domain's last row
-// (the row partition's one pad row) are written as 0, as is the global
-// coarse pad row of rc.  A block of R rows needs halo rows of the visit's
-// H (below) and, to correct, H / 2 + 1 coarse rows; the wrappers assert
-// H <= R, so rows come from the immediate neighbours only.
+// Every launch covers a Block: a whole grid, or one rank's block of a
+// partitioned level (K17).  A block reads its own points of b, u and e in
+// place and the points past it from small halo buffers that the
+// neighbours' exchange filled (zeros at the global edges; a 2-D block's
+// top and bottom buffers carry the corners), so no extended copy of the
+// block is made per visit.  Masking, the coefficients, the prolongation
+// and the restriction's pad rule go by the GLOBAL point: points at or past
+// the domain's last row or column (the partition's one pad row, and under
+// the blocks layout its pad column) are written as 0, as are the global
+// coarse pad row and column of rc.  A block needs halos of the visit's H
+// (below) and, to correct, H / 2 + 1 coarse points; the wrappers assert
+// that H fits a split axis's extent, so points come from the immediate
+// neighbours only.
 //
 // Storage types: f32 and f64 compute in their own type; bf16 is storage
 // only -- every load converts to f32, the arithmetic (smoother steps,
@@ -165,87 +171,200 @@ struct VisitIO {
   compute_t<T>* part;         // CG: ||r'||^2 partials; DOT: <b, u> partials
 };
 
-// The rows a launch covers: R local rows from global row row0 (even) of a
-// domain of nyg real rows.  A whole grid is R = nyg, row0 = 0, Rc = (nyg -
-// 1) / 2 and no halo buffers.  A row block (K17) reads its rows above and
-// below from b_top / u_top and b_bot / u_bot (hn rows each, (hn, nx)), the
-// coarse correction's from e_top / e_bot (hc rows each, (hc, nxc)); its
-// coarse block (e, rc) has Rc = R / 2 rows.
+// The part of a level a launch covers: R x C local points from the global
+// point (row0, col0) (both even) of a domain of nyg x nxg real points.  A
+// whole grid is R = nyg, C = nxg, row0 = col0 = 0, Rc = (nyg - 1) / 2, Cc
+// = (nxg - 1) / 2 and no halo buffers.  A block of a partitioned level
+// (K17) reads the points past it from halo buffers its neighbours'
+// exchange filled (zeros at the global edges): b_top / b_bot (and u's)
+// hold hn rows of C + 2 hx points each, the corners included, b_left /
+// b_right R rows of hx points each; the coarse correction's e_top / e_bot
+// hold hc rows of Cc + 2 hcx points, e_left / e_right Rc rows of hcx.  Its
+// coarse block (e, rc) is Rc x Cc = R / 2 x C / 2 (floor: an axis that is
+// not split has an odd extent).  A row block of the rows layout is a
+// block with C = nxg, col0 = 0 and hx = hcx = 0 (no left or right
+// buffers); a 2-D block of the blocks layout has hx = hn and hcx = hc.
 template <class T>
-struct RowBlock {
+struct Block {
   int R, row0, nyg, hn, Rc, hc;
+  int C, col0, nxg, hx, Cc, hcx;
   const T* b_top;
   const T* b_bot;
   const T* u_top;
   const T* u_bot;
   const T* e_top;
   const T* e_bot;
+  const T* b_left;
+  const T* b_right;
+  const T* u_left;
+  const T* u_right;
+  const T* e_left;
+  const T* e_right;
+
+  // Local point (ly, lx) of u (an R x C block with halos of depth hn, hx);
+  // null past the halos (such points are never needed: they stay zero).
+  __device__ __forceinline__ const T* u_at(const T* u, int ly, int lx) const;
 };
 
+// One local column lx of a field held as a block with halo buffers: its
+// rows inside the block in `mid` (the block itself, or a left or right
+// halo buffer) with stride ms, the rows above and below in `top` / `bot`
+// with stride ws (hy of each); null where the column passes the halos.  A
+// thread's column is fixed for a whole visit, so which buffer holds it is
+// found once (column_of), and a point costs a row test.
 template <class T>
-inline RowBlock<T> whole_grid(int ny) {
-  return RowBlock<T>{ny,      0,       ny,      0,       (ny - 1) / 2, 0,
-                     nullptr, nullptr, nullptr, nullptr, nullptr,      nullptr};
+struct Column {
+  const T* mid;
+  const T* top;
+  const T* bot;
+  int ms, ws, R, hy;
+
+  __device__ __forceinline__ const T* at(int ly) const {
+    if (ly < 0)
+      return top != nullptr && ly >= -hy ? top + (size_t)(ly + hy) * ws
+                                         : nullptr;
+    if (ly >= R)
+      return bot != nullptr && ly - R < hy ? bot + (size_t)(ly - R) * ws
+                                           : nullptr;
+    return mid != nullptr ? mid + (size_t)ly * ms : nullptr;
+  }
+};
+
+// Column lx of an R x C block `m` with halo buffers: top / bot hy rows of
+// C + 2 hx points, left / right R rows of hx points.
+template <class T>
+__device__ __forceinline__ Column<T> column_of(const T* m, const T* top,
+                                               const T* bot, const T* left,
+                                               const T* right, int lx, int R,
+                                               int C, int hy, int hx) {
+  const bool ring = lx >= -hx && lx < C + hx;
+  Column<T> c{nullptr, nullptr, nullptr, hx, C + 2 * hx, R, hy};
+  if (ring) {
+    c.top = top + (lx + hx);
+    c.bot = bot + (lx + hx);
+  }
+  if (lx >= 0 && lx < C) {
+    c.mid = m + lx;
+    c.ms = C;
+  } else if (ring) {
+    c.mid = lx < 0 ? left + (lx + hx) : right + (lx - C);
+  }
+  return c;
 }
 
-// A row block from the C entries' host arrays: geom = R, row0, nyg, hn, Rc,
-// hc; halos = b_top, b_bot, u_top, u_bot, e_top, e_bot (device pointers).
+// A block's column lx of b or u, or coarse column lx of e.
 template <class T>
-inline RowBlock<T> row_block(const int* geom, const unsigned long long* h) {
+__device__ __forceinline__ Column<T> b_column(const Block<T>& rb,
+                                              const T* b, int lx) {
+  return column_of(b, rb.b_top, rb.b_bot, rb.b_left, rb.b_right, lx, rb.R,
+                   rb.C, rb.hn, rb.hx);
+}
+
+template <class T>
+__device__ __forceinline__ Column<T> u_column(const Block<T>& rb,
+                                              const T* u, int lx) {
+  return column_of(u, rb.u_top, rb.u_bot, rb.u_left, rb.u_right, lx, rb.R,
+                   rb.C, rb.hn, rb.hx);
+}
+
+template <class T>
+__device__ __forceinline__ Column<T> e_column(const Block<T>& rb,
+                                              const T* e, int lx) {
+  return column_of(e, rb.e_top, rb.e_bot, rb.e_left, rb.e_right, lx, rb.Rc,
+                   rb.Cc, rb.hc, rb.hcx);
+}
+
+template <class T>
+inline Block<T> whole_grid(int ny, int nx) {
+  Block<T> b{};
+  b.R = b.nyg = ny;
+  b.C = b.nxg = nx;
+  b.Rc = (ny - 1) / 2;
+  b.Cc = (nx - 1) / 2;
+  return b;
+}
+
+// A block from the part entries' host arrays: geom = R, row0, nyg, hn, Rc,
+// hc, C, col0, nxg, hx, Cc, hcx; halos = b_top, b_bot, u_top, u_bot,
+// e_top, e_bot, b_left, b_right, u_left, u_right, e_left, e_right.
+template <class T>
+inline Block<T> part_block(const int* g, const unsigned long long* h) {
   auto ptr = [&](int i) { return reinterpret_cast<const T*>(h[i]); };
-  return RowBlock<T>{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5],
-                     ptr(0),  ptr(1),  ptr(2),  ptr(3),  ptr(4),  ptr(5)};
+  return Block<T>{g[0],   g[1],   g[2],   g[3],   g[4],   g[5],
+                  g[6],   g[7],   g[8],   g[9],   g[10],  g[11],
+                  ptr(0), ptr(1), ptr(2), ptr(3), ptr(4), ptr(5),
+                  ptr(6), ptr(7), ptr(8), ptr(9), ptr(10), ptr(11)};
 }
 
-// Local row ly (< 0 above the block, >= R below it) of a field held as an
-// R-row block `mid` with halo buffers of hn rows, each row w wide; null
-// past the halos (such rows are never needed: they stay zero).
+// Local point (ly, lx) of a field held as an R x C block `mid` with halo
+// buffers: top / bot hy rows of C + 2 hx points, left / right R rows of
+// hx points; null past the halos.
 template <class T>
-__device__ __forceinline__ const T* block_row(const T* mid, const T* top,
-                                              const T* bot, int ly, int R,
-                                              int hn, int w) {
-  if (ly < 0) return ly >= -hn ? top + (size_t)(ly + hn) * w : nullptr;
-  if (ly >= R) return ly - R < hn ? bot + (size_t)(ly - R) * w : nullptr;
-  return mid + (size_t)ly * w;
+__device__ __forceinline__ const T* block_at(const T* mid, const T* top,
+                                             const T* bot, const T* left,
+                                             const T* right, int ly, int lx,
+                                             int R, int C, int hy, int hx) {
+  if (ly < 0 || ly >= R) {
+    if (lx < -hx || lx >= C + hx) return nullptr;
+    const size_t w = (size_t)C + 2 * hx;
+    if (ly < 0) return ly >= -hy ? top + (ly + hy) * w + (lx + hx) : nullptr;
+    return ly - R < hy ? bot + (ly - R) * w + (lx + hx) : nullptr;
+  }
+  if (lx < 0) return lx >= -hx ? left + (size_t)ly * hx + (lx + hx) : nullptr;
+  if (lx >= C)
+    return lx - C < hx ? right + (size_t)ly * hx + (lx - C) : nullptr;
+  return mid + (size_t)ly * C + lx;
 }
 
-// The global row at which a launch stops reading coefficients: the
-// domain's end, or a row block's hn rows past it.  A row block's 9-point
-// coefficients hold only the rows around it (dist_kernel checks that they
-// hold [row0 - hn, row0 + R + hn)), and a fixed region or tile may reach
-// past them; such rows lie beyond every output's reach (as b and u past
-// the halos, which block_row leaves 0), so they are staged as 0, not read.
+template <class T>
+__device__ __forceinline__ const T* Block<T>::u_at(const T* u, int ly,
+                                                   int lx) const {
+  return block_at(u, u_top, u_bot, u_left, u_right, ly, lx, R, C, hn, hx);
+}
+
+// The global row (column) at which a launch stops reading coefficients:
+// the domain's end, or a block's halo past it.  A block's 9-point
+// coefficients hold only the rows and columns around it (dist_kernel
+// checks that they hold [row0 - hn, row0 + R + hn) x [col0 - hx, col0 + C
+// + hx)), and a fixed region or tile may reach past them; such points lie
+// beyond every output's reach (as b and u past the halos, which the
+// readers above leave 0), so they are staged as 0, not read.
 template <class T, bool ROWS>
-__device__ __forceinline__ int row_end(const RowBlock<T>& rb) {
+__device__ __forceinline__ int row_end(const Block<T>& rb) {
   return ROWS ? min(rb.nyg, rb.row0 + rb.R + rb.hn) : rb.nyg;
 }
 
-// Bilinear prolongation of the coarse correction at the global fine point
-// (gy, gx), in the compute type (the arithmetic of mg::prolong_at and
-// ops/transfer.prolong_bilinear); coarse rows at or past the domain's
-// (nyg - 1) / 2, the coarse pad row among them, count as zero.
+template <class T, bool ROWS>
+__device__ __forceinline__ int col_end(const Block<T>& rb) {
+  return ROWS ? min(rb.nxg, rb.col0 + rb.C + rb.hx) : rb.nxg;
+}
+
+// Bilinear prolongation of a block's coarse correction at the global fine
+// point (gy, gx), in the compute type (the arithmetic of mg::prolong_at
+// and ops/transfer.prolong_bilinear), from the point's coarse columns J =
+// gx / 2 (cj) and J - 1 (cjm) of e (e_column); coarse points outside [0,
+// (nyg - 1) / 2) x [0, (nxg - 1) / 2), the coarse pad row and column among
+// them, count as zero.
 template <class T>
-__device__ __forceinline__ compute_t<T> prolong_rows(const T* e,
-                                                     const RowBlock<T>& rb,
-                                                     int gy, int gx, int nxc) {
+__device__ __forceinline__ compute_t<T> prolong_block(const Column<T>& cj,
+                                                      const Column<T>& cjm,
+                                                      const Block<T>& rb,
+                                                      int gy, int gx) {
   using C = compute_t<T>;
-  const int nyc = (rb.nyg - 1) / 2, c0 = rb.row0 / 2;
-  // Each coarse row the point reads is found once (null: zero).
-  auto row = [&](int I) -> const T* {
-    if (I < 0 || I >= nyc) return nullptr;
-    return block_row(e, rb.e_top, rb.e_bot, I - c0, rb.Rc, rb.hc, nxc);
-  };
-  auto at = [&](const T* r, int J) -> C {
-    return r != nullptr && J >= 0 && J < nxc ? to_c(r[J]) : C(0);
-  };
+  const int nyc = (rb.nyg - 1) / 2, nxc = (rb.nxg - 1) / 2;
+  const int c0 = rb.row0 / 2;
   const int I = gy >> 1, J = gx >> 1;
+  auto at = [&](int Ix, int Jx) -> C {
+    if (Ix < 0 || Ix >= nyc || Jx < 0 || Jx >= nxc) return C(0);
+    const T* p = (Jx == J ? cj : cjm).at(Ix - c0);
+    return p != nullptr ? to_c(*p) : C(0);
+  };
   const bool oy = gy & 1, ox = gx & 1;
-  const T* r1 = row(I);
-  if (oy && ox) return at(r1, J);
-  if (oy) return (at(r1, J - 1) + at(r1, J)) * C(0.5);
-  const T* r0 = row(I - 1);
-  if (ox) return (at(r0, J) + at(r1, J)) * C(0.5);
-  return (at(r0, J - 1) + at(r0, J) + at(r1, J - 1) + at(r1, J)) * C(0.25);
+  if (oy && ox) return at(I, J);
+  if (oy) return (at(I, J - 1) + at(I, J)) * C(0.5);
+  if (ox) return (at(I - 1, J) + at(I, J)) * C(0.5);
+  return (at(I - 1, J - 1) + at(I - 1, J) + at(I, J - 1) + at(I, J)) *
+         C(0.25);
 }
 
 // ---- 5-point coefficients staged for a tile: cs, cw, cc, ce, cn, dinv.
@@ -380,7 +499,7 @@ constexpr int halo(int emit, int k) {
 }
 
 template <class T, class K>
-using VisitFn = void (*)(K, VisitIO<T>, RowBlock<T>, int, int,
+using VisitFn = void (*)(K, VisitIO<T>, Block<T>, int, int,
                          const compute_t<T>*, int);
 
 // ---- The 5-point visit (K2a, K2b, K3, K7, K9, K10, K17's 5-point
@@ -496,16 +615,18 @@ __device__ __forceinline__ C apply5(const Row5<C>& k, C c, C s, C n, C w,
 }
 
 // The bilinear prolongation of the coarse correction e onto a thread's
-// strip: RS fine rows from global row gy at column gx.  Each coarse row the
-// strip reads is read once, as the sum its x-interpolation needs (odd gx:
-// e[X][J]; even: e[X][J - 1] + e[X][J]); the weights follow the row and
-// column parity, so the arithmetic is mg::prolong_at's but for the order
-// of the four-point sum, and no lane branches on its column.  Coarse rows
-// outside [0, (nyg - 1) / 2) -- the coarse pad row among them -- and a
-// row block's rows past its halo buffers count as zero.
+// strip: RS fine rows from global row gy at global column gx.  Each coarse
+// row the strip reads is read once, as the sum its x-interpolation needs
+// (odd gx: e[X][J]; even: e[X][J - 1] + e[X][J]); the weights follow the
+// row and column parity, so the arithmetic is mg::prolong_at's but for the
+// order of the four-point sum, and no lane branches on its column.  Coarse
+// points outside [0, (nyg - 1) / 2) x [0, nxc) -- the coarse pad row and
+// column among them -- and a block's points past its halo buffers count
+// as zero.  nxc is the domain's coarse columns (a whole grid's e is
+// nxc wide).
 template <class T, bool ROWS, int RS>
 __device__ __forceinline__ void prolong_strip(const T* e,
-                                              const RowBlock<T>& rb, int gy,
+                                              const Block<T>& rb, int gy,
                                               int gx, bool colin, int nxc,
                                               compute_t<T> (&pe)[RS]) {
   using C = compute_t<T>;
@@ -513,20 +634,28 @@ __device__ __forceinline__ void prolong_strip(const T* e,
   const int nyc = (rb.nyg - 1) / 2, J = gx >> 1, X0 = (gy >> 1) - 1;
   const bool ox = gx & 1, p = gy & 1;
   C sx[NS];
+  // ROWS: the block's coarse columns J and J - 1 of e and its halos.
+  const Column<T> cj = ROWS ? e_column(rb, e, J - rb.col0 / 2) : Column<T>{};
+  const Column<T> cjm =
+      ROWS ? e_column(rb, e, J - 1 - rb.col0 / 2) : Column<T>{};
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     const int X = X0 + k;
-    const T* r = nullptr;
-    if (colin && X >= 0 && X < nyc) {
-      if constexpr (ROWS)
-        r = block_row(e, rb.e_top, rb.e_bot, X - rb.row0 / 2, rb.Rc, rb.hc,
-                      nxc);
-      else
-        r = e + (size_t)X * nxc;
+    if constexpr (ROWS) {
+      auto at = [&](const Column<T>& col, int Jx) -> C {
+        if (!colin || X < 0 || X >= nyc || Jx < 0 || Jx >= nxc) return C(0);
+        const T* q = col.at(X - rb.row0 / 2);
+        return q != nullptr ? to_c(*q) : C(0);
+      };
+      const C a = at(cj, J);
+      sx[k] = ox ? a : at(cjm, J - 1) + a;
+    } else {
+      const T* r = colin && X >= 0 && X < nyc ? e + (size_t)X * nxc
+                                              : nullptr;
+      const C a = r != nullptr && J < nxc ? to_c(r[J]) : C(0);
+      const C w = r != nullptr && !ox && J >= 1 ? to_c(r[J - 1]) : C(0);
+      sx[k] = ox ? a : w + a;
     }
-    const C a = r != nullptr && J < nxc ? to_c(r[J]) : C(0);
-    const C w = r != nullptr && !ox && J >= 1 ? to_c(r[J - 1]) : C(0);
-    sx[k] = ox ? a : w + a;
   }
   const C w_odd = ox ? C(1) : C(0.5);      // odd fine row: coarse row I
   const C w_even = ox ? C(0.5) : C(0.25);  // even: rows I - 1 and I
@@ -542,16 +671,18 @@ __device__ __forceinline__ void prolong_strip(const T* e,
 
 // The level visit: [b = r - alpha ap] [u + P e] -> k steps -> the emits.
 // rc holds the coarse points whose 3x3 footprint the tile owns.  ROWS
-// (K17): the launch covers a row block; its local rows ly map to global
-// rows row0 + ly; masks, coefficients and the prolongation go by the
-// global row, reads and writes by the local, rows past the block come from
-// the halo buffers, and rows at or past the domain are written as 0.  A
-// whole grid (ROWS false) compiles to the plain indexing.  A block visits
-// the tile of its (blockIdx.x, blockIdx.y).
+// (K17): the launch covers a block of a partitioned level (a row block,
+// or a 2-D block of the blocks layout: Block); its local points (ly, lx)
+// map to global points (row0 + ly, col0 + lx); masks, coefficients and
+// the prolongation go by the global point, reads and writes by the local,
+// points past the block come from the halo buffers, and points at or past
+// the domain (the pad row and column) are written as 0; nx is the block's
+// width C.  A whole grid (ROWS false) compiles to the plain indexing.  A
+// block visits the tile of its (blockIdx.x, blockIdx.y).
 template <class T, bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT,
           bool ROWS, class RG>
 __global__ void __launch_bounds__(RG::NT, v5_min_blocks<compute_t<T>, RG>())
-visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
+visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
               const compute_t<T>* __restrict__ steps, int k) {
   using C = compute_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -559,10 +690,13 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   C* cur = crow + 8 * RG::SH;
   C* nxt = cur + RG::PN;
   C* red = nxt + RG::PN;
-  const int ny = rb.nyg, nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
-  // A whole grid's block is the grid: R = ny, Rc = nyc, row0 = 0.
+  // A whole grid's block is the grid: R = ny, C = nx, Rc = nyc, Cc = nxc,
+  // row0 = col0 = 0.  nxg and nxc: the domain's columns, coarse columns.
+  const int ny = rb.nyg, nyc = (ny - 1) / 2;
+  const int nxg = ROWS ? rb.nxg : nx, nxc = (nxg - 1) / 2;
   const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
-  const int Rc = ROWS ? rb.Rc : nyc;
+  const int col0 = ROWS ? rb.col0 : 0;
+  const int Rc = ROWS ? rb.Rc : nyc, Cc = ROWS ? rb.Cc : nxc;
   const int TY = RG::SH - 2 * H, TX = RG::SW - 2 * H;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int sx = (wid % RG::GX) * 32 + lane;  // the thread's region column
@@ -579,9 +713,9 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   }
 
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
-  const int gy0 = row0 + y0 - H, gx0 = x0 - H;  // global
-  const int gx = gx0 + sx;
-  const bool colin = gx >= 0 && gx < nx;
+  const int gy0 = row0 + y0 - H;  // global
+  const int lx = x0 - H + sx, gx = col0 + lx;  // the thread's column
+  const bool colin = gx >= 0 && gx < nxg;
   // The coefficient rows, 0 outside the domain (so dinv keeps those
   // rows of u at 0; the columns outside are masked by colin).
   if (threadIdx.x < RG::SH) {
@@ -603,6 +737,10 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   C bq[RG::RS], pq[RG::RS], pe[RG::RS];
   if constexpr (CORRECT)
     prolong_strip<T, ROWS>(io.e, rb, gy0 + r0, gx, colin, nxc, pe);
+  // ROWS: the thread's column of b and u, the block's or a halo's.
+  const Column<T> bcol = ROWS ? b_column(rb, io.b, lx) : Column<T>{};
+  const Column<T> ucol =
+      ROWS && GUESS ? u_column(rb, io.u, lx) : Column<T>{};
 #pragma unroll
   for (int i = 0; i < RG::RS; ++i) {
     const int sy = r0 + i, gy = gy0 + sy;
@@ -610,13 +748,10 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
     if (colin && gy >= 0 && gy < ny) {
       if constexpr (ROWS) {
         const int ly = y0 - H + sy;
-        const T* brow =
-            block_row(io.b, rb.b_top, rb.b_bot, ly, rb.R, rb.hn, nx);
-        if (brow != nullptr) {  // past the halos: never read, left 0
-          bv = to_c(brow[gx]);
-          if (GUESS)
-            uv = to_c(block_row(io.u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn,
-                                nx)[gx]);
+        const T* bp = bcol.at(ly);
+        if (bp != nullptr) {  // past the halos: never read, left 0
+          bv = to_c(*bp);
+          if (GUESS) uv = to_c(*ucol.at(ly));
           if (CORRECT) uv += pe[i];
         }
       } else {
@@ -669,17 +804,19 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   // The emits, each thread on its own points of the output tile (RC:
   // and the one more row / column of the restriction's footprint).
   const int tx = sx - H;
-  const bool xt = tx >= 0 && tx < TX && gx < nx;
+  const bool xt = tx >= 0 && tx < TX && lx < nx;
   const bool xf = tx >= 0 && tx <= TX;
+  // The pad row and column are 0.
+  const bool xin = !ROWS || gx < nxg;
   C acc = C(0);
   if constexpr (EMIT == EMIT_U) {
 #pragma unroll
     for (int i = 0; i < RG::RS; ++i) {
       const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
       if (!xt || ty < 0 || ty >= TY || ly >= R) continue;
-      const bool in = !ROWS || row0 + ly < ny;  // the pad row is 0
+      const bool in = xin && (!ROWS || row0 + ly < ny);
       const C uv = cur[RG::at(sy, sx)];
-      put(io.u_out, (size_t)ly * nx + gx, in ? uv : C(0));
+      put(io.u_out, (size_t)ly * nx + lx, in ? uv : C(0));
       if (DOT) acc += bq[i] * uv;
     }
   } else {
@@ -692,8 +829,8 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
       const C r =
           bq[i] - apply5(row5(crow + 8 * sy), c1, c0, c2, q[-1], q[1]);
       if (xt && ty >= 0 && ty < TY && ly < R) {
-        const bool in = !ROWS || row0 + ly < ny;
-        const size_t g = (size_t)ly * nx + gx;
+        const bool in = xin && (!ROWS || row0 + ly < ny);
+        const size_t g = (size_t)ly * nx + lx;
         if (EMIT != EMIT_R) put(io.u_out, g, in ? c1 : C(0));
         if (EMIT != EMIT_RC) put(io.r_out, g, in ? r : C(0));
         if (CG) {
@@ -703,7 +840,7 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
       }
       // Residual into the free buffer on the restriction's footprint.
       if (EMIT == EMIT_RC && xf && ty >= 0 && ty <= TY)
-        nxt[RG::at(sy, sx)] = gy0 + sy < ny && gx < nx ? r : C(0);
+        nxt[RG::at(sy, sx)] = gy0 + sy < ny && gx < nxg ? r : C(0);
       c0 = c1;
       c1 = c2;
       q += RG::PW;
@@ -712,21 +849,21 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   if constexpr (EMIT == EMIT_RC) {
     __syncthreads();
     // Full weighting, y pass first, then x (ops/transfer.restrict_fw); a
-    // warp per coarse row, its lanes along the coarse columns.  A row
-    // block's coarse rows at or past nyc (the global coarse pad row) are
-    // 0.
+    // warp per coarse row, its lanes along the coarse columns.  A block's
+    // coarse points at or past nyc or nxc (the global coarse pad row and
+    // column) are 0.
     for (int cy = wid; cy < TY / 2; cy += RG::NT / 32) {
       const int I = y0 / 2 + cy;  // local coarse row
       if (I >= Rc) break;
       for (int cx = lane; cx < TX / 2; cx += 32) {
-        const int J = x0 / 2 + cx;
-        if (J >= nxc) break;
+        const int J = x0 / 2 + cx;  // local coarse column
+        if (J >= Cc) break;
         const C* f = nxt + RG::at(2 * cy + H, 2 * cx + H);  // (2I, 2J)
         C ycol[3];
         for (int d = 0; d < 3; ++d)
           ycol[d] = f[d] + C(2) * f[RG::PW + d] + f[2 * RG::PW + d];
-        put(io.rc_out, (size_t)I * nxc + J,
-            !ROWS || row0 / 2 + I < nyc
+        put(io.rc_out, (size_t)I * Cc + J,
+            !ROWS || (row0 / 2 + I < nyc && col0 / 2 + J < nxc)
                 ? C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2])
                 : C(0));
       }
@@ -874,12 +1011,12 @@ bool aniso_layout(const Coeffs9<T>& c) {
 // above: entry q at base + sy * ys[q] + sx * xs[q]), without a division:
 // a field point by point along the threads' strips, a column or a row by
 // the first V9_SH or V9_SW threads.  Zero outside the domain and at or
-// past row yend (see row_end); dinv guards a zero cc as the JAX kernel
-// does.
+// past row yend or column xend (see row_end, col_end); dinv guards a zero
+// cc as the JAX kernel does.
 template <class T>
 __device__ Tile9<compute_t<T>> stage9(const Coeffs9<T>& c,
                                       compute_t<T>* base, int sx, int r0,
-                                      int gy0, int gx0, int yend, int nx) {
+                                      int gy0, int gx0, int yend, int xend) {
   using C = compute_t<T>;
   Tile9<C> t;
 #pragma unroll 1
@@ -891,10 +1028,10 @@ __device__ Tile9<compute_t<T>> stage9(const Coeffs9<T>& c,
     t.xs[q] = gxs ? 1 : 0;
     auto val = [&](int gy, int gx) -> C {
       const bool in = (!gys || (gy >= 0 && gy < yend)) &&
-                      (!gxs || (gx >= 0 && gx < nx));
+                      (!gxs || (gx >= 0 && gx < xend));
       if (!in) return C(0);
       const C v = to_c(c.p[src][(gys ? (size_t)(gy - c.oy) * gys : 0) +
-                                (gxs ? (size_t)gx * gxs : 0)]);
+                                (gxs ? (size_t)(gx - c.ox) * gxs : 0)]);
       return q == 9 ? (v == C(0) ? C(1) : C(1) / v) : v;
     };
     if (gys && gxs) {
@@ -977,26 +1114,28 @@ size_t visit9_smem_bytes(const Coeffs9<T>& c) {
 template <class T, bool GUESS, bool CORRECT, int EMIT, bool DOT, bool ROWS,
           bool ANISO>
 __global__ void __launch_bounds__(V9_NT, v9_min_blocks<compute_t<T>>())
-visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
+visit9_kernel(Coeffs9<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
               const compute_t<T>* __restrict__ steps, int k) {
   using C = compute_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* cur = reinterpret_cast<C*>(smem_raw);
   C* nxt = cur + V9_PN;
   C* red = nxt + V9_PN + coeff_elems(c, V9_SH, V9_SW);
-  const int ny = rb.nyg, nyc = (ny - 1) / 2, nxc = (nx - 1) / 2;
+  const int ny = rb.nyg, nyc = (ny - 1) / 2;
+  const int nxg = ROWS ? rb.nxg : nx, nxc = (nxg - 1) / 2;
   const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
-  const int Rc = ROWS ? rb.Rc : nyc;
+  const int col0 = ROWS ? rb.col0 : 0;
+  const int Rc = ROWS ? rb.Rc : nyc, Cc = ROWS ? rb.Cc : nxc;
   const int TY = v9_tile(V9_SH, H), TX = v9_tile(V9_SW, H);
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
-  const int gy0 = row0 + y0 - H, gx0 = x0 - H;           // global
+  const int gy0 = row0 + y0 - H, gx0 = col0 + x0 - H;    // global
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int sx = (wid % V9_GX) * 32 + lane;  // the thread's region column
   const int r0 = (wid / V9_GX) * V9_RS;      // its strip's first row
-  const int gx = gx0 + sx;
-  const bool colin = gx >= 0 && gx < nx;
+  const int gx = gx0 + sx, lx = gx - col0;  // the thread's column
+  const bool colin = gx >= 0 && gx < nxg;
   const Tile9<C> tile = stage9(c, nxt + V9_PN, sx, r0, gy0, gx0,
-                               row_end<T, ROWS>(rb), nx);
+                               row_end<T, ROWS>(rb), col_end<T, ROWS>(rb));
   // The zero rings of both u buffers.
   for (int t = threadIdx.x; t < 2 * V9_PW + 2 * V9_SH; t += V9_NT) {
     const int i = t < V9_PW       ? t
@@ -1010,6 +1149,16 @@ visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   // b into registers, the iterate (u + P e) into the shared buffer.
   C bq[V9_RS], pq[V9_RS];
   unsigned inmask = 0;  // bit i: the strip's point i lies in the domain
+  // ROWS: the thread's column of b and u, and its coarse columns gx / 2
+  // and gx / 2 - 1 of e, the block's or a halo's.
+  const Column<T> bcol = ROWS ? b_column(rb, io.b, lx) : Column<T>{};
+  const Column<T> ucol =
+      ROWS && GUESS ? u_column(rb, io.u, lx) : Column<T>{};
+  const int jc = (gx >> 1) - col0 / 2;
+  const Column<T> ecj =
+      ROWS && CORRECT ? e_column(rb, io.e, jc) : Column<T>{};
+  const Column<T> ecjm =
+      ROWS && CORRECT ? e_column(rb, io.e, jc - 1) : Column<T>{};
 #pragma unroll
   for (int i = 0; i < V9_RS; ++i) {
     const int sy = r0 + i, gy = gy0 + sy;
@@ -1018,14 +1167,11 @@ visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
     if (in) {
       if constexpr (ROWS) {
         const int ly = y0 - H + sy;
-        const T* brow =
-            block_row(io.b, rb.b_top, rb.b_bot, ly, rb.R, rb.hn, nx);
-        if (brow != nullptr) {  // past the halos: never read, left 0
-          bv = to_c(brow[gx]);
-          if (GUESS)
-            uv = to_c(block_row(io.u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn,
-                                nx)[gx]);
-          if (CORRECT) uv += prolong_rows(io.e, rb, gy, gx, nxc);
+        const T* bp = bcol.at(ly);
+        if (bp != nullptr) {  // past the halos: never read, left 0
+          bv = to_c(*bp);
+          if (GUESS) uv = to_c(*ucol.at(ly));
+          if (CORRECT) uv += prolong_block(ecj, ecjm, rb, gy, gx);
         }
       } else {
         const size_t g = (size_t)gy * nx + gx;
@@ -1090,7 +1236,8 @@ visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   // The emits, each thread on its own points of the output tile (RC: and
   // the one more row / column of the restriction's footprint).
   const int tx = sx - H;
-  const bool xt = tx >= 0 && tx < TX && gx < nx;
+  const bool xt = tx >= 0 && tx < TX && lx < nx;
+  const bool xin = !ROWS || gx < nxg;  // the pad column is written 0
   const bool xf = tx >= 0 && tx <= TX;  // RC: the footprint's columns
   C acc = C(0);
   if constexpr (EMIT == EMIT_U) {
@@ -1098,9 +1245,9 @@ visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
     for (int i = 0; i < V9_RS; ++i) {
       const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
       if (!xt || ty < 0 || ty >= TY || ly >= R) continue;
-      const bool in = !ROWS || row0 + ly < ny;  // the pad row is written 0
+      const bool in = xin && (!ROWS || row0 + ly < ny);  // the pad row: 0
       const C uv = cur[v9_at(sy, sx)];
-      put(io.u_out, (size_t)ly * nx + gx, in ? uv : C(0));
+      put(io.u_out, (size_t)ly * nx + lx, in ? uv : C(0));
       if (DOT) acc += bq[i] * uv;
     }
   } else {
@@ -1113,14 +1260,14 @@ visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
       row3(cur, sy + 1, w2, c2, e2);
       const C r = bq[i] - cf.apply(sy, w0, c0, e0, w1, c1, e1, w2, c2, e2);
       if (xt && ty >= 0 && ty < TY && ly < R) {
-        const bool in = !ROWS || row0 + ly < ny;
-        const size_t g = (size_t)ly * nx + gx;
+        const bool in = xin && (!ROWS || row0 + ly < ny);
+        const size_t g = (size_t)ly * nx + lx;
         if (EMIT != EMIT_R) put(io.u_out, g, in ? c1 : C(0));
         if (EMIT != EMIT_RC) put(io.r_out, g, in ? r : C(0));
       }
       // Residual into the free buffer on the restriction's footprint.
       if (EMIT == EMIT_RC && xf && ty >= 0 && ty <= TY)
-        nxt[v9_at(sy, sx)] = gy0 + sy < ny && gx < nx ? r : C(0);
+        nxt[v9_at(sy, sx)] = gy0 + sy < ny && gx < nxg ? r : C(0);
       w0 = w1, c0 = c1, e0 = e1;
       w1 = w2, c1 = c2, e1 = e2;
     }
@@ -1128,18 +1275,19 @@ visit9_kernel(Coeffs9<T> c, VisitIO<T> io, RowBlock<T> rb, int nx, int H,
   if constexpr (EMIT == EMIT_RC) {
     __syncthreads();
     // Full weighting, y pass first, then x (ops/transfer.restrict_fw); a
-    // warp per coarse row, a lane per coarse column.  A row block's coarse
-    // rows at or past nyc (the global coarse pad row) are 0.
+    // warp per coarse row, a lane per coarse column.  A block's coarse
+    // points at or past nyc or nxc (the global coarse pad row and column)
+    // are 0.
     for (int cy = wid; cy < TY / 2; cy += V9_NT / 32) {
       const int cx = lane;
-      const int I = y0 / 2 + cy, J = x0 / 2 + cx;  // local coarse row I
-      if (cx >= TX / 2 || I >= Rc || J >= nxc) continue;
+      const int I = y0 / 2 + cy, J = x0 / 2 + cx;  // local coarse point
+      if (cx >= TX / 2 || I >= Rc || J >= Cc) continue;
       const C* f = nxt + v9_at(2 * cy + H, 2 * cx + H);  // fine (2I, 2J)
       C ycol[3];
       for (int d = 0; d < 3; ++d)
         ycol[d] = f[d] + C(2) * f[V9_PW + d] + f[2 * V9_PW + d];
-      put(io.rc_out, (size_t)I * nxc + J,
-          !ROWS || row0 / 2 + I < nyc
+      put(io.rc_out, (size_t)I * Cc + J,
+          !ROWS || (row0 / 2 + I < nyc && col0 / 2 + J < nxc)
               ? C(0.0625) * (ycol[0] + C(2) * ycol[1] + ycol[2])
               : C(0));
     }
@@ -1235,31 +1383,32 @@ cg_papply_kernel(Coeffs<T> c, const T* __restrict__ z,
 // K6 (RESID = false): y = A u; residual5 (RESID = true): y = b - A u; K8
 // (Fields5) both.  The tile + 1-point halo of u in shared memory, as K1,
 // with the coefficients staged after it.  ROWS (K17's emits a and r): a
-// row block, u's rows past it from its 1-row halo buffers, b read on the
-// block's own rows only, the pad row written as 0.
+// block (a row block or a 2-D block; nx its width), u's points past it
+// from its 1-point halo buffers, b read on the block's own points only,
+// the pad row and column written as 0.
 template <class T, bool RESID, class K, bool ROWS>
 __global__ void __launch_bounds__(NTHREADS)
 stencil_kernel(K c, const T* __restrict__ b, const T* __restrict__ u,
-               T* __restrict__ y, RowBlock<T> rb, int nx) {
+               T* __restrict__ y, Block<T> rb, int nx) {
   using C = compute_t<T>;
   constexpr int SH = TY + 2, SW = TX + 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* us = reinterpret_cast<C*>(smem_raw);
-  const int ny = rb.nyg;
+  const int ny = rb.nyg, nxg = ROWS ? rb.nxg : nx;
   const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int col0 = ROWS ? rb.col0 : 0;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
-  const int gy0 = row0 + y0 - 1, gx0 = x0 - 1;           // global
+  const int gy0 = row0 + y0 - 1, gx0 = col0 + x0 - 1;    // global
   const auto rc =
-      stage(c, us + SH * SW, SH, SW, gy0, gx0, row_end<T, ROWS>(rb), nx);
+      stage(c, us + SH * SW, SH, SW, gy0, gx0, row_end<T, ROWS>(rb), nxg);
   for (int i = threadIdx.x; i < SH * SW; i += NTHREADS) {
     int sy = i / SW, sx = i - (i / SW) * SW;
     int gy = gy0 + sy, gx = gx0 + sx;
     C v = C(0);
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+    if (gy >= 0 && gy < ny && gx >= 0 && gx < nxg) {
       if constexpr (ROWS) {
-        const T* row =
-            block_row(u, rb.u_top, rb.u_bot, y0 - 1 + sy, rb.R, rb.hn, nx);
-        if (row != nullptr) v = to_c(row[gx]);
+        const T* p = rb.u_at(u, y0 - 1 + sy, x0 - 1 + sx);
+        if (p != nullptr) v = to_c(*p);
       } else {
         v = to_c(u[(size_t)gy * nx + gx]);
       }
@@ -1269,11 +1418,12 @@ stencil_kernel(K c, const T* __restrict__ b, const T* __restrict__ u,
   __syncthreads();
   for (int t = threadIdx.x; t < TY * TX; t += NTHREADS) {
     int ty = t / TX, tx = t - (t / TX) * TX;
-    int ly = y0 + ty, gx = x0 + tx;  // a whole grid's ly is its gy
-    if (ly >= R || gx >= nx) continue;
+    int ly = y0 + ty, lx = x0 + tx;  // a whole grid's (ly, lx): (gy, gx)
+    if (ly >= R || lx >= nx) continue;
     C a = apply_at(us, rc, ty + 1, tx + 1, SH, SW);
-    size_t g = (size_t)ly * nx + gx;
-    put(y, g, !ROWS || row0 + ly < ny ? (RESID ? to_c(b[g]) - a : a) : C(0));
+    size_t g = (size_t)ly * nx + lx;
+    put(y, g, !ROWS || (row0 + ly < ny && col0 + lx < nxg)
+                  ? (RESID ? to_c(b[g]) - a : a) : C(0));
   }
 }
 
@@ -1313,48 +1463,63 @@ __host__ __device__ constexpr bool yvar9(int q, int sy) {
 template <class T, bool RESID, bool ROWS, int LAYOUT>
 __global__ void __launch_bounds__(A9_NT)
 apply9_kernel(Coeffs9<T> c, const T* __restrict__ b,
-              const T* __restrict__ u, T* __restrict__ y, RowBlock<T> rb,
+              const T* __restrict__ u, T* __restrict__ y, Block<T> rb,
               int nx) {
   using C = compute_t<T>;
-  const int ny = rb.nyg;
+  const int ny = rb.nyg, nxg = ROWS ? rb.nxg : nx;
   const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int col0 = ROWS ? rb.col0 : 0;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int xw = blockIdx.x * A9_TX + (wid % A9_GX) * 32;  // warp's column 0
   const int ly0 = blockIdx.y * A9_TY + (wid / A9_GX) * A9_RS;  // local row
   if (xw >= nx || ly0 >= R) return;  // the whole warp
-  const int gx = xw + lane;
-  const bool colin = gx < nx;
+  const int gx = xw + lane;  // local column (a whole grid's: global)
+  const int gxg = col0 + gx;  // global column
+  const bool colin = gx < nx, xin = colin && gxg < nxg;
   C h[9];  // the coefficients constant along y, at the thread's column
 #pragma unroll
   for (int q = 0; q < 9; ++q)
-    h[q] = !yvar9<LAYOUT>(q, c.sy[q]) && colin
-               ? to_c(c.p[q][(size_t)gx * c.sx[q]]) : C(0);
+    h[q] = !yvar9<LAYOUT>(q, c.sy[q]) && xin
+               ? to_c(c.p[q][(size_t)(gxg - c.ox) * c.sx[q]]) : C(0);
   auto coef = [&](int q, int gy) -> C {
     if (!yvar9<LAYOUT>(q, c.sy[q])) return h[q];
     const size_t r = (size_t)(gy - c.oy);
-    if constexpr (LAYOUT == L9_ANISO)
+    if constexpr (LAYOUT == L9_ANISO) {
+      if constexpr (ROWS)
+        return to_c(c.p[q][q == mg::CC ? r * c.sy[q] + (gxg - c.ox) : r]);
       return to_c(c.p[q][q == mg::CC ? r * nx + gx : r]);
-    return to_c(c.p[q][r * c.sy[q] + (size_t)gx * c.sx[q]]);
+    }
+    return to_c(c.p[q][r * c.sy[q] + (size_t)(gxg - c.ox) * c.sx[q]]);
   };
   // The strip's rows of u at the thread's column, and the column beside
   // for the warp's edge lanes (lane 0 its west, lane 31 its east), all
-  // loaded before the arithmetic; 0 outside the domain and past a row
-  // block's halo rows.
+  // loaded before the arithmetic; 0 outside the domain and past a block's
+  // halos (a 2-D block's lanes past its width load its right halo, which
+  // their west neighbours read).
   C m[A9_RS + 2], x[A9_RS + 2];
+  const int xs = lane == 0 ? gx - 1 : gx + 1;
+  const bool edge = lane == 0 || lane == 31;
+  // ROWS: the thread's column and the edge lanes' column beside it.
+  const Column<T> ucol = ROWS ? u_column(rb, u, gx) : Column<T>{};
+  const Column<T> xcol = ROWS && edge ? u_column(rb, u, xs) : Column<T>{};
 #pragma unroll
   for (int i = 0; i < A9_RS + 2; ++i) {
     const int ly = ly0 - 1 + i, gy = row0 + ly;
-    const T* p = nullptr;
-    if (gy >= 0 && gy < ny) {
-      if constexpr (ROWS)
-        p = block_row(u, rb.u_top, rb.u_bot, ly, rb.R, rb.hn, nx);
-      else
-        p = u + (size_t)ly * nx;
+    if constexpr (ROWS) {
+      auto at = [&](const Column<T>& col, int lx) -> C {
+        const int g = col0 + lx;
+        if (gy < 0 || gy >= ny || g < 0 || g >= nxg) return C(0);
+        const T* p = col.at(ly);
+        return p != nullptr ? to_c(*p) : C(0);
+      };
+      m[i] = at(ucol, gx);
+      x[i] = edge ? at(xcol, xs) : C(0);
+    } else {
+      const T* p = gy >= 0 && gy < ny ? u + (size_t)ly * nx : nullptr;
+      m[i] = p != nullptr && colin ? to_c(p[gx]) : C(0);
+      x[i] = p != nullptr && edge && xs >= 0 && xs < nx ? to_c(p[xs])
+                                                         : C(0);
     }
-    const int xs = lane == 0 ? gx - 1 : gx + 1;
-    m[i] = p != nullptr && colin ? to_c(p[gx]) : C(0);
-    x[i] = p != nullptr && (lane == 0 || lane == 31) && xs >= 0 && xs < nx
-               ? to_c(p[xs]) : C(0);
   }
   auto west = [&](int i) {
     const C w = __shfl_up_sync(0xffffffffu, m[i], 1);
@@ -1372,8 +1537,8 @@ apply9_kernel(Coeffs9<T> c, const T* __restrict__ b,
     const C w2 = west(i + 2), e2 = east(i + 2);
     if (colin && i < n) {
       const size_t g = (size_t)ly * nx + gx;
-      C out = C(0);  // the pad row of a row block is written 0
-      if (!ROWS || gy < ny) {
+      C out = C(0);  // the pad row and column of a block are written 0
+      if (!ROWS || (gy < ny && gxg < nxg)) {
         // Term order of the JAX package: cc, s, n, w, e, sw, se, nw, ne.
         const C a = coef(mg::CC, gy) * m[i + 1] + coef(mg::CS, gy) * m[i] +
                     coef(mg::CN, gy) * m[i + 2] + coef(mg::CW, gy) * w1 +
@@ -1393,25 +1558,31 @@ inline dim3 visit_grid(int ny, int nx) {
   return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
 }
 
-// A row block needs halo buffers that hold the visit's halo H (at most
-// the block), and H / 2 + 1 coarse halo rows to correct.
+// A block needs halo buffers that hold the visit's halo H, and H / 2 + 1
+// coarse rows (and columns) to correct: a row block hn >= H rows (at most
+// its R: rows come from the immediate neighbours only); a 2-D block (hx >
+// 0) also hx >= H columns.
 template <class T, bool ROWS>
-bool row_block_ok(const RowBlock<T>& rb, int H, int flags) {
+bool block_ok(const Block<T>& rb, int H, int flags) {
   if (!ROWS) return true;
-  return H <= rb.hn && H <= rb.R &&
-         (!(flags & F_CORRECT) || rb.hc >= H / 2 + 1);
+  const bool correct = flags & F_CORRECT, two_d = rb.hx > 0;
+  if (!two_d)
+    return H <= rb.hn && H <= rb.R && rb.C == rb.nxg && rb.col0 == 0 &&
+           (!correct || rb.hc >= H / 2 + 1);
+  return H <= rb.hn && H <= rb.hx &&
+         (!correct || (rb.hc >= H / 2 + 1 && rb.hcx >= H / 2 + 1));
 }
 
 template <class T, bool ROWS>
 int launch_visit9(const Coeffs9<T>& c, const VisitIO<T>& io,
-                  const RowBlock<T>& rb, int nx, const compute_t<T>* steps,
+                  const Block<T>& rb, int nx, const compute_t<T>* steps,
                   int k, int flags, void* stream) {
   VisitFn<T, Coeffs9<T>> kern = aniso_layout(c)
                                      ? pick_visit9<T, ROWS, true>(flags)
                                      : pick_visit9<T, ROWS, false>(flags);
   if (kern == nullptr || k < 1) return (int)cudaErrorInvalidValue;
   const int H = halo(flags >> EMIT_SHIFT, k);
-  if (!visit9_fits(H) || !row_block_ok<T, ROWS>(rb, H, flags))
+  if (!visit9_fits(H) || !block_ok<T, ROWS>(rb, H, flags))
     return (int)cudaErrorInvalidValue;
   const size_t smem = visit9_smem_bytes(c);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -1425,7 +1596,7 @@ int launch_visit9(const Coeffs9<T>& c, const VisitIO<T>& io,
 
 template <class T, bool ROWS, class RG>
 int launch_region5(const Coeffs<T>& c, const VisitIO<T>& io,
-                   const RowBlock<T>& rb, int nx, const compute_t<T>* steps,
+                   const Block<T>& rb, int nx, const compute_t<T>* steps,
                    int k, int H, int flags, void* stream) {
   VisitFn<T, Coeffs<T>> kern = pick_visit5<T, ROWS, RG>(flags);
   if (kern == nullptr || !v5_fits<RG>(H)) return (int)cudaErrorInvalidValue;
@@ -1449,14 +1620,14 @@ dim3 visit5_grid_for(int R, int nx, int H) {
 }
 
 template <class T, bool ROWS = false, class K>
-int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
+int launch_visit(const K& c, const VisitIO<T>& io, const Block<T>& rb,
                  int nx, const compute_t<T>* steps, int k, int flags,
                  void* stream) {
   if constexpr (std::is_same<K, Coeffs9<T>>::value) {
     return launch_visit9<T, ROWS>(c, io, rb, nx, steps, k, flags, stream);
   } else {
     const int H = halo(flags >> EMIT_SHIFT, k);
-    if (k < 1 || !row_block_ok<T, ROWS>(rb, H, flags))
+    if (k < 1 || !block_ok<T, ROWS>(rb, H, flags))
       return (int)cudaErrorInvalidValue;
     if constexpr (sizeof(compute_t<T>) == 4)
       if (v5_tall<compute_t<T>>(H))
@@ -1469,7 +1640,7 @@ int launch_visit(const K& c, const VisitIO<T>& io, const RowBlock<T>& rb,
 
 template <class T, bool ROWS, int LAYOUT>
 int launch_apply9(const Coeffs9<T>& c, const T* b, const T* u, T* y,
-                  const RowBlock<T>& rb, int nx, int resid, void* stream) {
+                  const Block<T>& rb, int nx, int resid, void* stream) {
   auto kern = resid ? apply9_kernel<T, true, ROWS, LAYOUT>
                     : apply9_kernel<T, false, ROWS, LAYOUT>;
   kern<<<dim3((nx + A9_TX - 1) / A9_TX, (rb.R + A9_TY - 1) / A9_TY), A9_NT,
@@ -1479,8 +1650,8 @@ int launch_apply9(const Coeffs9<T>& c, const T* b, const T* u, T* y,
 
 template <class T, bool ROWS = false, class K>
 int launch_stencil(const K& c, const T* b, const T* u, T* y,
-                   const RowBlock<T>& rb, int nx, int resid, void* stream) {
-  if (!row_block_ok<T, ROWS>(rb, 1, 0)) return (int)cudaErrorInvalidValue;
+                   const Block<T>& rb, int nx, int resid, void* stream) {
+  if (!block_ok<T, ROWS>(rb, 1, 0)) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<K, Coeffs9<T>>::value) {
     switch (layout9(c)) {
       case L9_SCALAR:
@@ -1543,8 +1714,8 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
       int flags, void* stream) {                                             \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
     VisitIO<T> io{b, ap, alpha, u, e, u_out, r_out, rc_out, rnew_out, part}; \
-    return launch_visit<T>(c, io, whole_grid<T>(ny), nx, steps, k, flags,    \
-                           stream);                                          \
+    return launch_visit<T>(c, io, whole_grid<T>(ny, nx), nx, steps, k,      \
+                           flags, stream);                                   \
   }                                                                          \
   extern "C" int mg_visit9##SFX(                                             \
       const unsigned long long* cptrs, const int* cstrides, const T* b,      \
@@ -1554,14 +1725,15 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
     VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
                   u_out, r_out,   rc_out,  nullptr, part};                   \
     return launch_visit<T>(mg::coeffs9<T>(cptrs, cstrides), io,              \
-                           whole_grid<T>(ny), nx, steps, k, flags, stream);  \
+                           whole_grid<T>(ny, nx), nx, steps, k, flags,      \
+                           stream);                                          \
   }                                                                          \
   extern "C" int mg_stencil##SFX(const T* cs, const T* cw, const T* cc,      \
                                  const T* ce, const T* cn, const T* b,       \
                                  const T* u, T* y, int ny, int nx,           \
                                  int resid, void* stream) {                  \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
-    return launch_stencil<T>(c, b, u, y, whole_grid<T>(ny), nx, resid,       \
+    return launch_stencil<T>(c, b, u, y, whole_grid<T>(ny, nx), nx, resid,   \
                              stream);                                        \
   }                                                                          \
   extern "C" int mg_stencil9##SFX(const unsigned long long* cptrs,           \
@@ -1569,54 +1741,63 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
                                   const T* u, T* y, int ny, int nx,          \
                                   int resid, void* stream) {                 \
     return launch_stencil<T>(mg::coeffs9<T>(cptrs, cstrides), b, u, y,       \
-                             whole_grid<T>(ny), nx, resid, stream);          \
+                             whole_grid<T>(ny, nx), nx, resid, stream);      \
   }
 
-// K17, the row-block entries (visit.cu and visit_f64.cu: f32 and f64), named
-// as the whole-grid entries with _rows: one visit (mg_visit_rows,
-// mg_visit9_rows: every flag set but F_CG) or A u / b - A u (mg_stencil_rows,
-// mg_stencil9_rows, halo 1) on one rank's row block.  geom: R, row0, nyg,
-// hn, Rc, hc (RowBlock); halos: device pointers b_top, b_bot, u_top, u_bot,
-// e_top, e_bot, null where the flags read none; coff: the first global row
-// the 9-point coefficients that vary with y hold.
-#define MG_VISIT_ROWS_ENTRIES(SFX, T)                                        \
-  extern "C" int mg_visit_rows##SFX(                                         \
+// K17, the entries for one rank's block of a partitioned level (visit.cu,
+// visit_f64.cu, visit_rows_bf16.cu: f32, f64, bf16), named as the
+// whole-grid entries with _part: one visit (mg_visit_part, mg_visit9_part:
+// every flag set but F_CG) or A u / b - A u (mg_stencil_part,
+// mg_stencil9_part, halo 1) on R x C points from the global (row0, col0).
+// geom: R, row0, nyg, hn, Rc, hc, C, col0, nxg, hx, Cc, hcx (Block; nx, the
+// launch's width, is C); halos: device pointers b_top, b_bot, u_top, u_bot,
+// e_top, e_bot (hn rows of C + 2 hx points, the corners included; e's hc
+// rows of Cc + 2 hcx), then b_left, b_right, u_left, u_right, e_left,
+// e_right (R rows of hx points; e's Rc of hcx), null where the flags read
+// none.  A row block of the rows layout has C = nxg, col0 = 0, hx = hcx =
+// 0 and no side buffers; a 2-D block of the blocks layout hx = hn, hcx =
+// hc.  coff, coffx: the first global row and column the 9-point
+// coefficients that vary with y and with x hold.
+#define MG_VISIT_PART_ENTRIES(SFX, T)                                     \
+  extern "C" int mg_visit_part##SFX(                                      \
       const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
       const T* b, const T* u, const T* e, T* u_out, T* r_out, T* rc_out,     \
-      compute_t<T>* part, const int* geom, const unsigned long long* halos,  \
-      int nx, const compute_t<T>* steps, int k, int flags, void* stream) {   \
+      const int* geom, const unsigned long long* halos, int nx,              \
+      const compute_t<T>* steps, int k, int flags, void* stream) {           \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
     VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
-                  u_out, r_out,   rc_out,  nullptr, part};                   \
-    return launch_visit<T, true>(c, io, row_block<T>(geom, halos), nx,      \
-                                 steps, k, flags, stream);                   \
+                  u_out, r_out,   rc_out,  nullptr, nullptr};                \
+    return launch_visit<T, true>(c, io, part_block<T>(geom, halos), nx, steps, \
+                                 k, flags, stream);                          \
   }                                                                          \
-  extern "C" int mg_visit9_rows##SFX(                                        \
+  extern "C" int mg_visit9_part##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides, int coff,        \
-      const T* b, const T* u, const T* e, T* u_out, T* r_out, T* rc_out,     \
-      compute_t<T>* part, const int* geom, const unsigned long long* halos,  \
-      int nx, const compute_t<T>* steps, int k, int flags, void* stream) {   \
+      int coffx, const T* b, const T* u, const T* e, T* u_out, T* r_out,     \
+      T* rc_out, const int* geom, const unsigned long long* halos, int nx,   \
+      const compute_t<T>* steps, int k, int flags, void* stream) {           \
     Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);                          \
     c.oy = coff;                                                             \
+    c.ox = coffx;                                                            \
     VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
-                  u_out, r_out,   rc_out,  nullptr, part};                   \
-    return launch_visit<T, true>(c, io, row_block<T>(geom, halos), nx,      \
-                                 steps, k, flags, stream);                   \
+                  u_out, r_out,   rc_out,  nullptr, nullptr};                \
+    return launch_visit<T, true>(c, io, part_block<T>(geom, halos), nx, steps, \
+                                 k, flags, stream);                          \
   }                                                                          \
-  extern "C" int mg_stencil_rows##SFX(                                       \
+  extern "C" int mg_stencil_part##SFX(                                    \
       const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
       const T* b, const T* u, T* y, const int* geom,                         \
       const unsigned long long* halos, int nx, int resid, void* stream) {    \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
-    return launch_stencil<T, true>(c, b, u, y, row_block<T>(geom, halos),  \
-                                   nx, resid, stream);                       \
+    return launch_stencil<T, true>(c, b, u, y, part_block<T>(geom, halos), nx, \
+                                   resid, stream);                           \
   }                                                                          \
-  extern "C" int mg_stencil9_rows##SFX(                                      \
+  extern "C" int mg_stencil9_part##SFX(                                   \
       const unsigned long long* cptrs, const int* cstrides, int coff,        \
-      const T* b, const T* u, T* y, const int* geom,                         \
+      int coffx, const T* b, const T* u, T* y, const int* geom,              \
       const unsigned long long* halos, int nx, int resid, void* stream) {    \
     Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);                          \
     c.oy = coff;                                                             \
-    return launch_stencil<T, true>(c, b, u, y, row_block<T>(geom, halos),  \
-                                   nx, resid, stream);                       \
+    c.ox = coffx;                                                            \
+    return launch_stencil<T, true>(c, b, u, y, part_block<T>(geom, halos), nx, \
+                                   resid, stream);                           \
   }

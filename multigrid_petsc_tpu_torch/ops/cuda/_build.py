@@ -4,7 +4,7 @@
 At first use, every ``csrc/*.cu`` source of the package is compiled with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
 together (the visit kernels' f32, f64 and bf16 instantiations, and the
-bf16 row-block entries, are sources of their own, so they build side by
+bf16 entries for a block of a partitioned level, are sources of their own, so they build side by
 side), and the objects are linked into one shared library with a plain
 C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
 git), which is loaded with ``ctypes``.  The build log (``build.log``)
@@ -47,17 +47,19 @@ _PER_DTYPE = {
     "mg_stencil": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_stencil9": [_P, _P] + [_P] * 3 + [_I, _I, _I, _P],
 }
-# K17's row-block entries (MG_VISIT_ROWS_ENTRIES), f32, f64 and bf16.
-_ROWS = {
-    "mg_visit_rows": [_P] * 5 + [_P] * 7 + [_P, _P, _I, _P, _I, _I, _P],
-    "mg_visit9_rows": [_P, _P, _I] + [_P] * 7 + [_P, _P, _I, _P, _I, _I, _P],
-    "mg_stencil_rows": [_P] * 5 + [_P] * 3 + [_P, _P, _I, _I, _P],
-    "mg_stencil9_rows": [_P, _P, _I] + [_P] * 3 + [_P, _P, _I, _I, _P],
+# K17's entries for a block of a partitioned level (MG_VISIT_PART_ENTRIES:
+# a row block or a 2-D block), f32, f64 and bf16.
+_PART = {
+    "mg_visit_part": [_P] * 5 + [_P] * 6 + [_P, _P, _I, _P, _I, _I, _P],
+    "mg_visit9_part": [_P, _P, _I, _I] + [_P] * 6
+    + [_P, _P, _I, _P, _I, _I, _P],
+    "mg_stencil_part": [_P] * 5 + [_P] * 3 + [_P, _P, _I, _I, _P],
+    "mg_stencil9_part": [_P, _P, _I, _I] + [_P] * 3 + [_P, _P, _I, _I, _P],
 }
 _SIGNATURES = {
     **{name + sfx: argtypes for name, argtypes in _PER_DTYPE.items()
        for sfx in ("", "_f64", "_bf16")},
-    **{name + sfx: argtypes for name, argtypes in _ROWS.items()
+    **{name + sfx: argtypes for name, argtypes in _PART.items()
        for sfx in ("", "_f64", "_bf16")},
     # K15's rank-spanning mode (csrc/line.cuh MG_LINE_ENTRIES).
     **{"mg_line_rows_ends" + sfx: [_P, _P, _P, _I, _I] + [_P] * 6

@@ -1,0 +1,319 @@
+"""The operators of one level under the 2-D blocks layout: K17's 2-D block
+mode on this rank's block, its halo from the mesh neighbours (PyTorch
+counterpart of the GSPMD levels of the JAX package's blocks plan,
+``parallel/device_mesh.py`` ``ShardingPlan.spec`` :76-93 and
+``parallel/halo.py`` ``halo_pad_local`` / ``apply_stencil5_local``
+:31-74).
+
+JAX runs every level of a blocks plan as plain ``jnp`` ops under GSPMD,
+which inserts the halo collectives itself, and keeps its Pallas kernels
+off any level split over more than one device (``solvers/context.py``
+``_use_pallas`` :318, ``_use_dist`` :360).  The port runs a level the
+plan splits on its rank's block through K17's 2-D block mode
+(``ops.cuda.dist_kernel.block_visit``), so the smoother's k sweeps, the
+residual and the transfer gap of a visit ride one halo exchange and one
+kernel, as under the rows layout (``parallel.dist_ops.DistLevelOps``,
+whose interface this class keeps).
+
+State convention: a level split along y keeps ny + 1 rows (one pad row,
+the last mesh row's last row, always 0), split along x nx + 1 columns;
+each rank holds its (R, C) block from the global point (row0, col0), R =
+(ny + 1) / my along a split y axis and ny along one that is not (the
+block then spans every row, and the ranks of a mesh column hold the same
+block), likewise C.  Every operation exchanges the ring its visit needs
+(``parallel.halo.block_exchange``: the corners travel, a fused k-sweep
+visit reads them) and launches one K17 visit.  The coarse correction of
+an up visit is the coarse level's block (its ring exchanged) or, where
+the coarse level is split along fewer axes, the coarse block of this
+block and its ring cut from what the rank holds (no exchange along an
+axis the coarse level keeps whole).
+
+A level whose block cannot carry a visit's halo runs Jacobi as visits of
+at most (the smallest split extent - 2) steps, one exchange each; a
+schedule with momentum (Chebyshev) one residual emit per step.  The
+transfers between two split levels are block-local (``restrict``,
+``prolong``: one exchanged row, one column and their corner); from a
+level to one split along fewer axes, the restricted blocks are gathered
+along the axes that stop being split ("agglomerate").
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import (
+    Halo2,
+    block_visit,
+    coarse_halo_rows,
+    halo_rows,
+)
+from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
+from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
+from multigrid_petsc_tpu_torch.parallel.halo import (
+    all_gather_blocks,
+    allreduce_sum,
+    block_exchange,
+)
+
+
+def window(x: torch.Tensor, r0: int, r1: int, c0: int,
+           c1: int) -> torch.Tensor:
+    """x's points on rows [r0, r1) and columns [c0, c1), zeros outside
+    it."""
+    out = x.new_zeros((r1 - r0, c1 - c0))
+    a, b = max(r0, 0), min(r1, x.shape[0])
+    c, d = max(c0, 0), min(c1, x.shape[1])
+    if a < b and c < d:
+        out[a - r0:b - r0, c - c0:d - c0] = x[a:b, c:d]
+    return out
+
+
+def extend(x: torch.Tensor, halo: Halo2) -> torch.Tensor:
+    """The block ``x`` inside its ring: [top; left | x | right; bot]."""
+    mid = torch.cat([halo.left, x, halo.right], 1)
+    return torch.cat([halo.top, mid, halo.bot])
+
+
+def ring(ext: torch.Tensor, h: int) -> Halo2:
+    """The depth-``h`` ring of an extended block, as ``Halo2``
+    (contiguous pieces, as an exchange delivers them)."""
+    R, C = ext.shape[0] - 2 * h, ext.shape[1] - 2 * h
+    return Halo2(ext[:h].contiguous(), ext[h + R:].contiguous(),
+                 ext[h:h + R, :h].contiguous(),
+                 ext[h:h + R, h + C:].contiguous())
+
+
+def cut_halo(x: torch.Tensor, r0: int, c0: int, R: int, C: int,
+             h: int) -> tuple[torch.Tensor, Halo2]:
+    """The (R, C) block of ``x`` from (r0, c0) and its depth-``h`` ring,
+    cut from ``x`` (zeros outside it), in the layout ``block_exchange``
+    delivers: a block and its halo without an exchange."""
+    ext = window(x, r0 - h, r0 + R + h, c0 - h, c0 + C + h)
+    return ext[h:h + R, h:h + C].contiguous(), ring(ext, h)
+
+
+def _cut_coeffs(st: Stencil9, r0: int, r1: int, c0: int, c1: int):
+    """The coefficients that vary with y cut to rows [r0, r1), those that
+    vary with x to columns [c0, c1)."""
+    def cut(c):
+        if c.shape[0] > 1:
+            c = c[r0:r1]
+        if c.shape[1] > 1:
+            c = c[:, c0:c1]
+        return c.contiguous()
+
+    return Stencil9(*map(cut, st))
+
+
+class BlockLevelOps:
+    """K17 operator set of one single-grid level the blocks plan splits,
+    on this rank's block (``DistLevelOps``'s interface).  ``st`` is the
+    level's whole stencil; a 9-point stencil keeps only the rows and
+    columns of its coefficients this rank's visits read (the block and
+    ``max_sweeps + 2`` more on each side)."""
+
+    def __init__(self, st, ny: int, nx: int, plan, max_sweeps: int):
+        self.ny, self.nx = ny, nx
+        self.plan = plan
+        self.R, self.C, self.row0, self.col0, self.split = plan.block(ny, nx)
+        # The points of the block inside the domain (the pad row and
+        # column are not).
+        self.nyl = min(self.R, ny - self.row0)
+        self.nxl = min(self.C, nx - self.col0)
+        # The largest halo the neighbours can give: the smallest split
+        # extent.
+        self.cap = min(n for n, s in zip((self.R, self.C), self.split) if s)
+        self.viable = (
+            halo_rows(max_sweeps, "rc") <= self.cap
+            and coarse_halo_rows(halo_rows(max_sweeps, "ur")) <= self.cap // 2)
+        # The centre coefficient on the block, the pad row and column the
+        # identity, as JAX pads its Jacobi diagonal.
+        cc = torch.ones((self.R, self.C), dtype=st.cc.dtype,
+                        device=st.cc.device)
+        r1, c1 = self.row0 + self.nyl, self.col0 + self.nxl
+        c = st.cc
+        c = c[self.row0:r1] if c.shape[0] > 1 else c
+        cc[:self.nyl, :self.nxl] = c[:, self.col0:c1] if c.shape[1] > 1 else c
+        self.cc = cc
+        self.dinv = 1.0 / cc
+        self.coeff_row0 = self.coeff_col0 = 0
+        if isinstance(st, Stencil9):
+            m = max_sweeps + 2
+            self.coeff_row0 = max(0, self.row0 - m)
+            self.coeff_col0 = max(0, self.col0 - m)
+            st = _cut_coeffs(st, self.coeff_row0,
+                             min(ny, self.row0 + self.R + m),
+                             self.coeff_col0, min(nx, self.col0 + self.C + m))
+        self.st = st
+
+    @property
+    def block_shape(self) -> tuple[int, int]:
+        return (self.R, self.C)
+
+    @functools.cached_property
+    def coarse(self):
+        """The coarse level's block (``ShardingPlan.block``)."""
+        return self.plan.block((self.ny - 1) // 2, (self.nx - 1) // 2)
+
+    # -- layout ---------------------------------------------------------
+
+    def block_of(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's (R, C) block of a whole (ny, nx) grid, the pad row
+        and column 0."""
+        return window(x, self.row0, self.row0 + self.R, self.col0,
+                      self.col0 + self.C).contiguous()
+
+    def real(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's points inside the domain (the pads cut)."""
+        return x[:self.nyl, :self.nxl]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks that hold distinct blocks: the
+        world when the level is split along both axes, the mesh column
+        (row) when along y (x) alone; the ranks of the other axis hold
+        the same blocks and sum alike."""
+        sy, sx = self.split
+        group = (None if sy and sx else
+                 self.plan.col_group if sy else self.plan.row_group)
+        return allreduce_sum(x, self.plan, group)
+
+    def gathered(self, solve):
+        """``solve`` of the whole level run on this rank's block: the
+        blocks gathered ("coarsest"), the solve, this rank's block of it
+        (a coarsest level JAX solves directly; collective)."""
+        return lambda b: self.block_of(solve(all_gather_blocks(
+            b, self.plan, "coarsest", self.split)[:self.ny, :self.nx]
+            .contiguous()))
+
+    def to_coarse(self, rc: torch.Tensor) -> torch.Tensor:
+        """The coarse level's part of ``rc`` (this block's coarse block):
+        the coarse blocks gathered along the axes the coarse level stops
+        being split on ("agglomerate"), the coarse pads there cut
+        (collective)."""
+        axes = tuple(f and not c for f, c in zip(self.split,
+                                                 self.coarse.split))
+        if not any(axes):
+            return rc
+        whole = all_gather_blocks(rc, self.plan, "agglomerate", axes)
+        nyc, nxc = (self.ny - 1) // 2, (self.nx - 1) // 2
+        return whole[:nyc if axes[0] else None,
+                     :nxc if axes[1] else None].contiguous()
+
+    def _coarse_in(self, e: torch.Tensor, hc: int):
+        """The coarse correction ``e``, held as the coarse level holds it,
+        as this block's coarse block (R / 2, C / 2) and its depth-``hc``
+        ring: exchanged along the axes the coarse level is split on, cut
+        along the others."""
+        cb = self.coarse
+        if cb.split == self.split:  # the coarse level's block is this one's
+            return e, block_exchange(e, hc, self.plan, cb.split)
+        ext = extend(e, block_exchange(e, hc, self.plan, cb.split))
+        r0 = self.row0 // 2 - cb.row0
+        c0 = self.col0 // 2 - cb.col0
+        Rc, Cc = self.R // 2, self.C // 2
+        win = window(ext, r0, r0 + Rc + 2 * hc, c0, c0 + Cc + 2 * hc)
+        return win[hc:hc + Rc, hc:hc + Cc].contiguous(), ring(win, hc)
+
+    # -- the visit --------------------------------------------------------
+
+    def _visit(self, b, u, steps, emit, e=None):
+        h = halo_rows(len(steps), emit)
+        if h > self.cap:
+            raise ValueError(f"a halo of {h} exceeds the {self.R} x "
+                             f"{self.C} block")
+        b_halo = u_halo = e_halo = None
+        if emit in ("a", "r"):
+            u_halo = block_exchange(u, h, self.plan, self.split)
+        elif u is None:
+            b_halo = block_exchange(b, h, self.plan, self.split)
+        else:
+            u_halo, b_halo = block_exchange((u, b), h, self.plan, self.split)
+        if e is not None:
+            e, e_halo = self._coarse_in(e, coarse_halo_rows(h))
+        return block_visit(self.st, b, u, steps, emit, row0=self.row0,
+                           col0=self.col0, ny=self.ny, nx=self.nx,
+                           b_halo=b_halo, u_halo=u_halo, e=e, e_halo=e_halo,
+                           coeff_row0=self.coeff_row0,
+                           coeff_col0=self.coeff_col0)
+
+    def _visit_steps(self, b, u, steps, emit, e=None):
+        """A visit of ``steps``: one K17 visit where the block carries its
+        halo (``viable``); else Jacobi's in visits of at most cap - 2
+        steps (the last one emitting), a schedule with momentum one
+        residual emit per step."""
+        if self.viable:
+            return self._visit(b, u, steps, emit, e)
+        c = self.cap - 2
+        if c >= 1 and all(bt == 0 for _, bt in steps):
+            parts = [steps[i:i + c] for i in range(0, len(steps), c)]
+            for part in parts[:-1]:
+                u, e = self._visit(b, u, part, "u", e), None
+            return self._visit(b, u, parts[-1], emit, e)
+        u = self.zeros() if u is None else u
+        if e is not None:
+            u = u + self.prolong(e)
+        p = None
+        for a, bt in steps:
+            z = self.dinv * self.residual(b, u)
+            p = a * z if p is None else bt * p + a * z
+            u = u + p
+        if emit == "u":
+            return u
+        r = self.residual(b, u)
+        return (u, r) if emit == "ur" else (u, self.restrict(r))
+
+    def zeros(self) -> torch.Tensor:
+        return self.dinv.new_zeros((self.R, self.C))
+
+    # -- level operators (DistLevelOps's) ---------------------------------
+
+    def apply(self, u):
+        return self._visit(None, u, (), "a")
+
+    def residual(self, b, u):
+        return self._visit(b, u, (), "r")
+
+    def smooth(self, b, u, steps):
+        return self._visit_steps(b, u, steps, "u")
+
+    def visit_down(self, b, u, steps):
+        """(u', R(b - A u')) from u (None: the zero guess)."""
+        return self._visit_steps(b, u, steps, "rc")
+
+    def visit_up(self, b, u, e, steps, emit_r: bool = False):
+        """u += P e -> smooth [-> residual]."""
+        return self._visit_steps(b, u, steps, "ur" if emit_r else "u", e)
+
+    # -- block-local transfers ---------------------------------------------
+
+    def restrict(self, r: torch.Tensor) -> torch.Tensor:
+        """This block's coarse block of R r (full weighting): the block and,
+        along a split axis, the next block's first row (column) and their
+        corner; the coarse pad row and column 0."""
+        ext = extend(r, block_exchange(r, 1, self.plan, self.split))
+        # An even (split) extent reads one row (column) past the block, an
+        # odd one holds its whole extent.
+        ext = ext[1:self.R + 2 - self.R % 2, 1:self.C + 2 - self.C % 2]
+        rc = restrict_fw(ext)
+        nyc, nxc = (self.ny - 1) // 2, (self.nx - 1) // 2
+        rc[max(nyc - self.row0 // 2, 0):] = 0.0
+        rc[:, max(nxc - self.col0 // 2, 0):] = 0.0
+        return rc
+
+    def prolong(self, e: torch.Tensor) -> torch.Tensor:
+        """P e on the block (bilinear): ``e`` held as the coarse level
+        holds it (its block, or whole where it is not split), of which
+        this block's coarse block and the row above, the column left and
+        their corner are read; the pad row and column 0."""
+        ec, halo = self._coarse_in(e, 1)
+        ext = extend(ec, halo)[:-1, :-1]
+        nyc, nxc = (self.ny - 1) // 2, (self.nx - 1) // 2
+        c0, d0 = self.row0 // 2 - 1, self.col0 // 2 - 1
+        ext[max(nyc - c0, 0):] = 0.0  # the coarse pad row and column
+        ext[:, max(nxc - d0, 0):] = 0.0
+        pe = prolong_bilinear(ext)[2:self.R + 2, 2:self.C + 2]
+        pe[self.nyl:] = 0.0
+        pe[:, self.nxl:] = 0.0
+        return pe

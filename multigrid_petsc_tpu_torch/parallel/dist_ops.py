@@ -204,9 +204,21 @@ class DistLevelOps:
 
     # -- layout ---------------------------------------------------------
 
+    @property
+    def block_shape(self) -> tuple[int, int]:
+        return (self.R, self.nx)
+
     def block_of(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's (R, w) rows of a whole (ny, w) grid, the pad row 0."""
         return _rows(x, self.row0, self.row0 + self.R).contiguous()
+
+    def real(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's rows inside the domain (the pad row cut)."""
+        return x[:self.nyl]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks."""
+        return allreduce_sum(x, self.plan)
 
     def gathered(self, solve):
         """``solve`` of the whole level run on this rank's block: the
@@ -222,6 +234,13 @@ class DistLevelOps:
         the replicated level below (collective)."""
         return all_gather_rows(rc, self.plan,
                                "agglomerate")[:(self.ny - 1) // 2]
+
+    def to_coarse(self, rc: torch.Tensor) -> torch.Tensor:
+        """The coarse level's part of ``rc``: the coarse block where the
+        plan shards the coarse level, else the gathered whole grid."""
+        if self.plan.shards((self.ny - 1) // 2, (self.nx - 1) // 2):
+            return rc
+        return self.gather_coarse(rc)
 
     # -- the visit --------------------------------------------------------
 

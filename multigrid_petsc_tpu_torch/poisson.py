@@ -30,11 +30,13 @@ Distributed (JAX poisson.py:53-75; the reference's ``mpirun -n P``):
 
 Under ``torchrun`` (WORLD_SIZE > 1) each rank initialises the process
 group, NCCL when every rank has a card of its own, gloo otherwise (the
-CPU, or ranks sharing a card: halos staged through the host), and ``-map
-2`` (the default) solves under ``row_plan()``.  Rank 0 prints, the summary
-naming the ranks, the transport and the sharded levels, and writes the
-artifact files from the gathered solution.  ``-map 0/1`` (JAX's 2-D
-blocks layout) is not ported and raises (ROADMAP).
+CPU, or ranks sharing a card: halos staged through the host); ``-map 2``
+(the default) solves under ``row_plan()``, ``-map 0`` and ``-map 1`` under
+``blocks_plan()``, the 2-D blocks layout over the most-square rank mesh
+(JAX maps both styles to its one blocks plan).  Rank 0 prints, the
+summary naming the ranks, the mesh (blocks), the transport and the
+sharded levels, and writes the artifact files from the gathered
+solution.
 """
 
 from __future__ import annotations
@@ -48,13 +50,12 @@ import torch
 import torch.distributed as dist
 
 from multigrid_petsc_tpu_torch.mesh import MeshType
-from multigrid_petsc_tpu_torch.parallel import row_plan
+from multigrid_petsc_tpu_torch.parallel import blocks_plan, row_plan
 from multigrid_petsc_tpu_torch.postprocess import error_norms, write_artifacts
 from multigrid_petsc_tpu_torch.solvers.solve import solve
 from multigrid_petsc_tpu_torch.utils.config import (
     CycleType,
     SolverConfig,
-    not_ported,
     parse_options,
     parse_options_file,
 )
@@ -101,29 +102,32 @@ def main(argv=None) -> int:
         print(f"configuration error: {e}", file=sys.stderr)
         return 1
 
-    plan = None
+    plan, own_group = None, False
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        if cfg.map_style != 2:
-            raise not_ported(f"-map {cfg.map_style} (the 2-D blocks "
-                             f"layout)", "distribution, the blocks layout")
-        plan = _init_plan(device)
+        own_group = not dist.is_initialized()
+        plan = _init_plan(device, cfg.map_style)
     try:
         return _run(cfg, device, plan)
     finally:
-        if plan is not None:
+        if own_group:
             dist.destroy_process_group()
 
 
-def _init_plan(device: str):
-    """The process group of a ``torchrun`` launch and its row plan: NCCL
-    when every rank of the node has a card of its own, else gloo."""
-    local = int(os.environ.get("LOCAL_WORLD_SIZE",
-                               os.environ["WORLD_SIZE"]))
-    own_card = (device != "cpu" and torch.cuda.is_available()
-                and torch.cuda.device_count() >= local)
-    dist.init_process_group("nccl" if own_card else "gloo",
-                            timeout=timedelta(seconds=600))
-    return row_plan(device=device)
+def _init_plan(device: str, map_style: int):
+    """The process group of a ``torchrun`` launch (one the caller has
+    initialised is kept) and its plan (``-map 2``: the rows layout, ``-map
+    0/1``: the blocks layout): NCCL when every rank of the node has a card
+    of its own, else gloo."""
+    if not dist.is_initialized():
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ["WORLD_SIZE"]))
+        own_card = (device != "cpu" and torch.cuda.is_available()
+                    and torch.cuda.device_count() >= local)
+        dist.init_process_group("nccl" if own_card else "gloo",
+                                timeout=timedelta(seconds=600))
+    if map_style == 2:
+        return row_plan(device=device)
+    return blocks_plan(device=device)
 
 
 def _run(cfg: SolverConfig, device: str, plan) -> int:
@@ -145,8 +149,10 @@ def _run(cfg: SolverConfig, device: str, plan) -> int:
           + (f" outer_dtype={res.outer_dtype}" if res.outer_dtype else ""))
     if plan is not None:
         # Each sharded level's sharded grids (a merged level's joined by /).
-        print(f"distributed: ranks={plan.size} transport={plan.transport} "
-              f"sharded levels=" + ",".join(
+        mesh = (f" mesh={plan.mesh[0]}x{plan.mesh[1]}"
+                if plan.layout == "blocks" else "")
+        print(f"distributed: ranks={plan.size}{mesh} "
+              f"transport={plan.transport} sharded levels=" + ",".join(
                   "/".join(str(g.ny) for g, s in zip(lc.spec.grids,
                                                      lc.split) if s)
                   for lc in res.ctx.levels if lc.sharded))

@@ -36,31 +36,40 @@ in the kernels), as the JAX package does.  What is not ported raises
 
 Distribution (``plan=``, a ``parallel.ShardingPlan`` over a
 ``torch.distributed`` group; JAX context.py:350-414, 945-961): each rank
-builds the whole hierarchy.  A level the plan row-shards runs on this
-rank's row block through ``LevelCtx.dist`` (``parallel.DistLevelOps``,
-K17, one pad row: ``pad_rows``); the others are replicated, every rank
+builds the whole hierarchy.  A level the plan shards runs on this rank's
+block through ``LevelCtx.dist`` (K17, one pad row: ``pad_rows``): under
+the rows layout (``-map 2``) its row block (``parallel.DistLevelOps``),
+under the 2-D blocks layout (``-map 0/1``) its block of the (my, mx) rank
+mesh (``parallel.BlockLevelOps``, K17's 2-D block mode, a pad row and a
+pad column along each split axis); the others are replicated, every rank
 holding them whole.  A level the plan shards stays sharded whatever its
 smoother (JAX shards it too, through GSPMD where its dist kernels do not
 take it): point smoothers run K17 visits (in pieces where the block is
-too small for the halo), RBGS, the line smoothers and non-separable
-9-point coefficients run on the block as well (``DistLevelOps``).
-Reductions go through the level (``LevelCtx.dot``): a sharded level's are
-summed over the ranks, a replicated level's are not.  The level
-transitions: sharded -> sharded, the visits' rc block IS the coarse block
-and the whole transfers are block-local; sharded -> replicated, the rc
-blocks are all-gathered; replicated -> sharded, the up visit cuts its
-rows of the whole coarse correction.  Inside a cycle nothing else is
-gathered but the y-lines' carries and a sharded coarsest level that JAX
-solves directly (``parallel.halo.gathers``).  A merged level is split grid
-by grid, as JAX splits it (``ShardingPlan.shards``): its operator set
-(``LevelCtx.grid_ops``, ``parallel.DistMergedOps``) runs each sharded
-grid on its block through K17 and each replicated grid whole through K6
-and K7, its couplings one transfer gap at a time (block-local between two
-sharded sizes), and its inner product sums the sharded grids' dots over
-the ranks and adds the replicated grids' once.  Every cycle, the
-merged-grid ones included, and both precision outers run under a plan
-(the preconditioner context under the same plan); the blocks layout and
-the sparse backend raise (ROADMAP).
+too small for the halo); under the rows layout RBGS, the line smoothers
+and non-separable 9-point coefficients run on the block as well
+(``DistLevelOps``).  Reductions go through the level (``LevelCtx.dot``):
+a sharded level's are summed over the ranks that hold distinct blocks, a
+replicated level's are not.  The level transitions: sharded -> sharded,
+the visits' rc block IS the coarse block and the whole transfers are
+block-local; to a level split along fewer axes (or replicated), the rc
+blocks are all-gathered along the axes that stop being split; the up
+visit cuts its block of a coarse correction held whole along an axis.
+Inside a cycle nothing else is gathered but the y-lines' carries and a
+sharded coarsest level that JAX solves directly
+(``parallel.halo.gathers``).  Under the rows layout a merged level is
+split grid by grid, as JAX splits it (``ShardingPlan.shards``): its
+operator set (``LevelCtx.grid_ops``, ``parallel.DistMergedOps``) runs
+each sharded grid on its block through K17 and each replicated grid
+whole through K6 and K7, its couplings one transfer gap at a time
+(block-local between two sharded sizes), and its inner product sums the
+sharded grids' dots over the ranks and adds the replicated grids' once.
+Every cycle, the merged-grid ones included, and both precision outers run
+under the rows layout (the preconditioner context under the same plan);
+under the blocks layout every single-grid cycle with a point smoother,
+and the rest raises naming its ROADMAP item (``_check_blocks``: the
+precision outers, RBGS and the line smoothers, merged levels; uneven
+blocks in ``ShardingPlan.block``).  The sparse backend raises under any
+plan.
 """
 
 from __future__ import annotations
@@ -98,13 +107,14 @@ from multigrid_petsc_tpu_torch.ops.transfer import (
     prolong_multi,
     restrict_fw,
 )
+from multigrid_petsc_tpu_torch.parallel.block_ops import BlockLevelOps
+from multigrid_petsc_tpu_torch.parallel.device_mesh import BLOCKS_WAIT
 from multigrid_petsc_tpu_torch.parallel.dist_ops import (
     DistLevelOps,
     DistMergedOps,
     prolong_steps,
     restrict_steps,
 )
-from multigrid_petsc_tpu_torch.parallel.halo import allreduce_sum
 from multigrid_petsc_tpu_torch.problems import (
     AnisoProblem,
     Problem,
@@ -188,9 +198,11 @@ class LevelCtx:
     sparse_full: SparseLevelOp | None = None
     sparse_diag: SparseLevelOp | None = None
     sparse_coup: SparseLevelOp | None = None
-    # A row-sharded level (under a plan): its state is this rank's (R, nx)
-    # block of the ny + pad_rows rows, every operation one K17 visit.
-    dist: DistLevelOps | None = None
+    # A sharded level (under a plan): its state is this rank's block, (R,
+    # nx) of the ny + pad_rows rows under the rows layout (DistLevelOps),
+    # (R, C) under the blocks layout (BlockLevelOps), every operation one
+    # K17 visit.
+    dist: DistLevelOps | BlockLevelOps | None = None
     pad_rows: int = 0
     # A merged level's per-grid operators (GridOps; DistMergedOps when
     # the plan shards its primary grid: each sharded grid's block).
@@ -204,7 +216,7 @@ class LevelCtx:
     def state_shape(self) -> tuple[int, int]:
         """The primary grid's state on this rank: its block when sharded."""
         if self.dist is not None:
-            return (self.dist.R, self.dist.nx)
+            return self.dist.block_shape
         return self.shape
 
     @property
@@ -275,7 +287,7 @@ class LevelCtx:
         if self.grid_ops is not None:
             return self.grid_ops.dot(x, y)
         d = tree_dot(x, y)
-        return d if self.dist is None else allreduce_sum(d, self.dist.plan)
+        return d if self.dist is None else self.dist.sum(d)
 
     def norm2(self, x) -> torch.Tensor:
         return torch.sqrt(self.dot(x, x))
@@ -297,7 +309,8 @@ class LevelCtx:
         """This rank's part of a whole level state (a part kept)."""
         if self.grid_ops is not None:
             return self.grid_ops.local(state)
-        if self.dist is not None and state.shape[0] != self.dist.R:
+        if (self.dist is not None
+                and tuple(state.shape) != self.dist.block_shape):
             return self.dist.block_of(state)
         return state
 
@@ -306,7 +319,7 @@ class LevelCtx:
         grid."""
         if self.grid_ops is not None:
             return self.grid_ops.real_rows(state)
-        return state if self.dist is None else state[:self.dist.nyl]
+        return state if self.dist is None else self.dist.real(state)
 
     def apply(self, u):
         if self.dist is not None:
@@ -516,8 +529,8 @@ class MGContext:
 
     def restrict_rc1(self, l: int, rc1: torch.Tensor):
         cur, nxt = self.levels[l], self.levels[l + 1]
-        if cur.dist is not None and not nxt.split[0]:
-            rc1 = cur.dist.gather_coarse(rc1)
+        if cur.dist is not None:
+            rc1 = cur.dist.to_coarse(rc1)
         return self._down_grids(l, rc1) if nxt.merged else rc1
 
     def prolong_half(self, l: int, u_next) -> torch.Tensor:
@@ -537,7 +550,10 @@ class MGContext:
     # finer one is.
     def restrict_to_next(self, l: int, r: torch.Tensor):
         """Level l's primary-grid residual onto every grid of level l+1."""
-        g = self.levels[l].spec.primary
+        cur = self.levels[l]
+        if cur.dist is not None:
+            return self.restrict_rc1(l, cur.dist.restrict(r))
+        g = cur.spec.primary
         rc = restrict_steps(r, g.ny, g.nx, 1, self.plan)
         return self._down_grids(l, rc) if self.levels[l + 1].merged else rc
 
@@ -566,12 +582,35 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
                  CycleType.ECYCLE)
 
 
+# The cycles whose level 0 merges grids (the reference's zoo).
+_MERGED_CYCLES = (CycleType.ICYCLE, *_SPLIT_CYCLES)
+
+
+def _check_blocks(cfg: SolverConfig) -> None:
+    """What the blocks layout does not take yet, in the order ROADMAP
+    queues it."""
+    if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
+        raise not_ported("a precision outer (outer_dtype, precond_dtype) "
+                         "under the blocks layout", BLOCKS_WAIT["precision"])
+    bad = {cfg.smoother_at(l, cfg.levels) for l in range(cfg.levels)}
+    bad -= set(POINT_SMOOTHERS)
+    if bad:
+        raise not_ported(
+            f"the {', '.join(sorted(s.value for s in bad))} smoother under "
+            f"the blocks layout", BLOCKS_WAIT["smoothers"])
+    if cfg.grids != cfg.levels or cfg.cycle in _MERGED_CYCLES:
+        raise not_ported("merged levels and the merged-grid cycles under the "
+                         "blocks layout", BLOCKS_WAIT["merged"])
+
+
 def _check_supported(cfg: SolverConfig, plan) -> None:
     if plan is not None:
         if cfg.backend == "sparse":
             raise ValueError(
                 "backend='sparse' is the single-device explicit-operator "
                 "path; use backend='auto'/'pallas' for distributed runs")
+        if plan.layout == "blocks":
+            _check_blocks(cfg)
     if cfg.problem not in ("poisson", "aniso"):
         raise ValueError(f"unknown problem {cfg.problem!r}")
     if cfg.problem == "aniso" and cfg.grids != cfg.levels:
@@ -699,15 +738,15 @@ def build_context(cfg: SolverConfig, problem: Problem | None = None,
 
 
 def _use_dist(lc: LevelCtx, plan) -> bool:
-    """Does ``lc`` run row-sharded under ``plan``?  Where the plan shards
-    it (``ShardingPlan.spec``; a world of one rank shards nothing), as
-    JAX shards it: its dist kernels where they take the level, GSPMD
-    where they do not (another smoother than Jacobi or Chebyshev,
-    non-separable 9-point coefficients, a block too small for the halo).
-    The port runs all of these on the row block (K17 ships every
-    coefficient as it is; ROADMAP: kept for parity).  A merged level runs
-    sharded where its primary grid is, each of its grids split as the plan
-    splits it (``_shard``)."""
+    """Does ``lc`` run sharded under ``plan``?  Where the plan shards it
+    (``ShardingPlan.spec``; a world of one rank shards nothing), as JAX
+    shards it: under the rows layout its dist kernels where they take the
+    level, GSPMD where they do not (another smoother than Jacobi or
+    Chebyshev, non-separable 9-point coefficients, a block too small for
+    the halo); under the blocks layout GSPMD.  The port runs all of these
+    on the rank's block (K17 ships every coefficient as it is; ROADMAP:
+    kept for parity).  A merged level runs sharded where its primary grid
+    is, each of its grids split as the plan splits it (``_shard``)."""
     g = lc.spec.primary
     return plan is not None and plan.shards(g.ny, g.nx)
 
@@ -717,18 +756,30 @@ def _jax_dist_kernels(lc: LevelCtx, whole_stencil) -> bool:
     (context.py:350-414: a point smoother, a 5-point or separable 9-point
     stencil, a block that carries the largest halo) rather than GSPMD?
     Only the coarsest level's solver reads it: JAX iterates CG on the
-    former and solves the latter directly."""
-    return (lc.smoother in POINT_SMOOTHERS and lc.dist.viable
+    former and solves the latter directly.  Under the blocks layout JAX
+    runs every level through GSPMD."""
+    return (isinstance(lc.dist, DistLevelOps)
+            and lc.smoother in POINT_SMOOTHERS and lc.dist.viable
             and (not lc.nine or separable9(whole_stencil)))
 
 
 def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
-    """Put ``lc`` on this rank's row block (JAX context.py:945-961), its
-    smoother's set-up with it (RBGS's colours by the global parity, the
-    line smoothers' stencils and factors of the block); a merged level
-    grid by grid (``DistMergedOps``: the sharded grids' blocks, the
-    replicated grids whole)."""
+    """Put ``lc`` on this rank's block (JAX context.py:945-961): under
+    the rows layout its row block, its smoother's set-up with it (RBGS's
+    colours by the global parity, the line smoothers' stencils and
+    factors of the block), a merged level grid by grid
+    (``DistMergedOps``: the sharded grids' blocks, the replicated grids
+    whole); under the blocks layout its 2-D block (``BlockLevelOps``; a
+    point smoother, one grid: ``_check_blocks``)."""
     lc.pad_rows = 1
+    if plan.layout == "blocks":
+        g = lc.spec.primary
+        d = lc.dist = BlockLevelOps(lc.stencil, g.ny, g.nx, plan,
+                                    cfg.max_sweeps)
+        lc.dinv = d.dinv
+        lc.stencil = d.st
+        lc.stencils = (d.st,)
+        return
     if lc.merged:
         ops = lc.grid_ops = DistMergedOps(lc.stencils, lc.spec.grids, plan,
                                           cfg.max_sweeps)

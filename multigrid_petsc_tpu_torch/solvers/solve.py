@@ -20,10 +20,11 @@ rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
 
 Under a plan (``plan=``, every rank calling ``solve`` alike) the solve
 runs on the plan's device; ``u0`` is the whole level-0 state, of which
-each rank takes its rows of every sharded grid, or the rank's part of it
-(a checkpoint's under the plan, ``utils.checkpoint.load``: each sharded
-grid's (R, nx) block); ``SolveResult.u`` is this rank's block of the
-primary grid's solution (its real rows), ``u_local`` this rank's part of
+each rank takes its block of every sharded grid, or the rank's part of it
+(a checkpoint's under the rows layout, ``utils.checkpoint.load``: each
+sharded grid's (R, nx) block); ``SolveResult.u`` is this rank's block of
+the primary grid's solution (its real rows and columns), ``u_local`` this
+rank's part of
 every grid, and ``u_fine`` / ``u_grids`` the whole grids, gathered from
 every rank (a collective: every rank reads them).
 """
@@ -105,7 +106,8 @@ class SolveResult:
             return self.u_local
         if self._whole is None:
             self._whole = tuple(
-                torch.as_tensor(gather_solution(x, self.ctx.plan, g.ny),
+                torch.as_tensor(gather_solution(x, self.ctx.plan, g.ny,
+                                                g.nx),
                                 device=x.device) if s else x
                 for x, g, s in zip(self.u_local, lvl0.spec.grids,
                                    lvl0.split))

@@ -15,7 +15,8 @@ grid of the level-0 state the plan shards is the ranks' row blocks:
 rank 0 writes the whole grids; ``load`` gives each rank its block of each
 sharded grid (``DistLevelOps.block_of``'s rows, the pad row 0) and the
 replicated grids whole, which ``solve(u0=...)`` under the same plan
-resumes from.
+resumes from.  Under the blocks layout the checkpoint is not ported
+(``_rows_only``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,15 @@ import numpy as np
 import torch
 
 from multigrid_petsc_tpu_torch.hierarchy import build_hierarchy
+from multigrid_petsc_tpu_torch.parallel.device_mesh import BLOCKS_WAIT
 from multigrid_petsc_tpu_torch.parallel.gather import gather_solution
+from multigrid_petsc_tpu_torch.utils.config import not_ported
+
+
+def _rows_only(plan) -> None:
+    if plan is not None and plan.layout == "blocks":
+        raise not_ported("the checkpoint under the blocks layout",
+                         BLOCKS_WAIT["precision"])
 
 
 def _fingerprint(cfg) -> str:
@@ -46,6 +55,7 @@ def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
     rank's part of it (``SolveResult.u_local``; ``SolveResult.u`` on a
     single-grid level 0): every rank calls ``save``, each sharded grid's
     blocks are gathered and rank 0 writes."""
+    _rows_only(plan)
     if isinstance(u, (torch.Tensor, np.ndarray)):
         u = (u,)
     if plan is not None:
@@ -78,6 +88,7 @@ def load(path: str | Path, cfg, plan=None):
     configuration mismatch.  Under ``plan`` u holds this rank's (R, nx)
     row block of each saved grid the plan shards (R = (ny + 1) / ranks),
     the others whole."""
+    _rows_only(plan)
     with np.load(Path(path)) as z:
         fp = z["fingerprint"].item()
         fp = fp.decode() if isinstance(fp, bytes) else str(fp)

@@ -6,7 +6,8 @@ solve, src/solver.c:1560-1564).
 
 The output is the JAX package's line for line, but for the ``op=`` token
 of ``view_solver``, which names the port's operator, and its ``layout=``
-token under a plan.
+token under the rows layout (under the blocks layout it is JAX's, letter
+for letter).
 """
 
 from __future__ import annotations
@@ -77,9 +78,15 @@ def view_operator(ctx, level: int = 0, max_rows: int = 8) -> str:
 
 def _level_op(ctx, lvl, level: int) -> str:
     """What applies a level's operator: ``K17(ranks xP, R=.., pad=..)`` on
-    a row-sharded level, ``sparse(<form>, nnz=..)`` on an assembled one,
-    else ``cuda`` (the hand-written kernels; on level 0 with the mg-CG
-    route the last solve took) or ``torch`` (their plain versions)."""
+    a row-sharded level, ``K17(mesh MYxMX, block=RxC, pad=..)`` on a
+    level the blocks layout splits, ``sparse(<form>, nnz=..)`` on an
+    assembled one, else ``cuda`` (the hand-written kernels; on level 0
+    with the mg-CG route the last solve took) or ``torch`` (their plain
+    versions)."""
+    if lvl.dist is not None and ctx.plan.layout == "blocks":
+        d = lvl.dist
+        return (f"K17(mesh {d.plan.mesh[0]}x{d.plan.mesh[1]}, "
+                f"block={d.R}x{d.C}, pad={lvl.pad_rows})")
     if lvl.dist is not None:
         return (f"K17(ranks x{lvl.dist.plan.size}, R={lvl.dist.R}, "
                 f"pad={lvl.pad_rows})")
@@ -120,7 +127,10 @@ def view_solver(ctx) -> str:
                 smoother += f"(omega={cfg.omega})"
         sweeps = cfg.v[1] if (l == L - 1 and L > 1) else cfg.v[0]
         layout = ""
-        if ctx.plan is not None:
+        if ctx.plan is not None and ctx.plan.layout == "blocks":
+            g = lvl.spec.primary  # JAX's spec: tuple(PartitionSpec)
+            layout = f" layout={ctx.plan.spec(g.ny, g.nx)}"
+        elif ctx.plan is not None:
             layout = " layout=" + "/".join(
                 "rows" if s else "replicated" for s in lvl.split)
         coarse = ""

@@ -1,18 +1,21 @@
 """One rank of a CPU gloo world for the distributed port's tests
 (test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
-test_torch_dist_smoothers.py, test_torch_dist_merged.py), and the helpers that start such a world
-and read its results (``spawn``, ``finish``, ``load``).  Not collected
-by pytest (no test_ prefix).
+test_torch_dist_smoothers.py, test_torch_dist_merged.py,
+test_torch_dist_blocks.py), and the helpers that start such a world and
+read its results (``spawn``, ``finish``, ``load``).  Not collected by
+pytest (no test_ prefix).
 
     python tests/_dist_worker.py RANK WORLD PORT OUTDIR CONFIGS_JSON
 
 CONFIGS_JSON maps a name to {"cfg": SolverConfig fields (cycle as its
-id, smoothers as their values), "min_local": int, "warm": bool, "view":
-bool, "nonsep": bool, "checkpoint": bool}.  Each rank solves every
-config under ``row_plan(min_local=...)`` on the CPU and writes
-OUTDIR/<name>.<rank>.npz: iterations, converged, the residual history,
-the gathered solution (every grid of level 0 as ``grid<k>``), which levels
-ran sharded (``dist``; ``split``: each level's grids, as JSON), the
+id, smoothers as their values), "min_local": int, "layout": "rows" or
+"blocks", "mesh": [my, mx] (blocks), "warm": bool, "view": bool,
+"nonsep": bool, "checkpoint": bool}.  Each rank solves every config
+under ``row_plan(min_local=...)`` (or ``blocks_plan``) on the CPU and
+writes OUTDIR/<name>.<rank>.npz: iterations, converged, the residual
+history, the gathered solution (every grid of level 0 as ``grid<k>``),
+which levels ran sharded (``dist``; ``split``: each level's grids, as
+JSON; ``axes``: the axes (y, x) the plan splits each level along), the
 -moreNorm monitors where the solve kept them, and the all-gathers the
 solve made (``parallel.halo.gathers``, as JSON); with "view" also
 OUTDIR/<name>.<rank>.view.txt, the solve's ``view_solver`` dump.
@@ -22,14 +25,17 @@ OUTDIR/<name>.<rank>.view.txt, the solve's ``view_solver`` dump.
 the loaded blocks; "nonsep" multiplies the 9-point centre by
 ``nonsep_factor`` (coefficients no sum of an x- and a y-profile gives).
 The name "exchange" checks ``edge_exchange`` and ``allreduce_sum``
-instead, "refuse" records what each case of ``REFUSALS`` raises, and
+instead, "block_exchange" ``block_exchange`` (``block_halos``), "refuse"
+records what each case of ``REFUSALS`` and a checkpoint under the blocks
+plan raise (and the device of a plan built without one), and
 "units" runs ``units``: a sharded level's operators on row blocks, and
 "merged_units" runs ``merged_units``: a merged level's operators on
-its grids' blocks.
+its grids' blocks; a config with "argv" runs the CLI (``cli``).
 """
 
 import dataclasses
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -45,6 +51,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from multigrid_petsc_tpu_torch.parallel import (  # noqa: E402
     ShardingPlan,
     allreduce_sum,
+    block_exchange,
+    blocks_plan,
     edge_exchange,
     halo,
     row_plan,
@@ -64,14 +72,18 @@ TIMEOUT = 240  # seconds for a whole world; a deadlocked rank fails the test
 
 
 def spawn(configs: dict, outdir: Path, world: int = WORLD) -> list:
-    """Start one process per rank, each solving ``configs``."""
+    """Start one process per rank, each solving ``configs``, each with
+    one host thread for its BLAS (as ``torchrun`` sets it: ranks whose
+    BLAS threads each take every core spin against each other)."""
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     return [subprocess.Popen(
         [sys.executable, __file__, str(r), str(world), str(port),
          str(outdir), json.dumps(configs)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env)
         for r in range(world)]
 
 
@@ -94,11 +106,25 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
     return [dict(np.load(outdir / f"{name}.{r}.npz")) for r in range(world)]
 
 
-# What a plan refuses: (case, SolverConfig fields) -> the exception raised.
+# What a plan refuses: case -> (SolverConfig fields, plan arguments): the
+# row plan's two, then what the blocks layout does not take yet, one case
+# per ROADMAP item, in the order it is queued (the uneven blocks: 11 + 1
+# points over 4 ranks along x).
 REFUSALS = {
-    "sparse": dict(backend="sparse"),
-    "bf16": dict(dtype="bfloat16"),
+    "sparse": (dict(backend="sparse"), {}),
+    "bf16": (dict(dtype="bfloat16"), {}),
+    "precision": (dict(outer_dtype="float64"), {"layout": "blocks"}),
+    "smoothers": (dict(smoother="rbgs", cycle=0), {"layout": "blocks"}),
+    "merged": (dict(grids=4, levels=3), {"layout": "blocks"}),
+    "uneven": (dict(npts=13, grids=2, levels=2),
+               {"layout": "blocks", "mesh": [1, 4], "min_local": 2}),
 }
+# The ROADMAP item each blocks refusal names ("checkpoint": a checkpoint
+# saved under the blocks plan).
+BLOCKS_ITEMS = {"precision": "the precision outers and the checkpoint",
+                "checkpoint": "the precision outers and the checkpoint",
+                "smoothers": "RBGS and the line smoothers",
+                "merged": "merged levels", "uneven": "uneven blocks"}
 
 
 def nonsep_factor(ny: int, nx: int) -> np.ndarray:
@@ -119,14 +145,35 @@ def nonsep_coefficients(fn):
     return coefficients
 
 
+def make_plan(spec: dict, device="cpu"):
+    """A job's plan: ``row_plan`` or, with "layout": "blocks",
+    ``blocks_plan`` (over "mesh" when given), ``min_local`` (default
+    32)."""
+    kw = dict(min_local=spec.get("min_local", 32), device=device)
+    if spec.get("layout") == "blocks":
+        mesh = spec.get("mesh")
+        return blocks_plan(shape=None if mesh is None else tuple(mesh), **kw)
+    return row_plan(**kw)
+
+
 def refuse(rank: int, out: Path) -> None:
+    """What each case of ``REFUSALS`` raises; and a plan built without a
+    device: its device, and what a solve under it raises (no card)."""
     got = {}
-    cases = {"blocks": lambda: ShardingPlan(layout="blocks")}
-    for case, fields in REFUSALS.items():
+    cases = {}
+    for case, (fields, plan_kw) in REFUSALS.items():
         cfg = config(dict(dict(npts=129, grids=4, levels=4, cycle=101),
                           **fields))
-        cases[case] = lambda cfg=cfg: solve(
-            cfg, plan=row_plan(min_local=8, device="cpu"))
+        cases[case] = lambda cfg=cfg, kw=plan_kw: solve(
+            cfg, plan=make_plan(dict(dict(min_local=8), **kw)))
+    ck_cfg = config(dict(npts=129, grids=4, levels=4, cycle=101))
+    cases["checkpoint"] = lambda: checkpoint.save(
+        out / f"ck.{rank}.npz", ck_cfg, np.zeros((127, 127)), [1.0], 0,
+        plan=make_plan({"layout": "blocks", "min_local": 8}))
+    default = ShardingPlan()
+    got["default_device"] = str(default.device)
+    cases["default_solve"] = lambda: solve(
+        config(dict(npts=17, grids=2, levels=2, cycle=101)), plan=default)
     for case, fn in cases.items():
         try:
             fn()
@@ -160,6 +207,54 @@ def exchange(rank: int, world: int, plan, out: Path) -> None:
     np.savez(out / f"exchange.{rank}.npz", top=hx.top.numpy(),
              bot=hx.bot.numpy(), top2=hy.top.numpy(), bot2=hy.bot.numpy(),
              total=total.numpy())
+
+
+def block_halos(rank: int, world: int, out: Path) -> None:
+    """``block_exchange`` on the 2x2 blocks plan: every rank's (16, 16)
+    block of one (32, 32) field (numpy, seed 3) and its halo of depth 1
+    and 3 split along both axes, and of depth 3 split along y and along x
+    alone (the other axis's extent whole: (16, 32) and (32, 16) blocks of
+    the same field); two blocks in one message; written to
+    OUTDIR/block_exchange.<rank>.npz."""
+    plan = blocks_plan(min_local=4, device="cpu")
+    iy, ix = plan.coords
+    field = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (32, 32)))
+    res = {"coords": np.asarray([iy, ix])}
+    blocks = {"yx": (field[16 * iy:16 * iy + 16, 16 * ix:16 * ix + 16],
+                     (True, True)),
+              "y": (field[16 * iy:16 * iy + 16], (True, False)),
+              "x": (field[:, 16 * ix:16 * ix + 16], (False, True))}
+    for name, (blk, split) in blocks.items():
+        for h in ((1, 3) if name == "yx" else (3,)):
+            halos = block_exchange((blk, -blk), h, plan, split)
+            for k, hl in zip(("", "neg_"), halos):
+                for part, x in hl._asdict().items():
+                    res[f"{k}{name}{h}_{part}"] = x.numpy()
+    np.savez(out / f"block_exchange.{rank}.npz", **res)
+
+
+def cli(rank: int, world: int, out: Path, name: str, argv: list) -> None:
+    """``poisson.main(argv)`` on this world's process group, in
+    OUTDIR/<name>.<rank>/ (the artifact files), its standard output to
+    OUTDIR/<name>.<rank>.txt."""
+    import contextlib
+    import io
+
+    from multigrid_petsc_tpu_torch import poisson
+
+    cwd = out / f"{name}.{rank}"
+    cwd.mkdir()
+    text = io.StringIO()
+    old = os.getcwd()
+    os.environ["WORLD_SIZE"] = str(world)
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(text):
+            assert poisson.main(argv) == 0
+    finally:
+        os.chdir(old)
+    (out / f"{name}.{rank}.txt").write_text(text.getvalue())
 
 
 def units(rank: int, world: int, out: Path) -> None:
@@ -332,13 +427,19 @@ def main() -> None:
             if name == "refuse":
                 refuse(rank, out)
                 continue
+            if name == "block_exchange":
+                block_halos(rank, world, out)
+                continue
+            if "argv" in spec:
+                cli(rank, world, out, name, spec["argv"])
+                continue
             if name == "units":
                 units(rank, world, out)
                 continue
             if name == "merged_units":
                 merged_units(rank, world, out)
                 continue
-            plan = row_plan(min_local=spec["min_local"], device="cpu")
+            plan = make_plan(spec)
             cfg = config(spec["cfg"])
             if spec.get("nonsep"):
                 import multigrid_petsc_tpu_torch.solvers.context as context
@@ -378,6 +479,8 @@ def main() -> None:
                      dist=[lv.sharded for lv in res.ctx.levels],
                      split=json.dumps([list(lv.split)
                                        for lv in res.ctx.levels]),
+                     axes=json.dumps([list(plan.split(*lv.shape))
+                                      for lv in res.ctx.levels]),
                      block_rows=res.u.shape[0], gathers=gathers, **extra)
             if spec.get("view"):
                 (out / f"{name}.{rank}.view.txt").write_text(

@@ -4,7 +4,8 @@ version on the 5-point stencil against JAX's ``DistLevelOps`` in interpret
 mode on the conftest's 8-device row mesh, every emit; a 4-rank gloo world
 (``_dist_worker.py``, started once for the module and run beside the
 kernel tests) for ``edge_exchange`` / ``allreduce_sum``, what a plan
-refuses (the blocks layout, the bf16 working dtype, the sparse backend),
+refuses (the bf16 working dtype, the sparse backend, and what the blocks
+layout does not take yet), the device of a plan built without one,
 and the V-cycle and mg-CG solves against JAX's 4-device row-plan
 solves.
 
@@ -242,11 +243,13 @@ def test_edge_exchange_and_allreduce(world):
         assert float(d["total"]) == sum(range(1, dw.WORLD + 1))
 
 
-@pytest.mark.parametrize("case", ["blocks", *dw.REFUSALS])
+@pytest.mark.parametrize("case", [*dw.REFUSALS, "checkpoint"])
 def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
     ROADMAP (the sparse backend: JAX's ValueError), on every rank: the
-    blocks layout and the bf16 working dtype, which name their item."""
+    bf16 working dtype, and under the blocks layout each item that waits
+    (the precision outers and the checkpoint, RBGS and the line
+    smoothers, merged levels, uneven blocks), which name their item."""
     out = world()
     got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
            for r in range(dw.WORLD)}
@@ -256,9 +259,21 @@ def test_plan_refuses(world, case):
         assert msg.startswith("ValueError") and "single-device" in msg
     else:
         assert msg.startswith("NotImplementedError") and "ROADMAP" in msg
-        item = ("the blocks layout" if case == "blocks" else
-                "the bf16 working dtype")
+        item = ("the bf16 working dtype" if case == "bf16" else
+                "distribution, blocks: " + dw.BLOCKS_ITEMS[case])
         assert item in msg, msg
+
+
+def test_plan_without_device_is_on_the_card(world):
+    """A plan built without a device puts the rank's data on its card
+    (cuda:LOCAL_RANK), never on the CPU: with no card here, a solve under
+    it raises."""
+    out = world()
+    for r in range(dw.WORLD):
+        got = json.loads((out / f"refuse.{r}.json").read_text())
+        assert got["default_device"] == "cuda:0", got
+        assert got["default_solve"].startswith("RuntimeError"), got
+        assert "no CUDA device" in got["default_solve"], got
 
 
 @pytest.fixture(scope="module")
