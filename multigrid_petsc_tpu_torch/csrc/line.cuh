@@ -79,6 +79,24 @@
 // runs a replicated coarse level), then launch 3 on its own segments with
 // their slice of the carries.  No transpose of the level and no chain
 // through the ranks: the carries move nx * ny / seg * 2 values a sweep.
+//
+// Its 2-D block mode (SIDES; the same entries, given side buffers): a
+// level of the 2-D blocks layout, whose y-lines span a mesh column.  The
+// rank's (R, C) block holds nyl x nxl real points (the last mesh row's
+// pad row and the last mesh column's pad column are not real; their
+// output is left to the caller), read with the row stride ld = C, and
+// its depth-1 ring from the neighbours: the rows above and below from
+// column -1 to nxl (the corners, which the 9-point line stencil's
+// off-line terms read) and the columns left and right, one value a row.
+// Only the right-hand sides read the ring.  The coefficients that vary
+// with x and the line factors of a field are cut to the block's real
+// columns, so the segment ends, the carries and every per-column value
+// have nxl columns; the callers gather the ends over the mesh column.
+// An x-line of a block is a y-line of the transposed block and its
+// transposed ring, gathered over the mesh row.  A block that holds its
+// lines whole (the level not split along them) is the same mode over a
+// group of one rank: no gather, SEG-row segments, the last one cut by
+// the edge.  The rows mode is this mode without side buffers.
 
 #pragma once
 
@@ -150,31 +168,53 @@ __device__ __forceinline__ T fat(const T* f, int sx, int y, int x, int nx) {
   return f[sx ? (size_t)y * nx + x : (size_t)y];
 }
 
-// The iterate's rows just past a rank's block (the rank-spanning mode):
-// the row above its first row and the row below its last, nx values each;
-// null at the domain's edges and on a whole level.
+// The iterate's points just past a rank's block (the rank-spanning mode):
+// the row above its first row and the row below its last, nx values each
+// (SIDES, the 2-D block mode: ld + 2 each, from column -1, the corners
+// included), null at the domain's edges and on a whole level; SIDES: the
+// columns left and right of the block, one value per row (zeros at the
+// domain's edges); ld: the row stride of b, u and the output (nx but in
+// the 2-D block mode, whose nx counts the block's real columns).
 template <class T>
 struct RowHalo {
   const T* top;
   const T* bot;
+  const T* left;
+  const T* right;
+  int ld;
 };
+
+// The row stride of b, u and the output: the halo's in the rank-spanning
+// mode, nx on a whole level.
+template <bool ROWS, class T>
+__device__ __forceinline__ int stride_of(const RowHalo<T>& hl, int nx) {
+  return ROWS ? hl.ld : nx;
+}
 
 // The sweep's input iterate at (y, x): u (or zero) plus the prolonged
 // correction, zero outside the domain; ROWS (the rank-spanning mode): rows
-// -1 and ny from the halo rows where there are any.  ROWS is a template
-// flag so that a whole level's kernels compile as they did without it.
-template <bool GUESS, bool CORRECT, bool ROWS, class T>
+// -1 and ny from the halo rows where there are any; SIDES (its 2-D block
+// mode): rows -1 and ny and columns -1 and nx from the ring.  ROWS and
+// SIDES are template flags so that a whole level's kernels compile as they
+// did without them.
+template <bool GUESS, bool CORRECT, bool ROWS, bool SIDES, class T>
 __device__ __forceinline__ T iterate_at(const T* u, const T* e,
                                         const RowHalo<T>& hl, int y, int x,
                                         int ny, int nx) {
-  if constexpr (ROWS) {
+  if constexpr (ROWS && SIDES) {
+    if (x < -1 || x > nx || y < -1 || y > ny) return T(0);
+    if (y == -1) return hl.top[x + 1];
+    if (y == ny) return hl.bot[x + 1];
+    if (x == -1) return hl.left[y];
+    if (x == nx) return hl.right[y];
+  } else if constexpr (ROWS) {
     if (x < 0 || x >= nx) return T(0);
     if (y < 0) return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
     if (y >= ny) return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
   } else {
     if (y < 0 || y >= ny || x < 0 || x >= nx) return T(0);
   }
-  T v = GUESS ? u[(size_t)y * nx + x] : T(0);
+  T v = GUESS ? u[(size_t)y * stride_of<ROWS>(hl, nx) + x] : T(0);
   if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
   return v;
 }
@@ -185,22 +225,25 @@ __device__ __forceinline__ T iterate_at(const T* u, const T* e,
 // lane loads (xo: the lane's other column; a plain load costs less than a
 // branch) -- or, with a correction, that only the edge lanes form.
 // Every lane of the warp calls it with the same y.
-template <bool GUESS, bool CORRECT, bool ROWS, class T>
+template <bool GUESS, bool CORRECT, bool ROWS, bool SIDES, class T>
 __device__ __forceinline__ void iterate_row(const T* u, const T* e,
                                             const RowHalo<T>& hl, int y,
                                             int j, int xo, int ny, int nx,
                                             T& w, T& c, T& ea) {
   const int lane = threadIdx.x & 31;
-  c = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j, ny, nx);
+  c = iterate_at<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y, j, ny, nx);
   w = __shfl_up_sync(LANES, c, 1);
   ea = __shfl_down_sync(LANES, c, 1);
   if constexpr (CORRECT) {
     if (lane == 0)
-      w = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j - 1, ny, nx);
+      w = iterate_at<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y, j - 1, ny,
+                                                  nx);
     if (lane == 31)
-      ea = iterate_at<GUESS, CORRECT, ROWS>(u, e, hl, y, j + 1, ny, nx);
+      ea = iterate_at<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y, j + 1, ny,
+                                                   nx);
   } else {
-    const T o = iterate_at<GUESS, false, ROWS>(u, e, hl, y, xo, ny, nx);
+    const T o =
+        iterate_at<GUESS, false, ROWS, SIDES>(u, e, hl, y, xo, ny, nx);
     w = lane == 0 ? o : w;
     ea = lane == 31 ? o : ea;
   }
@@ -263,8 +306,8 @@ __device__ __forceinline__ T line_rhs(const Rows& r, int i, T bv, T w0, T e0,
 // rhs_i, u_i) with the row's right-hand side and the iterate's own value.
 // Threads past the last column run along (the shuffles need the whole
 // warp) on a clamped column.
-template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, class T,
-          class Rows, class Row>
+template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, bool SIDES,
+          class T, class Rows, class Row>
 __device__ __forceinline__ void segment_rows(const Rows& rows,
                                              const T* __restrict__ b,
                                              const T* u, const T* e,
@@ -274,23 +317,24 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
   const bool col = j < nx;
   const int jc = col ? j : nx - 1;
   const int xo = (threadIdx.x & 31) == 0 ? j - 1 : j + 1;
-  const T* bc = b + (size_t)y0 * nx + jc;
+  const int ld = stride_of<ROWS>(hl, nx);
+  const T* bc = b + (size_t)y0 * ld + jc;
   T w0 = T(0), c0 = T(0), e0 = T(0), w1 = T(0), c1 = T(0), e1 = T(0);
   T w2 = T(0), c2 = T(0), e2 = T(0);
   if (GUESS) {
-    iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0 - 1, j, xo, ny, nx, w0,
-                                      c0, e0);
-    iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0, j, xo, ny, nx, w1, c1,
-                                      e1);
+    iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0 - 1, j, xo, ny, nx,
+                                             w0, c0, e0);
+    iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0, j, xo, ny, nx, w1,
+                                             c1, e1);
   }
 #pragma unroll
   for (int i = 0; i < SEG; ++i) {
     // The same rows for the whole warp.
     if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
       if (GUESS)
-        iterate_row<GUESS, CORRECT, ROWS>(u, e, hl, y0 + i + 1, j, xo, ny,
-                                          nx, w2, c2, e2);
-      const T bv = col ? bc[(size_t)i * nx] : T(0);
+        iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0 + i + 1, j, xo,
+                                                 ny, nx, w2, c2, e2);
+      const T bv = col ? bc[(size_t)i * ld] : T(0);
       row(i, line_rhs<GUESS>(rows, i, bv, w0, e0, w1, e1, w2, e2), c1);
       w0 = w1, c0 = c1, e0 = e1;
       w1 = w2, c1 = c2, e1 = e2;
@@ -306,7 +350,8 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
 // and the thread keeps no array.  CORRECT: it also stores its column of
 // the corrected iterate u + P e (u_corr), which launch 3 then reads as
 // its guess, so the correction is formed once per point.
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS>
+template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS,
+          bool SIDES>
 __device__ __forceinline__ void segment_ends(
     const Coeffs9<T>& c, const LineFactor<T>& f, const T* b, const T* u,
     const T* e, const RowHalo<T>& hl, T* ends, T* starts, T* u_corr, int s,
@@ -315,8 +360,8 @@ __device__ __forceinline__ void segment_ends(
   const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   T* uc = u_corr + (size_t)y0 * nx + j;
   T de = T(0), xs = T(0);
-  segment_rows<FULL, GUESS, CORRECT, ROWS, T>(rows, b, u, e, hl, y0, seg, j,
-                                              ny, nx,
+  segment_rows<FULL, GUESS, CORRECT, ROWS, SIDES, T>(rows, b, u, e, hl, y0,
+                                                     seg, j, ny, nx,
                                         [&](int i, T rhs, T ui) {
                                           de += rows(R_ENDW, i) * rhs;
                                           xs += rows(R_STARTW, i) * rhs;
@@ -328,7 +373,8 @@ __device__ __forceinline__ void segment_ends(
   starts[(size_t)s * nx + j] = xs;
 }
 
-template <class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS = false>
+template <class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS = false,
+          bool SIDES = false>
 __global__ void __launch_bounds__(ST)
 line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                     const T* __restrict__ u, const T* __restrict__ e,
@@ -337,10 +383,10 @@ line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                     int ny, int nx) {
   const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
   if ((!ROWS || seg == SEG) && (s + 1) * SEG <= ny)
-    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS>(
+    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS, SIDES>(
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
   else
-    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS>(
+    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS, SIDES>(
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
 }
 
@@ -403,7 +449,7 @@ line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
 }
 
 template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS>
+          bool ROWS, bool SIDES>
 __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
                                          const LineFactor<T>& f, const T* b,
                                          const T* u, const T* e,
@@ -418,7 +464,7 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
   // backward pass reloads u (a cache hit: this thread has just read it).
   T dp[SEG], uc[CORRECT ? SEG : 1];
   T d = T(0);
-  segment_rows<FULL, GUESS, CORRECT, ROWS, T>(
+  segment_rows<FULL, GUESS, CORRECT, ROWS, SIDES, T>(
       rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, T rhs, T ui) {
         d = (rhs - rows(R_CS, i) * d) * rows(R_M, i);
         dp[i] = d;
@@ -429,20 +475,21 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
   const size_t sj = (size_t)s * nx + j;
   const T cv = cin != nullptr ? cin[sj] : T(0);
   const T dv = din != nullptr ? din[sj] : T(0);
-  T* out = u_out + (size_t)y0 * nx + j;
-  const T* bc = b + (size_t)y0 * nx + j;
-  const T* uo = GUESS ? u + (size_t)y0 * nx + j : nullptr;
+  const int ld = stride_of<ROWS>(hl, nx);
+  T* out = u_out + (size_t)y0 * ld + j;
+  const T* bc = b + (size_t)y0 * ld + j;
+  const T* uo = GUESS ? u + (size_t)y0 * ld + j : nullptr;
   T x = T(0);
 #pragma unroll
   for (int i = SEG - 1; i >= 0; --i) {
     if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
       x = dp[i] - rows(R_CP, i) * x;
       const T ui = CORRECT ? uc[CORRECT ? i : 0]
-                   : GUESS ? uo[(size_t)i * nx] : T(0);
+                   : GUESS ? uo[(size_t)i * ld] : T(0);
       const T un = one_minus_omega * ui +
                    omega * (x + cv * rows(R_ABOVE, i) + dv * rows(R_BELOW, i));
-      out[(size_t)i * nx] = un;
-      if (DOT) acc += bc[(size_t)i * nx] * un;
+      out[(size_t)i * ld] = un;
+      if (DOT) acc += bc[(size_t)i * ld] * un;
     }
   }
   return acc;
@@ -461,7 +508,7 @@ constexpr int fix_min_blocks() {
 }
 
 template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS = false>
+          bool ROWS = false, bool SIDES = false>
 __global__ void __launch_bounds__(ST, fix_min_blocks<T>())
 line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                 const T* __restrict__ u, const T* __restrict__ e,
@@ -473,10 +520,10 @@ line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
   const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
   const T acc =
       (!ROWS || seg == SEG) && (s + 1) * SEG <= ny
-          ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS>(
+          ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS, SIDES>(
                 c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
                 one_minus_omega)
-          : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS>(
+          : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS, SIDES>(
                 c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
                 one_minus_omega);
   if (DOT) {
@@ -592,7 +639,7 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
   const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  const RowHalo<T> hl{nullptr, nullptr};
+  const RowHalo<T> hl{nullptr, nullptr, nullptr, nullptr, nx};
   const bool tab = f.table != nullptr, guess = u != nullptr;
   bool correct = e != nullptr;
   const bool dot = part != nullptr;
@@ -626,11 +673,14 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
 }
 
 // The rank-spanning mode's launches on one rank's block of nyl real rows
-// (R = nseg * seg rows; the last rank's pad row is not a real row, and its
+// (R = nseg * seg rows, or fewer where the last segment is cut by the
+// domain's edge; the last rank's pad row is not a real row, and its
 // output row is left to the caller), local row 0 its first row: the
 // factors and the coefficients that vary with y are the slices of the
-// block's rows, hl its iterate's rows above and below.  seg must divide
-// SEG; launch 1 and 3 take the iterate (no zero guess, no correction).
+// block's rows, hl its iterate's rows above and below and, in the 2-D
+// block mode (u_left non-null), the columns left and right; nx real
+// columns at the row stride ld.  seg must divide SEG; launch 1 and 3 take
+// the iterate (no zero guess, no correction).
 template <class T>
 bool rows_ok(int seg, int nseg, int nyl, int nx) {
   return seg >= 1 && seg <= SEG && SEG % seg == 0 && nseg >= 1 &&
@@ -638,21 +688,30 @@ bool rows_ok(int seg, int nseg, int nyl, int nx) {
 }
 
 template <class T>
+bool halo_ok(const RowHalo<T>& hl, int nx) {
+  const bool sides = hl.left != nullptr;
+  return (sides == (hl.right != nullptr)) &&
+         (sides ? hl.ld >= nx && hl.top != nullptr && hl.bot != nullptr
+                : hl.ld == nx);
+}
+
+template <class T>
 int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
                    const unsigned long long* fptrs, int fsx, int seg,
-                   const T* b, const T* u, const T* u_top, const T* u_bot,
-                   T* ends, T* starts, int nseg, int nyl, int nx,
-                   void* stream) {
-  if (!rows_ok<T>(seg, nseg, nyl, nx) || u == nullptr)
+                   const T* b, const T* u, RowHalo<T> hl, T* ends, T* starts,
+                   int nseg, int nyl, int nx, void* stream) {
+  if (!rows_ok<T>(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr)
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
   const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  SegmentFn<T> kern = f.table != nullptr
-                          ? line_segment_kernel<T, true, false, true, true>
-                          : line_segment_kernel<T, true, false, false, true>;
+  const bool tab = f.table != nullptr, sides = hl.left != nullptr;
+  SegmentFn<T> kern =
+      sides ? (tab ? line_segment_kernel<T, true, false, true, true, true>
+                   : line_segment_kernel<T, true, false, false, true, true>)
+            : (tab ? line_segment_kernel<T, true, false, true, true>
+                   : line_segment_kernel<T, true, false, false, true>);
   kern<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
-      c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, ends, starts, nullptr,
-      seg, nyl, nx);
+      c, f, b, u, nullptr, hl, ends, starts, nullptr, seg, nyl, nx);
   return (int)cudaGetLastError();
 }
 
@@ -670,21 +729,23 @@ int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
 template <class T>
 int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
                   const unsigned long long* fptrs, int fsx, int seg,
-                  const T* b, const T* u, const T* u_top, const T* u_bot,
-                  const T* cin, const T* din, T* u_out, int nseg, int nyl,
-                  int nx, T omega, T one_minus_omega, void* stream) {
-  if (!rows_ok<T>(seg, nseg, nyl, nx) || u == nullptr || u_out == u ||
-      cin == nullptr || din == nullptr)
+                  const T* b, const T* u, RowHalo<T> hl, const T* cin,
+                  const T* din, T* u_out, int nseg, int nyl, int nx, T omega,
+                  T one_minus_omega, void* stream) {
+  if (!rows_ok<T>(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr ||
+      u_out == u || cin == nullptr || din == nullptr)
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
   const LineFactor<T> f = line_factor<T>(fptrs, fsx);
+  const bool tab = f.table != nullptr, sides = hl.left != nullptr;
   FixFn<T> fix =
-      f.table != nullptr
-          ? line_fix_kernel<T, true, false, false, true, true>
-          : line_fix_kernel<T, true, false, false, false, true>;
+      sides ? (tab ? line_fix_kernel<T, true, false, false, true, true, true>
+                   : line_fix_kernel<T, true, false, false, false, true, true>)
+            : (tab ? line_fix_kernel<T, true, false, false, true, true>
+                   : line_fix_kernel<T, true, false, false, false, true>);
   fix<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
-      c, f, b, u, nullptr, RowHalo<T>{u_top, u_bot}, cin, din, u_out,
-      nullptr, seg, nyl, nx, omega, one_minus_omega);
+      c, f, b, u, nullptr, hl, cin, din, u_out, nullptr, seg, nyl, nx, omega,
+      one_minus_omega);
   return (int)cudaGetLastError();
 }
 
@@ -732,7 +793,11 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
 //                     (the swept block from its slice of the carries).
 //                     fptrs as for mg_line_sweep; for launches 1 and 3 the
 //                     slices of the block's rows (gain unused), for launch
-//                     2 the whole level's.
+//                     2 the whole level's.  u_top, u_bot: the rows above
+//                     and below; u_left, u_right null (the rows mode, ld
+//                     == nx) or the columns left and right (the 2-D block
+//                     mode: u_top and u_bot from column -1, ld + 2 values;
+//                     nx real columns at the row stride ld).
 #define MG_LINE_ENTRIES(SFX, T)                                             \
   extern "C" int mg_line_sweep##SFX(                                        \
       const unsigned long long* cptrs, const int* cstrides,                 \
@@ -752,10 +817,12 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
   extern "C" int mg_line_rows_ends##SFX(                                    \
       const unsigned long long* cptrs, const int* cstrides,                 \
       const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
-      const T* u, const T* u_top, const T* u_bot, T* ends, T* starts,       \
-      int nseg, int nyl, int nx, void* stream) {                            \
-    return line_rows_ends<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_top, \
-                             u_bot, ends, starts, nseg, nyl, nx, stream);   \
+      const T* u, const T* u_top, const T* u_bot, const T* u_left,          \
+      const T* u_right, T* ends, T* starts, int nseg, int nyl, int nx,      \
+      int ld, void* stream) {                                               \
+    return line_rows_ends<T>(cptrs, cstrides, fptrs, fsx, seg, b, u,        \
+                             RowHalo<T>{u_top, u_bot, u_left, u_right, ld}, \
+                             ends, starts, nseg, nyl, nx, stream);          \
   }                                                                         \
   extern "C" int mg_line_rows_carry##SFX(                                   \
       const unsigned long long* fptrs, int fsx, int seg, const T* ends,     \
@@ -766,10 +833,11 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
   extern "C" int mg_line_rows_fix##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides,                 \
       const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
-      const T* u, const T* u_top, const T* u_bot, const T* cin,             \
-      const T* din, T* u_out, int nseg, int nyl, int nx, T omega,           \
-      T one_minus_omega, void* stream) {                                    \
-    return line_rows_fix<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_top,  \
-                            u_bot, cin, din, u_out, nseg, nyl, nx, omega,   \
+      const T* u, const T* u_top, const T* u_bot, const T* u_left,          \
+      const T* u_right, const T* cin, const T* din, T* u_out, int nseg,     \
+      int nyl, int nx, int ld, T omega, T one_minus_omega, void* stream) {  \
+    return line_rows_fix<T>(cptrs, cstrides, fptrs, fsx, seg, b, u,         \
+                            RowHalo<T>{u_top, u_bot, u_left, u_right, ld},  \
+                            cin, din, u_out, nseg, nyl, nx, omega,          \
                             one_minus_omega, stream);                       \
   }

@@ -48,8 +48,9 @@ kernel (overlap is later work).  What bounds it: bytes, as the
 whole-grid visit; the halo adds 2h rows (and 2h columns) of reads per
 block.
 
-Storage types: f32, f64 and, for row blocks, bf16 (``visit.cu``,
-``visit_f64.cu``, ``visit_rows_bf16.cu``; bf16 is storage only, as JAX's
+Storage types: f32, f64 and bf16, for row blocks and 2-D blocks
+(``visit.cu``, ``visit_f64.cu``, ``visit_rows_bf16.cu``; the bf16
+preconditioner's split levels; bf16 is storage only, as JAX's
 dist kernel runs it (dist_kernel.py:204-260): every input read into f32,
 f32 arithmetic, each output rounded to bf16 once where it is stored,
 which ``row_visit_plain`` follows through ``at_stores``).  Each wrapper
@@ -103,8 +104,8 @@ from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 ROW_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 # The 2-D block mode's storage types, and the name its launches are
 # counted under (``ops.cuda.launches``: "dist_level_visit.blocks",
-# "dist_level_visit.blocks.f64").
-BLOCK_DTYPES = (torch.float32, torch.float64)
+# "dist_level_visit.blocks.f64", "dist_level_visit.blocks.bf16").
+BLOCK_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 BLOCKS = "dist_level_visit.blocks"
 
 # Extra halo rows beyond the smoothing steps, per emit (JAX
@@ -534,7 +535,7 @@ def block_visit(st, b, u, steps, emit: str, *, row0: int, col0: int, ny: int,
     vary with y hold the rows from ``coeff_row0``, those that vary with x
     the columns from ``coeff_col0``; the 5-point (ny, 1) columns are
     whole.  Returns u', A u, b - A u, (u', r) or (u', R r).  CPU tensors
-    run ``block_visit_plain``, CUDA tensors the kernel (f32, f64);
+    run ``block_visit_plain``, CUDA tensors the kernel (f32, f64, bf16);
     anything else raises."""
     blk = u if b is None else b
     if _on_cpu(blk):

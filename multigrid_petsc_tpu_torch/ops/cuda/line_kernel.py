@@ -33,6 +33,17 @@ every rank runs the carry pass over all the segments, then fixes its own
 right-hand sides and solves the whole columns by PCR
 (``line_jacobi_sweeps_y``'s arithmetic), the oracle.
 
+Under the 2-D blocks layout the same functions take a rank's (R, C) block
+and its depth-1 ring (``Halo2``: the rows above and below with the
+corners, the columns left and right), the 2-D block mode: the lines span
+the mesh column, the caller gathers over it, and a ``RowLine`` made with
+the block's column origin and real columns (``col0``, ``nxl``) keeps the
+coefficients and line factors of those columns; an x-line is a y-line of
+the transposed block and ring (``transpose_ring``), gathered over the
+mesh row.  A block that holds its lines whole runs the same mode over a
+group of one rank (no gather).  Its launches are counted as
+``line_visit9_blocks``, the rows mode's as ``line_visit9_rows``.
+
 Storage types: f32 and f64 (``mg_line_*`` and ``mg_line_*_f64``); bf16
 line visits raise (no path runs them).  The wrapper runs the plain
 version when the data lies on the CPU, launches the kernels when it lies
@@ -51,6 +62,7 @@ import torch.nn.functional as F
 
 from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
+from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo2
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
     _check_cuda,
     _odd_shape,
@@ -332,13 +344,16 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
 
 
 class RowLine(NamedTuple):
-    """A row-sharded level's y-line smoother on one rank, made once: the
-    line stencil on the block's real rows [row0, row0 + nyl) (the
-    coefficients that vary with y cut to them), the whole level's line
-    factor (the PCR factor for CPU tensors; on the card the segmented
-    factors of ``seg``-row segments, ``seg`` the largest power of two <=
-    ``LINE_SEG`` dividing R, so the segments tile the blocks) and, on the
-    card, its slices of the block's rows."""
+    """A rank's y-line smoother on its block of a partitioned level, made
+    once: the line stencil on the block's real rows [row0, row0 + nyl)
+    (the coefficients that vary with y cut to them) and, in the 2-D block
+    mode, its real columns [col0, col0 + nxl) (those that vary with x cut
+    to them; ``nxl`` None: the rows mode, every column), the whole
+    columns' line factor of those columns (the PCR factor for CPU
+    tensors; on the card the segmented factors of ``seg``-row segments,
+    ``seg`` the largest power of two <= ``LINE_SEG`` dividing R, so the
+    segments tile the blocks, or ``LINE_SEG`` where the block holds its
+    columns whole) and, on the card, its slices of the block's rows."""
 
     st: Stencil9
     fac: PCRFactor | SegmentFactor
@@ -347,79 +362,167 @@ class RowLine(NamedTuple):
     row0: int
     R: int
     ny: int
+    col0: int = 0
+    nxl: int | None = None
 
     @property
     def nyl(self) -> int:
         return min(self.R, self.ny - self.row0)
 
+    @property
+    def nseg(self) -> int:
+        """The block's segments (the last one cut by the domain's edge
+        where the block holds its columns whole)."""
+        return -(-self.R // self.seg)
 
-def row_line(st: Stencil9, ny: int, R: int, row0: int) -> RowLine:
-    """``RowLine`` of the block of global rows [row0, row0 + R) of a level
-    of ny real rows whose line stencil (``collapse_stencil``) is ``st``."""
+
+def _cut_columns(st, col0: int, nxl: int | None):
+    """The coefficients that vary with x cut to columns [col0, col0 +
+    nxl) (``nxl`` None: kept whole)."""
+    if nxl is None:
+        return st
+    return type(st)(*(c if c.shape[1] == 1
+                      else c[:, col0:col0 + nxl].contiguous() for c in st))
+
+
+def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,
+             nxl: int | None = None, plain: bool | None = None) -> RowLine:
+    """``RowLine`` of the block of global rows [row0, row0 + R) (and, in
+    the 2-D block mode, of the ``nxl`` real columns from ``col0``) of a
+    level of ny real rows whose line stencil (``collapse_stencil``) is
+    ``st``: the plain version's (a PCR factor; ``plain`` None: where the
+    stencil lies on the CPU) or the kernel's."""
+    st = _cut_columns(st, col0, nxl)
     nyl = min(R, ny - row0)
     st_rows = Stencil9(*(c if c.shape[0] == 1 else c[row0:row0 + nyl]
                          for c in st))
-    if _on_cpu(st.cc):
+    if _on_cpu(st.cc) if plain is None else plain:
         return RowLine(st_rows, pcr_factor(st.cs, st.cc, st.cn, ny), None,
-                       1, row0, R, ny)
-    seg = math.gcd(R, LINE_SEG)
+                       1, row0, R, ny, col0, nxl)
+    seg = LINE_SEG if R == ny else math.gcd(R, LINE_SEG)
     fac = segment_factor(st, ny, seg)
     rows = SegmentFactor(*(
         t if t is None or k == "gain" else t[row0:row0 + nyl]
         for k, t in fac._asdict().items()))
-    return RowLine(st_rows, fac, rows, seg, row0, R, ny)
+    return RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl)
 
 
-def _line_rows_cuda(lf: RowLine, b, u, top, bot):
+def transpose_ring(ring: Halo2) -> Halo2:
+    """The depth-1 ring of the transposed block: its rows above and below
+    (the columns left and right with their corners) and its columns left
+    and right (the rows above and below without theirs), contiguous."""
+    top, bot, left, right = ring
+    return Halo2(
+        torch.cat([top[:, :1], left, bot[:, :1]]).T.contiguous(),
+        torch.cat([top[:, -1:], right, bot[:, -1:]]).T.contiguous(),
+        top[:, 1:-1].T.contiguous(), bot[:, 1:-1].T.contiguous())
+
+
+def _extended(u, u_halo) -> torch.Tensor:
+    """u inside its ring: [top; left | u | right; bot] (2-D block mode),
+    or its halo rows with a zero column on each side (rows mode)."""
+    if isinstance(u_halo, Halo2):
+        top, bot, left, right = u_halo
+        return torch.cat([top, torch.cat([left, u, right], 1), bot])
+    top, bot = u_halo
+    return F.pad(torch.cat([top, u, bot]), (1, 1))
+
+
+def _line_rows_cuda(lf: RowLine, b, u, u_halo):
+    """The launch arguments of the rank-spanning mode's launches 1 and 3:
+    (coefficients, factor pointers, dtype, entry suffix, the halo's
+    pointers (top, bot, left, right; left and right None in the rows
+    mode), the real columns, the row stride)."""
+    if lf.fac_rows is None:
+        raise ValueError("a plain RowLine on a CUDA tensor: make the line "
+                         "with row_line(..., plain=False)")
     st = lf.st
-    R, nx = b.shape
+    R, C = b.shape
     nyl = lf.nyl
-    c9 = coeff9_args(st, nyl, nx)
+    nxl = C if lf.nxl is None else lf.nxl
+    sides = isinstance(u_halo, Halo2)
+    if sides != (lf.nxl is not None):
+        raise ValueError("a 2-D block's line takes its ring (Halo2), a row "
+                         "block's its halo rows")
+    c9 = coeff9_args(st, nyl, nxl)
     fac = lf.fac_rows
     w = fac.m.shape[1]
-    fields = {"b": (b, (R, nx)), "u": (u, (R, nx)), "u_top": (top, (1, nx)),
-              "u_bot": (bot, (1, nx)), **c9.fields,
+    fields = {"b": (b, (R, C)), "u": (u, (R, C)), **c9.fields,
               **{f"fac.{k}": (t, (nyl, TABLE_WIDTH) if k == "table"
                               else (nyl, w))
                  for k, t in fac._asdict().items()
                  if t is not None and k != "gain"}}
+    if sides:
+        fields.update(u_top=(u_halo.top, (1, C + 2)),
+                      u_bot=(u_halo.bot, (1, C + 2)),
+                      u_left=(u_halo.left, (R, 1)),
+                      u_right=(u_halo.right, (R, 1)))
+    else:
+        fields.update(u_top=(u_halo.top, (1, C)), u_bot=(u_halo.bot, (1, C)))
     dtype = _check_cuda(b.device, fields, dtypes=LINE_DTYPES)
-    if R % lf.seg:
+    if R % lf.seg and R != lf.ny:
         raise ValueError(f"{lf.seg}-row segments do not tile a {R}-row "
                          f"block")
     fptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
                        np.uint64)
-    return c9, fptrs, dtype, "_f64" if dtype == torch.float64 else ""
+    halo = [u_halo.top.data_ptr(), u_halo.bot.data_ptr(),
+            *((u_halo.left.data_ptr(), u_halo.right.data_ptr()) if sides
+              else (None, None))]
+    return (c9, fptrs, dtype, "_f64" if dtype == torch.float64 else "", halo,
+            nxl, C)
+
+
+def line_rows_begin_plain(lf: RowLine, b, u, u_halo) -> torch.Tensor:
+    """The plain version of ``line_rows_begin`` (any device; ``lf`` a
+    plain ``RowLine``): the block's line right-hand sides b - (the
+    off-line terms of u, its halo or ring included), 0 on the pad row and
+    column."""
+    nyl, st = lf.nyl, lf.st
+    nxl = b.shape[1] if lf.nxl is None else lf.nxl
+    p = _extended(u, u_halo)
+    s_, o_, n_ = p[0:nyl], p[1:nyl + 1], p[2:nyl + 2]
+    w, e = slice(0, nxl), slice(2, nxl + 2)
+    off = (st.cw * o_[:, w] + st.ce * o_[:, e]
+           + st.csw * s_[:, w] + st.cse * s_[:, e]
+           + st.cnw * n_[:, w] + st.cne * n_[:, e])
+    rhs = torch.zeros_like(b)
+    rhs[:nyl, :nxl] = b[:nyl, :nxl] - off
+    return rhs
+
+
+def line_rows_end_plain(lf: RowLine, u, gathered: torch.Tensor,
+                        omega: float) -> torch.Tensor:
+    """The plain version of ``line_rows_end`` (any device; ``lf`` a plain
+    ``RowLine``): the whole columns' PCR solve of the gathered right-hand
+    sides, this block's rows of it blended into u; the pad row and column
+    0."""
+    nyl = lf.nyl
+    nxl = u.shape[1] if lf.nxl is None else lf.nxl
+    out = torch.zeros_like(u)
+    u_line = pcr_solve(lf.fac, gathered[:lf.ny, :nxl])[lf.row0:lf.row0 + nyl]
+    out[:nyl, :nxl] = (1.0 - omega) * u[:nyl, :nxl] + omega * u_line
+    return out
 
 
 def line_rows_begin(lf: RowLine, b, u, u_halo) -> torch.Tensor:
-    """The first half of a rank-spanning y-line sweep of this rank's (R,
-    nx) block ``u`` (right-hand side ``b``; ``u_halo``: its rows above and
-    below, one each): what the rank contributes to the sweep's
-    all-gather.  On the card: launch 1, the (2 nseg, nx) segment ends and
-    starts of its nseg = R / seg segments; on the CPU: its (R, nx) line
-    right-hand sides b - (the off-line terms of u), 0 on the pad row."""
-    top, bot = u_halo
+    """The first half of a rank-spanning y-line sweep of this rank's block
+    ``u`` (right-hand side ``b``; ``u_halo``: its rows above and below,
+    one each (``Halo``), or in the 2-D block mode its depth-1 ring
+    (``Halo2``)): what the rank contributes to the sweep's all-gather.  On
+    the card: launch 1, the (2 nseg, nxl) segment ends and starts of its
+    segments (nxl: the real columns); on the CPU: its block's line
+    right-hand sides (``line_rows_begin_plain``)."""
     if _on_cpu(b):
-        nyl, st = lf.nyl, lf.st
-        p = F.pad(torch.cat([top, u, bot]), (1, 1))
-        s_, o_, n_ = p[0:nyl], p[1:nyl + 1], p[2:nyl + 2]
-        off = (st.cw * o_[:, :-2] + st.ce * o_[:, 2:]
-               + st.csw * s_[:, :-2] + st.cse * s_[:, 2:]
-               + st.cnw * n_[:, :-2] + st.cne * n_[:, 2:])
-        rhs = torch.zeros_like(b)
-        rhs[:nyl] = b[:nyl] - off
-        return rhs
-    c9, fptrs, dtype, sfx = _line_rows_cuda(lf, b, u, top, bot)
-    R, nx = b.shape
-    nseg = R // lf.seg
-    out = torch.empty((2 * nseg, nx), dtype=dtype, device=b.device)
+        return line_rows_begin_plain(lf, b, u, u_halo)
+    c9, fptrs, dtype, sfx, halo, nxl, ld = _line_rows_cuda(lf, b, u, u_halo)
+    nseg = lf.nseg
+    out = torch.empty((2 * nseg, nxl), dtype=dtype, device=b.device)
     lib = load_library()
     err = getattr(lib, "mg_line_rows_ends" + sfx)(
         c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
         int(lf.fac_rows.m.shape[1] > 1), lf.seg, b.data_ptr(), u.data_ptr(),
-        top.data_ptr(), bot.data_ptr(), out.data_ptr(), out[nseg:].data_ptr(),
-        nseg, lf.nyl, nx, _stream(b.device))
+        *halo, out.data_ptr(), out[nseg:].data_ptr(), nseg, lf.nyl, nxl, ld,
+        _stream(b.device))
     check(err, "line rows ends launch")
     return out
 
@@ -427,29 +530,27 @@ def line_rows_begin(lf: RowLine, b, u, u_halo) -> torch.Tensor:
 def line_rows_end(lf: RowLine, b, u, u_halo, gathered: torch.Tensor,
                   omega: float) -> torch.Tensor:
     """The second half: the swept block from ``gathered``, every rank's
-    ``line_rows_begin`` stacked in rank order.  On the card: the carry
-    pass over all the level's segments (launch 2, on every rank) and
-    launch 3 on this rank's; on the CPU: the whole columns' PCR solve, this
-    rank's rows of it blended into u.  The pad row stays 0."""
-    top, bot = u_halo
+    ``line_rows_begin`` stacked in the order of its rows (the ranks the
+    lines span; this rank's own where the block holds its columns whole).
+    On the card: the carry pass over all the level's segments (launch 2,
+    on every rank) and launch 3 on this rank's; on the CPU: the whole
+    columns' PCR solve, this rank's rows of it blended into u
+    (``line_rows_end_plain``).  The pad row and column stay 0."""
+    if _on_cpu(b):
+        return line_rows_end_plain(lf, u, gathered, omega)
     nyl = lf.nyl
     out = torch.zeros_like(u)
-    if _on_cpu(b):
-        u_line = pcr_solve(lf.fac, gathered[:lf.ny])[lf.row0:lf.row0 + nyl]
-        out[:nyl] = (1.0 - omega) * u[:nyl] + omega * u_line
-        return out
-    c9, fptrs, dtype, sfx = _line_rows_cuda(lf, b, u, top, bot)
-    R, nx = b.shape
-    nseg = R // lf.seg
+    c9, fptrs, dtype, sfx, halo, nxl, ld = _line_rows_cuda(lf, b, u, u_halo)
+    nseg = lf.nseg
     P = gathered.shape[0] // (2 * nseg)
-    g = gathered.view(P, 2, nseg, nx)
-    ends, starts = (g[:, i].reshape(P * nseg, nx).contiguous()
+    g = gathered.view(P, 2, nseg, nxl)
+    ends, starts = (g[:, i].reshape(P * nseg, nxl).contiguous()
                     for i in (0, 1))
     fac = lf.fac
     _check_cuda(b.device, {f"fac.{k}": (t, t.shape)
                            for k, t in fac._asdict().items()
                            if t is not None}, dtypes=(dtype,))
-    carries = torch.empty((2, P * nseg, nx), dtype=dtype, device=b.device)
+    carries = torch.empty((2, P * nseg, nxl), dtype=dtype, device=b.device)
     gptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
                        np.uint64)
     lib = load_library()
@@ -457,15 +558,16 @@ def line_rows_end(lf: RowLine, b, u, u_halo, gathered: torch.Tensor,
     err = getattr(lib, "mg_line_rows_carry" + sfx)(
         gptrs.ctypes.data, int(fac.m.shape[1] > 1), lf.seg, ends.data_ptr(),
         starts.data_ptr(), carries[0].data_ptr(), carries[1].data_ptr(),
-        P * nseg, nx, stream)
+        P * nseg, nxl, stream)
     check(err, "line rows carry launch")
     s0 = lf.row0 // lf.seg
     cin, din = (carries[i, s0:s0 + nseg] for i in (0, 1))
     err = getattr(lib, "mg_line_rows_fix" + sfx)(
         c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
         int(lf.fac_rows.m.shape[1] > 1), lf.seg, b.data_ptr(), u.data_ptr(),
-        top.data_ptr(), bot.data_ptr(), cin.data_ptr(), din.data_ptr(),
-        out.data_ptr(), nseg, nyl, nx, omega, 1.0 - omega, stream)
+        *halo, cin.data_ptr(), din.data_ptr(), out.data_ptr(), nseg, nyl,
+        nxl, ld, omega, 1.0 - omega, stream)
     check(err, "line rows fix launch")
-    count_launch("line_visit9_rows", dtype)
+    count_launch("line_visit9_rows" if lf.nxl is None
+                 else "line_visit9_blocks", dtype)
     return out

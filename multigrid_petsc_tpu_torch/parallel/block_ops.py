@@ -35,6 +35,17 @@ transfers between two split levels are block-local (``restrict``,
 ``prolong``: one exchanged row, one column and their corner); from a
 level to one split along fewer axes, the restricted blocks are gathered
 along the axes that stop being split ("agglomerate").
+
+The smoothers without a fused visit run on the block too (JAX's GSPMD
+arithmetic on the rank's points), with ``DistLevelOps``'s interface:
+red-black Gauss-Seidel as masked half-sweeps over K17's residual emit,
+its colours by the global parity row0 + col0 + i + j; y-line Jacobi as
+K15's 2-D block mode (``line_kernel.line_rows_*`` with the block's ring),
+its lines across the mesh column, one all-gather of the segment ends over
+the mesh column per sweep; x-line Jacobi as the same mode on the
+transposed block and ring, gathered over the mesh row.  A level not
+split along a line's axis holds its lines whole: the same mode over a
+group of one rank, no gather.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import functools
 
 import torch
 
+from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
 from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import (
     Halo2,
     block_visit,
@@ -53,6 +65,7 @@ from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 from multigrid_petsc_tpu_torch.parallel.halo import (
     all_gather_blocks,
+    all_gather_lines,
     allreduce_sum,
     block_exchange,
 )
@@ -147,6 +160,9 @@ class BlockLevelOps:
                              min(ny, self.row0 + self.R + m),
                              self.coeff_col0, min(nx, self.col0 + self.C + m))
         self.st = st
+        self.rb_dinv = None  # RBGS: (red, black) omega / cc on the block
+        self.line_y = None   # LINE_Y: lk.RowLine of the block
+        self.line_x = None   # LINE_X: lk.RowLine of the transposed block
 
     @property
     def block_shape(self) -> tuple[int, int]:
@@ -317,3 +333,69 @@ class BlockLevelOps:
         pe[self.nyl:] = 0.0
         pe[:, self.nxl:] = 0.0
         return pe
+
+    # -- the smoothers without a fused visit -------------------------------
+
+    def setup_rbgs(self, omega: float) -> None:
+        """RBGS's masked omega / cc on the block: red where the global
+        parity row0 + col0 + i + j is even; 0 on the pad row and column."""
+        dev = self.dinv.device
+        ii = torch.arange(self.R, device=dev)[:, None]
+        jj = torch.arange(self.C, device=dev)[None, :]
+        red = (self.row0 + self.col0 + ii + jj) % 2 == 0
+        d = omega / self.cc
+        d[self.nyl:] = 0.0
+        d[:, self.nxl:] = 0.0
+        zero = torch.zeros((), dtype=d.dtype, device=dev)
+        self.rb_dinv = (torch.where(red, d, zero), torch.where(red, zero, d))
+
+    def rbgs(self, b, u, sweeps: int):
+        """Red-black Gauss-Seidel, JAX ``sor_redblack_sweeps``: per
+        half-sweep K17's residual emit and u + (omega / cc) r on one
+        colour."""
+        for _ in range(sweeps):
+            for d in self.rb_dinv:
+                u = torch.addcmul(u, d, self.residual(b, u))
+        return u
+
+    def setup_line_y(self, line_st) -> None:
+        """The y-lines of the level's collapsed whole-grid line stencil on
+        the block: its rows across the mesh column, its real columns."""
+        self.line_y = lk.row_line(line_st, self.ny, self.R, self.row0,
+                                  self.col0, self.nxl)
+
+    def setup_line_x(self, line_st_x) -> None:
+        """The x-lines: the y-lines of the transposed level's collapsed
+        line stencil on the transposed block (its rows the block's
+        columns, across the mesh row)."""
+        self.line_x = lk.row_line(line_st_x, self.nx, self.C, self.col0,
+                                  self.row0, self.nyl)
+
+    def _line_sweeps(self, lf, axis: int, b, u, sweeps: int, omega: float):
+        """Damped line Jacobi along ``axis`` (0: y-lines, 1: x-lines on the
+        transposed block): per sweep the block's depth-1 ring, K15's 2-D
+        block mode's first half, the gather over the ranks the lines span
+        (none where the level is not split along them), the second half."""
+        if axis:
+            b = b.T.contiguous()
+        for _ in range(sweeps):
+            ring = block_exchange(u, 1, self.plan, self.split)
+            if axis:
+                u, ring = u.T.contiguous(), lk.transpose_ring(ring)
+            mine = lk.line_rows_begin(lf, b, u, ring)
+            every = (all_gather_lines(mine, self.plan, axis)
+                     if self.split[axis] else mine)
+            u = lk.line_rows_end(lf, b, u, ring, every, omega)
+            if axis:
+                u = u.T.contiguous()
+        return u
+
+    def line_y_sweeps(self, b, u, sweeps: int, omega: float):
+        """Damped y-line Jacobi (JAX ``line_jacobi_sweeps_y``) over the
+        whole columns."""
+        return self._line_sweeps(self.line_y, 0, b, u, sweeps, omega)
+
+    def line_x_sweeps(self, b, u, sweeps: int, omega: float):
+        """Damped x-line Jacobi (JAX ``line_jacobi_sweeps_x``) over the
+        whole rows."""
+        return self._line_sweeps(self.line_x, 1, b, u, sweeps, omega)

@@ -54,9 +54,6 @@ from multigrid_petsc_tpu_torch.utils.config import not_ported
 # What the blocks layout does not take yet: the ROADMAP items its refusals
 # name, in the order they are queued.
 BLOCKS_WAIT = {
-    "precision": "distribution, blocks: the precision outers and the "
-                 "checkpoint",
-    "smoothers": "distribution, blocks: RBGS and the line smoothers",
     "merged": "distribution, blocks: merged levels",
     "uneven": "distribution, blocks: uneven blocks",
 }

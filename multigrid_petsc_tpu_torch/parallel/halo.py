@@ -25,8 +25,11 @@ caller, as ``ops.cuda.launches``):
                  under blocks, split along fewer axes: the blocks gathered
                  along the axis that stops being split; JAX's
                  agglomeration; inside a merged level too);
-  "line"         the y-line smoother's segment carries across the ranks
-                 (on the CPU: the line right-hand sides);
+  "line"         the line smoothers' segment carries across the ranks
+                 (on the CPU: the line right-hand sides): the y-lines' of
+                 the rows layout over every rank, under blocks the
+                 y-lines' over the mesh column and the x-lines' over the
+                 mesh row (``all_gather_lines``);
   "coarsest"     a sharded coarsest level solved directly (where JAX
                  runs it through GSPMD and densifies it; a small level),
                  or the sharded grids of a directly solved merged one;
@@ -211,3 +214,14 @@ def all_gather_blocks(x: torch.Tensor, plan, what: str,
     else:
         whole = torch.cat(_gather(x, plan, plan.row_group), 1)
     return whole.to(x.device)
+
+
+def all_gather_lines(x: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """The line smoother's gather under the blocks layout: every ``x`` of
+    the ranks a line spans, stacked along x's rows in mesh order, on
+    every rank; the mesh column's for a y-line (``axis`` 0), the mesh
+    row's for an x-line (``axis`` 1; its blocks run transposed, so their
+    rows are the level's columns).  Counted under "line"."""
+    _count(x, "line")
+    group = plan.col_group if axis == 0 else plan.row_group
+    return torch.cat(_gather(x, plan, group)).to(x.device)

@@ -45,31 +45,32 @@ pad column along each split axis); the others are replicated, every rank
 holding them whole.  A level the plan shards stays sharded whatever its
 smoother (JAX shards it too, through GSPMD where its dist kernels do not
 take it): point smoothers run K17 visits (in pieces where the block is
-too small for the halo); under the rows layout RBGS, the line smoothers
-and non-separable 9-point coefficients run on the block as well
-(``DistLevelOps``).  Reductions go through the level (``LevelCtx.dot``):
-a sharded level's are summed over the ranks that hold distinct blocks, a
-replicated level's are not.  The level transitions: sharded -> sharded,
-the visits' rc block IS the coarse block and the whole transfers are
-block-local; to a level split along fewer axes (or replicated), the rc
-blocks are all-gathered along the axes that stop being split; the up
-visit cuts its block of a coarse correction held whole along an axis.
-Inside a cycle nothing else is gathered but the y-lines' carries and a
-sharded coarsest level that JAX solves directly
-(``parallel.halo.gathers``).  Under the rows layout a merged level is
-split grid by grid, as JAX splits it (``ShardingPlan.shards``): its
+too small for the halo); RBGS, the line smoothers and non-separable
+9-point coefficients run on the block as well (``DistLevelOps``,
+``BlockLevelOps``: the y-lines across the ranks of the mesh column, the
+x-lines across the mesh row, on K15's rank-spanning mode).  Reductions
+go through the level (``LevelCtx.dot``): a sharded level's are summed
+over the ranks that hold distinct blocks, a replicated level's are not.
+The level transitions: sharded -> sharded, the visits' rc block IS the
+coarse block and the whole transfers are block-local; to a level split
+along fewer axes (or replicated), the rc blocks are all-gathered along
+the axes that stop being split; the up visit cuts its block of a coarse
+correction held whole along an axis.  Inside a cycle nothing else is
+gathered but the lines' carries and a sharded coarsest level that JAX
+solves directly (``parallel.halo.gathers``).  Under the rows layout a
+merged level is split grid by grid, as JAX splits it
+(``ShardingPlan.shards``): its
 operator set (``LevelCtx.grid_ops``, ``parallel.DistMergedOps``) runs
 each sharded grid on its block through K17 and each replicated grid
 whole through K6 and K7, its couplings one transfer gap at a time
 (block-local between two sharded sizes), and its inner product sums the
 sharded grids' dots over the ranks and adds the replicated grids' once.
-Every cycle, the merged-grid ones included, and both precision outers run
-under the rows layout (the preconditioner context under the same plan);
-under the blocks layout every single-grid cycle with a point smoother,
-and the rest raises naming its ROADMAP item (``_check_blocks``: the
-precision outers, RBGS and the line smoothers, merged levels; uneven
-blocks in ``ShardingPlan.block``).  The sparse backend raises under any
-plan.
+Every cycle, the merged-grid ones included, every smoother and both
+precision outers run under the rows layout (the preconditioner context
+under the same plan); under the blocks layout every single-grid cycle,
+smoother and precision outer, and the rest raises naming its ROADMAP item
+(``_check_blocks``: merged levels; uneven blocks in
+``ShardingPlan.block``).  The sparse backend raises under any plan.
 """
 
 from __future__ import annotations
@@ -587,17 +588,8 @@ _MERGED_CYCLES = (CycleType.ICYCLE, *_SPLIT_CYCLES)
 
 
 def _check_blocks(cfg: SolverConfig) -> None:
-    """What the blocks layout does not take yet, in the order ROADMAP
-    queues it."""
-    if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
-        raise not_ported("a precision outer (outer_dtype, precond_dtype) "
-                         "under the blocks layout", BLOCKS_WAIT["precision"])
-    bad = {cfg.smoother_at(l, cfg.levels) for l in range(cfg.levels)}
-    bad -= set(POINT_SMOOTHERS)
-    if bad:
-        raise not_ported(
-            f"the {', '.join(sorted(s.value for s in bad))} smoother under "
-            f"the blocks layout", BLOCKS_WAIT["smoothers"])
+    """What the blocks layout does not take yet (uneven blocks raise in
+    ``ShardingPlan.block``)."""
     if cfg.grids != cfg.levels or cfg.cycle in _MERGED_CYCLES:
         raise not_ported("merged levels and the merged-grid cycles under the "
                          "blocks layout", BLOCKS_WAIT["merged"])
@@ -765,21 +757,13 @@ def _jax_dist_kernels(lc: LevelCtx, whole_stencil) -> bool:
 
 def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
     """Put ``lc`` on this rank's block (JAX context.py:945-961): under
-    the rows layout its row block, its smoother's set-up with it (RBGS's
-    colours by the global parity, the line smoothers' stencils and
-    factors of the block), a merged level grid by grid
-    (``DistMergedOps``: the sharded grids' blocks, the replicated grids
-    whole); under the blocks layout its 2-D block (``BlockLevelOps``; a
-    point smoother, one grid: ``_check_blocks``)."""
+    the rows layout its row block, under the blocks layout its 2-D block
+    (``BlockLevelOps``; one grid: ``_check_blocks``), with its smoother's
+    set-up (RBGS's colours by the global parity, the line smoothers'
+    stencils and factors of the block); under the rows layout a merged
+    level grid by grid (``DistMergedOps``: the sharded grids' blocks, the
+    replicated grids whole)."""
     lc.pad_rows = 1
-    if plan.layout == "blocks":
-        g = lc.spec.primary
-        d = lc.dist = BlockLevelOps(lc.stencil, g.ny, g.nx, plan,
-                                    cfg.max_sweeps)
-        lc.dinv = d.dinv
-        lc.stencil = d.st
-        lc.stencils = (d.st,)
-        return
     if lc.merged:
         ops = lc.grid_ops = DistMergedOps(lc.stencils, lc.spec.grids, plan,
                                           cfg.max_sweeps)
@@ -787,7 +771,8 @@ def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
         lc.stencil = ops.stencils[0]
         return
     g = lc.spec.primary
-    d = lc.dist = DistLevelOps(lc.stencil, g.ny, g.nx, plan, cfg.max_sweeps)
+    ops = BlockLevelOps if plan.layout == "blocks" else DistLevelOps
+    d = lc.dist = ops(lc.stencil, g.ny, g.nx, plan, cfg.max_sweeps)
     lc.dinv = d.dinv
     if lc.smoother == SmootherType.RBGS:
         d.setup_rbgs(lc.omega)
@@ -796,8 +781,8 @@ def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
     if lc.line_st_x is not None:
         d.setup_line_x(lc.line_st_x)
     lc.line_st = lc.line_st_x = None  # the block's own replace them
-    # The rows of the coefficients this rank reads (a 9-point field's, cut
-    # to the block and its halo; the 5-point columns whole).
+    # The points of the coefficients this rank reads (a 9-point field's,
+    # cut to the block and its halo; the 5-point columns whole).
     lc.stencil = d.st
     lc.stencils = (d.st,)
 

@@ -66,7 +66,6 @@ from multigrid_petsc_tpu_torch.problems import (
     stencil9_coefficients,
     stencil_coefficients,
 )
-from multigrid_petsc_tpu_torch.parallel.dist_ops import DistLevelOps
 from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
 from multigrid_petsc_tpu_torch.solvers.context import MGContext, rhs_grid_of
 from multigrid_petsc_tpu_torch.solvers.outer import OuterResult, keep_going
@@ -402,7 +401,8 @@ def outer_precision_operator(ctx: MGContext, dtype: torch.dtype):
     """(apply_fn, stencil): the level-0 operator of ``ctx``'s own problem
     family in ``dtype`` on ``ctx.device`` (the mixed outer's f64 operator;
     K6 or K12 in f64 on the card, K17's "a" emit in f64 on the rank's
-    block under a plan; JAX krylov.py:470-488)."""
+    block under a plan, its row block or, under the blocks layout, its
+    2-D block; JAX krylov.py:470-488)."""
     cfg = ctx.config
     lvl0 = ctx.levels[0]
     ny, nx = lvl0.spec.primary.shape
@@ -411,8 +411,8 @@ def outer_precision_operator(ctx: MGContext, dtype: torch.dtype):
     else:
         st = stencil_coefficients(MeshType(cfg.mesh), ny, nx, dtype,
                                   ctx.device)
-    if lvl0.dist is not None:
-        ops = DistLevelOps(st, ny, nx, ctx.plan, cfg.max_sweeps)
+    if lvl0.dist is not None:  # the level's own kind of block
+        ops = type(lvl0.dist)(st, ny, nx, ctx.plan, cfg.max_sweeps)
         return ops.apply, ops.st
     if cfg.problem == "aniso":
         return (lambda u: sk9.apply_stencil9(st, u)), st
@@ -422,7 +422,7 @@ def outer_precision_operator(ctx: MGContext, dtype: torch.dtype):
 def outer_rhs(ctx: MGContext, dtype: torch.dtype) -> torch.Tensor:
     """The level-0 right-hand side evaluated in ``dtype``: the mixed
     outer's b (an f32 b upcast would bake eps32 * ||b|| into the
-    certified residual); under a plan the rank's rows of it."""
+    certified residual); under a plan the rank's block of it."""
     lvl0 = ctx.levels[0]
     ny, nx = lvl0.spec.primary.shape
     b = rhs_grid_of(ctx.config, ctx.problem, ny, nx, dtype, ctx.device)
@@ -432,15 +432,15 @@ def outer_rhs(ctx: MGContext, dtype: torch.dtype) -> torch.Tensor:
 def true_relative_residual(ctx: MGContext, u: torch.Tensor) -> float:
     """||b - A u|| / ||b|| in f64 (b and A evaluated in f64): the
     certification oracle of the reduced-precision solves.  Under a plan
-    ``u`` is the rank's block (``SolveResult.u``, its real rows) and the
-    norms are summed over the ranks (a collective)."""
+    ``u`` is the rank's block (``SolveResult.u``, its real rows and
+    columns) and the norms are summed over the ranks (a collective)."""
     lvl0 = ctx.levels[0]
     apply64, _ = outer_precision_operator(ctx, torch.float64)
     b = outer_rhs(ctx, torch.float64)
     u = u.to(torch.float64)
-    if u.shape[0] < b.shape[0]:  # the last rank's block without its pad row
-        u = torch.cat([u, u.new_zeros((b.shape[0] - u.shape[0],
-                                       u.shape[1]))])
+    # The block's pad row and column (the last mesh row's, column's) back.
+    u = torch.nn.functional.pad(u, (0, b.shape[1] - u.shape[1], 0,
+                                    b.shape[0] - u.shape[0]))
     r = b - apply64(u)
     return float(lvl0.vnorm(r) / lvl0.vnorm(b))
 

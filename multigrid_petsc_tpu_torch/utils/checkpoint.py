@@ -10,13 +10,14 @@ fields, so the fingerprints agree and a checkpoint written by either
 loads in the other.  A resume goes through ``solve(u0=...)``.
 
 Under a plan (``plan=``; JAX ``_to_host``, utils/checkpoint.py:31-76) each
-grid of the level-0 state the plan shards is the ranks' row blocks:
-``save`` gathers each such grid (every rank calls it, a collective) and
-rank 0 writes the whole grids; ``load`` gives each rank its block of each
-sharded grid (``DistLevelOps.block_of``'s rows, the pad row 0) and the
+grid of the level-0 state the plan shards is the ranks' blocks, row
+blocks or, under the blocks layout, 2-D blocks: ``save`` gathers each
+such grid (``parallel.gather_solution``; every rank calls it, a
+collective) and rank 0 writes the whole grids; ``load`` gives each rank
+its block of each sharded grid (``DistLevelOps.block_of``'s rows or
+``BlockLevelOps.block_of``'s points, the pad row and column 0) and the
 replicated grids whole, which ``solve(u0=...)`` under the same plan
-resumes from.  Under the blocks layout the checkpoint is not ported
-(``_rows_only``).
+resumes from.
 """
 
 from __future__ import annotations
@@ -30,15 +31,7 @@ import numpy as np
 import torch
 
 from multigrid_petsc_tpu_torch.hierarchy import build_hierarchy
-from multigrid_petsc_tpu_torch.parallel.device_mesh import BLOCKS_WAIT
 from multigrid_petsc_tpu_torch.parallel.gather import gather_solution
-from multigrid_petsc_tpu_torch.utils.config import not_ported
-
-
-def _rows_only(plan) -> None:
-    if plan is not None and plan.layout == "blocks":
-        raise not_ported("the checkpoint under the blocks layout",
-                         BLOCKS_WAIT["precision"])
 
 
 def _fingerprint(cfg) -> str:
@@ -55,7 +48,6 @@ def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
     rank's part of it (``SolveResult.u_local``; ``SolveResult.u`` on a
     single-grid level 0): every rank calls ``save``, each sharded grid's
     blocks are gathered and rank 0 writes."""
-    _rows_only(plan)
     if isinstance(u, (torch.Tensor, np.ndarray)):
         u = (u,)
     if plan is not None:
@@ -63,7 +55,7 @@ def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
         if len(u) != len(grids):
             raise ValueError(f"level 0 has {len(grids)} grids; the state "
                              f"holds {len(u)}")
-        u = tuple(gather_solution(torch.as_tensor(x), plan, g.ny)
+        u = tuple(gather_solution(torch.as_tensor(x), plan, g.ny, g.nx)
                   if plan.shards(g.ny, g.nx) else x
                   for x, g in zip(u, grids))
         if plan.rank != 0:
@@ -85,10 +77,10 @@ def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
 
 def load(path: str | Path, cfg, plan=None):
     """-> (u tuple of numpy arrays, rnorm, iters); raises on a
-    configuration mismatch.  Under ``plan`` u holds this rank's (R, nx)
-    row block of each saved grid the plan shards (R = (ny + 1) / ranks),
-    the others whole."""
-    _rows_only(plan)
+    configuration mismatch.  Under ``plan`` u holds this rank's block of
+    each saved grid the plan shards (the rows layout's (R, nx) rows, R =
+    (ny + 1) / ranks; the blocks layout's (R, C) points), the others
+    whole."""
     with np.load(Path(path)) as z:
         fp = z["fingerprint"].item()
         fp = fp.decode() if isinstance(fp, bytes) else str(fp)
@@ -105,7 +97,15 @@ def load(path: str | Path, cfg, plan=None):
 
 
 def _block(x: np.ndarray, plan) -> np.ndarray:
-    """This rank's (R, nx) rows of a whole (ny, nx) grid, the pad row 0."""
+    """This rank's block of a whole (ny, nx) grid, the pad row (and
+    column) 0: its (R, nx) rows, or under the blocks layout its (R, C)
+    points from (row0, col0)."""
+    if plan.layout == "blocks":
+        R, C, row0, col0, _ = plan.block(*x.shape)
+        blk = np.zeros((R, C), x.dtype)
+        pts = x[row0:row0 + R, col0:col0 + C]
+        blk[:pts.shape[0], :pts.shape[1]] = pts
+        return blk
     R = (x.shape[0] + 1) // plan.size
     blk = np.zeros((R, x.shape[1]), x.dtype)
     rows = x[plan.rank * R:(plan.rank + 1) * R]

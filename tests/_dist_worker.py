@@ -1,7 +1,8 @@
 """One rank of a CPU gloo world for the distributed port's tests
 (test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
 test_torch_dist_smoothers.py, test_torch_dist_merged.py,
-test_torch_dist_blocks.py), and the helpers that start such a world and
+test_torch_dist_blocks.py, test_torch_dist_blocks_smoothers.py), and the
+helpers that start such a world and
 read its results (``spawn``, ``finish``, ``load``).  Not collected by
 pytest (no test_ prefix).
 
@@ -26,8 +27,8 @@ the loaded blocks; "nonsep" multiplies the 9-point centre by
 ``nonsep_factor`` (coefficients no sum of an x- and a y-profile gives).
 The name "exchange" checks ``edge_exchange`` and ``allreduce_sum``
 instead, "block_exchange" ``block_exchange`` (``block_halos``), "refuse"
-records what each case of ``REFUSALS`` and a checkpoint under the blocks
-plan raise (and the device of a plan built without one), and
+records what each case of ``REFUSALS`` raises (and the device of a plan
+built without one), and
 "units" runs ``units``: a sharded level's operators on row blocks, and
 "merged_units" runs ``merged_units``: a merged level's operators on
 its grids' blocks; a config with "argv" runs the CLI (``cli``).
@@ -113,18 +114,12 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
 REFUSALS = {
     "sparse": (dict(backend="sparse"), {}),
     "bf16": (dict(dtype="bfloat16"), {}),
-    "precision": (dict(outer_dtype="float64"), {"layout": "blocks"}),
-    "smoothers": (dict(smoother="rbgs", cycle=0), {"layout": "blocks"}),
     "merged": (dict(grids=4, levels=3), {"layout": "blocks"}),
     "uneven": (dict(npts=13, grids=2, levels=2),
                {"layout": "blocks", "mesh": [1, 4], "min_local": 2}),
 }
-# The ROADMAP item each blocks refusal names ("checkpoint": a checkpoint
-# saved under the blocks plan).
-BLOCKS_ITEMS = {"precision": "the precision outers and the checkpoint",
-                "checkpoint": "the precision outers and the checkpoint",
-                "smoothers": "RBGS and the line smoothers",
-                "merged": "merged levels", "uneven": "uneven blocks"}
+# The ROADMAP item each blocks refusal names.
+BLOCKS_ITEMS = {"merged": "merged levels", "uneven": "uneven blocks"}
 
 
 def nonsep_factor(ny: int, nx: int) -> np.ndarray:
@@ -166,10 +161,6 @@ def refuse(rank: int, out: Path) -> None:
                           **fields))
         cases[case] = lambda cfg=cfg, kw=plan_kw: solve(
             cfg, plan=make_plan(dict(dict(min_local=8), **kw)))
-    ck_cfg = config(dict(npts=129, grids=4, levels=4, cycle=101))
-    cases["checkpoint"] = lambda: checkpoint.save(
-        out / f"ck.{rank}.npz", ck_cfg, np.zeros((127, 127)), [1.0], 0,
-        plan=make_plan({"layout": "blocks", "min_local": 8}))
     default = ShardingPlan()
     got["default_device"] = str(default.device)
     cases["default_solve"] = lambda: solve(

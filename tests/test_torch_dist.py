@@ -243,13 +243,12 @@ def test_edge_exchange_and_allreduce(world):
         assert float(d["total"]) == sum(range(1, dw.WORLD + 1))
 
 
-@pytest.mark.parametrize("case", [*dw.REFUSALS, "checkpoint"])
+@pytest.mark.parametrize("case", list(dw.REFUSALS))
 def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
     ROADMAP (the sparse backend: JAX's ValueError), on every rank: the
     bf16 working dtype, and under the blocks layout each item that waits
-    (the precision outers and the checkpoint, RBGS and the line
-    smoothers, merged levels, uneven blocks), which name their item."""
+    (merged levels, uneven blocks), which name their item."""
     out = world()
     got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
            for r in range(dw.WORLD)}

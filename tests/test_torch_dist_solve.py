@@ -185,15 +185,15 @@ def test_cli_two_ranks_matches_one(tmp_path):
 
 
 def test_cli_blocks_layout_raises(tmp_path):
-    """``-map 0`` runs the blocks layout (test_torch_dist_blocks.py); what
-    waits under it raises through the CLI, naming its ROADMAP item: here
-    an RBGS V-cycle."""
-    out = _cli("-npts", "33", "-grids", "2", "-levels", "2", "-map", "0",
-               "-cycle", "0", "-smoother", "rbgs", "-device", "cpu",
-               cwd=tmp_path, nproc=2)
+    """``-map 0`` runs the blocks layout (test_torch_dist_blocks.py,
+    test_torch_dist_blocks_smoothers.py); what waits under it raises
+    through the CLI, naming its ROADMAP item: here a V-cycle whose last
+    level merges two grids."""
+    out = _cli("-npts", "33", "-grids", "3", "-levels", "2", "-map", "0",
+               "-cycle", "0", "-device", "cpu", cwd=tmp_path, nproc=2)
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and "ROADMAP" in out.stderr
-    assert "distribution, blocks: RBGS and the line smoothers" in out.stderr
+    assert "distribution, blocks: merged levels" in out.stderr
 
 
 @pytest.mark.parametrize("compiler,machine", [
