@@ -164,11 +164,25 @@ non-zero):
      2-D block launches (``.bf16`` in the bf16 run) and K15's 2-D block
      launches (the line runs) on every rank, no K1, K2a or K4, and only
      "agglomerate" and "line" all-gathers; card against CPU at 1025^2,
-     ``min_local=8``.
+     ``min_local=8``;
+ 15. under the blocks layout, merged levels and the merged-grid cycles,
+     every grid of a merged level on its own 2-D block: 4 ranks (2x2)
+     sharing the card over gloo, ``blocks_plan(min_local=32)``, f32: (a)
+     I, E, D1, D2 and D1PS on 2 split grids at 8193^2, forced 10, each
+     held to its one-card twin (histories within 1e-5, u within
+     TOL_ARRAY); (b) a V-cycle (forced 5) and mg-CG (forced 10) at grids
+     4 / levels 3 over the split CG-solved merged level 2 (errors and last
+     residuals within 1.1x of the twins'); (c) D1 on the 1x2 mesh (every
+     grid split along x alone); (d) card against CPU at 1025^2, merged
+     levels holding whole grids (I, D1, a V-cycle over a CG-solved merged
+     level, mg-CG over a directly solved one); K17's 2-D mode on every
+     rank, no K6 or K7 where every grid is split, only "agglomerate" and
+     "coarsest" all-gathers, each run's launches, gathers with bytes and
+     ms per iteration (gloo host staging).
 Every path run starts with the launch counters at 0 and reads them right
 after (a rank's counters in its own process).  ``--only
-9a,9b,10,11a,11,12,13a,13,14`` runs the build and just those phases (phase 4
-first where they read it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
+9a,9b,10,11a,11,12,13a,13,14,15`` runs the build and just those phases
+(phase 4 first where they read it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
 result object.  With no CUDA device the script exits non-zero without
 printing it.
@@ -1994,7 +2008,7 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
 
 
 def rank_worker(argv) -> int:
-    """One rank of phase 9's, 11's, 12's and 13's worlds (``chip_smoke.py
+    """One rank of phase 9's and 11-15's worlds (``chip_smoke.py
     --rank RANK WORLD PORT DEVICE LABEL OUTDIR JOBS``): joins the gloo
     group, solves each job under ``row_plan(min_local=...)`` (the job's,
     default 32; with "layout": "blocks" ``blocks_plan``) on DEVICE and
@@ -2002,7 +2016,8 @@ def rank_worker(argv) -> int:
     the gathered solution of a job with "save_u"): its iterations,
     history, launches (per kernel and per K17 emit), the all-gathers the
     solve made (by what they gather, with their bytes), the axes the plan
-    splits each level along, error norms, wall seconds and, with "cert",
+    splits each level along and each grid of it (``grid_axes``), error
+    norms, wall seconds and, with "cert",
     the true f64 residual.  A job with "checkpoint": k first solves k
     iterations, saves a checkpoint under the plan, loads it and resumes
     from it (``utils.checkpoint``; the counters read the resumed solve)."""
@@ -2082,6 +2097,7 @@ def rank_worker(argv) -> int:
                        split=[list(lv.split) for lv in res.ctx.levels],
                        axes=[list(plan.split(*lv.shape))
                              for lv in res.ctx.levels],
+                       grid_axes=[grid_axes(lv) for lv in res.ctx.levels],
                        errs=list(errs), wall=res.wall_time, ms=ms,
                        transport=plan.transport, checkpoint=ck,
                        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
@@ -2095,6 +2111,15 @@ def rank_worker(argv) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def grid_axes(lv) -> list:
+    """The axes (y, x) each grid of level ``lv``'s operators is split
+    along ([False, False] for a grid held whole; a row block's (True,
+    False))."""
+    ops = getattr(lv.grid_ops, "ops", (lv.dist,) * len(lv.spec.grids))
+    return [[False, False] if d is None
+            else list(getattr(d, "split", (True, False))) for d in ops]
 
 
 def config_of(fields):
@@ -3693,13 +3718,188 @@ def run_phase14(torch, main_ref):
     return timed_phase(torch, "14", phase_dist_blocks_smoothers, main_ref)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: merged levels and the merged-grid cycles under the blocks
+# layout.
+# ---------------------------------------------------------------------------
+
+
+def p15_configs():
+    """Phase 15's solves (f32): name -> (config, job extras).  (a) I, E,
+    D1, D2, D1PS on 2 grids at 8193^2 (8191^2 and 4095^2, both split along
+    both axes of the 2x2 mesh), forced 10; (b) a V-cycle (forced 5) and
+    mg-CG (forced 10) at 8193^2, grids 4 / levels 3 (level 2 merges
+    2047^2 and 1023^2, both split, and 64 CG iterations solve it); (d)
+    card against CPU at 1025^2 on 2x2: I and D1 with min_local 256
+    (1023^2 split, 511^2 whole), phase 3c's V-cycle at grids 4 / levels 2
+    with min_local 128 (level 1 merges 511^2, split, with 255^2 and
+    127^2, whole; CG), and mg-CG at grids 10 / levels 7 with min_local 4
+    (level 6 merges 15^2, split, with 7^2, 3^2 and 1^2; solved directly,
+    its split grid gathered).  (c), D1 on the 1x2 mesh, runs (a)'s D1."""
+    f32 = dict(dtype="float32")
+    big, small = {}, {}
+    for c in P12_ONE:
+        big[c] = (dict(f32, npts=P9_N, grids=2, levels=1, cycle=CYCLE_IDS[c],
+                       max_iter=10, **P12_FORCED), {})
+    big["vcycle"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=0,
+                          max_iter=5, **P12_FORCED), {})
+    big["mgcg"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=101,
+                        max_iter=10, **P12_FORCED), {})
+    for c in ("ICYCLE", "D1CYCLE"):
+        small[c] = (dict(f32, npts=P9_SMALL, grids=2, levels=1,
+                         cycle=CYCLE_IDS[c], max_iter=10, **P12_FORCED),
+                    {"min_local": 256})
+    small["vcycle"] = (dict(f32, npts=P9_SMALL, grids=4, levels=2, cycle=0,
+                            max_iter=6, **P12_FORCED), {"min_local": 128})
+    small["mgcg_direct"] = (dict(f32, npts=P9_SMALL, grids=10, levels=7,
+                                 cycle=101, rtol=1e-5, max_iter=30),
+                            {"min_local": 4})
+    return big, small
+
+
+def phase_dist_blocks_merged(torch):
+    """15: merged levels and the merged-grid cycles under the blocks
+    layout, every grid of a merged level on its own 2-D block: 4 ranks on
+    the 2x2 mesh sharing the card over gloo (as phase 13 (b)),
+    ``blocks_plan(min_local=32)`` unless a config names another
+    (``p15_configs``).  (a) I, E, D1, D2, D1PS on 2 split grids at
+    8193^2, each held to its one-card twin in this process (as 12 (a)):
+    normalized histories within 1e-5 entry by entry, u within TOL_ARRAY
+    of max|u|.  (b) the V-cycle and mg-CG over the split CG-solved merged
+    level 2: errors and last residuals within 1.1x of the twin's.  (c) (a)'s
+    D1 on the 1x2 mesh (every grid split along x alone), held as (a).  (d)
+    card against CPU at 1025^2 with merged levels holding whole grids:
+    equal iterations, histories rtol 0.05 + atol 5e-6 (as 12 (c)).  On
+    every rank ``path == "cuda"`` and K17's 2-D mode launched; where
+    every grid is split, no K6 or K7 and nothing gathered; else the
+    gathers "agglomerate" and "coarsest" only.  Every run prints its
+    launches per kernel and per K17 emit, its all-gathers with their
+    bytes, and its ms per iteration, which measures the gloo host staging
+    of the ranks on one card, not the card.  Returns rank 0's K17 2-D
+    launches over (a)'s five runs."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import BLOCKS
+
+    big, small = p15_configs()
+    twins = {}
+    for name, (f, _) in big.items():
+        twins[name] = t = merged_twin(torch, f)
+        print(f"15 one-card twin {name} {P9_N}^2 grids {f['grids']} levels "
+              f"{f['levels']}: iters {t['iters']}, max error "
+              f"{t['err']:.6e}, last residual {t['rnorm'][-1]:.6e}, "
+              f"{1e3 * t['wall'] / max(t['iters'], 1):.3f} ms per "
+              f"iteration")
+    blocks = dict(layout="blocks", save_u=True)
+    card_jobs = [dict(name=n, cfg=f, **blocks, **x)
+                 for n, (f, x) in big.items()]
+    pair_jobs = [dict(name="pair_d1", cfg=big["D1CYCLE"][0], **blocks)]
+    par_jobs = [dict(name=n, cfg=f, layout="blocks", **x)
+                for n, (f, x) in small.items()]
+    k17 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        # The full-width 2x2 world alone (its ms per iteration), then the
+        # others side by side.
+        run_worlds([(card_jobs, "cuda", "card", P13_RANKS)], out)
+        run_worlds([(pair_jobs, "cuda", "pair", 2),
+                    (par_jobs, "cuda", "card1025", P13_RANKS),
+                    (par_jobs, "cpu", "cpu", P13_RANKS)], out)
+        runs = [(n, f, "card", P13_RANKS, n) for n, (f, _) in big.items()]
+        runs.append(("pair_d1", big["D1CYCLE"][0], "pair", 2, "D1CYCLE"))
+        for name, f, label, ranks, twin in runs:
+            res = world_results(out, name, label, ranks)
+            r0, t = res[0], twins[twin]
+            iters = r0["iters"]
+            u = np.load(out / f"{name}.npy")
+            du = float(np.abs(u - t["u"]).max() / np.abs(t["u"]).max())
+            dh = float(np.abs(np.asarray(r0["rnorm"]) - t["rnorm"]).max())
+            part = ("c" if ranks == 2 else "a" if name in P12_ONE else "b")
+            mesh = "1x2" if ranks == 2 else "2x2"
+            print(f"15 ({part}) {name} {P9_N}^2 grids {f['grids']} levels "
+                  f"{f['levels']}, {ranks} ranks ({mesh}) sharing one "
+                  f"card: iters {iters} (twin {t['iters']}), path "
+                  f"{r0['path']}, max error {r0['errs'][0]:.6e} (twin "
+                  f"{t['err']:.6e}), last residual {r0['rnorm'][-1]:.6e} "
+                  f"(twin {t['rnorm'][-1]:.6e}), max|history diff| "
+                  f"{dh:.3e}, max|u - u_twin| / max|u_twin| {du:.3e}; "
+                  f"{1e3 * r0['wall'] / max(iters, 1):.3f} ms per "
+                  f"iteration (gloo host staging, not the card)")
+            print(f"  residual history {r0['rnorm']}")
+            print(f"  split axes per level and grid {r0['grid_axes']}")
+            for r, x in enumerate(res):
+                print(f"  rank {r}: launches {x['counts']}; K17 per emit "
+                      f"{x['emits']}; all-gathers {x['gathers']} "
+                      f"({x['gathered']} B sent)")
+            axes = [True, True] if ranks == 4 else [False, True]
+            assert all(a == axes for lv in r0["grid_axes"] for a in lv), \
+                r0["grid_axes"]
+            for x in res:
+                assert x["path"] == "cuda"
+                assert x["iters"] == iters and x["rnorm"] == r0["rnorm"]
+                assert x["counts"].get(BLOCKS, 0) > 0, name
+                assert x["counts"][BLOCKS] == sum(
+                    v for e, v in x["emits"].items() if ".blocks" in e)
+                # Every grid is split: no K6 or K7, nothing gathered.
+                for kk in ("apply_stencil5", "smooth_sweeps", *MGCG_KERNELS):
+                    assert x["counts"].get(kk, 0) == 0, f"{name}: {kk}"
+                assert not x["gathers"], f"{name}: {x['gathers']}"
+            assert all(e == e for e in r0["errs"]), r0["errs"]
+            assert iters == t["iters"] == f["max_iter"], (name, iters)
+            if part == "b":
+                assert r0["errs"][0] <= 1.1 * t["err"], (name, r0["errs"])
+                assert r0["rnorm"][-1] <= 1.1 * t["rnorm"][-1], name
+            else:
+                assert dh <= 1e-5, dh
+                assert du <= TOL_ARRAY, du
+            if part == "a":
+                k17 += r0["counts"][BLOCKS]
+        for name, (f, x) in small.items():
+            g = world_results(out, name, "card1025", P13_RANKS)[0]
+            c = world_results(out, name, "cpu", P13_RANKS)[0]
+            print(f"15 (d) {name} {P9_SMALL}^2 grids {f['grids']} levels "
+                  f"{f['levels']}, min_local {x['min_local']}, 2x2: iters "
+                  f"card {g['iters']} cpu {c['iters']}; max error card "
+                  f"{g['errs'][0]:.6e} cpu {c['errs'][0]:.6e}; split axes "
+                  f"{g['grid_axes']}; card launches {g['counts']}, K17 per "
+                  f"emit {g['emits']}; all-gathers {g['gathers']} "
+                  f"({g['gathered']} B sent); "
+                  f"{1e3 * g['wall'] / max(g['iters'], 1):.3f} ms per "
+                  f"iteration")
+            assert g["path"] == "cuda" and c["path"] == "torch"
+            assert g["grid_axes"] == c["grid_axes"]
+            assert any(a == [False, False] for lv in g["grid_axes"]
+                       for a in lv), g["grid_axes"]
+            assert g["iters"] == c["iters"], name
+            np.testing.assert_allclose(g["rnorm"], c["rnorm"], rtol=0.05,
+                                       atol=5e-6)
+            assert g["counts"].get(BLOCKS, 0) > 0, name
+            assert set(g["gathers"]) <= {"agglomerate", "coarsest"}
+            if name == "mgcg_direct":
+                assert g["converged"] and g["gathers"].get("coarsest", 0)
+            else:  # a split grid restricted onto a whole one
+                assert g["gathers"].get("agglomerate", 0) > 0
+                assert g["counts"].get("apply_stencil5", 0) > 0, name
+    return k17
+
+
+def run_phase15(torch):
+    """Phase 15: merged levels and the merged-grid cycles under the blocks
+    layout."""
+    torch.cuda.empty_cache()
+    return timed_phase(torch, "15", phase_dist_blocks_merged)
+
+
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
     named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10;
     11a: K17 in bf16 (phase 2d's check) and 11 (a); 11: phase 11; 12:
     phase 12; 13a: K17's 2-D block mode and K15's; 13: phase 13; 14:
-    phase 14), with phase 4 first where they read it; no result line, so
-    a partial run never passes for a whole one."""
+    phase 14; 15: phase 15), with phase 4 first where they read it; no
+    result line, so a partial run never passes for a whole one."""
     main_ref = None
     if {"9b", "10", "13", "14"} & set(parts):
         _, u_ref, main_ref = phase_main(torch)
@@ -3735,6 +3935,8 @@ def partial_run(torch, dev, parts) -> int:
         print(json.dumps(rec))
     if "14" in parts:
         print(run_phase14(torch, main_ref))
+    if "15" in parts:
+        print(f"15 (a) rank 0 K17 2-D launches: {run_phase15(torch)}")
     print(f"partial run {parts}: no result line")
     return 0
 
@@ -3837,6 +4039,7 @@ def main() -> int:
     merged_k17 = run_phase12(torch)
     counts.update(run_phase13(torch, dev, rec, main_ref))
     counts.update(run_phase14(torch, main_ref))
+    merged_blocks_k17 = run_phase15(torch)
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -3925,6 +4128,8 @@ def main() -> int:
             "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate,
             **({"launches_merged": merged_k17}
                if k == "dist_level_visit" else {}),
+            **({"launches_merged": merged_blocks_k17}
+               if k == "dist_level_visit.blocks" else {}),
             **({"ms_nine_scalars": rec[k]["scalars_ms"],
                 "bound_ms_nine_scalars": rec[k]["scalars_bound_ms"]}
                if "scalars_ms" in rec[k] else {}),

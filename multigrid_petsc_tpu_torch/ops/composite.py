@@ -15,8 +15,9 @@ The grid operations come from an operator set (``GridOps``): on one
 device each A_f runs through K6 (``stencil_kernel.apply_stencil5``) on the
 card, its plain version on the CPU, and the multi-gap transfers are plain
 PyTorch, as the JAX package runs them outside its kernels.  Under a plan
-``parallel.dist_ops.DistMergedOps`` is the same set on the ranks' row
-blocks (K17 on a sharded grid), so one body serves both.
+``parallel.dist_ops.DistMergedOps`` is the same set on the ranks' blocks,
+row blocks under the rows layout and 2-D blocks under the blocks layout
+(K17 on a sharded grid), so one body serves all three.
 ``include_diag`` / ``include_couplings`` select A, A1 (diagonal blocks
 only) or A2 (couplings only), as the E-cycle splits them.
 """

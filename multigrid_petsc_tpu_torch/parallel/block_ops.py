@@ -31,10 +31,13 @@ axis the coarse level keeps whole).
 A level whose block cannot carry a visit's halo runs Jacobi as visits of
 at most (the smallest split extent - 2) steps, one exchange each; a
 schedule with momentum (Chebyshev) one residual emit per step.  The
-transfers between two split levels are block-local (``restrict``,
-``prolong``: one exchanged row, one column and their corner); from a
-level to one split along fewer axes, the restricted blocks are gathered
-along the axes that stop being split ("agglomerate").
+transfers between two split levels are block-local (``restrict_local``,
+``block_prolong``: one exchanged row, one column and their corner); from
+a level to one split along fewer axes, the restricted blocks are gathered
+along the axes that stop being split (``agglomerate``).  These need only
+the geometry ``plan.block`` gives, so a merged level's multi-gap
+couplings and transfers (``dist_ops.restrict_steps`` / ``prolong_steps``)
+run them one gap at a time, in each grid's own layout.
 
 The smoothers without a fused visit run on the block too (JAX's GSPMD
 arithmetic on the rank's points), with ``DistLevelOps``'s interface:
@@ -49,8 +52,6 @@ group of one rank, no gather.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -120,6 +121,83 @@ def _cut_coeffs(st: Stencil9, r0: int, r1: int, c0: int, c1: int):
     return Stencil9(*map(cut, st))
 
 
+def restrict_local(r: torch.Tensor, ny: int, nx: int,
+                   plan) -> torch.Tensor:
+    """One full weighting of this rank's block ``r`` of an (ny, nx) grid
+    the blocks plan splits: this block's coarse block from the block and,
+    along a split axis, the next block's first row (column) and their
+    corner; the coarse pad row and column 0."""
+    R, C, row0, col0, split = plan.block(ny, nx)
+    ext = extend(r, block_exchange(r, 1, plan, split))
+    # An even (split) extent reads one row (column) past the block, an
+    # odd one holds its whole extent.
+    ext = ext[1:R + 2 - R % 2, 1:C + 2 - C % 2]
+    rc = restrict_fw(ext)
+    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    rc[max(nyc - row0 // 2, 0):] = 0.0
+    rc[:, max(nxc - col0 // 2, 0):] = 0.0
+    return rc
+
+
+def agglomerate(rc: torch.Tensor, ny: int, nx: int, plan) -> torch.Tensor:
+    """The coarse grid's part of ``rc``, this block's coarse block of an
+    (ny, nx) grid: the coarse blocks gathered along the axes the coarse
+    grid stops being split on ("agglomerate"), the coarse pads there cut
+    (collective along those axes)."""
+    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    axes = tuple(f and not c for f, c in zip(plan.split(ny, nx),
+                                             plan.split(nyc, nxc)))
+    if not any(axes):
+        return rc
+    whole = all_gather_blocks(rc, plan, "agglomerate", axes)
+    return whole[:nyc if axes[0] else None,
+                 :nxc if axes[1] else None].contiguous()
+
+
+def block_restrict(r: torch.Tensor, ny: int, nx: int, plan) -> torch.Tensor:
+    """One full weighting from this rank's block of a split (ny, nx) grid
+    into the coarse grid's layout: block-local, then gathered along the
+    axes the coarse grid is not split on."""
+    return agglomerate(restrict_local(r, ny, nx, plan), ny, nx, plan)
+
+
+def coarse_in(e: torch.Tensor, ny: int, nx: int, plan, hc: int):
+    """The coarse correction ``e`` of a split (ny, nx) grid, held as the
+    coarse grid is held, as this block's coarse block (R / 2, C / 2) and
+    its depth-``hc`` ring: exchanged along the axes the coarse grid is
+    split on, cut along the others."""
+    R, C, row0, col0, split = plan.block(ny, nx)
+    cb = plan.block((ny - 1) // 2, (nx - 1) // 2)
+    if cb.split == split:  # the coarse grid's block is this one's
+        return e, block_exchange(e, hc, plan, cb.split)
+    ext = extend(e, block_exchange(e, hc, plan, cb.split))
+    r0 = row0 // 2 - cb.row0
+    c0 = col0 // 2 - cb.col0
+    Rc, Cc = R // 2, C // 2
+    win = window(ext, r0, r0 + Rc + 2 * hc, c0, c0 + Cc + 2 * hc)
+    return win[hc:hc + Rc, hc:hc + Cc].contiguous(), ring(win, hc)
+
+
+def block_prolong(e: torch.Tensor, ny: int, nx: int, plan) -> torch.Tensor:
+    """One bilinear prolongation onto this rank's block of a split (ny,
+    nx) grid: ``e`` held as the coarse grid is held (its block, or whole
+    along an axis it is not split on), of which this block's coarse block
+    and the row above, the column left and their corner are read; the pad
+    row and column 0.  The result is contiguous, as the kernels take their
+    inputs (a merged level applies A_f to it)."""
+    R, C, row0, col0, _ = plan.block(ny, nx)
+    ec, halo = coarse_in(e, ny, nx, plan, 1)
+    ext = extend(ec, halo)[:-1, :-1]
+    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    c0, d0 = row0 // 2 - 1, col0 // 2 - 1
+    ext[max(nyc - c0, 0):] = 0.0  # the coarse pad row and column
+    ext[:, max(nxc - d0, 0):] = 0.0
+    pe = prolong_bilinear(ext)[2:R + 2, 2:C + 2].contiguous()
+    pe[min(R, ny - row0):] = 0.0
+    pe[:, min(C, nx - col0):] = 0.0
+    return pe
+
+
 class BlockLevelOps:
     """K17 operator set of one single-grid level the blocks plan splits,
     on this rank's block (``DistLevelOps``'s interface).  ``st`` is the
@@ -138,6 +216,12 @@ class BlockLevelOps:
         # The largest halo the neighbours can give: the smallest split
         # extent.
         self.cap = min(n for n, s in zip((self.R, self.C), self.split) if s)
+        # The ranks that hold distinct blocks: the world when the level is
+        # split along both axes, the mesh column (row) when along y (x)
+        # alone; the ranks of the other axis hold the same blocks.
+        sy, sx = self.split
+        self.sum_group = (None if sy and sx else
+                          plan.col_group if sy else plan.row_group)
         self.viable = (
             halo_rows(max_sweeps, "rc") <= self.cap
             and coarse_halo_rows(halo_rows(max_sweeps, "ur")) <= self.cap // 2)
@@ -168,11 +252,6 @@ class BlockLevelOps:
     def block_shape(self) -> tuple[int, int]:
         return (self.R, self.C)
 
-    @functools.cached_property
-    def coarse(self):
-        """The coarse level's block (``ShardingPlan.block``)."""
-        return self.plan.block((self.ny - 1) // 2, (self.nx - 1) // 2)
-
     # -- layout ---------------------------------------------------------
 
     def block_of(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,51 +265,25 @@ class BlockLevelOps:
         return x[:self.nyl, :self.nxl]
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks that hold distinct blocks: the
-        world when the level is split along both axes, the mesh column
-        (row) when along y (x) alone; the ranks of the other axis hold
-        the same blocks and sum alike."""
-        sy, sx = self.split
-        group = (None if sy and sx else
-                 self.plan.col_group if sy else self.plan.row_group)
-        return allreduce_sum(x, self.plan, group)
+        """The sum of ``x`` over the ranks that hold distinct blocks
+        (``sum_group``)."""
+        return allreduce_sum(x, self.plan, self.sum_group)
+
+    def gather(self, x: torch.Tensor, what: str) -> torch.Tensor:
+        """The whole (ny, nx) grid from every rank's block, on every rank
+        (collective; counted under ``what``)."""
+        return all_gather_blocks(x, self.plan, what, self.split)[
+            :self.ny, :self.nx].contiguous()
 
     def gathered(self, solve):
         """``solve`` of the whole level run on this rank's block: the
         blocks gathered ("coarsest"), the solve, this rank's block of it
         (a coarsest level JAX solves directly; collective)."""
-        return lambda b: self.block_of(solve(all_gather_blocks(
-            b, self.plan, "coarsest", self.split)[:self.ny, :self.nx]
-            .contiguous()))
+        return lambda b: self.block_of(solve(self.gather(b, "coarsest")))
 
     def to_coarse(self, rc: torch.Tensor) -> torch.Tensor:
-        """The coarse level's part of ``rc`` (this block's coarse block):
-        the coarse blocks gathered along the axes the coarse level stops
-        being split on ("agglomerate"), the coarse pads there cut
-        (collective)."""
-        axes = tuple(f and not c for f, c in zip(self.split,
-                                                 self.coarse.split))
-        if not any(axes):
-            return rc
-        whole = all_gather_blocks(rc, self.plan, "agglomerate", axes)
-        nyc, nxc = (self.ny - 1) // 2, (self.nx - 1) // 2
-        return whole[:nyc if axes[0] else None,
-                     :nxc if axes[1] else None].contiguous()
-
-    def _coarse_in(self, e: torch.Tensor, hc: int):
-        """The coarse correction ``e``, held as the coarse level holds it,
-        as this block's coarse block (R / 2, C / 2) and its depth-``hc``
-        ring: exchanged along the axes the coarse level is split on, cut
-        along the others."""
-        cb = self.coarse
-        if cb.split == self.split:  # the coarse level's block is this one's
-            return e, block_exchange(e, hc, self.plan, cb.split)
-        ext = extend(e, block_exchange(e, hc, self.plan, cb.split))
-        r0 = self.row0 // 2 - cb.row0
-        c0 = self.col0 // 2 - cb.col0
-        Rc, Cc = self.R // 2, self.C // 2
-        win = window(ext, r0, r0 + Rc + 2 * hc, c0, c0 + Cc + 2 * hc)
-        return win[hc:hc + Rc, hc:hc + Cc].contiguous(), ring(win, hc)
+        """The coarse level's part of ``rc`` (``agglomerate``)."""
+        return agglomerate(rc, self.ny, self.nx, self.plan)
 
     # -- the visit --------------------------------------------------------
 
@@ -247,7 +300,8 @@ class BlockLevelOps:
         else:
             u_halo, b_halo = block_exchange((u, b), h, self.plan, self.split)
         if e is not None:
-            e, e_halo = self._coarse_in(e, coarse_halo_rows(h))
+            e, e_halo = coarse_in(e, self.ny, self.nx, self.plan,
+                                  coarse_halo_rows(h))
         return block_visit(self.st, b, u, steps, emit, row0=self.row0,
                            col0=self.col0, ny=self.ny, nx=self.nx,
                            b_halo=b_halo, u_halo=u_halo, e=e, e_halo=e_halo,
@@ -305,34 +359,13 @@ class BlockLevelOps:
     # -- block-local transfers ---------------------------------------------
 
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
-        """This block's coarse block of R r (full weighting): the block and,
-        along a split axis, the next block's first row (column) and their
-        corner; the coarse pad row and column 0."""
-        ext = extend(r, block_exchange(r, 1, self.plan, self.split))
-        # An even (split) extent reads one row (column) past the block, an
-        # odd one holds its whole extent.
-        ext = ext[1:self.R + 2 - self.R % 2, 1:self.C + 2 - self.C % 2]
-        rc = restrict_fw(ext)
-        nyc, nxc = (self.ny - 1) // 2, (self.nx - 1) // 2
-        rc[max(nyc - self.row0 // 2, 0):] = 0.0
-        rc[:, max(nxc - self.col0 // 2, 0):] = 0.0
-        return rc
+        """This block's coarse block of R r (``restrict_local``)."""
+        return restrict_local(r, self.ny, self.nx, self.plan)
 
     def prolong(self, e: torch.Tensor) -> torch.Tensor:
-        """P e on the block (bilinear): ``e`` held as the coarse level
-        holds it (its block, or whole where it is not split), of which
-        this block's coarse block and the row above, the column left and
-        their corner are read; the pad row and column 0."""
-        ec, halo = self._coarse_in(e, 1)
-        ext = extend(ec, halo)[:-1, :-1]
-        nyc, nxc = (self.ny - 1) // 2, (self.nx - 1) // 2
-        c0, d0 = self.row0 // 2 - 1, self.col0 // 2 - 1
-        ext[max(nyc - c0, 0):] = 0.0  # the coarse pad row and column
-        ext[:, max(nxc - d0, 0):] = 0.0
-        pe = prolong_bilinear(ext)[2:self.R + 2, 2:self.C + 2]
-        pe[self.nyl:] = 0.0
-        pe[:, self.nxl:] = 0.0
-        return pe
+        """P e on the block (``block_prolong``): ``e`` held as the coarse
+        level holds it."""
+        return block_prolong(e, self.ny, self.nx, self.plan)
 
     # -- the smoothers without a fused visit -------------------------------
 

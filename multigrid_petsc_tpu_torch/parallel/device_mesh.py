@@ -54,7 +54,6 @@ from multigrid_petsc_tpu_torch.utils.config import not_ported
 # What the blocks layout does not take yet: the ROADMAP items its refusals
 # name, in the order they are queued.
 BLOCKS_WAIT = {
-    "merged": "distribution, blocks: merged levels",
     "uneven": "distribution, blocks: uneven blocks",
 }
 

@@ -28,16 +28,19 @@ K15's rank-spanning mode (``line_kernel.line_rows_*``), one all-gather of
 the segment carries per sweep.  The transfers between two sharded levels
 are block-local (``restrict``, ``prolong``: one exchanged row).
 
-A merged level under a plan (``DistMergedOps``) holds one
-``DistLevelOps`` per grid the plan shards and keeps the others whole:
-A_f and the Jacobi steps of a sharded grid are K17 visits on its block,
-those of a replicated grid K6 and K7.  Its multi-gap transfers
-(``restrict_steps``, ``prolong_steps``) go one gap at a time: between two
-sharded sizes block-local with one exchanged row, at the first replicated
-size on the way down the restricted blocks gathered ("agglomerate"), and
-from a replicated size into a sharded one the block's rows cut from the
-whole coarse grid.  A one-gap step over a block and its halo row computes
-the entries of the whole-grid step, operation for operation.
+A merged level under a plan (``DistMergedOps``) holds one operator set
+per grid the plan shards, in the plan's layout (``DistLevelOps`` under
+rows, ``block_ops.BlockLevelOps`` under blocks), and keeps the others
+whole: A_f and the Jacobi steps of a sharded grid are K17 visits on its
+block, those of a replicated grid K6 and K7.  Its multi-gap transfers
+(``restrict_steps``, ``prolong_steps``) go one gap at a time, each in the
+layout of the size it lands on: between two sharded sizes block-local
+(one exchanged row; under blocks a row, a column and their corner), onto
+a size sharded along fewer axes (rows: replicated) the restricted blocks
+gathered along what is lost ("agglomerate"), and into a sharded size the
+block cut from what the rank holds of the coarse size.  A one-gap step
+over a block and its halo computes the entries of the whole-grid step,
+operation for operation.
 """
 
 from __future__ import annotations
@@ -56,6 +59,11 @@ from multigrid_petsc_tpu_torch.ops.composite import GridOps
 from multigrid_petsc_tpu_torch.ops.norms import unflatten
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
+from multigrid_petsc_tpu_torch.parallel.block_ops import (
+    BlockLevelOps,
+    block_prolong,
+    block_restrict,
+)
 from multigrid_petsc_tpu_torch.parallel.halo import (
     all_gather_rows,
     allreduce_sum,
@@ -139,18 +147,24 @@ def _shards(plan, ny: int, nx: int) -> bool:
 def restrict_steps(x: torch.Tensor, ny: int, nx: int, gap: int,
                    plan) -> torch.Tensor:
     """``gap`` full weightings of ``x``, which lies on an (ny, nx) grid:
-    its row block where ``plan`` (None: one device) shards that grid,
-    else the whole grid.  A step between two sharded sizes is block-local;
-    at the first size the plan replicates, the coarse blocks are gathered
-    ("agglomerate"); below it the steps run whole (``restrict_multi``)."""
+    its block where ``plan`` (None: one device) shards that grid, else
+    the whole grid; the result in the layout of the size it lands on.  A
+    step from a sharded size is block-local, and the coarse blocks are
+    gathered along what the next size stops being split on
+    ("agglomerate"): under the rows layout at the first replicated size,
+    under the blocks layout along each axis it loses
+    (``block_ops.block_restrict``); below that the steps run whole
+    (``restrict_multi``)."""
     for _ in range(gap):
         nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
-        if _shards(plan, ny, nx):
+        if not _shards(plan, ny, nx):
+            x = restrict_fw(x)
+        elif plan.layout == "blocks":
+            x = block_restrict(x, ny, nx, plan)
+        else:
             x = _restrict_block(x, ny, plan)
             if not _shards(plan, nyc, nxc):
                 x = all_gather_rows(x, plan, "agglomerate")[:nyc]
-        else:
-            x = restrict_fw(x)
         ny, nx = nyc, nxc
     return x
 
@@ -159,14 +173,17 @@ def prolong_steps(x: torch.Tensor, ny: int, nx: int, gap: int,
                   plan) -> torch.Tensor:
     """``gap`` bilinear prolongations of ``x`` from an (ny, nx) grid, in
     the layout ``restrict_steps`` reads: into a size the plan shards the
-    block's rows, into a replicated size the whole grid
-    (``prolong_multi``)."""
+    block (cut from what the rank holds of the coarse size, exchanged only
+    along the axes that size is split on), into a replicated size the
+    whole grid (``prolong_multi``)."""
     for _ in range(gap):
         nyf, nxf = 2 * ny + 1, 2 * nx + 1
-        if _shards(plan, nyf, nxf):
-            x = _prolong_block(x, nyf, plan, _shards(plan, ny, nx))
-        else:
+        if not _shards(plan, nyf, nxf):
             x = prolong_bilinear(x)
+        elif plan.layout == "blocks":
+            x = block_prolong(x, nyf, nxf, plan)
+        else:
+            x = _prolong_block(x, nyf, plan, _shards(plan, ny, nx))
         ny, nx = nyf, nxf
     return x
 
@@ -216,17 +233,24 @@ class DistLevelOps:
         """The block's rows inside the domain (the pad row cut)."""
         return x[:self.nyl]
 
+    # Every rank holds distinct rows: sums run over the plan's group.
+    sum_group = None
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks."""
         return allreduce_sum(x, self.plan)
+
+    def gather(self, x: torch.Tensor, what: str) -> torch.Tensor:
+        """The whole grid from every rank's rows, on every rank
+        (collective; counted under ``what``)."""
+        return all_gather_rows(x, self.plan, what)[:self.ny]
 
     def gathered(self, solve):
         """``solve`` of the whole level run on this rank's block: the
         blocks gathered ("coarsest"), the solve, this rank's rows of it
         (a coarsest level JAX shards through GSPMD and solves directly;
         collective)."""
-        return lambda b: self.block_of(solve(all_gather_rows(
-            b, self.plan, "coarsest")[:self.ny]))
+        return lambda b: self.block_of(solve(self.gather(b, "coarsest")))
 
     def gather_coarse(self, rc: torch.Tensor) -> torch.Tensor:
         """The whole coarse grid ((ny - 1) / 2 rows) from every rank's
@@ -403,19 +427,21 @@ class DistLevelOps:
 
 
 class DistMergedOps(GridOps):
-    """The per-grid operators of a merged level under a plan: a
-    ``DistLevelOps`` for each grid the plan shards (``ops[k]``; None for
-    a replicated grid, held whole on every rank), the transfers
-    ``restrict_steps`` / ``prolong_steps``, and the level's inner product:
-    the sharded grids' local dots summed over the ranks, the replicated
-    grids' added once."""
+    """The per-grid operators of a merged level under a plan, each grid
+    in the plan's layout (``ops[k]``): a ``DistLevelOps`` (rows) or
+    ``BlockLevelOps`` (blocks) for each grid the plan shards, None for a
+    replicated grid, held whole on every rank; the transfers
+    ``restrict_steps`` / ``prolong_steps``; and the level's inner
+    product: each sharded grid's local dot summed over the ranks that
+    hold its distinct blocks, the replicated grids' added once."""
 
     def __init__(self, stencils, grids, plan, max_sweeps: int):
         super().__init__(stencils, tuple(g.g for g in grids))
         self.plan = plan
         self.grids = tuple(grids)
+        level_ops = BlockLevelOps if plan.layout == "blocks" else DistLevelOps
         self.ops = tuple(
-            DistLevelOps(st, g.ny, g.nx, plan, max_sweeps)
+            level_ops(st, g.ny, g.nx, plan, max_sweeps)
             if plan.shards(g.ny, g.nx) else None
             for st, g in zip(stencils, grids))
         self.stencils = tuple(st if d is None else d.st
@@ -429,7 +455,7 @@ class DistMergedOps(GridOps):
 
     @property
     def state_shapes(self) -> list[tuple[int, int]]:
-        return [g.shape if d is None else (d.R, d.nx)
+        return [g.shape if d is None else d.block_shape
                 for g, d in zip(self.grids, self.ops)]
 
     def apply(self, k: int, x):
@@ -451,38 +477,45 @@ class DistMergedOps(GridOps):
         return prolong_steps(x, g.ny, g.nx, g.g - self.grids[kf].g,
                              self.plan)
 
-    def _dots(self, pairs, sharded):
-        """The sum of the grids' dots: the sharded ones' over the ranks
-        (one all-reduce), the replicated ones' as they are."""
-        loc = rep = None
-        for (x, y), s in zip(pairs, sharded):
-            d = torch.dot(x.reshape(-1), y.reshape(-1))
-            if s:
-                loc = d if loc is None else loc + d
+    def _dots(self, pairs, ops):
+        """The sum of the grids' dots: the sharded ones' local dots summed
+        by the group over which each grid's blocks are distinct
+        (``sum_group``: under rows the world, one all-reduce; under blocks
+        also a mesh column or row), one all-reduce per group in the order
+        the grids first name it; the replicated ones' as they are."""
+        groups, rep = {}, None
+        for (x, y), d in zip(pairs, ops):
+            v = torch.dot(x.reshape(-1), y.reshape(-1))
+            if d is None:
+                rep = v if rep is None else rep + v
             else:
-                rep = d if rep is None else rep + d
-        if loc is not None:
-            loc = allreduce_sum(loc, self.plan)
+                key = id(d.sum_group)
+                g = groups.setdefault(key, [d, None])
+                g[1] = v if g[1] is None else g[1] + v
+        loc = None
+        for d, v in groups.values():
+            v = d.sum(v)
+            loc = v if loc is None else loc + v
         return loc if rep is None else (rep if loc is None else loc + rep)
 
     def dot(self, x, y):
         if isinstance(x, torch.Tensor):  # a flat state (FGMRES's vectors)
             x, y = (unflatten(v, self.state_shapes) for v in (x, y))
-        return self._dots(zip(x, y), self.sharded)
+        return self._dots(zip(x, y), self.ops)
 
     def grid_norm(self, k: int, x):
-        return torch.sqrt(self._dots([(x, x)], [self.sharded[k]]))
+        return torch.sqrt(self._dots([(x, x)], [self.ops[k]]))
 
     def local(self, state) -> tuple:
         """This rank's part of a whole state: each sharded grid's block
         (a grid already cut to its block kept), each replicated grid."""
-        return tuple(x if d is None or x.shape[0] == d.R else d.block_of(x)
-                     for x, d in zip(state, self.ops))
+        return tuple(x if d is None or tuple(x.shape) == d.block_shape
+                     else d.block_of(x) for x, d in zip(state, self.ops))
 
     def real_rows(self, state) -> tuple:
-        """The state without the pad rows: each block's rows inside its
+        """The state without the pads: each block's points inside its
         grid."""
-        return tuple(x if d is None else x[:d.nyl]
+        return tuple(x if d is None else d.real(x)
                      for x, d in zip(state, self.ops))
 
     def gathered(self, solve):
@@ -490,10 +523,8 @@ class DistMergedOps(GridOps):
         sharded grids gathered ("coarsest"), the solve, this rank's part
         of it (a merged coarsest level solved directly; collective)."""
         def run(b):
-            whole = tuple(
-                x if d is None
-                else all_gather_rows(x, self.plan, "coarsest")[:d.ny]
-                for x, d in zip(b, self.ops))
+            whole = tuple(x if d is None else d.gather(x, "coarsest")
+                          for x, d in zip(b, self.ops))
             return self.local(solve(whole))
 
         return run

@@ -85,8 +85,8 @@ def build_cg_solver(apply_fn: Callable, shapes, iters: int = 64,
     negative-definite operator: both inner products flip sign), as the
     JAX package runs it.  The fixed count keeps the coarse solve linear,
     so the Krylov outers stay consistent.  ``dot(x, y)`` over states (the
-    level's: summed over the ranks on a row-sharded level) defaults to the
-    local one."""
+    level's: each sharded grid's summed over the ranks that hold its
+    distinct blocks) defaults to the local one."""
 
     def vdot(x, y):
         if dot is None:

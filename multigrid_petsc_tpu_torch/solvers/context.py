@@ -57,20 +57,20 @@ along fewer axes (or replicated), the rc blocks are all-gathered along
 the axes that stop being split; the up visit cuts its block of a coarse
 correction held whole along an axis.  Inside a cycle nothing else is
 gathered but the lines' carries and a sharded coarsest level that JAX
-solves directly (``parallel.halo.gathers``).  Under the rows layout a
-merged level is split grid by grid, as JAX splits it
-(``ShardingPlan.shards``): its
-operator set (``LevelCtx.grid_ops``, ``parallel.DistMergedOps``) runs
-each sharded grid on its block through K17 and each replicated grid
-whole through K6 and K7, its couplings one transfer gap at a time
-(block-local between two sharded sizes), and its inner product sums the
-sharded grids' dots over the ranks and adds the replicated grids' once.
-Every cycle, the merged-grid ones included, every smoother and both
-precision outers run under the rows layout (the preconditioner context
-under the same plan); under the blocks layout every single-grid cycle,
-smoother and precision outer, and the rest raises naming its ROADMAP item
-(``_check_blocks``: merged levels; uneven blocks in
-``ShardingPlan.block``).  The sparse backend raises under any plan.
+solves directly (``parallel.halo.gathers``).  A merged level is split
+grid by grid, each grid along the axes the plan splits it on, as JAX
+splits it (``ShardingPlan.shards`` / ``split``): its operator set
+(``LevelCtx.grid_ops``, ``parallel.DistMergedOps``) runs each sharded
+grid on its block through K17 (under the rows layout its row block, under
+the blocks layout its 2-D block) and each replicated grid whole through
+K6 and K7, its couplings one transfer gap at a time in each grid's layout
+(block-local between two sharded sizes), and its inner product sums each
+sharded grid's dots over the ranks that hold its distinct blocks and adds
+the replicated grids' once.  Every cycle, the merged-grid ones included,
+every smoother and both precision outers run under either layout (the
+preconditioner context under the same plan); uneven blocks raise naming
+their ROADMAP item (``ShardingPlan.block``).  The sparse backend raises
+under any plan.
 """
 
 from __future__ import annotations
@@ -109,7 +109,6 @@ from multigrid_petsc_tpu_torch.ops.transfer import (
     restrict_fw,
 )
 from multigrid_petsc_tpu_torch.parallel.block_ops import BlockLevelOps
-from multigrid_petsc_tpu_torch.parallel.device_mesh import BLOCKS_WAIT
 from multigrid_petsc_tpu_torch.parallel.dist_ops import (
     DistLevelOps,
     DistMergedOps,
@@ -206,7 +205,8 @@ class LevelCtx:
     dist: DistLevelOps | BlockLevelOps | None = None
     pad_rows: int = 0
     # A merged level's per-grid operators (GridOps; DistMergedOps when
-    # the plan shards its primary grid: each sharded grid's block).
+    # the plan shards its primary grid: each sharded grid's block, in the
+    # plan's layout).
     grid_ops: GridOps | None = None
 
     @property
@@ -233,7 +233,8 @@ class LevelCtx:
 
     @property
     def split(self) -> tuple[bool, ...]:
-        """Which of the level's grids run row-sharded on this rank."""
+        """Which of the level's grids run sharded on this rank (on their
+        row or 2-D blocks)."""
         if self.grid_ops is not None:
             return self.grid_ops.sharded
         return (self.dist is not None,)
@@ -583,26 +584,12 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
                  CycleType.ECYCLE)
 
 
-# The cycles whose level 0 merges grids (the reference's zoo).
-_MERGED_CYCLES = (CycleType.ICYCLE, *_SPLIT_CYCLES)
-
-
-def _check_blocks(cfg: SolverConfig) -> None:
-    """What the blocks layout does not take yet (uneven blocks raise in
-    ``ShardingPlan.block``)."""
-    if cfg.grids != cfg.levels or cfg.cycle in _MERGED_CYCLES:
-        raise not_ported("merged levels and the merged-grid cycles under the "
-                         "blocks layout", BLOCKS_WAIT["merged"])
-
-
 def _check_supported(cfg: SolverConfig, plan) -> None:
     if plan is not None:
         if cfg.backend == "sparse":
             raise ValueError(
                 "backend='sparse' is the single-device explicit-operator "
                 "path; use backend='auto'/'pallas' for distributed runs")
-        if plan.layout == "blocks":
-            _check_blocks(cfg)
     if cfg.problem not in ("poisson", "aniso"):
         raise ValueError(f"unknown problem {cfg.problem!r}")
     if cfg.problem == "aniso" and cfg.grids != cfg.levels:
@@ -758,11 +745,10 @@ def _jax_dist_kernels(lc: LevelCtx, whole_stencil) -> bool:
 def _shard(lc: LevelCtx, cfg: SolverConfig, plan) -> None:
     """Put ``lc`` on this rank's block (JAX context.py:945-961): under
     the rows layout its row block, under the blocks layout its 2-D block
-    (``BlockLevelOps``; one grid: ``_check_blocks``), with its smoother's
-    set-up (RBGS's colours by the global parity, the line smoothers'
-    stencils and factors of the block); under the rows layout a merged
-    level grid by grid (``DistMergedOps``: the sharded grids' blocks, the
-    replicated grids whole)."""
+    (``BlockLevelOps``), with its smoother's set-up (RBGS's colours by
+    the global parity, the line smoothers' stencils and factors of the
+    block); a merged level grid by grid (``DistMergedOps``: the sharded
+    grids' blocks in the plan's layout, the replicated grids whole)."""
     lc.pad_rows = 1
     if lc.merged:
         ops = lc.grid_ops = DistMergedOps(lc.stencils, lc.spec.grids, plan,

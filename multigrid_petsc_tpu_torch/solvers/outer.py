@@ -42,8 +42,8 @@ def outer_iterate(step: Callable, residual: Callable, b, u0, cfg,
     returns (u, b - A u), computed inside its last level visit, so the
     stop test costs no extra operator application.  ``monitor(i, u, rn)``
     (with ``monitor.aux()``), if given, sees every iterate.  ``norm`` is
-    the level's (``LevelCtx.norm2``: over every rank of a row-sharded
-    level, so each rank reads the same stop test)."""
+    the level's (``LevelCtx.norm2``: over the ranks of a sharded level,
+    so each rank reads the same stop test)."""
     hist_len = min(cfg.hist_len, cfg.max_iter)
     bnorm = float(norm(b))
     rn_t = norm(residual(b, u0))

@@ -21,8 +21,8 @@ rtol * ||b||, and u0 is added back (JAX solve.py:121-180).
 Under a plan (``plan=``, every rank calling ``solve`` alike) the solve
 runs on the plan's device; ``u0`` is the whole level-0 state, of which
 each rank takes its block of every sharded grid, or the rank's part of it
-(a checkpoint's under the rows layout, ``utils.checkpoint.load``: each
-sharded grid's (R, nx) block); ``SolveResult.u`` is this rank's block of
+(a checkpoint's, ``utils.checkpoint.load``: each sharded grid's block,
+(R, nx) rows or an (R, C) 2-D block); ``SolveResult.u`` is this rank's block of
 the primary grid's solution (its real rows and columns), ``u_local`` this
 rank's part of
 every grid, and ``u_fine`` / ``u_grids`` the whole grids, gathered from

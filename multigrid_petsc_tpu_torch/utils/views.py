@@ -79,22 +79,21 @@ def view_operator(ctx, level: int = 0, max_rows: int = 8) -> str:
 def _level_op(ctx, lvl, level: int) -> str:
     """What applies a level's operator: ``K17(ranks xP, R=.., pad=..)`` on
     a row-sharded level, ``K17(mesh MYxMX, block=RxC, pad=..)`` on a
-    level the blocks layout splits, ``sparse(<form>, nnz=..)`` on an
-    assembled one, else ``cuda`` (the hand-written kernels; on level 0
-    with the mg-CG route the last solve took) or ``torch`` (their plain
-    versions)."""
-    if lvl.dist is not None and ctx.plan.layout == "blocks":
-        d = lvl.dist
-        return (f"K17(mesh {d.plan.mesh[0]}x{d.plan.mesh[1]}, "
-                f"block={d.R}x{d.C}, pad={lvl.pad_rows})")
-    if lvl.dist is not None:
-        return (f"K17(ranks x{lvl.dist.plan.size}, R={lvl.dist.R}, "
-                f"pad={lvl.pad_rows})")
-    if lvl.sharded:  # a merged level: each sharded grid's block rows
-        ops = lvl.grid_ops
-        return (f"K17(ranks x{ops.plan.size}, R=" + "/".join(
-            str(d.R) for d in ops.ops if d is not None)
-            + f", pad={lvl.pad_rows})")
+    level the blocks layout splits (a merged level: each sharded grid's
+    block rows, or its RxC block, joined by ``/``), ``sparse(<form>,
+    nnz=..)`` on an assembled one, else ``cuda`` (the hand-written
+    kernels; on level 0 with the mg-CG route the last solve took) or
+    ``torch`` (their plain versions)."""
+    if lvl.sharded:
+        ops = ([lvl.dist] if lvl.dist is not None else
+               [d for d in lvl.grid_ops.ops if d is not None])
+        plan = ctx.plan
+        if plan.layout == "blocks":
+            return (f"K17(mesh {plan.mesh[0]}x{plan.mesh[1]}, block="
+                    + "/".join(f"{d.R}x{d.C}" for d in ops)
+                    + f", pad={lvl.pad_rows})")
+        return (f"K17(ranks x{plan.size}, R="
+                + "/".join(str(d.R) for d in ops) + f", pad={lvl.pad_rows})")
     if lvl.sparse_full is not None:
         return f"sparse({lvl.sparse_full.form}, nnz={lvl.sparse_full.nnz})"
     op = "cuda" if ctx.device.type == "cuda" else "torch"

@@ -1,7 +1,8 @@
 """One rank of a CPU gloo world for the distributed port's tests
 (test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
 test_torch_dist_smoothers.py, test_torch_dist_merged.py,
-test_torch_dist_blocks.py, test_torch_dist_blocks_smoothers.py), and the
+test_torch_dist_blocks.py, test_torch_dist_blocks_smoothers.py,
+test_torch_dist_blocks_merged.py), and the
 helpers that start such a world and
 read its results (``spawn``, ``finish``, ``load``).  Not collected by
 pytest (no test_ prefix).
@@ -16,7 +17,9 @@ under ``row_plan(min_local=...)`` (or ``blocks_plan``) on the CPU and
 writes OUTDIR/<name>.<rank>.npz: iterations, converged, the residual
 history, the gathered solution (every grid of level 0 as ``grid<k>``),
 which levels ran sharded (``dist``; ``split``: each level's grids, as
-JSON; ``axes``: the axes (y, x) the plan splits each level along), the
+JSON; ``axes``: the axes (y, x) the plan splits each level along;
+``grid_axes``: the axes each grid of each level's operators is split
+along), the
 -moreNorm monitors where the solve kept them, and the all-gathers the
 solve made (``parallel.halo.gathers``, as JSON); with "view" also
 OUTDIR/<name>.<rank>.view.txt, the solve's ``view_solver`` dump.
@@ -31,7 +34,8 @@ records what each case of ``REFUSALS`` raises (and the device of a plan
 built without one), and
 "units" runs ``units``: a sharded level's operators on row blocks, and
 "merged_units" runs ``merged_units``: a merged level's operators on
-its grids' blocks; a config with "argv" runs the CLI (``cli``).
+its grids' blocks (its spec may name "layout", "mesh", "npts" and
+"min_local"); a config with "argv" runs the CLI (``cli``).
 """
 
 import dataclasses
@@ -114,12 +118,11 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
 REFUSALS = {
     "sparse": (dict(backend="sparse"), {}),
     "bf16": (dict(dtype="bfloat16"), {}),
-    "merged": (dict(grids=4, levels=3), {"layout": "blocks"}),
     "uneven": (dict(npts=13, grids=2, levels=2),
                {"layout": "blocks", "mesh": [1, 4], "min_local": 2}),
 }
 # The ROADMAP item each blocks refusal names.
-BLOCKS_ITEMS = {"merged": "merged levels", "uneven": "uneven blocks"}
+BLOCKS_ITEMS = {"uneven": "uneven blocks"}
 
 
 def nonsep_factor(ny: int, nx: int) -> np.ndarray:
@@ -329,34 +332,46 @@ def units(rank: int, world: int, out: Path) -> None:
              **{k: np.asarray(v) for k, v in res.items()})
 
 
+def grid_axes(lv) -> list:
+    """The axes (y, x) each grid of level ``lv``'s operators is split
+    along ([False, False] for a grid held whole; a row block's (True,
+    False))."""
+    ops = getattr(lv.grid_ops, "ops", (lv.dist,) * len(lv.spec.grids))
+    return [[False, False] if d is None
+            else list(getattr(d, "split", (True, False))) for d in ops]
+
+
 def all_gather(x, plan):
     from multigrid_petsc_tpu_torch.parallel.halo import all_gather_rows
 
     return all_gather_rows(x, plan, "solution")
 
 
-# merged_units: the merged level of grids 0-3 at npts 129 under
-# row_plan(min_local=8) on 4 ranks (blocks of 32, 16 and 8 rows, grid 3
-# replicated), f64, mesh 1.
+# merged_units: the merged level of grids 0-3, by default at npts 129
+# under row_plan(min_local=8) on 4 ranks (blocks of 32, 16 and 8 rows,
+# grid 3 replicated), f64, mesh 1.
 MERGED_NPTS, MERGED_GIDS = 129, (0, 1, 2, 3)
 
 
-def merged_inputs(seed: int) -> tuple:
+def merged_inputs(seed: int, npts: int = MERGED_NPTS) -> tuple:
     """A whole state of the merged_units level from numpy (``seed``)."""
     rng = np.random.default_rng(seed)
-    return tuple(rng.standard_normal(((MERGED_NPTS - 1) // 2**g - 1,) * 2)
+    return tuple(rng.standard_normal(((npts - 1) // 2**g - 1,) * 2)
                  for g in MERGED_GIDS)
 
 
-def merged_units(rank: int, world: int, out: Path) -> None:
+def merged_units(rank: int, world: int, out: Path, spec: dict) -> None:
     """A merged level's operators on its grids' blocks
-    (``DistMergedOps``), from whole inputs every rank makes alike
-    (``merged_inputs(1)`` u, ``merged_inputs(2)`` b), gathered and
-    written to OUTDIR/merged_units.<rank>.npz: A u, A1 u, A2 u, b - A u,
-    one block Gauss-Seidel sweep of 3 inner steps, the transfers from
-    grid 0 to grid 3 and back (restriction: block-local, then gathered at
-    grid 3; prolongation: cut, then block-local), <u, b> and grid 2's
-    norm, and the gathers each made."""
+    (``DistMergedOps``) under the plan of ``spec`` (``make_plan``; its
+    "npts", default MERGED_NPTS, and "min_local", default 8), from whole
+    inputs every rank makes alike (``merged_inputs(1)`` u,
+    ``merged_inputs(2)`` b), gathered and written to
+    OUTDIR/merged_units.<rank>.npz: the axes each grid is split along, A
+    u, A1 u, A2 u, b - A u, one block Gauss-Seidel sweep of 3 inner
+    steps, the transfers from grid 0 to grid 3 and back (restriction:
+    block-local, then gathered where a size stops being split along an
+    axis; prolongation: cut, then block-local), <u, b>, each grid's norm,
+    and the gathers each made."""
     from multigrid_petsc_tpu_torch.hierarchy import GridSpec, grid_interior
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.ops import composite as comp
@@ -364,20 +379,22 @@ def merged_units(rank: int, world: int, out: Path) -> None:
     from multigrid_petsc_tpu_torch.problems import stencil_coefficients
     from multigrid_petsc_tpu_torch.solvers import smoothers as sm
 
-    plan = row_plan(min_local=8, device="cpu")
-    grids = [GridSpec(g, grid_interior(MERGED_NPTS, g),
-                      grid_interior(MERGED_NPTS, g)) for g in MERGED_GIDS]
+    npts = spec.get("npts", MERGED_NPTS)
+    plan = make_plan(dict(spec, min_local=spec.get("min_local", 8)))
+    grids = [GridSpec(g, grid_interior(npts, g), grid_interior(npts, g))
+             for g in MERGED_GIDS]
     sts = [stencil_coefficients(MeshType(1), g.ny, g.nx, torch.float64,
                                 "cpu") for g in grids]
     ops = DistMergedOps(sts, grids, plan, 3)
-    u = ops.local(tuple(map(torch.as_tensor, merged_inputs(1))))
-    b = ops.local(tuple(map(torch.as_tensor, merged_inputs(2))))
+    u = ops.local(tuple(map(torch.as_tensor, merged_inputs(1, npts))))
+    b = ops.local(tuple(map(torch.as_tensor, merged_inputs(2, npts))))
 
     def whole(state):
-        return [np.asarray(all_gather(x, plan)[:g.ny]) if d is not None
-                else np.asarray(x) for x, g, d in zip(state, grids, ops.ops)]
+        return [np.asarray(d.gather(x, "solution")) if d is not None
+                else np.asarray(x) for x, d in zip(state, ops.ops)]
 
-    res = {"sharded": np.asarray(ops.sharded)}
+    res = {"sharded": np.asarray(ops.sharded),
+           "grid_axes": np.asarray([plan.split(g.ny, g.nx) for g in grids])}
     for name, fn in (
             ("A", lambda: comp.composite_apply(ops, u)),
             ("A1", lambda: comp.composite_apply(ops, u,
@@ -393,12 +410,19 @@ def merged_units(rank: int, world: int, out: Path) -> None:
             res[f"{name}{k}"] = x
     halo.gathers.clear()
     down = ops.restrict(u[0], 0, 3)
-    up = ops.prolong(u[3], 3, 0)
     res["down_gathers"] = json.dumps(dict(halo.gathers))
+    halo.gathers.clear()
+    up = ops.prolong(u[3], 3, 0)
+    res["up_gathers"] = json.dumps(dict(halo.gathers))
     res["down"] = np.asarray(down)
+    # The kernels take contiguous inputs only: a merged level applies A_f
+    # to what a prolongation gives.
+    res["contiguous"] = np.asarray([down.is_contiguous(),
+                                    up.is_contiguous()])
     res["up"] = whole((up,) + tuple(u[1:]))[0]
     res["dot"] = np.asarray(ops.dot(u, b))
-    res["norm2"] = np.asarray(ops.grid_norm(2, u[2]))
+    res["norms"] = np.asarray([ops.grid_norm(k, x) for k, x in enumerate(u)])
+    res["norm2"] = res["norms"][2]
     np.savez(out / f"merged_units.{rank}.npz", **res)
 
 
@@ -428,7 +452,7 @@ def main() -> None:
                 units(rank, world, out)
                 continue
             if name == "merged_units":
-                merged_units(rank, world, out)
+                merged_units(rank, world, out, spec)
                 continue
             plan = make_plan(spec)
             cfg = config(spec["cfg"])
@@ -472,6 +496,8 @@ def main() -> None:
                                        for lv in res.ctx.levels]),
                      axes=json.dumps([list(plan.split(*lv.shape))
                                       for lv in res.ctx.levels]),
+                     grid_axes=json.dumps([grid_axes(lv)
+                                           for lv in res.ctx.levels]),
                      block_rows=res.u.shape[0], gathers=gathers, **extra)
             if spec.get("view"):
                 (out / f"{name}.{rank}.view.txt").write_text(

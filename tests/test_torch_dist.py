@@ -248,7 +248,7 @@ def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
     ROADMAP (the sparse backend: JAX's ValueError), on every rank: the
     bf16 working dtype, and under the blocks layout each item that waits
-    (merged levels, uneven blocks), which name their item."""
+    (uneven blocks), which name their item."""
     out = world()
     got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
            for r in range(dw.WORLD)}

@@ -186,14 +186,16 @@ def test_cli_two_ranks_matches_one(tmp_path):
 
 def test_cli_blocks_layout_raises(tmp_path):
     """``-map 0`` runs the blocks layout (test_torch_dist_blocks.py,
-    test_torch_dist_blocks_smoothers.py); what waits under it raises
-    through the CLI, naming its ROADMAP item: here a V-cycle whose last
-    level merges two grids."""
-    out = _cli("-npts", "33", "-grids", "3", "-levels", "2", "-map", "0",
-               "-cycle", "0", "-device", "cpu", cwd=tmp_path, nproc=2)
+    test_torch_dist_blocks_smoothers.py, test_torch_dist_blocks_merged.py);
+    what waits under it raises through the CLI, naming its ROADMAP item:
+    here uneven blocks (3 ranks make a 1x3 mesh, which splits the 127^2
+    level along x, 127 // 3 >= 32, and 128 columns do not make 3 even
+    blocks)."""
+    out = _cli("-npts", "129", "-grids", "2", "-levels", "2", "-map", "0",
+               "-device", "cpu", cwd=tmp_path, nproc=3)
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and "ROADMAP" in out.stderr
-    assert "distribution, blocks: merged levels" in out.stderr
+    assert "distribution, blocks: uneven blocks" in out.stderr
 
 
 @pytest.mark.parametrize("compiler,machine", [
