@@ -621,7 +621,6 @@ def time_scalar_layout(torch, record, label, nbytes, fn):
 def phase_kernels_9pt(torch, dev, rec):
     """K12-K15 at 8191^2 against their plain versions, on the anisotropic
     stencils and on a random stencil with every coefficient kind."""
-    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
     from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
     from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
     from multigrid_petsc_tpu_torch.problems import (
@@ -713,12 +712,43 @@ def phase_kernels_9pt(torch, dev, rec):
                   lambda: k9.fused_level_visit9_plain(st, b, u_in, jac, emit,
                                                       e_c, dot), names,
                   timed=st is mixed)
-    del allk
+    del allk, b, u, e, mixed, const
+    torch.cuda.empty_cache()
+    phase_line_card(torch, dev, rec)
+    check_ragged_9pt(torch, dev, rec, torch.float32)
 
-    # K15: BASELINE config 4's line stencil ((ny, 1) line coefficients),
-    # then the mixed one, whose cc varies with x ((ny, nx) factors).
+
+def phase_line_card(torch, dev, rec):
+    """K15 (one card) at 8191^2 against its plain version, every mode, on
+    BASELINE config 4's line stencil ((ny, 1) line coefficients) and on
+    the mixed one, whose cc varies with x ((ny, nx) factors); on the
+    first, the sweep's three launches alone as device time
+    (``line_launch_ms``, through the split entries on the whole level)."""
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(999)
+    n = 8191
+    arr, pts = n * n * 4, n * n
+    f32 = torch.float32
+    b, u = (torch.randn((n, n), generator=gen, device=dev, dtype=f32)
+            for _ in range(2))
+    e = torch.randn(((n - 1) // 2, (n - 1) // 2), generator=gen, device=dev,
+                    dtype=f32)
+    rec.setdefault("line_visit9", {})
+
+    def aniso(*p):
+        return stencil9_coefficients(AnisoProblem(*p), n, n, f32, dev)
+
+    def check(key, label, *args, **kw):
+        check_kernel(torch, rec, key, f"{label} at {n}^2", *args, **kw)
+
     line = lk.collapse_stencil(aniso(1.0, 0.0, 100.0, 0.0, 0.0))
-    xvar = lk.collapse_stencil(mixed)
+    xvar = lk.collapse_stencil(aniso(1.0, 1.0, 1.0, 2.0, 0.4))
     assert line.cc.shape == (1, 1) or line.cc.shape[1] == 1
     assert xvar.cc.shape == (n, n)
     lmodes = (  # label, (u, emit, e_coarse, dot), arrays moved, names
@@ -745,9 +775,20 @@ def phase_kernels_9pt(torch, dev, rec):
                   lambda: lk.line_visit9_plain(st, b, u_in, 3, 0.8, emit,
                                                e_c, dot), names, TOL_LINE,
                   timed=st is line, dot_scale=line_dot_scale)
-    del b, u, e, line, xvar, mixed, const
+    lf = lk.row_line(line, n, n, 0, plain=False)
+    zero = u.new_zeros((1, n))
+    halo = Halo(zero, zero)
+    every = lk.line_rows_begin(lf, b, u, halo)
+    fac = lk.line_factor(line, n)
+    sweeps = [device_ms(torch, lambda k=k: lk.line_visit9(
+        line, b, u, k, 0.8, fac=fac)) for k in (1, 3)]
+    split = line_launch_ms(torch, lk, lf, b, u, halo, every)
+    print(f"  K15 u (columns) at {n}^2, device time: k=1 {sweeps[0]:.4f} "
+          f"ms, k=3 {sweeps[1]:.4f} ms; {split}")
+    rec["line_visit9"]["device_ms"] = sweeps[1]
+    rec["line_visit9"]["launch_ms"] = split
+    del b, u, e, line, xvar, every, lf, halo, zero
     torch.cuda.empty_cache()
-    check_ragged_9pt(torch, dev, rec, torch.float32)
 
 
 # Shapes of phase 2b / 2d: K15's segments cut by the edge (1025, 33), a
@@ -2547,12 +2588,36 @@ P11_LINE_SHAPES = ((8191, 4, True), (1023, 4, False), (63, 4, False),
 P11_OMEGA = 0.8
 
 
+def line_launch_ms(torch, lk, lf, b, u, halo, every) -> dict:
+    """Device ms (``device_ms``) of one split y-line sweep of a block
+    (``lf``, b, u, its halo or ring), each of its launches alone -- 1
+    (``line_rows_begin``: the block's segment ends), 2 (``line_rows_carry``:
+    the carry pass over every segment of the gathered ends ``every``), 3
+    (``line_rows_fix``: the block's segments fixed up) -- and the whole
+    sweep (both halves); the wrapper's allocations and copies count with
+    their launch."""
+    carries = lk.line_rows_carry(lf, every)
+
+    def whole():
+        lk.line_rows_begin(lf, b, u, halo)
+        return lk.line_rows_end(lf, b, u, halo, every, P11_OMEGA)
+
+    out = {f"launch {i}": device_ms(torch, fn) for i, fn in enumerate((
+        lambda: lk.line_rows_begin(lf, b, u, halo),
+        lambda: lk.line_rows_carry(lf, every),
+        lambda: lk.line_rows_fix(lf, b, u, halo, carries, P11_OMEGA)), 1)}
+    out["sweep"] = device_ms(torch, whole)
+    out["segments"] = every.shape[0] // 2
+    return out
+
+
 def line_row_sweep(torch, lk, st, b, u, P):
     """One rank-spanning y-line sweep (K15) of the (ny, nx) level (b, u),
     its pad row appended, cut into P row blocks in one process as P ranks
     run it: ``line_rows_begin`` on every block, the outputs stacked in
     rank order (the all-gather), ``line_rows_end`` on every block; the
-    stitched (ny + 1, nx) result.  Returns (sweep, the blocks' RowLines)."""
+    stitched (ny + 1, nx) result.  Returns (sweep, the blocks' RowLines,
+    the blocks' (b, u, halo))."""
     from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
 
     ny, nx = b.shape
@@ -2572,7 +2637,7 @@ def line_row_sweep(torch, lk, st, b, u, P):
         return torch.cat([lk.line_rows_end(lf, *blk, every, P11_OMEGA)
                           for lf, blk in zip(lfs, blocks)])
 
-    return sweep, lfs
+    return sweep, lfs, blocks
 
 
 def phase_line_rows(torch, dev, rec):
@@ -2586,8 +2651,11 @@ def phase_line_rows(torch, dev, rec):
     fields) in f32 and f64, on P11_LINE_SHAPES; the pad row exactly 0.
     Timed at 8191^2 in f32 on the strong-y stencil: the 4 blocks' sweep
     (both halves, the carry pass on every block as every rank runs it)
-    against the whole-grid plain sweep; the bound counts a sweep's three
-    arrays (b and u read, u written)."""
+    per call and as device time against the whole-grid plain sweep, and
+    block 1's launches alone (``line_launch_ms``); the bound counts a
+    sweep's three arrays (b and u read, u written).  Then the carry scan
+    on segment counts that do not fill its warps
+    (``check_line_odd_segments``)."""
     from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
     from multigrid_petsc_tpu_torch.problems import (
         AnisoProblem,
@@ -2609,7 +2677,8 @@ def phase_line_rows(torch, dev, rec):
                     AnisoProblem(*prob), n, n, dt, dev))
                 b = torch.randn((n, n), generator=gen, device=dev).to(dt)
                 u = torch.randn((n, n), generator=gen, device=dev).to(dt)
-                sweep, lfs = line_row_sweep(torch, lk, line, b, u, P)
+                sweep, lfs, blocks = line_row_sweep(torch, lk, line, b,
+                                                    u, P)
                 label = (f"K15 rank-spanning sweep aniso {pname} {n}^2, {P} "
                          f"blocks of {(n + 1) // P} rows ({lfs[0].seg}-row "
                          f"segments), {str(dt).replace('torch.', '')}")
@@ -2637,8 +2706,78 @@ def phase_line_rows(torch, dev, rec):
                           f"card K15 sweep {oms:.4f} ms, plain {pms:.4f} "
                           f"ms; bound {1e3 * nbytes / HBM_PEAK:.4f} ms")
                     keep_time(rec[key], ms, pms, nbytes, 20 * n * n)
-                del got, want, b, u, line, sweep, lfs, fac
+                    every = torch.cat([lk.line_rows_begin(lf, *blk)
+                                       for lf, blk in zip(lfs, blocks)])
+                    dms = device_ms(torch, sweep)
+                    split = line_launch_ms(torch, lk, lfs[1], *blocks[1],
+                                           every)
+                    print(f"  {label}: {P} blocks device time {dms:.4f} ms; "
+                          f"block 1: {split}")
+                    rec[key].update(device_ms=dms, launch_ms=split)
+                    del every
+                del got, want, b, u, line, sweep, lfs, blocks, fac
                 torch.cuda.empty_cache()
+    check_line_odd_segments(torch, dev, rec)
+
+
+# Segment counts that are not a multiple of the carry launch's warps: one
+# card at 1101^2 (35 segments) and 63^2 (2); the rank-spanning mode at
+# 1119^2 on 4 blocks of 280 rows (8-row segments: 140) and at 63^2 on 2
+# blocks of 32 (2).
+P17_ODD_CARD = (1101, 63)
+P17_ODD_ROWS = ((1119, 4), (63, 2))
+TOL_LINE_F64 = 6e-14  # K15 in f64: Thomas and PCR in f64 agree to ~1e-14
+
+
+def check_line_odd_segments(torch, dev, rec):
+    """K15's blocked carry scan where the segments do not fill its warps'
+    chunks (P17_ODD_CARD, P17_ODD_ROWS): one sweep's k = 3 u visit on one
+    card and one rank-spanning sweep of the stitched blocks, each against
+    the whole-grid plain version (PCR), on aniso (1,0,100,0,0) (the packed
+    table) and (1,1,1,2,0.4) (factor fields), f32 (TOL_LINE) and f64
+    (TOL_LINE_F64); the pad row exactly 0."""
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    for dt, sfx, tol in ((torch.float32, "", TOL_LINE),
+                         (torch.float64, ".f64", TOL_LINE_F64)):
+        tag = str(dt).replace("torch.", "")
+        rec.setdefault("line_visit9" + sfx, {})
+        for pname, prob in (("(1,0,100,0,0)", (1.0, 0.0, 100.0, 0.0, 0.0)),
+                            ("(1,1,1,2,0.4)", (1.0, 1.0, 1.0, 2.0, 0.4))):
+            def line_of(n):
+                return lk.collapse_stencil(stencil9_coefficients(
+                    AnisoProblem(*prob), n, n, dt, dev))
+
+            def rnd(n):
+                return torch.randn((n, n), generator=gen, device=dev).to(dt)
+
+            for n in P17_ODD_CARD:
+                line, b, u = line_of(n), rnd(n), rnd(n)
+                check_kernel(
+                    torch, rec, "line_visit9" + sfx,
+                    f"K15 line_visit9 u k=3 aniso {pname} {tag} at {n}^2 "
+                    f"({-(-n // lk.LINE_SEG)} segments)", 0, 0,
+                    lambda: lk.line_visit9(line, b, u, 3, P11_OMEGA),
+                    lambda: lk.line_visit9_plain(line, b, u, 3, P11_OMEGA),
+                    ("u'",), tol, timed=False)
+            for n, P in P17_ODD_ROWS:
+                line, b, u = line_of(n), rnd(n), rnd(n)
+                sweep, lfs, _ = line_row_sweep(torch, lk, line, b, u, P)
+                print(f"K15 rank-spanning sweep aniso {pname} {tag} {n}^2, "
+                      f"{P} blocks of {(n + 1) // P} rows ({lfs[0].seg}-row "
+                      f"segments, {P * lfs[0].nseg} in all)")
+                got = sweep()
+                assert bool((got[-1] == 0).all()), "pad row"
+                compare(torch, "vs whole-grid plain (PCR)", got[:n],
+                        lk.line_visit9_plain(line, b, u, 1, P11_OMEGA),
+                        rec.setdefault("line_visit9_rows" + sfx, {}), tol)
+            del line, b, u, sweep, lfs, got
+        torch.cuda.empty_cache()
 
 
 def p11_configs(npts: int):
@@ -3253,7 +3392,7 @@ def line_block_sweeps(torch, lk, st, b, u, my, mx, axis, plain):
         return lk.line_rows_end(lf, bb, ub, ring, every, P11_OMEGA)
 
     def sweep():
-        mine = [begin(*c) for c in calls]
+        mine = [begin(*c[:4]) for c in calls]
         outs = []
         for p, c in enumerate(calls):
             iy, ix = divmod(p, mx)
@@ -3278,8 +3417,9 @@ def phase_line_blocks(torch, dev, rec):
     whole gathered lines) and to the whole-grid plain sweep (TOL_LINE of
     max|plain|); the pad row and column exactly 0.  Timed on the 8191^2
     level's 2x2 cut, f32, strong-y y-lines: block 1's sweep (both halves,
-    launches 1-3) as device time and per call, the plain block's, the
-    bound 3 arrays of the block (b and u read, u written)."""
+    launches 1-3) as device time and per call, each launch alone
+    (``line_launch_ms``), the plain block's, the bound 3 arrays of the
+    block (b and u read, u written)."""
     from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
     from multigrid_petsc_tpu_torch.ops.stencil import transpose_stencil9
     from multigrid_petsc_tpu_torch.problems import (
@@ -3349,7 +3489,9 @@ def phase_line_blocks(torch, dev, rec):
                           f"bound {bound:.4f} ms), per call {ms:.4f} ms, "
                           f"plain {pms:.4f} ms")
                     keep_time(rec[key], ms, pms, nbytes, 20 * R * C)
-                    rec[key]["device_ms"] = dms
+                    split = line_launch_ms(torch, lk, *c1)
+                    print(f"  {tag}: block 1: {split}")
+                    rec[key].update(device_ms=dms, launch_ms=split)
                 del sweep, psweep, calls, pcalls, st
                 torch.cuda.empty_cache()
             del st9
@@ -3896,7 +4038,8 @@ def run_phase15(torch):
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
     named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10;
-    11a: K17 in bf16 (phase 2d's check) and 11 (a); 11: phase 11; 12:
+    11a: K17 in bf16 (phase 2d's check) and 11 (a); k15: K15's one-card
+    checks at 8191^2 (phase 2's), 11 (a) and 13 (a)'s K15; 11: phase 11; 12:
     phase 12; 13a: K17's 2-D block mode and K15's; 13: phase 13; 14:
     phase 14; 15: phase 15), with phase 4 first where they read it; no
     result line, so a partial run never passes for a whole one."""
@@ -3924,6 +4067,12 @@ def partial_run(torch, dev, parts) -> int:
         print(json.dumps(rec))
     if "12" in parts:
         print(f"12 (a) rank 0 K17 launches: {run_phase12(torch)}")
+    if "k15" in parts:
+        rec = {}
+        timed_phase(torch, "2 K15", phase_line_card, dev, rec)
+        timed_phase(torch, "11 (a)", phase_line_rows, dev, rec)
+        timed_phase(torch, "13 (a) K15", phase_line_blocks, dev, rec)
+        print(json.dumps(rec))
     if "13a" in parts:
         rec = {}
         timed_phase(torch, "13 (a)", phase_k17_blocks, dev, rec)
@@ -4133,9 +4282,9 @@ def main() -> int:
             **({"ms_nine_scalars": rec[k]["scalars_ms"],
                 "bound_ms_nine_scalars": rec[k]["scalars_bound_ms"]}
                if "scalars_ms" in rec[k] else {}),
-            **{x: rec[k][x] for x in ("device_ms", "grid_syncs",
-                                      "grid_sync_us", "latency_floor_ms",
-                                      "modes_5pt")
+            **{x: rec[k][x] for x in ("device_ms", "launch_ms",
+                                      "grid_syncs", "grid_sync_us",
+                                      "latency_floor_ms", "modes_5pt")
                if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1)")
     print(json.dumps({"kernels": kernels}))

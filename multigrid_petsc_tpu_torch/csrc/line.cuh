@@ -3,7 +3,7 @@
 // f64 (mg_line_*_f64, line_f64.cu) levels, two sources so that nvcc
 // builds them side by side; the arithmetic runs in the storage type.
 //
-// Replaces multigrid_petsc_tpu/ops/pallas/line_kernel.py
+// Replaces multigrid_petsc_tpu/ops/pallas/line_kernel.py:208
 // (line_visit9_pallas): k damped y-line Jacobi sweeps on a 9-point
 // stencil -- each moves the off-line terms (w, e and the four corners) to
 // the right-hand side from the previous iterate, solves the tridiagonal
@@ -39,13 +39,20 @@
 //      end and xl at its start; both are linear in the right-hand side,
 //      with per-row weights made on the host in f64 (end_w, start_w), so
 //      the thread keeps two running sums and no array;
-//   2. line_carry_kernel: one thread per column walks the segments, C down
-//      (C_{s+1} = dpl_end_s + gain_s C_s) then D up (D_{s-1} = x at
-//      segment s's first row), in f64;
+//   2. line_carry_kernel: C down (C_{s+1} = dpl_end_s + gain_s C_s) and D
+//      up (D_{s-1} = x at segment s's first row) every column, in f64.
+//      Both are first-order linear recurrences, chains of affine maps,
+//      which compose associatively: a blocked scan (32 columns by CW
+//      warps a block, each warp a chunk of segments composed into one
+//      map, the chunk maps scanned through shared memory, each chunk
+//      replayed from its true carry) in one launch.  Its first design, one
+//      thread a column walking all S segments, was bound by latency on
+//      too few threads (32-64 blocks of 4 warps, a chain of 2 (S - 1)
+//      dependent steps: 0.050-0.073 ms at S = 256);
 //   3. line_fix_kernel: the thread runs its segment again (the same
-//      reads as 1.) through the forward recurrence, then back up through
-//      the backward one, fixes it up with C and D, blends and stores,
-//      with the <b, u> partials.
+//      reads as 1.) through the forward recurrence, its dp staged in
+//      shared memory, then back up through the backward one, fixes it up
+//      with C and D, blends and stores, with the <b, u> partials.
 // A level of one segment (the coarse levels, <= SEG rows) is launch 3
 // alone with C = D = 0.  This is the segmented linear scan and not the
 // partition (SPIKE) method: the pivots stay the whole column's, made in
@@ -62,9 +69,9 @@
 // After the sweeps, the residual and its restriction run on 32 x 64
 // tiles of u staged in shared memory (one read of b and u).
 //
-// Registers: launch 3 keeps its segment's dp (SEG values of T; with a
-// correction, the corrected iterate too); launch 1 keeps no array
-// (`-Xptxas -v` in the build log prints the count per kernel).
+// Registers: launch 3 keeps its segment's dp in shared memory (with a
+// correction, the corrected iterate in registers); launch 1 keeps no
+// array (`-Xptxas -v` in the build log prints the count per kernel).
 //
 // The rank-spanning mode (mg_line_rows_*): a row-sharded level's columns
 // run across the ranks' row blocks, so its lines cross the ranks.  The
@@ -76,9 +83,11 @@
 // factors of its rows; the ranks all-gather the segment ends (the caller,
 // over torch.distributed); every rank runs launch 2 over all the
 // segments with the whole level's factors (redundantly, as the reference
-// runs a replicated coarse level), then launch 3 on its own segments with
-// their slice of the carries.  No transpose of the level and no chain
-// through the ranks: the carries move nx * ny / seg * 2 values a sweep.
+// runs a replicated coarse level: the scan makes that cheap), reading the
+// gathered ends in place and storing only its own segments' carries,
+// then launch 3 on its own segments, which also stores the block's pad
+// row and column as 0.  No transpose of the level and no chain through
+// the ranks: the carries move nx * ny / seg * 2 values a sweep.
 //
 // Its 2-D block mode (SIDES; the same entries, given side buffers): a
 // level of the 2-D blocks layout, whose y-lines span a mesh column.  The
@@ -102,6 +111,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "mg_common.cuh"
 
 namespace {
@@ -113,8 +124,8 @@ using mg::prolong_at;
 constexpr int SEG = 32;  // rows per segment (one thread's share of a column;
                          // the rank-spanning mode may run fewer, `seg`)
 constexpr int ST = 128;  // columns (threads) per block of launches 1 and 3
-constexpr int CT = 128;  // columns (threads) per block of the carry launch
-constexpr int CB = 16;   // segments the carry launch loads ahead
+constexpr int CW = 8;    // warps (of 32 columns' lanes) per carry block
+constexpr int CB = 8;    // segments a carry thread loads at once
 constexpr int RTY = 32, RTX = 64, RT = 256;  // residual tile and threads
 constexpr unsigned LANES = 0xffffffffu;  // every lane of a warp
 
@@ -184,6 +195,25 @@ struct RowHalo {
   int ld;
 };
 
+// The 2-D block mode's code for one block of threads of launch 3:
+// SIDE_EDGE where its columns, or their neighbours, reach the ring's side
+// columns (-1 or nx), SIDE_INNER elsewhere (no read of the side columns is
+// compiled in: their predicated loads cost launch 3 of a 4096^2 block 8%
+// of its time; launch 1, 4% slower so, reads them everywhere); 0 without
+// side buffers.
+constexpr int SIDE_INNER = 1, SIDE_EDGE = 2;
+
+template <bool SIDES, class F>
+__device__ __forceinline__ auto with_sides(int nx, F f) {
+  if constexpr (SIDES) {
+    if (blockIdx.x == 0 || (int)(blockIdx.x + 1) * ST >= nx)
+      return f(std::integral_constant<int, SIDE_EDGE>());
+    return f(std::integral_constant<int, SIDE_INNER>());
+  } else {
+    return f(std::integral_constant<int, 0>());
+  }
+}
+
 // The row stride of b, u and the output: the halo's in the rank-spanning
 // mode, nx on a whole level.
 template <bool ROWS, class T>
@@ -194,25 +224,42 @@ __device__ __forceinline__ int stride_of(const RowHalo<T>& hl, int nx) {
 // The sweep's input iterate at (y, x): u (or zero) plus the prolonged
 // correction, zero outside the domain; ROWS (the rank-spanning mode): rows
 // -1 and ny from the halo rows where there are any; SIDES (its 2-D block
-// mode): rows -1 and ny and columns -1 and nx from the ring.  ROWS and
-// SIDES are template flags so that a whole level's kernels compile as they
-// did without them.
-template <bool GUESS, bool CORRECT, bool ROWS, bool SIDES, class T>
+// mode, SIDE_INNER or SIDE_EDGE): rows -1 and ny and columns -1 and nx
+// from the ring.  ROWS and SIDES are template flags so that a whole
+// level's kernels compile as they did without them.  IN: row y is known
+// to lie in [0, ny) (a full segment's own rows), so only the column is
+// tested, and in the 2-D block mode with no branch (a predicated load
+// from u, one from the ring's side column): with the row's tests between
+// two rows, the compiler did not issue the next rows' loads ahead in the
+// split modes, and their launches 1 and 3 waited on memory row by row
+// (launch 3 on a whole 8191^2 level through the split entries: 0.871 ms,
+// 0.375 with IN; the one-card kernels, whose row tests the compiler
+// folds, 0.66 ms a sweep either way).
+template <bool GUESS, bool CORRECT, bool ROWS, int SIDES, bool IN = false,
+          class T>
 __device__ __forceinline__ T iterate_at(const T* u, const T* e,
                                         const RowHalo<T>& hl, int y, int x,
                                         int ny, int nx) {
-  if constexpr (ROWS && SIDES) {
+  if constexpr (ROWS && SIDES && IN) {
+    static_assert(GUESS && !CORRECT, "the 2-D block mode reads u");
+    const T v = x >= 0 && x < nx ? u[(size_t)y * hl.ld + x] : T(0);
+    if constexpr (SIDES == SIDE_INNER) return v;
+    const T* side = x == -1 ? hl.left : x == nx ? hl.right : nullptr;
+    return v + (side != nullptr ? side[y] : T(0));  // one of them is 0
+  } else if constexpr (ROWS && SIDES) {
     if (x < -1 || x > nx || y < -1 || y > ny) return T(0);
     if (y == -1) return hl.top[x + 1];
     if (y == ny) return hl.bot[x + 1];
-    if (x == -1) return hl.left[y];
-    if (x == nx) return hl.right[y];
+    if (SIDES == SIDE_EDGE && x == -1) return hl.left[y];
+    if (SIDES == SIDE_EDGE && x == nx) return hl.right[y];
   } else if constexpr (ROWS) {
     if (x < 0 || x >= nx) return T(0);
-    if (y < 0) return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
-    if (y >= ny) return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
+    if (!IN && y < 0)
+      return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
+    if (!IN && y >= ny)
+      return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
   } else {
-    if (y < 0 || y >= ny || x < 0 || x >= nx) return T(0);
+    if ((!IN && (y < 0 || y >= ny)) || x < 0 || x >= nx) return T(0);
   }
   T v = GUESS ? u[(size_t)y * stride_of<ROWS>(hl, nx) + x] : T(0);
   if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
@@ -224,26 +271,27 @@ __device__ __forceinline__ T iterate_at(const T* u, const T* e,
 // edge lanes take the one column past the warp from a second value every
 // lane loads (xo: the lane's other column; a plain load costs less than a
 // branch) -- or, with a correction, that only the edge lanes form.
-// Every lane of the warp calls it with the same y.
-template <bool GUESS, bool CORRECT, bool ROWS, bool SIDES, class T>
+// Every lane of the warp calls it with the same y (IN: in [0, ny)).
+template <bool GUESS, bool CORRECT, bool ROWS, int SIDES, bool IN = false,
+          class T>
 __device__ __forceinline__ void iterate_row(const T* u, const T* e,
                                             const RowHalo<T>& hl, int y,
                                             int j, int xo, int ny, int nx,
                                             T& w, T& c, T& ea) {
   const int lane = threadIdx.x & 31;
-  c = iterate_at<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y, j, ny, nx);
+  c = iterate_at<GUESS, CORRECT, ROWS, SIDES, IN>(u, e, hl, y, j, ny, nx);
   w = __shfl_up_sync(LANES, c, 1);
   ea = __shfl_down_sync(LANES, c, 1);
   if constexpr (CORRECT) {
     if (lane == 0)
-      w = iterate_at<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y, j - 1, ny,
-                                                  nx);
+      w = iterate_at<GUESS, CORRECT, ROWS, SIDES, IN>(u, e, hl, y, j - 1,
+                                                      ny, nx);
     if (lane == 31)
-      ea = iterate_at<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y, j + 1, ny,
-                                                   nx);
+      ea = iterate_at<GUESS, CORRECT, ROWS, SIDES, IN>(u, e, hl, y, j + 1,
+                                                       ny, nx);
   } else {
     const T o =
-        iterate_at<GUESS, false, ROWS, SIDES>(u, e, hl, y, xo, ny, nx);
+        iterate_at<GUESS, false, ROWS, SIDES, IN>(u, e, hl, y, xo, ny, nx);
     w = lane == 0 ? o : w;
     ea = lane == 31 ? o : ea;
   }
@@ -306,7 +354,7 @@ __device__ __forceinline__ T line_rhs(const Rows& r, int i, T bv, T w0, T e0,
 // rhs_i, u_i) with the row's right-hand side and the iterate's own value.
 // Threads past the last column run along (the shuffles need the whole
 // warp) on a clamped column.
-template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, bool SIDES,
+template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, int SIDES,
           class T, class Rows, class Row>
 __device__ __forceinline__ void segment_rows(const Rows& rows,
                                              const T* __restrict__ b,
@@ -324,14 +372,18 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
   if (GUESS) {
     iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0 - 1, j, xo, ny, nx,
                                              w0, c0, e0);
-    iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0, j, xo, ny, nx, w1,
-                                             c1, e1);
+    iterate_row<GUESS, CORRECT, ROWS, SIDES, FULL>(u, e, hl, y0, j, xo, ny,
+                                                   nx, w1, c1, e1);
   }
 #pragma unroll
   for (int i = 0; i < SEG; ++i) {
-    // The same rows for the whole warp.
+    // The same rows for the whole warp; a full segment's own rows lie in
+    // the level (IN), the row below it may not.
     if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
-      if (GUESS)
+      if (GUESS && FULL && i + 1 < SEG)
+        iterate_row<GUESS, CORRECT, ROWS, SIDES, true>(
+            u, e, hl, y0 + i + 1, j, xo, ny, nx, w2, c2, e2);
+      else if (GUESS)
         iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0 + i + 1, j, xo,
                                                  ny, nx, w2, c2, e2);
       const T bv = col ? bc[(size_t)i * ld] : T(0);
@@ -342,7 +394,15 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
   }
 }
 
-// Launch 1 of a sweep: thread (column j, segment blockIdx.y) forms its
+// The segment a block of launch 1 or 3 runs: the last first, so that a
+// level's or a block's last segment, cut by its edge and run on the
+// slower path with the row tests, starts with the first wave instead of
+// trailing the launch.
+__device__ __forceinline__ int segment_of_block() {
+  return gridDim.y - 1 - blockIdx.y;
+}
+
+// Launch 1 of a sweep: thread (column j, segment s) forms its
 // rows' right-hand sides and the two values the carries need, dpl at the
 // segment's last row (ends) and xl at its first (starts), (nseg, nx) each.
 // Both are linear in the right-hand side with weights fixed per level
@@ -351,7 +411,7 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
 // the corrected iterate u + P e (u_corr), which launch 3 then reads as
 // its guess, so the correction is formed once per point.
 template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS,
-          bool SIDES>
+          int SIDES>
 __device__ __forceinline__ void segment_ends(
     const Coeffs9<T>& c, const LineFactor<T>& f, const T* b, const T* u,
     const T* e, const RowHalo<T>& hl, T* ends, T* starts, T* u_corr, int s,
@@ -381,101 +441,217 @@ line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                     RowHalo<T> hl, T* __restrict__ ends,
                     T* __restrict__ starts, T* __restrict__ u_corr, int seg,
                     int ny, int nx) {
-  const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
+  constexpr int SD = SIDES ? SIDE_EDGE : 0;
+  const int j = blockIdx.x * ST + threadIdx.x, s = segment_of_block();
   if ((!ROWS || seg == SEG) && (s + 1) * SEG <= ny)
-    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS, SIDES>(
+    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS, SD>(
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
   else
-    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS, SIDES>(
+    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS, SD>(
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
 }
 
-// Launch 2: thread j walks column j's segments.  cin[s] = the true dp on
-// the row above segment s (0 for s = 0); din[s] = the true x on the row
-// below it (0 for the last).  The chain runs in f64; each step's inputs
-// are loaded CB segments ahead so that the loads overlap.
+// Launch 2 reads the segment ends and starts where launch 1 (or the
+// ranks' all-gather of it) left them: segment s of the lines is row s % nsb
+// of rank s / nsb's (2, nsb, nx) output -- its ends, then its starts --
+// the ranks' outputs stacked (one rank on a whole level).
+template <class T>
+struct Gathered {
+  const T* p;
+  int nsb;  // segments per rank
+  __device__ __forceinline__ const T* ends(int s, int nx) const {
+    return p + ((size_t)(s / nsb) * 2 * nsb + s % nsb) * nx;
+  }
+};
+
+// Launch 2: the carries of every column as two first-order linear
+// recurrences over its S segments, each a chain of affine maps, composed
+// by a blocked scan.  Forward: C_0 = 0, C_{s+1} = ends_s + gain_s C_s (the
+// true dp on the row above segment s + 1); backward: D_{S-1} = 0,
+// D_{s-1} = (starts_s + C_s above_s) + below_s D_s (the true x on the row
+// below segment s - 1), with C_s as launch 3 reads it (rounded to T).  A
+// block is 32 columns (the lanes: a row of a segment is one load a warp)
+// by CW warps; warp w takes the K consecutive segments [w K, w K + K) (K
+// a multiple of the load batch CB, CW K >= S; the last warps may hold
+// none).  Each direction is three steps: a thread composes its chunk's
+// maps into one (G, E) from loads issued a batch at a time, the CW chunk
+// maps of a column are scanned through shared memory (each warp folds the
+// maps before its own), and the thread replays its chunk from its true
+// incoming carry.  The forward replay also composes the chunk's backward
+// maps (they need C_s), and keeps its forward carry at each batch's start
+// in shared memory (32 bytes a segment: S up to ~7000), from which the
+// backward replay recomputes a batch's C_s before walking it down.  The
+// dependent chain is ~4 K + 2 CW f64 steps instead of 2 (S - 1).  cin and
+// din are stored for segments [s0, s0 + nown) only (a rank's own),
+// rounded once to T; the arithmetic is f64 throughout, as the serial
+// walk's, in another order of roundings.  CW = 16 ran no faster than 8,
+// and CB = 16 (more loads in flight, 128 registers) 6% slower than 8.
 template <class T, bool ROWS = false>
-__global__ void __launch_bounds__(CT)
-line_carry_kernel(LineFactor<T> f, const T* __restrict__ ends,
-                  const T* __restrict__ starts, T* __restrict__ cin,
-                  T* __restrict__ din, int seg, int nseg, int nx) {
-  const int j = blockIdx.x * CT + threadIdx.x;
-  if (j >= nx) return;
-  double cv = 0.0;
-  cin[j] = T(0);
-  for (int s0 = 0; s0 < nseg - 1; s0 += CB) {
+__global__ void __launch_bounds__(32 * CW, 2)
+line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
+                  T* __restrict__ din, int seg, int S, int K, int s0,
+                  int nown, int ny, int nx) {
+  extern __shared__ double batch_c[];  // [CW][K / CB][32]
+  __shared__ double fg[CW][32], fe[CW][32], bg[CW][32], be[CW][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  const bool col = j < nx;
+  const int jc = col ? j : nx - 1;  // loads of a column past the last
+  const int rs = ROWS ? seg : SEG;
+  const int a = min(S, w * K), b = min(S, a + K), nb = K / CB;
+  const int s1 = s0 + nown;
+  double* bc = batch_c + (size_t)w * nb * 32 + lane;
+  // Segment s's row of the carries' inputs: its end and start, its gain,
+  // and its first row's responses (0 past the level: a segment of pad
+  // rows alone has no rows).
+  auto gain = [&](int s) {
+    return s * rs < ny ? fat(f.gain, f.sx, s, jc, nx) : T(0);
+  };
+  auto load = [&](int s, T& e, T& gn, T& x, T& ab, T& bl) {
+    const T* er = g.ends(s, nx);
+    e = er[jc];
+    x = er[(size_t)g.nsb * nx + jc];
+    gn = gain(s);
+    const bool real = s * rs < ny;
+    ab = real ? fat(f.above, f.sx, s * rs, jc, nx) : T(0);
+    bl = real ? fat(f.below, f.sx, s * rs, jc, nx) : T(0);
+  };
+  // 1. The chunk's forward map C_a -> C_b.
+  double G = 1.0, E = 0.0;
+  for (int lo = a; lo < b; lo += CB) {
     T ev[CB], gv[CB];
 #pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s0 + q;
-      if (s < nseg - 1) {
-        ev[q] = ends[(size_t)s * nx + j];
-        gv[q] = fat(f.gain, f.sx, s, j, nx);
+    for (int q = 0; q < CB; ++q)
+      if (lo + q < b) {
+        ev[q] = g.ends(lo + q, nx)[jc];
+        gv[q] = gain(lo + q);
       }
-    }
+#pragma unroll
+    for (int q = 0; q < CB; ++q)
+      if (lo + q < b && lo + q < S - 1) {
+        E = __fma_rn((double)gv[q], E, (double)ev[q]);
+        G *= (double)gv[q];
+      }
+  }
+  fg[w][lane] = G;
+  fe[w][lane] = E;
+  __syncthreads();
+  // 2. The true C_a: the chunk maps before this one, from C_0 = 0.
+  double c = 0.0;
+  for (int v = 0; v < w; ++v) c = __fma_rn(fg[v][lane], c, fe[v][lane]);
+  // 3. The forward replay, storing the own C_s, and the chunk's backward
+  // map D_{b-1} -> D_{a-1}, composed upwards.
+  double Gb = 1.0, Eb = 0.0;
+  for (int lo = a, i = 0; lo < b; lo += CB, ++i) {
+    bc[i * 32] = c;
+    T ev[CB], gv[CB], xv[CB], av[CB], bv[CB];
+#pragma unroll
+    for (int q = 0; q < CB; ++q)
+      if (lo + q < b) load(lo + q, ev[q], gv[q], xv[q], av[q], bv[q]);
 #pragma unroll
     for (int q = 0; q < CB; ++q) {
-      const int s = s0 + q;
-      if (s < nseg - 1) {
-        cv = (double)ev[q] + (double)gv[q] * cv;
-        cin[(size_t)(s + 1) * nx + j] = T(cv);
+      const int s = lo + q;
+      if (s < b) {
+        const T ct = T(c);
+        if (col && s >= s0 && s < s1) cin[(size_t)(s - s0) * nx + j] = ct;
+        if (s >= 1) {
+          Eb = __fma_rn(Gb, __fma_rn((double)ct, (double)av[q],
+                                     (double)xv[q]), Eb);
+          Gb *= (double)bv[q];
+        }
+        if (s < S - 1) c = __fma_rn((double)gv[q], c, (double)ev[q]);
       }
     }
   }
-  double dv = 0.0;
-  din[(size_t)(nseg - 1) * nx + j] = T(0);
-  for (int s1 = nseg - 1; s1 > 0; s1 -= CB) {
-    T xv[CB], av[CB], bv[CB], cvs[CB];
+  bg[w][lane] = Gb;
+  be[w][lane] = Eb;
+  __syncthreads();
+  // 4. The true D_{b-1}: the chunk maps after this one, from D_{S-1} = 0.
+  if (a >= s1 || b <= s0) return;  // no own segment in this chunk
+  double d = 0.0;
+  for (int v = CW - 1; v > w; --v) d = __fma_rn(bg[v][lane], d, be[v][lane]);
+  // 5. The backward replay, a batch at a time from the top, down to the
+  // first own segment: the batch's C_s again from its start (into ev,
+  // once its end is used), then D.
+  for (int i = (b - a - 1) / CB; i >= 0 && a + (i + 1) * CB > s0; --i) {
+    const int lo = a + i * CB;
+    T ev[CB], gv[CB], xv[CB], av[CB], bv[CB];
 #pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s1 - q;
-      if (s > 0) {
-        xv[q] = starts[(size_t)s * nx + j];
-        av[q] = fat(f.above, f.sx, s * (ROWS ? seg : SEG), j, nx);
-        bv[q] = fat(f.below, f.sx, s * (ROWS ? seg : SEG), j, nx);
-        cvs[q] = cin[(size_t)s * nx + j];
+    for (int q = 0; q < CB; ++q)
+      if (lo + q < b) load(lo + q, ev[q], gv[q], xv[q], av[q], bv[q]);
+    c = bc[i * 32];
+#pragma unroll
+    for (int q = 0; q < CB; ++q)
+      if (lo + q < b) {
+        const T ct = T(c);
+        if (lo + q < S - 1) c = __fma_rn((double)gv[q], c, (double)ev[q]);
+        ev[q] = ct;
       }
-    }
 #pragma unroll
-    for (int q = 0; q < CB; ++q) {
-      const int s = s1 - q;
-      if (s > 0) {
-        dv = (double)xv[q] + (double)cvs[q] * (double)av[q] +
-             dv * (double)bv[q];
-        din[(size_t)(s - 1) * nx + j] = T(dv);
+    for (int q = CB - 1; q >= 0; --q) {
+      const int s = lo + q;
+      if (s < b) {
+        if (col && s >= s0 && s < s1) din[(size_t)(s - s0) * nx + j] = T(d);
+        if (s >= 1)
+          d = __fma_rn((double)bv[q], d,
+                       __fma_rn((double)ev[q], (double)av[q],
+                                (double)xv[q]));
       }
     }
   }
+}
+
+template <class T, bool ROWS>
+int carry_launch(const LineFactor<T>& f, Gathered<T> g, T* cin, T* din,
+                 int seg, int S, int s0, int nown, int ny, int nx,
+                 cudaStream_t st) {
+  const int K = CB * ((S + CW * CB - 1) / (CW * CB));
+  const size_t smem = (size_t)CW * (K / CB) * 32 * sizeof(double);
+  auto kern = line_carry_kernel<T, ROWS>;
+  if (smem > 48 * 1024)
+    if (int err = (int)cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+      return err;
+  kern<<<(nx + 31) / 32, 32 * CW, smem, st>>>(f, g, cin, din, seg, S, K, s0,
+                                              nown, ny, nx);
+  return (int)cudaGetLastError();
 }
 
 template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS, bool SIDES>
+          bool ROWS, int SIDES>
 __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
                                          const LineFactor<T>& f, const T* b,
                                          const T* u, const T* e,
                                          const RowHalo<T>& hl, const T* cin,
-                                         const T* din, T* u_out, int s,
-                                         int seg, int j, int ny, int nx,
-                                         T omega, T one_minus_omega) {
+                                         const T* din, T* u_out, T* dp,
+                                         int s, int seg, int j, int ny,
+                                         int rows_out, int nx, T omega,
+                                         T one_minus_omega) {
   const int y0 = s * (ROWS ? seg : SEG);
   const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
-  // Thomas's forward recurrence from a zero carry; with a correction the
+  // Thomas's forward recurrence from a zero carry, its dp staged in the
+  // thread's column of shared memory (dp[i * ST]); with a correction the
   // corrected iterate is kept too (it is formed once per point), else the
   // backward pass reloads u (a cache hit: this thread has just read it).
-  T dp[SEG], uc[CORRECT ? SEG : 1];
+  T uc[CORRECT ? SEG : 1];
   T d = T(0);
   segment_rows<FULL, GUESS, CORRECT, ROWS, SIDES, T>(
       rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, T rhs, T ui) {
         d = (rhs - rows(R_CS, i) * d) * rows(R_M, i);
-        dp[i] = d;
+        dp[i * ST] = d;
         if (CORRECT) uc[CORRECT ? i : 0] = ui;
       });
   T acc = T(0);
-  if (j >= nx) return acc;
+  const int ld = stride_of<ROWS>(hl, nx);
+  if (j >= nx) {  // the block's pad column (ROWS): 0
+    if (ROWS && j < ld)
+      for (int i = 0; i < seg && y0 + i < rows_out; ++i)
+        u_out[(size_t)(y0 + i) * ld + j] = T(0);
+    return acc;
+  }
   const size_t sj = (size_t)s * nx + j;
   const T cv = cin != nullptr ? cin[sj] : T(0);
   const T dv = din != nullptr ? din[sj] : T(0);
-  const int ld = stride_of<ROWS>(hl, nx);
   T* out = u_out + (size_t)y0 * ld + j;
   const T* bc = b + (size_t)y0 * ld + j;
   const T* uo = GUESS ? u + (size_t)y0 * ld + j : nullptr;
@@ -483,13 +659,15 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
 #pragma unroll
   for (int i = SEG - 1; i >= 0; --i) {
     if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
-      x = dp[i] - rows(R_CP, i) * x;
+      x = dp[i * ST] - rows(R_CP, i) * x;
       const T ui = CORRECT ? uc[CORRECT ? i : 0]
                    : GUESS ? uo[(size_t)i * ld] : T(0);
       const T un = one_minus_omega * ui +
                    omega * (x + cv * rows(R_ABOVE, i) + dv * rows(R_BELOW, i));
       out[(size_t)i * ld] = un;
       if (DOT) acc += bc[(size_t)i * ld] * un;
+    } else if (ROWS && i < seg && y0 + i < rows_out) {  // its pad row: 0
+      out[(size_t)i * ld] = T(0);
     }
   }
   return acc;
@@ -497,14 +675,18 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
 
 // Launch 3: the segment again, fixed up with its carries (null: a level
 // of one segment, C = D = 0), blended and stored; DOT: <b, u_out>
-// partials, one per block.  u_out must not alias u: neighbouring columns
+// partials, one per block.  ROWS: the block's rows [ny, rows_out) and
+// columns [nx, ld) (its pad row and column) are stored as 0, so the
+// output needs no clearing.  u_out must not alias u: neighbouring columns
 // read u while this one is written.
-// Resident blocks per SM launch 3's registers are cut for: four in f32
-// (up to 128 registers: the segment's dp and the loads in flight), two in
-// f64.
+// The segment's dp lives in shared memory (SEG x ST values a block, 16 KB
+// in f32, 32 KB in f64), not in registers: held there, 32 (64) registers
+// a thread spilled or starved the loads in flight.  Resident blocks per
+// SM launch 3's registers are cut for: five in f32 (up to 102 registers),
+// three in f64 (up to 170).
 template <class T>
 constexpr int fix_min_blocks() {
-  return sizeof(T) == 8 ? 2 : 4;
+  return sizeof(T) == 8 ? 3 : 5;
 }
 
 template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
@@ -514,18 +696,22 @@ line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
                 const T* __restrict__ u, const T* __restrict__ e,
                 RowHalo<T> hl, const T* __restrict__ cin,
                 const T* __restrict__ din, T* __restrict__ u_out,
-                T* __restrict__ part, int seg, int ny, int nx, T omega,
-                T one_minus_omega) {
+                T* __restrict__ part, int seg, int ny, int rows_out, int nx,
+                T omega, T one_minus_omega) {
   __shared__ T red[ST / 32];
-  const int j = blockIdx.x * ST + threadIdx.x, s = blockIdx.y;
-  const T acc =
-      (!ROWS || seg == SEG) && (s + 1) * SEG <= ny
-          ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS, SIDES>(
-                c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
-                one_minus_omega)
-          : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS, SIDES>(
-                c, f, b, u, e, hl, cin, din, u_out, s, seg, j, ny, nx, omega,
-                one_minus_omega);
+  __shared__ T dp[SEG * ST];
+  const int j = blockIdx.x * ST + threadIdx.x, s = segment_of_block();
+  T* dpj = dp + threadIdx.x;
+  const bool full = (!ROWS || seg == SEG) && (s + 1) * SEG <= ny;
+  const T acc = with_sides<SIDES>(nx, [&](auto sides) {
+    constexpr int SD = decltype(sides)::value;
+    return full ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS, SD>(
+                      c, f, b, u, e, hl, cin, din, u_out, dpj, s, seg, j,
+                      ny, rows_out, nx, omega, one_minus_omega)
+                : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS, SD>(
+                      c, f, b, u, e, hl, cin, din, u_out, dpj, s, seg, j,
+                      ny, rows_out, nx, omega, one_minus_omega);
+  });
   if (DOT) {
     const T sum = mg::block_sum<ST, T>(acc, red);
     if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
@@ -598,7 +784,7 @@ using SegmentFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
 template <class T>
 using FixFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
                        const T*, RowHalo<T>, const T*, const T*, T*, T*, int,
-                       int, int, T, T);
+                       int, int, int, T, T);
 
 template <class T>
 LineFactor<T> line_factor(const unsigned long long* fptrs, int fsx) {
@@ -647,7 +833,7 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
   const dim3 grid((nx + ST - 1) / ST, nseg);
   T *cin = nullptr, *din = nullptr;
   if (nseg > 1) {
-    T* ends = scratch;
+    T* ends = scratch;  // then the starts: one rank's (2, nseg, nx)
     T* starts = ends + (size_t)nseg * nx;
     cin = starts + (size_t)nseg * nx;
     din = cin + (size_t)nseg * nx;
@@ -661,21 +847,21 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
       e = nullptr;
       correct = false;
     }
-    line_carry_kernel<T><<<(nx + CT - 1) / CT, CT, 0, st>>>(
-        f, ends, starts, cin, din, SEG, nseg, nx);
-    if (int err = (int)cudaGetLastError()) return err;
+    if (int err = carry_launch<T, false>(f, Gathered<T>{ends, nseg}, cin,
+                                         din, SEG, nseg, 0, nseg, ny, nx, st))
+      return err;
   }
   FixFn<T> fix = tab ? pick_fix<T, true>(guess, correct, dot)
                      : pick_fix<T, false>(guess, correct, dot);
   fix<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, cin, din, u_out, part, SEG,
-                           ny, nx, omega, one_minus_omega);
+                           ny, ny, nx, omega, one_minus_omega);
   return (int)cudaGetLastError();
 }
 
 // The rank-spanning mode's launches on one rank's block of nyl real rows
 // (R = nseg * seg rows, or fewer where the last segment is cut by the
-// domain's edge; the last rank's pad row is not a real row, and its
-// output row is left to the caller), local row 0 its first row: the
+// domain's edge; the last rank's pad row is not a real row, and launch 3
+// stores it as 0), local row 0 its first row: the
 // factors and the coefficients that vary with y are the slices of the
 // block's rows, hl its iterate's rows above and below and, in the 2-D
 // block mode (u_left non-null), the columns left and right; nx real
@@ -717,23 +903,27 @@ int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
 
 template <class T>
 int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
-                    const T* ends, const T* starts, T* cin, T* din,
-                    int nseg, int nx, void* stream) {
-  if (!rows_ok<T>(seg, nseg, 1, nx)) return (int)cudaErrorInvalidValue;
-  line_carry_kernel<T, true>
-      <<<(nx + CT - 1) / CT, CT, 0, (cudaStream_t)stream>>>(
-          line_factor<T>(fptrs, fsx), ends, starts, cin, din, seg, nseg, nx);
-  return (int)cudaGetLastError();
+                    const T* gathered, int nsb, int ranks, T* cin, T* din,
+                    int s0, int nown, int ny, int nx, void* stream) {
+  const int S = ranks * nsb;
+  if (!rows_ok<T>(seg, nsb, 1, nx) || ranks < 1 || s0 < 0 || nown < 1 ||
+      s0 + nown > S || ny < 1 || gathered == nullptr || cin == nullptr ||
+      din == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return carry_launch<T, true>(line_factor<T>(fptrs, fsx),
+                               Gathered<T>{gathered, nsb}, cin, din, seg, S,
+                               s0, nown, ny, nx, (cudaStream_t)stream);
 }
 
 template <class T>
 int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
                   const unsigned long long* fptrs, int fsx, int seg,
                   const T* b, const T* u, RowHalo<T> hl, const T* cin,
-                  const T* din, T* u_out, int nseg, int nyl, int nx, T omega,
-                  T one_minus_omega, void* stream) {
+                  const T* din, T* u_out, int nseg, int nyl, int rows_out,
+                  int nx, T omega, T one_minus_omega, void* stream) {
   if (!rows_ok<T>(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr ||
-      u_out == u || cin == nullptr || din == nullptr)
+      u_out == u || cin == nullptr || din == nullptr || rows_out < nyl ||
+      rows_out > nseg * seg)
     return (int)cudaErrorInvalidValue;
   const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
   const LineFactor<T> f = line_factor<T>(fptrs, fsx);
@@ -743,9 +933,9 @@ int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
                    : line_fix_kernel<T, true, false, false, false, true, true>)
             : (tab ? line_fix_kernel<T, true, false, false, true, true>
                    : line_fix_kernel<T, true, false, false, false, true>);
-  fix<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
-      c, f, b, u, nullptr, hl, cin, din, u_out, nullptr, seg, nyl, nx, omega,
-      one_minus_omega);
+  fix<<<dim3((hl.ld + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
+      c, f, b, u, nullptr, hl, cin, din, u_out, nullptr, seg, nyl, rows_out,
+      nx, omega, one_minus_omega);
   return (int)cudaGetLastError();
 }
 
@@ -787,17 +977,21 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
 //                     the rank-spanning mode, one sweep of a rank's block
 //                     (see the top of this file): launch 1 (the segment
 //                     ends and starts of its nseg segments, (nseg, nx)
-//                     each), launch 2 (the carries cin, din of all nseg
-//                     segments of the level from the gathered ends and
-//                     starts, with the whole level's factors) and launch 3
-//                     (the swept block from its slice of the carries).
-//                     fptrs as for mg_line_sweep; for launches 1 and 3 the
-//                     slices of the block's rows (gain unused), for launch
-//                     2 the whole level's.  u_top, u_bot: the rows above
-//                     and below; u_left, u_right null (the rows mode, ld
-//                     == nx) or the columns left and right (the 2-D block
-//                     mode: u_top and u_bot from column -1, ld + 2 values;
-//                     nx real columns at the row stride ld).
+//                     each, one (2, nseg, nx) buffer: ends = the first
+//                     half), launch 2 (from the gathered (ranks, 2, nsb,
+//                     nx) launch-1 outputs, read in place, with the whole
+//                     level's factors (ny rows): the carries cin, din,
+//                     (nown, nx) each, of segments [s0, s0 + nown) of the
+//                     ranks * nsb) and launch 3 (the swept block of
+//                     rows_out rows from its carries, its pad row and
+//                     column stored as 0).  fptrs as for mg_line_sweep;
+//                     for launches 1 and 3 the slices of the block's rows
+//                     (gain unused), for launch 2 the whole level's.
+//                     u_top, u_bot: the rows above and below; u_left,
+//                     u_right null (the rows mode, ld == nx) or the
+//                     columns left and right (the 2-D block mode: u_top
+//                     and u_bot from column -1, ld + 2 values; nx real
+//                     columns at the row stride ld).
 #define MG_LINE_ENTRIES(SFX, T)                                             \
   extern "C" int mg_line_sweep##SFX(                                        \
       const unsigned long long* cptrs, const int* cstrides,                 \
@@ -825,19 +1019,21 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
                              ends, starts, nseg, nyl, nx, stream);          \
   }                                                                         \
   extern "C" int mg_line_rows_carry##SFX(                                   \
-      const unsigned long long* fptrs, int fsx, int seg, const T* ends,     \
-      const T* starts, T* cin, T* din, int nseg, int nx, void* stream) {    \
-    return line_rows_carry<T>(fptrs, fsx, seg, ends, starts, cin, din,      \
-                              nseg, nx, stream);                            \
+      const unsigned long long* fptrs, int fsx, int seg, const T* gathered, \
+      int nsb, int ranks, T* cin, T* din, int s0, int nown, int ny, int nx, \
+      void* stream) {                                                       \
+    return line_rows_carry<T>(fptrs, fsx, seg, gathered, nsb, ranks, cin,   \
+                              din, s0, nown, ny, nx, stream);               \
   }                                                                         \
   extern "C" int mg_line_rows_fix##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides,                 \
       const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
       const T* u, const T* u_top, const T* u_bot, const T* u_left,          \
       const T* u_right, const T* cin, const T* din, T* u_out, int nseg,     \
-      int nyl, int nx, int ld, T omega, T one_minus_omega, void* stream) {  \
+      int nyl, int rows_out, int nx, int ld, T omega, T one_minus_omega,    \
+      void* stream) {                                                       \
     return line_rows_fix<T>(cptrs, cstrides, fptrs, fsx, seg, b, u,         \
                             RowHalo<T>{u_top, u_bot, u_left, u_right, ld},  \
-                            cin, din, u_out, nseg, nyl, nx, omega,          \
-                            one_minus_omega, stream);                       \
+                            cin, din, u_out, nseg, nyl, rows_out, nx,       \
+                            omega, one_minus_omega, stream);                \
   }

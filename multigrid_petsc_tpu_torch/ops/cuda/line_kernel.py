@@ -15,23 +15,26 @@ line coefficients only.  The CUDA kernels (``csrc/line.cuh``) have no size
 cap and take line coefficients that vary with x as well: Thomas's
 recurrence with per-row factors made once per level on the host in f64,
 cut into segments of ``LINE_SEG`` rows run by one thread each and joined
-by a carry pass over the segments (``segment_factor`` makes the
-segments' carry responses beside Thomas's factors), three launches per
-sweep (one on a level of one segment), then one launch for the residual
-or its restriction.  The plain version is the JAX package's composition:
-``line_jacobi_sweeps_y`` (PCR) with the library transfers, so on the
-card the kernel and its oracle differ by the rounding of the two
-tridiagonal solves.
+by a carry pass over the segments, a blocked scan of the carries' affine
+maps (``segment_factor`` makes the segments' carry responses beside
+Thomas's factors), three launches per sweep (one on a level of one
+segment), then one launch for the residual or its restriction.  The
+plain version is the JAX package's composition: ``line_jacobi_sweeps_y``
+(PCR) with the library transfers, so on the card the kernel and its
+oracle differ by the rounding of the two tridiagonal solves.
 
 A row-sharded level's y-lines cross the ranks (``RowLine``,
 ``line_rows_begin`` / ``line_rows_end``): each sweep is two halves around
 one all-gather the caller makes.  On the card the halves are the CUDA
 sweep's launches split at its carry pass (``csrc/line.cuh``, the
 rank-spanning mode): each rank's segment ends (launch 1) are gathered,
-every rank runs the carry pass over all the segments, then fixes its own
-(launch 3); on the CPU the plain version gathers the ranks' line
-right-hand sides and solves the whole columns by PCR
-(``line_jacobi_sweeps_y``'s arithmetic), the oracle.
+every rank runs the carry pass over all the segments, reading the
+gathered ends in place and keeping its own segments' carries
+(``line_rows_carry``), then fixes its own (launch 3, ``line_rows_fix``,
+which writes the block's pad row and column as 0); a ``RowLine`` holds
+its launch arguments, checked once (``RowLaunch``); on the CPU the plain
+version gathers the ranks' line right-hand sides and solves the whole
+columns by PCR (``line_jacobi_sweeps_y``'s arithmetic), the oracle.
 
 Under the 2-D blocks layout the same functions take a rank's (R, C) block
 and its depth-1 ring (``Halo2``: the rows above and below with the
@@ -64,6 +67,7 @@ from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo2
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
+    Coeff9Args,
     _check_cuda,
     _odd_shape,
     _on_cpu,
@@ -343,6 +347,24 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
 # --------------------------------------------------------------------------
 
 
+class RowLaunch(NamedTuple):
+    """A kernel ``RowLine``'s launch arguments, made and checked once: the
+    block's coefficients as the C entries take them, the device pointers
+    of its rows' line factors (launches 1 and 3) and of the whole columns'
+    (launch 2), whether the factors are fields (``fsx``), the coefficients'
+    width (1, or the block's real columns), the storage type, the entries'
+    suffix and the device."""
+
+    c9: Coeff9Args
+    fptrs: np.ndarray
+    gptrs: np.ndarray
+    fsx: int
+    width: int
+    dtype: torch.dtype
+    sfx: str
+    device: torch.device
+
+
 class RowLine(NamedTuple):
     """A rank's y-line smoother on its block of a partitioned level, made
     once: the line stencil on the block's real rows [row0, row0 + nyl)
@@ -353,7 +375,8 @@ class RowLine(NamedTuple):
     tensors; on the card the segmented factors of ``seg``-row segments,
     ``seg`` the largest power of two <= ``LINE_SEG`` dividing R, so the
     segments tile the blocks, or ``LINE_SEG`` where the block holds its
-    columns whole) and, on the card, its slices of the block's rows."""
+    columns whole) and, on the card, its slices of the block's rows and
+    the launch arguments (``RowLaunch``)."""
 
     st: Stencil9
     fac: PCRFactor | SegmentFactor
@@ -364,6 +387,7 @@ class RowLine(NamedTuple):
     ny: int
     col0: int = 0
     nxl: int | None = None
+    launch: RowLaunch | None = None
 
     @property
     def nyl(self) -> int:
@@ -385,6 +409,33 @@ def _cut_columns(st, col0: int, nxl: int | None):
                       else c[:, col0:col0 + nxl].contiguous() for c in st))
 
 
+def _pointers(fac: SegmentFactor) -> np.ndarray:
+    return np.asarray([0 if t is None else t.data_ptr() for t in fac],
+                      np.uint64)
+
+
+def _row_launch(st_rows: Stencil9, fac: SegmentFactor,
+                rows: SegmentFactor, nyl: int, nxl: int | None) -> RowLaunch:
+    """``RowLaunch`` of a kernel ``RowLine``: every coefficient and factor
+    checked (device, storage type, shape, contiguity) once."""
+    width = nxl or max(t.shape[1] for t in (*st_rows, fac.m))
+    c9 = coeff9_args(st_rows, nyl, width)
+    w = fac.m.shape[1]
+    if w not in (1, width):
+        raise ValueError(f"line factors of width {w} for {width} columns")
+    fields = {**c9.fields,
+              **{f"fac_rows.{k}": (t, (nyl, TABLE_WIDTH) if k == "table"
+                                   else (nyl, w))
+                 for k, t in rows._asdict().items()
+                 if t is not None and k != "gain"},
+              **{f"fac.{k}": (t, t.shape) for k, t in fac._asdict().items()
+                 if t is not None}}
+    device = st_rows.cc.device
+    dtype = _check_cuda(device, fields, dtypes=LINE_DTYPES)
+    return RowLaunch(c9, _pointers(rows), _pointers(fac), int(w > 1), width,
+                     dtype, "_f64" if dtype == torch.float64 else "", device)
+
+
 def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,
              nxl: int | None = None, plain: bool | None = None) -> RowLine:
     """``RowLine`` of the block of global rows [row0, row0 + R) (and, in
@@ -404,7 +455,8 @@ def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,
     rows = SegmentFactor(*(
         t if t is None or k == "gain" else t[row0:row0 + nyl]
         for k, t in fac._asdict().items()))
-    return RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl)
+    return RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl,
+                   _row_launch(st_rows, fac, rows, nyl, nxl))
 
 
 def transpose_ring(ring: Halo2) -> Halo2:
@@ -429,29 +481,28 @@ def _extended(u, u_halo) -> torch.Tensor:
 
 
 def _line_rows_cuda(lf: RowLine, b, u, u_halo):
-    """The launch arguments of the rank-spanning mode's launches 1 and 3:
-    (coefficients, factor pointers, dtype, entry suffix, the halo's
-    pointers (top, bot, left, right; left and right None in the rows
-    mode), the real columns, the row stride)."""
-    if lf.fac_rows is None:
+    """The per-call checks and arguments of a split sweep's launches 1 and
+    3 (b, u and the halo or ring; the rest was checked when ``lf`` was
+    made): (``lf.launch``, the halo's pointers (top, bot, left, right;
+    left and right None in the rows mode), the real columns, the row
+    stride)."""
+    la = lf.launch
+    if la is None:
         raise ValueError("a plain RowLine on a CUDA tensor: make the line "
                          "with row_line(..., plain=False)")
-    st = lf.st
     R, C = b.shape
-    nyl = lf.nyl
     nxl = C if lf.nxl is None else lf.nxl
     sides = isinstance(u_halo, Halo2)
     if sides != (lf.nxl is not None):
         raise ValueError("a 2-D block's line takes its ring (Halo2), a row "
                          "block's its halo rows")
-    c9 = coeff9_args(st, nyl, nxl)
-    fac = lf.fac_rows
-    w = fac.m.shape[1]
-    fields = {"b": (b, (R, C)), "u": (u, (R, C)), **c9.fields,
-              **{f"fac.{k}": (t, (nyl, TABLE_WIDTH) if k == "table"
-                              else (nyl, w))
-                 for k, t in fac._asdict().items()
-                 if t is not None and k != "gain"}}
+    if la.width not in (1, nxl):
+        raise ValueError(f"a line of {la.width} columns on a block of "
+                         f"{nxl}")
+    if R % lf.seg and R != lf.ny:
+        raise ValueError(f"{lf.seg}-row segments do not tile a {R}-row "
+                         f"block")
+    fields = {"b": (b, (R, C)), "u": (u, (R, C))}
     if sides:
         fields.update(u_top=(u_halo.top, (1, C + 2)),
                       u_bot=(u_halo.bot, (1, C + 2)),
@@ -459,17 +510,13 @@ def _line_rows_cuda(lf: RowLine, b, u, u_halo):
                       u_right=(u_halo.right, (R, 1)))
     else:
         fields.update(u_top=(u_halo.top, (1, C)), u_bot=(u_halo.bot, (1, C)))
-    dtype = _check_cuda(b.device, fields, dtypes=LINE_DTYPES)
-    if R % lf.seg and R != lf.ny:
-        raise ValueError(f"{lf.seg}-row segments do not tile a {R}-row "
-                         f"block")
-    fptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
-                       np.uint64)
+    if b.device != la.device:
+        raise ValueError(f"b is on {b.device}, the line on {la.device}")
+    _check_cuda(b.device, fields, dtypes=(la.dtype,))
     halo = [u_halo.top.data_ptr(), u_halo.bot.data_ptr(),
             *((u_halo.left.data_ptr(), u_halo.right.data_ptr()) if sides
               else (None, None))]
-    return (c9, fptrs, dtype, "_f64" if dtype == torch.float64 else "", halo,
-            nxl, C)
+    return la, halo, nxl, C
 
 
 def line_rows_begin_plain(lf: RowLine, b, u, u_halo) -> torch.Tensor:
@@ -514,16 +561,57 @@ def line_rows_begin(lf: RowLine, b, u, u_halo) -> torch.Tensor:
     right-hand sides (``line_rows_begin_plain``)."""
     if _on_cpu(b):
         return line_rows_begin_plain(lf, b, u, u_halo)
-    c9, fptrs, dtype, sfx, halo, nxl, ld = _line_rows_cuda(lf, b, u, u_halo)
+    la, halo, nxl, ld = _line_rows_cuda(lf, b, u, u_halo)
     nseg = lf.nseg
-    out = torch.empty((2 * nseg, nxl), dtype=dtype, device=b.device)
-    lib = load_library()
-    err = getattr(lib, "mg_line_rows_ends" + sfx)(
-        c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
-        int(lf.fac_rows.m.shape[1] > 1), lf.seg, b.data_ptr(), u.data_ptr(),
+    out = torch.empty((2 * nseg, nxl), dtype=la.dtype, device=b.device)
+    err = getattr(load_library(), "mg_line_rows_ends" + la.sfx)(
+        la.c9.ptrs.ctypes.data, la.c9.strides.ctypes.data,
+        la.fptrs.ctypes.data, la.fsx, lf.seg, b.data_ptr(), u.data_ptr(),
         *halo, out.data_ptr(), out[nseg:].data_ptr(), nseg, lf.nyl, nxl, ld,
         _stream(b.device))
     check(err, "line rows ends launch")
+    return out
+
+
+def line_rows_carry(lf: RowLine, gathered: torch.Tensor) -> torch.Tensor:
+    """Launch 2 of a split sweep alone (the card only): the carries of
+    this rank's segments, (2, nseg, nxl), cin then din, by the blocked
+    scan over every segment of the lines, from ``gathered`` (as
+    ``line_rows_end`` takes it), read in place."""
+    la = lf.launch
+    nseg = lf.nseg
+    nxl = gathered.shape[1]
+    P = gathered.shape[0] // (2 * nseg)
+    if la is None or la.width not in (1, nxl):
+        raise ValueError("line_rows_carry takes a kernel RowLine of the "
+                         "gathered columns")
+    _check_cuda(la.device, {"gathered": (gathered, (2 * nseg * P, nxl))},
+                dtypes=(la.dtype,))
+    carries = torch.empty((2, nseg, nxl), dtype=la.dtype, device=la.device)
+    err = getattr(load_library(), "mg_line_rows_carry" + la.sfx)(
+        la.gptrs.ctypes.data, la.fsx, lf.seg, gathered.data_ptr(), nseg, P,
+        carries[0].data_ptr(), carries[1].data_ptr(), lf.row0 // lf.seg,
+        nseg, lf.ny, nxl, _stream(la.device))
+    check(err, "line rows carry launch")
+    return carries
+
+
+def line_rows_fix(lf: RowLine, b, u, u_halo, carries: torch.Tensor,
+                  omega: float) -> torch.Tensor:
+    """Launch 3 of a split sweep alone (the card only): the swept block
+    from this rank's carries (``line_rows_carry``), its pad row and
+    column stored as 0 by the kernel."""
+    la, halo, nxl, ld = _line_rows_cuda(lf, b, u, u_halo)
+    _check_cuda(b.device, {"carries": (carries, (2, lf.nseg, nxl))},
+                dtypes=(la.dtype,))
+    out = torch.empty_like(u)
+    err = getattr(load_library(), "mg_line_rows_fix" + la.sfx)(
+        la.c9.ptrs.ctypes.data, la.c9.strides.ctypes.data,
+        la.fptrs.ctypes.data, la.fsx, lf.seg, b.data_ptr(), u.data_ptr(),
+        *halo, carries[0].data_ptr(), carries[1].data_ptr(), out.data_ptr(),
+        lf.nseg, lf.nyl, b.shape[0], nxl, ld, omega, 1.0 - omega,
+        _stream(b.device))
+    check(err, "line rows fix launch")
     return out
 
 
@@ -533,41 +621,14 @@ def line_rows_end(lf: RowLine, b, u, u_halo, gathered: torch.Tensor,
     ``line_rows_begin`` stacked in the order of its rows (the ranks the
     lines span; this rank's own where the block holds its columns whole).
     On the card: the carry pass over all the level's segments (launch 2,
-    on every rank) and launch 3 on this rank's; on the CPU: the whole
-    columns' PCR solve, this rank's rows of it blended into u
-    (``line_rows_end_plain``).  The pad row and column stay 0."""
+    on every rank, ``line_rows_carry``) and launch 3 on this rank's
+    (``line_rows_fix``); on the CPU: the whole columns' PCR solve, this
+    rank's rows of it blended into u (``line_rows_end_plain``).  The pad
+    row and column are 0."""
     if _on_cpu(b):
         return line_rows_end_plain(lf, u, gathered, omega)
-    nyl = lf.nyl
-    out = torch.zeros_like(u)
-    c9, fptrs, dtype, sfx, halo, nxl, ld = _line_rows_cuda(lf, b, u, u_halo)
-    nseg = lf.nseg
-    P = gathered.shape[0] // (2 * nseg)
-    g = gathered.view(P, 2, nseg, nxl)
-    ends, starts = (g[:, i].reshape(P * nseg, nxl).contiguous()
-                    for i in (0, 1))
-    fac = lf.fac
-    _check_cuda(b.device, {f"fac.{k}": (t, t.shape)
-                           for k, t in fac._asdict().items()
-                           if t is not None}, dtypes=(dtype,))
-    carries = torch.empty((2, P * nseg, nxl), dtype=dtype, device=b.device)
-    gptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
-                       np.uint64)
-    lib = load_library()
-    stream = _stream(b.device)
-    err = getattr(lib, "mg_line_rows_carry" + sfx)(
-        gptrs.ctypes.data, int(fac.m.shape[1] > 1), lf.seg, ends.data_ptr(),
-        starts.data_ptr(), carries[0].data_ptr(), carries[1].data_ptr(),
-        P * nseg, nxl, stream)
-    check(err, "line rows carry launch")
-    s0 = lf.row0 // lf.seg
-    cin, din = (carries[i, s0:s0 + nseg] for i in (0, 1))
-    err = getattr(lib, "mg_line_rows_fix" + sfx)(
-        c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
-        int(lf.fac_rows.m.shape[1] > 1), lf.seg, b.data_ptr(), u.data_ptr(),
-        *halo, cin.data_ptr(), din.data_ptr(), out.data_ptr(), nseg, nyl,
-        nxl, ld, omega, 1.0 - omega, stream)
-    check(err, "line rows fix launch")
+    out = line_rows_fix(lf, b, u, u_halo, line_rows_carry(lf, gathered),
+                        omega)
     count_launch("line_visit9_rows" if lf.nxl is None
-                 else "line_visit9_blocks", dtype)
+                 else "line_visit9_blocks", out.dtype)
     return out

@@ -16,10 +16,18 @@ test code) that runs on those factors is held to the plain version and
 to the Pallas kernel within TOL_LINE (1e-4 of the largest entry, as
 ``chip_smoke.py`` holds the kernel on the card), on config 4's nearly
 singular lines and on x-varying line coefficients, for levels shorter
-than a segment, a multiple of it and not a multiple of it.
+than a segment, a multiple of it and not a multiple of it.  The model's
+carry pass is the kernel's blocked scan over the segments; it is held to
+the serial walk it replaced (1e-12 of the largest carry in f64, TOL_LINE
+in f32) on segment counts that do and do not fill the scan's warps, and,
+in the rank-spanning layout (row blocks, each with its slice of the
+factors and of the carries), to the serial walk and to the plain split
+sweep (``line_rows_end_plain``: PCR over the gathered columns).
 """
 
 from __future__ import annotations
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +40,7 @@ from multigrid_petsc_tpu.ops import transfer as jtr
 from multigrid_petsc_tpu.ops.pallas import line_kernel as jlk
 from multigrid_petsc_tpu_torch import problems as tp
 from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as tlk
+from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
 from multigrid_petsc_tpu_torch.ops.stencil import (
     apply_stencil9,
     from_numpy_stencil9,
@@ -227,29 +236,115 @@ def test_segment_factors_match_band_solves(prob, ny):
                                    atol=1e-10 * np.abs(ref).max())
 
 
-def _segmented_solve(rhs, cs, fac):
-    """csrc/line.cu's line solve of every column of rhs (ny, w), as test
-    code: each segment's zero-carry ends as weighted sums of its rows
-    (launch 1), the carries C (the true dp above each segment) and D (the
-    true x below it) walked over the segments in f64 and stored in the
-    working type (launch 2), then Thomas's recurrences from zero carries
-    in each segment of LINE_SEG rows and x = xl + C above + D below
-    (launch 3)."""
-    ny, nx = rhs.shape
-    seg = tlk.LINE_SEG
-    nseg = -(-ny // seg)
+# csrc/line.cuh's carry launch: warps per block (CW) and segments a thread
+# loads at once (CB).
+CARRY_WARPS, CARRY_BATCH = 8, 8
 
-    def rows(x):
-        x = torch.broadcast_to(x, (ny, nx))
-        return torch.cat([x, x.new_zeros(nseg * seg - ny, nx)]).reshape(
-            nseg, seg, nx)
 
-    r, a, m, cp, above, below, end_w, start_w = (
-        rows(t) for t in (rhs, cs, fac.m, fac.cp, fac.above, fac.below,
-                          fac.end_w, fac.start_w))
-    gain = torch.broadcast_to(fac.gain, (nseg, nx)).double()
-    # Launch 1: the zero-carry ends as weighted sums of the right-hand side.
-    ends, starts = (end_w * r).sum(1), (start_w * r).sum(1)
+def _cut_rows(x, n, nseg, seg, nx):
+    """(n, w) rows -> (nseg, seg, nx), zeros past row n."""
+    x = torch.broadcast_to(x, (n, nx))
+    return torch.cat([x, x.new_zeros(nseg * seg - n, nx)]).reshape(
+        nseg, seg, nx)
+
+
+def _carry_inputs(fac, seg, S, nx):
+    """Launch 2's per-segment factors in f64, (S, nx) each: gain, and the
+    responses above and below at each segment's first row (0 for a
+    segment past the level's rows)."""
+    ny = fac.m.shape[0]
+
+    def first_rows(x):
+        x = torch.broadcast_to(x, (ny, nx)).double()
+        out = x.new_zeros(S, nx)
+        real = [s for s in range(S) if s * seg < ny]
+        out[real] = x[[s * seg for s in real]]
+        return out
+
+    gain = torch.broadcast_to(fac.gain, (fac.gain.shape[0], nx)).double()
+    gain = torch.cat([gain, gain.new_zeros(S - gain.shape[0], nx)])[:S]
+    return gain, first_rows(fac.above), first_rows(fac.below)
+
+
+def _carry_serial(ends, starts, gain, above, below, dtype):
+    """Launch 2 as the serial walk down each column: C_0 = 0, C_{s+1} =
+    ends_s + gain_s C_s, then D_{S-1} = 0, D_{s-1} = starts_s + C_s
+    above_s + below_s D_s, in f64 with C_s and D_s stored (and C_s read
+    back) rounded to the working type."""
+    S, nx = ends.shape
+    e, x = ends.double(), starts.double()
+    cin = torch.zeros(S, nx, dtype=torch.float64)
+    c = torch.zeros(nx, dtype=torch.float64)
+    for s in range(S - 1):
+        c = e[s] + gain[s] * c
+        cin[s + 1] = c.to(dtype).double()
+    din = torch.zeros(S, nx, dtype=torch.float64)
+    d = torch.zeros(nx, dtype=torch.float64)
+    for s in range(S - 1, 0, -1):
+        d = x[s] + cin[s] * above[s] + below[s] * d
+        din[s - 1] = d
+    return cin.to(dtype), din.to(dtype)
+
+
+def _carry_scan(ends, starts, gain, above, below, dtype, W=CARRY_WARPS):
+    """Launch 2 as the kernel's blocked scan (csrc/line.cuh
+    ``line_carry_kernel``): W chunks of K segments (K a multiple of the
+    load batch, W K >= S; the last chunks may be empty), each composed
+    into one affine map (G, E), the chunk maps folded in order to give
+    each chunk its true incoming C, each chunk replayed from it -- storing
+    C_s rounded to the working type and composing its backward maps
+    upwards -- then the backward chunk maps folded from the top to give
+    each chunk its true D below, and each chunk replayed down, in f64.
+    Returns (cin, din) of every segment."""
+    S, nx = ends.shape
+    CB = CARRY_BATCH
+    K = CB * -(-S // (W * CB))
+    chunks = [(min(S, w * K), min(S, w * K + K)) for w in range(W)]
+    e, x = ends.double(), starts.double()
+    one, zero = torch.ones(nx, dtype=torch.float64), torch.zeros(
+        nx, dtype=torch.float64)
+    fwd = []
+    for a, b in chunks:
+        G, E = one, zero
+        for s in range(a, min(b, S - 1)):
+            E, G = gain[s] * E + e[s], gain[s] * G
+        fwd.append((G, E))
+    cin = torch.zeros(S, nx, dtype=torch.float64)
+    bwd = []
+    for w, (a, b) in enumerate(chunks):
+        c = zero
+        for G, E in fwd[:w]:
+            c = G * c + E
+        G, E = one, zero
+        for s in range(a, b):
+            cin[s] = c.to(dtype).double()
+            if s >= 1:
+                E, G = G * (cin[s] * above[s] + x[s]) + E, G * below[s]
+            if s < S - 1:
+                c = gain[s] * c + e[s]
+        bwd.append((G, E))
+    din = torch.zeros(S, nx, dtype=torch.float64)
+    for w, (a, b) in enumerate(chunks):
+        d = zero
+        for G, E in reversed(bwd[w + 1:]):
+            d = G * d + E
+        for s in range(b - 1, a - 1, -1):
+            din[s] = d
+            if s >= 1:
+                d = below[s] * d + (cin[s] * above[s] + x[s])
+    return cin.to(dtype), din.to(dtype)
+
+
+def _segment_ends(r, end_w, start_w):
+    """Launch 1: each segment's zero-carry ends, weighted sums of its
+    rows' right-hand sides, (nseg, nx) each."""
+    return (end_w * r).sum(1), (start_w * r).sum(1)
+
+
+def _segment_fix(r, a, m, cp, above, below, cin, din):
+    """Launch 3: Thomas's recurrences from zero carries in each segment,
+    then x = xl + C above + D below; (nseg, seg, nx) in and out."""
+    seg = r.shape[1]
     dp, xl = torch.zeros_like(r), torch.zeros_like(r)
     d = torch.zeros_like(r[:, 0])
     for i in range(seg):
@@ -257,17 +352,28 @@ def _segmented_solve(rhs, cs, fac):
     x = torch.zeros_like(d)
     for i in reversed(range(seg)):
         x = xl[:, i] = dp[:, i] - cp[:, i] * x
-    cin = [torch.zeros(nx, dtype=torch.float64)]
-    for s in range(nseg - 1):
-        cin.append(ends[s].double() + gain[s] * cin[-1])
-    cin = [v.to(rhs.dtype) for v in cin]
-    din = [torch.zeros(nx, dtype=rhs.dtype)] * nseg
-    for s in range(nseg - 1, 0, -1):
-        din[s - 1] = (starts[s].double() + cin[s].double() * above[s, 0]
-                      .double() + din[s].double() * below[s, 0].double()
-                      ).to(rhs.dtype)
-    x = xl + torch.stack(cin)[:, None] * above + torch.stack(din)[:, None] \
-        * below
+    return xl + cin[:, None] * above + din[:, None] * below
+
+
+def _segmented_solve(rhs, cs, fac, carry=_carry_scan):
+    """csrc/line.cu's line solve of every column of rhs (ny, w), as test
+    code: each segment's zero-carry ends as weighted sums of its rows
+    (launch 1), the carries C (the true dp above each segment) and D (the
+    true x below it) by ``carry`` (the kernel's blocked scan, or the
+    serial walk), stored in the working type (launch 2), then Thomas's
+    recurrences from zero carries in each segment of LINE_SEG rows and
+    x = xl + C above + D below (launch 3)."""
+    ny, nx = rhs.shape
+    seg = tlk.LINE_SEG
+    nseg = -(-ny // seg)
+    r, a, m, cp, above, below, end_w, start_w = (
+        _cut_rows(t, ny, nseg, seg, nx) for t in (
+            rhs, cs, fac.m, fac.cp, fac.above, fac.below, fac.end_w,
+            fac.start_w))
+    ends, starts = _segment_ends(r, end_w, start_w)
+    cin, din = carry(ends, starts, *_carry_inputs(fac, seg, nseg, nx),
+                     rhs.dtype)
+    x = _segment_fix(r, a, m, cp, above, below, cin, din)
     return x.reshape(-1, nx)[:ny]
 
 
@@ -364,3 +470,123 @@ def test_segmented_solve_is_as_accurate_as_thomas_in_f32(prob, ny, nx):
         return float((v.double() - ref).abs().max()) / scale
 
     assert err(seg) <= max(2 * err(thomas), 1e-6), (err(seg), err(thomas))
+
+
+# Segment counts of the scan's tests: one segment, two, one chunk short of
+# the warps and one past them, and counts whose last chunks are part full
+# or empty.
+SCAN_SEGMENTS = [1, 2, CARRY_WARPS - 1, CARRY_WARPS + 1, 35, 129]
+DTYPES = [pytest.param(torch.float64, id="f64"),
+          pytest.param(torch.float32, id="f32")]
+
+
+def _carry_tol(dtype):
+    return 1e-12 if dtype == torch.float64 else TOL_LINE
+
+
+@pytest.mark.parametrize("S", SCAN_SEGMENTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("prob", [CONFIG4, XVAR], ids=["config4", "xvar"])
+def test_carry_scan_matches_serial_walk(prob, dtype, S):
+    """The kernel's carry pass, a blocked scan of affine maps
+    (``_carry_scan``), against the serial walk down each column
+    (``_carry_serial``) on the segment ends of a level of S segments: the
+    scan reorders the f64 roundings only, so its carries are the walk's
+    to 1e-12 of the largest in f64, and within TOL_LINE in f32 (a carry
+    stored in f32 may round the other way)."""
+    seg, nx = tlk.LINE_SEG, 17
+    ny = max(1, S * seg - 5)
+    st = _line_stencil(prob, ny, nx, dtype)
+    fac = tlk.segment_factor(st, ny)
+    rng = np.random.default_rng(S)
+    rhs = torch.as_tensor(rng.standard_normal((ny, nx))).to(dtype)
+    r, end_w, start_w = (_cut_rows(t, ny, S, seg, nx) for t in (
+        rhs, fac.end_w, fac.start_w))
+    ends, starts = _segment_ends(r, end_w, start_w)
+    inputs = (ends, starts, *_carry_inputs(fac, seg, S, nx), dtype)
+    for got, want in zip(_carry_scan(*inputs), _carry_serial(*inputs)):
+        assert got.dtype == want.dtype == dtype
+        np.testing.assert_allclose(
+            got.double().numpy(), want.double().numpy(), rtol=0,
+            atol=_carry_tol(dtype) * float(want.abs().max()))
+
+
+def _split_sweep(st, b, u, P, omega, carry):
+    """One rank-spanning y-line sweep of (b, u) (ny, nx), its pad row
+    appended, cut into P row blocks as the kernel runs it, as test code:
+    each block's line right-hand sides (``line_rows_begin_plain``) and
+    its segments' zero-carry ends from its rows' slices of the factors
+    (launch 1), the ends stacked in rank order (the all-gather), the
+    carries of every segment by ``carry`` with the whole level's factors,
+    each block's slice of them (launch 2), each block's segments fixed up
+    and blended (launch 3).  Returns the stitched (ny + 1, nx) sweep, the
+    blocks' plain ``RowLine``s and right-hand sides."""
+    ny, nx = b.shape
+    R = (ny + 1) // P
+    seg = math.gcd(R, tlk.LINE_SEG)
+    nseg = R // seg
+    fac = tlk.segment_factor(st, ny, seg)
+    bp, up = (torch.cat([x, x.new_zeros(1, nx)]) for x in (b, u))
+    zero = u.new_zeros(1, nx)
+    lfs, rhss, cut = [], [], []
+    for p in range(P):
+        lf = tlk.row_line(st, ny, R, p * R)
+        halo = Halo(up[p * R - 1:p * R] if p else zero,
+                    up[(p + 1) * R:(p + 1) * R + 1] if p < P - 1 else zero)
+        rhs = tlk.line_rows_begin_plain(lf, bp[p * R:(p + 1) * R],
+                                        up[p * R:(p + 1) * R], halo)
+        rows = slice(p * R, p * R + lf.nyl)
+        cut.append([_cut_rows(torch.broadcast_to(t, (ny, nx))[rows],
+                              lf.nyl, nseg, seg, nx)
+                    for t in (st.cs, fac.m, fac.cp, fac.above, fac.below,
+                              fac.end_w, fac.start_w)])
+        lfs.append(lf)
+        rhss.append(rhs)
+    ends, starts = zip(*(_segment_ends(rhs.reshape(nseg, seg, nx), *c[5:])
+                         for rhs, c in zip(rhss, cut)))
+    S = P * nseg
+    cin, din = carry(torch.cat(ends), torch.cat(starts),
+                     *_carry_inputs(fac, seg, S, nx), b.dtype)
+    outs = []
+    for p, (lf, rhs, c) in enumerate(zip(lfs, rhss, cut)):
+        own = slice(p * nseg, (p + 1) * nseg)
+        x = _segment_fix(rhs.reshape(nseg, seg, nx), *c[:5], cin[own],
+                         din[own]).reshape(R, nx)
+        out = torch.zeros_like(x)
+        nyl = lf.nyl
+        out[:nyl] = (1.0 - omega) * up[p * R:p * R + nyl] + omega * x[:nyl]
+        outs.append(out)
+    return torch.cat(outs), lfs, rhss
+
+
+@pytest.mark.parametrize("ny,P", [(63, 2), (127, 4), (255, 2), (1119, 4)],
+                         ids=["S2", "S4", "S8", "S140"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("prob", [CONFIG4, XVAR], ids=["config4", "xvar"])
+def test_split_carry_scan_matches_serial_walk_and_plain(prob, dtype, ny, P):
+    """The rank-spanning layout (P row blocks, each scanning every segment
+    of the lines and keeping its own slice of the carries) with the
+    kernel's scan: the stitched sweep equals the serial walk's (1e-12 of
+    the largest entry in f64, TOL_LINE in f32) and the plain split sweep,
+    PCR over the gathered right-hand sides (1e-10 in f64, TOL_LINE in
+    f32); the pad row 0."""
+    nx = 17
+    st = _line_stencil(prob, ny, nx, dtype)
+    rng = np.random.default_rng(ny + P)
+    b, u = (torch.as_tensor(rng.standard_normal((ny, nx))).to(dtype)
+            for _ in range(2))
+    got, lfs, rhss = _split_sweep(st, b, u, P, 0.8, _carry_scan)
+    serial, _, _ = _split_sweep(st, b, u, P, 0.8, _carry_serial)
+    assert bool((got[ny:] == 0).all())
+    np.testing.assert_allclose(got.double().numpy(), serial.double().numpy(),
+                               rtol=0, atol=_carry_tol(dtype)
+                               * float(serial.abs().max()))
+    every = torch.cat(rhss)
+    R = (ny + 1) // P
+    up = torch.cat([u, u.new_zeros(1, nx)])
+    plain = torch.cat([tlk.line_rows_end_plain(lf, up[p * R:(p + 1) * R],
+                                               every, 0.8)
+                       for p, lf in enumerate(lfs)])
+    tol = 1e-10 if dtype == torch.float64 else TOL_LINE
+    np.testing.assert_allclose(got.double().numpy(), plain.double().numpy(),
+                               rtol=0, atol=tol * float(plain.abs().max()))
