@@ -231,9 +231,9 @@ def ptxas_summary(log: str) -> list[str]:
     (and, for the 5-point visit, region), from the build's -Xptxas -v
     output."""
     groups: dict = {}
-    fam = re.compile(r"(visit5|visit9|apply9|stencil|cg_papply|line_fix|"
-                     r"line_carry|line_segment|line_residual|coarse_tree|"
-                     r"dia_spmv)_kernel(I(f|d|13__nv_bfloat16))?")
+    fam = re.compile(r"(visit5p|visit5|visit9|apply9|stencil|cg_papply|"
+                     r"line_fix|line_carry|line_segment|line_residual|"
+                     r"coarse_tree|dia_spmv)_kernel(I(f|d|13__nv_bfloat16))?")
     types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
     key = None
     for line in log.splitlines():
@@ -329,7 +329,9 @@ def device_ms(torch, fn, n: int = 20) -> float:
     """Device ms per call of ``fn``: ``n`` calls queued behind a sleeping
     kernel, so that the events bracket the kernels' back-to-back run and
     none of the wrappers' host work.  The sleep is sized from the host
-    time of ``n`` calls (and checked to have covered it)."""
+    time of ``n`` calls and checked to have covered them; a run it did
+    not cover is not kept, and the next sleeps twice as long (at most 64
+    times the first)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -346,8 +348,9 @@ def device_ms(torch, fn, n: int = 20) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
-    for _ in range(3):
-        torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1.0)))
+    cover = 2 * host_ms + 1.0  # ms of sleep ahead of the queued calls
+    while len(times) < 3:
+        torch.cuda._sleep(int(cycles_per_ms * cover))
         t0 = time.perf_counter()
         start.record()
         for _ in range(n):
@@ -355,8 +358,14 @@ def device_ms(torch, fn, n: int = 20) -> float:
         end.record()
         queued_ms = 1e3 * (time.perf_counter() - t0)
         end.synchronize()
-        assert queued_ms < 2 * host_ms + 1.0, "the sleep did not cover"
-        times.append(start.elapsed_time(end) / n)
+        if queued_ms < cover:
+            times.append(start.elapsed_time(end) / n)
+            continue
+        # A slow enqueue (the host is shared): the run is not kept, and
+        # the next sleeps longer.
+        cover *= 2
+        if cover > 64 * (2 * host_ms + 1.0):
+            raise RuntimeError("the sleep did not cover the queued calls")
     return statistics.median(times)
 
 
@@ -925,6 +934,110 @@ def check_rows(torch, rec, key, label, st, b, u, e, steps, emit,
         assert bool((g[-1] == 0).all()), f"{label}: output {i} pad row"
         compare(torch, f"output {i}", g, w, rec[key],
                 floor=floor if i or emit == "r" else 0.0)
+
+
+def check_blocks(torch, rec, key, label, st, b, u, e, steps, emit, my, mx,
+                 guess=True, floor=0.0):
+    """K17's 2-D block mode on a level cut into my x mx blocks, each with
+    its ring cut from its neighbours: the stitched blocks against the plain
+    block version (TOL_ARRAY of max|plain|, a residual's of max(max|plain|,
+    ``floor``); bf16 one bf16 ulp), the pad row and column (fine and
+    coarse) exactly 0.  Skipped where the blocks cannot carry the halo."""
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+
+    n = b.shape[0]
+    h = dk.halo_rows(len(steps), emit)
+    hc = dk.coarse_halo_rows(h)
+    bb, ub = k17_2d_blocks(b, my, mx, h), k17_2d_blocks(u, my, mx, h)
+    eb = k17_2d_blocks(e, my, mx, hc) if e is not None else None
+    R, C = bb[0][2].shape
+    if h > min(R, C):
+        return
+    calls = [((st, bb[p][2], ub[p][2] if guess else None, steps, emit),
+              dict(row0=bb[p][0], col0=bb[p][1], ny=n, nx=n,
+                   b_halo=bb[p][3], u_halo=ub[p][3],
+                   e=None if eb is None else eb[p][2],
+                   e_halo=None if eb is None else eb[p][3]))
+             for p in range(my * mx)]
+
+    def run(fn):
+        outs = [fn(*a, **kw) for a, kw in calls]
+        return stitch(torch, [o if isinstance(o, tuple) else (o,)
+                              for o in outs], my, mx)
+
+    print(f"{label}, {my}x{mx} blocks of {R} x {C}")
+    got, want = run(dk.block_visit), run(dk.block_visit_plain)
+    for i, (g, w) in enumerate(zip(got, want)):
+        ext = (n - 1) // 2 if emit == "rc" and i == 1 else n
+        assert bool((g[ext:] == 0).all()), f"{label}: output {i} pad row"
+        assert bool((g[:, ext:] == 0).all()), \
+            f"{label}: output {i} pad column"
+        compare(torch, f"output {i}", g, w, rec[key],
+                floor=floor if i or emit == "r" else 0.0)
+
+
+def check_bf16_cuts(torch, dev, rec):
+    """K17 in bf16 on ragged cuts, untimed: row blocks of odd width
+    (1119^2 on 4 blocks, 63^2 on 4; ``check_rows``) and 2-D blocks
+    (``check_blocks``: a 2x1 cut of 1119^2, an odd row stride; 1x2 cuts,
+    an odd row count; 2x2 of 63^2), for every flag set of the 5-point
+    visit K17 runs (zero-guess u / ur / rc; u / ur / rc from a guess;
+    correct + u / ur / rc) at k = 1, 3 and on both sides of the bf16
+    step's region rule (V5_PAIR_MAX_H: halos 8 and 9), where the blocks
+    carry the halo.
+    Each is held to the plain version within one bf16 ulp (a residual of
+    max(max|plain|, max|b|): it cancels b and A u), pads exactly 0."""
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+    from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    key, key2 = "dist_level_visit.bf16", dk.BLOCKS + ".bf16"
+    rec.setdefault(key, {})
+    rec.setdefault(key2, {})
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    flagsets = (  # emit, guess, correct
+        ("u", False, False), ("ur", False, False), ("rc", False, False),
+        ("u", True, False), ("ur", True, False), ("rc", True, False),
+        ("u", True, True), ("ur", True, True),
+        ("rc", True, True))
+    for n, cuts in ((1119, ("rows", (2, 1), (1, 2))),
+                    (63, ("rows", (2, 2), (1, 2)))):
+        h2 = float(n + 1) ** 2
+
+        def col():
+            return (h2 * (1.0 + 0.25 * rnd(n, 1))).to(torch.bfloat16)
+
+        st = Stencil5(col(), col(), (-h2 * (5.0 + rnd(n, 1).abs())).to(
+            torch.bfloat16), col(), col())
+        b, u = rnd(n, n).to(torch.bfloat16), rnd(n, n).to(torch.bfloat16)
+        e = rnd((n - 1) // 2, (n - 1) // 2).to(torch.bfloat16)
+        floor = float(b.float().abs().max())
+        for emit, g, c in flagsets:
+            e0 = mdma._halo(emit, 0)
+            for k in sorted({1, 3, mdma.V5_PAIR_MAX_H - e0,
+                             mdma.V5_PAIR_MAX_H - e0 + 1}):
+                steps = jacobi_step_coeffs(k, 0.8)
+                h = dk.halo_rows(k, emit)
+                label = (f"K17 bf16 5-point {'correct + ' if c else ''}"
+                         f"{'' if g else 'zero-guess '}{emit} k={k} at "
+                         f"{n}^2")
+                for cut in cuts:
+                    if cut == "rows":
+                        if h <= (n + 1) // row_blocks_of(n):
+                            check_rows(torch, rec, key, label, st, b, u,
+                                       e if c else None, steps, emit,
+                                       guess=g, floor=floor)
+                    else:
+                        check_blocks(torch, rec, key2, label, st, b, u,
+                                     e if c else None, steps, emit, *cut,
+                                     guess=g, floor=floor)
+        del st, b, u, e
+        torch.cuda.empty_cache()
 
 
 def check_ragged_5pt(torch, dev, rec, dt, sfx=""):
@@ -1880,9 +1993,12 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
     blocks, the whole-grid kernel; the bound counts one block's bytes:
     its rows and halo rows of each input read once, each output once.  The
     per-call time brackets the wrapper's host work too, so the 5-point
-    "a", "r" and zero-guess "rc" blocks are also timed as device time
-    (``device_ms``: 20 launches queued behind a sleep), "a" and "r" beside
-    conv2d on the block and its halo rows (the library call)."""
+    "a", "r" (f32) and the zero-guess "rc" and "correct + u" blocks (f32,
+    bf16: the bf16 preconditioner's visits) are also timed as device time
+    (``device_ms``: 20 launches queued behind a sleep; each storage type's
+    ``modes_5pt``), "a" and "r" beside conv2d on the block and its halo
+    rows (the library call).  The bf16 pass then checks the ragged bf16
+    cuts (``check_bf16_cuts``)."""
     from multigrid_petsc_tpu_torch.mesh import MeshType
     from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
     from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
@@ -1903,12 +2019,12 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
     modes = (  # label, guess, steps, emit, correct
         ("zero-guess rc", False, jac, "rc", False),
         ("u", True, jac, "u", False),
+        ("correct + u", True, jac, "u", True),
         ("correct + ur", True, jac, "ur", True),
         ("a", True, (), "a", False),
         ("r", True, (), "r", False),
     )
     summary = []
-    modes_rec = {}
     types = {"f32": (torch.float32, ""), "f64": (torch.float64, ".f64"),
              "bf16": (torch.bfloat16, ".bf16")}
     for dt, sfx in (types[t] for t in dtypes):
@@ -1923,11 +2039,14 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
         if dt != torch.float64:
             stencils.append(("9-point (1,1,1,2,0.4)", stencil9_coefficients(
                 AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), n, n, dt, dev)))
+        modes_rec = {}
         for sname, st in stencils:
             nine = isinstance(st, Stencil9)
             whole = k9 if nine else sk
             for label, guess, steps, emit, correct in modes:
                 if dt == torch.float64 and label != "zero-guess rc":
+                    continue
+                if nine and label == "correct + u":
                     continue
                 k = len(steps)
                 h = dk.halo_rows(k, emit)
@@ -2015,11 +2134,15 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
                       f"{1e3 * nbytes / HBM_PEAK:.4f} ms per block")
                 keep_time(rec[key], ms1, pms, nbytes, flops)
                 summary.append((tag, ms1, ms4, msw, pms, nbytes))
-                if not nine and dt == torch.float32 and emit in ("a", "r",
-                                                                 "rc"):
+                # Device time: the 5-point a, r (f32) and the two visits
+                # of the bf16 preconditioner's split levels (zero-guess rc
+                # down, correct + u up; f32 and bf16).
+                if not nine and dt != torch.float64 and (
+                        label in ("zero-guess rc", "correct + u")
+                        or dt == torch.float32 and emit in ("a", "r")):
                     dms = device_ms(torch, lambda: dk.row_visit(*a1, **kw1))
                     lms = None
-                    if emit != "rc":  # conv2d over the block + its halo
+                    if emit in ("a", "r"):  # conv2d over the block + halo
                         c = [float(x[0, 0]) for x in st]
                         w5 = torch.tensor([[0.0, c[0], 0.0],
                                            [c[1], c[2], c[3]],
@@ -2032,8 +2155,9 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
                         lms = time_ms(torch, conv_call(torch, w5, ue, be))
                         del ue, be
                     bound = 1e3 * nbytes / HBM_PEAK
-                    modes_rec[emit] = {"ms_per_call": ms1, "device_ms": dms,
-                                       "bound_ms": bound, "library_ms": lms}
+                    modes_rec[label if label == "correct + u" else emit] = {
+                        "ms_per_call": ms1, "device_ms": dms,
+                        "bound_ms": bound, "library_ms": lms}
                     print(f"  {tag}: device time {dms:.4f} ms per block "
                           f"({100 * bound / dms:.1f}% of its bound "
                           f"{bound:.4f} ms), per call {ms1:.4f} ms"
@@ -2043,8 +2167,10 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
             del st
         del b, u, e
         torch.cuda.empty_cache()
-    if modes_rec:
-        rec["dist_level_visit"]["modes_5pt"] = modes_rec
+        if modes_rec:
+            rec[key]["modes_5pt"] = modes_rec
+    if "bf16" in dtypes:
+        check_bf16_cuts(torch, dev, rec)
     return summary
 
 
@@ -3158,15 +3284,18 @@ def phase_k17_blocks(torch, dev, rec):
     2x2 blocks of 4096^2 and 1x2 blocks of 8191 x 4096, each block's ring
     cut from its neighbours; every emit of the 5-point visit (Jacobi k =
     3) and of the aniso (1,1,1,2,0.4) 9-point visit in f32, the 5-point
-    zero-guess rc visit in f64 and in bf16 (storage).  The stitched blocks
-    are held to the
+    zero-guess rc visit in f64, and the bf16 preconditioner's two 5-point
+    visits (zero-guess rc, correct + u) in bf16 (storage).  The stitched
+    blocks are held to the
     whole-grid kernel of the same flags (K9 / K6 / residual5 / K12 / K14)
-    and to the plain block version (TOL_ARRAY of max|plain|); the pad row
+    and to the plain block version (TOL_ARRAY of max|plain|; bf16: one
+    bf16 ulp); the pad row
     and column (the coarse ones of rc) must be exactly 0.  Times (2x2,
-    block 1): per call, the plain version, and the 5-point "a", "r" and
-    zero-guess "rc" blocks as device time (``device_ms``: 20 launches
-    queued behind a sleep) beside conv2d on the block and its ring (the
-    library call), and the bf16 zero-guess rc block as device time; the
+    block 1): per call, the plain version, and as device time
+    (``device_ms``: 20 launches queued behind a sleep) the 5-point "a"
+    and "r" blocks (f32) beside conv2d on the block and its ring (the
+    library call), and the zero-guess rc and correct + u blocks in f32
+    and bf16 (each storage type's ``modes_5pt``); the
     bound counts one block's bytes: its points and ring of each input
     read once, each output written once."""
     from multigrid_petsc_tpu_torch.mesh import MeshType
@@ -3189,11 +3318,14 @@ def phase_k17_blocks(torch, dev, rec):
     modes = (  # label, guess, steps, emit, correct
         ("zero-guess rc", False, jac, "rc", False),
         ("u", True, jac, "u", False),
+        ("correct + u", True, jac, "u", True),
         ("correct + ur", True, jac, "ur", True),
         ("a", True, (), "a", False),
         ("r", True, (), "r", False),
     )
-    modes_rec = {}
+    # The bf16 preconditioner's split levels run two 5-point visits: the
+    # zero-guess rc down and correct + u up.
+    pre = ("zero-guess rc", "correct + u")
     for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64"),
                     (torch.bfloat16, ".bf16")):
         key = dk.BLOCKS + sfx
@@ -3207,10 +3339,13 @@ def phase_k17_blocks(torch, dev, rec):
         if dt == torch.float32:
             stencils.append(("9-point (1,1,1,2,0.4)", stencil9_coefficients(
                 AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), n, n, dt, dev)))
+        modes_rec = {}
         for sname, st in stencils:
             nine = isinstance(st, Stencil9)
             for label, guess, steps, emit, correct in modes:
-                if dt != torch.float32 and label != "zero-guess rc":
+                if (dt == torch.float64 and label != "zero-guess rc"
+                        or dt == torch.bfloat16 and label not in pre
+                        or nine and label == "correct + u"):
                     continue
                 k = len(steps)
                 h = dk.halo_rows(k, emit)
@@ -3308,19 +3443,13 @@ def phase_k17_blocks(torch, dev, rec):
                               f"plain {pms:.4f} ms; bound {bound:.4f} ms "
                               f"per block")
                         keep_time(rec[key], ms1, pms, nbytes, flops)
-                        if dt == torch.bfloat16:
-                            dms = device_ms(torch, lambda: dk.block_visit(
-                                *a1, **kw1))
-                            rec[key]["device_ms"] = dms
-                            print(f"  {tag}: device time {dms:.4f} ms per "
-                                  f"block ({100 * bound / dms:.1f}% of its "
-                                  f"bound {bound:.4f} ms)")
-                        if (not nine and dt == torch.float32
-                                and emit in ("a", "r", "rc")):
+                        if (not nine and dt != torch.float64 and (
+                                label in pre or dt == torch.float32
+                                and emit in ("a", "r"))):
                             dms = device_ms(torch, lambda: dk.block_visit(
                                 *a1, **kw1))
                             lms = None
-                            if emit != "rc":  # conv2d over block + ring
+                            if emit in ("a", "r"):  # conv2d: block + ring
                                 c = [float(x[0, 0]) for x in st]
                                 w5 = torch.tensor(
                                     [[0.0, c[0], 0.0], [c[1], c[2], c[3]],
@@ -3334,9 +3463,12 @@ def phase_k17_blocks(torch, dev, rec):
                                 lms = time_ms(torch, conv_call(torch, w5, ue,
                                                                be))
                                 del ue, be
-                            modes_rec[emit] = {
+                            modes_rec[label if label == "correct + u"
+                                      else emit] = {
                                 "ms_per_call": ms1, "device_ms": dms,
                                 "bound_ms": bound, "library_ms": lms}
+                            if dt == torch.bfloat16 and emit == "rc":
+                                rec[key]["device_ms"] = dms
                             print(f"  {tag}: device time {dms:.4f} ms per "
                                   f"block ({100 * bound / dms:.1f}% of its "
                                   f"bound {bound:.4f} ms), per call "
@@ -3349,7 +3481,8 @@ def phase_k17_blocks(torch, dev, rec):
             del st
         del b, u, e
         torch.cuda.empty_cache()
-    rec[dk.BLOCKS]["modes_5pt"] = modes_rec
+        if modes_rec:
+            rec[key]["modes_5pt"] = modes_rec
 
 
 # 13 (a): K15's 2-D block mode on (n, (my, mx), storage type, timed) cuts

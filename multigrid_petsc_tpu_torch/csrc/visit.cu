@@ -18,11 +18,15 @@ int mg_visit_blocks(int ny, int nx) {
   return (int)(g.x * g.y);
 }
 
-// Number of per-block partials a 5-point visit with halo h emits in a
-// compute type of csize bytes (its region follows h and the type).
-int mg_visit5_blocks(int ny, int nx, int h, int csize) {
-  dim3 g = csize == 8 ? visit5_grid_for<double>(ny, nx, h)
-                      : visit5_grid_for<float>(ny, nx, h);
+// Number of per-block partials a whole-grid 5-point visit with halo h
+// emits in a storage type of size bytes (its region follows h and the
+// type: 2 is bf16 storage, whose step is visit5p_kernel's where v5_pair
+// says so, else f32's).
+int mg_visit5_blocks(int ny, int nx, int h, int size) {
+  if (size == 2 && v5_pair<__nv_bfloat16>(h))
+    return (int)(visit5p_grid(ny, nx, h).x * visit5p_grid(ny, nx, h).y);
+  dim3 g = size == 8 ? visit5_grid_for<double>(ny, nx, h)
+                     : visit5_grid_for<float>(ny, nx, h);
   return (int)(g.x * g.y);
 }
 

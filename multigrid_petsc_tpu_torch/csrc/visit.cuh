@@ -43,7 +43,8 @@
 //   K17 visit5_kernel, visit9_kernel, stencil_kernel and apply9_kernel on
 //       a block of a partitioned level (Block below: a row block of the
 //       rows layout, or a 2-D block of the blocks layout; every flag set
-//       but CG, both stencils, f32 and f64; row blocks in bf16 too) <-
+//       but CG, both stencils, f32, f64 and bf16; the bf16 5-point visits
+//       on visit5p_kernel, a thread per column pair) <-
 //       dist_kernel.py dist_level_visit_local (the row blocks; JAX runs
 //       its 2-D blocks as XLA ops under GSPMD, which no Pallas kernel
 //       replaces)
@@ -66,7 +67,9 @@
 // only -- every load converts to f32, the arithmetic (smoother steps,
 // residual, transfers, dots) runs in f32 in shared memory and registers,
 // and each output rounds once, where it is stored (mg_common.cuh to_c /
-// put), as the JAX kernels' _load_f32 / _store.  Dot partials and the
+// put), as the JAX kernels' _load_f32 / _store.  A bf16 5-point visit of
+// halo up to V5_PAIR_MAX_H runs visit5p_kernel (below), whose step is cut
+// for bf16's halved bytes.  Dot partials and the
 // step schedule are in the compute type.  K1, K2a/K10 and K11 (the f32
 // mg-CG routes) and K8 (f32 sparse levels) are built for f32 only.
 //
@@ -503,7 +506,8 @@ using VisitFn = void (*)(K, VisitIO<T>, Block<T>, int, int,
                          const compute_t<T>*, int);
 
 // ---- The 5-point visit (K2a, K2b, K3, K7, K9, K10, K17's 5-point
-// blocks): a thread per strip of a region.  A region is GY strips of RS
+// blocks; bf16 storage up to V5_PAIR_MAX_H takes visit5p_kernel, below):
+// a thread per strip of a region.  A region is GY strips of RS
 // rows down each of its 32 * GX columns; the output tile is the region
 // less the halo H on every side, so the tile follows the sweep count.
 //   * b and p of the strip's points live in registers; u is shared,
@@ -918,6 +922,582 @@ VisitFn<T, Coeffs<T>> pick_visit5(int flags) {
                    : pick_emit5<T, false, false, ROWS, RG>(emit, dot);
   return correct ? pick_emit5<T, true, true, ROWS, RG>(emit, dot)
                  : pick_emit5<T, true, false, ROWS, RG>(emit, dot);
+}
+
+// ---- The bf16 5-point step (visit5p_kernel): K17's bf16 row-block and
+// 2-D block visits and the whole-grid bf16 visits (K2b, K3, K7, K9), as
+// the rule below sends them.  bf16 is storage only, so the region holds
+// f32 as in visit5_kernel, and the step's arithmetic is the same (apply5's
+// term order; p = bt p + a z; u + p; one rounding per stored output).
+// What held visit5_kernel back in bf16 was not its bytes: its loads, one
+// 2-byte load a point behind per-row halo tests, were not issued ahead
+// (78% of a k = 3 block's time was paid once), and its step issues ~17
+// instructions a point (a shared load of the row below, two coefficient
+// broadcasts, west and east, the store, ~10 floating-point operations)
+// at ~1 instruction a cycle per scheduler.  So here:
+//   * a thread owns a group of NC = 4 neighbouring columns (starting at an
+//     even global column) of a strip of RS rows: u moves as one float4
+//     (one shared load or store per group and row), b stays in registers
+//     (f32), the group's inner neighbours are in registers, the outer ones
+//     come from the lanes beside (__shfl_up / __shfl_down), and the
+//     warp's edge columns from one shared load by every lane (lane 31's
+//     east, the others a broadcast of lane 0's west: a lane-dependent
+//     branch before the shuffles cost a reconvergence per row); the
+//     coefficient row is one pair of broadcasts per group.  A step is ~10
+//     floating-point operations a point plus ~9 / NC other instructions:
+//     it is bound by the instructions it issues, not by bytes.  A region
+//     whose columns all lie inside the domain steps without the column
+//     masks.  NC = 2 (pairs) and 8-row strips of 256 threads measured
+//     slower (scripts/time_5pt_visits.py --ab, variants pairs, quad8).
+//   * the region's x-halo is HL = H rounded up to even (the tile TX = SW -
+//     2 HL stays even), so every column pair (gx, gx + 1) of a group
+//     starts at an even global column: it shares its coarse columns J -
+//     1, J in the prolongation and never straddles a split axis's block
+//     edge.
+//   * a pair whose two columns lie in one buffer (the block, or one side
+//     buffer) and inside the domain loads one __nv_bfloat162 where its
+//     address is 4-byte aligned and two bf16 values where it is not (a
+//     row stride of odd length -- every level is 2^m - 1 wide -- aligns
+//     every other row); the test is on the address, per row.  Any other
+//     pair (the domain's last column, a pair across the block's and a
+//     side buffer's edge, or past the halos) reads each column on its own
+//     (block_at).  Stores: a pair of outputs is one __nv_bfloat162 store
+//     where aligned and both columns are written, else one or two.
+//   * a strip whose rows all lie inside the block and the domain reads
+//     them (and, to correct, its coarse rows) with no per-row test, so
+//     its loads issue ahead; other strips resolve each row in the halo
+//     buffers (Column::at).
+//   * the residual is formed on the rows the emits read only.
+// Region5P: GX warps of 32 * NC columns across, GY strips of RS rows
+// down.  The region rule: a bf16-storage visit of H <= V5_PAIR_MAX_H takes
+// it, on a block (K17) or a whole grid (K2b, K3: measured faster there
+// too, scripts/time_5pt_visits.py); every visit the solves run (k = 3:
+// H = 3..5) is one.  Larger halos keep visit5_kernel's regions (the tall
+// one past V5_SHORT_MAX_H), so the sweep-count contract is unchanged.
+template <int GX_, int GY_, int RS_, int NC_>
+struct Region5P {
+  static constexpr int GX = GX_;  // warps across
+  static constexpr int GY = GY_;  // strips down a column group
+  static constexpr int RS = RS_;  // rows of a strip
+  static constexpr int NC = NC_;  // columns of a thread's group
+  static constexpr int NT = 32 * GX * GY;
+  static constexpr int SW = 32 * NC * GX, SH = RS * GY;
+  // A u buffer: the region inside a ring NC columns wide at each side (so
+  // a group's values are one aligned vector; columns -1 and SW are the
+  // ones read) and one row above and below.
+  static constexpr int PW = SW + 2 * NC;
+  static constexpr int PN = (SH + 2) * PW;
+  static __device__ __forceinline__ int at(int sy, int sx) {
+    return (sy + 1) * PW + sx + NC;
+  }
+};
+// Columns a thread owns, strips down a group of columns, their rows: a
+// 64 x 128 region, 512 threads, two resident blocks (64 registers).
+constexpr int V5P_NC = 4, V5P_GY = 16, V5P_RS = 4;
+using V5Pair = Region5P<128 / (32 * V5P_NC), V5P_GY, V5P_RS, V5P_NC>;
+constexpr int V5_PAIR_MAX_H = 8;
+constexpr int V5P_MIN_BLOCKS = 2;  // resident blocks the registers are cut for
+
+// The region's x-halo: H rounded up to even.
+__host__ __device__ constexpr int v5p_xhalo(int H) { return H + (H & 1); }
+
+template <class T>
+constexpr bool v5_pair(int H) {
+  return std::is_same<T, __nv_bfloat16>::value && H >= 1 &&
+         H <= V5_PAIR_MAX_H;
+}
+
+inline dim3 visit5p_grid(int R, int nx, int H) {
+  const int ty = V5Pair::SH - 2 * H, tx = V5Pair::SW - 2 * v5p_xhalo(H);
+  return dim3((nx + tx - 1) / tx, (R + ty - 1) / ty);
+}
+
+constexpr size_t visit5p_smem_bytes() {
+  return sizeof(float) *
+         (8 * (size_t)V5Pair::SH + 2 * (size_t)V5Pair::PN + V5Pair::NT / 32);
+}
+
+__device__ __forceinline__ bool aligned4(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 3) == 0;
+}
+
+// Two neighbouring bf16 values from p: one 4-byte load where aligned.
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  if (aligned4(p))
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return make_float2(__bfloat162float(p[0]), __bfloat162float(p[1]));
+}
+
+// Store the pair (x, y) at p (rounded once each): columns w0, w1 wanted.
+__device__ __forceinline__ void put_pair(__nv_bfloat16* p, float x, float y,
+                                         bool w0, bool w1) {
+  if (w0 && w1 && aligned4(p)) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (w0) p[0] = __float2bfloat16_rn(x);
+    if (w1) p[1] = __float2bfloat16_rn(y);
+  }
+}
+
+// A group's NC values in shared memory, one aligned vector.
+template <int NC>
+__device__ __forceinline__ void ldv(const float* p, float (&x)[NC]) {
+  if constexpr (NC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void stv(float* p, const float (&x)[NC]) {
+  if constexpr (NC == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// The coarse correction of a pair's strip: RS fine rows from global row gy
+// at the even global column gx (pe0) and gx + 1 (pe1).  Both columns read
+// coarse column J = gx / 2 (the odd one alone, the even one with J - 1),
+// so each coarse row is read once for the pair; otherwise prolong_strip's
+// arithmetic, column by column.
+template <class T, bool ROWS, int RS>
+__device__ __forceinline__ void prolong_pair(const T* e, const Block<T>& rb,
+                                             int gy, int gx, bool in0,
+                                             int nxc, float (&pe0)[RS],
+                                             float (&pe1)[RS]) {
+  constexpr int NS = RS / 2 + 2;  // coarse rows (gy >> 1) - 1 on
+  const int nyc = (rb.nyg - 1) / 2, J = gx >> 1, X0 = (gy >> 1) - 1;
+  const bool p = gy & 1;
+  float se[NS], so[NS];  // e[X][J - 1] + e[X][J], e[X][J]
+  const Column<T> cj = ROWS ? e_column(rb, e, J - rb.col0 / 2) : Column<T>{};
+  const Column<T> cjm =
+      ROWS ? e_column(rb, e, J - 1 - rb.col0 / 2) : Column<T>{};
+  // ROWS: all NS coarse rows inside the block, the domain and both
+  // columns' buffers: read without a row test.
+  const int L0 = X0 - rb.row0 / 2;
+  if (ROWS && in0 && L0 >= 0 && L0 + NS <= rb.Rc && X0 + NS <= nyc &&
+      J >= 1 && J < nxc && cj.mid != nullptr && cjm.mid != nullptr) {
+    const T* q = cj.mid + (size_t)L0 * cj.ms;
+    const T* qm = cjm.mid + (size_t)L0 * cjm.ms;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      so[k] = to_c(q[(size_t)k * cj.ms]);
+      se[k] = to_c(qm[(size_t)k * cjm.ms]) + so[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int X = X0 + k;
+      float a = 0.f, w = 0.f;
+      if (in0 && X >= 0 && X < nyc) {
+        if constexpr (ROWS) {
+          const T* q = J < nxc ? cj.at(X - rb.row0 / 2) : nullptr;
+          const T* qm = J >= 1 ? cjm.at(X - rb.row0 / 2) : nullptr;
+          a = q != nullptr ? to_c(*q) : 0.f;
+          w = qm != nullptr ? to_c(*qm) : 0.f;
+        } else {
+          const T* r = e + (size_t)X * nxc;
+          a = J < nxc ? to_c(r[J]) : 0.f;
+          w = J >= 1 ? to_c(r[J - 1]) : 0.f;
+        }
+      }
+      so[k] = a;
+      se[k] = w + a;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    const int lo = (i >> 1) + 1, hi = ((i + 1) >> 1) + 1;
+    const int a = p ? hi : lo;
+    if ((p + i) & 1) {  // odd fine row: coarse row I
+      pe0[i] = se[a] * 0.5f;
+      pe1[i] = so[a];
+    } else {  // even: rows I - 1 and I
+      pe0[i] = (se[a - 1] + se[a]) * 0.25f;
+      pe1[i] = (so[a - 1] + so[a]) * 0.5f;
+    }
+  }
+}
+
+// The level visit on bf16 storage, a thread per column group of a strip
+// (above); flags and emits as visit5_kernel's (no CG: the CG flag set is
+// f32's).
+template <class T, bool GUESS, bool CORRECT, int EMIT, bool DOT, bool ROWS>
+__global__ void __launch_bounds__(V5Pair::NT, V5P_MIN_BLOCKS)
+visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
+               const float* __restrict__ steps, int k) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 storage");
+  using RG = V5Pair;
+  using C = float;
+  constexpr int NC = RG::NC, NP = NC / 2, RS = RG::RS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* crow = reinterpret_cast<C*>(smem_raw);
+  C* cur = crow + 8 * RG::SH;
+  C* nxt = cur + RG::PN;
+  C* red = nxt + RG::PN;
+  const int ny = rb.nyg, nyc = (ny - 1) / 2;
+  const int nxg = ROWS ? rb.nxg : nx, nxc = (nxg - 1) / 2;
+  const int row0 = ROWS ? rb.row0 : 0, R = ROWS ? rb.R : ny;
+  const int col0 = ROWS ? rb.col0 : 0;
+  const int Rc = ROWS ? rb.Rc : nyc, Cc = ROWS ? rb.Cc : nxc;
+  const int HL = v5p_xhalo(H);
+  const int TY = RG::SH - 2 * H, TX = RG::SW - 2 * HL;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int sx = (wid % RG::GX) * 32 * NC + NC * lane;  // the group's first
+  const int r0 = (wid / RG::GX) * RS;  // its strip's first row
+  // The zero rings of both u buffers: the top and bottom rows, columns -1
+  // and SW.
+  for (int t = threadIdx.x; t < 2 * RG::PW + 2 * RG::SH; t += RG::NT) {
+    const int i = t < RG::PW       ? t
+                  : t < 2 * RG::PW ? (RG::SH + 1) * RG::PW + t - RG::PW
+                                   : (1 + ((t - 2 * RG::PW) >> 1)) * RG::PW +
+                                         ((t & 1) ? RG::SW + NC : NC - 1);
+    cur[i] = 0.f;
+    nxt[i] = 0.f;
+  }
+
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // local
+  const int gy0 = row0 + y0 - H;                         // global
+  const int lx = x0 - HL + sx, gx = col0 + lx;  // the group's first column
+  bool in[NC];  // the group's columns inside the domain (gx is even)
+#pragma unroll
+  for (int j = 0; j < NC; ++j) in[j] = gx + j >= 0 && gx + j < nxg;
+  if (threadIdx.x < RG::SH) {
+    const int gy = gy0 + threadIdx.x;
+    const bool inr = gy >= 0 && gy < ny;
+    C* d = crow + 8 * threadIdx.x;
+    const C cc = inr ? to_c(c.cc[gy]) : 0.f;
+    d[0] = cc;
+    d[1] = inr ? to_c(c.cs[gy]) : 0.f;
+    d[2] = inr ? to_c(c.cn[gy]) : 0.f;
+    d[3] = inr ? to_c(c.cw[gy]) : 0.f;
+    d[4] = inr ? to_c(c.ce[gy]) : 0.f;
+    d[5] = inr ? 1.f / cc : 0.f;
+    d[6] = 0.f;
+    d[7] = 0.f;
+  }
+
+  // b into registers, the iterate (u + P e) into the shared buffer, pair
+  // by pair of the group.
+  float bq[RS][NC], pq[RS][NC];
+  {
+    float uq[RS][NC];
+    const int ly0 = y0 - H + r0, gyf = gy0 + r0;  // the strip's first row
+    // The strip's rows all inside the block and the domain.
+    const bool inside = gyf >= 0 && gyf + RS <= ny &&
+                        (!ROWS || (ly0 >= 0 && ly0 + RS <= R));
+    // Where a point lies (null: outside the domain or past the halos).
+    auto where = [&](const T* m, bool b, int ly, int x) -> const T* {
+      const int gy = row0 + ly;
+      if (gy < 0 || gy >= ny || col0 + x < 0 || col0 + x >= nxg)
+        return nullptr;
+      if constexpr (ROWS)
+        return b ? block_at(m, rb.b_top, rb.b_bot, rb.b_left, rb.b_right, ly,
+                            x, R, rb.C, rb.hn, rb.hx)
+                 : rb.u_at(m, ly, x);
+      return m + (size_t)ly * nx + x;
+    };
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int lp = lx + 2 * p, j0 = 2 * p;
+      float pe0[RS], pe1[RS];
+      if constexpr (CORRECT)
+        prolong_pair<T, ROWS>(io.e, rb, gyf, gx + j0, in[j0], nxc, pe0, pe1);
+      // A pair: both columns inside the domain and in one buffer.
+      const bool pair =
+          in[j0 + 1] && (!ROWS || (lp >= 0 && lp + 1 < rb.C) ||
+                         (lp >= -rb.hx && lp + 1 < 0) ||
+                         (lp >= rb.C && lp + 1 < rb.C + rb.hx));
+      if (pair) {
+        // ROWS: the pair's column of b and u in its buffer.
+        const Column<T> bcol = ROWS ? b_column(rb, io.b, lp) : Column<T>{};
+        const Column<T> ucol =
+            ROWS && GUESS ? u_column(rb, io.u, lp) : Column<T>{};
+        if (inside) {  // no row test: the loads issue ahead
+          const T* bp = ROWS ? bcol.mid + (size_t)ly0 * bcol.ms
+                             : io.b + (size_t)gyf * nx + gx + j0;
+          const T* up = !GUESS ? nullptr
+                        : ROWS ? ucol.mid + (size_t)ly0 * ucol.ms
+                               : io.u + (size_t)gyf * nx + gx + j0;
+          const size_t bs = ROWS ? bcol.ms : nx, us = ROWS ? ucol.ms : nx;
+#pragma unroll
+          for (int i = 0; i < RS; ++i) {
+            const float2 bv = ld_pair(bp + i * bs);
+            float2 uv = make_float2(0.f, 0.f);
+            if (GUESS) uv = ld_pair(up + i * us);
+            if (CORRECT) uv.x += pe0[i], uv.y += pe1[i];
+            bq[i][j0] = bv.x, bq[i][j0 + 1] = bv.y;
+            uq[i][j0] = uv.x, uq[i][j0 + 1] = uv.y;
+          }
+        } else {  // each row resolved in the halo buffers
+#pragma unroll
+          for (int i = 0; i < RS; ++i) {
+            const int ly = ly0 + i, gy = gyf + i;
+            const T* bp = gy < 0 || gy >= ny ? nullptr
+                          : ROWS            ? bcol.at(ly)
+                                            : io.b + (size_t)gy * nx + gx + j0;
+            float2 bv = make_float2(0.f, 0.f), uv = make_float2(0.f, 0.f);
+            if (bp != nullptr) {  // past the halos: never read, left 0
+              bv = ld_pair(bp);
+              if (GUESS)
+                uv = ld_pair(ROWS ? ucol.at(ly)
+                                  : io.u + (size_t)gy * nx + gx + j0);
+              if (CORRECT) uv.x += pe0[i], uv.y += pe1[i];
+            }
+            bq[i][j0] = bv.x, bq[i][j0 + 1] = bv.y;
+            uq[i][j0] = uv.x, uq[i][j0 + 1] = uv.y;
+          }
+        }
+      } else {
+        // Each column on its own.
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+#pragma unroll
+          for (int j = j0; j < j0 + 2; ++j) {
+            const T* bpj = where(io.b, true, ly0 + i, lx + j);
+            float bv = 0.f, uv = 0.f;
+            if (bpj != nullptr) {
+              bv = to_c(*bpj);
+              if (GUESS) uv = to_c(*where(io.u, false, ly0 + i, lx + j));
+              if (CORRECT) uv += j == j0 ? pe0[i] : pe1[i];
+            }
+            bq[i][j] = bv;
+            uq[i][j] = uv;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      stv<NC>(cur + RG::at(r0 + i, sx), uq[i]);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) pq[i][j] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // West of the group's first column and east of its last: from the lanes
+  // beside, the warp's edge lanes from shared memory.  One load by every
+  // lane, with no branch before the shuffles (a lane-dependent branch
+  // there costs a reconvergence per row): lane 31 reads column sx + NC,
+  // every other lane lane 0's column sx - 1 (a broadcast), at qe.
+  const int eoff = lane == 31 ? NC : -1 - NC * lane;
+  auto sides = [&](const C* qe, float first, float last, float& w,
+                   float& e) {
+    const float wl = __shfl_up_sync(0xffffffffu, last, 1);
+    const float er = __shfl_down_sync(0xffffffffu, first, 1);
+    const float v = *qe;
+    w = lane == 0 ? v : wl;
+    e = lane == 31 ? v : er;
+  };
+  // (A u) at the group's columns of one row, c1, from the rows above (c0)
+  // and below (c2); term order of the JAX package.
+  auto apply_row = [&](const Row5<C>& kr, const float (&c0)[NC],
+                       const float (&c1)[NC], const float (&c2)[NC], float w,
+                       float e, float (&au)[NC]) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      au[j] = apply5(kr, c1[j], c0[j], c2[j], j ? c1[j - 1] : w,
+                     j < NC - 1 ? c1[j + 1] : e);
+  };
+  // A region whose columns all lie inside the domain steps without the
+  // column masks (the same for the whole block).
+  const int gxr = col0 + x0 - HL;  // the region's first global column
+  const bool allin = gxr >= 0 && gxr + RG::SW <= nxg;
+  auto step = [&](auto masked, C a, C bt, const C* src, C* dst) {
+    constexpr bool M = decltype(masked)::value;
+    const C* q = src + RG::at(r0, sx);
+    float c0[NC], c1[NC], c2[NC];
+    ldv<NC>(q - RG::PW, c0);
+    ldv<NC>(q, c1);
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      ldv<NC>(q + (i + 1) * RG::PW, c2);
+      const Row5<C> kr = row5(crow + 8 * (r0 + i));
+      float w, e, au[NC], nv[NC];
+      sides(q + i * RG::PW + eoff, c1[0], c1[NC - 1], w, e);
+      apply_row(kr, c0, c1, c2, w, e, au);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        C z = kr.dinv * (bq[i][j] - au[j]);
+        if (M) z = in[j] ? z : 0.f;
+        pq[i][j] = bt * pq[i][j] + a * z;  // p = 0 before the first step
+        nv[j] = c1[j] + pq[i][j];
+      }
+      stv<NC>(dst + RG::at(r0 + i, sx), nv);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) c0[j] = c1[j], c1[j] = c2[j];
+    }
+  };
+  for (int s = 0; s < k; ++s) {
+    const C a = steps[2 * s];
+    const C bt = steps[2 * s + 1];
+    if (!GUESS && s == 0) {  // u = 0: z = D^-1 b
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        const C d = crow[8 * (r0 + i) + 5];
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          pq[i][j] = a * (in[j] ? d * bq[i][j] : 0.f);
+        stv<NC>(nxt + RG::at(r0 + i, sx), pq[i]);
+      }
+    } else if (allin) {
+      step(std::false_type{}, a, bt, cur, nxt);
+    } else {
+      step(std::true_type{}, a, bt, cur, nxt);
+    }
+    __syncthreads();
+    C* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // The emits, each thread on its own pairs of the output tile (RC: and
+  // the restriction's one more row / column), pair by pair: a pair starts
+  // at an even tile column, and the tile's width is even, so it lies
+  // wholly in or out of the tile.
+  bool wo[NC];  // columns written
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int tx = sx + (j & ~1) - HL;
+    wo[j] = tx >= 0 && tx < TX && lx + j < nx;
+  }
+  // The pad column is 0 (a block's; a whole grid has none).
+  bool xin[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) xin[j] = !ROWS || gx + j < nxg;
+  C acc = 0.f;
+  if constexpr (EMIT == EMIT_U) {
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      if (ty < 0 || ty >= TY || ly >= R) continue;
+      const bool inr = !ROWS || row0 + ly < ny;
+      float uv[NC];
+      ldv<NC>(cur + RG::at(sy, sx), uv);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int j = 2 * p;
+        if (!wo[j]) continue;
+        put_pair(io.u_out + (size_t)ly * nx + lx + j,
+                 inr && xin[j] ? uv[j] : 0.f,
+                 inr && xin[j + 1] ? uv[j + 1] : 0.f, wo[j], wo[j + 1]);
+        if (DOT) {
+          acc += bq[i][j] * uv[j];
+          if (wo[j + 1]) acc += bq[i][j + 1] * uv[j + 1];
+        }
+      }
+    }
+  } else {
+    const C* q = cur + RG::at(r0, sx);
+    float c0[NC], c1[NC], c2[NC];
+    ldv<NC>(q - RG::PW, c0);
+    ldv<NC>(q, c1);
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      ldv<NC>(q + (i + 1) * RG::PW, c2);
+      // Only the tile's rows (RC: and the restriction's one more) need a
+      // residual; the test is the same for the whole warp.
+      if (ty >= 0 && (EMIT == EMIT_RC ? ty <= TY : ty < TY && ly < R)) {
+        const Row5<C> kr = row5(crow + 8 * sy);
+        float w, e, au[NC], r[NC];
+        sides(q + i * RG::PW + eoff, c1[0], c1[NC - 1], w, e);
+        apply_row(kr, c0, c1, c2, w, e, au);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) r[j] = bq[i][j] - au[j];
+        if (ty < TY && ly < R) {
+          const bool inr = !ROWS || row0 + ly < ny;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int j = 2 * p;
+            if (!wo[j]) continue;
+            const size_t g = (size_t)ly * nx + lx + j;
+            const bool i0 = inr && xin[j], i1 = inr && xin[j + 1];
+            if (EMIT != EMIT_R)
+              put_pair(io.u_out + g, i0 ? c1[j] : 0.f, i1 ? c1[j + 1] : 0.f,
+                       wo[j], wo[j + 1]);
+            if (EMIT != EMIT_RC)
+              put_pair(io.r_out + g, i0 ? r[j] : 0.f, i1 ? r[j + 1] : 0.f,
+                       wo[j], wo[j + 1]);
+          }
+        }
+        // The residual into the free buffer (the restriction reads its
+        // footprint), 0 on the global pad row and column.
+        if (EMIT == EMIT_RC) {
+          const bool iy = gy0 + sy < ny;
+#pragma unroll
+          for (int j = 0; j < NC; ++j) r[j] = iy && gx + j < nxg ? r[j] : 0.f;
+          stv<NC>(nxt + RG::at(sy, sx), r);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j) c0[j] = c1[j], c1[j] = c2[j];
+    }
+  }
+  if constexpr (EMIT == EMIT_RC) {
+    __syncthreads();
+    // Full weighting, y pass first, then x (ops/transfer.restrict_fw), as
+    // visit5_kernel: a warp per coarse row, its lanes along the coarse
+    // columns; the coarse pad row and column are 0.
+    for (int cy = wid; cy < TY / 2; cy += RG::NT / 32) {
+      const int I = y0 / 2 + cy;  // local coarse row
+      if (I >= Rc) break;
+      for (int cx = lane; cx < TX / 2; cx += 32) {
+        const int J = x0 / 2 + cx;  // local coarse column
+        if (J >= Cc) break;
+        const C* f = nxt + RG::at(2 * cy + H, 2 * cx + HL);  // (2I, 2J)
+        C ycol[3];
+        for (int d = 0; d < 3; ++d)
+          ycol[d] = f[d] + 2.f * f[RG::PW + d] + f[2 * RG::PW + d];
+        put(io.rc_out, (size_t)I * Cc + J,
+            !ROWS || (row0 / 2 + I < nyc && col0 / 2 + J < nxc)
+                ? 0.0625f * (ycol[0] + 2.f * ycol[1] + ycol[2])
+                : 0.f);
+      }
+    }
+  }
+  if (DOT) {
+    const C sum = mg::block_sum<RG::NT>(acc, red);
+    if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+template <class T, bool GUESS, bool CORRECT, bool ROWS>
+VisitFn<T, Coeffs<T>> pick_emit5p(int emit, bool dot) {
+  if (dot)  // DOT goes with emit u, on whole grids
+    return emit == EMIT_U && !ROWS
+               ? visit5p_kernel<T, GUESS, CORRECT, EMIT_U, true, false>
+               : nullptr;
+  switch (emit) {
+    case EMIT_U:
+      return visit5p_kernel<T, GUESS, CORRECT, EMIT_U, false, ROWS>;
+    case EMIT_UR:
+      return visit5p_kernel<T, GUESS, CORRECT, EMIT_UR, false, ROWS>;
+    case EMIT_R:
+      return visit5p_kernel<T, GUESS, CORRECT, EMIT_R, false, ROWS>;
+    case EMIT_RC:
+      return visit5p_kernel<T, GUESS, CORRECT, EMIT_RC, false, ROWS>;
+  }
+  return nullptr;
+}
+
+// visit5p_kernel's instantiation for a flag set (pick_visit5's family
+// without CG), or null.
+template <class T, bool ROWS>
+VisitFn<T, Coeffs<T>> pick_visit5p(int flags) {
+  const bool guess = flags & F_GUESS, correct = flags & F_CORRECT;
+  const bool dot = flags & F_DOT;
+  const int emit = flags >> EMIT_SHIFT;
+  if (flags & F_CG) return nullptr;
+  if (!guess)
+    return correct ? nullptr : pick_emit5p<T, false, false, ROWS>(emit, dot);
+  return correct ? pick_emit5p<T, true, true, ROWS>(emit, dot)
+                 : pick_emit5p<T, true, false, ROWS>(emit, dot);
 }
 
 // ---- The 9-point visit (K13, K14, K17's 9-point blocks): its own kernel.
@@ -1610,6 +2190,22 @@ int launch_region5(const Coeffs<T>& c, const VisitIO<T>& io,
   return (int)cudaGetLastError();
 }
 
+// The bf16 step's launch (visit5p_kernel, the rule v5_pair).
+template <class T, bool ROWS>
+int launch_pair5(const Coeffs<T>& c, const VisitIO<T>& io,
+                 const Block<T>& rb, int nx, const compute_t<T>* steps, int k,
+                 int H, int flags, void* stream) {
+  VisitFn<T, Coeffs<T>> kern = pick_visit5p<T, ROWS>(flags);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = visit5p_smem_bytes();
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  kern<<<visit5p_grid(rb.R, nx, H), V5Pair::NT, smem,
+         (cudaStream_t)stream>>>(c, io, rb, nx, H, steps, k);
+  return (int)cudaGetLastError();
+}
+
 // The 5-point visit's grid for halo H in compute type C: its region by
 // the rule on H (v5_tall).
 template <class C>
@@ -1629,6 +2225,10 @@ int launch_visit(const K& c, const VisitIO<T>& io, const Block<T>& rb,
     const int H = halo(flags >> EMIT_SHIFT, k);
     if (k < 1 || !block_ok<T, ROWS>(rb, H, flags))
       return (int)cudaErrorInvalidValue;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      if (v5_pair<T>(H))
+        return launch_pair5<T, ROWS>(c, io, rb, nx, steps, k, H, flags,
+                                     stream);
     if constexpr (sizeof(compute_t<T>) == 4)
       if (v5_tall<compute_t<T>>(H))
         return launch_region5<T, ROWS, V5Tall>(c, io, rb, nx, steps, k, H,

@@ -68,6 +68,12 @@ REGION9_Y, REGION9_X, THREADS9 = 64, 64, 256
 # past it, for the f32 compute type only).
 REGION5_SHORT, REGION5_TALL, V5_SHORT_MAX_H = (64, 128), (128, 128), 8
 STRIPS5 = 4  # strips down a 5-point region's column (Region5 GY)
+# csrc/visit.cuh Region5P: the bf16 step's region (rows, columns), the
+# columns a thread owns (V5P_NC; a warp takes 32 * V5P_NC), the strips down
+# a column group (V5P_GY), and the rule on h that sends a bf16-storage
+# visit (a block's or a whole grid's) to it (V5_PAIR_MAX_H).
+REGION5_PAIR, COLS5_PAIR, STRIPS5_PAIR = (64, 128), 4, 16
+V5_PAIR_MAX_H = 8
 # The 5-point visit's largest halo by the compute type's item size: the
 # wrappers' sweep bound, a contract the tests pin (with emit rc 43 steps in
 # f32 and bf16, 23 in f64; emit u 45 and 25).  It is the bound of the first
@@ -297,24 +303,41 @@ def visit_fits(kinds, h: int, itemsize: int = 4) -> bool:
     return 2 * h <= min(sh, sw) - 2
 
 
+def visit5_pairs(h: int, itemsize: int) -> bool:
+    """Whether a 5-point visit of halo h takes the bf16 step (visit.cuh
+    v5_pair): bf16 storage (``itemsize`` 2) and h <= V5_PAIR_MAX_H."""
+    return itemsize == 2 and 1 <= h <= V5_PAIR_MAX_H
+
+
+def visit5_xhalo(h: int, itemsize: int) -> int:
+    """The columns a 5-point region keeps at each side of its tile: h, or
+    on the bf16 step h rounded up to even (visit.cuh v5p_xhalo), so that
+    a thread's column pairs start at even global columns."""
+    return h + (h & 1) if visit5_pairs(h, itemsize) else h
+
+
 def visit5_region(h: int, itemsize: int = 4) -> tuple[int, int]:
-    """The (rows, columns) region a 5-point visit of halo h takes in a
-    compute type of ``itemsize`` bytes (visit.cuh v5_tall): the short
-    region up to h = V5_SHORT_MAX_H, the tall one past it in f32 (an f64
-    visit keeps the short one: the tall one's two f64 buffers exceed a
-    block's shared memory)."""
-    tall = itemsize == 4 and h > V5_SHORT_MAX_H
+    """The (rows, columns) region a 5-point visit of halo h takes for a
+    storage type of ``itemsize`` bytes (visit.cuh v5_pair, v5_tall): the
+    bf16 step's region where ``visit5_pairs`` says so; else the short
+    region up to h = V5_SHORT_MAX_H and the tall one past it (f32 compute:
+    f32 and bf16 storage; an f64 visit keeps the short one: the tall
+    one's two f64 buffers exceed a block's shared memory)."""
+    if visit5_pairs(h, itemsize):
+        return REGION5_PAIR
+    tall = itemsize <= 4 and h > V5_SHORT_MAX_H
     return REGION5_TALL if tall else REGION5_SHORT
 
 
 def visit5_grid(R: int, nx: int, h: int,
                 itemsize: int = 4) -> tuple[int, int, int, int]:
     """A 5-point visit's launch over R rows and nx columns (visit.cuh
-    visit5_grid): (blocks along x, blocks along y, tile rows, tile
-    columns); block (bx, by) writes the tile from local row by * tile rows
-    and column bx * tile columns."""
+    visit5_grid, visit5p_grid) for a storage type of ``itemsize`` bytes:
+    (blocks along x, blocks along y, tile rows, tile columns); block (bx,
+    by) writes the tile from local row by * tile rows and column bx *
+    tile columns."""
     sh, sw = visit5_region(h, itemsize)
-    ty, tx = sh - 2 * h, sw - 2 * h
+    ty, tx = sh - 2 * h, sw - 2 * visit5_xhalo(h, itemsize)
     return -(-nx // tx), -(-R // ty), ty, tx
 
 
@@ -335,9 +358,9 @@ def max_visit_steps(kinds, emit: str, itemsize: int = 4) -> int:
 
 def visit_partials(lib, kinds, ny: int, nx: int, h: int,
                    itemsize: int = 4) -> int:
-    """Number of per-block dot partials a visit launch writes (its
-    blocks; the 5-point visit's region follows h and the compute type's
-    ``itemsize``)."""
+    """Number of per-block dot partials a whole-grid visit launch writes
+    (its blocks; the 5-point visit's region follows h and the storage
+    type's ``itemsize``: 2 is bf16 storage, ``visit5_region``)."""
     if kinds is None:
         return lib.mg_visit5_blocks(ny, nx, h, itemsize)
     return lib.mg_visit9_blocks(ny, nx, h)
@@ -461,7 +484,8 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
                    r=new((ny, nx), emit in ("ur", "r")),
                    rc=new((nyc, nxc), emit == "rc"),
                    r_new=new((ny, nx), cg),
-                   dot=new((visit_partials(lib, kinds, ny, nx, h, size),),
+                   dot=new((visit_partials(lib, kinds, ny, nx, h,
+                                           dtype.itemsize),),
                            cg or emit_dot, compute_dtype(dtype)))
     flags = ((_F_CG if cg else 0) | (_F_GUESS if u is not None else 0)
              | (_F_CORRECT if e_c is not None else 0)

@@ -36,28 +36,53 @@ def threads(sh: int, sw: int):
             yield (wid % gx) * 32 + lane, (wid // gx) * rs
 
 
-def visit5_cover(R: int, nx: int, h: int, itemsize: int, Rc=None):
+def pair_threads(sh: int, sw: int):
+    """(first column, first strip row) of each thread of a block of the
+    bf16 step (visit5p_kernel), which owns NC columns from sx: sx =
+    (wid % GX) * 32 NC + NC lane, r0 = (wid / GX) * RS, GX = sw / 32 NC."""
+    nc = tmdma.COLS5_PAIR
+    gx, rs = sw // (32 * nc), sh // tmdma.STRIPS5_PAIR
+    for wid in range(gx * tmdma.STRIPS5_PAIR):
+        for lane in range(32):
+            yield (wid % gx) * 32 * nc + nc * lane, (wid // gx) * rs
+
+
+def visit5_cover(R: int, nx: int, h: int, itemsize: int, Rc=None,
+                 Cc=None):
     """Times each output row / column and each coarse row / column is
     written by a 5-point visit of halo h over R x nx with Rc coarse rows
-    ((R - 1) / 2 for a whole grid).  The kernel's
+    ((R - 1) / 2 for a whole grid; Cc coarse columns likewise) in a
+    storage type of ``itemsize`` bytes (2: bf16, whose step owns groups
+    of columns).  The kernel's
     conditions are a row test and a column test (xt and ty in range), so
     each axis is counted on its own; the coarse points come from the
     restriction's warp x lane loops."""
     sh, sw = tmdma.visit5_region(h, itemsize)
     nbx, nby, ty_n, tx_n = tmdma.visit5_grid(R, nx, h, itemsize)
-    rs = sh // tmdma.STRIPS5
+    hl = tmdma.visit5_xhalo(h, itemsize)
+    pairs = tmdma.visit5_pairs(h, itemsize)
+    rs = sh // (tmdma.STRIPS5_PAIR if pairs else tmdma.STRIPS5)
     cols, rows = np.zeros(nx, int), np.zeros(R, int)
-    ccols = np.zeros((nx - 1) // 2, int)
+    ccols = np.zeros((nx - 1) // 2 if Cc is None else Cc, int)
     crows = np.zeros((R - 1) // 2 if Rc is None else Rc, int)
-    owned = sorted(threads(sh, sw))
+    if pairs:
+        starts = sorted(pair_threads(sh, sw))
+        owned = sorted((sx + j, r0) for sx, r0 in starts
+                       for j in range(tmdma.COLS5_PAIR))
+        # A group's pairs start at even region columns and, the x-halo
+        # and the tile being even, lie wholly in or out of the tile.
+        assert hl % 2 == 0 and tx_n % 2 == 0
+        assert all(sx % 2 == 0 for sx, _ in starts)
+    else:
+        starts = owned = sorted(threads(sh, sw))
     # Every region point belongs to exactly one thread.
     pts = [(r0 + i, sx) for sx, r0 in owned for i in range(rs)]
     assert len(pts) == len(set(pts)) == sh * sw
-    nt = len(owned)
+    nt = len(starts)
     for bx in range(nbx):
         x0 = bx * tx_n
         for sx in sorted({sx for sx, _ in owned}):
-            tx = sx - h
+            tx = sx - hl
             if 0 <= tx < tx_n and x0 + tx < nx:
                 cols[x0 + tx] += 1
         for cx in range(tx_n // 2):  # lanes, then 32 apart
@@ -95,6 +120,179 @@ def test_visit5_covers_each_point_once(shape, itemsize):
             cols, rows, ccols, crows = visit5_cover(ny, nx, h, itemsize)
             assert (cols == 1).all() and (rows == 1).all(), (emit, k)
             assert (ccols == 1).all() and (crows == 1).all(), (emit, k)
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_visit5_bf16_covers_each_point_once(shape):
+    """bf16 storage on a whole grid (a thread per group of columns up to
+    V5_PAIR_MAX_H, f32's regions past it): every output point and every
+    coarse point once, for every emit and every sweep count up to bf16's
+    bound (f32's: 43 steps with emit rc)."""
+    ny, nx = shape
+    for emit in EMITS:
+        for k in range(1, tmdma.max_visit_steps(None, emit, 4) + 1):
+            h = tmdma._halo(emit, k)
+            cols, rows, ccols, crows = visit5_cover(ny, nx, h, 2)
+            assert (cols == 1).all() and (rows == 1).all(), (emit, k)
+            assert (ccols == 1).all() and (crows == 1).all(), (emit, k)
+
+
+# K17's bf16 blocks (R, C): row blocks (C = nxg, odd: every level is
+# 2^m - 1 wide) and 2-D blocks of 2x2, 2x1 (an odd row stride) and 1x2
+# (an odd row count) cuts.
+BF16_BLOCKS = ((2048, 8191), (280, 1119), (32, 63), (8, 33), (4096, 4096),
+               (4096, 8191), (8191, 4096), (64, 127), (127, 64))
+
+
+@pytest.mark.parametrize("block", BF16_BLOCKS)
+def test_visit5_bf16_blocks_cover_once(block):
+    """K17's bf16 blocks: each of a block's rows, columns, coarse rows and
+    coarse columns (R / 2, C / 2: the floor on an axis not split) once,
+    for every emit and every sweep count up to bf16's bound whose halo
+    the block carries (h <= R and C)."""
+    R, C = block
+    for emit in ("u", "ur", "r", "rc"):
+        for k in range(1, tmdma.max_visit_steps(None, emit, 4) + 1):
+            h = tmdma._halo(emit, k)
+            if h > min(R, C):
+                break
+            cols, rows, ccols, crows = visit5_cover(
+                R, C, h, 2, Rc=R // 2, Cc=C // 2)
+            assert (cols == 1).all() and (rows == 1).all(), (emit, k)
+            assert (ccols == 1).all() and (crows == 1).all(), (emit, k)
+            if tmdma.visit5_pairs(h, 2):
+                # The restriction's footprint pair at tile column TX (TX
+                # and TX + 1) lies inside the region.
+                sw = tmdma.visit5_region(h, 2)[1]
+                hl = tmdma.visit5_xhalo(h, 2)
+                assert sw - 2 * hl + 1 + hl <= sw - 1
+
+
+def block_point(ly: int, lx: int, R: int, C: int, hn: int, hx: int):
+    """(buffer, row, column) that holds a block's local point (ly, lx), as
+    the kernel's Column / block_at find it, or None past the halos: the
+    block (C wide), the left and right buffers (hx wide), the top and
+    bottom buffers (C + 2 hx wide, the corners included)."""
+    if 0 <= ly < R:
+        if 0 <= lx < C:
+            return "mid", ly, lx
+        if -hx <= lx < 0:
+            return "left", ly, lx + hx
+        if C <= lx < C + hx:
+            return "right", ly, lx - C
+        return None
+    if -hx <= lx < C + hx:
+        if -hn <= ly < 0:
+            return "top", ly + hn, lx + hx
+        if R <= ly < R + hn:
+            return "bot", ly - R, lx + hx
+    return None
+
+
+def pair_loads(R, C, row0, col0, nyg, nxg, hx, h, bases):
+    """The loads of b a bf16 K17 visit of halo h makes (visit5p_kernel),
+    CUDA block by CUDA block: ((by, bx), buffer, element address, width)
+    with each buffer's first element at ``bases[buffer]``.  A thread's
+    group of columns loads pair by pair: a pair (both columns inside the
+    domain and in one buffer) is one 2-wide load where its address is
+    even (4-byte aligned), else two 1-wide loads; any other pair loads
+    each of its columns on its own."""
+    widths = {"mid": C, "left": hx, "right": hx, "top": C + 2 * hx,
+              "bot": C + 2 * hx}
+    sh, sw = tmdma.visit5_region(h, 2)
+    hl = tmdma.visit5_xhalo(h, 2)
+    nbx, nby, ty, tx = tmdma.visit5_grid(R, C, h, 2)
+    rs = sh // tmdma.STRIPS5_PAIR
+    loads = []
+    for by in range(nby):
+        for bx in range(nbx):
+            y0, x0 = by * ty, bx * tx
+            # Each pair of each thread's group of columns.
+            for sx, r0 in ((s0 + j, r) for s0, r in pair_threads(sh, sw)
+                           for j in range(0, tmdma.COLS5_PAIR, 2)):
+                lx = x0 - hl + sx
+                gx = col0 + lx
+                in1 = 0 <= gx and gx + 1 < nxg
+                pair = in1 and (0 <= lx and lx + 1 < C
+                                or -hx <= lx and lx + 1 < 0
+                                or C <= lx and lx + 1 < C + hx)
+                for i in range(rs):
+                    ly = y0 - h + r0 + i
+                    if not 0 <= row0 + ly < nyg:
+                        continue
+                    for j in ((0,) if pair else (0, 1)):
+                        if not 0 <= gx + j < nxg:
+                            continue
+                        pt = block_point(ly, lx + j, R, C, h, hx)
+                        if pt is None:
+                            continue
+                        buf, row, col = pt
+                        a = bases[buf] + row * widths[buf] + col
+                        if pair and a % 2 == 0:
+                            loads.append(((by, bx), buf, a, 2))
+                        elif pair:
+                            loads += [((by, bx), buf, a, 1),
+                                      ((by, bx), buf, a + 1, 1)]
+                        else:
+                            loads.append(((by, bx), buf, a, 1))
+    return loads, widths
+
+
+# (R, C, row0, col0, nyg, nxg, 2-D): row blocks of odd width (63^2 on 2
+# blocks, 255^2 on 4), and 2-D blocks: 2x2 of 63^2, a 2x1 cut of 127^2
+# (an odd row stride), a 1x2 cut of 127^2.
+PAIR_CUTS = ((32, 63, 32, 0, 63, 63, False), (64, 255, 128, 0, 255, 255,
+                                              False),
+             (32, 32, 32, 0, 63, 63, True), (32, 32, 0, 32, 63, 63, True),
+             (64, 127, 64, 0, 127, 127, True), (127, 64, 0, 64, 127, 127,
+                                                True))
+
+
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("cut", PAIR_CUTS)
+def test_bf16_pair_loads_aligned_and_once(cut, odd):
+    """The bf16 step's loads of b, mirrored from its rule: each point the
+    region reads (inside the domain and the halo buffers) is read exactly
+    once in each CUDA block; every 2-wide (__nv_bfloat162) load is 4-byte
+    aligned and holds two neighbouring points of one buffer row, with the
+    buffers' first elements aligned or not (``odd``: a view at an odd
+    element offset), at every halo the bf16 step takes."""
+    R, C, row0, col0, nyg, nxg, two_d = cut
+    bases = {name: (2 * i + 1 if odd else 2 * i) * 10**6
+             for i, name in enumerate(("mid", "left", "right", "top",
+                                       "bot"))}
+    for h in range(1, tmdma.V5_PAIR_MAX_H + 1):
+        if h > min(R, C):
+            break
+        hx = h if two_d else 0
+        loads, widths = pair_loads(R, C, row0, col0, nyg, nxg, hx, h, bases)
+        seen = {}
+        for blk, buf, a, w in loads:
+            if w == 2:
+                assert a % 2 == 0, (h, buf, a)
+                # Both values in one row of the buffer.
+                assert (a - bases[buf]) % widths[buf] + 1 < widths[buf]
+            for x in range(a, a + w):
+                seen[(blk, buf, x)] = seen.get((blk, buf, x), 0) + 1
+        assert max(seen.values()) == 1, h
+        # The points each CUDA block needs: its region's points inside the
+        # domain and the buffers.
+        sh, sw = tmdma.visit5_region(h, 2)
+        hl = tmdma.visit5_xhalo(h, 2)
+        nbx, nby, ty, tx = tmdma.visit5_grid(R, C, h, 2)
+        want = set()
+        for by in range(nby):
+            for bx in range(nbx):
+                for ly in range(by * ty - h, by * ty - h + sh):
+                    for lx in range(bx * tx - hl, bx * tx - hl + sw):
+                        pt = block_point(ly, lx, R, C, h, hx)
+                        if (pt is None or not 0 <= row0 + ly < nyg
+                                or not 0 <= col0 + lx < nxg):
+                            continue
+                        buf, row, col = pt
+                        want.add(((by, bx), buf,
+                                  bases[buf] + row * widths[buf] + col))
+        assert set(seen) == want, h
 
 
 @pytest.mark.parametrize("R", [2048, 1026, 34, 8])
@@ -167,7 +365,8 @@ def _cuh_int(text: str, pattern: str) -> tuple[int, ...]:
     return tuple(int(g) for g in m.groups())
 
 
-@pytest.mark.parametrize("name", ["short", "tall", "rule", "apply9"])
+@pytest.mark.parametrize("name", ["short", "tall", "rule", "apply9",
+                                  "pair"])
 def test_mirror_matches_visit_cuh(name):
     """The mirror's constants are the kernels': read from the source the
     card builds (Region5<GX, GY, RS> gives a region of RS * GY rows and
@@ -186,6 +385,19 @@ def test_mirror_matches_visit_cuh(name):
         assert _cuh_int(text, r"constexpr int V5_SHORT_MAX_H = (\d+);") == (
             tmdma.V5_SHORT_MAX_H,)
         assert "sizeof(C) == 4 && H > V5_SHORT_MAX_H" in text
+    elif name == "pair":
+        # Region5P<W / (32 NC), GY, RS, NC>: RS * GY rows, W columns, NC
+        # a thread; the rule on H and the even x-halo.
+        nc, gy, rs = _cuh_int(
+            text, r"constexpr int V5P_NC = (\d+), V5P_GY = (\d+), "
+                  r"V5P_RS = (\d+);")
+        (w,) = _cuh_int(text, r"using V5Pair = Region5P<(\d+) / \(32 \* "
+                              r"V5P_NC\), V5P_GY, V5P_RS, V5P_NC>;")
+        assert (rs * gy, w) == tmdma.REGION5_PAIR
+        assert (nc, gy) == (tmdma.COLS5_PAIR, tmdma.STRIPS5_PAIR)
+        assert _cuh_int(text, r"constexpr int V5_PAIR_MAX_H = (\d+);") == (
+            tmdma.V5_PAIR_MAX_H,)
+        assert "return H + (H & 1);" in text
     else:
         (rs,) = _cuh_int(text, r"constexpr int A9_RS = (\d+);")
         (gx,) = _cuh_int(text, r"constexpr int A9_GX = (\d+);")
