@@ -17,13 +17,13 @@ by least squares as us of device time per tile = once + k * per step
 once (staging, loads, residual, restriction, stores) from its steps.
 
 Cases "k17", K17's 5-point visit on a block of the n^2 level as the bf16
-preconditioner's split levels run it, in bf16 storage and in f32 beside
-it: a row block (block 1 of 4, 2048 x 8191 at n = 8191, halo rows cut
+preconditioner's split levels run it, in bf16 storage and in f32 and f64
+beside it: a row block (block 1 of 4, 2048 x 8191 at n = 8191, halo rows cut
 from its neighbours) and a 2-D block (block 1 of 2x2, 4096^2, its ring
 cut from its neighbours), each for zero-guess rc and correct + u at
 k = 3; the bf16 zero-guess rc series k = 1, 2, 3, 5, 6 on both blocks,
 fitted as above; and the whole-grid bf16 K2b (zero-guess rc) and K3
-(correct + u + <b, u>) at k = 3 beside f32's.  Every case is held to its
+(correct + u + <b, u>) at k = 3 beside f32's and f64's.  Every case is held to its
 plain version first (bf16: one bf16 ulp of each entry or TOL_ARRAY of
 max|plain|) and then timed as device time: 20 launches queued behind a
 sleep (``device_ms``), no wrapper host time.  The build's registers and
@@ -126,7 +126,7 @@ def device_ms(torch, fn, n: int = 20) -> float:
 
 def ulp_err(got, want) -> float:
     """The worst entry's error as a share of its limit: TOL_ARRAY of
-    max|plain| in f32, one bf16 ulp of the entry (or TOL_ARRAY of
+    max|plain| in f32 and f64, one bf16 ulp of the entry (or TOL_ARRAY of
     max|plain|) in bf16.  At most 1 passes."""
     import torch
 
@@ -220,8 +220,9 @@ def run_k17(n: int) -> dict:
         print(f"  {name}: {out[name]['device_ms']:.4f} ms device, "
               f"{err:.2f} of the limit", file=sys.stderr)
 
-    for dt in (torch.bfloat16, torch.float32):
-        tag = "bf16" if dt == torch.bfloat16 else "f32"
+    for dt in (torch.bfloat16, torch.float32, torch.float64):
+        tag = {torch.bfloat16: "bf16", torch.float32: "f32",
+               torch.float64: "f64"}[dt]
         st = stencil_coefficients(MeshType.UNIFORM, n, n, dt, dev)
         b = torch.randn((n, n), generator=gen, device=dev).to(dt)
         u = torch.randn((n, n), generator=gen, device=dev).to(dt)
