@@ -3283,10 +3283,9 @@ def phase_k17_blocks(torch, dev, rec):
     8191^2 level (with its pad row and column along a split axis) cut into
     2x2 blocks of 4096^2 and 1x2 blocks of 8191 x 4096, each block's ring
     cut from its neighbours; every emit of the 5-point visit (Jacobi k =
-    3) and of the aniso (1,1,1,2,0.4) 9-point visit in f32, the 5-point
-    zero-guess rc visit in f64, and the bf16 preconditioner's two 5-point
-    visits (zero-guess rc, correct + u) in bf16 (storage).  The stitched
-    blocks are held to the
+    3) and of the aniso (1,1,1,2,0.4) 9-point visit in f32, every emit of
+    the 5-point visit in bf16 (storage), the 5-point zero-guess rc visit
+    in f64.  The stitched blocks are held to the
     whole-grid kernel of the same flags (K9 / K6 / residual5 / K12 / K14)
     and to the plain block version (TOL_ARRAY of max|plain|; bf16: one
     bf16 ulp); the pad row
@@ -3323,8 +3322,8 @@ def phase_k17_blocks(torch, dev, rec):
         ("a", True, (), "a", False),
         ("r", True, (), "r", False),
     )
-    # The bf16 preconditioner's split levels run two 5-point visits: the
-    # zero-guess rc down and correct + u up.
+    # The bf16 preconditioner's split levels run two 5-point visits, timed
+    # as device time: the zero-guess rc down and correct + u up.
     pre = ("zero-guess rc", "correct + u")
     for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64"),
                     (torch.bfloat16, ".bf16")):
@@ -3344,7 +3343,6 @@ def phase_k17_blocks(torch, dev, rec):
             nine = isinstance(st, Stencil9)
             for label, guess, steps, emit, correct in modes:
                 if (dt == torch.float64 and label != "zero-guess rc"
-                        or dt == torch.bfloat16 and label not in pre
                         or nine and label == "correct + u"):
                     continue
                 k = len(steps)
