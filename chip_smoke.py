@@ -178,10 +178,24 @@ non-zero):
      level, mg-CG over a directly solved one); K17's 2-D mode on every
      rank, no K6 or K7 where every grid is split, only "agglomerate" and
      "coarsest" all-gathers, each run's launches, gathers with bytes and
-     ms per iteration (gloo host staging).
+     ms per iteration (gloo host staging);
+ 16. the blocks layout on any rank count (uneven blocks, nested and
+     even: ``device_mesh.block_sides``): (a) K17's 2-D block mode (5- and
+     9-point; zero-guess rc, u, correct + ur, a, r; f32, f64, bf16) and
+     K15's (y- and x-lines, the carry pass over unequal segment counts)
+     on the 1x3, 2x3 and 3x2 cuts of 8191^2 and a ragged 1119^2, against
+     the whole-grid kernels and their plain versions, the largest uneven
+     block's device time beside 13 (a)'s even block, the carry pass
+     through its offsets table against packing the ends first; (b) 6 and
+     3 ranks sharing the card over gloo at 8193^2: mg-CG on 2x3 and 1x3,
+     a V-cycle (forced 5) on 2x3, y-line mg-CG (forced 3) on 3x2, x-line
+     mg-CG (forced 3) on 2x3, D1 on 2 split grids (forced 10) on 1x3,
+     each held to its one-card twin; (c) 1025^2 mg-CG on 3 ranks, card
+     against CPU.
 Every path run starts with the launch counters at 0 and reads them right
 after (a rank's counters in its own process).  ``--only
-9a,9b,10,11a,11,12,13a,13,14,15`` runs the build and just those phases
+9a,9b,10,11a,11,12,13a,13,14,15,16a,16`` runs the build and just those
+phases
 (phase 4 first where they read it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
 result object.  With no CUDA device the script exits non-zero without
@@ -2175,16 +2189,18 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
 
 
 def rank_worker(argv) -> int:
-    """One rank of phase 9's and 11-15's worlds (``chip_smoke.py
+    """One rank of phase 9's and 11-16's worlds (``chip_smoke.py
     --rank RANK WORLD PORT DEVICE LABEL OUTDIR JOBS``): joins the gloo
     group, solves each job under ``row_plan(min_local=...)`` (the job's,
-    default 32; with "layout": "blocks" ``blocks_plan``) on DEVICE and
+    default 32; with "layout": "blocks" ``blocks_plan``, over the job's
+    "mesh" where it names one) on DEVICE and
     writes its results to OUTDIR/<job>.<LABEL>.<RANK>.json (rank 0 also
     the gathered solution of a job with "save_u"): its iterations,
     history, launches (per kernel and per K17 emit), the all-gathers the
     solve made (by what they gather, with their bytes), the axes the plan
     splits each level along and each grid of it (``grid_axes``), error
-    norms, wall seconds and, with "cert",
+    norms, wall seconds, the blocks plan's extents of level 0 and, with
+    "cert",
     the true f64 residual.  A job with "checkpoint": k first solves k
     iterations, saves a checkpoint under the plan, loads it and resumes
     from it (``utils.checkpoint``; the counters read the resumed solve)."""
@@ -2213,9 +2229,12 @@ def rank_worker(argv) -> int:
                             timeout=timedelta(seconds=P9_TIMEOUT))
     try:
         for job in jobs:
-            make = (blocks_plan if job.get("layout") == "blocks"
-                    else row_plan)
-            plan = make(min_local=job.get("min_local", 32), device=device)
+            kw = dict(min_local=job.get("min_local", 32), device=device)
+            if job.get("layout") == "blocks":
+                plan = blocks_plan(shape=tuple(job["mesh"]) if "mesh" in job
+                                   else None, **kw)
+            else:
+                plan = row_plan(**kw)
             cuda = plan.device.type == "cuda"
             cfg = config_of(job["cfg"])
             u0, ck = None, None
@@ -2267,6 +2286,8 @@ def rank_worker(argv) -> int:
                        grid_axes=[grid_axes(lv) for lv in res.ctx.levels],
                        errs=list(errs), wall=res.wall_time, ms=ms,
                        transport=plan.transport, checkpoint=ck,
+                       blocks0=(plan.extents(*res.ctx.levels[0].shape)
+                                if plan.layout == "blocks" else None),
                        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                                  if cuda else None))
             (out / f"{job['name']}.{label}.{rank}.json").write_text(
@@ -3491,29 +3512,38 @@ P13_LINE_CASES = ((8191, (2, 2), "f32", True), (8191, (1, 2), "f32", False),
                   (8191, (2, 1), "f32", False), (1023, (2, 2), "f64", False))
 
 
-def line_block_sweeps(torch, lk, st, b, u, my, mx, axis, plain):
+def line_block_sweeps(torch, lk, st, b, u, my, mx, axis, plain, sides=None):
     """One line sweep of K15's 2-D block mode (``plain``: its plain
     version) of the (ny, nx) level (b, u) cut into my x mx blocks with
-    their rings, run in one process as the ranks run it: y-lines (``axis``
-    0, ``st`` the collapsed line stencil) or x-lines (1: ``st`` the
-    transposed level's, each block and ring transposed,
+    their rings (equal ones, or ``sides``: the (rows, columns) of
+    ``uneven_blocks``), run in one process as the ranks run it: y-lines
+    (``axis`` 0, ``st`` the collapsed line stencil) or x-lines (1: ``st``
+    the transposed level's, each block and ring transposed,
     ``line_kernel.transpose_ring``), the first half on every block, its
     outputs stacked over the ranks the lines span (the all-gather; none
     along an axis of one rank), the second half on every block.  Returns
     (sweep: the stitched (ny + pad, nx + pad) result, the blocks' calls
     (line, b, u, ring, the stacked first halves) of the second half)."""
     ny, nx = b.shape
-    blocks = list(zip(k17_2d_blocks(b, my, mx, 1), k17_2d_blocks(u, my, mx,
-                                                                  1)))
-    R, C = blocks[0][0][2].shape
+    if sides is None:
+        blocks = list(zip(k17_2d_blocks(b, my, mx, 1),
+                          k17_2d_blocks(u, my, mx, 1)))
+        spans = (None, None)
+    else:
+        blocks = list(zip(uneven_blocks(b, *sides, 1),
+                          uneven_blocks(u, *sides, 1)))
+        spans = tuple(s if len(s) > 1 else None for s in sides)
     calls = []
     for (r0, c0, bb, _), (_, _, ub, ring) in blocks:
+        R, C = bb.shape
         if axis:
-            lf = lk.row_line(st, nx, C, c0, r0, min(R, ny - r0), plain=plain)
+            lf = lk.row_line(st, nx, C, c0, r0, min(R, ny - r0), plain=plain,
+                             blocks=spans[1])
             calls.append([lf, bb.T.contiguous(), ub.T.contiguous(),
                           lk.transpose_ring(ring)])
         else:
-            lf = lk.row_line(st, ny, R, r0, c0, min(C, nx - c0), plain=plain)
+            lf = lk.row_line(st, ny, R, r0, c0, min(C, nx - c0), plain=plain,
+                             blocks=spans[0])
             calls.append([lf, bb, ub, ring])
     begin = lk.line_rows_begin_plain if plain else lk.line_rows_begin
 
@@ -4166,16 +4196,493 @@ def run_phase15(torch):
     return timed_phase(torch, "15", phase_dist_blocks_merged)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the blocks layout on any rank count (uneven blocks).
+# ---------------------------------------------------------------------------
+
+# (a): the (my, mx) meshes the 8191^2 level and a ragged 1119^2 one are
+# cut on, as a solve's plan cuts them (min_local 32: nested even blocks,
+# 8191 + 1 over 3 ranks 2816 + 2688 + 2688, 1119 + 1 384 + 368 + 368).
+P16_MESHES = ((1, 3), (2, 3), (3, 2))
+P16_SIZES = (8191, 1119)
+P16_MIN_LOCAL = 32
+
+
+def p16_sides(n: int, m: int) -> tuple:
+    """The extents of an n-point axis over m ranks under the blocks plan
+    (``device_mesh.block_sides``; one whole block on an axis not split)."""
+    from multigrid_petsc_tpu_torch.parallel.device_mesh import block_sides
+
+    if m > 1 and n // m >= P16_MIN_LOCAL:
+        return block_sides(n, m, P16_MIN_LOCAL)
+    return (n,)
+
+
+def uneven_blocks(x, ys, xs, h):
+    """x's blocks of ``ys`` rows (by mesh row) and ``xs`` columns (by mesh
+    column), each with its depth-h ring cut from its neighbours (zeros
+    past the edges): [(row0, col0, block, Halo2)] in rank order."""
+    from multigrid_petsc_tpu_torch.parallel.block_ops import cut_halo
+
+    out, r0 = [], 0
+    for R in ys:
+        c0 = 0
+        for C in xs:
+            out.append((r0, c0, *cut_halo(x, r0, c0, R, C, h)))
+            c0 += C
+        r0 += R
+    return out
+
+
+def phase_k17_uneven(torch, dev, rec):
+    """16 (a): K17's 2-D block mode on uneven blocks in one process: the
+    8191^2 level and a ragged 1119^2 one cut as the blocks plan cuts them
+    on 1x3, 2x3 and 3x2 meshes (``p16_sides``), each block's ring cut from
+    its neighbours; the 5-point and the aniso (1,1,1,2,0.4) 9-point visit,
+    zero-guess rc, u, correct + ur (Jacobi k = 3), a and r, in f32, f64
+    and bf16.  The stitched blocks are held to the whole-grid kernel of
+    the same flags and to the plain block version (TOL_ARRAY of
+    max|plain|; bf16 one bf16 ulp); the pad row and column must be
+    exactly 0.  Device time (``device_ms``) of the largest block (block 0
+    of the 1x3 cut of 8191^2, 8191 x 2816) for the f32 5-point a, r and
+    zero-guess rc, beside the same on 13 (a)'s even 4096^2 block (block 1
+    of the 2x2 cut), per call and per million points."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil9_kernel as k9
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.ops.stencil import Stencil9
+    from multigrid_petsc_tpu_torch.parallel.block_ops import _cut_coeffs
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+        stencil_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    jac = jacobi_step_coeffs(3, 0.8)
+    gen = torch.Generator(device=dev).manual_seed(1616)
+    modes = (  # label, guess, steps, emit, correct
+        ("zero-guess rc", False, jac, "rc", False),
+        ("u", True, jac, "u", False),
+        ("correct + ur", True, jac, "ur", True),
+        ("a", True, (), "a", False),
+        ("r", True, (), "r", False),
+    )
+    timed = {}
+    for dt, sfx in ((torch.float32, ""), (torch.float64, ".f64"),
+                    (torch.bfloat16, ".bf16")):
+        key = dk.BLOCKS + sfx
+        rec.setdefault(key, {})
+        for n in P16_SIZES:
+            nxc = (n - 1) // 2
+            b = torch.randn((n, n), generator=gen, device=dev).to(dt)
+            u = torch.randn((n, n), generator=gen, device=dev).to(dt)
+            e = torch.randn((nxc, nxc), generator=gen, device=dev).to(dt)
+            for sname, st in (
+                    ("5-point", stencil_coefficients(MeshType.UNIFORM, n, n,
+                                                     dt, dev)),
+                    ("9-point", stencil9_coefficients(
+                        AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), n, n, dt,
+                        dev))):
+                nine = isinstance(st, Stencil9)
+                for label, guess, steps, emit, correct in modes:
+                    k = len(steps)
+                    h = dk.halo_rows(k, emit)
+                    hc = dk.coarse_halo_rows(h)
+                    if emit == "a":
+                        ref = ((k9.apply_stencil9 if nine else
+                                sk.apply_stencil5)(st, u),)
+                    elif emit == "r":
+                        ref = ((k9.residual9 if nine else sk.residual5)(
+                            st, b, u),)
+                    else:
+                        ref = (k9.fused_level_visit9 if nine else
+                               sk.fused_level_visit)(
+                            st, b, u if guess else None, steps, emit,
+                            e if correct else None)
+                        ref = ref if isinstance(ref, tuple) else (ref,)
+                    for my, mx in P16_MESHES:
+                        ys, xs = p16_sides(n, my), p16_sides(n, mx)
+                        bb = uneven_blocks(b, ys, xs, h)
+                        ub = uneven_blocks(u, ys, xs, h)
+                        eb = uneven_blocks(e, [r // 2 for r in ys],
+                                           [c // 2 for c in xs], hc)
+                        m = k + 2  # the coefficients a rank keeps
+
+                        def args(p):
+                            r0, c0, blk = bb[p][:3]
+                            R, C = blk.shape
+                            cr0, cc0 = max(0, r0 - m), max(0, c0 - m)
+                            stp = (_cut_coeffs(st, cr0, min(n, r0 + R + m),
+                                               cc0, min(n, c0 + C + m))
+                                   if nine else st)
+                            return (stp, None if emit == "a" else blk,
+                                    ub[p][2] if guess else None, steps,
+                                    emit), \
+                                dict(row0=r0, col0=c0, ny=n, nx=n,
+                                     b_halo=bb[p][3], u_halo=ub[p][3],
+                                     e=eb[p][2] if correct else None,
+                                     e_halo=eb[p][3] if correct else None,
+                                     coeff_row0=cr0 if nine else 0,
+                                     coeff_col0=cc0 if nine else 0)
+
+                        calls = [args(p) for p in range(my * mx)]
+
+                        def run(fn):
+                            outs = [fn(*a, **kw) for a, kw in calls]
+                            return stitch(torch, [o if isinstance(o, tuple)
+                                                  else (o,) for o in outs],
+                                          my, mx)
+
+                        tag = (f"16 (a) K17 2-D {sname} {label} {dt} "
+                               f"{n}^2 {my}x{mx} blocks {ys} x {xs}"
+                               ).replace("torch.", "")
+                        got, want = run(dk.block_visit), run(
+                            dk.block_visit_plain)
+                        for g, w, wh in zip(got, want, ref):
+                            ry, rx = wh.shape
+                            for x, what in ((g, "kernel"), (w, "plain")):
+                                assert bool((x[ry:] == 0).all()), \
+                                    f"{tag}: {what} pad row"
+                                assert bool((x[:, rx:] == 0).all()), \
+                                    f"{tag}: {what} pad column"
+                            compare(torch, f"{tag} vs plain", g, w,
+                                    rec[key])
+                            compare(torch, f"{tag} vs whole-grid kernel",
+                                    g[:ry, :rx], wh, {})
+                        if (n == 8191 and dt == torch.float32 and not nine
+                                and (my, mx) == (1, 3)
+                                and label in ("zero-guess rc", "a", "r")):
+                            a0, kw0 = calls[0]
+                            dms = device_ms(torch, lambda: dk.block_visit(
+                                *a0, **kw0))
+                            R, C = bb[0][2].shape
+                            timed[label] = dict(
+                                block=[R, C], device_ms=dms,
+                                ms_per_mpoint=1e6 * dms / (R * C))
+                        del got, want, bb, ub, eb, calls
+                    del ref
+                del st
+            del b, u, e
+            torch.cuda.empty_cache()
+    # 13 (a)'s even block beside the largest uneven one, in this process.
+    n = 8191
+    b = torch.randn((n, n), generator=gen, device=dev)
+    u = torch.randn((n, n), generator=gen, device=dev)
+    st = stencil_coefficients(MeshType.UNIFORM, n, n, torch.float32, dev)
+    for label, guess, steps, emit, _ in modes:
+        if label not in timed:
+            continue
+        h = dk.halo_rows(len(steps), emit)
+        r0, c0, bb, bh = k17_2d_blocks(b, 2, 2, h)[1]
+        ubk, uh = k17_2d_blocks(u, 2, 2, h)[1][2:]
+        R, C = bb.shape
+        dms = device_ms(torch, lambda: dk.block_visit(
+            st, None if emit == "a" else bb, ubk if guess else None, steps,
+            emit, row0=r0, col0=c0, ny=n, nx=n, b_halo=bh, u_halo=uh))
+        timed[label].update(even_block=[R, C], even_device_ms=dms,
+                            even_ms_per_mpoint=1e6 * dms / (R * C))
+        t = timed[label]
+        print(f"16 (a) K17 2-D 5-point {label} f32, device time: largest "
+              f"uneven block {t['block']} {t['device_ms']:.4f} ms "
+              f"({t['ms_per_mpoint']:.5f} ms per Mpoint); 13 (a)'s even "
+              f"block {t['even_block']} {dms:.4f} ms "
+              f"({t['even_ms_per_mpoint']:.5f} ms per Mpoint)")
+    rec[dk.BLOCKS]["uneven"] = timed
+    del b, u, st
+    torch.cuda.empty_cache()
+
+
+def carry_packed(torch, lk, lf, packed):
+    """Launch 2 on ends packed back to back ([every end; every start], one
+    piece: the carry pass's other design, which reads no offsets table):
+    this rank's carries."""
+    from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
+    from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import _stream
+
+    la = lf.launch
+    S = packed.shape[0] // 2
+    carries = torch.empty((2, lf.nseg, packed.shape[1]), dtype=la.dtype,
+                          device=la.device)
+    check(getattr(load_library(), "mg_line_rows_carry" + la.sfx)(
+        la.gptrs.ctypes.data, la.fsx, lf.seg, packed.data_ptr(), None, 1, S,
+        carries[0].data_ptr(), carries[1].data_ptr(), lf.row0 // lf.seg,
+        lf.nseg, lf.ny, packed.shape[1], _stream(la.device)),
+        "packed carry launch")
+    return carries
+
+
+def phase_line_uneven(torch, dev, rec):
+    """16 (a): K15's 2-D block mode on uneven blocks: the 8191^2 level and
+    the ragged 1119^2 one cut on 1x3, 2x3 and 3x2 meshes as the blocks
+    plan cuts them, y- and x-lines (``line_block_sweeps``) on aniso
+    (1,0,100,0,0) / (100,0,1,0,0) (the packed per-row table; the strong
+    direction along the lines) in f32, and (1,1,1,2,0.4) (factor fields)
+    on the 1x3 cut: one sweep of the stitched blocks held to the stitched
+    plain blocks, the whole-grid plain sweep and the whole-grid kernel
+    (TOL_LINE of max|plain|), the pads exactly 0.  The carry pass timed
+    alone as device time on block 0, over unequal segment counts (the
+    x-lines of the 1x3 cut of 8191^2: 88, 84 and 84 segments) and over
+    equal ones (the y-lines of the 2x3 cut: 128 and 128), reading the
+    gathered ends in place through the offsets table, against the other
+    design, the ends packed back to back first (``torch.cat``, then one
+    piece: no table), whose carries must be the same to the bit."""
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.ops.stencil import transpose_stencil9
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+
+    key = "line_visit9_blocks"
+    rec.setdefault(key, {})
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    for n in P16_SIZES:
+        b = torch.randn((n, n), generator=gen, device=dev)
+        u = torch.randn((n, n), generator=gen, device=dev)
+        for pname, prob, meshes in (
+                ("strong", None, P16_MESHES),
+                ("(1,1,1,2,0.4)", (1.0, 1.0, 1.0, 2.0, 0.4), ((1, 3),))):
+            for axis, lname in ((0, "y-lines"), (1, "x-lines")):
+                p = prob or ((1.0, 0.0, 100.0, 0.0, 0.0) if axis == 0
+                             else X_STRONG)
+                st9 = stencil9_coefficients(AnisoProblem(*p), n, n,
+                                            torch.float32, dev)
+                st = lk.collapse_stencil(transpose_stencil9(st9) if axis
+                                         else st9)
+                bt, ut = ((b.T.contiguous(), u.T.contiguous()) if axis
+                          else (b, u))
+                whole = lk.line_visit9_plain(st, bt, ut, 1, P11_OMEGA)
+                whole_k = lk.line_visit9(st, bt, ut, 1, P11_OMEGA)
+                if axis:
+                    whole, whole_k = whole.T, whole_k.T
+                del bt, ut
+                for my, mx in meshes:
+                    sides = (p16_sides(n, my), p16_sides(n, mx))
+                    tag = (f"16 (a) K15 2-D {lname} aniso {pname} {n}^2, "
+                           f"{my}x{mx} blocks {sides[0]} x {sides[1]}, f32")
+                    sweep, calls = line_block_sweeps(
+                        torch, lk, st, b, u, my, mx, axis, False, sides)
+                    psweep, _ = line_block_sweeps(
+                        torch, lk, st, b, u, my, mx, axis, True, sides)
+                    got, want = sweep(), psweep()
+                    for x, what in ((got, "kernel"), (want, "plain")):
+                        assert bool((x[n:] == 0).all()), f"{tag}: {what}"
+                        assert bool((x[:, n:] == 0).all()), f"{tag}: {what}"
+                    compare(torch, f"{tag} vs plain", got, want, rec[key],
+                            TOL_LINE)
+                    compare(torch, f"{tag} vs whole-grid plain (PCR)",
+                            got[:n, :n], whole, {}, TOL_LINE)
+                    compare(torch, f"{tag} vs whole-grid kernel",
+                            got[:n, :n], whole_k, {}, TOL_LINE)
+                    timed = {((1, 3), 1): "uneven", ((2, 3), 0): "even"}.get(
+                        ((my, mx), axis))
+                    if n == 8191 and prob is None and timed:
+                        lf, every = calls[0][0], calls[0][4]
+                        counts = lf.counts
+                        off = lf.launch.offsets.tolist()
+                        pieces = [every[2 * o:2 * o + 2 * c]
+                                  for o, c in zip(off, counts)]
+
+                        def pack():
+                            return torch.cat([q[:c] for q, c in
+                                              zip(pieces, counts)]
+                                             + [q[c:] for q, c in
+                                                zip(pieces, counts)])
+
+                        a_out = lk.line_rows_carry(lf, every)
+                        b_out = carry_packed(torch, lk, lf, pack())
+                        assert torch.equal(a_out, b_out), tag
+                        t_table = device_ms(
+                            torch, lambda: lk.line_rows_carry(lf, every))
+                        t_packed = device_ms(
+                            torch, lambda: carry_packed(torch, lk, lf,
+                                                        pack()))
+                        t_pack = device_ms(torch, pack)
+                        split = line_launch_ms(torch, lk, *calls[0])
+                        rec[key].setdefault("uneven", {})[timed] = dict(
+                            block=list(calls[0][1].shape),
+                            segments=list(counts), carry_table_ms=t_table,
+                            carry_packed_ms=t_packed, pack_ms=t_pack,
+                            launch_ms=split)
+                        print(f"  {tag}: block 0 {list(calls[0][1].shape)} "
+                              + ("(transposed), " if axis else "")
+                              + f"segments {list(counts)}: "
+                              f"carry pass device time, reading through "
+                              f"the offsets table {t_table:.4f} ms; packed "
+                              f"first {t_packed:.4f} ms (the pack alone "
+                              f"{t_pack:.4f} ms); the sweep's launches "
+                              f"{split}")
+                    del sweep, psweep, calls, got, want
+                    torch.cuda.empty_cache()
+                del whole, whole_k, st, st9
+        del b, u
+        torch.cuda.empty_cache()
+
+
+def p16_configs():
+    """Phase 16 (b)'s solves at 8193^2 (f32): name -> (config, the (my,
+    mx) mesh).  mg-CG is phase 4's config on 2x3 and on 1x3, a V-cycle
+    forced 5 on 2x3, aniso (1,0,100,0,0) y-line mg-CG forced 3 on 3x2
+    (the y-lines across three unequal blocks), aniso (100,0,1,0,0) x-line
+    mg-CG forced 3 on 2x3 (the x-lines across three), D1 on 2 grids forced
+    10 on 1x3 (both grids split into unequal blocks)."""
+    L = P9_N.bit_length() - 3
+    base = dict(npts=P9_N, grids=L, levels=L, dtype="float32", rtol=1e-5,
+                max_iter=100)
+    forced = dict(rtol=1e-30, divtol=1e30)
+    lines = dict(base, cycle=101, problem="aniso", max_iter=3, **forced)
+    return {
+        "mgcg6": (dict(base, cycle=101), (2, 3)),
+        "vcycle6": (dict(base, cycle=0, max_iter=5, **forced), (2, 3)),
+        "yline6": (dict(lines, aniso=[1.0, 0.0, 100.0, 0.0, 0.0],
+                        smoother="line_y"), (3, 2)),
+        "xline6": (dict(lines, aniso=list(X_STRONG), smoother="line_x"),
+                   (2, 3)),
+        "mgcg3": (dict(base, cycle=101), (1, 3)),
+        "d1_3": (dict(npts=P9_N, grids=2, levels=1, dtype="float32",
+                      cycle=CYCLE_IDS["D1CYCLE"], max_iter=10,
+                      **P12_FORCED), (1, 3)),
+    }
+
+
+def phase_dist_uneven(torch, main_ref):
+    """16 (b), (c): the blocks layout on 3 and 6 ranks sharing the card
+    over gloo (halos and gathers staged through the host, as phases 13-15),
+    ``blocks_plan(min_local=32)``, 8193^2: ``p16_configs``, each held to
+    its one-card twin (phase 4's solve for mg-CG, the others in this
+    process) with phases 13-15's bounds: iterations within 1 (forced
+    counts equal), error <= 1.1x the twin's, D1's history within 1e-5
+    and u within TOL_ARRAY of max|u|.  On every rank ``path == "cuda"``,
+    K17's 2-D mode launched, K15's 2-D mode in the line runs, no K1, K2a
+    or K4, and the all-gathers "agglomerate", "coarsest", "line" and
+    "solution" only; the split axes per level and the blocks of level 0
+    printed.  (c): 1025^2 mg-CG on 3 ranks (1x3, min_local 32: 1023^2 and
+    511^2 split along x, 340 + 342 + 342 columns ... ), card against CPU:
+    equal iterations, histories rtol 0.05 + atol 5e-6.  Ms per iteration
+    here measure gloo's host staging of ranks that share one card, not
+    the card."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import BLOCKS
+
+    big = p16_configs()
+    twins = {}
+    for name, (f, _) in big.items():
+        if name.startswith("mgcg"):
+            twins[name] = dict(iters=main_ref["iters"], err=main_ref["err"],
+                               u=main_ref["u"])
+        else:
+            twins[name] = merged_twin(torch, f)
+        t = twins[name]
+        print(f"16 one-card twin {name} {P9_N}^2: iters {t['iters']}, max "
+              f"error {t['err']:.6e}")
+    jobs = {6: [], 3: []}
+    for name, (f, mesh) in big.items():
+        jobs[mesh[0] * mesh[1]].append(dict(
+            name=name, cfg=f, layout="blocks", mesh=list(mesh),
+            save_u=True))
+    Ls = P9_SMALL.bit_length() - 3
+    parity = [dict(name="p1025", cfg=dict(npts=P9_SMALL, grids=Ls,
+                                          levels=Ls, cycle=101,
+                                          dtype="float32", rtol=1e-5,
+                                          max_iter=100),
+                   layout="blocks", mesh=[1, 3])]
+    allowed = {"agglomerate", "coarsest", "line", "solution"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        run_worlds([(jobs[6], "cuda", "card6", 6)], out)
+        run_worlds([(jobs[3], "cuda", "card3", 3),
+                    (parity, "cuda", "card1025", 3),
+                    (parity, "cpu", "cpu", 3)], out)
+        for name, (f, mesh) in big.items():
+            ranks = mesh[0] * mesh[1]
+            res = world_results(out, name, f"card{ranks}", ranks)
+            r0, t = res[0], twins[name]
+            iters = r0["iters"]
+            u = np.load(out / f"{name}.npy")
+            du = float(np.abs(u - t["u"]).max() / np.abs(t["u"]).max())
+            print(f"16 (b) {name} {P9_N}^2 grids {f['grids']} levels "
+                  f"{f['levels']}, {ranks} ranks ({mesh[0]}x{mesh[1]}) "
+                  f"sharing one card: iters {iters} (twin {t['iters']}), "
+                  f"path {r0['path']}, max error {r0['errs'][0]:.6e} (twin "
+                  f"{t['err']:.6e}), max|u - u_twin| / max|u_twin| "
+                  f"{du:.3e}; {1e3 * r0['wall'] / max(iters, 1):.3f} ms "
+                  f"per iteration (gloo host staging of {ranks} ranks on "
+                  f"one card, not the card)")
+            print(f"  residual history {r0['rnorm']}")
+            print(f"  split axes per level {r0['grid_axes']}; blocks of "
+                  f"level 0 {r0['blocks0']}")
+            for r, x in enumerate(res):
+                print(f"  rank {r}: launches {x['counts']}; K17 per emit "
+                      f"{x['emits']}; all-gathers {x['gathers']} "
+                      f"({x['gathered']} B sent); peak "
+                      f"{x['peak_gib']:.2f} GiB")
+            lines = "line" in name
+            for x in res:
+                assert x["path"] == "cuda", name
+                assert x["iters"] == iters and x["rnorm"] == r0["rnorm"]
+                assert x["counts"].get(BLOCKS, 0) > 0, name
+                for kk in MGCG_KERNELS:
+                    assert x["counts"].get(kk, 0) == 0, f"{name}: {kk}"
+                assert set(x["gathers"]) <= allowed, (name, x["gathers"])
+                assert (x["counts"].get("line_visit9_blocks", 0) > 0) == \
+                    lines, (name, x["counts"])
+            assert any(map(any, r0["axes"])), r0["axes"]
+            assert r0["axes"][0] == [mesh[0] > 1, True], r0["axes"]
+            assert all(e == e for e in r0["errs"]), r0["errs"]
+            assert r0["errs"][0] <= 1.1 * t["err"], (name, r0["errs"])
+            assert abs(iters - t["iters"]) <= 1, (name, iters, t["iters"])
+            if f.get("rtol", 1.0) > 1e-20:
+                assert r0["converged"], name
+            else:
+                assert iters == f["max_iter"], (name, iters)
+            if name == "d1_3":
+                dh = float(np.abs(np.asarray(r0["rnorm"])
+                                  - t["rnorm"]).max())
+                print(f"  max|history diff| {dh:.3e}")
+                assert dh <= 1e-5, dh
+                assert du <= TOL_ARRAY, du
+            else:
+                assert du <= 1e-3, (name, du)
+        g = world_results(out, "p1025", "card1025", 3)[0]
+        c = world_results(out, "p1025", "cpu", 3)[0]
+        print(f"16 (c) mg-CG {P9_SMALL}^2/{Ls} levels, 3 ranks (1x3): iters "
+              f"card {g['iters']} cpu {c['iters']}; rnorm card {g['rnorm']} "
+              f"cpu {c['rnorm']}; split axes {g['axes']}; blocks of level 0 "
+              f"{g['blocks0']}; card launches {g['counts']}; all-gathers "
+              f"{g['gathers']}")
+        assert g["converged"] and c["converged"]
+        assert g["path"] == "cuda" and c["path"] == "torch"
+        assert g["axes"] == c["axes"] and any(map(any, g["axes"]))
+        assert g["iters"] == c["iters"]
+        np.testing.assert_allclose(g["rnorm"], c["rnorm"], rtol=0.05,
+                                   atol=5e-6)
+
+
+def run_phase16(torch, dev, rec, main_ref):
+    """Phase 16: the blocks layout on any rank count."""
+    torch.cuda.empty_cache()
+    timed_phase(torch, "16 (a) K17", phase_k17_uneven, dev, rec)
+    timed_phase(torch, "16 (a) K15", phase_line_uneven, dev, rec)
+    timed_phase(torch, "16 (b), (c)", phase_dist_uneven, main_ref)
+
+
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
     named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10;
     11a: K17 in bf16 (phase 2d's check) and 11 (a); k15: K15's one-card
     checks at 8191^2 (phase 2's), 11 (a) and 13 (a)'s K15; 11: phase 11; 12:
     phase 12; 13a: K17's 2-D block mode and K15's; 13: phase 13; 14:
-    phase 14; 15: phase 15), with phase 4 first where they read it; no
-    result line, so a partial run never passes for a whole one."""
+    phase 14; 15: phase 15; 16a: phase 16 (a); 16: phase 16), with phase
+    4 first where they read it; no result line, so a partial run never
+    passes for a whole one."""
     main_ref = None
-    if {"9b", "10", "13", "14"} & set(parts):
+    if {"9b", "10", "13", "14", "16"} & set(parts):
         _, u_ref, main_ref = phase_main(torch)
         main_ref["u"] = u_ref.cpu().numpy()
         del u_ref
@@ -4217,6 +4724,15 @@ def partial_run(torch, dev, parts) -> int:
         print(run_phase14(torch, main_ref))
     if "15" in parts:
         print(f"15 (a) rank 0 K17 2-D launches: {run_phase15(torch)}")
+    if "16a" in parts:
+        rec = {}
+        timed_phase(torch, "16 (a) K17", phase_k17_uneven, dev, rec)
+        timed_phase(torch, "16 (a) K15", phase_line_uneven, dev, rec)
+        print(json.dumps(rec))
+    if "16" in parts:
+        rec = {}
+        run_phase16(torch, dev, rec, main_ref)
+        print(json.dumps(rec))
     print(f"partial run {parts}: no result line")
     return 0
 
@@ -4320,6 +4836,7 @@ def main() -> int:
     counts.update(run_phase13(torch, dev, rec, main_ref))
     counts.update(run_phase14(torch, main_ref))
     merged_blocks_k17 = run_phase15(torch)
+    run_phase16(torch, dev, rec, main_ref)
     for k in ("apply_stencil5", "smooth_sweeps", "fused_level_visit",
               "residual5"):
         counts[k] = vcounts[k]
@@ -4415,7 +4932,8 @@ def main() -> int:
                if "scalars_ms" in rec[k] else {}),
             **{x: rec[k][x] for x in ("device_ms", "launch_ms",
                                       "grid_syncs", "grid_sync_us",
-                                      "latency_floor_ms", "modes_5pt")
+                                      "latency_floor_ms", "modes_5pt",
+                                      "uneven")
                if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1)")
     print(json.dumps({"kernels": kernels}))

@@ -76,8 +76,10 @@
 // The rank-spanning mode (mg_line_rows_*): a row-sharded level's columns
 // run across the ranks' row blocks, so its lines cross the ranks.  The
 // segments are laid on the global rows (seg rows each, seg the largest
-// power of two <= SEG that divides the block, so no segment straddles two
-// ranks), and the three launches are split around the one exchange the
+// power of two <= SEG that divides every rank's block, so no segment
+// straddles two ranks; blocks of unequal rows hold unequal segment counts,
+// which launch 2 reads through a table of each rank's first segment),
+// and the three launches are split around the one exchange the
 // carries need: each rank runs launch 1 on its own segments, from its
 // block, its iterate's row above and below (from the neighbours) and the
 // factors of its rows; the ranks all-gather the segment ends (the caller,
@@ -452,16 +454,23 @@ line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
 }
 
 // Launch 2 reads the segment ends and starts where launch 1 (or the
-// ranks' all-gather of it) left them: segment s of the lines is row s % nsb
-// of rank s / nsb's (2, nsb, nx) output -- its ends, then its starts --
-// the ranks' outputs stacked (one rank on a whole level).
+// ranks' all-gather of it) left them: the ranks' outputs stacked in the
+// order of their rows, rank q's (2, n_q, nx) -- the ends of its n_q
+// segments, then their starts -- from row 2 off_q, off_q the lines' index
+// of its first segment (off_0 = 0, off_ranks = S).  The ranks may hold
+// unequal counts (blocks of unequal rows: the 2-D blocks layout on any
+// rank count), so segment s of rank q has its end on row off_q + s and
+// its start on row off_{q+1} + s.  `off` is a device table of ranks + 1
+// entries (null: one rank, off = {0, S}: a whole level), staged in shared
+// memory by launch 2; a warp's segment is one for all its lanes, so each
+// lookup is a broadcast.
+constexpr int MAX_LINE_RANKS = 256;
+
 template <class T>
 struct Gathered {
   const T* p;
-  int nsb;  // segments per rank
-  __device__ __forceinline__ const T* ends(int s, int nx) const {
-    return p + ((size_t)(s / nsb) * 2 * nsb + s % nsb) * nx;
-  }
+  const int* off;
+  int ranks;
 };
 
 // Launch 2: the carries of every column as two first-order linear
@@ -480,11 +489,12 @@ struct Gathered {
 // incoming carry.  The forward replay also composes the chunk's backward
 // maps (they need C_s), and keeps its forward carry at each batch's start
 // in shared memory (32 bytes a segment: S up to ~7000), from which the
-// backward replay recomputes a batch's C_s before walking it down.  The
-// dependent chain is ~4 K + 2 CW f64 steps instead of 2 (S - 1).  cin and
-// din are stored for segments [s0, s0 + nown) only (a rank's own),
-// rounded once to T; the arithmetic is f64 throughout, as the serial
-// walk's, in another order of roundings.  CW = 16 ran no faster than 8,
+// backward replay recomputes a batch's C_s before walking it down.  A
+// load finds its segment's rank by a binary search of the staged
+// offsets (no step on one rank).  The dependent chain is ~4 K + 2 CW f64
+// steps instead of 2 (S - 1).  cin and din are stored for segments
+// [s0, s0 + nown) only (a rank's own), rounded once to T; the arithmetic
+// is f64 throughout, as the serial walk's, in another order of roundings.  CW = 16 ran no faster than 8,
 // and CB = 16 (more loads in flight, 128 registers) 6% slower than 8.
 template <class T, bool ROWS = false>
 __global__ void __launch_bounds__(32 * CW, 2)
@@ -493,6 +503,10 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
                   int nown, int ny, int nx) {
   extern __shared__ double batch_c[];  // [CW][K / CB][32]
   __shared__ double fg[CW][32], fe[CW][32], bg[CW][32], be[CW][32];
+  __shared__ int off[MAX_LINE_RANKS + 1];
+  for (int i = threadIdx.x; i <= g.ranks; i += blockDim.x)
+    off[i] = g.off != nullptr ? g.off[i] : i * S;
+  __syncthreads();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int j = blockIdx.x * 32 + lane;
   const bool col = j < nx;
@@ -501,6 +515,21 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
   const int a = min(S, w * K), b = min(S, a + K), nb = K / CB;
   const int s1 = s0 + nown;
   double* bc = batch_c + (size_t)w * nb * 32 + lane;
+  // Segment s's rank: the last q with off_q <= s.
+  auto rank_of = [&](int s) {
+    int lo = 0, hi = g.ranks - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= s)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  };
+  auto end_at = [&](int s) {
+    return g.p[(size_t)(off[rank_of(s)] + s) * nx + jc];
+  };
   // Segment s's row of the carries' inputs: its end and start, its gain,
   // and its first row's responses (0 past the level: a segment of pad
   // rows alone has no rows).
@@ -508,9 +537,9 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
     return s * rs < ny ? fat(f.gain, f.sx, s, jc, nx) : T(0);
   };
   auto load = [&](int s, T& e, T& gn, T& x, T& ab, T& bl) {
-    const T* er = g.ends(s, nx);
-    e = er[jc];
-    x = er[(size_t)g.nsb * nx + jc];
+    const int q = rank_of(s);
+    e = g.p[(size_t)(off[q] + s) * nx + jc];
+    x = g.p[(size_t)(off[q + 1] + s) * nx + jc];
     gn = gain(s);
     const bool real = s * rs < ny;
     ab = real ? fat(f.above, f.sx, s * rs, jc, nx) : T(0);
@@ -523,7 +552,7 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
 #pragma unroll
     for (int q = 0; q < CB; ++q)
       if (lo + q < b) {
-        ev[q] = g.ends(lo + q, nx)[jc];
+        ev[q] = end_at(lo + q);
         gv[q] = gain(lo + q);
       }
 #pragma unroll
@@ -847,7 +876,7 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
       e = nullptr;
       correct = false;
     }
-    if (int err = carry_launch<T, false>(f, Gathered<T>{ends, nseg}, cin,
+    if (int err = carry_launch<T, false>(f, Gathered<T>{ends, nullptr, 1}, cin,
                                          din, SEG, nseg, 0, nseg, ny, nx, st))
       return err;
   }
@@ -903,16 +932,18 @@ int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
 
 template <class T>
 int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
-                    const T* gathered, int nsb, int ranks, T* cin, T* din,
-                    int s0, int nown, int ny, int nx, void* stream) {
-  const int S = ranks * nsb;
-  if (!rows_ok<T>(seg, nsb, 1, nx) || ranks < 1 || s0 < 0 || nown < 1 ||
-      s0 + nown > S || ny < 1 || gathered == nullptr || cin == nullptr ||
-      din == nullptr)
+                    const T* gathered, const int* off, int ranks, int S,
+                    T* cin, T* din, int s0, int nown, int ny, int nx,
+                    void* stream) {
+  if (!rows_ok<T>(seg, nown, 1, nx) || ranks < 1 ||
+      ranks > MAX_LINE_RANKS || (off == nullptr && ranks > 1) || S < ranks ||
+      s0 < 0 || s0 + nown > S || ny < 1 || gathered == nullptr ||
+      cin == nullptr || din == nullptr)
     return (int)cudaErrorInvalidValue;
   return carry_launch<T, true>(line_factor<T>(fptrs, fsx),
-                               Gathered<T>{gathered, nsb}, cin, din, seg, S,
-                               s0, nown, ny, nx, (cudaStream_t)stream);
+                               Gathered<T>{gathered, off, ranks}, cin, din,
+                               seg, S, s0, nown, ny, nx,
+                               (cudaStream_t)stream);
 }
 
 template <class T>
@@ -978,11 +1009,13 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
 //                     (see the top of this file): launch 1 (the segment
 //                     ends and starts of its nseg segments, (nseg, nx)
 //                     each, one (2, nseg, nx) buffer: ends = the first
-//                     half), launch 2 (from the gathered (ranks, 2, nsb,
-//                     nx) launch-1 outputs, read in place, with the whole
-//                     level's factors (ny rows): the carries cin, din,
-//                     (nown, nx) each, of segments [s0, s0 + nown) of the
-//                     ranks * nsb) and launch 3 (the swept block of
+//                     half), launch 2 (from the gathered launch-1 outputs
+//                     of the ranks, rank q's (2, n_q, nx) from row 2 off[q]
+//                     (off: a device table of ranks + 1 first segments,
+//                     off[ranks] = S; null for one rank), read in place,
+//                     with the whole level's factors (ny rows): the
+//                     carries cin, din, (nown, nx) each, of segments [s0,
+//                     s0 + nown) of the S) and launch 3 (the swept block of
 //                     rows_out rows from its carries, its pad row and
 //                     column stored as 0).  fptrs as for mg_line_sweep;
 //                     for launches 1 and 3 the slices of the block's rows
@@ -1020,10 +1053,10 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
   }                                                                         \
   extern "C" int mg_line_rows_carry##SFX(                                   \
       const unsigned long long* fptrs, int fsx, int seg, const T* gathered, \
-      int nsb, int ranks, T* cin, T* din, int s0, int nown, int ny, int nx, \
-      void* stream) {                                                       \
-    return line_rows_carry<T>(fptrs, fsx, seg, gathered, nsb, ranks, cin,   \
-                              din, s0, nown, ny, nx, stream);               \
+      const int* off, int ranks, int S, T* cin, T* din, int s0, int nown,   \
+      int ny, int nx, void* stream) {                                       \
+    return line_rows_carry<T>(fptrs, fsx, seg, gathered, off, ranks, S,     \
+                              cin, din, s0, nown, ny, nx, stream);          \
   }                                                                         \
   extern "C" int mg_line_rows_fix##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides,                 \

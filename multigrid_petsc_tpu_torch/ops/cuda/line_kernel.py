@@ -29,12 +29,14 @@ one all-gather the caller makes.  On the card the halves are the CUDA
 sweep's launches split at its carry pass (``csrc/line.cuh``, the
 rank-spanning mode): each rank's segment ends (launch 1) are gathered,
 every rank runs the carry pass over all the segments, reading the
-gathered ends in place and keeping its own segments' carries
-(``line_rows_carry``), then fixes its own (launch 3, ``line_rows_fix``,
-which writes the block's pad row and column as 0); a ``RowLine`` holds
-its launch arguments, checked once (``RowLaunch``); on the CPU the plain
-version gathers the ranks' line right-hand sides and solves the whole
-columns by PCR (``line_jacobi_sweeps_y``'s arithmetic), the oracle.
+gathered ends in place through a table of each rank's first segment
+(the ranks' blocks may hold unequal segment counts) and keeping its own
+segments' carries (``line_rows_carry``), then fixes its own (launch 3,
+``line_rows_fix``, which writes the block's pad row and column as 0); a
+``RowLine`` holds its launch arguments, checked once (``RowLaunch``); on
+the CPU the plain version gathers the ranks' line right-hand sides and
+solves the whole columns by PCR (``line_jacobi_sweeps_y``'s arithmetic),
+the oracle.
 
 Under the 2-D blocks layout the same functions take a rank's (R, C) block
 and its depth-1 ring (``Halo2``: the rows above and below with the
@@ -353,7 +355,8 @@ class RowLaunch(NamedTuple):
     of its rows' line factors (launches 1 and 3) and of the whole columns'
     (launch 2), whether the factors are fields (``fsx``), the coefficients'
     width (1, or the block's real columns), the storage type, the entries'
-    suffix and the device."""
+    suffix, the device and, for launch 2, the lines' index of each
+    block's first segment and then their count (int32 on the device)."""
 
     c9: Coeff9Args
     fptrs: np.ndarray
@@ -363,6 +366,7 @@ class RowLaunch(NamedTuple):
     dtype: torch.dtype
     sfx: str
     device: torch.device
+    offsets: torch.Tensor
 
 
 class RowLine(NamedTuple):
@@ -373,10 +377,13 @@ class RowLine(NamedTuple):
     to them; ``nxl`` None: the rows mode, every column), the whole
     columns' line factor of those columns (the PCR factor for CPU
     tensors; on the card the segmented factors of ``seg``-row segments,
-    ``seg`` the largest power of two <= ``LINE_SEG`` dividing R, so the
-    segments tile the blocks, or ``LINE_SEG`` where the block holds its
-    columns whole) and, on the card, its slices of the block's rows and
-    the launch arguments (``RowLaunch``)."""
+    ``seg`` the largest power of two <= ``LINE_SEG`` dividing every block
+    the lines span, so the segments tile the blocks, or ``LINE_SEG`` where
+    the block holds its columns whole) and, on the card, its slices of the
+    block's rows and the launch arguments (``RowLaunch``).  ``blocks``:
+    the rows of every block the lines span, in the order of their rows
+    (this one among them; unequal under the blocks layout on any rank
+    count)."""
 
     st: Stencil9
     fac: PCRFactor | SegmentFactor
@@ -388,6 +395,7 @@ class RowLine(NamedTuple):
     col0: int = 0
     nxl: int | None = None
     launch: RowLaunch | None = None
+    blocks: tuple[int, ...] = ()
 
     @property
     def nyl(self) -> int:
@@ -398,6 +406,35 @@ class RowLine(NamedTuple):
         """The block's segments (the last one cut by the domain's edge
         where the block holds its columns whole)."""
         return -(-self.R // self.seg)
+
+    @property
+    def counts(self) -> tuple[int, ...]:
+        """Every block's segments, in the order of their rows."""
+        return tuple(-(-r // self.seg) for r in self.blocks)
+
+
+def gathered_rows(lf: RowLine) -> tuple[int, ...]:
+    """The rows of each block's ``line_rows_begin`` output, in the order
+    of their rows, as the all-gather stacks them: its line right-hand
+    sides (the plain version) or its segments' ends and starts (the
+    kernel)."""
+    return (lf.blocks if lf.launch is None
+            else tuple(2 * c for c in lf.counts))
+
+
+def _line_blocks(ny: int, R: int, row0: int, blocks) -> tuple[int, ...]:
+    """The blocks the lines of an ny-row level span (``blocks`` None:
+    equal blocks of R rows, one where R == ny), checked to tile the level
+    (its pad row counted) with this one's R rows at row0."""
+    if blocks is None:
+        blocks = (R,) if R == ny else (R,) * ((ny + 1) // R)
+    blocks = tuple(int(r) for r in blocks)
+    starts = [sum(blocks[:i]) for i in range(len(blocks))]
+    if (sum(blocks) not in (ny, ny + 1) or row0 not in starts
+            or blocks[starts.index(row0)] != R):
+        raise ValueError(f"blocks {blocks} do not tile {ny} rows with "
+                         f"{R} from row {row0}")
+    return blocks
 
 
 def _cut_columns(st, col0: int, nxl: int | None):
@@ -415,7 +452,8 @@ def _pointers(fac: SegmentFactor) -> np.ndarray:
 
 
 def _row_launch(st_rows: Stencil9, fac: SegmentFactor,
-                rows: SegmentFactor, nyl: int, nxl: int | None) -> RowLaunch:
+                rows: SegmentFactor, nyl: int, nxl: int | None,
+                counts: tuple[int, ...]) -> RowLaunch:
     """``RowLaunch`` of a kernel ``RowLine``: every coefficient and factor
     checked (device, storage type, shape, contiguity) once."""
     width = nxl or max(t.shape[1] for t in (*st_rows, fac.m))
@@ -432,31 +470,41 @@ def _row_launch(st_rows: Stencil9, fac: SegmentFactor,
                  if t is not None}}
     device = st_rows.cc.device
     dtype = _check_cuda(device, fields, dtypes=LINE_DTYPES)
+    offsets = torch.tensor(np.cumsum((0,) + counts), dtype=torch.int32,
+                           device=device)
     return RowLaunch(c9, _pointers(rows), _pointers(fac), int(w > 1), width,
-                     dtype, "_f64" if dtype == torch.float64 else "", device)
+                     dtype, "_f64" if dtype == torch.float64 else "", device,
+                     offsets)
 
 
 def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,
-             nxl: int | None = None, plain: bool | None = None) -> RowLine:
+             nxl: int | None = None, plain: bool | None = None,
+             blocks=None) -> RowLine:
     """``RowLine`` of the block of global rows [row0, row0 + R) (and, in
     the 2-D block mode, of the ``nxl`` real columns from ``col0``) of a
     level of ny real rows whose line stencil (``collapse_stencil``) is
     ``st``: the plain version's (a PCR factor; ``plain`` None: where the
-    stencil lies on the CPU) or the kernel's."""
+    stencil lies on the CPU) or the kernel's.  ``blocks``: the rows of
+    every block the lines span, in order (None: equal blocks of R)."""
+    blocks = _line_blocks(ny, R, row0, blocks)
     st = _cut_columns(st, col0, nxl)
     nyl = min(R, ny - row0)
     st_rows = Stencil9(*(c if c.shape[0] == 1 else c[row0:row0 + nyl]
                          for c in st))
     if _on_cpu(st.cc) if plain is None else plain:
         return RowLine(st_rows, pcr_factor(st.cs, st.cc, st.cn, ny), None,
-                       1, row0, R, ny, col0, nxl)
-    seg = LINE_SEG if R == ny else math.gcd(R, LINE_SEG)
+                       1, row0, R, ny, col0, nxl, blocks=blocks)
+    # One seg for every block of the lines (the carry pass lays the
+    # segments on the global rows).
+    seg = LINE_SEG if len(blocks) == 1 else math.gcd(LINE_SEG, *blocks)
     fac = segment_factor(st, ny, seg)
     rows = SegmentFactor(*(
         t if t is None or k == "gain" else t[row0:row0 + nyl]
         for k, t in fac._asdict().items()))
-    return RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl,
-                   _row_launch(st_rows, fac, rows, nyl, nxl))
+    line = RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl,
+                   blocks=blocks)
+    return line._replace(launch=_row_launch(st_rows, fac, rows, nyl, nxl,
+                                            line.counts))
 
 
 def transpose_ring(ring: Halo2) -> Halo2:
@@ -577,21 +625,24 @@ def line_rows_carry(lf: RowLine, gathered: torch.Tensor) -> torch.Tensor:
     """Launch 2 of a split sweep alone (the card only): the carries of
     this rank's segments, (2, nseg, nxl), cin then din, by the blocked
     scan over every segment of the lines, from ``gathered`` (as
-    ``line_rows_end`` takes it), read in place."""
+    ``line_rows_end`` takes it: every block's segment ends and starts,
+    stacked in the order of their rows; ``RowLaunch.offsets`` says where
+    each block's begin), read in place."""
     la = lf.launch
     nseg = lf.nseg
     nxl = gathered.shape[1]
-    P = gathered.shape[0] // (2 * nseg)
+    S = sum(lf.counts)
     if la is None or la.width not in (1, nxl):
         raise ValueError("line_rows_carry takes a kernel RowLine of the "
                          "gathered columns")
-    _check_cuda(la.device, {"gathered": (gathered, (2 * nseg * P, nxl))},
+    _check_cuda(la.device, {"gathered": (gathered, (2 * S, nxl))},
                 dtypes=(la.dtype,))
     carries = torch.empty((2, nseg, nxl), dtype=la.dtype, device=la.device)
     err = getattr(load_library(), "mg_line_rows_carry" + la.sfx)(
-        la.gptrs.ctypes.data, la.fsx, lf.seg, gathered.data_ptr(), nseg, P,
-        carries[0].data_ptr(), carries[1].data_ptr(), lf.row0 // lf.seg,
-        nseg, lf.ny, nxl, _stream(la.device))
+        la.gptrs.ctypes.data, la.fsx, lf.seg, gathered.data_ptr(),
+        la.offsets.data_ptr(), len(lf.blocks), S, carries[0].data_ptr(),
+        carries[1].data_ptr(), lf.row0 // lf.seg, nseg, lf.ny, nxl,
+        _stream(la.device))
     check(err, "line rows carry launch")
     return carries
 

@@ -17,20 +17,23 @@ whose interface this class keeps).
 
 State convention: a level split along y keeps ny + 1 rows (one pad row,
 the last mesh row's last row, always 0), split along x nx + 1 columns;
-each rank holds its (R, C) block from the global point (row0, col0), R =
-(ny + 1) / my along a split y axis and ny along one that is not (the
-block then spans every row, and the ranks of a mesh column hold the same
-block), likewise C.  Every operation exchanges the ring its visit needs
-(``parallel.halo.block_exchange``: the corners travel, a fused k-sweep
-visit reads them) and launches one K17 visit.  The coarse correction of
+each rank holds its (R, C) block from the global point (row0, col0), R
+its mesh row's share of the ny + 1 rows along a split y axis (the nested
+even blocks of ``device_mesh.block_sides``: on any rank count, the
+blocks of one axis may differ by whole pairs of points) and ny along one
+that is not (the block then spans every row, and the ranks of a mesh
+column hold the same block), likewise C.  Every operation exchanges the
+ring its visit needs (``parallel.halo.block_exchange``: the corners
+travel, a fused k-sweep visit reads them) and launches one K17 visit.  The coarse correction of
 an up visit is the coarse level's block (its ring exchanged) or, where
 the coarse level is split along fewer axes, the coarse block of this
 block and its ring cut from what the rank holds (no exchange along an
 axis the coarse level keeps whole).
 
-A level whose block cannot carry a visit's halo runs Jacobi as visits of
-at most (the smallest split extent - 2) steps, one exchange each; a
-schedule with momentum (Chebyshev) one residual emit per step.  The
+A level whose blocks cannot carry a visit's halo runs Jacobi as visits of
+at most (the smallest split extent of any rank's block - 2) steps, one
+exchange each (every rank takes the same schedule); a schedule with
+momentum (Chebyshev) one residual emit per step.  The
 transfers between two split levels are block-local (``restrict_local``,
 ``block_prolong``: one exchanged row, one column and their corner); from
 a level to one split along fewer axes, the restricted blocks are gathered
@@ -108,6 +111,12 @@ def cut_halo(x: torch.Tensor, r0: int, c0: int, R: int, C: int,
     return ext[h:h + R, h:h + C].contiguous(), ring(ext, h)
 
 
+def least(plan, ny: int, nx: int) -> tuple[int, int]:
+    """The smallest block's (rows, columns) of an (ny, nx) level: what a
+    halo from the neighbours must fit (``block_exchange``'s ``least``)."""
+    return tuple(map(min, plan.extents(ny, nx)))
+
+
 def _cut_coeffs(st: Stencil9, r0: int, r1: int, c0: int, c1: int):
     """The coefficients that vary with y cut to rows [r0, r1), those that
     vary with x to columns [c0, c1)."""
@@ -149,7 +158,10 @@ def agglomerate(rc: torch.Tensor, ny: int, nx: int, plan) -> torch.Tensor:
                                              plan.split(nyc, nxc)))
     if not any(axes):
         return rc
-    whole = all_gather_blocks(rc, plan, "agglomerate", axes)
+    # The coarse blocks of the fine blocks: half their sides.
+    halves = tuple(tuple(e // 2 for e in ext)
+                   for ext in plan.extents(ny, nx))
+    whole = all_gather_blocks(rc, plan, "agglomerate", axes, halves)
     return whole[:nyc if axes[0] else None,
                  :nxc if axes[1] else None].contiguous()
 
@@ -167,10 +179,12 @@ def coarse_in(e: torch.Tensor, ny: int, nx: int, plan, hc: int):
     its depth-``hc`` ring: exchanged along the axes the coarse grid is
     split on, cut along the others."""
     R, C, row0, col0, split = plan.block(ny, nx)
-    cb = plan.block((ny - 1) // 2, (nx - 1) // 2)
+    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    cb = plan.block(nyc, nxc)
+    ring_c = block_exchange(e, hc, plan, cb.split, least(plan, nyc, nxc))
     if cb.split == split:  # the coarse grid's block is this one's
-        return e, block_exchange(e, hc, plan, cb.split)
-    ext = extend(e, block_exchange(e, hc, plan, cb.split))
+        return e, ring_c
+    ext = extend(e, ring_c)
     r0 = row0 // 2 - cb.row0
     c0 = col0 // 2 - cb.col0
     Rc, Cc = R // 2, C // 2
@@ -209,13 +223,18 @@ class BlockLevelOps:
         self.ny, self.nx = ny, nx
         self.plan = plan
         self.R, self.C, self.row0, self.col0, self.split = plan.block(ny, nx)
+        # Every rank's block sides (rows by mesh row, columns by mesh
+        # column) and the smallest of them.
+        self.extents = plan.extents(ny, nx)
+        self.least = least(plan, ny, nx)
         # The points of the block inside the domain (the pad row and
         # column are not).
         self.nyl = min(self.R, ny - self.row0)
         self.nxl = min(self.C, nx - self.col0)
         # The largest halo the neighbours can give: the smallest split
-        # extent.
-        self.cap = min(n for n, s in zip((self.R, self.C), self.split) if s)
+        # extent of any rank's block, so that every rank takes the same
+        # schedule of exchanges.
+        self.cap = min(n for n, s in zip(self.least, self.split) if s)
         # The ranks that hold distinct blocks: the world when the level is
         # split along both axes, the mesh column (row) when along y (x)
         # alone; the ranks of the other axis hold the same blocks.
@@ -272,7 +291,8 @@ class BlockLevelOps:
     def gather(self, x: torch.Tensor, what: str) -> torch.Tensor:
         """The whole (ny, nx) grid from every rank's block, on every rank
         (collective; counted under ``what``)."""
-        return all_gather_blocks(x, self.plan, what, self.split)[
+        return all_gather_blocks(x, self.plan, what, self.split,
+                                 self.extents)[
             :self.ny, :self.nx].contiguous()
 
     def gathered(self, solve):
@@ -287,18 +307,23 @@ class BlockLevelOps:
 
     # -- the visit --------------------------------------------------------
 
+    def exchange(self, x, h: int):
+        """The depth-``h`` ring of the block ``x`` (or of a tuple of
+        blocks; ``block_exchange``)."""
+        return block_exchange(x, h, self.plan, self.split, self.least)
+
     def _visit(self, b, u, steps, emit, e=None):
         h = halo_rows(len(steps), emit)
         if h > self.cap:
-            raise ValueError(f"a halo of {h} exceeds the {self.R} x "
-                             f"{self.C} block")
+            raise ValueError(f"a halo of {h} exceeds the smallest block, "
+                             f"{self.least[0]} x {self.least[1]}")
         b_halo = u_halo = e_halo = None
         if emit in ("a", "r"):
-            u_halo = block_exchange(u, h, self.plan, self.split)
+            u_halo = self.exchange(u, h)
         elif u is None:
-            b_halo = block_exchange(b, h, self.plan, self.split)
+            b_halo = self.exchange(b, h)
         else:
-            u_halo, b_halo = block_exchange((u, b), h, self.plan, self.split)
+            u_halo, b_halo = self.exchange((u, b), h)
         if e is not None:
             e, e_halo = coarse_in(e, self.ny, self.nx, self.plan,
                                   coarse_halo_rows(h))
@@ -395,14 +420,22 @@ class BlockLevelOps:
         """The y-lines of the level's collapsed whole-grid line stencil on
         the block: its rows across the mesh column, its real columns."""
         self.line_y = lk.row_line(line_st, self.ny, self.R, self.row0,
-                                  self.col0, self.nxl)
+                                  self.col0, self.nxl,
+                                  blocks=self._line_blocks(0))
 
     def setup_line_x(self, line_st_x) -> None:
         """The x-lines: the y-lines of the transposed level's collapsed
         line stencil on the transposed block (its rows the block's
         columns, across the mesh row)."""
         self.line_x = lk.row_line(line_st_x, self.nx, self.C, self.col0,
-                                  self.row0, self.nyl)
+                                  self.row0, self.nyl,
+                                  blocks=self._line_blocks(1))
+
+    def _line_blocks(self, axis: int):
+        """The blocks a line along ``axis`` spans: every rank's extent
+        along it, in mesh order (one block, the whole line, where the level
+        is not split along it)."""
+        return self.extents[axis] if self.split[axis] else None
 
     def _line_sweeps(self, lf, axis: int, b, u, sweeps: int, omega: float):
         """Damped line Jacobi along ``axis`` (0: y-lines, 1: x-lines on the
@@ -412,11 +445,12 @@ class BlockLevelOps:
         if axis:
             b = b.T.contiguous()
         for _ in range(sweeps):
-            ring = block_exchange(u, 1, self.plan, self.split)
+            ring = self.exchange(u, 1)
             if axis:
                 u, ring = u.T.contiguous(), lk.transpose_ring(ring)
             mine = lk.line_rows_begin(lf, b, u, ring)
-            every = (all_gather_lines(mine, self.plan, axis)
+            every = (all_gather_lines(mine, self.plan, axis,
+                                      lk.gathered_rows(lf))
                      if self.split[axis] else mine)
             u = lk.line_rows_end(lf, b, u, ring, every, omega)
             if axis:

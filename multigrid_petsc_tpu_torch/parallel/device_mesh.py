@@ -20,8 +20,14 @@ Each rank is one process.  Two layouts, as in the JAX package:
           nx // mx >= min_local (JAX's ``spec``, letter for letter); an
           axis of mesh size 1 is never split.  A split axis carries one
           pad row (or pad column), as the rows layout does: ny + 1 rows in
-          my even blocks; a side that does not divide evenly is refused
-          (JAX's GSPMD pads such blocks; ROADMAP).
+          my blocks, on any rank count.  The blocks are nested and even
+          (``block_sides``): the coarsest level split along an axis is cut
+          into balanced blocks of even sides, and each finer split level
+          takes exactly twice those blocks, so every side and origin is
+          even and the coarse block under a fine block is the coarse
+          level's own block (128 = 44 + 42 + 42 on three ranks; JAX's
+          GSPMD pads uneven shards instead, the reference's GetRanges
+          splits any rank count).
 
 Levels too small to split are replicated: every rank holds them whole and
 computes them redundantly, the JAX package's agglomeration
@@ -48,14 +54,6 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-
-from multigrid_petsc_tpu_torch.utils.config import not_ported
-
-# What the blocks layout does not take yet: the ROADMAP items its refusals
-# name, in the order they are queued.
-BLOCKS_WAIT = {
-    "uneven": "distribution, blocks: uneven blocks",
-}
 
 
 def rank_device(device: torch.device | str, backend: str) -> torch.device:
@@ -218,27 +216,47 @@ class ShardingPlan:
             return any(self.split(ny, nx))
         return self.size > 1 and self.spec(ny, nx) == "rows"
 
-    def block(self, ny: int, nx: int) -> Block:
-        """The rank's block of an (ny, nx) level under the blocks layout;
-        an axis the level is split along must divide into even blocks
-        (ny + 1 into my of them), else not ported."""
-        sy, sx = self.split(ny, nx)
-        iy, ix = self.coords
+    def extents(self, ny: int, nx: int
+                ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+        """The block extents of an (ny, nx) level under the blocks layout:
+        (the rows of mesh rows 0 .. my - 1, the columns of mesh columns 0
+        .. mx - 1); ``block_sides`` along a split axis, the whole extent
+        on every rank along the other."""
         my, mx = self.mesh
+        sy, sx = self.split(ny, nx)
+        return (block_sides(ny, my, self.min_local) if sy else (ny,) * my,
+                block_sides(nx, mx, self.min_local) if sx else (nx,) * mx)
 
-        def side(n, m, i, s, axis):
-            if not s:
-                return n, 0
-            if (n + 1) % m or ((n + 1) // m) % 2:
-                raise not_ported(
-                    f"uneven blocks ({n} points + 1 pad along {axis} over "
-                    f"{m} ranks)", BLOCKS_WAIT["uneven"])
-            e = (n + 1) // m
-            return e, i * e
+    def block(self, ny: int, nx: int) -> Block:
+        """The rank's block of an (ny, nx) level under the blocks layout
+        (``extents``): a pure function of the plan and the level's size."""
+        ys, xs = self.extents(ny, nx)
+        iy, ix = self.coords
+        split = self.split(ny, nx)
+        return Block(ys[iy], xs[ix], sum(ys[:iy]) if split[0] else 0,
+                     sum(xs[:ix]) if split[1] else 0, split)
 
-        R, row0 = side(ny, my, iy, sy, "y")
-        C, col0 = side(nx, mx, ix, sx, "x")
-        return Block(R, C, row0, col0, (sy, sx))
+
+def block_sides(n: int, m: int, min_local: int) -> tuple[int, ...]:
+    """The extents of the m blocks an axis of n points (+ 1 pad) is split
+    into under the blocks layout (``min_local``: the plan's), nested and
+    even: the coarsest size n_K = (n + 1) / 2^K - 1 of n's coarsening
+    chain still split (n_K // m >= min_local) is cut into balanced
+    blocks of whole pairs of points (the first ones one pair larger), and
+    n takes each of them times 2^K.  Every side and origin is even (an
+    odd n + 1, which no coarser level follows, gives its last block the
+    odd point), and the blocks of (n - 1) / 2 are exactly half of n's."""
+    k, scale = n, 1
+    while k % 2 and ((k - 1) // 2) // m >= min_local:
+        k, scale = (k - 1) // 2, 2 * scale
+    q, r = divmod((k + 1) // 2, m)
+    if q == 0:
+        raise ValueError(f"{k} points + 1 pad over {m} ranks leave a block "
+                         f"without a pair of points (min_local "
+                         f"{min_local})")
+    sides = [2 * (q + 1)] * r + [2 * q] * (m - r)
+    sides[-1] += (k + 1) % 2
+    return tuple(scale * e for e in sides)
 
 
 def row_plan(group=None, min_local: int = 32,

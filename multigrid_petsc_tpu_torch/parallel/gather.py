@@ -19,7 +19,8 @@ def gather_solution(u: torch.Tensor, plan, ny: int,
     """The (ny, nx) grid whose blocks the ranks hold in ``u``, on every
     rank: row blocks of R rows (the pad row on the last rank, or already
     stripped there), or under the blocks layout (R, C) blocks (their pad
-    row and column, or already stripped).  A collective: every rank of
+    row and column, or already stripped; unequal on a mesh whose blocks
+    are, ``ShardingPlan.extents``).  A collective: every rank of
     the plan must call it."""
     nx = u.shape[1] if nx is None else nx
     if plan.layout == "blocks":
@@ -27,7 +28,8 @@ def gather_solution(u: torch.Tensor, plan, ny: int,
         if tuple(u.shape) != (blk.R, blk.C):  # the pads stripped
             u = torch.nn.functional.pad(
                 u, (0, blk.C - u.shape[1], 0, blk.R - u.shape[0]))
-        whole = all_gather_blocks(u, plan, "solution", blk.split)
+        whole = all_gather_blocks(u, plan, "solution", blk.split,
+                                  plan.extents(ny, nx))
         return whole[:ny, :nx].cpu().numpy()
     R = (ny + 1) // plan.size
     if u.shape[0] == R - 1:  # the last rank's block without its pad row

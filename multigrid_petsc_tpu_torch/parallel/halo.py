@@ -113,23 +113,29 @@ def all_gather_rows(x: torch.Tensor, plan, what: str) -> torch.Tensor:
     return torch.cat(_gather(x, plan, None)).to(x.device)
 
 
-def block_exchange(x, h: int, plan, split=(True, True)):
+def block_exchange(x, h: int, plan, split=(True, True), least=None):
     """The depth-``h`` halo of this rank's (R, C) block under the blocks
     layout (``halo_pad_local`` with corners): a ``Halo2`` of the ``h``
     columns left and right of the block, (R, h) each, and the ``h`` rows
     above and below the column-extended block, (h, C + 2h) each, corners
     included; zeros at the global edges and along an axis the level is
     not split on (``split``: (y, x)).  Two passes: the edge columns with
-    the mesh-row neighbours, then the rows of [left | x | right] with the
-    mesh-column neighbours.  ``x`` may be a tuple of blocks of one shape,
-    whose edges travel in one message each way; then a list of
-    ``Halo2``, one per block."""
+    the mesh-row neighbours (which share R), then the rows of [left | x |
+    right] with the mesh-column neighbours (which share C), so the
+    corners come from blocks of other sides too.  The halo comes from the
+    neighbours' blocks, so it must fit the smallest block along each
+    split axis: ``least`` (its (rows, columns); None: this block's, as
+    on even blocks), checked alike on every rank.  ``x`` may be a tuple
+    of blocks of one shape, whose edges travel in one message each way;
+    then a list of ``Halo2``, one per block."""
     xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
     R, C = xs[0].shape
     sy, sx = split
-    if (sy and h > R) or (sx and h > C):
-        raise ValueError(f"a halo of {h} exceeds the {R} x {C} block: "
-                         f"points come from the neighbours only")
+    ly, lx = (R, C) if least is None else least
+    if (sy and h > ly) or (sx and h > lx):
+        raise ValueError(f"a halo of {h} exceeds the smallest block, "
+                         f"{ly} x {lx}: points come from the neighbours "
+                         f"only")
     stage = _staged(xs[0], plan)
     dev = torch.device("cpu") if stage else xs[0].device
     n = len(xs)
@@ -183,45 +189,67 @@ def _count(x: torch.Tensor, what: str) -> None:
     gathered_bytes[what] += x.numel() * x.element_size()
 
 
-def _gather(x: torch.Tensor, plan, group) -> list:
+def _gather(x: torch.Tensor, plan, group, shapes=None) -> list:
     """Every rank's ``x`` in ``group`` (None: the plan's), in rank order,
-    on the host when ``x`` travels through it."""
+    on the host when ``x`` travels through it.  ``shapes``: each rank's
+    piece's shape, in rank order (None: all ``x``'s); unequal pieces
+    travel padded to the largest and come back cut to their own."""
     src = x.detach().cpu() if _staged(x, plan) else x.detach().contiguous()
     g = plan.group if group is None else group
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(g))]
+    n = dist.get_world_size(g)
+    shapes = [tuple(src.shape)] * n if shapes is None else list(shapes)
+    if len(shapes) != n or tuple(src.shape) != shapes[dist.get_rank(g)]:
+        raise ValueError(f"a piece of {tuple(src.shape)} among {shapes}")
+    big = tuple(max(s[d] for s in shapes) for d in range(src.dim()))
+    if big != tuple(src.shape):
+        src = torch.nn.functional.pad(
+            src, [p for d in reversed(range(src.dim()))
+                  for p in (0, big[d] - src.shape[d])])
+    parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=g)
-    return parts
+    return [p if tuple(p.shape) == s else p[tuple(map(slice, s))]
+            for p, s in zip(parts, shapes)]
 
 
-def all_gather_blocks(x: torch.Tensor, plan, what: str,
-                      axes=(True, True)) -> torch.Tensor:
+def all_gather_blocks(x: torch.Tensor, plan, what: str, axes,
+                      extents) -> torch.Tensor:
     """The blocks of every rank along ``axes`` ((y, x)) joined, on every
     rank, pad rows and columns kept (both axes: the whole level): along
     both axes one all-gather of the world, along one axis the mesh
     column's (y) or row's (x); counted once, under ``what`` (one of
-    ``GATHERS``)."""
+    ``GATHERS``).  ``extents``: the gathered blocks' (rows by mesh row,
+    columns by mesh column), as ``ShardingPlan.extents`` gives them (the
+    blocks may be unequal)."""
     sy, sx = axes
     if not (sy or sx):
         return x
     _count(x, what)
+    my, mx = plan.mesh
+    R, C = x.shape
+    ys, xs = extents
     if sy and sx:
-        parts = _gather(x, plan, None)
-        mx = plan.mesh[1]
+        parts = _gather(x, plan, None, [(ys[i // mx], xs[i % mx])
+                                        for i in range(my * mx)])
         whole = torch.cat([torch.cat(parts[i:i + mx], 1)
                            for i in range(0, len(parts), mx)])
     elif sy:
-        whole = torch.cat(_gather(x, plan, plan.col_group))
+        whole = torch.cat(_gather(x, plan, plan.col_group,
+                                  [(r, C) for r in ys]))
     else:
-        whole = torch.cat(_gather(x, plan, plan.row_group), 1)
+        whole = torch.cat(_gather(x, plan, plan.row_group,
+                                  [(R, c) for c in xs]), 1)
     return whole.to(x.device)
 
 
-def all_gather_lines(x: torch.Tensor, plan, axis: int) -> torch.Tensor:
+def all_gather_lines(x: torch.Tensor, plan, axis: int,
+                     rows) -> torch.Tensor:
     """The line smoother's gather under the blocks layout: every ``x`` of
     the ranks a line spans, stacked along x's rows in mesh order, on
     every rank; the mesh column's for a y-line (``axis`` 0), the mesh
     row's for an x-line (``axis`` 1; its blocks run transposed, so their
-    rows are the level's columns).  Counted under "line"."""
+    rows are the level's columns).  ``rows``: each rank's rows of ``x``,
+    in mesh order (unequal on unequal blocks).  Counted under "line"."""
     _count(x, "line")
     group = plan.col_group if axis == 0 else plan.row_group
-    return torch.cat(_gather(x, plan, group)).to(x.device)
+    return torch.cat(_gather(x, plan, group, [(r, *x.shape[1:])
+                                              for r in rows])).to(x.device)

@@ -68,9 +68,10 @@ K6 and K7, its couplings one transfer gap at a time in each grid's layout
 sharded grid's dots over the ranks that hold its distinct blocks and adds
 the replicated grids' once.  Every cycle, the merged-grid ones included,
 every smoother and both precision outers run under either layout (the
-preconditioner context under the same plan); uneven blocks raise naming
-their ROADMAP item (``ShardingPlan.block``).  The sparse backend raises
-under any plan.
+preconditioner context under the same plan), on any rank count (the
+blocks layout cuts an axis the ranks do not divide into nested even
+blocks of unequal size, ``ShardingPlan.extents``).  The sparse backend
+raises under any plan.
 """
 
 from __future__ import annotations

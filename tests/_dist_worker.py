@@ -2,7 +2,8 @@
 (test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
 test_torch_dist_smoothers.py, test_torch_dist_merged.py,
 test_torch_dist_blocks.py, test_torch_dist_blocks_smoothers.py,
-test_torch_dist_blocks_merged.py), and the
+test_torch_dist_blocks_merged.py, test_torch_dist_blocks_uneven.py), and
+the
 helpers that start such a world and
 read its results (``spawn``, ``finish``, ``load``).  Not collected by
 pytest (no test_ prefix).
@@ -35,7 +36,8 @@ built without one), and
 "units" runs ``units``: a sharded level's operators on row blocks, and
 "merged_units" runs ``merged_units``: a merged level's operators on
 its grids' blocks (its spec may name "layout", "mesh", "npts" and
-"min_local"); a config with "argv" runs the CLI (``cli``).
+"min_local"), "uneven_units" runs ``uneven_units`` (its spec names the
+"mesh"); a config with "argv" runs the CLI (``cli``).
 """
 
 import dataclasses
@@ -112,17 +114,17 @@ def load(outdir: Path, name: str, world: int = WORLD) -> list:
 
 
 # What a plan refuses: case -> (SolverConfig fields, plan arguments): the
-# row plan's two, then what the blocks layout does not take yet, one case
-# per ROADMAP item, in the order it is queued (the uneven blocks: 11 + 1
-# points over 4 ranks along x).
+# row plan's two; then "uneven", which the blocks layout refused until it
+# took uneven blocks and now runs (11 + 1 points over 4 ranks along x:
+# blocks of 4, 4, 2 and 2 columns).
 REFUSALS = {
     "sparse": (dict(backend="sparse"), {}),
     "bf16": (dict(dtype="bfloat16"), {}),
     "uneven": (dict(npts=13, grids=2, levels=2),
                {"layout": "blocks", "mesh": [1, 4], "min_local": 2}),
 }
-# The ROADMAP item each blocks refusal names.
-BLOCKS_ITEMS = {"uneven": "uneven blocks"}
+# The cases of REFUSALS that run, each rank recording its solve.
+RUNS = ("uneven",)
 
 
 def nonsep_factor(ny: int, nx: int) -> np.ndarray:
@@ -164,6 +166,9 @@ def refuse(rank: int, out: Path) -> None:
                           **fields))
         cases[case] = lambda cfg=cfg, kw=plan_kw: solve(
             cfg, plan=make_plan(dict(dict(min_local=8), **kw)))
+        if case in RUNS:
+            cases[case] = lambda run=cases[case], case=case: got.update({
+                f"{case}_run": _summary(run())})
     default = ShardingPlan()
     got["default_device"] = str(default.device)
     cases["default_solve"] = lambda: solve(
@@ -175,6 +180,16 @@ def refuse(rank: int, out: Path) -> None:
         except Exception as e:  # recorded, judged by the test
             got[case] = f"{type(e).__name__}: {e}"
     (out / f"refuse.{rank}.json").write_text(json.dumps(got))
+
+
+def _summary(res) -> dict:
+    """A solve's iterations, history, gathered solution and the axes each
+    level was split along, as JSON."""
+    plan = res.ctx.plan
+    return dict(iters=res.iters, converged=bool(res.converged),
+                rnorm=np.asarray(res.rnorm).tolist(),
+                u=np.asarray(res.u_fine).tolist(),
+                axes=[list(plan.split(*lv.shape)) for lv in res.ctx.levels])
 
 
 def config(fields: dict) -> SolverConfig:
@@ -226,6 +241,79 @@ def block_halos(rank: int, world: int, out: Path) -> None:
                 for part, x in hl._asdict().items():
                     res[f"{k}{name}{h}_{part}"] = x.numpy()
     np.savez(out / f"block_exchange.{rank}.npz", **res)
+
+
+def uneven_units(rank: int, world: int, out: Path, spec: dict) -> None:
+    """The blocks layout's operators on uneven blocks: under
+    ``blocks_plan(min_local=8)`` over ``spec["mesh"]``, on the 63^2 level
+    (and 31^2, 15^2 below it), from inputs every rank makes alike (numpy,
+    seed 11), written to OUTDIR/uneven_units.<rank>.npz: the block
+    extents of each level; the ring of the rank's 63^2 block of a field
+    at depths 1-4 (``block_exchange``, two blocks in one message); the
+    field gathered back (``gather_solution``, with and without the pads);
+    a 31^2 residual restricted block-locally and agglomerated onto the
+    replicated 15^2 level; and on the 63^2 level, for the NONUNIFORM2
+    5-point and the aniso (1,1,1,2,0.4) 9-point stencils, K17's 2-D visits
+    (plain version) A u, b - A u, a zero-guess rc visit and a correcting
+    ur visit (Jacobi 3 steps, omega 0.8), gathered whole."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.parallel import (
+        BlockLevelOps,
+        gather_solution,
+    )
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+        stencil_coefficients,
+    )
+    from multigrid_petsc_tpu_torch.solvers.smoothers import (
+        jacobi_step_coeffs,
+    )
+
+    plan = make_plan(dict(layout="blocks", mesh=spec["mesh"], min_local=8))
+    rng = np.random.default_rng(11)
+    n, nc = 63, 31
+    field, u, b = (torch.as_tensor(rng.standard_normal((n, n)))
+                   for _ in range(3))
+    e, r31 = (torch.as_tensor(rng.standard_normal((nc, nc)))
+              for _ in range(2))
+    res = {"coords": np.asarray(plan.coords)}
+    for m in (n, nc, 15):
+        ys, xs = plan.extents(m, m)
+        res[f"ys{m}"], res[f"xs{m}"] = np.asarray(ys), np.asarray(xs)
+    st5 = stencil_coefficients(MeshType(2), n, n, torch.float64, "cpu")
+    d = BlockLevelOps(st5, n, n, plan, 3)
+    blk = d.block_of(field)
+    for h in range(1, 5):
+        for k, ring in zip(("", "neg_"), d.exchange((blk, -blk), h)):
+            for part, x in ring._asdict().items():
+                res[f"{k}ring{h}_{part}"] = x.numpy()
+    res["gathered"] = gather_solution(blk, plan, n, n)
+    res["gathered_real"] = gather_solution(d.real(blk).contiguous(), plan,
+                                           n, n)
+    st31 = stencil_coefficients(MeshType(2), nc, nc, torch.float64, "cpu")
+    d31 = BlockLevelOps(st31, nc, nc, plan, 3)
+    halo.gathers.clear()
+    res["agglomerated"] = d31.to_coarse(d31.restrict(d31.block_of(r31)))
+    res["agglomerate_gathers"] = json.dumps(dict(halo.gathers))
+    steps = jacobi_step_coeffs(3, 0.8)
+    st9 = stencil9_coefficients(AnisoProblem(1.0, 1.0, 1.0, 2.0, 0.4), n, n,
+                                torch.float64, "cpu")
+    for name, st in (("5pt", st5), ("9pt", st9)):
+        d = BlockLevelOps(st, n, n, plan, 3)
+        ub, bb = d.block_of(u), d.block_of(b)
+        whole = {
+            "a": d.apply(ub),
+            "r": d.residual(bb, ub),
+        }
+        uo, rc = d.visit_down(bb, None, steps)
+        whole["rc0_u"], whole["rc0_rc"] = uo, d31.gather(rc, "solution")
+        uo, r = d.visit_up(bb, ub, d31.block_of(e), steps, True)
+        whole["ur_u"], whole["ur_r"] = uo, r
+        for k, x in whole.items():
+            res[f"{name}_{k}"] = (x.numpy() if k == "rc0_rc"
+                                  else d.gather(x, "solution").numpy())
+    np.savez(out / f"uneven_units.{rank}.npz", **res)
 
 
 def cli(rank: int, world: int, out: Path, name: str, argv: list) -> None:
@@ -453,6 +541,9 @@ def main() -> None:
                 continue
             if name == "merged_units":
                 merged_units(rank, world, out, spec)
+                continue
+            if name == "uneven_units":
+                uneven_units(rank, world, out, spec)
                 continue
             plan = make_plan(spec)
             cfg = config(spec["cfg"])

@@ -4,8 +4,9 @@ version on the 5-point stencil against JAX's ``DistLevelOps`` in interpret
 mode on the conftest's 8-device row mesh, every emit; a 4-rank gloo world
 (``_dist_worker.py``, started once for the module and run beside the
 kernel tests) for ``edge_exchange`` / ``allreduce_sum``, what a plan
-refuses (the bf16 working dtype, the sparse backend, and what the blocks
-layout does not take yet), the device of a plan built without one,
+refuses (the bf16 working dtype, the sparse backend) and the uneven
+blocks the blocks layout once refused and now runs (held to the port's
+one-process solve), the device of a plan built without one,
 and the V-cycle and mg-CG solves against JAX's 4-device row-plan
 solves.
 
@@ -247,20 +248,40 @@ def test_edge_exchange_and_allreduce(world):
 def test_plan_refuses(world, case):
     """What a plan does not take raises NotImplementedError naming
     ROADMAP (the sparse backend: JAX's ValueError), on every rank: the
-    bf16 working dtype, and under the blocks layout each item that waits
-    (uneven blocks), which name their item."""
+    bf16 working dtype.  The uneven blocks, which the blocks layout
+    refused until it split any rank count, run (``dw.RUNS``): the 13-point
+    mg-CG on a 1x4 mesh at min_local 2 (its 11^2 level in blocks of 4, 4,
+    2 and 2 columns) gives every rank the port's one-process iterations,
+    history (rtol 1e-6 / atol 1e-9) and solution (rtol 1e-6 / atol
+    1e-12), its fine level split along x."""
     out = world()
-    got = {json.loads((out / f"refuse.{r}.json").read_text())[case]
-           for r in range(dw.WORLD)}
+    runs = [json.loads((out / f"refuse.{r}.json").read_text())
+            for r in range(dw.WORLD)]
+    got = {r[case] for r in runs}
     assert len(got) == 1, got
     msg = got.pop()
-    if case == "sparse":
+    if case in dw.RUNS:
+        from multigrid_petsc_tpu_torch.solvers.solve import solve
+
+        assert msg == "no error", msg
+        fields = dict(dict(npts=129, grids=4, levels=4, cycle=101),
+                      **dw.REFUSALS[case][0])
+        one = solve(dw.config(fields), device="cpu")
+        for r in runs:
+            run = r[case + "_run"]
+            assert run == runs[0][case + "_run"]
+            assert run["converged"] and one.converged
+            assert run["iters"] == one.iters
+            np.testing.assert_allclose(run["rnorm"], one.rnorm, rtol=1e-6,
+                                       atol=1e-9)
+            np.testing.assert_allclose(run["u"], one.u_fine, rtol=1e-6,
+                                       atol=1e-12)
+            assert run["axes"][0] == [False, True], run["axes"]
+    elif case == "sparse":
         assert msg.startswith("ValueError") and "single-device" in msg
     else:
         assert msg.startswith("NotImplementedError") and "ROADMAP" in msg
-        item = ("the bf16 working dtype" if case == "bf16" else
-                "distribution, blocks: " + dw.BLOCKS_ITEMS[case])
-        assert item in msg, msg
+        assert "the bf16 working dtype" in msg, msg
 
 
 def test_plan_without_device_is_on_the_card(world):

@@ -3,8 +3,9 @@
 package's blocks plan on the CPU.
 
 (a) ``mesh_shape`` and the blocks ``spec`` equal JAX's ``make_device_mesh``
-    and ``ShardingPlan.spec`` for 2, 4 and 8 ranks at 7^2 ... 1025^2 and
-    min_local 8, 16, 32.
+    and ``ShardingPlan.spec`` for 2 to 8 ranks at 7^2 ... 1025^2 and
+    min_local 8, 16, 32 (the uneven blocks of 3, 5, 6 and 7 ranks:
+    test_torch_dist_blocks_uneven.py).
 (b) ``block_exchange`` on a 4-rank (2x2) gloo world (``_dist_worker.py``,
     one world for the module, started when its first test runs): at
     depth 1 equal to JAX's ``halo_pad_local`` under ``shard_map`` on a
@@ -167,7 +168,7 @@ def _start_worlds(worlds):
 SIDES = (7, 15, 31, 63, 127, 255, 511, 1023)
 
 
-@pytest.mark.parametrize("size", [2, 4, 8])
+@pytest.mark.parametrize("size", [2, 3, 4, 5, 6, 7, 8])
 def test_mesh_and_spec_match_jax(size):
     mesh = make_device_mesh(jax.devices()[:size])
     assert mesh_shape(size) == mesh.devices.shape

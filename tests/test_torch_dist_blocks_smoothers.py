@@ -253,9 +253,10 @@ def test_line_block_mode_plain_matches_jax(cut, axis):
 
 
 def _stub_plan(blk: Block):
-    """A plan whose every level's block is ``blk`` (the block rules need no
-    process group here)."""
-    return types.SimpleNamespace(block=lambda ny, nx: blk)
+    """A plan whose every level's block is ``blk``, every rank's alike
+    (the block rules need no process group here)."""
+    return types.SimpleNamespace(block=lambda ny, nx: blk,
+                                 extents=lambda ny, nx: ((blk.R,), (blk.C,)))
 
 
 @pytest.mark.parametrize("blk", [Block(5, 7, 5, 3, (True, True)),

@@ -184,18 +184,44 @@ def test_cli_two_ranks_matches_one(tmp_path):
             assert got == want
 
 
-def test_cli_blocks_layout_raises(tmp_path):
-    """``-map 0`` runs the blocks layout (test_torch_dist_blocks.py,
-    test_torch_dist_blocks_smoothers.py, test_torch_dist_blocks_merged.py);
-    what waits under it raises through the CLI, naming its ROADMAP item:
-    here uneven blocks (3 ranks make a 1x3 mesh, which splits the 127^2
-    level along x, 127 // 3 >= 32, and 128 columns do not make 3 even
-    blocks)."""
-    out = _cli("-npts", "129", "-grids", "2", "-levels", "2", "-map", "0",
-               "-device", "cpu", cwd=tmp_path, nproc=3)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "ROADMAP" in out.stderr
-    assert "distribution, blocks: uneven blocks" in out.stderr
+def test_cli_blocks_layout_raises(tmp_path, monkeypatch, capsys):
+    """``-map 0`` under torchrun on 3 ranks, which the blocks layout
+    refused until it split any rank count (a 1x3 mesh splits the 127^2
+    level along x, 127 // 3 >= 32, in blocks of 44, 42 and 42 columns):
+    it runs, prints the one-process run's summary (iterations, residual,
+    error norms) and the banner JAX's CLI prints for the same run under
+    its blocks plan (the iterations line equal, the residual and error
+    norms within 1e-6)."""
+    from multigrid_petsc_tpu.poisson import main as j_main
+
+    args = ("-npts", "129", "-grids", "4", "-levels", "4", "-cycle", "101",
+            "-map", "0")
+    (tmp_path / "three").mkdir()
+    (tmp_path / "one").mkdir()
+    (tmp_path / "jax").mkdir()
+    three = _cli(*args, "-device", "cpu", cwd=tmp_path / "three", nproc=3)
+    one = _cli(*args, "-device", "cpu", cwd=tmp_path / "one")
+    assert three.returncode == 0, three.stderr
+    assert one.returncode == 0, one.stderr
+    assert ("distributed: ranks=3 mesh=1x3 transport=gloo sharded "
+            "levels=127") in three.stdout
+
+    def lines(out, keys):
+        return [ln for ln in out.splitlines() if ln.startswith(keys)]
+
+    keys = ("iterations:", "relative residual:", "error (max")
+    assert lines(three.stdout, keys) == lines(one.stdout, keys)
+    monkeypatch.chdir(tmp_path / "jax")
+    assert j_main(list(args)) == 0
+    banner = ("Iterations =", "Relative residual =", "error[")
+    want, got = lines(capsys.readouterr().out, banner), lines(three.stdout,
+                                                              banner)
+    assert len(got) == len(want) == 5, (got, want)
+    assert got[-1] == want[-1]  # Iterations = N (converged: True)
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.split("=")[0] == w.split("=")[0]
+        np.testing.assert_allclose(float(g.split("=")[1]),
+                                   float(w.split("=")[1]), rtol=1e-6)
 
 
 @pytest.mark.parametrize("compiler,machine", [
