@@ -185,8 +185,9 @@ non-zero):
      K15's (y- and x-lines, the carry pass over unequal segment counts)
      on the 1x3, 2x3 and 3x2 cuts of 8191^2 and a ragged 1119^2, against
      the whole-grid kernels and their plain versions, the largest uneven
-     block's device time beside 13 (a)'s even block, the carry pass
-     through its offsets table against packing the ends first; (b) 6 and
+     block's device time beside 13 (a)'s even block, K15's launches on
+     uneven and even segment counts and the stacking of the gathered
+     ends; (b) 6 and
      3 ranks sharing the card over gloo at 8193^2: mg-CG on 2x3 and 1x3,
      a V-cycle (forced 5) on 2x3, y-line mg-CG (forced 3) on 3x2, x-line
      mg-CG (forced 3) on 2x3, D1 on 2 split grids (forced 10) on 1x3,
@@ -2761,8 +2762,9 @@ def line_launch_ms(torch, lk, lf, b, u, halo, every) -> dict:
 def line_row_sweep(torch, lk, st, b, u, P):
     """One rank-spanning y-line sweep (K15) of the (ny, nx) level (b, u),
     its pad row appended, cut into P row blocks in one process as P ranks
-    run it: ``line_rows_begin`` on every block, the outputs stacked in
-    rank order (the all-gather), ``line_rows_end`` on every block; the
+    run it: ``line_rows_begin`` on every block, the outputs stacked as
+    the all-gather's caller stacks them (``stack_lines``),
+    ``line_rows_end`` on every block; the
     stitched (ny + 1, nx) result.  Returns (sweep, the blocks' RowLines,
     the blocks' (b, u, halo))."""
     from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo
@@ -2779,8 +2781,8 @@ def line_row_sweep(torch, lk, st, b, u, P):
               for p in range(P)]
 
     def sweep():
-        every = torch.cat([lk.line_rows_begin(lf, *blk)
-                           for lf, blk in zip(lfs, blocks)])
+        every = lk.stack_lines(lfs[0], [lk.line_rows_begin(lf, *blk)
+                                         for lf, blk in zip(lfs, blocks)])
         return torch.cat([lk.line_rows_end(lf, *blk, every, P11_OMEGA)
                           for lf, blk in zip(lfs, blocks)])
 
@@ -2853,8 +2855,9 @@ def phase_line_rows(torch, dev, rec):
                           f"card K15 sweep {oms:.4f} ms, plain {pms:.4f} "
                           f"ms; bound {1e3 * nbytes / HBM_PEAK:.4f} ms")
                     keep_time(rec[key], ms, pms, nbytes, 20 * n * n)
-                    every = torch.cat([lk.line_rows_begin(lf, *blk)
-                                       for lf, blk in zip(lfs, blocks)])
+                    every = lk.stack_lines(lfs[0], [
+                        lk.line_rows_begin(lf, *blk)
+                        for lf, blk in zip(lfs, blocks)])
                     dms = device_ms(torch, sweep)
                     split = line_launch_ms(torch, lk, lfs[1], *blocks[1],
                                            every)
@@ -3520,8 +3523,9 @@ def line_block_sweeps(torch, lk, st, b, u, my, mx, axis, plain, sides=None):
     (``axis`` 0, ``st`` the collapsed line stencil) or x-lines (1: ``st``
     the transposed level's, each block and ring transposed,
     ``line_kernel.transpose_ring``), the first half on every block, its
-    outputs stacked over the ranks the lines span (the all-gather; none
-    along an axis of one rank), the second half on every block.  Returns
+    outputs stacked over the ranks the lines span (the all-gather and
+    ``stack_lines``; none along an axis of one rank), the second half on
+    every block.  Returns
     (sweep: the stitched (ny + pad, nx + pad) result, the blocks' calls
     (line, b, u, ring, the stacked first halves) of the second half)."""
     ny, nx = b.shape
@@ -3560,7 +3564,7 @@ def line_block_sweeps(torch, lk, st, b, u, my, mx, axis, plain, sides=None):
             group = (mine[ix::mx] if axis == 0 else
                      mine[iy * mx:(iy + 1) * mx])
             spans = my if axis == 0 else mx
-            c[4:] = [torch.cat(group) if spans > 1 else mine[p]]
+            c[4:] = [lk.stack_lines(c[0], group) if spans > 1 else mine[p]]
             out = end(*c)
             outs.append((out.T if axis else out,))
         return stitch(torch, outs, my, mx)[0]
@@ -4394,25 +4398,6 @@ def phase_k17_uneven(torch, dev, rec):
     torch.cuda.empty_cache()
 
 
-def carry_packed(torch, lk, lf, packed):
-    """Launch 2 on ends packed back to back ([every end; every start], one
-    piece: the carry pass's other design, which reads no offsets table):
-    this rank's carries."""
-    from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
-    from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import _stream
-
-    la = lf.launch
-    S = packed.shape[0] // 2
-    carries = torch.empty((2, lf.nseg, packed.shape[1]), dtype=la.dtype,
-                          device=la.device)
-    check(getattr(load_library(), "mg_line_rows_carry" + la.sfx)(
-        la.gptrs.ctypes.data, la.fsx, lf.seg, packed.data_ptr(), None, 1, S,
-        carries[0].data_ptr(), carries[1].data_ptr(), lf.row0 // lf.seg,
-        lf.nseg, lf.ny, packed.shape[1], _stream(la.device)),
-        "packed carry launch")
-    return carries
-
-
 def phase_line_uneven(torch, dev, rec):
     """16 (a): K15's 2-D block mode on uneven blocks: the 8191^2 level and
     the ragged 1119^2 one cut on 1x3, 2x3 and 3x2 meshes as the blocks
@@ -4421,13 +4406,12 @@ def phase_line_uneven(torch, dev, rec):
     direction along the lines) in f32, and (1,1,1,2,0.4) (factor fields)
     on the 1x3 cut: one sweep of the stitched blocks held to the stitched
     plain blocks, the whole-grid plain sweep and the whole-grid kernel
-    (TOL_LINE of max|plain|), the pads exactly 0.  The carry pass timed
-    alone as device time on block 0, over unequal segment counts (the
-    x-lines of the 1x3 cut of 8191^2: 88, 84 and 84 segments) and over
-    equal ones (the y-lines of the 2x3 cut: 128 and 128), reading the
-    gathered ends in place through the offsets table, against the other
-    design, the ends packed back to back first (``torch.cat``, then one
-    piece: no table), whose carries must be the same to the bit."""
+    (TOL_LINE of max|plain|), the pads exactly 0.  Block 0's launches
+    alone as device time (``line_launch_ms``), over unequal segment
+    counts (the x-lines of the 1x3 cut of 8191^2: 88, 84 and 84 segments)
+    and over equal ones (the y-lines of the 2x3 cut: 128 and 128), and
+    the stacking of the gathered ends as one piece (``stack_lines``),
+    which the gather's own copy does."""
     from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
     from multigrid_petsc_tpu_torch.ops.stencil import transpose_stencil9
     from multigrid_petsc_tpu_torch.problems import (
@@ -4479,41 +4463,21 @@ def phase_line_uneven(torch, dev, rec):
                     timed = {((1, 3), 1): "uneven", ((2, 3), 0): "even"}.get(
                         ((my, mx), axis))
                     if n == 8191 and prob is None and timed:
-                        lf, every = calls[0][0], calls[0][4]
-                        counts = lf.counts
-                        off = lf.launch.offsets.tolist()
-                        pieces = [every[2 * o:2 * o + 2 * c]
-                                  for o, c in zip(off, counts)]
-
-                        def pack():
-                            return torch.cat([q[:c] for q, c in
-                                              zip(pieces, counts)]
-                                             + [q[c:] for q, c in
-                                                zip(pieces, counts)])
-
-                        a_out = lk.line_rows_carry(lf, every)
-                        b_out = carry_packed(torch, lk, lf, pack())
-                        assert torch.equal(a_out, b_out), tag
-                        t_table = device_ms(
-                            torch, lambda: lk.line_rows_carry(lf, every))
-                        t_packed = device_ms(
-                            torch, lambda: carry_packed(torch, lk, lf,
-                                                        pack()))
-                        t_pack = device_ms(torch, pack)
+                        lf = calls[0][0]
+                        group = [lk.line_rows_begin(*c[:4]) for c in (
+                            calls[::mx] if axis == 0 else calls[:mx])]
+                        t_stack = device_ms(
+                            torch, lambda: lk.stack_lines(lf, group))
                         split = line_launch_ms(torch, lk, *calls[0])
                         rec[key].setdefault("uneven", {})[timed] = dict(
                             block=list(calls[0][1].shape),
-                            segments=list(counts), carry_table_ms=t_table,
-                            carry_packed_ms=t_packed, pack_ms=t_pack,
+                            segments=list(lf.counts), stack_ms=t_stack,
                             launch_ms=split)
                         print(f"  {tag}: block 0 {list(calls[0][1].shape)} "
                               + ("(transposed), " if axis else "")
-                              + f"segments {list(counts)}: "
-                              f"carry pass device time, reading through "
-                              f"the offsets table {t_table:.4f} ms; packed "
-                              f"first {t_packed:.4f} ms (the pack alone "
-                              f"{t_pack:.4f} ms); the sweep's launches "
-                              f"{split}")
+                              + f"segments {list(lf.counts)}: device time "
+                              f"of the launches {split}; stacking the "
+                              f"gathered ends {t_stack:.4f} ms")
                     del sweep, psweep, calls, got, want
                     torch.cuda.empty_cache()
                 del whole, whole_k, st, st9

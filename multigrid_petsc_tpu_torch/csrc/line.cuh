@@ -77,18 +77,18 @@
 // run across the ranks' row blocks, so its lines cross the ranks.  The
 // segments are laid on the global rows (seg rows each, seg the largest
 // power of two <= SEG that divides every rank's block, so no segment
-// straddles two ranks; blocks of unequal rows hold unequal segment counts,
-// which launch 2 reads through a table of each rank's first segment),
-// and the three launches are split around the one exchange the
+// straddles two ranks; blocks of unequal rows hold unequal segment
+// counts), and the three launches are split around the one exchange the
 // carries need: each rank runs launch 1 on its own segments, from its
 // block, its iterate's row above and below (from the neighbours) and the
 // factors of its rows; the ranks all-gather the segment ends (the caller,
 // over torch.distributed); every rank runs launch 2 over all the
 // segments with the whole level's factors (redundantly, as the reference
 // runs a replicated coarse level: the scan makes that cheap), reading the
-// gathered ends in place and storing only its own segments' carries,
-// then launch 3 on its own segments, which also stores the block's pad
-// row and column as 0.  No transpose of the level and no chain through
+// gathered ends in place -- the caller stacks them as one piece, every
+// rank's ends, then every rank's starts, in the gather's own copy -- and
+// storing only its own segments' carries, then launch 3 on its own
+// segments, which also stores the block's pad row and column as 0.  No transpose of the level and no chain through
 // the ranks: the carries move nx * ny / seg * 2 values a sweep.
 //
 // Its 2-D block mode (SIDES; the same entries, given side buffers): a
@@ -453,29 +453,17 @@ line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
 }
 
-// Launch 2 reads the segment ends and starts where launch 1 (or the
-// ranks' all-gather of it) left them: the ranks' outputs stacked in the
-// order of their rows, rank q's (2, n_q, nx) -- the ends of its n_q
-// segments, then their starts -- from row 2 off_q, off_q the lines' index
-// of its first segment (off_0 = 0, off_ranks = S).  The ranks may hold
-// unequal counts (blocks of unequal rows: the 2-D blocks layout on any
-// rank count), so segment s of rank q has its end on row off_q + s and
-// its start on row off_{q+1} + s.  `off` is a device table of ranks + 1
-// entries (null: one rank, off = {0, S}: a whole level), staged in shared
-// memory by launch 2; a warp's segment is one for all its lanes, so each
-// lookup is a broadcast.
-constexpr int MAX_LINE_RANKS = 256;
-
-template <class T>
-struct Gathered {
-  const T* p;
-  const int* off;
-  int ranks;
-};
-
 // Launch 2: the carries of every column as two first-order linear
 // recurrences over its S segments, each a chain of affine maps, composed
-// by a blocked scan.  Forward: C_0 = 0, C_{s+1} = ends_s + gain_s C_s (the
+// by a blocked scan.  It reads the segment ends and starts as one (2, S,
+// nx) piece, the ends of the lines' S segments, then their starts: launch
+// 1's own output on a whole level, the ranks' stacked so by the caller in
+// the rank-spanning mode (the ranks may hold unequal counts: blocks of
+// unequal rows under the 2-D blocks layout on any rank count).  A first
+// design read the ranks' outputs where the gather left them, (2, n_q,
+// nx) each, through a table of each rank's first segment: its lookup
+// before every load made the launch ~22-34% slower than reading one
+// piece, and the stacking rides the copy the gather makes anyway.  Forward: C_0 = 0, C_{s+1} = ends_s + gain_s C_s (the
 // true dp on the row above segment s + 1); backward: D_{S-1} = 0,
 // D_{s-1} = (starts_s + C_s above_s) + below_s D_s (the true x on the row
 // below segment s - 1), with C_s as launch 3 reads it (rounded to T).  A
@@ -489,24 +477,19 @@ struct Gathered {
 // incoming carry.  The forward replay also composes the chunk's backward
 // maps (they need C_s), and keeps its forward carry at each batch's start
 // in shared memory (32 bytes a segment: S up to ~7000), from which the
-// backward replay recomputes a batch's C_s before walking it down.  A
-// load finds its segment's rank by a binary search of the staged
-// offsets (no step on one rank).  The dependent chain is ~4 K + 2 CW f64
-// steps instead of 2 (S - 1).  cin and din are stored for segments
-// [s0, s0 + nown) only (a rank's own), rounded once to T; the arithmetic
-// is f64 throughout, as the serial walk's, in another order of roundings.  CW = 16 ran no faster than 8,
+// backward replay recomputes a batch's C_s before walking it down.  The
+// dependent chain is ~4 K + 2 CW f64 steps instead of 2 (S - 1).  cin and
+// din are stored for segments [s0, s0 + nown) only (a rank's own),
+// rounded once to T; the arithmetic is f64 throughout, as the serial
+// walk's, in another order of roundings.  CW = 16 ran no faster than 8,
 // and CB = 16 (more loads in flight, 128 registers) 6% slower than 8.
 template <class T, bool ROWS = false>
 __global__ void __launch_bounds__(32 * CW, 2)
-line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
-                  T* __restrict__ din, int seg, int S, int K, int s0,
-                  int nown, int ny, int nx) {
+line_carry_kernel(LineFactor<T> f, const T* __restrict__ g,
+                  T* __restrict__ cin, T* __restrict__ din, int seg, int S,
+                  int K, int s0, int nown, int ny, int nx) {
   extern __shared__ double batch_c[];  // [CW][K / CB][32]
   __shared__ double fg[CW][32], fe[CW][32], bg[CW][32], be[CW][32];
-  __shared__ int off[MAX_LINE_RANKS + 1];
-  for (int i = threadIdx.x; i <= g.ranks; i += blockDim.x)
-    off[i] = g.off != nullptr ? g.off[i] : i * S;
-  __syncthreads();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int j = blockIdx.x * 32 + lane;
   const bool col = j < nx;
@@ -515,21 +498,6 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
   const int a = min(S, w * K), b = min(S, a + K), nb = K / CB;
   const int s1 = s0 + nown;
   double* bc = batch_c + (size_t)w * nb * 32 + lane;
-  // Segment s's rank: the last q with off_q <= s.
-  auto rank_of = [&](int s) {
-    int lo = 0, hi = g.ranks - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (off[mid] <= s)
-        lo = mid;
-      else
-        hi = mid - 1;
-    }
-    return lo;
-  };
-  auto end_at = [&](int s) {
-    return g.p[(size_t)(off[rank_of(s)] + s) * nx + jc];
-  };
   // Segment s's row of the carries' inputs: its end and start, its gain,
   // and its first row's responses (0 past the level: a segment of pad
   // rows alone has no rows).
@@ -537,9 +505,8 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
     return s * rs < ny ? fat(f.gain, f.sx, s, jc, nx) : T(0);
   };
   auto load = [&](int s, T& e, T& gn, T& x, T& ab, T& bl) {
-    const int q = rank_of(s);
-    e = g.p[(size_t)(off[q] + s) * nx + jc];
-    x = g.p[(size_t)(off[q + 1] + s) * nx + jc];
+    e = g[(size_t)s * nx + jc];
+    x = g[(size_t)(S + s) * nx + jc];
     gn = gain(s);
     const bool real = s * rs < ny;
     ab = real ? fat(f.above, f.sx, s * rs, jc, nx) : T(0);
@@ -552,7 +519,7 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
 #pragma unroll
     for (int q = 0; q < CB; ++q)
       if (lo + q < b) {
-        ev[q] = end_at(lo + q);
+        ev[q] = g[(size_t)(lo + q) * nx + jc];
         gv[q] = gain(lo + q);
       }
 #pragma unroll
@@ -631,7 +598,7 @@ line_carry_kernel(LineFactor<T> f, Gathered<T> g, T* __restrict__ cin,
 }
 
 template <class T, bool ROWS>
-int carry_launch(const LineFactor<T>& f, Gathered<T> g, T* cin, T* din,
+int carry_launch(const LineFactor<T>& f, const T* g, T* cin, T* din,
                  int seg, int S, int s0, int nown, int ny, int nx,
                  cudaStream_t st) {
   const int K = CB * ((S + CW * CB - 1) / (CW * CB));
@@ -876,8 +843,8 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
       e = nullptr;
       correct = false;
     }
-    if (int err = carry_launch<T, false>(f, Gathered<T>{ends, nullptr, 1}, cin,
-                                         din, SEG, nseg, 0, nseg, ny, nx, st))
+    if (int err = carry_launch<T, false>(f, ends, cin, din, SEG, nseg, 0,
+                                         nseg, ny, nx, st))
       return err;
   }
   FixFn<T> fix = tab ? pick_fix<T, true>(guess, correct, dot)
@@ -932,17 +899,13 @@ int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
 
 template <class T>
 int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
-                    const T* gathered, const int* off, int ranks, int S,
-                    T* cin, T* din, int s0, int nown, int ny, int nx,
-                    void* stream) {
-  if (!rows_ok<T>(seg, nown, 1, nx) || ranks < 1 ||
-      ranks > MAX_LINE_RANKS || (off == nullptr && ranks > 1) || S < ranks ||
-      s0 < 0 || s0 + nown > S || ny < 1 || gathered == nullptr ||
-      cin == nullptr || din == nullptr)
+                    const T* gathered, int S, T* cin, T* din, int s0,
+                    int nown, int ny, int nx, void* stream) {
+  if (!rows_ok<T>(seg, nown, 1, nx) || s0 < 0 || s0 + nown > S || ny < 1 ||
+      gathered == nullptr || cin == nullptr || din == nullptr)
     return (int)cudaErrorInvalidValue;
-  return carry_launch<T, true>(line_factor<T>(fptrs, fsx),
-                               Gathered<T>{gathered, off, ranks}, cin, din,
-                               seg, S, s0, nown, ny, nx,
+  return carry_launch<T, true>(line_factor<T>(fptrs, fsx), gathered, cin,
+                               din, seg, S, s0, nown, ny, nx,
                                (cudaStream_t)stream);
 }
 
@@ -1010,9 +973,8 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
 //                     ends and starts of its nseg segments, (nseg, nx)
 //                     each, one (2, nseg, nx) buffer: ends = the first
 //                     half), launch 2 (from the gathered launch-1 outputs
-//                     of the ranks, rank q's (2, n_q, nx) from row 2 off[q]
-//                     (off: a device table of ranks + 1 first segments,
-//                     off[ranks] = S; null for one rank), read in place,
+//                     of the ranks stacked as one (2, S, nx) piece, every
+//                     rank's ends, then every rank's starts, read in place,
 //                     with the whole level's factors (ny rows): the
 //                     carries cin, din, (nown, nx) each, of segments [s0,
 //                     s0 + nown) of the S) and launch 3 (the swept block of
@@ -1053,10 +1015,10 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
   }                                                                         \
   extern "C" int mg_line_rows_carry##SFX(                                   \
       const unsigned long long* fptrs, int fsx, int seg, const T* gathered, \
-      const int* off, int ranks, int S, T* cin, T* din, int s0, int nown,   \
-      int ny, int nx, void* stream) {                                       \
-    return line_rows_carry<T>(fptrs, fsx, seg, gathered, off, ranks, S,     \
-                              cin, din, s0, nown, ny, nx, stream);          \
+      int S, T* cin, T* din, int s0, int nown, int ny, int nx,              \
+      void* stream) {                                                       \
+    return line_rows_carry<T>(fptrs, fsx, seg, gathered, S, cin, din, s0,   \
+                              nown, ny, nx, stream);                        \
   }                                                                         \
   extern "C" int mg_line_rows_fix##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides,                 \

@@ -65,7 +65,7 @@ _SIGNATURES = {
     # MG_LINE_ENTRIES).
     **{"mg_line_rows_ends" + sfx: [_P, _P, _P, _I, _I] + [_P] * 8
        + [_I] * 4 + [_P] for sfx in ("", "_f64")},
-    **{"mg_line_rows_carry" + sfx: [_P, _I, _I, _P, _P, _I, _I, _P, _P]
+    **{"mg_line_rows_carry" + sfx: [_P, _I, _I, _P, _I, _P, _P]
        + [_I] * 4 + [_P] for sfx in ("", "_f64")},
     **{"mg_line_rows_fix" + sfx: [_P, _P, _P, _I, _I] + [_P] * 9
        + [_I] * 5 + [t, t, _P] for sfx, t in (("", _F), ("_f64", _D))},

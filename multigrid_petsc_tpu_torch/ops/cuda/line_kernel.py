@@ -29,9 +29,10 @@ one all-gather the caller makes.  On the card the halves are the CUDA
 sweep's launches split at its carry pass (``csrc/line.cuh``, the
 rank-spanning mode): each rank's segment ends (launch 1) are gathered,
 every rank runs the carry pass over all the segments, reading the
-gathered ends in place through a table of each rank's first segment
-(the ranks' blocks may hold unequal segment counts) and keeping its own
-segments' carries (``line_rows_carry``), then fixes its own (launch 3,
+gathered ends in place as one piece (``stack_lines``: every rank's ends,
+then every rank's starts; the ranks' blocks may hold unequal segment
+counts) and keeping its own segments' carries (``line_rows_carry``),
+then fixes its own (launch 3,
 ``line_rows_fix``, which writes the block's pad row and column as 0); a
 ``RowLine`` holds its launch arguments, checked once (``RowLaunch``); on
 the CPU the plain version gathers the ranks' line right-hand sides and
@@ -355,8 +356,7 @@ class RowLaunch(NamedTuple):
     of its rows' line factors (launches 1 and 3) and of the whole columns'
     (launch 2), whether the factors are fields (``fsx``), the coefficients'
     width (1, or the block's real columns), the storage type, the entries'
-    suffix, the device and, for launch 2, the lines' index of each
-    block's first segment and then their count (int32 on the device)."""
+    suffix and the device."""
 
     c9: Coeff9Args
     fptrs: np.ndarray
@@ -366,7 +366,6 @@ class RowLaunch(NamedTuple):
     dtype: torch.dtype
     sfx: str
     device: torch.device
-    offsets: torch.Tensor
 
 
 class RowLine(NamedTuple):
@@ -415,11 +414,29 @@ class RowLine(NamedTuple):
 
 def gathered_rows(lf: RowLine) -> tuple[int, ...]:
     """The rows of each block's ``line_rows_begin`` output, in the order
-    of their rows, as the all-gather stacks them: its line right-hand
-    sides (the plain version) or its segments' ends and starts (the
-    kernel)."""
+    of their rows: its line right-hand sides (the plain version) or its
+    segments' ends and starts (the kernel)."""
     return (lf.blocks if lf.launch is None
             else tuple(2 * c for c in lf.counts))
+
+
+def stack_lines(lf: RowLine, pieces) -> torch.Tensor:
+    """Every block's ``line_rows_begin`` output (``pieces``, in the order
+    of their rows) stacked as ``line_rows_end`` takes it: the plain
+    version's right-hand sides one under another; the kernel's as one
+    piece, the segment ends of every block, then their starts
+    (``pack_ends``), which the carry pass reads in place."""
+    if lf.launch is None:
+        return torch.cat(pieces)
+    return pack_ends(pieces, lf.counts)
+
+
+def pack_ends(pieces, counts) -> torch.Tensor:
+    """[every block's ends; every block's starts] from the blocks'
+    launch-1 outputs (``pieces``: (2 n, w) each, its n = ``counts[q]``
+    segments' ends, then their starts)."""
+    return torch.cat([p[:n] for p, n in zip(pieces, counts)]
+                     + [p[n:] for p, n in zip(pieces, counts)])
 
 
 def _line_blocks(ny: int, R: int, row0: int, blocks) -> tuple[int, ...]:
@@ -452,8 +469,7 @@ def _pointers(fac: SegmentFactor) -> np.ndarray:
 
 
 def _row_launch(st_rows: Stencil9, fac: SegmentFactor,
-                rows: SegmentFactor, nyl: int, nxl: int | None,
-                counts: tuple[int, ...]) -> RowLaunch:
+                rows: SegmentFactor, nyl: int, nxl: int | None) -> RowLaunch:
     """``RowLaunch`` of a kernel ``RowLine``: every coefficient and factor
     checked (device, storage type, shape, contiguity) once."""
     width = nxl or max(t.shape[1] for t in (*st_rows, fac.m))
@@ -470,11 +486,8 @@ def _row_launch(st_rows: Stencil9, fac: SegmentFactor,
                  if t is not None}}
     device = st_rows.cc.device
     dtype = _check_cuda(device, fields, dtypes=LINE_DTYPES)
-    offsets = torch.tensor(np.cumsum((0,) + counts), dtype=torch.int32,
-                           device=device)
     return RowLaunch(c9, _pointers(rows), _pointers(fac), int(w > 1), width,
-                     dtype, "_f64" if dtype == torch.float64 else "", device,
-                     offsets)
+                     dtype, "_f64" if dtype == torch.float64 else "", device)
 
 
 def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,
@@ -501,10 +514,8 @@ def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,
     rows = SegmentFactor(*(
         t if t is None or k == "gain" else t[row0:row0 + nyl]
         for k, t in fac._asdict().items()))
-    line = RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl,
-                   blocks=blocks)
-    return line._replace(launch=_row_launch(st_rows, fac, rows, nyl, nxl,
-                                            line.counts))
+    return RowLine(st_rows, fac, rows, seg, row0, R, ny, col0, nxl,
+                   _row_launch(st_rows, fac, rows, nyl, nxl), blocks)
 
 
 def transpose_ring(ring: Halo2) -> Halo2:
@@ -625,9 +636,8 @@ def line_rows_carry(lf: RowLine, gathered: torch.Tensor) -> torch.Tensor:
     """Launch 2 of a split sweep alone (the card only): the carries of
     this rank's segments, (2, nseg, nxl), cin then din, by the blocked
     scan over every segment of the lines, from ``gathered`` (as
-    ``line_rows_end`` takes it: every block's segment ends and starts,
-    stacked in the order of their rows; ``RowLaunch.offsets`` says where
-    each block's begin), read in place."""
+    ``line_rows_end`` takes it: ``stack_lines``' one piece), read in
+    place."""
     la = lf.launch
     nseg = lf.nseg
     nxl = gathered.shape[1]
@@ -639,10 +649,9 @@ def line_rows_carry(lf: RowLine, gathered: torch.Tensor) -> torch.Tensor:
                 dtypes=(la.dtype,))
     carries = torch.empty((2, nseg, nxl), dtype=la.dtype, device=la.device)
     err = getattr(load_library(), "mg_line_rows_carry" + la.sfx)(
-        la.gptrs.ctypes.data, la.fsx, lf.seg, gathered.data_ptr(),
-        la.offsets.data_ptr(), len(lf.blocks), S, carries[0].data_ptr(),
-        carries[1].data_ptr(), lf.row0 // lf.seg, nseg, lf.ny, nxl,
-        _stream(la.device))
+        la.gptrs.ctypes.data, la.fsx, lf.seg, gathered.data_ptr(), S,
+        carries[0].data_ptr(), carries[1].data_ptr(), lf.row0 // lf.seg,
+        nseg, lf.ny, nxl, _stream(la.device))
     check(err, "line rows carry launch")
     return carries
 
@@ -669,8 +678,8 @@ def line_rows_fix(lf: RowLine, b, u, u_halo, carries: torch.Tensor,
 def line_rows_end(lf: RowLine, b, u, u_halo, gathered: torch.Tensor,
                   omega: float) -> torch.Tensor:
     """The second half: the swept block from ``gathered``, every rank's
-    ``line_rows_begin`` stacked in the order of its rows (the ranks the
-    lines span; this rank's own where the block holds its columns whole).
+    ``line_rows_begin`` stacked by ``stack_lines`` (the ranks the lines
+    span; this rank's own where the block holds its columns whole).
     On the card: the carry pass over all the level's segments (launch 2,
     on every rank, ``line_rows_carry``) and launch 3 on this rank's
     (``line_rows_fix``); on the CPU: the whole columns' PCR solve, this

@@ -449,9 +449,9 @@ class BlockLevelOps:
             if axis:
                 u, ring = u.T.contiguous(), lk.transpose_ring(ring)
             mine = lk.line_rows_begin(lf, b, u, ring)
-            every = (all_gather_lines(mine, self.plan, axis,
-                                      lk.gathered_rows(lf))
-                     if self.split[axis] else mine)
+            every = (lk.stack_lines(lf, all_gather_lines(
+                mine, self.plan, lk.gathered_rows(lf), axis)).to(u.device)
+                if self.split[axis] else mine)
             u = lk.line_rows_end(lf, b, u, ring, every, omega)
             if axis:
                 u = u.T.contiguous()

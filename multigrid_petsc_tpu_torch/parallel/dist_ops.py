@@ -65,6 +65,7 @@ from multigrid_petsc_tpu_torch.parallel.block_ops import (
     block_restrict,
 )
 from multigrid_petsc_tpu_torch.parallel.halo import (
+    all_gather_lines,
     all_gather_rows,
     allreduce_sum,
     edge_exchange,
@@ -392,7 +393,8 @@ class DistLevelOps:
         for _ in range(sweeps):
             halo = edge_exchange(u, 1, self.plan)
             mine = lk.line_rows_begin(lf, b, u, halo)
-            every = all_gather_rows(mine, self.plan, "line")
+            every = lk.stack_lines(lf, all_gather_lines(
+                mine, self.plan, lk.gathered_rows(lf))).to(u.device)
             u = lk.line_rows_end(lf, b, u, halo, every, omega)
         return u
 

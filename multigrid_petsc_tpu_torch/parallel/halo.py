@@ -241,15 +241,16 @@ def all_gather_blocks(x: torch.Tensor, plan, what: str, axes,
     return whole.to(x.device)
 
 
-def all_gather_lines(x: torch.Tensor, plan, axis: int,
-                     rows) -> torch.Tensor:
-    """The line smoother's gather under the blocks layout: every ``x`` of
-    the ranks a line spans, stacked along x's rows in mesh order, on
-    every rank; the mesh column's for a y-line (``axis`` 0), the mesh
-    row's for an x-line (``axis`` 1; its blocks run transposed, so their
-    rows are the level's columns).  ``rows``: each rank's rows of ``x``,
-    in mesh order (unequal on unequal blocks).  Counted under "line"."""
+def all_gather_lines(x: torch.Tensor, plan, rows, axis: int = 0) -> list:
+    """The line smoother's gather: every ``x`` of the ranks a line spans,
+    in the order of their rows, on every rank (a list, for the line to
+    stack: ``line_kernel.stack_lines``; on the host where ``x`` travels
+    through it); under the rows layout the plan's ranks, under blocks the
+    mesh column's for a y-line (``axis`` 0) and the mesh row's for an
+    x-line (``axis`` 1; its blocks run transposed, so their rows are the
+    level's columns).  ``rows``: each rank's rows of ``x``, in that order
+    (unequal on unequal blocks).  Counted under "line"."""
     _count(x, "line")
-    group = plan.col_group if axis == 0 else plan.row_group
-    return torch.cat(_gather(x, plan, group, [(r, *x.shape[1:])
-                                              for r in rows])).to(x.device)
+    group = (None if plan.layout == "rows" else
+             plan.col_group if axis == 0 else plan.row_group)
+    return _gather(x, plan, group, [(r, *x.shape[1:]) for r in rows])

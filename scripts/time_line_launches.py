@@ -142,11 +142,12 @@ def cases():
         return lk.line_rows_end(whole, b, u, halo, every, cs.P11_OMEGA)
 
     def rows_every():
-        return torch.cat([lk.line_rows_begin(lf, *blk)
-                          for lf, blk in zip(lfs, blocks)])
+        return lk.stack_lines(lfs[0], [lk.line_rows_begin(lf, *blk)
+                                       for lf, blk in zip(lfs, blocks)])
 
     def blocks_every():  # block 1's mesh column: blocks 1 and 3
-        return torch.cat([lk.line_rows_begin(*calls[p][:4]) for p in (1, 3)])
+        return lk.stack_lines(calls[1][0], [lk.line_rows_begin(*calls[p][:4])
+                                            for p in (1, 3)])
 
     split = [("card", (whole, b, u, halo),
               lambda: lk.line_rows_begin(whole, b, u, halo)),
@@ -179,15 +180,16 @@ def shape_cases():
                 for _ in range(2))
         if isinstance(mesh, int):
             _, lfs, blocks = cs.line_row_sweep(torch, lk, st, b, u, mesh)
-            every = torch.cat([lk.line_rows_begin(lf, *blk)
-                               for lf, blk in zip(lfs, blocks)])
+            every = lk.stack_lines(lfs[0], [lk.line_rows_begin(lf, *blk)
+                                            for lf, blk in zip(lfs, blocks)])
             out.append((name, (lfs[1], *blocks[1]), lambda e=every: e))
         else:
             my, mx = mesh
             _, calls = cs.line_block_sweeps(torch, lk, st, b, u, my, mx, 0,
                                             plain=False)
-            every = torch.cat([lk.line_rows_begin(*calls[q][:4])
-                               for q in range(1, my * mx, mx)])
+            every = lk.stack_lines(calls[1][0], [
+                lk.line_rows_begin(*calls[q][:4])
+                for q in range(1, my * mx, mx)])
             out.append((name, tuple(calls[1][:4]), lambda e=every: e))
     return out
 

@@ -45,12 +45,13 @@ plan on the CPU.
 (d) K15's carry pass over unequal segment counts: the rank-spanning
     sweep on blocks of 3, 5 and 4 segments (and 22, 21, 21 segments of 2
     rows, and five blocks of 2, 1, 3, 1 and 1), its launch-1 outputs
-    stacked as the all-gather stacks them and read back through the
-    kernel's table of each block's first segment (a torch model of
-    ``csrc/line.cuh``'s ``Gathered``), the carries by the kernel's blocked
-    scan: equal to the serial walk (1e-12 of the largest entry in f64,
-    TOL_LINE in f32) and to the plain version (``line_rows_end_plain``:
-    PCR over the gathered right-hand sides; 1e-10 / TOL_LINE).
+    stacked as one piece as the wrapper stacks them (``line_kernel.
+    pack_ends``: every block's ends, then every block's starts, the
+    layout ``csrc/line.cuh``'s carry pass reads), the carries by the
+    kernel's blocked scan: equal to the serial walk (1e-12 of the largest
+    entry in f64, TOL_LINE in f32) and to the plain version
+    (``line_rows_end_plain``: PCR over the gathered right-hand sides;
+    1e-10 / TOL_LINE).
 
 Each world gives each rank one BLAS thread (``_dist_worker.spawn``).
 """
@@ -485,31 +486,18 @@ def test_uneven_checkpoint_round_trip(worlds, jax_refs):
 # (d) K15's carry pass over unequal segment counts.
 # ---------------------------------------------------------------------------
 
-def _gathered_read(gathered, offsets):
-    """The kernel's ``Gathered`` reader (csrc/line.cuh), as test code: the
-    blocks' launch-1 outputs stacked, block q's (2 n_q, nx) -- its ends,
-    then its starts -- from row 2 offsets[q]; segment s of block q (the
-    last q with offsets[q] <= s) has its end on row offsets[q] + s and its
-    start on row offsets[q + 1] + s.  Returns (ends, starts), (S, nx)."""
-    S = int(offsets[-1])
-    q = np.searchsorted(offsets, np.arange(S), side="right") - 1
-    s = torch.arange(S)
-    q = torch.as_tensor(q)
-    off = torch.as_tensor(offsets)
-    return gathered[off[q] + s], gathered[off[q + 1] + s]
-
-
 def _uneven_sweep(st, b, u, blocks, omega, carry):
     """One rank-spanning y-line sweep of (b, u) (ny, nx), its pad row
     appended, cut into row blocks of ``blocks`` rows as the kernel runs
     it: each block's line right-hand sides and its segments' zero-carry
-    ends from its rows' slices of the factors (launch 1), stacked in the
-    order of the rows (the all-gather of unequal pieces), read back
-    through the offsets table (``_gathered_read``), the carries of every
-    segment by ``carry`` with the whole level's factors, each block's
-    slice of them (launch 2), each block's segments fixed up and blended
-    (launch 3).  Returns the stitched (ny + 1, nx) sweep, the blocks'
-    plain ``RowLine``s, the stacked right-hand sides and the true
+    ends from its rows' slices of the factors (launch 1), the blocks'
+    outputs (ends, then starts) stacked as one piece (the all-gather of
+    unequal pieces, ``line_kernel.pack_ends``) and read as the carry pass
+    reads it (segment s's end on row s, its start on row S + s), the
+    carries of every segment by ``carry`` with the whole level's factors,
+    each block's slice of them (launch 2), each block's segments fixed up
+    and blended (launch 3).  Returns the stitched (ny + 1, nx) sweep, the
+    blocks' plain ``RowLine``s, the stacked right-hand sides and the true
     (ends, starts) beside those read back."""
     ny, nx = b.shape
     seg = math.gcd(tlk.LINE_SEG, *blocks)
@@ -538,8 +526,9 @@ def _uneven_sweep(st, b, u, blocks, omega, carry):
         lfs.append(lf)
         rhss.append(rhs)
         cut.append(c)
-    read = _gathered_read(torch.cat(pieces), offsets)
     S = int(offsets[-1])
+    packed = tlk.pack_ends(pieces, counts)
+    read = (packed[:S], packed[S:])
     cin, din = carry(*read, *_carry_inputs(fac, seg, S, nx), b.dtype)
     outs = []
     for q, (lf, rhs, c) in enumerate(zip(lfs, rhss, cut)):
