@@ -170,7 +170,7 @@ non-zero):
      sharing the card over gloo, ``blocks_plan(min_local=32)``, f32: (a)
      I, E, D1, D2 and D1PS on 2 split grids at 8193^2, forced 10, each
      held to its one-card twin (histories within 1e-5, u within
-     TOL_ARRAY); (b) a V-cycle (forced 5) and mg-CG (forced 10) at grids
+     TOL_ARRAY); (b) a V-cycle and mg-CG (forced 5 each) at grids
      4 / levels 3 over the split CG-solved merged level 2 (errors and last
      residuals within 1.1x of the twins'); (c) D1 on the 1x2 mesh (every
      grid split along x alone); (d) card against CPU at 1025^2, merged
@@ -213,6 +213,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()  # the process's start, for its seconds
 TOL_ARRAY = 1e-5  # max|kernel - plain| <= TOL_ARRAY * max|plain|
 TOL_DOT = 1e-4    # relative, on each inner product
 # K15 solves each line by Thomas's recurrence cut into 32-row segments,
@@ -1647,9 +1648,12 @@ def phase_zoo(torch):
     assert counts["apply_stencil5_field"] == its + (its + 1) * (L - 1) * 2 * v
     assert counts["residual5_field"] == 1 + (its + 1) * (L - 1)
     k8_launches = dict(counts)
+    # (b) on (a)'s context: the same levels and operators (only the
+    # merged-grid cycles and a Krylov cycle's own precision build others).
     cfg = SolverConfig(**base, grids=11, levels=11, cycle=CycleType.VCYCLE,
                        max_iter=5)
-    run("(b) sparse V-cycle", cfg, k8, True, True, forbid=MATRIX_FREE)
+    run("(b) sparse V-cycle", cfg, k8, True, True, forbid=MATRIX_FREE,
+        ctx=dataclasses.replace(res.ctx, config=cfg))
     del res
     # (c) the delayed cycles share one context: they read A1 only.
     ctx = None
@@ -2228,8 +2232,11 @@ def rank_worker(argv) -> int:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=P9_TIMEOUT))
+    print(f"[rank {rank} {label}] joined {time.perf_counter() - T_START:.1f}"
+          f" s after its start", flush=True)
     try:
         for job in jobs:
+            t_job = time.perf_counter()
             kw = dict(min_local=job.get("min_local", 32), device=device)
             if job.get("layout") == "blocks":
                 plan = blocks_plan(shape=tuple(job["mesh"]) if "mesh" in job
@@ -2296,7 +2303,9 @@ def rank_worker(argv) -> int:
             if rank == 0 and job.get("save_u"):
                 np.save(out / f"{job['name']}.npy", u)
             print(f"[rank {rank} {label}] {job['name']}: iters "
-                  f"{res.iters}, converged {res.converged}", flush=True)
+                  f"{res.iters}, converged {res.converged}, "
+                  f"{time.perf_counter() - t_job:.1f} s (the solve "
+                  f"{res.wall_time:.2f})", flush=True)
     finally:
         dist.destroy_process_group()
     return 0
@@ -2346,10 +2355,13 @@ def start_world(jobs, device, label, out, ranks=P9_RANKS):
 def run_worlds(worlds, out):
     """Start each (jobs, device, label[, ranks]) world side by side, wait
     for all; a failed world leaves no rank of any running."""
+    t0 = time.perf_counter()
     procs = [(start_world(*w[:3], out, *w[3:]), w[2]) for w in worlds]
     try:
         for ps, lab in procs:
             finish_world(ps, f"{lab} world")
+        print(f"  worlds {', '.join(lab for _, lab in procs)}: "
+              f"{time.perf_counter() - t0:.1f} s")
     finally:
         for ps, _ in procs:
             for p in ps:
@@ -3099,15 +3111,15 @@ def p12_configs():
     """Phase 12's solves (f32): name -> (config, job extras).  (a) the
     one-level merged cycles on 2 grids at 8193^2, forced 10 (both grids
     sharded under min_local 32: blocks of 4096 and 2048 rows); (b) a
-    V-cycle (forced 5) and mg-CG (rtol 1e-5, max_iter 30) at 8193^2,
+    V-cycle (forced 5) and mg-CG (rtol 1e-5, max_iter 10) at 8193^2,
     grids 4 / levels 3 (level 2 merges 2047^2 and 1023^2, both sharded,
     solved by 64 CG iterations of a nonsymmetric operator: in f32 mg-CG
-    runs its 30 iterations to ~1e-4 over the ranks and on one card
-    alike); (c) card against CPU at 1025^2: the one-level cycles
-    with min_local 512 (the 1023^2 grid sharded, the 511^2 grid
-    replicated), phase 3c's V-cycle at grids 4 / levels 2 with min_local
-    256 (level 1 merges 511^2, sharded, 255^2 and 127^2, replicated; CG)
-    and mg-CG at grids 10 / levels 7
+    runs its 10 iterations unconverged over the ranks and on one card
+    alike, as it ran 30 to ~1e-4); (c) card against CPU at 1025^2: the
+    one-level cycles with min_local 512 (the 1023^2 grid sharded, the
+    511^2 grid replicated), phase 3c's V-cycle (forced 3) at grids 4 /
+    levels 2 with min_local 256 (level 1 merges 511^2, sharded, 255^2 and
+    127^2, replicated; CG) and mg-CG at grids 10 / levels 7
     with min_local 8 (level 6 merges 15^2, sharded, 7^2, 3^2 and 1^2;
     solved directly, its sharded grid gathered)."""
     f32 = dict(dtype="float32")
@@ -3121,9 +3133,9 @@ def p12_configs():
     big["vcycle"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=0,
                           max_iter=5, **P12_FORCED), {})
     big["mgcg"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=101,
-                        rtol=1e-5, max_iter=30), {})
+                        rtol=1e-5, max_iter=10), {})
     small["vcycle"] = (dict(f32, npts=P9_SMALL, grids=4, levels=2, cycle=0,
-                            max_iter=6, **P12_FORCED), {"min_local": 256})
+                            max_iter=3, **P12_FORCED), {"min_local": 256})
     small["mgcg_direct"] = (dict(f32, npts=P9_SMALL, grids=10, levels=7,
                                  cycle=101, rtol=1e-5, max_iter=30),
                             {"min_local": 8})
@@ -4034,12 +4046,12 @@ def run_phase14(torch, main_ref):
 def p15_configs():
     """Phase 15's solves (f32): name -> (config, job extras).  (a) I, E,
     D1, D2, D1PS on 2 grids at 8193^2 (8191^2 and 4095^2, both split along
-    both axes of the 2x2 mesh), forced 10; (b) a V-cycle (forced 5) and
-    mg-CG (forced 10) at 8193^2, grids 4 / levels 3 (level 2 merges
-    2047^2 and 1023^2, both split, and 64 CG iterations solve it); (d)
-    card against CPU at 1025^2 on 2x2: I and D1 with min_local 256
-    (1023^2 split, 511^2 whole), phase 3c's V-cycle at grids 4 / levels 2
-    with min_local 128 (level 1 merges 511^2, split, with 255^2 and
+    both axes of the 2x2 mesh), forced 10; (b) a V-cycle and mg-CG
+    (forced 5 each) at 8193^2, grids 4 / levels 3 (level 2 merges 2047^2
+    and 1023^2, both split, and 64 CG iterations solve it); (d) card
+    against CPU at 1025^2 on 2x2: I and D1 with min_local 256 (1023^2
+    split, 511^2 whole), phase 3c's V-cycle (forced 3) at grids 4 /
+    levels 2 with min_local 128 (level 1 merges 511^2, split, with 255^2 and
     127^2, whole; CG), and mg-CG at grids 10 / levels 7 with min_local 4
     (level 6 merges 15^2, split, with 7^2, 3^2 and 1^2; solved directly,
     its split grid gathered).  (c), D1 on the 1x2 mesh, runs (a)'s D1."""
@@ -4051,13 +4063,13 @@ def p15_configs():
     big["vcycle"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=0,
                           max_iter=5, **P12_FORCED), {})
     big["mgcg"] = (dict(f32, npts=P9_N, grids=4, levels=3, cycle=101,
-                        max_iter=10, **P12_FORCED), {})
+                        max_iter=5, **P12_FORCED), {})
     for c in ("ICYCLE", "D1CYCLE"):
         small[c] = (dict(f32, npts=P9_SMALL, grids=2, levels=1,
                          cycle=CYCLE_IDS[c], max_iter=10, **P12_FORCED),
                     {"min_local": 256})
     small["vcycle"] = (dict(f32, npts=P9_SMALL, grids=4, levels=2, cycle=0,
-                            max_iter=6, **P12_FORCED), {"min_local": 128})
+                            max_iter=3, **P12_FORCED), {"min_local": 128})
     small["mgcg_direct"] = (dict(f32, npts=P9_SMALL, grids=10, levels=7,
                                  cycle=101, rtol=1e-5, max_iter=30),
                             {"min_local": 4})
@@ -4745,15 +4757,16 @@ def main() -> int:
     if sys.argv[1:2] == ["--only"]:
         return partial_run(torch, dev, sys.argv[2].split(","))
 
-    rec = phase_kernels(torch, dev, rate)
-    phase_kernels_vcycle(torch, dev, rec)
-    phase_kernels_9pt(torch, dev, rec)
+    rec = timed_phase(torch, "2", phase_kernels, dev, rate)
+    timed_phase(torch, "2 (V-cycle family)", phase_kernels_vcycle, dev, rec)
+    timed_phase(torch, "2b", phase_kernels_9pt, dev, rec)
     torch.cuda.empty_cache()
     timed_phase(torch, "2c", phase_kernels_sparse, dev, rec)
     timed_phase(torch, "2d", phase_kernels_precision, dev, rec)
     torch.cuda.empty_cache()
     jac, cheb = SmootherType.JACOBI, SmootherType.CHEBYSHEV
-    phase_parity(torch, (  # cycle, smoother, max_iter, extra, atol
+    timed_phase(torch, "3", phase_parity, (  # cycle, smoother, max_iter,
+        # extra, atol
         (CycleType.MGCG, jac, 100, {}, 5e-6),
         (CycleType.MGCG, cheb, 100, {}, 5e-6),
         (CycleType.VCYCLE, jac, 6, {}, 5e-6),
@@ -4774,21 +4787,21 @@ def main() -> int:
     # FMA rounding moves (mg-FGMRES 0.0129 vs 0.0120 just above its floor
     # of 0.0087; the V-cycle's floor 0.0058 vs 0.0082), so 2e-3 and 5e-3.
     # The counts and the solutions are held as everywhere.
-    phase_parity(torch, (
+    timed_phase(torch, "3b", phase_parity, (
         (CycleType.MGCG, jac, 100, mixed, 5e-6),
         (CycleType.MGCG, SmootherType.LINE_Y, 100,
          {"aniso": (1.0, 0.0, 100.0, 0.0, 0.0)}, 2e-2),
         (CycleType.MGFGMRES, jac, 4, {"aniso": (1.0, 0.0, 1.0, 0.0, 0.4)},
          2e-3),
         (CycleType.VCYCLE, jac, 6, mixed, 5e-3),
-    ), base={"problem": "aniso"})
+    ), {"problem": "aniso"})
     timed_phase(torch, "3c", phase_parity_zoo)
     p3d_counts = timed_phase(torch, "3d", phase_parity_precision)
-    counts, u_ref, main_ref = phase_main(torch)
-    vcounts = phase_vcycle(torch, u_ref)
+    counts, u_ref, main_ref = timed_phase(torch, "4", phase_main)
+    vcounts = timed_phase(torch, "5", phase_vcycle, u_ref)
     main_ref["u"] = u_ref.cpu().numpy()  # phase 9 (b)'s reference
     del u_ref
-    acounts = phase_aniso(torch)
+    acounts = timed_phase(torch, "6", phase_aniso)
     k8_counts, k16_counts = timed_phase(torch, "7", phase_zoo)
     p8_counts = timed_phase(torch, "8", phase_precision)
     torch.cuda.empty_cache()
@@ -4850,8 +4863,8 @@ def main() -> int:
         "visit_up.bf16": ("visit_bf16.cu", "mdma_kernel.py:796"),
         # The distribution slice; launches from phase 9 (b)'s Poisson run
         # (rank 0) and, for f64, 9 (c)'s card run.
-        "dist_level_visit": ("visit.cu", "dist_kernel.py:399"),
-        "dist_level_visit.f64": ("visit_f64.cu", "dist_kernel.py:399"),
+        "dist_level_visit": ("visit_rows.cu", "dist_kernel.py:399"),
+        "dist_level_visit.f64": ("visit_rows_f64.cu", "dist_kernel.py:399"),
         # Phase 11's: K17 in bf16 (11 (b)'s bf16 preconditioner run),
         # K15's rank-spanning mode (11 (b)'s y-line run).
         "dist_level_visit.bf16": ("visit_rows_bf16.cu",
@@ -4860,8 +4873,8 @@ def main() -> int:
         # Phase 13's: K17's 2-D block mode (13 (b)'s mg-CG on rank 0; f64:
         # 13 (c)'s card run).  JAX runs its blocks levels as XLA ops; the
         # mode is K17's, whose TPU kernel it names.
-        "dist_level_visit.blocks": ("visit.cu", "dist_kernel.py:399"),
-        "dist_level_visit.blocks.f64": ("visit_f64.cu",
+        "dist_level_visit.blocks": ("visit_rows.cu", "dist_kernel.py:399"),
+        "dist_level_visit.blocks.f64": ("visit_rows_f64.cu",
                                         "dist_kernel.py:399"),
         # Phase 14's: K17's 2-D block mode in bf16 (the bf16
         # preconditioner run, rank 0) and K15's 2-D block mode (the y-line

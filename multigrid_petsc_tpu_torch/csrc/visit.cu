@@ -1,14 +1,12 @@
 // The f32 instantiations of the level-visit and stencil kernels
-// (visit.cuh): every entry of MG_VISIT_ENTRIES and MG_VISIT_PART_ENTRIES
-// (K17: a row block or a 2-D block of a partitioned level), plus the
-// kernels that run in f32 only -- K1 and K11 (the mg-CG direction steps),
-// K2a/K10 (the CG flag set of mg_visit) and K8 (the field-coefficient
-// stencil).
+// (visit.cuh): every entry of MG_VISIT_ENTRIES (their forms on a block of
+// a partitioned level, K17, are in visit_rows.cu), plus the kernels that
+// run in f32 only -- K1 and K11 (the mg-CG direction steps), K2a/K10 (the
+// CG flag set of mg_visit) and K8 (the field-coefficient stencil).
 
 #include "visit.cuh"
 
 MG_VISIT_ENTRIES(, float)
-MG_VISIT_PART_ENTRIES(, float)
 
 extern "C" {
 

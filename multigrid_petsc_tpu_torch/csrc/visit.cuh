@@ -2344,8 +2344,10 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
                              whole_grid<T>(ny, nx), nx, resid, stream);      \
   }
 
-// K17, the entries for one rank's block of a partitioned level (visit.cu,
-// visit_f64.cu, visit_rows_bf16.cu: f32, f64, bf16), named as the
+// K17, the entries for one rank's block of a partitioned level
+// (visit_rows.cu, visit_rows_f64.cu: f32, f64; bf16 in two sources, the
+// 5-point entries in visit_rows_bf16.cu and the 9-point ones in
+// visit9_rows_bf16.cu, so that nvcc builds them side by side), named as the
 // whole-grid entries with _part: one visit (mg_visit_part, mg_visit9_part:
 // every flag set but F_CG) or A u / b - A u (mg_stencil_part,
 // mg_stencil9_part, halo 1) on R x C points from the global (row0, col0).
@@ -2359,25 +2361,15 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
 // hc.  coff, coffx: the first global row and column the 9-point
 // coefficients that vary with y and with x hold.
 #define MG_VISIT_PART_ENTRIES(SFX, T)                                     \
+  MG_VISIT5_PART_ENTRIES(SFX, T)                                             \
+  MG_VISIT9_PART_ENTRIES(SFX, T)
+#define MG_VISIT5_PART_ENTRIES(SFX, T)                                    \
   extern "C" int mg_visit_part##SFX(                                      \
       const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
       const T* b, const T* u, const T* e, T* u_out, T* r_out, T* rc_out,     \
       const int* geom, const unsigned long long* halos, int nx,              \
       const compute_t<T>* steps, int k, int flags, void* stream) {           \
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
-    VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
-                  u_out, r_out,   rc_out,  nullptr, nullptr};                \
-    return launch_visit<T, true>(c, io, part_block<T>(geom, halos), nx, steps, \
-                                 k, flags, stream);                          \
-  }                                                                          \
-  extern "C" int mg_visit9_part##SFX(                                     \
-      const unsigned long long* cptrs, const int* cstrides, int coff,        \
-      int coffx, const T* b, const T* u, const T* e, T* u_out, T* r_out,     \
-      T* rc_out, const int* geom, const unsigned long long* halos, int nx,   \
-      const compute_t<T>* steps, int k, int flags, void* stream) {           \
-    Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);                          \
-    c.oy = coff;                                                             \
-    c.ox = coffx;                                                            \
     VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
                   u_out, r_out,   rc_out,  nullptr, nullptr};                \
     return launch_visit<T, true>(c, io, part_block<T>(geom, halos), nx, steps, \
@@ -2390,6 +2382,20 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
     return launch_stencil<T, true>(c, b, u, y, part_block<T>(geom, halos), nx, \
                                    resid, stream);                           \
+  }
+#define MG_VISIT9_PART_ENTRIES(SFX, T)                                    \
+  extern "C" int mg_visit9_part##SFX(                                     \
+      const unsigned long long* cptrs, const int* cstrides, int coff,        \
+      int coffx, const T* b, const T* u, const T* e, T* u_out, T* r_out,     \
+      T* rc_out, const int* geom, const unsigned long long* halos, int nx,   \
+      const compute_t<T>* steps, int k, int flags, void* stream) {           \
+    Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);                          \
+    c.oy = coff;                                                             \
+    c.ox = coffx;                                                            \
+    VisitIO<T> io{b,     nullptr, nullptr, u,       e,                       \
+                  u_out, r_out,   rc_out,  nullptr, nullptr};                \
+    return launch_visit<T, true>(c, io, part_block<T>(geom, halos), nx, steps, \
+                                 k, flags, stream);                          \
   }                                                                          \
   extern "C" int mg_stencil9_part##SFX(                                   \
       const unsigned long long* cptrs, const int* cstrides, int coff,        \

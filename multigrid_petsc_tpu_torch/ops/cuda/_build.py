@@ -3,9 +3,10 @@
 
 At first use, every ``csrc/*.cu`` source of the package is compiled with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together (the visit kernels' f32, f64 and bf16 instantiations, and the
-bf16 entries for a block of a partitioned level, are sources of their own, so they build side by
-side), and the objects are linked into one shared library with a plain
+together (the visit kernels' f32, f64 and bf16 instantiations and their
+entries for a block of a partitioned level are sources of their own,
+the bf16 block entries two, so that they build side by side), and the
+objects are linked into one shared library with a plain
 C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
 git), which is loaded with ``ctypes``.  The build log (``build.log``)
 ends with each source's compile seconds (``nvcc <source>: <s> s``).  The library name carries a hash of the
