@@ -7,7 +7,11 @@ on one NVIDIA GPU.
 Phases (each raises on failure; nothing is caught, so any failure exits
 non-zero):
   1. build the CUDA kernels from the package's csrc/, name the card, and
-     measure its device-to-device copy rate (a 1 GiB copy);
+     measure its device-to-device copy rate (a 1 GiB copy); then K18a,
+     the stream-rate probe's blocked copy o = 1.0001 u, against its plain
+     version at 8192^2 (f32, f64, bf16; bit for bit, also on an unaligned
+     view), timed beside torch.mul(out=), and its loop-differenced rate
+     (k = 18 less k = 2 chained launches, 3 samples) beside y.copy_(x)'s;
   2. every 5-point kernel against its plain PyTorch version on the card,
      at the shapes of the 8193^2 / 11-level paths, with times: the mg-CG
      kernels K1-K4 (K4 on scripts/time_coarse_tree.py's seven trees, timed
@@ -90,11 +94,20 @@ non-zero):
      times per block, for 4 blocks and for the whole-grid kernel, and the
      5-point a, r and zero-guess rc blocks as device time (20 launches
      queued behind a sleep) beside conv2d on the block and its halo rows;
+     and each block's visit split as the rows layout runs it on a 2-rank
+     level (JAX's tile t, the interior rows [t, R - t), then the two
+     edge tiles with the exchanged rows; ``row_visit_split``), held to
+     the whole-block launch bit for bit (within TOL_ARRAY at worst), with
+     the device time of the interior, of the edges and of all three
+     beside the whole-block launch's, and the host time per split visit
+     beside one launch's and ``row_visit``'s;
      (b) the distributed main path, 2 ranks (this script re-run with
      --rank, one process each) sharing the card over gloo with halos
      staged through the host: Poisson mg-CG at 8193^2 / 11 levels against
      phase 4 (its iterations, solution and error; K17's launches per
-     emit), then the aniso (1,1,1,2,0.4) mg-CG; (c) the 2-rank mg-CG at
+     emit; every visit of levels 8191, 4095 and 2047 split, of 1023 and
+     below whole), then the aniso (1,1,1,2,0.4) mg-CG; (c) the 2-rank
+     mg-CG at
      1025^2 in f32 and f64, on the card and over gloo on the CPU;
  10. the CLI's outputs and the last smoothers: (a) ``poisson.main`` at
      8193^2 / 11 levels, mg-CG, -view 1, in a temporary directory (the
@@ -195,7 +208,7 @@ non-zero):
      against CPU.
 Every path run starts with the launch counters at 0 and reads them right
 after (a rank's counters in its own process).  ``--only
-9a,9b,10,11a,11,12,13a,13,14,15,16a,16`` runs the build and just those
+k18,9a,9b,10,11a,11,12,13a,13,14,15,16a,16`` runs the build and just those
 phases
 (phase 4 first where they read it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
@@ -249,7 +262,8 @@ def ptxas_summary(log: str) -> list[str]:
     groups: dict = {}
     fam = re.compile(r"(visit5p|visit5|visit9|apply9|stencil|cg_papply|"
                      r"line_fix|line_carry|line_segment|line_residual|"
-                     r"coarse_tree|dia_spmv)_kernel(I(f|d|13__nv_bfloat16))?")
+                     r"coarse_tree|dia_spmv|scale_copy)_kernel"
+                     r"(I(f|d|13__nv_bfloat16))?")
     types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
     key = None
     for line in log.splitlines():
@@ -385,6 +399,72 @@ def device_ms(torch, fn, n: int = 20) -> float:
     return statistics.median(times)
 
 
+def host_ms(torch, fn, n: int = 50) -> float:
+    """Host ms per call of ``fn``: the median over 3 runs of ``n`` calls
+    enqueued back to back, from the first call's start to the last one's
+    return (no synchronisation inside a run; the device queue is deep
+    enough not to block it)."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append(1e3 * (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def split_check(torch, dk, tag, calls, got, isz, record):
+    """9 (a)'s split visits: each row block's visit run as the rows
+    layout runs it on a 2-rank level's block (``row_visit_split``: JAX's
+    tile t for the block, the interior rows [t, R - t), then the edge
+    rows with the exchanged rows), stitched and held to the whole-block
+    launches ``got`` bit for bit (expected: each point's steps are the
+    same), within TOL_ARRAY at worst, the pad rows exactly 0.  Returns
+    the tile and, for block 1, a function that runs its split visit, and
+    the pieces' arguments."""
+    a1, kw1 = calls[0]
+    R = (a1[1] if a1[1] is not None else a1[2]).shape[0]
+    emit = a1[4]
+    h = dk.halo_rows(len(a1[3]), emit)
+    t = dk.pick_tile(R, h, nx=kw1["ny"], itemsize=isz)
+    assert len(dk.split_pieces(R, t)) == 3, (tag, R, t)
+    prepared = [dict() for _ in calls]
+
+    def split(p):
+        a, kw = calls[p]
+        rem = dict(b=kw["b_halo"], u=kw["u_halo"], e=kw["e_halo"])
+        return dk.row_visit_split(*a, row0=kw["row0"], ny=kw["ny"], t=t,
+                                  halos=lambda: rem, e=kw["e"],
+                                  coeff_row0=kw["coeff_row0"],
+                                  prepared=prepared[p])
+
+    outs = [split(p) for p in range(len(calls))]
+    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+    split_out = tuple(torch.cat([o[i] for o in outs])
+                      for i in range(len(outs[0])))
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(split_out, got)):
+        assert bool((g[-1] == 0).all()), f"{tag}: split output {i} pad row"
+        if torch.equal(g, w):
+            continue
+        d = (g.double() - w.double()).abs()
+        rows = torch.nonzero(d.amax(1) > 0).flatten().tolist()
+        err = float(d.max())
+        worst = max(worst, err)
+        print(f"  {tag}: split output {i} differs from the whole-block "
+              f"launches by {err:.3e} on rows {rows[:16]}"
+              f"{' ...' if len(rows) > 16 else ''}")
+        compare(torch, f"split output {i} vs whole-block launches", g, w,
+                record)
+    print(f"  {tag}: split (t = {t}, {R // t} tiles) vs whole-block "
+          f"launches: max |difference| {worst:.3e}"
+          + (" (bit for bit)" if worst == 0.0 else ""))
+    return t, (lambda: split(1)), prepared[1]
+
+
 def copy_rate(torch) -> float:
     """Device-to-device copy rate, B/s (bytes read + written), of a 1 GiB
     f32 copy: the yardstick the byte bounds are read against."""
@@ -396,6 +476,89 @@ def copy_rate(torch) -> float:
     print(f"device copy of {4 * n} B: {ms:.4f} ms, {rate / 1e9:.1f} GB/s "
           f"(read + write)")
     return rate
+
+
+def differenced_rate(torch, step, nbytes, samples=3):
+    """B/s of ``step`` (one call moves ``nbytes``), loop-differenced as
+    ``stream_kernel.measured_kernel_bandwidth`` is: k = 2 and k = 18
+    calls, each run warmed and timed on the host clock between two
+    synchronisations; one sample per pair."""
+    def timed(k):
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return [nbytes / max((timed(18) - timed(2)) / 16, 1e-12)
+            for _ in range(samples)]
+
+
+def phase_stream(torch, dev, rec):
+    """1 (K18a): the blocked copy o = 1.0001 u (``stream_kernel``) at
+    8192^2 against its plain version on the card, bit for bit, in f32,
+    f64 and bf16, on the tensor and on an (8191, 8191) view one entry
+    past it (no 16-byte loads); its f32 time beside the plain version's,
+    torch.mul(x, 1.0001, out=y) (the library call) and its bound; then
+    its loop-differenced rate (``measured_kernel_bandwidth``: 3 samples
+    of k = 18 less k = 2 chained launches) beside y.copy_(x)'s, taken the
+    same way.  Returns the rate's record; ``rec["scale_copy"]`` keeps the
+    kernel's, its launches those of the rate's run."""
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.ops.cuda import stream_kernel as sk
+
+    n, a = 8192, 1.0001
+    r = rec.setdefault("scale_copy", {})
+    gen = torch.Generator(device=dev).manual_seed(99)
+    for dt in sk.DTYPES:
+        x = torch.randn((n, n), generator=gen, device=dev).to(dt)
+        odd = x.view(-1)[1:1 + (n - 1) ** 2].view(n - 1, n - 1)
+        for what, u in (("8192^2", x), ("8191^2 view, offset 1", odd)):
+            got, want = sk.scale_copy(u, a), sk.scale_copy_plain(u, a)
+            err = float((got.double() - want.double()).abs().max())
+            print(f"K18a scale_copy {what} {dt}: max|kernel - plain| = "
+                  f"{err:.3e}" + (" (bit for bit)" if torch.equal(got, want)
+                                  else ""))
+            assert torch.equal(got, want), f"scale_copy {what} {dt}"
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        del x, odd, got, want
+    x = torch.randn((n, n), generator=gen, device=dev)
+    y = torch.empty_like(x)
+    nbytes = 2 * 4 * n * n
+    ms = time_ms(torch, lambda: sk.scale_copy(x, a, out=y))
+    pms = time_ms(torch, lambda: sk.scale_copy_plain(x, a))
+    lms = time_ms(torch, lambda: torch.mul(x, a, out=y))
+    dms = device_ms(torch, lambda: sk.scale_copy(x, a, out=y))
+    keep_time(r, ms, pms, nbytes, n * n, lms)
+    r["device_ms"] = dms
+    print(f"  scale_copy {n}^2 f32: kernel {ms:.4f} ms per call (device "
+          f"time {dms:.4f} ms, {nbytes / dms / 1e6:.1f} GB/s), plain "
+          f"{pms:.4f} ms, torch.mul(out=) {lms:.4f} ms; bound "
+          f"{1e3 * nbytes / HBM_PEAK:.4f} ms ({nbytes} B at "
+          f"{HBM_PEAK / 1e12:.2f} TB/s)")
+    del x, y
+    torch.cuda.empty_cache()
+    launches.clear()
+    info = sk.measured_kernel_bandwidth(n, torch.float32, dev)
+    r["launches"] = launches["scale_copy"]
+    assert r["launches"] > 0
+    x = torch.ones((n, n), device=dev)
+    y = torch.empty_like(x)
+    copies = differenced_rate(torch, lambda: y.copy_(x), nbytes)
+    del x, y
+    print(f"K18a stream rate {n}^2 f32 ({r['launches']} launches): "
+          f"{info['bytes_per_s'] / 1e9:.1f} GB/s, samples "
+          f"{[round(v, 1) for v in info['samples_GBps']]} GB/s, above the "
+          f"{info['spec_GBps']:.0f} GB/s data sheet: {info['above_spec']}, "
+          f"clamped {info['clamped_to_spec']}; y.copy_(x) the same way: "
+          f"{statistics.median(copies) / 1e9:.1f} GB/s, samples "
+          f"{[round(v / 1e9, 1) for v in copies]} GB/s; on "
+          f"{nvidia_smi_line()}")
+    info["copy_samples_GBps"] = [v / 1e9 for v in copies]
+    return info
 
 
 def conv_call(torch, w3, u, b=None):
@@ -1999,6 +2162,47 @@ def k17_blocks(torch, x, P, h):
             for p in range(P)]
 
 
+def split_times(torch, dk, tag, a, kw, t, split, prepared, whole_ms):
+    """Block 1's split visit as device time (``device_ms``): the interior
+    launch alone, the two edge launches, all three, beside the
+    whole-block launch's ``whole_ms``; and the host time per visit
+    (``host_ms``) of the split visit (its launch arguments kept, as a
+    level's operators keep them), of one launch on the whole block kept
+    alike, and of ``row_visit`` (its arguments made anew each call)."""
+    R = (a[1] if a[1] is not None else a[2]).shape[0]
+    outs = dk.row_outputs(a[1] if a[1] is not None else a[2], a[4])
+    rem = dict(b=kw["b_halo"], u=kw["u_halo"], e=kw["e_halo"])
+    piece = dict(row0=kw["row0"], ny=kw["ny"], out=outs, e=kw["e"],
+                 coeff_row0=kw["coeff_row0"], prepared=prepared)
+
+    def run(lo, hi):
+        dk.row_visit_piece(*a, lo=lo, hi=hi, halos=rem, **piece)
+
+    inner = device_ms(torch, lambda: run(t, R - t))
+    edges = device_ms(torch, lambda: (run(0, t), run(R - t, R)))
+    total = device_ms(torch, split)
+    whole = {}
+
+    def one():
+        return dk.row_visit_split(*a, row0=kw["row0"], ny=kw["ny"], t=None,
+                                  halos=lambda: rem, e=kw["e"],
+                                  coeff_row0=kw["coeff_row0"],
+                                  prepared=whole)
+
+    h_split = host_ms(torch, split)
+    h_one = host_ms(torch, one)
+    h_row = host_ms(torch, lambda: dk.row_visit(*a, **kw))
+    print(f"  {tag}: split device time {total:.4f} ms per block (interior "
+          f"[{t}, {R - t}) {inner:.4f}, edges {edges:.4f}; whole-block "
+          f"launch {whole_ms:.4f}); host time per visit: split (3 launches,"
+          f" arguments kept) {h_split:.4f} ms, one launch (kept) "
+          f"{h_one:.4f} ms, row_visit (arguments made each call) "
+          f"{h_row:.4f} ms")
+    return {"t": t, "device_ms": total, "interior_ms": inner,
+            "edges_ms": edges, "host_ms": h_split, "host_ms_one_launch":
+            h_one, "host_ms_row_visit": h_row}
+
+
 def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
     """9 (a): K17 at full width in one process.  The 8191^2 level, padded
     to 8192 rows, cut into 4 row blocks of 2048 rows on the card, each
@@ -2124,7 +2328,10 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
                             rec[key])
                     compare(torch, f"{nm} vs whole-grid kernel",
                             g[:wh.shape[0]], wh, {})
-                del got, want, ref
+                del want, ref
+                t, split1, prepared1 = split_check(torch, dk, tag, calls, got,
+                                                   isz, rec[key])
+                del got
                 a1, kw1 = calls[1]
                 ms1 = time_ms(torch, lambda: dk.row_visit(*a1, **kw1))
                 ms4 = time_ms(torch, lambda: [dk.row_visit(*a, **kw)
@@ -2176,7 +2383,9 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
                     bound = 1e3 * nbytes / HBM_PEAK
                     modes_rec[label if label == "correct + u" else emit] = {
                         "ms_per_call": ms1, "device_ms": dms,
-                        "bound_ms": bound, "library_ms": lms}
+                        "bound_ms": bound, "library_ms": lms,
+                        "split": split_times(torch, dk, tag, a1, kw1, t,
+                                             split1, prepared1, dms)}
                     print(f"  {tag}: device time {dms:.4f} ms per block "
                           f"({100 * bound / dms:.1f}% of its bound "
                           f"{bound:.4f} ms), per call {ms1:.4f} ms"
@@ -2262,11 +2471,13 @@ def rank_worker(argv) -> int:
                 torch.cuda.reset_peak_memory_stats()
             launches.clear()
             dist_kernel.emits.clear()
+            dist_kernel.row_visits.clear()
             halo.gathers.clear()
             halo.gathered_bytes.clear()
             res = solve(cfg, plan=plan, u0=u0)
             counts = dict(launches)
             emits = dict(dist_kernel.emits)
+            row_visits = dict(dist_kernel.row_visits)
             gathers = dict(halo.gathers)
             gathered = dict(halo.gathered_bytes)
             true = (kr.true_relative_residual(res.ctx, res.u)
@@ -2285,7 +2496,8 @@ def rank_worker(argv) -> int:
             rep = dict(iters=res.iters, converged=res.converged,
                        path=res.path, route=res.route,
                        rnorm=res.rnorm.tolist(), counts=counts,
-                       emits=emits, gathers=gathers, gathered=gathered,
+                       emits=emits, row_visits=row_visits,
+                       gathers=gathers, gathered=gathered,
                        true=true,
                        dist=[lv.sharded for lv in res.ctx.levels],
                        split=[list(lv.split) for lv in res.ctx.levels],
@@ -2442,6 +2654,21 @@ def phase_dist(torch, main_ref):
                   f"{x['counts'].get('dist_level_visit', 0)})")
             assert (sum(x["emits"].values())
                     == x["counts"].get("dist_level_visit", 0))
+            print(f"  rank {r}: K17 visits by level, split or whole "
+                  f"{x['row_visits']}")
+            # Levels 8191, 4095 and 2047 (t = 128, 256, 256: 32, 8 and 4
+            # tiles of their 4096-, 2048- and 1024-row blocks) run every
+            # visit split; 1023 (2 tiles) and below whole.
+            for ny in (8191, 4095, 2047):
+                assert x["row_visits"].get(f"{ny} split", 0) > 0, ny
+                assert f"{ny} whole" not in x["row_visits"], ny
+            assert not any(int(k.split()[0]) < 2047 and k.endswith("split")
+                           for k in x["row_visits"]), x["row_visits"]
+            splits = sum(v for k, v in x["row_visits"].items()
+                         if k.endswith("split"))
+            wholes = sum(v for k, v in x["row_visits"].items()
+                         if k.endswith("whole"))
+            assert 3 * splits + wholes == x["counts"]["dist_level_visit"]
         u = np.load(out / "poisson.npy")
         du = float(np.abs(u - main_ref["u"]).max()
                    / np.abs(main_ref["u"]).max())
@@ -4650,7 +4877,8 @@ def run_phase16(torch, dev, rec, main_ref):
 
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
-    named (9a: K17's blocks; 9b: the distributed runs; 10: phase 10;
+    named (k18: phase 1's K18a; 9a: K17's blocks and their split visits;
+    9b: the distributed runs; 10: phase 10;
     11a: K17 in bf16 (phase 2d's check) and 11 (a); k15: K15's one-card
     checks at 8191^2 (phase 2's), 11 (a) and 13 (a)'s K15; 11: phase 11; 12:
     phase 12; 13a: K17's 2-D block mode and K15's; 13: phase 13; 14:
@@ -4662,6 +4890,10 @@ def partial_run(torch, dev, parts) -> int:
         _, u_ref, main_ref = phase_main(torch)
         main_ref["u"] = u_ref.cpu().numpy()
         del u_ref
+    if "k18" in parts:
+        rec = {}
+        timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
+        print(json.dumps(rec))
     if "9a" in parts:
         rec = {}
         timed_phase(torch, "9 (a)", phase_k17, dev, rec)
@@ -4757,7 +4989,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--only"]:
         return partial_run(torch, dev, sys.argv[2].split(","))
 
-    rec = timed_phase(torch, "2", phase_kernels, dev, rate)
+    rec = {}
+    stream = timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
+    rec.update(timed_phase(torch, "2", phase_kernels, dev, rate))
     timed_phase(torch, "2 (V-cycle family)", phase_kernels_vcycle, dev, rec)
     timed_phase(torch, "2b", phase_kernels_9pt, dev, rec)
     torch.cuda.empty_cache()
@@ -4882,7 +5116,11 @@ def main() -> int:
         "dist_level_visit.blocks.bf16": ("visit_rows_bf16.cu",
                                          "dist_kernel.py:399"),
         "line_visit9_blocks": ("line.cu", "line_kernel.py:208"),
+        # Phase 1's: K18a, the stream-rate probe's blocked copy (launches
+        # from its rate's run).
+        "scale_copy": ("stream.cu", "benchmarks/baseline_configs.py:148"),
     }
+    counts["scale_copy"] = rec["scale_copy"]["launches"]
     for k in meta:
         if k not in counts:
             counts[k] = p8_counts.get(k) or p3d_counts.get(k, 0)
@@ -4894,7 +5132,8 @@ def main() -> int:
                                           else F32_PEAK)
         kernels.append({
             "name": k, "route": "cuda", "source": src + s,
-            "replaces": tpu + r, "launches": counts[k],
+            "replaces": r if r.startswith("benchmarks/") else tpu + r,
+            "launches": counts[k],
             "max_abs_err": rec[k]["max_abs_err"], "ms": rec[k]["ms"],
             "plain_ms": rec[k]["plain_ms"], "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -4912,7 +5151,8 @@ def main() -> int:
                                       "latency_floor_ms", "modes_5pt",
                                       "uneven")
                if x in rec[k]}})
-    print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1)")
+    print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1); K18a's stream rate "
+          f"{stream['bytes_per_s'] / 1e9:.1f} GB/s")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {nvidia_smi_line()}")
     print(json.dumps({"ok": True, "device": {

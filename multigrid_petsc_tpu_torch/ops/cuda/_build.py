@@ -77,6 +77,9 @@ _SIGNATURES = {
     "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
     "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
+    # K18a, the blocked copy (csrc/stream.cu), per storage type.
+    **{"mg_scale_copy" + sfx: [_P, _P, ctypes.c_longlong, _D, _P]
+       for sfx in ("", "_f64", "_bf16")},
     "mg_coarse_tree_plan_bytes": [],
     "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _P, _P],
     "mg_coarse_tree": [_P, _P, _P, _P],

@@ -7,9 +7,14 @@ row partition, src/solver.c:1516,1535,1540).
 State convention: a sharded level has ny + 1 rows (one pad row, the last
 rank's last row, always 0); each rank holds its (R, nx) block of global
 rows [row0, row0 + R), R = (ny + 1) / P.  Every operation exchanges the
-rows its visit needs (``halo_rows``) and launches one K17 visit
-(``ops.cuda.dist_kernel.row_visit``), so the smoother's k sweeps, the
-residual and the transfer gap ride one exchange and one kernel.  The
+rows its visit needs (``halo_rows``) and runs one K17 visit
+(``ops.cuda.dist_kernel.row_visit_split``), so the smoother's k sweeps,
+the residual and the transfer gap ride one exchange.  As JAX runs it,
+where JAX's row tile t cuts the block into R / t >= 3 tiles the visit is
+three launches: the interior rows [t, R - t) while the exchange is in
+flight, then the edge rows [0, t) and [R - t, R), which read the
+exchanged rows; a block of fewer tiles waits for the exchange and runs
+one launch.  The
 coarse correction of an up visit is the coarse level's block (its halo
 exchanged) or, under a replicated coarse level, the whole coarse grid, of
 which this rank cuts its rows and their halo without an exchange.
@@ -53,7 +58,7 @@ from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import (
     coarse_halo_rows,
     halo_rows,
     pick_tile,
-    row_visit,
+    row_visit_split,
 )
 from multigrid_petsc_tpu_torch.ops.composite import GridOps
 from multigrid_petsc_tpu_torch.ops.norms import unflatten
@@ -69,6 +74,7 @@ from multigrid_petsc_tpu_torch.parallel.halo import (
     all_gather_rows,
     allreduce_sum,
     edge_exchange,
+    edge_exchange_start,
 )
 
 
@@ -195,8 +201,13 @@ class DistLevelOps:
     only the rows of its coefficients that vary with y which this rank's
     visits read (the block and ``max_sweeps + 2`` rows on each side)."""
 
-    def __init__(self, st, ny: int, nx: int, plan, max_sweeps: int):
+    def __init__(self, st, ny: int, nx: int, plan, max_sweeps: int,
+                 tile_cap: int | None = None):
         self.ny, self.nx = ny, nx
+        # JAX's row tile cap (its tests force small tiles, and so the
+        # split, with it); None: JAX's 256.
+        self.tile_cap = tile_cap
+        self._launches = {}  # K17's launch arguments, per piece
         self.plan = plan
         self.P = plan.size
         self.R = (ny + 1) // self.P
@@ -270,30 +281,50 @@ class DistLevelOps:
     # -- the visit --------------------------------------------------------
 
     def _visit(self, b, u, steps, emit, e=None):
+        """One K17 visit as JAX runs it: the exchanges started, then, where
+        JAX's tile cuts the block into g >= 3 tiles, the interior launch,
+        the exchanges' wait and the edge launches; else the wait and one
+        launch (``dist_kernel.row_visit_split``).  A visit JAX's rule
+        finds no tile for (a chunk of a level that cannot carry its
+        halo) runs whole."""
         h = halo_rows(len(steps), emit)
         if h > self.R:
             raise ValueError(f"a halo of {h} rows exceeds the {self.R}-row "
                              f"block")
-        b_halo = u_halo = e_halo = None
+        blk = u if b is None else b
+        t = pick_tile(self.R, h, nx=self.nx, itemsize=blk.element_size(),
+                      cap=self.tile_cap or 256)
         if emit in ("a", "r"):
-            u_halo = edge_exchange(u, h, self.plan)
+            names, xs = ("u",), u
         elif u is None:
-            b_halo = edge_exchange(b, h, self.plan)
+            names, xs = ("b",), b
         else:
-            u_halo, b_halo = edge_exchange((u, b), h, self.plan)
+            names, xs = ("u", "b"), (u, b)
+        pending = [(names, edge_exchange_start(xs, h, self.plan))]
+        e_halo = None
         if e is not None:
             hc = coarse_halo_rows(h)
             Rc = self.R // 2
             if e.shape[0] == Rc:  # the coarse level's block
-                e_halo = edge_exchange(e, hc, self.plan)
+                pending.append((("e",), edge_exchange_start(e, hc,
+                                                            self.plan)))
             else:  # the whole replicated coarse grid: cut, no exchange
                 c0 = self.row0 // 2
                 e_halo = Halo(_rows(e, c0 - hc, c0), _rows(e, c0 + Rc,
                                                            c0 + Rc + hc))
                 e = _rows(e, c0, c0 + Rc)
-        return row_visit(self.st, b, u, steps, emit, row0=self.row0,
-                         ny=self.ny, b_halo=b_halo, u_halo=u_halo, e=e,
-                         e_halo=e_halo, coeff_row0=self.coeff_row0)
+
+        def halos():
+            got = {} if e_halo is None else {"e": e_halo}
+            for nms, p in pending:
+                hs = p.wait()
+                got.update(zip(nms, hs if isinstance(hs, list) else [hs]))
+            return got
+
+        return row_visit_split(self.st, b, u, steps, emit, row0=self.row0,
+                               ny=self.ny, t=t, halos=halos, e=e,
+                               coeff_row0=self.coeff_row0,
+                               prepared=self._launches)
 
     def _visit_steps(self, b, u, steps, emit, e=None):
         """A visit of ``steps``: one K17 visit where the block carries its

@@ -59,12 +59,39 @@ def _staged(x: torch.Tensor, plan) -> bool:
     return x.is_cuda and plan.backend != "nccl"
 
 
-def edge_exchange(x, n: int, plan):
-    """(from_prev, from_next): the last ``n`` rows of the previous rank's
-    block and the first ``n`` of the next rank's, zeros at the global
-    edges.  ``x`` is this rank's (R, w) block, or a tuple of blocks of one
-    width, whose rows travel in one message each way; then a list of
-    ``Halo`` (top = from_prev, bot = from_next), one per block."""
+class PendingExchange:
+    """An edge exchange whose requests are posted (``edge_exchange_start``):
+    ``wait()`` completes them and gives what ``edge_exchange`` gives.  The
+    rows layout's split visit runs its interior launch in between, so the
+    exchange hides behind it (the reference's scatter-begin / local SpMV /
+    scatter-end, src/solver.c:1516,1535,1540)."""
+
+    def __init__(self, reqs, from_prev, from_next, n, count, device, one):
+        self._reqs = reqs
+        self._rows = (from_prev, from_next)
+        self._n, self._count, self._device, self._one = n, count, device, one
+
+    def wait(self):
+        for r in self._reqs:
+            r.wait()
+        # Staged rows go back to the card behind the work already queued
+        # (a pageable host buffer is copied out before the call returns,
+        # so the stream need not drain first).
+        from_prev, from_next = (x.to(self._device, non_blocking=True)
+                                for x in self._rows)
+        n = self._n
+        halos = [Halo(from_prev[i * n:(i + 1) * n],
+                      from_next[i * n:(i + 1) * n])
+                 for i in range(self._count)]
+        return halos[0] if self._one else halos
+
+
+def edge_exchange_start(x, n: int, plan) -> PendingExchange:
+    """Post the exchange of ``edge_exchange`` and return it pending.  Rows
+    that travel through the host (gloo with CUDA tensors) are copied to it
+    here, which waits for the stream: start the exchange before the work
+    it should overlap, never after.  Under NCCL the CUDA rows are sent as
+    they are, and ``wait()`` orders the edge work after the receives."""
     xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
     w = xs[0].shape[1]
     if n > xs[0].shape[0]:
@@ -87,14 +114,17 @@ def edge_exchange(x, n: int, plan):
         last = torch.cat([t[-n:] for t in xs]).to(dev)
         reqs += [dist.isend(last, peer, group=plan.group),
                  dist.irecv(from_next, peer, group=plan.group)]
-    for r in reqs:
-        r.wait()
-    if stage:
-        from_prev = from_prev.to(xs[0].device)
-        from_next = from_next.to(xs[0].device)
-    halos = [Halo(from_prev[i * n:(i + 1) * n], from_next[i * n:(i + 1) * n])
-             for i in range(len(xs))]
-    return halos[0] if isinstance(x, torch.Tensor) else halos
+    return PendingExchange(reqs, from_prev, from_next, n, len(xs),
+                           xs[0].device, isinstance(x, torch.Tensor))
+
+
+def edge_exchange(x, n: int, plan):
+    """(from_prev, from_next): the last ``n`` rows of the previous rank's
+    block and the first ``n`` of the next rank's, zeros at the global
+    edges.  ``x`` is this rank's (R, w) block, or a tuple of blocks of one
+    width, whose rows travel in one message each way; then a list of
+    ``Halo`` (top = from_prev, bot = from_next), one per block."""
+    return edge_exchange_start(x, n, plan).wait()
 
 
 def allreduce_sum(x: torch.Tensor, plan, group=None) -> torch.Tensor:

@@ -2,8 +2,8 @@
 (test_torch_dist.py, test_torch_dist_solve.py, test_torch_dist_cycles.py,
 test_torch_dist_smoothers.py, test_torch_dist_merged.py,
 test_torch_dist_blocks.py, test_torch_dist_blocks_smoothers.py,
-test_torch_dist_blocks_merged.py, test_torch_dist_blocks_uneven.py), and
-the
+test_torch_dist_blocks_merged.py, test_torch_dist_blocks_uneven.py,
+test_torch_dist_overlap.py), and the
 helpers that start such a world and
 read its results (``spawn``, ``finish``, ``load``).  Not collected by
 pytest (no test_ prefix).
@@ -37,7 +37,8 @@ built without one), and
 "merged_units" runs ``merged_units``: a merged level's operators on
 its grids' blocks (its spec may name "layout", "mesh", "npts" and
 "min_local"), "uneven_units" runs ``uneven_units`` (its spec names the
-"mesh"); a config with "argv" runs the CLI (``cli``).
+"mesh"), "overlap_units" runs ``overlap_units`` (the split row visit);
+a config with "argv" runs the CLI (``cli``).
 """
 
 import dataclasses
@@ -420,6 +421,67 @@ def units(rank: int, world: int, out: Path) -> None:
              **{k: np.asarray(v) for k, v in res.items()})
 
 
+# overlap_units: the rows layout's split visit on the 127^2 level, whose
+# 64-row blocks JAX's tile cap of 8 cuts into 8 tiles.
+OVERLAP_N = 127
+OVERLAP_TILE = 8
+
+
+def overlap_inputs() -> tuple:
+    """u, b (127^2) and the coarse correction e (63^2) of overlap_units,
+    from numpy (seed 13)."""
+    rng = np.random.default_rng(13)
+    n = OVERLAP_N
+    return (rng.standard_normal((n, n)), rng.standard_normal((n, n)),
+            rng.standard_normal(((n - 1) // 2, (n - 1) // 2)))
+
+
+def overlap_units(rank: int, world: int, out: Path) -> None:
+    """K17's visits on the ranks' row blocks of the NONUNIFORM2 5-point
+    127^2 level (f64, Jacobi 3 steps, omega 0.8), each run split
+    (``DistLevelOps(tile_cap=8)``: interior launch, exchange wait, edge
+    launches) and whole (a tile cap past the block: one launch): A u, b -
+    A u, zero-guess and nonzero-guess rc visits, u and ur visits
+    correcting by the coarse level's block, ur correcting by the whole
+    replicated coarse grid.  Written to OUTDIR/overlap_units.<rank>.npz,
+    gathered whole (pad rows kept), each split run beside the visits it
+    counted (``dist_kernel.row_visits``)."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import dist_kernel as dk
+    from multigrid_petsc_tpu_torch.parallel import DistLevelOps
+    from multigrid_petsc_tpu_torch.problems import stencil_coefficients
+    from multigrid_petsc_tpu_torch.solvers import smoothers as sm
+
+    n = OVERLAP_N
+    plan = row_plan(min_local=8, device="cpu")
+    st = stencil_coefficients(MeshType.NONUNIFORM2, n, n, torch.float64,
+                              "cpu")
+    u, b, e = (torch.as_tensor(x) for x in overlap_inputs())
+    jac = sm.jacobi_step_coeffs(3, 0.8)
+    res = {}
+    for tag, cap in (("split", OVERLAP_TILE), ("whole", 10**6)):
+        d = DistLevelOps(st, n, n, plan, 3, tile_cap=cap)
+        ub, bb = d.block_of(u), d.block_of(b)
+        Rc = d.R // 2
+        e_blk = torch.cat([e, e.new_zeros((1, e.shape[1]))])[
+            rank * Rc:(rank + 1) * Rc]
+        ops = {"a": lambda: d.apply(ub),
+               "r": lambda: d.residual(bb, ub),
+               "rc": lambda: d.visit_down(bb, ub, jac),
+               "rc0": lambda: d.visit_down(bb, None, jac),
+               "correct_u": lambda: d.visit_up(bb, ub, e_blk, jac),
+               "correct_ur": lambda: d.visit_up(bb, ub, e_blk, jac, True),
+               "replicated_ur": lambda: d.visit_up(bb, ub, e, jac, True)}
+        for name, fn in ops.items():
+            dk.row_visits.clear()
+            got = fn()
+            res[f"{tag}_{name}_visits"] = json.dumps(dict(dk.row_visits))
+            for i, x in enumerate(got if isinstance(got, tuple) else (got,)):
+                res[f"{tag}_{name}_{i}"] = all_gather(x, plan)
+    np.savez(out / f"overlap_units.{rank}.npz",
+             **{k: np.asarray(v) for k, v in res.items()})
+
+
 def grid_axes(lv) -> list:
     """The axes (y, x) each grid of level ``lv``'s operators is split
     along ([False, False] for a grid held whole; a row block's (True,
@@ -544,6 +606,9 @@ def main() -> None:
                 continue
             if name == "uneven_units":
                 uneven_units(rank, world, out, spec)
+                continue
+            if name == "overlap_units":
+                overlap_units(rank, world, out)
                 continue
             plan = make_plan(spec)
             cfg = config(spec["cfg"])
