@@ -12,6 +12,18 @@ non-zero):
      version at 8192^2 (f32, f64, bf16; bit for bit, also on an unaligned
      view), timed beside torch.mul(out=), and its loop-differenced rate
      (k = 18 less k = 2 chained launches, 3 samples) beside y.copy_(x)'s;
+  1b. the attribution probes' kernels (K18b part 1): KP1, every visit
+     ablation mode (base, norm, nomask, norestrict, nosweep, loadstore;
+     ``probe_kernel``) at 8191^2, k = 3, against its plain version
+     (TOL_ARRAY; loadstore bit for bit) and nomask against base; KP2, the
+     copy in place (``scale_copy_``) at 8192^2 in f32, f64 and bf16, bit
+     for bit; KP3, the staged copy (``pipeline_kernel.staged_copy``, k = 1,
+     2, 3) at 8191^2, 8192^2 and on an offset view, and the visit pipeline
+     in every mode at 8191^2 and 8192^2 (t = 32, and 16), bit for bit;
+     each kernel's device time beside its bound and K18a's rate; then the
+     probes' path (``python -m multigrid_petsc_tpu_torch.probes <name>
+     --quick`` for all six at full size, in this process) with the
+     launch counts from 0;
   2. every 5-point kernel against its plain PyTorch version on the card,
      at the shapes of the 8193^2 / 11-level paths, with times: the mg-CG
      kernels K1-K4 (K4 on scripts/time_coarse_tree.py's seven trees, timed
@@ -262,7 +274,8 @@ def ptxas_summary(log: str) -> list[str]:
     groups: dict = {}
     fam = re.compile(r"(visit5p|visit5|visit9|apply9|stencil|cg_papply|"
                      r"line_fix|line_carry|line_segment|line_residual|"
-                     r"coarse_tree|dia_spmv|scale_copy)_kernel"
+                     r"coarse_tree|dia_spmv|scale_copy|staged_copy|"
+                     r"staged_pipe)_kernel"
                      r"(I(f|d|13__nv_bfloat16))?")
     types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
     key = None
@@ -276,6 +289,10 @@ def ptxas_summary(log: str) -> list[str]:
             r = re.search(r"Region5ILi\d+ELi\d+ELi(\d+)E", m.group(1))
             if key and r:
                 key += " short" if r.group(1) == "16" else " tall"
+            # visit5_kernel's probe modes (KP1), apart from the solves'
+            if key and re.search(r"Region5ILi\d+ELi\d+ELi\d+EEELi[1-9]E",
+                                 m.group(1)):
+                key += " probe"
             continue
         if key is None:
             continue
@@ -559,6 +576,147 @@ def phase_stream(torch, dev, rec):
           f"{nvidia_smi_line()}")
     info["copy_samples_GBps"] = [v / 1e9 for v in copies]
     return info
+
+
+def phase_probes(torch, dev, rec, stream):
+    """1b (K18b part 1): the attribution probes' kernels against their
+    plain versions on the card, with device times, then the probes' path
+    with the launch counts from 0.  ``stream``: phase 1's K18a rate
+    record, the yardstick printed beside each time."""
+    import importlib
+
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.ops.cuda import pipeline_kernel as plk
+    from multigrid_petsc_tpu_torch.ops.cuda import probe_kernel as pk
+    from multigrid_petsc_tpu_torch.ops.cuda import stream_kernel as sk
+    from multigrid_petsc_tpu_torch.probes import PROBES
+    from multigrid_petsc_tpu_torch.problems import stencil_coefficients
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+
+    rate = stream["bytes_per_s"]
+    gen = torch.Generator(device=dev).manual_seed(2121)
+
+    def timed(key, label, fn, plain, nbytes, flops, library=None):
+        r = rec.setdefault(key, {})
+        ms, pms = time_ms(torch, fn), time_ms(torch, plain)
+        lms = None if library is None else time_ms(torch, library)
+        dms = device_ms(torch, fn)
+        keep_time(r, ms, pms, nbytes, flops, lms)
+        r["device_ms"] = dms
+        bound = 1e3 * max(nbytes / HBM_PEAK, flops / F32_PEAK)
+        share = 1e5 * nbytes / dms / rate
+        print(f"  {label}: kernel {ms:.4f} ms a call, device {dms:.4f} ms "
+              f"({nbytes / dms / 1e6:.1f} GB/s, {share:.1f}% of K18a's "
+              f"{rate / 1e9:.1f} GB/s); plain {pms:.4f} ms"
+              + ("" if lms is None else f"; library {lms:.4f} ms")
+              + f"; bound {bound:.4f} ms ({100 * bound / dms:.1f}% device)")
+
+    def exact(key, label, got, want):
+        r = rec.setdefault(key, {})
+        for g, w in zip(got, want):
+            err = float((g.double() - w.double()).abs().max())
+            assert torch.equal(g, w), f"{label}: not bit for bit ({err:.3e})"
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        print(f"  {label}: bit for bit")
+
+    # KP1: the visit ablations, 8191^2, k = 3.
+    n, nyc = 8191, 4095
+    st = stencil_coefficients(MeshType.UNIFORM, n, n, torch.float32, dev)
+    steps = jacobi_step_coeffs(3, 0.8)
+    b = torch.randn((n, n), generator=gen, device=dev)
+    vbytes = 4 * (2 * n * n + nyc * nyc)
+    print("KP1 visit ablations at 8191^2, k = 3")
+    base = pk.visit_ablate(st, b, steps, "base")
+    for mode in pk.MODES:
+        key = f"visit_ablate.{mode}"
+        got = pk.visit_ablate(st, b, steps, mode)
+        want = pk.visit_ablate_plain(st, b, steps, mode)
+        if mode == "loadstore":
+            exact(key, "loadstore vs plain", got, want)
+        else:
+            for nm, g, w in zip(("u", "rc"), got, want):
+                compare(torch, f"{mode} {nm}", g, w, rec.setdefault(key, {}))
+        if mode == "norm":  # another rounding, the same function
+            for nm, g, w in zip(("u", "rc"), got, base):
+                compare(torch, f"norm {nm} vs base", g, w, {})
+        if mode == "nomask":
+            same = all(torch.equal(g, w) for g, w in zip(got, base))
+            d = max(float((g - w).abs().max()) for g, w in zip(got, base))
+            print(f"  nomask vs base: max |difference| {d:.3e}"
+                  + (" (bit for bit)" if same else ""))
+            for nm, g, w in zip(("u", "rc"), got, base):
+                compare(torch, f"nomask {nm} vs base", g, w, {})
+        flops = n * n * (0 if mode == "loadstore" else
+                         15 * (1 if mode == "nosweep" else 3) + 10)
+        timed(key, mode, lambda m=mode: pk.visit_ablate(st, b, steps, m),
+              lambda m=mode: pk.visit_ablate_plain(st, b, steps, m),
+              vbytes, flops)
+    del b, base, got, want
+    # KP2: the copy in place, 8192^2.
+    m = 8192
+    print("KP2 scale_copy_ (in place) at 8192^2")
+    for dt in sk.DTYPES:
+        x = torch.randn((m, m), generator=gen, device=dev).to(dt)
+        exact("scale_copy_", f"scale_copy_ {dt}",
+              (sk.scale_copy_(x.clone(), 1.0001),),
+              (sk.scale_copy_plain_(x.clone(), 1.0001),))
+    x = torch.randn((m, m), generator=gen, device=dev)
+    y = x.clone()
+    timed("scale_copy_", "scale_copy_ f32", lambda: sk.scale_copy_(y, 1.0001),
+          lambda: sk.scale_copy_plain_(y, 1.0001), 8 * m * m, m * m,
+          lambda: y.mul_(1.0001))
+    # KP3: the staged copy and the visit pipeline.
+    print("KP3 staged_copy and the visit pipeline")
+    for what, u in (("8192^2", x), ("8191^2", x[:n, :n].contiguous()),
+                    ("8191^2 view, offset 1",
+                     x.view(-1)[1:1 + n * n].view(n, n))):
+        for k in (1, 2, 3):
+            exact("staged_copy", f"staged_copy {what} k = {k}",
+                  (plk.staged_copy(u, k),), (plk.staged_copy_plain(u, k),))
+    y = torch.empty_like(x)
+    timed("staged_copy", "staged_copy 8192^2 k = 1",
+          lambda: plk.staged_copy(x, 1), lambda: plk.staged_copy_plain(x, 1),
+          8 * m * m, 0, lambda: y.copy_(x))
+    for size in (n, m):
+        bb = x[:size, :size].contiguous()
+        for mode in plk.PIPE_MODES:
+            for t in (32, 16):
+                exact("staged_visit_pipeline",
+                      f"pipeline {size}^2 {mode} t = {t}",
+                      tuple(o for o in plk.staged_visit_pipeline(bb, t, mode)
+                            if o is not None),
+                      tuple(o for o in plk.staged_visit_pipeline_plain(
+                          bb, t, mode) if o is not None))
+    bb = x[:n, :n].contiguous()
+    r = rec.setdefault("staged_visit_pipeline", {})
+    modes = {}
+    for mode in plk.PIPE_MODES:
+        nb = 4 * (2 * n * n + (nyc * nyc if plk.PIPE_MODES[mode][2] else 0))
+        dms = device_ms(torch, lambda md=mode: plk.staged_visit_pipeline(
+            bb, 32, md))
+        modes[mode] = {"device_ms": dms, "bytes": nb}
+        print(f"  pipeline 8191^2 {mode} t = 32: device {dms:.4f} ms "
+              f"({nb / dms / 1e6:.1f} GB/s, {1e5 * nb / dms / rate:.1f}% "
+              f"of K18a's)")
+    timed("staged_visit_pipeline", "pipeline 8191^2 v_full t = 32",
+          lambda: plk.staged_visit_pipeline(bb, 32, "v_full"),
+          lambda: plk.staged_visit_pipeline_plain(bb, 32, "v_full"),
+          modes["v_full"]["bytes"], 0)
+    r["modes"] = modes
+    del x, y, bb, u
+    torch.cuda.empty_cache()
+    # The probes' path: each probe once, quick, at full size.
+    launches.clear()
+    for name in PROBES:
+        importlib.import_module(
+            f"multigrid_petsc_tpu_torch.probes.{name}").run(dev, quick=True)
+    counts = dict(launches)
+    print(f"probes' path launches: {counts}")
+    for key in [f"visit_ablate.{md}" for md in pk.MODES] + [
+            "scale_copy_", "staged_copy", "staged_visit_pipeline"]:
+        rec[key]["launches"] = counts.get(key, 0)
+        assert rec[key]["launches"] > 0, f"{key} never launched on its path"
 
 
 def conv_call(torch, w3, u, b=None):
@@ -4890,9 +5048,11 @@ def partial_run(torch, dev, parts) -> int:
         _, u_ref, main_ref = phase_main(torch)
         main_ref["u"] = u_ref.cpu().numpy()
         del u_ref
-    if "k18" in parts:
+    if "k18" in parts or "1b" in parts:
         rec = {}
-        timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
+        stream = timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
+        if "1b" in parts:
+            timed_phase(torch, "1b (K18b)", phase_probes, dev, rec, stream)
         print(json.dumps(rec))
     if "9a" in parts:
         rec = {}
@@ -4991,6 +5151,7 @@ def main() -> int:
 
     rec = {}
     stream = timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
+    timed_phase(torch, "1b (K18b)", phase_probes, dev, rec, stream)
     rec.update(timed_phase(torch, "2", phase_kernels, dev, rate))
     timed_phase(torch, "2 (V-cycle family)", phase_kernels_vcycle, dev, rec)
     timed_phase(torch, "2b", phase_kernels_9pt, dev, rec)
@@ -5119,8 +5280,28 @@ def main() -> int:
         # Phase 1's: K18a, the stream-rate probe's blocked copy (launches
         # from its rate's run).
         "scale_copy": ("stream.cu", "benchmarks/baseline_configs.py:148"),
+        # Phase 1b's: K18b part 1, the attribution probes' kernels
+        # (launches from the probes' path run there).  The base mode is
+        # K2b's kernel, launched for the probe.
+        "visit_ablate.base": ("visit.cu", "benchmarks/probe_visit_vpu.py:182"),
+        "visit_ablate.norm": ("probe_visit.cu",
+                              "benchmarks/probe_visit_vpu.py:182"),
+        "visit_ablate.nomask": ("probe_visit.cu",
+                                "benchmarks/probe_visit_vpu.py:182"),
+        "visit_ablate.norestrict": ("probe_visit.cu",
+                                    "benchmarks/probe_mdma_vpu.py:207"),
+        "visit_ablate.nosweep": ("probe_visit.cu",
+                                 "benchmarks/probe_mdma_vpu.py:207"),
+        "visit_ablate.loadstore": ("probe_visit.cu",
+                                   "benchmarks/probe_mdma_vpu.py:207"),
+        "scale_copy_": ("stream.cu", "benchmarks/probe_dma.py:78"),
+        "staged_copy": ("pipeline.cu", "benchmarks/probe_dma.py:132"),
+        "staged_visit_pipeline": ("pipeline.cu",
+                                  "benchmarks/probe_dma_parts.py:157"),
     }
-    counts["scale_copy"] = rec["scale_copy"]["launches"]
+    for k in meta:  # K18a's from phase 1's rate run, 1b's probes' path
+        if "launches" in rec.get(k, {}):
+            counts[k] = rec[k]["launches"]
     for k in meta:
         if k not in counts:
             counts[k] = p8_counts.get(k) or p3d_counts.get(k, 0)
@@ -5149,7 +5330,7 @@ def main() -> int:
             **{x: rec[k][x] for x in ("device_ms", "launch_ms",
                                       "grid_syncs", "grid_sync_us",
                                       "latency_floor_ms", "modes_5pt",
-                                      "uneven")
+                                      "uneven", "modes")
                if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1); K18a's stream rate "
           f"{stream['bytes_per_s'] / 1e9:.1f} GB/s")

@@ -20,6 +20,13 @@
 // by the wrapper (as the TPU kernel casts 1.0001 to its dtype); a bf16
 // product is formed in f32 (exact: both factors hold 8 significant bits)
 // and rounded once to bf16.
+//
+// KP2, the same copy in place, u <- a * u (mg_scale_copy_inplace*):
+// replaces the aliased copies of benchmarks/probe_dma.py probe_b and
+// benchmarks/probe_cg_ablate.py _copy_chain (input_output_aliases {0: 0}),
+// the copy chains that tell fresh outputs from in-place ones.  It is the
+// kernel above with the output as its input (INPLACE): each entry is read
+// and written by one thread, so no other thread can see it half done.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,11 +66,13 @@ __device__ __forceinline__ __nv_bfloat16 scale1(__nv_bfloat16 x, float a) {
 }
 
 // V: the 16-byte vector of T (float4, double2, uint4 for bf16); C: the
-// compute type.
-template <class T, class V, class C>
+// compute type.  INPLACE: o <- a * o (u is not read; one pointer may not
+// be passed as both u and o, which the restrict qualifiers forbid).
+template <class T, class V, class C, bool INPLACE>
 __global__ void __launch_bounds__(NTHREADS)
-scale_copy_kernel(const T* __restrict__ u, T* __restrict__ o, long long n,
+scale_copy_kernel(const T* __restrict__ u_in, T* __restrict__ o, long long n,
                   C a, int vec) {
+  const T* u = INPLACE ? o : u_in;
   long long done = 0;
   if (vec) {
     constexpr int W = sizeof(V) / sizeof(T);
@@ -93,7 +102,7 @@ scale_copy_kernel(const T* __restrict__ u, T* __restrict__ o, long long n,
     o[j] = scale1(u[j], a);
 }
 
-template <class T, class V, class C>
+template <class T, class V, class C, bool INPLACE = false>
 int launch(const T* u, T* o, long long n, C a, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const int vec =
@@ -104,8 +113,9 @@ int launch(const T* u, T* o, long long n, C a, void* stream) {
   const long long want = (n + per * NTHREADS - 1) / (per * NTHREADS);
   const unsigned blocks =
       (unsigned)(want < 1 ? 1 : want < MAX_BLOCKS ? want : MAX_BLOCKS);
-  scale_copy_kernel<T, V, C><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
-      u, o, n, a, vec);
+  scale_copy_kernel<T, V, C, INPLACE>
+      <<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(INPLACE ? nullptr : u,
+                                                      o, n, a, vec);
   return (int)cudaGetLastError();
 }
 
@@ -128,6 +138,22 @@ int mg_scale_copy_f64(const double* u, double* o, long long n, double a,
 int mg_scale_copy_bf16(const __nv_bfloat16* u, __nv_bfloat16* o, long long n,
                        double a, void* stream) {
   return launch<__nv_bfloat16, uint4, float>(u, o, n, (float)a, stream);
+}
+
+// u <- a * u in place over n contiguous entries (KP2).
+int mg_scale_copy_inplace(float* u, long long n, double a, void* stream) {
+  return launch<float, float4, float, true>(u, u, n, (float)a, stream);
+}
+
+int mg_scale_copy_inplace_f64(double* u, long long n, double a,
+                              void* stream) {
+  return launch<double, double2, double, true>(u, u, n, a, stream);
+}
+
+int mg_scale_copy_inplace_bf16(__nv_bfloat16* u, long long n, double a,
+                               void* stream) {
+  return launch<__nv_bfloat16, uint4, float, true>(u, u, n, (float)a,
+                                                   stream);
 }
 
 }  // extern "C"

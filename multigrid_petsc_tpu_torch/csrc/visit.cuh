@@ -149,6 +149,25 @@ enum Emit { EMIT_U = 0, EMIT_UR = 1, EMIT_R = 2, EMIT_RC = 3 };
 // Flag bits of mg_visit's `flags` argument (mirrored in mdma_kernel.py).
 constexpr int F_CG = 1, F_GUESS = 2, F_CORRECT = 4, F_DOT = 8, EMIT_SHIFT = 4;
 
+// visit5_kernel's probe modes: ablations of the f32 zero-guess rc visit
+// that the attribution probes time (probe_visit.cu, ops/cuda/probe_kernel.py;
+// the solves launch P_PROD only, the default).
+//   P_NORM        coefficients normalised by cc while staged (cs / cc ...,
+//                 1 / cc), bd = D^-1 b once, z = bd - u - sum c' nb, r = cc z
+//   P_NOMASK      no per-point column mask in the steps: a column outside
+//                 the domain steps with alpha = 0 (absorbing), rows by dinv 0
+//   P_NORESTRICT  rc = the y-restricted residual rows, first nxc columns
+//   P_NOSWEEP     one step of the k (the halo and the tile stay k's)
+//   P_LOADSTORE   no steps: u = b, rc = b's odd-odd points (loads, stores)
+enum Probe5 {
+  P_PROD = 0,
+  P_NORM = 1,
+  P_NOMASK = 2,
+  P_NORESTRICT = 3,
+  P_NOSWEEP = 4,
+  P_LOADSTORE = 5
+};
+
 // The 5-point stencil: five (ny, 1) columns.
 template <class T>
 struct Coeffs {
@@ -682,9 +701,11 @@ __device__ __forceinline__ void prolong_strip(const T* e,
 // points past the block come from the halo buffers, and points at or past
 // the domain (the pad row and column) are written as 0; nx is the block's
 // width C.  A whole grid (ROWS false) compiles to the plain indexing.  A
-// block visits the tile of its (blockIdx.x, blockIdx.y).
+// block visits the tile of its (blockIdx.x, blockIdx.y).  PROBE (Probe5):
+// an ablation of the f32 zero-guess rc visit on a whole grid; every other
+// instantiation is P_PROD, whose body the probe branches leave as it is.
 template <class T, bool CG, bool GUESS, bool CORRECT, int EMIT, bool DOT,
-          bool ROWS, class RG>
+          bool ROWS, class RG, int PROBE = P_PROD>
 __global__ void __launch_bounds__(RG::NT, v5_min_blocks<compute_t<T>, RG>())
 visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
               const compute_t<T>* __restrict__ steps, int k) {
@@ -728,10 +749,17 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
     C* d = crow + 8 * threadIdx.x;
     const C cc = in ? to_c(c.cc[gy]) : C(0);
     d[0] = cc;
-    d[1] = in ? to_c(c.cs[gy]) : C(0);
-    d[2] = in ? to_c(c.cn[gy]) : C(0);
-    d[3] = in ? to_c(c.cw[gy]) : C(0);
-    d[4] = in ? to_c(c.ce[gy]) : C(0);
+    if constexpr (PROBE == P_NORM) {  // c' = c / cc; cc stays for r = cc z
+      d[1] = in ? to_c(c.cs[gy]) / cc : C(0);
+      d[2] = in ? to_c(c.cn[gy]) / cc : C(0);
+      d[3] = in ? to_c(c.cw[gy]) / cc : C(0);
+      d[4] = in ? to_c(c.ce[gy]) / cc : C(0);
+    } else {
+      d[1] = in ? to_c(c.cs[gy]) : C(0);
+      d[2] = in ? to_c(c.cn[gy]) : C(0);
+      d[3] = in ? to_c(c.cw[gy]) : C(0);
+      d[4] = in ? to_c(c.ce[gy]) : C(0);
+    }
     d[5] = in ? C(1) / cc : C(0);
     d[6] = C(0);
     d[7] = C(0);
@@ -770,16 +798,29 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
     cur[RG::at(sy, sx)] = uv;
   }
   __syncthreads();
+  if constexpr (PROBE == P_NORM) {  // bd = D^-1 b, once: the rows staged
+#pragma unroll
+    for (int i = 0; i < RG::RS; ++i) bq[i] *= row5(crow + 8 * (r0 + i)).dinv;
+  }
 
-  for (int s = 0; s < k; ++s) {
-    const C a = steps[2 * s];
+  // P_NOSWEEP: the first step only; P_LOADSTORE: none.
+  const int ks = PROBE == P_NOSWEEP ? 1 : PROBE == P_LOADSTORE ? 0 : k;
+  for (int s = 0; s < ks; ++s) {
+    // P_NOMASK: a column outside the domain steps with alpha = 0, so its
+    // p and u stay 0 (its b is 0) with no test per point.
+    const C a = PROBE == P_NOMASK && !colin ? C(0) : steps[2 * s];
     const C bt = steps[2 * s + 1];
     if (!GUESS && s == 0) {  // u = 0: z = D^-1 b
 #pragma unroll
       for (int i = 0; i < RG::RS; ++i) {
         const int sy = r0 + i;
         const C d = row5(crow + 8 * sy).dinv;
-        pq[i] = a * (colin ? d * bq[i] : C(0));
+        if constexpr (PROBE == P_NORM)
+          pq[i] = a * (colin ? bq[i] : C(0));
+        else if constexpr (PROBE == P_NOMASK)
+          pq[i] = a * (d * bq[i]);
+        else
+          pq[i] = a * (colin ? d * bq[i] : C(0));
         nxt[RG::at(sy, sx)] = pq[i];
       }
     } else {
@@ -789,9 +830,16 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
       for (int i = 0; i < RG::RS; ++i) {
         const C c2 = q[RG::PW];
         const Row5<C> kr = row5(crow + 8 * (r0 + i));
-        const C z =
-            colin ? kr.dinv * (bq[i] - apply5(kr, c1, c0, c2, q[-1], q[1]))
-                  : C(0);
+        C z;
+        if constexpr (PROBE == P_NORM)  // the JAX probe's term order
+          z = colin ? bq[i] - c1 - kr.cs * c0 - kr.cn * c2 - kr.cw * q[-1] -
+                          kr.ce * q[1]
+                    : C(0);
+        else if constexpr (PROBE == P_NOMASK)
+          z = kr.dinv * (bq[i] - apply5(kr, c1, c0, c2, q[-1], q[1]));
+        else
+          z = colin ? kr.dinv * (bq[i] - apply5(kr, c1, c0, c2, q[-1], q[1]))
+                    : C(0);
         pq[i] = bt * pq[i] + a * z;  // p = 0 before the first step
         nxt[RG::at(r0 + i, sx)] = c1 + pq[i];
         c0 = c1;
@@ -813,7 +861,18 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
   // The pad row and column are 0.
   const bool xin = !ROWS || gx < nxg;
   C acc = C(0);
-  if constexpr (EMIT == EMIT_U) {
+  if constexpr (PROBE == P_LOADSTORE) {
+    // u = b on the tile; rc = b at the odd-odd points (2I + 1, 2J + 1).
+#pragma unroll
+    for (int i = 0; i < RG::RS; ++i) {
+      const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
+      if (!xt || ty < 0 || ty >= TY || ly >= R) continue;
+      put(io.u_out, (size_t)ly * nx + lx, bq[i]);
+      if ((ly & 1) && (lx & 1) && lx < 2 * Cc)
+        put(io.rc_out, (size_t)(ly >> 1) * Cc + (lx >> 1), bq[i]);
+    }
+    return;
+  } else if constexpr (EMIT == EMIT_U) {
 #pragma unroll
     for (int i = 0; i < RG::RS; ++i) {
       const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
@@ -830,8 +889,14 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
     for (int i = 0; i < RG::RS; ++i) {
       const int sy = r0 + i, ty = sy - H, ly = y0 + ty;
       const C c2 = q[RG::PW];
-      const C r =
-          bq[i] - apply5(row5(crow + 8 * sy), c1, c0, c2, q[-1], q[1]);
+      C r;
+      if constexpr (PROBE == P_NORM) {  // r = cc z(u)
+        const Row5<C> kr = row5(crow + 8 * sy);
+        r = kr.cc * (bq[i] - c1 - kr.cs * c0 - kr.cn * c2 - kr.cw * q[-1] -
+                     kr.ce * q[1]);
+      } else {
+        r = bq[i] - apply5(row5(crow + 8 * sy), c1, c0, c2, q[-1], q[1]);
+      }
       if (xt && ty >= 0 && ty < TY && ly < R) {
         const bool in = xin && (!ROWS || row0 + ly < ny);
         const size_t g = (size_t)ly * nx + lx;
@@ -859,6 +924,16 @@ visit5_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
     for (int cy = wid; cy < TY / 2; cy += RG::NT / 32) {
       const int I = y0 / 2 + cy;  // local coarse row
       if (I >= Rc) break;
+      if constexpr (PROBE == P_NORESTRICT) {  // the y pass alone
+        for (int cx = lane; cx < TX; cx += 32) {
+          const int j = x0 + cx;  // a fine column, the first Cc of them
+          if (j >= Cc) break;
+          const C* f = nxt + RG::at(2 * cy + H, cx + H);  // (2I, j)
+          put(io.rc_out, (size_t)I * Cc + j,
+              f[0] + C(2) * f[RG::PW] + f[2 * RG::PW]);
+        }
+        continue;
+      }
       for (int cx = lane; cx < TX / 2; cx += 32) {
         const int J = x0 / 2 + cx;  // local coarse column
         if (J >= Cc) break;

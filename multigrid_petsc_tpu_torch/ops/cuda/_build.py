@@ -77,9 +77,17 @@ _SIGNATURES = {
     "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
     "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
-    # K18a, the blocked copy (csrc/stream.cu), per storage type.
+    # K18a, the blocked copy (csrc/stream.cu), per storage type, and KP2,
+    # the same in place.
     **{"mg_scale_copy" + sfx: [_P, _P, ctypes.c_longlong, _D, _P]
        for sfx in ("", "_f64", "_bf16")},
+    **{"mg_scale_copy_inplace" + sfx: [_P, ctypes.c_longlong, _D, _P]
+       for sfx in ("", "_f64", "_bf16")},
+    # KP1, the visit ablations (csrc/probe_visit.cu), and KP3, the staged
+    # copy pipeline (csrc/pipeline.cu).
+    "mg_visit_probe": [_P] * 5 + [_P] * 3 + [_I, _I, _P, _I, _I, _P],
+    "mg_staged_copy": [_P, _P, ctypes.c_longlong, _I, _P],
+    "mg_staged_pipe": [_P] * 3 + [_I] * 7 + [_P],
     "mg_coarse_tree_plan_bytes": [],
     "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _P, _P],
     "mg_coarse_tree": [_P, _P, _P, _P],

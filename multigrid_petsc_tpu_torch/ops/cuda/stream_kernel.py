@@ -15,6 +15,13 @@ as ``scale_copy`` (``.f64``, ``.bf16``) in ``ops.cuda.launches``.  As the
 TPU kernel casts 1.0001 to its dtype, the scalar is rounded to the
 storage type first; the product is formed in the compute type (f32 for
 bf16, exactly) and rounded to the storage type once.
+
+KP2, ``scale_copy_``: the same copy in place, u <- a u (its own kernel
+instantiation: one pointer is never passed as both the input and the
+output of ``scale_copy``'s), counterpart of the aliased copies of
+``benchmarks/probe_dma.py`` ``probe_b`` (:78) and
+``benchmarks/probe_cg_ablate.py`` ``_copy_chain`` (:55, with
+``input_output_aliases``); counted as ``scale_copy_``.
 """
 
 from __future__ import annotations
@@ -69,6 +76,25 @@ def scale_copy(u: torch.Tensor, a: float, out: torch.Tensor | None = None):
     check(err, "scale_copy launch")
     count_launch("scale_copy", dtype)
     return o
+
+
+def scale_copy_plain_(u: torch.Tensor, a: float) -> torch.Tensor:
+    """u <- a u in place: ``scale_copy_plain``'s product, written back."""
+    return u.copy_(scale_copy_plain(u, a))
+
+
+def scale_copy_(u: torch.Tensor, a: float) -> torch.Tensor:
+    """u <- a u in place over a 2-D tensor (KP2); returns u."""
+    if _on_cpu(u):
+        return scale_copy_plain_(u, a)
+    if u.dim() != 2:
+        raise ValueError(f"scale_copy_ takes a 2-D tensor, got {u.dim()}-D")
+    dtype = _check_cuda(u.device, {"u": (u, u.shape)}, dtypes=DTYPES)
+    err = entry(load_library(), "mg_scale_copy_inplace", dtype)(
+        u.data_ptr(), u.numel(), _scalar(a, dtype), _stream(u.device))
+    check(err, "scale_copy_ launch")
+    count_launch("scale_copy_", dtype)
+    return u
 
 
 def measured_kernel_bandwidth(n: int = 8192, dtype=torch.float32,
