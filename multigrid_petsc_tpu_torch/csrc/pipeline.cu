@@ -35,12 +35,12 @@
 // Sizes.  staged_copy: chunks of CHUNK = 8192 f32 (32 KB), two buffers (64
 // KB) a block of one warp, as many blocks as fit on each SM (3 on an
 // H100).  The visit pipeline: a tile is t rows x TW = 256 columns (1 KB
-// of f32 a row), halo H rows above and below, walked down a column strip
-// by a block (a unit is `seg` tiles of one strip, the units dealt round
+// of f32 a row), HALO = 8 rows above and below, walked down a column strip
+// by a block (a unit is SEG tiles of one strip, the units dealt round
 // robin to the persistent blocks); a buffer row holds TW + 4 values, so
 // that a row's 16-byte aligned core lands 16-byte aligned whatever the
-// row's offset mod 4.  Shared memory is (2 (t + 2H) + 2 t [staged u]) (TW
-// + 4) + 2 (t / 2) (TW / 2 + 4) [rc] f32: t = 32, H = 8 takes 179 KB of
+// row's offset mod 4.  Shared memory is (2 (t + 2 HALO) + 2 t [staged u])
+// (TW + 4) + 2 (t / 2) (TW / 2 + 4) [rc] f32: t = 32 takes 179 KB of
 // the 227 KB a block may use; the TPU's (96-256, 8192) tiles do not fit.
 
 #include <cuda_runtime.h>
@@ -53,6 +53,8 @@ constexpr int CHUNK = 8192;  // f32 entries a staged_copy chunk
 constexpr int TW = 256;      // columns of a visit-pipeline tile
 constexpr int RW = TW + 4;   // a buffer row of it (alignment slack)
 constexpr int RWC = TW / 2 + 4;  // an rc buffer row
+constexpr int SEG = 8;       // tiles a unit (one block's walk down a strip)
+constexpr int HALO = 8;      // rows above and below a tile (the TPU's H)
 constexpr int VT = 256;      // threads of a visit-pipeline block
 constexpr size_t MAX_SMEM = 232448;
 
@@ -185,7 +187,7 @@ struct Pipe {
   const float* b;
   float* u;
   float* rc;  // null: no rc stream
-  int ny, nx, nyc, nxc, t, H, seg;
+  int ny, nx, nyc, nxc, t;
   int strips, segs;  // column strips; units (tile groups) down a strip
   bool carry, staging;
 };
@@ -205,12 +207,12 @@ struct Cursor {
 __device__ __forceinline__ int unit_tiles(const Pipe& p, int unit) {
   const int g = unit % p.segs;  // the unit's place down its strip
   const int ntiles = (p.ny + p.t - 1) / p.t;
-  const int left = ntiles - g * p.seg;
-  return left < p.seg ? left : p.seg;
+  const int left = ntiles - g * SEG;
+  return left < SEG ? left : SEG;
 }
 
 __device__ __forceinline__ Tile tile_of(const Pipe& p, Cursor c) {
-  const int r0 = ((c.unit % p.segs) * p.seg + c.tile) * p.t;
+  const int r0 = ((c.unit % p.segs) * SEG + c.tile) * p.t;
   const int rows = p.ny - r0 < p.t ? p.ny - r0 : p.t;
   return Tile{c.unit / p.segs, r0, rows, c.tile == 0};
 }
@@ -246,12 +248,12 @@ __device__ void load_rows(const Pipe& p, const Tile& tl, float* buf,
   if (threadIdx.x == 0) {
     uint32_t total = 0;
     for (int q = qa; q < qb; ++q) {
-      const long long g = (long long)(tl.r0 - p.H + q) * p.nx + c0;
+      const long long g = (long long)(tl.r0 - HALO + q) * p.nx + c0;
       total += 4u * (uint32_t)seg_of(g, w).core;
     }
     mbar_expect(bar, total);
     for (int q = qa; q < qb; ++q) {
-      const long long g = (long long)(tl.r0 - p.H + q) * p.nx + c0;
+      const long long g = (long long)(tl.r0 - HALO + q) * p.nx + c0;
       const Seg s = seg_of(g, w);
       if (s.core > 0)
         bulk_load(buf + q * RW + s.pad + s.head, p.b + g + s.head,
@@ -260,7 +262,7 @@ __device__ void load_rows(const Pipe& p, const Tile& tl, float* buf,
   }
   for (int x = threadIdx.x; x < (qb - qa) * 8; x += VT) {
     const int q = qa + (x >> 3), e = x & 7;
-    const long long g = (long long)(tl.r0 - p.H + q) * p.nx + c0;
+    const long long g = (long long)(tl.r0 - HALO + q) * p.nx + c0;
     const Seg s = seg_of(g, w);
     const int j = e < 4 ? e : s.head + s.core + (e - 4);
     if ((e < 4 && j < s.head) || (e >= 4 && j < w))
@@ -268,12 +270,12 @@ __device__ void load_rows(const Pipe& p, const Tile& tl, float* buf,
   }
 }
 
-// The buffer rows a tile loads: those of [r0 - H, r0 + rows + H) inside
-// the domain, past the 2H carried ones where `carried`.
+// The buffer rows a tile loads: those of [r0 - HALO, r0 + rows + HALO)
+// inside the domain, past the 2 HALO carried ones where `carried`.
 __device__ __forceinline__ void load_range(const Pipe& p, const Tile& tl,
                                            bool carried, int& qa, int& qb) {
-  qa = max(carried ? 2 * p.H : 0, p.H - tl.r0);
-  qb = min(tl.rows + 2 * p.H, p.ny - tl.r0 + p.H);
+  qa = max(carried ? 2 * HALO : 0, HALO - tl.r0);
+  qb = min(tl.rows + 2 * HALO, p.ny - tl.r0 + HALO);
 }
 
 // Rows [0, n) of a buffer to rows of `dst` (row i at global index g(i)):
@@ -303,7 +305,7 @@ __device__ void store_rows(const float* buf, int rw, float* dst, int n,
 __global__ void __launch_bounds__(VT)
 staged_pipe_kernel(Pipe p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int BR = p.t + 2 * p.H;  // rows of an input buffer
+  const int BR = p.t + 2 * HALO;  // rows of an input buffer
   float* bbuf = reinterpret_cast<float*>(smem);
   float* ubuf = bbuf + 2 * BR * RW;
   float* rcbuf = ubuf + (p.staging ? 2 * p.t * RW : 0);
@@ -338,8 +340,8 @@ staged_pipe_kernel(Pipe p) {
       const Tile nt = tile_of(p, nc);
       float* bn = bbuf + (s ^ 1) * BR * RW;
       const bool carried = p.carry && !nt.first;
-      if (carried)  // the next tile's top 2H rows are this one's last 2H
-        for (int x = threadIdx.x; x < 2 * p.H * RW; x += VT)
+      if (carried)  // the next tile's top 2 HALO rows are this one's last
+        for (int x = threadIdx.x; x < 2 * HALO * RW; x += VT)
           bn[x] = bs[p.t * RW + x];
       load_range(p, nt, carried, qa, qb);
       load_rows(p, nt, bn, &bar[s ^ 1], qa, qb);
@@ -355,7 +357,7 @@ staged_pipe_kernel(Pipe p) {
       if (p.staging) {
         float* us = ubuf + s * p.t * RW;
         for (int x = threadIdx.x; x < tl.rows * RW; x += VT)
-          us[x] = bs[p.H * RW + x];
+          us[x] = bs[HALO * RW + x];
       }
       if (p.rc != nullptr) {
         float* rs = rcbuf + s * (p.t / 2) * RWC;
@@ -365,7 +367,7 @@ staged_pipe_kernel(Pipe p) {
           const long long gc =
               (long long)(tl.r0 / 2 + i2) * p.nxc + c0 / 2;
           rs[i2 * RWC + (int)(gc & 3) + j] =
-              bs[(p.H + 2 * i2 + 1) * RW + (int)(gr & 3) + 2 * j + 1];
+              bs[(HALO + 2 * i2 + 1) * RW + (int)(gr & 3) + 2 * j + 1];
         }
       }
     }
@@ -373,7 +375,7 @@ staged_pipe_kernel(Pipe p) {
     __syncthreads();
     // The stores: u's tile rows from the staging buffer or straight from
     // the input buffer; rc's rows.
-    const float* usrc = p.staging ? ubuf + s * p.t * RW : bs + p.H * RW;
+    const float* usrc = p.staging ? ubuf + s * p.t * RW : bs + HALO * RW;
     store_rows(usrc, RW, p.u, tl.rows, w, [&](int r) {
       return (long long)(tl.r0 + r) * p.nx + c0;
     });
@@ -389,10 +391,10 @@ staged_pipe_kernel(Pipe p) {
   if (threadIdx.x == 0) bulk_wait_all();
 }
 
-// The shared memory of a visit-pipeline block with tile rows t and halo H
+// The shared memory of a visit-pipeline block with tile rows t
 // (staging: a u staging buffer; rc: an rc buffer).
-size_t pipe_smem(int t, int H, int staging, int rc) {
-  const size_t in = 2 * (size_t)(t + 2 * H) * RW;
+size_t pipe_smem(int t, int staging, int rc) {
+  const size_t in = 2 * (size_t)(t + 2 * HALO) * RW;
   const size_t up = staging ? 2 * (size_t)t * RW : 0;
   const size_t rcb = rc ? 2 * (size_t)(t / 2) * RWC : 0;
   return 4 * (in + up + rcb) + 16;  // the f32 buffers, two mbarriers
@@ -445,23 +447,22 @@ int mg_staged_copy(const float* u, float* o, long long n, int k,
 
 // The visit pipeline over b (ny x nx f32, 16-byte aligned): u = b and,
 // where rc is not null, rc = b's odd-odd points ((ny - 1) / 2 x (nx - 1)
-// / 2); tiles of t rows (even) x 256 columns with halos of H rows, seg
+// / 2); tiles of t rows (even) x 256 columns with halos of HALO rows, SEG
 // tiles a unit; carry: the halo rows kept from the tile above; staging:
 // u written from a staging buffer (else from the input buffer).
 int mg_staged_pipe(const float* b, float* u, float* rc, int ny, int nx,
-                   int t, int H, int seg, int carry, int staging,
-                   void* stream) {
-  if (ny < 3 || nx < 3 || t < 2 || (t & 1) || H < 0 || seg < 1 ||
+                   int t, int carry, int staging, void* stream) {
+  if (ny < 3 || nx < 3 || t < 2 || (t & 1) ||
       ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(u) |
         reinterpret_cast<uintptr_t>(rc)) &
        15))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = pipe_smem(t, H, staging, rc != nullptr);
+  const size_t smem = pipe_smem(t, staging, rc != nullptr);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  Pipe p{b,  u,  rc, ny,  nx,  (ny - 1) / 2, (nx - 1) / 2, t, H, seg,
+  Pipe p{b,  u,  rc, ny,  nx,  (ny - 1) / 2, (nx - 1) / 2, t,
          (nx + TW - 1) / TW, 0, carry != 0, staging != 0};
   const int ntiles = (ny + t - 1) / t;
-  p.segs = (ntiles + seg - 1) / seg;
+  p.segs = (ntiles + SEG - 1) / SEG;
   int blocks = 1;
   int err = grid_for((const void*)staged_pipe_kernel, VT, smem,
                      (long long)p.strips * p.segs, &blocks);

@@ -87,7 +87,7 @@ _SIGNATURES = {
     # copy pipeline (csrc/pipeline.cu).
     "mg_visit_probe": [_P] * 5 + [_P] * 3 + [_I, _I, _P, _I, _I, _P],
     "mg_staged_copy": [_P, _P, ctypes.c_longlong, _I, _P],
-    "mg_staged_pipe": [_P] * 3 + [_I] * 7 + [_P],
+    "mg_staged_pipe": [_P] * 3 + [_I] * 5 + [_P],
     "mg_coarse_tree_plan_bytes": [],
     "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _P, _P],
     "mg_coarse_tree": [_P, _P, _P, _P],

@@ -16,7 +16,7 @@ solve runs them.
                             u = b and, where the mode has an rc stream, rc =
                             b's odd-odd points, through tiles of t rows x
                             256 columns with H = 8 halo rows above and below
-                            (``seg`` tiles walked down a column strip by one
+                            (``SEG`` tiles walked down a column strip by one
                             block); the modes of the JAX probe:
       v_full     halo rows carried from the tile above, u staged, rc
       v_norc     carried, staged, no rc
@@ -53,8 +53,8 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
 
 CHUNK = 8192  # f32 entries a staged_copy chunk (csrc/pipeline.cu)
 TILE_COLS = 256  # columns of a visit-pipeline tile (csrc/pipeline.cu TW)
-HALO = 8  # halo rows, the TPU kernel's H
-SEG = 8  # tiles a unit (one block's walk down a column strip)
+HALO = 8  # halo rows, the TPU kernel's H (pipeline.cu HALO)
+SEG = 8  # tiles a unit, one block's walk down a strip (pipeline.cu SEG)
 # mode: (carry the halo rows, stage u, write rc)
 PIPE_MODES = {"v_full": (True, True, True), "v_norc": (True, True, False),
               "v_nocarry": (False, True, True),
@@ -87,12 +87,12 @@ def staged_copy(u: torch.Tensor, k: int = 1) -> torch.Tensor:
     return o
 
 
-def pipe_smem_bytes(t: int, mode: str, h: int = HALO) -> int:
+def pipe_smem_bytes(t: int, mode: str) -> int:
     """Shared memory of a visit-pipeline block (``csrc/pipeline.cu``
     ``pipe_smem``)."""
     _, staging, rc = PIPE_MODES[mode]
     rw, rwc = TILE_COLS + 4, TILE_COLS // 2 + 4
-    return 4 * (2 * (t + 2 * h) * rw + (2 * t * rw if staging else 0)
+    return 4 * (2 * (t + 2 * HALO) * rw + (2 * t * rw if staging else 0)
                 + (2 * (t // 2) * rwc if rc else 0)) + 16
 
 
@@ -104,8 +104,7 @@ def staged_visit_pipeline_plain(b: torch.Tensor, t: int, mode: str):
     return b.clone(), rc
 
 
-def staged_visit_pipeline(b: torch.Tensor, t: int, mode: str,
-                          seg: int = SEG):
+def staged_visit_pipeline(b: torch.Tensor, t: int, mode: str):
     """(u, rc) of the compute-free visit pipeline in mode ``mode`` with
     tiles of t rows (even)."""
     if mode not in PIPE_MODES:
@@ -131,7 +130,7 @@ def staged_visit_pipeline(b: torch.Tensor, t: int, mode: str,
                       device=b.device) if rc_on else None)
     err = load_library().mg_staged_pipe(
         b.data_ptr(), u.data_ptr(), None if rc is None else rc.data_ptr(),
-        ny, nx, t, HALO, seg, int(carry), int(staging), _stream(b.device))
+        ny, nx, t, int(carry), int(staging), _stream(b.device))
     check(err, f"staged_visit_pipeline launch ({mode}, t = {t})")
     count_launch("staged_visit_pipeline", b.dtype)
     return u, rc

@@ -53,7 +53,7 @@ from multigrid_petsc_tpu_torch.solvers.vcycle import (
 )
 from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
 
-N_COPY, NPTS, GRIDS = 8192, 8193, 11
+N_COPY, NPTS = 8192, 8193
 MODES = ("full", "nocoarse", "noupd", "nopapply")
 ROUTES = ("fused", "mdma")
 
@@ -128,15 +128,14 @@ def cg_step(ctx, route: str, mode: str, plan=None):
     return fused if route == "fused" else main_path
 
 
-def run(device="cuda", n: int | None = None, quick: bool = False,
-        grids: int | None = None):
-    """(a) at n^2 (default 8192^2), (b) at npts^2 with ``grids`` levels:
-    npts the grid size 2^m + 1 next above n (default 8193), the levels
-    down to a 7^2 coarsest grid unless ``grids`` says (8193^2: 11)."""
+def run(device="cuda", n: int | None = None, quick: bool = False):
+    """(a) at n^2 (default 8192^2), (b) at npts^2: npts the grid size
+    2^m + 1 next above n (default 8193), the levels down to a 7^2
+    coarsest grid (8193^2: 11)."""
     device = torch.device(device)
     n_copy = n or N_COPY
     npts = 2 ** (n_copy - 1).bit_length() + 1 if n else NPTS
-    levels = grids or (npts - 1).bit_length() - 3
+    levels = (npts - 1).bit_length() - 3
     k1, k2, pairs = (1, 2, 1) if quick else (2, 10, 3)
     rate = stream_rate(device)
     header("cg_ablate", device, rate,

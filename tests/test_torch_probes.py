@@ -23,8 +23,9 @@ ablation (``probes/cg_ablate.py``) at 129^2 / 5 levels: ``full`` equals
 the solver's own iterations bit for bit on both routes, and the fused
 route's four modes equal JAX's ``probe_cg_ablate.py:104-130`` body, run
 here on a JAX CPU context with its fused kernels in interpret mode, after
-3 iterations, to 1e-8 of each array's largest entry.  That comparison runs
-in f64: in f32 the state after three iterations sits at the roundoff
+3 iterations, to 1e-8 of each array's largest entry, and the mdma
+route's four modes equal the fused route's bit for bit.  Those comparisons
+run in f64: in f32 the state after three iterations sits at the roundoff
 floor (<r, z> is a cancellation whose last digits the two packages' sums
 order differently, 4e-4 apart after one iteration, which moves r by 3%).
 Last, every probe's CPU run prints its schema.
@@ -383,6 +384,34 @@ def test_cg_ablate_fused_modes_match_jax_body(jax_cg, mode):
                                    err_msg=f"{mode} {name}")
 
 
+@pytest.mark.parametrize("mode", ca.MODES)
+def test_cg_ablate_mdma_modes_match_the_fused_modes(jax_cg, mode):
+    """The main path's body in each mode equals the fused route's (held to
+    JAX's above) bit for bit: both compute the same preconditioner, and in
+    each mode the same A p and <p, A p>.  Both start from the state after
+    one ``full`` iteration, so that p is not 0 and the mdma route has a
+    lagged update pending; u is compared once that is flushed (noupd: u is
+    each route's start, the pending update never applied)."""
+    _, _, ctx = jax_cg
+    plan = kr.mdma_plan(ctx)
+    f0 = ca.cg_step(ctx, "fused", "full")(ca.cg_start(ctx, "fused"))
+    m0 = ca.cg_step(ctx, "mdma", "full", plan)(ca.cg_start(ctx, "mdma",
+                                                           plan))
+    f, m = f0, m0
+    fused, main = (ca.cg_step(ctx, "fused", mode),
+                   ca.cg_step(ctx, "mdma", mode, plan))
+    for _ in range(3):
+        f, m = fused(f), main(m)
+    if mode == "noupd":
+        assert torch.equal(f[0], f0[0]) and torch.equal(m[0], m0[0])
+    else:
+        np.testing.assert_array_equal((m[0] + m[6] * m[3]).numpy(),
+                                      f[0].numpy(), err_msg=f"{mode} u")
+    for name, g, w in zip(("r", "z", "p", "rz"), m[1:5], f[1:5]):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(),
+                                      err_msg=f"{mode} {name}")
+
+
 PROBE_ROWS = {
     "visit_vpu": ["base", "norm", "roll", "nomask"],
     "mdma_vpu": ["full", "norestrict", "nosweep", "dmaonly"],
@@ -407,8 +436,6 @@ def test_probe_cpu_run_prints_its_schema(name, capsys):
 
     argv = [name, "--device", "cpu", "--n", "64" if name == "cg_ablate"
             else "63", "--quick"]
-    if name == "cg_ablate":
-        argv += ["--grids", "4"]
     launches.clear()
     assert main(argv) == 0
     assert not launches  # plain versions only
@@ -425,8 +452,8 @@ def test_probe_cpu_run_prints_its_schema(name, capsys):
 
 def test_mirrors_match_the_sources():
     """The wrappers' copies of the kernels' constants are the sources':
-    KP1's mode numbers (visit.cuh Probe5), KP3's tile columns and chunk
-    (pipeline.cu TW, CHUNK)."""
+    KP1's mode numbers (visit.cuh Probe5), KP3's tile columns, chunk, unit
+    and halo (pipeline.cu TW, CHUNK, SEG, HALO)."""
     csrc = Path(pk.__file__).resolve().parents[2] / "csrc"
     cuh = (csrc / "visit.cuh").read_text()
     for mode, k in pk.MODES.items():
@@ -437,4 +464,6 @@ def test_mirrors_match_the_sources():
     cu = (csrc / "pipeline.cu").read_text()
     assert f"constexpr int TW = {plk.TILE_COLS};" in cu
     assert f"constexpr int CHUNK = {plk.CHUNK};" in cu
+    assert f"constexpr int SEG = {plk.SEG};" in cu
+    assert f"constexpr int HALO = {plk.HALO};" in cu
     assert pk.MAX_PROBE_STEPS == 6  # halo k + 2 <= V5_SHORT_MAX_H = 8
