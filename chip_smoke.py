@@ -20,10 +20,16 @@ non-zero):
      for bit; KP3, the staged copy (``pipeline_kernel.staged_copy``, k = 1,
      2, 3) at 8191^2, 8192^2 and on an offset view, and the visit pipeline
      in every mode at 8191^2 and 8192^2 (t = 32, and 16), bit for bit;
-     each kernel's device time beside its bound and K18a's rate; then the
-     probes' path (``python -m multigrid_petsc_tpu_torch.probes <name>
-     --quick`` for all six at full size, in this process) with the
-     launch counts from 0;
+     each kernel's device time beside its bound and K18a's rate; K18b part
+     2: K18b-W, the halo windows (``xfer_probe_kernel.halo_windows``) at
+     8191^2 on (stride, g, top, bot) = (160, 52, 5, 5), (160, 52, 3, 3),
+     (160, 52, 5, 2), (96, 90, 5, 5) (g past cdiv(n, stride)) and on an
+     offset view, bit for bit; K18b-R (``xfer_restrict``) in every mode on
+     the (48, 8192) slab and K18b-P (``xfer_prolong``) on (57, 4096), G =
+     86, bit for bit or within TOL_XFER, with device times beside the
+     shared-memory floor; then the probes' path (``python -m
+     multigrid_petsc_tpu_torch.probes <name> --quick`` for all eight at
+     full size, in this process) with the launch counts from 0;
   2. every 5-point kernel against its plain PyTorch version on the card,
      at the shapes of the 8193^2 / 11-level paths, with times: the mg-CG
      kernels K1-K4 (K4 on scripts/time_coarse_tree.py's seven trees, timed
@@ -241,6 +247,10 @@ import time
 T_START = time.perf_counter()  # the process's start, for its seconds
 TOL_ARRAY = 1e-5  # max|kernel - plain| <= TOL_ARRAY * max|plain|
 TOL_DOT = 1e-4    # relative, on each inner product
+# K18b-R / K18b-P round each product and sum on their own, as their plain
+# versions do; where the two still differ, max|kernel - plain| <=
+# TOL_XFER * max|plain|.
+TOL_XFER = 1e-6
 # K15 solves each line by Thomas's recurrence cut into 32-row segments,
 # with f64-made factors, its plain version by f32 parallel cyclic
 # reduction: they differ by solve rounding, not by arithmetic order alone.
@@ -275,7 +285,7 @@ def ptxas_summary(log: str) -> list[str]:
     fam = re.compile(r"(visit5p|visit5|visit9|apply9|stencil|cg_papply|"
                      r"line_fix|line_carry|line_segment|line_residual|"
                      r"coarse_tree|dia_spmv|scale_copy|staged_copy|"
-                     r"staged_pipe)_kernel"
+                     r"staged_pipe|halo_windows|xfer_pass)_kernel"
                      r"(I(f|d|13__nv_bfloat16))?")
     types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
     key = None
@@ -706,6 +716,7 @@ def phase_probes(torch, dev, rec, stream):
     r["modes"] = modes
     del x, y, bb, u
     torch.cuda.empty_cache()
+    phase_probes_xfer(torch, dev, rec, timed)
     # The probes' path: each probe once, quick, at full size.
     launches.clear()
     for name in PROBES:
@@ -714,9 +725,84 @@ def phase_probes(torch, dev, rec, stream):
     counts = dict(launches)
     print(f"probes' path launches: {counts}")
     for key in [f"visit_ablate.{md}" for md in pk.MODES] + [
-            "scale_copy_", "staged_copy", "staged_visit_pipeline"]:
+            "scale_copy_", "staged_copy", "staged_visit_pipeline",
+            "halo_windows", "xfer_restrict", "xfer_prolong"]:
         rec[key]["launches"] = counts.get(key, 0)
         assert rec[key]["launches"] > 0, f"{key} never launched on its path"
+
+
+def phase_probes_xfer(torch, dev, rec, timed):
+    """1b (K18b part 2): K18b-W, the halo windows, at 8191^2 on four
+    (stride, g, top, bot) cases and an offset view, bit for bit; K18b-R in
+    every mode and K18b-P at the transpose probe's shapes, bit for bit or
+    within TOL_XFER of max|plain|; device times beside the bounds, K18a's
+    rate and the shared-memory floor.  ``timed``: phase 1b's timer."""
+    from multigrid_petsc_tpu_torch.ops.cuda import xfer_probe_kernel as xk
+    from multigrid_petsc_tpu_torch.probes import smem_rate
+    from multigrid_petsc_tpu_torch.probes import transpose as tp
+
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    n = 8191
+    flat = torch.randn(n * n + 1, generator=gen, device=dev)
+    x = flat[:n * n].view(n, n)
+    print("K18b-W halo_windows at 8191^2 (stride, g, top, bot)")
+    r = rec.setdefault("halo_windows", {})
+    for what, u, case in (
+            ("", x, (160, 52, 5, 5)), ("", x, (160, 52, 3, 3)),
+            ("", x, (160, 52, 5, 2)), ("", x, (96, 90, 5, 5)),
+            (" view, offset 1", flat[1:].view(n, n), (160, 52, 5, 5))):
+        got = xk.halo_windows(u, *case)
+        want = xk.halo_windows_plain(u, *case)
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            assert torch.equal(g, w), f"halo_windows {case}{what}: {err:.3e}"
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        print(f"  {case}{what}: bit for bit")
+    case = (160, 52, 5, 5)
+    timed("halo_windows", f"halo_windows {case}",
+          lambda: xk.halo_windows(x, *case),
+          lambda: xk.halo_windows_plain(x, *case),
+          xk.windows_bytes(n, n, *case), 0)
+    del flat, x, got, want
+    # K18b-R and K18b-P: the probe's slabs, G = 86 passes.
+    peak = smem_rate(dev)
+    x = torch.randn((tp.TH, tp.NXP), generator=gen, device=dev)
+    e = torch.randn((tp.T2 // 2 + 1, tp.NXP // 2), generator=gen,
+                    device=dev)
+    print(f"K18b-R / K18b-P x-transfer passes, ({tp.TH}, {tp.NXP}) and "
+          f"{tuple(e.shape)}, G = {tp.G}; shared memory "
+          f"{peak / 1e12:.2f} TB/s (nvidia-smi clocks.max.sm)")
+    cases = [("xfer_restrict", m, x,
+              lambda m=m: xk.xfer_restrict(x, m, tp.G),
+              lambda m=m: xk.xfer_restrict_plain(x, m, tp.G))
+             for m in tp.MODES]
+    cases.append(("xfer_prolong", "prolong", e,
+                  lambda: xk.xfer_prolong(e, tp.G),
+                  lambda: xk.xfer_prolong_plain(e, tp.G)))
+    for key, mode, inp, fn, plain in cases:
+        r = rec.setdefault(key, {})
+        got, want = fn(), plain()
+        if torch.equal(got, want):
+            print(f"  {mode}: bit for bit")
+            r.setdefault("max_abs_err", 0.0)
+        else:
+            compare(torch, mode, got, want, r, tol=TOL_XFER)
+        r.setdefault("bit_for_bit", {})[mode] = torch.equal(got, want)
+        smem = xk.smem_read_bytes(mode, inp.shape[0], tp.NXP, tp.G)
+        hbm = 4 * (inp.numel() + got.numel())
+        ops = int(tp.G * got.numel() * xk.OPS_PER_OUTPUT[mode])
+        dms = device_ms(torch, fn)
+        floor = 1e3 * smem / peak
+        bound = 1e3 * max(hbm / HBM_PEAK, ops / F32_PEAK)
+        r.setdefault("modes", {})[mode] = {
+            "device_ms": dms, "smem_bytes": smem, "smem_floor_ms": floor}
+        print(f"  {mode}: device {dms:.4f} ms; shared memory {smem / 1e6:.1f}"
+              f" MB, floor {floor:.4f} ms ({100 * floor / dms:.1f}% of the "
+              f"device time); bound {bound:.4f} ms ({hbm} B, {ops} "
+              f"operations)")
+        if mode in ("full", "prolong"):  # the production transfers
+            timed(key, f"{key} {mode}", fn, plain, hbm, ops)
+            r["smem_floor_ms"] = floor
 
 
 def conv_call(torch, w3, u, b=None):
@@ -5298,6 +5384,15 @@ def main() -> int:
         "staged_copy": ("pipeline.cu", "benchmarks/probe_dma.py:132"),
         "staged_visit_pipeline": ("pipeline.cu",
                                   "benchmarks/probe_dma_parts.py:157"),
+        # K18b part 2 (1b too): the halo windows and the x-transfer passes;
+        # xfer_restrict's times are its full mode's (the production
+        # x-restriction), every mode's device time under "modes".
+        "halo_windows": ("probe_xfer.cu",
+                         "benchmarks/probe_windows_ab.py:72"),
+        "xfer_restrict": ("probe_xfer.cu",
+                          "benchmarks/probe_transpose.py:109"),
+        "xfer_prolong": ("probe_xfer.cu",
+                         "benchmarks/probe_transpose.py:139"),
     }
     for k in meta:  # K18a's from phase 1's rate run, 1b's probes' path
         if "launches" in rec.get(k, {}):
@@ -5330,10 +5425,13 @@ def main() -> int:
             **{x: rec[k][x] for x in ("device_ms", "launch_ms",
                                       "grid_syncs", "grid_sync_us",
                                       "latency_floor_ms", "modes_5pt",
-                                      "uneven", "modes")
+                                      "uneven", "modes", "smem_floor_ms",
+                                      "bit_for_bit")
                if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1); K18a's stream rate "
           f"{stream['bytes_per_s'] / 1e9:.1f} GB/s")
+    print(f"chip_smoke.py: {time.perf_counter() - T_START:.1f} s since the "
+          f"process started (the build included; the limit is 1200 s)")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {nvidia_smi_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -424,6 +424,9 @@ PROBE_ROWS = {
             "C KP3 staged copy", "C1 KP3 staged copy"],
     "dma_parts": ["v_full    t= 32", "v_norc    t= 32", "v_nocarry t= 32",
                   "v_direct  t= 32", "v_bare    t= 32"],
+    "windows_ab": ["round 0: apply"],
+    "transpose": ["noop    :", "apply8  :", "arith   :", "shuffle :",
+                  "full    :", "prolong :"],
 }
 
 
