@@ -375,11 +375,19 @@ def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None,
     record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
 
 
-def keep_time(record, ms, pms, nbytes, flops, library_ms=None):
+def keep_time(record, ms, pms, nbytes, flops, library_ms=None,
+              library_device_ms=None):
     """The first timing of each kernel is the one its record keeps."""
     if "ms" not in record:
         record.update(ms=ms, plain_ms=pms, bytes=nbytes, flops=flops,
-                      library_ms=library_ms)
+                      library_ms=library_ms,
+                      library_device_ms=library_device_ms)
+
+
+def library_device_ms(torch, fn, ms: float) -> float:
+    """``device_ms`` of a library call that takes ``ms`` a call: 20 calls
+    queued, fewer (at least 3) where 20 would take over 40 ms."""
+    return device_ms(torch, fn, max(3, min(20, int(40.0 / max(ms, 1e-3)))))
 
 
 def device_ms(torch, fn, n: int = 20) -> float:
@@ -524,6 +532,24 @@ def differenced_rate(torch, step, nbytes, samples=3):
             for _ in range(samples)]
 
 
+def copy_cases(sk, flat, n):
+    """K18a's and KP2's check shapes, views of ``flat`` (n^2 entries): the
+    n^2 tensor, (n - 1)^2 views 1-3 entries in (no 16-byte loads), and
+    sizes smaller than a vector and than a block's tile, or not a multiple
+    of the tile, at offsets 0-3."""
+    w = 16 // flat.element_size()  # entries a 16-byte vector
+    tile = sk.UNROLL * sk.THREADS * w
+    shapes = [(f"{n}^2", 0, n, n)] + [
+        (f"{n - 1}^2 view, offset {o}", o, n - 1, n - 1) for o in (1, 2, 3)]
+    small = dict.fromkeys(((1, 1), (1, w - 1), (3, w + 1), (1, tile - 1),
+                           (3, tile // 3 + 5), (7, 2 * tile + 3)))
+    for i, (rows, cols) in enumerate(small):
+        for off in (0, 1 + i % 3):
+            shapes.append((f"{rows} x {cols} at {off}", off, rows, cols))
+    return [(what, flat[o:o + r * c].view(r, c))
+            for what, o, r, c in shapes]
+
+
 def phase_stream(torch, dev, rec):
     """1 (K18a): the blocked copy o = 1.0001 u (``stream_kernel``) at
     8192^2 against its plain version on the card, bit for bit, in f32,
@@ -541,29 +567,30 @@ def phase_stream(torch, dev, rec):
     r = rec.setdefault("scale_copy", {})
     gen = torch.Generator(device=dev).manual_seed(99)
     for dt in sk.DTYPES:
-        x = torch.randn((n, n), generator=gen, device=dev).to(dt)
-        odd = x.view(-1)[1:1 + (n - 1) ** 2].view(n - 1, n - 1)
-        for what, u in (("8192^2", x), ("8191^2 view, offset 1", odd)):
+        flat = torch.randn(n * n, generator=gen, device=dev).to(dt)
+        for what, u in copy_cases(sk, flat, n):
             got, want = sk.scale_copy(u, a), sk.scale_copy_plain(u, a)
             err = float((got.double() - want.double()).abs().max())
-            print(f"K18a scale_copy {what} {dt}: max|kernel - plain| = "
-                  f"{err:.3e}" + (" (bit for bit)" if torch.equal(got, want)
-                                  else ""))
-            assert torch.equal(got, want), f"scale_copy {what} {dt}"
+            assert torch.equal(got, want), \
+                f"scale_copy {what} {dt}: {err:.3e} from plain"
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
-        del x, odd, got, want
+        print(f"K18a scale_copy {dt}: bit for bit on "
+              + ", ".join(w for w, _ in copy_cases(sk, flat, n)))
+        del flat, got, want
     x = torch.randn((n, n), generator=gen, device=dev)
     y = torch.empty_like(x)
     nbytes = 2 * 4 * n * n
     ms = time_ms(torch, lambda: sk.scale_copy(x, a, out=y))
     pms = time_ms(torch, lambda: sk.scale_copy_plain(x, a))
     lms = time_ms(torch, lambda: torch.mul(x, a, out=y))
+    ldms = device_ms(torch, lambda: torch.mul(x, a, out=y))
     dms = device_ms(torch, lambda: sk.scale_copy(x, a, out=y))
-    keep_time(r, ms, pms, nbytes, n * n, lms)
+    keep_time(r, ms, pms, nbytes, n * n, lms, ldms)
     r["device_ms"] = dms
     print(f"  scale_copy {n}^2 f32: kernel {ms:.4f} ms per call (device "
           f"time {dms:.4f} ms, {nbytes / dms / 1e6:.1f} GB/s), plain "
-          f"{pms:.4f} ms, torch.mul(out=) {lms:.4f} ms; bound "
+          f"{pms:.4f} ms, torch.mul(out=) {lms:.4f} ms a call, device "
+          f"{ldms:.4f} ms; bound "
           f"{1e3 * nbytes / HBM_PEAK:.4f} ms ({nbytes} B at "
           f"{HBM_PEAK / 1e12:.2f} TB/s)")
     del x, y
@@ -611,15 +638,17 @@ def phase_probes(torch, dev, rec, stream):
         r = rec.setdefault(key, {})
         ms, pms = time_ms(torch, fn), time_ms(torch, plain)
         lms = None if library is None else time_ms(torch, library)
+        ldms = None if library is None else device_ms(torch, library)
         dms = device_ms(torch, fn)
-        keep_time(r, ms, pms, nbytes, flops, lms)
+        keep_time(r, ms, pms, nbytes, flops, lms, ldms)
         r["device_ms"] = dms
         bound = 1e3 * max(nbytes / HBM_PEAK, flops / F32_PEAK)
         share = 1e5 * nbytes / dms / rate
         print(f"  {label}: kernel {ms:.4f} ms a call, device {dms:.4f} ms "
               f"({nbytes / dms / 1e6:.1f} GB/s, {share:.1f}% of K18a's "
               f"{rate / 1e9:.1f} GB/s); plain {pms:.4f} ms"
-              + ("" if lms is None else f"; library {lms:.4f} ms")
+              + ("" if lms is None else f"; library {lms:.4f} ms a call, "
+                 f"device {ldms:.4f} ms")
               + f"; bound {bound:.4f} ms ({100 * bound / dms:.1f}% device)")
 
     def exact(key, label, got, want):
@@ -663,14 +692,23 @@ def phase_probes(torch, dev, rec, stream):
               lambda m=mode: pk.visit_ablate_plain(st, b, steps, m),
               vbytes, flops)
     del b, base, got, want
-    # KP2: the copy in place, 8192^2.
+    # KP2: the copy in place, 8192^2 and copy_cases' views (the storage
+    # around a view must stay as it was).
     m = 8192
     print("KP2 scale_copy_ (in place) at 8192^2")
     for dt in sk.DTYPES:
-        x = torch.randn((m, m), generator=gen, device=dev).to(dt)
-        exact("scale_copy_", f"scale_copy_ {dt}",
-              (sk.scale_copy_(x.clone(), 1.0001),),
-              (sk.scale_copy_plain_(x.clone(), 1.0001),))
+        flat = torch.randn(m * m, generator=gen, device=dev).to(dt)
+        for what, v in copy_cases(sk, flat, m):
+            lo, hi = v.storage_offset(), v.storage_offset() + v.numel()
+            base = flat.clone()
+            view = base[lo:hi].view(v.shape)
+            want = sk.scale_copy_plain(v, 1.0001)
+            sk.scale_copy_(view, 1.0001)
+            exact("scale_copy_", f"scale_copy_ {dt} {what}", (view,),
+                  (want,))
+            assert torch.equal(base[:lo], flat[:lo]) and torch.equal(
+                base[hi:], flat[hi:]), f"scale_copy_ {what}: wrote outside"
+        del flat, base, view, want
     x = torch.randn((m, m), generator=gen, device=dev)
     y = x.clone()
     timed("scale_copy_", "scale_copy_ f32", lambda: sk.scale_copy_(y, 1.0001),
@@ -678,9 +716,15 @@ def phase_probes(torch, dev, rec, stream):
           lambda: y.mul_(1.0001))
     # KP3: the staged copy and the visit pipeline.
     print("KP3 staged_copy and the visit pipeline")
-    for what, u in (("8192^2", x), ("8191^2", x[:n, :n].contiguous()),
-                    ("8191^2 view, offset 1",
-                     x.view(-1)[1:1 + n * n].view(n, n))):
+    # Sizes below one chunk (a stage), not a multiple of a round (one chunk
+    # a block), views 1-3 entries in.
+    flat = x.view(-1)
+    for what, u in [("8192^2", x), ("8191^2", x[:n, :n].contiguous())] + [
+            (f"8191^2 view, offset {o}", flat[o:o + n * n].view(n, n))
+            for o in (1, 2, 3)] + [
+            (f"{r} x {c} at {o}", flat[o:o + r * c].view(r, c))
+            for r, c in ((1, 1), (1, 3), (31, 129), (37, 229), (1500, 1501))
+            for o in (0, 1, 2, 3)]:
         for k in (1, 2, 3):
             exact("staged_copy", f"staged_copy {what} k = {k}",
                   (plk.staged_copy(u, k),), (plk.staged_copy_plain(u, k),))
@@ -719,11 +763,18 @@ def phase_probes(torch, dev, rec, stream):
     phase_probes_xfer(torch, dev, rec, timed)
     # The probes' path: each probe once, quick, at full size.
     launches.clear()
+    per_probe = {}
     for name in PROBES:
+        before = dict(launches)
         importlib.import_module(
             f"multigrid_petsc_tpu_torch.probes.{name}").run(dev, quick=True)
+        per_probe[name] = {k: v - before.get(k, 0)
+                           for k, v in launches.items()
+                           if v != before.get(k, 0)}
     counts = dict(launches)
     print(f"probes' path launches: {counts}")
+    for name, c in per_probe.items():  # K18a's rate reading included
+        print(f"  probe {name}'s launches: {c}")
     for key in [f"visit_ablate.{md}" for md in pk.MODES] + [
             "scale_copy_", "staged_copy", "staged_visit_pipeline",
             "halo_windows", "xfer_restrict", "xfer_prolong"]:
@@ -840,15 +891,16 @@ def check_kernel(torch, rec, key, label, nbytes, flops, kern, plain, names,
     if not timed:
         return
     ms, pms = time_ms(torch, kern), time_ms(torch, plain)
-    lms = None
+    lms = ldms = None
     if library is not None:
         lms = time_ms(torch, library)
+        ldms = library_device_ms(torch, library, lms)
         lerr = float((library() - want[0]).abs().max() / want[0].abs().max())
-        print(f"  {library_name}: {lms:.4f} ms (rel. diff. from plain "
-              f"{lerr:.2e})")
+        print(f"  {library_name}: {lms:.4f} ms a call, device {ldms:.4f} ms "
+              f"(rel. diff. from plain {lerr:.2e})")
     print(f"  {label}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s "
           f"effective), plain {pms:.4f} ms")
-    keep_time(rec[key], ms, pms, nbytes, flops, lms)
+    keep_time(rec[key], ms, pms, nbytes, flops, lms, ldms)
 
 
 def phase_kernels(torch, dev, rate):
@@ -2611,7 +2663,7 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
                         label in ("zero-guess rc", "correct + u")
                         or dt == torch.float32 and emit in ("a", "r")):
                     dms = device_ms(torch, lambda: dk.row_visit(*a1, **kw1))
-                    lms = None
+                    lms = ldms = None
                     if emit in ("a", "r"):  # conv2d over the block + halo
                         c = [float(x[0, 0]) for x in st]
                         w5 = torch.tensor([[0.0, c[0], 0.0],
@@ -2622,19 +2674,23 @@ def phase_k17(torch, dev, rec, dtypes=("f32", "f64")):
                         be = (torch.cat([torch.zeros_like(hal.top), a1[1],
                                          torch.zeros_like(hal.bot)])
                               if emit == "r" else None)
-                        lms = time_ms(torch, conv_call(torch, w5, ue, be))
-                        del ue, be
+                        conv = conv_call(torch, w5, ue, be)
+                        lms = time_ms(torch, conv)
+                        ldms = library_device_ms(torch, conv, lms)
+                        del ue, be, conv
                     bound = 1e3 * nbytes / HBM_PEAK
                     modes_rec[label if label == "correct + u" else emit] = {
                         "ms_per_call": ms1, "device_ms": dms,
                         "bound_ms": bound, "library_ms": lms,
+                        "library_device_ms": ldms,
                         "split": split_times(torch, dk, tag, a1, kw1, t,
                                              split1, prepared1, dms)}
                     print(f"  {tag}: device time {dms:.4f} ms per block "
                           f"({100 * bound / dms:.1f}% of its bound "
                           f"{bound:.4f} ms), per call {ms1:.4f} ms"
                           + (f"; conv2d on the block and its halo rows "
-                             f"{lms:.4f} ms" if lms is not None else ""))
+                             f"{lms:.4f} ms a call, device {ldms:.4f} ms"
+                             if lms is not None else ""))
                 del bb, ub, eb, calls
             del st
         del b, u, e
@@ -3953,7 +4009,7 @@ def phase_k17_blocks(torch, dev, rec):
                                 and emit in ("a", "r"))):
                             dms = device_ms(torch, lambda: dk.block_visit(
                                 *a1, **kw1))
-                            lms = None
+                            lms = ldms = None
                             if emit in ("a", "r"):  # conv2d: block + ring
                                 c = [float(x[0, 0]) for x in st]
                                 w5 = torch.tensor(
@@ -3965,13 +4021,15 @@ def phase_k17_blocks(torch, dev, rec):
                                 be = (torch.nn.functional.pad(
                                     a1[1], (h, h, h, h))
                                     if emit == "r" else None)
-                                lms = time_ms(torch, conv_call(torch, w5, ue,
-                                                               be))
-                                del ue, be
+                                conv = conv_call(torch, w5, ue, be)
+                                lms = time_ms(torch, conv)
+                                ldms = library_device_ms(torch, conv, lms)
+                                del ue, be, conv
                             modes_rec[label if label == "correct + u"
                                       else emit] = {
                                 "ms_per_call": ms1, "device_ms": dms,
-                                "bound_ms": bound, "library_ms": lms}
+                                "bound_ms": bound, "library_ms": lms,
+                                "library_device_ms": ldms}
                             if dt == torch.bfloat16 and emit == "rc":
                                 rec[key]["device_ms"] = dms
                             print(f"  {tag}: device time {dms:.4f} ms per "
@@ -3979,7 +4037,8 @@ def phase_k17_blocks(torch, dev, rec):
                                   f"bound {bound:.4f} ms), per call "
                                   f"{ms1:.4f} ms"
                                   + (f"; conv2d on the block and its ring "
-                                     f"{lms:.4f} ms" if lms is not None
+                                     f"{lms:.4f} ms a call, device "
+                                     f"{ldms:.4f} ms" if lms is not None
                                      else ""))
                     del bb, ub, eb, calls
                 del ref
@@ -5414,6 +5473,7 @@ def main() -> int:
             "plain_ms": rec[k]["plain_ms"], "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": rec[k]["library_ms"],
+            "library_device_ms": rec[k].get("library_device_ms"),
             "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate,
             **({"launches_merged": merged_k17}
                if k == "dist_level_visit" else {}),

@@ -21,20 +21,34 @@
 // leave (a row of 2^m - 1 f32 values starts 16-byte aligned only every
 // fourth row).
 //
-// Two buffers a block, a persistent block walking its items (chunks, or
-// tiles) in order: item i lands in buffer i & 1, whose mbarrier completes
-// its phase once per use, so item i waits on parity (i >> 1) & 1; before
-// item i + 1's load overwrites the other buffer, the bulk stores that read
-// it (item i - 1's) must have read it (wait_group.read).  So one load and
-// one item's stores are in flight a block at a time.
+// staged_copy: a ring of STAGES buffers of CHUNK f32 (32 KB) a block of
+// one warp, BLOCKS_PER_SM blocks an SM, thread 0 issuing every bulk copy:
+// LOOKAHEAD bulk loads in flight, the stores tracked by bulk groups (the
+// buffer of item i + LOOKAHEAD - 1 last held item i + LOOKAHEAD - 1 -
+// STAGES, whose store is STAGES - LOOKAHEAD groups back:
+// wait_group.read STAGES - LOOKAHEAD before its load).  The core is dealt
+// in rounds of one chunk a block, chunk b of each round to block b (the
+// chunks in flight lie side by side, as a plain copy's lines do), and the
+// last, short round in equal shares of 16-byte units, so that every block
+// moves the same bytes.  Item i of a block is pass i / m, its chunk i % m
+// (m items a pass).  Measured against two buffers with one load in
+// flight (scripts/time_copies.py --variants): 3-6 stages of 16-32 KB, 1-6
+// blocks an SM all run within 0.5% of it, and a contiguous span a block
+// 5% slower; what keeps the staged copy ~5% behind y.copy_(x) lies in the
+// bulk copies' path, not in how many are in flight.
+//
+// The visit pipeline: two buffers a block, a persistent block walking its
+// tiles in order: tile i lands in buffer i & 1, whose mbarrier completes
+// its phase once per use, so tile i waits on parity (i >> 1) & 1; before
+// tile i + 1's load overwrites the other buffer, the bulk stores that read
+// it (tile i - 1's) must have read it (wait_group.read).  So one load and
+// one tile's stores are in flight a block at a time.
 //
 // What bounds them: bytes (no arithmetic).  staged_copy moves 2 n bytes a
 // pass; the visit pipeline the tile rows in (with the halo rows where they
 // are re-read), u out and, with rc, a quarter-size stream out.
 //
-// Sizes.  staged_copy: chunks of CHUNK = 8192 f32 (32 KB), two buffers (64
-// KB) a block of one warp, as many blocks as fit on each SM (3 on an
-// H100).  The visit pipeline: a tile is t rows x TW = 256 columns (1 KB
+// Sizes of the visit pipeline: a tile is t rows x TW = 256 columns (1 KB
 // of f32 a row), HALO = 8 rows above and below, walked down a column strip
 // by a block (a unit is SEG tiles of one strip, the units dealt round
 // robin to the persistent blocks); a buffer row holds TW + 4 values, so
@@ -50,6 +64,9 @@
 namespace {
 
 constexpr int CHUNK = 8192;  // f32 entries a staged_copy chunk
+constexpr int STAGES = 3;    // staged_copy's buffers a block
+constexpr int LOOKAHEAD = 2;  // its bulk loads in flight
+constexpr int BLOCKS_PER_SM = 2;
 constexpr int TW = 256;      // columns of a visit-pipeline tile
 constexpr int RW = TW + 4;   // a buffer row of it (alignment slack)
 constexpr int RWC = TW / 2 + 4;  // an rc buffer row
@@ -135,47 +152,53 @@ __device__ __forceinline__ void fence_async() {
 
 // ---- staged_copy: o = u, k passes, one launch.  u and o hold n f32 and
 // share their address mod 16; [h0, h0 + ncore) is the aligned core (ncore
-// a multiple of 4), copied in chunks through shared memory; the head and
-// the tail go by plain loads and stores (block 0).
+// a multiple of 4), copied through shared memory; the head and the tail go
+// by plain loads and stores (block 0).
 __global__ void __launch_bounds__(32)
 staged_copy_kernel(const float* __restrict__ u, float* __restrict__ o,
                    long long n, int k, long long h0, long long ncore) {
+  static_assert(LOOKAHEAD >= 1 && LOOKAHEAD <= STAGES, "loads in flight");
   extern __shared__ __align__(128) unsigned char smem[];
   float* buf = reinterpret_cast<float*>(smem);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * CHUNK * 4);
-  const long long nchunks = (ncore + CHUNK - 1) / CHUNK;
-  const long long mine =
-      nchunks > blockIdx.x ? (nchunks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const long long items = mine * k;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + STAGES * CHUNK * 4);
   if (blockIdx.x == 0)
     for (int p = 0; p < k; ++p)
       for (long long j = threadIdx.x; j < n - ncore; j += 32) {
         const long long g = j < h0 ? j : j + ncore;
         o[g] = u[g];
       }
+  // `full` rounds of G chunks, then this block's share [lo, hi) of the
+  // last round, in f32 entries from h0 (16-byte units: 4 entries).
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long full = ncore / (G * CHUNK);
+  const long long units = (ncore - full * G * CHUNK) / 4;
+  const long long lo = full * G * CHUNK + 4 * (units * b / G);
+  const long long hi = full * G * CHUNK + 4 * (units * (b + 1) / G);
+  const long long m = full + (hi > lo);
+  const long long items = m * k;
   if (threadIdx.x != 0 || items == 0) return;
-  mbar_init(&bar[0]);
-  mbar_init(&bar[1]);
+  for (int s = 0; s < STAGES; ++s) mbar_init(&bar[s]);
   fence_mbar_init();
-  // Item i: pass i / mine, this block's chunk i % mine.
   auto start = [&](long long i) -> long long {
-    return h0 + (blockIdx.x + (i % mine) * gridDim.x) * (long long)CHUNK;
+    const long long r = i % m;
+    return h0 + (r < full ? (r * G + b) * CHUNK : lo);
   };
   auto bytes = [&](long long i) -> uint32_t {
-    const long long left = h0 + ncore - start(i);
-    return (uint32_t)(4 * (left < CHUNK ? left : CHUNK));
+    return (uint32_t)(4 * (i % m < full ? CHUNK : hi - lo));
   };
-  mbar_expect(&bar[0], bytes(0));
-  bulk_load(buf, u + start(0), bytes(0), &bar[0]);
+  auto load = [&](long long j) {
+    const int s = (int)(j % STAGES);
+    mbar_expect(&bar[s], bytes(j));
+    bulk_load(buf + s * CHUNK, u + start(j), bytes(j), &bar[s]);
+  };
+  for (long long j = 0; j + 1 < LOOKAHEAD && j < items; ++j) load(j);
   for (long long i = 0; i < items; ++i) {
-    const int s = (int)(i & 1);
-    if (i + 1 < items) {
-      bulk_wait_read<0>();  // item i - 1's store has read buffer s ^ 1
-      mbar_expect(&bar[s ^ 1], bytes(i + 1));
-      bulk_load(buf + (s ^ 1) * CHUNK, u + start(i + 1), bytes(i + 1),
-                &bar[s ^ 1]);
+    if (i + LOOKAHEAD - 1 < items) {
+      bulk_wait_read<STAGES - LOOKAHEAD>();
+      load(i + LOOKAHEAD - 1);
     }
-    mbar_wait(&bar[s], (uint32_t)((i >> 1) & 1));
+    const int s = (int)(i % STAGES);
+    mbar_wait(&bar[s], (uint32_t)((i / STAGES) & 1));
     bulk_store(o + start(i), buf + s * CHUNK, bytes(i));
     bulk_commit();
   }
@@ -400,8 +423,10 @@ size_t pipe_smem(int t, int staging, int rc) {
   return 4 * (in + up + rcb) + 16;  // the f32 buffers, two mbarriers
 }
 
+// A grid of whole SMs' worth of resident blocks (at most `per_sm` an SM
+// where given), no more than `work`.
 int grid_for(const void* kern, int threads, size_t smem, long long work,
-             int* blocks) {
+             int* blocks, int per_sm = 0) {
   int dev = 0, sms = 0, per = 0;
   int err = (int)cudaGetDevice(&dev);
   if (!err)
@@ -415,6 +440,7 @@ int grid_for(const void* kern, int threads, size_t smem, long long work,
                                                              threads, smem);
   if (err) return err;
   if (per < 1) return (int)cudaErrorInvalidValue;
+  if (per_sm > 0 && per_sm < per) per = per_sm;
   const long long want = (long long)sms * per;
   *blocks = (int)(work < want ? (work < 1 ? 1 : work) : want);
   return 0;
@@ -435,10 +461,10 @@ int mg_staged_copy(const float* u, float* o, long long n, int k,
   const long long h0 = ((16 - (long long)(a & 15)) & 15) / 4;
   const long long head = h0 < n ? h0 : n;
   const long long ncore = (n - head) & ~3LL;
-  const size_t smem = 2 * CHUNK * 4 + 16;
+  const size_t smem = (size_t)STAGES * CHUNK * 4 + 8 * STAGES;
   int blocks = 1;
   int err = grid_for((const void*)staged_copy_kernel, 32, smem,
-                     (ncore + CHUNK - 1) / CHUNK, &blocks);
+                     (ncore + CHUNK - 1) / CHUNK, &blocks, BLOCKS_PER_SM);
   if (err) return err;
   staged_copy_kernel<<<blocks, 32, smem, (cudaStream_t)stream>>>(
       u, o, n, k, head, ncore);

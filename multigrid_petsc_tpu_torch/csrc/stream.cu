@@ -13,13 +13,19 @@
 // addresses, where both pointers are 16-byte aligned (a tensor's own
 // storage always is): a block streams tiles of UNROLL x 256 vectors, each
 // thread issuing its UNROLL loads before its stores, one block a tile (a
-// grid-stride loop over the tiles where they outnumber MAX_BLOCKS; a grid
-// of 8 blocks an SM striding over the whole array streamed slower).  An
-// unaligned pointer, and the last few entries, go one entry a step.  The
-// scalar comes in the compute type, already rounded to the storage type
-// by the wrapper (as the TPU kernel casts 1.0001 to its dtype); a bf16
-// product is formed in f32 (exact: both factors hold 8 significant bits)
-// and rounded once to bf16.
+// grid-stride loop over the tiles where they outnumber MAX_BLOCKS).  The
+// vector loads and stores carry the evict-first hint (__ldcs, __stcs):
+// each line is touched once, and the hint kept this kernel level with
+// torch.mul(out=) and x.mul_ on the device (0.5-1.6% faster than plain
+// loads and stores; scripts/time_copies.py --variants).  Measured slower
+// there and not kept: whole waves of persistent blocks each walking a
+// contiguous span (13%: the active lines spread over the whole array),
+// 32 bytes a thread a step (20%), tiles of 2 or 8 vectors a thread (the
+// same).  An unaligned pointer, and the last few entries, go one entry a
+// step.  The scalar comes in the compute type, already rounded to the
+// storage type by the wrapper (as the TPU kernel casts 1.0001 to its
+// dtype); a bf16 product is formed in f32 (exact: both factors hold 8
+// significant bits) and rounded once to bf16.
 //
 // KP2, the same copy in place, u <- a * u (mg_scale_copy_inplace*):
 // replaces the aliased copies of benchmarks/probe_dma.py probe_b and
@@ -86,12 +92,12 @@ scale_copy_kernel(const T* __restrict__ u_in, T* __restrict__ o, long long n,
 #pragma unroll
       for (int k = 0; k < UNROLL; ++k) {
         const long long j = j0 + (long long)k * NTHREADS;
-        if (j < nv) x[k] = uv[j];
+        if (j < nv) x[k] = __ldcs(uv + j);
       }
 #pragma unroll
       for (int k = 0; k < UNROLL; ++k) {
         const long long j = j0 + (long long)k * NTHREADS;
-        if (j < nv) ov[j] = scale16(x[k], a);
+        if (j < nv) __stcs(ov + j, scale16(x[k], a));
       }
     }
     done = nv * W;

@@ -191,12 +191,31 @@ def visit_up_plain(st, b, u, e_c, steps, emit_dot=True):
 # --------------------------------------------------------------------------
 
 
+# The helpers below run on every launch: a CUDA tensor is told apart, and
+# its device compared, by ``is_cuda`` and the device index alone (reading
+# ``Tensor.device`` builds a torch.device object, and ``torch.device.type``
+# a string); only a failing check, or a device that is not a CUDA one,
+# compares torch.device objects.
+
+
 def _on_cpu(x: torch.Tensor) -> bool:
+    if x.is_cuda:
+        return False
     if x.device.type == "cpu":
         return True
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+_CUDA_INDEX: dict = {}  # torch.device -> its CUDA index, else None
+
+
+def _cuda_index(device: torch.device):
+    try:
+        return _CUDA_INDEX[device]
+    except KeyError:
+        index = device.index if device.type == "cuda" else None
+        _CUDA_INDEX[device] = index
+        return index
 
 
 def _check_cuda(device: torch.device, fields: dict,
@@ -204,12 +223,20 @@ def _check_cuda(device: torch.device, fields: dict,
     """Device, dtype, shape and contiguity a kernel takes: every field of
     one storage type from ``dtypes`` (the kernel's instantiations; f32
     only by default), every scalar a 1-element tensor of its compute
-    type.  Returns the storage type."""
+    type.  Returns the storage type.  A field that passes the quick test
+    (on a CUDA device by index, of the type, the shape, contiguous) is
+    not looked at again; one that fails it goes through the checks one by
+    one, which raise."""
     dtype = next(iter(fields.values()))[0].dtype if fields else dtypes[0]
     if dtype not in dtypes:
         raise TypeError(f"this CUDA kernel is built for "
                         f"{', '.join(map(str, dtypes))}, got {dtype}")
+    index = _cuda_index(device)
     for name, (t, shp) in fields.items():
+        if (index is not None and t.is_cuda and t.get_device() == index
+                and t.dtype == dtype and t.shape == shp
+                and t.is_contiguous()):
+            continue
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != dtype:
@@ -220,12 +247,15 @@ def _check_cuda(device: torch.device, fields: dict,
                              f"expected {tuple(shp)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    cdt = compute_dtype(dtype)
-    for name, t in (scalars or {}).items():
-        if not (isinstance(t, torch.Tensor) and t.device == device
-                and t.dtype == cdt and t.numel() == 1):
-            raise TypeError(f"{name} must be a 1-element {cdt} tensor "
-                            f"on {device}")
+    if scalars:
+        cdt = compute_dtype(dtype)
+        for name, t in scalars.items():
+            if not (isinstance(t, torch.Tensor) and t.dtype == cdt
+                    and t.numel() == 1 and (
+                        t.get_device() == index if index is not None
+                        and t.is_cuda else t.device == device)):
+                raise TypeError(f"{name} must be a 1-element {cdt} tensor "
+                                f"on {device}")
     return dtype
 
 
@@ -391,7 +421,10 @@ def _odd_shape(x: torch.Tensor) -> tuple[int, int]:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of ``device``'s current stream (no Stream object)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def cg_papply_u(st: Stencil5, z, p, u, alpha_prev, beta):

@@ -6,9 +6,11 @@ kernel, (256, n) tiles double-buffered through VMEM by manual DMA) and
 ``benchmarks/probe_dma_parts.py`` ``variant`` (:157: the compute-free
 visit pipeline).  Both stream data through shared memory with the card's
 asynchronous copy engine (1-D ``cp.async.bulk`` global to shared on an
-mbarrier, shared to global in bulk groups), two buffers a persistent block;
-what they stream is read beside K18a's plain loads (``stream_kernel``).  No
-solve runs them.
+mbarrier, shared to global in bulk groups): the copy through a ring of
+``STAGES`` buffers a block, ``LOOKAHEAD`` loads in flight, the chunks
+dealt in rounds and the last round in equal shares; the pipeline through
+two buffers a persistent block.  What they stream is read beside K18a's
+plain loads (``stream_kernel``).  No solve runs them.
 
   staged_copy(u, k)         a copy of u, made k times over in one launch
                             (chunks of 8192 f32, 32 KB)
@@ -52,6 +54,9 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
 )
 
 CHUNK = 8192  # f32 entries a staged_copy chunk (csrc/pipeline.cu)
+STAGES = 3  # staged_copy's shared buffers a block (pipeline.cu STAGES)
+LOOKAHEAD = 2  # its bulk loads in flight (pipeline.cu LOOKAHEAD)
+BLOCKS_PER_SM = 2  # its one-warp blocks an SM (pipeline.cu BLOCKS_PER_SM)
 TILE_COLS = 256  # columns of a visit-pipeline tile (csrc/pipeline.cu TW)
 HALO = 8  # halo rows, the TPU kernel's H (pipeline.cu HALO)
 SEG = 8  # tiles a unit, one block's walk down a strip (pipeline.cu SEG)
@@ -73,15 +78,20 @@ def staged_copy(u: torch.Tensor, k: int = 1) -> torch.Tensor:
         return staged_copy_plain(u, k)
     if k < 1:
         raise ValueError(f"staged_copy takes k >= 1 passes, got {k}")
-    _check_cuda(u.device, {"u": (u, u.shape)})
-    if u.data_ptr() % 4:
+    dev, ptr = u.device, u.data_ptr()
+    _check_cuda(dev, {"u": (u, u.shape)})
+    if ptr % 4:
         raise ValueError("staged_copy needs u 4-byte aligned")
-    # o shares u's address mod 16, so one chunking stages both.
-    off = (u.data_ptr() % 16) // 4
-    o = torch.empty(u.numel() + 3, dtype=u.dtype, device=u.device)
-    o = o[off:off + u.numel()].view(u.shape)
-    err = load_library().mg_staged_copy(u.data_ptr(), o.data_ptr(),
-                                        u.numel(), k, _stream(u.device))
+    # o shares u's address mod 16, so one chunking stages both (a fresh
+    # tensor starts 16-byte aligned: only an offset u needs the slack).
+    off = (ptr % 16) // 4
+    if off == 0:
+        o = torch.empty_like(u)
+    else:
+        o = torch.empty(u.numel() + 3, dtype=u.dtype, device=dev)
+        o = o[off:off + u.numel()].view(u.shape)
+    err = load_library().mg_staged_copy(ptr, o.data_ptr(), u.numel(), k,
+                                        _stream(dev))
     check(err, "staged_copy launch")
     count_launch("staged_copy", u.dtype)
     return o

@@ -6,7 +6,8 @@ Counterpart of the kernel of ``benchmarks/baseline_configs.py``
 k = 2 and k = 18 chained calls): the rate at which a hand-written kernel
 streams device memory, the yardstick the other kernels' byte bounds are
 read against.  No solve runs it.  The kernel is ``csrc/stream.cu`` (a
-grid-stride loop, 16 bytes a load where the pointers allow).
+block a tile of ``UNROLL`` x ``THREADS`` vectors, 16 bytes a load where
+the pointers allow, evict-first loads and stores).
 
 ``scale_copy`` runs its plain version for CPU tensors and launches the
 kernel for CUDA tensors (f32, f64, bf16, contiguous; anything else
@@ -26,6 +27,7 @@ output of ``scale_copy``'s), counterpart of the aliased copies of
 
 from __future__ import annotations
 
+import math
 import statistics
 import time
 
@@ -42,14 +44,29 @@ from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
 )
 
 DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+# csrc/stream.cu NTHREADS, UNROLL: a block's tile is UNROLL x THREADS
+# 16-byte vectors.
+THREADS, UNROLL = 256, 4
 # The H100 SXM data sheet's device-memory rate, B/s: no sample of a card
 # of that kind can stream faster.
 SPEC_BYTES_PER_S = 3.35e12
 
 
+_SCALARS: dict = {}  # (a, its sign, dtype) -> _scalar(a, dtype)
+
+
 def _scalar(a: float, dtype: torch.dtype) -> float:
-    """``a`` rounded to the storage type, as a compute-type value."""
-    return float(torch.tensor(a, dtype=dtype).to(compute_dtype(dtype)))
+    """``a`` rounded to the storage type, as a compute-type value: made
+    once by a tensor round trip and kept per (a, its sign, storage type),
+    the sign apart because 0.0 and -0.0 compare equal (at most 1024
+    entries; a NaN, equal to no key, is rounded anew each call)."""
+    key = (a, math.copysign(1.0, a), dtype)
+    s = _SCALARS.get(key)
+    if s is None:
+        s = float(torch.tensor(a, dtype=dtype).to(compute_dtype(dtype)))
+        if len(_SCALARS) < 1024:
+            _SCALARS[key] = s
+    return s
 
 
 def scale_copy_plain(u: torch.Tensor, a: float) -> torch.Tensor:
@@ -68,11 +85,11 @@ def scale_copy(u: torch.Tensor, a: float, out: torch.Tensor | None = None):
     if u.dim() != 2:
         raise ValueError(f"scale_copy takes a 2-D tensor, got {u.dim()}-D")
     o = torch.empty_like(u) if out is None else out
-    dtype = _check_cuda(u.device, {"u": (u, u.shape), "out": (o, u.shape)},
-                        dtypes=DTYPES)
+    dev, shp = u.device, u.shape
+    dtype = _check_cuda(dev, {"u": (u, shp), "out": (o, shp)}, dtypes=DTYPES)
     err = entry(load_library(), "mg_scale_copy", dtype)(
         u.data_ptr(), o.data_ptr(), u.numel(), _scalar(a, dtype),
-        _stream(u.device))
+        _stream(dev))
     check(err, "scale_copy launch")
     count_launch("scale_copy", dtype)
     return o
@@ -89,9 +106,10 @@ def scale_copy_(u: torch.Tensor, a: float) -> torch.Tensor:
         return scale_copy_plain_(u, a)
     if u.dim() != 2:
         raise ValueError(f"scale_copy_ takes a 2-D tensor, got {u.dim()}-D")
-    dtype = _check_cuda(u.device, {"u": (u, u.shape)}, dtypes=DTYPES)
+    dev = u.device
+    dtype = _check_cuda(dev, {"u": (u, u.shape)}, dtypes=DTYPES)
     err = entry(load_library(), "mg_scale_copy_inplace", dtype)(
-        u.data_ptr(), u.numel(), _scalar(a, dtype), _stream(u.device))
+        u.data_ptr(), u.numel(), _scalar(a, dtype), _stream(dev))
     check(err, "scale_copy_ launch")
     count_launch("scale_copy_", dtype)
     return u

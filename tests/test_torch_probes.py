@@ -456,7 +456,9 @@ def test_probe_cpu_run_prints_its_schema(name, capsys):
 def test_mirrors_match_the_sources():
     """The wrappers' copies of the kernels' constants are the sources':
     KP1's mode numbers (visit.cuh Probe5), KP3's tile columns, chunk, unit
-    and halo (pipeline.cu TW, CHUNK, SEG, HALO)."""
+    and halo (pipeline.cu TW, CHUNK, SEG, HALO), the staged copy's ring
+    (STAGES, LOOKAHEAD, BLOCKS_PER_SM) and K18a's tile (stream.cu NTHREADS,
+    UNROLL)."""
     csrc = Path(pk.__file__).resolve().parents[2] / "csrc"
     cuh = (csrc / "visit.cuh").read_text()
     for mode, k in pk.MODES.items():
@@ -469,4 +471,9 @@ def test_mirrors_match_the_sources():
     assert f"constexpr int CHUNK = {plk.CHUNK};" in cu
     assert f"constexpr int SEG = {plk.SEG};" in cu
     assert f"constexpr int HALO = {plk.HALO};" in cu
+    for name in ("STAGES", "LOOKAHEAD", "BLOCKS_PER_SM"):
+        assert f"constexpr int {name} = {getattr(plk, name)};" in cu, name
+    scu = (csrc / "stream.cu").read_text()
+    assert f"constexpr int NTHREADS = {sk.THREADS};" in scu
+    assert f"constexpr int UNROLL = {sk.UNROLL};" in scu
     assert pk.MAX_PROBE_STEPS == 6  # halo k + 2 <= V5_SHORT_MAX_H = 8
