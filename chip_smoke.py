@@ -19,7 +19,12 @@ non-zero):
      copy in place (``scale_copy_``) at 8192^2 in f32, f64 and bf16, bit
      for bit; KP3, the staged copy (``pipeline_kernel.staged_copy``, k = 1,
      2, 3) at 8191^2, 8192^2 and on an offset view, and the visit pipeline
-     in every mode at 8191^2 and 8192^2 (t = 32, and 16), bit for bit;
+     in every mode, with plain and bulk stores, at every t of 16-64 it
+     takes, bit for bit on 8191^2, 8192^2, 4097^2, narrow last strips (1000
+     x 777, 45 x 259, 3 x 257), fewer rows than a window (20 x 1000) and
+     row pairs the grid does not divide (37 x 229, 300 x 301, 1500 x
+     1501), its device time in every mode at t = 32, 16 and 48 beside
+     the bytes it moves and y.copy_(x)'s (v_norc, v_bare);
      each kernel's device time beside its bound and K18a's rate; K18b part
      2: K18b-W, the halo windows (``xfer_probe_kernel.halo_windows``) at
      8191^2 on (stride, g, top, bot) = (160, 52, 5, 5), (160, 52, 3, 3),
@@ -732,33 +737,67 @@ def phase_probes(torch, dev, rec, stream):
     timed("staged_copy", "staged_copy 8192^2 k = 1",
           lambda: plk.staged_copy(x, 1), lambda: plk.staged_copy_plain(x, 1),
           8 * m * m, 0, lambda: y.copy_(x))
-    for size in (n, m):
-        bb = x[:size, :size].contiguous()
+    # The visit pipeline, bit for bit in every mode, both stores, every t
+    # the wrapper takes among 16-64: on 8191^2 and 8192^2, a last strip
+    # of 9, 3 and 1 columns, fewer rows than a window (ny < t + 2 H), and
+    # row pairs that the grid does not divide (the spans differ by one).
+    for shape in ((n, n), (m, m), (1000, 777), (45, 259), (20, 1000),
+                  (3, 257), (37, 229), (300, 301), (1500, 1501),
+                  (4097, 4097)):
+        bb = x.view(-1)[:shape[0] * shape[1]].view(shape)
         for mode in plk.PIPE_MODES:
-            for t in (32, 16):
-                exact("staged_visit_pipeline",
-                      f"pipeline {size}^2 {mode} t = {t}",
-                      tuple(o for o in plk.staged_visit_pipeline(bb, t, mode)
-                            if o is not None),
-                      tuple(o for o in plk.staged_visit_pipeline_plain(
-                          bb, t, mode) if o is not None))
+            want = tuple(o for o in plk.staged_visit_pipeline_plain(
+                bb, 32, mode) if o is not None)
+            for stores in plk.PIPE_STORES:
+                for t in (16, 32, 48, 64):
+                    if plk.pipe_stages(t, mode, stores) is None:
+                        continue
+                    got = tuple(o for o in plk.staged_visit_pipeline(
+                        bb, t, mode, stores=stores) if o is not None)
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (
+                            f"pipeline {shape} {mode} {stores} t = {t}: "
+                            f"not bit for bit")
+        print(f"  pipeline {shape[0]} x {shape[1]}: every mode, both "
+              f"stores, t = 16-64: bit for bit")
+    rec.setdefault("staged_visit_pipeline", {})["max_abs_err"] = 0.0
     bb = x[:n, :n].contiguous()
     r = rec.setdefault("staged_visit_pipeline", {})
+    yn = torch.empty_like(bb)
+    copy_dms = device_ms(torch, lambda: yn.copy_(bb))
+    print(f"  y.copy_(x) at 8191^2: device {copy_dms:.4f} ms")
     modes = {}
     for mode in plk.PIPE_MODES:
-        nb = 4 * (2 * n * n + (nyc * nyc if plk.PIPE_MODES[mode][2] else 0))
-        dms = device_ms(torch, lambda md=mode: plk.staged_visit_pipeline(
-            bb, 32, md))
-        modes[mode] = {"device_ms": dms, "bytes": nb}
-        print(f"  pipeline 8191^2 {mode} t = 32: device {dms:.4f} ms "
-              f"({nb / dms / 1e6:.1f} GB/s, {1e5 * nb / dms / rate:.1f}% "
-              f"of K18a's)")
+        rc_on = plk.PIPE_MODES[mode][2]
+        nb = 4 * (2 * n * n + (nyc * nyc if rc_on else 0))
+        modes[mode] = {"bytes": nb}
+        if not rc_on:
+            modes[mode]["library_device_ms"] = copy_dms
+        for t in (32, 16, 48):
+            if plk.pipe_stages(t, mode) is None:
+                continue
+            blocks, bands = plk.pipe_plan((n, n), t, mode)
+            cnt = plk.pipe_bytes(n, n, t, mode, bands)
+            dms = device_ms(torch, lambda md=mode, tt=t:
+                            plk.staged_visit_pipeline(bb, tt, md))
+            key = "" if t == 32 else f"_t{t}"
+            modes[mode].update({f"device_ms{key}": dms,
+                                f"moved{key}": cnt["moved"],
+                                f"blocks{key}": blocks,
+                                f"stages{key}": plk.pipe_stages(t, mode)})
+            print(f"  pipeline 8191^2 {mode} t = {t}: device {dms:.4f} ms "
+                  f"({nb / dms / 1e6:.1f} GB/s of the bound's {nb / 1e6:.1f}"
+                  f" MB, {1e5 * nb / dms / rate:.1f}% of K18a's; "
+                  f"{100 * 1e3 * nb / HBM_PEAK / dms:.1f}% of the bound); "
+                  f"moves {cnt['moved'] / 1e6:.1f} MB ({cnt['reread'] / 1e6:.1f}"
+                  f" MB re-read) on {blocks} blocks, {bands} bands, "
+                  f"{plk.pipe_stages(t, mode)} stages")
     timed("staged_visit_pipeline", "pipeline 8191^2 v_full t = 32",
           lambda: plk.staged_visit_pipeline(bb, 32, "v_full"),
           lambda: plk.staged_visit_pipeline_plain(bb, 32, "v_full"),
           modes["v_full"]["bytes"], 0)
     r["modes"] = modes
-    del x, y, bb, u
+    del x, y, yn, bb, u, got, want
     torch.cuda.empty_cache()
     phase_probes_xfer(torch, dev, rec, timed)
     # The probes' path: each probe once, quick, at full size.

@@ -15,11 +15,7 @@
 // addresses and sizes), and the hardware reports the bytes' arrival to an
 // mbarrier in shared memory (its transaction count); the way back,
 // shared to global, is a bulk copy tracked by bulk groups (commit_group,
-// wait_group.read: the copy has read its shared memory).  Thread 0 of a
-// block issues every bulk copy of the block; the other threads carry,
-// stage and copy the heads and tails of rows that the aligned bulk copies
-// leave (a row of 2^m - 1 f32 values starts 16-byte aligned only every
-// fourth row).
+// wait_group.read: the copy has read its shared memory).
 //
 // staged_copy: a ring of STAGES buffers of CHUNK f32 (32 KB) a block of
 // one warp, BLOCKS_PER_SM blocks an SM, thread 0 issuing every bulk copy:
@@ -37,25 +33,64 @@
 // 5% slower; what keeps the staged copy ~5% behind y.copy_(x) lies in the
 // bulk copies' path, not in how many are in flight.
 //
-// The visit pipeline: two buffers a block, a persistent block walking its
-// tiles in order: tile i lands in buffer i & 1, whose mbarrier completes
-// its phase once per use, so tile i waits on parity (i >> 1) & 1; before
-// tile i + 1's load overwrites the other buffer, the bulk stores that read
-// it (tile i - 1's) must have read it (wait_group.read).  So one load and
-// one tile's stores are in flight a block at a time.
-//
 // What bounds them: bytes (no arithmetic).  staged_copy moves 2 n bytes a
 // pass; the visit pipeline the tile rows in (with the halo rows where they
 // are re-read), u out and, with rc, a quarter-size stream out.
 //
-// Sizes of the visit pipeline: a tile is t rows x TW = 256 columns (1 KB
-// of f32 a row), HALO = 8 rows above and below, walked down a column strip
-// by a block (a unit is SEG tiles of one strip, the units dealt round
-// robin to the persistent blocks); a buffer row holds TW + 4 values, so
-// that a row's 16-byte aligned core lands 16-byte aligned whatever the
-// row's offset mod 4.  Shared memory is (2 (t + 2 HALO) + 2 t [staged u])
-// (TW + 4) + 2 (t / 2) (TW / 2 + 4) [rc] f32: t = 32 takes 179 KB of
-// the 227 KB a block may use; the TPU's (96-256, 8192) tiles do not fit.
+// The visit pipeline (redesigned for Hopper; it replaces a design of two
+// tile buffers a block of 256 threads, thread 0 issuing every bulk copy of
+// a tile in series, one load in flight, the carried halo copied shared to
+// shared and the fill, the rc gather and the stores run in turn between
+// block barriers: 34% of its bound in v_full).  A tile is t rows x TW =
+// 256 columns (1 KB of f32 a row) with HALO = 8 rows above and below: the
+// window of t + 2 HALO rows a visit reads.  A block is one producer warp
+// and PIPE_WARPS consumer warps on a ring of row stages:
+//
+// - the producer issues every load, its lanes a row each in parallel: the
+//   row's 16-byte aligned core by one 1-D cp.async.bulk, its 0-3 values
+//   of head and tail by 4-byte cp.async copies (a row of 2^m - 1 f32
+//   values starts 16-byte aligned only every fourth row, so no 2-D tensor
+//   map spans the array; a plain load there held the producer a memory
+//   latency a value: 1.3-1.6x the time).  It completes the tile's `full`
+//   barrier with one arrive.expect_tx of the window's bytes (a warp sum)
+//   and one arrival a lane when its cp.async copies land;
+// - the ring holds `stages` (3-6, the most that fit) tiles' rows; ring row
+//   v holds window row q of the tile whose window starts at virtual row
+//   vb where v = (vb + q) % nr.  A carried tile's window starts t rows
+//   below its predecessor's, so the 2 HALO rows they share stay where they
+//   landed (no copy) and only t rows are loaded; without the carry, or at
+//   a unit's first tile, the whole window is loaded into fresh rows.  The
+//   producer loads a tile once every tile whose window starts a lap (nr
+//   rows) before this window's end has released its rows on its `empty`
+//   barrier (one arrival a consumer warp), and the tile `stages` back has
+//   (its barriers): stages - 1 loads are in flight while a tile is
+//   consumed;
+// - the consumer warps take the tile's rows (row i to warp i % PIPE_WARPS)
+//   with 16-byte vectors: the staging fill (a buffer row of RW = TW + 4
+//   floats starts 16-byte aligned, its core at the same place as in the
+//   ring), the rc gather (one aligned float2 read a value, the row's
+//   offsets once a row: no divide, no bank conflict) and the stores,
+//   either plain 16-byte stores (rc by 4-byte coalesced stores; the
+//   evict-first hint measured 1-3% slower) or, with `bulk`, bulk stores
+//   issued by one thread a row (u rows from the staging buffer or the
+//   ring, rc rows from an rc buffer), whose wait_group.read moves to the
+//   next tile, ahead of the buffers' refill and of the ring rows' release
+//   (1-5% slower: scripts/time_copies.py --ab).
+//
+// The work: each column strip is cut into `bands` bands of row pairs
+// (about BAND_TILES tiles high; their count a multiple of blocks / gcd
+// (blocks, strips), so that every block of a full grid walks as many), the
+// units band-major (unit u: band u / strips of strip u % strips), dealt
+// round robin to the persistent blocks, each unit walked top to bottom in
+// tiles of t rows (the last shorter) with the carry.  So the blocks at
+// work at once hold neighbouring strips of the same rows, as a plain
+// copy's lines lie side by side: each strip's rows in equal spans instead
+// (a block's span down a strip) measured 1.2-1.25x the time.  Shared
+// memory: a ring of nr = stages t + 2 HALO rows of RW f32 (stages (t + 2
+// HALO) without the carry), t rows of staged u, with `bulk` t / 2 rc rows
+// of RWC = TW / 2 + 4 f32, and the barriers: v_full at t = 32 takes 216 KB
+// of the 227 KB a block may use (5 stages); the TPU's (96-256, 8192)
+// tiles do not fit.
 
 #include <cuda_runtime.h>
 
@@ -68,21 +103,27 @@ constexpr int STAGES = 3;    // staged_copy's buffers a block
 constexpr int LOOKAHEAD = 2;  // its bulk loads in flight
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int TW = 256;      // columns of a visit-pipeline tile
-constexpr int RW = TW + 4;   // a buffer row of it (alignment slack)
+constexpr int RW = TW + 4;   // a ring or buffer row of it (alignment slack)
 constexpr int RWC = TW / 2 + 4;  // an rc buffer row
-constexpr int SEG = 8;       // tiles a unit (one block's walk down a strip)
 constexpr int HALO = 8;      // rows above and below a tile (the TPU's H)
-constexpr int VT = 256;      // threads of a visit-pipeline block
+constexpr int PIPE_WARPS = 8;  // consumer warps of a visit-pipeline block
+constexpr int PIPE_THREADS = 288;  // and its producer warp
+constexpr int PIPE_STAGES = 6;  // most stages of its ring
+constexpr int PIPE_MIN_STAGES = 3;  // fewest: two loads in flight
+constexpr int BAND_TILES = 8;  // tiles of a band (a block's unit) at most
 constexpr size_t MAX_SMEM = 232448;
+static_assert(PIPE_THREADS == 32 * (PIPE_WARPS + 1), "one producer warp");
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// One arrival a phase (thread 0's, with the phase's bytes).
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+// `count` arrivals a phase (staged_copy: thread 0's, with the phase's
+// bytes).
+__device__ __forceinline__ void mbar_init(uint64_t* bar,
+                                          uint32_t count = 1) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(bar)),
-               "r"(1u)
+               "r"(count)
                : "memory");
 }
 
@@ -96,6 +137,11 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    saddr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(saddr(bar))
                : "memory");
 }
 
@@ -119,6 +165,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(saddr(dst)),
       "l"(src), "r"(bytes), "r"(saddr(bar))
       : "memory");
+}
+
+// A 4-byte copy global to shared by the copy engine's older path
+// (cp.async), landing asynchronously: no wait for the load.
+__device__ __forceinline__ void async_load4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(saddr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// An arrival on `bar` once this thread's cp.async copies issued so far
+// have landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   saddr(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void bulk_store(void* dst, const void* src,
@@ -148,6 +210,12 @@ __device__ __forceinline__ void bulk_wait_all() {
 // bulk copies issued after the next barrier.
 __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A barrier of the visit pipeline's consumer warps (the producer warp does
+// not take part).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(32 * PIPE_WARPS) : "memory");
 }
 
 // ---- staged_copy: o = u, k passes, one launch.  u and o hold n f32 and
@@ -211,41 +279,54 @@ struct Pipe {
   float* u;
   float* rc;  // null: no rc stream
   int ny, nx, nyc, nxc, t;
-  int strips, segs;  // column strips; units (tile groups) down a strip
+  int strips, pp;  // column strips; row pairs a strip
+  int bands, units;  // bands of row pairs a strip; strips x bands units
+  int stages, nr;  // the ring's stages (tiles) and rows
   bool carry, staging;
 };
 
-// One tile: strip `strip`, rows [r0, r0 + rows); `first`: the first tile
-// of its unit (nothing to carry).
-struct Tile {
-  int strip, r0, rows;
-  bool first;
-};
-
-// A block's cursor over its units' tiles.
+// A tile of a block's walk: unit u (band u / strips of strip u % strips,
+// its rows [r0 of its first tile, end)), rows [r0, r0 + rows); its window
+// (rows r0 - HALO + q, q in [0, t + 2 HALO)) in ring rows (vb + q) % nr;
+// `fresh`: it loads its whole window (a unit's first tile, or no carry),
+// else rows q >= 2 HALO.
 struct Cursor {
-  int unit, tile;
+  int u, vb, strip, r0, rows, end;
+  bool fresh;
 };
 
-__device__ __forceinline__ int unit_tiles(const Pipe& p, int unit) {
-  const int g = unit % p.segs;  // the unit's place down its strip
-  const int ntiles = (p.ny + p.t - 1) / p.t;
-  const int left = ntiles - g * SEG;
-  return left < SEG ? left : SEG;
+// Place c at the first tile of its unit c.u.
+__device__ __forceinline__ void place(const Pipe& P, Cursor& c) {
+  const int band = c.u / P.strips;
+  c.strip = c.u - band * P.strips;
+  c.r0 = 2 * (int)((long long)band * P.pp / P.bands);
+  c.end = min(P.ny, 2 * (int)((long long)(band + 1) * P.pp / P.bands));
+  c.rows = min(P.t, c.end - c.r0);
+  c.fresh = true;
 }
 
-__device__ __forceinline__ Tile tile_of(const Pipe& p, Cursor c) {
-  const int r0 = ((c.unit % p.segs) * SEG + c.tile) * p.t;
-  const int rows = p.ny - r0 < p.t ? p.ny - r0 : p.t;
-  return Tile{c.unit / p.segs, r0, rows, c.tile == 0};
-}
-
-__device__ __forceinline__ Cursor advance(const Pipe& p, Cursor c) {
-  if (++c.tile == unit_tiles(p, c.unit)) {
-    c.tile = 0;
-    c.unit += gridDim.x;
-  }
+__device__ __forceinline__ Cursor first_tile(const Pipe& P) {
+  Cursor c{(int)blockIdx.x, 0, 0, 0, 0, 0, true};
+  place(P, c);
   return c;
+}
+
+// Step c to the next tile of the walk (the units b, b + G, ... of block b
+// of G, each top to bottom); false past its last.  A tile below another of
+// its unit is carried: its window starts t ring rows on, where the shared
+// 2 HALO rows are; a fresh one starts past the last window.
+__device__ __forceinline__ bool next_tile(const Pipe& P, Cursor& c) {
+  if (c.r0 + c.rows < c.end) {
+    c.r0 += c.rows;
+    c.rows = min(P.t, c.end - c.r0);
+    c.fresh = !P.carry;
+  } else {
+    c.u += gridDim.x;
+    if (c.u >= P.units) return false;
+    place(P, c);
+  }
+  c.vb += c.fresh ? P.t + 2 * HALO : P.t;
+  return true;
 }
 
 // A row segment of `w` values at global index g of a 16-byte aligned base:
@@ -261,166 +342,185 @@ __device__ __forceinline__ Seg seg_of(long long g, int w) {
   return Seg{pad, head, (w - head) & ~3, w};
 }
 
-// Buffer rows [qa, qb) of tile `tl` from b: thread 0 issues the aligned
-// cores as bulk copies on `bar` (and arrives with their bytes); every
-// thread copies heads and tails by plain loads.
-__device__ void load_rows(const Pipe& p, const Tile& tl, float* buf,
-                          uint64_t* bar, int qa, int qb) {
-  const int c0 = tl.strip * TW;
-  const int w = min(TW, p.nx - c0);
-  if (threadIdx.x == 0) {
-    uint32_t total = 0;
-    for (int q = qa; q < qb; ++q) {
-      const long long g = (long long)(tl.r0 - HALO + q) * p.nx + c0;
-      total += 4u * (uint32_t)seg_of(g, w).core;
-    }
-    mbar_expect(bar, total);
-    for (int q = qa; q < qb; ++q) {
-      const long long g = (long long)(tl.r0 - HALO + q) * p.nx + c0;
-      const Seg s = seg_of(g, w);
-      if (s.core > 0)
-        bulk_load(buf + q * RW + s.pad + s.head, p.b + g + s.head,
-                  4u * s.core, bar);
-    }
-  }
-  for (int x = threadIdx.x; x < (qb - qa) * 8; x += VT) {
-    const int q = qa + (x >> 3), e = x & 7;
-    const long long g = (long long)(tl.r0 - HALO + q) * p.nx + c0;
+// The producer warp's loads of tile c's window into the ring: lane l the
+// rows lo + l, lo + l + 32, ... (the core by one bulk copy on `full`, the
+// head and tail by 4-byte cp.async copies); lane 0's arrive.expect_tx
+// brings the window's bytes (summed over the lanes) ahead of the copies,
+// and every lane's arrival comes when its 4-byte copies have landed.  No
+// lane waits for a load: a plain load of the heads and tails would hold
+// the producer a memory latency a value.
+__device__ void load_tile(const Pipe& P, const Cursor& c, float* ring,
+                          uint64_t* full, int lane) {
+  const int c0 = c.strip * TW, w = min(TW, P.nx - c0);
+  const int lo = c.fresh ? max(0, HALO - c.r0) : 2 * HALO;
+  const int hi = min(c.rows + 2 * HALO, P.ny - c.r0 + HALO);
+  const long long g0 = (long long)(c.r0 - HALO) * P.nx + c0;
+  uint32_t bytes = 0;
+  for (int q = lo + lane; q < hi; q += 32)
+    bytes += 4u * (uint32_t)seg_of(g0 + (long long)q * P.nx, w).core;
+  bytes = __reduce_add_sync(0xffffffffu, bytes);
+  if (lane == 0) mbar_expect(full, bytes);
+  __syncwarp();
+  for (int q = lo + lane; q < hi; q += 32) {
+    const long long g = g0 + (long long)q * P.nx;
     const Seg s = seg_of(g, w);
-    const int j = e < 4 ? e : s.head + s.core + (e - 4);
-    if ((e < 4 && j < s.head) || (e >= 4 && j < w))
-      buf[q * RW + s.pad + j] = p.b[g + j];
+    float* row = ring + (size_t)((c.vb + q) % P.nr) * RW + s.pad;
+    if (s.core > 0)
+      bulk_load(row + s.head, P.b + g + s.head, 4u * s.core, full);
+    for (int j = 0; j < s.head; ++j) async_load4(row + j, P.b + g + j);
+    for (int j = s.head + s.core; j < w; ++j)
+      async_load4(row + j, P.b + g + j);
   }
+  async_arrive(full);
 }
 
-// The buffer rows a tile loads: those of [r0 - HALO, r0 + rows + HALO)
-// inside the domain, past the 2 HALO carried ones where `carried`.
-__device__ __forceinline__ void load_range(const Pipe& p, const Tile& tl,
-                                           bool carried, int& qa, int& qb) {
-  qa = max(carried ? 2 * HALO : 0, HALO - tl.r0);
-  qb = min(tl.rows + 2 * HALO, p.ny - tl.r0 + HALO);
+// Value e of a ring or buffer row (16-byte aligned) by an aligned float2.
+__device__ __forceinline__ float pick(const float* row, int e) {
+  const float2 v = *reinterpret_cast<const float2*>(row + (e & ~1));
+  return (e & 1) ? v.y : v.x;
 }
 
-// Rows [0, n) of a buffer to rows of `dst` (row i at global index g(i)):
-// thread 0 the aligned cores as bulk stores (one group, committed by the
-// caller), every thread the heads and tails by plain stores.
-template <class G>
-__device__ void store_rows(const float* buf, int rw, float* dst, int n,
-                           int w, G g_of) {
-  if (threadIdx.x == 0)
-    for (int i = 0; i < n; ++i) {
-      const long long g = g_of(i);
-      const Seg s = seg_of(g, w);
-      if (s.core > 0)
-        bulk_store(dst + g + s.head, buf + i * rw + s.pad + s.head,
-                   4u * s.core);
-    }
-  for (int x = threadIdx.x; x < n * 8; x += VT) {
-    const int i = x >> 3, e = x & 7;
-    const long long g = g_of(i);
-    const Seg s = seg_of(g, w);
-    const int j = e < 4 ? e : s.head + s.core + (e - 4);
-    if ((e < 4 && j < s.head) || (e >= 4 && j < w))
-      dst[g + j] = buf[i * rw + s.pad + j];
-  }
+// One row of u from `src` (a ring or staging row, value j at s.pad + j):
+// the core by 16-byte vectors of the lanes, the head and tail by lanes 0-7.
+__device__ __forceinline__ void store_row(const float* src, float* dst,
+                                          const Seg& s, int lane) {
+  const float4* sv = reinterpret_cast<const float4*>(src + s.pad + s.head);
+  float4* dv = reinterpret_cast<float4*>(dst + s.head);
+  for (int m = lane; m < s.core / 4; m += 32) dv[m] = sv[m];
+  const int e = lane < 4 ? lane : s.head + s.core + lane - 4;
+  if (lane < 4 ? e < s.head : lane < 8 && e < s.w)
+    dst[e] = src[s.pad + e];
 }
 
-__global__ void __launch_bounds__(VT)
-staged_pipe_kernel(Pipe p) {
+// The head and tail of a row by plain stores, the core by one bulk store
+// (one thread).
+__device__ __forceinline__ void bulk_store_row(const float* src, float* dst,
+                                               const Seg& s) {
+  if (s.core > 0)
+    bulk_store(dst + s.head, src + s.pad + s.head, 4u * s.core);
+  for (int j = 0; j < s.head; ++j) dst[j] = src[s.pad + j];
+  for (int j = s.head + s.core; j < s.w; ++j) dst[j] = src[s.pad + j];
+}
+
+template <bool BULK>
+__global__ void __launch_bounds__(PIPE_THREADS)
+staged_pipe_kernel(Pipe P) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int BR = p.t + 2 * HALO;  // rows of an input buffer
-  float* bbuf = reinterpret_cast<float*>(smem);
-  float* ubuf = bbuf + 2 * BR * RW;
-  float* rcbuf = ubuf + (p.staging ? 2 * p.t * RW : 0);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(
-      rcbuf + (p.rc != nullptr ? 2 * (p.t / 2) * RWC : 0));
-  const int units = p.strips * p.segs;
-  if ((int)blockIdx.x >= units) return;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* ubuf = ring + (size_t)P.nr * RW;
+  float* rcbuf = ubuf + (P.staging ? P.t * RW : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      rcbuf + (BULK && P.rc != nullptr ? (P.t / 2) * RWC : 0));
+  uint64_t* empty = full + PIPE_STAGES;
+  if ((int)blockIdx.x >= P.units) return;
+  const int S = P.stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 33);  // lane 0's expect_tx and 32 lanes'
+      mbar_init(&empty[s], PIPE_WARPS);
+    }
     fence_mbar_init();
   }
   __syncthreads();
-  Cursor cur{(int)blockIdx.x, 0};
-  Tile tl = tile_of(p, cur);
-  int qa, qb;
-  load_range(p, tl, false, qa, qb);
-  load_rows(p, tl, bbuf, &bar[0], qa, qb);
-  __syncthreads();
-  for (long long i = 0;; ++i) {
-    const int s = (int)(i & 1);
-    float* bs = bbuf + s * BR * RW;
-    const Cursor nc = advance(p, cur);
-    const bool more = nc.unit < units;
-    mbar_wait(&bar[s], (uint32_t)((i >> 1) & 1));
-    if (more) {
-      // Buffer s ^ 1 takes the next tile: item i - 1's reads of it are
-      // done (its fill before the last barrier; its direct u stores here).
-      if (!p.staging && threadIdx.x == 0) bulk_wait_read<0>();
-      fence_async();
-      __syncthreads();
-      const Tile nt = tile_of(p, nc);
-      float* bn = bbuf + (s ^ 1) * BR * RW;
-      const bool carried = p.carry && !nt.first;
-      if (carried)  // the next tile's top 2 HALO rows are this one's last
-        for (int x = threadIdx.x; x < 2 * HALO * RW; x += VT)
-          bn[x] = bs[p.t * RW + x];
-      load_range(p, nt, carried, qa, qb);
-      load_rows(p, nt, bn, &bar[s ^ 1], qa, qb);
-    }
-    const int c0 = tl.strip * TW;
-    const int w = min(TW, p.nx - c0);
-    const int nI = min(tl.rows / 2, p.nyc - tl.r0 / 2);
-    const int nJ = min(w / 2, p.nxc - c0 / 2);
-    if (p.staging || p.rc != nullptr) {
-      // Item i - 2's stores have read ubuf / rcbuf s.
-      if (threadIdx.x == 0) bulk_wait_read<1>();
-      __syncthreads();
-      if (p.staging) {
-        float* us = ubuf + s * p.t * RW;
-        for (int x = threadIdx.x; x < tl.rows * RW; x += VT)
-          us[x] = bs[HALO * RW + x];
+  if (warp == PIPE_WARPS) {  // the producer
+    Cursor ld = first_tile(P), fr = ld;  // fr: tile f
+    for (int j = 0, f = 0;; ++j) {
+      // Tiles f, f + 1, ... done (released) until tile j's window has its
+      // rows and its barriers free.
+      const int lap = ld.vb + P.t + 2 * HALO - P.nr;
+      while (f < j && (j - f >= S || fr.vb < lap)) {
+        mbar_wait(&empty[f % S], (uint32_t)((f / S) & 1));
+        next_tile(P, fr);
+        ++f;
       }
-      if (p.rc != nullptr) {
-        float* rs = rcbuf + s * (p.t / 2) * RWC;
-        for (int x = threadIdx.x; x < nI * nJ; x += VT) {
-          const int i2 = x / nJ, j = x % nJ;
-          const long long gr = (long long)(tl.r0 + 2 * i2 + 1) * p.nx + c0;
-          const long long gc =
-              (long long)(tl.r0 / 2 + i2) * p.nxc + c0 / 2;
-          rs[i2 * RWC + (int)(gc & 3) + j] =
-              bs[(HALO + 2 * i2 + 1) * RW + (int)(gr & 3) + 2 * j + 1];
+      load_tile(P, ld, ring, &full[j % S], lane);
+      if (!next_tile(P, ld)) return;
+    }
+  }
+  Cursor c = first_tile(P);
+  for (int k = 0;; ++k) {
+    const int s = k % S;
+    mbar_wait(&full[s], (uint32_t)((k / S) & 1));
+    const int c0 = c.strip * TW, w = min(TW, P.nx - c0);
+    const int nI = min(c.rows / 2, P.nyc - c.r0 / 2);
+    const int nJ = min(w / 2, P.nxc - c0 / 2);
+    const long long gu = (long long)c.r0 * P.nx + c0;  // u's row 0
+    const long long gc = (long long)(c.r0 / 2) * P.nxc + c0 / 2;  // rc's
+    auto ring_row = [&](int i) {  // tile row i
+      return ring + (size_t)((c.vb + HALO + i) % P.nr) * RW;
+    };
+    if (BULK) {
+      // The last tile's bulk stores have read the staging and rc buffers
+      // and, without staging, its ring rows: release those.
+      bulk_wait_read<0>();
+      consumer_sync();
+      if (!P.staging && k > 0 && lane == 0) mbar_arrive(&empty[(k - 1) % S]);
+    }
+    // Reads of the ring: the staging fill, the rc gather.
+    if (P.staging)
+      for (int i = warp; i < c.rows; i += PIPE_WARPS) {
+        const float4* src = reinterpret_cast<const float4*>(ring_row(i));
+        float4* dst = reinterpret_cast<float4*>(ubuf + i * RW);
+        for (int m = lane; m < RW / 4; m += 32) dst[m] = src[m];
+      }
+    if (P.rc != nullptr)
+      for (int i2 = warp; i2 < nI; i2 += PIPE_WARPS) {
+        const float* row = ring_row(2 * i2 + 1);
+        // b's column c0 + 2 j + 1 sits at e0 + 2 j of the ring row.
+        const int e0 = (int)((gu + (2LL * i2 + 1) * P.nx) & 3) + 1;
+        const long long g = gc + (long long)i2 * P.nxc;
+        if (BULK) {
+          float* rr = rcbuf + i2 * RWC + (int)(g & 3);
+          for (int j = lane; j < nJ; j += 32) rr[j] = pick(row, e0 + 2 * j);
+        } else {
+          for (int j = lane; j < nJ; j += 32)
+            P.rc[g + j] = pick(row, e0 + 2 * j);
         }
       }
+    __syncwarp();
+    if (P.staging && lane == 0) mbar_arrive(&empty[s]);
+    if (BULK) {
+      // One thread a row issues its bulk store: u row i thread i, rc row i2
+      // the thread 32 PIPE_WARPS - 1 - i2.
+      fence_async();
+      consumer_sync();
+      const int i = threadIdx.x, i2 = 32 * PIPE_WARPS - 1 - threadIdx.x;
+      if (i < c.rows)
+        bulk_store_row(P.staging ? ubuf + i * RW : ring_row(i),
+                       P.u + gu + (long long)i * P.nx,
+                       seg_of(gu + (long long)i * P.nx, w));
+      if (P.rc != nullptr && i2 < nI)
+        bulk_store_row(rcbuf + i2 * RWC, P.rc + gc + (long long)i2 * P.nxc,
+                       seg_of(gc + (long long)i2 * P.nxc, nJ));
+      bulk_commit();
+    } else {
+      for (int i = warp; i < c.rows; i += PIPE_WARPS) {
+        const long long g = gu + (long long)i * P.nx;
+        store_row(P.staging ? ubuf + i * RW : ring_row(i), P.u + g,
+                  seg_of(g, w), lane);
+      }
+      __syncwarp();
+      if (!P.staging && lane == 0) mbar_arrive(&empty[s]);
     }
-    fence_async();
-    __syncthreads();
-    // The stores: u's tile rows from the staging buffer or straight from
-    // the input buffer; rc's rows.
-    const float* usrc = p.staging ? ubuf + s * p.t * RW : bs + HALO * RW;
-    store_rows(usrc, RW, p.u, tl.rows, w, [&](int r) {
-      return (long long)(tl.r0 + r) * p.nx + c0;
-    });
-    if (p.rc != nullptr)
-      store_rows(rcbuf + s * (p.t / 2) * RWC, RWC, p.rc, nI, nJ, [&](int r) {
-        return (long long)(tl.r0 / 2 + r) * p.nxc + c0 / 2;
-      });
-    if (threadIdx.x == 0) bulk_commit();
-    if (!more) break;
-    cur = nc;
-    tl = tile_of(p, cur);
+    if (!next_tile(P, c)) break;
   }
-  if (threadIdx.x == 0) bulk_wait_all();
+  if (BULK) bulk_wait_all();
 }
 
-// The shared memory of a visit-pipeline block with tile rows t
-// (staging: a u staging buffer; rc: an rc buffer).
-size_t pipe_smem(int t, int staging, int rc) {
-  const size_t in = 2 * (size_t)(t + 2 * HALO) * RW;
-  const size_t up = staging ? 2 * (size_t)t * RW : 0;
-  const size_t rcb = rc ? 2 * (size_t)(t / 2) * RWC : 0;
-  return 4 * (in + up + rcb) + 16;  // the f32 buffers, two mbarriers
+// Rows of the visit pipeline's ring with tile rows t.
+int ring_rows(int t, int stages, int carry) {
+  return carry ? stages * t + 2 * HALO : stages * (t + 2 * HALO);
+}
+
+// The shared memory of a visit-pipeline block (staging: a u staging
+// buffer; rc with bulk stores: an rc buffer).
+size_t pipe_smem(int t, int stages, int carry, int staging, int rc,
+                 int bulk) {
+  const size_t ring = (size_t)ring_rows(t, stages, carry) * RW;
+  const size_t up = staging ? (size_t)t * RW : 0;
+  const size_t rcb = rc && bulk ? (size_t)(t / 2) * RWC : 0;
+  return 4 * (ring + up + rcb) + 16 * PIPE_STAGES;  // + full, empty
 }
 
 // A grid of whole SMs' worth of resident blocks (at most `per_sm` an SM
@@ -443,6 +543,46 @@ int grid_for(const void* kern, int threads, size_t smem, long long work,
   if (per_sm > 0 && per_sm < per) per = per_sm;
   const long long want = (long long)sms * per;
   *blocks = (int)(work < want ? (work < 1 ? 1 : work) : want);
+  return 0;
+}
+
+// Bands of a column strip: about BAND_TILES tiles high, their count a
+// multiple of blocks / gcd(blocks, strips) where that adds at most half
+// again (then every block of a whole grid walks as many units), at most
+// one a row pair.
+int bands_for(int ny, int strips, int t, int blocks) {
+  int a = blocks, b = strips;
+  while (b) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  const int q = blocks / a;
+  const int want = (ny + BAND_TILES * t - 1) / (BAND_TILES * t);
+  const int even = (want + q - 1) / q * q;
+  const int bands = 2 * even <= 3 * want ? even : want;
+  return bands < (ny + 1) / 2 ? bands : (ny + 1) / 2;
+}
+
+// The visit pipeline's plan: its arguments checked, its shared memory,
+// its bands and its grid (whole SMs of resident blocks, no more than the
+// units).
+int pipe_plan(int ny, int nx, int t, int stages, int carry, int staging,
+              int rc, int bulk, size_t* smem, int* bands, int* blocks) {
+  const int strips = (nx + TW - 1) / TW;
+  if (ny < 3 || nx < 3 || t < 2 * HALO || (t & 1) ||
+      stages < PIPE_MIN_STAGES || stages > PIPE_STAGES ||
+      (long long)strips * ((ny + 1) / 2) > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  *smem = pipe_smem(t, stages, carry, staging, rc, bulk);
+  if (*smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const void* kern = bulk ? (const void*)staged_pipe_kernel<true>
+                          : (const void*)staged_pipe_kernel<false>;
+  int resident = 0;
+  int err = grid_for(kern, PIPE_THREADS, *smem, INT32_MAX, &resident);
+  if (err) return err;
+  *bands = bands_for(ny, strips, t, resident);
+  *blocks = min(resident, strips * *bands);
   return 0;
 }
 
@@ -473,28 +613,43 @@ int mg_staged_copy(const float* u, float* o, long long n, int k,
 
 // The visit pipeline over b (ny x nx f32, 16-byte aligned): u = b and,
 // where rc is not null, rc = b's odd-odd points ((ny - 1) / 2 x (nx - 1)
-// / 2); tiles of t rows (even) x 256 columns with halos of HALO rows, SEG
-// tiles a unit; carry: the halo rows kept from the tile above; staging:
-// u written from a staging buffer (else from the input buffer).
+// / 2); tiles of t rows (even, >= 2 HALO) x 256 columns with halos of HALO
+// rows through a ring of `stages` tiles; carry: the halo rows kept from
+// the tile above; staging: u written from a staging buffer (else from the
+// ring); bulk: bulk stores (else plain ones).
 int mg_staged_pipe(const float* b, float* u, float* rc, int ny, int nx,
-                   int t, int carry, int staging, void* stream) {
-  if (ny < 3 || nx < 3 || t < 2 || (t & 1) ||
-      ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(u) |
-        reinterpret_cast<uintptr_t>(rc)) &
-       15))
+                   int t, int stages, int carry, int staging, int bulk,
+                   void* stream) {
+  if ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(u) |
+       reinterpret_cast<uintptr_t>(rc)) &
+      15)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = pipe_smem(t, staging, rc != nullptr);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  Pipe p{b,  u,  rc, ny,  nx,  (ny - 1) / 2, (nx - 1) / 2, t,
-         (nx + TW - 1) / TW, 0, carry != 0, staging != 0};
-  const int ntiles = (ny + t - 1) / t;
-  p.segs = (ntiles + SEG - 1) / SEG;
-  int blocks = 1;
-  int err = grid_for((const void*)staged_pipe_kernel, VT, smem,
-                     (long long)p.strips * p.segs, &blocks);
+  size_t smem = 0;
+  int bands = 1, blocks = 1;
+  const int err = pipe_plan(ny, nx, t, stages, carry, staging, rc != nullptr,
+                            bulk, &smem, &bands, &blocks);
   if (err) return err;
-  staged_pipe_kernel<<<blocks, VT, smem, (cudaStream_t)stream>>>(p);
+  const int strips = (nx + TW - 1) / TW;
+  const Pipe p{b,      u,      rc,     ny,     nx,
+               (ny - 1) / 2, (nx - 1) / 2, t, strips, (ny + 1) / 2,
+               bands,  strips * bands, stages, ring_rows(t, stages, carry),
+               carry != 0, staging != 0};
+  if (bulk)
+    staged_pipe_kernel<true><<<blocks, PIPE_THREADS, smem,
+                               (cudaStream_t)stream>>>(p);
+  else
+    staged_pipe_kernel<false><<<blocks, PIPE_THREADS, smem,
+                                (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The plan mg_staged_pipe launches with these arguments (rc: an rc
+// stream): plan[0] its grid, plan[1] its bands a strip; or an error.
+int mg_staged_pipe_plan(int ny, int nx, int t, int stages, int carry,
+                        int staging, int rc, int bulk, int* plan) {
+  size_t smem = 0;
+  return pipe_plan(ny, nx, t, stages, carry, staging, rc, bulk, &smem,
+                   &plan[1], &plan[0]);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Time K18a (the blocked copy o = a u), KP2 (the same in place) and KP3's
 staged copy beside the one PyTorch call that computes the same function,
-on one card; with --ab, a parent tree against this checkout in turns.
+and KP3's visit pipeline in every mode, on one card; with --ab, a parent
+tree against this checkout in turns.
 
     python scripts/time_copies.py [--label L] [--variants] [--out DIR]
     python scripts/time_copies.py --ab [PARENT]
@@ -33,7 +34,14 @@ bit, it prints:
     kernel's device time, the gaps between launches inside a chain and
     the rate the kernels' own span gives (k = 18 less k = 2).  The
     traces go to DIR (default ``_archive/time_copies/``, which git
-    ignores).
+    ignores);
+(d) KP3's visit pipeline (``staged_visit_pipeline``) at 8191^2 in every
+    mode at t = 32, 16 and 48 (where the tree takes them), each first
+    held to its plain version bit for bit: device ms, ms a call and host
+    us a call (as in (b)), beside ``u.copy_(b)``'s device ms; where the
+    tree's wrapper takes them, the trials of its ring at those t (plain or
+    bulk stores, every stage count that fits), device ms in turns (the
+    list, then the list reversed).
 
 --variants also builds ``scripts/copy_variants.cu`` (trial designs of
 K18a and of KP3's ring, f32) and times each in turns (the list, then the
@@ -328,6 +336,64 @@ def run_variants(torch, sm, sk, plk, dev) -> dict:
     return res
 
 
+PIPE_N = 8191
+PIPE_TS = (32, 16, 48)
+
+
+def run_pipeline(torch, sm, plk, dev) -> tuple[dict, bool]:
+    """(d): the visit pipeline's modes and, in a tree with the ring's
+    options, its trials."""
+    import inspect
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b = torch.randn((PIPE_N, PIPE_N), generator=gen, device=dev)
+    ok, res = True, {"modes": {}}
+    for mode in plk.PIPE_MODES:
+        want = plk.staged_visit_pipeline_plain(b, 32, mode)
+        for t in PIPE_TS:
+            if plk.pipe_smem_bytes(t, mode) > plk.MAX_SMEM:
+                continue  # the tree takes no such t in this mode
+            got = plk.staged_visit_pipeline(b, t, mode)
+            ok &= all((g is None and w is None) or torch.equal(g, w)
+                      for g, w in zip(got, want))
+            fn = (lambda m=mode, tt=t: plk.staged_visit_pipeline(b, tt, m))
+            res["modes"][f"{mode} t={t}"] = r = {
+                "device_ms": sm.device_ms(torch, fn),
+                "ms": sm.time_ms(torch, fn), "host_us": enqueue_us(torch, fn)}
+            print(f"(d) {mode} t = {t}: device {r['device_ms']:.4f} ms, a "
+                  f"call {r['ms']:.4f} ms, host {r['host_us']:.2f} us")
+    u = torch.empty_like(b)
+    res["copy_device_ms"] = sm.device_ms(torch, lambda: u.copy_(b))
+    print(f"(d) u.copy_(b) at 8191^2: device {res['copy_device_ms']:.4f} ms")
+    if "stores" in inspect.signature(plk.staged_visit_pipeline).parameters:
+        trials = {}
+        for mode in plk.PIPE_MODES:
+            want = plk.staged_visit_pipeline_plain(b, 32, mode)
+            for t in PIPE_TS:
+                for stores in plk.PIPE_STORES:
+                    for stages in range(plk.PIPE_MIN_STAGES,
+                                        plk.PIPE_STAGES + 1):
+                        if plk.pipe_smem_bytes(t, mode, stages,
+                                               stores) > plk.MAX_SMEM:
+                            continue
+                        kw = {"stages": stages, "stores": stores}
+                        got = plk.staged_visit_pipeline(b, t, mode, **kw)
+                        ok &= all((g is None and w is None) or torch.equal(
+                            g, w) for g, w in zip(got, want))
+                        trials[f"{mode} t={t} {stores} S{stages}"] = (
+                            lambda m=mode, tt=t, k=kw:
+                            plk.staged_visit_pipeline(b, tt, m, **k))
+        times = {name: [] for name in trials}
+        for name in list(trials) + list(trials)[::-1]:
+            times[name].append(sm.device_ms(torch, trials[name]))
+        for name, ts in times.items():
+            print(f"(d) trial {name}: device {ts[0]:.4f} / {ts[1]:.4f} ms")
+        res["trials_device_ms"] = times
+    del b, u
+    torch.cuda.empty_cache()
+    return res, ok
+
+
 def run(args) -> int:
     import torch
 
@@ -457,6 +523,8 @@ def run(args) -> int:
           f"y.copy_(x) {r['copy_GBps']:.1f} GB/s; profiled: "
           f"{json.dumps(r['k18a_profiled'])} / "
           f"{json.dumps(r['copy_profiled'])}")
+    out["pipeline"], pipe_ok = run_pipeline(torch, sm, plk, dev)
+    ok &= pipe_ok
     if args.variants:
         out["variants"] = run_variants(torch, sm, sk, plk, dev)
     out["ok"] = bool(ok)

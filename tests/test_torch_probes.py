@@ -38,6 +38,7 @@ persistent compilation cache, and ``probe_mdma_vpu.py`` reads
 from __future__ import annotations
 
 import functools
+import itertools
 import importlib.util
 import sys
 from pathlib import Path
@@ -63,6 +64,7 @@ from multigrid_petsc_tpu_torch.ops.cuda import launches
 from multigrid_petsc_tpu_torch.ops.cuda import pipeline_kernel as plk
 from multigrid_petsc_tpu_torch.ops.cuda import probe_kernel as pk
 from multigrid_petsc_tpu_torch.ops.cuda import stream_kernel as sk
+from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import MAX_SMEM
 from multigrid_petsc_tpu_torch.ops.stencil import from_numpy_stencil
 from multigrid_petsc_tpu_torch.probes import PROBES
 from multigrid_petsc_tpu_torch.probes import cg_ablate as ca
@@ -266,6 +268,95 @@ def test_pipeline_plain_matches_dma_parts_variant(jp, mode):
         np.testing.assert_array_equal(rc.numpy(), b[1::2, 1::2])
 
 
+@pytest.mark.parametrize("stores", plk.PIPE_STORES)
+@pytest.mark.parametrize("mode", list(plk.PIPE_MODES))
+def test_pipe_smem_follows_the_ring_layout(mode, stores):
+    """``pipe_smem_bytes``: a ring of ``stages`` tiles (t rows below 2 H
+    carried ones, or whole windows of t + 2 H rows without the carry),
+    t staged u rows, with bulk stores t / 2 rc rows, rows of 260 f32 (132
+    for rc) and 2 barriers a stage of the most; ``pipe_stages`` the most
+    stages (3-6) that fit a block, none where 3 do not.  t = 16 and 32
+    fit every mode."""
+    carry, staging, rc = plk.PIPE_MODES[mode]
+    every = range(plk.PIPE_MIN_STAGES, plk.PIPE_STAGES + 1)
+    assert list(every) == [3, 4, 5, 6]
+    for t in (16, 32, 48, 64):
+        for stages in every:
+            ring = stages * t + 16 if carry else stages * (t + 16)
+            rows = ring + (t if staging else 0)
+            rcb = (t // 2) * 132 if rc and stores == "bulk" else 0
+            assert plk.ring_rows(t, mode, stages) == ring
+            assert plk.pipe_smem_bytes(t, mode, stages, stores) == (
+                4 * (260 * rows + rcb) + 16 * 6)
+        fits = [st for st in every
+                if plk.pipe_smem_bytes(t, mode, st, stores) <= MAX_SMEM]
+        assert plk.pipe_stages(t, mode, stores) == (max(fits) if fits
+                                                    else None)
+        if t <= 32:
+            assert fits, (mode, t)
+
+
+def test_dma_parts_cases_fit_their_blocks():
+    """Every case of the ``dma_parts`` probe has a ring in its mode (3-6
+    stages within ``MAX_SMEM``), so the wrapper takes it on the card."""
+    from multigrid_petsc_tpu_torch.probes import dma_parts
+
+    for mode, t in dma_parts.CASES:
+        stages = plk.pipe_stages(t, mode)
+        assert stages is not None and stages >= plk.PIPE_MIN_STAGES, (mode, t)
+        assert plk.pipe_smem_bytes(t, mode, stages) <= MAX_SMEM, (mode, t)
+    assert {m for m, t in dma_parts.CASES if t == 32} == set(plk.PIPE_MODES)
+    with pytest.raises(ValueError, match="tile rows must be even"):
+        plk.staged_visit_pipeline(torch.zeros(7, 7), 8, "v_full")
+    with pytest.raises(ValueError, match="stores must be one of"):
+        plk.staged_visit_pipeline(torch.zeros(7, 7), 32, "v_full",
+                                  stores="tma")
+
+
+def _brute_pipe_read(ny: int, nx: int, t: int, carry: bool,
+                     bands: int) -> int:
+    """Bytes of b the pipeline loads, walked tile by tile and row by row:
+    each column strip's row pairs cut into ``bands`` equal bands (to one
+    pair), each band into tiles of t rows from its top; a tile loads its
+    window (its rows and H above and below, inside the grid) less, with
+    the carry, the rows of the tile above's window in its band."""
+    pairs = list(range(0, ny, 2))
+    total = 0
+    for s in range(-(-nx // 256)):
+        for k in range(bands):
+            band = pairs[k * len(pairs) // bands:(k + 1) * len(pairs) // bands]
+            rows = [r + d for r in band for d in (0, 1) if r + d < ny]
+            above = set()
+            for i in range(0, len(rows), t):
+                tile = rows[i:i + t]
+                window = {r for r in range(tile[0] - plk.HALO,
+                                           tile[-1] + plk.HALO + 1)
+                          if 0 <= r < ny}
+                total += len(window - above if carry else window) * min(
+                    256, nx - 256 * s)
+                above = window
+    return 4 * total
+
+
+@pytest.mark.parametrize("ny, nx, bands", [
+    (37, 229, 1), (37, 229, 7), (40, 513, 5), (75, 600, 17),
+    (161, 300, 3), (300, 301, 33), (99, 1025, 50)])
+@pytest.mark.parametrize("mode", list(plk.PIPE_MODES))
+def test_pipe_bytes_counts_the_tiles_loads(ny, nx, bands, mode):
+    """``pipe_bytes`` (one sum a band) against a walk of every tile's
+    rows: the bytes read, halo re-reads included, and u and rc written
+    once."""
+    carry, _, rc = plk.PIPE_MODES[mode]
+    nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    for t in (16, 32, 48):
+        got = plk.pipe_bytes(ny, nx, t, mode, bands)
+        assert got["read"] == _brute_pipe_read(ny, nx, t, carry, bands)
+        assert got["written"] == 4 * (ny * nx + (nyc * nxc if rc else 0))
+        assert got["moved"] == got["read"] + got["written"]
+        assert got["bound"] == 4 * ny * nx + got["written"]
+        assert got["reread"] == got["read"] - 4 * ny * nx >= 0
+
+
 CG_KW = dict(npts=129, grids=5, levels=5, dtype="float32")
 CG_KW64 = dict(CG_KW, dtype="float64")
 
@@ -455,10 +546,12 @@ def test_probe_cpu_run_prints_its_schema(name, capsys):
 
 def test_mirrors_match_the_sources():
     """The wrappers' copies of the kernels' constants are the sources':
-    KP1's mode numbers (visit.cuh Probe5), KP3's tile columns, chunk, unit
-    and halo (pipeline.cu TW, CHUNK, SEG, HALO), the staged copy's ring
-    (STAGES, LOOKAHEAD, BLOCKS_PER_SM) and K18a's tile (stream.cu NTHREADS,
-    UNROLL)."""
+    KP1's mode numbers (visit.cuh Probe5), KP3's tile columns, chunk and
+    halo (pipeline.cu TW, CHUNK, HALO), the staged copy's ring (STAGES,
+    LOOKAHEAD, BLOCKS_PER_SM), the visit pipeline's block and ring
+    (PIPE_WARPS, PIPE_THREADS, PIPE_STAGES, PIPE_MIN_STAGES, the ring's
+    rows, the shared memory's barriers) and K18a's tile (stream.cu
+    NTHREADS, UNROLL)."""
     csrc = Path(pk.__file__).resolve().parents[2] / "csrc"
     cuh = (csrc / "visit.cuh").read_text()
     for mode, k in pk.MODES.items():
@@ -469,10 +562,15 @@ def test_mirrors_match_the_sources():
     cu = (csrc / "pipeline.cu").read_text()
     assert f"constexpr int TW = {plk.TILE_COLS};" in cu
     assert f"constexpr int CHUNK = {plk.CHUNK};" in cu
-    assert f"constexpr int SEG = {plk.SEG};" in cu
     assert f"constexpr int HALO = {plk.HALO};" in cu
-    for name in ("STAGES", "LOOKAHEAD", "BLOCKS_PER_SM"):
+    assert "constexpr int BAND_TILES = 8;" in cu
+    for name in ("STAGES", "LOOKAHEAD", "BLOCKS_PER_SM", "PIPE_WARPS",
+                 "PIPE_THREADS", "PIPE_STAGES", "PIPE_MIN_STAGES"):
         assert f"constexpr int {name} = {getattr(plk, name)};" in cu, name
+    assert plk.PIPE_THREADS == 32 * (plk.PIPE_WARPS + 1)
+    assert ("return carry ? stages * t + 2 * HALO : stages * (t + 2 * HALO);"
+            in cu)
+    assert "return 4 * (ring + up + rcb) + 16 * PIPE_STAGES;" in cu
     scu = (csrc / "stream.cu").read_text()
     assert f"constexpr int NTHREADS = {sk.THREADS};" in scu
     assert f"constexpr int UNROLL = {sk.UNROLL};" in scu
