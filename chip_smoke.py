@@ -19,8 +19,7 @@ non-zero):
      copy in place (``scale_copy_``) at 8192^2 in f32, f64 and bf16, bit
      for bit; KP3, the staged copy (``pipeline_kernel.staged_copy``, k = 1,
      2, 3) at 8191^2, 8192^2 and on an offset view, and the visit pipeline
-     in every mode, with plain and bulk stores, at every t of 16-64 it
-     takes, bit for bit on 8191^2, 8192^2, 4097^2, narrow last strips (1000
+     in every mode at every t of 16-64 it takes, bit for bit on 8191^2, 8192^2, 4097^2, narrow last strips (1000
      x 777, 45 x 259, 3 x 257), fewer rows than a window (20 x 1000) and
      row pairs the grid does not divide (37 x 229, 300 x 301, 1500 x
      1501), its device time in every mode at t = 32, 16 and 48 beside
@@ -737,8 +736,8 @@ def phase_probes(torch, dev, rec, stream):
     timed("staged_copy", "staged_copy 8192^2 k = 1",
           lambda: plk.staged_copy(x, 1), lambda: plk.staged_copy_plain(x, 1),
           8 * m * m, 0, lambda: y.copy_(x))
-    # The visit pipeline, bit for bit in every mode, both stores, every t
-    # the wrapper takes among 16-64: on 8191^2 and 8192^2, a last strip
+    # The visit pipeline, bit for bit in every mode at every t the wrapper
+    # takes among 16-64: on 8191^2 and 8192^2, a last strip
     # of 9, 3 and 1 columns, fewer rows than a window (ny < t + 2 H), and
     # row pairs that the grid does not divide (the spans differ by one).
     for shape in ((n, n), (m, m), (1000, 777), (45, 259), (20, 1000),
@@ -748,18 +747,16 @@ def phase_probes(torch, dev, rec, stream):
         for mode in plk.PIPE_MODES:
             want = tuple(o for o in plk.staged_visit_pipeline_plain(
                 bb, 32, mode) if o is not None)
-            for stores in plk.PIPE_STORES:
-                for t in (16, 32, 48, 64):
-                    if plk.pipe_stages(t, mode, stores) is None:
-                        continue
-                    got = tuple(o for o in plk.staged_visit_pipeline(
-                        bb, t, mode, stores=stores) if o is not None)
-                    for g, w in zip(got, want):
-                        assert torch.equal(g, w), (
-                            f"pipeline {shape} {mode} {stores} t = {t}: "
-                            f"not bit for bit")
-        print(f"  pipeline {shape[0]} x {shape[1]}: every mode, both "
-              f"stores, t = 16-64: bit for bit")
+            for t in (16, 32, 48, 64):
+                if plk.pipe_stages(t, mode) is None:
+                    continue
+                got = tuple(o for o in plk.staged_visit_pipeline(bb, t, mode)
+                            if o is not None)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (
+                        f"pipeline {shape} {mode} t = {t}: not bit for bit")
+        print(f"  pipeline {shape[0]} x {shape[1]}: every mode, t = 16-64: "
+              f"bit for bit")
     rec.setdefault("staged_visit_pipeline", {})["max_abs_err"] = 0.0
     bb = x[:n, :n].contiguous()
     r = rec.setdefault("staged_visit_pipeline", {})

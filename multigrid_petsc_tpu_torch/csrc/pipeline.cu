@@ -50,10 +50,11 @@
 //   row's 16-byte aligned core by one 1-D cp.async.bulk, its 0-3 values
 //   of head and tail by 4-byte cp.async copies (a row of 2^m - 1 f32
 //   values starts 16-byte aligned only every fourth row, so no 2-D tensor
-//   map spans the array; a plain load there held the producer a memory
-//   latency a value: 1.3-1.6x the time).  It completes the tile's `full`
-//   barrier with one arrive.expect_tx of the window's bytes (a warp sum)
-//   and one arrival a lane when its cp.async copies land;
+//   map spans the array; plain loads there hold the producer a memory
+//   latency a value: 1.2-1.7x the time, scripts/pipeline_trials.py).  It
+//   completes the tile's `full` barrier with one arrive.expect_tx of the
+//   window's bytes (a warp sum) and one arrival a lane when its cp.async
+//   copies land;
 // - the ring holds `stages` (3-6, the most that fit) tiles' rows; ring row
 //   v holds window row q of the tile whose window starts at virtual row
 //   vb where v = (vb + q) % nr.  A carried tile's window starts t rows
@@ -70,12 +71,12 @@
 //   floats starts 16-byte aligned, its core at the same place as in the
 //   ring), the rc gather (one aligned float2 read a value, the row's
 //   offsets once a row: no divide, no bank conflict) and the stores,
-//   either plain 16-byte stores (rc by 4-byte coalesced stores; the
-//   evict-first hint measured 1-3% slower) or, with `bulk`, bulk stores
-//   issued by one thread a row (u rows from the staging buffer or the
-//   ring, rc rows from an rc buffer), whose wait_group.read moves to the
-//   next tile, ahead of the buffers' refill and of the ring rows' release
-//   (1-5% slower: scripts/time_copies.py --ab).
+//   plain 16-byte stores (rc by 4-byte coalesced stores), which release
+//   the ring's rows as soon as they are read.  Bulk stores (one thread a
+//   row, their wait_group.read ahead of the buffers' refill and of the
+//   ring rows' release) ran 0.3-9% slower in every mode and t (PERF.md
+//   §6), and the evict-first hint on the plain stores slower too
+//   (scripts/pipeline_trials.py): neither is kept.
 //
 // The work: each column strip is cut into `bands` bands of row pairs
 // (about BAND_TILES tiles high; their count a multiple of blocks / gcd
@@ -84,13 +85,12 @@
 // round robin to the persistent blocks, each unit walked top to bottom in
 // tiles of t rows (the last shorter) with the carry.  So the blocks at
 // work at once hold neighbouring strips of the same rows, as a plain
-// copy's lines lie side by side: each strip's rows in equal spans instead
-// (a block's span down a strip) measured 1.2-1.25x the time.  Shared
+// copy's lines lie side by side (a first build that gave each block one
+// span down a strip ran slower).  Shared
 // memory: a ring of nr = stages t + 2 HALO rows of RW f32 (stages (t + 2
-// HALO) without the carry), t rows of staged u, with `bulk` t / 2 rc rows
-// of RWC = TW / 2 + 4 f32, and the barriers: v_full at t = 32 takes 216 KB
-// of the 227 KB a block may use (5 stages); the TPU's (96-256, 8192)
-// tiles do not fit.
+// HALO) without the carry), t rows of staged u and the barriers: v_full
+// at t = 32 takes 216 KB of the 227 KB a block may use (5 stages); the
+// TPU's (96-256, 8192) tiles do not fit.
 
 #include <cuda_runtime.h>
 
@@ -104,7 +104,6 @@ constexpr int LOOKAHEAD = 2;  // its bulk loads in flight
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int TW = 256;      // columns of a visit-pipeline tile
 constexpr int RW = TW + 4;   // a ring or buffer row of it (alignment slack)
-constexpr int RWC = TW / 2 + 4;  // an rc buffer row
 constexpr int HALO = 8;      // rows above and below a tile (the TPU's H)
 constexpr int PIPE_WARPS = 8;  // consumer warps of a visit-pipeline block
 constexpr int PIPE_THREADS = 288;  // and its producer warp
@@ -204,18 +203,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Order this thread's generic-proxy accesses to shared memory before the
-// bulk copies issued after the next barrier.
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// A barrier of the visit pipeline's consumer warps (the producer warp does
-// not take part).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(32 * PIPE_WARPS) : "memory");
 }
 
 // ---- staged_copy: o = u, k passes, one launch.  u and o hold n f32 and
@@ -392,25 +379,13 @@ __device__ __forceinline__ void store_row(const float* src, float* dst,
     dst[e] = src[s.pad + e];
 }
 
-// The head and tail of a row by plain stores, the core by one bulk store
-// (one thread).
-__device__ __forceinline__ void bulk_store_row(const float* src, float* dst,
-                                               const Seg& s) {
-  if (s.core > 0)
-    bulk_store(dst + s.head, src + s.pad + s.head, 4u * s.core);
-  for (int j = 0; j < s.head; ++j) dst[j] = src[s.pad + j];
-  for (int j = s.head + s.core; j < s.w; ++j) dst[j] = src[s.pad + j];
-}
-
-template <bool BULK>
 __global__ void __launch_bounds__(PIPE_THREADS)
 staged_pipe_kernel(Pipe P) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
   float* ubuf = ring + (size_t)P.nr * RW;
-  float* rcbuf = ubuf + (P.staging ? P.t * RW : 0);
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      rcbuf + (BULK && P.rc != nullptr ? (P.t / 2) * RWC : 0));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ubuf + (P.staging ? P.t * RW : 0));
   uint64_t* empty = full + PIPE_STAGES;
   if ((int)blockIdx.x >= P.units) return;
   const int S = P.stages;
@@ -450,13 +425,6 @@ staged_pipe_kernel(Pipe P) {
     auto ring_row = [&](int i) {  // tile row i
       return ring + (size_t)((c.vb + HALO + i) % P.nr) * RW;
     };
-    if (BULK) {
-      // The last tile's bulk stores have read the staging and rc buffers
-      // and, without staging, its ring rows: release those.
-      bulk_wait_read<0>();
-      consumer_sync();
-      if (!P.staging && k > 0 && lane == 0) mbar_arrive(&empty[(k - 1) % S]);
-    }
     // Reads of the ring: the staging fill, the rc gather.
     if (P.staging)
       for (int i = warp; i < c.rows; i += PIPE_WARPS) {
@@ -470,42 +438,20 @@ staged_pipe_kernel(Pipe P) {
         // b's column c0 + 2 j + 1 sits at e0 + 2 j of the ring row.
         const int e0 = (int)((gu + (2LL * i2 + 1) * P.nx) & 3) + 1;
         const long long g = gc + (long long)i2 * P.nxc;
-        if (BULK) {
-          float* rr = rcbuf + i2 * RWC + (int)(g & 3);
-          for (int j = lane; j < nJ; j += 32) rr[j] = pick(row, e0 + 2 * j);
-        } else {
-          for (int j = lane; j < nJ; j += 32)
-            P.rc[g + j] = pick(row, e0 + 2 * j);
-        }
+        for (int j = lane; j < nJ; j += 32)
+          P.rc[g + j] = pick(row, e0 + 2 * j);
       }
     __syncwarp();
     if (P.staging && lane == 0) mbar_arrive(&empty[s]);
-    if (BULK) {
-      // One thread a row issues its bulk store: u row i thread i, rc row i2
-      // the thread 32 PIPE_WARPS - 1 - i2.
-      fence_async();
-      consumer_sync();
-      const int i = threadIdx.x, i2 = 32 * PIPE_WARPS - 1 - threadIdx.x;
-      if (i < c.rows)
-        bulk_store_row(P.staging ? ubuf + i * RW : ring_row(i),
-                       P.u + gu + (long long)i * P.nx,
-                       seg_of(gu + (long long)i * P.nx, w));
-      if (P.rc != nullptr && i2 < nI)
-        bulk_store_row(rcbuf + i2 * RWC, P.rc + gc + (long long)i2 * P.nxc,
-                       seg_of(gc + (long long)i2 * P.nxc, nJ));
-      bulk_commit();
-    } else {
-      for (int i = warp; i < c.rows; i += PIPE_WARPS) {
-        const long long g = gu + (long long)i * P.nx;
-        store_row(P.staging ? ubuf + i * RW : ring_row(i), P.u + g,
-                  seg_of(g, w), lane);
-      }
-      __syncwarp();
-      if (!P.staging && lane == 0) mbar_arrive(&empty[s]);
+    for (int i = warp; i < c.rows; i += PIPE_WARPS) {
+      const long long g = gu + (long long)i * P.nx;
+      store_row(P.staging ? ubuf + i * RW : ring_row(i), P.u + g,
+                seg_of(g, w), lane);
     }
-    if (!next_tile(P, c)) break;
+    __syncwarp();
+    if (!P.staging && lane == 0) mbar_arrive(&empty[s]);
+    if (!next_tile(P, c)) return;
   }
-  if (BULK) bulk_wait_all();
 }
 
 // Rows of the visit pipeline's ring with tile rows t.
@@ -514,13 +460,11 @@ int ring_rows(int t, int stages, int carry) {
 }
 
 // The shared memory of a visit-pipeline block (staging: a u staging
-// buffer; rc with bulk stores: an rc buffer).
-size_t pipe_smem(int t, int stages, int carry, int staging, int rc,
-                 int bulk) {
+// buffer).
+size_t pipe_smem(int t, int stages, int carry, int staging) {
   const size_t ring = (size_t)ring_rows(t, stages, carry) * RW;
   const size_t up = staging ? (size_t)t * RW : 0;
-  const size_t rcb = rc && bulk ? (size_t)(t / 2) * RWC : 0;
-  return 4 * (ring + up + rcb) + 16 * PIPE_STAGES;  // + full, empty
+  return 4 * (ring + up) + 16 * PIPE_STAGES;  // + full, empty
 }
 
 // A grid of whole SMs' worth of resident blocks (at most `per_sm` an SM
@@ -568,18 +512,17 @@ int bands_for(int ny, int strips, int t, int blocks) {
 // its bands and its grid (whole SMs of resident blocks, no more than the
 // units).
 int pipe_plan(int ny, int nx, int t, int stages, int carry, int staging,
-              int rc, int bulk, size_t* smem, int* bands, int* blocks) {
+              size_t* smem, int* bands, int* blocks) {
   const int strips = (nx + TW - 1) / TW;
   if (ny < 3 || nx < 3 || t < 2 * HALO || (t & 1) ||
       stages < PIPE_MIN_STAGES || stages > PIPE_STAGES ||
       (long long)strips * ((ny + 1) / 2) > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  *smem = pipe_smem(t, stages, carry, staging, rc, bulk);
+  *smem = pipe_smem(t, stages, carry, staging);
   if (*smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const void* kern = bulk ? (const void*)staged_pipe_kernel<true>
-                          : (const void*)staged_pipe_kernel<false>;
   int resident = 0;
-  int err = grid_for(kern, PIPE_THREADS, *smem, INT32_MAX, &resident);
+  int err = grid_for((const void*)staged_pipe_kernel, PIPE_THREADS, *smem,
+                     INT32_MAX, &resident);
   if (err) return err;
   *bands = bands_for(ny, strips, t, resident);
   *blocks = min(resident, strips * *bands);
@@ -616,40 +559,35 @@ int mg_staged_copy(const float* u, float* o, long long n, int k,
 // / 2); tiles of t rows (even, >= 2 HALO) x 256 columns with halos of HALO
 // rows through a ring of `stages` tiles; carry: the halo rows kept from
 // the tile above; staging: u written from a staging buffer (else from the
-// ring); bulk: bulk stores (else plain ones).
+// ring).
 int mg_staged_pipe(const float* b, float* u, float* rc, int ny, int nx,
-                   int t, int stages, int carry, int staging, int bulk,
-                   void* stream) {
+                   int t, int stages, int carry, int staging, void* stream) {
   if ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(u) |
        reinterpret_cast<uintptr_t>(rc)) &
       15)
     return (int)cudaErrorInvalidValue;
   size_t smem = 0;
   int bands = 1, blocks = 1;
-  const int err = pipe_plan(ny, nx, t, stages, carry, staging, rc != nullptr,
-                            bulk, &smem, &bands, &blocks);
+  const int err = pipe_plan(ny, nx, t, stages, carry, staging, &smem, &bands,
+                            &blocks);
   if (err) return err;
   const int strips = (nx + TW - 1) / TW;
   const Pipe p{b,      u,      rc,     ny,     nx,
                (ny - 1) / 2, (nx - 1) / 2, t, strips, (ny + 1) / 2,
                bands,  strips * bands, stages, ring_rows(t, stages, carry),
                carry != 0, staging != 0};
-  if (bulk)
-    staged_pipe_kernel<true><<<blocks, PIPE_THREADS, smem,
-                               (cudaStream_t)stream>>>(p);
-  else
-    staged_pipe_kernel<false><<<blocks, PIPE_THREADS, smem,
-                                (cudaStream_t)stream>>>(p);
+  staged_pipe_kernel<<<blocks, PIPE_THREADS, smem, (cudaStream_t)stream>>>(
+      p);
   return (int)cudaGetLastError();
 }
 
-// The plan mg_staged_pipe launches with these arguments (rc: an rc
-// stream): plan[0] its grid, plan[1] its bands a strip; or an error.
+// The plan mg_staged_pipe launches with these arguments: plan[0] its
+// grid, plan[1] its bands a strip; or an error.
 int mg_staged_pipe_plan(int ny, int nx, int t, int stages, int carry,
-                        int staging, int rc, int bulk, int* plan) {
+                        int staging, int* plan) {
   size_t smem = 0;
-  return pipe_plan(ny, nx, t, stages, carry, staging, rc, bulk, &smem,
-                   &plan[1], &plan[0]);
+  return pipe_plan(ny, nx, t, stages, carry, staging, &smem, &plan[1],
+                   &plan[0]);
 }
 
 }  // extern "C"

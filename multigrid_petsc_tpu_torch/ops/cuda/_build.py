@@ -87,8 +87,8 @@ _SIGNATURES = {
     # copy pipeline (csrc/pipeline.cu).
     "mg_visit_probe": [_P] * 5 + [_P] * 3 + [_I, _I, _P, _I, _I, _P],
     "mg_staged_copy": [_P, _P, ctypes.c_longlong, _I, _P],
-    "mg_staged_pipe": [_P] * 3 + [_I] * 7 + [_P],
-    "mg_staged_pipe_plan": [_I] * 8 + [_P],
+    "mg_staged_pipe": [_P] * 3 + [_I] * 6 + [_P],
+    "mg_staged_pipe_plan": [_I] * 6 + [_P],
     # K18b-W, the halo windows, and K18b-R / K18b-P, the x-transfer passes
     # on a resident slab (csrc/probe_xfer.cu).
     "mg_halo_windows": [_P, ctypes.c_longlong] + [_I] * 6 + [_P, _P, _P],

@@ -48,6 +48,7 @@ falling back, and counts each launch as ``staged_copy`` or
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -70,10 +71,6 @@ PIPE_WARPS = 8  # consumer warps of a pipeline block (pipeline.cu PIPE_WARPS)
 PIPE_THREADS = 288  # and its producer warp (pipeline.cu PIPE_THREADS)
 PIPE_STAGES = 6  # most tiles of its ring (pipeline.cu PIPE_STAGES)
 PIPE_MIN_STAGES = 3  # fewest: two loads in flight (PIPE_MIN_STAGES)
-# The pipeline's stores: plain 16-byte stores, or bulk stores from shared
-# memory (one thread a row; 1-5% slower, scripts/time_copies.py --ab).
-PIPE_STORES = ("plain", "bulk")
-STORES = "plain"
 # mode: (carry the halo rows, stage u, write rc)
 PIPE_MODES = {"v_full": (True, True, True), "v_norc": (True, True, False),
               "v_nocarry": (False, True, True),
@@ -119,27 +116,26 @@ def ring_rows(t: int, mode: str, stages: int) -> int:
     return stages * t + 2 * HALO if carry else stages * (t + 2 * HALO)
 
 
-def pipe_smem_bytes(t: int, mode: str, stages: int | None = None,
-                    stores: str = STORES) -> int:
+def pipe_smem_bytes(t: int, mode: str, stages: int | None = None) -> int:
     """Shared memory of a visit-pipeline block (``csrc/pipeline.cu``
-    ``pipe_smem``): the ring, the staged u rows, with bulk stores the rc
-    rows, and the ring's full and empty barriers.  ``stages``: the
-    wrapper's choice (``pipe_stages``), or its fewest where none fits."""
-    _, staging, rc = PIPE_MODES[mode]
+    ``pipe_smem``): the ring, the staged u rows and the ring's full and
+    empty barriers.  ``stages``: the wrapper's choice (``pipe_stages``),
+    or its fewest where none fits."""
+    staging = PIPE_MODES[mode][1]
     if stages is None:
-        stages = pipe_stages(t, mode, stores) or PIPE_MIN_STAGES
-    rw, rwc = TILE_COLS + 4, TILE_COLS // 2 + 4
-    return 4 * (ring_rows(t, mode, stages) * rw + (t * rw if staging else 0)
-                + ((t // 2) * rwc if rc and stores == "bulk" else 0)
-                ) + 16 * PIPE_STAGES
+        stages = pipe_stages(t, mode) or PIPE_MIN_STAGES
+    rw = TILE_COLS + 4
+    return 4 * rw * (ring_rows(t, mode, stages) + (t if staging else 0)) + (
+        16 * PIPE_STAGES)
 
 
-def pipe_stages(t: int, mode: str, stores: str = STORES) -> int | None:
+@functools.lru_cache(maxsize=None)
+def pipe_stages(t: int, mode: str) -> int | None:
     """The ring's stages at tile rows t: the most (up to ``PIPE_STAGES``)
     whose block fits ``MAX_SMEM``; None where not even
     ``PIPE_MIN_STAGES`` fit (the wrapper refuses such a t)."""
     for stages in range(PIPE_STAGES, PIPE_MIN_STAGES - 1, -1):
-        if pipe_smem_bytes(t, mode, stages, stores) <= MAX_SMEM:
+        if pipe_smem_bytes(t, mode, stages) <= MAX_SMEM:
             return stages
     return None
 
@@ -169,17 +165,15 @@ def pipe_bytes(ny: int, nx: int, t: int, mode: str, bands: int) -> dict:
             "bound": 4 * (ny * nx + out), "reread": 4 * (read - ny * nx)}
 
 
-def pipe_plan(shape, t: int, mode: str, stages: int | None = None,
-              stores: str = STORES) -> tuple[int, int]:
+def pipe_plan(shape, t: int, mode: str) -> tuple[int, int]:
     """(blocks, bands): the grid the pipeline launches on this card for a
     grid of ``shape`` and the bands of each column strip
     (``csrc/pipeline.cu`` ``mg_staged_pipe_plan``)."""
-    carry, staging, rc = PIPE_MODES[mode]
-    stages = pipe_stages(t, mode, stores) if stages is None else stages
+    carry, staging, _ = PIPE_MODES[mode]
     plan = (ctypes.c_int * 2)()
     err = load_library().mg_staged_pipe_plan(
-        shape[0], shape[1], t, stages or 0, int(carry), int(staging),
-        int(rc), int(stores == "bulk"), ctypes.addressof(plan))
+        shape[0], shape[1], t, pipe_stages(t, mode) or 0, int(carry),
+        int(staging), ctypes.addressof(plan))
     check(err, f"staged_visit_pipeline plan ({mode}, t = {t})")
     return plan[0], plan[1]
 
@@ -192,30 +186,24 @@ def staged_visit_pipeline_plain(b: torch.Tensor, t: int, mode: str):
     return b.clone(), rc
 
 
-def staged_visit_pipeline(b: torch.Tensor, t: int, mode: str, *,
-                          stages: int | None = None, stores: str = STORES):
+def staged_visit_pipeline(b: torch.Tensor, t: int, mode: str):
     """(u, rc) of the compute-free visit pipeline in mode ``mode`` with
     tiles of t rows (even, at least 2 H); on the card through a ring of
-    ``stages`` tiles (default ``pipe_stages``) with ``stores`` stores."""
+    ``pipe_stages(t, mode)`` tiles."""
     if mode not in PIPE_MODES:
         raise ValueError(f"mode must be one of {tuple(PIPE_MODES)}, "
                          f"got {mode!r}")
     if t < 2 * HALO or t % 2:
         raise ValueError(f"tile rows must be even and >= {2 * HALO}, "
                          f"got {t}")
-    if stores not in PIPE_STORES:
-        raise ValueError(f"stores must be one of {PIPE_STORES}, got "
-                         f"{stores!r}")
     if _on_cpu(b):
         return staged_visit_pipeline_plain(b, t, mode)
     carry, staging, rc_on = PIPE_MODES[mode]
-    stages = pipe_stages(t, mode, stores) if stages is None else stages
-    smem = pipe_smem_bytes(t, mode, stages, stores)
-    if stages is None or not PIPE_MIN_STAGES <= stages <= PIPE_STAGES or (
-            smem > MAX_SMEM):
-        raise ValueError(f"t = {t} in {mode} with {stages} stages takes "
-                         f"{smem} B of shared memory (at most {MAX_SMEM}, "
-                         f"{PIPE_MIN_STAGES}-{PIPE_STAGES} stages)")
+    stages = pipe_stages(t, mode)
+    if stages is None:
+        raise ValueError(f"t = {t} in {mode} takes {pipe_smem_bytes(t, mode)}"
+                         f" B of shared memory with {PIPE_MIN_STAGES} stages,"
+                         f" more than {MAX_SMEM}")
     if b.dim() != 2 or min(b.shape) < 3:
         raise ValueError(f"b must be 2-D, at least 3 x 3, got "
                          f"{tuple(b.shape)}")
@@ -228,8 +216,7 @@ def staged_visit_pipeline(b: torch.Tensor, t: int, mode: str, *,
                       device=b.device) if rc_on else None)
     err = load_library().mg_staged_pipe(
         b.data_ptr(), u.data_ptr(), None if rc is None else rc.data_ptr(),
-        ny, nx, t, stages, int(carry), int(staging), int(stores == "bulk"),
-        _stream(b.device))
+        ny, nx, t, stages, int(carry), int(staging), _stream(b.device))
     check(err, f"staged_visit_pipeline launch ({mode}, t = {t})")
     count_launch("staged_visit_pipeline", b.dtype)
     return u, rc

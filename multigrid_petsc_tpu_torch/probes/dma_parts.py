@@ -47,7 +47,7 @@ def run(device="cuda", n: int | None = None, quick: bool = False):
            "K18a's rate) | bytes moved on the card's plan (re-read) | "
            "shared memory a block, ring stages",
            n=n, halo=pk.HALO, tile_cols=pk.TILE_COLS, warps=pk.PIPE_WARPS,
-           stores=pk.STORES, k1=k1, k2=k2, pairs=pairs)
+           k1=k1, k2=k2, pairs=pairs)
     gen = torch.Generator(device=device).manual_seed(5)
     b = torch.randn((n, n), generator=gen, device=device)
     rows = []

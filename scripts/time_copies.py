@@ -38,10 +38,7 @@ bit, it prints:
 (d) KP3's visit pipeline (``staged_visit_pipeline``) at 8191^2 in every
     mode at t = 32, 16 and 48 (where the tree takes them), each first
     held to its plain version bit for bit: device ms, ms a call and host
-    us a call (as in (b)), beside ``u.copy_(b)``'s device ms; where the
-    tree's wrapper takes them, the trials of its ring at those t (plain or
-    bulk stores, every stage count that fits), device ms in turns (the
-    list, then the list reversed).
+    us a call (as in (b)), beside ``u.copy_(b)``'s device ms.
 
 --variants also builds ``scripts/copy_variants.cu`` (trial designs of
 K18a and of KP3's ring, f32) and times each in turns (the list, then the
@@ -341,10 +338,7 @@ PIPE_TS = (32, 16, 48)
 
 
 def run_pipeline(torch, sm, plk, dev) -> tuple[dict, bool]:
-    """(d): the visit pipeline's modes and, in a tree with the ring's
-    options, its trials."""
-    import inspect
-
+    """(d): the visit pipeline in every mode at the tile rows PIPE_TS."""
     gen = torch.Generator(device=dev).manual_seed(24)
     b = torch.randn((PIPE_N, PIPE_N), generator=gen, device=dev)
     ok, res = True, {"modes": {}}
@@ -365,30 +359,6 @@ def run_pipeline(torch, sm, plk, dev) -> tuple[dict, bool]:
     u = torch.empty_like(b)
     res["copy_device_ms"] = sm.device_ms(torch, lambda: u.copy_(b))
     print(f"(d) u.copy_(b) at 8191^2: device {res['copy_device_ms']:.4f} ms")
-    if "stores" in inspect.signature(plk.staged_visit_pipeline).parameters:
-        trials = {}
-        for mode in plk.PIPE_MODES:
-            want = plk.staged_visit_pipeline_plain(b, 32, mode)
-            for t in PIPE_TS:
-                for stores in plk.PIPE_STORES:
-                    for stages in range(plk.PIPE_MIN_STAGES,
-                                        plk.PIPE_STAGES + 1):
-                        if plk.pipe_smem_bytes(t, mode, stages,
-                                               stores) > plk.MAX_SMEM:
-                            continue
-                        kw = {"stages": stages, "stores": stores}
-                        got = plk.staged_visit_pipeline(b, t, mode, **kw)
-                        ok &= all((g is None and w is None) or torch.equal(
-                            g, w) for g, w in zip(got, want))
-                        trials[f"{mode} t={t} {stores} S{stages}"] = (
-                            lambda m=mode, tt=t, k=kw:
-                            plk.staged_visit_pipeline(b, tt, m, **k))
-        times = {name: [] for name in trials}
-        for name in list(trials) + list(trials)[::-1]:
-            times[name].append(sm.device_ms(torch, trials[name]))
-        for name, ts in times.items():
-            print(f"(d) trial {name}: device {ts[0]:.4f} / {ts[1]:.4f} ms")
-        res["trials_device_ms"] = times
     del b, u
     torch.cuda.empty_cache()
     return res, ok

@@ -268,37 +268,33 @@ def test_pipeline_plain_matches_dma_parts_variant(jp, mode):
         np.testing.assert_array_equal(rc.numpy(), b[1::2, 1::2])
 
 
-@pytest.mark.parametrize("stores", plk.PIPE_STORES)
 @pytest.mark.parametrize("mode", list(plk.PIPE_MODES))
-def test_pipe_smem_follows_the_ring_layout(mode, stores):
+def test_pipe_smem_follows_the_ring_layout(mode):
     """``pipe_smem_bytes``: a ring of ``stages`` tiles (t rows below 2 H
     carried ones, or whole windows of t + 2 H rows without the carry),
-    t staged u rows, with bulk stores t / 2 rc rows, rows of 260 f32 (132
-    for rc) and 2 barriers a stage of the most; ``pipe_stages`` the most
-    stages (3-6) that fit a block, none where 3 do not.  t = 16 and 32
-    fit every mode."""
-    carry, staging, rc = plk.PIPE_MODES[mode]
+    t staged u rows, rows of 260 f32, and 2 barriers a stage of the most;
+    ``pipe_stages`` the most stages (3-6) that fit a block, none where 3
+    do not.  t = 16 and 32 fit every mode."""
+    carry, staging, _ = plk.PIPE_MODES[mode]
     every = range(plk.PIPE_MIN_STAGES, plk.PIPE_STAGES + 1)
     assert list(every) == [3, 4, 5, 6]
     for t in (16, 32, 48, 64):
         for stages in every:
             ring = stages * t + 16 if carry else stages * (t + 16)
-            rows = ring + (t if staging else 0)
-            rcb = (t // 2) * 132 if rc and stores == "bulk" else 0
             assert plk.ring_rows(t, mode, stages) == ring
-            assert plk.pipe_smem_bytes(t, mode, stages, stores) == (
-                4 * (260 * rows + rcb) + 16 * 6)
+            assert plk.pipe_smem_bytes(t, mode, stages) == (
+                4 * 260 * (ring + (t if staging else 0)) + 16 * 6)
         fits = [st for st in every
-                if plk.pipe_smem_bytes(t, mode, st, stores) <= MAX_SMEM]
-        assert plk.pipe_stages(t, mode, stores) == (max(fits) if fits
-                                                    else None)
+                if plk.pipe_smem_bytes(t, mode, st) <= MAX_SMEM]
+        assert plk.pipe_stages(t, mode) == (max(fits) if fits else None)
         if t <= 32:
             assert fits, (mode, t)
 
 
 def test_dma_parts_cases_fit_their_blocks():
     """Every case of the ``dma_parts`` probe has a ring in its mode (3-6
-    stages within ``MAX_SMEM``), so the wrapper takes it on the card."""
+    stages within ``MAX_SMEM``), so the wrapper takes it on the card; t
+    under 2 H, and a t that fits no ring, are refused."""
     from multigrid_petsc_tpu_torch.probes import dma_parts
 
     for mode, t in dma_parts.CASES:
@@ -308,9 +304,8 @@ def test_dma_parts_cases_fit_their_blocks():
     assert {m for m, t in dma_parts.CASES if t == 32} == set(plk.PIPE_MODES)
     with pytest.raises(ValueError, match="tile rows must be even"):
         plk.staged_visit_pipeline(torch.zeros(7, 7), 8, "v_full")
-    with pytest.raises(ValueError, match="stores must be one of"):
-        plk.staged_visit_pipeline(torch.zeros(7, 7), 32, "v_full",
-                                  stores="tma")
+    assert plk.pipe_stages(64, "v_full") is None
+    assert plk.pipe_smem_bytes(64, "v_full") > MAX_SMEM
 
 
 def _brute_pipe_read(ny: int, nx: int, t: int, carry: bool,
@@ -570,7 +565,7 @@ def test_mirrors_match_the_sources():
     assert plk.PIPE_THREADS == 32 * (plk.PIPE_WARPS + 1)
     assert ("return carry ? stages * t + 2 * HALO : stages * (t + 2 * HALO);"
             in cu)
-    assert "return 4 * (ring + up + rcb) + 16 * PIPE_STAGES;" in cu
+    assert "return 4 * (ring + up) + 16 * PIPE_STAGES;" in cu
     scu = (csrc / "stream.cu").read_text()
     assert f"constexpr int NTHREADS = {sk.THREADS};" in scu
     assert f"constexpr int UNROLL = {sk.UNROLL};" in scu
