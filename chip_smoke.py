@@ -761,15 +761,17 @@ def phase_probes(torch, dev, rec, stream):
     bb = x[:n, :n].contiguous()
     r = rec.setdefault("staged_visit_pipeline", {})
     yn = torch.empty_like(bb)
+    copy_ms = time_ms(torch, lambda: yn.copy_(bb))
     copy_dms = device_ms(torch, lambda: yn.copy_(bb))
-    print(f"  y.copy_(x) at 8191^2: device {copy_dms:.4f} ms")
+    print(f"  y.copy_(x) at 8191^2: {copy_ms:.4f} ms a call, device "
+          f"{copy_dms:.4f} ms")
     modes = {}
     for mode in plk.PIPE_MODES:
         rc_on = plk.PIPE_MODES[mode][2]
         nb = 4 * (2 * n * n + (nyc * nyc if rc_on else 0))
         modes[mode] = {"bytes": nb}
-        if not rc_on:
-            modes[mode]["library_device_ms"] = copy_dms
+        if not rc_on:  # u = b alone: one PyTorch call computes it
+            modes[mode].update(library_ms=copy_ms, library_device_ms=copy_dms)
         for t in (32, 16, 48):
             if plk.pipe_stages(t, mode) is None:
                 continue

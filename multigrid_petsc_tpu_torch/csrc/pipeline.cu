@@ -74,9 +74,9 @@
 //   plain 16-byte stores (rc by 4-byte coalesced stores), which release
 //   the ring's rows as soon as they are read.  Bulk stores (one thread a
 //   row, their wait_group.read ahead of the buffers' refill and of the
-//   ring rows' release) ran 0.3-9% slower in every mode and t (PERF.md
-//   §6), and the evict-first hint on the plain stores slower too
-//   (scripts/pipeline_trials.py): neither is kept.
+//   ring rows' release) ran up to 19% slower (median 4%; a tie only in
+//   v_bare at t = 16; PERF.md §6), and the evict-first hint on the plain
+//   stores 0.5-3% slower (scripts/pipeline_trials.py): neither is kept.
 //
 // The work: each column strip is cut into `bands` bands of row pairs
 // (about BAND_TILES tiles high; their count a multiple of blocks / gcd
