@@ -30,8 +30,11 @@ non-zero):
      (160, 52, 5, 2), (96, 90, 5, 5) (g past cdiv(n, stride)) and on an
      offset view, bit for bit; K18b-R (``xfer_restrict``) in every mode on
      the (48, 8192) slab and K18b-P (``xfer_prolong``) on (57, 4096), G =
-     86, bit for bit or within TOL_XFER, with device times beside the
-     shared-memory floor; then the probes' path (``python -m
+     86, bit for bit, with device times at G = 86 and G = 1 and the time a
+     pass beside the bound (``xfer_bound``) and the design's shared-memory
+     bytes, and bit for bit on the edge cases (the smallest width, one
+     row; 5 and 57 rows; G = 1 and G = MAX_PASSES on a narrow slab; an
+     offset view); then the probes' path (``python -m
      multigrid_petsc_tpu_torch.probes <name> --quick`` for all eight at
      full size, in this process) with the launch counts from 0;
   2. every 5-point kernel against its plain PyTorch version on the card,
@@ -251,10 +254,6 @@ import time
 T_START = time.perf_counter()  # the process's start, for its seconds
 TOL_ARRAY = 1e-5  # max|kernel - plain| <= TOL_ARRAY * max|plain|
 TOL_DOT = 1e-4    # relative, on each inner product
-# K18b-R / K18b-P round each product and sum on their own, as their plain
-# versions do; where the two still differ, max|kernel - plain| <=
-# TOL_XFER * max|plain|.
-TOL_XFER = 1e-6
 # K15 solves each line by Thomas's recurrence cut into 32-row segments,
 # with f64-made factors, its plain version by f32 parallel cyclic
 # reduction: they differ by solve rounding, not by arithmetic order alone.
@@ -638,7 +637,10 @@ def phase_probes(torch, dev, rec, stream):
     rate = stream["bytes_per_s"]
     gen = torch.Generator(device=dev).manual_seed(2121)
 
-    def timed(key, label, fn, plain, nbytes, flops, library=None):
+    def timed(key, label, fn, plain, nbytes, flops, library=None,
+              bound=None):
+        """``bound``: (ms, what binds it) where the kernel's yardstick is
+        not its HBM bytes and F32_PEAK operations (K18b-R / K18b-P)."""
         r = rec.setdefault(key, {})
         ms, pms = time_ms(torch, fn), time_ms(torch, plain)
         lms = None if library is None else time_ms(torch, library)
@@ -646,14 +648,16 @@ def phase_probes(torch, dev, rec, stream):
         dms = device_ms(torch, fn)
         keep_time(r, ms, pms, nbytes, flops, lms, ldms)
         r["device_ms"] = dms
-        bound = 1e3 * max(nbytes / HBM_PEAK, flops / F32_PEAK)
+        bms, by = bound or (1e3 * max(nbytes / HBM_PEAK, flops / F32_PEAK),
+                            "")
         share = 1e5 * nbytes / dms / rate
         print(f"  {label}: kernel {ms:.4f} ms a call, device {dms:.4f} ms "
               f"({nbytes / dms / 1e6:.1f} GB/s, {share:.1f}% of K18a's "
               f"{rate / 1e9:.1f} GB/s); plain {pms:.4f} ms"
               + ("" if lms is None else f"; library {lms:.4f} ms a call, "
                  f"device {ldms:.4f} ms")
-              + f"; bound {bound:.4f} ms ({100 * bound / dms:.1f}% device)")
+              + f"; bound {bms:.4f} ms{f' ({by})' if by else ''} "
+              f"({100 * bms / dms:.1f}% device)")
 
     def exact(key, label, got, want):
         r = rec.setdefault(key, {})
@@ -823,9 +827,13 @@ def phase_probes(torch, dev, rec, stream):
 def phase_probes_xfer(torch, dev, rec, timed):
     """1b (K18b part 2): K18b-W, the halo windows, at 8191^2 on four
     (stride, g, top, bot) cases and an offset view, bit for bit; K18b-R in
-    every mode and K18b-P at the transpose probe's shapes, bit for bit or
-    within TOL_XFER of max|plain|; device times beside the bounds, K18a's
-    rate and the shared-memory floor.  ``timed``: phase 1b's timer."""
+    every mode and K18b-P at the transpose probe's shapes, bit for bit,
+    device times at G = 86 and G = 1 and the time a pass, (t86 - t1) / 85,
+    which leaves out each launch's fixed cost (its fill, block start and
+    the launch gap), beside the bound (``xfer_bound``: the JAX function's
+    operations or its slab's bytes once a pass, at 128 a clock an SM) and
+    the bytes the design reads from shared memory; then every mode bit for
+    bit on the edge cases.  ``timed``: phase 1b's timer."""
     from multigrid_petsc_tpu_torch.ops.cuda import xfer_probe_kernel as xk
     from multigrid_petsc_tpu_torch.probes import smem_rate
     from multigrid_petsc_tpu_torch.probes import transpose as tp
@@ -854,44 +862,78 @@ def phase_probes_xfer(torch, dev, rec, timed):
           xk.windows_bytes(n, n, *case), 0)
     del flat, x, got, want
     # K18b-R and K18b-P: the probe's slabs, G = 86 passes.
-    peak = smem_rate(dev)
+    rate = smem_rate(dev)
     x = torch.randn((tp.TH, tp.NXP), generator=gen, device=dev)
     e = torch.randn((tp.T2 // 2 + 1, tp.NXP // 2), generator=gen,
                     device=dev)
     print(f"K18b-R / K18b-P x-transfer passes, ({tp.TH}, {tp.NXP}) and "
-          f"{tuple(e.shape)}, G = {tp.G}; shared memory "
-          f"{peak / 1e12:.2f} TB/s (nvidia-smi clocks.max.sm)")
-    cases = [("xfer_restrict", m, x,
-              lambda m=m: xk.xfer_restrict(x, m, tp.G),
-              lambda m=m: xk.xfer_restrict_plain(x, m, tp.G))
-             for m in tp.MODES]
-    cases.append(("xfer_prolong", "prolong", e,
-                  lambda: xk.xfer_prolong(e, tp.G),
-                  lambda: xk.xfer_prolong_plain(e, tp.G)))
-    for key, mode, inp, fn, plain in cases:
+          f"{tuple(e.shape)}, G = {tp.G}; bound at {rate / 1e12:.2f} T "
+          f"instructions or shared-memory bytes a second (128 a clock an "
+          f"SM at nvidia-smi clocks.max.sm)")
+
+    def call(inp, mode, G):
+        return (xk.xfer_prolong(inp, G) if mode == "prolong"
+                else xk.xfer_restrict(inp, mode, G))
+
+    def plain_call(inp, mode, G):
+        return (xk.xfer_prolong_plain(inp, G) if mode == "prolong"
+                else xk.xfer_restrict_plain(inp, mode, G))
+
+    for mode in tp.MODES + ("prolong",):
+        key = "xfer_prolong" if mode == "prolong" else "xfer_restrict"
+        inp = e if mode == "prolong" else x
         r = rec.setdefault(key, {})
-        got, want = fn(), plain()
-        if torch.equal(got, want):
-            print(f"  {mode}: bit for bit")
-            r.setdefault("max_abs_err", 0.0)
-        else:
-            compare(torch, mode, got, want, r, tol=TOL_XFER)
-        r.setdefault("bit_for_bit", {})[mode] = torch.equal(got, want)
+        got, want = call(inp, mode, tp.G), plain_call(inp, mode, tp.G)
+        err = float((got - want).abs().max())
+        assert torch.equal(got, want), f"{mode}: not bit for bit ({err:.3e})"
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        b = xk.xfer_bound(mode, inp.shape[0], tp.NXP, tp.G, rate)
         smem = xk.smem_read_bytes(mode, inp.shape[0], tp.NXP, tp.G)
         hbm = 4 * (inp.numel() + got.numel())
-        ops = int(tp.G * got.numel() * xk.OPS_PER_OUTPUT[mode])
-        dms = device_ms(torch, fn)
-        floor = 1e3 * smem / peak
-        bound = 1e3 * max(hbm / HBM_PEAK, ops / F32_PEAK)
+        dms = device_ms(torch, lambda: call(inp, mode, tp.G))
+        dms1 = device_ms(torch, lambda: call(inp, mode, 1))
+        per_pass = (dms - dms1) / (tp.G - 1)
         r.setdefault("modes", {})[mode] = {
-            "device_ms": dms, "smem_bytes": smem, "smem_floor_ms": floor}
-        print(f"  {mode}: device {dms:.4f} ms; shared memory {smem / 1e6:.1f}"
-              f" MB, floor {floor:.4f} ms ({100 * floor / dms:.1f}% of the "
-              f"device time); bound {bound:.4f} ms ({hbm} B, {ops} "
-              f"operations)")
+            "device_ms": dms, "device_ms_g1": dms1, "pass_ms": per_pass,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "bound_ops": b["ops"], "bound_bytes": b["bytes"],
+            "smem_bytes": smem}
+        print(f"  {mode}: bit for bit; device {dms:.4f} ms at G = {tp.G}, "
+              f"{dms1:.4f} at G = 1, {1e3 * per_pass:.3f} us a pass; bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['ops']} "
+              f"operations {b['ops_ms']:.4f} ms, {b['bytes'] / 1e6:.1f} MB "
+              f"{b['smem_ms']:.4f} ms; {100 * b['bound_ms'] / dms:.1f}% of "
+              f"the device time, the passes alone "
+              f"{100 * b['bound_ms'] / ((tp.G - 1) * per_pass):.1f}% at G - 1"
+              f"); the design reads {smem / 1e6:.1f} MB of shared memory")
         if mode in ("full", "prolong"):  # the production transfers
-            timed(key, f"{key} {mode}", fn, plain, hbm, ops)
-            r["smem_floor_ms"] = floor
+            timed(key, f"{key} {mode}", lambda: call(inp, mode, tp.G),
+                  lambda: plain_call(inp, mode, tp.G), hbm, b["ops"],
+                  bound=(b["bound_ms"], b["bound_by"]))
+            r["bound_ms"], r["bound_by"] = b["bound_ms"], b["bound_by"]
+    del x, e, got, want
+    # The edge cases, each mode bit for bit: (what, rows, fine width, G,
+    # offset of the slab in its storage: 1 is not 16-byte aligned).
+    narrow = xk.XFER_UNIT
+    edges = [("the smallest width, one row", 1, narrow, tp.G, 0),
+             ("5 rows", 5, tp.NXP, tp.G, 0),
+             ("57 rows", 57, tp.NXP, tp.G, 0),
+             ("G = 1, narrow", 8, narrow, 1, 0),
+             (f"G = {xk.MAX_PASSES}, narrow", 3, narrow, xk.MAX_PASSES, 0),
+             ("an offset view", 5, 2 * narrow, 7, 1)]
+    for what, rows, nxp, G, off in edges:
+        ok = []
+        for mode in tp.MODES + ("prolong",):
+            cols = nxp // 2 if mode == "prolong" else nxp
+            flat = torch.randn(rows * cols + off, generator=gen, device=dev)
+            inp = flat[off:].view(rows, cols)
+            got, want = call(inp, mode, G), plain_call(inp, mode, G)
+            err = float((got - want).abs().max())
+            assert torch.equal(got, want), \
+                f"{mode} {what}: not bit for bit ({err:.3e})"
+            ok.append(mode)
+        print(f"  {what} ({rows} x {nxp}, G = {G}): {', '.join(ok)} bit "
+              f"for bit")
 
 
 def conv_call(torch, w3, u, b=None):
@@ -5503,13 +5545,19 @@ def main() -> int:
         byte_ms = 1e3 * rec[k]["bytes"] / HBM_PEAK
         op_ms = 1e3 * rec[k]["flops"] / (F64_PEAK if k.endswith(".f64")
                                           else F32_PEAK)
+        # K18b-R / K18b-P: instructions at 128 a clock an SM, or the slab's
+        # bytes once a pass from shared memory (``xfer_bound``).
+        bound_ms, bound_by = rec[k].get("bound_ms"), rec[k].get("bound_by")
+        if bound_ms is None:
+            bound_ms = max(byte_ms, op_ms)
+            bound_by = "bytes" if byte_ms >= op_ms else "operations"
         kernels.append({
             "name": k, "route": "cuda", "source": src + s,
             "replaces": r if r.startswith("benchmarks/") else tpu + r,
             "launches": counts[k],
             "max_abs_err": rec[k]["max_abs_err"], "ms": rec[k]["ms"],
-            "plain_ms": rec[k]["plain_ms"], "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "plain_ms": rec[k]["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": rec[k]["library_ms"],
             "library_device_ms": rec[k].get("library_device_ms"),
             "bound_at_copy_rate_ms": 1e3 * rec[k]["bytes"] / rate,
@@ -5523,8 +5571,7 @@ def main() -> int:
             **{x: rec[k][x] for x in ("device_ms", "launch_ms",
                                       "grid_syncs", "grid_sync_us",
                                       "latency_floor_ms", "modes_5pt",
-                                      "uneven", "modes", "smem_floor_ms",
-                                      "bit_for_bit")
+                                      "uneven", "modes")
                if x in rec[k]}})
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1); K18a's stream rate "
           f"{stream['bytes_per_s'] / 1e9:.1f} GB/s")

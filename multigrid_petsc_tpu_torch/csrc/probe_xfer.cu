@@ -26,32 +26,51 @@
 // slab resident in VMEM, each pass on the slab scaled by
 // s_i = 1 + 1e-7 i, summing the passes' outputs: what the pass costs
 // with no device-memory traffic.  On the card the x-restriction is a
-// pass over shared memory at stride 2 inside the visit kernel
-// (visit.cuh), so here each block loads its tile of the slab into shared
-// memory once, runs the G passes from there, keeps the sums in
-// registers and stores them once.  The (48, 8192) f32 slab is 1.5 MB,
-// more than a block's 227 KB, so the grid tiles it: TR rows (4; 2 for
-// apply8) x 32 lanes, a lane taking U consecutive input columns and
-// reading a window of NW floats around them (Window<MODE>), with the
-// column halo a mode needs (arith, full: 2 to the right; apply8: 8 on
-// each side, cyclic; prolong: 1 to the left); 384 blocks at the probe's
-// shapes (480 for prolong), about three an SM.
+// pass over shared memory inside the visit kernel (visit.cuh), so here
+// each warp loads its span of a slab row into shared memory once, runs
+// the G passes from there, keeps the sums in registers and stores them
+// once.
 //
-// Hoisting: a pass's window loads do not change from pass to pass, so a
-// compiler may keep them in registers across the loop, and the passes
-// would then read no shared memory.  Each pass starts with
-// __syncthreads(), which orders shared memory: no load is moved across
-// it, so every pass loads its window anew (the SASS has the window's
-// LDS.128 after the loop's BAR.SYNC; scripts/xfer_sass.py counts them).
+// What bounds them: the HBM bytes (the slab in, the sums out) are tiny.
+// The yardstick is the larger of the JAX function's operations, one FP32
+// instruction each (every product and sum is rounded on its own, so none
+// fuses into an FMA) at 128 a clock an SM, and the slab's input columns
+// read once a pass from shared memory at 128 B a clock an SM
+// (xfer_probe_kernel.xfer_bound): noop, shuffle and full are bound by
+// shared memory, arith, apply8 and prolong by operations.
+//
+// The design (Tiling<MODE>: K, P, EDGE, OVER):
+// - A warp takes one span of 128 K consecutive input columns of one row,
+//   a lane 4 K consecutive ones (K 16-byte units).  Warps are independent:
+//   a block is ceil(spans / SMs) of them, so that the grid is about one
+//   block an SM with its warps on different schedulers; there is no
+//   __syncthreads.
+// - The fill: coalesced 16-byte loads, unit u of the span to slot
+//   32 (u % K) + u / K of the warp's tile, so that lane l's c-th unit sits
+//   at slot 32 c + l.  Each of a pass's K LDS.128 then reads 512
+//   contiguous bytes, free of bank conflicts, and a pass reads every
+//   column of the span once.  Units past the row are zero, apply8's wrap
+//   cyclically on nxcp columns, prolong's pad column reads 0.  A slab that
+//   is not 16-byte aligned takes 4-byte loads.
+// - Neighbours: a lane takes the columns next to its own from the next
+//   lane (arith 2, full 1) or the previous one (prolong 1) by
+//   __shfl_*_sync; the warp's edge lane takes them from a halo unit kept
+//   after the span, read by one broadcast load a pass (EDGE floats).
+//   apply8's 8 steps take each neighbour by a shuffle a step; its spans
+//   overlap by OVER = 8 columns a side, where the edge lanes' wrong
+//   neighbours spread, and a warp stores the middle of its span.
+// - No barrier in the pass loop: each window load is ld.volatile.shared,
+//   which the compiler may neither hoist out of the loop nor merge, so
+//   every pass reads its window from shared memory (scripts/xfer_sass.py
+//   counts the loads in the loop's body).  A turn of the loop loads P
+//   passes' windows before their arithmetic; the sums are added in pass
+//   order.  s_i is made in registers, __double2float_rn(1.0 + 1e-7 i)
+//   in f64 with the product and sum rounded apart, as pass_scales makes
+//   it.  Full's last output column (0 in JAX) is set once, at the store.
 //
 // Arithmetic: the JAX kernels' order, each product and sum rounded on its
 // own (__fmul_rn, __fadd_rn are never contracted into an FMA), so the
 // kernels equal their plain PyTorch versions bit for bit.
-//
-// What bounds K18b-R / K18b-P: the HBM bytes (the slab in, the sums out)
-// are tiny; their yardstick is shared memory, the window bytes read over
-// 132 SMs x 128 B a clock (full: 203 MB over 86 passes, ~6 us at
-// 1.98 GHz), and, for apply8, its 8 steps of 4 operations a point.
 
 #include <cuda_runtime.h>
 
@@ -104,187 +123,322 @@ halo_windows_kernel(const float* __restrict__ x, long long ld, int n, int nx,
 enum XferMode { NOOP = 0, ARITH = 1, SHUFFLE = 2, FULL = 3, APPLY8 = 4,
                 PROLONG = 5 };
 constexpr int APPLY_STEPS = 8;  // apply8's smoothing steps
-// The widest tile of input columns a block row takes is 256 (full); nxp
-// must be a multiple of XFER_UNIT so that every mode's tiles fit whole.
+// nxp must be a multiple of XFER_UNIT (the probe's widths are).
 constexpr int XFER_UNIT = 512;
-constexpr int MAX_PASSES = 8192;  // the scales live in shared memory
+constexpr int MAX_PASSES = 8192;  // passes a launch takes
+constexpr int MAX_WARPS = 16;     // warps a block
 
-// A lane's share of a pass: U consecutive input columns, a window of NW
-// floats from U * lane + OFF (relative to the block's first column), the
-// tile's halo LH columns to the left and RH to the right, TR rows a block.
+// A mode's tiling: a lane takes K 16-byte units (4 K consecutive input
+// columns), a warp 128 K; a turn of the pass loop loads P passes'
+// windows; the warp's edge lane reads EDGE floats of the halo unit kept
+// after its span (arith, full: the columns after the span; prolong: the
+// one before it); the spans overlap by OVER columns a side (apply8).
 // The input columns tiled: nxcp (half the fine width) or, for full, nxp.
 template <int MODE>
-struct Window;
-template <> struct Window<NOOP> {
-  static constexpr int U = 4, NW = 4, OFF = 0, LH = 0, RH = 0, TR = 4;
+struct Tiling;
+template <> struct Tiling<NOOP> {
+  static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;
 };
-template <> struct Window<ARITH> {
-  static constexpr int U = 4, NW = 8, OFF = 0, LH = 0, RH = 4, TR = 4;
+template <> struct Tiling<ARITH> {
+  static constexpr int K = 4, P = 4, EDGE = 2, OVER = 0;
 };
-template <> struct Window<SHUFFLE> {
-  static constexpr int U = 4, NW = 4, OFF = 0, LH = 0, RH = 0, TR = 4;
+template <> struct Tiling<SHUFFLE> {
+  static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;
 };
-template <> struct Window<FULL> {
-  static constexpr int U = 8, NW = 12, OFF = 0, LH = 0, RH = 4, TR = 4;
+template <> struct Tiling<FULL> {
+  static constexpr int K = 2, P = 4, EDGE = 1, OVER = 0;
 };
-template <> struct Window<APPLY8> {
-  static constexpr int U = 8, NW = 24, OFF = -8, LH = 8, RH = 8, TR = 2;
+template <> struct Tiling<APPLY8> {
+  static constexpr int K = 4, P = 2, EDGE = 0, OVER = APPLY_STEPS;
 };
-template <> struct Window<PROLONG> {
-  static constexpr int U = 4, NW = 8, OFF = -4, LH = 4, RH = 0, TR = 4;
+template <> struct Tiling<PROLONG> {
+  static constexpr int K = 4, P = 2, EDGE = 1, OVER = 0;
 };
 
-// The outputs a lane makes from its window v (already scaled); `j0` its
-// first input column.
-//   noop     o[k] = v[k]                                   (k < 4)
-//   arith    o[k] = v[k] + 2 v[k + 1] + v[k + 2]            (k < 4)
-//   shuffle  o[k] = v[2k], o[2 + k] = v[2k + 1]             (k < 2)
-//   full     o[k] = 0.0625 (v[2k] + 2 v[2k + 1] + v[2k + 2]), 0 for the
-//            last output column                              (k < 4)
-//   apply8   8 steps r = 0.99 r + 0.01 (r[-1] + r[+1]) on the 24 values,
-//            o[k] = r[8 + k]                                 (k < 8)
-//   prolong  o[2k] = 0.5 (v[4 + k] + v[3 + k]), o[2k + 1] = v[4 + k]
-//                                                            (k < 4)
+// The outputs a lane sums: noop, arith, apply8 one a column; shuffle its
+// even columns' then its odd ones'; full one a column pair; prolong two a
+// column.
 template <int MODE>
-__host__ __device__ constexpr int outputs() {
-  return MODE == APPLY8 || MODE == PROLONG ? 8 : 4;
+__host__ __device__ constexpr int lane_outputs() {
+  return MODE == FULL ? 2 * Tiling<MODE>::K
+                      : MODE == PROLONG ? 8 * Tiling<MODE>::K
+                                        : 4 * Tiling<MODE>::K;
 }
 
+__device__ __forceinline__ float4 lds4(unsigned a) {
+  float4 v;
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ float2 lds2(unsigned a) {
+  float2 v;
+  asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ float lds1(unsigned a) {
+  float v;
+  asm volatile("ld.volatile.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// s_i = f32(1 + 1e-7 i), formed in f64 as xfer_probe_kernel.pass_scales
+// forms it: the product and the sum rounded apart, then one rounding.
+__device__ __forceinline__ float pass_scale(int i) {
+  return __double2float_rn(__dadd_rn(1.0, __dmul_rn(1e-7, (double)i)));
+}
+
+// One pass's reads: the lane's 4 K columns and the edge floats.
 template <int MODE>
-__device__ __forceinline__ void pass(const float (&v)[Window<MODE>::NW],
-                                     float (&o)[outputs<MODE>()], int j0,
-                                     int nxcp) {
+struct Win {
+  float x[4 * Tiling<MODE>::K];
+  float e[Tiling<MODE>::EDGE > 0 ? Tiling<MODE>::EDGE : 1];
+};
+
+// `base`: the lane's slot of unit 0 (units 512 B apart); `edge`: the
+// halo floats (shared-space addresses).
+template <int MODE>
+__device__ __forceinline__ void load_win(Win<MODE>& w, unsigned base,
+                                         unsigned edge) {
+#pragma unroll
+  for (int c = 0; c < Tiling<MODE>::K; ++c) {
+    const float4 f = lds4(base + 512 * c);
+    w.x[4 * c] = f.x;
+    w.x[4 * c + 1] = f.y;
+    w.x[4 * c + 2] = f.z;
+    w.x[4 * c + 3] = f.w;
+  }
+  if constexpr (Tiling<MODE>::EDGE == 2) {
+    const float2 f = lds2(edge);
+    w.e[0] = f.x;
+    w.e[1] = f.y;
+  } else if constexpr (Tiling<MODE>::EDGE == 1) {
+    w.e[0] = lds1(edge);
+  }
+}
+
+// One pass: the lane's outputs of op(x s) added to its sums.  v[m] is
+// the lane's m-th column scaled.
+//   noop     o[m] = v[m]
+//   arith    o[m] = v[m] + 2 v[m + 1] + v[m + 2]
+//   shuffle  o[k] = v[2k], o[U / 2 + k] = v[2k + 1]
+//   full     o[k] = 0.0625 (v[2k] + 2 v[2k + 1] + v[2k + 2])
+//   apply8   8 steps r = 0.99 r + 0.01 (r[-1] + r[+1]), o[m] = r[m]
+//   prolong  o[2m] = 0.5 (v[m] + v[m - 1]), o[2m + 1] = v[m]
+template <int MODE>
+__device__ __forceinline__ void pass(const Win<MODE>& w, float s, int lane,
+                                     float (&acc)[lane_outputs<MODE>()]) {
+  constexpr int U = 4 * Tiling<MODE>::K;
+  constexpr unsigned ALL = 0xffffffffu;
+  float v[U];
+#pragma unroll
+  for (int m = 0; m < U; ++m) v[m] = __fmul_rn(w.x[m], s);
   if constexpr (MODE == NOOP) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = v[k];
-  } else if constexpr (MODE == ARITH) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      o[k] = __fadd_rn(__fadd_rn(v[k], __fmul_rn(2.f, v[k + 1])), v[k + 2]);
+    for (int m = 0; m < U; ++m) acc[m] = __fadd_rn(acc[m], v[m]);
   } else if constexpr (MODE == SHUFFLE) {
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      o[k] = v[2 * k];
-      o[2 + k] = v[2 * k + 1];
+    for (int k = 0; k < U / 2; ++k) {
+      acc[k] = __fadd_rn(acc[k], v[2 * k]);
+      acc[U / 2 + k] = __fadd_rn(acc[U / 2 + k], v[2 * k + 1]);
     }
+  } else if constexpr (MODE == ARITH) {
+    float n0 = __shfl_down_sync(ALL, w.x[0], 1);
+    float n1 = __shfl_down_sync(ALL, w.x[1], 1);
+    if (lane == 31) {
+      n0 = w.e[0];
+      n1 = w.e[1];
+    }
+    float t[U + 2];
+#pragma unroll
+    for (int m = 0; m < U; ++m) t[m] = v[m];
+    t[U] = __fmul_rn(n0, s);
+    t[U + 1] = __fmul_rn(n1, s);
+#pragma unroll
+    for (int m = 0; m < U; ++m)
+      acc[m] = __fadd_rn(
+          acc[m], __fadd_rn(__fadd_rn(t[m], __fmul_rn(2.f, t[m + 1])),
+                            t[m + 2]));
   } else if constexpr (MODE == FULL) {
+    float n0 = __shfl_down_sync(ALL, w.x[0], 1);
+    if (lane == 31) n0 = w.e[0];
+    float t[U + 1];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      o[k] = j0 / 2 + k < nxcp - 1
-                 ? __fmul_rn(0.0625f,
-                             __fadd_rn(__fadd_rn(v[2 * k],
-                                                 __fmul_rn(2.f, v[2 * k + 1])),
-                                       v[2 * k + 2]))
-                 : 0.f;
+    for (int m = 0; m < U; ++m) t[m] = v[m];
+    t[U] = __fmul_rn(n0, s);
+#pragma unroll
+    for (int k = 0; k < U / 2; ++k)
+      acc[k] = __fadd_rn(
+          acc[k],
+          __fmul_rn(0.0625f,
+                    __fadd_rn(__fadd_rn(t[2 * k], __fmul_rn(2.f, t[2 * k + 1])),
+                              t[2 * k + 2])));
   } else if constexpr (MODE == APPLY8) {
-    float r[24];
 #pragma unroll
-    for (int m = 0; m < 24; ++m) r[m] = v[m];
+    for (int step = 0; step < APPLY_STEPS; ++step) {
+      // t: the lane's columns between its neighbours'; the edge lanes
+      // take their own other end (wrong, and the overlap absorbs it).
+      float t[U + 2];
+      t[0] = __shfl_up_sync(ALL, v[U - 1], 1);
+      t[U + 1] = __shfl_down_sync(ALL, v[0], 1);
 #pragma unroll
-    for (int s = 1; s <= APPLY_STEPS; ++s) {
-      float t[24];
+      for (int m = 0; m < U; ++m) t[m + 1] = v[m];
 #pragma unroll
-      for (int m = s; m < 24 - s; ++m)
-        t[m] = __fadd_rn(__fmul_rn(0.99f, r[m]),
-                         __fmul_rn(0.01f, __fadd_rn(r[m - 1], r[m + 1])));
-#pragma unroll
-      for (int m = s; m < 24 - s; ++m) r[m] = t[m];
+      for (int m = 0; m < U; ++m)
+        v[m] = __fadd_rn(__fmul_rn(0.99f, t[m + 1]),
+                         __fmul_rn(0.01f, __fadd_rn(t[m], t[m + 2])));
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = r[8 + k];
+    for (int m = 0; m < U; ++m) acc[m] = __fadd_rn(acc[m], v[m]);
   } else {  // PROLONG
+    float p = __shfl_up_sync(ALL, w.x[U - 1], 1);
+    if (lane == 0) p = w.e[0];
+    float t[U + 1];  // the previous lane's last column, then the lane's
+    t[0] = __fmul_rn(p, s);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      o[2 * k] = __fmul_rn(0.5f, __fadd_rn(v[4 + k], v[3 + k]));
-      o[2 * k + 1] = v[4 + k];
+    for (int m = 0; m < U; ++m) t[m + 1] = v[m];
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      acc[2 * m] = __fadd_rn(acc[2 * m],
+                             __fmul_rn(0.5f, __fadd_rn(t[m + 1], t[m])));
+      acc[2 * m + 1] = __fadd_rn(acc[2 * m + 1], t[m + 1]);
     }
   }
 }
 
-// One block: rows [r0, r0 + TR) of the slab x (rows x in_cols, row pitch
-// in_cols) and input columns [c0, c0 + 32 U), with their halo, in shared
-// memory; G passes; out (rows x out_cols) written once.
+// Columns [col, col + 4) of row xr as the mode reads them: past the row
+// zero (restriction modes: nxp columns; prolong: nxcp, its last one, the
+// pad, 0 too), apply8's cyclic on nxcp.  `vec`: xr 16-byte aligned.
 template <int MODE>
-__global__ void __launch_bounds__(32 * Window<MODE>::TR)
-xfer_pass_kernel(const float* __restrict__ x, float* __restrict__ out,
-                 const float* __restrict__ scales, int rows, int nxp, int G) {
-  using W = Window<MODE>;
-  constexpr int SW = W::LH + 32 * W::U + W::RH;  // a tile row, floats
-  extern __shared__ __align__(16) float smem[];
-  float* tile = smem;                 // TR x SW
-  float* sc = smem + W::TR * SW;      // G scales
+__device__ __forceinline__ float4 load_unit(const float* __restrict__ xr,
+                                            int col, int nxp, bool vec) {
   const int nxcp = nxp / 2;
-  const int in_cols = MODE == PROLONG ? nxcp : nxp;
-  const int out_cols = MODE == PROLONG ? nxp : nxcp;
-  const int r0 = blockIdx.y * W::TR;
-  const int c0 = blockIdx.x * 32 * W::U;
-  for (int k = threadIdx.x; k < W::TR * SW; k += blockDim.x) {
-    const int r = r0 + k / SW;
-    int c = c0 - W::LH + k % SW;
-    bool in;
-    if constexpr (MODE == APPLY8) {  // cyclic on the first nxcp columns
-      c = (c + nxcp) % nxcp;
-      in = true;
-    } else if constexpr (MODE == PROLONG) {  // e's last column is pad
-      in = c >= 0 && c < nxcp - 1;
-    } else {
-      in = c >= 0 && c < in_cols;
-    }
-    tile[k] = r < rows && in ? x[(long long)r * in_cols + c] : 0.f;
+  if constexpr (MODE == APPLY8) {
+    if (col < 0) col += nxcp;
+    while (col >= nxcp) col -= nxcp;
+  } else {
+    if (col < 0 || col >= (MODE == PROLONG ? nxcp : nxp))
+      return make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int i = threadIdx.x; i < G; i += blockDim.x) sc[i] = scales[i];
+  float4 f = vec ? *reinterpret_cast<const float4*>(xr + col)
+                 : make_float4(xr[col], xr[col + 1], xr[col + 2],
+                               xr[col + 3]);
+  if (MODE == PROLONG && col == nxcp - 4) f.w = 0.f;
+  return f;
+}
+
+// Warp g of the grid: span g % spans of row g / spans, input columns
+// [a, a + 128 K) with a = (g % spans) (128 K - 2 OVER) - OVER, in shared
+// memory; G passes; its outputs written once.
+template <int MODE>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+xfer_pass_kernel(const float* __restrict__ x, float* __restrict__ out,
+                 int rows, int nxp, int G, int spans) {
+  using T = Tiling<MODE>;
+  constexpr int K = T::K, P = T::P, U = 4 * K, SPAN = 128 * K;
+  constexpr int TW = SPAN + (T::EDGE ? 4 : 0);  // a warp's tile, floats
+  constexpr int NO = lane_outputs<MODE>();
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
-  const int row = threadIdx.x >> 5;
-  const float* win = tile + row * SW + W::LH + lane * W::U + W::OFF;
-  const int j0 = c0 + lane * W::U;
-  constexpr int NO = outputs<MODE>();
+  const int warp = threadIdx.x >> 5;
+  const int g = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (g >= rows * spans) return;
+  const int row = g / spans;
+  const int a = (g - row * spans) * (SPAN - 2 * T::OVER) - T::OVER;
+  const int nxcp = nxp / 2;
+  const float* xr = x + (long long)row * (MODE == PROLONG ? nxcp : nxp);
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  float4* tile = reinterpret_cast<float4*>(smem + warp * TW);
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int u = 32 * c + lane;
+    tile[32 * (u % K) + u / K] = load_unit<MODE>(xr, a + 4 * u, nxp, vec);
+  }
+  if (T::EDGE && lane == 0)
+    tile[32 * K] = load_unit<MODE>(xr, MODE == PROLONG ? a - 4 : a + SPAN,
+                                   nxp, vec);
+  __syncwarp();
+  const unsigned t0 = (unsigned)__cvta_generic_to_shared(tile);
+  const unsigned base = t0 + 16 * lane;
+  const unsigned edge = t0 + 16 * 32 * K + (MODE == PROLONG ? 12 : 0);
   float acc[NO];
 #pragma unroll
   for (int k = 0; k < NO; ++k) acc[k] = 0.f;
-  for (int i = 0; i < G; ++i) {
-    __syncthreads();  // every pass loads its window anew (no hoisting)
-    const float s = sc[i];
-    float v[W::NW];
+  int i = 0;
+#pragma unroll 1
+  for (; i + P <= G; i += P) {
+    Win<MODE> w[P];
 #pragma unroll
-    for (int q = 0; q < W::NW / 4; ++q) {
-      const float4 f = reinterpret_cast<const float4*>(win)[q];
-      v[4 * q] = __fmul_rn(f.x, s);
-      v[4 * q + 1] = __fmul_rn(f.y, s);
-      v[4 * q + 2] = __fmul_rn(f.z, s);
-      v[4 * q + 3] = __fmul_rn(f.w, s);
-    }
-    float o[NO];
-    pass<MODE>(v, o, j0, nxcp);
+    for (int p = 0; p < P; ++p) load_win(w[p], base, edge);
 #pragma unroll
-    for (int k = 0; k < NO; ++k) acc[k] = __fadd_rn(acc[k], o[k]);
+    for (int p = 0; p < P; ++p) pass<MODE>(w[p], pass_scale(i + p), lane, acc);
   }
-  const int r = r0 + row;
-  if (r >= rows) return;
-  float* orow = out + (long long)r * out_cols;
-  if constexpr (MODE == SHUFFLE) {  // even columns, then odd ones
-    reinterpret_cast<float2*>(orow + j0 / 2)[0] = make_float2(acc[0], acc[1]);
-    reinterpret_cast<float2*>(orow + nxcp / 2 + j0 / 2)[0] =
-        make_float2(acc[2], acc[3]);
-  } else {
-    const int o0 = MODE == FULL ? j0 / 2 : MODE == PROLONG ? 2 * j0 : j0;
+#pragma unroll 1
+  for (; i < G; ++i) {
+    Win<MODE> w;
+    load_win(w, base, edge);
+    pass<MODE>(w, pass_scale(i), lane, acc);
+  }
+  const int j0 = a + U * lane;  // the lane's first input column
+  float* orow = out + (long long)row * (MODE == PROLONG ? nxp : nxcp);
 #pragma unroll
-    for (int q = 0; q < NO / 4; ++q)
-      reinterpret_cast<float4*>(orow + o0)[q] =
-          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                      acc[4 * q + 3]);
+  for (int c = 0; c < K; ++c) {
+    const int col = j0 + 4 * c;
+    if constexpr (MODE == NOOP || MODE == ARITH) {
+      if (col < nxcp)
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+    } else if constexpr (MODE == SHUFFLE) {  // even columns, then odd ones
+      if (col < nxcp) {
+        *reinterpret_cast<float2*>(orow + col / 2) =
+            make_float2(acc[2 * c], acc[2 * c + 1]);
+        *reinterpret_cast<float2*>(orow + nxcp / 2 + col / 2) =
+            make_float2(acc[U / 2 + 2 * c], acc[U / 2 + 2 * c + 1]);
+      }
+    } else if constexpr (MODE == FULL) {  // the last output column is 0
+      if (col < nxp)
+        *reinterpret_cast<float2*>(orow + col / 2) =
+            make_float2(acc[2 * c], col == nxp - 4 ? 0.f : acc[2 * c + 1]);
+    } else if constexpr (MODE == APPLY8) {  // the middle of the span
+      const int m = U * lane + 4 * c;
+      if (m >= T::OVER && m < SPAN - T::OVER && col < nxcp)
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+    } else {  // PROLONG
+      if (col < nxcp) {
+        float4* o = reinterpret_cast<float4*>(orow + 2 * col);
+        o[0] = make_float4(acc[8 * c], acc[8 * c + 1], acc[8 * c + 2],
+                           acc[8 * c + 3]);
+        o[1] = make_float4(acc[8 * c + 4], acc[8 * c + 5], acc[8 * c + 6],
+                           acc[8 * c + 7]);
+      }
+    }
   }
 }
 
 template <int MODE>
-int launch_xfer(const float* x, float* out, const float* scales, int rows,
-                int nxp, int G, cudaStream_t stream) {
-  using W = Window<MODE>;
-  constexpr int SW = W::LH + 32 * W::U + W::RH;
+int launch_xfer(const float* x, float* out, int rows, int nxp, int G,
+                cudaStream_t stream) {
+  using T = Tiling<MODE>;
+  constexpr int SPAN = 128 * T::K, STEP = SPAN - 2 * T::OVER;
+  constexpr int TW = SPAN + (T::EDGE ? 4 : 0);
   const int tiled = MODE == FULL ? nxp : nxp / 2;  // input columns tiled
-  const dim3 grid(tiled / (32 * W::U), (rows + W::TR - 1) / W::TR);
-  const size_t smem = 4 * ((size_t)W::TR * SW + G);
-  xfer_pass_kernel<MODE><<<grid, 32 * W::TR, smem, stream>>>(x, out, scales,
-                                                            rows, nxp, G);
+  const int spans = (tiled + STEP - 1) / STEP;
+  const long long warps = (long long)rows * spans;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long wb = (warps + sms - 1) / sms;  // about one block an SM
+  wb = wb < 1 ? 1 : wb > MAX_WARPS ? MAX_WARPS : wb;
+  if (warps > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((warps + wb - 1) / wb);
+  xfer_pass_kernel<MODE><<<blocks, 32 * (int)wb, 4 * TW * wb, stream>>>(
+      x, out, rows, nxp, G, spans);
   return (int)cudaGetLastError();
 }
 
@@ -312,22 +466,21 @@ int mg_halo_windows(const float* x, long long ld, int n, int nx, int stride,
 // G passes of x-transfer `mode` (XferMode) on a contiguous f32 slab, sums
 // into out: restriction modes x (rows, nxp) -> out (rows, nxp / 2);
 // prolong x (rows, nxp / 2) -> out (rows, nxp).  nxp a multiple of
-// XFER_UNIT, out 16-byte aligned, scales G f32 (1 <= G <= MAX_PASSES).
-int mg_xfer_pass(const float* x, float* out, const float* scales, int rows,
-                 int nxp, int G, int mode, void* stream) {
+// XFER_UNIT, out 16-byte aligned, 1 <= G <= MAX_PASSES; the kernel forms
+// the passes' scales itself.
+int mg_xfer_pass(const float* x, float* out, int rows, int nxp, int G,
+                 int mode, void* stream) {
   if (rows < 1 || nxp < XFER_UNIT || nxp % XFER_UNIT || G < 1 ||
       G > MAX_PASSES || (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case NOOP: return launch_xfer<NOOP>(x, out, scales, rows, nxp, G, s);
-    case ARITH: return launch_xfer<ARITH>(x, out, scales, rows, nxp, G, s);
-    case SHUFFLE:
-      return launch_xfer<SHUFFLE>(x, out, scales, rows, nxp, G, s);
-    case FULL: return launch_xfer<FULL>(x, out, scales, rows, nxp, G, s);
-    case APPLY8: return launch_xfer<APPLY8>(x, out, scales, rows, nxp, G, s);
-    case PROLONG:
-      return launch_xfer<PROLONG>(x, out, scales, rows, nxp, G, s);
+    case NOOP: return launch_xfer<NOOP>(x, out, rows, nxp, G, s);
+    case ARITH: return launch_xfer<ARITH>(x, out, rows, nxp, G, s);
+    case SHUFFLE: return launch_xfer<SHUFFLE>(x, out, rows, nxp, G, s);
+    case FULL: return launch_xfer<FULL>(x, out, rows, nxp, G, s);
+    case APPLY8: return launch_xfer<APPLY8>(x, out, rows, nxp, G, s);
+    case PROLONG: return launch_xfer<PROLONG>(x, out, rows, nxp, G, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -92,7 +92,7 @@ _SIGNATURES = {
     # K18b-W, the halo windows, and K18b-R / K18b-P, the x-transfer passes
     # on a resident slab (csrc/probe_xfer.cu).
     "mg_halo_windows": [_P, ctypes.c_longlong] + [_I] * 6 + [_P, _P, _P],
-    "mg_xfer_pass": [_P] * 3 + [_I] * 4 + [_P],
+    "mg_xfer_pass": [_P] * 2 + [_I] * 4 + [_P],
     "mg_coarse_tree_plan_bytes": [],
     "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _P, _P],
     "mg_coarse_tree": [_P, _P, _P, _P],

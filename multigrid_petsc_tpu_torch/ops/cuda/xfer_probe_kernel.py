@@ -35,11 +35,14 @@ Counterparts of the last three TPU kernels of the attribution probes:
 
 The TPU kernels run the x-transfers of its down and up visits alone on a
 VMEM-resident slab, G grid steps over one block; the card's x-restriction
-is a pass over shared memory at stride 2 inside the visit kernel, so the
-card's kernels hold the slab's tiles in shared memory and run the G
-passes from there (``csrc/probe_xfer.cu`` says how).  The JAX kernels'
-order of operations is kept in every mode, so the kernels and their
-plain versions agree bit for bit.  No solve runs them.
+is a pass over shared memory inside the visit kernel, so the card's
+kernels hold the slab's spans in shared memory, a warp's span at a time,
+and run the G passes from there with no barrier (``csrc/probe_xfer.cu``
+says how; ``TILING`` and ``xfer_lanes`` mirror its tiling).  The JAX
+kernels' order of operations is kept in every mode, so the kernels and
+their plain versions agree bit for bit.  No solve runs them.
+``xfer_bound`` gives a mode's yardstick from the JAX function's own work;
+``smem_read_bytes`` what the kernel's design reads from shared memory.
 
 Each wrapper runs its plain version (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors (f32; anything else raises), never
@@ -48,8 +51,6 @@ falling back, and counts each launch as ``halo_windows``,
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -66,17 +67,21 @@ RESTRICT_MODES = {"noop": 0, "arith": 1, "shuffle": 2, "full": 3,
                   "apply8": 4}
 PROLONG = 5
 APPLY_STEPS = 8  # apply8's smoothing steps (probe_xfer.cu APPLY_STEPS)
-# The kernels' column unit: nxp must be a multiple of it, so that every
-# mode's tiles fit whole (probe_xfer.cu XFER_UNIT).
+# nxp must be a multiple of it (probe_xfer.cu XFER_UNIT).
 XFER_UNIT = 512
-MAX_PASSES = 8192  # the scales live in shared memory (probe_xfer.cu)
-# mode: (floats a lane's window reads a pass, input columns it takes)
-# (probe_xfer.cu Window<MODE>); the lanes tile half the fine width, full
-# the whole of it.
-WINDOWS = {"noop": (4, 4), "arith": (8, 4), "shuffle": (4, 4),
-           "full": (12, 8), "apply8": (24, 8), "prolong": (8, 4)}
+MAX_PASSES = 8192  # passes a launch takes (probe_xfer.cu)
+MAX_WARPS = 16  # warps a block (probe_xfer.cu)
+# mode: (K, P, EDGE, OVER) (probe_xfer.cu Tiling<MODE>): a lane takes K
+# 16-byte units, 4 K consecutive input columns, a warp 128 K; a turn of
+# the pass loop loads P passes' windows; the warp's edge lane reads EDGE
+# floats of a halo unit (arith, full: the columns after the span;
+# prolong: the one before it); apply8's spans overlap by OVER columns a
+# side.  The warps tile half the fine width, full the whole of it.
+TILING = {"noop": (2, 4, 0, 0), "arith": (4, 4, 2, 0),
+          "shuffle": (2, 4, 0, 0), "full": (2, 4, 1, 0),
+          "apply8": (4, 2, 0, APPLY_STEPS), "prolong": (4, 2, 1, 0)}
 # Operations a pass makes per output of the JAX function (not of the
-# kernel's windows): x s_i on each input column it takes, the mode's
+# kernel's tiling): x s_i on each input column it takes, the mode's
 # arithmetic, the running sum's add (prolong: an even output 2 and an odd
 # one none; an input column scaled per 2 outputs).  For the bound.
 OPS_PER_OUTPUT = {"noop": 2, "arith": 5, "shuffle": 2, "full": 7,
@@ -218,13 +223,6 @@ def _check_xfer(x, mode, G):
         raise ValueError(f"G >= 1 passes, got {G}")
 
 
-@functools.lru_cache(maxsize=None)
-def _device_scales(G: int, device: torch.device) -> torch.Tensor:
-    """``pass_scales(G)`` on the card, copied there once (a copy from
-    host memory waits for the card, which a timed run must not)."""
-    return pass_scales(G).to(device)
-
-
 def _launch_xfer(x, mode_id, out_cols, G, name):
     rows, cols = x.shape
     nxp = cols if mode_id != PROLONG else 2 * cols
@@ -234,10 +232,8 @@ def _launch_xfer(x, mode_id, out_cols, G, name):
                          f"and {G}")
     _check_cuda(x.device, {"x": (x, x.shape)})
     out = torch.empty((rows, out_cols), dtype=x.dtype, device=x.device)
-    scales = _device_scales(G, x.device)
-    err = load_library().mg_xfer_pass(x.data_ptr(), out.data_ptr(),
-                                      scales.data_ptr(), rows, nxp, G,
-                                      mode_id, _stream(x.device))
+    err = load_library().mg_xfer_pass(x.data_ptr(), out.data_ptr(), rows,
+                                      nxp, G, mode_id, _stream(x.device))
     check(err, f"{name} launch")
     count_launch(name, x.dtype)
     return out
@@ -262,11 +258,122 @@ def xfer_prolong(e: torch.Tensor, G: int) -> torch.Tensor:
     return _launch_xfer(e, PROLONG, 2 * e.shape[1], G, "xfer_prolong")
 
 
+def bound_columns(mode: str, nxp: int) -> int:
+    """Input columns of a slab row that a pass of the JAX function reads:
+    noop, shuffle and apply8 nxcp, arith nxcp + 2 (its [1, 2, 1] reaches
+    two past), full nxp, prolong nxcp - 1 (e's last column is pad)."""
+    nxcp = nxp // 2
+    return {"noop": nxcp, "shuffle": nxcp, "apply8": nxcp, "arith": nxcp + 2,
+            "full": nxp, "prolong": nxcp - 1}[mode]
+
+
+def xfer_bound(mode: str, rows: int, nxp: int, G: int, rate: float) -> dict:
+    """The least time the card could take for ``mode`` (a restriction
+    mode or "prolong") over G passes on ``rows`` rows of fine width nxp,
+    from the JAX function's own work: the larger of its operations
+    (``OPS_PER_OUTPUT`` x outputs x G), one FP32 instruction each (each
+    product and sum rounded on its own, none fused), at 128 a clock an SM,
+    and the slab's input columns (``bound_columns``) read once a pass from
+    shared memory at 128 B a clock an SM.  ``rate``: SMs x 128 x the SM
+    clock (``probes.smem_rate``), instructions or bytes a second alike."""
+    outputs = rows * (nxp if mode == "prolong" else nxp // 2)
+    ops = int(OPS_PER_OUTPUT[mode] * outputs * G)
+    nbytes = 4 * rows * bound_columns(mode, nxp) * G
+    ops_ms, smem_ms = 1e3 * ops / rate, 1e3 * nbytes / rate
+    return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms,
+            "smem_ms": smem_ms, "bound_ms": max(ops_ms, smem_ms),
+            "bound_by": ("operations" if ops_ms >= smem_ms
+                         else "shared memory")}
+
+
+def xfer_spans(mode: str, nxp: int) -> tuple[int, int, int]:
+    """(spans a row, columns from one span's start to the next, columns a
+    span takes) of the kernel's tiling of a row of fine width nxp."""
+    k, _, _, over = TILING[mode]
+    span = 128 * k
+    step = span - 2 * over
+    tiled = nxp if mode == "full" else nxp // 2
+    return -(-tiled // step), step, span
+
+
+def xfer_grid(mode: str, rows: int, nxp: int, sms: int):
+    """(blocks, warps a block, warps) of a launch on a card of ``sms`` SMs:
+    a warp a span, about one block an SM (``launch_xfer``)."""
+    warps = rows * xfer_spans(mode, nxp)[0]
+    wb = min(max(-(-warps // sms), 1), MAX_WARPS)
+    return -(-warps // wb), wb, warps
+
+
+def xfer_lanes(mode: str, rows: int, nxp: int, sms: int = 132):
+    """The kernel's tiling, warp by warp: (block, warp in the block, row,
+    a, lanes), a the span's first input column (apply8's may lie before
+    the row: its columns wrap on nxcp), lanes[l] a dict of
+      units    [(column, slot)]: the lane's K 16-byte units, 4 K
+               consecutive input columns from a + 4 K l, and the slot of
+               the warp's tile each sits in (lane l's c-th at 32 c + l, so
+               that a pass's c-th LDS.128 reads slots 32 c .. 32 c + 31)
+      edge     the input columns the lane reads from the halo unit a pass
+               (the warp's edge lane; the others take theirs by shuffle)
+      shuffle  the input columns it takes from other lanes a pass
+      outputs  the output columns it stores."""
+    k, _, edge, over = TILING[mode]
+    spans, step, span = xfer_spans(mode, nxp)
+    _, wb, warps = xfer_grid(mode, rows, nxp, sms)
+    u = 4 * k
+    nxcp = nxp // 2
+    for g in range(warps):
+        row, a = g // spans, (g % spans) * step - over
+        lanes = []
+        for lane in range(32):
+            j0 = a + u * lane
+            units = [(j0 + 4 * c, 32 * c + lane) for c in range(k)]
+            after = [a + span + e for e in range(edge)]  # the next columns
+            lane_edge, shuffle = [], []
+            if mode in ("arith", "full"):
+                if lane == 31:
+                    lane_edge = after
+                else:
+                    shuffle = [j0 + u + e for e in range(edge)]
+            elif mode == "prolong":
+                if lane == 0:
+                    lane_edge = [a - 1]
+                else:
+                    shuffle = [j0 - 1]
+            elif mode == "apply8":  # a column a step, each side
+                shuffle = [j0 - 1, j0 + u]
+            outputs = []
+            for c in range(k):
+                col = j0 + 4 * c
+                if mode in ("noop", "arith") and col < nxcp:
+                    outputs += range(col, col + 4)
+                elif mode == "shuffle" and col < nxcp:
+                    outputs += [col // 2, col // 2 + 1,
+                                nxcp // 2 + col // 2, nxcp // 2 + col // 2 + 1]
+                elif mode == "full" and col < nxp:
+                    outputs += [col // 2, col // 2 + 1]
+                elif (mode == "apply8" and over <= u * lane + 4 * c
+                      < span - over and col < nxcp):
+                    outputs += range(col, col + 4)
+                elif mode == "prolong" and col < nxcp:
+                    outputs += range(2 * col, 2 * col + 8)
+            lanes.append({"units": units, "edge": lane_edge,
+                          "shuffle": shuffle, "outputs": outputs})
+        yield g // wb, g % wb, row, a, lanes
+
+
+def window_loads(mode: str) -> int:
+    """Shared-memory loads a pass of the kernel makes: K LDS.128 and, where
+    the mode has a halo, one load of its edge floats."""
+    k, _, edge, _ = TILING[mode]
+    return k + (1 if edge else 0)
+
+
 def smem_read_bytes(mode: str, rows: int, nxp: int, G: int) -> int:
-    """Bytes the kernel of ``mode`` (a restriction mode or "prolong")
-    reads from shared memory over its G passes on ``rows`` rows of fine
-    width nxp: every lane's window a pass (the scales aside).  The
-    shared-memory floor is these bytes over 128 B a clock an SM."""
-    nw, u = WINDOWS[mode]
-    cols = nxp if mode == "full" else nxp // 2
-    return 4 * G * rows * cols // u * nw
+    """Bytes the kernel's design reads from shared memory over its G
+    passes on ``rows`` rows of fine width nxp: every warp's span and its
+    edge floats a pass.  A readout of the design, not the bound
+    (``xfer_bound``): apply8's overlapping spans read more, and a
+    design that read the slab in another way would read other bytes."""
+    k, _, edge, _ = TILING[mode]
+    warps = rows * xfer_spans(mode, nxp)[0]
+    return G * warps * (512 * k + 4 * edge)

@@ -7,17 +7,19 @@ for the even-lane compaction) and the up visit's x-prolongation
 (``_prolong_x_pad``) cost on a VMEM-resident slab, G = 86 passes (the
 8191^2 tile count) with no device-memory traffic, and their parts.  The
 card has no transpose trick: its x-restriction is a pass over shared
-memory at stride 2.  Here K18b-R (``xfer_probe_kernel.xfer_restrict``,
+memory.  Here K18b-R (``xfer_probe_kernel.xfer_restrict``,
 on a (48, 8192) f32 slab) runs each mode in the JAX order (noop, apply8,
 arith, shuffle, full) and K18b-P (``xfer_prolong``, (57, 4096) -> (57,
-8192)) the prolongation, each block holding its tile of the slab in
+8192)) the prolongation, each warp holding its span of a slab row in
 shared memory for the G passes (``csrc/probe_xfer.cu``).  Each row: ms
 per G-block pass (one launch), device time differenced between k1 = 2
 and k2 = 300 launches queued behind a sleep (median of 3 pairs), that
-time less noop's, and the rate at which the passes read shared memory
-(every lane's window each pass) beside the card's shared-memory rate
-(128 B a clock an SM at the SM clock's maximum).  Each kernel is first
-held to its plain version (bit for bit, or within 1e-6 of max|plain|).
+time less noop's, the mode's bound (``xfer_probe_kernel.xfer_bound``:
+the JAX function's operations at 128 instructions a clock an SM, or its
+slab's input columns once a pass at 128 B of shared memory a clock an
+SM, at the SM clock's maximum) with what binds it and its share of the
+time, and the bytes the kernel's design reads from shared memory.  Each
+kernel is first held to its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from multigrid_petsc_tpu_torch.probes import (
 
 TH, NXP, G, T2 = 48, 8192, 86, 112  # the JAX probe's slab and passes
 MODES = ("noop", "apply8", "arith", "shuffle", "full")
-TOL = 1e-6  # of max|plain|, where the kernel is not bit for bit
 
 
 def run(device="cuda", n: int | None = None, quick: bool = False):
@@ -45,11 +46,12 @@ def run(device="cuda", n: int | None = None, quick: bool = False):
     k1, k2, pairs = (1, 2, 1) if quick else (2, 300, 3)
     rate, peak = stream_rate(device), smem_rate(device)
     header("transpose", device, rate,
-           f"mode: ms per {G}-block pass | less noop's | shared-memory "
-           f"read rate (share of the card's)", rows=TH, nxp=nxp, G=G,
-           prolong_rows=rows_p, k1=k1, k2=k2, pairs=pairs,
-           smem=("not measured (cpu)" if peak is None
-                 else f"{peak / 1e12:.2f} TB/s"))
+           f"mode: ms per {G}-block pass | less noop's | bound (what binds "
+           f"it; share of the time) | the design's shared-memory bytes",
+           rows=TH, nxp=nxp, G=G, prolong_rows=rows_p, k1=k1, k2=k2,
+           pairs=pairs,
+           per_second=("not measured (cpu)" if peak is None
+                       else f"{peak / 1e12:.2f} T"))
     gen = torch.Generator(device=device).manual_seed(22)
     x = torch.randn((TH, nxp), generator=gen, device=device)
     e = torch.randn((rows_p, nxp // 2), generator=gen, device=device)
@@ -59,19 +61,22 @@ def run(device="cuda", n: int | None = None, quick: bool = False):
                   lambda: xk.xfer_prolong_plain(e, G)))
     for mode, _, fn, plain in cases:
         got, want = fn(), plain()
-        err = float((got - want).abs().max())
-        assert err <= TOL * float(want.abs().max()), \
-            f"{mode}: kernel against plain {err:.3e}"
+        assert torch.equal(got, want), \
+            f"{mode}: kernel against plain " \
+            f"{float((got - want).abs().max()):.3e}"
     rows, noop = [], None
     for mode, nrows, fn, _ in cases:
         s = differenced(fn, k1, k2, device, pairs, queued=True)
         noop = s if mode == "noop" else noop
         nbytes = xk.smem_read_bytes(mode, nrows, nxp, G)
-        smem = ("not measured (cpu)" if peak is None else
-                f"{nbytes / s / 1e12:.3f} TB/s ({100 * nbytes / s / peak:.1f}"
-                f"% of {peak / 1e12:.2f} TB/s)")
+        if peak is None:
+            bound = "not measured (cpu)"
+        else:
+            b = xk.xfer_bound(mode, nrows, nxp, G, peak)
+            bound = (f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
+                     f"{100 * 1e-3 * b['bound_ms'] / s:.1f}% of the time)")
         rows.append({"mode": mode, "ms": 1e3 * s, "smem_bytes": nbytes})
         print(f"{mode:8s}: {1e3 * s:.4f} ms per {G}-block pass | less noop "
-              f"{1e3 * (s - noop):.4f} ms | shared memory {smem} vs "
+              f"{1e3 * (s - noop):.4f} ms | bound {bound} | shared memory "
               f"{nbytes / 1e6:.1f} MB", flush=True)
     return rows
