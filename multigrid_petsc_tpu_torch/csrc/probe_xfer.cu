@@ -42,9 +42,9 @@
 // The design (Tiling<MODE>: K, P, EDGE, OVER):
 // - A warp takes one span of 128 K consecutive input columns of one row,
 //   a lane 4 K consecutive ones (K 16-byte units).  Warps are independent:
-//   a block is ceil(spans / SMs) of them, so that the grid is about one
-//   block an SM with its warps on different schedulers; there is no
-//   __syncthreads.
+//   a block is ceil(spans / SMs) of them (at most MAX_WARPS, and 48 KB of
+//   shared memory), so that the grid is about one block an SM with its
+//   warps on different schedulers; there is no __syncthreads.
 // - The fill: coalesced 16-byte loads, unit u of the span to slot
 //   32 (u % K) + u / K of the warp's tile, so that lane l's c-th unit sits
 //   at slot 32 c + l.  Each of a pass's K LDS.128 then reads 512
@@ -62,11 +62,15 @@
 // - No barrier in the pass loop: each window load is ld.volatile.shared,
 //   which the compiler may neither hoist out of the loop nor merge, so
 //   every pass reads its window from shared memory (scripts/xfer_sass.py
-//   counts the loads in the loop's body).  A turn of the loop loads P
-//   passes' windows before their arithmetic; the sums are added in pass
-//   order.  s_i is made in registers, __double2float_rn(1.0 + 1e-7 i)
-//   in f64 with the product and sum rounded apart, as pass_scales makes
-//   it.  Full's last output column (0 in JAX) is set once, at the store.
+//   counts the loads in the loop's body).  A lane keeps P passes'
+//   windows in registers: pass i's is loaded again for pass i + P as soon
+//   as pass i has used it, so each load has P - 1 passes' arithmetic to
+//   arrive in.  The sums are added in pass order.  s_i is made in
+//   registers, bit for bit pass_scales.
+// - The stores: the sums go through the warp's tile in the order of the
+//   output row, then out in 16-byte units, consecutive lanes on
+//   consecutive units.  Full's last output column (0 in JAX) is set
+//   once, at the store.
 //
 // Arithmetic: the JAX kernels' order, each product and sum rounded on its
 // own (__fmul_rn, __fadd_rn are never contracted into an FMA), so the
@@ -127,6 +131,7 @@ constexpr int APPLY_STEPS = 8;  // apply8's smoothing steps
 constexpr int XFER_UNIT = 512;
 constexpr int MAX_PASSES = 8192;  // passes a launch takes
 constexpr int MAX_WARPS = 16;     // warps a block
+constexpr int SMEM_A_BLOCK = 48 * 1024;  // bytes, without opting in
 
 // A mode's tiling: a lane takes K 16-byte units (4 K consecutive input
 // columns), a warp 128 K; a turn of the pass loop loads P passes'
@@ -140,7 +145,7 @@ template <> struct Tiling<NOOP> {
   static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;
 };
 template <> struct Tiling<ARITH> {
-  static constexpr int K = 4, P = 4, EDGE = 2, OVER = 0;
+  static constexpr int K = 2, P = 4, EDGE = 2, OVER = 0;
 };
 template <> struct Tiling<SHUFFLE> {
   static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;
@@ -149,10 +154,10 @@ template <> struct Tiling<FULL> {
   static constexpr int K = 2, P = 4, EDGE = 1, OVER = 0;
 };
 template <> struct Tiling<APPLY8> {
-  static constexpr int K = 4, P = 2, EDGE = 0, OVER = APPLY_STEPS;
+  static constexpr int K = 2, P = 2, EDGE = 0, OVER = APPLY_STEPS;
 };
 template <> struct Tiling<PROLONG> {
-  static constexpr int K = 4, P = 2, EDGE = 1, OVER = 0;
+  static constexpr int K = 2, P = 4, EDGE = 1, OVER = 0;
 };
 
 // The outputs a lane sums: noop, arith, apply8 one a column; shuffle its
@@ -163,6 +168,15 @@ __host__ __device__ constexpr int lane_outputs() {
   return MODE == FULL ? 2 * Tiling<MODE>::K
                       : MODE == PROLONG ? 8 * Tiling<MODE>::K
                                         : 4 * Tiling<MODE>::K;
+}
+
+// A warp's shared memory, floats: its span and halo unit, or, where more,
+// its outputs staged for the stores (prolong).
+template <int MODE>
+__host__ __device__ constexpr int warp_floats() {
+  constexpr int tile = 128 * Tiling<MODE>::K + (Tiling<MODE>::EDGE ? 4 : 0);
+  constexpr int outs = 32 * lane_outputs<MODE>();
+  return tile > outs ? tile : outs;
 }
 
 __device__ __forceinline__ float4 lds4(unsigned a) {
@@ -187,10 +201,15 @@ __device__ __forceinline__ float lds1(unsigned a) {
   return v;
 }
 
-// s_i = f32(1 + 1e-7 i), formed in f64 as xfer_probe_kernel.pass_scales
-// forms it: the product and the sum rounded apart, then one rounding.
+// s_i = f32(1 + 1e-7 i) as xfer_probe_kernel.pass_scales forms it (in
+// f64, then one rounding), in integers: in [1, 2) the f32 spacing is
+// 2^-23 and 1e-7 i is 65536 i / 78125 of it, never within 2e-5 of a
+// rounding tie for i < MAX_PASSES, so s_i = 1 + 2^-23 round(65536 i /
+// 78125) (tests/test_torch_probes_xfer.py holds the two equal for every
+// such i).  No f64 conversion a pass.
 __device__ __forceinline__ float pass_scale(int i) {
-  return __double2float_rn(__dadd_rn(1.0, __dmul_rn(1e-7, (double)i)));
+  return __int_as_float(0x3f800000 +
+                        (int)((131072u * (unsigned)i + 78125u) / 156250u));
 }
 
 // One pass's reads: the lane's 4 K columns and the edge floats.
@@ -272,12 +291,11 @@ __device__ __forceinline__ void pass(const Win<MODE>& w, float s, int lane,
     for (int m = 0; m < U; ++m) t[m] = v[m];
     t[U] = __fmul_rn(n0, s);
 #pragma unroll
-    for (int k = 0; k < U / 2; ++k)
-      acc[k] = __fadd_rn(
-          acc[k],
-          __fmul_rn(0.0625f,
-                    __fadd_rn(__fadd_rn(t[2 * k], __fmul_rn(2.f, t[2 * k + 1])),
-                              t[2 * k + 2])));
+    for (int k = 0; k < U / 2; ++k) {
+      const float r = __fadd_rn(
+          __fadd_rn(t[2 * k], __fmul_rn(2.f, t[2 * k + 1])), t[2 * k + 2]);
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(0.0625f, r));
+    }
   } else if constexpr (MODE == APPLY8) {
 #pragma unroll
     for (int step = 0; step < APPLY_STEPS; ++step) {
@@ -341,8 +359,8 @@ xfer_pass_kernel(const float* __restrict__ x, float* __restrict__ out,
                  int rows, int nxp, int G, int spans) {
   using T = Tiling<MODE>;
   constexpr int K = T::K, P = T::P, U = 4 * K, SPAN = 128 * K;
-  constexpr int TW = SPAN + (T::EDGE ? 4 : 0);  // a warp's tile, floats
   constexpr int NO = lane_outputs<MODE>();
+  constexpr int TW = warp_floats<MODE>();
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -369,54 +387,63 @@ xfer_pass_kernel(const float* __restrict__ x, float* __restrict__ out,
   float acc[NO];
 #pragma unroll
   for (int k = 0; k < NO; ++k) acc[k] = 0.f;
+  // w[p] holds pass i + p's window: loaded P passes ahead, and loaded
+  // again for pass i + p + P as soon as pass i + p has used it.
+  Win<MODE> w[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (p < G) load_win(w[p], base, edge);
   int i = 0;
 #pragma unroll 1
   for (; i + P <= G; i += P) {
-    Win<MODE> w[P];
 #pragma unroll
-    for (int p = 0; p < P; ++p) load_win(w[p], base, edge);
-#pragma unroll
-    for (int p = 0; p < P; ++p) pass<MODE>(w[p], pass_scale(i + p), lane, acc);
+    for (int p = 0; p < P; ++p) {
+      pass<MODE>(w[p], pass_scale(i + p), lane, acc);
+      if (i + P + p < G) load_win(w[p], base, edge);
+    }
   }
-#pragma unroll 1
-  for (; i < G; ++i) {
-    Win<MODE> w;
-    load_win(w, base, edge);
-    pass<MODE>(w, pass_scale(i), lane, acc);
-  }
-  const int j0 = a + U * lane;  // the lane's first input column
-  float* orow = out + (long long)row * (MODE == PROLONG ? nxp : nxcp);
 #pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const int col = j0 + 4 * c;
-    if constexpr (MODE == NOOP || MODE == ARITH) {
-      if (col < nxcp)
-        *reinterpret_cast<float4*>(orow + col) = make_float4(
-            acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
-    } else if constexpr (MODE == SHUFFLE) {  // even columns, then odd ones
-      if (col < nxcp) {
-        *reinterpret_cast<float2*>(orow + col / 2) =
-            make_float2(acc[2 * c], acc[2 * c + 1]);
-        *reinterpret_cast<float2*>(orow + nxcp / 2 + col / 2) =
-            make_float2(acc[U / 2 + 2 * c], acc[U / 2 + 2 * c + 1]);
-      }
-    } else if constexpr (MODE == FULL) {  // the last output column is 0
-      if (col < nxp)
-        *reinterpret_cast<float2*>(orow + col / 2) =
-            make_float2(acc[2 * c], col == nxp - 4 ? 0.f : acc[2 * c + 1]);
-    } else if constexpr (MODE == APPLY8) {  // the middle of the span
-      const int m = U * lane + 4 * c;
-      if (m >= T::OVER && m < SPAN - T::OVER && col < nxcp)
-        *reinterpret_cast<float4*>(orow + col) = make_float4(
-            acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
-    } else {  // PROLONG
-      if (col < nxcp) {
-        float4* o = reinterpret_cast<float4*>(orow + 2 * col);
-        o[0] = make_float4(acc[8 * c], acc[8 * c + 1], acc[8 * c + 2],
-                           acc[8 * c + 3]);
-        o[1] = make_float4(acc[8 * c + 4], acc[8 * c + 5], acc[8 * c + 6],
-                           acc[8 * c + 7]);
-      }
+  for (int p = 0; p < P; ++p)  // the passes left over, loaded already
+    if (i + p < G) pass<MODE>(w[p], pass_scale(i + p), lane, acc);
+  // The stores: each lane's outputs, in their order in the output row,
+  // through the warp's tile (unit u = Q lane + q of a run at slot
+  // 32 q + lane), then 16-byte units u = 32 j + lane to the row, so that
+  // every store is coalesced.  A run is the warp's outputs that sit
+  // together in the row: shuffle's even columns and its odd ones, one
+  // run for the other modes.
+  constexpr int RUNS = MODE == SHUFFLE ? 2 : 1;
+  constexpr int Q = NO / 4 / RUNS;  // 16-byte units of a run a lane
+  static_assert(Q >= 1 && NO % (4 * RUNS) == 0, "whole units a run");
+  if (MODE == FULL && a + U * (lane + 1) == nxp)
+    acc[NO - 1] = 0.f;  // the last output column
+  __syncwarp();  // every lane's last window read
+#pragma unroll
+  for (int r = 0; r < RUNS; ++r)
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      tile[32 * Q * r + 32 * q + lane] =
+          make_float4(acc[4 * (Q * r + q)], acc[4 * (Q * r + q) + 1],
+                      acc[4 * (Q * r + q) + 2], acc[4 * (Q * r + q) + 3]);
+  __syncwarp();
+  const int out_cols = MODE == PROLONG ? nxp : nxcp;
+  float* orow = out + (long long)row * out_cols;
+#pragma unroll
+  for (int r = 0; r < RUNS; ++r) {
+    // the run's first output column and its end in the row
+    const int o0 = MODE == SHUFFLE ? r * nxcp / 2 + a / 2
+                   : MODE == FULL  ? a / 2
+                   : MODE == PROLONG ? 2 * a : a;
+    const int end = MODE == SHUFFLE ? (r + 1) * nxcp / 2 : out_cols;
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int u = 32 * j + lane;
+      const int o = o0 + 4 * u;
+      bool keep = o + 4 <= end;
+      if (MODE == APPLY8)  // the middle of the span
+        keep &= 4 * u >= T::OVER && 4 * u < SPAN - T::OVER;
+      if (keep)
+        *reinterpret_cast<float4*>(orow + o) =
+            tile[32 * Q * r + 32 * (u % Q) + u / Q];
     }
   }
 }
@@ -426,15 +453,17 @@ int launch_xfer(const float* x, float* out, int rows, int nxp, int G,
                 cudaStream_t stream) {
   using T = Tiling<MODE>;
   constexpr int SPAN = 128 * T::K, STEP = SPAN - 2 * T::OVER;
-  constexpr int TW = SPAN + (T::EDGE ? 4 : 0);
+  constexpr int TW = warp_floats<MODE>();
   const int tiled = MODE == FULL ? nxp : nxp / 2;  // input columns tiled
   const int spans = (tiled + STEP - 1) / STEP;
   const long long warps = (long long)rows * spans;
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int WB_MAX = SMEM_A_BLOCK / (4 * TW) < MAX_WARPS
+                             ? SMEM_A_BLOCK / (4 * TW) : MAX_WARPS;
   long long wb = (warps + sms - 1) / sms;  // about one block an SM
-  wb = wb < 1 ? 1 : wb > MAX_WARPS ? MAX_WARPS : wb;
+  wb = wb < 1 ? 1 : wb > WB_MAX ? WB_MAX : wb;
   if (warps > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((warps + wb - 1) / wb);
   xfer_pass_kernel<MODE><<<blocks, 32 * (int)wb, 4 * TW * wb, stream>>>(

@@ -71,15 +71,16 @@ APPLY_STEPS = 8  # apply8's smoothing steps (probe_xfer.cu APPLY_STEPS)
 XFER_UNIT = 512
 MAX_PASSES = 8192  # passes a launch takes (probe_xfer.cu)
 MAX_WARPS = 16  # warps a block (probe_xfer.cu)
+SMEM_A_BLOCK = 48 * 1024  # shared bytes a block at most (probe_xfer.cu)
 # mode: (K, P, EDGE, OVER) (probe_xfer.cu Tiling<MODE>): a lane takes K
 # 16-byte units, 4 K consecutive input columns, a warp 128 K; a turn of
 # the pass loop loads P passes' windows; the warp's edge lane reads EDGE
 # floats of a halo unit (arith, full: the columns after the span;
 # prolong: the one before it); apply8's spans overlap by OVER columns a
 # side.  The warps tile half the fine width, full the whole of it.
-TILING = {"noop": (2, 4, 0, 0), "arith": (4, 4, 2, 0),
+TILING = {"noop": (2, 4, 0, 0), "arith": (2, 4, 2, 0),
           "shuffle": (2, 4, 0, 0), "full": (2, 4, 1, 0),
-          "apply8": (4, 2, 0, APPLY_STEPS), "prolong": (4, 2, 1, 0)}
+          "apply8": (2, 2, 0, APPLY_STEPS), "prolong": (2, 4, 1, 0)}
 # Operations a pass makes per output of the JAX function (not of the
 # kernel's tiling): x s_i on each input column it takes, the mode's
 # arithmetic, the running sum's add (prolong: an even output 2 and an odd
@@ -296,11 +297,28 @@ def xfer_spans(mode: str, nxp: int) -> tuple[int, int, int]:
     return -(-tiled // step), step, span
 
 
+def lane_outputs(mode: str) -> int:
+    """The sums a lane keeps (probe_xfer.cu lane_outputs): one a column
+    (noop, arith, apply8; shuffle's evens then odds), one a column pair
+    (full), two a column (prolong)."""
+    u = 4 * TILING[mode][0]
+    return u // 2 if mode == "full" else 2 * u if mode == "prolong" else u
+
+
+def warp_floats(mode: str) -> int:
+    """A warp's shared memory in floats (probe_xfer.cu warp_floats): its
+    span and halo unit, or its outputs staged for the stores if more."""
+    k, _, edge, _ = TILING[mode]
+    return max(128 * k + (4 if edge else 0), 32 * lane_outputs(mode))
+
+
 def xfer_grid(mode: str, rows: int, nxp: int, sms: int):
     """(blocks, warps a block, warps) of a launch on a card of ``sms`` SMs:
-    a warp a span, about one block an SM (``launch_xfer``)."""
+    a warp a span, about one block an SM, at most MAX_WARPS and
+    SMEM_A_BLOCK bytes a block (``launch_xfer``)."""
     warps = rows * xfer_spans(mode, nxp)[0]
-    wb = min(max(-(-warps // sms), 1), MAX_WARPS)
+    cap = min(MAX_WARPS, SMEM_A_BLOCK // (4 * warp_floats(mode)))
+    wb = min(max(-(-warps // sms), 1), cap)
     return -(-warps // wb), wb, warps
 
 
@@ -315,12 +333,20 @@ def xfer_lanes(mode: str, rows: int, nxp: int, sms: int = 132):
       edge     the input columns the lane reads from the halo unit a pass
                (the warp's edge lane; the others take theirs by shuffle)
       shuffle  the input columns it takes from other lanes a pass
-      outputs  the output columns it stores."""
+      outputs  the output columns whose sums it makes, in its order (not
+               apply8's overlap, which the warp does not store)
+      stores   the output columns it writes: after the sums are staged in
+               the tile in the row's order, a run's (shuffle: the even
+               columns' and the odd ones'; one run else) 16-byte units
+               32 j + l, j < the units of the run a lane."""
     k, _, edge, over = TILING[mode]
     spans, step, span = xfer_spans(mode, nxp)
     _, wb, warps = xfer_grid(mode, rows, nxp, sms)
     u = 4 * k
     nxcp = nxp // 2
+    out_cols = nxp if mode == "prolong" else nxcp
+    runs = 2 if mode == "shuffle" else 1
+    q = lane_outputs(mode) // 4 // runs  # 16-byte units of a run a lane
     for g in range(warps):
         row, a = g // spans, (g % spans) * step - over
         lanes = []
@@ -347,8 +373,7 @@ def xfer_lanes(mode: str, rows: int, nxp: int, sms: int = 132):
                 if mode in ("noop", "arith") and col < nxcp:
                     outputs += range(col, col + 4)
                 elif mode == "shuffle" and col < nxcp:
-                    outputs += [col // 2, col // 2 + 1,
-                                nxcp // 2 + col // 2, nxcp // 2 + col // 2 + 1]
+                    outputs += [col // 2, col // 2 + 1]
                 elif mode == "full" and col < nxp:
                     outputs += [col // 2, col // 2 + 1]
                 elif (mode == "apply8" and over <= u * lane + 4 * c
@@ -356,8 +381,22 @@ def xfer_lanes(mode: str, rows: int, nxp: int, sms: int = 132):
                     outputs += range(col, col + 4)
                 elif mode == "prolong" and col < nxcp:
                     outputs += range(2 * col, 2 * col + 8)
+            if mode == "shuffle":
+                outputs += [nxcp // 2 + o for o in outputs]
+            stores = []
+            for r in range(runs):
+                o0 = {"shuffle": r * nxcp // 2 + a // 2, "full": a // 2,
+                      "prolong": 2 * a}.get(mode, a)
+                end = (r + 1) * nxcp // 2 if mode == "shuffle" else out_cols
+                for j in range(q):
+                    unit = 32 * j + lane
+                    o = o0 + 4 * unit
+                    if o + 4 <= end and (mode != "apply8" or over <= 4 * unit
+                                         < span - over):
+                        stores += range(o, o + 4)
             lanes.append({"units": units, "edge": lane_edge,
-                          "shuffle": shuffle, "outputs": outputs})
+                          "shuffle": shuffle, "outputs": outputs,
+                          "stores": stores})
         yield g // wb, g % wb, row, a, lanes
 
 

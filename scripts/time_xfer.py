@@ -18,8 +18,9 @@ for bit, then timed: device ms at G = 86 and at G = 1
 (``chip_smoke.device_ms``: 20 launches queued behind a sleeping kernel),
 the time a pass (t86 - t1) / 85, and the share of the mode's bound
 (``xfer_probe_kernel.xfer_bound`` of this checkout, at the card's SM count
-and clocks.max.sm).  Prints one JSON line, the card's name and power
-limit included.
+and clocks.max.sm); beside them an empty launch's device ms
+(``torch.cuda._sleep(1)``, one thread), the floor under a launch's fixed
+cost.  Prints one JSON line, the card's name and power limit included.
 
 --ab builds PARENT's ``probe_xfer.cu`` (default ``_archive/parent``, a
 parent commit unpacked there with ``git archive``) and this checkout's
@@ -27,7 +28,8 @@ side by side, runs the two in the order parent, change, change, parent
 (one process a run) and prints one JSON line with every run.
 
 --trials builds this checkout's source and each of ``TRIALS`` (the source
-with a few lines replaced: another K or P for one mode, one warp a block)
+with a few lines replaced: another K or P for one mode, one warp a block;
+shuffle and full take an even K, a lane's sums whole 16-byte units)
 and times them in one process in turns, the list and then the list
 reversed; each build's every mode is held to the plain version first.
 Builds and logs go to ``_archive/time_xfer/``, which git ignores.  Exits
@@ -81,17 +83,19 @@ TRIALS = {
     "noop K1": lambda: tiling("noop", 1, 4),
     "noop K4": lambda: tiling("noop", 4, 4),
     "noop P2": lambda: tiling("noop", 2, 2),
-    "shuffle K1": lambda: tiling("shuffle", 1, 4),
     "shuffle K4": lambda: tiling("shuffle", 4, 4),
-    "arith K2": lambda: tiling("arith", 2, 4),
-    "arith P2": lambda: tiling("arith", 4, 2),
-    "full K1": lambda: tiling("full", 1, 4),
+    "shuffle P2": lambda: tiling("shuffle", 2, 2),
+    "arith K1": lambda: tiling("arith", 1, 4),
+    "arith K4": lambda: tiling("arith", 4, 4),
+    "arith P2": lambda: tiling("arith", 2, 2),
     "full K4": lambda: tiling("full", 4, 4),
     "full P2": lambda: tiling("full", 2, 2),
-    "apply8 K2": lambda: tiling("apply8", 2, 2),
-    "apply8 P4": lambda: tiling("apply8", 4, 4),
-    "prolong K2": lambda: tiling("prolong", 2, 4),
-    "prolong P4": lambda: tiling("prolong", 4, 4),
+    "apply8 K1": lambda: tiling("apply8", 1, 2),
+    "apply8 K4": lambda: tiling("apply8", 4, 2),
+    "apply8 P4": lambda: tiling("apply8", 2, 4),
+    "prolong K1": lambda: tiling("prolong", 1, 4),
+    "prolong K4": lambda: tiling("prolong", 4, 4),
+    "prolong P2": lambda: tiling("prolong", 2, 2),
     # every warp a block of its own: the hardware spreads them
     "one warp a block": lambda: [(
         "long long wb = (warps + sms - 1) / sms;", "long long wb = 1;")],
@@ -143,8 +147,9 @@ def bind(xk, lib: Path):
 
 def measure(torch, sm, xk, x, e) -> tuple[dict, bool]:
     """Every mode held to its plain version, then its device ms at G = 86
-    and G = 1 and the time a pass."""
-    res, ok = {}, True
+    and G = 1 and the time a pass; and an empty launch's device ms."""
+    ok = True
+    res = {"empty_launch": sm.device_ms(torch, lambda: torch.cuda._sleep(1))}
 
     def call(mode, g):
         return (xk.xfer_prolong(e, g) if mode == "prolong"
@@ -167,6 +172,8 @@ def shares(runs: list[dict], rate: float) -> None:
     from multigrid_petsc_tpu_torch.ops.cuda import xfer_probe_kernel as xk
     for run in runs:
         for mode, r in run["modes"].items():
+            if mode == "empty_launch":
+                continue
             rows = T2 // 2 + 1 if mode == "prolong" else TH
             b = xk.xfer_bound(mode, rows, NXP, G, rate)
             r.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
@@ -174,12 +181,14 @@ def shares(runs: list[dict], rate: float) -> None:
 
 
 def line(label: str, run: dict) -> str:
+    modes = run["modes"]
     return f"{label}: " + ", ".join(
         f"{m} {r['device_ms']:.4f} ms (G = 1 {r['device_ms_g1']:.4f}, a "
         f"pass {1e3 * r['pass_ms']:.4f} us"
         + (f", {100 * r['share']:.1f}% of the bound" if "share" in r else "")
         + ("" if r["bit_for_bit"] else ", NOT bit for bit") + ")"
-        for m, r in run["modes"].items())
+        for m, r in modes.items() if m != "empty_launch") + (
+        f"; an empty launch {modes['empty_launch']:.4f} ms")
 
 
 def inputs(torch):

@@ -208,6 +208,21 @@ def test_pass_scales_are_jax_s():
     assert s[0] == 1.0 and s.dtype == np.float32
 
 
+def test_pass_scales_integer_form():
+    """The kernels form s_i in integers (probe_xfer.cu pass_scale): its
+    f32 bits are 1.0f's plus round(65536 i / 78125), (131072 i + 78125)
+    // 156250, for every i < MAX_PASSES, bit for bit ``pass_scales``;
+    the numerator stays below 2^31."""
+    i = np.arange(xk.MAX_PASSES, dtype=np.int64)
+    bits = 0x3F800000 + (131072 * i + 78125) // 156250
+    np.testing.assert_array_equal(
+        xk.pass_scales(xk.MAX_PASSES).numpy().view(np.uint32), bits)
+    assert 131072 * (xk.MAX_PASSES - 1) + 78125 < 2**31
+    cu = (Path(xk.__file__).resolve().parents[2] / "csrc" /
+          "probe_xfer.cu").read_text()
+    assert "(int)((131072u * (unsigned)i + 78125u) / 156250u)" in cu
+
+
 def test_smem_bytes_and_the_probe_shapes():
     """The shared-memory bytes the design reads at the probe's full mode:
     1536 warps of 64 lanes' columns (two 16-byte units a lane) and one
@@ -245,6 +260,8 @@ def test_mirrors_match_the_sources():
     assert f"constexpr int XFER_UNIT = {xk.XFER_UNIT};" in cu
     assert f"constexpr int MAX_PASSES = {xk.MAX_PASSES};" in cu
     assert f"constexpr int MAX_WARPS = {xk.MAX_WARPS};" in cu
+    assert f"constexpr int SMEM_A_BLOCK = {xk.SMEM_A_BLOCK // 1024} * 1024;" \
+        in cu
     assert "const int tiled = MODE == FULL ? nxp : nxp / 2;" in cu
     assert "constexpr int SPAN = 128 * T::K, STEP = SPAN - 2 * T::OVER;" in cu
     assert "tile[32 * (u % K) + u / K]" in cu  # unit u's slot
@@ -307,14 +324,17 @@ def test_tiling_makes_each_output_once(jp, mode, case):
     unit in slot 32 c + l (a pass's c-th LDS.128 reads 512 contiguous
     bytes); a lane's shuffled columns are other lanes' of its warp, its
     edge columns the halo unit's; every input column the function reads
-    is read from shared memory a pass; the design's bytes are
-    ``smem_read_bytes`` (what the probe prints); about one block an SM."""
+    is read from shared memory a pass; every output is stored once, by
+    the warp that makes it, a run's 16-byte unit n by lane n mod 32
+    (coalesced); the design's bytes are ``smem_read_bytes`` (what the
+    probe prints); about one block an SM, within 48 KB."""
     rows, nxp = _shape(jp, mode, dict(SHAPES_XFER)[case])
     nxcp = nxp // 2
     k, p, edge, over = xk.TILING[mode]
     span = 128 * k
     out_cols = nxp if mode == "prolong" else nxcp
     made = np.zeros((rows, out_cols), np.int64)
+    written = np.zeros((rows, out_cols), np.int64)
     read = np.zeros((rows, nxp + 8), bool)  # columns read a pass, wrapped
     nbytes, warps = 0, set()
     blocks, wb, nwarps = xk.xfer_grid(mode, rows, nxp, 132)
@@ -343,6 +363,19 @@ def test_tiling_makes_each_output_once(jp, mode, case):
                           if a + over <= col < a + span - over]
                 assert len(lane["outputs"]) == 4 * len(
                     [c for c in stored if c < nxcp])
+        mine = {c for ln in lanes for c in ln["outputs"]}
+        writes = [(c, i) for i, ln in enumerate(lanes) for c in ln["stores"]]
+        assert sorted(c for c, _ in writes) == sorted(mine)
+        # a run's units, in the row's order, from its first (apply8: the
+        # span's first, its overlap unstored) by consecutive lanes
+        runs = ([(a // 2, 0), (nxcp // 2 + a // 2, nxcp // 2)]
+                if mode == "shuffle" else [({"full": a // 2,
+                                             "prolong": 2 * a}.get(mode, a),
+                                            0)])
+        for c, i in writes:
+            written[row, c] += 1
+            o0 = max(o for o, lo in runs if c >= lo)
+            assert (c - o0) // 4 % 32 == i
         edges = [c for ln in lanes for c in ln["edge"]]
         for c in cols + edges:
             if mode == "apply8":
@@ -350,11 +383,11 @@ def test_tiling_makes_each_output_once(jp, mode, case):
             elif 0 <= c < nxp + 8:
                 read[row, c] = True
         nbytes += 16 * k * 32 + 4 * len(edges)
-    assert (made == 1).all()
+    assert (made == 1).all() and (written == 1).all()
     assert read[:, :xk.bound_columns(mode, nxp)].all()
     assert len(warps) == nwarps and blocks == -(-nwarps // wb)
-    assert wb <= xk.MAX_WARPS and (nwarps > 132 * xk.MAX_WARPS
-                                   or blocks <= 132)
+    assert wb <= xk.MAX_WARPS and blocks <= 132
+    assert 4 * wb * xk.warp_floats(mode) <= xk.SMEM_A_BLOCK
     assert 86 * nbytes == xk.smem_read_bytes(mode, rows, nxp, 86)
     assert xk.window_loads(mode) == k + (edge > 0)
 
@@ -418,18 +451,17 @@ def _model(x: torch.Tensor, mode: str, G: int):
                                                                      2 * u)
             acc = o if acc is None else acc + o
         for lane in range(32):
-            cols = []
+            cols, odd = [], []
             for c in range(k):
                 col, m = a + u * lane + 4 * c, u * lane + 4 * c
                 vals, at = None, None
                 if mode in ("noop", "arith") and col < nxcp:
                     at, vals = range(col, col + 4), acc[lane, 4 * c:4 * c + 4]
                 elif mode == "shuffle" and col < nxcp:
-                    h = u // 2
-                    at = [col // 2, col // 2 + 1, nxcp // 2 + col // 2,
-                          nxcp // 2 + col // 2 + 1]
-                    vals = torch.cat([acc[lane, 2 * c:2 * c + 2],
-                                      acc[lane, h + 2 * c:h + 2 * c + 2]])
+                    at = [col // 2, col // 2 + 1]
+                    vals = acc[lane, 2 * c:2 * c + 2]
+                    odd.append((nxcp // 2 + col // 2,
+                                acc[lane, u // 2 + 2 * c:u // 2 + 2 * c + 2]))
                 elif mode == "full" and col < nxp:
                     at = [col // 2, col // 2 + 1]
                     vals = acc[lane, 2 * c:2 * c + 2].clone()
@@ -444,6 +476,9 @@ def _model(x: torch.Tensor, mode: str, G: int):
                 if at is not None:
                     out[r, list(at)] = vals
                     cols += list(at)
+            for o, vals in odd:  # shuffle's odd columns after its even ones
+                out[r, o:o + 2] = vals
+                cols += [o, o + 1]
             stored.append(cols)
     return out, stored
 
