@@ -205,11 +205,13 @@ __device__ __forceinline__ float lds1(unsigned a) {
 // f64, then one rounding), in integers: in [1, 2) the f32 spacing is
 // 2^-23 and 1e-7 i is 65536 i / 78125 of it, never within 2e-5 of a
 // rounding tie for i < MAX_PASSES, so s_i = 1 + 2^-23 round(65536 i /
-// 78125) (tests/test_torch_probes_xfer.py holds the two equal for every
-// such i).  No f64 conversion a pass.
+// 78125), the rounding one 64-bit product, (i M + 2^31) >> 32 with
+// M = round(2^32 65536 / 78125) (tests/test_torch_probes_xfer.py holds
+// it equal to pass_scales for every such i).  No f64 work a pass.
 __device__ __forceinline__ float pass_scale(int i) {
-  return __int_as_float(0x3f800000 +
-                        (int)((131072u * (unsigned)i + 78125u) / 156250u));
+  const unsigned long long k =
+      ((unsigned long long)i * 3602879702ull + 2147483648ull) >> 32;
+  return __int_as_float(0x3f800000 + (int)k);
 }
 
 // One pass's reads: the lane's 4 K columns and the edge floats.
@@ -388,23 +390,32 @@ xfer_pass_kernel(const float* __restrict__ x, float* __restrict__ out,
 #pragma unroll
   for (int k = 0; k < NO; ++k) acc[k] = 0.f;
   // w[p] holds pass i + p's window: loaded P passes ahead, and loaded
-  // again for pass i + p + P as soon as pass i + p has used it.
+  // again for pass i + p + P as soon as pass i + p has used it.  The
+  // loop runs while every such load is for a pass below G, so that its
+  // body is one block of straight code.
   Win<MODE> w[P];
 #pragma unroll
   for (int p = 0; p < P; ++p)
     if (p < G) load_win(w[p], base, edge);
   int i = 0;
 #pragma unroll 1
-  for (; i + P <= G; i += P) {
+  for (; i + 2 * P <= G; i += P) {
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       pass<MODE>(w[p], pass_scale(i + p), lane, acc);
-      if (i + P + p < G) load_win(w[p], base, edge);
+      load_win(w[p], base, edge);
     }
   }
+  // The last passes, fewer than 2 P; the first P of them loaded already.
 #pragma unroll
-  for (int p = 0; p < P; ++p)  // the passes left over, loaded already
-    if (i + p < G) pass<MODE>(w[p], pass_scale(i + p), lane, acc);
+  for (int p = 0; p < P; ++p)
+    if (i + p < G) {
+      pass<MODE>(w[p], pass_scale(i + p), lane, acc);
+      if (i + P + p < G) load_win(w[p], base, edge);
+    }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (i + P + p < G) pass<MODE>(w[p], pass_scale(i + P + p), lane, acc);
   // The stores: each lane's outputs, in their order in the output row,
   // through the warp's tile (unit u = Q lane + q of a run at slot
   // 32 q + lane), then 16-byte units u = 32 j + lane to the row, so that

@@ -210,17 +210,22 @@ def test_pass_scales_are_jax_s():
 
 def test_pass_scales_integer_form():
     """The kernels form s_i in integers (probe_xfer.cu pass_scale): its
-    f32 bits are 1.0f's plus round(65536 i / 78125), (131072 i + 78125)
-    // 156250, for every i < MAX_PASSES, bit for bit ``pass_scales``;
-    the numerator stays below 2^31."""
-    i = np.arange(xk.MAX_PASSES, dtype=np.int64)
-    bits = 0x3F800000 + (131072 * i + 78125) // 156250
+    f32 bits are 1.0f's plus round(65536 i / 78125) = (131072 i + 78125)
+    // 156250, which one 64-bit product gives, (i M + 2^31) >> 32 with M
+    = round(2^32 65536 / 78125); for every i < MAX_PASSES bit for bit
+    ``pass_scales``."""
+    m = round(2**32 * 65536 / 78125)
+    assert m == 3602879702 and m < 2**32
+    i = np.arange(xk.MAX_PASSES, dtype=np.uint64)
+    k = (i * np.uint64(m) + np.uint64(2**31)) >> np.uint64(32)
+    np.testing.assert_array_equal(k, (131072 * i + 78125) // 156250)
     np.testing.assert_array_equal(
-        xk.pass_scales(xk.MAX_PASSES).numpy().view(np.uint32), bits)
-    assert 131072 * (xk.MAX_PASSES - 1) + 78125 < 2**31
+        xk.pass_scales(xk.MAX_PASSES).numpy().view(np.uint32),
+        np.uint32(0x3F800000) + k.astype(np.uint32))
     cu = (Path(xk.__file__).resolve().parents[2] / "csrc" /
           "probe_xfer.cu").read_text()
-    assert "(int)((131072u * (unsigned)i + 78125u) / 156250u)" in cu
+    assert ("((unsigned long long)i * 3602879702ull + 2147483648ull) >> 32"
+            in cu)
 
 
 def test_smem_bytes_and_the_probe_shapes():
