@@ -142,16 +142,16 @@ constexpr int SMEM_A_BLOCK = 48 * 1024;  // bytes, without opting in
 template <int MODE>
 struct Tiling;
 template <> struct Tiling<NOOP> {
-  static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;
+  static constexpr int K = 1, P = 4, EDGE = 0, OVER = 0;
 };
 template <> struct Tiling<ARITH> {
-  static constexpr int K = 2, P = 4, EDGE = 2, OVER = 0;
+  static constexpr int K = 1, P = 4, EDGE = 2, OVER = 0;
 };
 template <> struct Tiling<SHUFFLE> {
   static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;
 };
 template <> struct Tiling<FULL> {
-  static constexpr int K = 2, P = 4, EDGE = 1, OVER = 0;
+  static constexpr int K = 2, P = 2, EDGE = 1, OVER = 0;
 };
 template <> struct Tiling<APPLY8> {
   static constexpr int K = 2, P = 2, EDGE = 0, OVER = APPLY_STEPS;

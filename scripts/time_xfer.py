@@ -80,22 +80,24 @@ def tiling(mode: str, k: int, p: int) -> list[tuple[str, str]]:
 
 # name: substitutions in csrc/probe_xfer.cu (each must occur once).
 TRIALS = {
-    "noop K1": lambda: tiling("noop", 1, 4),
-    "noop K4": lambda: tiling("noop", 4, 4),
-    "noop P2": lambda: tiling("noop", 2, 2),
+    "noop K2": lambda: tiling("noop", 2, 4),
+    "noop P2": lambda: tiling("noop", 1, 2),
     "shuffle K4": lambda: tiling("shuffle", 4, 4),
     "shuffle P2": lambda: tiling("shuffle", 2, 2),
-    "arith K1": lambda: tiling("arith", 1, 4),
-    "arith K4": lambda: tiling("arith", 4, 4),
-    "arith P2": lambda: tiling("arith", 2, 2),
-    "full K4": lambda: tiling("full", 4, 4),
-    "full P2": lambda: tiling("full", 2, 2),
+    "arith K2": lambda: tiling("arith", 2, 4),
+    "arith P2": lambda: tiling("arith", 1, 2),
+    "full P4": lambda: tiling("full", 2, 4),
+    "full K4": lambda: tiling("full", 4, 2),
     "apply8 K1": lambda: tiling("apply8", 1, 2),
     "apply8 K4": lambda: tiling("apply8", 4, 2),
     "apply8 P4": lambda: tiling("apply8", 2, 4),
     "prolong K1": lambda: tiling("prolong", 1, 4),
     "prolong K4": lambda: tiling("prolong", 4, 4),
     "prolong P2": lambda: tiling("prolong", 2, 2),
+    "two warps a block": lambda: [(
+        "long long wb = (warps + sms - 1) / sms;", "long long wb = 2;")],
+    "four warps a block": lambda: [(
+        "long long wb = (warps + sms - 1) / sms;", "long long wb = 4;")],
     # every warp a block of its own: the hardware spreads them
     "one warp a block": lambda: [(
         "long long wb = (warps + sms - 1) / sms;", "long long wb = 1;")],
