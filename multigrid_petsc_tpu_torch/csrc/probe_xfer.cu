@@ -145,7 +145,7 @@ template <> struct Tiling<NOOP> {
   static constexpr int K = 1, P = 4, EDGE = 0, OVER = 0;
 };
 template <> struct Tiling<ARITH> {
-  static constexpr int K = 1, P = 4, EDGE = 2, OVER = 0;
+  static constexpr int K = 1, P = 2, EDGE = 2, OVER = 0;
 };
 template <> struct Tiling<SHUFFLE> {
   static constexpr int K = 2, P = 4, EDGE = 0, OVER = 0;

@@ -78,7 +78,7 @@ SMEM_A_BLOCK = 48 * 1024  # shared bytes a block at most (probe_xfer.cu)
 # floats of a halo unit (arith, full: the columns after the span;
 # prolong: the one before it); apply8's spans overlap by OVER columns a
 # side.  The warps tile half the fine width, full the whole of it.
-TILING = {"noop": (1, 4, 0, 0), "arith": (1, 4, 2, 0),
+TILING = {"noop": (1, 4, 0, 0), "arith": (1, 2, 2, 0),
           "shuffle": (2, 4, 0, 0), "full": (2, 2, 1, 0),
           "apply8": (2, 2, 0, APPLY_STEPS), "prolong": (2, 4, 1, 0)}
 # Operations a pass makes per output of the JAX function (not of the

@@ -85,7 +85,7 @@ TRIALS = {
     "shuffle K4": lambda: tiling("shuffle", 4, 4),
     "shuffle P2": lambda: tiling("shuffle", 2, 2),
     "arith K2": lambda: tiling("arith", 2, 4),
-    "arith P2": lambda: tiling("arith", 1, 2),
+    "arith P4": lambda: tiling("arith", 1, 4),
     "full P4": lambda: tiling("full", 2, 4),
     "full K4": lambda: tiling("full", 4, 2),
     "apply8 K1": lambda: tiling("apply8", 1, 2),
