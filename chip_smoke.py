@@ -97,7 +97,19 @@ non-zero):
      nonzero-guess rc), K12, K13 and K14, and K15 in f64, each against its
      plain version, with times and conv2d's where one call computes it;
      then 2b's ragged shapes for K14 in f64 and bf16 and K15 in f64, and
-     phase 2's ragged checks of the 5-point visit and K12 in f64 and bf16;
+     phase 2's ragged checks of the 5-point visit (bf16: also the CG flag
+     set, K2a / K10) and K12 in f64 and bf16;
+  2e. the bf16 working dtype (dtype="bfloat16"), run after phase 5: (a)
+     K1, K2a (k = 3), K10 (k = 8) and K11 in bf16 at 8191^2 and K4 in
+     bf16 on phase 2's seven trees, against their plain versions (one
+     bf16 ulp of each entry or TOL_ARRAY of max|plain|; dots rtol 1e-5),
+     timed (kernel, plain, device) beside the bound at 2-byte storage;
+     (b) the main path in bf16 (8193^2 / 11 levels, mg-CG, 10 forced, the
+     mdma route, only bf16 launches: K1, K2a, K2b, K3, K4), its error and
+     ms per iteration beside phase 4's f32 run; (c) the bf16 V-cycle (10
+     forced) at 2049^2 and 8193^2 and aniso mg-CG at 8193^2; (d) card
+     against CPU at 1025^2 (errors within 1.25x), and PCMG, Additive,
+     FMG, the fused route and mg-FGMRES (2x) in bf16 at 257^2;
   3d. card against CPU at 1025^2 / 8 levels: the fused route (-v 8,8),
      mg-CG in f64 to rtol 1e-7 (generic route), the mixed outer (f32
      V-cycle + f64 outer) to 1e-8 and float32x2, the bf16 preconditioner
@@ -233,7 +245,7 @@ non-zero):
      against CPU.
 Every path run starts with the launch counters at 0 and reads them right
 after (a rank's counters in its own process).  ``--only
-k18,9a,9b,10,11a,11,12,13a,13,14,15,16a,16`` runs the build and just those
+k18,4,2e,9a,9b,10,11a,11,12,13a,13,14,15,16a,16`` runs the build and just those
 phases
 (phase 4 first where they read it), and prints no result line.  The line before the last two is the kernels' JSON record (times,
 launches, errors, byte and operation bounds); the last line is the
@@ -1598,8 +1610,8 @@ def check_bf16_cuts(torch, dev, rec):
 def check_ragged_5pt(torch, dev, rec, dt, sfx=""):
     """The 5-point strip visit and K12's strip kernel against their plain
     versions on RAGGED's shapes (tiles cut by the edge, levels smaller
-    than a tile), untimed.  The visit: every flag set (f32: also the CG
-    set, K2a / K10) at k = 1, at its emit's bound (max_visit_steps: 43
+    than a tile), untimed.  The visit: every flag set (f32 and bf16: also
+    the CG set, K2a / K10) at k = 1, at its emit's bound (max_visit_steps: 43
     with emit rc in f32 and bf16, 23 in f64) and, in the f32 compute type,
     at the two halos on either side of the region rule (V5_SHORT_MAX_H), so
     every region a storage type has is launched; then K17's row blocks
@@ -1677,7 +1689,7 @@ def check_ragged_5pt(torch, dev, rec, dt, sfx=""):
                     dot_scale=lambda w: float(
                         (b.float() * w[0].float()).abs().sum()),
                     floors=floors)
-        if dt == torch.float32:
+        if dt in mdma.CG_DTYPES:
             ap = rnd(ny, nx)
             alpha = torch.tensor(0.37, device=dev)
             for k in ks_for("rc"):
@@ -1820,11 +1832,11 @@ def phase_main(torch):
     errs = error_norms(res.ctx.problem, MeshType.UNIFORM, res.u)
     print("  error vs exact (max, L1, L2): "
           + " ".join(f"{e:.6e}" for e in errs))
-    ms_per_iteration(res, cfg)
+    ms = ms_per_iteration(res, cfg)
     tree = build_coarse_tree(res.ctx)
     print(f"  coarse tree from level {tree[0]}")
     return counts, res.u, {"iters": res.iters, "err": errs[0],
-                           "tree": tree[0]}
+                           "tree": tree[0], "ms": ms}
 
 
 def ms_per_iteration(res, cfg, u0=None):
@@ -1848,15 +1860,21 @@ def ms_per_iteration(res, cfg, u0=None):
     print(f"  ms per iteration (median of 3 differenced pairs, {k1} vs {k2} "
           f"iterations): {ms:.4f}; samples "
           f"{[round(1e3 * p, 4) for p in pairs]}")
+    return ms
+
+
+MS_PER_ITERATION: dict = {}  # run_full_width's, by label
 
 
 def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
-                   err_max=1e-2, ctx=None, forbid=(), u0=None):
+                   err_max=1e-2, ctx=None, forbid=(), u0=None,
+                   descent=True):
     """One full-width solve: launch counts from 0, error norms, ms per
     iteration.  ``near``: the solution within ``err_max`` of the exact
-    one; ``forced``: a forced count (max_iter +- 1), else it must
-    converge.  ``ctx``: a context built for ``cfg`` already; ``forbid``:
-    kernels the run must not launch; ``u0``: the warm start."""
+    one, else (``descent``) the residual below its start; ``forced``: a
+    forced count (max_iter +- 1), else it must converge.  ``ctx``: a
+    context built for ``cfg`` already; ``forbid``: kernels the run must
+    not launch; ``u0``: the warm start."""
     import numpy as np
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
@@ -1893,9 +1911,9 @@ def run_full_width(torch, label, cfg, expect, near, forced, u_ref=None,
         assert res.converged, f"{label}: not converged"
     if near:
         assert errs[0] <= err_max, f"{label}: max error {errs[0]:.3e}"
-    else:  # slow cycles: the residual must still have fallen
+    elif descent:  # slow cycles: the residual must still have fallen
         assert res.rnorm[-1] < 1, f"{label}: no descent"
-    ms_per_iteration(res, cfg, u0)
+    MS_PER_ITERATION[label] = ms_per_iteration(res, cfg, u0)
     return counts, res
 
 
@@ -2510,6 +2528,240 @@ def phase_precision(torch):
         {"smooth_sweeps.f64", "fused_level_visit.f64", "residual5.f64"},
         forced=True)
     return counts
+
+
+def exact_max(torch, cfg) -> float:
+    """max|u_exact| on cfg's fine interior grid (the bf16 errors' scale)."""
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        aniso_exact_grid,
+        exact_grid,
+        poisson_sin_problem,
+    )
+
+    n = cfg.npts - 2
+    if cfg.problem == "aniso":
+        ue = aniso_exact_grid(AnisoProblem(*cfg.aniso), n, n, torch.float64,
+                              "cpu")
+    else:
+        ue = exact_grid(poisson_sin_problem(), MeshType(cfg.mesh), n, n,
+                        torch.float64, "cpu")
+    return float(ue.abs().max())
+
+
+def phase_bf16(torch, dev, rec, main_ref):
+    """Phase 2e: the bf16 working dtype (dtype="bfloat16": bf16 storage,
+    f32 arithmetic, one rounding per stored output, f32 dots and Krylov
+    scalars).  (a) K1, K2a (k = 3: visit5p_kernel's step), K10 (k = 8,
+    the fused route's: visit5_kernel's tall region) and K11 in bf16 at
+    8191^2, K4 in bf16 on the main path's 1023^2 -> 7^2 tree and on the
+    seven trees of phase 2, each against its plain version on the card
+    (one bf16 ulp of each entry, or TOL_ARRAY of max|plain|; dots rtol
+    1e-5), timed (kernel, plain, device) beside the bound at 2-byte
+    storage; (b) the main path in bf16: 8193^2 / 11 levels, mg-CG, 10
+    forced iterations, the mdma route with only bf16 instantiations, its
+    error against the exact solution (printed, not held: bf16 mg-CG's
+    grows with the grid, 4.6e-2 at 1025^2 on the CPU; A amplifies the
+    bf16 rounding of its directions by ~4/h^2, which at 8193^2 swamps
+    them: its recursive residual grows) and ms per iteration beside
+    phase 4's f32 run; (c) the bf16 V-cycle (10 forced) at 2049^2 (within
+    5e-3 of max|u_exact|) and 8193^2 (below 0.5: bf16's accuracy falls
+    past 2049^2), the aniso mg-CG (10 forced) at 8193^2; (d) card
+    against CPU at 1025^2 / 10 levels for (b) and (c)'s runs (max errors
+    within 1.25x of each other) and at 257^2 for every other cycle of the
+    slice (PCMG, Additive, FMG, the fused route; mg-FGMRES 2x).  The aniso
+    problem is the default (1, 0, 1, 0, 0): its coefficients are powers of
+    two, exact in bf16; rounding variable coefficients to bf16 perturbs
+    the operator itself."""
+    import numpy as np
+
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import coarse_tree_kernel as ctk
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.ops.cuda import mdma_kernel as mdma
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+    from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.problems import stencil_coefficients
+    from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    n = 8191
+    pts = n * n
+    jac, jac8 = jacobi_step_coeffs(3, 0.8), jacobi_step_coeffs(8, 0.8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def check(key, label, arrays, flops, kern, plain, names, nbytes=None):
+        rec.setdefault(key, {})
+        nbytes = arrays * pts * 2 if nbytes is None else nbytes
+        check_kernel(torch, rec, key, label, nbytes, flops, kern, plain,
+                     names, dot_scale=lambda w: abs(float(w[-1])))
+        dms = device_ms(torch, kern)
+        rec[key]["device_ms"] = dms
+        print(f"  {label}: device {dms:.4f} ms a call; bound at 2-byte "
+              f"storage {1e3 * nbytes / HBM_PEAK:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at {HBM_PEAK / 1e12:.2f} TB/s)")
+
+    print(f"(a) the bf16 kernels at {n}^2 on {nvidia_smi_line()}")
+    st = stencil_coefficients(MeshType.UNIFORM, n, n, bf, dev)
+    z, p, u = rnd(n, n), rnd(n, n), rnd(n, n)
+    a_prev = torch.tensor(0.21, device=dev)
+    beta = torch.tensor(0.43, device=dev)
+    alpha = torch.tensor(0.37, device=dev)
+    check("cg_papply_u.bf16", "K1 cg_papply_u bf16", 6, 15 * pts,
+          lambda: mdma.cg_papply_u(st, z, p, u, a_prev, beta),
+          lambda: mdma.cg_papply_u_plain(st, z, p, u, a_prev, beta),
+          ("p'", "Ap'", "u'", "<p',Ap'>"))
+    check("cg_papply.bf16", "K11 cg_papply bf16", 4, 13 * pts,
+          lambda: sk.cg_papply(st, z, p, beta),
+          lambda: sk.cg_papply_plain(st, z, p, beta),
+          ("p'", "Ap'", "<p',Ap'>"))
+    check("cg_visit_down.bf16", "K2a cg_visit_down bf16 k=3", 4.25,
+          (15 * len(jac) + 16) * pts,
+          lambda: mdma.cg_visit_down(st, z, p, alpha, jac),
+          lambda: mdma.cg_visit_down_plain(st, z, p, alpha, jac),
+          ("u0", "rc", "r'", "||r'||^2"))
+    check("fused_cg_visit_down.bf16", "K10 cg_visit_down bf16 k=8", 4.25,
+          (15 * len(jac8) + 16) * pts,
+          lambda: sk.cg_visit_down(st, z, p, alpha, jac8),
+          lambda: sk.cg_visit_down_plain(st, z, p, alpha, jac8),
+          ("u0", "rc", "r'", "||r'||^2"))
+    del st, z, p, u
+    torch.cuda.empty_cache()
+    tct = load_script("time_coarse_tree")
+    trees = tct.tree_cases(torch, dev, bf)
+    key = "coarse_tree.bf16"
+    rec.setdefault(key, {})
+    print(f"K4 coarse_tree bf16 on {len(trees)} trees")
+    for t in trees:
+        assert t.solve.plan.dtype == bf
+        compare(torch, t.name, t.solve(t.b), t.plain(), rec[key])
+    main = trees[0]
+    shapes = main.shapes
+    nl = shapes[-1][0] * shapes[-1][1]
+    check(key, "K4 coarse_tree bf16 1023^2 -> 7^2", 0,
+          sum((30 * 3 + 14) * a * c for a, c in shapes) + 2 * nl * nl,
+          lambda: main.solve(main.b), main.plain, ("u",),
+          nbytes=2 * shapes[0][0] * shapes[0][1] * 2 + 4 * nl * nl)
+    f32_dev = rec.get("coarse_tree", {}).get("device_ms")
+    print(f"  K4 bf16 device {rec[key]['device_ms']:.4f} ms a call beside "
+          f"f32's {f32_dev} (phase 2): at its latency floor (grid syncs), "
+          f"not its bytes")
+    del trees, main
+    torch.cuda.empty_cache()
+
+    counts = {}
+
+    def tally(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    base = dict(npts=8193, grids=11, levels=11, dtype="bfloat16", rtol=0.0,
+                max_iter=10)
+    cfg = SolverConfig(cycle=CycleType.MGCG, **base)
+    umax = exact_max(torch, cfg)
+    c, res = run_full_width(
+        torch, "(b) bf16 main path, mg-CG forced 10", cfg,
+        {k + ".bf16" for k in ("cg_papply_u", "cg_visit_down", "visit_down",
+                               "visit_up", "coarse_tree")}, False, True,
+        descent=False, forbid=("cg_papply_u", "cg_visit_down", "visit_down",
+                               "visit_up", "coarse_tree"))
+    assert res.route == "mdma", res.route
+    assert all(k.endswith(".bf16") for k in c), c
+    assert c["coarse_tree.bf16"] == c["cg_visit_down.bf16"] == 11, c
+    err_b = error_norms(res.ctx.problem, MeshType.UNIFORM, res.u)[0] / umax
+    main_counts = c
+    f32 = main_ref or {}
+    print(f"  (b) bf16 mg-CG: max error / max|u_exact| {err_b:.6e}, "
+          f"{MS_PER_ITERATION['(b) bf16 main path, mg-CG forced 10']:.4f} "
+          f"ms per iteration; f32 (phase 4, rtol 1e-5): "
+          f"{f32.get('iters')} iterations, max error "
+          f"{f32.get('err', float('nan')):.6e}, {f32.get('ms')} ms per "
+          f"iteration")
+    del res
+    torch.cuda.empty_cache()
+    # The bf16 V-cycle: within 5e-3 of max|u_exact| at 2049^2 (the plain
+    # version's 2.5e-3 on the CPU); at 8193^2 held below 0.5 (a diverged
+    # solve is O(1) off): past 2049^2 the rounding of u and of the stored
+    # level arrays, amplified by A ~ 4/h^2, moves the solution (the plain
+    # version: 1.25e-2 at 4097^2; scripts/bf16_scaling.py).
+    visits = {"visit_down.bf16", "visit_up.bf16", "fused_level_visit.bf16",
+              "residual5.bf16"}
+    for npts, levels, bound in ((2049, 11, 5e-3), (8193, 11, 0.5)):
+        cv = SolverConfig(cycle=CycleType.VCYCLE, **dict(
+            base, npts=npts, grids=levels, levels=levels))
+        c, res = run_full_width(torch, "(c) bf16 V-cycle, forced 10", cv,
+                                visits, True, True,
+                                err_max=bound * exact_max(torch, cv))
+        assert all(k.endswith(".bf16") for k in c), c
+        tally(c)
+        del res
+    ca = SolverConfig(cycle=CycleType.MGCG, problem="aniso", **base)
+    c, res = run_full_width(torch, "(c) bf16 aniso mg-CG, forced 10", ca,
+                            {"apply_stencil9.bf16",
+                             "fused_level_visit9.bf16"}, False, True,
+                            descent=False)
+    assert res.route == "generic" and all(k.endswith(".bf16") for k in c), c
+    err_c = (error_norms(res.ctx.problem, MeshType.UNIFORM, res.u)[0]
+             / exact_max(torch, ca))
+    print(f"  (c) aniso: max error / max|u_exact| {err_c:.6e}")
+    tally(c)
+    del res
+    torch.cuda.empty_cache()
+
+    # (d) card against CPU: (b) and (c)'s runs at 1025^2, within 1.25x;
+    # the slice's other cycles at 257^2, where bf16 holds them near the
+    # f64 solution (tests/test_torch_bf16.py), within 1.25x, mg-FGMRES 2x:
+    # at 1025^2 the rounding of u (A du, 20-300x ||b|| there, CPU) leaks
+    # into their corrections, and mg-FGMRES's Arnoldi basis, stored in
+    # bf16, then follows the dots' order (card 0.165 against CPU 0.439
+    # after 3 blocks, an H100).
+    small = dict(base, npts=1025, grids=10, levels=10)
+    tiny = dict(base, npts=257, grids=8, levels=8)
+    runs = (  # label, config, card / CPU error ratio
+        ("mg-CG (mdma)", dict(small, cycle=CycleType.MGCG), 1.25),
+        ("V-cycle", dict(small, cycle=CycleType.VCYCLE), 1.25),
+        ("aniso mg-CG (generic)", dict(small, cycle=CycleType.MGCG,
+                                       problem="aniso"), 1.25),
+        ("PCMG", dict(tiny, cycle=CycleType.PCMG), 1.25),
+        ("Additive", dict(tiny, cycle=CycleType.ADDITIVE), 1.25),
+        ("FMG", dict(tiny, cycle=CycleType.FMG, max_iter=5), 1.25),
+        ("mg-CG -v 8,8 (fused)", dict(tiny, cycle=CycleType.MGCG,
+                                      v=(8, 8)), 1.25),
+        ("mg-FGMRES", dict(tiny, cycle=CycleType.MGFGMRES), 2.0),
+    )
+    for label, fields, ratio in runs:
+        cfg = SolverConfig(**fields)
+        um = exact_max(torch, cfg)
+        launches.clear()
+        g = solve(cfg, device="cuda")
+        tally(dict(launches))
+        assert g.path == "cuda" and g.iters == cfg.max_iter
+        assert all(k.endswith(".bf16") for k in launches), dict(launches)
+        assert np.all(np.isfinite(g.rnorm))
+        eg = error_norms(g.ctx.problem, MeshType(cfg.mesh), g.u)[0] / um
+        c = solve(cfg, device="cpu")
+        ec = error_norms(c.ctx.problem, MeshType(cfg.mesh), c.u)[0] / um
+        print(f"(d) bf16 {label} {cfg.npts}^2/{cfg.levels}, {cfg.max_iter} "
+              f"forced: route "
+              f"{g.route}; max error / max|u_exact| card {eg:.4e}, CPU "
+              f"{ec:.4e} (ratio {max(eg, ec) / min(eg, ec):.3f}, limit "
+              f"{ratio})")
+        assert c.route == g.route and c.iters == g.iters
+        assert max(eg, ec) <= ratio * min(eg, ec), (label, eg, ec)
+        if fields.get("v") == (8, 8):
+            assert g.route == "fused"
+            assert launches["cg_papply.bf16"] == cfg.max_iter, dict(launches)
+    for k in ("cg_papply.bf16", "fused_cg_visit_down.bf16"):
+        assert counts.get(k, 0) > 0, (k, counts)
+    # The kernels line's launches: K1, K2a and K4 from (b), the main path
+    # in bf16; K10 and K11 from (d)'s fused-route run.
+    return {**counts, **main_counts}
 
 
 # ---------------------------------------------------------------------------
@@ -5260,7 +5512,10 @@ def run_phase16(torch, dev, rec, main_ref):
 
 def partial_run(torch, dev, parts) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
-    named (k18: phase 1's K18a; 9a: K17's blocks and their split visits;
+    named (k18: phase 1's K18a; 4: phase 4 alone; 2e: the bf16 working
+    dtype (phase 2d's bf16 ragged 5-point checks, then phase 2e; with 4,
+    phase 4 first, which (b) prints beside its run); 9a: K17's blocks and
+    their split visits;
     9b: the distributed runs; 10: phase 10;
     11a: K17 in bf16 (phase 2d's check) and 11 (a); k15: K15's one-card
     checks at 8191^2 (phase 2's), 11 (a) and 13 (a)'s K15; 11: phase 11; 12:
@@ -5269,7 +5524,7 @@ def partial_run(torch, dev, parts) -> int:
     4 first where they read it; no result line, so a partial run never
     passes for a whole one."""
     main_ref = None
-    if {"9b", "10", "13", "14", "16"} & set(parts):
+    if {"4", "9b", "10", "13", "14", "16"} & set(parts):
         _, u_ref, main_ref = phase_main(torch)
         main_ref["u"] = u_ref.cpu().numpy()
         del u_ref
@@ -5278,6 +5533,12 @@ def partial_run(torch, dev, parts) -> int:
         stream = timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
         if "1b" in parts:
             timed_phase(torch, "1b (K18b)", phase_probes, dev, rec, stream)
+        print(json.dumps(rec))
+    if "2e" in parts:
+        rec = {}
+        timed_phase(torch, "2d bf16 ragged 5-point", check_ragged_5pt, dev,
+                    rec, torch.bfloat16, ".bf16")
+        timed_phase(torch, "2e", phase_bf16, dev, rec, main_ref)
         print(json.dumps(rec))
     if "9a" in parts:
         rec = {}
@@ -5419,6 +5680,8 @@ def main() -> int:
     p3d_counts = timed_phase(torch, "3d", phase_parity_precision)
     counts, u_ref, main_ref = timed_phase(torch, "4", phase_main)
     vcounts = timed_phase(torch, "5", phase_vcycle, u_ref)
+    p2e_counts = timed_phase(torch, "2e", phase_bf16, dev, rec, main_ref)
+    torch.cuda.empty_cache()
     main_ref["u"] = u_ref.cpu().numpy()  # phase 9 (b)'s reference
     del u_ref
     acounts = timed_phase(torch, "6", phase_aniso)
@@ -5481,6 +5744,15 @@ def main() -> int:
         "line_visit9.f64": ("line_f64.cu", "line_kernel.py:208"),
         "visit_down.bf16": ("visit_bf16.cu", "mdma_kernel.py:628"),
         "visit_up.bf16": ("visit_bf16.cu", "mdma_kernel.py:796"),
+        # The bf16 working dtype (phase 2e): launches from 2e (b), the
+        # main path in bf16 (K1, K2a, K4), and 2e (d)'s fused-route run
+        # (K10, K11).
+        "cg_papply_u.bf16": ("visit_bf16.cu", "mdma_kernel.py:973"),
+        "cg_visit_down.bf16": ("visit_bf16.cu", "mdma_kernel.py:471"),
+        "coarse_tree.bf16": ("coarse_tree.cu", "coarse_tree_kernel.py:92"),
+        "cg_papply.bf16": ("visit_bf16.cu", "stencil_kernel.py:1055"),
+        "fused_cg_visit_down.bf16": ("visit_bf16.cu",
+                                     "stencil_kernel.py:921"),
         # The distribution slice; launches from phase 9 (b)'s Poisson run
         # (rank 0) and, for f64, 9 (c)'s card run.
         "dist_level_visit": ("visit_rows.cu", "dist_kernel.py:399"),
@@ -5536,6 +5808,9 @@ def main() -> int:
     for k in meta:  # K18a's from phase 1's rate run, 1b's probes' path
         if "launches" in rec.get(k, {}):
             counts[k] = rec[k]["launches"]
+    for k in ("cg_papply_u.bf16", "cg_visit_down.bf16", "coarse_tree.bf16",
+              "cg_papply.bf16", "fused_cg_visit_down.bf16"):
+        counts[k] = p2e_counts[k]
     for k in meta:
         if k not in counts:
             counts[k] = p8_counts.get(k) or p3d_counts.get(k, 0)

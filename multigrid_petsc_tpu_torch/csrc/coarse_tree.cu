@@ -47,8 +47,19 @@
 //   only sets those two and launches.  The kernel allocates nothing.  The
 //   levels' (alpha, beta) schedules are one f32 buffer in device memory,
 //   so the kernel-parameter block bounds no sweep count.
+// - bf16 storage (mg_coarse_tree_bf16): only the entry level's b and out
+//   are bf16; every level's arithmetic, its buffers (the entry level's
+//   iterates too), the tail's shared memory and the coefficient columns
+//   are f32 (the plan's f32 copies), as the JAX kernel upcasts its b and
+//   coefficients.  b is read as f32 where it is read (TreeLevel::b16);
+//   the last post-smoothing step of the entry level rounds its result
+//   once into out.  The coarsest inverse is the plan's: rounded to bf16
+//   before use, as JAX does, and applied in f32.  The kernel is
+//   instantiated per storage type (the teams' BF16), so the f32 one tests
+//   for no bf16 pointer.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -74,6 +85,7 @@ struct TreeLevel {
   const float* cn;
   const float* dinv;  // 1 / cc, made once by the plan
   const float* b;     // level rhs (entry level: the caller's input)
+  const __nv_bfloat16* b16;  // or the entry level's rhs in bf16 (b unused)
   float* ua;          // iterate buffers (ping-pong; entry level: ub is out)
   float* ub;
   float* p;           // smoother direction
@@ -84,7 +96,9 @@ struct TreeParams {
   int tail_from;       // first level block 0 runs alone; L: none
   int blocks;          // cooperative grid size
   int smem;            // bytes of the tail's buffers in shared memory
+  int bf16;            // the entry level's b and out are bf16
   const float* a_inv;  // (N, N) coarsest inverse, or null: smooth instead
+  __nv_bfloat16* out16;  // the bf16 output (entry level's ub is scratch)
   TreeLevel lv[MAXL];
 };
 // The parameter block is passed by value (__grid_constant__: the kernel
@@ -101,17 +115,30 @@ struct Tree {
   const float* a_inv;
 };
 
-// The threads a phase is shared by, and the barrier that ends it.
+// The threads a phase is shared by, and the barrier that ends it; BF16:
+// the launch's entry level is bf16 storage.
+template <bool BF16_>
 struct GridTeam {
+  static constexpr bool BF16 = BF16_;
   cg::grid_group g;
   int rank, size;
   __device__ void sync() { g.sync(); }
 };
 
+template <bool BF16_>
 struct BlockTeam {
+  static constexpr bool BF16 = BF16_;
   int rank, size;
   __device__ void sync() { __syncthreads(); }
 };
+
+// The level's rhs at point i, in f32.
+template <class Team>
+__device__ __forceinline__ float rhs(const TreeLevel& v, int i) {
+  if constexpr (Team::BF16)
+    if (v.b16 != nullptr) return __bfloat162float(v.b16[i]);
+  return v.b[i];
+}
 
 __device__ __forceinline__ float* buf(const TreeLevel& v, int j) {
   return j ? v.ub : v.ua;
@@ -150,11 +177,14 @@ __device__ __forceinline__ void for_points(const Team& t, int ny, int nx,
 // One smoother step on level v into dst (and p): u_at(y, x) is the
 // iterate at a point of the domain (outside it reads 0), p_prev(i, u_i)
 // the previous direction; `first` starts the direction from 0 (step 0
-// from a guess).  Same expressions as the plain version's step.
+// from a guess).  Same expressions as the plain version's step.  dst16
+// (the entry level's last step in bf16): the new iterate rounded into it
+// instead of dst.
 template <class Team, class UAt, class PAt>
 __device__ __forceinline__ void step_phase(const Team& t, const TreeLevel& v,
                                            float a, float bt, bool first,
-                                           UAt u_at, PAt p_prev, float* dst) {
+                                           UAt u_at, PAt p_prev, float* dst,
+                                           __nv_bfloat16* dst16 = nullptr) {
   for_points(
       t, v.ny, v.nx,
       [&](int i, int y, int x) {
@@ -165,10 +195,13 @@ __device__ __forceinline__ void step_phase(const Team& t, const TreeLevel& v,
         const float e = x < v.nx - 1 ? u_at(y, x + 1) : 0.f;
         const float au = v.cc[y] * uc + v.cs[y] * s + v.cn[y] * n +
                          v.cw[y] * w + v.ce[y] * e;
-        const float z = v.dinv[y] * (v.b[i] - au);
+        const float z = v.dinv[y] * (rhs<Team>(v, i) - au);
         const float pn = (first ? 0.f : bt * p_prev(i, uc)) + a * z;
         v.p[i] = pn;
-        dst[i] = uc + pn;
+        if (Team::BF16 && dst16 != nullptr)
+          dst16[i] = __float2bfloat16_rn(uc + pn);
+        else
+          dst[i] = uc + pn;
       });
 }
 
@@ -187,7 +220,7 @@ __device__ void smooth_from_zero(Team& t, const TreeLevel v) {
   const float a0 = st[0];
   if (v.k == 1) {
     for_points(t, v.ny, v.nx, [&](int i, int y, int) {
-      v.ua[i] = a0 * (v.dinv[y] * v.b[i]);
+      v.ua[i] = a0 * (v.dinv[y] * rhs<Team>(v, i));
     });
     t.sync();
     return;
@@ -196,7 +229,9 @@ __device__ void smooth_from_zero(Team& t, const TreeLevel v) {
   // alpha_0 D^-1 b, formed at each of step 1's five points.
   step_phase(
       t, v, st[2], st[3], false,
-      [&](int y, int x) { return a0 * (v.dinv[y] * v.b[y * v.nx + x]); },
+      [&](int y, int x) {
+        return a0 * (v.dinv[y] * rhs<Team>(v, y * v.nx + x));
+      },
       [](int, float u0) { return u0; }, v.ub);
   t.sync();
   for (int s = 2; s < v.k; ++s) {
@@ -245,7 +280,7 @@ __device__ void down_level(Team& t, const TreeLevel v, const TreeLevel c) {
             const float au = v.cc[y] * mid[d + 1] + v.cs[y] * up[d + 1] +
                              v.cn[y] * dn[d + 1] + v.cw[y] * mid[d] +
                              v.ce[y] * mid[d + 2];
-            const float r = v.b[y * v.nx + x0 + d] - au;
+            const float r = rhs<Team>(v, y * v.nx + x0 + d) - au;
             // (r0 + 2 r1) + r2: the y pass of restrict_fw.
             ycol[d] = a == 0 ? r : a == 1 ? ycol[d] + 2.f * r : ycol[d] + r;
           }
@@ -279,10 +314,12 @@ __device__ void coarsest(Team& t, const Tree& tr) {
 
 // Up leg on level v: the correction with the prolonged coarse solution
 // e, in place, then k steps.  The launch's (or the tail's) last phase
-// ends without a barrier (`last`).
+// ends without a barrier (`last`).  out16 (the entry level in bf16): its
+// last step's result rounded into it.
 template <class Team>
 __device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
-                         const float* e, bool last) {
+                         const float* e, bool last,
+                         __nv_bfloat16* out16 = nullptr) {
   const float* st = v.steps;
   float* u = down_result(v);
   const int d = (v.k - 1) & 1;
@@ -293,7 +330,8 @@ __device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
   for (int s = 0; s < v.k; ++s) {
     step_phase(t, v, st[2 * s], st[2 * s + 1], s == 0,
                LoadAt{buf(v, (d + s) & 1), v.nx},
-               [&](int i, float) { return v.p[i]; }, buf(v, (d + s + 1) & 1));
+               [&](int i, float) { return v.p[i]; }, buf(v, (d + s + 1) & 1),
+               s == v.k - 1 ? out16 : nullptr);
     if (!(last && s == v.k - 1)) t.sync();
   }
 }
@@ -304,8 +342,9 @@ __device__ void up_level(Team& t, const TreeLevel v, const TreeLevel c,
 // writes: its b and ub (its rhs and solution; or the caller's input and
 // out), and its ua too where it is the coarsest level, whose solution may
 // be there (mg_coarse_tree_plan counts the same).
+template <bool BF16>
 __device__ void tail_cycle(const TreeParams& P, TreeLevel* lv, float* smem) {
-  BlockTeam t{(int)threadIdx.x, (int)blockDim.x};
+  BlockTeam<BF16> t{(int)threadIdx.x, (int)blockDim.x};
   const int L = P.L, T = P.tail_from;
   if (threadIdx.x == 0) {
     for (int l = T; l < L; ++l) {
@@ -330,15 +369,18 @@ __device__ void tail_cycle(const TreeParams& P, TreeLevel* lv, float* smem) {
   coarsest(t, tr);
   // The tail's last phase is followed by the grid sync or the kernel's end.
   for (int l = L - 2; l >= T; --l)
-    up_level(t, lv[l], lv[l + 1], solution(tr, l + 1), l == T);
+    up_level(t, lv[l], lv[l + 1], solution(tr, l + 1), l == T,
+             l == 0 ? P.out16 : nullptr);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS, 1)
 coarse_tree_kernel(const __grid_constant__ TreeParams P) {
   extern __shared__ float tail_smem[];
   __shared__ TreeLevel tail_lv[MAXL];
-  GridTeam g{cg::this_grid(), (int)(blockIdx.x * blockDim.x + threadIdx.x),
-             (int)(gridDim.x * blockDim.x)};
+  GridTeam<BF16> g{cg::this_grid(),
+                   (int)(blockIdx.x * blockDim.x + threadIdx.x),
+                   (int)(gridDim.x * blockDim.x)};
   const Tree tr{P.lv, P.L, P.a_inv};
   const int L = P.L, T = P.tail_from;
   const int top = T < L - 1 ? T : L - 1;  // grid-wide levels above the tail
@@ -346,11 +388,18 @@ coarse_tree_kernel(const __grid_constant__ TreeParams P) {
   if (T == L) {
     coarsest(g, tr);
   } else {
-    if (blockIdx.x == 0) tail_cycle(P, tail_lv, tail_smem);
+    if (blockIdx.x == 0) tail_cycle<BF16>(P, tail_lv, tail_smem);
     if (T > 0) g.sync();
   }
   for (int l = top - 1; l >= 0; --l)
-    up_level(g, P.lv[l], P.lv[l + 1], solution(tr, l + 1), l == 0);
+    up_level(g, P.lv[l], P.lv[l + 1], solution(tr, l + 1), l == 0,
+             l == 0 ? P.out16 : nullptr);
+}
+
+// The instantiation a plan launches.
+const void* tree_kernel(const TreeParams& P) {
+  return P.bf16 ? (const void*)coarse_tree_kernel<true>
+                : (const void*)coarse_tree_kernel<false>;
 }
 
 }  // namespace
@@ -365,23 +414,28 @@ int mg_coarse_tree_plan_bytes() { return (int)sizeof(TreeParams); }
 //   shapes:    2L ints (ny, nx per level); ks: L sweep counts;
 //   steps:     device f32, (alpha, beta) pairs of level 0, then level 1, ...
 //   ptrs:      host array of 10L device pointers, per level
-//              (cs, cw, cc, ce, cn, dinv, b, ua, ub, p); level 0's b and ub
-//              are set per call (the input and `out`), the tail's levels'
-//              buffers but its entry level's b and ub are not read;
+//              (cs, cw, cc, ce, cn, dinv, b, ua, ub, p), all f32; level
+//              0's b and ub are set per call (the input and `out`; in
+//              bf16, mg_coarse_tree_bf16, b is the bf16 input and ub a
+//              scratch buffer), the tail's levels' buffers but its entry
+//              level's b and ub are not read;
 //   a_inv:     device (N, N) coarsest inverse, or null to smooth there;
-//   tail_from: the first level block 0 runs alone (0 .. L; L: none).
+//   tail_from: the first level block 0 runs alone (0 .. L; L: none);
+//   bf16:      the plan's storage type, bf16 (launched by
+//              mg_coarse_tree_bf16) or f32 (mg_coarse_tree).
 // Returns a cudaError_t value; a tail whose buffers exceed a block's
 // shared memory is cudaErrorInvalidValue.
 int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
                         const float* steps, const unsigned long long* ptrs,
-                        const float* a_inv, int tail_from, void* image,
-                        int* blocks) {
+                        const float* a_inv, int tail_from, int bf16,
+                        void* image, int* blocks) {
   if (L < 2 || L > MAXL || tail_from < 0 || tail_from > L)
     return (int)cudaErrorInvalidValue;
   TreeParams P;
   std::memset(&P, 0, sizeof P);
   P.L = L;
   P.tail_from = tail_from;
+  P.bf16 = bf16 != 0;
   P.a_inv = a_inv;
   int off = 0;
   size_t tail_floats = 0;
@@ -426,15 +480,15 @@ int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
   if (tail_floats * sizeof(float) > (size_t)optin)
     return (int)cudaErrorInvalidValue;
   P.smem = (int)(tail_floats * sizeof(float));
+  const void* kern = tree_kernel(P);
   cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, coarse_tree_kernel);
+  err = (int)cudaFuncGetAttributes(&attr, kern);
   if (!err && attr.maxDynamicSharedSizeBytes < P.smem)
     err = (int)cudaFuncSetAttribute(
-        coarse_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        P.smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
   if (!err)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, coarse_tree_kernel, NTHREADS, P.smem);
+        &per_sm, kern, NTHREADS, P.smem);
   if (err) return err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   // The whole tree in block 0: one block.  Else one point per thread on
@@ -449,19 +503,35 @@ int mg_coarse_tree_plan(int L, const int* shapes, const int* ks,
 
 // One launch of a plan: b (the entry level's rhs) -> out.  A refused
 // cooperative launch (cudaErrorCooperativeLaunchTooLarge or any other) is
-// returned, never hidden.
+// returned, never hidden; so is a plan of the other storage type.
+static int launch_tree(TreeParams& P, bool bf16, void* stream) {
+  if (P.bf16 != (int)bf16) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&P};
+  int err = (int)cudaLaunchCooperativeKernel(
+      tree_kernel(P), dim3(P.blocks), dim3(NTHREADS), args, (size_t)P.smem,
+      (cudaStream_t)stream);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
 int mg_coarse_tree(const void* image, const float* b, float* out,
                    void* stream) {
   TreeParams P;
   std::memcpy(&P, image, sizeof P);
   P.lv[0].b = b;
   P.lv[0].ub = out;
-  void* args[] = {(void*)&P};
-  int err = (int)cudaLaunchCooperativeKernel(
-      (void*)coarse_tree_kernel, dim3(P.blocks), dim3(NTHREADS), args,
-      (size_t)P.smem, (cudaStream_t)stream);
-  if (err) return err;
-  return (int)cudaGetLastError();
+  return launch_tree(P, false, stream);
+}
+
+// The same on bf16 storage: b and out bf16, the entry level's ub a scratch
+// buffer of the plan (its ptrs[8]).
+int mg_coarse_tree_bf16(const void* image, const __nv_bfloat16* b,
+                        __nv_bfloat16* out, void* stream) {
+  TreeParams P;
+  std::memcpy(&P, image, sizeof P);
+  P.lv[0].b16 = b;
+  P.out16 = out;
+  return launch_tree(P, true, stream);
 }
 
 }  // extern "C"

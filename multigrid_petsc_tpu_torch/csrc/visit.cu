@@ -1,12 +1,13 @@
 // The f32 instantiations of the level-visit and stencil kernels
 // (visit.cuh): every entry of MG_VISIT_ENTRIES (their forms on a block of
-// a partitioned level, K17, are in visit_rows.cu), plus the kernels that
-// run in f32 only -- K1 and K11 (the mg-CG direction steps), K2a/K10 (the
-// CG flag set of mg_visit) and K8 (the field-coefficient stencil).
+// a partitioned level, K17, are in visit_rows.cu) and of
+// MG_PAPPLY_ENTRIES (K1 and K11, the mg-CG direction steps), plus K8 (the
+// field-coefficient stencil), which runs in f32 only.
 
 #include "visit.cuh"
 
 MG_VISIT_ENTRIES(, float)
+MG_PAPPLY_ENTRIES(, float)
 
 extern "C" {
 
@@ -32,27 +33,6 @@ int mg_visit5_blocks(int ny, int nx, int h, int size) {
 int mg_visit9_blocks(int ny, int nx, int h) {
   dim3 g = visit9_grid(ny, nx, h);
   return (int)(g.x * g.y);
-}
-
-// K1: (p', A p', u + alpha_prev p, <p', A p'> partials), p' = z + beta p.
-int mg_cg_papply_u(const float* cs, const float* cw, const float* cc,
-                   const float* ce, const float* cn, const float* z,
-                   const float* p, const float* u, const float* alpha_prev,
-                   const float* beta, float* pn, float* ap, float* un,
-                   float* part, int ny, int nx, void* stream) {
-  Coeffs<float> c{cs, cw, cc, ce, cn};
-  return launch_papply<float, true>(c, z, p, u, alpha_prev, beta, pn, ap, un,
-                                    part, ny, nx, stream);
-}
-
-// K11: (p', A p', <p', A p'> partials), p' = z + beta p.
-int mg_cg_papply(const float* cs, const float* cw, const float* cc,
-                 const float* ce, const float* cn, const float* z,
-                 const float* p, const float* beta, float* pn, float* ap,
-                 float* part, int ny, int nx, void* stream) {
-  Coeffs<float> c{cs, cw, cc, ce, cn};
-  return launch_papply<float, false>(c, z, p, nullptr, nullptr, beta, pn, ap,
-                                     nullptr, part, ny, nx, stream);
 }
 
 // K8: y = A u (resid == 0) or y = b - A u with five (ny, nx) coefficient

@@ -7,7 +7,7 @@
 // level visit (Coeffs), and visit9_kernel every 9-point one (Coeffs9);
 // their flags pick what is read and written:
 //   CG       b = r - alpha * ap formed in-kernel; r' and ||r'||^2 emitted
-//            (5-point, f32 only)
+//            (5-point, whole grid, f32 and bf16)
 //   GUESS    start from the given u (else the zero guess: z = D^-1 b first)
 //   CORRECT  u += P e_c (bilinear prolongation) before the sweeps
 //   EMIT     u | u + r | r | u + rc (rc: full-weighting restriction of r)
@@ -70,8 +70,10 @@
 // put), as the JAX kernels' _load_f32 / _store.  A bf16 5-point visit of
 // halo up to V5_PAIR_MAX_H runs visit5p_kernel (below), whose step is cut
 // for bf16's halved bytes.  Dot partials and the
-// step schedule are in the compute type.  K1, K2a/K10 and K11 (the f32
-// mg-CG routes) and K8 (f32 sparse levels) are built for f32 only.
+// step schedule are in the compute type.  K1, K2a/K10 and K11 (the mg-CG
+// routes) are built for f32 and bf16 (the bf16 CG visit of halo up to
+// V5_PAIR_MAX_H on visit5p_kernel, as K2b and K3), K8 (f32 sparse
+// levels) for f32 only.
 //
 // What bounds them on the H100: bytes.  Every kernel does O(k) flops per
 // point against 8-24 bytes of device-memory traffic per point (twice that
@@ -977,15 +979,15 @@ VisitFn<T, Coeffs<T>> pick_emit5(int emit, bool dot) {
 }
 
 // The instantiation for a flag set, or null for a set the family lacks
-// (CG is the f32 zero-guess rc visit on a whole grid only; DOT goes with
-// emit u on a whole grid only; a correction needs a guess).
+// (CG is the zero-guess rc visit on a whole grid only, in f32 and bf16;
+// DOT goes with emit u on a whole grid only; a correction needs a guess).
 template <class T, bool ROWS, class RG>
 VisitFn<T, Coeffs<T>> pick_visit5(int flags) {
   const bool cg = flags & F_CG, guess = flags & F_GUESS;
   const bool correct = flags & F_CORRECT, dot = flags & F_DOT;
   const int emit = flags >> EMIT_SHIFT;
   if (cg) {
-    if constexpr (std::is_same<T, float>::value && !ROWS)
+    if constexpr (sizeof(compute_t<T>) == 4 && !ROWS)
       return (guess || correct || dot || emit != EMIT_RC)
                  ? nullptr
                  : visit5_kernel<T, true, false, false, EMIT_RC, false, false,
@@ -1199,13 +1201,19 @@ __device__ __forceinline__ void prolong_pair(const T* e, const Block<T>& rb,
 }
 
 // The level visit on bf16 storage, a thread per column group of a strip
-// (above); flags and emits as visit5_kernel's (no CG: the CG flag set is
-// f32's).
-template <class T, bool GUESS, bool CORRECT, int EMIT, bool DOT, bool ROWS>
+// (above); flags and emits as visit5_kernel's.  CG (K2a's flag set, the
+// zero-guess rc visit on a whole grid): b = r - alpha ap is formed in f32
+// as b is loaded (ap read at b's offset), r' is stored (rounded once) and
+// the block's ||r'||^2 partial (f32, of the unrounded r') is emitted.
+template <class T, bool GUESS, bool CORRECT, int EMIT, bool DOT, bool ROWS,
+          bool CG = false>
 __global__ void __launch_bounds__(V5Pair::NT, V5P_MIN_BLOCKS)
 visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
                const float* __restrict__ steps, int k) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 storage");
+  static_assert(!CG || (!GUESS && !CORRECT && EMIT == EMIT_RC && !DOT &&
+                        !ROWS),
+                "CG is the zero-guess rc visit on a whole grid");
   using RG = V5Pair;
   using C = float;
   constexpr int NC = RG::NC, NP = NC / 2, RS = RG::RS;
@@ -1224,6 +1232,19 @@ visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int sx = (wid % RG::GX) * 32 * NC + NC * lane;  // the group's first
   const int r0 = (wid / RG::GX) * RS;  // its strip's first row
+  const C alpha = CG ? *io.alpha : 0.f;
+  // CG: r - alpha ap at a point of b (whole grid: ap at b's offset).
+  auto rhs = [&](const T* bp, float bv) -> float {
+    return CG ? bv - alpha * to_c(io.ap[bp - io.b]) : bv;
+  };
+  auto rhs2 = [&](const T* bp, float2 bv) -> float2 {
+    if constexpr (CG) {
+      const float2 av = ld_pair(io.ap + (bp - io.b));
+      bv.x = bv.x - alpha * av.x;
+      bv.y = bv.y - alpha * av.y;
+    }
+    return bv;
+  };
   // The zero rings of both u buffers: the top and bottom rows, columns -1
   // and SW.
   for (int t = threadIdx.x; t < 2 * RG::PW + 2 * RG::SH; t += RG::NT) {
@@ -1301,7 +1322,7 @@ visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
           const size_t bs = ROWS ? bcol.ms : nx, us = ROWS ? ucol.ms : nx;
 #pragma unroll
           for (int i = 0; i < RS; ++i) {
-            const float2 bv = ld_pair(bp + i * bs);
+            const float2 bv = rhs2(bp + i * bs, ld_pair(bp + i * bs));
             float2 uv = make_float2(0.f, 0.f);
             if (GUESS) uv = ld_pair(up + i * us);
             if (CORRECT) uv.x += pe0[i], uv.y += pe1[i];
@@ -1317,7 +1338,7 @@ visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
                                             : io.b + (size_t)gy * nx + gx + j0;
             float2 bv = make_float2(0.f, 0.f), uv = make_float2(0.f, 0.f);
             if (bp != nullptr) {  // past the halos: never read, left 0
-              bv = ld_pair(bp);
+              bv = rhs2(bp, ld_pair(bp));
               if (GUESS)
                 uv = ld_pair(ROWS ? ucol.at(ly)
                                   : io.u + (size_t)gy * nx + gx + j0);
@@ -1336,7 +1357,7 @@ visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
             const T* bpj = where(io.b, true, ly0 + i, lx + j);
             float bv = 0.f, uv = 0.f;
             if (bpj != nullptr) {
-              bv = to_c(*bpj);
+              bv = rhs(bpj, to_c(*bpj));
               if (GUESS) uv = to_c(*where(io.u, false, ly0 + i, lx + j));
               if (CORRECT) uv += j == j0 ? pe0[i] : pe1[i];
             }
@@ -1499,6 +1520,12 @@ visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
             if (EMIT != EMIT_RC)
               put_pair(io.r_out + g, i0 ? r[j] : 0.f, i1 ? r[j + 1] : 0.f,
                        wo[j], wo[j + 1]);
+            if (CG) {  // r' (0 outside the domain, as b)
+              put_pair(io.rnew_out + g, bq[i][j], bq[i][j + 1], wo[j],
+                       wo[j + 1]);
+              acc += bq[i][j] * bq[i][j];
+              if (wo[j + 1]) acc += bq[i][j + 1] * bq[i][j + 1];
+            }
           }
         }
         // The residual into the free buffer (the restriction reads its
@@ -1536,7 +1563,7 @@ visit5p_kernel(Coeffs<T> c, VisitIO<T> io, Block<T> rb, int nx, int H,
       }
     }
   }
-  if (DOT) {
+  if (CG || DOT) {
     const C sum = mg::block_sum<RG::NT>(acc, red);
     if (threadIdx.x == 0) io.part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
   }
@@ -1561,14 +1588,21 @@ VisitFn<T, Coeffs<T>> pick_emit5p(int emit, bool dot) {
   return nullptr;
 }
 
-// visit5p_kernel's instantiation for a flag set (pick_visit5's family
-// without CG), or null.
+// visit5p_kernel's instantiation for a flag set (pick_visit5's family),
+// or null.
 template <class T, bool ROWS>
 VisitFn<T, Coeffs<T>> pick_visit5p(int flags) {
   const bool guess = flags & F_GUESS, correct = flags & F_CORRECT;
   const bool dot = flags & F_DOT;
   const int emit = flags >> EMIT_SHIFT;
-  if (flags & F_CG) return nullptr;
+  if (flags & F_CG) {
+    if constexpr (!ROWS)
+      return (guess || correct || dot || emit != EMIT_RC)
+                 ? nullptr
+                 : visit5p_kernel<T, false, false, EMIT_RC, false, false,
+                                  true>;
+    return nullptr;
+  }
   if (!guess)
     return correct ? nullptr : pick_emit5p<T, false, false, ROWS>(emit, dot);
   return correct ? pick_emit5p<T, true, true, ROWS>(emit, dot)
@@ -2370,7 +2404,8 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
 
 // The C entries every storage type has, named mg_<entry><SFX> for storage
 // type T (SFX empty for f32, _f64, _bf16):
-//   mg_visit    one 5-point level visit (K2b, K3, K7, K9; K2a/K10 in f32).
+//   mg_visit    one 5-point level visit (K2a/K10, K2b, K3, K7, K9; the CG
+//               flag set in f32 and bf16).
 //               flags: F_CG | F_GUESS | F_CORRECT | F_DOT |
 //               emit << EMIT_SHIFT; the pointers the flags do not use may
 //               be null; steps: k (alpha, beta) pairs in the compute type
@@ -2481,4 +2516,30 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
     c.ox = coffx;                                                            \
     return launch_stencil<T, true>(c, b, u, y, part_block<T>(geom, halos), nx, \
                                    resid, stream);                           \
+  }
+
+// K1 and K11, the mg-CG direction steps, per storage type (f32 in
+// visit.cu, bf16 in visit_bf16.cu; bf16: z, p, u and the outputs stored in
+// bf16, each rounded once, alpha_prev, beta and the partials f32):
+//   mg_cg_papply_u  K1: (p', A p', u + alpha_prev p, <p', A p'> partials),
+//                   p' = z + beta p
+//   mg_cg_papply    K11: (p', A p', <p', A p'> partials)
+// Partials: mg_visit_blocks(ny, nx) of them.
+#define MG_PAPPLY_ENTRIES(SFX, T)                                            \
+  extern "C" int mg_cg_papply_u##SFX(                                        \
+      const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
+      const T* z, const T* p, const T* u, const compute_t<T>* alpha_prev,    \
+      const compute_t<T>* beta, T* pn, T* ap, T* un, compute_t<T>* part,     \
+      int ny, int nx, void* stream) {                                        \
+    Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
+    return launch_papply<T, true>(c, z, p, u, alpha_prev, beta, pn, ap, un,  \
+                                  part, ny, nx, stream);                     \
+  }                                                                          \
+  extern "C" int mg_cg_papply##SFX(                                          \
+      const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
+      const T* z, const T* p, const compute_t<T>* beta, T* pn, T* ap,        \
+      compute_t<T>* part, int ny, int nx, void* stream) {                    \
+    Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
+    return launch_papply<T, false>(c, z, p, nullptr, nullptr, beta, pn, ap,  \
+                                   nullptr, part, ny, nx, stream);           \
   }

@@ -73,8 +73,11 @@ _SIGNATURES = {
     "mg_visit_blocks": [_I, _I],
     "mg_visit5_blocks": [_I, _I, _I, _I],
     "mg_visit9_blocks": [_I, _I, _I],
-    "mg_cg_papply_u": [_P] * 5 + [_P] * 9 + [_I, _I, _P],
-    "mg_cg_papply": [_P] * 5 + [_P] * 6 + [_I, _I, _P],
+    # K1 and K11 (MG_PAPPLY_ENTRIES), f32 and bf16.
+    **{"mg_cg_papply_u" + sfx: [_P] * 5 + [_P] * 9 + [_I, _I, _P]
+       for sfx in ("", "_bf16")},
+    **{"mg_cg_papply" + sfx: [_P] * 5 + [_P] * 6 + [_I, _I, _P]
+       for sfx in ("", "_bf16")},
     "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
     # K18a, the blocked copy (csrc/stream.cu), per storage type, and KP2,
@@ -94,8 +97,9 @@ _SIGNATURES = {
     "mg_halo_windows": [_P, ctypes.c_longlong] + [_I] * 6 + [_P, _P, _P],
     "mg_xfer_pass": [_P] * 2 + [_I] * 4 + [_P],
     "mg_coarse_tree_plan_bytes": [],
-    "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "mg_coarse_tree_plan": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mg_coarse_tree": [_P, _P, _P, _P],
+    "mg_coarse_tree_bf16": [_P, _P, _P, _P],
     "mg_line_blocks": [_I, _I],
     "mg_line_sweep": [_P, _P, _P, _I, _I] + [_P] * 7 + [_I, _I, _F, _F, _P],
     "mg_line_sweep_f64": [_P, _P, _P, _I, _I] + [_P] * 7

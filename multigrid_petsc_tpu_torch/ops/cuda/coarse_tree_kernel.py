@@ -11,6 +11,11 @@ is built once per solver (``TreePlan``).  ``coarse_tree_viable`` keeps
 the JAX package's selection rule (its VMEM budget and the ``ny_L <= 8``
 cap of the dense solve), so the level split matches the TPU path call
 for call.
+
+Storage types: f32 and bf16.  On bf16 storage, as the JAX kernel's bf16
+branch: b and the result are bf16 (the result rounded once, where it is
+stored); every level's arithmetic, buffers and coefficients are f32; the
+coarsest inverse is rounded to bf16 before use and applied in f32.
 """
 
 from __future__ import annotations
@@ -20,13 +25,15 @@ import ctypes
 import numpy as np
 import torch
 
-from multigrid_petsc_tpu_torch.ops.cuda import launches
+from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
+    CG_DTYPES,
     _check_cuda,
     _on_cpu,
     _stencil_fields,
     _stream,
+    _up,
     smooth_steps,
     steps_tensor,
 )
@@ -61,7 +68,13 @@ def coarse_tree_viable(shapes, itemsize: int, budget: int = 80 * 2**20,
 
 def coarse_tree_plain(stencils, steps_list, a_inv, b):
     """The sub-V-cycle in plain PyTorch (``a_inv`` None: the coarsest
-    level smooths from zero with its own steps)."""
+    level smooths from zero with its own steps).  On bf16 storage, as the
+    kernel: f32 arithmetic on the upcast b, stencils and (bf16-rounded)
+    inverse, the result rounded to bf16 once."""
+    if b.dtype == torch.bfloat16:
+        return coarse_tree_plain(
+            [_up(st) for st in stencils], steps_list,
+            None if a_inv is None else a_inv.float(), b.float()).to(b.dtype)
     L = len(stencils)
     bs, us = [b], []
     for l in range(L - 1):
@@ -106,10 +119,11 @@ def grid_syncs(shapes, ks, direct: bool,
     return sum(max(k, 2) + k + 1 for k in ks[:top]) + mid - 1
 
 
-def _check_tree(device: torch.device, stencils, shapes, a_inv_t) -> None:
+def _check_tree(device: torch.device, stencils, shapes,
+                a_inv_t) -> torch.dtype:
     """What the kernel takes, checked once per solver: every level's
-    coefficient columns and ``a_inv`` f32, contiguous, of their shapes,
-    on ``device``."""
+    coefficient columns and ``a_inv`` of one storage type (f32 or bf16),
+    contiguous, of their shapes, on ``device``.  Returns the type."""
     fields = {}
     for l, (st, (ny, _nx)) in enumerate(zip(stencils, shapes)):
         fields.update({f"level{l}.{k}": v
@@ -117,7 +131,7 @@ def _check_tree(device: torch.device, stencils, shapes, a_inv_t) -> None:
     if a_inv_t is not None:
         n_l = shapes[-1][0] * shapes[-1][1]
         fields["a_inv"] = (a_inv_t, (n_l, n_l))
-    _check_cuda(device, fields)
+    return _check_cuda(device, fields, dtypes=CG_DTYPES)
 
 
 class TreePlan:
@@ -125,11 +139,19 @@ class TreePlan:
     the scratch buffers, the device schedule and the kernel's parameter
     image (``mg_coarse_tree_plan``), which only the entry level's b and
     ``out`` complete per call.  It holds every buffer its pointers name,
-    so it is valid as long as the solver that made it."""
+    so it is valid as long as the solver that made it.  On bf16 storage it
+    holds f32 copies of the coefficient columns and of the (bf16-rounded)
+    inverse, and an f32 scratch buffer for the entry level's result
+    before its rounding."""
 
     def __init__(self, stencils, shapes, steps_list, a_inv_t):
         device = stencils[0].cc.device
-        _check_tree(device, stencils, shapes, a_inv_t)
+        self.dtype = _check_tree(device, stencils, shapes, a_inv_t)
+        bf16 = self.dtype == torch.bfloat16
+        if bf16:  # the kernel's arithmetic type (exact upcasts)
+            stencils = [_up(st) for st in stencils]
+            a_inv_t = None if a_inv_t is None else a_inv_t.float()
+        self._stencils = stencils
         L = len(shapes)
         ks = [len(s) for s in steps_list]
         self.device, self.shape = device, shapes[0]
@@ -138,10 +160,11 @@ class TreePlan:
         # Every level's schedule, concatenated: one f32 buffer on the card.
         self._steps = steps_tensor(sum(map(tuple, steps_list), ()), device)
         # One scratch allocation: per level (b, ua, ub, p), except that the
-        # entry level's b is the input and its ub the output.
+        # entry level's b is the input and (f32) its ub the output.
         sizes = [ny * nx for ny, nx in shapes]
+        own = [(7, 8, 9) if bf16 else (7, 9)] + [(6, 7, 8, 9)] * (L - 1)
         self._scratch = torch.empty(
-            sum(n * (2 if l == 0 else 4) for l, n in enumerate(sizes)),
+            sum(n * len(j) for j, n in zip(own, sizes)),
             dtype=torch.float32, device=device)
         self._a_inv = a_inv_t
         # D^-1 per level, as the plain version forms it: the kernel's steps
@@ -151,7 +174,7 @@ class TreePlan:
         base, isz, off = self._scratch.data_ptr(), 4, 0
         for l, (st, dinv, n) in enumerate(zip(stencils, self._dinv, sizes)):
             ptrs[10 * l: 10 * l + 6] = [c.data_ptr() for c in (*st, dinv)]
-            for j in (7, 9) if l == 0 else (6, 7, 8, 9):
+            for j in own[l]:
                 ptrs[10 * l + j] = base + off * isz
                 off += n
         self._lib = lib = load_library()
@@ -163,18 +186,21 @@ class TreePlan:
             np.asarray(ks, np.int32).ctypes.data, self._steps.data_ptr(),
             ptrs.ctypes.data,
             None if a_inv_t is None else a_inv_t.data_ptr(), self.tail_from,
-            ctypes.addressof(self._image), ctypes.addressof(blocks)),
+            int(bf16), ctypes.addressof(self._image),
+            ctypes.addressof(blocks)),
             "coarse_tree plan")
         self.blocks = blocks.value
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
-        _check_cuda(self.device, {"b": (b, self.shape)})
+        _check_cuda(self.device, {"b": (b, self.shape)}, dtypes=(self.dtype,))
         out = torch.empty_like(b)
-        check(self._lib.mg_coarse_tree(ctypes.addressof(self._image),
-                                       b.data_ptr(), out.data_ptr(),
-                                       _stream(b.device)),
+        lib = self._lib
+        launch = (lib.mg_coarse_tree_bf16 if self.dtype == torch.bfloat16
+                  else lib.mg_coarse_tree)
+        check(launch(ctypes.addressof(self._image), b.data_ptr(),
+                     out.data_ptr(), _stream(b.device)),
               "coarse_tree cooperative launch")
-        launches["coarse_tree"] += 1
+        count_launch("coarse_tree", b.dtype)
         return out
 
 
@@ -183,9 +209,11 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
 
     ``stencils`` are the levels' Stencil5 on one device, ``steps_list``
     the static (alpha, beta) schedule per level, ``a_inv`` the f64 host
-    inverse of the coarsest operator (numpy) or None.  On the card the
-    launch plan (``TreePlan``, ``solve.plan``) is built here, once; on the
-    CPU there is none: the plain version needs no plan."""
+    inverse of the coarsest operator (numpy) or None, stored in the
+    stencils' type (bf16: rounded through f32, as JAX's ``astype``;
+    ``solve.a_inv``).  On the card the launch plan (``TreePlan``,
+    ``solve.plan``) is built here, once; on the CPU there is none: the
+    plain version needs no plan."""
     shapes = [tuple(s) for s in shapes]
     L = len(shapes)
     if not 2 <= L <= MAX_LEVELS:
@@ -193,8 +221,10 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
     cc0 = stencils[0].cc
     a_inv_t = None
     if a_inv is not None:
-        a_inv_t = torch.as_tensor(np.asarray(a_inv), dtype=cc0.dtype,
-                                  device=cc0.device)
+        a_inv_t = torch.as_tensor(np.asarray(a_inv, np.float32)
+                                  if cc0.dtype == torch.bfloat16
+                                  else np.asarray(a_inv),
+                                  device=cc0.device).to(cc0.dtype)
     if min(len(s) for s in steps_list) < 1:
         raise ValueError("every level of the coarse tree takes >= 1 step")
     plan = None if _on_cpu(cc0) else TreePlan(stencils, shapes, steps_list,
@@ -209,4 +239,5 @@ def make_coarse_tree_solver(stencils, shapes, steps_list, a_inv=None):
         return plan(b)
 
     solve.plan = plan
+    solve.a_inv = a_inv_t
     return solve

@@ -28,12 +28,13 @@ goes to the kernel as a small f32 buffer in device memory
 the 5-point visit keeps a fixed largest halo (``V5_MAX_HALO``), the
 9-point visit its fixed region (``max_visit_steps``).
 
-Storage types: K1 and K2a run in f32 only (the mdma route is f32); the
-visit kernel family behind ``launch_visit`` (K2b, K3 and the V-cycle and
-9-point families' visits) is built for f32, f64 and bf16
-(``VISIT_DTYPES``).  bf16 is storage only: the kernels compute in f32 and
-round each output once, where they store it, and the plain versions do
-the same (``at_stores``).
+Storage types: K1 and K2a run in f32 and bf16 (``CG_DTYPES``: the mdma
+route's working dtypes); the visit kernel family behind ``launch_visit``
+(K2b, K3 and the V-cycle and 9-point families' visits) is built for f32,
+f64 and bf16 (``VISIT_DTYPES``).  bf16 is storage only: the kernels
+compute in f32 and round each output once, where they store it, and the
+plain versions do the same (``at_stores``); their scalars (alpha,
+alpha_prev, beta) and dots are f32.
 
 Each wrapper runs its plain PyTorch version (``*_plain``, below) when the
 data lies on the CPU, launches its kernel when it lies on a CUDA device
@@ -88,6 +89,8 @@ F32 = (torch.float32,)
 # The storage types the visit-family kernels are built for, and the C
 # entries' suffix for each (csrc/visit.cu, visit_f64.cu, visit_bf16.cu).
 VISIT_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+# The storage types of the mg-CG kernels K1, K2a/K10 and K11.
+CG_DTYPES = (torch.float32, torch.bfloat16)
 _ENTRY_SUFFIX = {torch.float32: "", torch.float64: "_f64",
                  torch.bfloat16: "_bf16"}
 
@@ -161,12 +164,14 @@ def smooth_steps(st, b: torch.Tensor, u: torch.Tensor | None,
     return u
 
 
+@at_stores
 def cg_papply_u_plain(st, z, p, u, alpha_prev, beta):
     pn = z + beta * p
     ap = apply_stencil5(st, pn)
     return pn, ap, u + alpha_prev * p, torch.sum(pn * ap)
 
 
+@at_stores
 def cg_visit_down_plain(st, r, ap, alpha, steps):
     b = r - alpha * ap
     u0 = smooth_steps(st, b, None, steps)
@@ -432,19 +437,19 @@ def cg_papply_u(st: Stencil5, z, p, u, alpha_prev, beta):
     if _on_cpu(z):
         return cg_papply_u_plain(st, z, p, u, alpha_prev, beta)
     ny, nx = z.shape
-    _check_cuda(z.device,
-                {"z": (z, (ny, nx)), "p": (p, (ny, nx)), "u": (u, (ny, nx)),
-                 **_stencil_fields(st, ny)},
-                {"alpha_prev": alpha_prev, "beta": beta})
+    dtype = _check_cuda(z.device,
+                        {"z": (z, (ny, nx)), "p": (p, (ny, nx)),
+                         "u": (u, (ny, nx)), **_stencil_fields(st, ny)},
+                        {"alpha_prev": alpha_prev, "beta": beta}, CG_DTYPES)
     lib = load_library()
     pn, ap, un = (torch.empty_like(z) for _ in range(3))
-    part = torch.empty(lib.mg_visit_blocks(ny, nx), dtype=z.dtype,
-                       device=z.device)
-    err = lib.mg_cg_papply_u(*(c.data_ptr() for c in st), z.data_ptr(),
-                             p.data_ptr(), u.data_ptr(),
-                             alpha_prev.data_ptr(), beta.data_ptr(),
-                             pn.data_ptr(), ap.data_ptr(), un.data_ptr(),
-                             part.data_ptr(), ny, nx, _stream(z.device))
+    part = torch.empty(lib.mg_visit_blocks(ny, nx),
+                       dtype=compute_dtype(dtype), device=z.device)
+    err = entry(lib, "mg_cg_papply_u", dtype)(
+        *(c.data_ptr() for c in st), z.data_ptr(), p.data_ptr(),
+        u.data_ptr(), alpha_prev.data_ptr(), beta.data_ptr(), pn.data_ptr(),
+        ap.data_ptr(), un.data_ptr(), part.data_ptr(), ny, nx,
+        _stream(z.device))
     check(err, "cg_papply_u launch")
     count_launch("cg_papply_u", z.dtype)
     return pn, ap, un, part.sum()
@@ -466,7 +471,7 @@ class VisitOut(NamedTuple):
 def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
                  alpha=None, emit_dot: bool = False) -> VisitOut:
     """One launch of the visit kernel family on CUDA tensors (f32, f64 or
-    bf16; the CG flag set f32 only), for a Stencil5 or a Stencil9: the CG
+    bf16; the CG flag set f32 and bf16), for a Stencil5 or a Stencil9: the CG
     residual update when ``ap`` is given (5-point only), the guess ``u``
     (None: zero), the correction ``e_c``, then ``len(steps)`` smoother
     steps and the ``emit`` outputs.  Checks every argument; raises
@@ -505,7 +510,7 @@ def launch_visit(st, b, steps, *, emit: str, u=None, e_c=None, ap=None,
     if e_c is not None:
         fields["e_c"] = (e_c, (nyc, nxc))
     dtype = _check_cuda(b.device, fields, scalars,
-                        F32 if cg else VISIT_DTYPES)
+                        CG_DTYPES if cg else VISIT_DTYPES)
     steps_d = steps_tensor(steps, b.device, dtype)
     lib = load_library()
 

@@ -34,8 +34,9 @@ kernel; each has its own wrapper and counter (``cg_papply``,
 
 Storage types: K6, ``residual5``, K7 and K9 run in f32, f64 and bf16
 (bf16 storage, f32 arithmetic, one rounding per stored output; the plain
-versions round where the kernels store, ``mdma_kernel.at_stores``); K8,
-K10 and K11 in f32.  Each wrapper runs its plain PyTorch version
+versions round where the kernels store, ``mdma_kernel.at_stores``); K10
+and K11 in f32 and bf16 (their scalars and dots f32); K8 in f32.  Each
+wrapper runs its plain PyTorch version
 (``*_plain``) when the data lies on the CPU, launches its kernel when it
 lies on a CUDA device (a storage type of its kernel, contiguous; anything
 else raises), and never falls back from one to the other.
@@ -88,6 +89,7 @@ def smooth_sweeps_plain(st: Stencil5, b, u, steps) -> torch.Tensor:
     return smooth_steps(st, b, u, steps)
 
 
+@at_stores
 def cg_papply_plain(st: Stencil5, z, p, beta):
     pn = z + beta * p
     ap = _st.apply_stencil5(st, pn)
@@ -259,16 +261,17 @@ def cg_papply(st: Stencil5, z, p, beta):
     if _on_cpu(z):
         return cg_papply_plain(st, z, p, beta)
     ny, nx = z.shape
-    _check_cuda(z.device, {"z": (z, (ny, nx)), "p": (p, (ny, nx)),
-                           **_stencil_fields(st, ny)}, {"beta": beta})
+    dtype = _check_cuda(z.device, {"z": (z, (ny, nx)), "p": (p, (ny, nx)),
+                                   **_stencil_fields(st, ny)},
+                        {"beta": beta}, mdma.CG_DTYPES)
     lib = load_library()
     pn, ap = torch.empty_like(z), torch.empty_like(z)
-    part = torch.empty(lib.mg_visit_blocks(ny, nx), dtype=z.dtype,
-                       device=z.device)
-    err = lib.mg_cg_papply(*(c.data_ptr() for c in st), z.data_ptr(),
-                           p.data_ptr(), beta.data_ptr(), pn.data_ptr(),
-                           ap.data_ptr(), part.data_ptr(), ny, nx,
-                           _stream(z.device))
+    part = torch.empty(lib.mg_visit_blocks(ny, nx),
+                       dtype=mdma.compute_dtype(dtype), device=z.device)
+    err = entry(lib, "mg_cg_papply", dtype)(
+        *(c.data_ptr() for c in st), z.data_ptr(), p.data_ptr(),
+        beta.data_ptr(), pn.data_ptr(), ap.data_ptr(), part.data_ptr(), ny,
+        nx, _stream(z.device))
     check(err, "cg_papply launch")
     count_launch("cg_papply", z.dtype)
     return pn, ap, part.sum()

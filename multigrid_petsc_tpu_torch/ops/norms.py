@@ -9,13 +9,21 @@ from __future__ import annotations
 import torch
 
 
+def _vec(x: torch.Tensor) -> torch.Tensor:
+    """x flat, bf16 storage upcast to f32: a dot of bf16 states comes out
+    in f32, as the kernels' dots do."""
+    x = x.reshape(-1)
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def tree_dot(x, y) -> torch.Tensor:
-    """<x, y> as a 0-d tensor on the operands' device."""
+    """<x, y> as a 0-d tensor on the operands' device (f32 for bf16
+    storage)."""
     if isinstance(x, torch.Tensor):
-        return torch.dot(x.reshape(-1), y.reshape(-1))
+        return torch.dot(_vec(x), _vec(y))
     total = None
     for a, b in zip(x, y):
-        s = torch.dot(a.reshape(-1), b.reshape(-1))
+        s = torch.dot(_vec(a), _vec(b))
         total = s if total is None else total + s
     return total
 

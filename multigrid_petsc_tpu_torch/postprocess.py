@@ -48,6 +48,8 @@ def error_norms(problem: Problem | AnisoProblem, mesh_type: MeshType,
     (``aniso_exact_grid``); ``mesh_type`` is then not used."""
     if not isinstance(u_fine, torch.Tensor):
         u_fine = u_fine[0]
+    if u_fine.dtype == torch.bfloat16:  # bf16 storage: the error in f32
+        u_fine = u_fine.float()
     ny, nx = u_fine.shape
     if isinstance(problem, AnisoProblem):
         ue = aniso_exact_grid(problem, ny, nx, u_fine.dtype, u_fine.device)
@@ -103,7 +105,10 @@ def write_artifacts(outdir: str | Path, mesh_type: MeshType, u_fine,
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     if isinstance(u_fine, torch.Tensor):
-        u_fine = u_fine.detach().cpu().numpy()
+        u_fine = u_fine.detach().cpu()
+        if u_fine.dtype == torch.bfloat16:  # numpy has no bf16: f32, exact
+            u_fine = u_fine.float()
+        u_fine = u_fine.numpy()
     u_fine = np.asarray(u_fine)
     ny, nx = u_fine.shape
     xs = physical_coords(mesh_type, nx + 2, 0, torch.float64, "cpu").tolist()

@@ -27,12 +27,15 @@ runs them as XLA ops): their smoothers run over the level's residual and
 line kernels (``residual5``, K15), and they take no Jacobi schedule, no
 mg-CG kernel route and no coarse tree (``LevelCtx.point5``).
 
-Precision: the working ``dtype`` is f32 or f64 (64-bit levels run the
-kernels' f64 instantiations on the card); ``precond_dtype`` builds a
-second context, ``precond_ctx``, whose levels carry the Krylov outers'
-V-cycle preconditioner in that type (bf16: storage only, f32 arithmetic
-in the kernels), as the JAX package does.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP item.
+Precision: the working ``dtype`` is f32, f64 (64-bit levels run the
+kernels' f64 instantiations on the card) or bf16 (storage only: every
+kernel and plain version computes in f32 and rounds once where it
+stores; dots and the Krylov scalars are f32; one card, a single grid per
+level, matrix-free, point smoothers; ``_BF16_REFUSALS``);
+``precond_dtype`` builds a second context, ``precond_ctx``, whose levels
+carry the Krylov outers' V-cycle preconditioner in that type, as the JAX
+package does.  What is not ported raises ``NotImplementedError`` naming
+its ROADMAP item.
 
 Distribution (``plan=``, a ``parallel.ShardingPlan`` over a
 ``torch.distributed`` group; JAX context.py:350-414, 945-961): each rank
@@ -145,6 +148,21 @@ _OUTER_DTYPES = ("float64", "float32x2")
 # Smoothers with a static (alpha, beta) step schedule: what the fused
 # visit kernels, the mg-CG kernel routes and the coarse tree run.
 POINT_SMOOTHERS = (SmootherType.JACOBI, SmootherType.CHEBYSHEV)
+# What the bf16 working dtype does not take yet: (what, its ROADMAP item).
+_MERGED_CYCLES = (CycleType.ICYCLE, CycleType.ECYCLE, CycleType.D1CYCLE,
+                  CycleType.D2CYCLE, CycleType.D1PSCYCLE, CycleType.ADDITIVE2)
+_BF16_REFUSALS = {
+    "plan": ("under a plan (-map)", "precision, bf16 under a plan"),
+    "line": ("with a line smoother",
+             "precision, bf16 with the line smoothers"),
+    "rbgs": ("with RBGS", "precision, bf16 with RBGS"),
+    "merged": ("with merged grids (grids != levels; the I, E, D1, D2, D1PS "
+               "and Additive2 cycles)", "precision, bf16 merged grids"),
+    "sparse": ("with backend='sparse'",
+               "precision, bf16 with the sparse backend"),
+    "outer": ("with outer_dtype or precond_dtype",
+              "precision, bf16 with outer_dtype / precond_dtype"),
+}
 # Smoothers whose level visits are composed of smooth, residual and
 # restriction (JAX's generic visits).
 _COMPOSED_SMOOTHERS = (SmootherType.RBGS, SmootherType.LINE_X,
@@ -303,10 +321,12 @@ class LevelCtx:
 
     def vnorm(self, x: torch.Tensor) -> torch.Tensor:
         """||x|| of one tensor: as ``torch.linalg.vector_norm`` computes it
-        on one device (the Krylov outers' norm), over the ranks
-        (``norm2``) when the level is sharded."""
-        return self.norm2(x) if self.sharded \
-            else torch.linalg.vector_norm(x)
+        on one device (the Krylov outers' norm; in f32 for bf16 storage),
+        over the ranks (``norm2``) when the level is sharded."""
+        if self.sharded:
+            return self.norm2(x)
+        return torch.linalg.vector_norm(
+            x, dtype=torch.float32 if x.dtype == torch.bfloat16 else None)
 
     def local(self, state):
         """This rank's part of a whole level state (a part kept)."""
@@ -585,7 +605,33 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
                  CycleType.ECYCLE)
 
 
+def _bf16_refusal(cfg: SolverConfig, plan) -> str | None:
+    """The key of ``_BF16_REFUSALS`` a bf16 config falls under, or None
+    (the bf16 slice runs it)."""
+    smoothers = {cfg.smoother_at(l, cfg.levels) for l in range(cfg.levels)}
+    if plan is not None:
+        return "plan"
+    if smoothers & {SmootherType.LINE_X, SmootherType.LINE_Y,
+                    SmootherType.LINE_XY}:
+        return "line"
+    if SmootherType.RBGS in smoothers:
+        return "rbgs"
+    if cfg.grids != cfg.levels or cfg.cycle in _MERGED_CYCLES:
+        return "merged"
+    if cfg.backend == "sparse":
+        return "sparse"
+    if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
+        return "outer"
+    return None
+
+
 def _check_supported(cfg: SolverConfig, plan) -> None:
+    if cfg.dtype == "bfloat16":
+        key = _bf16_refusal(cfg, plan)
+        if key is not None:
+            what, item = _BF16_REFUSALS[key]
+            raise not_ported("the bf16 working dtype (dtype='bfloat16') "
+                             + what, item)
     if plan is not None:
         if cfg.backend == "sparse":
             raise ValueError(
@@ -600,10 +646,6 @@ def _check_supported(cfg: SolverConfig, plan) -> None:
         raise ValueError("backend='sparse': poisson problem family only")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
-    if cfg.dtype == "bfloat16":
-        raise not_ported("a bfloat16 working dtype (dtype='bfloat16'; "
-                         "precond_dtype='bfloat16' runs)",
-                         "precision, the bf16 working dtype")
     if cfg.outer_dtype not in (None, *_OUTER_DTYPES):
         raise ValueError(f"unknown outer_dtype {cfg.outer_dtype!r}")
     if cfg.precond_dtype not in (None, *_DTYPES):

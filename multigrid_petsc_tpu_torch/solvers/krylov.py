@@ -12,14 +12,36 @@ mg-CG takes one of three routes (``mgcg_route``), recorded as
 
   "mdma"     K1 + K2a + K3, the coarse tree (K4) below: two or more
              levels, level 0 matrix-free 5-point point-smoothed
-             (``point5``), f32 levels, no reduced-precision
-             preconditioner, and every visit inside the JAX manual-DMA
-             kernels' sweep envelope (``max_sweeps + 2 <= MDMA_HALO``);
+             (``point5``), f32 or bf16 levels (JAX's rule:
+             ``mdma_viable`` takes the storage type), no
+             reduced-precision preconditioner, and every visit inside
+             the JAX manual-DMA kernels' sweep envelope
+             (``max_sweeps + 2 <= MDMA_HALO``);
   "fused"    K11 + K10 + K3 at level 0 and the per-level visits below (no
              coarse tree): the same, past the sweep envelope;
   "generic"  the plain PCG loop over the level operations: everything
              else (64-bit levels, ``precond_dtype``, the 9-point, line,
              sparse and merged levels).
+
+The bf16 working dtype's rounding points (the JAX kernels' bf16
+branches; bf16 is storage only):
+  * every kernel and its plain version (``mdma_kernel.at_stores``)
+    upcasts its bf16 inputs exactly, computes in f32 and rounds each
+    array output once, where it stores it: K1's p', A p' and u', K2a /
+    K10's u0, rc and r', K3's z, K4's result, K11's p' and A p', the
+    V-cycle family's and the 9-point visits';
+  * dots come out in f32 (the kernels' per-block partials, summed in
+    f32; ``ops.norms.tree_dot`` and ``LevelCtx.vnorm`` upcast bf16
+    operands), so rz, pap, alpha, beta, ||r|| and the history are f32 on
+    every route; a vector update by an f32 scalar outside a kernel (the
+    generic loop's u, r and p, the lagged u's flush, the fused route's
+    u) runs as PyTorch ops on the bf16 tensors, each rounding its result;
+  * K4's coarsest inverse is rounded to bf16 before use and applied in
+    f32 (JAX coarse_tree_kernel.py:194); the V-cycle's coarsest direct
+    solve multiplies by the inverse stored in bf16, its sums in f32;
+  * FGMRES keeps its basis V and Z in bf16 and the small least-squares
+    problem (the Hessenberg column, Givens rotations, the triangular
+    solve) in f32; u + Z^T y is formed in f32 and rounded once.
 
 The route depends on the configuration only, never on the device, so the
 CPU tests and the card take the same one.  Two TPU-only conditions of the
@@ -88,7 +110,8 @@ def mgcg_route(ctx: MGContext) -> str:
     module docstring).  A row-sharded level 0 takes the generic route, as
     JAX excludes its fused routes there (krylov.py:156,228)."""
     if (len(ctx.levels) < 2 or not ctx.levels[0].point5
-            or ctx.dtype != torch.float32 or ctx.precond_ctx is not None
+            or ctx.dtype not in (torch.float32, torch.bfloat16)
+            or ctx.precond_ctx is not None
             or ctx.levels[0].dist is not None):
         return "generic"
     return "mdma" if ctx.config.max_sweeps + 2 <= MDMA_HALO else "fused"
@@ -190,9 +213,10 @@ def _solve_mgcg_fused(ctx: MGContext, b: torch.Tensor) -> OuterResult:
     z, rz = mg_apply_dot(ctx, r, v0, v1)
     u = torch.zeros_like(b)
     p = torch.zeros_like(b)  # papply with beta = 0 ignores its value
+    # Scalars and history in the dots' type (f32 for bf16 storage).
     zero = torch.zeros((), dtype=rz.dtype, device=rz.device)
     beta = zero
-    hist = torch.zeros(hist_len + 1, dtype=b.dtype, device=b.device)
+    hist = torch.zeros(hist_len + 1, dtype=rz.dtype, device=b.device)
     hist[0] = bnorm_t
     rn = bnorm
     i = 0
@@ -285,12 +309,14 @@ def _solve_mgcg_fused_mdma(ctx: MGContext, b: torch.Tensor) -> OuterResult:
 
     bnorm_t = tree_norm2(b)
     bnorm = float(bnorm_t)
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    # Scalars and history in the kernels' dot type (f32 for bf16 storage).
+    sdt = mdma.compute_dtype(b.dtype)
+    zero = torch.zeros((), dtype=sdt, device=b.device)
     z, rz, r, _ = precond(b, torch.zeros_like(b), zero)
     u = torch.zeros_like(b)
     p = torch.zeros_like(b)
     beta = alpha_prev = zero
-    hist = torch.zeros(hist_len + 1, dtype=b.dtype, device=b.device)
+    hist = torch.zeros(hist_len + 1, dtype=sdt, device=b.device)
     hist[0] = bnorm_t  # u0 = 0 -> r0 = b exactly
     rn = bnorm
     i = 0
@@ -318,7 +344,9 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
     history entry (the true residual) per restart block.  Every block
     runs its ``restart`` Arnoldi steps.  The small dense algebra (the
     Hessenberg column, rotations, the triangular solve, u += Z^T y) runs
-    as torch ops on the level's device, as JAX leaves it to XLA."""
+    as torch ops on the level's device, as JAX leaves it to XLA; for bf16
+    storage in f32 (the basis stays bf16; u + Z^T y is formed in f32 and
+    rounded once)."""
     cfg = ctx.config
     v0, v1 = cfg.v
     lvl0 = ctx.levels[0]
@@ -328,6 +356,7 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
     dot, norm = lvl0.dot, lvl0.vnorm
     hist_len = cfg.hist_len
     dtype, device = b.dtype, b.device
+    sdt = mdma.compute_dtype(dtype)  # the small problem's type
 
     def apply_flat(x):
         return flatten(lvl0.apply(unflatten(x, shapes)))
@@ -343,15 +372,15 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
         V = torch.zeros((m + 1, b.numel()), dtype=dtype, device=device)
         V[0] = r / torch.where(beta > 0, beta, 1.0)
         Z = torch.zeros((m, b.numel()), dtype=dtype, device=device)
-        R = torch.zeros((m, m), dtype=dtype, device=device)
-        cs = torch.zeros(m, dtype=dtype, device=device)
-        sn = torch.zeros(m, dtype=dtype, device=device)
-        g = torch.zeros(m + 1, dtype=dtype, device=device)
+        R = torch.zeros((m, m), dtype=sdt, device=device)
+        cs = torch.zeros(m, dtype=sdt, device=device)
+        sn = torch.zeros(m, dtype=sdt, device=device)
+        g = torch.zeros(m + 1, dtype=sdt, device=device)
         g[0] = beta
         for j in range(m):
             zj = precond_flat(V[j])
             w = apply_flat(zj)
-            hcol = torch.zeros(m + 1, dtype=dtype, device=device)
+            hcol = torch.zeros(m + 1, dtype=sdt, device=device)
             for i in range(j + 1):  # modified Gram-Schmidt
                 hij = dot(V[i], w)
                 w = w - hij * V[i]
@@ -378,12 +407,17 @@ def solve_mgfgmres(ctx: MGContext, b0: torch.Tensor | None = None,
         diag = torch.diagonal(R)
         rsafe = R + torch.diag(torch.where(diag.abs() > 0, 0.0, 1.0))
         y = torch.linalg.solve_triangular(rsafe, g[:m, None], upper=True)
-        return u + (Z.T @ y)[:, 0]
+        if sdt == dtype:
+            return u + (Z.T @ y)[:, 0]
+        du = u.to(sdt)  # bf16 storage: the update in f32, rounded once
+        for j in range(m):
+            du = du + y[j, 0] * Z[j].to(sdt)
+        return du.to(dtype)
 
     bnorm = float(norm(b))
     u = torch.zeros_like(b)
     rn_t = norm(b - apply_flat(u))
-    hist = torch.zeros(hist_len + 1, dtype=dtype, device=device)
+    hist = torch.zeros(hist_len + 1, dtype=sdt, device=device)
     hist[0] = rn_t
     rn = float(rn_t)
     i = 0

@@ -117,7 +117,14 @@ class SolveResult:
     def u_fine(self) -> np.ndarray:
         """The level-0 primary-grid solution as a numpy array; under a
         plan gathered from every rank's block (a collective)."""
-        return self.u_grids[0].detach().cpu().numpy()
+        return _numpy(self.u_grids[0])
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 (which numpy lacks) as f32,
+    exactly."""
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
@@ -176,8 +183,8 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         delayed = ctx.config.cycle in (CycleType.D1CYCLE, CycleType.D2CYCLE,
                                        CycleType.D1PSCYCLE)
         n = res.iters * (ctx.config.v[0] + 1) if delayed else res.iters + 1
-        aux = {"r_global": res.aux["r_global"][:n].cpu().numpy(),
-               "r_grid": res.aux["r_grid"][:, :n].cpu().numpy()}
+        aux = {"r_global": _numpy(res.aux["r_global"][:n]),
+               "r_grid": _numpy(res.aux["r_grid"][:, :n])}
     phases = {"solve": wall}
     if profile_phases:
         phases.update(phase_breakdown(ctx))
@@ -190,7 +197,7 @@ def solve(cfg: SolverConfig, problem=None, ctx: MGContext | None = None, *,
         u_local=(u,) if isinstance(u, torch.Tensor) else u,
         aux=aux,
         phases=phases,
-        rnorm=res.rnorm_history[: res.iters + 1].cpu().numpy(),
+        rnorm=_numpy(res.rnorm_history[: res.iters + 1]),
         iters=res.iters,
         converged=res.converged,
         wall_time=wall,

@@ -60,7 +60,10 @@ def save(path: str | Path, cfg, u, rnorm, iters: int, plan=None) -> None:
                   for x, g in zip(u, grids))
         if plan.rank != 0:
             return
-    arrays = {f"u{i}": (x.detach().cpu().numpy()
+    # numpy has no bf16: a bf16 state is saved as f32 (exact).
+    arrays = {f"u{i}": ((x.detach().cpu().float()
+                         if x.dtype == torch.bfloat16 else x.detach().cpu())
+                        .numpy()
                         if isinstance(x, torch.Tensor) else np.asarray(x))
               for i, x in enumerate(u)}
     path = Path(path)

@@ -108,9 +108,11 @@ def random_stencil(torch, n: int, gen, dev):
     return Stencil5(cs, cw, cc, ce, cn)
 
 
-def tree_cases(torch, dev) -> list[Tree]:
+def tree_cases(torch, dev, dtype=None) -> list[Tree]:
     """TREE_CASES' solvers (made with the module's TREE_TAIL_MAX_N as it
-    is when called), their plain versions and right-hand sides."""
+    is when called), their plain versions and right-hand sides, in the
+    storage type ``dtype`` (f32 by default, or bf16: the stencils and b
+    rounded to it, the solver's inverse rounded to it as it stores it)."""
     import numpy as np
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
@@ -119,6 +121,7 @@ def tree_cases(torch, dev) -> list[Tree]:
     from multigrid_petsc_tpu_torch.solvers.coarse import dense_from_stencil
     from multigrid_petsc_tpu_torch.solvers.smoothers import jacobi_step_coeffs
 
+    dtype = torch.float32 if dtype is None else dtype
     gen = torch.Generator(device=dev).manual_seed(2024)
     trees = []
     for name, (n0, nl, k, direct, poisson) in TREE_CASES.items():
@@ -129,16 +132,15 @@ def tree_cases(torch, dev) -> list[Tree]:
         sts = [stencil_coefficients(MeshType.UNIFORM, n, n, torch.float32,
                                     dev) if poisson
                else random_stencil(torch, n, gen, dev) for n in ns]
+        sts = [type(st)(*(c.to(dtype) for c in st)) for st in sts]
         steps_list = [jacobi_step_coeffs(k, 0.8)] * len(ns)
         a_inv = (np.linalg.inv(dense_from_stencil(sts[-1], nl, nl))
                  if direct else None)
-        a_inv_t = (None if a_inv is None else
-                   torch.as_tensor(a_inv, dtype=torch.float32, device=dev))
-        b = torch.randn(shapes[0], generator=gen, device=dev)
+        b = torch.randn(shapes[0], generator=gen, device=dev).to(dtype)
+        solve = ctk.make_coarse_tree_solver(sts, shapes, steps_list, a_inv)
         trees.append(Tree(
-            name, shapes,
-            ctk.make_coarse_tree_solver(sts, shapes, steps_list, a_inv),
-            lambda sts=sts, s=steps_list, a=a_inv_t, b=b:
+            name, shapes, solve,
+            lambda sts=sts, s=steps_list, a=solve.a_inv, b=b:
                 ctk.coarse_tree_plain(sts, s, a, b), b))
     return trees
 

@@ -219,6 +219,9 @@ ROUTES = [
     (dict(coarse_smoother=SmootherType.RBGS), "mdma"),
     (dict(backend="sparse"), "generic"),
     (dict(grids=2, levels=1), "generic"),
+    (dict(dtype="bfloat16"), "mdma"),
+    (dict(dtype="bfloat16", v=(8, 8)), "fused"),
+    (dict(dtype="bfloat16", problem="aniso"), "generic"),
 ]
 
 

@@ -436,13 +436,6 @@ def test_warm_start_matches_jax(mixed):
         assert got.ctx.config.rtol > kw.get("rtol", 1e-7)
 
 
-def test_bf16_working_dtype_raises():
-    cfg = SolverConfig(npts=17, grids=2, levels=2, cycle=CycleType.MGCG,
-                       dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("kw", [dict(outer_dtype="float16"),
                                 dict(precond_dtype="int8")])
 def test_unknown_precision_options_raise(kw):

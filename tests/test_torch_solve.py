@@ -184,14 +184,33 @@ def test_cuda_request_without_cuda_raises():
         solve(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(dtype="bfloat16"),
-])
-def test_unported_options_raise(kw):
+# The bf16 working dtype's refusals (ROADMAP Queue 1), one case each:
+# (config changes, the item the message names; "plan": under a plan).
+BF16_REFUSALS = [
+    (dict(plan=True), "bf16 under a plan"),
+    (dict(smoother=SmootherType.LINE_Y), "bf16 with the line smoothers"),
+    (dict(coarse_smoother=SmootherType.RBGS), "bf16 with RBGS"),
+    (dict(grids=3, levels=2), "bf16 merged grids"),
+    (dict(backend="sparse"), "bf16 with the sparse backend"),
+    (dict(precond_dtype="bfloat16"),
+     "bf16 with outer_dtype / precond_dtype"),
+]
+
+
+@pytest.mark.parametrize("kw,item", BF16_REFUSALS,
+                         ids=[c[1] for c in BF16_REFUSALS])
+def test_unported_options_raise(kw, item):
+    """A bf16 combination the port leaves out raises NotImplementedError
+    naming its ROADMAP item, before anything is built (so the stand-in
+    plan is never read)."""
+    kw = dict(kw)
+    plan = object() if kw.pop("plan", False) else None
     cfg = SolverConfig(**{**dict(npts=17, grids=2, levels=2,
-                                 cycle=CycleType.MGCG), **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(cfg, device="cpu")
+                                 cycle=CycleType.MGCG, dtype="bfloat16"),
+                          **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        solve(cfg, device="cpu", plan=plan)
+    assert f"precision, {item})" in str(err.value)
 
 
 def test_jax_smoother_enum_values_match():
