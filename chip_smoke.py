@@ -109,7 +109,17 @@ non-zero):
      ms per iteration beside phase 4's f32 run; (c) the bf16 V-cycle (10
      forced) at 2049^2 and 8193^2 and aniso mg-CG at 8193^2; (d) card
      against CPU at 1025^2 (errors within 1.25x), and PCMG, Additive,
-     FMG, the fused route and mg-FGMRES (2x) in bf16 at 257^2;
+     FMG, the fused route and mg-FGMRES (2x) in bf16 at 257^2; (e) K15 in
+     bf16 (every mode of tests/test_torch_line.py on config 4's stencil
+     at 8191^2, timed, and at 31^2 and 1025^2) and K8 in bf16 (apply and
+     with b, on the sparse context's level-0 fields, timed beside a bf16
+     CSR mv where the card's PyTorch has one) against their plain
+     versions; (f) at 8193^2 / 11 levels, forced: config 4's LINE_Y
+     mg-CG, phase 10 (b)'s RBGS V-cycle, -coarse_smoother rbgs mg-CG,
+     LINE_X mg-CG and LINE_XY V-cycle, and sparse mg-CG, each with only
+     bf16 launches, its error and ms per iteration (beside its f32
+     twin's, printed at the end of a full run); (g) those six runs card
+     against CPU at 257^2 (errors within 1.25x);
   3d. card against CPU at 1025^2 / 8 levels: the fused route (-v 8,8),
      mg-CG in f64 to rtol 1e-7 (generic route), the mixed outer (f32
      V-cycle + f64 outer) to 1e-8 and float32x2, the bf16 preconditioner
@@ -355,7 +365,8 @@ def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None,
     """Assert kernel outputs against plain outputs; track the worst error.
     An inner product is held to TOL_DOT of its value, or, with
     ``dot_scale`` (the sum of |products|), to ``tol`` of that.  An array
-    is held to ``tol`` of max(max|plain|, ``floor``)."""
+    is held to ``tol`` of max(max|plain|, ``floor``); a bf16 one to one
+    bf16 ulp of each entry, or ``tol`` of that."""
     if isinstance(want, torch.Tensor) and want.dim() == 0:
         err = abs(float(got) - float(want))
         lim = (TOL_DOT * abs(float(want)) if dot_scale is None
@@ -369,11 +380,11 @@ def compare(torch, name, got, want, record, tol=TOL_ARRAY, dot_scale=None,
                 x.abs().clamp_min(1e-30))) - 7)
 
         lim = torch.maximum(BF16_ULPS * torch.maximum(ulp(g), ulp(w)),
-                            TOL_ARRAY * w.abs().max().clamp_min(floor))
+                            tol * w.abs().max().clamp_min(floor))
         worst = float(((g - w).abs() / lim).max())
         print(f"  {name}: max|kernel - plain| = {err:.3e}, at most "
               f"{worst:.2f} of the limit ({BF16_ULPS} bf16 ulp of the entry "
-              f"or {TOL_ARRAY:g} of max|plain|)")
+              f"or {tol:g} of max|plain|)")
         if not worst <= BF16_ULPS:
             raise AssertionError(f"{name}: kernel disagrees with plain "
                                  f"version ({worst:.2f} of the limit)")
@@ -513,6 +524,8 @@ def split_check(torch, dk, tag, calls, got, isz, record):
           f"launches: max |difference| {worst:.3e}"
           + (" (bit for bit)" if worst == 0.0 else ""))
     return t, (lambda: split(1)), prepared[1]
+
+
 
 
 def copy_rate(torch) -> float:
@@ -2550,7 +2563,7 @@ def exact_max(torch, cfg) -> float:
     return float(ue.abs().max())
 
 
-def phase_bf16(torch, dev, rec, main_ref):
+def phase_bf16(torch, dev, rec, main_ref, rate):
     """Phase 2e: the bf16 working dtype (dtype="bfloat16": bf16 storage,
     f32 arithmetic, one rounding per stored output, f32 dots and Krylov
     scalars).  (a) K1, K2a (k = 3: visit5p_kernel's step), K10 (k = 8,
@@ -2573,7 +2586,8 @@ def phase_bf16(torch, dev, rec, main_ref):
     slice (PCMG, Additive, FMG, the fused route; mg-FGMRES 2x).  The aniso
     problem is the default (1, 0, 1, 0, 0): its coefficients are powers of
     two, exact in bf16; rounding variable coefficients to bf16 perturbs
-    the operator itself."""
+    the operator itself.  (e)-(g): the line smoothers, RBGS and the sparse
+    backend in bf16 (``phase_bf16_smoothers``)."""
     import numpy as np
 
     from multigrid_petsc_tpu_torch.mesh import MeshType
@@ -2596,15 +2610,18 @@ def phase_bf16(torch, dev, rec, main_ref):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
-    def check(key, label, arrays, flops, kern, plain, names, nbytes=None):
+    def check(key, label, arrays, flops, kern, plain, names, nbytes=None,
+              **kw):
         rec.setdefault(key, {})
         nbytes = arrays * pts * 2 if nbytes is None else nbytes
+        kw.setdefault("dot_scale", lambda w: abs(float(w[-1])))
         check_kernel(torch, rec, key, label, nbytes, flops, kern, plain,
-                     names, dot_scale=lambda w: abs(float(w[-1])))
+                     names, **kw)
         dms = device_ms(torch, kern)
         rec[key]["device_ms"] = dms
         print(f"  {label}: device {dms:.4f} ms a call; bound at 2-byte "
-              f"storage {1e3 * nbytes / HBM_PEAK:.4f} ms "
+              f"storage {1e3 * nbytes / rate:.4f} ms at the copy rate "
+              f"{rate / 1e9:.1f} GB/s, {1e3 * nbytes / HBM_PEAK:.4f} ms "
               f"({nbytes / 1e6:.1f} MB at {HBM_PEAK / 1e12:.2f} TB/s)")
 
     print(f"(a) the bf16 kernels at {n}^2 on {nvidia_smi_line()}")
@@ -2759,9 +2776,261 @@ def phase_bf16(torch, dev, rec, main_ref):
             assert launches["cg_papply.bf16"] == cfg.max_iter, dict(launches)
     for k in ("cg_papply.bf16", "fused_cg_visit_down.bf16"):
         assert counts.get(k, 0) > 0, (k, counts)
+    smoother_counts, twins = phase_bf16_smoothers(torch, dev, rec, check)
     # The kernels line's launches: K1, K2a and K4 from (b), the main path
-    # in bf16; K10 and K11 from (d)'s fused-route run.
-    return {**counts, **main_counts}
+    # in bf16; K10 and K11 from (d)'s fused-route run; K15 and K8 from
+    # (f)'s runs.  (f)'s labels beside their f32 twins', for the end of a
+    # full run.
+    return {**counts, **main_counts, **smoother_counts}, twins
+
+
+# 2e (f) / (g): the bf16 working dtype with the line smoothers, RBGS and
+# the sparse backend: label, config changes, kernels the run must launch
+# (".bf16" instantiations; -coarse_smoother rbgs: the mdma route without
+# the coarse tree, as in f32, its directly solved coarsest level never
+# smoothed), its f32 twin's label in MS_PER_ITERATION (phases 6 (b), 7
+# (a), 10 (b)).
+P2E_CONFIG4 = (1.0, 0.0, 100.0, 0.0, 0.0)  # BASELINE config 4's problem
+# (e)'s K15 levels: the timed full-width one, one shorter than a 32-row
+# segment, one that is not a multiple of it.
+P2E_LINE_SIZES = (8191, 31, 1025)
+
+
+def bf16_smoother_runs():
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SmootherType
+
+    return (
+        ("LINE_Y mg-CG aniso (1,0,100,0,0)",
+         dict(cycle=CycleType.MGCG, smoother=SmootherType.LINE_Y,
+              problem="aniso", aniso=P2E_CONFIG4, max_iter=10),
+         {"line_visit9"}, "(b) aniso mg-CG y-line"),
+        ("RBGS V-cycle", dict(cycle=CycleType.VCYCLE,
+                              smoother=SmootherType.RBGS, max_iter=5),
+         {"residual5"}, "10 (b) RBGS V-cycle"),
+        ("mg-CG -coarse_smoother rbgs",
+         dict(cycle=CycleType.MGCG, coarse_smoother=SmootherType.RBGS,
+              max_iter=5),
+         {"cg_papply_u", "cg_visit_down"},
+         "10 (b) mg-CG -coarse_smoother rbgs"),
+        ("LINE_X mg-CG aniso (100,0,1,0,0)",
+         dict(cycle=CycleType.MGCG, smoother=SmootherType.LINE_X,
+              problem="aniso", aniso=X_STRONG, max_iter=5),
+         {"line_visit9"}, "10 (b) LINE_X mg-CG aniso (100,0,1,0,0)"),
+        ("LINE_XY V-cycle aniso (100,0,1,0,0)",
+         dict(cycle=CycleType.VCYCLE, smoother=SmootherType.LINE_XY,
+              problem="aniso", aniso=X_STRONG, max_iter=5),
+         {"line_visit9"}, "10 (b) LINE_XY V-cycle aniso (100,0,1,0,0)"),
+        ("sparse mg-CG", dict(cycle=CycleType.MGCG, backend="sparse",
+                              max_iter=10),
+         {"apply_stencil5_field", "residual5_field"}, "(a) sparse mg-CG"),
+    )
+
+
+def bf16_line_checks(torch, dev, rec, check):
+    """2e (e), K15 in bf16: the six modes of tests/test_torch_line.py on
+    config 4's stencil at 8191^2, timed (kernel, plain, device) beside the
+    bound at 2-byte storage, then untimed at 31^2 (one level shorter than
+    a segment) and 1025^2 (not a multiple of it); each output within one
+    bf16 ulp of each entry or TOL_LINE of max|plain|, <b, u> within
+    TOL_LINE of its value (relative: the correction modes' dot cancels,
+    and a limit on sum |b u| would be near the dot's own size)."""
+    from multigrid_petsc_tpu_torch.ops.cuda import line_kernel as lk
+    from multigrid_petsc_tpu_torch.problems import (
+        AnisoProblem,
+        stencil9_coefficients,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    key = "line_visit9.bf16"
+    rec.setdefault(key, {}).setdefault("modes", {})
+    modes = (  # label, guess, emit, correct, dot, sweeps, arrays, names
+        ("u k=3", True, "u", False, False, 3, 3, ("u'",)),
+        ("zero-guess rc k=3", False, "rc", False, False, 3, 2.25,
+         ("u'", "rc")),
+        ("correct + u + <b,u> k=2", True, "u", True, True, 2, 3.25,
+         ("u'", "<b,u>")),
+        ("ur k=2", True, "ur", False, False, 2, 4, ("u'", "r")),
+        ("correct + rc k=1", True, "rc", True, False, 1, 3.5,
+         ("u'", "rc")),
+        ("zero-guess u + <b,u> k=2", False, "u", False, True, 2, 2,
+         ("u'", "<b,u>")))
+    for n in P2E_LINE_SIZES:
+        st = lk.line_stencil(stencil9_coefficients(
+            AnisoProblem(*P2E_CONFIG4), n, n, bf, dev))
+        fac = lk.line_factor(st, n)
+        b, u = (torch.randn((n, n), generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        e = torch.randn(((n - 1) // 2, (n - 1) // 2), generator=gen,
+                        device=dev).to(bf)
+
+        for label, guess, emit, corr, dot, k, arrays, names in modes:
+            args = (st, b, u if guess else None, k, 0.8, emit,
+                    e if corr else None, dot)
+            kern = (lambda a=args: lk.line_visit9(*a, fac=fac))
+            plain = (lambda a=args: lk.line_visit9_plain(*a))
+            if n != P2E_LINE_SIZES[0]:
+                check_kernel(torch, rec, key, f"K15 bf16 {label} at {n}^2",
+                             0, 0, kern, plain, names, TOL_LINE,
+                             timed=False,
+                             dot_scale=lambda w: abs(float(w[-1])))
+                continue
+            check(key, f"K15 line_visit9 bf16 {label}", arrays,
+                  20 * k * n * n, kern, plain, names, tol=TOL_LINE)
+            rec[key]["modes"][label] = {
+                "device_ms": rec[key]["device_ms"],
+                "bound_ms": 1e3 * arrays * 2 * n * n / HBM_PEAK}
+        if n == P2E_LINE_SIZES[0]:
+            rec[key]["device_ms"] = rec[key]["modes"]["u k=3"]["device_ms"]
+            print("  K15 bf16 device ms a call by mode: " + "; ".join(
+                f"{m} {v['device_ms']:.4f} (bound {v['bound_ms']:.4f})"
+                for m, v in rec[key]["modes"].items()))
+        del st, fac, b, u, e
+        torch.cuda.empty_cache()
+
+
+def bf16_field_checks(torch, dev, rec, check, st):
+    """2e (e), K8 in bf16 on the five bf16 fields of the sparse mg-CG
+    context's level 0 (8191^2): apply and with b, one bf16 ulp of each
+    entry, timed beside one PyTorch call of the same function where the
+    card's PyTorch takes a bf16 CSR mv (the same matrix in CSR, built from
+    the fields on the card: cuSPARSE), else "none" and its error."""
+    from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
+
+    bf = torch.bfloat16
+    n = st.cc.shape[0]
+    N = n * n
+    gen = torch.Generator(device=dev).manual_seed(2469)
+    u, b = (torch.randn((n, n), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    uf, bfl = u.reshape(-1), b.reshape(-1)
+    library = library_r = None
+    try:
+        idx = torch.arange(N, device=dev)
+        i, j = idx // n, idx % n
+        offs = torch.tensor([-n, -1, 0, 1, n], device=dev)
+        keep = torch.stack([i > 0, j > 0, torch.ones_like(i, dtype=bool),
+                            j < n - 1, i < n - 1], 1)
+        vals = torch.stack([c.reshape(-1) for c in
+                            (st.cs, st.cw, st.cc, st.ce, st.cn)], 1)
+        crow = torch.zeros(N + 1, dtype=torch.int32, device=dev)
+        crow[1:] = torch.cumsum(keep.sum(1), 0)
+        cols = (idx[:, None] + offs[None, :])[keep].to(torch.int32)
+        A = torch.sparse_csr_tensor(crow, cols, vals[keep], size=(N, N),
+                                    check_invariants=False)
+        del idx, i, j, keep, vals, cols
+        torch.mv(A, uf)
+        library = (lambda: torch.mv(A, uf).reshape(n, n))
+        library_r = (lambda: torch.addmv(bfl, A, uf, alpha=-1.0)
+                     .reshape(n, n))
+    except Exception as err:  # the card's PyTorch has no bf16 CSR mv
+        rec.setdefault("apply_stencil5_field.bf16", {})[
+            "library_error"] = f"{type(err).__name__}: {err}"[:300]
+        print(f"  bf16 CSR mv: none ({type(err).__name__}: "
+              f"{str(err)[:200]})")
+        torch.cuda.empty_cache()
+    pts = n * n
+    check("apply_stencil5_field.bf16", "K8 apply_stencil5_field bf16 "
+          "(sparse level 0)", 7, 9 * pts,
+          lambda: sk.apply_stencil5_field(st, u),
+          lambda: sk.apply_stencil5_field_plain(st, u), ("Au",),
+          library=library, library_name="cuSPARSE (torch bf16 CSR mv)")
+    check("residual5_field.bf16", "K8 residual5_field bf16 (sparse level "
+          "0)", 8, 10 * pts, lambda: sk.residual5_field(st, b, u),
+          lambda: sk.residual5_field_plain(st, b, u), ("r",),
+          library=library_r, library_name="cuSPARSE (torch bf16 CSR addmv)")
+    del u, b, uf, bfl, library, library_r
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_smoothers(torch, dev, rec, check):
+    """Phase 2e (e)-(g): the bf16 working dtype with the line smoothers,
+    RBGS and the sparse backend.  (e) K15 in bf16 (``bf16_line_checks``)
+    and K8 in bf16 (``bf16_field_checks``) against their plain versions;
+    (f) at full width, 8193^2 / 11 levels, forced counts: config 4's
+    LINE_Y mg-CG (10), phase 10 (b)'s four runs (5 each) and sparse mg-CG
+    (10; its set-up seconds printed), each launching only bf16
+    instantiations, held to finite values (the V-cycles also below 0.5 of
+    max|u_exact|, phase 2e's loose bound: bf16's error grows with the
+    grid), its error and ms per iteration printed (beside its f32 twin's at
+    the end of a full run); (g) card against CPU at 257^2 for LINE_Y,
+    LINE_X, LINE_XY, RBGS and sparse, errors within 1.25x.  Returns K15's
+    and K8's launches in (f), and (f)'s labels with their f32 twins'."""
+    import numpy as np
+
+    from multigrid_petsc_tpu_torch.mesh import MeshType
+    from multigrid_petsc_tpu_torch.ops.cuda import launches
+    from multigrid_petsc_tpu_torch.postprocess import error_norms
+    from multigrid_petsc_tpu_torch.solvers.context import build_context
+    from multigrid_petsc_tpu_torch.solvers.solve import solve
+    from multigrid_petsc_tpu_torch.utils.config import CycleType, SolverConfig
+
+    bf16_line_checks(torch, dev, rec, check)
+    base = dict(npts=8193, grids=11, levels=11, dtype="bfloat16", rtol=0.0)
+    counts, twins = {}, {}
+    for label, changes, expect, twin in bf16_smoother_runs():
+        cfg = SolverConfig(**{**base, **changes})
+        ctx = None
+        if cfg.backend == "sparse":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx = build_context(cfg, device="cuda")
+            torch.cuda.synchronize()
+            print(f"(f) bf16 {label}: set-up {time.perf_counter() - t0:.2f} "
+                  f"s (host CSR assembly and bf16 fields on the card)")
+            assert all(lc.sparse_full.form == "stencil"
+                       and lc.sparse_full.stencil.cc.dtype == torch.bfloat16
+                       for lc in ctx.levels)
+            bf16_field_checks(torch, dev, rec, check,
+                              ctx.levels[0].sparse_full.stencil)
+        vcycle = cfg.cycle == CycleType.VCYCLE
+        tag = f"(f) bf16 {label}, forced {cfg.max_iter}"
+        c, res = run_full_width(
+            torch, tag, cfg, {k + ".bf16" for k in expect}, vcycle, True,
+            err_max=0.5 * exact_max(torch, cfg), ctx=ctx, descent=False,
+            forbid=("coarse_tree.bf16",) if cfg.coarse_smoother else ())
+        assert all(k.endswith(".bf16") for k in c), c
+        err = (error_norms(res.ctx.problem, MeshType(cfg.mesh), res.u)[0]
+               / exact_max(torch, cfg))
+        print(f"  {tag}: route {res.route}, max error / max|u_exact| "
+              f"{err:.6e}, {MS_PER_ITERATION[tag]:.4f} ms per iteration")
+        twins[tag] = twin
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        del res, ctx
+        torch.cuda.empty_cache()
+    for k in ("line_visit9", "residual5", "apply_stencil5_field",
+              "residual5_field"):
+        assert counts.get(k + ".bf16", 0) > 0, (k, counts)
+
+    # (g) card against CPU at 257^2, as (d): the same forced count, the
+    # same route, errors within 1.25x.
+    tiny = dict(base, npts=257, grids=8, levels=8, max_iter=10)
+    for label, changes, _, _ in bf16_smoother_runs():
+        fields = {**tiny, **changes, "max_iter": 10}
+        if fields.get("backend") == "sparse":
+            # a 1^2 coarsest level has no stencil form (its +-1 and +-nx
+            # offsets coincide, in JAX too): 7 levels
+            fields.update(grids=7, levels=7)
+        cfg = SolverConfig(**fields)
+        um = exact_max(torch, cfg)
+        launches.clear()
+        g = solve(cfg, device="cuda")
+        assert g.path == "cuda" and g.iters == cfg.max_iter
+        assert all(k.endswith(".bf16") for k in launches), dict(launches)
+        eg = error_norms(g.ctx.problem, MeshType(cfg.mesh), g.u)[0] / um
+        c = solve(cfg, device="cpu")
+        ec = error_norms(c.ctx.problem, MeshType(cfg.mesh), c.u)[0] / um
+        print(f"(g) bf16 {label} 257^2/{cfg.levels}, {cfg.max_iter} forced: "
+              f"route {g.route}; max error / max|u_exact| card {eg:.4e}, "
+              f"CPU {ec:.4e} (ratio {max(eg, ec) / min(eg, ec):.3f}, limit "
+              f"1.25)")
+        assert c.route == g.route and c.iters == g.iters
+        assert np.isfinite(eg) and max(eg, ec) <= 1.25 * min(eg, ec), (
+            label, eg, ec)
+    return {k: counts[k] for k in ("line_visit9.bf16",
+                                   "apply_stencil5_field.bf16",
+                                   "residual5_field.bf16")}, twins
 
 
 # ---------------------------------------------------------------------------
@@ -5510,7 +5779,7 @@ def run_phase16(torch, dev, rec, main_ref):
     timed_phase(torch, "16 (b), (c)", phase_dist_uneven, main_ref)
 
 
-def partial_run(torch, dev, parts) -> int:
+def partial_run(torch, dev, parts, rate) -> int:
     """``chip_smoke.py --only 9a,10``: the build, then only the phases
     named (k18: phase 1's K18a; 4: phase 4 alone; 2e: the bf16 working
     dtype (phase 2d's bf16 ragged 5-point checks, then phase 2e; with 4,
@@ -5538,7 +5807,7 @@ def partial_run(torch, dev, parts) -> int:
         rec = {}
         timed_phase(torch, "2d bf16 ragged 5-point", check_ragged_5pt, dev,
                     rec, torch.bfloat16, ".bf16")
-        timed_phase(torch, "2e", phase_bf16, dev, rec, main_ref)
+        timed_phase(torch, "2e", phase_bf16, dev, rec, main_ref, rate)
         print(json.dumps(rec))
     if "9a" in parts:
         rec = {}
@@ -5633,7 +5902,7 @@ def main() -> int:
     rate = copy_rate(torch)
     print(f"copy rate {rate / 1e9:.1f} GB/s on {smi}")
     if sys.argv[1:2] == ["--only"]:
-        return partial_run(torch, dev, sys.argv[2].split(","))
+        return partial_run(torch, dev, sys.argv[2].split(","), rate)
 
     rec = {}
     stream = timed_phase(torch, "1 (K18a)", phase_stream, dev, rec)
@@ -5680,7 +5949,8 @@ def main() -> int:
     p3d_counts = timed_phase(torch, "3d", phase_parity_precision)
     counts, u_ref, main_ref = timed_phase(torch, "4", phase_main)
     vcounts = timed_phase(torch, "5", phase_vcycle, u_ref)
-    p2e_counts = timed_phase(torch, "2e", phase_bf16, dev, rec, main_ref)
+    p2e_counts, bf16_twins = timed_phase(torch, "2e", phase_bf16, dev, rec,
+                                         main_ref, rate)
     torch.cuda.empty_cache()
     main_ref["u"] = u_ref.cpu().numpy()  # phase 9 (b)'s reference
     del u_ref
@@ -5753,6 +6023,12 @@ def main() -> int:
         "cg_papply.bf16": ("visit_bf16.cu", "stencil_kernel.py:1055"),
         "fused_cg_visit_down.bf16": ("visit_bf16.cu",
                                      "stencil_kernel.py:921"),
+        # Its line smoothers, RBGS and sparse backend (2e (e)-(f)):
+        # launches from (f)'s runs.
+        "line_visit9.bf16": ("line_bf16.cu", "line_kernel.py:208"),
+        "apply_stencil5_field.bf16": ("visit_bf16.cu",
+                                      "stencil_kernel.py:427"),
+        "residual5_field.bf16": ("visit_bf16.cu", "stencil_kernel.py:427"),
         # The distribution slice; launches from phase 9 (b)'s Poisson run
         # (rank 0) and, for f64, 9 (c)'s card run.
         "dist_level_visit": ("visit_rows.cu", "dist_kernel.py:399"),
@@ -5809,7 +6085,9 @@ def main() -> int:
         if "launches" in rec.get(k, {}):
             counts[k] = rec[k]["launches"]
     for k in ("cg_papply_u.bf16", "cg_visit_down.bf16", "coarse_tree.bf16",
-              "cg_papply.bf16", "fused_cg_visit_down.bf16"):
+              "cg_papply.bf16", "fused_cg_visit_down.bf16",
+              "line_visit9.bf16", "apply_stencil5_field.bf16",
+              "residual5_field.bf16"):
         counts[k] = p2e_counts[k]
     for k in meta:
         if k not in counts:
@@ -5848,6 +6126,9 @@ def main() -> int:
                                       "latency_floor_ms", "modes_5pt",
                                       "uneven", "modes")
                if x in rec[k]}})
+    for tag, twin in bf16_twins.items():  # 2e (f) beside phases 6, 7, 10
+        print(f"{tag}: {MS_PER_ITERATION[tag]:.4f} ms per iteration; f32 "
+              f"twin {twin}: {MS_PER_ITERATION.get(twin, float('nan')):.4f}")
     print(f"copy rate {rate / 1e9:.1f} GB/s (phase 1); K18a's stream rate "
           f"{stream['bytes_per_s'] / 1e9:.1f} GB/s")
     print(f"chip_smoke.py: {time.perf_counter() - T_START:.1f} s since the "

@@ -5,6 +5,7 @@
 #include "line.cuh"
 
 MG_LINE_ENTRIES(, float)
+MG_LINE_ROWS_ENTRIES(, float)
 
 // Number of per-block partials the dot-emitting sweep writes.
 extern "C" int mg_line_blocks(int ny, int nx) {

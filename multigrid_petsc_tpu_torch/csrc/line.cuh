@@ -1,7 +1,23 @@
 // The y-line smoother's level visit (K15) for Hopper (sm_90a), bound
-// through a plain C interface (ctypes), for f32 (mg_line_*, line.cu) and
-// f64 (mg_line_*_f64, line_f64.cu) levels, two sources so that nvcc
-// builds them side by side; the arithmetic runs in the storage type.
+// through a plain C interface (ctypes), for f32 (mg_line_*, line.cu), f64
+// (mg_line_*_f64, line_f64.cu) and bf16 (mg_line_*_bf16, line_bf16.cu)
+// levels, three sources so that nvcc builds them side by side.
+//
+// Types: T is the level's storage type (b, the iterate the caller passes
+// and gets back, the coarse correction e, the residual outputs);
+// A = compute_t<T> is the arithmetic's, and the coefficients, the line
+// factors, the segment ends, the carries and the dot partials are A.  f32
+// and f64 compute in their own type.  bf16 is storage only, as the JAX
+// kernel's bf16 branch (line_kernel.py:234): the coefficients come as the
+// f32 upcast of the bf16-rounded ones, the factors f32, and each array
+// output is rounded once where it is stored.  A visit of k sweeps keeps
+// its iterate between sweeps in f32 (an iterate type U = A read, an
+// output type O = A written: the TPU kernel keeps it in VMEM), so only
+// the last sweep's u (or, for the ur / rc emits, the residual launch,
+// which reads the f32 iterate and stores u beside r or R r) rounds it;
+// <b, u> sums the unrounded u in f32.  The corrected iterate u + P e is
+// formed in f32 and rounded once (JAX rounds it in bf16 arithmetic,
+// line_kernel.py:167-168).
 //
 // Replaces multigrid_petsc_tpu/ops/pallas/line_kernel.py:208
 // (line_visit9_pallas): k damped y-line Jacobi sweeps on a 9-point
@@ -21,7 +37,7 @@
 // previous iterate from device memory.
 //
 // The solve is Thomas's recurrence with per-row factors made once per
-// level on the host in f64 (m_i = 1 / (d_i - a_i cp_{i-1}),
+// level in f64 (m_i = 1 / (d_i - a_i cp_{i-1}),
 // cp_i = c_i m_i), cut into segments of SEG rows so that ~nx * ny / SEG
 // threads share the work (2.1 M at 8191^2).  Both recurrences are linear
 // in their carry:
@@ -31,13 +47,13 @@
 //   x_i = xl_i + C * above_i + D * below_i
 // with C the true dp just above the segment, D the true x just below it,
 // and above / below the segment's responses to a unit C / D (products of
-// the fixed factors -a_i m_i and -cp_i), made on the host in f64 beside
+// the fixed factors -a_i m_i and -cp_i), made in f64 beside
 // m and cp, as is `gain`, C's multiplier across a whole segment.  One
 // sweep is three launches:
 //   1. line_segment_kernel: each (column, segment) thread forms its rows'
 //      right-hand sides and writes only two values, dpl at the segment's
 //      end and xl at its start; both are linear in the right-hand side,
-//      with per-row weights made on the host in f64 (end_w, start_w), so
+//      with per-row weights made in f64 (end_w, start_w), so
 //      the thread keeps two running sums and no array;
 //   2. line_carry_kernel: C down (C_{s+1} = dpl_end_s + gain_s C_s) and D
 //      up (D_{s-1} = x at segment s's first row) every column, in f64.
@@ -121,7 +137,10 @@ namespace {
 
 using mg::Coeffs9;
 using mg::coef_at;
+using mg::compute_t;
 using mg::prolong_at;
+using mg::put;
+using mg::to_c;
 
 constexpr int SEG = 32;  // rows per segment (one thread's share of a column;
                          // the rank-spanning mode may run fewer, `seg`)
@@ -238,33 +257,36 @@ __device__ __forceinline__ int stride_of(const RowHalo<T>& hl, int nx) {
 // 0.375 with IN; the one-card kernels, whose row tests the compiler
 // folds, 0.66 ms a sweep either way).
 template <bool GUESS, bool CORRECT, bool ROWS, int SIDES, bool IN = false,
-          class T>
-__device__ __forceinline__ T iterate_at(const T* u, const T* e,
-                                        const RowHalo<T>& hl, int y, int x,
-                                        int ny, int nx) {
+          class T, class U>
+__device__ __forceinline__ compute_t<T> iterate_at(const U* u, const T* e,
+                                                   const RowHalo<U>& hl,
+                                                   int y, int x, int ny,
+                                                   int nx) {
+  using A = compute_t<T>;
   if constexpr (ROWS && SIDES && IN) {
     static_assert(GUESS && !CORRECT, "the 2-D block mode reads u");
-    const T v = x >= 0 && x < nx ? u[(size_t)y * hl.ld + x] : T(0);
+    const A v = x >= 0 && x < nx ? to_c(u[(size_t)y * hl.ld + x]) : A(0);
     if constexpr (SIDES == SIDE_INNER) return v;
-    const T* side = x == -1 ? hl.left : x == nx ? hl.right : nullptr;
-    return v + (side != nullptr ? side[y] : T(0));  // one of them is 0
+    const U* side = x == -1 ? hl.left : x == nx ? hl.right : nullptr;
+    return v + (side != nullptr ? to_c(side[y]) : A(0));  // one of them is 0
   } else if constexpr (ROWS && SIDES) {
-    if (x < -1 || x > nx || y < -1 || y > ny) return T(0);
-    if (y == -1) return hl.top[x + 1];
-    if (y == ny) return hl.bot[x + 1];
-    if (SIDES == SIDE_EDGE && x == -1) return hl.left[y];
-    if (SIDES == SIDE_EDGE && x == nx) return hl.right[y];
+    if (x < -1 || x > nx || y < -1 || y > ny) return A(0);
+    if (y == -1) return to_c(hl.top[x + 1]);
+    if (y == ny) return to_c(hl.bot[x + 1]);
+    if (SIDES == SIDE_EDGE && x == -1) return to_c(hl.left[y]);
+    if (SIDES == SIDE_EDGE && x == nx) return to_c(hl.right[y]);
   } else if constexpr (ROWS) {
-    if (x < 0 || x >= nx) return T(0);
+    if (x < 0 || x >= nx) return A(0);
     if (!IN && y < 0)
-      return y == -1 && hl.top != nullptr ? hl.top[x] : T(0);
+      return y == -1 && hl.top != nullptr ? to_c(hl.top[x]) : A(0);
     if (!IN && y >= ny)
-      return y == ny && hl.bot != nullptr ? hl.bot[x] : T(0);
+      return y == ny && hl.bot != nullptr ? to_c(hl.bot[x]) : A(0);
   } else {
-    if ((!IN && (y < 0 || y >= ny)) || x < 0 || x >= nx) return T(0);
+    if ((!IN && (y < 0 || y >= ny)) || x < 0 || x >= nx) return A(0);
   }
-  T v = GUESS ? u[(size_t)y * stride_of<ROWS>(hl, nx) + x] : T(0);
-  if (CORRECT) v += prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2);
+  A v = GUESS ? to_c(u[(size_t)y * stride_of<ROWS>(hl, nx) + x]) : A(0);
+  if (CORRECT)  // u + P e, rounded once as T stores it
+    v = mg::round_to<T>(v + prolong_at(e, y, x, (ny - 1) / 2, (nx - 1) / 2));
   return v;
 }
 
@@ -275,11 +297,11 @@ __device__ __forceinline__ T iterate_at(const T* u, const T* e,
 // branch) -- or, with a correction, that only the edge lanes form.
 // Every lane of the warp calls it with the same y (IN: in [0, ny)).
 template <bool GUESS, bool CORRECT, bool ROWS, int SIDES, bool IN = false,
-          class T>
-__device__ __forceinline__ void iterate_row(const T* u, const T* e,
-                                            const RowHalo<T>& hl, int y,
+          class T, class U, class A>
+__device__ __forceinline__ void iterate_row(const U* u, const T* e,
+                                            const RowHalo<U>& hl, int y,
                                             int j, int xo, int ny, int nx,
-                                            T& w, T& c, T& ea) {
+                                            A& w, A& c, A& ea) {
   const int lane = threadIdx.x & 31;
   c = iterate_at<GUESS, CORRECT, ROWS, SIDES, IN>(u, e, hl, y, j, ny, nx);
   w = __shfl_up_sync(LANES, c, 1);
@@ -292,7 +314,7 @@ __device__ __forceinline__ void iterate_row(const T* u, const T* e,
       ea = iterate_at<GUESS, CORRECT, ROWS, SIDES, IN>(u, e, hl, y, j + 1,
                                                        ny, nx);
   } else {
-    const T o =
+    const A o =
         iterate_at<GUESS, false, ROWS, SIDES, IN>(u, e, hl, y, xo, ny, nx);
     w = lane == 0 ? o : w;
     ea = lane == 31 ? o : ea;
@@ -357,20 +379,21 @@ __device__ __forceinline__ T line_rhs(const Rows& r, int i, T bv, T w0, T e0,
 // Threads past the last column run along (the shuffles need the whole
 // warp) on a clamped column.
 template <bool FULL, bool GUESS, bool CORRECT, bool ROWS, int SIDES,
-          class T, class Rows, class Row>
+          class T, class U, class Rows, class Row>
 __device__ __forceinline__ void segment_rows(const Rows& rows,
                                              const T* __restrict__ b,
-                                             const T* u, const T* e,
-                                             const RowHalo<T>& hl, int y0,
+                                             const U* u, const T* e,
+                                             const RowHalo<U>& hl, int y0,
                                              int seg, int j, int ny, int nx,
                                              Row row) {
+  using A = compute_t<T>;
   const bool col = j < nx;
   const int jc = col ? j : nx - 1;
   const int xo = (threadIdx.x & 31) == 0 ? j - 1 : j + 1;
   const int ld = stride_of<ROWS>(hl, nx);
   const T* bc = b + (size_t)y0 * ld + jc;
-  T w0 = T(0), c0 = T(0), e0 = T(0), w1 = T(0), c1 = T(0), e1 = T(0);
-  T w2 = T(0), c2 = T(0), e2 = T(0);
+  A w0 = A(0), c0 = A(0), e0 = A(0), w1 = A(0), c1 = A(0), e1 = A(0);
+  A w2 = A(0), c2 = A(0), e2 = A(0);
   if (GUESS) {
     iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0 - 1, j, xo, ny, nx,
                                              w0, c0, e0);
@@ -388,7 +411,7 @@ __device__ __forceinline__ void segment_rows(const Rows& rows,
       else if (GUESS)
         iterate_row<GUESS, CORRECT, ROWS, SIDES>(u, e, hl, y0 + i + 1, j, xo,
                                                  ny, nx, w2, c2, e2);
-      const T bv = col ? bc[(size_t)i * ld] : T(0);
+      const A bv = col ? to_c(bc[(size_t)i * ld]) : A(0);
       row(i, line_rhs<GUESS>(rows, i, bv, w0, e0, w1, e1, w2, e2), c1);
       w0 = w1, c0 = c1, e0 = e1;
       w1 = w2, c1 = c2, e1 = e2;
@@ -408,48 +431,48 @@ __device__ __forceinline__ int segment_of_block() {
 // rows' right-hand sides and the two values the carries need, dpl at the
 // segment's last row (ends) and xl at its first (starts), (nseg, nx) each.
 // Both are linear in the right-hand side with weights fixed per level
-// (end_w, start_w; made on the host in f64), so they are two running sums
+// (end_w, start_w; made in f64), so they are two running sums
 // and the thread keeps no array.  CORRECT: it also stores its column of
 // the corrected iterate u + P e (u_corr), which launch 3 then reads as
 // its guess, so the correction is formed once per point.
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS,
-          int SIDES>
+template <bool FULL, class T, class U, bool GUESS, bool CORRECT, bool TAB,
+          bool ROWS, int SIDES, class A = compute_t<T>>
 __device__ __forceinline__ void segment_ends(
-    const Coeffs9<T>& c, const LineFactor<T>& f, const T* b, const T* u,
-    const T* e, const RowHalo<T>& hl, T* ends, T* starts, T* u_corr, int s,
+    const Coeffs9<A>& c, const LineFactor<A>& f, const T* b, const U* u,
+    const T* e, const RowHalo<U>& hl, A* ends, A* starts, T* u_corr, int s,
     int seg, int j, int ny, int nx) {
   const int y0 = s * (ROWS ? seg : SEG);
-  const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
+  const LineRows<A, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   T* uc = u_corr + (size_t)y0 * nx + j;
-  T de = T(0), xs = T(0);
+  A de = A(0), xs = A(0);
   segment_rows<FULL, GUESS, CORRECT, ROWS, SIDES, T>(rows, b, u, e, hl, y0,
                                                      seg, j, ny, nx,
-                                        [&](int i, T rhs, T ui) {
+                                        [&](int i, A rhs, A ui) {
                                           de += rows(R_ENDW, i) * rhs;
                                           xs += rows(R_STARTW, i) * rhs;
                                           if (CORRECT && j < nx)
-                                            uc[(size_t)i * nx] = ui;
+                                            put(uc, (size_t)i * nx, ui);
                                         });
   if (j >= nx) return;
   ends[(size_t)s * nx + j] = de;
   starts[(size_t)s * nx + j] = xs;
 }
 
-template <class T, bool GUESS, bool CORRECT, bool TAB, bool ROWS = false,
-          bool SIDES = false>
+template <class T, class U, bool GUESS, bool CORRECT, bool TAB,
+          bool ROWS = false, bool SIDES = false, class A = compute_t<T>>
 __global__ void __launch_bounds__(ST)
-line_segment_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
-                    const T* __restrict__ u, const T* __restrict__ e,
-                    RowHalo<T> hl, T* __restrict__ ends,
-                    T* __restrict__ starts, T* __restrict__ u_corr, int seg,
+line_segment_kernel(Coeffs9<A> c, LineFactor<A> f, const T* __restrict__ b,
+                    const U* __restrict__ u, const T* __restrict__ e,
+                    RowHalo<U> hl, A* __restrict__ ends,
+                    A* __restrict__ starts, T* __restrict__ u_corr, int seg,
                     int ny, int nx) {
   constexpr int SD = SIDES ? SIDE_EDGE : 0;
   const int j = blockIdx.x * ST + threadIdx.x, s = segment_of_block();
   if ((!ROWS || seg == SEG) && (s + 1) * SEG <= ny)
-    segment_ends<true, T, GUESS, CORRECT, TAB, ROWS, SD>(
+    segment_ends<true, T, U, GUESS, CORRECT, TAB, ROWS, SD>(
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
   else
-    segment_ends<false, T, GUESS, CORRECT, TAB, ROWS, SD>(
+    segment_ends<false, T, U, GUESS, CORRECT, TAB, ROWS, SD>(
         c, f, b, u, e, hl, ends, starts, u_corr, s, seg, j, ny, nx);
 }
 
@@ -613,57 +636,57 @@ int carry_launch(const LineFactor<T>& f, const T* g, T* cin, T* din,
   return (int)cudaGetLastError();
 }
 
-template <bool FULL, class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS, int SIDES>
-__device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
-                                         const LineFactor<T>& f, const T* b,
-                                         const T* u, const T* e,
-                                         const RowHalo<T>& hl, const T* cin,
-                                         const T* din, T* u_out, T* dp,
+template <bool FULL, class T, class U, class O, bool GUESS, bool CORRECT,
+          bool DOT, bool TAB, bool ROWS, int SIDES, class A = compute_t<T>>
+__device__ __forceinline__ A segment_fix(const Coeffs9<A>& c,
+                                         const LineFactor<A>& f, const T* b,
+                                         const U* u, const T* e,
+                                         const RowHalo<U>& hl, const A* cin,
+                                         const A* din, O* u_out, A* dp,
                                          int s, int seg, int j, int ny,
-                                         int rows_out, int nx, T omega,
-                                         T one_minus_omega) {
+                                         int rows_out, int nx, A omega,
+                                         A one_minus_omega) {
   const int y0 = s * (ROWS ? seg : SEG);
-  const LineRows<T, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
+  const LineRows<A, TAB> rows(c, f, y0, j < nx ? j : nx - 1, nx);
   // Thomas's forward recurrence from a zero carry, its dp staged in the
   // thread's column of shared memory (dp[i * ST]); with a correction the
   // corrected iterate is kept too (it is formed once per point), else the
   // backward pass reloads u (a cache hit: this thread has just read it).
-  T uc[CORRECT ? SEG : 1];
-  T d = T(0);
+  A uc[CORRECT ? SEG : 1];
+  A d = A(0);
   segment_rows<FULL, GUESS, CORRECT, ROWS, SIDES, T>(
-      rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, T rhs, T ui) {
+      rows, b, u, e, hl, y0, seg, j, ny, nx, [&](int i, A rhs, A ui) {
         d = (rhs - rows(R_CS, i) * d) * rows(R_M, i);
         dp[i * ST] = d;
         if (CORRECT) uc[CORRECT ? i : 0] = ui;
       });
-  T acc = T(0);
+  A acc = A(0);
   const int ld = stride_of<ROWS>(hl, nx);
   if (j >= nx) {  // the block's pad column (ROWS): 0
     if (ROWS && j < ld)
       for (int i = 0; i < seg && y0 + i < rows_out; ++i)
-        u_out[(size_t)(y0 + i) * ld + j] = T(0);
+        put(u_out, (size_t)(y0 + i) * ld + j, A(0));
     return acc;
   }
   const size_t sj = (size_t)s * nx + j;
-  const T cv = cin != nullptr ? cin[sj] : T(0);
-  const T dv = din != nullptr ? din[sj] : T(0);
-  T* out = u_out + (size_t)y0 * ld + j;
+  const A cv = cin != nullptr ? cin[sj] : A(0);
+  const A dv = din != nullptr ? din[sj] : A(0);
+  O* out = u_out + (size_t)y0 * ld + j;
   const T* bc = b + (size_t)y0 * ld + j;
-  const T* uo = GUESS ? u + (size_t)y0 * ld + j : nullptr;
-  T x = T(0);
+  const U* uo = GUESS ? u + (size_t)y0 * ld + j : nullptr;
+  A x = A(0);
 #pragma unroll
   for (int i = SEG - 1; i >= 0; --i) {
     if (FULL || ((!ROWS || i < seg) && y0 + i < ny)) {
       x = dp[i * ST] - rows(R_CP, i) * x;
-      const T ui = CORRECT ? uc[CORRECT ? i : 0]
-                   : GUESS ? uo[(size_t)i * ld] : T(0);
-      const T un = one_minus_omega * ui +
+      const A ui = CORRECT ? uc[CORRECT ? i : 0]
+                   : GUESS ? to_c(uo[(size_t)i * ld]) : A(0);
+      const A un = one_minus_omega * ui +
                    omega * (x + cv * rows(R_ABOVE, i) + dv * rows(R_BELOW, i));
-      out[(size_t)i * ld] = un;
-      if (DOT) acc += bc[(size_t)i * ld] * un;
+      put(out, (size_t)i * ld, un);
+      if (DOT) acc += to_c(bc[(size_t)i * ld]) * un;  // the unrounded u
     } else if (ROWS && i < seg && y0 + i < rows_out) {  // its pad row: 0
-      out[(size_t)i * ld] = T(0);
+      put(out, (size_t)i * ld, A(0));
     }
   }
   return acc;
@@ -680,36 +703,39 @@ __device__ __forceinline__ T segment_fix(const Coeffs9<T>& c,
 // a thread spilled or starved the loads in flight.  Resident blocks per
 // SM launch 3's registers are cut for: five in f32 (up to 102 registers),
 // three in f64 (up to 170).
-template <class T>
+template <class A>
 constexpr int fix_min_blocks() {
-  return sizeof(T) == 8 ? 3 : 5;
+  return sizeof(A) == 8 ? 3 : 5;
 }
 
-template <class T, bool GUESS, bool CORRECT, bool DOT, bool TAB,
-          bool ROWS = false, bool SIDES = false>
-__global__ void __launch_bounds__(ST, fix_min_blocks<T>())
-line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
-                const T* __restrict__ u, const T* __restrict__ e,
-                RowHalo<T> hl, const T* __restrict__ cin,
-                const T* __restrict__ din, T* __restrict__ u_out,
-                T* __restrict__ part, int seg, int ny, int rows_out, int nx,
-                T omega, T one_minus_omega) {
-  __shared__ T red[ST / 32];
-  __shared__ T dp[SEG * ST];
+template <class T, class U, class O, bool GUESS, bool CORRECT, bool DOT,
+          bool TAB, bool ROWS = false, bool SIDES = false,
+          class A = compute_t<T>>
+__global__ void __launch_bounds__(ST, fix_min_blocks<A>())
+line_fix_kernel(Coeffs9<A> c, LineFactor<A> f, const T* __restrict__ b,
+                const U* __restrict__ u, const T* __restrict__ e,
+                RowHalo<U> hl, const A* __restrict__ cin,
+                const A* __restrict__ din, O* __restrict__ u_out,
+                A* __restrict__ part, int seg, int ny, int rows_out, int nx,
+                A omega, A one_minus_omega) {
+  __shared__ A red[ST / 32];
+  __shared__ A dp[SEG * ST];
   const int j = blockIdx.x * ST + threadIdx.x, s = segment_of_block();
-  T* dpj = dp + threadIdx.x;
+  A* dpj = dp + threadIdx.x;
   const bool full = (!ROWS || seg == SEG) && (s + 1) * SEG <= ny;
-  const T acc = with_sides<SIDES>(nx, [&](auto sides) {
+  const A acc = with_sides<SIDES>(nx, [&](auto sides) {
     constexpr int SD = decltype(sides)::value;
-    return full ? segment_fix<true, T, GUESS, CORRECT, DOT, TAB, ROWS, SD>(
+    return full ? segment_fix<true, T, U, O, GUESS, CORRECT, DOT, TAB, ROWS,
+                              SD>(
                       c, f, b, u, e, hl, cin, din, u_out, dpj, s, seg, j,
                       ny, rows_out, nx, omega, one_minus_omega)
-                : segment_fix<false, T, GUESS, CORRECT, DOT, TAB, ROWS, SD>(
+                : segment_fix<false, T, U, O, GUESS, CORRECT, DOT, TAB, ROWS,
+                              SD>(
                       c, f, b, u, e, hl, cin, din, u_out, dpj, s, seg, j,
                       ny, rows_out, nx, omega, one_minus_omega);
   });
   if (DOT) {
-    const T sum = mg::block_sum<ST, T>(acc, red);
+    const A sum = mg::block_sum<ST, A>(acc, red);
     if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = sum;
   }
 }
@@ -718,30 +744,33 @@ line_fix_kernel(Coeffs9<T> c, LineFactor<T> f, const T* __restrict__ b,
 // true; full weighting, y pass first, as ops/transfer.restrict_fw), on a
 // tile of RTY x RTX fine points (RC: the RTY/2 x RTX/2 coarse points whose
 // footprint starts in it) with u and its 1-point halo in shared memory.
-// Term order of the JAX package: cc, s, n, w, e, sw, se, nw, ne.
-template <class T, bool RC>
+// Term order of the JAX package: cc, s, n, w, e, sw, se, nw, ne.  u is the
+// iterate the last sweep stored, in U (bf16 levels: f32); u_store
+// non-null: the tile's own points of u stored there in T (the visit's u
+// output, rounded once).
+template <class T, class U, bool RC, class A = compute_t<T>>
 __global__ void __launch_bounds__(RT)
-line_residual_kernel(Coeffs9<T> c, const T* __restrict__ b,
-                     const T* __restrict__ u, T* __restrict__ out, int ny,
-                     int nx) {
+line_residual_kernel(Coeffs9<A> c, const T* __restrict__ b,
+                     const U* __restrict__ u, T* __restrict__ out,
+                     T* __restrict__ u_store, int ny, int nx) {
   constexpr int FH = RTY + (RC ? 1 : 0), FW = RTX + (RC ? 1 : 0);
   constexpr int SH = FH + 2, SW = FW + 2;
-  __shared__ T us[SH * SW];
-  __shared__ T rs[RC ? FH * FW : 1];
+  __shared__ A us[SH * SW];
+  __shared__ A rs[RC ? FH * FW : 1];
   const int y0 = blockIdx.y * RTY, x0 = blockIdx.x * RTX;
   for (int i = threadIdx.x; i < SH * SW; i += RT) {
     const int gy = y0 - 1 + i / SW, gx = x0 - 1 + i % SW;
     us[i] = gy >= 0 && gy < ny && gx >= 0 && gx < nx
-                ? u[(size_t)gy * nx + gx] : T(0);
+                ? to_c(u[(size_t)gy * nx + gx]) : A(0);
   }
   __syncthreads();
   for (int t = threadIdx.x; t < FH * FW; t += RT) {
     const int ry = t / FW, rx = t % FW;
     const int gy = y0 + ry, gx = x0 + rx;
-    T r = T(0);
+    A r = A(0);
     if (gy < ny && gx < nx) {
-      const T* v = us + (ry + 1) * SW + rx + 1;
-      r = b[(size_t)gy * nx + gx] -
+      const A* v = us + (ry + 1) * SW + rx + 1;
+      r = to_c(b[(size_t)gy * nx + gx]) -
           (coef_at(c, mg::CC, gy, gx) * v[0] +
            coef_at(c, mg::CS, gy, gx) * v[-SW] +
            coef_at(c, mg::CN, gy, gx) * v[SW] +
@@ -751,11 +780,13 @@ line_residual_kernel(Coeffs9<T> c, const T* __restrict__ b,
            coef_at(c, mg::CSE, gy, gx) * v[-SW + 1] +
            coef_at(c, mg::CNW, gy, gx) * v[SW - 1] +
            coef_at(c, mg::CNE, gy, gx) * v[SW + 1]);
+      if (u_store != nullptr && ry < RTY && rx < RTX)
+        put(u_store, (size_t)gy * nx + gx, v[0]);
     }
     if (RC)
       rs[t] = r;
     else if (gy < ny && gx < nx)
-      out[(size_t)gy * nx + gx] = r;
+      put(out, (size_t)gy * nx + gx, r);
   }
   if constexpr (RC) {
     __syncthreads();
@@ -764,94 +795,147 @@ line_residual_kernel(Coeffs9<T> c, const T* __restrict__ b,
       const int cy = t / (RTX / 2), cx = t % (RTX / 2);
       const int I = y0 / 2 + cy, J = x0 / 2 + cx;
       if (I >= nyc || J >= nxc) continue;
-      const T* r0 = rs + 2 * cy * FW + 2 * cx;  // fine (2I, 2J)
-      T ycol[3];
+      const A* r0 = rs + 2 * cy * FW + 2 * cx;  // fine (2I, 2J)
+      A ycol[3];
       for (int d = 0; d < 3; ++d)
-        ycol[d] = r0[d] + T(2) * r0[FW + d] + r0[2 * FW + d];
-      out[(size_t)I * nxc + J] = T(0.0625) * (ycol[0] + T(2) * ycol[1] +
-                                              ycol[2]);
+        ycol[d] = r0[d] + A(2) * r0[FW + d] + r0[2 * FW + d];
+      put(out, (size_t)I * nxc + J,
+          A(0.0625) * (ycol[0] + A(2) * ycol[1] + ycol[2]));
     }
   }
 }
 
-template <class T>
-using SegmentFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
-                           const T*, RowHalo<T>, T*, T*, T*, int, int, int);
-template <class T>
-using FixFn = void (*)(Coeffs9<T>, LineFactor<T>, const T*, const T*,
-                       const T*, RowHalo<T>, const T*, const T*, T*, T*, int,
-                       int, int, int, T, T);
+template <class T, class U, class A = compute_t<T>>
+using SegmentFn = void (*)(Coeffs9<A>, LineFactor<A>, const T*, const U*,
+                           const T*, RowHalo<U>, A*, A*, T*, int, int, int);
+template <class T, class U, class O, class A = compute_t<T>>
+using FixFn = void (*)(Coeffs9<A>, LineFactor<A>, const T*, const U*,
+                       const T*, RowHalo<U>, const A*, const A*, O*, A*, int,
+                       int, int, int, A, A);
 
-template <class T>
-LineFactor<T> line_factor(const unsigned long long* fptrs, int fsx) {
-  auto fp = [&](int i) { return reinterpret_cast<const T*>(fptrs[i]); };
-  return LineFactor<T>{fp(0), fp(1), fp(2), fp(3), fp(4),
+template <class A>
+LineFactor<A> line_factor(const unsigned long long* fptrs, int fsx) {
+  auto fp = [&](int i) { return reinterpret_cast<const A*>(fptrs[i]); };
+  return LineFactor<A>{fp(0), fp(1), fp(2), fp(3), fp(4),
                        fp(5), fp(6), fp(7), fsx};
 }
 
-template <class T, bool TAB>
-SegmentFn<T> pick_segment(bool guess, bool correct) {
-  return !guess    ? line_segment_kernel<T, false, false, TAB>
-         : correct ? line_segment_kernel<T, true, true, TAB>
-                   : line_segment_kernel<T, true, false, TAB>;
+// Launch 1's kernel for a sweep: an iterate read in the compute type (a
+// bf16 visit's later sweeps) is never the zero guess and takes no
+// correction, which the first sweep alone does.
+template <class T, class U, bool TAB>
+SegmentFn<T, U> pick_segment(bool guess, bool correct) {
+  if constexpr (!std::is_same<U, T>::value) {
+    return line_segment_kernel<T, U, true, false, TAB>;
+  } else {
+    return !guess    ? line_segment_kernel<T, T, false, false, TAB>
+           : correct ? line_segment_kernel<T, T, true, true, TAB>
+                     : line_segment_kernel<T, T, true, false, TAB>;
+  }
 }
 
-template <class T, bool TAB>
-FixFn<T> pick_fix(bool guess, bool correct, bool dot) {
-  if (!guess)
-    return dot ? line_fix_kernel<T, false, false, true, TAB>
-               : line_fix_kernel<T, false, false, false, TAB>;
-  if (correct)
-    return dot ? line_fix_kernel<T, true, true, true, TAB>
-               : line_fix_kernel<T, true, true, false, TAB>;
-  return dot ? line_fix_kernel<T, true, false, true, TAB>
-             : line_fix_kernel<T, true, false, false, TAB>;
+// Launch 3's kernel for a sweep: as pick_segment, and <b, u> only where
+// the sweep stores the visit's u (O = T).
+template <class T, class U, class O, bool TAB>
+FixFn<T, U, O> pick_fix(bool guess, bool correct, bool dot) {
+  constexpr bool OT = std::is_same<O, T>::value;
+  if constexpr (!std::is_same<U, T>::value) {
+    if constexpr (OT)
+      return dot ? line_fix_kernel<T, U, O, true, false, true, TAB>
+                 : line_fix_kernel<T, U, O, true, false, false, TAB>;
+    else
+      return line_fix_kernel<T, U, O, true, false, false, TAB>;
+  } else if constexpr (!OT) {
+    return !guess    ? line_fix_kernel<T, T, O, false, false, false, TAB>
+           : correct ? line_fix_kernel<T, T, O, true, true, false, TAB>
+                     : line_fix_kernel<T, T, O, true, false, false, TAB>;
+  } else {
+    if (!guess)
+      return dot ? line_fix_kernel<T, T, T, false, false, true, TAB>
+                 : line_fix_kernel<T, T, T, false, false, false, TAB>;
+    if (correct)
+      return dot ? line_fix_kernel<T, T, T, true, true, true, TAB>
+                 : line_fix_kernel<T, T, T, true, true, false, TAB>;
+    return dot ? line_fix_kernel<T, T, T, true, false, true, TAB>
+               : line_fix_kernel<T, T, T, true, false, false, TAB>;
+  }
 }
 
-template <class T>
-int line_sweep(const unsigned long long* cptrs, const int* cstrides,
-               const unsigned long long* fptrs, int fsx, int seg, const T* b,
-               const T* u, const T* e, T* u_out, T* part, T* scratch,
-               T* u_corr, int ny, int nx, T omega, T one_minus_omega,
-               void* stream) {
+template <class T, class U, class O, class A = compute_t<T>>
+int line_sweep_t(const unsigned long long* cptrs, const int* cstrides,
+                 const unsigned long long* fptrs, int fsx, int seg,
+                 const T* b, const U* u, const T* e, O* u_out, A* part,
+                 A* scratch, T* u_corr, int ny, int nx, A omega,
+                 A one_minus_omega, void* stream) {
+  constexpr bool UT = std::is_same<U, T>::value;
   const int nseg = (ny + SEG - 1) / SEG;
   if (seg != SEG || ny < 1 || nx < 1 || (u == nullptr && e != nullptr) ||
       (nseg > 1 && scratch == nullptr) ||
-      (nseg > 1 && e != nullptr && (u_corr == nullptr || u_corr == u)))
+      (nseg > 1 && e != nullptr &&
+       (u_corr == nullptr || (const void*)u_corr == (const void*)u)) ||
+      (!UT && (u == nullptr || e != nullptr)) ||
+      (!std::is_same<O, T>::value && part != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
-  const RowHalo<T> hl{nullptr, nullptr, nullptr, nullptr, nx};
+  const Coeffs9<A> c = mg::coeffs9<A>(cptrs, cstrides);
+  const LineFactor<A> f = line_factor<A>(fptrs, fsx);
+  const RowHalo<U> hl{nullptr, nullptr, nullptr, nullptr, nx};
   const bool tab = f.table != nullptr, guess = u != nullptr;
   bool correct = e != nullptr;
   const bool dot = part != nullptr;
   const cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((nx + ST - 1) / ST, nseg);
-  T *cin = nullptr, *din = nullptr;
+  A *cin = nullptr, *din = nullptr;
   if (nseg > 1) {
-    T* ends = scratch;  // then the starts: one rank's (2, nseg, nx)
-    T* starts = ends + (size_t)nseg * nx;
+    A* ends = scratch;  // then the starts: one rank's (2, nseg, nx)
+    A* starts = ends + (size_t)nseg * nx;
     cin = starts + (size_t)nseg * nx;
     din = cin + (size_t)nseg * nx;
-    SegmentFn<T> seg_kern = tab ? pick_segment<T, true>(guess, correct)
-                                : pick_segment<T, false>(guess, correct);
+    SegmentFn<T, U> seg_kern = tab ? pick_segment<T, U, true>(guess, correct)
+                                   : pick_segment<T, U, false>(guess, correct);
     seg_kern<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, ends, starts, u_corr,
                                   SEG, ny, nx);
     if (int err = (int)cudaGetLastError()) return err;
-    if (correct) {  // launch 3 reads the corrected iterate launch 1 stored
-      u = u_corr;
-      e = nullptr;
-      correct = false;
+    if constexpr (UT) {
+      if (correct) {  // launch 3 reads the corrected iterate launch 1 stored
+        u = u_corr;
+        e = nullptr;
+        correct = false;
+      }
     }
-    if (int err = carry_launch<T, false>(f, ends, cin, din, SEG, nseg, 0,
+    if (int err = carry_launch<A, false>(f, ends, cin, din, SEG, nseg, 0,
                                          nseg, ny, nx, st))
       return err;
   }
-  FixFn<T> fix = tab ? pick_fix<T, true>(guess, correct, dot)
-                     : pick_fix<T, false>(guess, correct, dot);
+  FixFn<T, U, O> fix = tab ? pick_fix<T, U, O, true>(guess, correct, dot)
+                           : pick_fix<T, U, O, false>(guess, correct, dot);
   fix<<<grid, ST, 0, st>>>(c, f, b, u, e, hl, cin, din, u_out, part, SEG,
                            ny, ny, nx, omega, one_minus_omega);
   return (int)cudaGetLastError();
+}
+
+// One sweep: u (null: the zero guess) read in T, or in the compute type
+// where u_c (a bf16 visit's later sweeps), the output stored in T, or in
+// the compute type where out_c; f32 and f64 compute in T, so the flags
+// select nothing there.
+template <class T, class A = compute_t<T>>
+int line_sweep(const unsigned long long* cptrs, const int* cstrides,
+               const unsigned long long* fptrs, int fsx, int seg, const T* b,
+               const void* u, int u_c, const T* e, void* u_out, int out_c,
+               A* part, A* scratch, T* u_corr, int ny, int nx, A omega,
+               A one_minus_omega, void* stream) {
+  auto run = [&](auto uu, auto out) {
+    return line_sweep_t(cptrs, cstrides, fptrs, fsx, seg, b, uu, e, out,
+                        part, scratch, u_corr, ny, nx, omega,
+                        one_minus_omega, stream);
+  };
+  if constexpr (std::is_same<A, T>::value) {
+    return run((const T*)u, (T*)u_out);
+  } else {
+    if (u_c)
+      return out_c ? run((const A*)u, (A*)u_out) : run((const A*)u,
+                                                       (T*)u_out);
+    return out_c ? run((const T*)u, (A*)u_out) : run((const T*)u, (T*)u_out);
+  }
 }
 
 // The rank-spanning mode's launches on one rank's block of nyl real rows
@@ -862,9 +946,8 @@ int line_sweep(const unsigned long long* cptrs, const int* cstrides,
 // block's rows, hl its iterate's rows above and below and, in the 2-D
 // block mode (u_left non-null), the columns left and right; nx real
 // columns at the row stride ld.  seg must divide SEG; launch 1 and 3 take
-// the iterate (no zero guess, no correction).
-template <class T>
-bool rows_ok(int seg, int nseg, int nyl, int nx) {
+// the iterate (no zero guess, no correction), in T.
+inline bool rows_ok(int seg, int nseg, int nyl, int nx) {
   return seg >= 1 && seg <= SEG && SEG % seg == 0 && nseg >= 1 &&
          nyl >= 1 && nyl <= nseg * seg && nx >= 1;
 }
@@ -877,96 +960,123 @@ bool halo_ok(const RowHalo<T>& hl, int nx) {
                 : hl.ld == nx);
 }
 
-template <class T>
+template <class T, class A = compute_t<T>>
 int line_rows_ends(const unsigned long long* cptrs, const int* cstrides,
                    const unsigned long long* fptrs, int fsx, int seg,
-                   const T* b, const T* u, RowHalo<T> hl, T* ends, T* starts,
+                   const T* b, const T* u, RowHalo<T> hl, A* ends, A* starts,
                    int nseg, int nyl, int nx, void* stream) {
-  if (!rows_ok<T>(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr)
+  if (!rows_ok(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
+  const Coeffs9<A> c = mg::coeffs9<A>(cptrs, cstrides);
+  const LineFactor<A> f = line_factor<A>(fptrs, fsx);
   const bool tab = f.table != nullptr, sides = hl.left != nullptr;
-  SegmentFn<T> kern =
-      sides ? (tab ? line_segment_kernel<T, true, false, true, true, true>
-                   : line_segment_kernel<T, true, false, false, true, true>)
-            : (tab ? line_segment_kernel<T, true, false, true, true>
-                   : line_segment_kernel<T, true, false, false, true>);
+  SegmentFn<T, T> kern =
+      sides
+          ? (tab ? line_segment_kernel<T, T, true, false, true, true, true>
+                 : line_segment_kernel<T, T, true, false, false, true, true>)
+          : (tab ? line_segment_kernel<T, T, true, false, true, true>
+                 : line_segment_kernel<T, T, true, false, false, true>);
   kern<<<dim3((nx + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
       c, f, b, u, nullptr, hl, ends, starts, nullptr, seg, nyl, nx);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class A>
 int line_rows_carry(const unsigned long long* fptrs, int fsx, int seg,
-                    const T* gathered, int S, T* cin, T* din, int s0,
+                    const A* gathered, int S, A* cin, A* din, int s0,
                     int nown, int ny, int nx, void* stream) {
-  if (!rows_ok<T>(seg, nown, 1, nx) || s0 < 0 || s0 + nown > S || ny < 1 ||
+  if (!rows_ok(seg, nown, 1, nx) || s0 < 0 || s0 + nown > S || ny < 1 ||
       gathered == nullptr || cin == nullptr || din == nullptr)
     return (int)cudaErrorInvalidValue;
-  return carry_launch<T, true>(line_factor<T>(fptrs, fsx), gathered, cin,
+  return carry_launch<A, true>(line_factor<A>(fptrs, fsx), gathered, cin,
                                din, seg, S, s0, nown, ny, nx,
                                (cudaStream_t)stream);
 }
 
-template <class T>
+template <class T, class A = compute_t<T>>
 int line_rows_fix(const unsigned long long* cptrs, const int* cstrides,
                   const unsigned long long* fptrs, int fsx, int seg,
-                  const T* b, const T* u, RowHalo<T> hl, const T* cin,
-                  const T* din, T* u_out, int nseg, int nyl, int rows_out,
-                  int nx, T omega, T one_minus_omega, void* stream) {
-  if (!rows_ok<T>(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr ||
+                  const T* b, const T* u, RowHalo<T> hl, const A* cin,
+                  const A* din, T* u_out, int nseg, int nyl, int rows_out,
+                  int nx, A omega, A one_minus_omega, void* stream) {
+  if (!rows_ok(seg, nseg, nyl, nx) || !halo_ok(hl, nx) || u == nullptr ||
       u_out == u || cin == nullptr || din == nullptr || rows_out < nyl ||
       rows_out > nseg * seg)
     return (int)cudaErrorInvalidValue;
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
-  const LineFactor<T> f = line_factor<T>(fptrs, fsx);
+  const Coeffs9<A> c = mg::coeffs9<A>(cptrs, cstrides);
+  const LineFactor<A> f = line_factor<A>(fptrs, fsx);
   const bool tab = f.table != nullptr, sides = hl.left != nullptr;
-  FixFn<T> fix =
-      sides ? (tab ? line_fix_kernel<T, true, false, false, true, true, true>
-                   : line_fix_kernel<T, true, false, false, false, true, true>)
-            : (tab ? line_fix_kernel<T, true, false, false, true, true>
-                   : line_fix_kernel<T, true, false, false, false, true>);
+  FixFn<T, T, T> fix =
+      sides ? (tab ? line_fix_kernel<T, T, T, true, false, false, true, true,
+                                     true>
+                   : line_fix_kernel<T, T, T, true, false, false, false, true,
+                                     true>)
+            : (tab ? line_fix_kernel<T, T, T, true, false, false, true, true>
+                   : line_fix_kernel<T, T, T, true, false, false, false,
+                                     true>);
   fix<<<dim3((hl.ld + ST - 1) / ST, nseg), ST, 0, (cudaStream_t)stream>>>(
       c, f, b, u, nullptr, hl, cin, din, u_out, nullptr, seg, nyl, rows_out,
       nx, omega, one_minus_omega);
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int line_residual(const unsigned long long* cptrs, const int* cstrides,
-                  const T* b, const T* u, T* out, int ny, int nx, int rc,
-                  void* stream) {
-  const Coeffs9<T> c = mg::coeffs9<T>(cptrs, cstrides);
+template <class T, class U>
+int line_residual_t(const unsigned long long* cptrs, const int* cstrides,
+                    const T* b, const U* u, T* out, T* u_store, int ny,
+                    int nx, int rc, void* stream) {
+  const auto c = mg::coeffs9<compute_t<T>>(cptrs, cstrides);
   const dim3 grid((nx + RTX - 1) / RTX, (ny + RTY - 1) / RTY);
   if (rc)
-    line_residual_kernel<T, true><<<grid, RT, 0, (cudaStream_t)stream>>>(
-        c, b, u, out, ny, nx);
+    line_residual_kernel<T, U, true><<<grid, RT, 0, (cudaStream_t)stream>>>(
+        c, b, u, out, u_store, ny, nx);
   else
-    line_residual_kernel<T, false><<<grid, RT, 0, (cudaStream_t)stream>>>(
-        c, b, u, out, ny, nx);
+    line_residual_kernel<T, U, false><<<grid, RT, 0, (cudaStream_t)stream>>>(
+        c, b, u, out, u_store, ny, nx);
   return (int)cudaGetLastError();
+}
+
+// The residual launch: u read in T, or in the compute type where u_c (a
+// bf16 visit's f32 iterate, whose rounded u it then stores in u_store).
+template <class T>
+int line_residual(const unsigned long long* cptrs, const int* cstrides,
+                  const T* b, const void* u, int u_c, T* out, T* u_store,
+                  int ny, int nx, int rc, void* stream) {
+  using A = compute_t<T>;
+  if (std::is_same<A, T>::value || !u_c) {
+    if (u_store != nullptr) return (int)cudaErrorInvalidValue;
+    return line_residual_t<T, T>(cptrs, cstrides, b, (const T*)u, out,
+                                 nullptr, ny, nx, rc, stream);
+  }
+  return line_residual_t<T, A>(cptrs, cstrides, b, (const A*)u, out, u_store,
+                               ny, nx, rc, stream);
 }
 
 }  // namespace
 
 // The C entries of storage type T, named mg_<entry><SFX> (SFX empty for
-// f32, _f64):
+// f32, _f64, _bf16); A = compute_t<T> (f32 for bf16, else T) types the
+// coefficients, the line factors, the segment ends, the carries, the dot
+// partials and omega:
 //   mg_line_sweep     one y-line sweep.  cptrs/cstrides: the 9-point
-//                     coefficients as in mg_common.cuh's coeffs9(); fptrs:
-//                     device pointers to the line factors m, cp, above,
-//                     below, gain, end_w, start_w, columns (fsx = 0) or
-//                     fields (fsx = 1), then the packed per-row table (null:
-//                     none), made for segments of `seg` rows (refused
-//                     unless it is SEG); u null: the zero guess; e
-//                     non-null: correct u + P e first (u_corr: where the
-//                     corrected iterate is kept, an (ny, nx) buffer other
-//                     than u; unused, and may be null, for a level of one
-//                     segment); part non-null: the <b, u_out> partials;
-//                     scratch: 4 * nseg * nx values (unused, and may be
-//                     null, for a level of one segment).
+//                     coefficients (in A) as in mg_common.cuh's coeffs9();
+//                     fptrs: device pointers to the line factors m, cp,
+//                     above, below, gain, end_w, start_w, columns (fsx = 0)
+//                     or fields (fsx = 1), then the packed per-row table
+//                     (null: none), made for segments of `seg` rows
+//                     (refused unless it is SEG); u null: the zero guess;
+//                     u_c: u is in A, not T (then no zero guess and no
+//                     correction); out_c: u_out in A, not T (then no
+//                     <b, u>); e non-null: correct u + P e first (u_corr:
+//                     where the corrected iterate is kept, in T, an (ny,
+//                     nx) buffer other than u; unused, and may be null, for
+//                     a level of one segment); part non-null: the
+//                     <b, u_out> partials; scratch: 4 * nseg * nx values
+//                     (unused, and may be null, for a level of one
+//                     segment).
 //   mg_line_residual  the visit's last pass: r = b - A u (rc == 0) or its
-//                     restriction.
+//                     restriction; u in A where u_c, then u_store non-null
+//                     receives u in T.
+// and MG_LINE_ROWS_ENTRIES's, for f32 and f64:
 //   mg_line_rows_ends, mg_line_rows_carry, mg_line_rows_fix
 //                     the rank-spanning mode, one sweep of a rank's block
 //                     (see the top of this file): launch 1 (the segment
@@ -991,42 +1101,48 @@ int line_residual(const unsigned long long* cptrs, const int* cstrides,
   extern "C" int mg_line_sweep##SFX(                                        \
       const unsigned long long* cptrs, const int* cstrides,                 \
       const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
-      const T* u, const T* e, T* u_out, T* part, T* scratch, T* u_corr,     \
-      int ny, int nx, T omega, T one_minus_omega, void* stream) {           \
-    return line_sweep<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, e, u_out,  \
-                         part, scratch, u_corr, ny, nx, omega,              \
-                         one_minus_omega, stream);                          \
+      const void* u, int u_c, const T* e, void* u_out, int out_c,           \
+      compute_t<T>* part, compute_t<T>* scratch, T* u_corr, int ny, int nx, \
+      compute_t<T> omega, compute_t<T> one_minus_omega, void* stream) {     \
+    return line_sweep<T>(cptrs, cstrides, fptrs, fsx, seg, b, u, u_c, e,    \
+                         u_out, out_c, part, scratch, u_corr, ny, nx,       \
+                         omega, one_minus_omega, stream);                   \
   }                                                                         \
   extern "C" int mg_line_residual##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides, const T* b,     \
-      const T* u, T* out, int ny, int nx, int rc, void* stream) {           \
-    return line_residual<T>(cptrs, cstrides, b, u, out, ny, nx, rc,         \
-                            stream);                                        \
-  }                                                                         \
+      const void* u, int u_c, T* out, T* u_store, int ny, int nx, int rc,   \
+      void* stream) {                                                       \
+    return line_residual<T>(cptrs, cstrides, b, u, u_c, out, u_store, ny,   \
+                            nx, rc, stream);                                \
+  }
+
+// The rank-spanning mode's entries (f32 and f64 only: bf16 under a plan is
+// not ported).
+#define MG_LINE_ROWS_ENTRIES(SFX, T)                                        \
   extern "C" int mg_line_rows_ends##SFX(                                    \
       const unsigned long long* cptrs, const int* cstrides,                 \
       const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
       const T* u, const T* u_top, const T* u_bot, const T* u_left,          \
-      const T* u_right, T* ends, T* starts, int nseg, int nyl, int nx,      \
-      int ld, void* stream) {                                               \
+      const T* u_right, compute_t<T>* ends, compute_t<T>* starts, int nseg, \
+      int nyl, int nx, int ld, void* stream) {                              \
     return line_rows_ends<T>(cptrs, cstrides, fptrs, fsx, seg, b, u,        \
                              RowHalo<T>{u_top, u_bot, u_left, u_right, ld}, \
                              ends, starts, nseg, nyl, nx, stream);          \
   }                                                                         \
   extern "C" int mg_line_rows_carry##SFX(                                   \
-      const unsigned long long* fptrs, int fsx, int seg, const T* gathered, \
-      int S, T* cin, T* din, int s0, int nown, int ny, int nx,              \
-      void* stream) {                                                       \
-    return line_rows_carry<T>(fptrs, fsx, seg, gathered, S, cin, din, s0,   \
-                              nown, ny, nx, stream);                        \
+      const unsigned long long* fptrs, int fsx, int seg,                    \
+      const compute_t<T>* gathered, int S, compute_t<T>* cin,               \
+      compute_t<T>* din, int s0, int nown, int ny, int nx, void* stream) {  \
+    return line_rows_carry<compute_t<T>>(fptrs, fsx, seg, gathered, S, cin, \
+                                         din, s0, nown, ny, nx, stream);    \
   }                                                                         \
   extern "C" int mg_line_rows_fix##SFX(                                     \
       const unsigned long long* cptrs, const int* cstrides,                 \
       const unsigned long long* fptrs, int fsx, int seg, const T* b,        \
       const T* u, const T* u_top, const T* u_bot, const T* u_left,          \
-      const T* u_right, const T* cin, const T* din, T* u_out, int nseg,     \
-      int nyl, int rows_out, int nx, int ld, T omega, T one_minus_omega,    \
-      void* stream) {                                                       \
+      const T* u_right, const compute_t<T>* cin, const compute_t<T>* din,   \
+      T* u_out, int nseg, int nyl, int rows_out, int nx, int ld,            \
+      compute_t<T> omega, compute_t<T> one_minus_omega, void* stream) {     \
     return line_rows_fix<T>(cptrs, cstrides, fptrs, fsx, seg, b, u,         \
                             RowHalo<T>{u_top, u_bot, u_left, u_right, ld},  \
                             cin, din, u_out, nseg, nyl, rows_out, nx,       \

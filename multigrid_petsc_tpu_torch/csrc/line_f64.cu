@@ -6,3 +6,4 @@
 #include "line.cuh"
 
 MG_LINE_ENTRIES(_f64, double)
+MG_LINE_ROWS_ENTRIES(_f64, double)

@@ -39,6 +39,16 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, size_t i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
 
+// A computed value as storage type T holds it, in the compute type (bf16:
+// rounded once, as put stores it; f32 and f64: unchanged).
+template <class T>
+__device__ __forceinline__ compute_t<T> round_to(compute_t<T> x) {
+  if constexpr (sizeof(T) == 2)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
 // A 9-point stencil's coefficients in device memory.  Coefficient q lives
 // at p[q][(gy - oy) * sy[q] + (gx - ox) * sx[q]]: strides (w, 1) for a
 // field of w columns, (1, 0) for an (ny, 1) column, (0, 1) for a row, (0,

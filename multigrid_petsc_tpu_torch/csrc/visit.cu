@@ -1,8 +1,8 @@
 // The f32 instantiations of the level-visit and stencil kernels
 // (visit.cuh): every entry of MG_VISIT_ENTRIES (their forms on a block of
-// a partitioned level, K17, are in visit_rows.cu) and of
-// MG_PAPPLY_ENTRIES (K1 and K11, the mg-CG direction steps), plus K8 (the
-// field-coefficient stencil), which runs in f32 only.
+// a partitioned level, K17, are in visit_rows.cu), of MG_PAPPLY_ENTRIES
+// (K1 and K11, the mg-CG direction steps) and of MG_FIELD_ENTRIES (K8,
+// the field-coefficient stencil; f32 and bf16).
 
 #include "visit.cuh"
 
@@ -35,15 +35,6 @@ int mg_visit9_blocks(int ny, int nx, int h) {
   return (int)(g.x * g.y);
 }
 
-// K8: y = A u (resid == 0) or y = b - A u with five (ny, nx) coefficient
-// fields.
-int mg_stencil_field(const float* cs, const float* cw, const float* cc,
-                     const float* ce, const float* cn, const float* b,
-                     const float* u, float* y, int ny, int nx, int resid,
-                     void* stream) {
-  Fields5<float> c{cs, cw, cc, ce, cn};
-  return launch_stencil<float>(c, b, u, y, whole_grid<float>(ny, nx), nx, resid,
-                               stream);
-}
-
 }  // extern "C"
+
+MG_FIELD_ENTRIES(, float)

@@ -72,8 +72,8 @@
 // for bf16's halved bytes.  Dot partials and the
 // step schedule are in the compute type.  K1, K2a/K10 and K11 (the mg-CG
 // routes) are built for f32 and bf16 (the bf16 CG visit of halo up to
-// V5_PAIR_MAX_H on visit5p_kernel, as K2b and K3), K8 (f32 sparse
-// levels) for f32 only.
+// V5_PAIR_MAX_H on visit5p_kernel, as K2b and K3), and so is K8 (the
+// sparse backend's stencil form; f32 and bf16 levels).
 //
 // What bounds them on the H100: bytes.  Every kernel does O(k) flops per
 // point against 8-24 bytes of device-memory traffic per point (twice that
@@ -2542,4 +2542,19 @@ int launch_papply(const Coeffs<T>& c, const T* z, const T* p, const T* u,
     Coeffs<T> c{cs, cw, cc, ce, cn};                                         \
     return launch_papply<T, false>(c, z, p, nullptr, nullptr, beta, pn, ap,  \
                                    nullptr, part, ny, nx, stream);           \
+  }
+
+// K8, the field-coefficient stencil, per storage type (f32 in visit.cu,
+// bf16 in visit_bf16.cu; bf16: the five fields, u, b and y stored in bf16,
+// the sums f32, y rounded once):
+//   mg_stencil_field  y = A u (resid == 0) or y = b - A u with five (ny,
+//                     nx) coefficient fields.
+#define MG_FIELD_ENTRIES(SFX, T)                                             \
+  extern "C" int mg_stencil_field##SFX(                                      \
+      const T* cs, const T* cw, const T* cc, const T* ce, const T* cn,       \
+      const T* b, const T* u, T* y, int ny, int nx, int resid,               \
+      void* stream) {                                                        \
+    Fields5<T> c{cs, cw, cc, ce, cn};                                        \
+    return launch_stencil<T>(c, b, u, y, whole_grid<T>(ny, nx), nx, resid,   \
+                             stream);                                        \
   }

@@ -3,9 +3,10 @@
 
 At first use, every ``csrc/*.cu`` source of the package is compiled with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together (the visit kernels' f32, f64 and bf16 instantiations and their
-entries for a block of a partitioned level are sources of their own,
-the bf16 block entries two, so that they build side by side), and the
+together (the visit kernels' and the line visit's f32, f64 and bf16
+instantiations and the visit kernels' entries for a block of a
+partitioned level are sources of their own, the bf16 block entries two,
+so that they build side by side), and the
 objects are linked into one shared library with a plain
 C interface under ``multigrid_petsc_tpu_torch/_build/`` (not tracked by
 git), which is loaded with ``ctypes``.  The build log (``build.log``)
@@ -57,19 +58,26 @@ _PART = {
     "mg_stencil_part": [_P] * 5 + [_P] * 3 + [_P, _P, _I, _I, _P],
     "mg_stencil9_part": [_P, _P, _I, _I] + [_P] * 3 + [_P, _P, _I, _I, _P],
 }
+# K15's entries per storage type: (suffix, omega's C type).
+_LINE = (("", _F), ("_f64", _D), ("_bf16", _F))
 _SIGNATURES = {
     **{name + sfx: argtypes for name, argtypes in _PER_DTYPE.items()
        for sfx in ("", "_f64", "_bf16")},
     **{name + sfx: argtypes for name, argtypes in _PART.items()
        for sfx in ("", "_f64", "_bf16")},
-    # K15's rank-spanning mode and its 2-D block mode (csrc/line.cuh
-    # MG_LINE_ENTRIES).
+    # K15 (csrc/line.cuh; omega in the compute type): one sweep and the
+    # residual launch (MG_LINE_ENTRIES: f32, f64, bf16), the rank-spanning
+    # mode and its 2-D block mode (MG_LINE_ROWS_ENTRIES: f32, f64).
+    **{"mg_line_sweep" + sfx: [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I]
+       + [_P] * 3 + [_I, _I, t, t, _P] for sfx, t in _LINE},
+    **{"mg_line_residual" + sfx: [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+       for sfx, _ in _LINE},
     **{"mg_line_rows_ends" + sfx: [_P, _P, _P, _I, _I] + [_P] * 8
-       + [_I] * 4 + [_P] for sfx in ("", "_f64")},
+       + [_I] * 4 + [_P] for sfx, _ in _LINE[:2]},
     **{"mg_line_rows_carry" + sfx: [_P, _I, _I, _P, _I, _P, _P]
-       + [_I] * 4 + [_P] for sfx in ("", "_f64")},
+       + [_I] * 4 + [_P] for sfx, _ in _LINE[:2]},
     **{"mg_line_rows_fix" + sfx: [_P, _P, _P, _I, _I] + [_P] * 9
-       + [_I] * 5 + [t, t, _P] for sfx, t in (("", _F), ("_f64", _D))},
+       + [_I] * 5 + [t, t, _P] for sfx, t in _LINE[:2]},
     "mg_visit_blocks": [_I, _I],
     "mg_visit5_blocks": [_I, _I, _I, _I],
     "mg_visit9_blocks": [_I, _I, _I],
@@ -78,7 +86,9 @@ _SIGNATURES = {
        for sfx in ("", "_bf16")},
     **{"mg_cg_papply" + sfx: [_P] * 5 + [_P] * 6 + [_I, _I, _P]
        for sfx in ("", "_bf16")},
-    "mg_stencil_field": [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P],
+    # K8 (MG_FIELD_ENTRIES), f32 and bf16.
+    **{"mg_stencil_field" + sfx: [_P] * 5 + [_P] * 3 + [_I, _I, _I, _P]
+       for sfx in ("", "_bf16")},
     "mg_dia_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _I, _P],
     # K18a, the blocked copy (csrc/stream.cu), per storage type, and KP2,
     # the same in place.
@@ -101,11 +111,6 @@ _SIGNATURES = {
     "mg_coarse_tree": [_P, _P, _P, _P],
     "mg_coarse_tree_bf16": [_P, _P, _P, _P],
     "mg_line_blocks": [_I, _I],
-    "mg_line_sweep": [_P, _P, _P, _I, _I] + [_P] * 7 + [_I, _I, _F, _F, _P],
-    "mg_line_sweep_f64": [_P, _P, _P, _I, _I] + [_P] * 7
-    + [_I, _I, _D, _D, _P],
-    "mg_line_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mg_line_residual_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -13,7 +13,7 @@ The TPU kernel holds the whole level in VMEM and solves the line systems
 by parallel cyclic reduction; it is viable up to ~1023^2 and for (ny, 1)
 line coefficients only.  The CUDA kernels (``csrc/line.cuh``) have no size
 cap and take line coefficients that vary with x as well: Thomas's
-recurrence with per-row factors made once per level on the host in f64,
+recurrence with per-row factors made once per level in f64,
 cut into segments of ``LINE_SEG`` rows run by one thread each and joined
 by a carry pass over the segments, a blocked scan of the carries' affine
 maps (``segment_factor`` makes the segments' carry responses beside
@@ -50,11 +50,26 @@ mesh row.  A block that holds its lines whole runs the same mode over a
 group of one rank (no gather).  Its launches are counted as
 ``line_visit9_blocks``, the rows mode's as ``line_visit9_rows``.
 
-Storage types: f32 and f64 (``mg_line_*`` and ``mg_line_*_f64``); bf16
-line visits raise (no path runs them).  The wrapper runs the plain
-version when the data lies on the CPU, launches the kernels when it lies
-on a CUDA device (f32 or f64, contiguous; anything else raises), and
-never falls back from one to the other.
+Storage types: ``line_visit9`` runs f32, f64 and bf16 levels
+(``mg_line_*``, ``mg_line_*_f64``, ``mg_line_*_bf16``); the rank-spanning
+mode f32 and f64 (bf16 under a plan is not ported).  bf16 is storage
+only, as the JAX kernel's bf16 branch: the line stencil comes in the
+compute type (f32: ``line_stencil``, the upcast of the bf16-rounded
+coefficients), the line factors are f32 (``segment_factor`` makes them
+in f64; the plain version's PCR factor comes from the f32
+stencil), and the rounding points, the kernel's and the plain version's
+alike, are:
+  * u + P e_c is formed in f32 from the bf16 u and e_c and rounded once
+    (JAX forms it in bf16 arithmetic: a bound in the tests);
+  * the k sweeps run in f32 from the f32 upcast of b, the iterate kept in
+    f32 between sweeps (the kernel's intermediate buffers are f32);
+  * the visit's u is rounded once; r or R r is formed in f32 from the
+    unrounded u and rounded once; <b, u> is the f32 sum over the
+    unrounded u.
+The wrapper runs the plain version when the data lies on the CPU,
+launches the kernels when it lies on a CUDA device (one of those storage
+types, contiguous; anything else raises), and never falls back from one
+to the other.
 """
 
 from __future__ import annotations
@@ -70,12 +85,15 @@ from multigrid_petsc_tpu_torch.ops.cuda import count_launch
 from multigrid_petsc_tpu_torch.ops.cuda._build import check, load_library
 from multigrid_petsc_tpu_torch.ops.cuda.dist_kernel import Halo2
 from multigrid_petsc_tpu_torch.ops.cuda.mdma_kernel import (
+    _ENTRY_SUFFIX,
     Coeff9Args,
     _check_cuda,
     _odd_shape,
     _on_cpu,
     _stream,
     coeff9_args,
+    compute_dtype,
+    entry,
 )
 from multigrid_petsc_tpu_torch.ops.stencil import (
     PCRFactor,
@@ -88,7 +106,10 @@ from multigrid_petsc_tpu_torch.ops.stencil import (
 from multigrid_petsc_tpu_torch.ops.transfer import prolong_bilinear, restrict_fw
 
 _EMITS = ("u", "ur", "rc")
-LINE_DTYPES = (torch.float32, torch.float64)
+# The storage types of the one-card visit (csrc/line.cu, line_f64.cu,
+# line_bf16.cu) and of the rank-spanning mode.
+LINE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+ROW_DTYPES = (torch.float32, torch.float64)
 # Rows per segment of the CUDA line solve (csrc/line.cuh SEG; the C entry
 # refuses factors made for another length).
 LINE_SEG = 32
@@ -97,6 +118,18 @@ LINE_SEG = 32
 TABLE_COLUMNS = ("cw", "ce", "csw", "cse", "cnw", "cne", "cs", "m", "cp",
                  "above", "below", "end_w", "start_w")
 TABLE_WIDTH = 16
+
+
+def line_stencil(st: Stencil9) -> Stencil9:
+    """The line smoothers' stencil of a level: ``collapse_stencil`` of
+    ``st`` in its compute type (a bf16 level's as the exact f32 upcast of
+    its bf16-rounded coefficients, as the JAX kernel takes them)."""
+    return _in_compute(collapse_stencil(st))
+
+
+def _in_compute(st: Stencil9) -> Stencil9:
+    cdt = compute_dtype(st.cc.dtype)
+    return st if st.cc.dtype == cdt else Stencil9(*(c.to(cdt) for c in st))
 
 
 def collapse_stencil(st: Stencil9) -> Stencil9:
@@ -126,10 +159,10 @@ class SegmentFactor(NamedTuple):
     the weights that give a segment's zero-carry dp at its last row
     (``end_w``) and x at its first (``start_w``) as sums over its rows'
     right-hand sides; columns (width 1) or fields (width nx), in the
-    stencil's dtype.  ``table``: when the line stencil and so every factor
-    is constant along x (BASELINE config 4), every per-row value the
-    kernels read, packed one row per grid row (``TABLE_COLUMNS``, padded
-    to 16), else None."""
+    stencil's compute type (f32 for bf16).  ``table``: when the line
+    stencil and so every factor is constant along x (BASELINE config 4),
+    every per-row value the kernels read, packed one row per grid row
+    (``TABLE_COLUMNS``, padded to 16), else None."""
 
     m: torch.Tensor
     cp: torch.Tensor
@@ -160,14 +193,10 @@ def _thomas_host(st: Stencil9, ny: int):
     return a, m, cp
 
 
-def _on_device(st: Stencil9, *arrays):
-    return tuple(torch.as_tensor(x, dtype=st.cc.dtype, device=st.cc.device)
-                 for x in arrays)
-
-
 def segment_spikes(a, m, cp, seg: int = LINE_SEG):
-    """(above, below, gain, end_w, start_w) of the segmented Thomas solve,
-    in f64, from the (ny, w) sub-diagonal and Thomas factors.  The forward
+    """(above, below, gain, end_w, start_w) of the segmented Thomas solve
+    from the (ny, w) sub-diagonal and Thomas factors, f64 tensors, on
+    their device.  The forward
     recurrence dp_i = (rhs_i - a_i dp_{i-1}) m_i carries dp with the
     multiplier f_i = -a_i m_i, the backward x_i = dp_i - cp_i x_{i+1}
     carries x with h_i = -cp_i; for a segment of rows s0..s1:
@@ -182,63 +211,69 @@ def segment_spikes(a, m, cp, seg: int = LINE_SEG):
     nothing below the last row reaches it)."""
     ny, w = m.shape
     nseg = -(-ny // seg)
-    pad = np.zeros((nseg * seg - ny, w))
+    pad = m.new_zeros((nseg * seg - ny, w))
 
     def cut(x):
-        return np.concatenate([x, pad]).reshape(nseg, seg, w)
+        return torch.cat([x, pad.to(x.dtype)]).reshape(nseg, seg, w)
 
     f, h, mm = cut(-a * m), cut(-cp), cut(m)
-    real = cut(np.ones((ny, w))) > 0
-    last = real & ~np.concatenate([real[:, 1:], np.zeros_like(real[:, :1])],
-                                  axis=1)
-    F = np.cumprod(f, axis=1)
-    hpre = np.cumprod(np.concatenate([np.ones_like(h[:, :1]), h[:, :-1]],
-                                     axis=1), axis=1)
-    above, below = np.empty_like(F), np.empty_like(F)
-    end_w, g = np.empty_like(F), np.empty_like(F)
+    real = cut(torch.ones_like(m)) > 0
+    last = real & ~torch.cat([real[:, 1:], torch.zeros_like(real[:, :1])],
+                             dim=1)
+    F = torch.cumprod(f, dim=1)
+    hpre = torch.cumprod(torch.cat([torch.ones_like(h[:, :1]), h[:, :-1]],
+                                   dim=1), dim=1)
+    above, below = torch.empty_like(F), torch.empty_like(F)
+    end_w, g = torch.empty_like(F), torch.empty_like(F)
     above[:, -1], below[:, -1] = F[:, -1], h[:, -1]
     end_w[:, -1], g[:, -1] = 1.0, hpre[:, -1]
     for i in range(seg - 2, -1, -1):
         above[:, i] = F[:, i] + h[:, i] * above[:, i + 1]
         below[:, i] = h[:, i] * below[:, i + 1]
-        end_w[:, i] = np.where(last[:, i], 1.0, f[:, i + 1] * end_w[:, i + 1])
+        end_w[:, i] = torch.where(last[:, i], 1.0,
+                                  f[:, i + 1] * end_w[:, i + 1])
         g[:, i] = hpre[:, i] + f[:, i + 1] * g[:, i + 1]
     end_w *= mm
 
     def rows(x):
         return x.reshape(-1, w)[:ny]
 
-    return (rows(above), rows(below), F[:, -1].copy(), rows(end_w),
+    return (rows(above), rows(below), F[:, -1].clone(), rows(end_w),
             rows(mm * g))
 
 
 def segment_factor(st: Stencil9, ny: int,
                    seg: int = LINE_SEG) -> SegmentFactor:
     """Thomas's factors and the carry responses of ``st``'s y-lines cut
-    into segments of ``seg`` rows (``segment_spikes``), computed on the
-    host in f64 and stored in the stencil's dtype on its device, with the
-    packed per-row table when the kernels' per-row values are all constant
-    along x."""
-    a, m, cp = _thomas_host(st, ny)
+    into segments of ``seg`` rows (``segment_spikes``), in f64: Thomas's
+    row recurrence on the host, the responses on the stencil's device;
+    stored in the stencil's compute type (f32 for a bf16 stencil), with
+    the packed per-row table when the kernels' per-row values are all
+    constant along x."""
+    dev = st.cc.device
+    a, m, cp = (torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                for x in _thomas_host(st, ny))
     names = SegmentFactor._fields[:-1]
-    host = dict(zip(names, (m, cp, *segment_spikes(a, m, cp, seg))))
+    f64 = dict(zip(names, (m, cp, *segment_spikes(a, m, cp, seg))))
     table = None
     if m.shape[1] == 1 and all(getattr(st, k).shape[1] == 1
                                for k in TABLE_COLUMNS[:7]):
-        host.update((k, np.broadcast_to(_host(getattr(st, k)), (ny, 1)))
-                    for k in TABLE_COLUMNS[:7])
-        table = np.zeros((ny, TABLE_WIDTH))
-        table[:, :len(TABLE_COLUMNS)] = np.concatenate(
-            [host[k] for k in TABLE_COLUMNS], axis=1)
-    return SegmentFactor(*_on_device(st, *(host[k] for k in names)),
-                         None if table is None else _on_device(st, table)[0])
+        f64.update((k, getattr(st, k).to(torch.float64).expand(ny, 1))
+                   for k in TABLE_COLUMNS[:7])
+        table = m.new_zeros((ny, TABLE_WIDTH))
+        table[:, :len(TABLE_COLUMNS)] = torch.cat(
+            [f64[k] for k in TABLE_COLUMNS], dim=1)
+    cdt = compute_dtype(st.cc.dtype)
+    return SegmentFactor(*(f64[k].to(cdt).contiguous() for k in names),
+                         None if table is None else table.to(cdt))
 
 
 def line_factor(st: Stencil9, ny: int):
     """What ``line_visit9`` needs of the ny-point line systems, once per
-    level: the PCR factor for CPU tensors (the plain version), the
-    segmented Thomas factors for CUDA tensors."""
+    level, in the stencil's compute type: the PCR factor for CPU tensors
+    (the plain version), the segmented Thomas factors for CUDA tensors."""
     if _on_cpu(st.cc):
+        st = _in_compute(st)
         return pcr_factor(st.cs, st.cc, st.cn, ny)
     return segment_factor(st, ny)
 
@@ -258,16 +293,22 @@ def line_visit9_plain(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
                       emit: str = "u", e_coarse=None, emit_dot: bool = False,
                       fac: PCRFactor | None = None):
     """The visit as the JAX package composes it: ``line_jacobi_sweeps_y``
-    (PCR) from u [+ P e_c], then the emits."""
+    (PCR) from u [+ P e_c], then the emits; on bf16 storage in f32 from
+    the upcast inputs, rounded where the kernel stores (the module
+    docstring)."""
     _check_line(u, emit, e_coarse, emit_dot, sweeps)
-    u = torch.zeros_like(b) if u is None else u
+    store = b.dtype
+    cdt = compute_dtype(store)
+    st, b = _in_compute(st), b.to(cdt)
+    u = torch.zeros_like(b) if u is None else u.to(cdt)
     if e_coarse is not None:
-        u = u + prolong_bilinear(e_coarse)
+        u = (u + prolong_bilinear(e_coarse.to(cdt))).to(store).to(cdt)
     u = line_jacobi_sweeps_y(st, b, u, sweeps, omega, fac=fac)
     if emit == "u":
-        return (u, torch.sum(b * u)) if emit_dot else u
+        return (u.to(store), torch.sum(b * u)) if emit_dot else u.to(store)
     r = b - apply_stencil9(st, u)
-    return (u, r) if emit == "ur" else (u, restrict_fw(r))
+    out = r if emit == "ur" else restrict_fw(r)
+    return u.to(store), out.to(store)
 
 
 def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
@@ -283,6 +324,7 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
     transfer = emit == "rc" or e_coarse is not None
     ny, nx = _odd_shape(b) if transfer else b.shape
     nyc, nxc = (ny - 1) // 2, (nx - 1) // 2
+    st = _in_compute(st)
     fac = segment_factor(st, ny) if fac is None else fac
     c9 = coeff9_args(st, ny, nx)
     w = fac.m.shape[1]
@@ -290,59 +332,68 @@ def line_visit9(st: Stencil9, b, u, sweeps: int, omega: float = 1.0,
         raise ValueError(f"line factors of width {w} for {nx} columns")
     nseg = -(-ny // LINE_SEG)
     shapes = {"gain": (nseg, w), "table": (ny, TABLE_WIDTH)}
-    fields = {"b": (b, (ny, nx)), **c9.fields,
-              **{f"fac.{k}": (t, shapes.get(k, (ny, w)))
-                 for k, t in fac._asdict().items() if t is not None}}
+    fields = {"b": (b, (ny, nx))}
     if u is not None:
         fields["u"] = (u, (ny, nx))
     if e_coarse is not None:
         fields["e_c"] = (e_coarse, (nyc, nxc))
     dtype = _check_cuda(b.device, fields, dtypes=LINE_DTYPES)
+    cdt = compute_dtype(dtype)
+    _check_cuda(b.device, {**c9.fields,
+                           **{f"fac.{k}": (t, shapes.get(k, (ny, w)))
+                              for k, t in fac._asdict().items()
+                              if t is not None}}, dtypes=(cdt,))
     lib = load_library()
-    sfx = "_f64" if dtype == torch.float64 else ""
-    sweep = getattr(lib, "mg_line_sweep" + sfx)
-    residual = getattr(lib, "mg_line_residual" + sfx)
+    sweep = entry(lib, "mg_line_sweep", dtype)
+    residual = entry(lib, "mg_line_residual", dtype)
     stream = _stream(b.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    # Ping-pong: a sweep reads the previous iterate at neighbouring
-    # columns while writing its own, so it never writes its input.
-    # With a correction, the second buffer first holds u + P e (kept by
-    # the first sweep's first launch for its last).
-    bufs = [torch.empty_like(b)
-            for _ in range(2 if e_coarse is not None else min(sweeps, 2))]
-    part = (torch.empty(lib.mg_line_blocks(ny, nx), dtype=b.dtype,
+    # A bf16 visit keeps its iterate in f32 between sweeps: every sweep
+    # but the one that stores the visit's u writes an f32 buffer, which
+    # the next sweep (or the residual launch) reads.  A sweep reads the
+    # previous iterate at neighbouring columns while writing its own, so
+    # it never writes its input: each writes a new buffer.
+    keep = dtype != cdt
+    part = (torch.empty(lib.mg_line_blocks(ny, nx), dtype=cdt,
                         device=b.device) if emit_dot else None)
     # Per segment and column: the zero-carry ends, then the carries.
-    scratch = (torch.empty(4 * nseg * nx, dtype=b.dtype, device=b.device)
+    scratch = (torch.empty(4 * nseg * nx, dtype=cdt, device=b.device)
                if nseg > 1 else None)
+    # u + P e_c, formed by the first sweep's first launch for its last.
+    u_corr = torch.empty_like(b) if e_coarse is not None else None
     fptrs = np.asarray([0 if t is None else t.data_ptr() for t in fac],
                        np.uint64)
-    cur = u
+    cur, cur_c = u, False
     for s in range(sweeps):
-        out = bufs[s % 2]
+        last = s == sweeps - 1
+        out_c = keep and not (last and emit == "u")
+        out = torch.empty((ny, nx), dtype=cdt if out_c else dtype,
+                          device=b.device)
         err = sweep(
             c9.ptrs.ctypes.data, c9.strides.ctypes.data, fptrs.ctypes.data,
-            int(w > 1), LINE_SEG, b.data_ptr(), ptr(cur),
-            ptr(e_coarse if s == 0 else None), out.data_ptr(),
-            ptr(part if s == sweeps - 1 else None), ptr(scratch),
-            ptr(bufs[1] if s == 0 and e_coarse is not None else None), ny,
-            nx, omega, 1.0 - omega, stream)
+            int(w > 1), LINE_SEG, b.data_ptr(), ptr(cur), int(cur_c),
+            ptr(e_coarse if s == 0 else None), out.data_ptr(), int(out_c),
+            ptr(part if last else None), ptr(scratch),
+            ptr(u_corr if s == 0 else None), ny, nx, omega, 1.0 - omega,
+            stream)
         check(err, "line sweep launch")
-        cur = out
+        cur, cur_c = out, out_c
     if emit == "u":
         count_launch("line_visit9", dtype)
         return (cur, part.sum()) if emit_dot else cur
     out = torch.empty((nyc, nxc) if emit == "rc" else (ny, nx),
-                      dtype=b.dtype, device=b.device)
+                      dtype=dtype, device=b.device)
+    u_out = torch.empty_like(b) if cur_c else cur
     err = residual(c9.ptrs.ctypes.data, c9.strides.ctypes.data, b.data_ptr(),
-                   cur.data_ptr(), out.data_ptr(), ny, nx, int(emit == "rc"),
+                   cur.data_ptr(), int(cur_c), out.data_ptr(),
+                   ptr(u_out if cur_c else None), ny, nx, int(emit == "rc"),
                    stream)
     check(err, "line residual launch")
     count_launch("line_visit9", dtype)
-    return cur, out
+    return u_out, out
 
 
 # --------------------------------------------------------------------------
@@ -485,9 +536,9 @@ def _row_launch(st_rows: Stencil9, fac: SegmentFactor,
               **{f"fac.{k}": (t, t.shape) for k, t in fac._asdict().items()
                  if t is not None}}
     device = st_rows.cc.device
-    dtype = _check_cuda(device, fields, dtypes=LINE_DTYPES)
+    dtype = _check_cuda(device, fields, dtypes=ROW_DTYPES)
     return RowLaunch(c9, _pointers(rows), _pointers(fac), int(w > 1), width,
-                     dtype, "_f64" if dtype == torch.float64 else "", device)
+                     dtype, _ENTRY_SUFFIX[dtype], device)
 
 
 def row_line(st: Stencil9, ny: int, R: int, row0: int, col0: int = 0,

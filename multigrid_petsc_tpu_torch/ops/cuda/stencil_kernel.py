@@ -35,8 +35,10 @@ kernel; each has its own wrapper and counter (``cg_papply``,
 Storage types: K6, ``residual5``, K7 and K9 run in f32, f64 and bf16
 (bf16 storage, f32 arithmetic, one rounding per stored output; the plain
 versions round where the kernels store, ``mdma_kernel.at_stores``); K10
-and K11 in f32 and bf16 (their scalars and dots f32); K8 in f32.  Each
-wrapper runs its plain PyTorch version
+and K11 in f32 and bf16 (their scalars and dots f32); K8 in f32 and bf16
+(``FIELD_DTYPES``: five bf16 fields, bf16 u and b, f32 sums, the output
+rounded once; JAX's bf16 K8 computes in bf16, a bound in the tests).
+Each wrapper runs its plain PyTorch version
 (``*_plain``) when the data lies on the CPU, launches its kernel when it
 lies on a CUDA device (a storage type of its kernel, contiguous; anything
 else raises), and never falls back from one to the other.
@@ -72,6 +74,10 @@ from multigrid_petsc_tpu_torch.solvers.smoothers import (
 # --------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the kernels' oracle).
 # --------------------------------------------------------------------------
+
+
+# The storage types of K8 (csrc/visit.cu, visit_bf16.cu MG_FIELD_ENTRIES).
+FIELD_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @at_stores
@@ -170,10 +176,12 @@ def residual5(st: Stencil5, b, u) -> torch.Tensor:
     return r
 
 
+@at_stores
 def apply_stencil5_field_plain(st: Stencil5, u: torch.Tensor) -> torch.Tensor:
     return _st.apply_stencil5(st, u)
 
 
+@at_stores
 def residual5_field_plain(st: Stencil5, b, u) -> torch.Tensor:
     return b - _st.apply_stencil5(st, u)
 
@@ -185,13 +193,12 @@ def _launch_field(st: Stencil5, b, u, resid: bool) -> torch.Tensor:
                  for n, c in zip(Stencil5._fields, st)}}
     if resid:
         fields["b"] = (b, (ny, nx))
-    _check_cuda(u.device, fields)
+    dtype = _check_cuda(u.device, fields, dtypes=FIELD_DTYPES)
     lib = load_library()
     y = torch.empty_like(u)
-    err = lib.mg_stencil_field(*(c.data_ptr() for c in st),
-                               b.data_ptr() if resid else None, u.data_ptr(),
-                               y.data_ptr(), ny, nx, int(resid),
-                               _stream(u.device))
+    err = entry(lib, "mg_stencil_field", dtype)(
+        *(c.data_ptr() for c in st), b.data_ptr() if resid else None,
+        u.data_ptr(), y.data_ptr(), ny, nx, int(resid), _stream(u.device))
     check(err, "field stencil launch")
     return y
 

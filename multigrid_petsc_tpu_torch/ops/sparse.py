@@ -19,12 +19,15 @@ the level's device, into the form its shape allows:
   ``"ell"``      the rest (coupling blocks): ELL storage, applied as a
                  torch gather and a row sum.
 
-This is the JAX package's route on the TPU.  The CUDA kernels take f32
-only, so a float64 operator is ELL by rule (the JAX package applies ELL
-to f64 too): ``form`` says which route a level took.  A level state is
-one (ny, nx) tensor for a single-grid level and a tuple of per-grid
-tensors for a merged level; ``apply`` and ``residual`` return the same
-kind.
+This is the JAX package's route on the TPU.  The CSR is assembled in
+f64; the level's values are stored in its dtype (bf16 through f32, as
+JAX's ``astype``).  K8 takes f32 and bf16 fields (bf16: f32 sums, each
+output rounded once), K16 f32; a float64 operator is ELL by rule (the
+JAX package applies ELL to f64 too), and a bf16 one in DIA form (a merged
+level's A1, whose K16 is not built in bf16) raises.  ``form`` says which
+route a level took.  A level state is one (ny, nx) tensor for a
+single-grid level and a tuple of per-grid tensors for a merged level;
+``apply`` and ``residual`` return the same kind.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from multigrid_petsc_tpu_torch.ops.cuda import stencil_kernel as sk
 from multigrid_petsc_tpu_torch.ops.cuda._build import load_assembler
 from multigrid_petsc_tpu_torch.ops.norms import flatten, tree_map, unflatten
 from multigrid_petsc_tpu_torch.ops.stencil import Stencil5
+from multigrid_petsc_tpu_torch.utils.config import not_ported
 
 MAX_DIAGS = dia_k.MAX_DIAGS
 
@@ -94,9 +98,17 @@ def _diagonals(indptr, indices):
     return uniq, k_of, r_of
 
 
+def _stored(data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The f64 values in ``dtype``; bf16 through f32, as JAX's ``astype``
+    rounds them."""
+    if dtype == torch.bfloat16:
+        data = data.to(torch.float32)
+    return data.to(dtype)
+
+
 def _dia_vals(uniq, k_of, r_of, data, rows, dtype):
     vals = torch.zeros((uniq.shape[0], rows), dtype=dtype, device=data.device)
-    vals.view(-1)[k_of * rows + r_of] = data.to(dtype)
+    vals.view(-1)[k_of * rows + r_of] = _stored(data, dtype)
     return vals
 
 
@@ -132,7 +144,7 @@ def _ell(indptr, indices, data, dtype):
     cols = torch.zeros((rows, k), dtype=torch.int32, device=indices.device)
     vals = torch.zeros((rows, k), dtype=dtype, device=indices.device)
     cols.view(-1)[flat] = indices
-    vals.view(-1)[flat] = data.to(dtype)
+    vals.view(-1)[flat] = _stored(data, dtype)
     return vals, cols
 
 
@@ -167,6 +179,11 @@ class SparseLevelOp:
                 del k_of, r_of
                 self.stencil = self._stencil_form(offsets, vals)
                 if self.stencil is None:
+                    if dtype == torch.bfloat16:
+                        raise not_ported(
+                            "a bf16 operator in DIA form (K16 in bf16, a "
+                            "merged level's A1)",
+                            "precision, bf16 merged grids")
                     self.form, self.dia = "dia", (offsets, vals)
                 else:
                     self.form = "stencil"

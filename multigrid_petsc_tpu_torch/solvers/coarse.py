@@ -4,7 +4,10 @@
 Direct: the dense operator is assembled on the host (analytically from a
 5- or 9-point stencil, or, for a merged level, from its assembled CSR)
 and inverted there in f64 with numpy, once at setup; each application is
-one small dense matvec ``a_inv @ b`` on the level's device.  CG: a fixed
+one small dense matvec ``a_inv @ b`` on the level's device.  On bf16
+storage (the bf16 working dtype's coarsest level, matrix-free or sparse)
+the inverse is rounded to bf16 once at set-up and each matvec sums in
+f32, its result rounded once.  CG: a fixed
 number of matrix-free CG iterations over the level's operator, for a
 coarsest level too large to densify.
 """

@@ -31,7 +31,15 @@ Precision: the working ``dtype`` is f32, f64 (64-bit levels run the
 kernels' f64 instantiations on the card) or bf16 (storage only: every
 kernel and plain version computes in f32 and rounds once where it
 stores; dots and the Krylov scalars are f32; one card, a single grid per
-level, matrix-free, point smoothers; ``_BF16_REFUSALS``);
+level, every smoother, matrix-free or sparse; ``_BF16_REFUSALS``).  A
+bf16 level's line smoothers run K15 on the f32 upcast of its line
+stencil with f32 factors (``line_kernel.line_stencil``); RBGS's
+half-sweep is ``residual5`` (r rounded once) and one ``torch.addcmul``
+with the colour's masked D^-1 in bf16 (u rounded once: addcmul computes
+u + d r in f32 on bf16 tensors, on the CPU and the card); the composed
+visits' transfers (``restrict_fw`` after the residual, ``prolong_bilinear``
+and the add before smoothing) are PyTorch ops on the bf16 tensors, each
+rounding its result, the generic route's rule (``solvers/krylov.py``);
 ``precond_dtype`` builds a second context, ``precond_ctx``, whose levels
 carry the Krylov outers' V-cycle preconditioner in that type, as the JAX
 package does.  What is not ported raises ``NotImplementedError`` naming
@@ -153,13 +161,8 @@ _MERGED_CYCLES = (CycleType.ICYCLE, CycleType.ECYCLE, CycleType.D1CYCLE,
                   CycleType.D2CYCLE, CycleType.D1PSCYCLE, CycleType.ADDITIVE2)
 _BF16_REFUSALS = {
     "plan": ("under a plan (-map)", "precision, bf16 under a plan"),
-    "line": ("with a line smoother",
-             "precision, bf16 with the line smoothers"),
-    "rbgs": ("with RBGS", "precision, bf16 with RBGS"),
     "merged": ("with merged grids (grids != levels; the I, E, D1, D2, D1PS "
                "and Additive2 cycles)", "precision, bf16 merged grids"),
-    "sparse": ("with backend='sparse'",
-               "precision, bf16 with the sparse backend"),
     "outer": ("with outer_dtype or precond_dtype",
               "precision, bf16 with outer_dtype / precond_dtype"),
 }
@@ -608,18 +611,10 @@ _SPLIT_CYCLES = (CycleType.D1CYCLE, CycleType.D2CYCLE, CycleType.D1PSCYCLE,
 def _bf16_refusal(cfg: SolverConfig, plan) -> str | None:
     """The key of ``_BF16_REFUSALS`` a bf16 config falls under, or None
     (the bf16 slice runs it)."""
-    smoothers = {cfg.smoother_at(l, cfg.levels) for l in range(cfg.levels)}
     if plan is not None:
         return "plan"
-    if smoothers & {SmootherType.LINE_X, SmootherType.LINE_Y,
-                    SmootherType.LINE_XY}:
-        return "line"
-    if SmootherType.RBGS in smoothers:
-        return "rbgs"
     if cfg.grids != cfg.levels or cfg.cycle in _MERGED_CYCLES:
         return "merged"
-    if cfg.backend == "sparse":
-        return "sparse"
     if cfg.outer_dtype is not None or cfg.precond_dtype is not None:
         return "outer"
     return None
@@ -689,7 +684,8 @@ def _check_smoother(lc: LevelCtx) -> None:
 
 def _setup_smoother(lc: LevelCtx, factors: bool = True) -> None:
     """What the level's smoother needs, made once: Chebyshev's lmax, RBGS's
-    masked D^-1, the line smoothers' collapsed stencils and (``factors``;
+    masked D^-1, the line smoothers' collapsed stencils in the compute type
+    (``line_kernel.line_stencil``: f32 on a bf16 level) and (``factors``;
     a level about to be sharded makes its block's) their factors (the
     y-lines over ny points, the x-lines of the transposed stencil over
     nx)."""
@@ -704,11 +700,11 @@ def _setup_smoother(lc: LevelCtx, factors: bool = True) -> None:
     elif s != SmootherType.JACOBI:
         st9 = _promote9(lc.stencil)
         if s in (SmootherType.LINE_Y, SmootherType.LINE_XY):
-            lc.line_st = lk.collapse_stencil(st9)
+            lc.line_st = lk.line_stencil(st9)
             if factors:
                 lc.line_fac = lk.line_factor(lc.line_st, ny)
         if s in (SmootherType.LINE_X, SmootherType.LINE_XY):
-            lc.line_st_x = lk.collapse_stencil(transpose_stencil9(st9))
+            lc.line_st_x = lk.line_stencil(transpose_stencil9(st9))
             if factors:
                 lc.line_fac_x = lk.line_factor(lc.line_st_x, nx)
 

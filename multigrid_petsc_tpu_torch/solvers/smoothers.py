@@ -18,7 +18,13 @@ card, its plain version on the CPU).
 Levels the fused kernels do not take (the explicit sparse backend's, and
 merged-grid levels) smooth with the generic ``jacobi`` / ``chebyshev``
 over the level's operator, or with ``composite_block_gs`` on a merged
-level, over states that are a tensor or a tuple of per-grid tensors.
+level, over states that are a tensor or a tuple of per-grid tensors.  On
+bf16 storage (the sparse backend's bf16 levels) ``jacobi``'s sweep is an
+RBGS half-sweep without the colours: r = b - A u from the operator's
+stored A u (K8's output, rounded once), rounded once, then
+``torch.addcmul`` (u + omega D^-1 r in f32, rounded once);
+``chebyshev``'s updates are PyTorch ops on the bf16 tensors, each
+rounding its result (the generic route's rule, ``solvers/krylov.py``).
 """
 
 from __future__ import annotations
@@ -60,10 +66,12 @@ def estimate_dinv_a_lmax(apply_fn: Callable, dinv, shapes,
 def jacobi(apply_fn: Callable, dinv, b, u, sweeps: int, omega: float = 0.8):
     """``sweeps`` damped-Jacobi iterations u += omega D^-1 (b - A u) over
     any operator (the explicit backend's, a merged level's): one
-    ``apply_fn`` per sweep, the update in PyTorch."""
+    ``apply_fn`` per sweep, the update one ``torch.addcmul`` (on bf16
+    storage r and u each rounded once: the module docstring)."""
     for _ in range(sweeps):
         au = apply_fn(u)
-        u = tree_map(lambda uk, dk, bk, ak: uk + omega * dk * (bk - ak),
+        u = tree_map(lambda uk, dk, bk, ak:
+                     torch.addcmul(uk, dk, bk - ak, value=omega),
                      u, dinv, b, au)
     return u
 

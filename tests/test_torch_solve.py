@@ -188,12 +188,16 @@ def test_cuda_request_without_cuda_raises():
 # (config changes, the item the message names; "plan": under a plan).
 BF16_REFUSALS = [
     (dict(plan=True), "bf16 under a plan"),
-    (dict(smoother=SmootherType.LINE_Y), "bf16 with the line smoothers"),
-    (dict(coarse_smoother=SmootherType.RBGS), "bf16 with RBGS"),
     (dict(grids=3, levels=2), "bf16 merged grids"),
-    (dict(backend="sparse"), "bf16 with the sparse backend"),
     (dict(precond_dtype="bfloat16"),
      "bf16 with outer_dtype / precond_dtype"),
+]
+# What the bf16 working dtype refused until the line smoothers, RBGS and
+# the sparse backend were ported: (config changes, the item it was).
+BF16_RUNS = [
+    (dict(smoother=SmootherType.LINE_Y), "bf16 with the line smoothers"),
+    (dict(coarse_smoother=SmootherType.RBGS), "bf16 with RBGS"),
+    (dict(backend="sparse"), "bf16 with the sparse backend"),
 ]
 
 
@@ -211,6 +215,17 @@ def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         solve(cfg, device="cpu", plan=plan)
     assert f"precision, {item})" in str(err.value)
+
+
+@pytest.mark.parametrize("kw,item", BF16_RUNS, ids=[c[1] for c in BF16_RUNS])
+def test_bf16_ported_options_run(kw, item):
+    """A bf16 combination the port once refused solves at 33^2: mg-CG
+    converges to rtol 1e-2 in bf16 storage, with f32 residual norms."""
+    cfg = SolverConfig(npts=33, grids=3, levels=3, cycle=CycleType.MGCG,
+                       dtype="bfloat16", rtol=1e-2, max_iter=30, **kw)
+    res = solve(cfg, device="cpu")
+    assert res.converged and res.u.dtype == torch.bfloat16, item
+    assert res.rnorm.dtype == np.float32
 
 
 def test_jax_smoother_enum_values_match():
